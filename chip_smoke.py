@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/H100 port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+It fails (non-zero exit, no result line) when no CUDA device is visible or
+the package is missing. Phases, each fatal on failure:
+
+1. device and build: the card's name and power limit; the kernels built
+   from ``src/repro_torch/kernels/csrc`` (build seconds, registers/spills);
+2. every kernel against its plain version on the card at the main path's
+   shapes, bf16 and fp32 (fp32: rmsnorm 1e-5, attention and decode stats
+   1e-4 for the other summation order; bf16 outputs 2e-2 against the plain
+   version in bf16, one bf16 ulp at 4 being 1.6e-2, and atol 4e-3 plus
+   rtol 8e-3, a few bf16 ulps of |out|, against the plain version in fp32
+   on the same bf16 inputs, since the kernels compute in fp32), each timed with CUDA events on a cold L2 beside its
+   plain version, a PyTorch library call where one computes the same
+   function (timed here only; the port never calls it), and its bound;
+3. a reduced llama3.2-3b (fp32, 4 layers) with the same parameters on the
+   CPU (plain versions) and on the card (kernels): logits after prefill and
+   8 decode steps within 1e-3, equal greedy tokens, equal engine tokens;
+4. llama3.2-3b at full width (28 layers, d_model 3072, vocab 128256) with
+   random bf16 weights from seed 0: an Engine(batch=8, cache_len=1024)
+   drains 16 requests; every kernel's launch count must be what the path
+   implies (rmsnorm 57 per forward, flash 28 per prefill, decode stats 28
+   per decode step) and every step's logits finite; then torch.profiler
+   over 5 decode steps with 8 live rows (device busy time, idle share, the
+   kernels that take the time).
+
+The last lines: the kernels' JSON line, the card's name and power limit as
+nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+              torch.float32: 67e12}    # fp32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Mean device ms per call with CUDA events, L2 flushed before each.
+
+    A sleep kernel holds the stream while the host enqueues every call, so
+    the events bracket device time only, not the host's launch overhead
+    (which :meth:`host_ms` measures on its own).
+    """
+
+    def __init__(self):
+        self.flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8,
+                                 device="cuda")
+        self(lambda: None, iters=2)             # first sleep/flush/events
+
+    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)          # ~50 ms of device time
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+    @staticmethod
+    def host_ms(fn, iters: int = 50) -> float:
+        """Mean host time to issue one call (no synchronisation inside)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return t
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def err_of(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max())
+
+
+def close(out, ref, tol: float, what: str, rtol: float | None = None
+          ) -> float:
+    err = err_of(out, ref)
+    rtol = tol if rtol is None else rtol
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=rtol)
+    check(ok, f"{what}: kernel and plain version differ, max abs err {err} "
+              f"(atol {tol}, rtol {rtol})")
+    return err
+
+
+# bf16 kernel output against the plain version run in fp32 on the same bf16
+# inputs: the kernels compute in fp32 and round once, so they sit within a
+# few bf16 ulps of |out| of it.
+BF16_VS_FP32 = dict(tol=4e-3, rtol=8e-3)
+
+
+def close_fp32(out, plain, args, what: str) -> float | None:
+    """For a bf16 ``out``, hold it against ``plain`` on ``args`` upcast to
+    fp32; None for an fp32 ``out`` (already held against fp32)."""
+    if out.dtype != torch.bfloat16:
+        return None
+    ref = plain(*(a.float() if a.dtype == torch.bfloat16 else a
+                  for a in args))
+    return close(out, ref, what=what + " vs fp32 plain", **BF16_VS_FP32)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against plain versions
+# ---------------------------------------------------------------------------
+def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.attention import NEG_INF, decode_stats_scores
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    cases: dict[str, list[dict]] = {"rmsnorm": [], "flash_attention": [],
+                                    "decode_stats": []}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 2e-2 if dtype == torch.bfloat16 else None
+        for rows in (8, 512):
+            d = 3072
+            x, sc = randn(rows, d).to(dtype), (randn(d) * 0.2).to(dtype)
+            y, what = rms_ops.rmsnorm(x, sc), f"rmsnorm {dtype} ({rows},{d})"
+            err = close(y, rms_ops.rmsnorm_ref(x, sc), tol or 1e-5, what)
+            err32 = close_fp32(y, rms_ops.rmsnorm_ref, (x, sc), what)
+            w = 1.0 + sc
+            b_ms, b_by = bound(2 * rows * d * x.element_size()
+                               + d * sc.element_size(), 4 * rows * d, dtype)
+            cases["rmsnorm"].append(dict(
+                shape=[rows, d], dtype=str(dtype), max_abs_err=err,
+                tolerance=tol or 1e-5, max_abs_err_vs_fp32_plain=err32,
+                ms=timer(lambda: rms_ops.rmsnorm(x, sc)),
+                host_ms=timer.host_ms(lambda: rms_ops.rmsnorm(x, sc)),
+                plain_ms=timer(lambda: rms_ops.rmsnorm_ref(x, sc)),
+                library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+                bound_ms=b_ms, bound_by=b_by))
+
+        flash = [(S, 24, 8, 128, dict(causal=True)) for S in (137, 512, 2048)]
+        flash += [(300, 8, 2, 64, m) for m in (dict(causal=True, window=64),
+                                               dict(causal=True, chunk=128),
+                                               dict(causal=True, cap=50.0))]
+        for S, H, KV, D, mask in flash:
+            q = randn(1, S, H, D).to(dtype)
+            k, v = randn(1, S, KV, D).to(dtype), randn(1, S, KV, D).to(dtype)
+            out, what = (flash_ops.flash_attention(q, k, v, **mask),
+                         f"flash {dtype} S={S} D={D} {mask}")
+            err = close(out, flash_ops.attention_ref(q, k, v, **mask),
+                        tol or 1e-4, what)
+            err32 = close_fp32(out, lambda *a: flash_ops.attention_ref(
+                *a, **mask), (q, k, v), what)
+            qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
+            allowed = qp >= kp
+            if mask.get("window"):
+                allowed &= (qp - kp) < mask["window"]
+            if mask.get("chunk"):
+                allowed &= (qp // mask["chunk"]) == (kp // mask["chunk"])
+            pairs = int(allowed.sum())
+            b_ms, b_by = bound((2 * q.numel() + 2 * k.numel())
+                               * q.element_size(), 4 * H * D * pairs, dtype)
+            lib_ms = None
+            if list(mask) == ["causal"]:
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            cases["flash_attention"].append(dict(
+                shape=[1, S, H, KV, D], mask=mask, dtype=str(dtype),
+                max_abs_err=err, tolerance=tol or 1e-4,
+                max_abs_err_vs_fp32_plain=err32,
+                ms=timer(lambda: flash_ops.flash_attention(q, k, v, **mask)),
+                host_ms=timer.host_ms(
+                    lambda: flash_ops.flash_attention(q, k, v, **mask)),
+                plain_ms=timer(lambda: flash_ops.attention_ref(q, k, v,
+                                                               **mask)),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+
+        B, KV, G, L, D = 8, 8, 3, 1024, 128
+        pos = torch.randint(64, 577, (B,), generator=g, device="cuda")
+        s, _ = decode_stats_scores(randn(B, 1, KV * G, D), randn(B, L, KV, D),
+                                   pos)
+        s[0] = NEG_INF                                 # a fully masked row
+        m = s.amax(-1)
+        v = randn(B, L, KV, D).to(dtype)
+        o, l = stats_ops.accumulate(s, m, v)
+        ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+        what = f"decode_stats {dtype}"
+        err = max(close(o, ro, tol or 1e-4, what + " o"),
+                  close(l, rl, tol or 1e-4, what + " l"))
+        err32 = None
+        if dtype == torch.bfloat16:       # o and l are fp32 outputs already
+            ro32, rl32 = stats_ops.decode_stats_accumulate_ref(s, m, v.float())
+            err32 = max(close(o, ro32, what=what + " o vs fp32 plain",
+                              **BF16_VS_FP32),
+                        close(l, rl32, what=what + " l vs fp32 plain",
+                              **BF16_VS_FP32))
+        check(float(o[0].abs().max()) == 0.0 and float(l[0].abs().max()) == 0,
+              "decode_stats: the fully masked row is not 0")
+        slots = int((pos[1:] + 1).sum())               # V rows the data needs
+        nbytes = (s.numel() + m.numel() + o.numel() + l.numel()) * 4 \
+            + slots * KV * D * v.element_size()
+        b_ms, b_by = bound(nbytes, 2 * G * D * KV * slots, dtype)
+        cases["decode_stats"].append(dict(
+            shape=[B, KV, G, L, D], dtype=str(dtype), max_abs_err=err,
+            tolerance=tol or 1e-4, max_abs_err_vs_fp32_plain=err32,
+            positions=pos.tolist(),
+            ms=timer(lambda: stats_ops.accumulate(s, m, v)),
+            host_ms=timer.host_ms(lambda: stats_ops.accumulate(s, m, v)),
+            plain_ms=timer(lambda: stats_ops.decode_stats_accumulate_ref(
+                s, m, v)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the reduced model on the CPU (plain) and on the card (kernels)
+# ---------------------------------------------------------------------------
+def small_end_to_end() -> None:
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.serve import Engine, Request, ServeSpec, StepClock
+
+    cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), n_layers=4,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu, gpu = Transformer(cfg, params, "cpu"), Transformer(cfg, params, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24)))
+    lc, cc = cpu(toks, mode="prefill", cache_len=64)
+    lg, cg = gpu(toks.cuda(), mode="prefill", cache_len=64)
+    worst = 0.0
+    for step in range(9):
+        worst = max(worst, close(lg.cpu(), lc, 1e-3, f"small model step {step}"))
+        nxt_c = lc[:, -1].argmax(-1)
+        check(torch.equal(nxt_c, lg[:, -1].argmax(-1).cpu()),
+              f"small model: greedy tokens differ at step {step}")
+        if step < 8:
+            lc, cc = cpu(nxt_c[:, None], mode="decode", cache=cc)
+            lg, cg = gpu(nxt_c[:, None].cuda(), mode="decode", cache=cg)
+
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(0, cfg.vocab_size, n), m)
+            for n, m in [(9, 6), (30, 4), (17, 8), (5, 5), (21, 3)]]
+    out = []
+    for device in ("cpu", "cuda"):
+        eng = Engine(cfg, params, ServeSpec(batch=3, cache_len=64),
+                     device=device, clock=StepClock())
+        for t, m in reqs:
+            eng.submit(Request(tokens=t, max_new=m))
+        out.append({rid: r.tokens.tolist() for rid, r in eng.drain().items()})
+    check(out[0] == out[1], f"small engine tokens differ: {out}")
+    print(json.dumps({"phase": "small_end_to_end", "layers": cfg.n_layers,
+                      "max_abs_logit_err": worst, "decode_steps": 8,
+                      "engine_requests": len(reqs), "tokens_equal": True}))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: llama3.2-3b at full width
+# ---------------------------------------------------------------------------
+def serve_full_width(smi: str) -> dict[str, int]:
+    from repro_torch import configs
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec
+
+    cfg = configs.get("llama3.2-3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    eng = Engine(cfg, params, ServeSpec(batch=8, cache_len=1024))
+    del params
+    n_params = sum(p.numel() for p in eng.model.parameters())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    forward, calls = eng.model.forward, []
+
+    def timed_forward(tokens, mode="prefill", **kw):
+        a = time.perf_counter()
+        logits, cache = forward(tokens, mode=mode, **kw)
+        finite = bool(torch.isfinite(logits).all())      # synchronises
+        calls.append((mode, time.perf_counter() - a, finite))
+        return logits, cache
+
+    eng.model.forward = timed_forward
+    rng = np.random.default_rng(0)
+    warm = Request(tokens=rng.integers(0, cfg.vocab_size, 64), max_new=4)
+    eng.submit(warm)                                     # cuBLAS, allocator
+    eng.drain()
+    base, calls[:] = eng.stats(), []
+
+    lens = rng.integers(64, 513, 16)
+    budgets = rng.integers(16, 65, 16)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n), max_new=int(m))
+            for n, m in zip(lens, budgets)]
+    rms_ops.LAUNCHES = flash_ops.LAUNCHES = stats_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(r) for r in reqs]
+    results = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rms_ops.LAUNCHES,
+                "flash_attention": flash_ops.LAUNCHES,
+                "decode_stats": stats_ops.LAUNCHES}
+
+    st = {k: v - base[k] for k, v in eng.stats().items()
+          if k in ("decode_steps", "prefills", "prefill_tokens",
+                   "decode_tokens")}
+    for rid, r in zip(rids, reqs):
+        res = results[rid]
+        check(res.n_tokens == r.max_new, f"request {rid}: {res.n_tokens} "
+                                         f"tokens, budget {r.max_new}")
+        check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+              f"request {rid}: token out of range")
+    check(all(f for _, _, f in calls), "non-finite logits in a step")
+    n_fwd = st["prefills"] + st["decode_steps"]
+    L = cfg.n_layers
+    want = {"rmsnorm": (2 * L + 1) * n_fwd,
+            "flash_attention": L * st["prefills"],
+            "decode_stats": L * st["decode_steps"]}
+    check(launches == want, f"launch counts {launches}, path implies {want}")
+    check(st["prefills"] == len(reqs)
+          and st["prefill_tokens"] == int(lens.sum())
+          and st["decode_tokens"] == int((budgets - 1).sum()),
+          f"engine stats {st}")
+
+    eng.model.forward = forward
+    profile_decode(eng, reqs)
+    prefill_s = sum(t for mode, t, _ in calls if mode == "prefill")
+    decode_s = sum(t for mode, t, _ in calls if mode == "decode")
+    print(json.dumps({
+        "phase": "serve_full_width", "model": cfg.name, "params": n_params,
+        "layers": L, "batch": 8, "cache_len": 1024, "requests": len(reqs),
+        "prompt_tokens": st["prefill_tokens"],
+        "generated_tokens": int(budgets.sum()),
+        "decode_steps": st["decode_steps"], "wall_s": wall,
+        "setup_s": setup_s,
+        "prefill_tok_s": st["prefill_tokens"] / prefill_s,
+        "decode_tok_s": st["decode_tokens"] / decode_s,
+        "decode_step_ms_mean": decode_s / st["decode_steps"] * 1e3,
+        "prefill_ms_mean": prefill_s / st["prefills"] * 1e3,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "card": smi}))
+    return launches
+
+
+def profile_decode(eng, reqs, steps: int = 5) -> None:
+    """torch.profiler over a few decode steps with 8 live rows: device busy
+    time per step, the idle share of the wall time, launches per step and
+    the kernels that take the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request
+    for r in reqs[:8]:
+        eng.submit(Request(tokens=r.tokens[:64], max_new=steps + 4))
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.drain()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"phase": "profile_decode", "steps": steps, "live_rows": 8,
+           "wall_ms_per_step": wall / steps * 1e3}
+    if busy_us <= 0:
+        out["device_ms_per_step"] = "not measured (no device time traced)"
+    else:
+        out.update({
+            "device_ms_per_step": busy_us / steps / 1e3,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "device_ops_per_step": sum(e.count for e in dev) / steps,
+            "top_device": [[e.key[:70], e.self_device_time_total / steps / 1e3,
+                            e.count // steps] for e in top]})
+    print(json.dumps(out))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    info = _build.build()
+    _build.lib()
+    print(f"kernels built in {info.seconds:.1f} s into {info.path.parent}")
+    for line in info.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  " + line.strip())
+
+    timer = Timer()
+    cases = kernel_cases(timer)
+    for name, rows in cases.items():
+        for row in rows:
+            print(json.dumps({"kernel": name, **row}))
+    small_end_to_end()
+    launches = serve_full_width(smi)
+
+    meta = {
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/rmsnorm.py:17", 0),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash.py:32", 1),
+        "decode_stats": ("src/repro_torch/kernels/csrc/decode_stats.cu",
+                         "src/repro/kernels/decode_stats/stats.py:35", 0),
+    }
+    kernels = []
+    for name, (source, replaces, headline) in meta.items():
+        row = cases[name][headline]                      # bf16, main path
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "host_ms": row["host_ms"],
+            "shape": row["shape"],
+            "dtype": row["dtype"]})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``.
+
+Only the architectures the port serves are listed. The JAX package's other
+architectures raise ``NotImplementedError`` naming the slice they wait for.
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import LayerSpec, ModelConfig, check_supported, reduced
+
+ARCHS = ("llama3.2-3b",)
+
+# the JAX package's other architectures -> the port slice that brings them
+PENDING = {
+    "yi-6b": "the dense-variants slice (untied output head)",
+    "h2o-danube-3-4b": "the dense-variants slice (sliding window, ring cache)",
+    "gemma2-9b": "the dense-variants slice (window, softcaps, sandwich norm)",
+    "qwen2-moe-a2.7b": "the MoE slice",
+    "llama4-scout-17b-a16e": "the MoE slice (chunked attention, NoPE)",
+    "mamba2-780m": "the SSM slice (ssd kernel)",
+    "zamba2-1.2b": "the SSM slice (hybrid shared attention)",
+    "whisper-tiny": "the encoder-decoder slice",
+    "internvl2-26b": "the VLM slice",
+}
+
+_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
+
+
+def _module(name: str):
+    if name in PENDING:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: it waits for {PENDING[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {list(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).SMOKE
+
+
+__all__ = ["ARCHS", "LayerSpec", "ModelConfig", "PENDING", "check_supported",
+           "get", "get_smoke", "reduced"]

@@ -1,0 +1,195 @@
+"""Model configuration schema of the port.
+
+A ``ModelConfig`` determines an architecture: the layer plan (which mixer
+and which MLP sit at every depth) and every dimension. Field names and
+defaults are those of the JAX package's ``repro.configs.base`` so a
+configuration reads the same in both; dtypes are torch dtypes.
+
+The port builds only what it serves. Flags whose code paths have not been
+ported are still carried here (so configurations stay complete) and are
+rejected by :func:`check_supported` when a model is built.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer of the stack: a (mixer, mlp) pair.
+
+    mixer: 'attn' | 'mamba2' | 'shared_attn'
+    attn:  'full' | 'window' | 'chunked' | 'none'
+    mlp:   'dense' | 'moe' | 'none'
+    rope:  rotary applied to this layer's attention (False => NoPE)
+    """
+
+    mixer: str = "attn"
+    attn: str = "full"
+    mlp: str = "dense"
+    rope: bool = True
+
+    def key(self) -> tuple:
+        return (self.mixer, self.attn, self.mlp, self.rope)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 => d_model // n_heads
+
+    # --- attention options ---------------------------------------------------
+    rope_theta: float = 10_000.0
+    window: int = 0
+    chunk: int = 0
+    attn_pattern: tuple[str, ...] = ("full",)
+    nope_every: int = 0
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    qk_norm: bool = False
+    sandwich_norm: bool = False
+    mlp_act: str = "silu"
+    scale_embed: bool = False
+    norm_type: str = "rms"
+
+    # --- MoE ------------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    n_shared_experts: int = 0
+    d_shared_expert: int = 0
+    moe_every: int = 1
+    router_norm_topk: bool = True
+    router_act: str = "softmax"
+    capacity_factor: float = 1.25
+
+    # --- SSM (Mamba2) ----------------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+
+    # --- hybrid / enc-dec / vlm ---------------------------------------------------
+    shared_attn_every: int = 0
+    n_enc_layers: int = 0
+    enc_seq: int = 0
+    n_img_tokens: int = 0
+
+    # --- embedding / misc --------------------------------------------------------
+    tie_embeddings: bool = True
+    vocab_pad_multiple: int = 256
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16       # activation/compute dtype
+    param_dtype: Any = torch.float32
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab_size // m) * m
+
+    def layer_plan(self) -> tuple[LayerSpec, ...]:
+        """The (mixer, mlp) pair at every depth, derived from the family."""
+        if self.family == "ssm":
+            return tuple(LayerSpec(mixer="mamba2", attn="none", mlp="none")
+                         for _ in range(self.n_layers))
+        plan: list[LayerSpec] = []
+        if self.family == "hybrid":
+            for i in range(self.n_layers):
+                plan.append(LayerSpec(mixer="mamba2", attn="none", mlp="none"))
+                if self.shared_attn_every and (i + 1) % self.shared_attn_every == 0:
+                    plan.append(LayerSpec(mixer="shared_attn", attn="full",
+                                          mlp="dense"))
+            return tuple(plan)
+        for i in range(self.n_layers):
+            if self.nope_every and (i + 1) % self.nope_every == 0:
+                attn, rope = "full", False
+            else:
+                attn = self.attn_pattern[i % len(self.attn_pattern)]
+                rope = True
+            mlp = "moe" if (self.n_experts and i % self.moe_every == 0) else "dense"
+            plan.append(LayerSpec(mixer="attn", attn=attn, mlp=mlp, rope=rope))
+        return tuple(plan)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise on any flag whose code path this port does not have yet.
+
+    The dense llama-family decoder with full causal attention, SwiGLU,
+    RMSNorm and rotary embeddings is served; everything else waits for a
+    later slice of the port and must not be ignored silently.
+    """
+    unsupported = []
+    if cfg.family != "dense":
+        unsupported.append(f"family={cfg.family!r}")
+    if cfg.n_experts:
+        unsupported.append("n_experts (MoE)")
+    if cfg.ssm_state:
+        unsupported.append("ssm_state (Mamba2)")
+    if cfg.window or cfg.chunk or any(s.attn != "full" or not s.rope
+                                      for s in cfg.layer_plan()):
+        unsupported.append("window/chunked/NoPE layers (ring caches)")
+    if cfg.sandwich_norm:
+        unsupported.append("sandwich_norm")
+    if cfg.qk_norm:
+        unsupported.append("qk_norm")
+    if cfg.scale_embed:
+        unsupported.append("scale_embed")
+    if cfg.attn_softcap or cfg.final_softcap:
+        unsupported.append("attn_softcap/final_softcap")
+    if cfg.mlp_act != "silu":
+        unsupported.append(f"mlp_act={cfg.mlp_act!r}")
+    if cfg.norm_type != "rms":
+        unsupported.append(f"norm_type={cfg.norm_type!r}")
+    if not cfg.tie_embeddings:
+        unsupported.append("untied output head")
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not implement "
+            f"{', '.join(unsupported)} yet (see ROADMAP.md)")
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A tiny same-family variant for CPU smoke tests (the JAX package's
+    ``reduced`` field for field)."""
+    base = dict(
+        n_layers=min(cfg.n_layers, 4),
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2),
+        d_ff=256,
+        vocab_size=512,
+        head_dim=32,
+        window=min(cfg.window, 64) if cfg.window else 0,
+        chunk=min(cfg.chunk, 64) if cfg.chunk else 0,
+        n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+        d_expert=64 if cfg.n_experts else 0,
+        n_shared_experts=min(cfg.n_shared_experts, 2),
+        d_shared_expert=64 if cfg.n_shared_experts else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_headdim=16 if cfg.ssm_state else 64,
+        ssm_chunk=32,
+        shared_attn_every=2 if cfg.shared_attn_every else 0,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        enc_seq=32 if cfg.enc_seq else 0,
+        n_img_tokens=8 if cfg.n_img_tokens else 0,
+        vocab_pad_multiple=64,
+        name=cfg.name + "-smoke",
+    )
+    base.update(overrides)
+    return dataclasses.replace(cfg, **base)

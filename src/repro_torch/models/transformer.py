@@ -1,0 +1,216 @@
+"""Dense decoder-only transformer of the port (the llama family).
+
+Mirrors the dense path of ``repro.models.transformer.forward``:
+
+* ``mode="prefill"``: tokens (B,S) -> last-position logits (B,1,Vpad) and a
+  cache padded to ``cache_len`` slots, with ``cache["pos"] = S``;
+* ``mode="decode"``: tokens (B,1) against that cache -> logits (B,1,Vpad);
+  the cache is updated in place and ``pos`` advances by one. ``pos`` is a
+  0-d tensor (lockstep batch) or (B,) (continuous batching).
+
+The JAX package scans stacked ``blocks/slot{j}`` parameters; here the
+layers are a ``ModuleList`` in global layer order, and the cache holds one
+stacked (n_layers, B, L, KV, D) tensor for keys and one for values.
+
+Parameters are a flat dict keyed like this module's ``state_dict``:
+``embed`` (Vpad, d), ``final_norm`` (d,), and ``layers.{i}.{name}`` for
+``ln1, wq, wk, wv, wo, ln2, gate, up, down`` in the JAX ``(d_in, d_out)``
+layout. :func:`init_params` makes them from a ``torch.Generator``;
+:func:`params_from_jax` converts the JAX package's ``init_params`` tree
+(passed as numpy arrays).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs import ModelConfig, check_supported
+from . import attention as attn
+from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
+                     rmsnorm, rope_angles)
+
+LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
+
+
+def find_period(plan) -> tuple[int, int, int]:
+    """(period, reps, remainder) of a layer plan: the JAX package's
+    super-block structure, needed to read its stacked parameters."""
+    keys = [s.key() for s in plan]
+    n = len(keys)
+    for pi in range(1, n + 1):
+        reps = n // pi
+        if reps < 1:
+            break
+        if all(keys[i] == keys[i % pi] for i in range(reps * pi)):
+            return pi, reps, n - reps * pi
+    return n, 1, 0
+
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: attention then SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        for name in LAYER_PARAMS:
+            self.register_parameter(
+                name, nn.Parameter(weights[name], requires_grad=False))
+
+    def forward(self, x, cos, sin, *, kv_cache=None, pos=None):
+        """Prefill (``kv_cache`` None): returns (x, (k, v)) with this
+        layer's keys and values. Decode: writes the token's key and value
+        into ``kv_cache = (k_cache, v_cache)`` in place at ``pos`` and
+        returns (x, None)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        h = rmsnorm(x, self.ln1, eps=cfg.norm_eps)
+        q = apply_rope_angles((h @ self.wq).reshape(B, S, H, D), cos, sin)
+        k = apply_rope_angles((h @ self.wk).reshape(B, S, KV, D), cos, sin)
+        v = (h @ self.wv).reshape(B, S, KV, D)
+        if kv_cache is None:
+            o = attn.multihead_attention(q, k, v, causal=True)
+            kv = (k, v)
+        else:
+            k_cache, v_cache = kv_cache
+            attn.write_cache(k_cache, k, pos)
+            attn.write_cache(v_cache, v, pos)
+            o = attn.decode_attention(q, k_cache, v_cache, pos)
+            kv = None
+        x = x + o.reshape(B, S, H * D) @ self.wo
+        h = rmsnorm(x, self.ln2, eps=cfg.norm_eps)
+        return x + mlp_apply(h, self.gate, self.up, self.down), kv
+
+
+class Transformer(nn.Module):
+    """The dense decoder, parameters held in ``cfg.dtype`` on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict[str, Any],
+                 device: torch.device | str):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+
+        def load(name):
+            t = torch.as_tensor(params[name])
+            return t.to(device=device, dtype=cfg.dtype)
+
+        self.embed = nn.Parameter(load("embed"), requires_grad=False)
+        self.final_norm = nn.Parameter(load("final_norm"), requires_grad=False)
+        self.layers = nn.ModuleList(
+            Block(cfg, {n: load(f"layers.{i}.{n}") for n in LAYER_PARAMS})
+            for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def empty_cache(self, batch: int, cache_len: int, *,
+                    vector_pos: bool = False) -> dict[str, torch.Tensor]:
+        """A zeroed cache for ``batch`` rows of ``cache_len`` slots."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+        pos_shape = (batch,) if vector_pos else ()
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                "pos": torch.zeros(pos_shape, dtype=torch.long,
+                                   device=self.device)}
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, mode: str = "prefill",
+                cache: dict[str, torch.Tensor] | None = None,
+                cache_len: int = 0):
+        """Returns ``(logits, new_cache)``; see the module docstring."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens]
+        if mode == "prefill":
+            if cache is not None:
+                raise ValueError("prefill builds its cache; pass cache_len")
+            L = cache_len or S
+            if S > L:
+                raise ValueError(f"prompt of {S} tokens exceeds the "
+                                 f"{L}-slot cache")
+            new_cache = self.empty_cache(B, L)
+            positions = torch.arange(S, device=tokens.device)[None]
+            cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+            for i, layer in enumerate(self.layers):
+                x, (k, v) = layer(x, cos, sin)
+                new_cache["k"][i, :, :S] = k
+                new_cache["v"][i, :, :S] = v
+            new_cache["pos"] = torch.tensor(S, dtype=torch.long,
+                                            device=tokens.device)
+            # the norm is per row, so norming the last position alone is exact
+            x = x[:, -1:].contiguous()
+        elif mode == "decode":
+            if cache is None:
+                raise ValueError("decode needs a cache")
+            pos = cache["pos"]
+            positions = pos[:, None] if pos.ndim == 1 else pos.expand(B, 1)
+            cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+            for i, layer in enumerate(self.layers):
+                x, _ = layer(x, cos, sin, kv_cache=(cache["k"][i],
+                                                    cache["v"][i]), pos=pos)
+            new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        x = rmsnorm(x, self.final_norm, eps=cfg.norm_eps)
+        return x @ self.embed.T, new_cache
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Random parameters with the JAX ``init_params`` distributions (other
+    bits): dense N(0, 1/d_in), embedding N(0, 0.02^2), norm scales 0.
+    Each tensor is drawn in fp32 on ``device`` and stored in ``cfg.dtype``,
+    the dtype the model holds it in (the JAX engine casts its fp32
+    parameters to ``cfg.dtype`` the same way)."""
+    dtype = cfg.dtype
+    d, D, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)
+    dense = lambda a, b: dense_init(generator, a, b, dtype, device)
+    params = {"embed": embed_init(generator, cfg.padded_vocab, d, dtype,
+                                  device),
+              "final_norm": zeros()}
+    for i in range(cfg.n_layers):
+        layer = {"ln1": zeros(), "wq": dense(d, H * D), "wk": dense(d, KV * D),
+                 "wv": dense(d, KV * D), "wo": dense(H * D, d), "ln2": zeros(),
+                 "gate": dense(d, f), "up": dense(d, f), "down": dense(f, d)}
+        params.update({f"layers.{i}.{n}": t for n, t in layer.items()})
+    return params
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The JAX ``transformer.init_params`` tree, with numpy leaves, as the
+    port's flat parameter dict (CPU tensors, straight copies: both packages
+    keep weights as (d_in, d_out)). Layer ``i*pi + j`` is
+    ``blocks["slot{j}"][i]``, layer ``reps*pi + r`` is ``rest[r]``."""
+    check_supported(cfg)
+    pi, reps, rem = find_period(cfg.layer_plan())
+    t = lambda a: torch.from_numpy(np.array(a, copy=True))
+    params = {"embed": t(tree["embed"]),
+              "final_norm": t(tree["final_norm"]["scale"])}
+
+    def put(i, lp, idx=None):
+        take = (lambda a: a[idx]) if idx is not None else (lambda a: a)
+        leaves = {"ln1": lp["ln1"]["scale"], "wq": lp["attn"]["wq"],
+                  "wk": lp["attn"]["wk"], "wv": lp["attn"]["wv"],
+                  "wo": lp["attn"]["wo"], "ln2": lp["ln2"]["scale"],
+                  "gate": lp["mlp"]["gate"], "up": lp["mlp"]["up"],
+                  "down": lp["mlp"]["down"]}
+        params.update({f"layers.{i}.{n}": t(take(a))
+                       for n, a in leaves.items()})
+
+    for i in range(reps):
+        for j in range(pi):
+            put(i * pi + j, tree["blocks"][f"slot{j}"], i)
+    for r in range(rem):
+        put(reps * pi + r, tree["rest"][r])
+    return params

@@ -1,0 +1,228 @@
+"""Continuous-batching scheduler of the port, on one rank.
+
+The single-rank loop of ``repro.serve.scheduler.Scheduler``: requests are
+admitted FCFS into free cache rows between decode steps (against the paged
+accounting of :mod:`.paged`), each admitted request is prefilled at B=1,
+its cache row is copied into the live batch cache and its first token
+taken, then every step decodes the whole batch once with per-row (B,)
+positions and harvests the rows whose budget is spent.
+
+Clocks are injectable: :class:`WallClock` for real latency numbers,
+:class:`StepClock` for deterministic replay.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .paged import PagedKVCache
+from .spec import Request, RequestResult
+
+
+class WallClock:
+    """Real time; ``idle_until`` naps toward the next arrival."""
+
+    def now(self) -> float:
+        return time.perf_counter()
+
+    def advance(self, kind: str) -> None:   # wall time advances itself
+        pass
+
+    def idle_until(self, t: float) -> None:
+        dt = t - self.now()
+        if dt > 0:
+            time.sleep(min(dt, 0.05))
+
+
+class StepClock:
+    """Deterministic virtual clock: each decode step / prefill advances time
+    by a fixed cost, so stamps are exact functions of trace and schedule."""
+
+    def __init__(self, decode_cost: float = 1.0, prefill_cost: float = 1.0):
+        self.t = 0.0
+        self.decode_cost = decode_cost
+        self.prefill_cost = prefill_cost
+
+    def now(self) -> float:
+        return self.t
+
+    def advance(self, kind: str) -> None:
+        self.t += self.prefill_cost if kind == "prefill" else self.decode_cost
+
+    def idle_until(self, t: float) -> None:
+        self.t = max(self.t, t)
+
+
+@dataclasses.dataclass
+class _Active:
+    req: Request
+    row: int
+    started_s: float
+    tokens: list = dataclasses.field(default_factory=list)
+    times: list = dataclasses.field(default_factory=list)
+
+
+class Scheduler:
+    """Continuous-batching loop over an Engine's model and batch cache.
+
+    Use through ``Engine.submit / step / drain``. ``step()``: admit (FCFS
+    while a row is free and the queue head has arrived) -> one decode step
+    over the batch -> harvest finished rows.
+    """
+
+    def __init__(self, engine, *, clock=None):
+        self.engine = engine
+        self.model = engine.model
+        self.cfg = engine.cfg
+        self.spec = engine.spec
+        self.clock = clock or WallClock()
+        self.paged = PagedKVCache(self.spec.batch, self.spec.cache_len,
+                                  self.spec.page_len, n_pods=1)
+        self.queue: list[Request] = []       # sorted by (arrival_s, rid)
+        self.active: dict[int, _Active] = {}
+        self.results: dict[int, RequestResult] = {}
+        self._next_rid = 0
+        self._tok = np.zeros((self.spec.batch, 1), np.int64)
+        self._cache = self.model.empty_cache(self.spec.batch,
+                                             self.spec.cache_len,
+                                             vector_pos=True)
+        self.counts = {"decode_steps": 0, "prefills": 0, "prefill_tokens": 0,
+                       "decode_tokens": 0}
+
+    # -- public API -----------------------------------------------------
+    def submit(self, req: Request) -> int:
+        """Enqueue; returns the request id (the handle)."""
+        if not self.paged.fits(req.tokens.size, req.max_new):
+            raise ValueError(
+                f"request of {req.tokens.size}+{req.max_new} tokens can "
+                f"never fit a {self.spec.cache_len}-slot row")
+        rid = self._next_rid
+        self._next_rid += 1
+        arrival = req.arrival_s if req.arrival_s is not None \
+            else self.clock.now()
+        req = dataclasses.replace(req, rid=rid, arrival_s=arrival)
+        bisect.insort(self.queue, req, key=lambda r: (r.arrival_s, r.rid))
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Evict a queued or running request (finish_reason "evicted")."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                self._finish_meta(rid, req, None, "evicted")
+                return True
+        st = self.active.pop(rid, None)
+        if st is not None:
+            self.paged.release(rid)
+            self._finish_meta(rid, st.req, st, "evicted")
+            return True
+        return False
+
+    def step(self) -> list[RequestResult]:
+        """Admit what fits, run one decode step, harvest finished rows."""
+        self._admit()
+        if not self.active:
+            if self.queue:
+                self.clock.idle_until(self.queue[0].arrival_s)
+                self._admit()
+            if not self.active:
+                return []
+        toks = torch.from_numpy(self._tok).to(self.model.device)
+        logits, self._cache = self.model(toks, mode="decode",
+                                         cache=self._cache)
+        nxt = self._next_token(logits)
+        self.clock.advance("decode")
+        self.counts["decode_steps"] += 1
+        return self._harvest(nxt)
+
+    def drain(self) -> dict[int, RequestResult]:
+        """Run until queue and batch are empty; all results by rid."""
+        while self.queue or self.active:
+            self.step()
+        return dict(self.results)
+
+    def result(self, rid: int) -> RequestResult | None:
+        return self.results.get(rid)
+
+    def stats(self) -> dict:
+        return {**self.counts, "active": len(self.active),
+                "queued": len(self.queue), "finished": len(self.results)}
+
+    # -- internals ------------------------------------------------------
+    def _next_token(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy rule of the JAX engine: argmax of the last position,
+        clamped below the padded-vocab ids; (B,1) int64 on the host."""
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return torch.clamp(tok, max=self.cfg.vocab_size - 1).cpu().numpy()
+
+    def _admit(self) -> None:
+        now = self.clock.now()
+        while self.queue:
+            req = self.queue[0]
+            if req.arrival_s > now:
+                break                      # not arrived yet
+            row = self.paged.reserve(req.rid, req.tokens.size, req.max_new)
+            if row is None:
+                break                      # FCFS: the head waits, nobody
+            self.queue.pop(0)              # overtakes (starvation-free)
+            self._start(req, row)
+            now = self.clock.now()
+
+    def _start(self, req: Request, row: int) -> None:
+        S = int(req.tokens.size)
+        toks = torch.from_numpy(req.tokens.astype(np.int64))[None].to(
+            self.model.device)
+        logits, req_cache = self.model(toks, mode="prefill",
+                                       cache_len=self.spec.cache_len)
+        tok0 = self._next_token(logits)
+        self.clock.advance("prefill")
+        self.counts["prefills"] += 1
+        self.counts["prefill_tokens"] += S
+        # insert the request's row into the live batch cache
+        self._cache["k"][:, row] = req_cache["k"][:, 0]
+        self._cache["v"][:, row] = req_cache["v"][:, 0]
+        self._cache["pos"][row] = S
+        t = self.clock.now()
+        st = _Active(req=req, row=row, started_s=t)
+        st.tokens.append(int(tok0[0, 0]))
+        st.times.append(t)
+        self._tok[row, 0] = st.tokens[-1]
+        self.active[req.rid] = st
+        if len(st.tokens) >= req.max_new:
+            self._finish(req.rid, "length")
+
+    def _harvest(self, nxt: np.ndarray) -> list[RequestResult]:
+        t = self.clock.now()
+        done = []
+        for rid in list(self.active):
+            st = self.active[rid]
+            st.tokens.append(int(nxt[st.row, 0]))
+            st.times.append(t)
+            self.counts["decode_tokens"] += 1
+            self._tok[st.row, 0] = st.tokens[-1]
+            if len(st.tokens) >= st.req.max_new:
+                done.append(self._finish(rid, "length"))
+        return done
+
+    def _finish(self, rid: int, reason: str) -> RequestResult:
+        st = self.active.pop(rid)
+        self.paged.release(rid)
+        return self._finish_meta(rid, st.req, st, reason)
+
+    def _finish_meta(self, rid: int, req: Request, st, reason: str
+                     ) -> RequestResult:
+        res = RequestResult(
+            rid=rid,
+            tokens=np.asarray(st.tokens if st else [], np.int32),
+            finish_reason=reason,
+            arrival_s=req.arrival_s or 0.0,
+            started_s=st.started_s if st else self.clock.now(),
+            finished_s=self.clock.now(),
+            token_times_s=list(st.times) if st else [],
+            slot=st.row if st else -1)
+        self.results[rid] = res
+        return res

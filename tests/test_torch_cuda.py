@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: they skip where no CUDA device is visible and run with
+``python -m pytest -m gpu tests/test_torch_cuda.py`` on a machine with an
+H100 and ``nvcc`` (the kernels build at first use). This file imports no
+JAX, so it runs where only PyTorch is installed. Tolerances: fp32 rmsnorm
+1e-5, fp32 attention and decode stats 1e-4 (the kernels sum in another
+order); bf16 outputs 2e-2 (one bf16 ulp at 4 is 1.6e-2).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.decode_stats import ops as stats_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models import attention as tattention
+
+FLASH_CASES = [
+    # (B, S, T, H, KV, D, mask)
+    (2, 64, 64, 4, 2, 32, dict(causal=True)),
+    (1, 48, 48, 4, 4, 32, dict(causal=False)),
+    (1, 64, 64, 6, 2, 64, dict(causal=True, window=16)),
+    (1, 64, 64, 4, 1, 32, dict(causal=True, chunk=16)),
+    (1, 40, 40, 4, 2, 32, dict(causal=True, cap=30.0)),
+    (1, 37, 37, 4, 2, 32, dict(causal=True, window=8, cap=50.0)),
+    (2, 23, 41, 8, 2, 32, dict(causal=False)),          # ragged S != T
+    (1, 29, 29, 3, 1, 64, dict(causal=True)),           # GQA G=3, odd S
+    (1, 137, 137, 24, 8, 128, dict(causal=True)),       # llama3.2-3b heads
+    (1, 100, 100, 4, 2, 256, dict(causal=True)),
+]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (card only)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, ref, dtype, fp32_tol):
+    tol = fp32_tol if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 3072), (37, 100), (2, 5, 128)])
+def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    sc = (torch.randn(shape[-1], generator=g, device=cuda) * 0.2).to(dtype)
+    before = rms_ops.LAUNCHES
+    out = rms_ops.rmsnorm(x, sc)
+    torch.cuda.synchronize()
+    assert rms_ops.LAUNCHES == before + 1
+    _close(out, rms_ops.rmsnorm_ref(x, sc), dtype, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_on_card(cuda, dtype, case):
+    B, S, T, H, KV, D, mask = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
+    before = flash_ops.LAUNCHES
+    out = flash_ops.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    _close(out, flash_ops.attention_ref(q, k, v, **mask), dtype, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [(8, 24, 8, 128, 1024), (3, 4, 2, 32, 200)])
+def test_decode_stats_kernel_on_card(cuda, dtype, dims):
+    B, H, KV, D, L = dims
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, 1, H, D), generator=g, device=cuda)
+    k = torch.randn((B, L, KV, D), generator=g, device=cuda)
+    v = torch.randn((B, L, KV, D), generator=g, device=cuda).to(dtype)
+    pos = torch.randint(0, L, (B,), generator=g, device=cuda)
+    s, _ = tattention.decode_stats_scores(q, k, pos)
+    s[0] = tattention.NEG_INF                       # one fully masked row
+    m = s.amax(-1)
+    before = stats_ops.LAUNCHES
+    o, l = stats_ops.accumulate(s, m, v)
+    torch.cuda.synchronize()
+    assert stats_ops.LAUNCHES == before + 1
+    ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+    torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)

@@ -1,0 +1,196 @@
+"""The port's dense transformer against the JAX package's, on the CPU.
+
+Both get the same parameters (the JAX ``init_params`` tree converted by
+``params_from_jax``) and the same numpy tokens. fp32 throughout; logits
+agree to 1e-4 (summation order differs between XLA and PyTorch), caches to
+1e-5.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as jtransformer
+from repro_torch import configs
+from repro_torch.models import attention, layers, transformer
+
+LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _cfgs(n_layers):
+    jcfg = dataclasses.replace(jconfigs.get_smoke("llama3.2-3b"),
+                               n_layers=n_layers, dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                               n_layers=n_layers, dtype=torch.float32)
+    return jcfg, tcfg
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg, tcfg = _cfgs(3)
+    jparams = jtransformer.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    model = transformer.Transformer(
+        tcfg, transformer.params_from_jax(tree, tcfg), "cpu")
+    return jcfg, tcfg, jparams, model
+
+
+def _jax_kv(cache):
+    """Stacked (n_layers, B, L, KV, D) k and v of a JAX cache tree."""
+    slot = cache["blocks"]["slot0"]
+    return np.asarray(slot["k"]), np.asarray(slot["v"])
+
+
+def test_config_mirrors_jax():
+    for jc, tc in [(jconfigs.get("llama3.2-3b"), configs.get("llama3.2-3b")),
+                   (jconfigs.get_smoke("llama3.2-3b"),
+                    configs.get_smoke("llama3.2-3b"))]:
+        for f in dataclasses.fields(tc):
+            if f.name not in ("dtype", "param_dtype"):
+                assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        assert tc.padded_vocab == jc.padded_vocab
+        assert tc.head_dim_ == jc.head_dim_
+        assert [s.key() for s in tc.layer_plan()] == \
+            [s.key() for s in jc.layer_plan()]
+    assert configs.get("llama3.2-3b").dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "mamba2-780m",
+                                  "qwen2-moe-a2.7b", "whisper-tiny"])
+def test_registry_names_the_waiting_slice(name):
+    with pytest.raises(NotImplementedError, match="slice"):
+        configs.get(name)
+
+
+@pytest.mark.parametrize("flag", [dict(qk_norm=True), dict(window=64),
+                                  dict(attn_softcap=50.0),
+                                  dict(sandwich_norm=True),
+                                  dict(scale_embed=True),
+                                  dict(n_experts=4, top_k=2),
+                                  dict(tie_embeddings=False),
+                                  dict(family="ssm", ssm_state=16)])
+def test_unported_flags_raise_when_built(flag):
+    cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), **flag)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    with pytest.raises(NotImplementedError):
+        transformer.Transformer(cfg, params, "cpu")
+
+
+def test_find_period_matches_jax():
+    for name in jconfigs.ARCHS:
+        plan = jconfigs.get(name).layer_plan()
+        assert transformer.find_period(plan) == jtransformer.find_period(plan)
+
+
+def test_init_params_distributions():
+    _, tcfg = _cfgs(2)
+    p = transformer.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    d = tcfg.d_model
+    assert p["embed"].shape == (tcfg.padded_vocab, d)
+    assert abs(float(p["embed"].std()) - 0.02) < 2e-3
+    assert abs(float(p["layers.0.gate"].std()) - d ** -0.5) < 0.01
+    assert float(p["layers.1.ln2"].abs().max()) == 0.0
+    # the port's model consumes exactly the keys init_params makes
+    model = transformer.Transformer(tcfg, p, "cpu")
+    assert set(model.state_dict()) == set(p)
+
+
+def test_rope_matches_jax():
+    from repro.models import layers as jlayers
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 4, 32), dtype=np.float32)
+    pos = np.array([[3], [17]], np.int32) + np.arange(5, dtype=np.int32)
+    ref = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 5e5)
+    cos, sin = layers.rope_angles(torch.from_numpy(pos), 32, 5e5)
+    out = layers.apply_rope_angles(torch.from_numpy(x), cos, sin)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_prefill_logits_and_cache_match_jax(pair):
+    jcfg, tcfg, jparams, model = pair
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, tcfg.vocab_size, (2, 13), dtype=np.int32)
+    jl, _, jc = jtransformer.forward(jparams, jcfg, jnp.asarray(toks),
+                                     mode="prefill", cache_len=24)
+    tl, tc = model(torch.from_numpy(toks).long(), mode="prefill",
+                   cache_len=24)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    jk, jv = _jax_kv(jc)
+    np.testing.assert_allclose(tc["k"].numpy(), jk, **CACHE_TOL)
+    np.testing.assert_allclose(tc["v"].numpy(), jv, **CACHE_TOL)
+    assert int(tc["pos"]) == int(jc["pos"]) == 13
+
+
+def test_continuous_batching_decode_matches_jax(pair):
+    """Three rows prefilled at different lengths, then 6 decode steps with a
+    per-row (B,) position vector, as the scheduler runs them."""
+    jcfg, tcfg, jparams, model = pair
+    rng = np.random.default_rng(2)
+    L, lens = 32, (5, 11, 8)
+    jk, jv, tk, tv, first = [], [], [], [], []
+    for S in lens:
+        toks = rng.integers(0, tcfg.vocab_size, (1, S), dtype=np.int32)
+        jl, _, jc = jtransformer.forward(jparams, jcfg, jnp.asarray(toks),
+                                         mode="prefill", cache_len=L)
+        tl, tc = model(torch.from_numpy(toks).long(), mode="prefill",
+                       cache_len=L)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+        k, v = _jax_kv(jc)
+        jk.append(k)
+        jv.append(v)
+        tk.append(tc["k"])
+        tv.append(tc["v"])
+        first.append(int(np.argmax(np.asarray(jl)[0, -1])))
+    pos = np.asarray(lens, np.int32)
+    jcache = {"blocks": {"slot0": {"k": jnp.asarray(np.concatenate(jk, 1)),
+                                   "v": jnp.asarray(np.concatenate(jv, 1))}},
+              "rest": [], "pos": jnp.asarray(pos)}
+    tcache = {"k": torch.cat(tk, 1), "v": torch.cat(tv, 1),
+              "pos": torch.from_numpy(pos).long()}
+    tok = np.asarray(first, np.int32)[:, None]
+    for _ in range(6):
+        jl, _, jcache = jtransformer.forward(jparams, jcfg, jnp.asarray(tok),
+                                             cache=jcache)
+        tl, tcache = model(torch.from_numpy(tok).long(), mode="decode",
+                           cache=tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+        tok = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
+    k, v = _jax_kv(jcache)
+    np.testing.assert_allclose(tcache["k"].numpy(), k, **CACHE_TOL)
+    np.testing.assert_allclose(tcache["v"].numpy(), v, **CACHE_TOL)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+def test_decode_scores_mask_matches_jax():
+    from repro.models import attention as jattn
+    rng = np.random.default_rng(3)
+    B, H, KV, D, L = 3, 4, 2, 32, 40
+    q = rng.standard_normal((B, 1, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, L, KV, D), dtype=np.float32)
+    v = rng.standard_normal((B, L, KV, D), dtype=np.float32)
+    for pos in (np.int32(17), np.array([0, 9, 39], np.int32)):
+        for kw in (dict(), dict(window=8), dict(chunk=16), dict(cap=30.0)):
+            js, jm = jattn.decode_stats_scores(jnp.asarray(q), jnp.asarray(k),
+                                               jnp.asarray(pos), **kw)
+            ts, tm = attention.decode_stats_scores(
+                torch.from_numpy(q), torch.from_numpy(k),
+                torch.as_tensor(pos).long(), **kw)
+            np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+            np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5,
+                                       rtol=1e-5)
+        jo = jattn.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(pos))
+        to = attention.decode_attention(torch.from_numpy(q),
+                                        torch.from_numpy(k),
+                                        torch.from_numpy(v),
+                                        torch.as_tensor(pos).long())
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5,
+                                   rtol=1e-5)

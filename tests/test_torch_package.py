@@ -1,0 +1,114 @@
+"""Package rules of the port: it imports neither JAX nor the JAX package,
+its entry points run on the card unless asked for the CPU, and the CPU
+calls of its kernel wrappers take the plain versions without counting a
+launch."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (tests import both frameworks; the port never does)
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import configs
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_stats import ops as stats_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models.transformer import init_params
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
+                       re.M)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_and_builds_nothing():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "from repro_torch.kernels import _build\n"
+            "assert _build._lib is None and _build._info is None\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "launch.serve" in " ".join(_modules())
+
+
+def test_source_scan_finds_no_jax_import():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        hits = IMPORT_RE.findall(f.read_text())
+        assert not hits, f"{f.relative_to(REPO)} imports {hits}"
+
+
+def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from repro_torch.serve import Engine, ServeSpec
+    from repro_torch.launch import serve as launcher
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke("llama3.2-3b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params, ServeSpec(batch=1, cache_len=16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher.main(["--smoke"])
+
+
+def test_cpu_calls_take_plain_versions_and_count_nothing():
+    counts = (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 64), dtype=np.float32))
+    sc = torch.zeros(64)
+    torch.testing.assert_close(rms_ops.rmsnorm(x, sc),
+                               rms_ops.rmsnorm_ref(x, sc), atol=0, rtol=0)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 32), dtype=np.float32))
+    torch.testing.assert_close(flash_ops.flash_attention(q, q, q),
+                               flash_ops.attention_ref(q, q, q), atol=0,
+                               rtol=0)
+    s = torch.from_numpy(rng.standard_normal((1, 2, 1, 8), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 8, 2, 32), dtype=np.float32))
+    o, l = stats_ops.accumulate(s, s.amax(-1), v)
+    ro, rl = stats_ops.decode_stats_accumulate_ref(s, s.amax(-1), v)
+    assert torch.equal(o, ro) and torch.equal(l, rl)
+    assert (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES) == counts
+
+
+def test_wrappers_refuse_mixed_devices_and_bad_dtypes():
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError):
+        rms_ops.rmsnorm(x, torch.zeros(8, device="meta"))
+    with pytest.raises(TypeError):
+        _build.dtype_code(torch.float16)
+
+
+def test_build_is_keyed_by_sources_into_an_ignored_directory():
+    names = {p.name for p in _build.CSRC.glob("*.cu")}
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_stats.cu"} <= names
+    assert len(_build._key()) == 16
+    assert _build.BUILD_ROOT.relative_to(REPO) == Path("build",
+                                                       "repro_torch_kernels")
+    assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_cuda_source_notes_name_the_tpu_kernel_they_replace():
+    for name, tpu in [("rmsnorm", "_rmsnorm_kernel"),
+                      ("flash_attention", "_flash_kernel"),
+                      ("decode_stats", "_stats_kernel")]:
+        head = (_build.CSRC / f"{name}.cu").read_text()[:2500]
+        assert "Replaces:" in head and tpu in head
+        assert "Bound on the H100" in head and "Design:" in head

@@ -1,0 +1,128 @@
+"""The port's serving engine against the JAX package's, on the CPU.
+
+Same parameters (the JAX ``init_params`` tree via ``params_from_jax``),
+same requests, both on a ``StepClock``: the greedy tokens of every request
+and the rows they were admitted to must be exactly equal. fp32 smoke
+configuration.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as jtransformer
+from repro.serve import Engine as JEngine
+from repro.serve import Request as JRequest
+from repro.serve import ServeSpec as JServeSpec
+from repro.serve import StepClock as JStepClock
+from repro_torch import configs
+from repro_torch.models.transformer import params_from_jax
+from repro_torch.serve import (Engine, PagedKVCache, Request, ServeSpec,
+                               StepClock)
+
+PROMPTS = [(7, 5), (13, 9), (3, 4), (20, 6), (9, 12), (5, 1)]  # (len, max_new)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jcfg = dataclasses.replace(jconfigs.get_smoke("llama3.2-3b"), n_layers=2,
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), n_layers=2,
+                               dtype=torch.float32)
+    jparams = jtransformer.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    rng = np.random.default_rng(0)
+    prompts = [(rng.integers(0, tcfg.vocab_size, n, dtype=np.int32), m)
+               for n, m in PROMPTS]
+    return jcfg, tcfg, jparams, tparams, prompts
+
+
+def _jax_results(jcfg, jparams, prompts, spec_kw):
+    # one device, as the ``tiny`` fixture of test_serve_scheduler.py; Auto
+    # axes so the engine's sharding hints stay hints on every JAX version
+    mesh = jax.make_mesh((1,), ("data",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    with jax.set_mesh(mesh):
+        eng = JEngine(jcfg, mesh, jparams, JServeSpec(**spec_kw),
+                      clock=JStepClock())
+        for toks, m in prompts:
+            eng.submit(JRequest(tokens=toks, max_new=m))
+        return eng.drain()
+
+
+def test_engine_tokens_and_slots_match_jax(tiny):
+    jcfg, tcfg, jparams, tparams, prompts = tiny
+    spec_kw = dict(batch=4, cache_len=64)
+    ref = _jax_results(jcfg, jparams, prompts, spec_kw)
+    eng = Engine(tcfg, tparams, ServeSpec(**spec_kw), device="cpu",
+                 clock=StepClock())
+    rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in prompts]
+    out = eng.drain()
+    assert sorted(out) == sorted(ref) == rids
+    for rid in rids:
+        np.testing.assert_array_equal(out[rid].tokens, ref[rid].tokens)
+        assert out[rid].slot == ref[rid].slot
+        assert out[rid].token_times_s == ref[rid].token_times_s
+        assert out[rid].finish_reason == "length"
+        assert out[rid].n_tokens == PROMPTS[rid][1]
+    st = eng.stats()
+    assert st["prefills"] == len(PROMPTS)
+    assert st["prefill_tokens"] == sum(n for n, _ in PROMPTS)
+    # every token but each request's first comes from a decode step
+    assert st["decode_tokens"] == sum(m - 1 for _, m in PROMPTS)
+
+
+def test_engine_step_result_and_cancel(tiny):
+    _, tcfg, _, tparams, prompts = tiny
+    eng = Engine(tcfg, tparams, ServeSpec(batch=2, cache_len=32),
+                 device="cpu", clock=StepClock())
+    a = eng.submit(Request(tokens=prompts[0][0], max_new=3))
+    b = eng.submit(Request(tokens=prompts[1][0], max_new=8))
+    c = eng.submit(Request(tokens=prompts[2][0], max_new=2))
+    assert eng.step() == [] and eng.result(a) is None
+    assert eng.cancel(c)                      # still queued: both rows busy
+    assert eng.result(c).finish_reason == "evicted"
+    done = eng.step()
+    assert [r.rid for r in done] == [a]
+    assert eng.cancel(b) and eng.result(b).finish_reason == "evicted"
+    assert not eng.cancel(b)
+    assert eng.drain().keys() == {a, b, c}
+    assert eng.stats()["decode_steps"] == 2
+
+
+def test_spec_validation():
+    with pytest.raises(ValueError, match="auto"):
+        ServeSpec(batch=1, cache_len=16, fused_stats="jnp").validate()
+    with pytest.raises(ValueError):
+        ServeSpec(batch=1, cache_len=16, combine="bogus").validate()
+    with pytest.raises(ValueError, match="multi-rank"):
+        ServeSpec(batch=1, cache_len=16, seq_axes=("data",)).validate()
+    ServeSpec(batch=2, cache_len=16, combine="locality").validate()
+    with pytest.raises(ValueError, match="auto"):
+        Engine(None, {}, ServeSpec(batch=1, cache_len=16, fused_stats="jnp"),
+               device="cpu")
+    with pytest.raises(ValueError):
+        Request(tokens=np.zeros((2, 3), np.int32), max_new=1)
+    with pytest.raises(ValueError):
+        Request(tokens=[1, 2], max_new=0)
+
+
+def test_submit_rejects_oversized_request(tiny):
+    _, tcfg, _, tparams, _ = tiny
+    eng = Engine(tcfg, tparams, ServeSpec(batch=1, cache_len=16),
+                 device="cpu")
+    with pytest.raises(ValueError, match="never fit"):
+        eng.submit(Request(tokens=np.ones(12, np.int32), max_new=8))
+
+
+def test_paged_copy_keeps_invariants():
+    paged = PagedKVCache(batch=3, cache_len=32, page_len=8)
+    rows = [paged.reserve(rid, 10, 6) for rid in range(3)]
+    assert sorted(rows) == [0, 1, 2] and paged.reserve(9, 1, 1) is None
+    paged.check_invariants()
+    assert paged.release(1) == rows[1] and paged.reserve(9, 1, 1) == rows[1]
+    paged.check_invariants()
