@@ -18,6 +18,17 @@ the package is missing. Phases, each fatal on failure:
    on the same bf16 inputs, since the kernels compute in fp32), each timed with CUDA events on a cold L2 beside its
    plain version, a PyTorch library call where one computes the same
    function (timed here only; the port never calls it), and its bound;
+2b. the DMA allgather on the card: each of bruck, ring, multilane and
+   locality_bruck on three cases (the FSDP parameter gather of one
+   llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
+   ranks in bf16, and the paper's small-message regime, 64 = 8 x 8 ranks of
+   1 KiB fp32 shards), the p ranks as p slices of one allocation; each equal
+   (torch.equal) to its plain version and to the shards broadcast, timed
+   beside the plain version, the library call that computes the same
+   function (``x.unsqueeze(0).expand(p, ...).contiguous()``, timed here
+   only) and its bound; then the slice's main path, one
+   ``dma_locality_allgather`` at the 16-rank FSDP size, with its launch
+   count (rounds + 2);
 3. a reduced llama3.2-3b (fp32, 4 layers) with the same parameters on the
    CPU (plain versions) and on the card (kernels): logits after prefill and
    8 decode steps within 1e-3, equal greedy tokens, equal engine tokens;
@@ -253,6 +264,86 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the DMA allgather on the card
+# ---------------------------------------------------------------------------
+DMA_ALGORITHMS = ("bruck", "ring", "multilane", "locality_bruck")
+
+
+def dma_cases_of(cfg) -> list[tuple[str, int, int, int, torch.dtype]]:
+    """(case, q, pl, shard elements, dtype): one decoder layer of ``cfg``
+    (q, k, v, o, gate, up, down and the two norms) sharded over p ranks,
+    and 1 KiB fp32 shards over 64 ranks."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    layer = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+             + cfg.n_heads * hd * d + 3 * d * cfg.d_ff + 2 * d)
+    return [("fsdp_layer_p16", 4, 4, layer // 16, torch.bfloat16),
+            ("fsdp_layer_p12", 3, 4, layer // 12, torch.bfloat16),
+            ("small_p64", 8, 8, 256, torch.float32)]
+
+
+def dma_allgather_cases(timer: Timer, cases) -> list[dict]:
+    from repro_torch.kernels.dma_allgather import ops as dma_ops
+    rows = []
+    for case, q, pl, n, dtype in cases:
+        p = q * pl
+        g = torch.Generator(device="cuda").manual_seed(p)
+        x = torch.randn((p, n), generator=g, device="cuda").to(dtype)
+        for alg in DMA_ALGORITHMS:
+            sched = dma_ops.build_schedule(
+                alg, p, None if alg in ("bruck", "ring") else pl)
+            what = f"dma_allgather {alg} {case}"
+            out = dma_ops.dma_allgather(x, sched)
+            plain = dma_ops.dma_allgather_ref(x, sched)
+            check(torch.equal(out, plain), f"{what}: kernel != plain version")
+            del plain                   # equal, so the max abs error is 0
+            check(torch.equal(out, x.unsqueeze(0).expand(p, p, n)),
+                  f"{what}: not every shard on every rank")
+            del out
+            b_ms, b_by = bound((p * n + p * p * n) * x.element_size(), 0,
+                               dtype)
+            rows.append(dict(
+                case=case, algorithm=alg, shape=[p, n], q=q, pl=pl,
+                dtype=str(dtype), rounds=len(sched.sizes),
+                launches_per_gather=len(sched.sizes) + 2,
+                capacity=sched.capacity, max_abs_err=0.0, tolerance=0.0,
+                ms=timer(lambda: dma_ops.dma_allgather(x, sched)),
+                host_ms=timer.host_ms(lambda: dma_ops.dma_allgather(x, sched),
+                                      iters=10),
+                plain_ms=timer(lambda: dma_ops.dma_allgather_ref(x, sched),
+                               iters=3, warmup=1),
+                library_ms=timer(lambda: x.unsqueeze(0).expand(
+                    (p,) + x.shape).contiguous()),
+                bound_ms=b_ms, bound_by=b_by))
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dma_main_path(case) -> int:
+    """The slice's main path once: the FSDP gather of one decoder layer
+    over 16 ranks through ``dma_locality_allgather``; its launches."""
+    from repro_torch.kernels.dma_allgather import ops as dma_ops
+    _, q, pl, n, dtype = case
+    p = q * pl
+    x = torch.randn((p, n), generator=torch.Generator(device="cuda")
+                    .manual_seed(1), device="cuda").to(dtype)
+    dma_ops.LAUNCHES = 0
+    out = dma_ops.dma_locality_allgather(x, q, pl)
+    torch.cuda.synchronize()
+    launches = dma_ops.LAUNCHES
+    rounds = len(dma_ops.build_schedule("locality_bruck", p, pl).sizes)
+    check(launches == rounds + 2, f"dma main path: {launches} launches, "
+                                  f"the path implies {rounds + 2}")
+    check(torch.equal(out, x.unsqueeze(0).expand(p, p, n)),
+          "dma main path: not every shard on every rank")
+    del out, x
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "dma_main_path", "q": q, "pl": pl, "shard": n,
+                      "dtype": str(dtype), "launches": launches}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the reduced model on the CPU (plain) and on the card (kernels)
 # ---------------------------------------------------------------------------
 def small_end_to_end() -> None:
@@ -451,8 +542,15 @@ def main() -> int:
     for name, rows in cases.items():
         for row in rows:
             print(json.dumps({"kernel": name, **row}))
+    from repro_torch import configs
+    dma = dma_cases_of(configs.get("llama3.2-3b"))
+    cases["dma_allgather"] = dma_allgather_cases(timer, dma)
+    for row in cases["dma_allgather"]:
+        print(json.dumps({"kernel": "dma_allgather", **row}))
+    dma_launches = dma_main_path(dma[0])
     small_end_to_end()
     launches = serve_full_width(smi)
+    launches["dma_allgather"] = dma_launches
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -461,6 +559,9 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/flash.py:32", 1),
         "decode_stats": ("src/repro_torch/kernels/csrc/decode_stats.cu",
                          "src/repro/kernels/decode_stats/stats.py:35", 0),
+        "dma_allgather": ("src/repro_torch/kernels/csrc/dma_allgather.cu",
+                          "src/repro/kernels/dma_allgather/dma_ag.py:33",
+                          DMA_ALGORITHMS.index("locality_bruck")),
     }
     kernels = []
     for name, (source, replaces, headline) in meta.items():

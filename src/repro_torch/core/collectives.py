@@ -1,0 +1,975 @@
+"""The paper's collective algorithms over ``torch.distributed``, behind one API.
+
+Ported from ``src/repro/core/collectives.py``. Every rank of a
+:class:`~repro_torch.core.topology.RankGrid` calls the same function on its
+own shard, as every device runs the JAX function inside ``shard_map``. The
+JAX idioms map so:
+
+* ``lax.ppermute(x, axes, pairs)`` is :func:`ppermute`: one
+  ``dist.batch_isend_irecv`` round of this rank's edges in ``pairs`` (axis
+  positions), recorded by the grid's ``CommRecorder``. A rank that is no
+  target receives zeros, as under ``lax.ppermute``; the masks of the
+  hierarchical gather and the recursive-doubling allreduce rely on it. A
+  rank with no edge in a round makes no call.
+* ``outer`` / ``local`` mesh axes are the grid's ``outer`` (this rank's
+  lane across the pods) and ``local`` (this rank's pod) axes; ``outer +
+  local`` is ``grid.world``. ``lax.axis_index`` is ``axis.index``, and a
+  ``jnp.where`` on it is a Python branch.
+* ``lax.all_gather`` / ``psum`` / ``psum_scatter`` (the ``"xla"``
+  algorithms and the locality allreduce's local reduce-scatter) are the
+  group collectives ``all_gather_into_tensor``, ``all_reduce`` and
+  ``reduce_scatter_tensor`` on the axis's process group.
+
+A CUDA tensor on a gloo grid, or a CPU tensor on an NCCL grid, raises:
+nothing moves tensors between devices quietly.
+
+Public surface, one family function per collective kind, each taking
+``(operand, grid, algorithm=..., **kw)``:
+
+  allgather          ``bruck`` (Algorithm 1 [Bruck '97]), ``ring`` [Chan
+                     '07], ``hierarchical`` [Träff '06], ``multilane``
+                     [Träff & Hunold '20], ``locality_bruck`` (Algorithm 2,
+                     the paper's contribution), ``xla`` (the library's
+                     all-gather). Same five schedules as
+                     ``core/schedules.py``, the oracle.
+  reduce_scatter     the transpose of each allgather, written out: the
+                     rounds run in reverse, each receive becomes a send of
+                     that slice back and each send a receive added into the
+                     slice sent. JAX gets it as the allgather's vjp.
+  allreduce          ``locality``: local reduce-scatter → per-lane outer
+                     allreduce (``rhd``, ``rd`` or ``psum``) → local
+                     allgather; sum, max and min; or ``xla``.
+  cache_migrate      the replication of a KV-cache slab (an allgather).
+
+``allgather`` is differentiable for the Bruck schedules: its backward is
+the reduce-scatter. ``allgather_start`` / ``allgather_finish`` split the
+locality gather after its last non-local round; ``finish(start(x))`` is
+bit-identical to the eager gather. ``collective(kind, x, grid=...,
+algorithm=...)`` is the string-keyed entry point over ``KINDS`` /
+``ALGORITHMS_BY_KIND`` / ``DEFAULT_ALGORITHM``.
+
+Not ported in this slice, each raising ``NotImplementedError`` that names
+its slice: the ``all_to_all`` and ``combine`` kinds and
+``algorithm="auto"``. The JAX package's deprecated aliases are not ported.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from .topology import Axis, RankGrid
+
+_NOT_PORTED = {
+    "all_to_all": "the all_to_all kind (locality_all_to_all) comes with the "
+                  "MoE slice (ROADMAP.md Queue 1 item 6)",
+    "combine": "the combine kind (logsumexp_combine) comes with the "
+               "multi-rank serving slice (ROADMAP.md Queue 1 item 3)",
+    "auto": 'algorithm="auto" comes with the tuning slice (ROADMAP.md Queue 1 '
+            "item 8): it needs parameters measured on the H100, and the "
+            "JAX package's TPU constants do not choose a schedule here",
+}
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(_NOT_PORTED[what])
+
+
+# =============================================================================
+# The port's lax.ppermute and group collectives (all recorded)
+# =============================================================================
+def _check_device(x: torch.Tensor, grid: RankGrid) -> None:
+    if x.device.type != grid.device.type:
+        raise ValueError(f"a {x.device.type} tensor on a {grid.backend} "
+                         f"grid: {grid.backend} takes {grid.device.type} "
+                         "tensors")
+
+
+def ppermute(x: torch.Tensor, grid: RankGrid, axis: Axis,
+             pairs: list[tuple[int, int]]) -> torch.Tensor:
+    """One point-to-point round: for each (s, t) in ``pairs`` (positions on
+    ``axis``), position s sends ``x`` to position t. Returns what this rank
+    received, zeros where it is no target."""
+    _check_device(x, grid)
+    me = axis.index
+    dsts = [t for s, t in pairs if s == me]
+    srcs = [s for s, t in pairs if t == me]
+    if len(dsts) > 1 or len(srcs) > 1:
+        raise ValueError(f"pairs {pairs} are not a permutation")
+    x = x.contiguous()
+    grid.recorder.permute(axis.members[me],
+                          [axis.members[t] for t in dsts],
+                          x.numel() * x.element_size())
+    if dsts == [me] and srcs == [me]:
+        return x.clone()
+    recv = torch.zeros_like(x)
+    peer = lambda pos: grid.global_rank(axis.members[pos])
+    ops = [dist.P2POp(dist.isend, x, peer(t), grid.group) for t in dsts]
+    ops += [dist.P2POp(dist.irecv, recv, peer(s), grid.group) for s in srcs]
+    if ops:                    # an empty batch raises in batch_isend_irecv
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return recv
+
+
+@contextlib.contextmanager
+def _quiet():
+    """torch 2.13 deprecates ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` (FutureWarning); 2.11 has no other name."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        yield
+
+
+def _all_gather(x: torch.Tensor, grid: RankGrid, axis: Axis) -> torch.Tensor:
+    """[n, *x.shape] over ``axis`` in axis order."""
+    _check_device(x, grid)
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty(axis.size * flat.numel(), dtype=x.dtype,
+                      device=x.device)
+    grid.recorder.group("all-gather", axis.members, axis.index,
+                        out.numel() * out.element_size())
+    with _quiet():
+        dist.all_gather_into_tensor(out, flat, group=axis.group)
+    return out.reshape((axis.size,) + tuple(x.shape))
+
+
+def _reduce_scatter_sum(y: torch.Tensor, grid: RankGrid,
+                        axis: Axis) -> torch.Tensor:
+    """Sum over ``axis`` of 1-d ``y``; this rank keeps tile ``axis.index``."""
+    _check_device(y, grid)
+    out = torch.empty(y.numel() // axis.size, dtype=y.dtype, device=y.device)
+    grid.recorder.group("reduce-scatter", axis.members, axis.index,
+                        out.numel() * out.element_size())
+    with _quiet():
+        dist.reduce_scatter_tensor(out, y.contiguous(), op=dist.ReduceOp.SUM,
+                                   group=axis.group)
+    return out
+
+
+_DIST_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+
+
+def _all_reduce(x: torch.Tensor, grid: RankGrid, axis: Axis,
+                op: str) -> torch.Tensor:
+    _check_device(x, grid)
+    out = x.contiguous().clone()
+    grid.recorder.group("all-reduce", axis.members, axis.index,
+                        out.numel() * out.element_size())
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, _DIST_OPS[op]),
+                    group=axis.group)
+    return out
+
+
+def _stack_to_tiled(buf: torch.Tensor, x_shape: tuple[int, ...]) -> torch.Tensor:
+    """[p, *x_shape] -> concatenation along dim 0 (all_gather tiled=True)."""
+    p = buf.shape[0]
+    if not x_shape:
+        return buf
+    return buf.reshape((p * x_shape[0],) + tuple(x_shape[1:]))
+
+
+def _out(buf: torch.Tensor, tiled: bool, x_shape) -> torch.Tensor:
+    return _stack_to_tiled(buf, tuple(x_shape)) if tiled else buf
+
+
+# =============================================================================
+# Algorithm 1 — standard Bruck allgather: log2(p) rounds, doubling buffers.
+# =============================================================================
+def _doublings(n: int) -> list[int]:
+    """1, 2, 4, ... below n: the distances of a doubling schedule."""
+    out, d = [], 1
+    while d < n:
+        out.append(d)
+        d *= 2
+    return out
+
+
+def _bruck_distances(p: int) -> list[tuple[int, int]]:
+    """(distance, blocks sent) of each Bruck round."""
+    return [(d, min(d, p - d)) for d in _doublings(p)]
+
+
+def _bruck_allgather(x: torch.Tensor, grid: RankGrid, axis: Axis, *,
+                     tiled: bool = False) -> torch.Tensor:
+    """Round i (distance d=2^i): every rank sends the first min(d, p-d)
+    blocks of its buffer to rank id-d and receives from id+d; a final
+    rotation by the rank's index restores canonical order."""
+    p = axis.size
+    if p == 1:
+        return _out(x[None], tiled, x.shape)
+    buf = x[None]                       # buf[k] = block (idx + k) mod p
+    for d, cnt in _bruck_distances(p):
+        recv = ppermute(buf[:cnt], grid, axis,
+                        [(s, (s - d) % p) for s in range(p)])
+        buf = torch.cat([buf, recv])
+    buf = torch.roll(buf, axis.index, 0)     # out[j] = block j
+    return _out(buf, tiled, x.shape)
+
+
+def _bruck_reduce_scatter(ct: torch.Tensor, grid: RankGrid,
+                          axis: Axis) -> torch.Tensor:
+    """Transpose of :func:`_bruck_allgather`: ct [p, *s] -> [*s]."""
+    p = axis.size
+    if p == 1:
+        return ct[0]
+    ct = torch.roll(ct, -axis.index, 0)
+    for d, cnt in reversed(_bruck_distances(p)):
+        keep = ct.shape[0] - cnt
+        back = ppermute(ct[keep:], grid, axis,
+                        [((s - d) % p, s) for s in range(p)])
+        ct = ct[:keep].clone()
+        ct[:cnt] += back
+    return ct[0]
+
+
+# =============================================================================
+# Ring allgather: p-1 neighbor rounds (bandwidth-optimal, locality-friendly).
+# =============================================================================
+def _ring_allgather(x: torch.Tensor, grid: RankGrid, axis: Axis, *,
+                    tiled: bool = False) -> torch.Tensor:
+    p = axis.size
+    if p == 1:
+        return _out(x[None], tiled, x.shape)
+    pairs = [(s, (s - 1) % p) for s in range(p)]
+    cur, bufs = x, [x]
+    for _ in range(p - 1):
+        cur = ppermute(cur, grid, axis, pairs)
+        bufs.append(cur)
+    buf = torch.roll(torch.stack(bufs), axis.index, 0)  # buf[k]: block idx+k
+    return _out(buf, tiled, x.shape)
+
+
+def _ring_reduce_scatter(ct: torch.Tensor, grid: RankGrid,
+                         axis: Axis) -> torch.Tensor:
+    p = axis.size
+    if p == 1:
+        return ct[0]
+    ct = torch.roll(ct, -axis.index, 0)
+    pairs = [((s - 1) % p, s) for s in range(p)]
+    g = ct[p - 1]
+    for k in range(p - 1, 0, -1):
+        g = ppermute(g, grid, axis, pairs)       # cotangent of round k's input
+        if k > 1:
+            g = ct[k - 1] + g
+    return ct[0] + g
+
+
+# =============================================================================
+# Hierarchical allgather [Träff '06]: binomial gather to a master per region,
+# Bruck among masters, binomial broadcast. Non-masters idle during phase 2.
+# =============================================================================
+def _hierarchical_allgather(x: torch.Tensor, grid: RankGrid, *,
+                            tiled: bool = False) -> torch.Tensor:
+    r, pl = grid.q, grid.pl
+    if pl == 1:
+        return _bruck_allgather(x, grid, grid.world, tiled=tiled)
+    R, l = grid.R, grid.l
+    flat = lambda Rg, lg: Rg * pl + lg
+    # Phase 1: binomial gather to lane 0. B[k] = block of lane k of the own
+    # region (zeros where unknown), padded to a power of two so a sender's
+    # subtree slice [l, l+d) and a receiver's write at l+d stay in bounds.
+    pl2 = 1 << (pl - 1).bit_length()
+    B = x.new_zeros((pl2,) + tuple(x.shape))
+    B[l] = x
+    for d in _doublings(pl):
+        pairs = [(flat(Rg, lg), flat(Rg, lg - d))
+                 for Rg in range(r) for lg in range(d, pl, 2 * d)]
+        s = min(l, pl2 - d)
+        recv = ppermute(B[s:s + d], grid, grid.world, pairs)
+        if l % (2 * d) == 0 and l + d < pl:
+            u = min(l + d, pl2 - d)
+            B[u:u + d] = recv
+    B = B[:pl]
+    # Phase 2: Bruck among masters (lane 0) over regions; chunk k = region R+k.
+    buf = B[None]
+    for d, cnt in _bruck_distances(r):
+        pairs = [(flat(Rg, 0), flat((Rg - d) % r, 0)) for Rg in range(r)]
+        recv = ppermute(buf[:cnt], grid, grid.world, pairs)
+        buf = torch.cat([buf, recv])
+    buf = torch.roll(buf, R, 0)
+    # Phase 3: binomial broadcast of the full buffer within each region.
+    for have in _doublings(pl):
+        pairs = [(flat(Rg, lg), flat(Rg, lg + have))
+                 for Rg in range(r) for lg in range(min(have, pl - have))]
+        recv = ppermute(buf, grid, grid.world, pairs)
+        if have <= l < 2 * have:
+            buf = recv
+    buf = buf.reshape((r * pl,) + tuple(x.shape))
+    return _out(buf, tiled, x.shape)
+
+
+def _hierarchical_reduce_scatter(ct: torch.Tensor,
+                                 grid: RankGrid) -> torch.Tensor:
+    r, pl = grid.q, grid.pl
+    if pl == 1:
+        return _bruck_reduce_scatter(ct, grid, grid.world)
+    R, l = grid.R, grid.l
+    flat = lambda Rg, lg: Rg * pl + lg
+    xs = tuple(ct.shape[1:])
+    ct = ct.reshape((r, pl) + xs)
+    # Phase 3, reversed: a receiver hands its cotangent back to its sender.
+    for have in reversed(_doublings(pl)):
+        pairs = [(flat(Rg, lg + have), flat(Rg, lg))
+                 for Rg in range(r) for lg in range(min(have, pl - have))]
+        is_recv = have <= l < 2 * have
+        back = ppermute(ct if is_recv else torch.zeros_like(ct), grid,
+                        grid.world, pairs)
+        ct = back if is_recv else ct + back
+    # Phase 2, reversed.
+    ct = torch.roll(ct, -R, 0)
+    for d, cnt in reversed(_bruck_distances(r)):
+        pairs = [(flat((Rg - d) % r, 0), flat(Rg, 0)) for Rg in range(r)]
+        keep = ct.shape[0] - cnt
+        back = ppermute(ct[keep:], grid, grid.world, pairs)
+        ct = ct[:keep].clone()
+        ct[:cnt] += back
+    # Phase 1, reversed.
+    pl2 = 1 << (pl - 1).bit_length()
+    cB = ct.new_zeros((pl2,) + xs)
+    cB[:pl] = ct[0]
+    for d in reversed(_doublings(pl)):
+        pairs = [(flat(Rg, lg - d), flat(Rg, lg))
+                 for Rg in range(r) for lg in range(d, pl, 2 * d)]
+        send = torch.zeros((d,) + xs, dtype=ct.dtype, device=ct.device)
+        if l % (2 * d) == 0 and l + d < pl:
+            u = min(l + d, pl2 - d)
+            send = cB[u:u + d].clone()
+            cB[u:u + d] = 0
+        back = ppermute(send, grid, grid.world, pairs)
+        s = min(l, pl2 - d)
+        cB[s:s + d] += back
+    return cB[l]
+
+
+# =============================================================================
+# Multi-lane allgather [Träff & Hunold '20]: every lane runs a Bruck over the
+# regions concurrently (its own block only), then one local allgather
+# combines the lanes. Non-local bytes drop by p_local; messages unchanged.
+# =============================================================================
+def _multilane_allgather(x: torch.Tensor, grid: RankGrid, *,
+                         tiled: bool = False) -> torch.Tensor:
+    r, pl = grid.q, grid.pl
+    lane = _bruck_allgather(x, grid, grid.outer)      # [r, ...] region order
+    allb = _bruck_allgather(lane, grid, grid.local)   # [pl, r, ...]
+    buf = allb.transpose(0, 1).reshape((r * pl,) + tuple(x.shape))
+    return _out(buf, tiled, x.shape)
+
+
+def _multilane_reduce_scatter(ct: torch.Tensor, grid: RankGrid) -> torch.Tensor:
+    r, pl = grid.q, grid.pl
+    xs = tuple(ct.shape[1:])
+    ct = ct.reshape((r, pl) + xs).transpose(0, 1).contiguous()
+    lane = _bruck_reduce_scatter(ct, grid, grid.local)     # [r, ...]
+    return _bruck_reduce_scatter(lane, grid, grid.outer)
+
+
+# =============================================================================
+# Algorithm 2 — locality-aware Bruck allgather (the paper's contribution).
+# =============================================================================
+def _nonlocal_round_geometry(r: int, pl: int, group: int
+                             ) -> tuple[int, int, int]:
+    """Static geometry of one Algorithm-2 non-local round.
+
+    With ``group`` region chunks held per rank, returns ``(active, span,
+    rem)``: the lanes that exchange this round (offsets 0..active-1 name
+    distinct peer regions), the chunks held after the round (``span =
+    min(active·group, r)``), and the chunk count the LAST active lane's peer
+    is actually missing (``rem ∈ (0, group]``; ``rem < group`` only on the
+    wrapped final round of a non-power region count — the allgatherv case).
+    """
+    n_groups = -(-r // group)                 # distinct groups remaining
+    active = min(pl, n_groups)
+    span = min(active * group, r)
+    rem = span - (active - 1) * group
+    return active, span, rem
+
+
+def _nonlocal_rounds(r: int, pl: int) -> list[tuple[int, int, int, int]]:
+    """(group, active, span, rem) of every non-local round."""
+    out, group = [], 1
+    while group < r:
+        active, span, rem = _nonlocal_round_geometry(r, pl, group)
+        out.append((group, active, span, rem))
+        group = span
+    return out
+
+
+def _nonlocal_pairs(r: int, pl: int, group: int, active: int):
+    flat = lambda Rg, lg: Rg * pl + lg
+    last = active - 1
+    full = [(flat(Rg, lg), flat((Rg - lg * group) % r, lg))
+            for Rg in range(r) for lg in range(1, last)]
+    last_pairs = [(flat(Rg, last), flat((Rg - last * group) % r, last))
+                  for Rg in range(r)]
+    return full, last_pairs
+
+
+def _nonlocal_exchange(buf: torch.Tensor, grid: RankGrid, group: int,
+                       active: int, rem: int) -> torch.Tensor:
+    """One Algorithm-2 non-local round, allgatherv-adapted (paper §3).
+
+    Lane ℓ ∈ [1, active) sends to region R - ℓ·group (same lane) and
+    receives from R + ℓ·group. The last active lane's peer is missing only
+    ``rem`` chunks, so on a wrapped final round (``rem < group``) that lane
+    sends exactly the ``rem``-chunk prefix, zero-padded back to ``group``
+    chunks on receipt. The two rounds carry disjoint edge sets: one send
+    per active lane per round.
+    """
+    pl = grid.pl
+    full, last_pairs = _nonlocal_pairs(grid.q, pl, group, active)
+    if rem == group:                      # uniform round: one exchange
+        return ppermute(buf, grid, grid.world, full + last_pairs)
+    part = ppermute(buf[: rem * pl], grid, grid.world, last_pairs)
+    part = F.pad(part, (0, 0) * (buf.ndim - 1) + (0, (group - rem) * pl))
+    if not full:                          # active == 2: only the partial
+        return part
+    recv = ppermute(buf, grid, grid.world, full)
+    return part if grid.l == active - 1 else recv
+
+
+def _nonlocal_exchange_t(ct: torch.Tensor, grid: RankGrid, group: int,
+                         active: int, rem: int) -> torch.Tensor:
+    """Transpose of :func:`_nonlocal_exchange`: the receive's cotangent
+    goes back to the sender, added into the slice it sent."""
+    pl = grid.pl
+    full, last_pairs = _nonlocal_pairs(grid.q, pl, group, active)
+    rev = lambda pairs: [(t, s) for s, t in pairs]
+    if rem == group:
+        return ppermute(ct, grid, grid.world, rev(full + last_pairs))
+    is_last = grid.l == active - 1
+    if full:
+        out = ppermute(torch.zeros_like(ct) if is_last else ct, grid,
+                       grid.world, rev(full))
+        part = ct if is_last else torch.zeros_like(ct)
+    else:
+        out = torch.zeros_like(ct)
+        part = ct
+    back = ppermute(part[: rem * pl], grid, grid.world, rev(last_pairs))
+    out = out.clone()
+    out[: rem * pl] += back
+    return out
+
+
+def _redistribute(buf: torch.Tensor, recv: torch.Tensor, grid: RankGrid,
+                  group: int, active: int, span: int,
+                  x_shape) -> torch.Tensor:
+    """Local allgather of the received units (lane 0 re-contributes its
+    own buffer; lanes ≥ active carry nothing and are dropped), trimmed to
+    the ``span`` chunks held after the round."""
+    pl = grid.pl
+    unit = buf if grid.l == 0 else recv
+    stacked = _bruck_allgather(unit, grid, grid.local)[:active]
+    buf = stacked.reshape((active * group * pl,) + tuple(x_shape))
+    return buf[: span * pl]
+
+
+def _redistribute_t(ct: torch.Tensor, grid: RankGrid, group: int,
+                    active: int, span: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Transpose of :func:`_redistribute`: (cotangent of buf, of recv)."""
+    pl = grid.pl
+    xs = tuple(ct.shape[1:])
+    full = ct.new_zeros((pl * group * pl,) + xs)
+    full[: span * pl] = ct
+    unit = _bruck_reduce_scatter(full.reshape((pl, group * pl) + xs), grid,
+                                 grid.local)
+    zero = torch.zeros_like(unit)
+    return (unit, zero) if grid.l == 0 else (zero, unit)
+
+
+def _canonical(buf: torch.Tensor, grid: RankGrid, tiled: bool,
+               x_shape) -> torch.Tensor:
+    r, pl = grid.q, grid.pl
+    chunks = buf.reshape((r, pl) + tuple(x_shape))
+    chunks = torch.roll(chunks, grid.R, 0)         # canonical region order
+    return _out(chunks.reshape((r * pl,) + tuple(x_shape)), tiled, x_shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SplitMeta:
+    """Static half of a PendingCollective."""
+
+    op: str                        # "allgather" | "allreduce"
+    kind: str                      # "done" | "local_done" | "pending"
+    grid: RankGrid | None = None
+    tiled: bool = False
+    x_shape: tuple[int, ...] = ()
+    group: int = 1                 # locality_bruck: chunks held pre-finish
+    active: int = 1                # locality_bruck: lanes live in last round
+    rem: int = 0                   # chunks the last active lane carried in
+                                   # the final round (rem < group on the
+                                   # allgatherv wrapped round)
+
+
+@dataclasses.dataclass
+class PendingCollective:
+    """An in-flight split collective: its tensors and its static half."""
+
+    arrays: tuple
+    meta: _SplitMeta
+
+
+def _locality_bruck_allgather_start(x: torch.Tensor, grid: RankGrid, *,
+                                    tiled: bool = False) -> PendingCollective:
+    """Algorithm 2, split after the LAST non-local round: every non-local
+    byte is sent when start returns; the final local redistribution and the
+    canonical reordering are left to finish."""
+    if grid.pl == 1:
+        full = _bruck_allgather(x, grid, grid.world, tiled=tiled)
+        return PendingCollective((full,), _SplitMeta("allgather", "done"))
+    shape = tuple(x.shape)
+    buf = _bruck_allgather(x, grid, grid.local)   # Alg. 2 line 1
+    rounds = _nonlocal_rounds(grid.q, grid.pl)
+    if not rounds:
+        return PendingCollective((buf,), _SplitMeta(
+            "allgather", "local_done", grid, tiled, shape))
+    for i, (group, active, span, rem) in enumerate(rounds):
+        recv = _nonlocal_exchange(buf, grid, group, active, rem)
+        if i == len(rounds) - 1:
+            return PendingCollective((buf, recv), _SplitMeta(
+                "allgather", "pending", grid, tiled, shape, group=group,
+                active=active, rem=rem))
+        buf = _redistribute(buf, recv, grid, group, active, span, shape)
+
+
+def _locality_bruck_allgather_finish(pending: PendingCollective
+                                     ) -> torch.Tensor:
+    meta = pending.meta
+    if meta.kind == "done":
+        return pending.arrays[0]
+    grid = meta.grid
+    if meta.kind == "local_done":
+        (buf,) = pending.arrays
+    else:
+        buf, recv = pending.arrays
+        valid = (meta.active - 1) * meta.group + meta.rem
+        if valid != grid.q:
+            raise ValueError(f"pending gather of {valid} regions on a grid "
+                             f"of {grid.q}")
+        buf = _redistribute(buf, recv, grid, meta.group, meta.active, valid,
+                            meta.x_shape)
+    return _canonical(buf, grid, meta.tiled, meta.x_shape)
+
+
+def _locality_bruck_allgather(x: torch.Tensor, grid: RankGrid, *,
+                              tiled: bool = False) -> torch.Tensor:
+    """Paper Algorithm 2 on any region count: a local Bruck allgather,
+    then ceil(log_pl(r)) rounds of one non-local exchange per lane and a
+    local redistribution. The split halves composed, so the eager and the
+    split gathers cannot drift."""
+    return _locality_bruck_allgather_finish(
+        _locality_bruck_allgather_start(x, grid, tiled=tiled))
+
+
+def _locality_bruck_reduce_scatter(ct: torch.Tensor,
+                                   grid: RankGrid) -> torch.Tensor:
+    r, pl = grid.q, grid.pl
+    if pl == 1:
+        return _bruck_reduce_scatter(ct, grid, grid.world)
+    xs = tuple(ct.shape[1:])
+    ct = torch.roll(ct.reshape((r, pl) + xs), -grid.R, 0)
+    ct = ct.reshape((r * pl,) + xs)
+    for group, active, span, rem in reversed(_nonlocal_rounds(r, pl)):
+        ct_buf, ct_recv = _redistribute_t(ct, grid, group, active, span)
+        ct = ct_buf + _nonlocal_exchange_t(ct_recv, grid, group, active, rem)
+    return _bruck_reduce_scatter(ct, grid, grid.local)
+
+
+# =============================================================================
+# Dispatch and autograd
+# =============================================================================
+ALLGATHERS = {
+    "bruck": lambda x, grid, tiled: _bruck_allgather(x, grid, grid.world,
+                                                     tiled=tiled),
+    "ring": lambda x, grid, tiled: _ring_allgather(x, grid, grid.world,
+                                                   tiled=tiled),
+    "hierarchical": lambda x, grid, tiled: _hierarchical_allgather(
+        x, grid, tiled=tiled),
+    "multilane": lambda x, grid, tiled: _multilane_allgather(x, grid,
+                                                             tiled=tiled),
+    "locality_bruck": lambda x, grid, tiled: _locality_bruck_allgather(
+        x, grid, tiled=tiled),
+    "xla": lambda x, grid, tiled: _out(_all_gather(x, grid, grid.world),
+                                       tiled, x.shape),
+}
+
+#: the transpose of each allgather: [p, *shard] -> [*shard]
+REDUCE_SCATTERS = {
+    "bruck": lambda ct, grid: _bruck_reduce_scatter(ct, grid, grid.world),
+    "ring": lambda ct, grid: _ring_reduce_scatter(ct, grid, grid.world),
+    "hierarchical": _hierarchical_reduce_scatter,
+    "multilane": _multilane_reduce_scatter,
+    "locality_bruck": _locality_bruck_reduce_scatter,
+    "xla": lambda ct, grid: _reduce_scatter_sum(
+        ct.reshape(-1), grid, grid.world).reshape(ct.shape[1:]),
+}
+
+#: the schedules whose gather is differentiable (as in the JAX package,
+#: where only they may be differentiated with ``assume_varying``)
+DIFFERENTIABLE = ("bruck", "locality_bruck")
+
+
+def _check_algorithm(algorithm: str, table: dict) -> None:
+    if algorithm == "auto":
+        _not_ported("auto")
+    if algorithm not in table:
+        raise ValueError(f"unknown algorithm {algorithm!r}; known: "
+                         f"{tuple(table)}")
+
+
+class _AllGather(torch.autograd.Function):
+    """allgather whose backward is the schedule's reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, grid, algorithm, tiled):
+        ctx.grid, ctx.algorithm, ctx.x_shape = grid, algorithm, tuple(x.shape)
+        return ALLGATHERS[algorithm](x, grid, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        ct = g.reshape((ctx.grid.p,) + ctx.x_shape).contiguous()
+        return (REDUCE_SCATTERS[ctx.algorithm](ct, ctx.grid), None, None,
+                None)
+
+
+def allgather(x: torch.Tensor, grid: RankGrid, *,
+              algorithm: str = "locality_bruck",
+              tiled: bool = False) -> torch.Tensor:
+    """Gather every rank's ``x`` over the grid, in grid-rank order:
+    [p, *x.shape], or their concatenation along dim 0 when ``tiled``."""
+    _check_algorithm(algorithm, ALLGATHERS)
+    if x.requires_grad and torch.is_grad_enabled():
+        if algorithm not in DIFFERENTIABLE:
+            raise ValueError(f"only the Bruck schedules {DIFFERENTIABLE} are "
+                             f"differentiable, not algorithm={algorithm!r}")
+        return _AllGather.apply(x, grid, algorithm, tiled)
+    return ALLGATHERS[algorithm](x, grid, tiled)
+
+
+def reduce_scatter(y: torch.Tensor, grid: RankGrid, *,
+                   algorithm: str = "locality_bruck") -> torch.Tensor:
+    """Sum-reduce-scatter, the transpose of the chosen allgather: ``y``'s
+    leading dim is divisible by p; rank i ends with the i-th tile of the
+    sum over ranks. The same edges as the gather, reversed, so the
+    locality structure (paper Eq. 4's non-local counts) carries over."""
+    _check_algorithm(algorithm, REDUCE_SCATTERS)
+    p = grid.p
+    if y.ndim == 0 or y.shape[0] % p:
+        raise ValueError(f"leading dim of {tuple(y.shape)} not divisible by "
+                         f"{p}")
+    x_shape = (y.shape[0] // p,) + tuple(y.shape[1:])
+    with torch.no_grad():
+        return REDUCE_SCATTERS[algorithm](
+            y.reshape((p,) + x_shape).contiguous(), grid)
+
+
+# Algorithms eligible for KV-cache migration (see ``cache_migrate``): the
+# locality schedule minimizes inter-pod messages, multilane minimizes
+# per-rank inter-pod bytes, and the library's flat gather is the baseline.
+MIGRATE_ALGORITHMS = ("locality_bruck", "multilane", "xla")
+
+
+def cache_migrate(x: torch.Tensor, grid: RankGrid, *,
+                  algorithm: str = "auto", tiled: bool = True) -> torch.Tensor:
+    """Replicate a sequence-sharded KV-cache slab over the grid: a
+    gatherv-shaped replication where Algorithm 2 applies directly."""
+    if algorithm == "auto":
+        _not_ported("auto")
+    if algorithm not in MIGRATE_ALGORITHMS:
+        raise ValueError(f"cache_migrate algorithm {algorithm!r} not in "
+                         f"{MIGRATE_ALGORITHMS}")
+    return ALLGATHERS[algorithm](x, grid, tiled)
+
+
+# =============================================================================
+# Split (start/finish) collectives
+# =============================================================================
+def allgather_start(x: torch.Tensor, grid: RankGrid, *,
+                    algorithm: str = "locality_bruck",
+                    tiled: bool = False) -> PendingCollective:
+    """Issue an allgather; complete it with :func:`allgather_finish`.
+
+    For ``locality_bruck`` the non-local rounds complete in start; every
+    other algorithm has no local tail to defer, so start runs the whole
+    gather and the split is a program-order hook."""
+    _check_algorithm(algorithm, ALLGATHERS)
+    if algorithm == "locality_bruck":
+        if x.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a differentiable split gather comes with the FSDP training "
+                "slice (ROADMAP.md Queue 1 item 4); use allgather")
+        return _locality_bruck_allgather_start(x, grid, tiled=tiled)
+    full = allgather(x, grid, algorithm=algorithm, tiled=tiled)
+    return PendingCollective((full,), _SplitMeta("allgather", "done"))
+
+
+def allgather_finish(pending: PendingCollective) -> torch.Tensor:
+    """Complete an :func:`allgather_start`; bit-identical to the eager path."""
+    if pending.meta.op != "allgather":
+        raise ValueError(f"not a pending allgather: {pending.meta}")
+    return _locality_bruck_allgather_finish(pending)
+
+
+# =============================================================================
+# Reductions
+# =============================================================================
+REDUCE_BINOPS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+
+
+def _binop(op: str):
+    if op not in REDUCE_BINOPS:
+        raise ValueError(f"unknown reduction op {op!r}; "
+                         f"known: {sorted(REDUCE_BINOPS)}")
+    return REDUCE_BINOPS[op]
+
+
+def _rhd_reduce_scatter(x: torch.Tensor, grid: RankGrid, axis: Axis,
+                        op: str = "sum") -> torch.Tensor:
+    """Recursive-halving reduce-scatter over ``axis`` (XOR partners):
+    log2(p) rounds, round k exchanging 1/2^{k+1} of the buffer; rank i
+    ends with tile i of the reduction."""
+    combine = _binop(op)
+    p, idx = axis.size, axis.index
+    if x.shape[0] % p or p & (p - 1):
+        raise ValueError(f"recursive halving needs a power-of-two size "
+                         f"dividing the leading dim: {p}, {tuple(x.shape)}")
+    buf = x
+    d = p // 2
+    while d >= 1:
+        half = buf.shape[0] // 2
+        bit = (idx & d) != 0
+        # keep the half matching our bit (MSB-first -> final tile = idx)
+        send, keep = (buf[:half], buf[half:]) if bit else (buf[half:],
+                                                           buf[:half])
+        recv = ppermute(send, grid, axis, [(s, s ^ d) for s in range(p)])
+        buf = combine(keep, recv)
+        d //= 2
+    return buf
+
+
+def _rd_allreduce(x: torch.Tensor, grid: RankGrid, axis: Axis,
+                  op: str = "sum") -> torch.Tensor:
+    """Recursive-doubling allreduce over ``axis``, any size: powers of two
+    run log2(p) XOR-partner full-buffer rounds; other sizes fold the p - m
+    surplus ranks (m = largest power of two <= p) into a core partner, run
+    the core, and unfold the result back — log2(m) + 2 rounds. A rank that
+    receives nothing in a round keeps its value (ppermute gives it zeros,
+    which an unmasked max would take)."""
+    combine = _binop(op)
+    p, idx = axis.size, axis.index
+    if p == 1:
+        return x
+    buf = x
+    m = 1 << (p.bit_length() - 1)
+    surplus = p - m
+    if surplus:
+        recv = ppermute(buf, grid, axis, [(s, s - m) for s in range(m, p)])
+        if idx < surplus:
+            buf = combine(buf, recv)
+    d = 1
+    while d < m:
+        recv = ppermute(buf, grid, axis, [(s, s ^ d) for s in range(m)])
+        if idx < m:
+            buf = combine(buf, recv)
+        d *= 2
+    if surplus:
+        recv = ppermute(buf, grid, axis, [(s, s + m) for s in range(surplus)])
+        if idx >= m:
+            buf = recv
+    return buf
+
+
+def _locality_allreduce(x: torch.Tensor, grid: RankGrid, *,
+                        outer_algorithm: str = "rhd",
+                        op: str = "sum") -> torch.Tensor:
+    """Locality-aware allreduce: local reduce-scatter → per-lane allreduce
+    across regions → local allgather (Bruck).
+
+    ``outer_algorithm``: "rhd" (recursive halving + Bruck gather; on a
+    non-power region count the Bruck-transpose reduce-scatter), "rd"
+    (recursive doubling, fold/unfold for non-powers) or "psum" (the
+    library's allreduce). Non-sum ops skip the scatter structure: local
+    then per-lane outer recursive doubling. Any shape (flattened and
+    padded internally)."""
+    r, pl = grid.q, grid.pl
+    if op != "sum":
+        _binop(op)
+        if pl > 1:
+            x = _rd_allreduce(x, grid, grid.local, op=op)
+        if r > 1:
+            x = _rd_allreduce(x, grid, grid.outer, op=op)
+        return x
+    shape = x.shape
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = (-n) % pl
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    part = _reduce_scatter_sum(flat, grid, grid.local) if pl > 1 else flat
+    if r > 1:
+        if outer_algorithm == "rhd":
+            npart = part.shape[0]
+            pad2 = (-npart) % r
+            if pad2:
+                part = F.pad(part, (0, pad2))
+            if r & (r - 1):
+                rs = _bruck_reduce_scatter(part.reshape(r, -1), grid,
+                                           grid.outer)
+            else:
+                rs = _rhd_reduce_scatter(part, grid, grid.outer)
+            part = _bruck_allgather(rs, grid, grid.outer, tiled=True)
+            if pad2:
+                part = part[:npart]
+        elif outer_algorithm == "rd":
+            part = _rd_allreduce(part, grid, grid.outer)
+        elif outer_algorithm == "psum":
+            part = _all_reduce(part, grid, grid.outer, "sum")
+        else:
+            raise ValueError(f"unknown outer_algorithm {outer_algorithm!r}")
+    full = _bruck_allgather(part, grid, grid.local, tiled=True) if pl > 1 \
+        else part
+    if pad:
+        full = full[:n]
+    return full.reshape(shape)
+
+
+def allreduce(x: torch.Tensor, grid: RankGrid, *, algorithm: str = "locality",
+              outer_algorithm: str = "rhd", op: str = "sum") -> torch.Tensor:
+    """Allreduce: 'locality' (paper-structured) or 'xla' (the library's
+    allreduce with ``op``)."""
+    _binop(op)
+    if algorithm == "auto":
+        _not_ported("auto")
+    if algorithm == "xla" or grid.pl == 1:
+        return _all_reduce(x, grid, grid.world, op)
+    if algorithm == "locality":
+        return _locality_allreduce(x, grid, outer_algorithm=outer_algorithm,
+                                   op=op)
+    raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
+
+
+def allreduce_start(x: torch.Tensor, grid: RankGrid, *,
+                    algorithm: str = "locality", outer_algorithm: str = "rhd",
+                    op: str = "sum") -> PendingCollective:
+    """Issue an allreduce; complete it with :func:`allreduce_finish`. The
+    rounds form one dependency chain, so start runs the whole reduction."""
+    red = allreduce(x, grid, algorithm=algorithm,
+                    outer_algorithm=outer_algorithm, op=op)
+    return PendingCollective((red,), _SplitMeta("allreduce", "done"))
+
+
+def allreduce_finish(pending: PendingCollective) -> torch.Tensor:
+    if pending.meta.op != "allreduce":
+        raise ValueError(f"not a pending allreduce: {pending.meta}")
+    return pending.arrays[0]
+
+
+# =============================================================================
+# Unified collective surface — one entry point, one vocabulary
+# =============================================================================
+#: Canonical collective kinds, as in the JAX package ("combine" is the
+#: decode logsumexp cache-combine; "logsumexp_combine" is its alias).
+KINDS = ("allgather", "allreduce", "reduce_scatter", "all_to_all",
+         "cache_migrate", "combine")
+
+#: The algorithm vocabulary per kind: the JAX package's strings.
+ALGORITHMS_BY_KIND = {
+    "allgather": ("bruck", "ring", "hierarchical", "multilane",
+                  "locality_bruck", "xla", "auto"),
+    "allreduce": ("locality", "xla", "auto"),
+    "reduce_scatter": ("bruck", "ring", "hierarchical", "multilane",
+                       "locality_bruck", "xla"),
+    "all_to_all": ("locality", "xla", "auto"),
+    "cache_migrate": ("locality_bruck", "multilane", "xla", "auto"),
+    "combine": ("locality", "xla", "auto"),
+}
+
+#: Per-kind default when ``algorithm`` is omitted.
+DEFAULT_ALGORITHM = {
+    "allgather": "locality_bruck", "allreduce": "locality",
+    "reduce_scatter": "locality_bruck", "all_to_all": "locality",
+    "cache_migrate": "auto", "combine": "locality",
+}
+
+_KIND_ALIASES = {"logsumexp_combine": "combine"}
+
+
+def _norm_kind(kind: str) -> str:
+    kind = _KIND_ALIASES.get(kind, kind)
+    if kind not in KINDS:
+        raise ValueError(f"unknown collective kind {kind!r}; known: {KINDS}")
+    return kind
+
+
+def collective(kind: str, *operands: torch.Tensor, grid: RankGrid,
+               algorithm: str | None = None, start: bool = False, **kwargs):
+    """The single collective entry point (thin dispatch, no new math).
+
+    ``collective(kind, x, grid=grid, algorithm=...)`` runs the named family
+    eagerly; ``start=True`` returns a :class:`PendingCollective` to complete
+    with :func:`finish`. Remaining ``kwargs`` (``tiled``, ``op``,
+    ``outer_algorithm``) pass through to the family function."""
+    kind = _norm_kind(kind)
+    if algorithm is None:
+        algorithm = DEFAULT_ALGORITHM[kind]
+    if algorithm not in ALGORITHMS_BY_KIND[kind]:
+        raise ValueError(
+            f"unknown algorithm {algorithm!r} for kind {kind!r}; known: "
+            f"{ALGORITHMS_BY_KIND[kind]}")
+    if kind in ("all_to_all", "combine"):
+        _not_ported(kind)
+    (x,) = operands
+    if kind == "reduce_scatter":
+        if start:
+            raise NotImplementedError(
+                "reduce_scatter has no start/finish split (its rounds form "
+                "one dependency chain ending at the caller)")
+        return reduce_scatter(x, grid, algorithm=algorithm, **kwargs)
+    eager, starter = {
+        "allgather": (allgather, allgather_start),
+        "allreduce": (allreduce, allreduce_start),
+        "cache_migrate": (cache_migrate, None),
+    }[kind]
+    if start:
+        if starter is None:
+            raise NotImplementedError(f"{kind} has no start/finish split")
+        return starter(x, grid, algorithm=algorithm, **kwargs)
+    return eager(x, grid, algorithm=algorithm, **kwargs)
+
+
+def finish(pending: PendingCollective, *operands: torch.Tensor):
+    """Complete any ``collective(..., start=True)``."""
+    if operands:
+        raise ValueError(f"{pending.meta.op} takes no operands at finish")
+    return {"allgather": allgather_finish,
+            "allreduce": allreduce_finish}[pending.meta.op](pending)
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """A configured collective: kind + algorithm + grid bound once, applied
+    many times — ``Collective("allgather", grid)`` then ``c(x)`` /
+    ``c.start(x)`` + ``c.finish(pending)``. Sugar over :func:`collective`."""
+
+    kind: str
+    grid: RankGrid
+    algorithm: str | None = None
+
+    def __post_init__(self):
+        _norm_kind(self.kind)
+
+    def __call__(self, *operands, **kwargs):
+        return collective(self.kind, *operands, grid=self.grid,
+                          algorithm=self.algorithm, **kwargs)
+
+    def start(self, *operands, **kwargs) -> PendingCollective:
+        return self(*operands, start=True, **kwargs)
+
+    @staticmethod
+    def finish(pending: PendingCollective, *operands):
+        return finish(pending, *operands)

@@ -1,0 +1,180 @@
+"""Topology / region abstractions for locality-aware collectives.
+
+A *region* (paper §2.1) is a set of ranks within which communication is
+cheap (intra-node or intra-socket on MPI clusters, the GPUs of one NVLink
+host here). Ranks are numbered region-major: grid rank = region * p_local +
+local_rank, as in the JAX package's ("pod", "local") mesh axes.
+
+``RegionMap``, ``ceil_log``, ``rd_rounds`` and ``is_power_of`` are
+transcribed from ``src/repro/core/topology.py``. ``RankGrid`` takes the
+place of its mesh helpers: ``q`` pods x ``pl`` lanes over a
+``torch.distributed`` group, with this rank's ``(R, l)`` and the process
+groups of its pod and its lane.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from .comm_record import CommRecorder
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionMap:
+    """Maps flat ranks <-> (region, local_rank) for a two-level hierarchy."""
+
+    p: int          # total ranks
+    p_local: int    # ranks per region
+
+    def __post_init__(self):
+        if self.p % self.p_local != 0:
+            raise ValueError(f"p={self.p} not divisible by p_local={self.p_local}")
+
+    @property
+    def n_regions(self) -> int:
+        return self.p // self.p_local
+
+    def region_of(self, rank: int) -> int:
+        return rank // self.p_local
+
+    def local_rank_of(self, rank: int) -> int:
+        return rank % self.p_local
+
+    def rank_of(self, region: int, local_rank: int) -> int:
+        return (region % self.n_regions) * self.p_local + (local_rank % self.p_local)
+
+    def is_local(self, src: int, dst: int) -> bool:
+        return self.region_of(src) == self.region_of(dst)
+
+
+def ceil_log(base: int, x: int) -> int:
+    """ceil(log_base(x)) computed exactly with integers."""
+    if x <= 1:
+        return 0
+    steps, cover = 0, 1
+    while cover < x:
+        cover *= base
+        steps += 1
+    return steps
+
+
+def rd_rounds(n: int) -> int:
+    """Message rounds of the non-power-capable recursive-doubling allreduce
+    (``collectives._rd_allreduce``): log2(n) for powers of two, otherwise
+    log2(m) + 2 for the fold/unfold adaptation (m = largest power of two
+    below n: one fold round, the power-of-two core, one unfold round)."""
+    if n <= 1:
+        return 0
+    lg = ceil_log(2, n)
+    return lg if n & (n - 1) == 0 else (lg - 1) + 2
+
+
+def is_power_of(base: int, x: int) -> bool:
+    if x < 1:
+        return False
+    while x % base == 0:
+        x //= base
+    return x == 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One communication axis of a :class:`RankGrid`, seen from this rank:
+    the counterpart of a tuple of JAX mesh axis names inside ``shard_map``.
+
+    ``members`` are grid ranks in axis order (``lax.axis_index`` order) and
+    ``index`` is this rank's position among them; ``group`` is the process
+    group over the members, for the group collectives."""
+
+    name: str                      # "world", "local" (pod) or "outer" (lane)
+    members: tuple[int, ...]
+    index: int
+    group: dist.ProcessGroup
+
+    @property
+    def size(self) -> int:
+        return len(self.members)
+
+
+class RankGrid:
+    """``q`` pods x ``pl`` lanes of ``torch.distributed`` ranks.
+
+    Grid rank ``R * pl + l`` is global rank ``ranks[R * pl + l]``. Three
+    axes: ``world`` (all q·pl ranks, the JAX ``outer + local`` axes),
+    ``local`` (the pl ranks of this rank's pod) and ``outer`` (the q ranks
+    of this rank's lane, one per pod). ``recorder`` counts every message
+    the port's collectives send from this rank (``comm_record``).
+
+    Build it with :meth:`build`, which every rank of the default group must
+    call with the same arguments, in the same order as any other group
+    creation (``dist.new_group`` demands it).
+    """
+
+    def __init__(self, q: int, pl: int, ranks: tuple[int, ...], rank: int,
+                 world: Axis, local: Axis, outer: Axis):
+        self.q, self.pl, self.p = q, pl, q * pl
+        self.ranks = ranks
+        self.rank = rank
+        self.R, self.l = divmod(rank, pl)
+        self.world, self.local, self.outer = world, local, outer
+        self.group = world.group
+        self.backend = dist.get_backend(self.group)
+        self.device = torch.device("cuda" if self.backend == "nccl" else "cpu")
+        self.recorder = CommRecorder(pl)
+
+    def __repr__(self) -> str:
+        return (f"RankGrid(q={self.q}, pl={self.pl}, rank={self.rank}, "
+                f"R={self.R}, l={self.l}, backend={self.backend})")
+
+    def global_rank(self, grid_rank: int) -> int:
+        return self.ranks[grid_rank]
+
+    @classmethod
+    def build(cls, q: int, pl: int, ranks=None) -> RankGrid | None:
+        """Make the grid over global ``ranks`` (default: the first q·pl of
+        the default group). Returns None on a rank outside the grid."""
+        if q < 1 or pl < 1:
+            raise ValueError(f"grid {q} x {pl}")
+        p = q * pl
+        ranks = tuple(range(p)) if ranks is None else tuple(ranks)
+        if len(ranks) != p or list(ranks) != sorted(set(ranks)):
+            raise ValueError(f"grid {q} x {pl} needs {p} increasing ranks "
+                             f"(the groups' rank order), got {ranks}")
+        if max(ranks) >= dist.get_world_size():
+            raise ValueError(f"ranks {ranks} exceed the world of "
+                             f"{dist.get_world_size()}")
+        me = dist.get_rank()
+        grid_group = dist.new_group(list(ranks))
+        pods = [dist.new_group([ranks[R * pl + l] for l in range(pl)])
+                for R in range(q)]
+        lanes = [dist.new_group([ranks[R * pl + l] for R in range(q)])
+                 for l in range(pl)]
+        if me not in ranks:
+            return None
+        rank = ranks.index(me)
+        R, l = divmod(rank, pl)
+        grid = cls(q, pl, ranks, rank,
+                   Axis("world", tuple(range(p)), rank, grid_group),
+                   Axis("local", tuple(R * pl + j for j in range(pl)), l,
+                        pods[R]),
+                   Axis("outer", tuple(j * pl + l for j in range(q)), R,
+                        lanes[l]),)
+        if grid.backend == "nccl" and p > 1:
+            grid._first_batch()
+        return grid
+
+    def _first_batch(self) -> None:
+        """NCCL needs every rank of a group in the group's first
+        ``batch_isend_irecv``; the collectives' rounds may leave ranks out
+        (hierarchical's master rounds), so one ring round goes first."""
+        send = torch.zeros(1, device=self.device)
+        recv = torch.empty_like(send)
+        nxt = self.ranks[(self.rank + 1) % self.p]
+        prv = self.ranks[(self.rank - 1) % self.p]
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, nxt, self.group),
+            dist.P2POp(dist.irecv, recv, prv, self.group)])
+        for r in reqs:
+            r.wait()

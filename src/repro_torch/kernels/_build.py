@@ -45,6 +45,12 @@ SIGNATURES = {
                               _I, _I, _I, _F, _I, _P],
     # s, m, v, o, l, B, KV, G, L, D, v_dtype, stream
     "repro_decode_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, buf, p, block_bytes, row_bytes, vec, stream
+    "repro_dma_ag_init": [_P, _P, _I, _LL, _LL, _I, _P],
+    # buf, table, p, R, r, size_bytes, block_bytes, row_bytes, vec, stream
+    "repro_dma_ag_round": [_P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _P],
+    # buf, perm, out, p, block_bytes, row_bytes, vec, stream
+    "repro_dma_ag_gather": [_P, _P, _P, _I, _LL, _LL, _I, _P],
 }
 
 # dtype codes shared with csrc/common.cuh

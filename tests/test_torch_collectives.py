@@ -1,0 +1,293 @@
+"""The port's collectives on 16 spawned gloo ranks (CPU), against numpy, the
+paper's counts, and the JAX package.
+
+One pool of 16 ranks serves the module (``torch_helpers.RankPool``); a grid
+of q pods x pl lanes runs on its first q·pl ranks. Inputs are
+integer-valued, so fp32 and bf16 sums are exact in any order and every
+comparison is exact:
+
+* every algorithm's gather, reduce-scatter, allreduce and cache migration
+  equal the numpy truth on every grid, and start/finish equals eager;
+* per rank, the recorder's non-local messages and bytes equal the schedule
+  oracle's (``schedules.per_rank_stats``), and their maxima the paper's
+  Eq. 3 (Bruck: ceil(log2 p)) and Eq. 4 (locality: ceil(log_pl q));
+* on (4, 4) and (3, 4), one JAX subprocess with 16 forced host devices runs
+  ``repro.core.collectives`` on the same inputs: each rank's output equals
+  the JAX device's, and the recorder's local and non-local edge, message
+  and byte counts, summed over the ranks, equal ``collective_stats`` of the
+  compiled HLO. The ring's rounds are one ``lax.scan`` body, which the HLO
+  counts once, so for the ring the port counts p-1 times the HLO.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import torch_helpers as H
+from repro_torch.core import schedules as TS
+from repro_torch.core.topology import RegionMap, ceil_log
+
+GRIDS = [(4, 4), (2, 4), (3, 4), (5, 2), (6, 2)]
+JAX_GRIDS = [(4, 4), (3, 4)]
+ALGS = ["bruck", "ring", "hierarchical", "multilane", "locality_bruck", "xla"]
+ALLREDUCES = [("locality", "rhd"), ("locality", "rd"), ("locality", "psum"),
+              ("xla", "rhd")]
+SHARD = (2, 3)
+
+REPO = Path(__file__).resolve().parents[1]
+
+JAX_REFERENCE = r"""
+import json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.core import collectives as C
+from repro.core.hlo_analysis import collective_stats
+from repro.core.topology import device_pod_map
+sys.path.insert(0, sys.argv[2])
+from torch_helpers import ints
+
+programs = json.loads(sys.argv[3])
+arrays, stats = {}, {}
+for q, pl in json.loads(sys.argv[4]):
+    p = q * pl
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:p]).reshape(q, pl),
+                             ("pod", "local"))
+    pods = device_pod_map(mesh, ("pod",))
+    spec = P(("pod", "local"))
+    inputs = {"allgather": ints(0, (p, 2, 3)),
+              "reduce_scatter": ints(1, (p, p * 2, 3)),
+              "allreduce": ints(2, (p, 5, 3))}
+    for kind, alg, outer, op in programs:
+        if kind == "allgather":
+            fn = lambda s, a=alg: C.allgather(s, "pod", "local", algorithm=a,
+                                              tiled=True)
+        elif kind == "reduce_scatter":
+            fn = lambda s, a=alg: C.reduce_scatter(s, "pod", "local",
+                                                   algorithm=a)
+        else:
+            fn = lambda s, a=alg, o=outer, r=op: C.allreduce(
+                s, "pod", "local", algorithm=a, outer_algorithm=o, op=r)
+        x = inputs[kind]
+        f = jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=spec,
+                                  out_specs=spec))
+        xg = jnp.asarray(x.reshape((-1,) + x.shape[2:]))
+        out = np.asarray(f(xg))
+        key = f"{kind}|{q}x{pl}|{alg}|{outer}|{op}"
+        arrays[key] = out.reshape((p, -1) + out.shape[1:])
+        st = collective_stats(f.lower(xg).compile().as_text(), pods)
+        stats[key] = {k: getattr(st, k) for k in (
+            "permute_edges_local", "permute_edges_nonlocal",
+            "permute_bytes_local", "permute_bytes_nonlocal",
+            "group_msgs_local", "group_msgs_nonlocal",
+            "group_bytes_local", "group_bytes_nonlocal")}
+np.savez(sys.argv[1] + "/outputs.npz", **arrays)
+with open(sys.argv[1] + "/stats.json", "w") as fh:
+    json.dump(stats, fh)
+"""
+
+JAX_PROGRAMS = ([("allgather", a, "-", "-") for a in ALGS]
+                + [("reduce_scatter", a, "-", "-") for a in ALGS]
+                + [("allreduce", a, o, op) for a, o in ALLREDUCES
+                   for op in ("sum", "max", "min")
+                   if op == "sum" or o == "rhd"])
+
+
+def _key(kind, q, pl, alg, outer, op):
+    return f"{kind}|{q}x{pl}|{alg}|{outer}|{op}"
+
+
+@pytest.fixture(scope="module")
+def jax_proc(tmp_path_factory):
+    """The JAX reference, started first so it runs while the ranks start."""
+    out = tmp_path_factory.mktemp("jax_reference")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=16",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
+    with open(out / "log.txt", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", JAX_REFERENCE, str(out),
+             str(REPO / "tests"), json.dumps(JAX_PROGRAMS),
+             json.dumps(JAX_GRIDS)],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+    yield proc, out
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def pool(jax_proc):
+    p = H.RankPool(H.WORLD)
+    yield p
+    p.close()
+
+
+@pytest.fixture(scope="module")
+def jax_ref(jax_proc):
+    proc, out = jax_proc
+    rc = proc.wait(timeout=600)
+    assert rc == 0, (out / "log.txt").read_text()[-4000:]
+    return (dict(np.load(out / "outputs.npz")),
+            json.loads((out / "stats.json").read_text()))
+
+
+def _sum_stats(res, p) -> dict:
+    return {k: sum(res[r]["stats"][k] for r in range(p))
+            for k in res[0]["stats"]}
+
+
+# ---------------------------------------------------------------------------
+# against the numpy truth, every grid
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", H.DTYPES)
+@pytest.mark.parametrize("algorithm", ALGS)
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_allgather_every_algorithm(pool, grid, algorithm, dtype):
+    q, pl = grid
+    p = q * pl
+    x = H.ints(0, (p,) + SHARD)
+    res = pool.run(H.task_allgather, q, pl, algorithm, dtype, SHARD, 0)
+    for r in range(p):
+        np.testing.assert_array_equal(res[r]["tiled"], x.reshape(p * 2, 3))
+        np.testing.assert_array_equal(res[r]["stacked"], x)
+        assert res[r]["split_equal"], f"rank {r}: start/finish != eager"
+    assert all(v is None for v in res[p:])
+
+
+@pytest.mark.parametrize("dtype", H.DTYPES)
+@pytest.mark.parametrize("algorithm", ALGS)
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_reduce_scatter_every_algorithm(pool, grid, algorithm, dtype):
+    q, pl = grid
+    p = q * pl
+    y = H.ints(1, (p, p * 2, 3))
+    truth = y.sum(0).reshape((p,) + SHARD)
+    res = pool.run(H.task_reduce_scatter, q, pl, algorithm, dtype, SHARD, 1)
+    for r in range(p):
+        np.testing.assert_array_equal(res[r]["out"], truth[r])
+
+
+@pytest.mark.parametrize("dtype", H.DTYPES)
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_allreduce_every_structure(pool, grid, op, dtype):
+    q, pl = grid
+    p = q * pl
+    z = H.ints(2, (p, 5, 3))
+    truth = {"sum": z.sum(0), "max": z.max(0), "min": z.min(0)}[op]
+    for algorithm, outer in ALLREDUCES:
+        res = pool.run(H.task_allreduce, q, pl, algorithm, outer, op, dtype,
+                       (5, 3), 2)
+        for r in range(p):
+            np.testing.assert_array_equal(res[r]["out"], truth,
+                                          err_msg=f"{algorithm}/{outer}")
+            assert res[r]["split_equal"]
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_cache_migrate_every_algorithm(pool, grid):
+    q, pl = grid
+    p = q * pl
+    x = H.ints(3, (p, 3, 2))
+    res = pool.run(H.task_cache_migrate, q, pl, "bfloat16", 3)
+    for r in range(p):
+        assert sorted(res[r]) == ["locality_bruck", "multilane", "xla"]
+        for alg, out in res[r].items():
+            np.testing.assert_array_equal(out, x.reshape(p * 3, 2),
+                                          err_msg=alg)
+
+
+@pytest.mark.parametrize("algorithm", ["bruck", "locality_bruck"])
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_allgather_gradient_is_the_reduce_scatter(pool, grid, algorithm):
+    """d/dx sum(allgather(x)²) = 2·p·x (tests/test_distributed.py:46-51)."""
+    q, pl = grid
+    p = q * pl
+    res = pool.run(H.task_grad, q, pl, algorithm, 4)
+    for r in range(p):
+        np.testing.assert_array_equal(res[r]["grad"], 2 * p * res[r]["x"])
+
+
+@pytest.mark.parametrize("grid", [(4, 4), (3, 4), (6, 2)],
+                         ids=lambda g: f"{g[0]}x{g[1]}")
+def test_collective_vocabulary_and_unported_kinds(pool, grid):
+    q, pl = grid
+    res = pool.run(H.task_vocabulary, q, pl, 5)
+    for r in range(q * pl):
+        assert all(res[r]["same"].values()), res[r]["same"]
+        err = res[r]["errors"]
+        for name in ("all_to_all", "combine", "logsumexp_combine"):
+            assert err[name][0] == "NotImplementedError", (name, err[name])
+        assert "MoE slice" in err["all_to_all"][1]
+        assert "multi-rank serving" in err["combine"][1]
+        for name in ("auto", "auto_default_migrate", "auto_allreduce"):
+            assert err[name][0] == "NotImplementedError"
+            assert "tuning slice" in err[name][1]
+        assert err["rs_start"][0] == "NotImplementedError"
+        for name in ("unknown_kind", "unknown_alg", "grad_ring",
+                     "meta_tensor"):
+            assert err[name][0] == "ValueError", (name, err[name])
+        assert "gloo" in err["meta_tensor"][1]
+
+
+# ---------------------------------------------------------------------------
+# against the schedule oracle and the paper
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("algorithm",
+                         ["bruck", "ring", "multilane", "locality_bruck"])
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_nonlocal_counts_match_oracle_and_paper(pool, grid, algorithm):
+    q, pl = grid
+    p = q * pl
+    region = RegionMap(p, pl)
+    oracle = TS.ALGORITHMS[algorithm](p, pl).per_rank_stats(region)
+    res = pool.run(H.task_paper_counts, q, pl, algorithm)
+    block = 3 * 4                        # a (3,) fp32 shard
+    for r in range(p):
+        _, _, n_nl, s_nl = oracle[r]
+        assert (res[r]["nonlocal_msgs"], res[r]["nonlocal_bytes"]) == \
+            (n_nl, s_nl * block), f"rank {r}"
+    worst = max(res[r]["nonlocal_msgs"] for r in range(p))
+    if algorithm == "locality_bruck":
+        assert worst == ceil_log(pl, q)            # paper Eq. 4
+    if algorithm == "bruck":
+        assert worst == ceil_log(2, p)             # paper Eq. 3
+
+
+# ---------------------------------------------------------------------------
+# against the JAX package (outputs and HLO collective stats)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("program", JAX_PROGRAMS,
+                         ids=lambda t: "-".join(v for v in t if v != "-"))
+@pytest.mark.parametrize("grid", JAX_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_outputs_and_records_equal_jax(pool, jax_ref, grid, program):
+    arrays, stats = jax_ref
+    q, pl = grid
+    p = q * pl
+    kind, alg, outer, op = program
+    if kind == "allgather":
+        res = pool.run(H.task_allgather, q, pl, alg, "float32", SHARD, 0)
+        outs = [res[r]["tiled"] for r in range(p)]
+    elif kind == "reduce_scatter":
+        res = pool.run(H.task_reduce_scatter, q, pl, alg, "float32", SHARD,
+                       1)
+        outs = [res[r]["out"] for r in range(p)]
+    else:
+        res = pool.run(H.task_allreduce, q, pl, alg, outer, op, "float32",
+                       (5, 3), 2)
+        outs = [res[r]["out"] for r in range(p)]
+    key = _key(kind, q, pl, alg, outer, op)
+    for r in range(p):
+        np.testing.assert_array_equal(outs[r], arrays[key][r],
+                                      err_msg=f"rank {r}")
+    want = stats[key]
+    if alg == "ring":                  # the HLO counts the scan body once
+        want = {k: v * (p - 1) for k, v in want.items()}
+    assert _sum_stats(res, p) == want
+    assert want["permute_edges_nonlocal"] + want["group_msgs_nonlocal"] > 0

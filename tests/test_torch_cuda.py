@@ -5,12 +5,14 @@ Marked ``gpu``: they skip where no CUDA device is visible and run with
 H100 and ``nvcc`` (the kernels build at first use). This file imports no
 JAX, so it runs where only PyTorch is installed. Tolerances: fp32 rmsnorm
 1e-5, fp32 attention and decode stats 1e-4 (the kernels sum in another
-order); bf16 outputs 2e-2 (one bf16 ulp at 4 is 1.6e-2).
+order); bf16 outputs 2e-2 (one bf16 ulp at 4 is 1.6e-2); the DMA allgather
+copies bytes and is held equal.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.decode_stats import ops as stats_ops
+from repro_torch.kernels.dma_allgather import ops as dma_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import attention as tattention
@@ -97,3 +99,45 @@ def test_decode_stats_kernel_on_card(cuda, dtype, dims):
     ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
     torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+# (q, pl, shard, dtype): every vector width of the copy (16, 8, 4, 2 and 1
+# bytes per block), non-power q, and the paper's 64-rank small messages
+DMA_CASES = [
+    (4, 4, (1000,), torch.bfloat16),     # 2000-byte blocks: 16-byte vectors
+    (4, 4, (2, 3), torch.float32),       # 24: 8-byte
+    (3, 4, (5,), torch.float32),         # 20: 4-byte, non-power q
+    (3, 4, (3,), torch.bfloat16),        # 6: 2-byte, non-power q
+    (6, 2, (7,), torch.uint8),           # 7: bytes
+    (8, 8, (256,), torch.float32),       # 1 KiB, 64 ranks
+    (5, 3, (33, 3), torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm",
+                         ["bruck", "ring", "multilane", "locality_bruck"])
+@pytest.mark.parametrize("case", DMA_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}-{c[2]}-{c[3]}")
+def test_dma_allgather_kernel_on_card(cuda, case, algorithm):
+    q, pl, shard, dtype = case
+    p = q * pl
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randint(0, 200, (p,) + shard, generator=g, device=cuda,
+                      dtype=torch.int32).to(dtype)
+    sched = dma_ops.build_schedule(
+        algorithm, p, None if algorithm in ("bruck", "ring") else pl)
+    before = dma_ops.LAUNCHES
+    out = dma_ops.dma_locality_allgather(x, q, pl, algorithm=algorithm)
+    torch.cuda.synchronize()
+    assert dma_ops.LAUNCHES == before + len(sched.sizes) + 2
+    assert torch.equal(out, dma_ops.dma_allgather_ref(x, sched))
+    assert torch.equal(out, x.unsqueeze(0).expand((p,) + x.shape))
+
+
+@pytest.mark.gpu
+def test_dma_allgather_refuses_a_strided_input(cuda):
+    sched = dma_ops.build_schedule("locality_bruck", 16, 4)
+    x = torch.zeros(8, 32, device=cuda).t()[:16]
+    with pytest.raises(ValueError, match="contiguous"):
+        dma_ops.dma_allgather(x, sched)

@@ -46,7 +46,12 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "launch.serve" in " ".join(_modules())
+    names = " ".join(_modules())
+    for mod in ("launch.serve", "core.topology", "core.schedules",
+                "core.cost_model", "core.autotune", "core.comm_record",
+                "core.collectives", "kernels.dma_allgather.schedule_compile",
+                "kernels.dma_allgather.ref", "kernels.dma_allgather.ops"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def test_source_scan_finds_no_jax_import():
@@ -98,7 +103,8 @@ def test_wrappers_refuse_mixed_devices_and_bad_dtypes():
 
 def test_build_is_keyed_by_sources_into_an_ignored_directory():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
-    assert {"rmsnorm.cu", "flash_attention.cu", "decode_stats.cu"} <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_stats.cu",
+            "dma_allgather.cu"} <= names
     assert len(_build._key()) == 16
     assert _build.BUILD_ROOT.relative_to(REPO) == Path("build",
                                                        "repro_torch_kernels")
@@ -108,7 +114,8 @@ def test_build_is_keyed_by_sources_into_an_ignored_directory():
 def test_cuda_source_notes_name_the_tpu_kernel_they_replace():
     for name, tpu in [("rmsnorm", "_rmsnorm_kernel"),
                       ("flash_attention", "_flash_kernel"),
-                      ("decode_stats", "_stats_kernel")]:
+                      ("decode_stats", "_stats_kernel"),
+                      ("dma_allgather", "_ag_kernel")]:
         head = (_build.CSRC / f"{name}.cu").read_text()[:2500]
         assert "Replaces:" in head and tpu in head
         assert "Bound on the H100" in head and "Design:" in head
