@@ -15,9 +15,13 @@ the package is missing. Phases, each fatal on failure:
    1e-4 for the other summation order; bf16 outputs 2e-2 against the plain
    version in bf16, one bf16 ulp at 4 being 1.6e-2, and atol 4e-3 plus
    rtol 8e-3, a few bf16 ulps of |out|, against the plain version in fp32
-   on the same bf16 inputs, since the kernels compute in fp32), each timed with CUDA events on a cold L2 beside its
-   plain version, a PyTorch library call where one computes the same
-   function (timed here only; the port never calls it), and its bound;
+   on the same bf16 inputs, since the kernels compute in fp32; the SSD
+   scan's fp32 outputs max |y - y_ref| / max |y_ref| < 1e-4 and max |h -
+   h_ref| / max |h_ref| < 1e-4 at the mamba2-780m prefill shapes, S = 512, 300 and 2048,
+   and one G = 2, N = 64 case), each timed with CUDA events on a cold L2
+   beside its plain version, a PyTorch library call where one computes the
+   same function (timed here only; the port never calls it), and its
+   bound;
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -29,16 +33,24 @@ the package is missing. Phases, each fatal on failure:
    only) and its bound; then the slice's main path, one
    ``dma_locality_allgather`` at the 16-rank FSDP size, with its launch
    count (rounds + 2);
-3. a reduced llama3.2-3b (fp32, 4 layers) with the same parameters on the
-   CPU (plain versions) and on the card (kernels): logits after prefill and
-   8 decode steps within 1e-3, equal greedy tokens, equal engine tokens;
+3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
+   (fp32, 3 layers), each with the same parameters on the CPU (plain
+   versions) and on the card (kernels): logits after prefill and 8 decode
+   steps within 1e-3, equal greedy tokens, equal engine tokens;
 4. llama3.2-3b at full width (28 layers, d_model 3072, vocab 128256) with
    random bf16 weights from seed 0: an Engine(batch=8, cache_len=1024)
-   drains 16 requests; every kernel's launch count must be what the path
-   implies (rmsnorm 57 per forward, flash 28 per prefill, decode stats 28
-   per decode step) and every step's logits finite; then torch.profiler
-   over 5 decode steps with 8 live rows (device busy time, idle share, the
-   kernels that take the time).
+   drains 16 requests (64-512 prompt tokens, 16-64 new); every kernel's
+   launch count must be what the path implies (rmsnorm 57 per forward,
+   flash 28 per prefill, decode stats 28 per decode step, ssd 0) and every
+   step's logits finite; then torch.profiler over two 512-token prefills
+   and over 5 decode steps with 8 live rows (device busy time, idle share,
+   the kernels that take the time);
+5. the same for mamba2-780m at full width (48 layers, d_model 1536, 48 SSD
+   heads of P = 64, N = 128, vocab 50280): rmsnorm 97 per forward, ssd 48
+   per prefill, flash and decode stats 0.
+
+Every kernel's launches are counted from 0 just before each main path
+(the DMA gather, phase 4, phase 5) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -46,6 +58,7 @@ nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -170,8 +183,7 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
 
     for dtype in (torch.bfloat16, torch.float32):
         tol = 2e-2 if dtype == torch.bfloat16 else None
-        for rows in (8, 512):
-            d = 3072
+        for rows, d in ((8, 3072), (512, 3072), (8, 1536), (512, 1536)):
             x, sc = randn(rows, d).to(dtype), (randn(d) * 0.2).to(dtype)
             y, what = rms_ops.rmsnorm(x, sc), f"rmsnorm {dtype} ({rows},{d})"
             err = close(y, rms_ops.rmsnorm_ref(x, sc), tol or 1e-5, what)
@@ -263,6 +275,72 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     return cases
 
 
+# SSD: fp32 outputs whatever the input dtype, held against the plain version
+# on the same inputs; the kernel chunks by 64 tokens and the plain version by
+# Q, so the bound is the chunk-invariance one of tests/test_kernels.py
+SSD_Y_REL_TOL = 1e-4           # max |y - y_ref| / max |y_ref|
+SSD_H_REL_TOL = 1e-4           # max |h - h_ref| / max |h_ref|
+# (S, H, P, G, N): mamba2-780m prefills (Q = 256: S = 512 two chunks, S = 300
+# one ragged chunk, S = 2048 eight) and one G = 2, N = 64 case
+SSD_CASES = [(512, 48, 64, 1, 128), (300, 48, 64, 1, 128),
+             (2048, 48, 64, 1, 128), (512, 48, 64, 2, 64)]
+
+
+def ssd_inputs(S, H, P, G, N, dtype, seed=0):
+    """Inputs with the model's statistics: dt = softplus(raw + dt_bias)
+    with dt_bias from dt in [1e-3, 1e-1], A = -exp(A_log) in [-16, -1]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    u = lambda n: torch.rand((n,), generator=g, device="cuda")
+    dt0 = torch.exp(u(H) * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.nn.functional.softplus(rn(1, S, H) * 0.5 + dt_bias)
+    A = -torch.log(1.0 + u(H) * 15.0).exp()
+    return (rn(1, S, H, P).to(dtype), dt.contiguous(), A.contiguous(),
+            (rn(1, S, G, N) * 0.5).to(dtype), (rn(1, S, G, N) * 0.5).to(dtype))
+
+
+def ssd_cases(timer: Timer) -> list[dict]:
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, H, P, G, N in SSD_CASES:
+            ins = ssd_inputs(S, H, P, G, N, dtype)
+            what = f"ssd {dtype} S={S} H={H} P={P} G={G} N={N}"
+            y, h = ssd_ops.ssd(*ins, Q=256)
+            ry, rh = ssd_ops.ssd_ref(*ins, Q=256)
+            y_abs = err_of(y, ry)
+            y_rel = y_abs / float(ry.abs().max())
+            h_err = err_of(h, rh)
+            h_rel = h_err / float(rh.abs().max())
+            check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                  f"{what}: non-finite output")
+            check(y_rel < SSD_Y_REL_TOL, f"{what}: y rel err {y_rel}")
+            check(h_rel < SSD_H_REL_TOL, f"{what}: h rel err {h_rel}")
+            del y, h, ry, rh
+            es = ins[0].element_size()
+            nbytes = ((S * H * P + 2 * S * G * N) * es + (S * H + H) * 4
+                      + (S * H * P + H * N * P) * 4)
+            # the fewest operations of any evaluation: the recurrence, one
+            # multiply-add per state element for the update and one for C.h
+            b_ms, b_by = bound(nbytes, 4 * N * P * S * H, torch.float32)
+            rows.append(dict(
+                shape=[1, S, H, P, G, N], dtype=str(dtype), Q=256,
+                max_abs_err=y_abs, y_rel_err=y_rel, h_abs_err=h_err,
+                h_rel_err=h_rel,
+                tolerance={"y_rel": SSD_Y_REL_TOL, "h_rel": SSD_H_REL_TOL},
+                ms=timer(lambda: ssd_ops.ssd(*ins, Q=256)),
+                host_ms=timer.host_ms(lambda: ssd_ops.ssd(*ins, Q=256)),
+                plain_ms=timer(lambda: ssd_ops.ssd_ref(*ins, Q=256), iters=3,
+                               warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                chunked_q256_gflop=2 * S * H * (256 * N + 256 * P
+                                                + 2 * N * P) / 1e9))
+            del ins
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 2b: the DMA allgather on the card
 # ---------------------------------------------------------------------------
@@ -346,12 +424,12 @@ def dma_main_path(case) -> int:
 # ---------------------------------------------------------------------------
 # phase 3: the reduced model on the CPU (plain) and on the card (kernels)
 # ---------------------------------------------------------------------------
-def small_end_to_end() -> None:
+def small_end_to_end(arch: str, n_layers: int) -> None:
     from repro_torch import configs
     from repro_torch.models.transformer import Transformer, init_params
     from repro_torch.serve import Engine, Request, ServeSpec, StepClock
 
-    cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), n_layers=4,
+    cfg = dataclasses.replace(configs.get_smoke(arch), n_layers=n_layers,
                               dtype=torch.float32)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     cpu, gpu = Transformer(cfg, params, "cpu"), Transformer(cfg, params, "cuda")
@@ -380,23 +458,47 @@ def small_end_to_end() -> None:
             eng.submit(Request(tokens=t, max_new=m))
         out.append({rid: r.tokens.tolist() for rid, r in eng.drain().items()})
     check(out[0] == out[1], f"small engine tokens differ: {out}")
-    print(json.dumps({"phase": "small_end_to_end", "layers": cfg.n_layers,
+    print(json.dumps({"phase": "small_end_to_end", "model": cfg.name,
+                      "layers": cfg.n_layers,
                       "max_abs_logit_err": worst, "decode_steps": 8,
                       "engine_requests": len(reqs), "tokens_equal": True}))
 
 
 # ---------------------------------------------------------------------------
-# phase 4: llama3.2-3b at full width
+# phases 4 and 5: llama3.2-3b and mamba2-780m at full width
 # ---------------------------------------------------------------------------
-def serve_full_width(smi: str) -> dict[str, int]:
-    from repro_torch import configs
+def kernel_ops() -> dict:
+    """name -> the wrapper module that counts the kernel's launches."""
     from repro_torch.kernels.decode_stats import ops as stats_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"rmsnorm": rms_ops, "flash_attention": flash_ops,
+            "decode_stats": stats_ops, "ssd": ssd_ops}
+
+
+def launches_implied(cfg, st: dict) -> dict[str, int]:
+    """What the serving path must launch for the engine's counts: rmsnorm
+    2 per layer + the final norm per forward; per attention layer flash
+    once per prefill and decode stats once per decode step; per Mamba2
+    layer ssd once per prefill."""
+    attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
+    mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
+    return {"rmsnorm": (2 * cfg.n_layers + 1)
+            * (st["prefills"] + st["decode_steps"]),
+            "flash_attention": attn * st["prefills"],
+            "decode_stats": attn * st["decode_steps"],
+            "ssd": mamba * st["prefills"]}
+
+
+def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
+    """Serve 16 requests on ``arch`` at its published size; returns the
+    path's launches per kernel."""
+    from repro_torch import configs
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec
 
-    cfg = configs.get("llama3.2-3b")
+    cfg = configs.get(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -427,15 +529,15 @@ def serve_full_width(smi: str) -> dict[str, int]:
     budgets = rng.integers(16, 65, 16)
     reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n), max_new=int(m))
             for n, m in zip(lens, budgets)]
-    rms_ops.LAUNCHES = flash_ops.LAUNCHES = stats_ops.LAUNCHES = 0
+    ops = kernel_ops()
+    for mod in ops.values():
+        mod.LAUNCHES = 0
     t0 = time.perf_counter()
     rids = [eng.submit(r) for r in reqs]
     results = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rms_ops.LAUNCHES,
-                "flash_attention": flash_ops.LAUNCHES,
-                "decode_stats": stats_ops.LAUNCHES}
+    launches = {name: mod.LAUNCHES for name, mod in ops.items()}
 
     st = {k: v - base[k] for k, v in eng.stats().items()
           if k in ("decode_steps", "prefills", "prefill_tokens",
@@ -447,24 +549,22 @@ def serve_full_width(smi: str) -> dict[str, int]:
         check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
               f"request {rid}: token out of range")
     check(all(f for _, _, f in calls), "non-finite logits in a step")
-    n_fwd = st["prefills"] + st["decode_steps"]
-    L = cfg.n_layers
-    want = {"rmsnorm": (2 * L + 1) * n_fwd,
-            "flash_attention": L * st["prefills"],
-            "decode_stats": L * st["decode_steps"]}
-    check(launches == want, f"launch counts {launches}, path implies {want}")
+    want = launches_implied(cfg, st)
+    check(launches == want, f"{phase}: launch counts {launches}, the path "
+                            f"implies {want}")
     check(st["prefills"] == len(reqs)
           and st["prefill_tokens"] == int(lens.sum())
           and st["decode_tokens"] == int((budgets - 1).sum()),
           f"engine stats {st}")
 
     eng.model.forward = forward
-    profile_decode(eng, reqs)
+    profile_serving(eng, reqs, phase)
     prefill_s = sum(t for mode, t, _ in calls if mode == "prefill")
     decode_s = sum(t for mode, t, _ in calls if mode == "decode")
     print(json.dumps({
-        "phase": "serve_full_width", "model": cfg.name, "params": n_params,
-        "layers": L, "batch": 8, "cache_len": 1024, "requests": len(reqs),
+        "phase": phase, "model": cfg.name, "params": n_params,
+        "layers": cfg.n_layers,
+        "batch": 8, "cache_len": 1024, "requests": len(reqs),
         "prompt_tokens": st["prefill_tokens"],
         "generated_tokens": int(budgets.sum()),
         "decode_steps": st["decode_steps"], "wall_s": wall,
@@ -478,42 +578,53 @@ def serve_full_width(smi: str) -> dict[str, int]:
     return launches
 
 
-def profile_decode(eng, reqs, steps: int = 5) -> None:
-    """torch.profiler over a few decode steps with 8 live rows: device busy
-    time per step, the idle share of the wall time, launches per step and
-    the kernels that take the device time."""
+def profile_window(label: str, phase: str, fn, calls: int, **meta) -> None:
+    """torch.profiler over ``calls`` calls of ``fn`` (warm already): device
+    busy time per call, the idle share of the wall time, device ops per
+    call and the kernels that take the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve import Request
-    for r in reqs[:8]:
-        eng.submit(Request(tokens=r.tokens[:64], max_new=steps + 4))
-    eng.step()
-    eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    eng.drain()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-    out = {"phase": "profile_decode", "steps": steps, "live_rows": 8,
-           "wall_ms_per_step": wall / steps * 1e3}
+    out = {"phase": label, "of": phase, "calls": calls, **meta,
+           "wall_ms_per_call": wall / calls * 1e3}
     if busy_us <= 0:
-        out["device_ms_per_step"] = "not measured (no device time traced)"
+        out["device_ms_per_call"] = "not measured (no device time traced)"
     else:
         out.update({
-            "device_ms_per_step": busy_us / steps / 1e3,
+            "device_ms_per_call": busy_us / calls / 1e3,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
-            "device_ops_per_step": sum(e.count for e in dev) / steps,
-            "top_device": [[e.key[:70], e.self_device_time_total / steps / 1e3,
-                            e.count // steps] for e in top]})
+            "device_ops_per_call": sum(e.count for e in dev) / calls,
+            "top_device": [[e.key[:70], e.self_device_time_total / calls / 1e3,
+                            e.count // calls] for e in top]})
     print(json.dumps(out))
+
+
+def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
+    """Profile one 512-token prefill (twice) and ``steps`` decode steps
+    with 8 live rows."""
+    from repro_torch.serve import Request
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, eng.cfg.vocab_size, (1, 512))).to(eng.model.device)
+    prefill = lambda: eng.model(toks, mode="prefill", cache_len=1024)
+    prefill()
+    profile_window("profile_prefill", phase, prefill, 2, prompt_tokens=512)
+    for r in reqs[:8]:
+        eng.submit(Request(tokens=r.tokens[:64], max_new=steps + 4))
+    eng.step()
+    eng.step()
+    profile_window("profile_decode", phase, eng.step, steps, live_rows=8)
+    eng.drain()
 
 
 def main() -> int:
@@ -547,10 +658,17 @@ def main() -> int:
     cases["dma_allgather"] = dma_allgather_cases(timer, dma)
     for row in cases["dma_allgather"]:
         print(json.dumps({"kernel": "dma_allgather", **row}))
-    dma_launches = dma_main_path(dma[0])
-    small_end_to_end()
-    launches = serve_full_width(smi)
-    launches["dma_allgather"] = dma_launches
+    cases["ssd"] = ssd_cases(timer)
+    for row in cases["ssd"]:
+        print(json.dumps({"kernel": "ssd", **row}))
+    by_path = {"dma_main_path": {"dma_allgather": dma_main_path(dma[0])}}
+    small_end_to_end("llama3.2-3b", 4)
+    small_end_to_end("mamba2-780m", 3)
+    for arch, phase in (("llama3.2-3b", "serve_full_width"),
+                        ("mamba2-780m", "serve_full_width_ssm")):
+        by_path[phase] = serve_full_width(smi, arch, phase)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -562,13 +680,19 @@ def main() -> int:
         "dma_allgather": ("src/repro_torch/kernels/csrc/dma_allgather.cu",
                           "src/repro/kernels/dma_allgather/dma_ag.py:33",
                           DMA_ALGORITHMS.index("locality_bruck")),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                "src/repro/kernels/ssd/ssd.py:30", 0),
     }
     kernels = []
     for name, (source, replaces, headline) in meta.items():
         row = cases[name][headline]                      # bf16, main path
+        per_path = {path: counts[name] for path, counts in by_path.items()
+                    if counts.get(name)}
+        check(bool(per_path), f"{name}: launched on no main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(per_path.values()),
+            "launches_by_path": per_path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

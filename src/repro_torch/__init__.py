@@ -1,7 +1,10 @@
 """PyTorch/CUDA port of the repro package, for one NVIDIA H100.
 
-It serves the dense llama family (llama3.2-3b at its published width)
-through the request-level ``serve.Engine``, with hand-written CUDA kernels
-for RMSNorm, prefill flash attention and the decode-stat accumulation
-(``kernels/``). It imports torch and numpy and nothing of the JAX package.
+It serves the dense llama family (llama3.2-3b) and Mamba2 (mamba2-780m),
+each at its published width, through the request-level ``serve.Engine``,
+with hand-written CUDA kernels for RMSNorm, prefill flash attention, the
+decode-stat accumulation and the SSD chunked scan (``kernels/``), and it
+carries the paper's collectives over ``torch.distributed`` (``core/``) with
+the DMA allgather kernel. It imports torch and numpy and nothing of the
+JAX package.
 """

@@ -9,7 +9,7 @@ import importlib
 
 from .base import LayerSpec, ModelConfig, check_supported, reduced
 
-ARCHS = ("llama3.2-3b",)
+ARCHS = ("llama3.2-3b", "mamba2-780m")
 
 # the JAX package's other architectures -> the port slice that brings them
 PENDING = {
@@ -18,8 +18,7 @@ PENDING = {
     "gemma2-9b": "the dense-variants slice (window, softcaps, sandwich norm)",
     "qwen2-moe-a2.7b": "the MoE slice",
     "llama4-scout-17b-a16e": "the MoE slice (chunked attention, NoPE)",
-    "mamba2-780m": "the SSM slice (ssd kernel)",
-    "zamba2-1.2b": "the SSM slice (hybrid shared attention)",
+    "zamba2-1.2b": "the hybrid slice (shared attention block with GeGLU)",
     "whisper-tiny": "the encoder-decoder slice",
     "internvl2-26b": "the VLM slice",
 }

@@ -130,19 +130,24 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on any flag whose code path this port does not have yet.
 
-    The dense llama-family decoder with full causal attention, SwiGLU,
-    RMSNorm and rotary embeddings is served; everything else waits for a
-    later slice of the port and must not be ignored silently.
+    Two families are served: the dense llama-family decoder with full
+    causal attention, SwiGLU, RMSNorm and rotary embeddings, and the
+    attention-free Mamba2 stack (``family="ssm"`` with ``ssm_state``).
+    Everything else waits for a later slice of the port and must not be
+    ignored silently.
     """
     unsupported = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         unsupported.append(f"family={cfg.family!r}")
     if cfg.n_experts:
         unsupported.append("n_experts (MoE)")
-    if cfg.ssm_state:
-        unsupported.append("ssm_state (Mamba2)")
+    if cfg.family == "ssm" and not cfg.ssm_state:
+        unsupported.append("family='ssm' without ssm_state")
+    if cfg.family != "ssm" and cfg.ssm_state:
+        unsupported.append(f"ssm_state in family={cfg.family!r}")
     if cfg.window or cfg.chunk or any(s.attn != "full" or not s.rope
-                                      for s in cfg.layer_plan()):
+                                      for s in cfg.layer_plan()
+                                      if s.mixer == "attn"):
         unsupported.append("window/chunked/NoPE layers (ring caches)")
     if cfg.sandwich_norm:
         unsupported.append("sandwich_norm")

@@ -51,6 +51,9 @@ SIGNATURES = {
     "repro_dma_ag_round": [_P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _P],
     # buf, perm, out, p, block_bytes, row_bytes, vec, stream
     "repro_dma_ag_gather": [_P, _P, _P, _I, _LL, _LL, _I, _P],
+    # x, dt, A, B, C, y, h, Bt, S, H, G, N, P, dtype, stream
+    "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _P],
 }
 
 # dtype codes shared with csrc/common.cuh

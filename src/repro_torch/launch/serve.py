@@ -1,8 +1,9 @@
 """Serving launcher of the port: greedy decoding through ``Engine``.
 
-``python -m repro_torch.launch.serve --arch llama3.2-3b`` serves the full
-configuration on the card with random bf16 weights made from seed 0;
-``--smoke --device cpu`` serves the reduced configuration on the CPU.
+``python -m repro_torch.launch.serve --arch llama3.2-3b`` (or
+``--arch mamba2-780m``) serves the full configuration on the card with
+random bf16 weights made from seed 0; ``--smoke --device cpu`` serves the
+reduced configuration on the CPU.
 """
 from __future__ import annotations
 

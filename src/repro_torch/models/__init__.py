@@ -1,1 +1,2 @@
-"""Model code of the port: layers, attention and the dense transformer."""
+"""Model code of the port: layers, attention, the Mamba2 mixer and the
+decoder stack."""

@@ -1,23 +1,29 @@
-"""Dense decoder-only transformer of the port (the llama family).
+"""Decoder-only stack of the port: the dense llama family and Mamba2.
 
-Mirrors the dense path of ``repro.models.transformer.forward``:
+Mirrors ``repro.models.transformer.forward`` for two families:
 
 * ``mode="prefill"``: tokens (B,S) -> last-position logits (B,1,Vpad) and a
-  cache padded to ``cache_len`` slots, with ``cache["pos"] = S``;
+  decode cache, with ``cache["pos"] = S``;
 * ``mode="decode"``: tokens (B,1) against that cache -> logits (B,1,Vpad);
   the cache is updated in place and ``pos`` advances by one. ``pos`` is a
   0-d tensor (lockstep batch) or (B,) (continuous batching).
 
 The JAX package scans stacked ``blocks/slot{j}`` parameters; here the
-layers are a ``ModuleList`` in global layer order, and the cache holds one
-stacked (n_layers, B, L, KV, D) tensor for keys and one for values.
+layers are a ``ModuleList`` in global layer order, built from
+``cfg.layer_plan()``: a :class:`Block` (attention then SwiGLU MLP) for an
+``attn`` mixer, a :class:`MambaBlock` (``x + mamba(rmsnorm(x))``) for a
+``mamba2`` one. The cache holds one stacked tensor per leaf: ``k`` and
+``v`` (n_layers, B, L, KV, D) for the dense family, padded to
+``cache_len`` slots; ``conv`` (n_layers, B, W-1, Ch) and ``h``
+(n_layers, B, H, N, P) fp32 for the SSM family.
 
 Parameters are a flat dict keyed like this module's ``state_dict``:
-``embed`` (Vpad, d), ``final_norm`` (d,), and ``layers.{i}.{name}`` for
-``ln1, wq, wk, wv, wo, ln2, gate, up, down`` in the JAX ``(d_in, d_out)``
-layout. :func:`init_params` makes them from a ``torch.Generator``;
-:func:`params_from_jax` converts the JAX package's ``init_params`` tree
-(passed as numpy arrays).
+``embed`` (Vpad, d), ``final_norm`` (d,), and ``layers.{i}.{name}``, for
+``ln1, wq, wk, wv, wo, ln2, gate, up, down`` (dense) or ``ln, in_proj,
+conv_w, conv_b, dt_bias, A_log, D, norm, out_proj`` (Mamba2), in the JAX
+``(d_in, d_out)`` layout. :func:`init_params` makes them from a
+``torch.Generator``; :func:`params_from_jax` converts the JAX package's
+``init_params`` tree (passed as numpy arrays).
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ from ..configs import ModelConfig, check_supported
 from . import attention as attn
 from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
                      rmsnorm, rope_angles)
+from .ssm import MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
+MAMBA_LAYER_PARAMS = ("ln",) + MAMBA_PARAMS
 
 
 def find_period(plan) -> tuple[int, int, int]:
@@ -85,8 +93,34 @@ class Block(nn.Module):
         return x + mlp_apply(h, self.gate, self.up, self.down), kv
 
 
+class MambaBlock(nn.Module):
+    """One pre-norm Mamba2 layer: ``x + mamba(rmsnorm(x, ln))``."""
+
+    def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        for name in MAMBA_LAYER_PARAMS:
+            self.register_parameter(
+                name, nn.Parameter(weights[name], requires_grad=False))
+
+    def forward(self, x, *, cache=None):
+        """Prefill (``cache`` None): returns (x, {"conv", "h"}) with this
+        layer's decode cache. Decode: ``cache = {"conv", "h"}`` holds this
+        layer's views of the stacked cache, which are updated in place;
+        returns (x, None)."""
+        h = rmsnorm(x, self.ln, eps=self.cfg.norm_eps)
+        params = {n: getattr(self, n) for n in MAMBA_PARAMS}
+        y, nc = mamba_apply(params, h, self.cfg,
+                            cache={} if cache is None else cache)
+        if cache is None:
+            return x + y, nc
+        cache["conv"].copy_(nc["conv"])
+        cache["h"].copy_(nc["h"])
+        return x + y, None
+
+
 class Transformer(nn.Module):
-    """The dense decoder, parameters held in ``cfg.dtype`` on ``device``."""
+    """The decoder, parameters held in ``cfg.dtype`` on ``device``."""
 
     def __init__(self, cfg: ModelConfig, params: dict[str, Any],
                  device: torch.device | str):
@@ -98,11 +132,16 @@ class Transformer(nn.Module):
             t = torch.as_tensor(params[name])
             return t.to(device=device, dtype=cfg.dtype)
 
+        def block(i, spec):
+            kind, names = ((MambaBlock, MAMBA_LAYER_PARAMS)
+                           if spec.mixer == "mamba2" else (Block, LAYER_PARAMS))
+            return kind(cfg, {n: load(f"layers.{i}.{n}") for n in names})
+
         self.embed = nn.Parameter(load("embed"), requires_grad=False)
         self.final_norm = nn.Parameter(load("final_norm"), requires_grad=False)
         self.layers = nn.ModuleList(
-            Block(cfg, {n: load(f"layers.{i}.{n}") for n in LAYER_PARAMS})
-            for i in range(cfg.n_layers))
+            block(i, spec) for i, spec in enumerate(cfg.layer_plan()))
+        self.ssm = cfg.family == "ssm"
 
     @property
     def device(self) -> torch.device:
@@ -110,14 +149,19 @@ class Transformer(nn.Module):
 
     def empty_cache(self, batch: int, cache_len: int, *,
                     vector_pos: bool = False) -> dict[str, torch.Tensor]:
-        """A zeroed cache for ``batch`` rows of ``cache_len`` slots."""
+        """A zeroed cache for ``batch`` rows of ``cache_len`` slots (the
+        SSM state has no slots: ``cache_len`` does not size it)."""
         cfg = self.cfg
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                 device=self.device)
+        pos = zeros((batch,) if vector_pos else (), torch.long)
+        if self.ssm:
+            return {name: zeros((cfg.n_layers,) + shape, dtype)
+                    for name, (shape, dtype)
+                    in mamba_cache_shapes(cfg, batch).items()} | {"pos": pos}
         shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-        pos_shape = (batch,) if vector_pos else ()
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                "pos": torch.zeros(pos_shape, dtype=torch.long,
-                                   device=self.device)}
+        return {"k": zeros(shape, cfg.dtype), "v": zeros(shape, cfg.dtype),
+                "pos": pos}
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, mode: str = "prefill",
@@ -135,12 +179,19 @@ class Transformer(nn.Module):
                 raise ValueError(f"prompt of {S} tokens exceeds the "
                                  f"{L}-slot cache")
             new_cache = self.empty_cache(B, L)
-            positions = torch.arange(S, device=tokens.device)[None]
-            cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-            for i, layer in enumerate(self.layers):
-                x, (k, v) = layer(x, cos, sin)
-                new_cache["k"][i, :, :S] = k
-                new_cache["v"][i, :, :S] = v
+            if self.ssm:
+                for i, layer in enumerate(self.layers):
+                    x, nc = layer(x)
+                    for name, t in nc.items():
+                        new_cache[name][i] = t
+            else:
+                positions = torch.arange(S, device=tokens.device)[None]
+                cos, sin = rope_angles(positions, cfg.head_dim_,
+                                       cfg.rope_theta)
+                for i, layer in enumerate(self.layers):
+                    x, (k, v) = layer(x, cos, sin)
+                    new_cache["k"][i, :, :S] = k
+                    new_cache["v"][i, :, :S] = v
             new_cache["pos"] = torch.tensor(S, dtype=torch.long,
                                             device=tokens.device)
             # the norm is per row, so norming the last position alone is exact
@@ -149,12 +200,20 @@ class Transformer(nn.Module):
             if cache is None:
                 raise ValueError("decode needs a cache")
             pos = cache["pos"]
-            positions = pos[:, None] if pos.ndim == 1 else pos.expand(B, 1)
-            cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
-            for i, layer in enumerate(self.layers):
-                x, _ = layer(x, cos, sin, kv_cache=(cache["k"][i],
-                                                    cache["v"][i]), pos=pos)
-            new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+            if self.ssm:
+                for i, layer in enumerate(self.layers):
+                    x, _ = layer(x, cache={"conv": cache["conv"][i],
+                                           "h": cache["h"][i]})
+            else:
+                positions = (pos[:, None] if pos.ndim == 1
+                             else pos.expand(B, 1))
+                cos, sin = rope_angles(positions, cfg.head_dim_,
+                                       cfg.rope_theta)
+                for i, layer in enumerate(self.layers):
+                    x, _ = layer(x, cos, sin, kv_cache=(cache["k"][i],
+                                                        cache["v"][i]),
+                                 pos=pos)
+            new_cache = {**cache, "pos": pos + 1}
         else:
             raise ValueError(f"unknown mode {mode!r}")
         x = rmsnorm(x, self.final_norm, eps=cfg.norm_eps)
@@ -167,10 +226,11 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str) -> dict[str, torch.Tensor]:
     """Random parameters with the JAX ``init_params`` distributions (other
-    bits): dense N(0, 1/d_in), embedding N(0, 0.02^2), norm scales 0.
-    Each tensor is drawn in fp32 on ``device`` and stored in ``cfg.dtype``,
-    the dtype the model holds it in (the JAX engine casts its fp32
-    parameters to ``cfg.dtype`` the same way)."""
+    bits): dense N(0, 1/d_in), embedding N(0, 0.02^2), norm scales 0, the
+    Mamba2 leaves as ``ssm.mamba_init`` draws them. Each tensor is drawn
+    in fp32 on ``device`` and stored in ``cfg.dtype``, the dtype the model
+    holds it in (the JAX engine casts its fp32 parameters to ``cfg.dtype``
+    the same way)."""
     dtype = cfg.dtype
     d, D, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -179,10 +239,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params = {"embed": embed_init(generator, cfg.padded_vocab, d, dtype,
                                   device),
               "final_norm": zeros()}
-    for i in range(cfg.n_layers):
-        layer = {"ln1": zeros(), "wq": dense(d, H * D), "wk": dense(d, KV * D),
-                 "wv": dense(d, KV * D), "wo": dense(H * D, d), "ln2": zeros(),
-                 "gate": dense(d, f), "up": dense(d, f), "down": dense(f, d)}
+    for i, spec in enumerate(cfg.layer_plan()):
+        if spec.mixer == "mamba2":
+            layer = {"ln": zeros(), **mamba_init(generator, cfg, device)}
+        else:
+            layer = {"ln1": zeros(), "wq": dense(d, H * D),
+                     "wk": dense(d, KV * D), "wv": dense(d, KV * D),
+                     "wo": dense(H * D, d), "ln2": zeros(),
+                     "gate": dense(d, f), "up": dense(d, f),
+                     "down": dense(f, d)}
         params.update({f"layers.{i}.{n}": t for n, t in layer.items()})
     return params
 
@@ -200,11 +265,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
     def put(i, lp, idx=None):
         take = (lambda a: a[idx]) if idx is not None else (lambda a: a)
-        leaves = {"ln1": lp["ln1"]["scale"], "wq": lp["attn"]["wq"],
-                  "wk": lp["attn"]["wk"], "wv": lp["attn"]["wv"],
-                  "wo": lp["attn"]["wo"], "ln2": lp["ln2"]["scale"],
-                  "gate": lp["mlp"]["gate"], "up": lp["mlp"]["up"],
-                  "down": lp["mlp"]["down"]}
+        if "mamba" in lp:
+            m = lp["mamba"]
+            leaves = {"ln": lp["ln"]["scale"], "norm": m["norm"]["scale"],
+                      **{n: m[n] for n in MAMBA_PARAMS if n != "norm"}}
+        else:
+            leaves = {"ln1": lp["ln1"]["scale"], "wq": lp["attn"]["wq"],
+                      "wk": lp["attn"]["wk"], "wv": lp["attn"]["wv"],
+                      "wo": lp["attn"]["wo"], "ln2": lp["ln2"]["scale"],
+                      "gate": lp["mlp"]["gate"], "up": lp["mlp"]["up"],
+                      "down": lp["mlp"]["down"]}
         params.update({f"layers.{i}.{n}": t(take(a))
                        for n, a in leaves.items()})
 

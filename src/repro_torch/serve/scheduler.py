@@ -57,6 +57,18 @@ class StepClock:
         self.t = max(self.t, t)
 
 
+def _leaf_batch_dim(name: str, leaf: torch.Tensor) -> int | None:
+    """Batch dim of a cache leaf (stacked leaves carry a leading layer
+    dim), the rule of the JAX scheduler; None for the pos leaf."""
+    if name in ("k", "v", "h"):
+        return leaf.ndim - 4
+    if name == "conv":
+        return leaf.ndim - 3
+    if name == "pos":
+        return None
+    raise ValueError(f"unknown cache leaf {name!r}")
+
+
 @dataclasses.dataclass
 class _Active:
     req: Request
@@ -182,10 +194,13 @@ class Scheduler:
         self.clock.advance("prefill")
         self.counts["prefills"] += 1
         self.counts["prefill_tokens"] += S
-        # insert the request's row into the live batch cache
-        self._cache["k"][:, row] = req_cache["k"][:, 0]
-        self._cache["v"][:, row] = req_cache["v"][:, 0]
-        self._cache["pos"][row] = S
+        # insert the request's row into the live batch cache, every leaf
+        for name, leaf in self._cache.items():
+            b = _leaf_batch_dim(name, leaf)
+            if b is None:
+                leaf[row] = S
+            else:
+                leaf.select(b, row).copy_(req_cache[name].select(b, 0))
         t = self.clock.now()
         st = _Active(req=req, row=row, started_s=t)
         st.tokens.append(int(tok0[0, 0]))

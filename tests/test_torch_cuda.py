@@ -6,7 +6,11 @@ H100 and ``nvcc`` (the kernels build at first use). This file imports no
 JAX, so it runs where only PyTorch is installed. Tolerances: fp32 rmsnorm
 1e-5, fp32 attention and decode stats 1e-4 (the kernels sum in another
 order); bf16 outputs 2e-2 (one bf16 ulp at 4 is 1.6e-2); the DMA allgather
-copies bytes and is held equal.
+copies bytes and is held equal; the SSD scan (fp32 output whatever its
+input dtype, held against the plain version on the same inputs) max |y -
+y_ref| / max |y_ref| < 1e-4 and max |h - h_ref| / max |h_ref| < 1e-4, the chunk
+invariance bound of ``tests/test_kernels.py`` (the kernel chunks by 64,
+the plain version by Q).
 """
 import pytest
 import torch
@@ -15,6 +19,7 @@ from repro_torch.kernels.decode_stats import ops as stats_ops
 from repro_torch.kernels.dma_allgather import ops as dma_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import attention as tattention
 
 FLASH_CASES = [
@@ -141,3 +146,69 @@ def test_dma_allgather_refuses_a_strided_input(cuda):
     x = torch.zeros(8, 32, device=cuda).t()[:16]
     with pytest.raises(ValueError, match="contiguous"):
         dma_ops.dma_allgather(x, sched)
+
+
+# (Bt, S, H, P, G, N): G in {1, 2}, N in {16, 64, 128}, P in {16, 64}, S
+# ragged against the kernel's 64-token chunks and the plain version's Q
+SSD_CASES = [
+    (1, 512, 48, 64, 1, 128),        # mamba2-780m prefill, Q = 256
+    (1, 300, 48, 64, 1, 128),        # one ragged chunk of 300
+    (2, 100, 4, 16, 2, 16),
+    (1, 130, 6, 64, 2, 64),
+    (2, 37, 4, 16, 1, 128),
+    (1, 1, 2, 16, 1, 16),            # one token
+    (1, 96, 6, 16, 3, 8),            # G = 3, N = 8
+]
+
+
+def _ssd_inputs(case, dtype, device):
+    Bt, S, H, P, G, N = case
+    g = torch.Generator(device=device).manual_seed(4)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=device)
+    x = rn(Bt, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(Bt, S, H) - 1.0)
+    A = -torch.exp(torch.rand((H,), generator=g, device=device) * 2.0)
+    B = (rn(Bt, S, G, N) * 0.5).to(dtype)
+    C = (rn(Bt, S, G, N) * 0.5).to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_on_card(cuda, dtype, case):
+    ins = _ssd_inputs(case, dtype, cuda)
+    before = ssd_ops.LAUNCHES
+    y, h = ssd_ops.ssd(*ins, Q=256)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    ry, rh = ssd_ops.ssd_ref(*ins, Q=256)
+    assert float((y - ry).abs().max()) / float(ry.abs().max()) < 1e-4
+    assert float((h - rh).abs().max()) / float(rh.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_refuses_a_strided_input_and_an_unbuilt_head_dim(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 16, 4, 16, 1, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                    B, C)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_ops.ssd(x.reshape(1, 16, 8, 8).contiguous(),
+                    dt.repeat(1, 1, 2).contiguous(), A.repeat(2), B, C)
+
+
+@pytest.mark.gpu
+def test_ssd_raises_naming_n_and_p_when_the_state_is_too_large(cuda):
+    # N = 512 needs more shared memory than a block may opt into
+    x, dt, A, _, _ = _ssd_inputs((1, 16, 4, 16, 1, 16), torch.float32, cuda)
+    big = torch.zeros((1, 16, 1, 512), device=cuda)
+    with pytest.raises(RuntimeError, match="N=512, P=16"):
+        ssd_ops.ssd(x, dt, A, big, big)
+    # the refused opt-in leaves no error behind for the next launch
+    y, _ = ssd_ops.ssd(x, dt, A, big[..., :16].contiguous(),
+                       big[..., :16].contiguous())
+    torch.cuda.synchronize()
+    assert y.shape == x.shape

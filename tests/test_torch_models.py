@@ -1,9 +1,14 @@
-"""The port's dense transformer against the JAX package's, on the CPU.
+"""The port's transformer (dense and Mamba2) against the JAX package's, on
+the CPU.
 
 Both get the same parameters (the JAX ``init_params`` tree converted by
 ``params_from_jax``) and the same numpy tokens. fp32 throughout; logits
 agree to 1e-4 (summation order differs between XLA and PyTorch), caches to
-1e-5.
+1e-5. The Mamba2 stack is held twice: against the JAX forward with its
+``ssd_chunked`` made precise (the function the port's SSD kernel
+computes), at 1e-4; and against the unpatched JAX forward, whose SSD runs
+its bf16 data path, at twice the gap between JAX's own precise and mixed
+outputs on the same inputs.
 """
 import dataclasses
 
@@ -60,7 +65,23 @@ def test_config_mirrors_jax():
     assert configs.get("llama3.2-3b").dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", ["gemma2-9b", "mamba2-780m",
+def test_mamba_config_mirrors_jax():
+    for jc, tc in [(jconfigs.get("mamba2-780m"), configs.get("mamba2-780m")),
+                   (jconfigs.get_smoke("mamba2-780m"),
+                    configs.get_smoke("mamba2-780m"))]:
+        for f in dataclasses.fields(tc):
+            if f.name not in ("dtype", "param_dtype"):
+                assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        assert tc.padded_vocab == jc.padded_vocab
+        assert [s.key() for s in tc.layer_plan()] == \
+            [s.key() for s in jc.layer_plan()]
+        configs.check_supported(tc)
+    smoke = configs.get_smoke("mamba2-780m")
+    assert (smoke.ssm_state, smoke.ssm_headdim, smoke.ssm_chunk) == (16, 16, 32)
+    assert configs.get("mamba2-780m").dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "zamba2-1.2b",
                                   "qwen2-moe-a2.7b", "whisper-tiny"])
 def test_registry_names_the_waiting_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -73,7 +94,8 @@ def test_registry_names_the_waiting_slice(name):
                                   dict(scale_embed=True),
                                   dict(n_experts=4, top_k=2),
                                   dict(tie_embeddings=False),
-                                  dict(family="ssm", ssm_state=16)])
+                                  dict(family="hybrid", ssm_state=16,
+                                       shared_attn_every=2)])
 def test_unported_flags_raise_when_built(flag):
     cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), **flag)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
@@ -194,3 +216,141 @@ def test_decode_scores_mask_matches_jax():
                                         torch.as_tensor(pos).long())
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 stack
+# ---------------------------------------------------------------------------
+from repro.models import ssm as jssm  # noqa: E402
+
+_JAX_SSD = jssm.ssd_chunked
+
+
+@pytest.fixture(scope="module")
+def mamba_pair():
+    jcfg = dataclasses.replace(jconfigs.get_smoke("mamba2-780m"), n_layers=3,
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get_smoke("mamba2-780m"), n_layers=3,
+                               dtype=torch.float32)
+    jparams = jtransformer.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    model = transformer.Transformer(
+        tcfg, transformer.params_from_jax(tree, tcfg), "cpu")
+    return jcfg, tcfg, jparams, model
+
+
+def _jax_mamba_run(jparams, jcfg, prompts, steps, precise):
+    """JAX logits of B=1 prefills of ``prompts`` (rows stacked into one
+    cache), then ``steps`` greedy decode steps of the batch; the calls that
+    went to ``ssd_chunked`` are counted (each forward traces afresh)."""
+    calls = []
+
+    def ssd(*a, **kw):
+        calls.append(1)
+        return _JAX_SSD(*a, **{**kw, "precise": precise or kw.get("precise",
+                                                                   False)})
+
+    old = jssm.ssd_chunked
+    jssm.ssd_chunked = ssd
+    try:
+        logits, caches = [], []
+        for toks in prompts:
+            jl, _, jc = jtransformer.forward(jparams, jcfg,
+                                             jnp.asarray(toks[None]),
+                                             mode="prefill", cache_len=96)
+            logits.append(np.asarray(jl))
+            caches.append(jc)
+        slot = lambda n: jnp.concatenate(
+            [c["blocks"]["slot0"][n] for c in caches], 1)
+        jcache = {"blocks": {"slot0": {"conv": slot("conv"), "h": slot("h")}},
+                  "rest": [], "pos": jnp.asarray([len(p) for p in prompts],
+                                                 jnp.int32)}
+        tok = np.argmax(np.concatenate(logits)[:, -1], -1)[:, None]
+        out = [np.concatenate(logits)]
+        for _ in range(steps):
+            jl, _, jcache = jtransformer.forward(
+                jparams, jcfg, jnp.asarray(tok, jnp.int32), cache=jcache)
+            out.append(np.asarray(jl))
+            tok = np.argmax(out[-1][:, -1], -1)[:, None]
+    finally:
+        jssm.ssd_chunked = old
+    return out, jcache, len(calls)
+
+
+def _torch_mamba_run(model, prompts, steps, jax_logits):
+    """The port on the same prompts, fed JAX's greedy tokens."""
+    logits, caches = [], []
+    for toks in prompts:
+        tl, tc = model(torch.from_numpy(toks[None]).long(), mode="prefill",
+                       cache_len=96)
+        logits.append(tl.numpy())
+        caches.append(tc)
+    tcache = {n: torch.cat([c[n] for c in caches], 1) for n in ("conv", "h")}
+    tcache["pos"] = torch.tensor([len(p) for p in prompts])
+    out = [np.concatenate(logits)]
+    for i in range(steps):
+        tok = np.argmax(jax_logits[i][:, -1], -1)[:, None]
+        tl, tcache = model(torch.from_numpy(tok).long(), mode="decode",
+                           cache=tcache)
+        out.append(tl.numpy())
+    return out, tcache
+
+
+def _mamba_prompts():
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, 512, n).astype(np.int32) for n in (40, 7, 64)]
+
+
+def test_mamba_logits_match_jax_with_its_precise_ssd(mamba_pair):
+    """Prefill (one chunk of 40, 7 tokens, two chunks of 32) and 4 decode
+    steps against the JAX forward with ``ssd_chunked(precise=True)``:
+    logits 1e-4, caches 1e-4 after the decode steps."""
+    jcfg, tcfg, jparams, model = mamba_pair
+    prompts = _mamba_prompts()
+    ref, jcache, n = _jax_mamba_run(jparams, jcfg, prompts, 4, precise=True)
+    assert n == len(prompts), "the patched ssd_chunked was not traced"
+    mixed, _, _ = _jax_mamba_run(jparams, jcfg, prompts, 0, precise=False)
+    assert np.abs(mixed[0] - ref[0]).max() > 1e-4, "the patch had no effect"
+    out, tcache = _torch_mamba_run(model, prompts, 4, ref)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o, r, **LOGIT_TOL)
+    slot = jcache["blocks"]["slot0"]
+    for name in ("conv", "h"):
+        np.testing.assert_allclose(tcache[name].numpy(),
+                                   np.asarray(slot[name]), atol=1e-4,
+                                   rtol=1e-4)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+def test_mamba_logits_match_unpatched_jax_within_its_own_precision_gap(
+        mamba_pair):
+    """Against the JAX forward as it stands (bf16 SSD data path): the port's
+    logits sit within twice the gap between JAX's precise and mixed
+    logits on the same inputs."""
+    jcfg, tcfg, jparams, model = mamba_pair
+    prompts = _mamba_prompts()
+    mixed, _, n = _jax_mamba_run(jparams, jcfg, prompts, 2, precise=False)
+    assert n == len(prompts)
+    precise, _, _ = _jax_mamba_run(jparams, jcfg, prompts, 0, precise=True)
+    gap = float(np.abs(mixed[0] - precise[0]).max())
+    assert gap > 0
+    out, _ = _torch_mamba_run(model, prompts, 2, mixed)
+    for o, r in zip(out, mixed):
+        assert float(np.abs(o - r).max()) <= 2 * gap
+
+
+def test_mamba_init_params_feed_the_model():
+    cfg = dataclasses.replace(configs.get_smoke("mamba2-780m"), n_layers=2,
+                              dtype=torch.float32)
+    p = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = transformer.Transformer(cfg, p, "cpu")
+    assert set(model.state_dict()) == set(p)
+    assert all(isinstance(b, transformer.MambaBlock) for b in model.layers)
+    cache = model.empty_cache(3, 64, vector_pos=True)
+    assert set(cache) == {"conv", "h", "pos"}
+    assert cache["h"].dtype == torch.float32 and cache["h"].shape[:2] == (2, 3)
+    n = sum(t.numel() for t in p.values())
+    from repro.models.transformer import param_count
+    jcfg = dataclasses.replace(jconfigs.get_smoke("mamba2-780m"), n_layers=2)
+    assert n == param_count(jcfg)

@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     for mod in ("launch.serve", "core.topology", "core.schedules",
                 "core.cost_model", "core.autotune", "core.comm_record",
                 "core.collectives", "kernels.dma_allgather.schedule_compile",
-                "kernels.dma_allgather.ref", "kernels.dma_allgather.ops"):
+                "kernels.dma_allgather.ref", "kernels.dma_allgather.ops",
+                "kernels.ssd.ref", "kernels.ssd.ops", "models.ssm",
+                "configs.mamba2_780m"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -104,7 +106,7 @@ def test_wrappers_refuse_mixed_devices_and_bad_dtypes():
 def test_build_is_keyed_by_sources_into_an_ignored_directory():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "decode_stats.cu",
-            "dma_allgather.cu"} <= names
+            "dma_allgather.cu", "ssd.cu"} <= names
     assert len(_build._key()) == 16
     assert _build.BUILD_ROOT.relative_to(REPO) == Path("build",
                                                        "repro_torch_kernels")
@@ -115,7 +117,39 @@ def test_cuda_source_notes_name_the_tpu_kernel_they_replace():
     for name, tpu in [("rmsnorm", "_rmsnorm_kernel"),
                       ("flash_attention", "_flash_kernel"),
                       ("decode_stats", "_stats_kernel"),
-                      ("dma_allgather", "_ag_kernel")]:
+                      ("dma_allgather", "_ag_kernel"),
+                      ("ssd", "_ssd_kernel")]:
         head = (_build.CSRC / f"{name}.cu").read_text()[:2500]
         assert "Replaces:" in head and tpu in head
         assert "Bound on the H100" in head and "Design:" in head
+
+
+def test_ssd_cpu_call_takes_the_plain_version_and_counts_nothing():
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    before = ssd_ops.LAUNCHES
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 20, 2, 8), dtype=np.float32))
+    dt = torch.full((1, 20, 2), 0.1)
+    A = torch.tensor([-1.0, -2.0])
+    B = torch.from_numpy(rng.standard_normal((1, 20, 1, 16), dtype=np.float32))
+    y, h = ssd_ops.ssd(x, dt, A, B, B, Q=8)
+    ry, rh = ssd_ops.ssd_ref(x, dt, A, B, B, Q=8)
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+    assert ssd_ops.LAUNCHES == before
+
+
+def test_mamba_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from repro_torch.serve import Engine, ServeSpec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke("mamba2-780m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params, ServeSpec(batch=1, cache_len=16))
+
+
+def test_serve_launcher_serves_mamba_smoke_on_cpu(capsys):
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "9", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "mamba2-780m-smoke on cpu: drained 2 requests (6 tokens)" in out

@@ -3,7 +3,9 @@
 Same parameters (the JAX ``init_params`` tree via ``params_from_jax``),
 same requests, both on a ``StepClock``: the greedy tokens of every request
 and the rows they were admitted to must be exactly equal. fp32 smoke
-configuration.
+configurations: llama3.2-3b, and mamba2-780m with the JAX ``ssd_chunked``
+made precise in this test process (the function the port's SSD kernel
+computes; the unpatched JAX SSD runs a bf16 data path).
 """
 import dataclasses
 
@@ -126,3 +128,39 @@ def test_paged_copy_keeps_invariants():
     paged.check_invariants()
     assert paged.release(1) == rows[1] and paged.reserve(9, 1, 1) == rows[1]
     paged.check_invariants()
+
+
+def test_mamba_engine_tokens_and_slots_match_jax(monkeypatch):
+    from repro.models import ssm as jssm
+    jcfg = dataclasses.replace(jconfigs.get_smoke("mamba2-780m"), n_layers=2,
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get_smoke("mamba2-780m"), n_layers=2,
+                               dtype=torch.float32)
+    jparams = jtransformer.init_params(jax.random.PRNGKey(1), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    calls, ssd = [], jssm.ssd_chunked
+
+    def precise(*a, **kw):
+        calls.append(1)
+        return ssd(*a, **{**kw, "precise": True})
+
+    monkeypatch.setattr(jssm, "ssd_chunked", precise)
+    rng = np.random.default_rng(1)
+    # prompts of 2+ tokens: the JAX forward cannot prefill one token
+    prompts = [(rng.integers(0, tcfg.vocab_size, n, dtype=np.int32), m)
+               for n, m in [(7, 5), (40, 9), (3, 4), (20, 6), (64, 3),
+                            (5, 1)]]
+    spec_kw = dict(batch=3, cache_len=128)
+    ref = _jax_results(jcfg, jparams, prompts, spec_kw)
+    assert calls, "the JAX engine did not trace the patched ssd_chunked"
+    eng = Engine(tcfg, tparams, ServeSpec(**spec_kw), device="cpu",
+                 clock=StepClock())
+    rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in prompts]
+    out = eng.drain()
+    assert sorted(out) == sorted(ref) == rids
+    for rid in rids:
+        np.testing.assert_array_equal(out[rid].tokens, ref[rid].tokens)
+        assert out[rid].slot == ref[rid].slot
+        assert out[rid].token_times_s == ref[rid].token_times_s
+        assert out[rid].n_tokens == prompts[rid][1]
+    assert eng.stats()["prefills"] == len(prompts)
