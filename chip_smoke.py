@@ -9,7 +9,8 @@ It fails (non-zero exit, no result line) when no CUDA device is visible or
 the package is missing. Phases, each fatal on failure:
 
 1. device and build: the card's name and power limit; the kernels built
-   from ``src/repro_torch/kernels/csrc`` (build seconds, registers/spills);
+   from ``src/repro_torch/kernels/csrc`` (build seconds, then every kernel
+   instance's registers and spill bytes from ptxas, one JSON line each);
 2. every kernel against its plain version on the card at the main path's
    shapes, bf16 and fp32 (fp32: rmsnorm 1e-5, attention and decode stats
    1e-4 for the other summation order; bf16 outputs 2e-2 against the plain
@@ -21,7 +22,8 @@ the package is missing. Phases, each fatal on failure:
    and one G = 2, N = 64 case), each timed with CUDA events on a cold L2
    beside its plain version, a PyTorch library call where one computes the
    same function (timed here only; the port never calls it), and its
-   bound;
+   bound (flash: bf16 runs the wgmma kernel, fp32 the CUDA-core one;
+   SDPA timed beside each causal case, S = 137, 512 and 2048);
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -30,9 +32,10 @@ the package is missing. Phases, each fatal on failure:
    (torch.equal) to its plain version and to the shards broadcast, timed
    beside the plain version, the library call that computes the same
    function (``x.unsqueeze(0).expand(p, ...).contiguous()``, timed here
-   only) and its bound; then the slice's main path, one
-   ``dma_locality_allgather`` at the 16-rank FSDP size, with its launch
-   count (rounds + 2);
+   only) and its bound, its launches per gather (1: one cooperative
+   kernel runs every round), spill slots and the peak device memory one
+   gather adds; then the slice's main path, one ``dma_locality_allgather``
+   at the 16-rank FSDP size, with its launch count (1);
 3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
    (fp32, 3 layers), each with the same parameters on the CPU (plain
    versions) and on the card (kernels): logits after prefill and 8 decode
@@ -370,7 +373,14 @@ def dma_allgather_cases(timer: Timer, cases) -> list[dict]:
             sched = dma_ops.build_schedule(
                 alg, p, None if alg in ("bruck", "ring") else pl)
             what = f"dma_allgather {alg} {case}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held, before = torch.cuda.memory_allocated(), dma_ops.LAUNCHES
             out = dma_ops.dma_allgather(x, sched)
+            torch.cuda.synchronize()
+            launches = dma_ops.LAUNCHES - before
+            peak = torch.cuda.max_memory_allocated() - held
+            check(launches == 1, f"{what}: {launches} launches per gather")
             plain = dma_ops.dma_allgather_ref(x, sched)
             check(torch.equal(out, plain), f"{what}: kernel != plain version")
             del plain                   # equal, so the max abs error is 0
@@ -382,8 +392,10 @@ def dma_allgather_cases(timer: Timer, cases) -> list[dict]:
             rows.append(dict(
                 case=case, algorithm=alg, shape=[p, n], q=q, pl=pl,
                 dtype=str(dtype), rounds=len(sched.sizes),
-                launches_per_gather=len(sched.sizes) + 2,
-                capacity=sched.capacity, max_abs_err=0.0, tolerance=0.0,
+                launches_per_gather=launches, capacity=sched.capacity,
+                spill_slots=sched.spill, peak_bytes_per_gather=peak,
+                out_bytes=p * p * n * x.element_size(),
+                max_abs_err=0.0, tolerance=0.0,
                 ms=timer(lambda: dma_ops.dma_allgather(x, sched)),
                 host_ms=timer.host_ms(lambda: dma_ops.dma_allgather(x, sched),
                                       iters=10),
@@ -409,9 +421,8 @@ def dma_main_path(case) -> int:
     out = dma_ops.dma_locality_allgather(x, q, pl)
     torch.cuda.synchronize()
     launches = dma_ops.LAUNCHES
-    rounds = len(dma_ops.build_schedule("locality_bruck", p, pl).sizes)
-    check(launches == rounds + 2, f"dma main path: {launches} launches, "
-                                  f"the path implies {rounds + 2}")
+    check(launches == 1, f"dma main path: {launches} launches, the path "
+                         f"implies 1 (one cooperative kernel per gather)")
     check(torch.equal(out, x.unsqueeze(0).expand(p, p, n)),
           "dma main path: not every shard on every rank")
     del out, x
@@ -627,6 +638,33 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
     eng.drain()
 
 
+def ptxas_usage(log: str) -> list[dict]:
+    """Registers and spill bytes of every kernel instance in ``build.log``
+    (``-Xptxas -v``), names demangled where ``c++filt`` is found."""
+    rows, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            rows.append({"kernel": name})
+        elif name and "spill stores" in line:
+            w = line.replace(",", " ").split()
+            rows[-1]["spill_stores"] = int(w[w.index("spill") - 2])
+            rows[-1]["spill_loads"] = int(w[w.index("loads") - 3])
+        elif name and "Used" in line and "registers" in line:
+            w = line.replace(",", " ").split()
+            rows[-1]["registers"] = int(w[w.index("registers") - 1])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, demangled in zip(rows, names):
+                r["kernel"] = demangled
+    except OSError:
+        pass
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -644,8 +682,10 @@ def main() -> int:
     info = _build.build()
     _build.lib()
     print(f"kernels built in {info.seconds:.1f} s into {info.path.parent}")
+    for row in ptxas_usage(info.log):
+        print(json.dumps({"phase": "build", **row}))
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "warning" in line.lower():
             print("  " + line.strip())
 
     timer = Timer()

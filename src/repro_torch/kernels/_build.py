@@ -40,17 +40,17 @@ SIGNATURES = {
     # x, scale, y, rows, d, eps, x_dtype, scale_dtype, vectorised, stream
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     # q, k, v, o, B, S, T, H, KV, D, scale, causal, window, chunk, cap,
-    # dtype, stream
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _I, _I, _F, _I, _P],
+    # stream
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _I, _F, _P],
+    "repro_flash_attention_fp32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _I, _F, _P],
     # s, m, v, o, l, B, KV, G, L, D, v_dtype, stream
     "repro_decode_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, buf, p, block_bytes, row_bytes, vec, stream
-    "repro_dma_ag_init": [_P, _P, _I, _LL, _LL, _I, _P],
-    # buf, table, p, R, r, size_bytes, block_bytes, row_bytes, vec, stream
-    "repro_dma_ag_round": [_P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _P],
-    # buf, perm, out, p, block_bytes, row_bytes, vec, stream
-    "repro_dma_ag_gather": [_P, _P, _P, _I, _LL, _LL, _I, _P],
+    # x, out, spill, table, sizes, p, R, W, spill slots, max size,
+    # block_bytes, vec, stream
+    "repro_dma_allgather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL,
+                            _I, _P],
     # x, dt, A, B, C, y, h, Bt, S, H, G, N, P, dtype, stream
     "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _P],

@@ -1,36 +1,600 @@
 // Flash attention forward (online softmax) for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention/flash.py, _flash_kernel
-// (called by flash_attention): softmax(q k^T * D^-0.5) v per head with fp32
-// running max m, sum l and accumulator, GQA (q head h reads kv head h / G),
-// causal, sliding-window, chunked-local and tanh-softcap masks, kv tiles
-// that no query of the tile can reach skipped, and rows with l == 0
-// written as 0.
+// (called by flash_attention, pallas_call at :121): softmax(q k^T * D^-0.5) v
+// per head with fp32 running max m, sum l and accumulator, GQA (q head h
+// reads kv head h / G), causal, sliding-window, chunked-local and
+// tanh-softcap masks, kv tiles that no query of the tile can reach skipped,
+// and rows with l == 0 written as 0.
 //
-// Bound on the H100: at prefill lengths it is operations, 4*D flops per
-// attended (query, key) pair (q.k and p.v) against ~2*D*(H+2*KV)/H bytes
-// per query row; the flops win from a few hundred keys on. This first
-// version uses fp32 FMA on the CUDA cores (67 TFLOP/s at most), not the
-// tensor cores (989 TFLOP/s bf16), so it runs well above the bound; it is
-// right first, and wgmma/TMA is later work.
+// Bound on the H100 at the main path's shape (llama3.2-3b prefill, B = 1,
+// S = 512, 24 q heads over 8 kv heads, D = 128, bf16, causal): bytes, q and
+// o (2 x 3.1 MB) plus k and v (2 x 1.0 MB) = 8.4 MB at 3.35 TB/s = 2.50 us;
+// the 4*D flops per attended pair (q.k and p.v), 1.61 GFLOP, take 1.63 us at
+// 989 TFLOP/s bf16. From a few hundred keys on the operations win: at
+// S = 2048, 25.8 GFLOP = 26 us against 10 us of bytes.
 //
-// Design: one block per (b*H + h, 64-row q tile). The TPU's sequential kv
-// grid axis becomes a loop inside the block over 64-key tiles staged in
-// shared memory as fp32 (K rows padded by one float so the 32 lanes of a
-// warp reading 32 different keys hit 32 different banks). Each warp owns
-// 16 query rows (8 when D = 256, with twice the warps); lane j scores keys
-// j and j+32 of the tile, the row max and sum go by warp shuffles, p goes
+// Design: two instances, chosen by dtype in the wrapper (ops.py), never one
+// for the other. Registers per thread from ptxas (build.log), no spills in any:
+// bf16 D = 32/64/128/256: 96/127/166/244; fp32: 162/168/254/204.
+//
+// bf16: tensor cores. One block of one warpgroup (128 threads) per (b*H + h,
+// 64-row q tile); at D = 128 two blocks fit an SM (112 KB of shared memory,
+// 166 registers). Q (64 x D) and a ring of three K/V stages (64 keys x D
+// each) live in shared memory in the 128-byte swizzle (64-byte at D = 32)
+// that the wgmma descriptors read, loaded by TMA (cp.async.bulk.tensor over
+// 3-D tensor maps of the (B, S|T, H|KV * D) views, one box per 64 columns,
+// rows past S or T read as zeros) with mbarrier completion; thread 0 refills
+// a stage as soon as all four warps are past it, two tiles ahead of the one
+// being multiplied. cuTensorMapEncodeTiled lives in libcuda; it is fetched
+// through cudaGetDriverEntryPoint, so the library links no -lcuda. Per kv
+// tile: S = Q K^T is wgmma m64n64k16 with both operands in shared memory
+// (K-major), issued together with O += P V of the previous tile (wgmma
+// m64n{64,32}k16, P in bf16 from registers, V from shared memory, MN-major,
+// transposed by the instruction); the fp32 scores stay in registers, where
+// the mask (only on tiles that cross the causal diagonal, a window or chunk
+// edge or the ragged T edge; one key interval per row), the softcap and the
+// online softmax (the ex2 instruction, log2(e) folded into the scale) run.
+// The accumulator layout of S is already the A-operand layout of P V, so P
+// never goes through shared memory; m, l and O stay fp32 in registers. Q
+// tiles are launched causally heaviest first (blockIdx.y reversed).
+//
+// What bounds it: neither bytes nor flops. At S = 512 the heaviest q tile
+// runs a chain of 8 kv tiles, each a product, a softmax and a product in
+// turn (~2,000 cycles of one warpgroup, of which the softmax ~800, by
+// clock64 stamps), after a prologue of ~6,500 cycles that mostly waits for
+// the first loads from a cold L2. Splitting a q tile's kv range over two
+// warpgroups, or over a two-block cluster merged through distributed shared
+// memory, 128-key tiles, a producer warp, and issuing the next Q K^T before
+// the softmax were each measured no faster (PERF.md). Each q head is its
+// own block: packing the G = 3 q heads of a kv head into one block would read
+// each K/V tile once but leaves 64 blocks for 132 SMs at S = 512, and the G
+// blocks that share a kv head run side by side and meet its tiles in L2.
+//
+// fp32: CUDA cores (tf32 would not hold the 1e-4 fp32 tolerance). One block
+// per (b*H + h, 64-row q tile), 64-key tiles staged in shared memory as
+// fp32 (K rows padded by one float against bank conflicts); each warp owns
+// 16 query rows (8 at D = 256), lane j scores keys j and j+32, P goes
 // through shared memory to the P.V product, where lane j owns output
-// columns j, j+32, ... . Ragged q and kv edges are masked in the kernel,
-// so any prompt length works in 64-row tiles.
+// columns j, j+32, ... .
+//
+// Both mask the ragged q and kv edges themselves, so any S and T work.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-using repro::to_f;
-using repro::from_f;
 using repro::kNegInf;
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+constexpr int kBM = 64;            // query rows per block (one warpgroup)
+constexpr int kBN = 64;            // keys per kv tile
+constexpr int kStages = 3;         // K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WCfg {
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle row, bytes
+  static constexpr int SWE = SW / 2;              // bf16 per swizzle row
+  static constexpr int NB = D / SWE;              // column boxes per row
+  static constexpr int Q_BYTES = kBM * D * 2;
+  static constexpr int KV_BYTES = kBN * D * 2;    // K or V, one stage
+  static constexpr int SMEM =
+      Q_BYTES + kStages * 2 * KV_BYTES + 8 * (kStages + 1);
+  static constexpr int NO = SWE / 2;              // O registers per column box
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// spins until the barrier's phase `parity` completes; a copy that never
+// lands traps after ~2^24 polls instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B)
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  constexpr uint64_t mode = SW == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the A fragment of an in-flight wgmma: its registers stay live until here
+template <int K>
+__device__ __forceinline__ void fence_pa(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[k][j])::"memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d (64 x 64, fp32) += A (64 x 16, shared, K-major) B (16 x 64, shared,
+// K-major); scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16 in registers) B (16 x N, shared,
+// MN-major: the instruction transposes it)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the reachable kv tiles of q tile [q0, q0 + kBM) form one interval,
+// [lo, hi], by flash.py's tile rule; empty when lo > hi
+__device__ __forceinline__ void kv_range(int q0, int T_len, int causal,
+                                         int window, int chunk, int& lo,
+                                         int& hi) {
+  lo = 0;
+  hi = (T_len + kBN - 1) / kBN - 1;
+  if (causal) hi = min(hi, (q0 + kBM - 1) / kBN);
+  if (window) {
+    const int first = q0 - (window - 1);      // first key row q0 may see
+    if (first > 0) lo = max(lo, first / kBN);
+  }
+  if (chunk) {
+    lo = max(lo, ((q0 / chunk) * chunk) / kBN);
+    hi = min(hi, (q0 + kBM - 1) / kBN);
+  }
+}
+
+// true when some (query, key) pair of the tile is masked
+__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, int T_len,
+                                                int causal, int window,
+                                                int chunk) {
+  const int q1 = q0 + kBM - 1, k1 = k0 + kBN - 1;
+  if (k1 >= T_len) return true;
+  if (causal && k1 > q0) return true;
+  if (window && q1 - k0 >= window) return true;
+  if (chunk && !(q0 / chunk == q1 / chunk && k0 / chunk == k1 / chunk &&
+                 q0 / chunk == k0 / chunk))
+    return true;
+  return false;
+}
+
+// 2^x by the ex2 instruction (flushing subnormal results to 0; p feeds a
+// bf16 product, and exp2f adds only a rescaling of subnormal inputs)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the keys query qp may see, [lo, hi): the causal, window and chunk masks
+// of flash.py and the ragged T edge, as one interval per row
+__device__ __forceinline__ void visible_keys(int qp, int T_len, int causal,
+                                             int window, int chunk, int& lo,
+                                             int& hi) {
+  lo = 0;
+  hi = T_len;
+  if (causal) hi = min(hi, qp + 1);
+  if (window) lo = max(lo, qp - window + 1);
+  if (chunk) {
+    const int c0 = (qp / chunk) * chunk;
+    lo = max(lo, c0);
+    hi = min(hi, c0 + chunk);
+  }
+}
+
+// scores of one tile -> log2-domain logits: scale (or softcap), then the
+// mask where the tile needs one; i indexes wgmma's accumulator layout (row
+// (i >> 1) & 1, key 8 * (i >> 2) + 2 * t4 + (i & 1) of the tile)
+__device__ __forceinline__ void logits(float (&s)[32], int k0, int t4,
+                                       const int (&lo)[2], const int (&hi)[2],
+                                       float cap, float scale, bool masked) {
+  if (cap != 0.f) {
+    const float in = scale * __frcp_rn(cap), out = cap * kLog2e;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = out * tanhf(s[i] * in);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale * kLog2e;
+  }
+  if (!masked) return;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int kp = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+    if (kp < lo[r] || kp >= hi[r]) s[i] = kNegInf;
+  }
+}
+
+// online softmax of one tile's logits, in place: s becomes p = exp2(s - m);
+// alpha is the factor by which the rows' earlier O and l shrink
+__device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (((i >> 1) & 1) == r) mx = fmaxf(mx, s[i]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    alpha[r] = exp2_ftz(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2_ftz(s[i] - m[r]);
+    rs[r] += s[i];
+  }
+  // l is kept per thread (its quarter of the row) and summed at the end
+  l[0] = alpha[0] * l[0] + rs[0];
+  l[1] = alpha[1] * l[1] + rs[1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int S, int T_len, int H,
+                   int KV, float scale, int causal, int window, int chunk,
+                   float cap) {
+  using C = WCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: tiles start on 1024 bytes,
+  // as dynamic shared memory does in a kernel with no static shared memory
+  const uint32_t sQ = smem_u32(smem_raw);
+  if (sQ & 1023) __trap();
+  const uint32_t sK0 = sQ + C::Q_BYTES;                // stage t: K, then V
+  const uint32_t bar_q = sK0 + kStages * 2 * C::KV_BYTES;
+  // bar_q, then one "tile landed" barrier per stage, 8 bytes each
+  auto stage_k = [&](int t) { return sK0 + t * 2 * C::KV_BYTES; };
+  auto bar_kv = [&](int t) { return bar_q + 8 * (1 + t); };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;   // heaviest first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // row r0 holds the accumulator pairs 0, 2, 4, ..., row r0 + 8 the others
+  const int r0 = q0 + 16 * warp + g;
+
+  int lo, hi;
+  kv_range(q0, T_len, causal, window, chunk, lo, hi);
+  const int n = hi - lo + 1;
+
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile it (kv tile lo + it) goes to stage it % kStages
+  auto load_kv = [&](int it) {
+    const int t = it % kStages;
+    const uint32_t sk = stage_k(t), sv = sk + C::KV_BYTES;
+    mbar_expect_tx(bar_kv(t), 2 * C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c) {
+      tma_load_3d(sk + c * kBN * C::SW, &tk, kvh * D + c * C::SWE,
+                  (lo + it) * kBN, b, bar_kv(t));
+      tma_load_3d(sv + c * kBN * C::SW, &tv, kvh * D + c * C::SWE,
+                  (lo + it) * kBN, b, bar_kv(t));
+    }
+  };
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c)
+      tma_load_3d(sQ + c * kBM * C::SW, &tq, h * D + c * C::SWE, q0, b, bar_q);
+    for (int it = 0; it < n && it < kStages; ++it) load_kv(it);
+  }
+
+  float acc[C::NB][C::NO];
+#pragma unroll
+  for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+    for (int i = 0; i < C::NO; ++i) acc[c][i] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f}, alpha[2];
+  float s[32];
+  uint32_t pa[kBN / 16][4];
+
+  // descriptors: K-major Q and K (leading offset unused, 8-row groups
+  // SW * 8 bytes apart); V is MN-major with one swizzle atom across N per
+  // instruction, so both offsets are the 8-key group stride
+  const uint64_t dq = make_desc<C::SW>(sQ, 16, 8 * C::SW);
+  auto issue_qk = [&](int t) {
+    const uint64_t dk = make_desc<C::SW>(stage_k(t), 16, 8 * C::SW);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // 16 columns: box kk*16/SWE, byte offset (kk*16 % SWE)*2 in its row
+      const uint32_t col = ((kk * 16) % C::SWE) * 2, box = (kk * 16) / C::SWE;
+      wgmma_ss_n64(s, dq + ((box * kBM * C::SW + col) >> 4),
+                   dk + ((box * kBN * C::SW + col) >> 4), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int t) {
+    const uint64_t dv =
+        make_desc<C::SW>(stage_k(t) + C::KV_BYTES, 8 * C::SW, 8 * C::SW);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < C::NB; ++c)
+        wgmma_rs<C::SWE>(acc[c], pa[kk],
+                         dv + ((c * kBN * C::SW + kk * 16 * C::SW) >> 4));
+    wgmma_commit();
+  };
+  // P in bf16: accumulator pairs 8kk..8kk+7 are the A fragment of keys
+  // 16kk..16kk+15
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+  };
+  int key_lo[2], key_hi[2];
+  visible_keys(r0, T_len, causal, window, chunk, key_lo[0], key_hi[0]);
+  visible_keys(r0 + 8, T_len, causal, window, chunk, key_lo[1], key_hi[1]);
+
+  // iteration it: S_it = Q K_it^T and O += P_{it-1} V_{it-1} are issued
+  // together, so the second product runs while the first is waited for
+  for (int it = 0; it < n; ++it) {
+    const int t = it % kStages, tp = (it + kStages - 1) % kStages;
+    const int k0 = (lo + it) * kBN;
+    if (it == 0) mbar_wait(bar_q, 0);
+    mbar_wait(bar_kv(t), (it / kStages) & 1);
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c) fence_regs(acc[c]);
+    issue_qk(t);                             // (its wgmma_fence covers both)
+    if (it > 0) {
+      issue_pv(tp);
+      wgmma_wait<1>();                       // S_it is in
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(s);
+    logits(s, k0, t4, key_lo, key_hi, cap, scale,
+           tile_needs_mask(q0, k0, T_len, causal, window, chunk));
+    softmax_step(s, m_i, l_i, alpha);
+    wgmma_wait<0>();                         // O += P_{it-1} V_{it-1} is in
+    fence_pa(pa);
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c) {
+      fence_regs(acc[c]);
+#pragma unroll
+      for (int i = 0; i < C::NO; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+    }
+    pack_p();
+    __syncthreads();                         // stage tp is read by all
+    if (tid == 0 && it > 0 && it - 1 + kStages < n) load_kv(it - 1 + kStages);
+  }
+  if (n > 0) {
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c) fence_regs(acc[c]);
+    wgmma_fence();
+    issue_pv((n - 1) % kStages);
+    wgmma_wait<0>();
+    fence_pa(pa);
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c) fence_regs(acc[c]);
+  }
+
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv_l[r] = l == 0.f ? 1.f : __frcp_rn(l);      // fully-masked rows -> 0
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + 8 * r;
+    if (qp >= S) continue;
+    __nv_bfloat16* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+      for (int j = 0; j < C::NO / 4; ++j) {
+        const int col = c * C::SWE + 8 * j + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * inv_l[r],
+                                  acc[c][4 * j + 2 * r + 1] * inv_l[r]);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the
+// runtime, so the library needs no -lcuda
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, L, heads * D) bf16 tensor as a 3-D map with boxes of SWE columns x
+// rows rows x 1 batch, swizzled as the wgmma descriptors expect
+template <int D>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L,
+                     int heads, int rows) {
+  using C = WCfg<D>;
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * D,
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(L) * heads * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(C::SWE),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int T_len, int H, int KV, float scale,
+                         int causal, int window, int chunk, float cap,
+                         cudaStream_t stream) {
+  using C = WCfg<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = make_map<D>(&tq, q, B, S, H, kBM);
+  if (e == cudaSuccess) e = make_map<D>(&tk, k, B, T_len, KV, kBN);
+  if (e == cudaSuccess) e = make_map<D>(&tv, v, B, T_len, KV, kBN);
+  static bool opted_in[64] = {};      // the shared-memory opt-in, per device
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= 64) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && !opted_in[dev]) {
+    e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+    opted_in[dev] = e == cudaSuccess;
+  }
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (S + kBM - 1) / kBM);
+  flash_wgmma_kernel<D><<<grid, 128, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T_len, H, KV, scale,
+      causal, window, chunk, cap);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
 template <int D>
 struct Tile {
   static constexpr int BQ = 64;                     // query rows per block
@@ -43,12 +607,12 @@ struct Tile {
   static constexpr int SMEM_FLOATS = BQ * D + BK * KP + BK * D + BQ * BK;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Tile<D>::NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int T_len,
-                 int H, int KV, float scale, int causal, int window, int chunk,
-                 float cap) {
+flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S,
+                  int T_len, int H, int KV, float scale, int causal,
+                  int window, int chunk, float cap) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* sQ = smem;                     // [BQ][D]
@@ -65,7 +629,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = tid; idx < C::BQ * D; idx += C::NT) {
     const int r = idx / D, d = idx % D, qs = q0 + r;
-    sQ[idx] = qs < S ? to_f(q[((static_cast<size_t>(b) * S + qs) * H + h) * D + d])
+    sQ[idx] = qs < S ? q[((static_cast<size_t>(b) * S + qs) * H + h) * D + d]
                      : 0.f;
   }
 
@@ -97,8 +661,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv_k = 0.f, kv_v = 0.f;
       if (ks < T_len) {
         const size_t off = ((static_cast<size_t>(b) * T_len + ks) * KV + kvh) * D + d;
-        kv_k = to_f(k[off]);
-        kv_v = to_f(v[off]);
+        kv_k = k[off];
+        kv_v = v[off];
       }
       sK[r * C::KP + d] = kv_k;
       sV[idx] = kv_v;
@@ -166,60 +730,73 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + row0 + i;
     if (qp >= S) continue;
     const float l = l_i[i] == 0.f ? 1.f : l_i[i];   // fully-masked rows -> 0
-    T* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+    float* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < C::DL; ++j) out[lane + 32 * j] = from_f<T>(acc[i][j] / l);
+    for (int j = 0; j < C::DL; ++j) out[lane + 32 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int S, int T_len, int H, int KV, float scale, int causal,
-                   int window, int chunk, float cap, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int T_len, int H, int KV, float scale,
+                        int causal, int window, int chunk, float cap,
+                        cudaStream_t stream) {
   using C = Tile<D>;
   const int smem = C::SMEM_FLOATS * static_cast<int>(sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fp32_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (S + C::BQ - 1) / C::BQ);
-  flash_fwd_kernel<T, D><<<grid, C::NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, T_len, H, KV, scale,
-      causal, window, chunk, cap);
+  flash_fp32_kernel<D><<<grid, C::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, T_len, H, KV,
+      scale, causal, window, chunk, cap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int T_len, int H, int KV, int D,
-                       float scale, int causal, int window, int chunk,
-                       float cap, cudaStream_t s) {
+using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
+                               int, int, int, int, int, float, int, int, int,
+                               float, cudaStream_t);
+
+Launch pick(bool bf16, int D) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, T_len, H, KV, scale, causal, window, chunk, cap, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, KV, scale, causal, window, chunk, cap, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, KV, scale, causal, window, chunk, cap, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, T_len, H, KV, scale, causal, window, chunk, cap, s);
-    default: return cudaErrorInvalidValue;
+    case 32: return bf16 ? launch_wgmma<32> : launch_fp32<32>;
+    case 64: return bf16 ? launch_wgmma<64> : launch_fp32<64>;
+    case 128: return bf16 ? launch_wgmma<128> : launch_fp32<128>;
+    case 256: return bf16 ? launch_wgmma<256> : launch_fp32<256>;
+    default: return nullptr;
   }
+}
+
+int run(bool bf16, const void* q, const void* k, const void* v, void* o,
+        int B, int S, int T_len, int H, int KV, int D, float scale, int causal,
+        int window, int chunk, float cap, void* stream) {
+  const Launch fn = pick(bf16, D);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fn(q, k, v, o, B, S, T_len, H, KV, scale, causal,
+                             window, chunk, cap,
+                             static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
-// q (B,S,H,D), k/v (B,T,KV,D), o (B,S,H,D), all contiguous and of one dtype.
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int S,
-                                     int T_len, int H, int KV, int D,
-                                     float scale, int causal, int window,
-                                     int chunk, float cap, int dtype,
-                                     void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == repro::kFloat32)
-    e = dispatch_d<float>(q, k, v, o, B, S, T_len, H, KV, D, scale, causal,
-                          window, chunk, cap, s);
-  else if (dtype == repro::kBFloat16)
-    e = dispatch_d<__nv_bfloat16>(q, k, v, o, B, S, T_len, H, KV, D, scale,
-                                  causal, window, chunk, cap, s);
-  return static_cast<int>(e);
+// q (B,S,H,D), k/v (B,T,KV,D), o (B,S,H,D), all contiguous; bf16 runs the
+// tensor-core instance (q, k, v 16-byte aligned), fp32 the CUDA-core one.
+extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
+                                          const void* v, void* o, int B, int S,
+                                          int T_len, int H, int KV, int D,
+                                          float scale, int causal, int window,
+                                          int chunk, float cap, void* stream) {
+  return run(true, q, k, v, o, B, S, T_len, H, KV, D, scale, causal, window,
+             chunk, cap, stream);
+}
+
+extern "C" int repro_flash_attention_fp32(const void* q, const void* k,
+                                          const void* v, void* o, int B, int S,
+                                          int T_len, int H, int KV, int D,
+                                          float scale, int causal, int window,
+                                          int chunk, float cap, void* stream) {
+  return run(false, q, k, v, o, B, S, T_len, H, KV, D, scale, causal, window,
+             chunk, cap, stream);
 }

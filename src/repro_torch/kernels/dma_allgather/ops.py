@@ -4,9 +4,11 @@ version for CPU ones.
 The p ranks of the gather are p slices of one device allocation:
 ``dma_allgather(x, sched)`` takes ``x`` (p, *shard), rank i's shard in
 ``x[i]``, and returns (p, p, *shard) with ``out[i]`` rank i's gathered
-result in canonical order, as the JAX op returns it on device i.
-``LAUNCHES`` counts kernel launches (``len(sched.sizes) + 2`` per call:
-the first copy, one per round, the final gather); CPU calls leave it alone.
+result in canonical order, as the JAX op returns it on device i. The
+kernel runs the schedule's folded table (``DmaSchedule.folded``) in one
+cooperative launch: messages land in canonical order, blocks received a
+second time go to a (p, capacity - p, *shard) spill buffer. ``LAUNCHES``
+counts kernel launches (1 per call); CPU calls leave it alone.
 """
 from __future__ import annotations
 
@@ -46,14 +48,14 @@ def _vec_bytes(block_bytes: int, *ptrs: int) -> int:
 
 def _device_tables(sched: DmaSchedule, device) -> tuple[torch.Tensor,
                                                          torch.Tensor]:
-    """The table and perm on ``device``, copied once per schedule."""
+    """The folded table and the round sizes on ``device``, copied once per
+    schedule."""
     key = str(device)
     if key not in sched.device_tables:
         sched.device_tables[key] = (
-            torch.as_tensor(sched.table, dtype=torch.int32).contiguous()
+            torch.as_tensor(sched.folded, dtype=torch.int32).contiguous()
             .to(device),
-            torch.as_tensor(sched.perm, dtype=torch.int32).contiguous()
-            .to(device))
+            torch.as_tensor(sched.sizes, dtype=torch.int32).to(device))
     return sched.device_tables[key]
 
 
@@ -69,33 +71,24 @@ def dma_allgather(x: torch.Tensor, sched: DmaSchedule) -> torch.Tensor:
         raise ValueError(f"dma_allgather: x on {x.device}")
     if not x.is_contiguous():
         raise ValueError("dma_allgather: x must be contiguous")
-    p, cap = sched.p, sched.capacity
+    p = sched.p
     out = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     block_bytes = x[0].numel() * x.element_size()
     if block_bytes == 0:
         return out
-    buf = torch.empty((p, cap, block_bytes), dtype=torch.uint8,
-                      device=x.device)
-    table, perm = _device_tables(sched, x.device)
-    vec = _vec_bytes(block_bytes, x.data_ptr(), buf.data_ptr(),
-                     out.data_ptr())
-    row_bytes = cap * block_bytes
-    lib, stream = _build.lib(), _build.stream_of(x)
-    _build.check(lib.repro_dma_ag_init(x.data_ptr(), buf.data_ptr(), p,
-                                       block_bytes, row_bytes, vec, stream),
-                 "dma_allgather init")
-    LAUNCHES += 1
-    n_rounds = len(sched.sizes)
-    for r, size in enumerate(sched.sizes):
-        _build.check(lib.repro_dma_ag_round(
-            buf.data_ptr(), table.data_ptr(), p, n_rounds, r,
-            size * block_bytes, block_bytes, row_bytes, vec, stream),
-            f"dma_allgather round {r}")
-        LAUNCHES += 1
-    _build.check(lib.repro_dma_ag_gather(buf.data_ptr(), perm.data_ptr(),
-                                         out.data_ptr(), p, block_bytes,
-                                         row_bytes, vec, stream),
-                 "dma_allgather gather")
+    spill = (torch.empty((p, sched.spill, block_bytes), dtype=torch.uint8,
+                         device=x.device) if sched.spill else None)
+    table, sizes = _device_tables(sched, x.device)
+    ptrs = [x.data_ptr(), out.data_ptr()]
+    if spill is not None:
+        ptrs.append(spill.data_ptr())
+    vec = _vec_bytes(block_bytes, *ptrs)
+    err = _build.lib().repro_dma_allgather(
+        x.data_ptr(), out.data_ptr(), None if spill is None else
+        spill.data_ptr(), table.data_ptr(), sizes.data_ptr(), p,
+        len(sched.sizes), sched.folded.shape[2], sched.spill,
+        max(sched.sizes, default=0), block_bytes, vec, _build.stream_of(x))
+    _build.check(err, "dma_allgather")
     LAUNCHES += 1
     return out
 

@@ -2,7 +2,9 @@
 
 The p ranks are p rows of one ``(p, capacity, n)`` buffer; the compiled
 table's rounds copy block slices between rows, a per-rank permutation then
-reads the canonical order, exactly as the kernel does.
+reads the canonical order, as the TPU kernel does. The CUDA kernel runs
+the folded table instead (messages land in canonical order), so the two
+share the schedule and nothing else.
 """
 import torch
 

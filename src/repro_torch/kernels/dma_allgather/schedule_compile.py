@@ -19,9 +19,23 @@ origin block.
 
 One check is the port's own: in no round does a rank's write range
 ``[recv_off, recv_off + size)`` in its target's buffer overlap a range that
-the target reads in the same round. The CUDA kernel runs every rank's copy
-of a round in one launch, so a round must not read what it writes;
-``execute_table`` snapshots its reads and would not show such an overlap.
+the target reads in the same round. ``execute_table`` snapshots its reads
+and would not show such an overlap.
+
+The port's kernel executes the *folded* table (``DmaSchedule.folded``):
+the same messages, with the final permutation folded in at compile time.
+Each rank's output row ``out[i]`` (p slots, slot o for origin o) is its
+receive buffer. When rank i sends its raw slots ``[send_off, +size)`` in
+round r, the message becomes ``size`` block copies, one per origin o that
+``compile_schedule``'s raw buffers record there: from the sender's slot o
+to the receiver's slot o, or, where the receiver already holds o (a
+schedule that re-sends a block; capacity > p), to one of the receiver's
+``capacity - p`` spill slots, numbered p, p+1, ... . A copy into the
+receiver's own slot o would race with its read of that slot in the same
+round. The message sizes, and so ``nonlocal_stats``, stay the table's;
+the first copy writes x[i] to slot i of ``out[i]``, and the raw layout's
+``(p, capacity, n)`` buffer and gather pass go away. ``check_folded``
+holds the folded rounds free of overlap.
 """
 from __future__ import annotations
 
@@ -40,9 +54,20 @@ class DmaSchedule:
     perm: np.ndarray         # (p, p) int32: canonical[j] = buf[perm[i, j]]
     p: int
     capacity: int            # buffer slots (blocks) needed per rank
-    # device copies of table and perm, filled by the kernel wrapper
+    # (R, p, 1 + 3·max size) int32: per round and sending rank, the target
+    # (-1: no send) then (origin, source slot, destination slot) for each
+    # block of the message; -1 padding. Slots < p are the output row (the
+    # source slot is the origin's), the rest its spill slots.
+    folded: np.ndarray = dataclasses.field(compare=False, repr=False,
+                                           default=None)
+    # device copies of the kernel's tables, filled by the kernel wrapper
     device_tables: dict = dataclasses.field(default_factory=dict,
                                             compare=False, repr=False)
+
+    @property
+    def spill(self) -> int:
+        """Spill slots per rank: blocks a rank receives a second time."""
+        return self.capacity - self.p
 
     def nonlocal_stats(self, region) -> tuple[int, int]:
         """(max msgs, max blocks) crossing region boundaries per rank."""
@@ -71,6 +96,50 @@ def check_no_overlap(row: np.ndarray, size: int, r: int) -> None:
                     f"round {r}: rank {i} writes blocks [{roff}, "
                     f"{roff + size}) of rank {tgt}, which reads "
                     f"[{rlo}, {rhi}) in the same round")
+
+
+def check_folded(folded: np.ndarray, sizes, p: int) -> None:
+    """Raise if a folded round writes a slot that the round reads or that
+    another copy of the round writes."""
+    for r, size in enumerate(sizes):
+        reads, writes = set(), set()
+        for i in np.flatnonzero(folded[r, :, 0] >= 0):
+            tgt = int(folded[r, i, 0])
+            cps = folded[r, i, 1:1 + 3 * size].reshape(size, 3)
+            reads.update((int(i), int(src)) for src in cps[:, 1])
+            for dst in cps[:, 2]:
+                if (tgt, int(dst)) in writes:
+                    raise ValueError(f"round {r}: slot {int(dst)} of rank "
+                                     f"{tgt} is written twice")
+                writes.add((tgt, int(dst)))
+        both = reads & writes
+        if both:
+            rank, slot = min(both)
+            raise ValueError(f"round {r}: slot {slot} of rank {rank} is "
+                             f"read and written in the same round")
+
+
+def _fold(sched: Schedule, p: int, sizes: list[int]) -> np.ndarray:
+    """The folded table of ``sched``'s non-empty rounds (module docstring)."""
+    rounds = [rnd for rnd in sched.rounds if rnd.sends]
+    folded = -np.ones((len(rounds), p, 1 + 3 * max(sizes, default=0)),
+                      np.int32)
+    held = [{i} for i in range(p)]
+    spilled = [0] * p
+    for r, rnd in enumerate(rounds):
+        for s in rnd.sends:
+            row = folded[r, s.src]
+            row[0] = s.dst
+            for k, origin in enumerate(s.blocks):
+                if origin in held[s.dst]:
+                    dst = p + spilled[s.dst]
+                    spilled[s.dst] += 1
+                else:
+                    dst = origin
+                    held[s.dst].add(origin)
+                row[1 + 3 * k:4 + 3 * k] = (origin, origin, dst)
+    check_folded(folded, sizes, p)
+    return folded
 
 
 def compile_schedule(sched: Schedule) -> DmaSchedule:
@@ -121,7 +190,8 @@ def compile_schedule(sched: Schedule) -> DmaSchedule:
     table = (np.stack(rounds, axis=1) if rounds
              else np.zeros((p, 0, 5), np.int32))
     return DmaSchedule(table=table.astype(np.int32), sizes=tuple(sizes),
-                       perm=perm, p=p, capacity=capacity)
+                       perm=perm, p=p, capacity=capacity,
+                       folded=_fold(sched, p, sizes))
 
 
 def locality_bruck_raw(p: int, p_local: int) -> Schedule:
@@ -267,3 +337,28 @@ def execute_table(dma: DmaSchedule) -> np.ndarray:
     for i in range(p):
         out[i] = bufs[i, dma.perm[i]]
     return out
+
+
+def execute_folded(dma: DmaSchedule) -> tuple[np.ndarray, list]:
+    """Pure-python executor of the folded table, as the kernel runs it.
+
+    Returns the (p, p) origin ids of every rank's output row and, per round,
+    the origins each sending rank's message carried (``{rank: tuple}``).
+    Reads are not snapshotted: ``check_folded`` guarantees that no round
+    reads a slot it writes, so copies may run in any order.
+    """
+    p = dma.p
+    slots = -np.ones((p, dma.capacity), np.int64)
+    slots[np.arange(p), np.arange(p)] = np.arange(p)
+    messages = []
+    for r, size in enumerate(dma.sizes):
+        sent = {}
+        for i in np.flatnonzero(dma.folded[r, :, 0] >= 0):
+            tgt = int(dma.folded[r, i, 0])
+            cps = dma.folded[r, i, 1:1 + 3 * size].reshape(size, 3)
+            data = slots[i, cps[:, 1]]
+            assert (data == cps[:, 0]).all(), "a copy reads a slot it lacks"
+            slots[tgt, cps[:, 2]] = data
+            sent[int(i)] = tuple(int(o) for o in data)
+        messages.append(sent)
+    return slots[:, :p], messages

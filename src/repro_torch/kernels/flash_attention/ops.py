@@ -1,5 +1,9 @@
 """Flash attention: the CUDA kernel for CUDA tensors, the plain version for
-CPU ones. ``LAUNCHES`` counts kernel launches; CPU calls leave it alone."""
+CPU ones. ``LAUNCHES`` counts kernel launches; CPU calls leave it alone.
+
+On the card the dtype picks the instance, explicitly: bf16 runs the
+tensor-core kernel (wgmma, TMA), fp32 the CUDA-core one. A launch that
+fails raises; neither stands in for the other."""
 from __future__ import annotations
 
 import torch
@@ -38,16 +42,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype} differ")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    code = _build.dtype_code(q.dtype)
+    if q.dtype == torch.bfloat16:
+        entry = "repro_flash_attention_bf16"
+        what = "flash_attention (bf16, wgmma)"
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: bf16 q, k and v must start on "
+                             "16 bytes (TMA)")
+    elif q.dtype == torch.float32:
+        entry = "repro_flash_attention_fp32"
+        what = "flash_attention (fp32)"
+    else:
+        raise TypeError(f"flash_attention: the kernels take float32 or "
+                        f"bfloat16, got {q.dtype}")
     o = torch.empty_like(q)
     if B == 0 or S == 0 or H == 0:
         return o
     if T == 0:
         raise ValueError("flash_attention: no keys to attend to")
-    err = _build.lib().repro_flash_attention(
+    err = getattr(_build.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, T, H,
         KV, D, float(D ** -0.5), int(bool(causal)), int(window), int(chunk),
-        float(cap), code, _build.stream_of(q))
-    _build.check(err, "flash_attention")
+        float(cap), _build.stream_of(q))
+    _build.check(err, what)
     LAUNCHES += 1
     return o

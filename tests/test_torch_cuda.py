@@ -34,6 +34,22 @@ FLASH_CASES = [
     (1, 29, 29, 3, 1, 64, dict(causal=True)),           # GQA G=3, odd S
     (1, 137, 137, 24, 8, 128, dict(causal=True)),       # llama3.2-3b heads
     (1, 100, 100, 4, 2, 256, dict(causal=True)),
+    # the bf16 kernel's 64-row q and 64-key kv tiles: lengths at their
+    # edges, G = 1, 3 and 8, S != T, and every mask at D = 64 and D = 128
+    (1, 1, 1, 8, 8, 128, dict(causal=True)),            # G = 1, one token
+    (1, 63, 63, 24, 8, 128, dict(causal=True)),         # G = 3
+    (1, 64, 64, 8, 1, 128, dict(causal=True)),          # G = 8
+    (2, 65, 65, 6, 2, 64, dict(causal=True)),
+    (1, 127, 127, 8, 8, 64, dict(causal=True)),
+    (1, 129, 129, 16, 2, 128, dict(causal=True)),
+    (1, 512, 512, 24, 8, 128, dict(causal=True)),       # the main path
+    (1, 100, 260, 24, 8, 128, dict(causal=False)),      # S != T
+    (1, 300, 300, 8, 2, 64, dict(causal=True, window=64)),
+    (1, 300, 300, 8, 2, 128, dict(causal=True, window=100)),
+    (1, 257, 257, 6, 2, 64, dict(causal=True, chunk=128)),
+    (1, 300, 300, 24, 8, 128, dict(causal=True, chunk=128)),
+    (1, 200, 200, 4, 1, 64, dict(causal=True, cap=30.0)),
+    (1, 190, 190, 24, 8, 128, dict(causal=True, cap=50.0)),
 ]
 
 
@@ -116,6 +132,9 @@ DMA_CASES = [
     (6, 2, (7,), torch.uint8),           # 7: bytes
     (8, 8, (256,), torch.float32),       # 1 KiB, 64 ranks
     (5, 3, (33, 3), torch.bfloat16),
+    # capacity > p: locality_bruck re-sends blocks into spill slots
+    (3, 2, (1000,), torch.bfloat16),
+    (5, 4, (7,), torch.uint8),
 ]
 
 
@@ -135,7 +154,7 @@ def test_dma_allgather_kernel_on_card(cuda, case, algorithm):
     before = dma_ops.LAUNCHES
     out = dma_ops.dma_locality_allgather(x, q, pl, algorithm=algorithm)
     torch.cuda.synchronize()
-    assert dma_ops.LAUNCHES == before + len(sched.sizes) + 2
+    assert dma_ops.LAUNCHES == before + 1          # every round, one launch
     assert torch.equal(out, dma_ops.dma_allgather_ref(x, sched))
     assert torch.equal(out, x.unsqueeze(0).expand((p,) + x.shape))
 

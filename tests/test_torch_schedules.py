@@ -262,6 +262,78 @@ def test_dma_plain_origins_equal_jax_execute_table(grid, algorithm):
     np.testing.assert_array_equal(origins.numpy(), JSC.execute_table(j))
 
 
+def _raw_messages(t):
+    """Per round, {sending rank: origins of its raw slice}, by executing
+    the unfolded table's appends."""
+    bufs = [[i] for i in range(t.p)]
+    out = []
+    for r, size in enumerate(t.sizes):
+        sent = {i: tuple(bufs[i][t.table[i, r, 1]:t.table[i, r, 1] + size])
+                for i in range(t.p) if t.table[i, r, 3]}
+        for i, blocks in sent.items():
+            tgt, roff = int(t.table[i, r, 0]), int(t.table[i, r, 2])
+            assert len(bufs[tgt]) == roff
+            bufs[tgt].extend(blocks)
+        out.append(sent)
+    return out, bufs
+
+
+def _jax_table(algorithm, p, pl):
+    if algorithm == "locality_bruck":
+        return JSC.compile_schedule(JSC.locality_bruck_raw(p, pl))
+    if algorithm == "multilane":
+        return JSC.compile_schedule(JS.ALGORITHMS[algorithm](p, pl))
+    return JSC.compile_schedule(JS.ALGORITHMS[algorithm](p))
+
+
+@pytest.mark.parametrize("algorithm",
+                         ["bruck", "ring", "multilane", "locality_bruck"])
+@pytest.mark.parametrize("q", [2, 3, 5, 6])
+@pytest.mark.parametrize("pl", [2, 3, 4, 8])
+def test_dma_folded_table_moves_the_raw_messages(algorithm, q, pl):
+    p = q * pl
+    t = dma_ops.build_schedule(algorithm, p,
+                               None if algorithm in ("bruck", "ring") else pl)
+    origins, messages = TSC.execute_folded(t)
+    np.testing.assert_array_equal(origins, TSC.execute_table(t))
+    np.testing.assert_array_equal(
+        origins, JSC.execute_table(_jax_table(algorithm, p, pl)))
+    raw, bufs = _raw_messages(t)
+    assert messages == raw                 # the same blocks in every message
+    # the same (source, target, blocks) per round, so nonlocal_stats holds
+    region = TT.RegionMap(p, pl)
+    msgs, blocks = np.zeros(p, int), np.zeros(p, int)
+    for r, size in enumerate(t.sizes):
+        senders = np.flatnonzero(t.folded[r, :, 0] >= 0)
+        assert {(int(i), int(t.folded[r, i, 0]), size) for i in senders} == \
+            {(i, int(t.table[i, r, 0]), size) for i in range(p)
+             if t.table[i, r, 3]}
+        for i in senders:
+            if not region.is_local(int(i), int(t.folded[r, i, 0])):
+                msgs[i] += 1
+                blocks[i] += size
+    assert (int(msgs.max()), int(blocks.max())) == t.nonlocal_stats(region)
+    # a rank spills exactly the blocks it receives a second time
+    spilled = t.folded[..., 3::3]
+    for i in range(p):
+        into_i = spilled[t.folded[..., 0] == i]
+        assert int((into_i >= p).sum()) == len(bufs[i]) - p <= t.spill
+    TSC.check_folded(t.folded, t.sizes, p)
+
+
+def test_dma_check_folded_refuses_a_slot_read_and_written():
+    folded = -np.ones((1, 2, 4), np.int32)
+    folded[0, 0] = (1, 0, 0, 0)        # rank 0 sends origin 0 to rank 1's slot 0
+    folded[0, 1] = (0, 1, 0, 0)        # rank 1 reads its slot 0 and sends it
+    with pytest.raises(ValueError, match="read and written"):
+        TSC.check_folded(folded, (1,), 2)
+    folded[0, 1] = (0, 1, 1, 1)        # rank 1 reads slot 1: disjoint
+    TSC.check_folded(folded, (1,), 2)
+    folded[0, 1] = (1, 1, 1, 0)        # both write rank 1's slot 0
+    with pytest.raises(ValueError, match="written twice"):
+        TSC.check_folded(folded, (1,), 2)
+
+
 def test_dma_wrapper_checks_its_input():
     sched = dma_ops.build_schedule("locality_bruck", 16, 4)
     with pytest.raises(ValueError, match="16 ranks"):
