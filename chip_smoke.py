@@ -11,16 +11,23 @@ the package is missing. Phases, each fatal on failure:
 1. device and build: the card's name and power limit; the kernels built
    from ``src/repro_torch/kernels/csrc`` (build seconds, then every kernel
    instance's registers and spill bytes from ptxas, one JSON line each);
+   the time of an empty kernel launch, the floor under every
+   latency-bound kernel;
 2. every kernel against its plain version on the card at the main path's
-   shapes, bf16 and fp32 (fp32: rmsnorm 1e-5, attention and decode stats
-   1e-4 for the other summation order; bf16 outputs 2e-2 against the plain
+   shapes, bf16 and fp32 (RMSNorm in its three forms: plain at the
+   llama3.2-3b and mamba2-780m widths, the residual form at llama's and
+   the gated form at mamba's gate width, at 8 and 512 rows, the residual
+   sum equal to the eager add; fp32: rmsnorm 1e-5, attention and decode
+   stats 1e-4 for the other summation order; bf16 outputs 2e-2 against the plain
    version in bf16, one bf16 ulp at 4 being 1.6e-2, and atol 4e-3 plus
    rtol 8e-3, a few bf16 ulps of |out|, against the plain version in fp32
    on the same bf16 inputs, since the kernels compute in fp32; the SSD
    scan's fp32 outputs max |y - y_ref| / max |y_ref| < 1e-4 and max |h -
    h_ref| / max |h_ref| < 1e-4 at the mamba2-780m prefill shapes, S = 512, 300 and 2048,
-   and one G = 2, N = 64 case), each timed with CUDA events on a cold L2
-   beside its plain version, a PyTorch library call where one computes the
+   and one G = 2, N = 64 case; its bound is the bytes or the chunked
+   form's split tensor-core multiply-adds, whichever is longer, the
+   recurrence on the CUDA cores kept beside it), each timed with CUDA
+   events on a cold L2 beside its plain version, a PyTorch library call where one computes the
    same function (timed here only; the port never calls it), and its
    bound (flash: bf16 runs the wgmma kernel, fp32 the CUDA-core one;
    SDPA timed beside each causal case, S = 137, 512 and 2048);
@@ -43,13 +50,15 @@ the package is missing. Phases, each fatal on failure:
 4. llama3.2-3b at full width (28 layers, d_model 3072, vocab 128256) with
    random bf16 weights from seed 0: an Engine(batch=8, cache_len=1024)
    drains 16 requests (64-512 prompt tokens, 16-64 new); every kernel's
-   launch count must be what the path implies (rmsnorm 57 per forward,
+   launch count must be what the path implies (rmsnorm 57 per forward:
+   29 plain and 28 residual, the add before each ln2 fused into it;
    flash 28 per prefill, decode stats 28 per decode step, ssd 0) and every
    step's logits finite; then torch.profiler over two 512-token prefills
    and over 5 decode steps with 8 live rows (device busy time, idle share,
    the kernels that take the time);
 5. the same for mamba2-780m at full width (48 layers, d_model 1536, 48 SSD
-   heads of P = 64, N = 128, vocab 50280): rmsnorm 97 per forward, ssd 48
+   heads of P = 64, N = 128, vocab 50280): rmsnorm 97 per forward (49
+   plain, 48 gated: the mixer's gate fused into its norm), ssd 48
    per prefill, flash and decode stats 0.
 
 Every kernel's launches are counted from 0 just before each main path
@@ -176,7 +185,6 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     import torch.nn.functional as F
     from repro_torch.kernels.decode_stats import ops as stats_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.models.attention import NEG_INF, decode_stats_scores
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -186,22 +194,10 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
 
     for dtype in (torch.bfloat16, torch.float32):
         tol = 2e-2 if dtype == torch.bfloat16 else None
-        for rows, d in ((8, 3072), (512, 3072), (8, 1536), (512, 1536)):
-            x, sc = randn(rows, d).to(dtype), (randn(d) * 0.2).to(dtype)
-            y, what = rms_ops.rmsnorm(x, sc), f"rmsnorm {dtype} ({rows},{d})"
-            err = close(y, rms_ops.rmsnorm_ref(x, sc), tol or 1e-5, what)
-            err32 = close_fp32(y, rms_ops.rmsnorm_ref, (x, sc), what)
-            w = 1.0 + sc
-            b_ms, b_by = bound(2 * rows * d * x.element_size()
-                               + d * sc.element_size(), 4 * rows * d, dtype)
-            cases["rmsnorm"].append(dict(
-                shape=[rows, d], dtype=str(dtype), max_abs_err=err,
-                tolerance=tol or 1e-5, max_abs_err_vs_fp32_plain=err32,
-                ms=timer(lambda: rms_ops.rmsnorm(x, sc)),
-                host_ms=timer.host_ms(lambda: rms_ops.rmsnorm(x, sc)),
-                plain_ms=timer(lambda: rms_ops.rmsnorm_ref(x, sc)),
-                library_ms=timer(lambda: F.rms_norm(x, (d,), w, 1e-5)),
-                bound_ms=b_ms, bound_by=b_by))
+        for form, shapes in RMS_FORMS.items():
+            for rows, d in shapes:
+                cases["rmsnorm"].append(rmsnorm_case(timer, randn, form, rows,
+                                                     d, dtype, tol))
 
         flash = [(S, 24, 8, 128, dict(causal=True)) for S in (137, 512, 2048)]
         flash += [(300, 8, 2, 64, m) for m in (dict(causal=True, window=64),
@@ -278,6 +274,57 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     return cases
 
 
+# RMSNorm's forms at the serving paths' shapes: (rows, d) at decode (8 rows)
+# and prefill (512); llama3.2-3b's d = 3072, mamba2-780m's layer norm 1536
+# and gate 3072 (its z a slice of the 6448-wide input projection)
+RMS_FORMS = {"plain": [(8, 3072), (512, 3072), (8, 1536), (512, 1536)],
+             "residual": [(8, 3072), (512, 3072)],
+             "gated": [(8, 3072), (512, 3072)]}
+MAMBA_PROJ = 6448
+
+
+def rmsnorm_case(timer, randn, form, rows, d, dtype, tol) -> dict:
+    """One RMSNorm form against its plain version: errors, times, bound
+    (each input read once, each output written once; a few flops a value)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    sc = (randn(d) * 0.2).to(dtype)
+    es, what = torch.tensor([], dtype=dtype).element_size(), \
+        f"rmsnorm {form} {dtype} ({rows},{d})"
+    lib = None
+    if form == "plain":
+        args = (randn(rows, d).to(dtype), sc)
+        fn, plain = rms_ops.rmsnorm, rms_ops.rmsnorm_ref
+        nbytes, flops = 2 * rows * d * es, 4 * rows * d
+        w = 1.0 + sc
+        lib = lambda: F.rms_norm(args[0], (d,), w, 1e-5)
+    elif form == "residual":
+        args = ((randn(rows, d) * 3).to(dtype), randn(rows, d).to(dtype), sc)
+        fn, plain = rms_ops.rmsnorm_residual, rms_ops.rmsnorm_residual_ref
+        nbytes, flops = 4 * rows * d * es, 5 * rows * d
+    else:
+        z = (randn(rows, MAMBA_PROJ) * 2).to(dtype)[:, :d]
+        args = (randn(rows, d), z, sc)
+        fn, plain = rms_ops.rmsnorm_gated, rms_ops.rmsnorm_gated_ref
+        nbytes, flops = rows * d * (4 + 2 * es), 10 * rows * d
+    out, ref = fn(*args), plain(*args)
+    if form == "residual":
+        check(torch.equal(out[0], ref[0]), f"{what}: the sum differs from "
+                                           f"the eager add")
+        out, ref = out[1], ref[1]
+    err = close(out, ref, tol or 1e-5, what)
+    err32 = close_fp32(out, plain, args, what) if form == "plain" else None
+    b_ms, b_by = bound(nbytes + d * es, flops, dtype)
+    return dict(form=form, shape=[rows, d], dtype=str(dtype),
+                max_abs_err=err, tolerance=tol or 1e-5,
+                max_abs_err_vs_fp32_plain=err32,
+                ms=timer(lambda: fn(*args)),
+                host_ms=timer.host_ms(lambda: fn(*args)),
+                plain_ms=timer(lambda: plain(*args)),
+                library_ms=timer(lib) if lib else None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # SSD: fp32 outputs whatever the input dtype, held against the plain version
 # on the same inputs; the kernel chunks by 64 tokens and the plain version by
 # Q, so the bound is the chunk-invariance one of tests/test_kernels.py
@@ -324,9 +371,12 @@ def ssd_cases(timer: Timer) -> list[dict]:
             es = ins[0].element_size()
             nbytes = ((S * H * P + 2 * S * G * N) * es + (S * H + H) * 4
                       + (S * H * P + H * N * P) * 4)
-            # the fewest operations of any evaluation: the recurrence, one
-            # multiply-add per state element for the update and one for C.h
-            b_ms, b_by = bound(nbytes, 4 * N * P * S * H, torch.float32)
+            b_ms, b_by = bound(nbytes, 2 * ssd_split_macs(S, H, P, G, N, dtype),
+                               torch.bfloat16)
+            # the recurrence (one multiply-add per state element for the
+            # update and one for C.h) at the fp32 CUDA-core rate: the bound
+            # of the CUDA-core design before this one
+            cc_ms, _ = bound(nbytes, 4 * N * P * S * H, torch.float32)
             rows.append(dict(
                 shape=[1, S, H, P, G, N], dtype=str(dtype), Q=256,
                 max_abs_err=y_abs, y_rel_err=y_rel, h_abs_err=h_err,
@@ -337,11 +387,24 @@ def ssd_cases(timer: Timer) -> list[dict]:
                 plain_ms=timer(lambda: ssd_ops.ssd_ref(*ins, Q=256), iters=3,
                                warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                chunked_q256_gflop=2 * S * H * (256 * N + 256 * P
-                                                + 2 * N * P) / 1e9))
+                bound_cuda_core_ms=cc_ms,
+                split_tensor_core_gflop=2 * ssd_split_macs(
+                    S, H, P, G, N, dtype) / 1e9))
             del ins
     torch.cuda.empty_cache()
     return rows
+
+
+def ssd_split_macs(S, H, P, G, N, dtype) -> int:
+    """Multiply-adds of the chunked form in the kernel's 64-token chunks,
+    each times its split terms: per chunk the score's causal half once per
+    group, and per head L x's causal half, C h and B^T (w x). bf16 inputs
+    enter exactly (the score 1 term, the others 2: one fp32 operand split
+    into hi and lo); fp32 inputs take 3 terms everywhere."""
+    Q = 64
+    nc, tri = -(-S // Q), Q * (Q + 1) // 2
+    one, two = (1, 2) if dtype == torch.bfloat16 else (3, 3)
+    return nc * (G * tri * N * one + H * (tri * P + 2 * Q * N * P) * two)
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +565,17 @@ def launches_implied(cfg, st: dict) -> dict[str, int]:
             "ssd": mamba * st["prefills"]}
 
 
+def rmsnorm_forms_implied(cfg, st: dict) -> dict[str, int]:
+    """Per forward: ln1 of every layer and the final norm plain; ln2 of an
+    attention layer fused with the residual add before it; a Mamba2 layer's
+    gated norm fused with its gate."""
+    attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
+    mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
+    fwd = st["prefills"] + st["decode_steps"]
+    return {"plain": (cfg.n_layers + 1) * fwd, "residual": attn * fwd,
+            "gated": mamba * fwd}
+
+
 def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     """Serve 16 requests on ``arch`` at its published size; returns the
     path's launches per kernel."""
@@ -543,12 +617,16 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     ops = kernel_ops()
     for mod in ops.values():
         mod.LAUNCHES = 0
+    forms = ops["rmsnorm"].FORM_LAUNCHES
+    for form in forms:
+        forms[form] = 0
     t0 = time.perf_counter()
     rids = [eng.submit(r) for r in reqs]
     results = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.LAUNCHES for name, mod in ops.items()}
+    by_form = dict(forms)
 
     st = {k: v - base[k] for k, v in eng.stats().items()
           if k in ("decode_steps", "prefills", "prefill_tokens",
@@ -563,6 +641,9 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     want = launches_implied(cfg, st)
     check(launches == want, f"{phase}: launch counts {launches}, the path "
                             f"implies {want}")
+    want_forms = rmsnorm_forms_implied(cfg, st)
+    check(by_form == want_forms, f"{phase}: rmsnorm forms {by_form}, the "
+                                 f"path implies {want_forms}")
     check(st["prefills"] == len(reqs)
           and st["prefill_tokens"] == int(lens.sum())
           and st["decode_tokens"] == int((budgets - 1).sum()),
@@ -585,7 +666,7 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
         "decode_step_ms_mean": decode_s / st["decode_steps"] * 1e3,
         "prefill_ms_mean": prefill_s / st["prefills"] * 1e3,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches, "card": smi}))
+        "launches": launches, "rmsnorm_forms": by_form, "card": smi}))
     return launches
 
 
@@ -689,6 +770,10 @@ def main() -> int:
             print("  " + line.strip())
 
     timer = Timer()
+    stream = _build.stream_of(timer.flush)
+    empty = lambda: _build.check(_build.lib().repro_empty(stream), "empty")
+    print(json.dumps({"phase": "launch_floor", "empty_kernel_ms": timer(empty),
+                      "host_ms": timer.host_ms(empty), "card": smi}))
     cases = kernel_cases(timer)
     for name, rows in cases.items():
         for row in rows:
@@ -739,6 +824,11 @@ def main() -> int:
             "library_ms": row["library_ms"], "host_ms": row["host_ms"],
             "shape": row["shape"],
             "dtype": row["dtype"]})
+    forms = {r["form"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "max_abs_err")}
+             for r in cases["rmsnorm"][::-1] if r["shape"] == [8, 3072]
+             and r["dtype"] == "torch.bfloat16"}
+    kernels[0]["forms_8x3072_bf16"] = forms
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

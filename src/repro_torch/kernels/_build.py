@@ -39,6 +39,14 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES = {
     # x, scale, y, rows, d, eps, x_dtype, scale_dtype, vectorised, stream
     "repro_rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
+    # x, delta, scale, s, y, rows, d, eps, x_dtype, scale_dtype, vectorised,
+    # stream
+    "repro_rmsnorm_residual": [_P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I,
+                               _P],
+    # y, y row stride, z, z row stride, scale, out, rows, d, eps, x_dtype,
+    # scale_dtype, vectorised, stream
+    "repro_rmsnorm_gated": [_P, _LL, _P, _LL, _P, _P, _LL, _I, _F, _I, _I,
+                            _I, _P],
     # q, k, v, o, B, S, T, H, KV, D, scale, causal, window, chunk, cap,
     # stream
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -51,6 +59,8 @@ SIGNATURES = {
     # block_bytes, vec, stream
     "repro_dma_allgather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL,
                             _I, _P],
+    # stream: an empty launch
+    "repro_empty": [_P],
     # x, dt, A, B, C, y, h, Bt, S, H, G, N, P, dtype, stream
     "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   _P],

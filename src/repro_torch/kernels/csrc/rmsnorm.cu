@@ -1,49 +1,95 @@
-// Fused RMSNorm for Hopper (sm_90a).
+// Fused RMSNorm for Hopper (sm_90a), in three forms.
 //
 // Replaces: src/repro/kernels/rmsnorm/rmsnorm.py, _rmsnorm_kernel (called by
-// rmsnorm_pallas): y = x * rsqrt(mean(x^2) + eps) * (1 + scale), the sum
-// taken in fp32, the result cast back to x's dtype.
+// rmsnorm_pallas): y = u * rsqrt(mean(u^2) + eps) * (1 + scale), the sum
+// taken in fp32, the result cast back to the working dtype, where u is
+//   plain     u = x
+//   residual  u = s = x + delta, rounded to x's dtype (also written out)
+//   gated     u = round(round(y) * round(silu(z))), y fp32, z in the working
+//             dtype, each rounding to it as the eager ops round
+// (the last two are the ops the serving paths ran before the norm: llama's
+// residual add before ln2, Mamba2's gate before the mixer's norm).
 //
-// Bound on the H100: memory. Per row it reads d values and writes d values
-// and does ~4 flops per value, far below the ~295 flops per byte at which
-// the card stops being limited by its 3.35 TB/s.
+// Bound on the H100: memory. Per row it reads the inputs once and writes
+// once and does a few flops per value, far below the ~295 flops per byte at
+// which the card stops being limited by its 3.35 TB/s. At the decode shape
+// (8 rows) the bytes take tens of nanoseconds: the call is latency, one
+// launch and one trip to device memory.
 //
-// Design: one block per row. Threads read the row in 16-byte vectors
-// (8 bf16 or 4 fp32 values; a scalar loop when d is not a multiple of the
-// vector width or the row is not 16-byte aligned), sum squares in fp32,
-// reduce by warp shuffles and one shared-memory step, then read the row a
-// second time to scale and write it. The second read hits L1/L2 (a row is
-// at most a few tens of KB), so device memory sees x once and y once.
+// Design: one pass over the row, one block per row. Each thread issues all
+// its 16-byte loads of the inputs and of scale (one vector of 8 bf16 or 4
+// fp32 values up to 1,024 vectors a row, else up to 4) before the
+// reduction, keeps the row's values in registers, sums squares in fp32
+// (warp shuffles, one shared-memory step) and writes y from registers, so
+// device memory is reached once per input, with no second dependent read.
+// Rows whose width is not a multiple of the vector or whose pointers are
+// not 16-byte aligned take a scalar loop that reads the row twice (the
+// second time from L1/L2). Splitting a decode row over a cluster of 2 or 4
+// blocks, the partial sums added through distributed shared memory,
+// measured 0.8-1.1 us slower at 8 x 3072 (PERF.md).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-using repro::to_f;
 using repro::from_f;
+using repro::to_f;
 
-template <typename TX, typename TS, bool VEC>
-__global__ void rmsnorm_kernel(const TX* __restrict__ x,
-                               const TS* __restrict__ scale,
-                               TX* __restrict__ y, int d, float eps) {
-  constexpr int V = 16 / sizeof(TX);
-  const TX* xr = x + static_cast<size_t>(blockIdx.x) * d;
-  TX* yr = y + static_cast<size_t>(blockIdx.x) * d;
+enum Form { kPlain = 0, kResidual = 1, kGated = 2 };
+constexpr int kMaxVec = 4;           // 16-byte vectors a thread holds
+constexpr int kMaxThreads = 1024;
 
-  float ss = 0.f;
-  if (VEC) {
-    for (int i = threadIdx.x; i < d / V; i += blockDim.x) {
-      float f[V];
-      repro::load16_f(xr + i * V, f);
-#pragma unroll
-      for (int k = 0; k < V; ++k) ss += f[k] * f[k];
-    }
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// the row value u from the first input (x, or y for the gated form) and
+// the second (delta or z), both as fp32
+template <int F, typename TX>
+__device__ __forceinline__ float combine(float a, float b) {
+  if constexpr (F == kGated) {
+    const float silu = rnd<TX>(b / (1.f + expf(-b)));
+    return rnd<TX>(rnd<TX>(a) * silu);
+  } else if constexpr (F == kResidual) {
+    return rnd<TX>(a + b);
   } else {
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float f = to_f(xr[i]);
-      ss += f * f;
+    return a;
+  }
+}
+
+// V values of T from a 16-byte aligned p (8, 16 or 32 bytes), as fp32
+template <typename T, int V>
+__device__ __forceinline__ void load_f(const T* __restrict__ p, float* out) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  if constexpr (kBytes == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = to_f(e[i]);
+  } else {
+    constexpr int E = 16 / sizeof(T);
+#pragma unroll
+    for (int q = 0; q < kBytes / 16; ++q) {
+      const uint4 raw = reinterpret_cast<const uint4*>(p)[q];
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < E; ++i) out[q * E + i] = to_f(e[i]);
     }
   }
+}
 
+template <typename T, int V>
+__device__ __forceinline__ void store_v(T* p, const float* v) {
+  alignas(16) T out[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = from_f<T>(v[i]);
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(out);
+}
+
+// the sum over the block
+__device__ __forceinline__ float row_sum(float ss) {
   __shared__ float red[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   ss = repro::warp_sum(ss);
@@ -55,61 +101,159 @@ __global__ void rmsnorm_kernel(const TX* __restrict__ x,
     if (lane == 0) red[0] = t;
   }
   __syncthreads();
-  const float inv = rsqrtf(red[0] / static_cast<float>(d) + eps);
+  return red[0];
+}
 
-  if (VEC) {
-    for (int i = threadIdx.x; i < d / V; i += blockDim.x) {
-      float f[V];
-      repro::load16_f(xr + i * V, f);
-      alignas(16) TX out[V];
+// x0: x (plain, residual) or y (gated) rows of stride ld0; x1: delta
+// (residual, stride d) or z (gated, stride ld1); s: the residual sum out.
+// K: 16-byte vectors per thread (0: the scalar loop); 1 up to 1,024
+// vectors a row (d = 8,192 bf16): registers for 4 would allow one block of
+// 384 threads per SM at d = 3,072.
+template <int F, typename TX, typename TS, int K>
+__global__ void rmsnorm_kernel(const void* __restrict__ in0, long long ld0,
+                               const TX* __restrict__ in1, long long ld1,
+                               const TS* __restrict__ scale,
+                               TX* __restrict__ out, TX* __restrict__ s,
+                               int d, float eps) {
+  using T0 = std::conditional_t<F == kGated, float, TX>;
+  constexpr int V = 16 / sizeof(TX);
+  const int row = blockIdx.x;
+  const T0* x0 = static_cast<const T0*>(in0) + row * ld0;
+  const TX* x1 = F == kPlain ? nullptr : in1 + row * ld1;
+  TX* yr = out + static_cast<size_t>(row) * d;
+  TX* sr = F == kResidual ? s + static_cast<size_t>(row) * d : nullptr;
+
+  if constexpr (K > 0) {
+    const int nvec = d / V;
+    float u[K][V], w[K][V];
+    float ss = 0.f;
 #pragma unroll
-      for (int k = 0; k < V; ++k)
-        out[k] = from_f<TX>(f[k] * inv * (1.f + to_f(scale[i * V + k])));
-      *reinterpret_cast<uint4*>(yr + i * V) = *reinterpret_cast<const uint4*>(out);
+    for (int k = 0; k < K; ++k) {            // every load before the sum
+      const int v = threadIdx.x + k * blockDim.x;
+      if (v < nvec) {
+        float b[V];
+        load_f<T0, V>(x0 + v * V, u[k]);
+        if constexpr (F != kPlain) load_f<TX, V>(x1 + v * V, b);
+        load_f<TS, V>(scale + v * V, w[k]);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if constexpr (F != kPlain) u[k][i] = combine<F, TX>(u[k][i], b[i]);
+          ss += u[k][i] * u[k][i];
+        }
+        if constexpr (F == kResidual) store_v<TX, V>(sr + v * V, u[k]);
+      }
+    }
+    const float inv = rsqrtf(row_sum(ss) / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int v = threadIdx.x + k * blockDim.x;
+      if (v < nvec) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) u[k][i] *= inv * (1.f + w[k][i]);
+        store_v<TX, V>(yr + v * V, u[k]);
+      }
     }
   } else {
+    auto value = [&](int i) {
+      return combine<F, TX>(to_f(x0[i]), F == kPlain ? 0.f : to_f(x1[i]));
+    };
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const float v = value(i);
+      if constexpr (F == kResidual) sr[i] = from_f<TX>(v);
+      ss += v * v;
+    }
+    const float inv = rsqrtf(row_sum(ss) / static_cast<float>(d) + eps);
     for (int i = threadIdx.x; i < d; i += blockDim.x)
-      yr[i] = from_f<TX>(to_f(xr[i]) * inv * (1.f + to_f(scale[i])));
+      yr[i] = from_f<TX>(value(i) * inv * (1.f + to_f(scale[i])));
   }
 }
 
-template <typename TX, typename TS>
-cudaError_t launch(const void* x, const void* scale, void* y, long long rows,
-                   int d, float eps, int vec, cudaStream_t stream) {
+template <int F, typename TX, typename TS>
+cudaError_t launch(const void* in0, long long ld0, const void* in1,
+                   long long ld1, const void* scale, void* out, void* s,
+                   long long rows, int d, float eps, int vec,
+                   cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TX);
-  const int work = vec ? d / V : d;
+  const int nvec = d / V;
+  const int k = !vec || nvec > kMaxVec * kMaxThreads ? 0   // scalar loop
+                : nvec > kMaxThreads ? kMaxVec : 1;
+  const int work = k ? (nvec + k - 1) / k : d;
   int threads = ((work + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  const int most = k ? kMaxThreads : 256;
+  threads = threads < 32 ? 32 : (threads > most ? most : threads);
   const dim3 grid(static_cast<unsigned>(rows));
-  if (vec)
-    rmsnorm_kernel<TX, TS, true><<<grid, threads, 0, stream>>>(
-        static_cast<const TX*>(x), static_cast<const TS*>(scale),
-        static_cast<TX*>(y), d, eps);
+  const TX* x1 = static_cast<const TX*>(in1);
+  const TS* sc = static_cast<const TS*>(scale);
+  TX* y = static_cast<TX*>(out);
+  TX* sum = static_cast<TX*>(s);
+  if (k == 1)
+    rmsnorm_kernel<F, TX, TS, 1><<<grid, threads, 0, stream>>>(
+        in0, ld0, x1, ld1, sc, y, sum, d, eps);
+  else if (k == kMaxVec)
+    rmsnorm_kernel<F, TX, TS, kMaxVec><<<grid, threads, 0, stream>>>(
+        in0, ld0, x1, ld1, sc, y, sum, d, eps);
   else
-    rmsnorm_kernel<TX, TS, false><<<grid, threads, 0, stream>>>(
-        static_cast<const TX*>(x), static_cast<const TS*>(scale),
-        static_cast<TX*>(y), d, eps);
+    rmsnorm_kernel<F, TX, TS, 0><<<grid, threads, 0, stream>>>(
+        in0, ld0, x1, ld1, sc, y, sum, d, eps);
   return cudaGetLastError();
+}
+
+template <int F>
+int dispatch(const void* in0, long long ld0, const void* in1, long long ld1,
+             const void* scale, void* out, void* s, long long rows, int d,
+             float eps, int x_dtype, int scale_dtype, int vec,
+             void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (x_dtype == repro::kFloat32 && scale_dtype == repro::kFloat32)
+    e = launch<F, float, float>(in0, ld0, in1, ld1, scale, out, s, rows, d,
+                                eps, vec, st);
+  else if (x_dtype == repro::kFloat32 && scale_dtype == repro::kBFloat16)
+    e = launch<F, float, bf16>(in0, ld0, in1, ld1, scale, out, s, rows, d,
+                               eps, vec, st);
+  else if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kFloat32)
+    e = launch<F, bf16, float>(in0, ld0, in1, ld1, scale, out, s, rows, d,
+                               eps, vec, st);
+  else if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kBFloat16)
+    e = launch<F, bf16, bf16>(in0, ld0, in1, ld1, scale, out, s, rows, d,
+                              eps, vec, st);
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
-// x (rows, d) and y (rows, d) of one dtype, scale (d,) of its own dtype.
-// vec != 0 asks for 16-byte vector access (the caller checked d % V == 0
-// and 16-byte alignment of x and y).
+// All three: rows of d values; x_dtype is the working dtype (x, delta, z,
+// the outputs), scale (d,) has its own. vec != 0 asks for 16-byte vector
+// access (the caller checked d, the row strides and the pointers).
+//
+// y = rmsnorm(x); x and y (rows, d) contiguous.
 extern "C" int repro_rmsnorm(const void* x, const void* scale, void* y,
                              long long rows, int d, float eps, int x_dtype,
                              int scale_dtype, int vec, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (x_dtype == repro::kFloat32 && scale_dtype == repro::kFloat32)
-    e = launch<float, float>(x, scale, y, rows, d, eps, vec, s);
-  else if (x_dtype == repro::kFloat32 && scale_dtype == repro::kBFloat16)
-    e = launch<float, bf16>(x, scale, y, rows, d, eps, vec, s);
-  else if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kFloat32)
-    e = launch<bf16, float>(x, scale, y, rows, d, eps, vec, s);
-  else if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kBFloat16)
-    e = launch<bf16, bf16>(x, scale, y, rows, d, eps, vec, s);
-  return static_cast<int>(e);
+  return dispatch<kPlain>(x, d, nullptr, 0, scale, y, nullptr, rows, d, eps,
+                          x_dtype, scale_dtype, vec, stream);
+}
+
+// s = x + delta, y = rmsnorm(s); all (rows, d) contiguous.
+extern "C" int repro_rmsnorm_residual(const void* x, const void* delta,
+                                      const void* scale, void* s, void* y,
+                                      long long rows, int d, float eps,
+                                      int x_dtype, int scale_dtype, int vec,
+                                      void* stream) {
+  return dispatch<kResidual>(x, d, delta, d, scale, y, s, rows, d, eps,
+                             x_dtype, scale_dtype, vec, stream);
+}
+
+// out = rmsnorm(round(round(y) * round(silu(z)))); y fp32 rows of stride
+// ld_y, z rows of stride ld_z, out (rows, d) contiguous.
+extern "C" int repro_rmsnorm_gated(const void* y, long long ld_y,
+                                   const void* z, long long ld_z,
+                                   const void* scale, void* out,
+                                   long long rows, int d, float eps,
+                                   int x_dtype, int scale_dtype, int vec,
+                                   void* stream) {
+  return dispatch<kGated>(y, ld_y, z, ld_z, scale, out, nullptr, rows, d,
+                          eps, x_dtype, scale_dtype, vec, stream);
 }

@@ -1,43 +1,155 @@
-"""RMSNorm: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
+"""RMSNorm and its two fused forms: the CUDA kernel for CUDA tensors, the
+plain versions for CPU ones.
 
-``LAUNCHES`` counts kernel launches; CPU calls leave it alone.
+``LAUNCHES`` counts kernel launches of every form, ``FORM_LAUNCHES`` each
+form's; CPU calls leave both alone.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_gated_ref, rmsnorm_ref, rmsnorm_residual_ref
 
 LAUNCHES = 0
+FORM_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
+
+
+def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs),
+    False when all lie on one CUDA device (the kernel runs); raises else."""
+    if all(t.device.type == "cpu" for t in ts):
+        return True
+    if ts[0].device.type != "cuda" or any(t.device != ts[0].device
+                                          for t in ts):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in ts]}; "
+                         "all must be on one CUDA device")
+    return False
+
+
+def _rows(t: torch.Tensor, d: int) -> int | None:
+    """The row stride of ``t`` seen as rows of d unit-stride values (a
+    contiguous tensor, or a slice of the last dim of one), else None."""
+    if d > 1 and t.stride(-1) != 1:
+        return None
+    ld, span = None, None
+    for size, stride in reversed(list(zip(t.shape[:-1], t.stride()[:-1]))):
+        if size == 1:
+            continue
+        if ld is None:
+            ld = stride
+        elif stride != span:
+            return None
+        span = stride * size
+    return d if ld is None else ld
+
+
+def _vec(d: int, elem: int, ptrs, strides_bytes) -> int:
+    """1 when every row can be read and written in 16-byte vectors."""
+    return int(d % (16 // elem) == 0 and all(p % 16 == 0 for p in ptrs)
+               and all(s % 16 == 0 for s in strides_bytes))
+
+
+def _count(form: str) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    FORM_LAUNCHES[form] += 1
+
+
+def _check_scale(name: str, scale: torch.Tensor, x: torch.Tensor) -> None:
+    d = x.shape[-1]
+    if scale.shape != (d,):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} for "
+                         f"{tuple(x.shape)}")
+    if not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be contiguous")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
     """x (..., d), scale (d,); returns x's shape and dtype."""
-    global LAUNCHES
-    if x.device.type == "cpu" and scale.device.type == "cpu":
+    if _on_cpu("rmsnorm", x, scale):
         return rmsnorm_ref(x, scale, eps=eps)
-    if x.device.type != "cuda" or scale.device != x.device:
-        raise ValueError(f"rmsnorm: x on {x.device} and scale on "
-                         f"{scale.device}; both must be on one CUDA device")
-    d = x.shape[-1]
-    if scale.shape != (d,):
-        raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} for x "
-                         f"{tuple(x.shape)}")
-    if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm: x and scale must be contiguous")
-    x_code = _build.dtype_code(x.dtype)
-    s_code = _build.dtype_code(scale.dtype)
+    _check_scale("rmsnorm", scale, x)
+    if not x.is_contiguous():
+        raise ValueError("rmsnorm: x must be contiguous")
+    x_code, s_code = _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype)
     y = torch.empty_like(x)
+    d = x.shape[-1]
     rows = x.numel() // d if d else 0
     if rows == 0:
         return y
-    vec = int(d % (16 // x.element_size()) == 0
-              and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+    vec = _vec(d, x.element_size(),
+               (x.data_ptr(), y.data_ptr(), scale.data_ptr()), ())
     err = _build.lib().repro_rmsnorm(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, float(eps),
         x_code, s_code, vec, _build.stream_of(x))
     _build.check(err, "rmsnorm")
-    LAUNCHES += 1
+    _count("plain")
     return y
+
+
+def rmsnorm_residual(x: torch.Tensor, delta: torch.Tensor,
+                     scale: torch.Tensor, *, eps: float = 1e-5
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, rmsnorm(s)) with s = x + delta rounded to x's dtype, in one pass;
+    x and delta (..., d) of one dtype, scale (d,)."""
+    if _on_cpu("rmsnorm_residual", x, delta, scale):
+        return rmsnorm_residual_ref(x, delta, scale, eps=eps)
+    _check_scale("rmsnorm_residual", scale, x)
+    if delta.shape != x.shape or delta.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_residual: x {tuple(x.shape)} {x.dtype}, "
+                         f"delta {tuple(delta.shape)} {delta.dtype}")
+    if not (x.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("rmsnorm_residual: x and delta must be contiguous")
+    x_code, s_code = _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype)
+    s, y = torch.empty_like(x), torch.empty_like(x)
+    d = x.shape[-1]
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return s, y
+    vec = _vec(d, x.element_size(), (x.data_ptr(), delta.data_ptr(),
+                                     s.data_ptr(), y.data_ptr(),
+                                     scale.data_ptr()), ())
+    err = _build.lib().repro_rmsnorm_residual(
+        x.data_ptr(), delta.data_ptr(), scale.data_ptr(), s.data_ptr(),
+        y.data_ptr(), rows, d, float(eps), x_code, s_code, vec,
+        _build.stream_of(x))
+    _build.check(err, "rmsnorm_residual")
+    _count("residual")
+    return s, y
+
+
+def rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm(round(round(y) * round(silu(z)))) in one pass: y (..., d)
+    fp32, z (..., d) in the working dtype (rows may be a slice of a wider
+    tensor's last dim), scale (d,); returns z's shape and dtype."""
+    if _on_cpu("rmsnorm_gated", y, z, scale):
+        return rmsnorm_gated_ref(y, z, scale, eps=eps)
+    _check_scale("rmsnorm_gated", scale, z)
+    if y.shape != z.shape:
+        raise ValueError(f"rmsnorm_gated: y {tuple(y.shape)}, z "
+                         f"{tuple(z.shape)}")
+    if y.dtype != torch.float32:
+        raise TypeError(f"rmsnorm_gated: y must be float32, got {y.dtype}")
+    d = z.shape[-1]
+    ld_y, ld_z = _rows(y, d), _rows(z, d)
+    if ld_y is None or ld_z is None:
+        raise ValueError("rmsnorm_gated: y and z must be rows of unit-stride "
+                         f"values, got strides {y.stride()} and {z.stride()}")
+    x_code, s_code = _build.dtype_code(z.dtype), _build.dtype_code(scale.dtype)
+    out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    rows = z.numel() // d if d else 0
+    if rows == 0:
+        return out
+    vec = _vec(d, z.element_size(), (y.data_ptr(), z.data_ptr(),
+                                     out.data_ptr(), scale.data_ptr()),
+               (4 * ld_y, z.element_size() * ld_z))
+    err = _build.lib().repro_rmsnorm_gated(
+        y.data_ptr(), ld_y, z.data_ptr(), ld_z, scale.data_ptr(),
+        out.data_ptr(), rows, d, float(eps), x_code, s_code, vec,
+        _build.stream_of(z))
+    _build.check(err, "rmsnorm_gated")
+    _count("gated")
+    return out

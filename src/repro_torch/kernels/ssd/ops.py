@@ -9,7 +9,7 @@ from .. import _build
 from .ref import ssd_ref
 
 LAUNCHES = 0
-HEAD_DIMS = (16, 64)     # the P the kernel is built for: mamba2-780m, smoke
+P_TILE = 16     # columns of P per block of the kernel (csrc/ssd.cu kPT)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -38,8 +38,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             or G == 0 or H % G):
         raise ValueError(f"ssd: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"A {tuple(A.shape)}, B/C {tuple(B.shape)}")
-    if P not in HEAD_DIMS:
-        raise ValueError(f"ssd: head dim P={P} not in {HEAD_DIMS}")
+    if P % P_TILE:
+        raise ValueError(f"ssd: head dim P={P} is not a multiple of the "
+                         f"kernel's P tile {P_TILE}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"ssd: dt and A must be float32, got {dt.dtype}, "
                         f"{A.dtype}")

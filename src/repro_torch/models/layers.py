@@ -2,7 +2,8 @@
 
 Plain functions on tensors, mirroring ``repro.models.layers``. Weights keep
 the JAX package's ``(d_in, d_out)`` layout, so ``x @ w`` is the product in
-both packages. RMSNorm goes through ``kernels/rmsnorm``.
+both packages. RMSNorm goes through ``kernels/rmsnorm``, as do its two
+fused forms: the residual add before a norm and the Mamba2 gate.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch.nn.functional as F
 
 # fp32 RMSNorm with the ``(1 + scale)`` convention, cast back to x's dtype:
 # the JAX package's ``layers.rmsnorm``, here the kernel's wrapper itself.
-from ..kernels.rmsnorm.ops import rmsnorm  # noqa: F401
+from ..kernels.rmsnorm.ops import (rmsnorm, rmsnorm_gated,  # noqa: F401
+                                   rmsnorm_residual)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,

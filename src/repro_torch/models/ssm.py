@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import chunk_len
 from ..kernels.ssd.ref import ssd_chunked  # noqa: F401  (the JAX name)
-from .layers import dense_init, rmsnorm
+from .layers import dense_init, rmsnorm_gated
 
 MAMBA_PARAMS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
                 "norm", "out_proj")
@@ -140,9 +140,8 @@ def mamba_apply(params, x_in, cfg, *, cache=None):
              + torch.einsum("bh,bhn,bhp->bhnp", dtv, Bh, x))
         y = torch.einsum("bhn,bhnp->bhp", Ch, h)
         y = y + D[None, :, None] * x
-        y = y.reshape(Bt, 1, d_inner).to(dt_)
-        y = rmsnorm((y * F.silu(z)).contiguous(), params["norm"],
-                    eps=cfg.norm_eps)
+        y = rmsnorm_gated(y.reshape(Bt, 1, d_inner), z, params["norm"],
+                          eps=cfg.norm_eps)
         return y @ params["out_proj"].to(dt_), {"conv": window[:, 1:],
                                                  "h": h}
 
@@ -156,9 +155,9 @@ def mamba_apply(params, x_in, cfg, *, cache=None):
     y, h_fin = ssd_ops.ssd(x, dtv, A.contiguous(), Bs, Cs,
                            Q=chunk_len(S, cfg.ssm_chunk))
     y = y + D[None, None, :, None] * x.to(f32)
-    y = y.reshape(Bt, S, d_inner).to(dt_)
-    y = rmsnorm((y * F.silu(z)).contiguous(), params["norm"],
-                eps=cfg.norm_eps)
+    # rmsnorm(y.to(dt_) * silu(z)): one pass on the card
+    y = rmsnorm_gated(y.reshape(Bt, S, d_inner), z, params["norm"],
+                      eps=cfg.norm_eps)
     out = y @ params["out_proj"].to(dt_)
 
     if cache is not None:  # prefill: conv window = last W-1 raw inputs

@@ -36,7 +36,7 @@ from torch import nn
 from ..configs import ModelConfig, check_supported
 from . import attention as attn
 from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
-                     rmsnorm, rope_angles)
+                     rmsnorm, rmsnorm_residual, rope_angles)
 from .ssm import MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
@@ -88,8 +88,9 @@ class Block(nn.Module):
             attn.write_cache(v_cache, v, pos)
             o = attn.decode_attention(q, k_cache, v_cache, pos)
             kv = None
-        x = x + o.reshape(B, S, H * D) @ self.wo
-        h = rmsnorm(x, self.ln2, eps=cfg.norm_eps)
+        # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
+        x, h = rmsnorm_residual(x, o.reshape(B, S, H * D) @ self.wo, self.ln2,
+                                eps=cfg.norm_eps)
         return x + mlp_apply(h, self.gate, self.up, self.down), kv
 
 

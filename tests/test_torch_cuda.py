@@ -4,7 +4,8 @@ Marked ``gpu``: they skip where no CUDA device is visible and run with
 ``python -m pytest -m gpu tests/test_torch_cuda.py`` on a machine with an
 H100 and ``nvcc`` (the kernels build at first use). This file imports no
 JAX, so it runs where only PyTorch is installed. Tolerances: fp32 rmsnorm
-1e-5, fp32 attention and decode stats 1e-4 (the kernels sum in another
+1e-5 in all three forms (the residual sum itself equal to the eager add),
+fp32 attention and decode stats 1e-4 (the kernels sum in another
 order); bf16 outputs 2e-2 (one bf16 ulp at 4 is 1.6e-2); the DMA allgather
 copies bytes and is held equal; the SSD scan (fp32 output whatever its
 input dtype, held against the plain version on the same inputs) max |y -
@@ -82,6 +83,58 @@ def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert rms_ops.LAUNCHES == before + 1
     _close(out, rms_ops.rmsnorm_ref(x, sc), dtype, 1e-5)
+
+
+# (rows, d, offset): the serving widths (llama3.2-3b 3072, mamba2-780m's
+# layer norm 1536 and gate 3072) at decode and prefill rows, an odd d and a
+# row start one element past 16 bytes (both take the scalar loop)
+RMS_FORM_CASES = [(8, 3072, 0), (512, 3072, 0), (8, 1536, 0), (37, 1536, 0),
+                  (5, 37, 0), (4, 256, 1)]
+
+
+def _rms_inputs(rows, d, offset, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=device)
+    a = rn(rows * d + offset)[offset:].reshape(rows, d)
+    b = rn(rows * d + offset)[offset:].reshape(rows, d)
+    return a, b, (rn(d) * 0.2).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RMS_FORM_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_rmsnorm_residual_kernel_on_card(cuda, dtype, case):
+    a, b, sc = _rms_inputs(*case, dtype, cuda, 5)
+    x, delta = (a * 3).to(dtype), b.to(dtype)
+    before = (rms_ops.LAUNCHES, rms_ops.FORM_LAUNCHES["residual"])
+    s, y = rms_ops.rmsnorm_residual(x, delta, sc)
+    torch.cuda.synchronize()
+    assert (rms_ops.LAUNCHES, rms_ops.FORM_LAUNCHES["residual"]) == (
+        before[0] + 1, before[1] + 1)
+    rs, ry = rms_ops.rmsnorm_residual_ref(x, delta, sc)
+    assert torch.equal(s, rs)                     # one rounded add, as eager
+    _close(y, ry, dtype, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RMS_FORM_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_rmsnorm_gated_kernel_on_card(cuda, dtype, case):
+    rows, d, offset = case
+    a, b, sc = _rms_inputs(rows, d, offset, dtype, cuda, 6)
+    # z as the mixer gives it: the first d columns of a wider projection
+    wide = torch.zeros((rows, d + 64 + offset), device=cuda, dtype=dtype)
+    wide[:, offset:offset + d] = (b * 2).to(dtype)
+    z = wide[:, offset:offset + d]
+    before = (rms_ops.LAUNCHES, rms_ops.FORM_LAUNCHES["gated"])
+    out = rms_ops.rmsnorm_gated(a, z, sc)
+    torch.cuda.synchronize()
+    assert (rms_ops.LAUNCHES, rms_ops.FORM_LAUNCHES["gated"]) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and out.shape == (rows, d)
+    _close(out, rms_ops.rmsnorm_gated_ref(a, z, sc), dtype, 1e-5)
 
 
 @pytest.mark.gpu
@@ -180,6 +233,24 @@ SSD_CASES = [
 ]
 
 
+# (Bt, S, H, P, G, N): the kernel's edges. One token; S a multiple of the
+# 64-token chunk and one past it; P of 1 to 4 tiles of 16; G = 2 and 3;
+# N = 8 (padded to 16), 24 (padded to 32), 12 (not a multiple of 8: the
+# scalar load path for bf16 too), 64, 128 and 256, the largest state the
+# kernel takes
+SSD_EDGE_CASES = [
+    (1, 1, 4, 64, 1, 128),
+    (1, 64, 4, 64, 1, 128),
+    (1, 65, 4, 64, 1, 128),
+    (1, 129, 3, 48, 3, 64),
+    (2, 200, 4, 32, 2, 8),
+    (1, 77, 6, 16, 3, 24),
+    (1, 70, 2, 16, 1, 12),
+    (1, 150, 4, 64, 2, 256),
+    (1, 100, 4, 32, 1, 128),
+]
+
+
 def _ssd_inputs(case, dtype, device):
     Bt, S, H, P, G, N = case
     g = torch.Generator(device=device).manual_seed(4)
@@ -209,6 +280,35 @@ def test_ssd_kernel_on_card(cuda, dtype, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_EDGE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_at_the_tile_edges(cuda, dtype, case):
+    ins = _ssd_inputs(case, dtype, cuda)
+    before = ssd_ops.LAUNCHES
+    y, h = ssd_ops.ssd(*ins, Q=256)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    ry, rh = ssd_ops.ssd_ref(*ins, Q=256)
+    assert float((y - ry).abs().max()) / float(ry.abs().max()) < 1e-4
+    assert float((h - rh).abs().max()) / float(rh.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_unaligned_bf16_inputs(cuda):
+    # x, B and C starting one element past 16 bytes: the scalar load path
+    x, dt, A, B, C = _ssd_inputs((1, 90, 4, 16, 1, 64), torch.bfloat16, cuda)
+    shift = lambda t: torch.cat([t.flatten()[:1], t.flatten()])[1:].view(
+        t.shape)
+    xs, Bs, Cs = shift(x), shift(B), shift(C)
+    assert xs.data_ptr() % 16 and Bs.data_ptr() % 16 and Cs.data_ptr() % 16
+    y, h = ssd_ops.ssd(xs, dt, A, Bs, Cs)
+    ry, rh = ssd_ops.ssd_ref(x, dt, A, B, C)
+    assert float((y - ry).abs().max()) / float(ry.abs().max()) < 1e-4
+    assert float((h - rh).abs().max()) / float(rh.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
 def test_ssd_refuses_a_strided_input_and_an_unbuilt_head_dim(cuda):
     x, dt, A, B, C = _ssd_inputs((1, 16, 4, 16, 1, 16), torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -221,7 +321,8 @@ def test_ssd_refuses_a_strided_input_and_an_unbuilt_head_dim(cuda):
 
 @pytest.mark.gpu
 def test_ssd_raises_naming_n_and_p_when_the_state_is_too_large(cuda):
-    # N = 512 needs more shared memory than a block may opt into
+    # N = 512 is past the largest state the kernel holds in registers
+    # (N = 256)
     x, dt, A, _, _ = _ssd_inputs((1, 16, 4, 16, 1, 16), torch.float32, cuda)
     big = torch.zeros((1, 16, 1, 512), device=cuda)
     with pytest.raises(RuntimeError, match="N=512, P=16"):

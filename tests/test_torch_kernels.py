@@ -3,10 +3,12 @@ kernels (interpret mode) and oracles, on the CPU: fp32, atol = rtol = 1e-5.
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.decode_stats.ref import decode_stats_accumulate_ref
 from repro.kernels.decode_stats.stats import decode_stats_accumulate_pallas
@@ -14,6 +16,7 @@ from repro.kernels.flash_attention.flash import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jrmsnorm_ref
 from repro.kernels.rmsnorm.rmsnorm import rmsnorm_pallas
+from repro.models import layers as jlayers
 from repro.models.attention import decode_stats_scores as jscores
 from repro_torch.kernels.decode_stats import ops as stats_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -40,6 +43,41 @@ def test_rmsnorm_plain_matches_pallas(shape):
     out = rms_ops.rmsnorm(_t(x), _t(sc)).numpy()
     np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
     np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 3072), (3, 5, 128), (4, 37)])
+def test_rmsnorm_fused_forms_plain_versions_are_the_eager_ops(dtype, shape):
+    rng = np.random.default_rng(1)
+    rn = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    x, delta = (rn(*shape) * 3).to(dtype), rn(*shape).to(dtype)
+    y, z, sc = rn(*shape), (rn(*shape) * 2).to(dtype), (rn(shape[-1]) * 0.2
+                                                         ).to(dtype)
+    before = (rms_ops.LAUNCHES, dict(rms_ops.FORM_LAUNCHES))
+    s, out = rms_ops.rmsnorm_residual(x, delta, sc)
+    eager = x + delta                      # the decoder layer before ln2
+    assert s.dtype == dtype and torch.equal(s, eager)
+    assert torch.equal(out, rms_ops.rmsnorm(eager, sc))
+    gated = rms_ops.rmsnorm_gated(y, z, sc)
+    eager = rms_ops.rmsnorm((y.to(dtype) * F.silu(z)).contiguous(), sc)
+    assert gated.dtype == dtype and torch.equal(gated, eager)
+    assert (rms_ops.LAUNCHES, rms_ops.FORM_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 7, 256), (5, 100)])
+def test_rmsnorm_fused_forms_match_jax(shape):
+    rng = np.random.default_rng(2)
+    x, delta, y, z = (rng.standard_normal(shape, dtype=np.float32) * k
+                      for k in (3, 1, 2, 2))
+    sc = rng.standard_normal(shape[-1], dtype=np.float32) * 0.2
+    jparams = {"scale": jnp.asarray(sc)}
+    s, out = rms_ops.rmsnorm_residual(_t(x), _t(delta), _t(sc))
+    np.testing.assert_allclose(s.numpy(), x + delta, **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jlayers.rmsnorm(
+        jparams, jnp.asarray(x) + jnp.asarray(delta))), **TOL)
+    gated = rms_ops.rmsnorm_gated(_t(y), _t(z), _t(sc))
+    np.testing.assert_allclose(gated.numpy(), np.asarray(jlayers.rmsnorm(
+        jparams, jnp.asarray(y) * jax.nn.silu(jnp.asarray(z)))), **TOL)
 
 
 # ---------------------------------------------------------------------------
