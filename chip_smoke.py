@@ -10,9 +10,9 @@ the package is missing. Phases, each fatal on failure:
 
 1. device and build: the card's name and power limit; the kernels built
    from ``src/repro_torch/kernels/csrc`` (build seconds, then every kernel
-   instance's registers and spill bytes from ptxas, one JSON line each);
-   the time of an empty kernel launch, the floor under every
-   latency-bound kernel;
+   instance's registers and spill bytes from ptxas, one JSON line each;
+   a decode kernel instance that spills fails); the time of an empty
+   kernel launch, the floor under every latency-bound kernel;
 2. every kernel against its plain version on the card at the main path's
    shapes, bf16 and fp32 (RMSNorm in its three forms: plain at the
    llama3.2-3b and mamba2-780m widths, the residual form at llama's and
@@ -30,7 +30,14 @@ the package is missing. Phases, each fatal on failure:
    events on a cold L2 beside its plain version, a PyTorch library call where one computes the
    same function (timed here only; the port never calls it), and its
    bound (flash: bf16 runs the wgmma kernel, fp32 the CUDA-core one;
-   SDPA timed beside each causal case, S = 137, 512 and 2048);
+   SDPA timed beside each causal case, S = 137, 512 and 2048); decode
+   scores and decode stats at llama3.2-3b's decode shape (B = 8, KV = 8,
+   G = 3, D = 128, L = 1024, positions 64-576) and at (G, D) = (1, 64),
+   (4, 120), (5, 128), (8, 128), (2, 256), their bounds counting only the
+   K and V rows and the accumulation's scores of kept slots (masked scores held exactly NEG_INF, a fully
+   masked row 0, two calls bitwise equal), and the decode-attention pair
+   (scores, accumulate, o / l) beside one SDPA call on the same inputs
+   with the position mask (the library yardstick, timed here only);
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -46,20 +53,28 @@ the package is missing. Phases, each fatal on failure:
 3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
    (fp32, 3 layers), each with the same parameters on the CPU (plain
    versions) and on the card (kernels): logits after prefill and 8 decode
-   steps within 1e-3, equal greedy tokens, equal engine tokens;
+   steps within 1e-3, equal greedy tokens, equal engine tokens (the card's
+   engine replaying its decode graph);
 4. llama3.2-3b at full width (28 layers, d_model 3072, vocab 128256) with
    random bf16 weights from seed 0: an Engine(batch=8, cache_len=1024)
-   drains 16 requests (64-512 prompt tokens, 16-64 new); every kernel's
-   launch count must be what the path implies (rmsnorm 57 per forward:
-   29 plain and 28 residual, the add before each ln2 fused into it;
-   flash 28 per prefill, decode stats 28 per decode step, ssd 0) and every
-   step's logits finite; then torch.profiler over two 512-token prefills
-   and over 5 decode steps with 8 live rows (device busy time, idle share,
-   the kernels that take the time);
+   drains 16 requests (64-512 prompt tokens, 16-64 new), each decode step
+   one replay of the decode forward captured in a CUDA graph; every
+   kernel's launch count must be what the path implies, a replay counting
+   the launches its capture recorded (rmsnorm 57 per forward: 29 plain and
+   28 residual, the add before each ln2 fused into it; flash 28 per
+   prefill, decode scores and decode stats 28 each per decode step, ssd 0)
+   and every step's logits finite; each step's host time and the device
+   span of its replay (CUDA events recorded around it, no profiler), and
+   the share of the steps' host time outside those spans, the device's
+   idle share (an upper bound on its busy time, so a lower bound on idle);
+   then torch.profiler over two 512-token
+   prefills, over 5 decode steps (graph replays) with 8 live rows and over
+   5 eager decode forwards on a copy of that cache (device busy time, idle
+   share, the kernels that take the time);
 5. the same for mamba2-780m at full width (48 layers, d_model 1536, 48 SSD
    heads of P = 64, N = 128, vocab 50280): rmsnorm 97 per forward (49
    plain, 48 gated: the mixer's gate fused into its norm), ssd 48
-   per prefill, flash and decode stats 0.
+   per prefill, flash and the decode kernels 0.
 
 Every kernel's launches are counted from 0 just before each main path
 (the DMA gather, phase 4, phase 5) and read just after it.
@@ -183,14 +198,12 @@ def close_fp32(out, plain, args, what: str) -> float | None:
 # ---------------------------------------------------------------------------
 def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_stats import ops as stats_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.models.attention import NEG_INF, decode_stats_scores
 
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     cases: dict[str, list[dict]] = {"rmsnorm": [], "flash_attention": [],
-                                    "decode_stats": []}
+                                    "decode_scores": [], "decode_stats": []}
 
     for dtype in (torch.bfloat16, torch.float32):
         tol = 2e-2 if dtype == torch.bfloat16 else None
@@ -237,16 +250,65 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
                                                                **mask)),
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
 
-        B, KV, G, L, D = 8, 8, 3, 1024, 128
-        pos = torch.randint(64, 577, (B,), generator=g, device="cuda")
-        s, _ = decode_stats_scores(randn(B, 1, KV * G, D), randn(B, L, KV, D),
-                                   pos)
+        for name, rows in decode_cases(timer, g, dtype, tol).items():
+            cases[name] += rows
+    cases["decode_attention"] = [decode_pair(timer, g)]
+    return cases
+
+
+# decode attention at llama3.2-3b's decode shape (B = 8 rows, KV = 8, G = 3,
+# D = 128, a 1,024-slot cache) and at the head counts and dims of the queued
+# archs (G, D): (1, 64), (4, 120), (5, 128), (8, 128), (2, 256)
+DECODE_SHAPES = [(3, 128), (1, 64), (4, 120), (5, 128), (8, 128), (2, 256)]
+DECODE_B, DECODE_KV, DECODE_L = 8, 8, 1024
+
+
+def decode_positions(g) -> torch.Tensor:
+    """Per-row positions 64..576: rows mid-request, as in phase 4."""
+    return torch.randint(64, 577, (DECODE_B,), generator=g, device="cuda")
+
+
+def decode_cases(timer, g, dtype, tol) -> dict[str, list[dict]]:
+    """The two decode kernels against their plain versions at every
+    DECODE_SHAPES entry: errors, times and bounds (the bytes: each input
+    read once, each output written once, K, V and the accumulation's
+    scores only where a slot is kept; the scores' s written whole)."""
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF
+    B, KV, L = DECODE_B, DECODE_KV, DECODE_L
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    rows = {"decode_scores": [], "decode_stats": []}
+    for G, D in DECODE_SHAPES:
+        pos = decode_positions(g)
+        slots = int((pos + 1).sum())                   # slots the mask keeps
+        q, k, v = (rn(B, 1, KV * G, D).to(dtype), rn(B, L, KV, D).to(dtype),
+                   rn(B, L, KV, D).to(dtype))
+        es = q.element_size()
+        what = f"decode_scores {dtype} G={G} D={D}"
+        s, m = stats_ops.decode_scores(q, k, pos)
+        rs, rm = stats_ops.decode_scores_ref(q, k, pos)
+        check(torch.equal(s == NEG_INF, rs == NEG_INF),
+              f"{what}: masked slots differ")
+        err = max(close(s, rs, tol or 1e-4, what + " s"),
+                  close(m, rm, tol or 1e-4, what + " m"))
+        nbytes = q.numel() * es + slots * KV * D * es + (s.numel()
+                                                         + m.numel()) * 4
+        b_ms, b_by = bound(nbytes, 2 * slots * KV * G * D, dtype)
+        rows["decode_scores"].append(dict(
+            shape=[B, KV, G, L, D], dtype=str(dtype), max_abs_err=err,
+            tolerance=tol or 1e-4, positions=pos.tolist(), kept_slots=slots,
+            ms=timer(lambda: stats_ops.decode_scores(q, k, pos)),
+            host_ms=timer.host_ms(lambda: stats_ops.decode_scores(q, k, pos)),
+            plain_ms=timer(lambda: stats_ops.decode_scores_ref(q, k, pos)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+        s, _ = stats_ops.decode_scores_ref(q.float(), k.float(), pos)
         s[0] = NEG_INF                                 # a fully masked row
         m = s.amax(-1)
-        v = randn(B, L, KV, D).to(dtype)
-        o, l = stats_ops.accumulate(s, m, v)
+        # as the decode path calls it: with the position s was masked with
+        o, l = stats_ops.accumulate(s, m, v, pos=pos)
         ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
-        what = f"decode_stats {dtype}"
+        what = f"decode_stats {dtype} G={G} D={D}"
         err = max(close(o, ro, tol or 1e-4, what + " o"),
                   close(l, rl, tol or 1e-4, what + " l"))
         err32 = None
@@ -257,21 +319,71 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
                         close(l, rl32, what=what + " l vs fp32 plain",
                               **BF16_VS_FP32))
         check(float(o[0].abs().max()) == 0.0 and float(l[0].abs().max()) == 0,
-              "decode_stats: the fully masked row is not 0")
-        slots = int((pos[1:] + 1).sum())               # V rows the data needs
-        nbytes = (s.numel() + m.numel() + o.numel() + l.numel()) * 4 \
-            + slots * KV * D * v.element_size()
-        b_ms, b_by = bound(nbytes, 2 * G * D * KV * slots, dtype)
-        cases["decode_stats"].append(dict(
+              f"{what}: the fully masked row is not 0")
+        o2, l2 = stats_ops.accumulate(s, m, v, pos=pos)
+        check(torch.equal(o, o2) and torch.equal(l, l2),
+              f"{what}: two calls differ")
+        o2, l2 = stats_ops.accumulate(s, m, v)         # every slot may count
+        err = max(err, close(o2, ro, tol or 1e-4, what + " o, no positions"),
+                  close(l2, rl, tol or 1e-4, what + " l, no positions"))
+        live = int((pos[1:] + 1).sum())                # V rows the data needs
+        # the scores read: the kept slots given the positions, all of s
+        # without them
+        rest = (m.numel() + o.numel() + l.numel()) * 4 \
+            + live * KV * D * v.element_size()
+        b_ms, b_by = bound(rest + slots * KV * G * 4, 2 * G * D * KV * live,
+                           dtype)
+        b0_ms, _ = bound(rest + s.numel() * 4, 2 * G * D * KV * live, dtype)
+        rows["decode_stats"].append(dict(
             shape=[B, KV, G, L, D], dtype=str(dtype), max_abs_err=err,
             tolerance=tol or 1e-4, max_abs_err_vs_fp32_plain=err32,
             positions=pos.tolist(),
-            ms=timer(lambda: stats_ops.accumulate(s, m, v)),
-            host_ms=timer.host_ms(lambda: stats_ops.accumulate(s, m, v)),
+            ms=timer(lambda: stats_ops.accumulate(s, m, v, pos=pos)),
+            ms_without_positions=timer(lambda: stats_ops.accumulate(s, m, v)),
+            bound_without_positions_ms=b0_ms,
+            host_ms=timer.host_ms(lambda: stats_ops.accumulate(s, m, v,
+                                                               pos=pos)),
             plain_ms=timer(lambda: stats_ops.decode_stats_accumulate_ref(
                 s, m, v)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
-    return cases
+        del q, k, v, s, m, o, l
+    return rows
+
+
+def decode_pair(timer, g) -> dict:
+    """The decode-attention pair (scores kernel, accumulate kernel, o / l)
+    at llama3.2-3b's decode shape in bf16, beside one
+    ``F.scaled_dot_product_attention`` call on the same inputs (the
+    library yardstick, timed here only; the port never calls it): q as
+    (B,H,1,D) against K and V as (B,KV,L,D), transposed before the timing,
+    with the boolean position mask and ``enable_gqa``."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import decode_attention
+    B, KV, L = DECODE_B, DECODE_KV, DECODE_L
+    G, D = DECODE_SHAPES[0]
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    pos = decode_positions(g)
+    q, k, v = (rn(B, 1, KV * G, D).to(torch.bfloat16),
+               rn(B, L, KV, D).to(torch.bfloat16),
+               rn(B, L, KV, D).to(torch.bfloat16))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = (torch.arange(L, device="cuda")[None] <= pos[:, None])[:, None,
+                                                                    None]
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    out = decode_attention(q, k, v, pos)
+    err = close(out, sdpa().transpose(1, 2), 2e-2,
+                "decode attention pair vs SDPA")
+    slots = int((pos + 1).sum())
+    b_ms, b_by = bound((q.numel() + out.numel() + 2 * slots * KV * D)
+                       * q.element_size(), 4 * slots * KV * G * D,
+                       torch.bfloat16)
+    return dict(shape=[B, KV, G, L, D], dtype=str(torch.bfloat16),
+                positions=pos.tolist(), max_abs_err_vs_sdpa=err,
+                tolerance=2e-2,
+                ms=timer(lambda: decode_attention(q, k, v, pos)),
+                host_ms=timer.host_ms(lambda: decode_attention(q, k, v, pos)),
+                library_ms=timer(sdpa), bound_ms=b_ms, bound_by=b_by)
 
 
 # RMSNorm's forms at the serving paths' shapes: (rows, d) at decode (8 rows)
@@ -541,26 +653,24 @@ def small_end_to_end(arch: str, n_layers: int) -> None:
 # ---------------------------------------------------------------------------
 # phases 4 and 5: llama3.2-3b and mamba2-780m at full width
 # ---------------------------------------------------------------------------
-def kernel_ops() -> dict:
-    """name -> the wrapper module that counts the kernel's launches."""
-    from repro_torch.kernels.decode_stats import ops as stats_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    return {"rmsnorm": rms_ops, "flash_attention": flash_ops,
-            "decode_stats": stats_ops, "ssd": ssd_ops}
+# the kernels the serving paths run, by their names in
+# ``repro_torch.kernels.launch_counts``
+PATH_KERNELS = ("rmsnorm", "flash_attention", "decode_scores", "decode_stats",
+                "ssd")
 
 
 def launches_implied(cfg, st: dict) -> dict[str, int]:
     """What the serving path must launch for the engine's counts: rmsnorm
     2 per layer + the final norm per forward; per attention layer flash
-    once per prefill and decode stats once per decode step; per Mamba2
-    layer ssd once per prefill."""
+    once per prefill, decode scores and decode stats once per decode step
+    (each step one replay of the captured decode graph); per Mamba2 layer
+    ssd once per prefill."""
     attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
     mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
     return {"rmsnorm": (2 * cfg.n_layers + 1)
             * (st["prefills"] + st["decode_steps"]),
             "flash_attention": attn * st["prefills"],
+            "decode_scores": attn * st["decode_steps"],
             "decode_stats": attn * st["decode_steps"],
             "ssd": mamba * st["prefills"]}
 
@@ -579,7 +689,7 @@ def rmsnorm_forms_implied(cfg, st: dict) -> dict[str, int]:
 def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     """Serve 16 requests on ``arch`` at its published size; returns the
     path's launches per kernel."""
-    from repro_torch import configs
+    from repro_torch import configs, kernels
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec
 
@@ -594,7 +704,17 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    forward, calls = eng.model.forward, []
+    # prefills run the forward; each decode step replays the decode graph
+    forward, decode, calls = eng.model.forward, eng.scheduler._decode, []
+    graph, spans = eng.scheduler._graph, []
+
+    def timed_replay():          # events on the stream around the replay
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        logits = type(graph).replay(graph)
+        b.record()
+        spans.append((a, b))
+        return logits
 
     def timed_forward(tokens, mode="prefill", **kw):
         a = time.perf_counter()
@@ -603,30 +723,36 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
         calls.append((mode, time.perf_counter() - a, finite))
         return logits, cache
 
+    def timed_decode():
+        a = time.perf_counter()
+        logits = decode()
+        finite = bool(torch.isfinite(logits).all())      # synchronises
+        calls.append(("decode", time.perf_counter() - a, finite))
+        return logits
+
     eng.model.forward = timed_forward
+    eng.scheduler._decode = timed_decode
+    graph.replay = timed_replay
     rng = np.random.default_rng(0)
     warm = Request(tokens=rng.integers(0, cfg.vocab_size, 64), max_new=4)
     eng.submit(warm)                                     # cuBLAS, allocator
     eng.drain()
-    base, calls[:] = eng.stats(), []
+    base, calls[:], spans[:] = eng.stats(), [], []
 
     lens = rng.integers(64, 513, 16)
     budgets = rng.integers(16, 65, 16)
     reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n), max_new=int(m))
             for n, m in zip(lens, budgets)]
-    ops = kernel_ops()
-    for mod in ops.values():
-        mod.LAUNCHES = 0
-    forms = ops["rmsnorm"].FORM_LAUNCHES
-    for form in forms:
-        forms[form] = 0
+    kernels.add_launch_counts(kernels.launch_counts(), -1)   # all to 0
     t0 = time.perf_counter()
     rids = [eng.submit(r) for r in reqs]
     results = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES for name, mod in ops.items()}
-    by_form = dict(forms)
+    counts = kernels.launch_counts()
+    launches = {name: counts[name] for name in PATH_KERNELS}
+    by_form = {form: counts[f"rmsnorm.{form}"]
+               for form in ("plain", "residual", "gated")}
 
     st = {k: v - base[k] for k, v in eng.stats().items()
           if k in ("decode_steps", "prefills", "prefill_tokens",
@@ -649,7 +775,11 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
           and st["decode_tokens"] == int((budgets - 1).sum()),
           f"engine stats {st}")
 
-    eng.model.forward = forward
+    eng.model.forward, eng.scheduler._decode = forward, decode
+    del graph.replay
+    check(len(spans) == st["decode_steps"], f"{phase}: {len(spans)} replays "
+                                            f"timed, {st['decode_steps']} steps")
+    replay_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
     profile_serving(eng, reqs, phase)
     prefill_s = sum(t for mode, t, _ in calls if mode == "prefill")
     decode_s = sum(t for mode, t, _ in calls if mode == "decode")
@@ -659,11 +789,15 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
         "batch": 8, "cache_len": 1024, "requests": len(reqs),
         "prompt_tokens": st["prefill_tokens"],
         "generated_tokens": int(budgets.sum()),
-        "decode_steps": st["decode_steps"], "wall_s": wall,
+        "decode_steps": st["decode_steps"], "decode": "cuda_graph",
+        "graph_launches_per_step": eng.scheduler._graph.launches,
+        "wall_s": wall,
         "setup_s": setup_s,
         "prefill_tok_s": st["prefill_tokens"] / prefill_s,
         "decode_tok_s": st["decode_tokens"] / decode_s,
         "decode_step_ms_mean": decode_s / st["decode_steps"] * 1e3,
+        "decode_replay_device_ms_mean": replay_s / st["decode_steps"] * 1e3,
+        "decode_device_idle_share": 1 - replay_s / decode_s,
         "prefill_ms_mean": prefill_s / st["prefills"] * 1e3,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches, "rmsnorm_forms": by_form, "card": smi}))
@@ -715,7 +849,18 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
         eng.submit(Request(tokens=r.tokens[:64], max_new=steps + 4))
     eng.step()
     eng.step()
-    profile_window("profile_decode", phase, eng.step, steps, live_rows=8)
+    profile_window("profile_decode", phase, eng.step, steps, live_rows=8,
+                   decode="cuda_graph")
+    # the same step eagerly: the forward called directly on a copy of the
+    # cache, so that the graph's share of the change reads apart from the
+    # kernels'
+    cache = {name: t.clone() for name, t in eng.scheduler._cache.items()}
+    tok = eng.scheduler._tok_dev.clone()
+    eager = lambda: eng.model(tok, mode="decode", cache=cache)
+    eager()
+    profile_window("profile_decode_eager", phase, eager, steps, live_rows=8,
+                   decode="eager")
+    del cache
     eng.drain()
 
 
@@ -763,8 +908,12 @@ def main() -> int:
     info = _build.build()
     _build.lib()
     print(f"kernels built in {info.seconds:.1f} s into {info.path.parent}")
-    for row in ptxas_usage(info.log):
+    usage = ptxas_usage(info.log)
+    for row in usage:
         print(json.dumps({"phase": "build", **row}))
+    spilled = [r["kernel"] for r in usage if "decode_s" in r["kernel"]
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    check(not spilled, f"decode kernel instances spill: {spilled}")
     for line in info.log.splitlines():
         if "warning" in line.lower():
             print("  " + line.strip())
@@ -778,6 +927,7 @@ def main() -> int:
     for name, rows in cases.items():
         for row in rows:
             print(json.dumps({"kernel": name, **row}))
+    pair = cases.pop("decode_attention")[0]
     from repro_torch import configs
     dma = dma_cases_of(configs.get("llama3.2-3b"))
     cases["dma_allgather"] = dma_allgather_cases(timer, dma)
@@ -800,6 +950,8 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm/rmsnorm.py:17", 0),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash.py:32", 1),
+        "decode_scores": ("src/repro_torch/kernels/csrc/decode_scores.cu",
+                          "src/repro/models/attention.py:126", 0),
         "decode_stats": ("src/repro_torch/kernels/csrc/decode_stats.cu",
                          "src/repro/kernels/decode_stats/stats.py:35", 0),
         "dma_allgather": ("src/repro_torch/kernels/csrc/dma_allgather.cu",
@@ -829,6 +981,10 @@ def main() -> int:
              for r in cases["rmsnorm"][::-1] if r["shape"] == [8, 3072]
              and r["dtype"] == "torch.bfloat16"}
     kernels[0]["forms_8x3072_bf16"] = forms
+    for row in kernels:        # the pair (scores, accumulate, o / l) and SDPA
+        if row["name"].startswith("decode_s"):
+            row["decode_attention_pair"] = {
+                k: pair[k] for k in ("ms", "library_ms", "bound_ms")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,4 +4,45 @@ Each package holds ``ref.py`` (the plain PyTorch version, run for CPU
 tensors and held against the kernel on the card) and ``ops.py`` (the
 wrapper: checks, allocation, launch, a ``LAUNCHES`` count). The CUDA
 sources live in ``csrc/`` and are built at first use by ``_build.py``.
+:func:`launch_counts` reads every count, :func:`add_launch_counts` advances
+them for launches a CUDA graph replays.
 """
+
+
+def _counters():
+    """(name, module, attribute) of every launch counter."""
+    from .decode_stats import ops as decode_stats
+    from .dma_allgather import ops as dma_allgather
+    from .flash_attention import ops as flash_attention
+    from .rmsnorm import ops as rmsnorm
+    from .ssd import ops as ssd
+    return [("rmsnorm", rmsnorm, "LAUNCHES"),
+            ("flash_attention", flash_attention, "LAUNCHES"),
+            ("decode_scores", decode_stats, "SCORES_LAUNCHES"),
+            ("decode_stats", decode_stats, "LAUNCHES"),
+            ("dma_allgather", dma_allgather, "LAUNCHES"),
+            ("ssd", ssd, "LAUNCHES")]
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count, and RMSNorm's per form
+    (``rmsnorm.<form>``)."""
+    counts = {name: getattr(mod, attr) for name, mod, attr in _counters()}
+    from .rmsnorm import ops as rmsnorm
+    counts.update({f"rmsnorm.{form}": n
+                   for form, n in rmsnorm.FORM_LAUNCHES.items()})
+    return counts
+
+
+def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (keys of :func:`launch_counts`) to the
+    counts: a CUDA graph's replay launches what its capture recorded, and
+    the wrappers, which count a launch where they make it, do not run."""
+    from .rmsnorm import ops as rmsnorm
+    mods = {name: (mod, attr) for name, mod, attr in _counters()}
+    for key, n in delta.items():
+        if key.startswith("rmsnorm."):
+            rmsnorm.FORM_LAUNCHES[key.split(".", 1)[1]] += n * times
+        else:
+            mod, attr = mods[key]
+            setattr(mod, attr, getattr(mod, attr) + n * times)

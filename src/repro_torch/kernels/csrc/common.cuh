@@ -40,6 +40,18 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The slots [lo, hi] that one-token decode at position p keeps in an
+// L-slot cache: j <= p, inside the window (p - j < window) and the chunk of
+// p (j / chunk == p / chunk) where those are set; empty when hi < lo.
+__device__ __forceinline__ void kept_interval(long long p, int L, int window,
+                                              int chunk, long long* lo,
+                                              long long* hi) {
+  *lo = 0;
+  *hi = p < L - 1 ? p : static_cast<long long>(L) - 1;
+  if (window > 0 && p - window + 1 > *lo) *lo = p - window + 1;
+  if (chunk > 0 && (p / chunk) * chunk > *lo) *lo = (p / chunk) * chunk;
+}
+
 // 16 bytes of T unpacked to fp32: 4 floats or 8 bf16 values
 template <typename T>
 __device__ __forceinline__ void load16_f(const T* __restrict__ p, float* out) {

@@ -1,29 +1,153 @@
-"""Decode-stat accumulation: the CUDA kernel for CUDA tensors, the plain
-version for CPU ones. ``LAUNCHES`` counts kernel launches; CPU calls leave
-it alone."""
+"""One-token decode attention's two kernels: the masked scores with their
+row max (``decode_scores``) and the accumulation (``accumulate``). Each runs
+its CUDA kernel for CUDA tensors and its plain version for CPU ones.
+``SCORES_LAUNCHES`` and ``LAUNCHES`` count the two kernels' launches; CPU
+calls leave them alone.
+
+Both kernels split a row over a cluster of up to 8 blocks and reduce across
+them through the cluster's shared memory: they need no scratch and no
+state between calls.
+"""
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import _build
-from .ref import decode_stats_accumulate_ref
+from .ref import (NEG_INF, decode_scores_ref,  # noqa: F401
+                  decode_stats_accumulate_ref, masked_scores_ref)
 
-LAUNCHES = 0
-GROUPS = (2, 3)      # query heads per kv head the kernel is built for
+LAUNCHES = 0          # accumulate kernel
+SCORES_LAUNCHES = 0   # scores kernel
+MAX_GROUPS = 8        # query heads per kv head the kernels are built for
+MAX_HEAD_DIM = 256
+MAX_SPLITS = 8        # blocks per row: the portable cluster size
+BLOCKS_PER_SM = 2     # the grid's target (decode_sweep.py, PERF.md)
 
 
-def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+def check_heads(G: int, D: int) -> None:
+    """Raise, naming G or D, unless the kernels take G query heads per kv
+    head and head dim D."""
+    if not 1 <= G <= MAX_GROUPS:
+        raise ValueError(f"decode attention: G = {G} query heads per kv "
+                         f"head; the kernels take 1 to {MAX_GROUPS}")
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"decode attention: head dim D = {D}; the kernels "
+                         f"take a multiple of 8 up to {MAX_HEAD_DIM}")
+
+
+def _check_cuda(name: str, named: dict[str, torch.Tensor]) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs),
+    False when all lie on one CUDA device (the kernel runs); raises else."""
+    ts = list(named.values())
+    if all(t.device.type == "cpu" for t in ts):
+        return True
+    if ts[0].device.type != "cuda" or any(t.device != ts[0].device
+                                          for t in ts):
+        raise ValueError(f"{name}: " + ", ".join(
+            f"{k} on {t.device}" for k, t in named.items())
+            + "; all must be on one CUDA device")
+    return False
+
+
+def _check_layout(name: str, named: dict[str, torch.Tensor],
+                  aligned: tuple[str, ...]) -> None:
+    for k, t in named.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} of shape {tuple(t.shape)} and "
+                             f"strides {t.stride()} is not contiguous")
+        if k in aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {k} does not start on 16 bytes "
+                             f"(address {t.data_ptr():#x})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(rows: int, L: int, device) -> int:
+    """Blocks per row (a cluster): BLOCKS_PER_SM per SM, at most
+    MAX_SPLITS, and no more than L has 16-slot pieces."""
+    want = -(-BLOCKS_PER_SM * _sms(device.index) // rows)
+    return max(1, min(want, MAX_SPLITS, -(-L // 16)))
+
+
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
+                  *, window: int = 0, chunk: int = 0, cap: float = 0.0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q (B,1,H,D) against the cache k (B,L,KV,D), read in place, at
+    ``pos`` (int64: 0-d, one position for every row, or (B,)) ->
+    fp32 (s (B,KV,G,L) with masked slots at NEG_INF, m (B,KV,G) its row
+    max), H = KV*G. ``window``, ``chunk`` and ``cap`` as the JAX package's
+    ``decode_stats_scores``."""
+    global SCORES_LAUNCHES
+    named = {"q": q, "k": k_cache, "pos": pos}
+    if _check_cuda("decode_scores", named):
+        return decode_scores_ref(q, k_cache, pos, window=window, chunk=chunk,
+                                 cap=cap)
+    if q.ndim != 4 or k_cache.ndim != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode_scores: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}; want (B,1,H,D), (B,L,KV,D)")
+    B, _, H, D = q.shape
+    _, L, KV, _ = k_cache.shape
+    if k_cache.shape[0] != B or k_cache.shape[3] != D or KV == 0 or H % KV:
+        raise ValueError(f"decode_scores: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}")
+    G = H // KV
+    check_heads(G, D)
+    if q.dtype != k_cache.dtype:
+        raise TypeError(f"decode_scores: q is {q.dtype}, k is "
+                        f"{k_cache.dtype}; they must match")
+    code = _build.dtype_code(k_cache.dtype)
+    if pos.dtype != torch.long or pos.shape not in ((), (B,)):
+        raise ValueError(f"decode_scores: pos {pos.dtype} {tuple(pos.shape)}; "
+                         f"want int64, 0-d or ({B},)")
+    _check_layout("decode_scores", named, ("q", "k"))
+    if window < 0 or chunk < 0 or cap < 0:
+        raise ValueError(f"decode_scores: window {window}, chunk {chunk}, "
+                         f"cap {cap} must not be negative")
+    s = torch.empty((B, KV, G, L), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+    rows = B * KV
+    if L == 0:
+        raise ValueError("decode_scores: the cache has L = 0 slots")
+    if rows == 0:
+        return s, m
+    if rows > 65535:
+        raise ValueError(f"decode_scores: B*KV = {rows} rows; the grid takes "
+                         "65,535")
+    nsplit = _splits(rows, L, q.device)
+    err = _build.lib().repro_decode_scores(
+        q.data_ptr(), k_cache.data_ptr(), pos.data_ptr(), int(pos.ndim == 1),
+        s.data_ptr(), m.data_ptr(), B, KV, G, L, D, nsplit, float(D ** -0.5),
+        int(window), int(chunk), float(cap), code, _build.stream_of(q))
+    _build.check(err, "decode_scores")
+    SCORES_LAUNCHES += 1
+    return s, m
+
+
+def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
+               pos: torch.Tensor | None = None, window: int = 0,
+               chunk: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """s (B,KV,G,L) NEG_INF-masked fp32 scores, m (B,KV,G) fp32 row max,
-    v_cache (B,L,KV,D) -> fp32 (o (B,1,H,D), l (B,1,H)), H = KV*G."""
+    v_cache (B,L,KV,D) -> fp32 (o (B,1,H,D), l (B,1,H)), H = KV*G.
+
+    ``pos``, ``window`` and ``chunk``, when given, are those the scores
+    were masked with (by :func:`decode_scores`): the kernel then spreads
+    only the slots they keep over its blocks. They change no result; the
+    plain version does not read them. Without them the kernel spreads all
+    of L and skips the pieces whose p are all 0: the contract of the JAX
+    package's ``decode_stats_accumulate_pallas`` (s, m and V alone), for
+    scores masked otherwise than by one position, such as a cache shard's
+    at a slot offset in the multi-rank decode combine (ROADMAP)."""
     global LAUNCHES
-    if all(t.device.type == "cpu" for t in (s, m, v_cache)):
+    named = {"s": s, "m": m, "v": v_cache}
+    if pos is not None:
+        named["pos"] = pos
+    if _check_cuda("decode_stats", named):
         return decode_stats_accumulate_ref(s, m, v_cache)
-    if s.device.type != "cuda" or m.device != s.device \
-            or v_cache.device != s.device:
-        raise ValueError(f"decode_stats: s on {s.device}, m on {m.device}, "
-                         f"v on {v_cache.device}; all must be on one CUDA "
-                         "device")
     if s.ndim != 4 or v_cache.ndim != 4:
         raise ValueError(f"decode_stats: s {tuple(s.shape)}, v "
                          f"{tuple(v_cache.shape)}")
@@ -34,26 +158,31 @@ def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor
                          f"{tuple(m.shape)}, v {tuple(v_cache.shape)}")
     if s.dtype != torch.float32 or m.dtype != torch.float32:
         raise TypeError("decode_stats: s and m must be float32")
-    if G not in GROUPS:
-        raise ValueError(f"decode_stats: {G} query heads per kv head; the "
-                         f"kernel is built for {GROUPS}")
+    check_heads(G, D)
     code = _build.dtype_code(v_cache.dtype)
-    groups = D // (16 // v_cache.element_size())
-    if D % (16 // v_cache.element_size()) or groups & (groups - 1) \
-            or not 1 <= groups <= 256:
-        raise ValueError(f"decode_stats: head_dim {D} is not a power-of-two "
-                         "number of 16-byte vectors")
-    if not all(t.is_contiguous() for t in (s, m, v_cache)) \
-            or v_cache.data_ptr() % 16:
-        raise ValueError("decode_stats: s, m and v must be contiguous and v "
-                         "16-byte aligned")
+    if pos is not None and (pos.dtype != torch.long
+                            or pos.shape not in ((), (B,))):
+        raise ValueError(f"decode_stats: pos {pos.dtype} {tuple(pos.shape)}; "
+                         f"want int64, 0-d or ({B},)")
+    _check_layout("decode_stats", named, ("v",))
     o = torch.empty((B, 1, KV * G, D), dtype=torch.float32, device=s.device)
     l = torch.empty((B, 1, KV * G), dtype=torch.float32, device=s.device)
-    if B == 0 or KV == 0:
+    rows = B * KV
+    if L == 0:
+        raise ValueError("decode_stats: the cache has L = 0 slots")
+    if rows == 0:
         return o, l
+    if rows > 65535 or L * KV * D >= 2 ** 31:
+        raise ValueError(f"decode_stats: B*KV = {rows} rows (the grid takes "
+                         f"65,535), L*KV*D = {L * KV * D} (the kernel "
+                         "indexes a row's slots in 32 bits)")
+    nsplit = _splits(rows, L, s.device)
     err = _build.lib().repro_decode_stats(
-        s.data_ptr(), m.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        l.data_ptr(), B, KV, G, L, D, code, _build.stream_of(s))
+        s.data_ptr(), m.data_ptr(), v_cache.data_ptr(),
+        None if pos is None else pos.data_ptr(),
+        int(pos is not None and pos.ndim == 1), int(window), int(chunk),
+        o.data_ptr(), l.data_ptr(), B, KV, G, L, D, nsplit, code,
+        _build.stream_of(s))
     _build.check(err, "decode_stats")
     LAUNCHES += 1
     return o, l

@@ -1,8 +1,46 @@
-"""Plain PyTorch decode-stat accumulation: the oracle of
-``csrc/decode_stats.cu``, with P.V summed in fp32 whatever the cache dtype."""
+"""Plain PyTorch versions of one-token decode attention's two kernels: the
+masked scores with their row max (the oracle of ``csrc/decode_scores.cu``)
+and the accumulation (of ``csrc/decode_stats.cu``), P.V summed in fp32
+whatever the cache dtype."""
 import torch
 
 NEG_INF = -2.0 ** 30
+
+
+def _mask_bcast(mask: torch.Tensor) -> torch.Tensor:
+    """Broadcast a slot mask over (B,KV,G,L) scores: an (L,) mask for a
+    scalar position, a (B,L) mask for per-row (B,) positions."""
+    return mask[None, None, None] if mask.ndim == 1 else mask[:, None, None, :]
+
+
+def masked_scores_ref(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
+    """Masked fp32 scores of one-token decode: q (B,1,H,D) against the cache
+    k (B,L,KV,D). ``pos`` is the query's absolute position, a 0-d tensor
+    (lockstep batch) or (B,) (continuous batching, one per row). Returns
+    ``(s, mask)``: s (B,KV,G,L) with masked slots at NEG_INF, mask (L,) or
+    (B,L)."""
+    B, _, H, D = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkgd,bjkd->bkgj", qg, k_cache).float() * (D ** -0.5)
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    p_ = pos[:, None] if pos.ndim == 1 else pos
+    j = torch.arange(L, device=k_cache.device)
+    mask = j <= p_
+    if window:
+        mask &= (p_ - j) < window
+    if chunk:
+        mask &= (j // chunk) == (p_ // chunk)
+    return torch.where(_mask_bcast(mask), s, NEG_INF), mask
+
+
+def decode_scores_ref(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
+    """:func:`masked_scores_ref`'s s (B,KV,G,L) and its row max m (B,KV,G),
+    both fp32."""
+    s, _ = masked_scores_ref(q, k_cache, pos, window=window, chunk=chunk,
+                             cap=cap)
+    return s, torch.amax(s, dim=-1)
 
 
 def decode_stats_accumulate_ref(s, m, v_cache):

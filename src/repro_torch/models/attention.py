@@ -3,9 +3,10 @@
 Mirrors ``repro.models.attention`` for full causal attention:
 
 * prefill: :func:`multihead_attention` goes through ``kernels/flash_attention``;
-* decode: :func:`decode_stats_scores` (masked fp32 scores, plain torch as in
-  the JAX package, where it sits outside the kernel) -> row max ->
-  ``kernels/decode_stats`` (exp, row sums, P.V) -> ``o / l``.
+* decode: ``kernels/decode_stats``, two kernels: the masked fp32 scores and
+  their row max, reading the K cache in place (the JAX package computes
+  them outside any kernel, ``decode_stats_scores``), then exp, row sums and
+  P.V -> ``o / l``.
 
 Query heads are grouped over KV heads (G = H / KV); softmax is in fp32.
 """
@@ -16,7 +17,7 @@ import torch
 from ..kernels.decode_stats import ops as stats_ops
 from ..kernels.flash_attention import ops as flash_ops
 
-NEG_INF = -2.0 ** 30  # large-negative mask value, as in the JAX package
+NEG_INF = stats_ops.NEG_INF  # large-negative mask value, as in the JAX package
 
 
 # Full-sequence attention, q (B,S,H,D) and k/v (B,T,KV,D) -> (B,S,H,D): the
@@ -24,42 +25,20 @@ NEG_INF = -2.0 ** 30  # large-negative mask value, as in the JAX package
 multihead_attention = flash_ops.flash_attention
 
 
-def _mask_bcast(mask: torch.Tensor) -> torch.Tensor:
-    """Broadcast a slot mask over (B,KV,G,L) scores: an (L,) mask for a
-    scalar position, a (B,L) mask for per-row (B,) positions."""
-    return mask[None, None, None] if mask.ndim == 1 else mask[:, None, None, :]
-
-
-def decode_stats_scores(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
-    """Masked fp32 scores of one-token decode: q (B,1,H,D) against the cache
-    k (B,L,KV,D). ``pos`` is the query's absolute position, a 0-d tensor
-    (lockstep batch) or (B,) (continuous batching, one per row). Returns
-    ``(s, mask)``: s (B,KV,G,L) with masked slots at NEG_INF, mask (L,) or
-    (B,L)."""
-    B, _, H, D = q.shape
-    L, KV = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, KV, H // KV, D)
-    s = torch.einsum("bkgd,bjkd->bkgj", qg, k_cache).float() * (D ** -0.5)
-    if cap:
-        s = cap * torch.tanh(s / cap)
-    p_ = pos[:, None] if pos.ndim == 1 else pos
-    j = torch.arange(L, device=k_cache.device)
-    mask = j <= p_
-    if window:
-        mask &= (p_ - j) < window
-    if chunk:
-        mask &= (j // chunk) == (p_ // chunk)
-    return torch.where(_mask_bcast(mask), s, NEG_INF), mask
+# Masked fp32 scores of one-token decode, ``(s, mask)``: the JAX package's
+# ``decode_stats_scores`` in plain torch (the decode path itself runs the
+# scores kernel, which returns the row max in place of the mask).
+decode_stats_scores = stats_ops.masked_scores_ref
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, chunk=0,
                      cap=0.0):
     """One-token decode: q (B,1,H,D) vs cache (B,L,KV,D) whose slot ``pos``
     already holds the query token's own key and value (so l > 0)."""
-    s, _ = decode_stats_scores(q, k_cache, pos, window=window, chunk=chunk,
-                               cap=cap)
-    m = torch.amax(s, dim=-1)                         # (B,KV,G)
-    o, l = stats_ops.accumulate(s, m, v_cache)
+    s, m = stats_ops.decode_scores(q, k_cache, pos, window=window,
+                                   chunk=chunk, cap=cap)
+    o, l = stats_ops.accumulate(s, m, v_cache, pos=pos, window=window,
+                                chunk=chunk)
     return (o / l[..., None]).to(v_cache.dtype)
 
 

@@ -5,8 +5,11 @@ Mirrors ``repro.models.transformer.forward`` for two families:
 * ``mode="prefill"``: tokens (B,S) -> last-position logits (B,1,Vpad) and a
   decode cache, with ``cache["pos"] = S``;
 * ``mode="decode"``: tokens (B,1) against that cache -> logits (B,1,Vpad);
-  the cache is updated in place and ``pos`` advances by one. ``pos`` is a
-  0-d tensor (lockstep batch) or (B,) (continuous batching).
+  the cache is updated in place, ``pos`` too (it advances by one), and the
+  same dict comes back (the JAX package returns a new cache with a new
+  ``pos`` array), so a CUDA graph captured over one step replays the next
+  on the same tensors. ``pos`` is a 0-d tensor (lockstep batch) or (B,)
+  (continuous batching).
 
 The JAX package scans stacked ``blocks/slot{j}`` parameters; here the
 layers are a ``ModuleList`` in global layer order, built from
@@ -214,7 +217,8 @@ class Transformer(nn.Module):
                     x, _ = layer(x, cos, sin, kv_cache=(cache["k"][i],
                                                         cache["v"][i]),
                                  pos=pos)
-            new_cache = {**cache, "pos": pos + 1}
+            pos.add_(1)             # in place: a captured graph reads it
+            new_cache = cache
         else:
             raise ValueError(f"unknown mode {mode!r}")
         x = rmsnorm(x, self.final_norm, eps=cfg.norm_eps)

@@ -7,6 +7,12 @@ its cache row is copied into the live batch cache and its first token
 taken, then every step decodes the whole batch once with per-row (B,)
 positions and harvests the rows whose budget is spent.
 
+On a CUDA device the decode step is one CUDA graph (:class:`DecodeGraph`),
+captured at construction at the fixed batch and cache length and replayed
+every step: the port's counterpart of the JAX scheduler's decode step,
+compiled once by ``jax.jit`` with the cache donated. On the CPU every step
+runs the forward eagerly.
+
 Clocks are injectable: :class:`WallClock` for real latency numbers,
 :class:`StepClock` for deterministic replay.
 """
@@ -19,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from .. import kernels
 from .paged import PagedKVCache
 from .spec import Request, RequestResult
 
@@ -69,6 +76,47 @@ def _leaf_batch_dim(name: str, leaf: torch.Tensor) -> int | None:
     raise ValueError(f"unknown cache leaf {name!r}")
 
 
+class DecodeGraph:
+    """``model``'s decode forward over ``cache`` and the token buffer
+    ``tok``, captured in a CUDA graph; :meth:`replay` runs one step.
+
+    The forward updates the cache in place (``pos`` included), so the graph
+    reads and writes the caller's tensors at fixed addresses. Two eager
+    warm-up steps first build the kernels and the libraries' handles (no
+    build may happen inside the capture); they write the cache, which is
+    zeroed again before the capture, so the first replay sees what the
+    first eager step would. A capture that fails raises. Launch counts: the
+    wrappers count the launches they record into the graph; those are taken
+    off again, and each replay adds them.
+    """
+
+    def __init__(self, model, cache: dict[str, torch.Tensor],
+                 tok: torch.Tensor):
+        device = tok.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                model(tok, mode="decode", cache=cache)
+        torch.cuda.current_stream(device).wait_stream(side)
+        for leaf in cache.values():
+            leaf.zero_()
+        before = kernels.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, _ = model(tok, mode="decode", cache=cache)
+        after = kernels.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        kernels.add_launch_counts(self.launches, -1)   # recorded, not run
+
+    def replay(self) -> torch.Tensor:
+        """One decode step; the logits (B,1,Vpad), overwritten by the next."""
+        self.graph.replay()
+        kernels.add_launch_counts(self.launches)
+        return self.logits
+
+
 @dataclasses.dataclass
 class _Active:
     req: Request
@@ -99,9 +147,13 @@ class Scheduler:
         self.results: dict[int, RequestResult] = {}
         self._next_rid = 0
         self._tok = np.zeros((self.spec.batch, 1), np.int64)
+        self._tok_dev = torch.zeros((self.spec.batch, 1), dtype=torch.long,
+                                    device=self.model.device)
         self._cache = self.model.empty_cache(self.spec.batch,
                                              self.spec.cache_len,
                                              vector_pos=True)
+        self._graph = (DecodeGraph(self.model, self._cache, self._tok_dev)
+                       if self.model.device.type == "cuda" else None)
         self.counts = {"decode_steps": 0, "prefills": 0, "prefill_tokens": 0,
                        "decode_tokens": 0}
 
@@ -143,10 +195,7 @@ class Scheduler:
                 self._admit()
             if not self.active:
                 return []
-        toks = torch.from_numpy(self._tok).to(self.model.device)
-        logits, self._cache = self.model(toks, mode="decode",
-                                         cache=self._cache)
-        nxt = self._next_token(logits)
+        nxt = self._next_token(self._decode())
         self.clock.advance("decode")
         self.counts["decode_steps"] += 1
         return self._harvest(nxt)
@@ -165,6 +214,16 @@ class Scheduler:
                 "queued": len(self.queue), "finished": len(self.results)}
 
     # -- internals ------------------------------------------------------
+    def _decode(self) -> torch.Tensor:
+        """One decode step over the whole batch (the cache updated in
+        place); the logits (B,1,Vpad)."""
+        self._tok_dev.copy_(torch.from_numpy(self._tok))
+        if self._graph is not None:
+            return self._graph.replay()
+        logits, _ = self.model(self._tok_dev, mode="decode",
+                               cache=self._cache)
+        return logits
+
     def _next_token(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy rule of the JAX engine: argmax of the last position,
         clamped below the padded-vocab ids; (B,1) int64 on the host."""

@@ -5,8 +5,11 @@ Marked ``gpu``: they skip where no CUDA device is visible and run with
 H100 and ``nvcc`` (the kernels build at first use). This file imports no
 JAX, so it runs where only PyTorch is installed. Tolerances: fp32 rmsnorm
 1e-5 in all three forms (the residual sum itself equal to the eager add),
-fp32 attention and decode stats 1e-4 (the kernels sum in another
-order); bf16 outputs 2e-2 (one bf16 ulp at 4 is 1.6e-2); the DMA allgather
+fp32 attention, decode scores and decode stats 1e-4 (the kernels sum in
+another order; decode stats' fp32 outputs 1e-4 for bf16 V too, the masked
+scores exactly NEG_INF, two calls bitwise equal); bf16 outputs 2e-2 (one
+bf16 ulp at 4 is 1.6e-2); the decode step's CUDA graph replay bitwise equal
+to the eager forward on a copy of the cache; the DMA allgather
 copies bytes and is held equal; the SSD scan (fp32 output whatever its
 input dtype, held against the plain version on the same inputs) max |y -
 y_ref| / max |y_ref| < 1e-4 and max |h - h_ref| / max |h_ref| < 1e-4, the chunk
@@ -173,6 +176,237 @@ def test_decode_stats_kernel_on_card(cuda, dtype, dims):
     ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
     torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+# (B, KV, G, D, L): the llama3.2-3b decode shape; every head count and head
+# dim the decode kernels take (G 1-8, D a multiple of 8 up to 256: 64, 120,
+# 128, 256 and 8); L = 1 and lengths that are no multiple of a tile
+DECODE_CASES = [(8, 8, 3, 128, 1024), (3, 2, 1, 64, 200), (2, 2, 4, 120, 75),
+                (2, 2, 5, 128, 130), (2, 1, 6, 128, 64), (2, 2, 8, 128, 97),
+                (2, 2, 2, 256, 300), (3, 2, 7, 8, 33), (2, 2, 3, 128, 1)]
+DECODE_MASKS = [{}, dict(window=48), dict(chunk=64), dict(cap=30.0),
+                dict(window=20, chunk=32, cap=20.0)]
+
+
+def _decode_tensors(case, dtype, device, seed=3):
+    B, KV, G, D, L = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=device)
+    return (rn(B, 1, KV * G, D).to(dtype), rn(B, L, KV, D).to(dtype),
+            rn(B, L, KV, D).to(dtype))
+
+
+def _edge_positions(B, L, device):
+    """Per-row positions on the edges of the kernels' pieces and splits
+    (0, 31/32, 63/64, 127/128) and the last slot, clipped to the cache."""
+    edges = [L - 1, 0, 31, 32, 63, 64, 127, 128]
+    return torch.tensor([min(L - 1, edges[i % len(edges)]) for i in range(B)],
+                        device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", DECODE_MASKS, ids=str)
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_scores_kernel_on_card(cuda, dtype, mask, case):
+    B, KV, G, D, L = case
+    q, k, _ = _decode_tensors(case, dtype, cuda)
+    for pos in (_edge_positions(B, L, cuda),
+                torch.tensor(L // 2, device=cuda)):      # one for every row
+        before = stats_ops.SCORES_LAUNCHES
+        s, m = stats_ops.decode_scores(q, k, pos, **mask)
+        torch.cuda.synchronize()
+        assert stats_ops.SCORES_LAUNCHES == before + 1
+        rs, rm = stats_ops.decode_scores_ref(q, k, pos, **mask)
+        masked = rs == tattention.NEG_INF
+        assert torch.equal(s == tattention.NEG_INF, masked)
+        _close(s, rs, dtype, 1e-4)
+        _close(m, rm, dtype, 1e-4)
+
+
+@pytest.mark.gpu
+def test_decode_scores_of_a_row_with_no_slot_kept(cuda):
+    # row 1 sits past the cache with a window that ends before it
+    q, k, _ = _decode_tensors((2, 2, 3, 64, 40), torch.bfloat16, cuda)
+    s, m = stats_ops.decode_scores(q, k, torch.tensor([7, 90], device=cuda),
+                                   window=16)
+    torch.cuda.synchronize()
+    assert torch.all(s[1] == tattention.NEG_INF)
+    assert torch.all(m[1] == tattention.NEG_INF)
+    rs, rm = stats_ops.decode_scores_ref(q, k, torch.tensor([7, 90],
+                                                            device=cuda),
+                                         window=16)
+    _close(s, rs, torch.bfloat16, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", DECODE_MASKS, ids=str)
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_stats_kernel_over_every_head_shape(cuda, dtype, mask, case):
+    B, KV, G, D, L = case
+    q, k, v = _decode_tensors(case, dtype, cuda)
+    pos = _edge_positions(B, L, cuda)
+    s, _ = stats_ops.decode_scores_ref(q.float(), k.float(), pos, **mask)
+    s[0, 0] = tattention.NEG_INF                 # one fully masked row
+    m = s.amax(-1)
+    ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+    # without and with the kept-slot hint (the position, window and chunk
+    # s was masked with: a kept interval that starts past slot 0 under a
+    # window or a chunk)
+    hint = dict(pos=pos, window=mask.get("window", 0),
+                chunk=mask.get("chunk", 0))
+    for hint in ({}, hint):
+        before = stats_ops.LAUNCHES
+        o, l = stats_ops.accumulate(s, m, v, **hint)
+        o2, l2 = stats_ops.accumulate(s, m, v, **hint)
+        torch.cuda.synchronize()
+        assert stats_ops.LAUNCHES == before + 2
+        assert torch.equal(o, o2) and torch.equal(l, l2)   # no atomic adds
+        torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+        assert float(o[0, 0, :G].abs().max()) == 0.0
+        assert float(l[0, 0, :G].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", DECODE_MASKS, ids=str)
+def test_decode_attention_on_card_equals_the_plain_composition(cuda, dtype,
+                                                               mask):
+    # the decode path's two kernels, then o / l and the cast, against the
+    # plain scores, row max, accumulation, o / l and cast on the same inputs
+    case = (4, 2, 3, 128, 300)
+    B, KV, G, D, L = case
+    q, k, v = _decode_tensors(case, dtype, cuda)
+    pos = torch.tensor([299, 150, 47, 200], device=cuda)
+    before = (stats_ops.SCORES_LAUNCHES, stats_ops.LAUNCHES)
+    out = tattention.decode_attention(q, k, v, pos, **mask)
+    torch.cuda.synchronize()
+    assert (stats_ops.SCORES_LAUNCHES, stats_ops.LAUNCHES) == (before[0] + 1,
+                                                               before[1] + 1)
+    s, m = stats_ops.decode_scores_ref(q, k, pos, **mask)
+    o, l = stats_ops.decode_stats_accumulate_ref(s, m, v)
+    ref = (o / l[..., None]).to(dtype)
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, ref, dtype, 1e-4)
+
+
+@pytest.mark.gpu
+def test_decode_kernels_refuse_what_they_do_not_take(cuda):
+    B, KV, G, D, L = 2, 2, 2, 64, 40
+    q, k, v = _decode_tensors((B, KV, G, D, L), torch.bfloat16, cuda)
+    pos = torch.tensor([5, 9], device=cuda)
+    s, m = stats_ops.decode_scores_ref(q, k, pos)
+    strided = torch.empty((B, KV, L, D), dtype=k.dtype,
+                          device=cuda).transpose(1, 2)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype,
+                          device=cuda)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="k of shape .* is not contiguous"):
+        stats_ops.decode_scores(q, strided, pos)
+    with pytest.raises(ValueError, match="k does not start on 16 bytes"):
+        stats_ops.decode_scores(q, shifted, pos)
+    with pytest.raises(ValueError, match="pos"):
+        stats_ops.decode_scores(q, k, pos.int())
+    with pytest.raises(TypeError, match="must match"):
+        stats_ops.decode_scores(q.float(), k, pos)
+    with pytest.raises(ValueError, match="G = 9"):
+        stats_ops.decode_scores(torch.zeros((B, 1, 9 * KV, D), dtype=q.dtype,
+                                            device=cuda), k, pos)
+    with pytest.raises(ValueError, match="D = 12"):
+        stats_ops.decode_scores(q[..., :12].contiguous(),
+                                k[..., :12].contiguous(), pos)
+    with pytest.raises(ValueError, match="v does not start on 16 bytes"):
+        stats_ops.accumulate(s, m, shifted)
+    with pytest.raises(ValueError, match="s of shape .* is not contiguous"):
+        stats_ops.accumulate(s.transpose(2, 3).contiguous().transpose(2, 3),
+                             m, v)
+    with pytest.raises(ValueError, match="G = 9"):
+        stats_ops.accumulate(torch.zeros((B, KV, 9, L), device=cuda),
+                             torch.zeros((B, KV, 9), device=cuda), v)
+
+
+# reduced-depth engines: (prompt length, new tokens, arrival step); the last
+# three arrive while earlier rows decode, into rows freed on the way
+GRAPH_REQUESTS = [(9, 6, 0.0), (14, 9, 0.0), (5, 4, 2.0), (11, 7, 4.0),
+                  (7, 5, 6.0)]
+
+
+def _small_engine(arch, device):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec, StepClock
+    cfg = dataclasses.replace(configs.get_smoke(arch), n_layers=2)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    eng = Engine(cfg, params, ServeSpec(batch=3, cache_len=64), device=device,
+                 clock=StepClock())
+    g = torch.Generator().manual_seed(1)
+    for n, m, t in GRAPH_REQUESTS:
+        eng.submit(Request(tokens=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=g).numpy(),
+                           max_new=m, arrival_s=t))
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+def test_decode_graph_replay_equals_the_eager_forward(cuda, arch):
+    eng = _small_engine(arch, cuda)
+    sched = eng.scheduler
+    assert sched._graph is not None
+    replay, steps = sched._decode, []
+
+    def checked():
+        cache = {name: t.clone() for name, t in sched._cache.items()}
+        tok = torch.from_numpy(sched._tok).to(cuda)
+        want, _ = eng.model(tok, mode="decode", cache=cache)
+        got = replay()
+        assert torch.equal(got, want), f"step {len(steps)}: logits differ"
+        assert torch.equal(got[:, -1].argmax(-1), want[:, -1].argmax(-1))
+        for name, t in cache.items():
+            assert torch.equal(sched._cache[name], t), name
+        steps.append(len(steps))
+        return got
+
+    sched._decode = checked
+    out = eng.drain()
+    assert len(steps) >= 8
+    assert [out[rid].n_tokens for rid in sorted(out)] == [
+        m for _, m, _ in GRAPH_REQUESTS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+def test_launch_counts_follow_the_graph_replays(cuda, arch):
+    from repro_torch import kernels
+    eng = _small_engine(arch, cuda)
+    plan = eng.cfg.layer_plan()
+    attn = sum(s.mixer == "attn" for s in plan)
+    mamba = sum(s.mixer == "mamba2" for s in plan)
+    per_step = {"rmsnorm": 2 * len(plan) + 1, "rmsnorm.plain": len(plan) + 1,
+                "rmsnorm.residual": attn, "rmsnorm.gated": mamba,
+                "decode_scores": attn, "decode_stats": attn}
+    assert eng.scheduler._graph.launches == {k: n for k, n in per_step.items()
+                                             if n}
+    before, st0 = kernels.launch_counts(), eng.stats()
+    eng.drain()
+    torch.cuda.synchronize()
+    after, st = kernels.launch_counts(), eng.stats()
+    steps = st["decode_steps"] - st0["decode_steps"]
+    prefills = st["prefills"] - st0["prefills"]
+    assert steps >= 8 and prefills == len(GRAPH_REQUESTS)
+    fwd = {"rmsnorm": 2 * len(plan) + 1, "rmsnorm.plain": len(plan) + 1,
+           "rmsnorm.residual": attn, "rmsnorm.gated": mamba}
+    want = {k: n * (steps + prefills) for k, n in fwd.items()}
+    want.update(decode_scores=attn * steps, decode_stats=attn * steps,
+                flash_attention=attn * prefills, ssd=mamba * prefills,
+                dma_allgather=0)
+    assert {k: after[k] - before[k] for k in after} == want
 
 
 # (q, pl, shard, dtype): every vector width of the copy (16, 8, 4, 2 and 1
