@@ -37,7 +37,13 @@ the package is missing. Phases, each fatal on failure:
    K and V rows and the accumulation's scores of kept slots (masked scores held exactly NEG_INF, a fully
    masked row 0, two calls bitwise equal), and the decode-attention pair
    (scores, accumulate, o / l) beside one SDPA call on the same inputs
-   with the position mask (the library yardstick, timed here only);
+   with the position mask (the library yardstick, timed here only); both
+   decode kernels on each of the 4 shards of a 32,768-slot llama3.2-3b
+   cache (B = 1, 8,192 slots a shard, bf16) at positions 3,000, 11,000 and
+   20,000, so that a shard keeps all its slots, part of them or none,
+   with no mask, a window and a chunk, against their plain versions (a
+   shard with no slot kept exactly m = NEG_INF, o = 0, l = 0; the unmasked
+   cases timed with their bounds);
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -74,10 +80,32 @@ the package is missing. Phases, each fatal on failure:
 5. the same for mamba2-780m at full width (48 layers, d_model 1536, 48 SSD
    heads of P = 64, N = 128, vocab 50280): rmsnorm 97 per forward (49
    plain, 48 gated: the mixer's gate fused into its norm), ssd 48
-   per prefill, flash and the decode kernels 0.
+   per prefill, flash and the decode kernels 0;
+6. sequence-parallel serving, ``serve_seq_parallel``: 6 spawned ranks on
+   this one card, joined in one gloo group (``launch.serve.run_ranks``).
+   First a reduced llama3.2-3b (2 layers, fp32, full width, a 6,144-slot
+   cache) on 2 x 2 and 3 x 2 ranks, in the three layouts below: its
+   greedy tokens must equal the one-rank engine's exactly. Then llama3.2-3b at
+   full width (bf16, random weights from seed 0) with
+   ``ServeSpec(batch=1, cache_len=32768)`` on 2 x 2 of the ranks, three
+   requests of 3,000, 11,000 and 20,000 prompt tokens and 32 new tokens,
+   submitted together and served one at a time, in three layouts:
+   "locality" and "xla" over ("pod", "data") (8,192 slots a rank) and
+   "locality" over ("data",) (16,384). Every rank prefills the whole
+   prompt and keeps its slots; each decode step runs eagerly, 28 combines.
+   Against a one-rank engine (combine "none") on the same prompts: the
+   prefill logits (expected bitwise equal) and each request's first
+   decode logits within 5% of the largest |logit| (the bf16 reasoning at
+   ``SEQ_LOGIT_REL``), every rank's tokens equal, the share of greedy
+   tokens equal to the one-rank engine's, each rank's launches exactly
+   what the path implies (decode scores and stats 28 each per step);
+   prefill and decode-step host ms, the combine's host and exchange ms, the
+   per-step non-local messages and bytes and staged bytes of each rank,
+   and each process's peak memory. Times are of 4 ranks sharing one H100.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phase 4, phase 5) and read just after it.
+(the DMA gather, phase 4, phase 5, each engine of phase 6 in its own
+process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -253,7 +281,98 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
         for name, rows in decode_cases(timer, g, dtype, tol).items():
             cases[name] += rows
     cases["decode_attention"] = [decode_pair(timer, g)]
+    cases["decode_offset"] = decode_offset_cases(timer, g)
     return cases
+
+
+# the decode kernels on one rank's shard of a sequence-parallel cache: a
+# 32,768-slot llama3.2-3b cache (B = 1, KV = 8, G = 3, D = 128, bf16) over
+# 4 shards of 8,192, at the phase 6 prompts' positions, so that a shard
+# keeps all its slots, part of them or none; with no mask, a window and a
+# chunk that the shards' offsets do not divide
+OFFSET_TOTAL, OFFSET_SHARDS = 32768, 4
+OFFSET_POSITIONS = (3000, 11000, 20000)
+OFFSET_MASKS = ({}, dict(window=4096), dict(chunk=6000))
+
+
+def decode_offset_cases(timer, g) -> list[dict]:
+    """Both decode kernels at every shard's slot offset against their plain
+    versions (the scores' masked slots exactly NEG_INF, a shard with no
+    kept slot m = NEG_INF, o = 0 and l = 0 exactly); the unmasked cases
+    timed beside their plain versions, with their bounds (the kept slots'
+    K and V rows and scores only, as in ``decode_cases``)."""
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF
+    KV, (G, D) = DECODE_KV, DECODE_SHAPES[0]
+    L = OFFSET_TOTAL // OFFSET_SHARDS
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dt = torch.bfloat16
+    q = rn(1, 1, KV * G, D).to(dt)
+    k, v = rn(1, OFFSET_TOTAL, KV, D).to(dt), rn(1, OFFSET_TOTAL, KV, D).to(dt)
+    rows = []
+    for p_ in OFFSET_POSITIONS:
+        pos = torch.tensor(p_, device="cuda")
+        for mask in OFFSET_MASKS:
+            hint = dict(window=mask.get("window", 0),
+                        chunk=mask.get("chunk", 0))
+            for shard in range(OFFSET_SHARDS):
+                off = shard * L
+                ks, vs = k[:, off:off + L], v[:, off:off + L]    # views
+                kw = dict(slot_offset=off, **mask)
+                s, m = stats_ops.decode_scores(q, ks, pos, **kw)
+                rs, rm = stats_ops.decode_scores_ref(q, ks, pos, **kw)
+                what = f"decode at offset {off} pos {p_} {mask}"
+                check(torch.equal(s == NEG_INF, rs == NEG_INF),
+                      f"{what}: masked slots differ")
+                err = max(close(s, rs, 2e-2, what + " s"),
+                          close(m, rm, 2e-2, what + " m"))
+                o, l = stats_ops.accumulate(s, m, vs, pos=pos,
+                                            slot_offset=off, **hint)
+                ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, vs)
+                err_o = max(close(o, ro, 2e-2, what + " o"),
+                            close(l, rl, 2e-2, what + " l"))
+                kept = int((rs[0, 0, 0] > NEG_INF).sum())
+                state = ("none" if kept == 0 else
+                         "all" if kept == L else "part")
+                if kept == 0:
+                    check(bool((m == NEG_INF).all())
+                          and float(o.abs().max()) == 0.0
+                          and float(l.abs().max()) == 0.0,
+                          f"{what}: a shard with no slot kept is not "
+                          "(NEG_INF, 0, 0)")
+                row = dict(shape=[1, KV, G, L, D], dtype=str(dt),
+                           slot_offset=off, position=p_, mask=mask,
+                           kept_slots=kept, state=state,
+                           max_abs_err_scores=err, max_abs_err_stats=err_o,
+                           tolerance=2e-2)
+                if not mask:
+                    es = q.element_size()
+                    sb, sby = bound(q.numel() * es + kept * KV * D * es
+                                    + (s.numel() + m.numel()) * 4,
+                                    2 * kept * KV * G * D, dt)
+                    ab, aby = bound(kept * KV * (G * 4 + D * es)
+                                    + (m.numel() + o.numel() + l.numel()) * 4,
+                                    2 * kept * KV * G * D, dt)
+                    row.update(
+                        scores_ms=timer(lambda: stats_ops.decode_scores(
+                            q, ks, pos, **kw)),
+                        scores_plain_ms=timer(
+                            lambda: stats_ops.decode_scores_ref(q, ks, pos,
+                                                                **kw)),
+                        scores_bound_ms=sb, scores_bound_by=sby,
+                        stats_ms=timer(lambda: stats_ops.accumulate(
+                            s, m, vs, pos=pos, slot_offset=off)),
+                        stats_plain_ms=timer(
+                            lambda: stats_ops.decode_stats_accumulate_ref(
+                                s, m, vs)),
+                        stats_bound_ms=ab, stats_bound_by=aby)
+                rows.append(row)
+    states = {r["state"] for r in rows}
+    check(states == {"all", "part", "none"},
+          f"decode offset cases: shard states {states}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
 
 
 # decode attention at llama3.2-3b's decode shape (B = 8 rows, KV = 8, G = 3,
@@ -864,6 +983,246 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
     eng.drain()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: sequence-parallel serving over gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+SEQ_CACHE, SEQ_NEW = 32768, 32
+SEQ_PROMPTS = (3000, 11000, 20000)
+SEQ_LAYOUTS = (("pod_locality", dict(combine="locality")),
+               ("pod_xla", dict(combine="xla")),
+               ("data_locality", dict(combine="locality",
+                                      seq_axes=("data",))))
+# the reduced run: 2 layers in fp32; a cache that divides over 4 and 6
+# ranks, and prompts at the same shares of it as SEQ_PROMPTS of SEQ_CACHE
+SEQ_REDUCED_CACHE = 6144
+SEQ_REDUCED_PROMPTS = (562, 2062, 3750)
+SEQ_GRIDS = ((2, 2), (3, 2))
+# first-decode logits against the one-rank engine, bf16: the combine sums
+# the shards' fp32 partial o and l in another order and rescales them on
+# the host, so a layer's bf16 attention output may round one ulp (2^-8 of
+# it) the other way in a few elements, and 28 layers carry that on; held
+# within 5% of the largest |logit| (about 13 bf16 ulps of it)
+SEQ_LOGIT_REL = 5e-2
+
+
+def seq_requests(vocab: int, lens) -> list[tuple[np.ndarray, int]]:
+    rng = np.random.default_rng(5)
+    return [(rng.integers(0, vocab, n), SEQ_NEW) for n in lens]
+
+
+def seq_serve(cfg, params, spec, requests, grid=None) -> dict:
+    """Serve ``requests`` ((prompt, max_new)), submitted together, through
+    an Engine on the card (on ``grid``, or one rank); per request the
+    tokens, the logits of its prefill and of its first decode step (fp32,
+    host), the prefill's host ms; every decode step's host ms; the
+    launches per kernel, counted from 0 around the drain; the stats."""
+    from repro_torch import kernels
+    from repro_torch.serve import Engine, Request, StepClock
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, spec, grid=grid, clock=StepClock())
+    forward, decode = eng.model.forward, eng.scheduler._decode
+    rec = {"prefill_ms": [], "decode_ms": [], "prefill_logits": [],
+           "decode_logits": []}
+
+    def timed_forward(tokens, mode="prefill", **kw):
+        if mode != "prefill":
+            return forward(tokens, mode=mode, **kw)
+        t = time.perf_counter()
+        logits, cache = forward(tokens, mode=mode, **kw)
+        check(bool(torch.isfinite(logits).all()), "non-finite prefill")
+        rec["prefill_ms"].append((time.perf_counter() - t) * 1e3)
+        rec["prefill_logits"].append(logits[0, -1].float().cpu())
+        return logits, cache
+
+    def timed_decode():
+        t = time.perf_counter()
+        logits = decode()
+        check(bool(torch.isfinite(logits).all()), "non-finite decode")
+        rec["decode_ms"].append((time.perf_counter() - t) * 1e3)
+        if len(rec["decode_logits"]) < len(rec["prefill_logits"]):
+            rec["decode_logits"].append(logits[0, -1].float().cpu())
+        return logits
+
+    eng.model.forward, eng.scheduler._decode = timed_forward, timed_decode
+    kernels.add_launch_counts(kernels.launch_counts(), -1)    # all to 0
+    rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in requests]
+    results = eng.drain()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    st = eng.stats()
+    want = launches_implied(cfg, st)
+    got = {name: counts[name] for name in PATH_KERNELS}
+    check(got == want, f"seq serve: launches {got}, the path implies {want}")
+    forms = {f: counts[f"rmsnorm.{f}"] for f in ("plain", "residual", "gated")}
+    want = rmsnorm_forms_implied(cfg, st)
+    check(forms == want, f"seq serve: rmsnorm forms {forms}, the path "
+                         f"implies {want}")
+    check(len(rec["decode_logits"]) == len(requests),
+          "seq serve: a request without a decode step")
+    out = dict(rec, tokens=[results[r].tokens.tolist() for r in rids],
+               stats=st, launches=got, rmsnorm_forms=forms,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               cache_len=eng.cache_len, cache_offset=eng.cache_offset,
+               combine=dataclasses.asdict(eng.combine))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 6 (every rank shares the one card): the reduced
+    fp32 run on 2 x 2 (ranks 0-3) and 3 x 2, then llama3.2-3b at full
+    width in the three layouts on 2 x 2; ranks outside a grid wait at the
+    barrier that follows each run. Logits come back from rank 0 only."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = {shape: RankGrid.build(*shape) for shape in SEQ_GRIDS}
+    out = {"rank": rank, "reduced": {}, "full": {}}
+    full = configs.get("llama3.2-3b")
+    cfg = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    for shape, grid in grids.items():
+        for name, kw in SEQ_LAYOUTS:
+            if grid is not None:
+                res = seq_serve(cfg, params, ServeSpec(
+                    batch=1, cache_len=SEQ_REDUCED_CACHE, **kw),
+                    plan["reduced"], grid)
+                out["reduced"][f"{shape[0]}x{shape[1]}|{name}"] = {
+                    k: res[k] for k in ("tokens", "combine", "cache_len")}
+            dist.barrier()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = grids[(2, 2)]
+    params = None if grid is None else init_params(
+        full, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for name, kw in SEQ_LAYOUTS:
+        if grid is not None:
+            res = seq_serve(full, params, ServeSpec(
+                batch=1, cache_len=SEQ_CACHE, **kw), plan["full"], grid)
+            if rank:
+                res.pop("prefill_logits")
+                res.pop("decode_logits")
+            out["full"][name] = res
+        dist.barrier()
+    return out
+
+
+def serve_seq_parallel(smi: str) -> dict[str, int]:
+    """Phase 6: the one-rank references in this process, then 6 spawned
+    ranks (``seq_rank``); checks and prints each layout; returns the
+    launches per kernel of the full-width runs, summed over the ranks."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+
+    full = configs.get("llama3.2-3b")
+    reduced = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    plan = {"reduced": seq_requests(full.vocab_size, SEQ_REDUCED_PROMPTS),
+            "full": seq_requests(full.vocab_size, SEQ_PROMPTS)}
+    refs = {}
+    for key, cfg, cache_len in (("reduced", reduced, SEQ_REDUCED_CACHE),
+                                ("full", full, SEQ_CACHE)):
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        refs[key] = seq_serve(cfg, params, ServeSpec(batch=1,
+                                                     cache_len=cache_len),
+                              plan[key])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = refs["full"]
+    t0 = time.perf_counter()
+    ranks = run_ranks(6, seq_rank, plan, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+
+    want = refs["reduced"]["tokens"]
+    for key in [f"{q}x{pl}|{name}" for q, pl in SEQ_GRIDS
+                for name, _ in SEQ_LAYOUTS]:
+        q, pl = map(int, key.split("|")[0].split("x"))
+        for r in range(q * pl):
+            got = ranks[r]["reduced"][key]["tokens"]
+            check(got == want, f"reduced fp32 {key} rank {r}: tokens {got} "
+                               f"!= one rank's {want}")
+    print(json.dumps({
+        "phase": "serve_seq_parallel_reduced", "model": reduced.name,
+        "layers": 2, "dtype": "float32", "cache_len": SEQ_REDUCED_CACHE,
+        "prompts": list(SEQ_REDUCED_PROMPTS), "new_tokens": SEQ_NEW,
+        "grids": ["2x2", "3x2"], "layouts": [n for n, _ in SEQ_LAYOUTS],
+        "tokens_equal_to_one_rank": True}))
+
+    total = {name: 0 for name in PATH_KERNELS}
+    for name, _ in SEQ_LAYOUTS:
+        res = [ranks[r]["full"][name] for r in range(4)]
+        for r in range(1, 4):
+            check(res[r]["tokens"] == res[0]["tokens"],
+                  f"{name}: rank {r}'s tokens differ from rank 0's")
+        r0 = res[0]
+        d_pre = [err_of(a, b) for a, b in zip(r0["prefill_logits"],
+                                               ref["prefill_logits"])]
+        d_dec = [err_of(a, b) for a, b in zip(r0["decode_logits"],
+                                               ref["decode_logits"])]
+        scale = max(float(t.abs().max()) for t in ref["decode_logits"])
+        check(max(d_pre + d_dec) <= SEQ_LOGIT_REL * scale,
+              f"{name}: logits differ from the one-rank engine's by "
+              f"{max(d_pre + d_dec)} (limit {SEQ_LOGIT_REL * scale})")
+        same = sum(a == b for ta, tb in zip(r0["tokens"], ref["tokens"])
+                   for a, b in zip(ta, tb))
+        steps = r0["stats"]["decode_steps"]
+        per_step = {k: [x["launches"][k] / steps for x in res]
+                    for k in ("decode_scores", "decode_stats")}
+        for x in res:
+            for k, n in x["launches"].items():
+                total[k] += n
+        print(json.dumps({
+            "phase": "serve_seq_parallel", "layout": name,
+            "shared": "4 ranks sharing one H100 over gloo",
+            "model": full.name, "layers": full.n_layers, "dtype": "bfloat16",
+            "cache_len": SEQ_CACHE, "slots_per_rank": r0["cache_len"],
+            "combine": r0["combine"], "prompts": list(SEQ_PROMPTS),
+            "new_tokens": SEQ_NEW, "decode_steps": steps,
+            "prefill_ms": {f"rank{r}": x["prefill_ms"]
+                           for r, x in enumerate(res)},
+            "prefill_ms_one_rank": ref["prefill_ms"],
+            "decode_step_ms_mean": float(np.mean(r0["decode_ms"])),
+            "decode_step_ms_mean_by_rank": [float(np.mean(x["decode_ms"]))
+                                            for x in res],
+            "decode_step_ms_mean_one_rank": float(np.mean(ref["decode_ms"])),
+            "combine_host_ms_per_step": [x["stats"]["combine_host_s"]
+                                         / steps * 1e3 for x in res],
+            "combine_exchange_ms_per_step": [
+                x["stats"]["combine_exchange_s"] / steps * 1e3 for x in res],
+            "nonlocal_msgs_per_step": [x["stats"]["nonlocal_msgs"] / steps
+                                       for x in res],
+            "nonlocal_bytes_per_step": [x["stats"]["nonlocal_bytes"] / steps
+                                        for x in res],
+            "combine_bytes_per_step": [x["stats"]["combine_bytes"] / steps
+                                       for x in res],
+            "staging_bytes_per_step": [x["stats"]["staging_bytes"] / steps
+                                       for x in res],
+            "decode_kernel_launches_per_step": per_step,
+            "launches_rank0": r0["launches"],
+            "prefill_tokens_per_rank": r0["stats"]["prefill_tokens"],
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "peak_bytes_one_rank": ref["peak_bytes"],
+            "max_abs_dlogit_prefill": d_pre,
+            "prefill_bitwise_equal": all(d == 0 for d in d_pre),
+            "max_abs_dlogit_first_decode": d_dec,
+            "logit_tolerance": SEQ_LOGIT_REL * scale,
+            "greedy_equal_share": same / sum(map(len, ref["tokens"])),
+            "ranks_wall_s": ranks_s, "card": smi}))
+    return total
+
+
 def ptxas_usage(log: str) -> list[dict]:
     """Registers and spill bytes of every kernel instance in ``build.log``
     (``-Xptxas -v``), names demangled where ``c++filt`` is found."""
@@ -928,6 +1287,7 @@ def main() -> int:
         for row in rows:
             print(json.dumps({"kernel": name, **row}))
     pair = cases.pop("decode_attention")[0]
+    offset_rows = cases.pop("decode_offset")
     from repro_torch import configs
     dma = dma_cases_of(configs.get("llama3.2-3b"))
     cases["dma_allgather"] = dma_allgather_cases(timer, dma)
@@ -944,6 +1304,7 @@ def main() -> int:
         by_path[phase] = serve_full_width(smi, arch, phase)
         gc.collect()
         torch.cuda.empty_cache()
+    by_path["serve_seq_parallel"] = serve_seq_parallel(smi)
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -985,6 +1346,16 @@ def main() -> int:
         if row["name"].startswith("decode_s"):
             row["decode_attention_pair"] = {
                 k: pair[k] for k in ("ms", "library_ms", "bound_ms")}
+            key = row["name"].split("_")[1]        # scores | stats
+            timed = [r for r in offset_rows if f"{key}_ms" in r]
+            row["slot_offset_cases"] = {
+                "cases": len(offset_rows),
+                "max_abs_err": max(r[f"max_abs_err_{key}"]
+                                   for r in offset_rows),
+                "ms": [r[f"{key}_ms"] for r in timed],
+                "plain_ms": [r[f"{key}_plain_ms"] for r in timed],
+                "bound_ms": [r[f"{key}_bound_ms"] for r in timed],
+                "states": [r["state"] for r in timed]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,11 @@ Public surface, one family function per collective kind, each taking
                      allreduce (``rhd``, ``rd`` or ``psum``) → local
                      allgather; sum, max and min; or ``xla``.
   cache_migrate      the replication of a KV-cache slab (an allgather).
+  logsumexp_combine  the decode cache-combine of flash-style partial softmax
+                     stats: max-allreduce of the running maxima, rescale,
+                     one packed [o, l] sum-allreduce; split into
+                     ``logsumexp_combine_start`` / ``_finish`` so the
+                     accumulation of o and l can run between the halves.
 
 ``allgather`` is differentiable for the Bruck schedules: its backward is
 the reduce-scatter. ``allgather_start`` / ``allgather_finish`` split the
@@ -48,9 +53,9 @@ bit-identical to the eager gather. ``collective(kind, x, grid=...,
 algorithm=...)`` is the string-keyed entry point over ``KINDS`` /
 ``ALGORITHMS_BY_KIND`` / ``DEFAULT_ALGORITHM``.
 
-Not ported in this slice, each raising ``NotImplementedError`` that names
-its slice: the ``all_to_all`` and ``combine`` kinds and
-``algorithm="auto"``. The JAX package's deprecated aliases are not ported.
+Not ported yet, each raising ``NotImplementedError`` that names its slice:
+the ``all_to_all`` kind and ``algorithm="auto"``. The JAX package's
+deprecated aliases are not ported.
 """
 from __future__ import annotations
 
@@ -67,8 +72,6 @@ from .topology import Axis, RankGrid
 _NOT_PORTED = {
     "all_to_all": "the all_to_all kind (locality_all_to_all) comes with the "
                   "MoE slice (ROADMAP.md Queue 1 item 6)",
-    "combine": "the combine kind (logsumexp_combine) comes with the "
-               "multi-rank serving slice (ROADMAP.md Queue 1 item 3)",
     "auto": 'algorithm="auto" comes with the tuning slice (ROADMAP.md Queue 1 '
             "item 8): it needs parameters measured on the H100, and the "
             "JAX package's TPU constants do not choose a schedule here",
@@ -494,8 +497,9 @@ def _canonical(buf: torch.Tensor, grid: RankGrid, tiled: bool,
 class _SplitMeta:
     """Static half of a PendingCollective."""
 
-    op: str                        # "allgather" | "allreduce"
+    op: str                        # "allgather" | "allreduce" | "logsumexp"
     kind: str                      # "done" | "local_done" | "pending"
+                                   # | "max_done"
     grid: RankGrid | None = None
     tiled: bool = False
     x_shape: tuple[int, ...] = ()
@@ -504,6 +508,7 @@ class _SplitMeta:
     rem: int = 0                   # chunks the last active lane carried in
                                    # the final round (rem < group on the
                                    # allgatherv wrapped round)
+    algorithm: str = ""            # logsumexp: the max phase's algorithm
 
 
 @dataclasses.dataclass
@@ -870,6 +875,68 @@ def allreduce_finish(pending: PendingCollective) -> torch.Tensor:
 
 
 # =============================================================================
+# Logsumexp combine — the serve decode cache-combine (serve/engine.py)
+# =============================================================================
+def logsumexp_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                      grid: RankGrid, *, algorithm: str = "locality",
+                      outer_algorithm: str = "rhd"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Numerically safe combine of flash-style partial softmax stats.
+
+    Each rank holds, for its slice of the attention (reduction) axis,
+    o (..., D) = sum_j exp(s_j - m) v_j, m (...) its running maximum and
+    l (...) = sum_j exp(s_j - m). Three steps over the grid:
+
+      1. max-allreduce of ``m`` -> the global maximum M (recursive doubling
+         per locality level; the payload is 1/(D+1) of the bytes);
+      2. this rank's rescale of o and l by exp(m - M): a rank whose slice
+         is fully masked carries m = NEG_INF, o = l = 0, and adds 0;
+      3. one packed sum-allreduce of [o, l] ("locality": the paper-structured
+         local reduce-scatter, outer allreduce, local allgather; "xla": the
+         library's allreduce).
+
+    Returns (o_total, l_total) in fp32; the caller divides o by l. Composed
+    of the split halves, so the eager and the overlapped serve paths cannot
+    drift."""
+    pending = logsumexp_combine_start(m, grid, algorithm=algorithm)
+    return logsumexp_combine_finish(o, l, pending, algorithm=algorithm,
+                                    outer_algorithm=outer_algorithm)
+
+
+def logsumexp_combine_start(m: torch.Tensor, grid: RankGrid, *,
+                            algorithm: str = "locality") -> PendingCollective:
+    """Phase 1 of the decode cache-combine: the max-allreduce of the running
+    maxima (``outer_algorithm="rd"``, ``op="max"``). It needs only ``m``:
+    the accumulation of o and l can run beside it."""
+    m = m.float()
+    M = allreduce(m, grid, algorithm=algorithm, outer_algorithm="rd",
+                  op="max")
+    return PendingCollective((m, M), _SplitMeta("logsumexp", "max_done", grid,
+                                                algorithm=algorithm))
+
+
+def logsumexp_combine_finish(o: torch.Tensor, l: torch.Tensor,
+                             pending: PendingCollective, *,
+                             algorithm: str | None = None,
+                             outer_algorithm: str = "rhd"
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phases 2 and 3: rescale by exp(m - M), one packed [o, l]
+    sum-allreduce. ``algorithm`` defaults to the start's."""
+    meta = pending.meta
+    if meta.op != "logsumexp":
+        raise ValueError(f"not a pending logsumexp combine: {meta}")
+    m, M = pending.arrays
+    scale = torch.exp(m - M)
+    o32 = o.float() * scale[..., None]
+    l32 = l.float() * scale
+    payload = torch.cat([o32.reshape(-1), l32.reshape(-1)])
+    tot = allreduce(payload, meta.grid, algorithm=algorithm or meta.algorithm,
+                    outer_algorithm=outer_algorithm, op="sum")
+    n_o = o32.numel()
+    return tot[:n_o].reshape(o32.shape), tot[n_o:].reshape(l32.shape)
+
+
+# =============================================================================
 # Unified collective surface — one entry point, one vocabulary
 # =============================================================================
 #: Canonical collective kinds, as in the JAX package ("combine" is the
@@ -912,7 +979,9 @@ def collective(kind: str, *operands: torch.Tensor, grid: RankGrid,
 
     ``collective(kind, x, grid=grid, algorithm=...)`` runs the named family
     eagerly; ``start=True`` returns a :class:`PendingCollective` to complete
-    with :func:`finish`. Remaining ``kwargs`` (``tiled``, ``op``,
+    with :func:`finish`. Operands: one tensor for every kind but "combine",
+    which takes ``(o, m, l)`` eagerly and ``(m,)`` at start (o and l go to
+    :func:`finish`). Remaining ``kwargs`` (``tiled``, ``op``,
     ``outer_algorithm``) pass through to the family function."""
     kind = _norm_kind(kind)
     if algorithm is None:
@@ -921,8 +990,15 @@ def collective(kind: str, *operands: torch.Tensor, grid: RankGrid,
         raise ValueError(
             f"unknown algorithm {algorithm!r} for kind {kind!r}; known: "
             f"{ALGORITHMS_BY_KIND[kind]}")
-    if kind in ("all_to_all", "combine"):
+    if kind == "all_to_all":
         _not_ported(kind)
+    if kind == "combine":
+        if start:
+            (m,) = operands
+            return logsumexp_combine_start(m, grid, algorithm=algorithm,
+                                           **kwargs)
+        o, m, l = operands
+        return logsumexp_combine(o, m, l, grid, algorithm=algorithm, **kwargs)
     (x,) = operands
     if kind == "reduce_scatter":
         if start:
@@ -942,9 +1018,13 @@ def collective(kind: str, *operands: torch.Tensor, grid: RankGrid,
     return eager(x, grid, algorithm=algorithm, **kwargs)
 
 
-def finish(pending: PendingCollective, *operands: torch.Tensor):
-    """Complete any ``collective(..., start=True)``."""
-    if operands:
+def finish(pending: PendingCollective, *operands: torch.Tensor, **kwargs):
+    """Complete any ``collective(..., start=True)``. The "combine" kind
+    takes its deferred ``(o, l)`` here; every other kind takes none."""
+    if pending.meta.op == "logsumexp":
+        o, l = operands
+        return logsumexp_combine_finish(o, l, pending, **kwargs)
+    if operands or kwargs:
         raise ValueError(f"{pending.meta.op} takes no operands at finish")
     return {"allgather": allgather_finish,
             "allreduce": allreduce_finish}[pending.meta.op](pending)
@@ -971,5 +1051,5 @@ class Collective:
         return self(*operands, start=True, **kwargs)
 
     @staticmethod
-    def finish(pending: PendingCollective, *operands):
-        return finish(pending, *operands)
+    def finish(pending: PendingCollective, *operands, **kwargs):
+        return finish(pending, *operands, **kwargs)

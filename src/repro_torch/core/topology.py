@@ -86,12 +86,14 @@ class Axis:
 
     ``members`` are grid ranks in axis order (``lax.axis_index`` order) and
     ``index`` is this rank's position among them; ``group`` is the process
-    group over the members, for the group collectives."""
+    group over the members, for the group collectives (None for the
+    one-member lane axis of :meth:`RankGrid.pod_grid`, over which nothing
+    is sent)."""
 
     name: str                      # "world", "local" (pod) or "outer" (lane)
     members: tuple[int, ...]
     index: int
-    group: dist.ProcessGroup
+    group: dist.ProcessGroup | None
 
     @property
     def size(self) -> int:
@@ -164,6 +166,19 @@ class RankGrid:
         if grid.backend == "nccl" and p > 1:
             grid._first_batch()
         return grid
+
+    def pod_grid(self) -> RankGrid:
+        """This rank's pod as a grid of its own, 1 pod x pl lanes, over the
+        pod's process group: no group is made, so a rank may build it
+        alone. It has a recorder of its own; every edge is local."""
+        pl, l = self.pl, self.l
+        members = tuple(range(pl))
+        group = self.local.group
+        return RankGrid(1, pl, tuple(self.ranks[self.R * pl + j]
+                                     for j in range(pl)), l,
+                        Axis("world", members, l, group),
+                        Axis("local", members, l, group),
+                        Axis("outer", (l,), 0, None))
 
     def _first_batch(self) -> None:
         """NCCL needs every rank of a group in the group's first

@@ -40,16 +40,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The slots [lo, hi] that one-token decode at position p keeps in an
-// L-slot cache: j <= p, inside the window (p - j < window) and the chunk of
-// p (j / chunk == p / chunk) where those are set; empty when hi < lo.
-__device__ __forceinline__ void kept_interval(long long p, int L, int window,
-                                              int chunk, long long* lo,
-                                              long long* hi) {
+// The local slots [lo, hi] that one-token decode at position p keeps in an
+// L-slot cache shard holding the global slots [off, off + L): global slot
+// off + j is kept when off + j <= p, inside the window (p - (off + j) <
+// window) and the chunk of p ((off + j) / chunk == p / chunk) where those
+// are set; empty when hi < lo. The chunk's start comes from the global p,
+// so the offset is not folded into the position.
+__device__ __forceinline__ void kept_interval(long long p, long long off,
+                                              int L, int window, int chunk,
+                                              long long* lo, long long* hi) {
   *lo = 0;
-  *hi = p < L - 1 ? p : static_cast<long long>(L) - 1;
-  if (window > 0 && p - window + 1 > *lo) *lo = p - window + 1;
-  if (chunk > 0 && (p / chunk) * chunk > *lo) *lo = (p / chunk) * chunk;
+  *hi = p - off < L - 1 ? p - off : static_cast<long long>(L) - 1;
+  if (window > 0 && p - window + 1 - off > *lo) *lo = p - window + 1 - off;
+  if (chunk > 0 && (p / chunk) * chunk - off > *lo)
+    *lo = (p / chunk) * chunk - off;
 }
 
 // 16 bytes of T unpacked to fp32: 4 floats or 8 bf16 values

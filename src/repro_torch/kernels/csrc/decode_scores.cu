@@ -5,8 +5,9 @@
 // the serve engine takes right after it. From q (B,1,H,D), the key cache
 // k (B,L,KV,D) read in place, H = KV*G, and a position per row:
 //   x = round_T(q . k[j]) * D^-0.5, then cap*tanh(x/cap) when cap > 0,
-//   s[b,kv,g,j] = x for the slots the mask keeps (j <= pos, inside the
-//   window and the chunk of pos) and NEG_INF for the others;
+//   s[b,kv,g,j] = x for the slots the mask keeps (global slot off + j <=
+//   pos, inside the window and the chunk of pos, the cache a shard holding
+//   the global slots [off, off + L)) and NEG_INF for the others;
 //   m[b,kv,g] = max_j s[b,kv,g,j].
 // The dot is summed in fp32 and rounded to the cache dtype T before the
 // scale, where the reference rounds (its einsum is in T, then cast to fp32).
@@ -58,7 +59,8 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const long long* __restrict__ pos, int pos_stride,
-                     float* __restrict__ s, float* __restrict__ m,
+                     long long slot_offset, float* __restrict__ s,
+                     float* __restrict__ m,
                      int KV, int L, int D, float scale, int window, int chunk,
                      float cap) {
   constexpr int V = 16 / sizeof(T);     // values per 16-byte vector
@@ -82,7 +84,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the interval [lo, hi] of slots the mask keeps
   long long lo, hi;
-  repro::kept_interval(p, L, window, chunk, &lo, &hi);
+  repro::kept_interval(p, slot_offset, L, window, chunk, &lo, &hi);
   const int n = hi >= lo ? static_cast<int>(hi - lo + 1) : 0;
 
   // sweep: cut1
@@ -172,6 +174,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *pos;
   int pos_stride;
+  long long slot_offset;
   void *s, *m;
   int B, KV, L, D, nsplit;
   float scale;
@@ -195,7 +198,8 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaLaunchKernelEx(
       &cfg, decode_scores_kernel<T, G>, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k), static_cast<const long long*>(a.pos),
-      a.pos_stride, static_cast<float*>(a.s), static_cast<float*>(a.m), a.KV,
+      a.pos_stride, a.slot_offset, static_cast<float*>(a.s),
+      static_cast<float*>(a.m), a.KV,
       a.L, a.D, a.scale, a.window, a.chunk, a.cap);
 }
 
@@ -216,19 +220,21 @@ cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
 
 // q (B,1,H,D) and k (B,L,KV,D) of dtype, contiguous and 16-byte aligned,
 // H = KV*G; pos int64, pos_stride 0 (one position) or 1 (one per row);
-// s (B,KV,G,L) and m (B,KV,G) fp32. The caller checked 1 <= G <= 8, D a
+// slot_offset the global slot of k's first (a cache shard's; 0 for a whole
+// cache); s (B,KV,G,L) and m (B,KV,G) fp32. The caller checked 1 <= G <= 8, D a
 // multiple of 8 up to 256, L >= 1, 1 <= nsplit <= 8 and B*KV <= 65535.
 extern "C" int repro_decode_scores(const void* q, const void* k,
-                                   const void* pos, int pos_stride, void* s,
-                                   void* m, int B, int KV, int G, int L,
+                                   const void* pos, int pos_stride,
+                                   long long slot_offset, void* s, void* m,
+                                   int B, int KV, int G, int L,
                                    int D, int nsplit, float scale, int window,
                                    int chunk, float cap, int dtype,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nsplit < 1 || nsplit > kMaxSplit || D > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, pos, pos_stride, s, m, B, KV, L, D, nsplit, scale,
-               window, chunk, cap};
+  const Args a{q, k, pos, pos_stride, slot_offset, s, m, B, KV, L, D,
+               nsplit, scale, window, chunk, cap};
   if (dtype == repro::kBFloat16)
     return static_cast<int>(dispatch_g<__nv_bfloat16>(G, a, st));
   if (dtype == repro::kFloat32)

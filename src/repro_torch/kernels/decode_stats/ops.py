@@ -75,18 +75,20 @@ def _splits(rows: int, L: int, device) -> int:
 
 
 def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
-                  *, window: int = 0, chunk: int = 0, cap: float = 0.0
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  *, slot_offset: int = 0, window: int = 0, chunk: int = 0,
+                  cap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B,1,H,D) against the cache k (B,L,KV,D), read in place, at
     ``pos`` (int64: 0-d, one position for every row, or (B,)) ->
     fp32 (s (B,KV,G,L) with masked slots at NEG_INF, m (B,KV,G) its row
-    max), H = KV*G. ``window``, ``chunk`` and ``cap`` as the JAX package's
+    max, NEG_INF where no slot is kept), H = KV*G. ``k_cache`` holds the
+    global slots [slot_offset, slot_offset + L): a sequence-parallel cache
+    shard. ``window``, ``chunk`` and ``cap`` as the JAX package's
     ``decode_stats_scores``."""
     global SCORES_LAUNCHES
     named = {"q": q, "k": k_cache, "pos": pos}
     if _check_cuda("decode_scores", named):
-        return decode_scores_ref(q, k_cache, pos, window=window, chunk=chunk,
-                                 cap=cap)
+        return decode_scores_ref(q, k_cache, pos, slot_offset=slot_offset,
+                                 window=window, chunk=chunk, cap=cap)
     if q.ndim != 4 or k_cache.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"decode_scores: q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}; want (B,1,H,D), (B,L,KV,D)")
@@ -105,9 +107,10 @@ def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"decode_scores: pos {pos.dtype} {tuple(pos.shape)}; "
                          f"want int64, 0-d or ({B},)")
     _check_layout("decode_scores", named, ("q", "k"))
-    if window < 0 or chunk < 0 or cap < 0:
+    if window < 0 or chunk < 0 or cap < 0 or slot_offset < 0:
         raise ValueError(f"decode_scores: window {window}, chunk {chunk}, "
-                         f"cap {cap} must not be negative")
+                         f"cap {cap} and slot_offset {slot_offset} must not "
+                         "be negative")
     s = torch.empty((B, KV, G, L), dtype=torch.float32, device=q.device)
     m = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
     rows = B * KV
@@ -121,7 +124,7 @@ def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
     nsplit = _splits(rows, L, q.device)
     err = _build.lib().repro_decode_scores(
         q.data_ptr(), k_cache.data_ptr(), pos.data_ptr(), int(pos.ndim == 1),
-        s.data_ptr(), m.data_ptr(), B, KV, G, L, D, nsplit, float(D ** -0.5),
+        int(slot_offset), s.data_ptr(), m.data_ptr(), B, KV, G, L, D, nsplit, float(D ** -0.5),
         int(window), int(chunk), float(cap), code, _build.stream_of(q))
     _build.check(err, "decode_scores")
     SCORES_LAUNCHES += 1
@@ -129,19 +132,20 @@ def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
 
 
 def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
-               pos: torch.Tensor | None = None, window: int = 0,
-               chunk: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+               pos: torch.Tensor | None = None, slot_offset: int = 0,
+               window: int = 0, chunk: int = 0
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """s (B,KV,G,L) NEG_INF-masked fp32 scores, m (B,KV,G) fp32 row max,
-    v_cache (B,L,KV,D) -> fp32 (o (B,1,H,D), l (B,1,H)), H = KV*G.
+    v_cache (B,L,KV,D) -> fp32 (o (B,1,H,D), l (B,1,H)), H = KV*G. A row
+    with no slot kept gives o = 0 and l = 0.
 
-    ``pos``, ``window`` and ``chunk``, when given, are those the scores
-    were masked with (by :func:`decode_scores`): the kernel then spreads
-    only the slots they keep over its blocks. They change no result; the
-    plain version does not read them. Without them the kernel spreads all
-    of L and skips the pieces whose p are all 0: the contract of the JAX
-    package's ``decode_stats_accumulate_pallas`` (s, m and V alone), for
-    scores masked otherwise than by one position, such as a cache shard's
-    at a slot offset in the multi-rank decode combine (ROADMAP)."""
+    ``pos``, ``slot_offset``, ``window`` and ``chunk``, when ``pos`` is
+    given, are those the scores were masked with (by
+    :func:`decode_scores`): the kernel then spreads only the slots they
+    keep over its blocks. They change no result; the plain version does not
+    read them. Without ``pos`` the kernel spreads all of L and skips the
+    pieces whose p are all 0: the contract of the JAX package's
+    ``decode_stats_accumulate_pallas`` (s, m and V alone)."""
     global LAUNCHES
     named = {"s": s, "m": m, "v": v_cache}
     if pos is not None:
@@ -164,6 +168,9 @@ def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
                             or pos.shape not in ((), (B,))):
         raise ValueError(f"decode_stats: pos {pos.dtype} {tuple(pos.shape)}; "
                          f"want int64, 0-d or ({B},)")
+    if slot_offset < 0:
+        raise ValueError(f"decode_stats: slot_offset {slot_offset} must not "
+                         "be negative")
     _check_layout("decode_stats", named, ("v",))
     o = torch.empty((B, 1, KV * G, D), dtype=torch.float32, device=s.device)
     l = torch.empty((B, 1, KV * G), dtype=torch.float32, device=s.device)
@@ -180,7 +187,8 @@ def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
     err = _build.lib().repro_decode_stats(
         s.data_ptr(), m.data_ptr(), v_cache.data_ptr(),
         None if pos is None else pos.data_ptr(),
-        int(pos is not None and pos.ndim == 1), int(window), int(chunk),
+        int(pos is not None and pos.ndim == 1), int(slot_offset),
+        int(window), int(chunk),
         o.data_ptr(), l.data_ptr(), B, KV, G, L, D, nsplit, code,
         _build.stream_of(s))
     _build.check(err, "decode_stats")

@@ -13,12 +13,14 @@ def _mask_bcast(mask: torch.Tensor) -> torch.Tensor:
     return mask[None, None, None] if mask.ndim == 1 else mask[:, None, None, :]
 
 
-def masked_scores_ref(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
+def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
+                      cap=0.0):
     """Masked fp32 scores of one-token decode: q (B,1,H,D) against the cache
-    k (B,L,KV,D). ``pos`` is the query's absolute position, a 0-d tensor
-    (lockstep batch) or (B,) (continuous batching, one per row). Returns
-    ``(s, mask)``: s (B,KV,G,L) with masked slots at NEG_INF, mask (L,) or
-    (B,L)."""
+    k (B,L,KV,D), which holds the global slots [slot_offset, slot_offset +
+    L) (a cache shard; 0 for a whole cache). ``pos`` is the query's
+    absolute position, a 0-d tensor (lockstep batch) or (B,) (continuous
+    batching, one per row). Returns ``(s, mask)``: s (B,KV,G,L) with masked
+    slots at NEG_INF, mask (L,) or (B,L)."""
     B, _, H, D = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, KV, H // KV, D)
@@ -26,7 +28,7 @@ def masked_scores_ref(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
     if cap:
         s = cap * torch.tanh(s / cap)
     p_ = pos[:, None] if pos.ndim == 1 else pos
-    j = torch.arange(L, device=k_cache.device)
+    j = slot_offset + torch.arange(L, device=k_cache.device)
     mask = j <= p_
     if window:
         mask &= (p_ - j) < window
@@ -35,11 +37,12 @@ def masked_scores_ref(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
     return torch.where(_mask_bcast(mask), s, NEG_INF), mask
 
 
-def decode_scores_ref(q, k_cache, pos, *, window=0, chunk=0, cap=0.0):
+def decode_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
+                      cap=0.0):
     """:func:`masked_scores_ref`'s s (B,KV,G,L) and its row max m (B,KV,G),
-    both fp32."""
-    s, _ = masked_scores_ref(q, k_cache, pos, window=window, chunk=chunk,
-                             cap=cap)
+    both fp32 (NEG_INF where the cache shard keeps no slot)."""
+    s, _ = masked_scores_ref(q, k_cache, pos, slot_offset=slot_offset,
+                             window=window, chunk=chunk, cap=cap)
     return s, torch.amax(s, dim=-1)
 
 

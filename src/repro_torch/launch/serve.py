@@ -4,15 +4,138 @@
 ``--arch mamba2-780m``) serves the full configuration on the card with
 random bf16 weights made from seed 0; ``--smoke --device cpu`` serves the
 reduced configuration on the CPU.
+
+``--ranks N --pods q`` serves one long-context conversation at a time
+(batch 1) with its KV cache split over N ranks, q pods of N/q:
+
+    python -m repro_torch.launch.serve --ranks 4 --pods 2 \\
+        --combine locality --cache-len 32768 --prompt-len 3000
+
+spawns N processes that join one gloo group on localhost; each serves on
+``cuda`` (all of them on the one card when there is one) unless
+``--device cpu``. ``--seq-axes data`` keeps the whole cache in every pod,
+split over the pod's ranks. The kernels are built once, here, before the
+ranks start. :func:`run_ranks` is the spawning helper.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import multiprocessing as mp
+import os
+import queue
+import socket
 import time
+import traceback
+from datetime import timedelta
 
 import numpy as np
 import torch
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, fn, args, results) -> None:
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=600))
+    try:
+        results.put((rank, True, fn(rank, world, *args)))
+    except BaseException:                  # reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, fn, *args, timeout: float = 1800.0) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined in
+    one gloo group over ``tcp://localhost``; their results in rank order.
+    ``fn`` is a module-level function (it is pickled by name). A rank that
+    fails, or no answer within ``timeout`` seconds, raises after every
+    process is stopped."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, world, port, fn, args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, errors, left = [None] * world, [], world
+    deadline = time.monotonic() + timeout
+    try:
+        while left and not errors:
+            try:
+                rank, ok, val = results.get(timeout=5.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    errors.append(f"ranks {dead} exited without a result")
+                elif time.monotonic() > deadline:
+                    errors.append(f"no answer within {timeout} s")
+                continue
+            left -= 1
+            if ok:
+                out[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=0 if errors else 60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError("a rank failed:\n" + "\n".join(errors))
+    return out
+
+
+def _config(args):
+    from repro_torch import configs
+    if args.smoke:
+        return dataclasses.replace(configs.get_smoke(args.arch),
+                                   dtype=torch.float32)
+    return configs.get(args.arch)
+
+
+def _serve_rank(rank: int, world: int, args) -> dict:
+    """One rank of ``--ranks``: the sequence-parallel engine on its grid,
+    serving three requests submitted together, one at a time."""
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec, resolve_device
+
+    device = resolve_device(args.device)
+    grid = RankGrid.build(args.pods, world // args.pods)
+    cfg = _config(args)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    spec = ServeSpec(batch=1, cache_len=args.cache_len, combine=args.combine,
+                     seq_axes="auto" if args.seq_axes == "auto"
+                     else (args.seq_axes,))
+    eng = Engine(cfg, params, spec, grid=grid, device=device)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.submit(Request(tokens=rng.integers(0, cfg.vocab_size,
+                                               args.prompt_len),
+                           max_new=args.max_new))
+    results = eng.drain()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"rank": rank, "seconds": time.perf_counter() - t0,
+            "tokens": {rid: r.tokens.tolist() for rid, r in results.items()},
+            "stats": eng.stats(), "cache_len": eng.cache_len,
+            "cache_offset": eng.cache_offset,
+            "combine": dataclasses.asdict(eng.combine)}
 
 
 def main(argv=None) -> None:
@@ -25,22 +148,49 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="ranks the B = 1 cache is split over (spawned)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods the ranks form (ranks / pods lanes each)")
+    ap.add_argument("--combine", default="locality",
+                    choices=("locality", "xla"))
+    ap.add_argument("--seq-axes", default="auto", choices=("auto", "data"))
+    ap.add_argument("--cache-len", type=int, default=None,
+                    help="cache slots (default: prompt + new, rounded up)")
     args = ap.parse_args(argv)
 
-    from repro_torch import configs
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serve import Engine, Request, ServeSpec, resolve_device
-
+    from repro_torch.serve import resolve_device
     device = resolve_device(args.device)
-    if args.smoke:
-        cfg = dataclasses.replace(configs.get_smoke(args.arch),
-                                  dtype=torch.float32)
-    else:
-        cfg = configs.get(args.arch)
+    need = args.prompt_len + args.max_new
+    if args.cache_len is None:
+        args.cache_len = -(-need // (16 * args.ranks)) * 16 * args.ranks
+    if args.ranks > 1:
+        if args.ranks % args.pods:
+            raise SystemExit(f"--ranks {args.ranks} is no multiple of "
+                             f"--pods {args.pods}")
+        if device.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.build()                 # once, before the ranks start
+        t0 = time.perf_counter()
+        out = run_ranks(args.ranks, _serve_rank, args)
+        dt = time.perf_counter() - t0
+        if any(r["tokens"] != out[0]["tokens"] for r in out):
+            raise SystemExit("[serve] the ranks' tokens differ")
+        st = out[0]["stats"]
+        n = sum(len(t) for t in out[0]["tokens"].values())
+        print(f"[serve] {args.arch} on {args.ranks} ranks ({args.pods} pods, "
+              f"{device}): combine {out[0]['combine']}, {args.cache_len} "
+              f"slots, {out[0]['cache_len']} a rank; {len(out[0]['tokens'])} "
+              f"requests ({n} tokens) in {dt:.2f}s with start-up; rank 0 "
+              f"stats {st}; sample: {out[0]['tokens'][0][:12]}")
+        return
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec
+    cfg = _config(args)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
-    need = args.prompt_len + args.max_new
-    spec = ServeSpec(batch=args.batch, cache_len=-(-need // 16) * 16)
+    spec = ServeSpec(batch=args.batch, cache_len=args.cache_len)
     eng = Engine(cfg, params, spec, device=device)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)

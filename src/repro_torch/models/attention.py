@@ -25,10 +25,26 @@ NEG_INF = stats_ops.NEG_INF  # large-negative mask value, as in the JAX package
 multihead_attention = flash_ops.flash_attention
 
 
-# Masked fp32 scores of one-token decode, ``(s, mask)``: the JAX package's
-# ``decode_stats_scores`` in plain torch (the decode path itself runs the
-# scores kernel, which returns the row max in place of the mask).
-decode_stats_scores = stats_ops.masked_scores_ref
+def decode_stats_scores(q, k_cache, pos, *, slot_offset=0, total_len=None,
+                        window=0, chunk=0, cap=0.0, ring=False):
+    """Masked fp32 scores of one-token decode, ``(s, mask)``: the JAX
+    package's ``decode_stats_scores`` in plain torch (the decode path itself
+    runs the scores kernel, which returns the row max in place of the mask).
+
+    q (B,1,H,D) against k (B,L_loc,KV,D) holding the global slots
+    [slot_offset, slot_offset + L_loc) of a ``total_len``-slot cache;
+    ``total_len`` is only checked. Ring caches are refused."""
+    if ring:
+        raise NotImplementedError(
+            "ring caches come with the dense-variants slice (ROADMAP.md "
+            "Queue 1 item 5)")
+    L_loc = k_cache.shape[1]
+    if total_len is not None and slot_offset + L_loc > total_len:
+        raise ValueError(f"a shard of {L_loc} slots at offset {slot_offset} "
+                         f"exceeds the {total_len}-slot cache")
+    return stats_ops.masked_scores_ref(q, k_cache, pos,
+                                       slot_offset=slot_offset,
+                                       window=window, chunk=chunk, cap=cap)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, chunk=0,
@@ -42,15 +58,30 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, chunk=0,
     return (o / l[..., None]).to(v_cache.dtype)
 
 
-def write_cache(cache: torch.Tensor, new: torch.Tensor,
-                pos: torch.Tensor) -> None:
+def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                *, slot_offset: int | None = None) -> None:
     """Write the decode token's (B,1,KV,D) key or value at slot ``pos``.
 
     Updates ``cache`` in place (the JAX package returns a new array from a
     vmapped ``dynamic_update_slice``). The slot is clamped to the last one,
     as ``dynamic_update_slice`` clamps its start index, so rows that hold no
     request and keep stepping never index past the cache.
+
+    With ``slot_offset`` the cache is a sequence-parallel shard holding the
+    global slots [slot_offset, slot_offset + L) and ``pos`` one 0-d
+    position: the shard writes only when it owns slot ``pos`` and is left
+    as it was otherwise (the JAX region's ``owns`` mask), decided on the
+    device, with no host synchronisation.
     """
+    if slot_offset is not None:
+        if pos.ndim:
+            raise ValueError("a cache shard is written at one 0-d position")
+        local = pos - slot_offset
+        owns = (local >= 0) & (local < cache.shape[1])
+        slot = local.clamp(0, cache.shape[1] - 1)
+        cache[:, slot] = torch.where(owns, new[:, 0].to(cache.dtype),
+                                     cache[:, slot])
+        return
     slot = pos.clamp(max=cache.shape[1] - 1)
     if pos.ndim == 1:                                 # per-row positions
         rows = torch.arange(cache.shape[0], device=cache.device)

@@ -11,6 +11,14 @@ Mirrors ``repro.models.transformer.forward`` for two families:
   on the same tensors. ``pos`` is a 0-d tensor (lockstep batch) or (B,)
   (continuous batching).
 
+A sequence-parallel rank holds the cache slots [slot_offset, slot_offset +
+cache_len) of a longer cache: its prefill runs the whole prompt and keeps
+only those slots, and its decode passes each attention layer's cache write
+and attention to a ``decode_combine`` hook, the JAX protocol
+(``repro.models.attention.attention``): ``decode_combine(q, k_new, v_new,
+k_cache, v_cache, pos, meta) -> (o, k_cache, v_cache)`` or None for the
+plain path, with ``meta = {window, chunk, cap, ring}``.
+
 The JAX package scans stacked ``blocks/slot{j}`` parameters; here the
 layers are a ``ModuleList`` in global layer order, built from
 ``cfg.layer_plan()``: a :class:`Block` (attention then SwiGLU MLP) for an
@@ -43,6 +51,9 @@ from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
 from .ssm import MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
+# the decode_combine hook's meta for the layers this port builds: full
+# causal attention (check_supported refuses window, chunk, softcap, ring)
+DECODE_META = {"window": 0, "chunk": 0, "cap": 0.0, "ring": False}
 MAMBA_LAYER_PARAMS = ("ln",) + MAMBA_PARAMS
 
 
@@ -70,11 +81,13 @@ class Block(nn.Module):
             self.register_parameter(
                 name, nn.Parameter(weights[name], requires_grad=False))
 
-    def forward(self, x, cos, sin, *, kv_cache=None, pos=None):
+    def forward(self, x, cos, sin, *, kv_cache=None, pos=None,
+                decode_combine=None):
         """Prefill (``kv_cache`` None): returns (x, (k, v)) with this
         layer's keys and values. Decode: writes the token's key and value
         into ``kv_cache = (k_cache, v_cache)`` in place at ``pos`` and
-        returns (x, None)."""
+        returns (x, None); a ``decode_combine`` hook (module docstring)
+        does the write and the attention when it takes the layer."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -87,9 +100,14 @@ class Block(nn.Module):
             kv = (k, v)
         else:
             k_cache, v_cache = kv_cache
-            attn.write_cache(k_cache, k, pos)
-            attn.write_cache(v_cache, v, pos)
-            o = attn.decode_attention(q, k_cache, v_cache, pos)
+            res = None if decode_combine is None else decode_combine(
+                q, k, v, k_cache, v_cache, pos, DECODE_META)
+            if res is None:
+                attn.write_cache(k_cache, k, pos)
+                attn.write_cache(v_cache, v, pos)
+                o = attn.decode_attention(q, k_cache, v_cache, pos)
+            else:
+                o = res[0]
             kv = None
         # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
         x, h = rmsnorm_residual(x, o.reshape(B, S, H * D) @ self.wo, self.ln2,
@@ -170,8 +188,12 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, mode: str = "prefill",
                 cache: dict[str, torch.Tensor] | None = None,
-                cache_len: int = 0):
-        """Returns ``(logits, new_cache)``; see the module docstring."""
+                cache_len: int = 0, *, slot_offset: int | None = None,
+                decode_combine=None):
+        """Returns ``(logits, new_cache)``; see the module docstring.
+        ``slot_offset`` (prefill: the cache is the shard of ``cache_len``
+        slots from there) and ``decode_combine`` (decode) serve a
+        sequence-parallel rank's shard of the cache."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed[tokens]
@@ -179,9 +201,15 @@ class Transformer(nn.Module):
             if cache is not None:
                 raise ValueError("prefill builds its cache; pass cache_len")
             L = cache_len or S
-            if S > L:
-                raise ValueError(f"prompt of {S} tokens exceeds the "
-                                 f"{L}-slot cache")
+            if slot_offset is None:
+                if S > L:
+                    raise ValueError(f"prompt of {S} tokens exceeds the "
+                                     f"{L}-slot cache")
+                slot_offset = 0
+            elif self.ssm:
+                raise ValueError("SSM caches are never sequence-sharded")
+            # the prompt's slots this cache holds: [lo, hi) of the prompt
+            lo, hi = min(S, slot_offset), min(S, slot_offset + L)
             new_cache = self.empty_cache(B, L)
             if self.ssm:
                 for i, layer in enumerate(self.layers):
@@ -194,8 +222,8 @@ class Transformer(nn.Module):
                                        cfg.rope_theta)
                 for i, layer in enumerate(self.layers):
                     x, (k, v) = layer(x, cos, sin)
-                    new_cache["k"][i, :, :S] = k
-                    new_cache["v"][i, :, :S] = v
+                    new_cache["k"][i, :, :hi - lo] = k[:, lo:hi]
+                    new_cache["v"][i, :, :hi - lo] = v[:, lo:hi]
             new_cache["pos"] = torch.tensor(S, dtype=torch.long,
                                             device=tokens.device)
             # the norm is per row, so norming the last position alone is exact
@@ -216,7 +244,7 @@ class Transformer(nn.Module):
                 for i, layer in enumerate(self.layers):
                     x, _ = layer(x, cos, sin, kv_cache=(cache["k"][i],
                                                         cache["v"][i]),
-                                 pos=pos)
+                                 pos=pos, decode_combine=decode_combine)
             pos.add_(1)             # in place: a captured graph reads it
             new_cache = cache
         else:

@@ -1,21 +1,41 @@
 """Serving engine of the port: the request-level ``submit / step / drain``
-API over one rank.
+API over one rank or a grid of ranks.
 
-``Engine(cfg, params, spec, device=None, clock=None)`` holds the model in
-``cfg.dtype`` (bf16 for the published configs, as the JAX engine casts its
-fp32 parameters) and a continuous-batching :class:`~.scheduler.Scheduler`.
-It runs on the card: with ``device=None`` it takes ``cuda`` and raises when
-no CUDA device is visible; ``device="cpu"`` runs the kernels' plain
-versions, which is what the tests ask for.
+``Engine(cfg, params, spec, grid=None, device=None, clock=None)`` holds the
+model in ``cfg.dtype`` (bf16 for the published configs, as the JAX engine
+casts its fp32 parameters) and a :class:`~.scheduler.Scheduler`. It runs on
+the card: with ``device=None`` it takes ``cuda`` and raises when no CUDA
+device is visible; ``device="cpu"`` runs the kernels' plain versions, which
+is what the tests ask for.
+
+On a :class:`~repro_torch.core.topology.RankGrid` every rank builds the
+same engine and submits the same requests. A B = 1 cache is then split over
+the ranks' sequence (the JAX engine's sequence-parallel layout,
+``cache_shardings``): rank (R, l) of a q x pl grid holds the slots
+[i * L_loc, (i + 1) * L_loc), i = R * pl + l, pod-major, over
+``("pod", "data")``, or i = l over ``("data",)``, where each pod holds the
+whole cache. Every rank prefills the whole prompt with the same kernels and
+keeps its own slots; every decode attention layer combines the ranks'
+partial softmax stats in :class:`LocalityDecodeCombine`, the counterpart of
+the JAX ``_make_locality_decode_combine``.
+
+A gloo grid moves CPU tensors, so on the card the combine stages its fp32
+payload (the maxima, then the packed [o, l]) to the host and back: the
+transport of a host-side group, counted in :meth:`Engine.stats` as
+``staging_bytes``; an NCCL grid moves CUDA tensors and stages nothing.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from ..core import collectives as C
+from ..kernels.decode_stats import ops as stats_ops
+from ..models import attention as attn
 from ..models.transformer import Transformer
 from .scheduler import Scheduler
-from .spec import Request, RequestResult, ServeSpec
-
+from .spec import DP_AXES, Request, RequestResult, ServeSpec
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
     """``cuda`` unless the caller names a device; never falls back."""
@@ -28,16 +48,141 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return torch.device("cuda")
 
 
-class Engine:
-    """Greedy continuous-batching engine over the port's transformer."""
+def _sent(st) -> tuple[float, float, float]:
+    """(bytes, non-local bytes, non-local messages) in a recorder's stats."""
+    return (st.permute_bytes_local + st.permute_bytes_nonlocal
+            + st.group_bytes_local + st.group_bytes_nonlocal,
+            st.nonlocal_bytes, st.nonlocal_msgs)
 
-    def __init__(self, cfg, params: dict, spec: ServeSpec, *,
+
+class LocalityDecodeCombine:
+    """The ``decode_combine`` hook of a sequence-parallel rank.
+
+    Per decode attention layer, the steps of the JAX region (``engine.py``
+    ``_make_locality_decode_combine``), the accumulation queued before the
+    max exchange, which it does not need, so that the card runs it while
+    the host exchanges:
+
+      1. the token's key and value are written into this rank's shard only
+         when it owns slot ``pos`` (``attention.write_cache`` with the
+         shard's offset);
+      2. the scores kernel gives the masked scores and their max over the
+         shard (``decode_scores`` at the slot offset: NEG_INF where the
+         shard keeps no slot);
+      3. the maxima's copy to the host, then the accumulation kernel
+         (o, l), are queued on the stream before any exchange, and the
+         host waits for the copy alone;
+      4. ``logsumexp_combine_start`` runs the max-allreduce over the grid
+         while the card accumulates;
+      5. ``logsumexp_combine_finish`` rescales and sums the packed [o, l];
+      6. o / l, cast to the cache dtype.
+
+    ``grid`` is the grid the combine runs over (the pod's for a ("data",)
+    cache), ``shard`` this rank's index among the cache's shards.
+    Counters: the layers it ran, the host seconds spent in it and, of
+    those, in the two halves of the combine's exchange, what the exchanges
+    sent (``sent``: bytes, non-local bytes, non-local messages, read from
+    the grid's recorder around them, so no other user of the grid counts)
+    and the bytes staged between the card and a gloo grid's host tensors.
+    """
+
+    def __init__(self, grid, shard: int, algorithm: str):
+        self.grid, self.shard = grid, shard
+        self.algorithm = algorithm
+        self.layers = 0
+        self.host_s = 0.0
+        self.exchange_s = 0.0
+        self.sent = (0.0, 0.0, 0.0)
+        self.staging_bytes = 0
+
+    def __call__(self, q, k_new, v_new, k_cache, v_cache, pos, meta):
+        t0 = time.perf_counter()
+        offset = self.shard * k_cache.shape[1]
+        attn.write_cache(k_cache, k_new, pos, slot_offset=offset)
+        attn.write_cache(v_cache, v_new, pos, slot_offset=offset)
+        mask = dict(slot_offset=offset, window=meta["window"],
+                    chunk=meta["chunk"])
+        s, m = stats_ops.decode_scores(q, k_cache, pos, cap=meta["cap"],
+                                       **mask)
+        m_host, m_ready = self._copy_out(m)
+        o, l = stats_ops.accumulate(s, m, v_cache, pos=pos, **mask)
+        B, KV, G = m.shape
+        n_o = o.numel()
+        if m_ready is not None:
+            m_ready.synchronize()
+        t1, sent0 = time.perf_counter(), _sent(self.grid.recorder.stats)
+        pend = C.logsumexp_combine_start(m_host.reshape(B, 1, KV * G),
+                                         self.grid, algorithm=self.algorithm)
+        self.exchange_s += time.perf_counter() - t1
+        ol = self._stage(torch.cat([o.reshape(-1), l.reshape(-1)]),
+                         self.grid.device)
+        t1 = time.perf_counter()
+        o, l = C.logsumexp_combine_finish(ol[:n_o].reshape(o.shape),
+                                          ol[n_o:].reshape(l.shape), pend)
+        self.exchange_s += time.perf_counter() - t1
+        self.sent = tuple(t + b - a for t, a, b in zip(
+            self.sent, sent0, _sent(self.grid.recorder.stats)))
+        ol = self._stage(torch.cat([o.reshape(-1), l.reshape(-1)]),
+                         q.device)
+        out = (ol[:n_o].reshape(o.shape) / ol[n_o:].reshape(l.shape)[..., None]
+               ).to(v_cache.dtype)
+        self.layers += 1
+        self.host_s += time.perf_counter() - t0
+        return out, k_cache, v_cache
+
+    def _copy_out(self, t: torch.Tensor):
+        """(host copy of ``t``, the event that marks it done): a copy into
+        pinned memory queued on the stream behind what produced ``t``, so
+        the work queued after it runs while the host waits for the copy
+        alone; (t, None) when the grid takes ``t`` where it is."""
+        if t.device.type == self.grid.device.type:
+            return t, None
+        self.staging_bytes += t.numel() * t.element_size()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _stage(self, t: torch.Tensor, device) -> torch.Tensor:
+        if t.device.type == device.type:
+            return t
+        self.staging_bytes += t.numel() * t.element_size()
+        return t.to(device)
+
+
+class Engine:
+    """Greedy serving engine over the port's transformer, on one rank or
+    on every rank of a grid (module docstring)."""
+
+    def __init__(self, cfg, params: dict, spec: ServeSpec, *, grid=None,
                  device: torch.device | str | None = None, clock=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        spec.validate()
         self.spec = spec
+        self.grid = grid
+        self.resolved = spec.resolve(cfg, grid)
+        self.combine = self.resolved.combine
+        if grid is not None and grid.p > 1 and self.resolved.batch_sharded:
+            raise NotImplementedError(
+                "a batch-sharded cache over ranks (pod-local prefill, "
+                "cache_migrate insertion) comes with the rest of the "
+                "multi-rank serving slice (ROADMAP.md Queue 1 item 3); "
+                "serve batch=1 with a sequence-parallel cache")
         self.model = Transformer(cfg, params, self.device)
+        self.hook: LocalityDecodeCombine | None = None
+        self.cache_offset: int | None = None       # this rank's first slot
+        if self.combine.algorithm != "none":
+            if self.resolved.seq_span == DP_AXES:
+                cgrid, shard = grid, grid.rank
+            else:
+                cgrid, shard = grid.pod_grid(), grid.l
+            self.cache_len = spec.cache_len // self.combine.p
+            self.cache_offset = shard * self.cache_len
+            self.hook = LocalityDecodeCombine(cgrid, shard,
+                                              self.combine.algorithm)
+        else:
+            self.cache_len = spec.cache_len
         self.scheduler = Scheduler(self, clock=clock)
 
     def submit(self, request: Request) -> int:
@@ -61,5 +206,24 @@ class Engine:
     def stats(self) -> dict:
         """Counters: decode steps, prefills, prefill tokens (prompt tokens
         prefilled) and decode tokens (tokens the decode steps produced for
-        live rows), plus the queue's state."""
-        return self.scheduler.stats()
+        live rows), the queue's state, and the combine's, with the JAX
+        engine's keys: ``combine_steps`` (decode steps that combined),
+        ``combine_bytes`` (bytes this rank sent in the combines),
+        ``nonlocal_bytes`` and ``nonlocal_msgs`` (those crossing a pod),
+        counted by the combine grid's ``CommRecorder`` (the JAX engine
+        reads them from its compiled program); then ``combine_layers``,
+        ``combine_host_s`` (host seconds inside the hook) and
+        ``combine_exchange_s`` (of those, in the max and sum exchanges)
+        and ``staging_bytes`` (moved between the card and a gloo grid)."""
+        out = self.scheduler.stats()
+        hook = self.hook
+        sent = hook.sent if hook else (0.0, 0.0, 0.0)
+        out.update(
+            combine_steps=out["decode_steps"] if hook else 0,
+            combine_bytes=sent[0], nonlocal_bytes=sent[1],
+            nonlocal_msgs=sent[2],
+            combine_layers=hook.layers if hook else 0,
+            combine_host_s=hook.host_s if hook else 0.0,
+            combine_exchange_s=hook.exchange_s if hook else 0.0,
+            staging_bytes=hook.staging_bytes if hook else 0)
+        return out

@@ -1,6 +1,6 @@
-"""Continuous-batching scheduler of the port, on one rank.
+"""Continuous-batching scheduler of the port.
 
-The single-rank loop of ``repro.serve.scheduler.Scheduler``: requests are
+The loop of ``repro.serve.scheduler.Scheduler``: requests are
 admitted FCFS into free cache rows between decode steps (against the paged
 accounting of :mod:`.paged`), each admitted request is prefilled at B=1,
 its cache row is copied into the live batch cache and its first token
@@ -13,6 +13,15 @@ every step: the port's counterpart of the JAX scheduler's decode step,
 compiled once by ``jax.jit`` with the cache donated. On the CPU every step
 runs the forward eagerly.
 
+Sequential mode (the engine's cache is split over ranks, a combine other
+than "none"): as in the JAX scheduler, one request at a time at B = 1; its
+prefill's cache (this rank's slots, a 0-d ``pos``) is the serving cache,
+and every decode step runs eagerly through the engine's combine hook (a
+host-side exchange per layer cannot be captured in a CUDA graph). The
+ranks must take every scheduling decision alike, or the combine deadlocks:
+rank 0 decides each admission and broadcasts the request id (or -1: wait)
+to the grid, and the others follow.
+
 Clocks are injectable: :class:`WallClock` for real latency numbers,
 :class:`StepClock` for deterministic replay.
 """
@@ -24,6 +33,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import kernels
 from .paged import PagedKVCache
@@ -140,6 +150,11 @@ class Scheduler:
         self.cfg = engine.cfg
         self.spec = engine.spec
         self.clock = clock or WallClock()
+        self.sequential = engine.combine.algorithm != "none"
+        if self.sequential and self.spec.batch != 1:
+            raise ValueError(
+                "sequence-sharded layouts schedule one request at a time: "
+                f"batch must be 1, got {self.spec.batch}")
         self.paged = PagedKVCache(self.spec.batch, self.spec.cache_len,
                                   self.spec.page_len, n_pods=1)
         self.queue: list[Request] = []       # sorted by (arrival_s, rid)
@@ -149,11 +164,12 @@ class Scheduler:
         self._tok = np.zeros((self.spec.batch, 1), np.int64)
         self._tok_dev = torch.zeros((self.spec.batch, 1), dtype=torch.long,
                                     device=self.model.device)
-        self._cache = self.model.empty_cache(self.spec.batch,
-                                             self.spec.cache_len,
-                                             vector_pos=True)
+        # sequential mode: each request's prefill makes the serving cache
+        self._cache = None if self.sequential else self.model.empty_cache(
+            self.spec.batch, self.spec.cache_len, vector_pos=True)
         self._graph = (DecodeGraph(self.model, self._cache, self._tok_dev)
-                       if self.model.device.type == "cuda" else None)
+                       if self.model.device.type == "cuda"
+                       and not self.sequential else None)
         self.counts = {"decode_steps": 0, "prefills": 0, "prefill_tokens": 0,
                        "decode_tokens": 0}
 
@@ -221,7 +237,8 @@ class Scheduler:
         if self._graph is not None:
             return self._graph.replay()
         logits, _ = self.model(self._tok_dev, mode="decode",
-                               cache=self._cache)
+                               cache=self._cache,
+                               decode_combine=self.engine.hook)
         return logits
 
     def _next_token(self, logits: torch.Tensor) -> np.ndarray:
@@ -230,11 +247,29 @@ class Scheduler:
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return torch.clamp(tok, max=self.cfg.vocab_size - 1).cpu().numpy()
 
+    def _agreed(self, rid: int) -> int:
+        """Rank 0's admission decision (a request id, or -1: wait), on
+        every rank of the engine's grid."""
+        grid = self.engine.grid
+        t = torch.tensor([rid], dtype=torch.long, device=grid.device)
+        dist.broadcast(t, src=grid.global_rank(0), group=grid.group)
+        return int(t[0])
+
     def _admit(self) -> None:
         now = self.clock.now()
         while self.queue:
+            if self.sequential and self.active:
+                break                      # one request at a time
             req = self.queue[0]
-            if req.arrival_s > now:
+            arrived = req.arrival_s <= now
+            if self.sequential:
+                rid = self._agreed(req.rid if arrived else -1)
+                if rid not in (-1, req.rid):
+                    raise RuntimeError(
+                        f"rank 0 admits request {rid}, this rank's queue "
+                        f"starts at {req.rid}: the ranks' queues differ")
+                arrived = rid == req.rid
+            if not arrived:
                 break                      # not arrived yet
             row = self.paged.reserve(req.rid, req.tokens.size, req.max_new)
             if row is None:
@@ -247,19 +282,26 @@ class Scheduler:
         S = int(req.tokens.size)
         toks = torch.from_numpy(req.tokens.astype(np.int64))[None].to(
             self.model.device)
-        logits, req_cache = self.model(toks, mode="prefill",
-                                       cache_len=self.spec.cache_len)
+        if self.sequential:
+            self._cache = None             # the last request's, freed first
+            logits, self._cache = self.model(
+                toks, mode="prefill", cache_len=self.engine.cache_len,
+                slot_offset=self.engine.cache_offset)
+        else:
+            logits, req_cache = self.model(toks, mode="prefill",
+                                           cache_len=self.spec.cache_len)
         tok0 = self._next_token(logits)
         self.clock.advance("prefill")
         self.counts["prefills"] += 1
         self.counts["prefill_tokens"] += S
-        # insert the request's row into the live batch cache, every leaf
-        for name, leaf in self._cache.items():
-            b = _leaf_batch_dim(name, leaf)
-            if b is None:
-                leaf[row] = S
-            else:
-                leaf.select(b, row).copy_(req_cache[name].select(b, 0))
+        if not self.sequential:
+            # insert the request's row into the live batch cache, every leaf
+            for name, leaf in self._cache.items():
+                b = _leaf_batch_dim(name, leaf)
+                if b is None:
+                    leaf[row] = S
+                else:
+                    leaf.select(b, row).copy_(req_cache[name].select(b, 0))
         t = self.clock.now()
         st = _Active(req=req, row=row, started_s=t)
         st.tokens.append(int(tok0[0, 0]))

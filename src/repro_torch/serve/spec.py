@@ -1,24 +1,41 @@
 """Request-level serving API of the port: ServeSpec, Request, RequestResult.
 
 The three dataclasses of ``repro.serve.spec``, so a caller shapes the port's
-engine as it shapes the JAX one, less what only a multi-rank engine uses
-(``prefill_len``, ``migrate``, the home pod). This slice serves on one rank:
+engine as it shapes the JAX one, less what only the batch-sharded multi-pod
+engine uses (``prefill_len``, ``migrate``, the home pod):
 
-* ``combine`` (the decode cache combine) resolves to ``"none"`` on one rank,
-  as the JAX engine resolves it on one device; it must still be a known
-  policy;
-* ``seq_axes`` takes only ``"auto"``: there is no rank grid to shard the
-  cache over;
+* ``combine`` (the decode cache combine) resolves to ``"none"`` on one rank
+  and on a batch-sharded layout, as the JAX engine resolves it; on a
+  sequence-parallel cache it must be ``"locality"`` or ``"xla"`` (``"auto"``
+  needs the tuning policy, ROADMAP.md Queue 1 item 8);
+* ``seq_axes`` takes ``"auto"`` (the cache spans every rank, pods too) or
+  ``("data",)`` (each pod holds the whole cache over its own ranks);
 * ``fused_stats`` takes only ``"auto"``: the decode-stats kernel for a
   cache on the card, its plain version for a cache on the CPU.
+
+:meth:`ServeSpec.resolve` binds a spec to a model and a ``RankGrid`` (None:
+one rank), as the JAX ``resolve`` binds it to a mesh; the cache layout and
+the combine choice it derives (``_cache_layout``, ``_seq_axes_for``,
+``resolve_cache_combine``: the JAX engine's) live here with it.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 
 COMBINES = ("auto", "xla", "locality")
+#: the grid's axes, outer-major, as the JAX package's DP axes ('pod','data')
+DP_AXES = ("pod", "data")
+SEQ_AXES = ("auto", ("data",))
+
+
+def normalize_seq_axes(seq_axes) -> str | tuple[str, ...]:
+    """``"auto"`` as it is; one axis name or a tuple of them as a tuple."""
+    if seq_axes == "auto":
+        return seq_axes
+    return (seq_axes,) if isinstance(seq_axes, str) else tuple(seq_axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,9 +44,9 @@ class ServeSpec:
 
     batch:       decode batch rows (the paged cache's row count).
     cache_len:   KV slots per row (prompt + decode budget ceiling).
-    combine:     decode cache-combine policy; one rank has none to run.
+    combine:     decode cache-combine policy (see the module docstring).
     fused_stats: "auto" only (see the module docstring).
-    seq_axes:    "auto" only (see the module docstring).
+    seq_axes:    sequence-parallel cache domain, "auto" or ("data",).
     page_len:    paging granularity in KV slots: admission reserves
                  ceil((prompt + max_new) / page_len) pages in one row.
     """
@@ -42,7 +59,7 @@ class ServeSpec:
     page_len: int = 16
 
     def validate(self) -> None:
-        """Raise on anything the single-rank engine does not implement."""
+        """Raise on anything the port's engine does not implement."""
         if self.fused_stats != "auto":
             raise ValueError(
                 f"fused_stats={self.fused_stats!r}: the port takes only "
@@ -50,12 +67,134 @@ class ServeSpec:
         if self.combine not in COMBINES:
             raise ValueError(f"unknown combine {self.combine!r}; known: "
                              f"{COMBINES}")
-        if self.seq_axes != "auto":
-            raise ValueError(f"seq_axes={self.seq_axes!r}: a sequence-sharded "
-                             "cache needs the multi-rank serving slice")
+        if normalize_seq_axes(self.seq_axes) not in SEQ_AXES:
+            raise ValueError(f"seq_axes={self.seq_axes!r}: the port takes "
+                             f"{SEQ_AXES}")
         if self.batch < 1 or self.cache_len < 1 or self.page_len < 1:
             raise ValueError(f"batch {self.batch}, cache_len {self.cache_len} "
                              f"and page_len {self.page_len} must be >= 1")
+
+    def resolve(self, cfg, grid=None) -> "ResolvedServeSpec":
+        """Bind the spec to (cfg, grid): the layout (batch- or
+        sequence-sharded), the combine choice and the pod geometry, computed
+        once here, so the engine and the scheduler cannot drift on them."""
+        self.validate()
+        batch_sharded, cand = _cache_layout(grid, self.batch, self.seq_axes)
+        seq_span = _seq_axes_for(grid, self.cache_len, cand)
+        choice = _combine_for(
+            cfg, grid, self.batch, None if batch_sharded else seq_span,
+            None if self.combine == "auto" else self.combine)
+        sizes = _axis_sizes(grid)
+        return ResolvedServeSpec(
+            batch_sharded=batch_sharded, seq_span=seq_span, combine=choice,
+            n_pods=sizes["pod"], p_local=sizes["data"])
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedServeSpec:
+    """A ServeSpec bound to (cfg, grid): the derived geometry.
+
+    seq_span: the span a full-length cache shards over: ("pod", "data")
+              (every rank), ("data",) (each pod's ranks) or None.
+    n_pods, p_local: the grid's pods and ranks a pod.
+    """
+
+    batch_sharded: bool
+    seq_span: tuple[str, ...] | None
+    combine: "CombineChoice"
+    n_pods: int
+    p_local: int
+
+
+def _axis_sizes(grid) -> dict[str, int]:
+    return {"pod": grid.q if grid else 1, "data": grid.pl if grid else 1}
+
+
+def _cache_layout(grid, batch: int, seq_axes="auto"
+                  ) -> tuple[bool, tuple[str, ...] | None]:
+    """(batch_sharded, seq_axes candidates): the JAX ``_cache_layout`` on
+    the grid's two tiers. The batch is sharded when it divides over every
+    rank; otherwise the candidates are the axes a B = 1 cache may shard its
+    sequence over: ("pod", "data") for ``"auto"``, ("data",) when forced."""
+    sizes = _axis_sizes(grid)
+    p = sizes["pod"] * sizes["data"]
+    batch_sharded = batch % p == 0 and batch >= p
+    seq_axes = normalize_seq_axes(seq_axes)
+    cand = DP_AXES if seq_axes == "auto" else tuple(
+        a for a in seq_axes if a in DP_AXES) or None
+    return batch_sharded, cand
+
+
+def _seq_axes_for(grid, L: int, cand: tuple[str, ...] | None
+                  ) -> tuple[str, ...] | None:
+    """The widest span a cache of ``L`` slots shards over: the candidates
+    when their ranks divide L, the pod's ranks ("data",) when those do,
+    else None (the cache is replicated)."""
+    if not cand:
+        return None
+    sizes = _axis_sizes(grid)
+    full = 1
+    for a in cand:
+        full *= sizes[a]
+    if full > 1 and L % full == 0:
+        return cand
+    if "data" in cand and sizes["data"] > 1 and L % sizes["data"] == 0:
+        return ("data",)
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class CombineChoice:
+    """The resolved decode cache-combine of a sequence-parallel cache.
+
+    algorithm: "locality" (the paper-structured allreduces), "xla" (the
+               library's allreduce) or "none" (nothing to combine);
+    source:    "explicit" (the spec named it) or "n/a";
+    nbytes:    the per-layer stat payload of one step, fp32 o and l:
+               B * H * (D + 1) * 4 bytes;
+    p, p_local: the ranks in the combine, and those of one pod among them.
+    """
+
+    algorithm: str
+    source: str
+    nbytes: int
+    p: int
+    p_local: int
+
+
+def resolve_cache_combine(cfg, grid, batch: int, cache_len: int,
+                          override: str | None = None,
+                          seq_axes="auto") -> CombineChoice:
+    """The JAX ``resolve_cache_combine`` without the tuning policy: the
+    layout decides whether there is anything to combine; a sequence layout
+    needs ``override`` "locality" or "xla" (``"auto"`` resolves through
+    the tuning policy, which the port does not have yet)."""
+    batch_sharded, cand = _cache_layout(grid, batch, seq_axes)
+    span = None if batch_sharded else _seq_axes_for(grid, cache_len, cand)
+    return _combine_for(cfg, grid, batch, span, override)
+
+
+def _combine_for(cfg, grid, batch: int, span: tuple[str, ...] | None,
+                 override: str | None) -> CombineChoice:
+    """The combine of a cache sharded over ``span`` (None: not sharded).
+    A model without attention layers has no cache to split (SSM caches are
+    never sequence-sharded) and combines nothing."""
+    if override is not None and override not in ("xla", "locality"):
+        raise ValueError(f"unknown combine override {override!r}")
+    if span is None or not any(s.mixer == "attn" for s in cfg.layer_plan()):
+        return CombineChoice("none", "n/a", 0, 1, 1)
+    if override is None:
+        raise NotImplementedError(
+            "combine='auto' on a sequence-parallel cache resolves through "
+            "the tuning policy, which comes with the tuning slice "
+            "(ROADMAP.md Queue 1 item 8); pass combine='locality' or 'xla'")
+    sizes = _axis_sizes(grid)
+    p = 1
+    for a in span:
+        p *= sizes[a]
+    nbytes = batch * cfg.n_heads * (cfg.head_dim_ + 1) * 4
+    p_local = sizes["data"] if "pod" in span else p
+    return CombineChoice(override, "explicit", nbytes, p, p_local)
 
 
 @dataclasses.dataclass(frozen=True)

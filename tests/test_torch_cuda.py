@@ -8,7 +8,10 @@ JAX, so it runs where only PyTorch is installed. Tolerances: fp32 rmsnorm
 fp32 attention, decode scores and decode stats 1e-4 (the kernels sum in
 another order; decode stats' fp32 outputs 1e-4 for bf16 V too, the masked
 scores exactly NEG_INF, two calls bitwise equal); bf16 outputs 2e-2 (one
-bf16 ulp at 4 is 1.6e-2); the decode step's CUDA graph replay bitwise equal
+bf16 ulp at 4 is 1.6e-2); the two decode kernels at a sequence-parallel
+shard's slot offset as their plain versions, a shard with no slot kept
+giving m = NEG_INF, o = 0 and l = 0 exactly; the decode step's CUDA graph
+replay bitwise equal
 to the eager forward on a copy of the cache; the DMA allgather
 copies bytes and is held equal; the SSD scan (fp32 output whatever its
 input dtype, held against the plain version on the same inputs) max |y -
@@ -326,6 +329,58 @@ def test_decode_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="G = 9"):
         stats_ops.accumulate(torch.zeros((B, KV, 9, L), device=cuda),
                              torch.zeros((B, KV, 9), device=cuda), v)
+
+
+# a sequence-parallel cache of 4 x 50 slots: every shard at positions where
+# it keeps all of its slots, part of them or none, under each mask (a chunk
+# of 32 that the offsets 50 and 150 do not divide)
+SHARD_L, SHARDS = 50, 4
+SHARD_POS = [(199, 120, 30, 75), (0, 49, 50, 101)]
+SHARD_MASKS = [{}, dict(window=40), dict(chunk=32), dict(window=20, chunk=64,
+                                                         cap=30.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("mask", SHARD_MASKS, ids=str)
+def test_decode_kernels_at_a_slot_offset(cuda, dtype, G, mask):
+    B, KV, D = 4, 2, 64
+    q, k, v = _decode_tensors((B, KV, G, D, SHARD_L * SHARDS), dtype, cuda)
+    hint = dict(window=mask.get("window", 0), chunk=mask.get("chunk", 0))
+    states = set()
+    for rows in SHARD_POS:
+        pos = torch.tensor(rows, device=cuda)
+        for shard in range(SHARDS):
+            off = shard * SHARD_L
+            kl, vl = (t[:, off:off + SHARD_L].contiguous() for t in (k, v))
+            before = (stats_ops.SCORES_LAUNCHES, stats_ops.LAUNCHES)
+            s, m = stats_ops.decode_scores(q, kl, pos, slot_offset=off,
+                                           **mask)
+            o, l = stats_ops.accumulate(s, m, vl, pos=pos, slot_offset=off,
+                                        **hint)
+            torch.cuda.synchronize()
+            assert (stats_ops.SCORES_LAUNCHES, stats_ops.LAUNCHES) == (
+                before[0] + 1, before[1] + 1)
+            rs, rm = stats_ops.decode_scores_ref(q, kl, pos, slot_offset=off,
+                                                 **mask)
+            assert torch.equal(s == tattention.NEG_INF,
+                               rs == tattention.NEG_INF)
+            _close(s, rs, dtype, 1e-4)
+            _close(m, rm, dtype, 1e-4)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, vl)
+            torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+            kept = (rs > tattention.NEG_INF).sum(-1)[:, 0, 0]
+            for b in range(B):
+                n = int(kept[b])
+                states.add("none" if n == 0 else
+                           "all" if n == SHARD_L else "part")
+                if n == 0:        # exactly NEG_INF, 0 and 0
+                    assert bool((m[b] == tattention.NEG_INF).all())
+                    assert float(o[b].abs().max()) == 0.0
+                    assert float(l[b].abs().max()) == 0.0
+    assert states == {"none", "part", "all"} or mask, states
 
 
 # reduced-depth engines: (prompt length, new tokens, arrival step); the last

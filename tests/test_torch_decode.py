@@ -10,6 +10,13 @@ the port against the JAX package, on the CPU.
   1e-5.
 * A decode step advances ``cache["pos"]`` in place and hands back the same
   cache.
+* A sequence-parallel cache shard: ``decode_stats_scores`` with
+  ``slot_offset`` and ``total_len`` against the JAX function for every
+  shard of a 4-way split of a 48-slot cache (window, a chunk of 16 that
+  the 12-slot shards' offsets 12 and 36 do not divide, cap), within 1e-5;
+  the shards' scores put together equal the whole cache's; a shard that
+  keeps no slot gives m = NEG_INF and o = l = 0; the cache write lands
+  only in the shard that owns the slot.
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -25,6 +32,7 @@ from repro.kernels.decode_stats.stats import decode_stats_accumulate_pallas
 from repro.models.attention import decode_stats_scores as jscores
 from repro_torch import configs, kernels
 from repro_torch.kernels.decode_stats import ops as stats_ops
+from repro_torch.models import attention as tattention
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.serve import Engine, Request, ServeSpec, StepClock
 
@@ -192,3 +200,91 @@ def test_scheduler_runs_the_cpu_decode_eagerly():
     assert pos.tolist() == [6, 10]
     out = eng.drain()
     assert [r.n_tokens for r in out.values()] == [4, 4]
+
+
+# a 48-slot cache over 4 shards of 12: positions where every shard keeps all,
+# part or none of its slots, lockstep and one per row
+SHARD_L, SHARDS = 48, 4
+SHARD_CASES = [
+    (np.int64(5), {}),
+    (np.int64(30), {}),
+    (np.array([0, 13, 47], np.int64), {}),
+    (np.array([40, 25, 11], np.int64), dict(window=16)),
+    (np.array([47, 20, 35], np.int64), dict(chunk=16)),
+    (np.int64(44), dict(chunk=16, cap=30.0)),
+    (np.array([23, 38, 6], np.int64), dict(window=8, chunk=32, cap=20.0)),
+]
+
+
+@pytest.mark.parametrize("shard", range(SHARDS))
+@pytest.mark.parametrize("pos,kw", SHARD_CASES)
+def test_shard_scores_at_a_slot_offset_match_jax(pos, kw, shard):
+    B, H, KV, D = 3, 6, 2, 32
+    L_loc = SHARD_L // SHARDS
+    off = shard * L_loc
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, 1, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, SHARD_L, KV, D), dtype=np.float32)
+    k_loc = np.ascontiguousarray(k[:, off:off + L_loc])
+    js, jmask = jscores(jnp.asarray(q), jnp.asarray(k_loc), jnp.asarray(pos),
+                        slot_offset=off, total_len=SHARD_L, **kw)
+    tq, tk, tp = (torch.from_numpy(q), torch.from_numpy(k_loc),
+                  torch.from_numpy(np.asarray(pos)))
+    s, mask = tattention.decode_stats_scores(tq, tk, tp, slot_offset=off,
+                                             total_len=SHARD_L, **kw)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+    # the scores kernel's plain version at the offset: the same s, its max
+    s2, m2 = stats_ops.decode_scores(tq, tk, tp, slot_offset=off, **kw)
+    assert torch.equal(s2, s)
+    assert torch.equal(m2, s.amax(-1))
+    # the shard's slice of the whole cache's scores
+    whole, _ = stats_ops.decode_scores(tq, torch.from_numpy(k), tp, **kw)
+    assert torch.equal(s, whole[..., off:off + L_loc])
+
+
+@pytest.mark.parametrize("shard", range(SHARDS))
+def test_shard_that_keeps_no_slot_gives_zero_stats(shard):
+    """At position 15 under a window of 4 only shard 1 (slots 12-23) keeps
+    a slot: every other shard's max is NEG_INF and its o and l are 0."""
+    B, KV, G, D = 2, 2, 3, 16
+    L_loc = SHARD_L // SHARDS
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(rng.standard_normal((B, 1, KV * G, D),
+                                             dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, L_loc, KV, D),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    pos = torch.tensor(15)
+    kw = dict(slot_offset=shard * L_loc, window=4)
+    s, m = stats_ops.decode_scores(q, k, pos, **kw)
+    o, l = stats_ops.accumulate(s, m, v, pos=pos, **kw)
+    if shard == 1:
+        assert bool((m > NEG_INF).all()) and bool((l > 0).all())
+    else:
+        assert bool((s == NEG_INF).all()) and bool((m == NEG_INF).all())
+        assert float(o.abs().max()) == 0.0 and float(l.abs().max()) == 0.0
+
+
+def test_shard_scores_check_the_total_and_refuse_ring_caches():
+    q, k = torch.zeros(1, 1, 4, 8), torch.zeros(1, 12, 2, 8)
+    with pytest.raises(ValueError, match="exceeds"):
+        tattention.decode_stats_scores(q, k, torch.tensor(3), slot_offset=40,
+                                       total_len=48)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True)
+
+
+@pytest.mark.parametrize("pos", [0, 11, 12, 30, 47])
+def test_cache_write_lands_only_in_the_owning_shard(pos):
+    L_loc = SHARD_L // SHARDS
+    new = torch.arange(1, 1 + 2 * 3 * 4, dtype=torch.float32).reshape(
+        2, 1, 3, 4)
+    for shard in range(SHARDS):
+        cache = torch.zeros(2, L_loc, 3, 4)
+        tattention.write_cache(cache, new, torch.tensor(pos),
+                               slot_offset=shard * L_loc)
+        if pos // L_loc == shard:
+            assert torch.equal(cache[:, pos % L_loc], new[:, 0])
+            cache[:, pos % L_loc] = 0
+        assert float(cache.abs().max()) == 0.0, shard

@@ -101,8 +101,11 @@ def test_spec_validation():
         ServeSpec(batch=1, cache_len=16, fused_stats="jnp").validate()
     with pytest.raises(ValueError):
         ServeSpec(batch=1, cache_len=16, combine="bogus").validate()
-    with pytest.raises(ValueError, match="multi-rank"):
-        ServeSpec(batch=1, cache_len=16, seq_axes=("data",)).validate()
+    # a pod's own ranks hold the cache: ("data",) is taken, others are not
+    ServeSpec(batch=1, cache_len=16, seq_axes=("data",)).validate()
+    ServeSpec(batch=1, cache_len=16, seq_axes="data").validate()
+    with pytest.raises(ValueError, match="seq_axes"):
+        ServeSpec(batch=1, cache_len=16, seq_axes=("model",)).validate()
     ServeSpec(batch=2, cache_len=16, combine="locality").validate()
     with pytest.raises(ValueError, match="auto"):
         Engine(None, {}, ServeSpec(batch=1, cache_len=16, fused_stats="jnp"),

@@ -236,7 +236,13 @@ def task_vocabulary(ctx, q, pl, seed):
     if grid is None:
         return None
     x = _torch(ints(seed, (grid.p, 4, 2))[grid.rank], "float32")
+    o, m, l = x[..., None].repeat(1, 1, 3), x, x.abs() + 1
+    eager = C.logsumexp_combine(o, m, l, grid)
     same = {
+        "combine": all(map(torch.equal, C.collective(
+            "combine", o, m, l, grid=grid), eager)),
+        "combine_split": all(map(torch.equal, C.finish(C.collective(
+            "logsumexp_combine", m, grid=grid, start=True), o, l), eager)),
         "allgather": torch.equal(
             C.collective("allgather", x, grid=grid, tiled=True),
             C.allgather(x, grid, tiled=True)),
@@ -265,9 +271,8 @@ def task_vocabulary(ctx, q, pl, seed):
     errors = {}
     calls = {
         "all_to_all": lambda: C.collective("all_to_all", x, grid=grid),
-        "combine": lambda: C.collective("combine", x, x, x, grid=grid),
-        "logsumexp_combine": lambda: C.collective("logsumexp_combine", x,
-                                                  grid=grid),
+        "auto_combine": lambda: C.collective("combine", o, m, l, grid=grid,
+                                             algorithm="auto"),
         "auto": lambda: C.allgather(x, grid, algorithm="auto"),
         "auto_default_migrate": lambda: C.collective("cache_migrate", x,
                                                      grid=grid),
@@ -302,3 +307,132 @@ def task_paper_counts(ctx, q, pl, algorithm):
     st = grid.recorder.reset()
     return dict(nonlocal_msgs=st.permute_edges_nonlocal,
                 nonlocal_bytes=st.permute_bytes_nonlocal)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel serving (tests/test_torch_serve_seq.py)
+# ---------------------------------------------------------------------------
+def task_serve_seq(ctx, q, pl, params, n_layers, cache_len, requests,
+                   layouts):
+    """The port's engine on the grid, one per layout ``(name, spec
+    keywords)``: the same ``requests`` ((prompt, max_new), submitted
+    together) drained on a StepClock. Per layout: the tokens and start
+    stamps by request id, the engine's stats and its combine choice."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import collectives as C
+    from repro_torch.serve import Engine, Request, ServeSpec, StepClock
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                              n_layers=n_layers, dtype=torch.float32)
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    out = {}
+    for name, kw in layouts:
+        eng = Engine(cfg, tparams, ServeSpec(batch=1, cache_len=cache_len,
+                                             **kw),
+                     grid=grid, device="cpu", clock=StepClock())
+        rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in requests]
+        res = eng.drain()
+        # what one combine of this engine's payload sends, alone
+        cgrid = eng.hook.grid if eng.hook else None
+        one = None
+        if cgrid is not None:
+            before = cgrid.recorder.reset()
+            z = torch.zeros(1, 1, cfg.n_heads, cfg.head_dim_)
+            C.logsumexp_combine(z, z[..., 0], z[..., 0], cgrid,
+                                algorithm=eng.combine.algorithm)
+            one = cgrid.recorder.reset().edge_counts()
+            cgrid.recorder.stats = before
+        out[name] = dict(one_combine=one,
+            tokens={rid: res[rid].tokens.tolist() for rid in rids},
+            started={rid: res[rid].started_s for rid in rids},
+            stats=eng.stats(), combine=dataclasses.asdict(eng.combine),
+            cache_len=eng.cache_len, cache_offset=eng.cache_offset)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the decode logsumexp combine (tests/test_torch_combine.py)
+# ---------------------------------------------------------------------------
+NEG_INF = -2.0 ** 30
+COMBINE_SHAPE = (2, 1, 3, 4)          # (B, 1, H, D) of o; m and l (B, 1, H)
+
+
+def combine_inputs(p: int, seed: int) -> tuple[np.ndarray, ...]:
+    """Per-rank partial softmax stats (o, m, l), stacked over p ranks, fp32:
+    rank 1 and the last rank hold a fully masked slice (m = NEG_INF,
+    o = l = 0), rank 0 one masked head."""
+    rng = np.random.default_rng(seed)
+    B, _, H, D = COMBINE_SHAPE
+    o = rng.standard_normal((p,) + COMBINE_SHAPE).astype(np.float32)
+    m = (rng.standard_normal((p, B, 1, H)) * 3).astype(np.float32)
+    l = rng.uniform(1.0, 10.0, (p, B, 1, H)).astype(np.float32)
+    for r, head in ((1, slice(None)), (p - 1, slice(None)), (0, 0)):
+        m[r, :, :, head] = NEG_INF
+        o[r, :, :, head] = 0.0
+        l[r, :, :, head] = 0.0
+    return o, m, l
+
+
+def task_combine(ctx, q, pl, algorithm, seed):
+    """The combine eager, split, through collective()/finish and the
+    Collective class on this rank's slice; the recorder's counts of the
+    eager combine and of the max (rd) and sum (rhd) allreduces it is made
+    of, run alone on the same payloads."""
+    import torch
+    from repro_torch.core import collectives as C
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    o, m, l = (torch.from_numpy(a[grid.rank])
+               for a in combine_inputs(grid.p, seed))
+    eager = C.logsumexp_combine(o, m, l, grid, algorithm=algorithm)
+    stats = _stats(grid)
+    split = C.logsumexp_combine_finish(
+        o, l, C.logsumexp_combine_start(m, grid, algorithm=algorithm))
+    via = C.finish(C.collective("combine", m, grid=grid, algorithm=algorithm,
+                                start=True), o, l)
+    whole = C.collective("logsumexp_combine", o, m, l, grid=grid,
+                         algorithm=algorithm)
+    cls = C.Collective("combine", grid, algorithm)
+    obj = cls.finish(cls.start(m), o, l)
+    grid.recorder.reset()
+    C.allreduce(m, grid, algorithm=algorithm, outer_algorithm="rd", op="max")
+    C.allreduce(torch.cat([o.reshape(-1), l.reshape(-1)]), grid,
+                algorithm=algorithm, outer_algorithm="rhd", op="sum")
+    parts = _stats(grid)
+    same = all(torch.equal(a, b) for other in (split, via, whole, obj)
+               for a, b in zip(eager, other))
+    return dict(o=_np(eager[0]), l=_np(eager[1]), same=same, stats=stats,
+                parts=parts)
+
+
+def task_spec_errors(ctx, q, pl):
+    """The engine's refusals on a grid: (exception type, message) each."""
+    import dataclasses as dc
+
+    import torch as T
+    from repro_torch import configs as C
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, ServeSpec
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    cfg = dc.replace(C.get_smoke("llama3.2-3b"), n_layers=1,
+                     dtype=T.float32)
+    params = init_params(cfg, T.Generator().manual_seed(0), "cpu")
+    out = {}
+    for name, spec in (
+            ("batch", ServeSpec(batch=3, cache_len=48, combine="locality")),
+            ("auto", ServeSpec(batch=1, cache_len=48)),
+            ("batch_sharded", ServeSpec(batch=4, cache_len=48))):
+        try:
+            Engine(cfg, params, spec, grid=grid, device="cpu")
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
