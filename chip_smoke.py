@@ -43,7 +43,12 @@ the package is missing. Phases, each fatal on failure:
    20,000, so that a shard keeps all its slots, part of them or none,
    with no mask, a window and a chunk, against their plain versions (a
    shard with no slot kept exactly m = NEG_INF, o = 0, l = 0; the unmasked
-   cases timed with their bounds);
+   cases timed with their bounds); and the kernels at phase 7's per-rank
+   shapes: both decode kernels on B = 2 rows (bf16 and fp32) and 1 row
+   (fp32) of a 2,048-slot llama3.2-3b cache at positions of phase 7's
+   trace, and RMSNorm, plain and residual, 3,072 wide, on 1 and 2 rows and
+   on the trace's shortest and longest prefills (135 and 1,459 rows), in
+   bf16 and fp32, at the tolerances above, timed with their bounds;
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -102,10 +107,43 @@ the package is missing. Phases, each fatal on failure:
    prefill and decode-step host ms, the combine's host and exchange ms, the
    per-step non-local messages and bytes and staged bytes of each rank,
    and each process's peak memory. Times are of 4 ranks sharing one H100.
+7. batch-sharded serving, ``serve_batch_sharded``: 6 spawned ranks again.
+   First a reduced llama3.2-3b (2 layers, fp32, full width) serving the
+   phase's 16 requests with ``ServeSpec(batch=B, cache_len=2048,
+   page_len=16, migrate=alg)`` on 2 x 2 (B = 8) and 3 x 2 (B = 6, where
+   2,048 slots do not divide over 6 ranks and the donor span narrows to
+   ("data",)) for each of ``locality_bruck``, ``multilane`` and ``xla``:
+   tokens exactly equal to a one-rank engine's of the same batch, and on
+   2 x 2 the migrations ``BATCH_MIGRATIONS``, the count that the JAX
+   engine and the port's scheduler give for the same trace at a reduced
+   size in tests/test_torch_serve_batch.py. Then llama3.2-3b at full width
+   (bf16, random weights from seed 0), B = 8 on 2 x 2, 2 rows a rank:
+   16 requests of 128-1,536 prompt tokens and 32-64 new (seeded), all
+   arriving at 0 and homed in pod 0, so pod 0's two ranks prefill every
+   request, its rows fill locally and the rest migrate to pod 1 (the
+   explicit donor move, then one ``cache_migrate`` per K and V slab);
+   every rank decodes its 2 rows by graph replay. Against a one-rank
+   engine (B = 8) on the same requests: each request's prefill logits
+   bitwise equal, its first decode logits within 5% of the largest
+   |logit| (``SEQ_LOGIT_REL``), every rank's results equal, the
+   migrations ``BATCH_MIGRATIONS``, each rank's prefills (16 in pod 0, 0
+   in pod 1) and launches exactly what the path implies, and per
+   migration the collective's non-local messages on each rank equal to
+   the schedule oracle's (``schedules.locality_bruck`` / ``multilane``,
+   two slabs) or, for ``xla``, the recorder's own model of one library
+   all-gather (the call the port's route makes, so on the card this holds
+   only the number of gathers; the CPU test holds the model against the
+   JAX HLO); reported: the share of greedy tokens equal to the one-rank
+   engine's, prefill ms per request on the ranks that ran it, migration
+   ms split into the donor move (on a rank of pod 1 it includes the wait
+   for pod 0's prefill), the collective and the insert, decode step ms
+   (the graph replay and a sync, host clock), bytes and non-local messages
+   and bytes per migration of the collective and of the donor move,
+   staged bytes and each process's peak memory.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phase 4, phase 5, each engine of phase 6 in its own
-process) and read just after it.
+(the DMA gather, phase 4, phase 5, each engine of phases 6 and 7 in its
+own process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -195,6 +233,10 @@ def err_of(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def np_err(out: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(out - ref).max())
+
+
 def close(out, ref, tol: float, what: str, rtol: float | None = None
           ) -> float:
     err = err_of(out, ref)
@@ -282,6 +324,8 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
             cases[name] += rows
     cases["decode_attention"] = [decode_pair(timer, g)]
     cases["decode_offset"] = decode_offset_cases(timer, g)
+    rms, cases["decode_batch"] = batch_sharded_cases(timer)
+    cases["rmsnorm"] += rms
     return cases
 
 
@@ -373,6 +417,91 @@ def decode_offset_cases(timer, g) -> list[dict]:
     del q, k, v
     torch.cuda.empty_cache()
     return rows
+
+
+# the kernels at the shapes phase 7 gives them on a rank: the decode pair on
+# B_loc rows of llama3.2-3b (KV = 8, G = 3, D = 128) over the 2,048-slot
+# cache, 2 rows a rank on 2 x 2 (bf16 at full width, fp32 reduced) and 1 on
+# the reduced 3 x 2 (fp32); RMSNorm, plain and residual, 3,072 wide, on
+# those decode rows and on the trace's shortest and longest prefills
+BATCH_DECODE = ((2, torch.bfloat16), (2, torch.float32), (1, torch.float32))
+BATCH_DECODE_DRAWS = 3
+
+
+def batch_positions(rng, rows: int, draw: int) -> list[int]:
+    """Decode positions of phase 7's trace: request i decodes at slots
+    len_i .. len_i + max_new_i - 2. Draw 0 takes the trace's extremes (the
+    shortest prompt's first step, the longest reach's last), the others a
+    seeded request and step a row."""
+    span = [(len(t), len(t) + m - 2) for t, m in batch_requests(2)]
+    if draw == 0:
+        return [min(a for a, _ in span), max(b for _, b in span)][-rows:]
+    picks = rng.integers(0, len(span), rows)
+    return [int(rng.integers(span[i][0], span[i][1] + 1)) for i in picks]
+
+
+def batch_sharded_cases(timer) -> tuple[list[dict], list[dict]]:
+    """(RMSNorm rows, decode rows) at phase 7's per-rank shapes against
+    their plain versions at the tolerances of ``decode_cases`` and
+    ``rmsnorm_case``, with times and bounds counted as there."""
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF
+    g = torch.Generator(device="cuda").manual_seed(1)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    rng = np.random.default_rng(1)
+    d = 3072
+    lens = [len(t) for t, _ in batch_requests(2)]
+    rms = [rmsnorm_case(timer, randn, form, rows, d, dtype,
+                        2e-2 if dtype == torch.bfloat16 else None)
+           for dtype in (torch.bfloat16, torch.float32)
+           for rows in (1, 2, min(lens), max(lens))
+           for form in ("plain", "residual")]
+    for row in rms:
+        row["path"] = "serve_batch_sharded"
+    KV, (G, D), L = DECODE_KV, DECODE_SHAPES[0], BATCH_CACHE
+    rows = []
+    for B, dtype in BATCH_DECODE:
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        q, k, v = (randn(B, 1, KV * G, D).to(dtype),
+                   randn(B, L, KV, D).to(dtype), randn(B, L, KV, D).to(dtype))
+        es = q.element_size()
+        for draw in range(BATCH_DECODE_DRAWS):
+            at = batch_positions(rng, B, draw)
+            pos = torch.tensor(at, device="cuda")
+            slots = sum(a + 1 for a in at)
+            what = f"decode B={B} {dtype} L={L} positions {at}"
+            s, m = stats_ops.decode_scores(q, k, pos)
+            rs, rm = stats_ops.decode_scores_ref(q, k, pos)
+            check(torch.equal(s == NEG_INF, rs == NEG_INF),
+                  f"{what}: masked slots differ")
+            err = max(close(s, rs, tol, what + " s"),
+                      close(m, rm, tol, what + " m"))
+            o, l = stats_ops.accumulate(s, m, v, pos=pos)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+            err_o = max(close(o, ro, tol, what + " o"),
+                        close(l, rl, tol, what + " l"))
+            sb, sby = bound(q.numel() * es + slots * KV * D * es
+                            + (s.numel() + m.numel()) * 4,
+                            2 * slots * KV * G * D, dtype)
+            ab, aby = bound((m.numel() + o.numel() + l.numel()) * 4
+                            + slots * KV * (G * 4 + D * es),
+                            2 * slots * KV * G * D, dtype)
+            rows.append(dict(
+                shape=[B, KV, G, L, D], dtype=str(dtype), positions=at,
+                kept_slots=slots, max_abs_err_scores=err,
+                max_abs_err_stats=err_o, tolerance=tol,
+                scores_ms=timer(lambda: stats_ops.decode_scores(q, k, pos)),
+                scores_plain_ms=timer(
+                    lambda: stats_ops.decode_scores_ref(q, k, pos)),
+                scores_bound_ms=sb, scores_bound_by=sby,
+                stats_ms=timer(lambda: stats_ops.accumulate(s, m, v,
+                                                            pos=pos)),
+                stats_plain_ms=timer(
+                    lambda: stats_ops.decode_stats_accumulate_ref(s, m, v)),
+                stats_bound_ms=ab, stats_bound_by=aby))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rms, rows
 
 
 # decode attention at llama3.2-3b's decode shape (B = 8 rows, KV = 8, G = 3,
@@ -1010,20 +1139,30 @@ def seq_requests(vocab: int, lens) -> list[tuple[np.ndarray, int]]:
     return [(rng.integers(0, vocab, n), SEQ_NEW) for n in lens]
 
 
-def seq_serve(cfg, params, spec, requests, grid=None) -> dict:
-    """Serve ``requests`` ((prompt, max_new)), submitted together, through
-    an Engine on the card (on ``grid``, or one rank); per request the
-    tokens, the logits of its prefill and of its first decode step (fp32,
-    host), the prefill's host ms; every decode step's host ms; the
-    launches per kernel, counted from 0 around the drain; the stats."""
+def serve_on_card(cfg, params, spec, requests, grid=None, home_pod=None
+                  ) -> dict:
+    """Serve ``requests`` ((prompt, max_new)), all arriving at 0 and homed
+    in ``home_pod``, through an Engine on the card (on ``grid``, or one
+    rank; phases 6 and 7). Per request id: the logits of its prefill where
+    this rank ran it and of its first decode step where this rank holds
+    its row (fp32 numpy arrays, which a spawned rank returns by value), the
+    prefill's host ms; every decode step's host ms (the step and a sync);
+    the launches per kernel, counted from 0 around the drain and checked
+    against the path; the results, stats and layout."""
     from repro_torch import kernels
     from repro_torch.serve import Engine, Request, StepClock
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, params, spec, grid=grid, clock=StepClock())
-    forward, decode = eng.model.forward, eng.scheduler._decode
-    rec = {"prefill_ms": [], "decode_ms": [], "prefill_logits": [],
-           "decode_logits": []}
+    sched = eng.scheduler
+    forward, decode, start = eng.model.forward, sched._decode, sched._start
+    rec = {"prefill_ms": {}, "decode_ms": [], "prefill_logits": {},
+           "decode_logits": {}}
+    current = {}
+
+    def timed_start(req, row):
+        current["rid"] = req.rid
+        return start(req, row)
 
     def timed_forward(tokens, mode="prefill", **kw):
         if mode != "prefill":
@@ -1031,8 +1170,9 @@ def seq_serve(cfg, params, spec, requests, grid=None) -> dict:
         t = time.perf_counter()
         logits, cache = forward(tokens, mode=mode, **kw)
         check(bool(torch.isfinite(logits).all()), "non-finite prefill")
-        rec["prefill_ms"].append((time.perf_counter() - t) * 1e3)
-        rec["prefill_logits"].append(logits[0, -1].float().cpu())
+        rid = current["rid"]
+        rec["prefill_ms"][rid] = (time.perf_counter() - t) * 1e3
+        rec["prefill_logits"][rid] = logits[0, -1].float().cpu().numpy()
         return logits, cache
 
     def timed_decode():
@@ -1040,32 +1180,40 @@ def seq_serve(cfg, params, spec, requests, grid=None) -> dict:
         logits = decode()
         check(bool(torch.isfinite(logits).all()), "non-finite decode")
         rec["decode_ms"].append((time.perf_counter() - t) * 1e3)
-        if len(rec["decode_logits"]) < len(rec["prefill_logits"]):
-            rec["decode_logits"].append(logits[0, -1].float().cpu())
+        for rid, st in sched.active.items():      # rows at their first step
+            if st.owned and st.n == 1:
+                rec["decode_logits"][rid] = logits[
+                    st.row - sched.rows_lo, -1].float().cpu().numpy()
         return logits
 
-    eng.model.forward, eng.scheduler._decode = timed_forward, timed_decode
+    eng.model.forward, sched._decode = timed_forward, timed_decode
+    sched._start = timed_start
     kernels.add_launch_counts(kernels.launch_counts(), -1)    # all to 0
-    rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in requests]
+    rids = [eng.submit(Request(tokens=t, max_new=m, home_pod=home_pod,
+                               arrival_s=0.0)) for t, m in requests]
     results = eng.drain()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     st = eng.stats()
     want = launches_implied(cfg, st)
     got = {name: counts[name] for name in PATH_KERNELS}
-    check(got == want, f"seq serve: launches {got}, the path implies {want}")
+    check(got == want, f"serve: launches {got}, the path implies {want}")
     forms = {f: counts[f"rmsnorm.{f}"] for f in ("plain", "residual", "gated")}
     want = rmsnorm_forms_implied(cfg, st)
-    check(forms == want, f"seq serve: rmsnorm forms {forms}, the path "
-                         f"implies {want}")
-    check(len(rec["decode_logits"]) == len(requests),
-          "seq serve: a request without a decode step")
-    out = dict(rec, tokens=[results[r].tokens.tolist() for r in rids],
-               stats=st, launches=got, rmsnorm_forms=forms,
+    check(forms == want, f"serve: rmsnorm forms {forms}, the path implies "
+                         f"{want}")
+    out = dict(rec, stats=st, launches=got, rmsnorm_forms=forms,
+               tokens={rid: results[rid].tokens.tolist() for rid in rids},
+               results={rid: (results[rid].tokens.tolist(),
+                              results[rid].slot, results[rid].migrated,
+                              results[rid].started_s,
+                              results[rid].finished_s) for rid in rids},
                peak_bytes=torch.cuda.max_memory_allocated(),
+               rows=(eng.rows_lo, eng.local_batch),
+               span=(sched.migrate.span if sched.migrate else None),
                cache_len=eng.cache_len, cache_offset=eng.cache_offset,
                combine=dataclasses.asdict(eng.combine))
-    del eng
+    del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1092,7 +1240,7 @@ def seq_rank(rank: int, world: int, plan: dict) -> dict:
     for shape, grid in grids.items():
         for name, kw in SEQ_LAYOUTS:
             if grid is not None:
-                res = seq_serve(cfg, params, ServeSpec(
+                res = serve_on_card(cfg, params, ServeSpec(
                     batch=1, cache_len=SEQ_REDUCED_CACHE, **kw),
                     plan["reduced"], grid)
                 out["reduced"][f"{shape[0]}x{shape[1]}|{name}"] = {
@@ -1106,7 +1254,7 @@ def seq_rank(rank: int, world: int, plan: dict) -> dict:
         full, torch.Generator(device="cuda").manual_seed(0), "cuda")
     for name, kw in SEQ_LAYOUTS:
         if grid is not None:
-            res = seq_serve(full, params, ServeSpec(
+            res = serve_on_card(full, params, ServeSpec(
                 batch=1, cache_len=SEQ_CACHE, **kw), plan["full"], grid)
             if rank:
                 res.pop("prefill_logits")
@@ -1134,9 +1282,8 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
                                 ("full", full, SEQ_CACHE)):
         params = init_params(cfg, torch.Generator(device="cuda")
                              .manual_seed(0), "cuda")
-        refs[key] = seq_serve(cfg, params, ServeSpec(batch=1,
-                                                     cache_len=cache_len),
-                              plan[key])
+        refs[key] = serve_on_card(cfg, params, ServeSpec(
+            batch=1, cache_len=cache_len), plan[key])
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1167,16 +1314,21 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
             check(res[r]["tokens"] == res[0]["tokens"],
                   f"{name}: rank {r}'s tokens differ from rank 0's")
         r0 = res[0]
-        d_pre = [err_of(a, b) for a, b in zip(r0["prefill_logits"],
-                                               ref["prefill_logits"])]
-        d_dec = [err_of(a, b) for a, b in zip(r0["decode_logits"],
-                                               ref["decode_logits"])]
-        scale = max(float(t.abs().max()) for t in ref["decode_logits"])
+        rids = sorted(ref["tokens"])
+        check(sorted(r0["prefill_logits"]) == sorted(r0["decode_logits"])
+              == rids, f"{name}: a request without its prefill or first "
+                       "decode")
+        d_pre = [np_err(r0["prefill_logits"][i], ref["prefill_logits"][i])
+                 for i in rids]
+        d_dec = [np_err(r0["decode_logits"][i], ref["decode_logits"][i])
+                 for i in rids]
+        scale = max(float(np.abs(t).max())
+                    for t in ref["decode_logits"].values())
         check(max(d_pre + d_dec) <= SEQ_LOGIT_REL * scale,
               f"{name}: logits differ from the one-rank engine's by "
               f"{max(d_pre + d_dec)} (limit {SEQ_LOGIT_REL * scale})")
-        same = sum(a == b for ta, tb in zip(r0["tokens"], ref["tokens"])
-                   for a, b in zip(ta, tb))
+        same = sum(a == b for i in rids
+                   for a, b in zip(r0["tokens"][i], ref["tokens"][i]))
         steps = r0["stats"]["decode_steps"]
         per_step = {k: [x["launches"][k] / steps for x in res]
                     for k in ("decode_scores", "decode_stats")}
@@ -1190,9 +1342,9 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
             "cache_len": SEQ_CACHE, "slots_per_rank": r0["cache_len"],
             "combine": r0["combine"], "prompts": list(SEQ_PROMPTS),
             "new_tokens": SEQ_NEW, "decode_steps": steps,
-            "prefill_ms": {f"rank{r}": x["prefill_ms"]
+            "prefill_ms": {f"rank{r}": [x["prefill_ms"][i] for i in rids]
                            for r, x in enumerate(res)},
-            "prefill_ms_one_rank": ref["prefill_ms"],
+            "prefill_ms_one_rank": [ref["prefill_ms"][i] for i in rids],
             "decode_step_ms_mean": float(np.mean(r0["decode_ms"])),
             "decode_step_ms_mean_by_rank": [float(np.mean(x["decode_ms"]))
                                             for x in res],
@@ -1218,7 +1370,246 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
             "prefill_bitwise_equal": all(d == 0 for d in d_pre),
             "max_abs_dlogit_first_decode": d_dec,
             "logit_tolerance": SEQ_LOGIT_REL * scale,
-            "greedy_equal_share": same / sum(map(len, ref["tokens"])),
+            "greedy_equal_share": same / sum(map(len,
+                                                 ref["tokens"].values())),
+            "ranks_wall_s": ranks_s, "card": smi}))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 7: batch-sharded serving over gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+# ServeSpec(batch=8, cache_len=2048, page_len=16) on 2 x 2 ranks, 2 rows a
+# rank; 16 requests, all arriving at 0 and homed in pod 0, so pod 0's rows
+# fill from its own prefills and the rest migrate to pod 1
+BATCH_ROWS, BATCH_CACHE, BATCH_PAGE = 8, 2048, 16
+BATCH_GRID = (2, 2)
+BATCH_HOME_POD = 0
+BATCH_N = 16
+# what the JAX engine and the port's scheduler decide for this trace (both
+# held to it at a reduced size in tests/test_torch_serve_batch.py)
+BATCH_MIGRATIONS = 8
+BATCH_ALGS = ("locality_bruck", "multilane", "xla")
+BATCH_REDUCED_GRIDS = ((2, 2), (3, 2))
+# the reduced run's batch on 3 x 2: one that divides over 6 ranks
+BATCH_REDUCED_ROWS = {(2, 2): 8, (3, 2): 6}
+
+
+def batch_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
+    """(prompt, max_new): 128-1,536 prompt tokens, 32-64 new, seeded; the
+    lengths do not depend on ``vocab``."""
+    rng = np.random.default_rng(7)
+    lens = rng.integers(128, 1537, BATCH_N)
+    news = rng.integers(32, 65, BATCH_N)
+    return [(rng.integers(0, vocab, int(n)), int(m))
+            for n, m in zip(lens, news)]
+
+
+def batch_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 7 (every rank shares the one card): the reduced
+    fp32 run on 2 x 2 (ranks 0-3) and 3 x 2 for each migration schedule,
+    then llama3.2-3b at full width on 2 x 2 for each; ranks outside a grid
+    wait at the barrier that follows each run."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = {shape: RankGrid.build(*shape) for shape in BATCH_REDUCED_GRIDS}
+    out = {"rank": rank, "reduced": {}, "full": {}}
+    full = configs.get("llama3.2-3b")
+    cfg = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    for shape, grid in grids.items():
+        for alg in BATCH_ALGS:
+            if grid is not None:
+                res = serve_on_card(cfg, params, ServeSpec(
+                    batch=BATCH_REDUCED_ROWS[shape], cache_len=BATCH_CACHE,
+                    page_len=BATCH_PAGE, migrate=alg), plan["requests"],
+                    grid, BATCH_HOME_POD)
+                out["reduced"][f"{shape[0]}x{shape[1]}|{alg}"] = {
+                    "tokens": res["tokens"], "span": res["span"],
+                    "migrations": res["stats"]["migrations"]}
+            dist.barrier()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = grids[BATCH_GRID]
+    params = None if grid is None else init_params(
+        full, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for alg in BATCH_ALGS:
+        if grid is not None:
+            out["full"][alg] = serve_on_card(full, params, ServeSpec(
+                batch=BATCH_ROWS, cache_len=BATCH_CACHE, page_len=BATCH_PAGE,
+                migrate=alg), plan["requests"], grid, BATCH_HOME_POD)
+        dist.barrier()
+    return out
+
+
+def migrate_oracle(alg: str, q: int, pl: int, leaf_bytes: int) -> list[int]:
+    """Non-local messages a rank of one migration's collective, its two
+    leaves (K and V): the schedule oracle's for the Bruck schedules. For
+    "xla" it is the recorder's own model of one library all-gather, the
+    call the port's xla route makes, so on the card that check holds only
+    the number of gathers; tests/test_torch_serve_batch.py holds the model
+    against the JAX HLO's collective_stats."""
+    from repro_torch.core import schedules as TS
+    from repro_torch.core.comm_record import CommRecorder
+    from repro_torch.core.topology import RegionMap
+    p = q * pl
+    if alg != "xla":
+        stats = TS.ALGORITHMS[alg](p, pl).per_rank_stats(RegionMap(p, pl))
+        return [2 * stats[r][2] for r in range(p)]
+    out = []
+    for r in range(p):
+        rec = CommRecorder(pl)
+        rec.group("all-gather", tuple(range(p)), r, leaf_bytes)
+        out.append(2 * rec.stats.nonlocal_msgs)
+    return out
+
+
+def serve_batch_sharded(smi: str) -> dict[str, int]:
+    """Phase 7: the one-rank references in this process, then 6 spawned
+    ranks (``batch_rank``); checks and prints each schedule; returns the
+    launches per kernel of the full-width runs, summed over the ranks and
+    schedules."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+
+    full = configs.get("llama3.2-3b")
+    reduced = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    reqs = batch_requests(full.vocab_size)
+    refs = {}
+    for key, cfg, rows in (("reduced8", reduced, 8), ("reduced6", reduced, 6),
+                           ("full", full, BATCH_ROWS)):
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        refs[key] = serve_on_card(cfg, params, ServeSpec(
+            batch=rows, cache_len=BATCH_CACHE, page_len=BATCH_PAGE), reqs,
+            home_pod=BATCH_HOME_POD)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(6, batch_rank, {"requests": reqs}, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+
+    for (q, pl), rows in BATCH_REDUCED_ROWS.items():
+        want = refs[f"reduced{rows}"]["tokens"]
+        for alg in BATCH_ALGS:
+            key = f"{q}x{pl}|{alg}"
+            for r in range(q * pl):
+                got = ranks[r]["reduced"][key]
+                check(got["tokens"] == want, f"reduced fp32 {key} rank {r}: "
+                                             "tokens differ from one rank's")
+                if (q, pl) == BATCH_GRID:
+                    check(got["migrations"] == BATCH_MIGRATIONS,
+                          f"reduced {key}: {got['migrations']} migrations, "
+                          f"the CPU test's trace {BATCH_MIGRATIONS}")
+    print(json.dumps({
+        "phase": "serve_batch_sharded_reduced", "model": reduced.name,
+        "layers": 2, "dtype": "float32", "cache_len": BATCH_CACHE,
+        "grids": {f"{q}x{pl}": {"batch": rows, "span": ranks[0]["reduced"][
+            f"{q}x{pl}|{BATCH_ALGS[0]}"]["span"]}
+            for (q, pl), rows in BATCH_REDUCED_ROWS.items()},
+        "schedules": list(BATCH_ALGS), "requests": len(reqs),
+        "migrations_2x2": BATCH_MIGRATIONS,
+        "tokens_equal_to_one_rank": True}))
+
+    ref = refs["full"]
+    scale = max(float(np.abs(t).max()) for t in ref["decode_logits"].values())
+    q, pl = BATCH_GRID
+    p = q * pl
+    leaf = (full.n_layers * BATCH_CACHE * full.n_kv_heads * full.head_dim_
+            * 2)                                    # one bf16 K or V slab
+    total = {name: 0 for name in PATH_KERNELS}
+    for alg in BATCH_ALGS:
+        res = [ranks[r]["full"][alg] for r in range(p)]
+        for r in range(1, p):
+            check(res[r]["results"] == res[0]["results"],
+                  f"{alg}: rank {r}'s results differ from rank 0's")
+        mig = res[0]["stats"]["migrations"]
+        check(mig == BATCH_MIGRATIONS, f"{alg}: {mig} migrations, the CPU "
+                                       f"test's trace {BATCH_MIGRATIONS}")
+        pre = {rid: l for x in res for rid, l in x["prefill_logits"].items()}
+        dec = {rid: l for x in res for rid, l in x["decode_logits"].items()}
+        check(sorted(pre) == sorted(ref["prefill_logits"])
+              and sorted(dec) == sorted(ref["decode_logits"]),
+              f"{alg}: a request without its prefill or first decode")
+        d_pre = [np_err(pre[rid], ref["prefill_logits"][rid])
+                 for rid in sorted(pre)]
+        d_dec = [np_err(dec[rid], ref["decode_logits"][rid])
+                 for rid in sorted(dec)]
+        check(max(d_pre) == 0, f"{alg}: prefill logits differ from the "
+                               f"one-rank engine's by {max(d_pre)}")
+        check(max(d_dec) <= SEQ_LOGIT_REL * scale,
+              f"{alg}: first decode logits differ from the one-rank "
+              f"engine's by {max(d_dec)} (limit {SEQ_LOGIT_REL * scale})")
+        # each rank prefills the requests homed in its pod, all of them
+        for r, x in enumerate(res):
+            want = len(reqs) if r // pl == BATCH_HOME_POD else 0
+            check(x["stats"]["prefills"] == want,
+                  f"{alg}: rank {r} ran {x['stats']['prefills']} prefills, "
+                  f"the path {want}")
+        oracle = migrate_oracle(alg, q, pl, leaf)
+        per_mig = lambda k: [x["stats"][k] / mig for x in res]
+        check(per_mig("migrate_nonlocal_msgs") == oracle,
+              f"{alg}: non-local messages a migration "
+              f"{per_mig('migrate_nonlocal_msgs')}, the schedule {oracle}")
+        same = sum(a == b for rid, toks in res[0]["tokens"].items()
+                   for a, b in zip(toks, ref["tokens"][rid]))
+        n_tok = sum(map(len, ref["tokens"].values()))
+        for x in res:
+            for k, n in x["launches"].items():
+                total[k] += n
+        steps = res[0]["stats"]["decode_steps"]
+        print(json.dumps({
+            "phase": "serve_batch_sharded", "migrate": alg,
+            "shared": "4 ranks sharing one H100 over gloo",
+            "model": full.name, "layers": full.n_layers, "dtype": "bfloat16",
+            "batch": BATCH_ROWS, "rows_per_rank": res[0]["rows"][1],
+            "cache_len": BATCH_CACHE, "page_len": BATCH_PAGE,
+            "requests": len(reqs), "home_pod": BATCH_HOME_POD,
+            "prompt_lens": [len(t) for t, _ in reqs],
+            "new_tokens": [m for _, m in reqs], "donor_span": res[0]["span"],
+            "migrations": mig, "decode_steps": steps,
+            "prefill_ms_by_rank": [
+                [x["prefill_ms"][rid] for rid in sorted(x["prefill_ms"])]
+                for x in res],
+            "prefill_ms_one_rank": [ref["prefill_ms"][rid]
+                                    for rid in sorted(ref["prefill_ms"])],
+            "migration_ms": {part: [x["stats"][f"migrate_{part}_s"] / mig
+                                    * 1e3 for x in res]
+                             for part in ("donor", "collective", "insert")},
+            "migration_host_ms": [x["stats"]["migrate_host_s"] / mig * 1e3
+                                  for x in res],
+            "decode_step_ms_mean_by_rank": [float(np.mean(x["decode_ms"]))
+                                            for x in res],
+            "decode_step_ms_mean_one_rank": float(np.mean(ref["decode_ms"])),
+            "decode_steps_one_rank": ref["stats"]["decode_steps"],
+            "migrate_bytes_per_migration": per_mig("migrate_bytes"),
+            "migrate_nonlocal_msgs_per_migration":
+                per_mig("migrate_nonlocal_msgs"),
+            "migrate_nonlocal_bytes_per_migration":
+                per_mig("migrate_nonlocal_bytes"),
+            "schedule_nonlocal_msgs": oracle,
+            "donor_bytes_per_migration": per_mig("donor_bytes"),
+            "donor_nonlocal_msgs_per_migration":
+                per_mig("donor_nonlocal_msgs"),
+            "staging_bytes": [x["stats"]["staging_bytes"] for x in res],
+            "prefills_by_rank": [x["stats"]["prefills"] for x in res],
+            "launches_by_rank": [x["launches"] for x in res],
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "peak_bytes_one_rank": ref["peak_bytes"],
+            "prefill_bitwise_equal": True,
+            "max_abs_dlogit_first_decode": max(d_dec),
+            "logit_tolerance": SEQ_LOGIT_REL * scale,
+            "greedy_equal_share": same / n_tok,
             "ranks_wall_s": ranks_s, "card": smi}))
     return total
 
@@ -1288,6 +1679,7 @@ def main() -> int:
             print(json.dumps({"kernel": name, **row}))
     pair = cases.pop("decode_attention")[0]
     offset_rows = cases.pop("decode_offset")
+    batch_rows = cases.pop("decode_batch")
     from repro_torch import configs
     dma = dma_cases_of(configs.get("llama3.2-3b"))
     cases["dma_allgather"] = dma_allgather_cases(timer, dma)
@@ -1305,6 +1697,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     by_path["serve_seq_parallel"] = serve_seq_parallel(smi)
+    by_path["serve_batch_sharded"] = serve_batch_sharded(smi)
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1342,6 +1735,14 @@ def main() -> int:
              for r in cases["rmsnorm"][::-1] if r["shape"] == [8, 3072]
              and r["dtype"] == "torch.bfloat16"}
     kernels[0]["forms_8x3072_bf16"] = forms
+    phase7 = [r for r in cases["rmsnorm"]
+              if r.get("path") == "serve_batch_sharded"]
+    kernels[0]["batch_sharded_cases"] = {
+        "cases": len(phase7),
+        "max_abs_err": max(r["max_abs_err"] for r in phase7),
+        **{f: [r[f] for r in phase7] for f in ("ms", "plain_ms", "bound_ms")},
+        "forms": [r["form"] for r in phase7],
+        "shapes": [r["shape"] for r in phase7]}
     for row in kernels:        # the pair (scores, accumulate, o / l) and SDPA
         if row["name"].startswith("decode_s"):
             row["decode_attention_pair"] = {
@@ -1356,6 +1757,13 @@ def main() -> int:
                 "plain_ms": [r[f"{key}_plain_ms"] for r in timed],
                 "bound_ms": [r[f"{key}_bound_ms"] for r in timed],
                 "states": [r["state"] for r in timed]}
+            row["batch_sharded_cases"] = {
+                "cases": len(batch_rows),
+                "max_abs_err": max(r[f"max_abs_err_{key}"]
+                                   for r in batch_rows),
+                **{f: [r[f"{key}_{f}"] for r in batch_rows]
+                   for f in ("ms", "plain_ms", "bound_ms")},
+                "shapes": [r["shape"] for r in batch_rows]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

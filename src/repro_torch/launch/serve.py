@@ -5,17 +5,26 @@
 random bf16 weights made from seed 0; ``--smoke --device cpu`` serves the
 reduced configuration on the CPU.
 
-``--ranks N --pods q`` serves one long-context conversation at a time
-(batch 1) with its KV cache split over N ranks, q pods of N/q:
+``--ranks N --pods q`` spawns N processes, q pods of N/q, that join one
+gloo group on localhost; each serves on ``cuda`` (all of them on the one
+card when there is one) unless ``--device cpu``. With a ``--batch`` that
+divides over the N ranks the batch is sharded over them, B / N rows a
+rank: 2 x ``--batch`` requests, homed in ``--home-pod`` (default: none, the
+pod of the row each gets), each prefilled by its pod's ranks and migrated
+with ``--migrate`` when its row lies in another pod:
 
-    python -m repro_torch.launch.serve --ranks 4 --pods 2 \\
+    python -m repro_torch.launch.serve --ranks 4 --pods 2 --batch 8 \\
+        --home-pod 0 --migrate locality_bruck
+
+With ``--batch 1`` it serves one long-context conversation at a time, its
+KV cache split over the ranks:
+
+    python -m repro_torch.launch.serve --ranks 4 --pods 2 --batch 1 \\
         --combine locality --cache-len 32768 --prompt-len 3000
 
-spawns N processes that join one gloo group on localhost; each serves on
-``cuda`` (all of them on the one card when there is one) unless
-``--device cpu``. ``--seq-axes data`` keeps the whole cache in every pod,
-split over the pod's ranks. The kernels are built once, here, before the
-ranks start. :func:`run_ranks` is the spawning helper.
+``--seq-axes data`` keeps that cache whole in every pod, split over the
+pod's ranks. The kernels are built once, here, before the ranks start.
+:func:`run_ranks` is the spawning helper.
 """
 from __future__ import annotations
 
@@ -107,8 +116,9 @@ def _config(args):
 
 
 def _serve_rank(rank: int, world: int, args) -> dict:
-    """One rank of ``--ranks``: the sequence-parallel engine on its grid,
-    serving three requests submitted together, one at a time."""
+    """One rank of ``--ranks``: the engine on its grid, batch-sharded (2 x
+    ``--batch`` requests) or with a split cache (three requests, one at a
+    time), every request submitted at once."""
     from repro_torch.core.topology import RankGrid
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec, resolve_device
@@ -118,23 +128,27 @@ def _serve_rank(rank: int, world: int, args) -> dict:
     cfg = _config(args)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
-    spec = ServeSpec(batch=1, cache_len=args.cache_len, combine=args.combine,
+    spec = ServeSpec(batch=args.batch, cache_len=args.cache_len,
+                     combine=args.combine, migrate=args.migrate,
                      seq_axes="auto" if args.seq_axes == "auto"
                      else (args.seq_axes,))
     eng = Engine(cfg, params, spec, grid=grid, device=device)
     rng = np.random.default_rng(0)
+    n = 2 * args.batch if eng.sharded else 3
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(n):
         eng.submit(Request(tokens=rng.integers(0, cfg.vocab_size,
                                                args.prompt_len),
-                           max_new=args.max_new))
+                           max_new=args.max_new, home_pod=args.home_pod))
     results = eng.drain()
     if device.type == "cuda":
         torch.cuda.synchronize()
     return {"rank": rank, "seconds": time.perf_counter() - t0,
             "tokens": {rid: r.tokens.tolist() for rid, r in results.items()},
+            "migrated": sorted(rid for rid, r in results.items()
+                               if r.migrated),
             "stats": eng.stats(), "cache_len": eng.cache_len,
-            "cache_offset": eng.cache_offset,
+            "cache_offset": eng.cache_offset, "sharded": eng.sharded,
             "combine": dataclasses.asdict(eng.combine)}
 
 
@@ -149,12 +163,18 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--ranks", type=int, default=1,
-                    help="ranks the B = 1 cache is split over (spawned)")
+                    help="ranks the batch, or a B = 1 cache, is split over "
+                         "(spawned)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods the ranks form (ranks / pods lanes each)")
     ap.add_argument("--combine", default="locality",
                     choices=("locality", "xla"))
     ap.add_argument("--seq-axes", default="auto", choices=("auto", "data"))
+    ap.add_argument("--migrate", default="locality_bruck",
+                    choices=("locality_bruck", "multilane", "xla"),
+                    help="the cross-pod cache migration's schedule")
+    ap.add_argument("--home-pod", type=int, default=None,
+                    help="the pod every request is homed in (default none)")
     ap.add_argument("--cache-len", type=int, default=None,
                     help="cache slots (default: prompt + new, rounded up)")
     args = ap.parse_args(argv)
@@ -178,11 +198,23 @@ def main(argv=None) -> None:
             raise SystemExit("[serve] the ranks' tokens differ")
         st = out[0]["stats"]
         n = sum(len(t) for t in out[0]["tokens"].values())
+        layout = (f"batch {args.batch}, {args.batch // args.ranks} rows a "
+                  f"rank, migrate {args.migrate}" if out[0]["sharded"] else
+                  f"combine {out[0]['combine']}, {out[0]['cache_len']} "
+                  f"slots a rank")
         print(f"[serve] {args.arch} on {args.ranks} ranks ({args.pods} pods, "
-              f"{device}): combine {out[0]['combine']}, {args.cache_len} "
-              f"slots, {out[0]['cache_len']} a rank; {len(out[0]['tokens'])} "
-              f"requests ({n} tokens) in {dt:.2f}s with start-up; rank 0 "
-              f"stats {st}; sample: {out[0]['tokens'][0][:12]}")
+              f"{device}): {layout}, {args.cache_len} slots; "
+              f"{len(out[0]['tokens'])} requests ({n} tokens) in {dt:.2f}s "
+              f"with start-up; sample: {out[0]['tokens'][0][:12]}")
+        if out[0]["sharded"]:
+            print(f"[serve] migrations {st.get('migrations', 0)}: requests "
+                  f"{out[0]['migrated']}")
+        keys = ("prefills", "decode_steps", "decode_tokens", "migrate_bytes",
+                "migrate_nonlocal_msgs", "donor_bytes", "combine_bytes",
+                "nonlocal_msgs", "staging_bytes")
+        for r in out:
+            print(f"[serve] rank {r['rank']}: " + ", ".join(
+                f"{k} {r['stats'][k]}" for k in keys if k in r["stats"]))
         return
 
     from repro_torch.models.transformer import init_params

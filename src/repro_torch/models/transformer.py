@@ -169,21 +169,27 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def cache_shapes(self, batch: int, cache_len: int
+                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of every cache leaf but ``pos``, stacked over the
+        layers (the SSM state has no slots: ``cache_len`` does not size
+        it)."""
+        cfg = self.cfg
+        if self.ssm:
+            return {name: ((cfg.n_layers,) + shape, dtype)
+                    for name, (shape, dtype)
+                    in mamba_cache_shapes(cfg, batch).items()}
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+        return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+
     def empty_cache(self, batch: int, cache_len: int, *,
                     vector_pos: bool = False) -> dict[str, torch.Tensor]:
-        """A zeroed cache for ``batch`` rows of ``cache_len`` slots (the
-        SSM state has no slots: ``cache_len`` does not size it)."""
-        cfg = self.cfg
+        """A zeroed cache for ``batch`` rows of ``cache_len`` slots."""
         zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
                                                  device=self.device)
         pos = zeros((batch,) if vector_pos else (), torch.long)
-        if self.ssm:
-            return {name: zeros((cfg.n_layers,) + shape, dtype)
-                    for name, (shape, dtype)
-                    in mamba_cache_shapes(cfg, batch).items()} | {"pos": pos}
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-        return {"k": zeros(shape, cfg.dtype), "v": zeros(shape, cfg.dtype),
-                "pos": pos}
+        return {name: zeros(shape, dtype) for name, (shape, dtype)
+                in self.cache_shapes(batch, cache_len).items()} | {"pos": pos}
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, mode: str = "prefill",

@@ -9,8 +9,13 @@ device is visible; ``device="cpu"`` runs the kernels' plain versions, which
 is what the tests ask for.
 
 On a :class:`~repro_torch.core.topology.RankGrid` every rank builds the
-same engine and submits the same requests. A B = 1 cache is then split over
-the ranks' sequence (the JAX engine's sequence-parallel layout,
+same engine and submits the same requests. A batch that divides over the
+ranks is sharded over them (the JAX engine's batch-sharded layout): rank i
+holds the rows [i * B_loc, (i + 1) * B_loc), B_loc = B / p, pod-major, in a
+cache of its own, prefills the requests of its pod and decodes its rows
+with no exchange; a request prefilled in another pod than its row's
+migrates (``serve/scheduler.py``, ``serve/migrate.py``). A B = 1 cache is
+split over the ranks' sequence (the JAX engine's sequence-parallel layout,
 ``cache_shardings``): rank (R, l) of a q x pl grid holds the slots
 [i * L_loc, (i + 1) * L_loc), i = R * pl + l, pod-major, over
 ``("pod", "data")``, or i = l over ``("data",)``, where each pod holds the
@@ -27,15 +32,20 @@ transport of a host-side group, counted in :meth:`Engine.stats` as
 from __future__ import annotations
 
 import time
+import warnings
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import collectives as C
 from ..kernels.decode_stats import ops as stats_ops
 from ..models import attention as attn
 from ..models.transformer import Transformer
+from .migrate import sent_of, stage
 from .scheduler import Scheduler
 from .spec import DP_AXES, Request, RequestResult, ServeSpec
+
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
     """``cuda`` unless the caller names a device; never falls back."""
@@ -46,13 +56,6 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
                            "card (pass device='cpu' to run the plain "
                            "versions of its kernels on the CPU)")
     return torch.device("cuda")
-
-
-def _sent(st) -> tuple[float, float, float]:
-    """(bytes, non-local bytes, non-local messages) in a recorder's stats."""
-    return (st.permute_bytes_local + st.permute_bytes_nonlocal
-            + st.group_bytes_local + st.group_bytes_nonlocal,
-            st.nonlocal_bytes, st.nonlocal_msgs)
 
 
 class LocalityDecodeCombine:
@@ -110,7 +113,8 @@ class LocalityDecodeCombine:
         n_o = o.numel()
         if m_ready is not None:
             m_ready.synchronize()
-        t1, sent0 = time.perf_counter(), _sent(self.grid.recorder.stats)
+        sent = lambda: sent_of(self.grid.recorder.stats.edge_counts())
+        t1, sent0 = time.perf_counter(), sent()
         pend = C.logsumexp_combine_start(m_host.reshape(B, 1, KV * G),
                                          self.grid, algorithm=self.algorithm)
         self.exchange_s += time.perf_counter() - t1
@@ -120,8 +124,8 @@ class LocalityDecodeCombine:
         o, l = C.logsumexp_combine_finish(ol[:n_o].reshape(o.shape),
                                           ol[n_o:].reshape(l.shape), pend)
         self.exchange_s += time.perf_counter() - t1
-        self.sent = tuple(t + b - a for t, a, b in zip(
-            self.sent, sent0, _sent(self.grid.recorder.stats)))
+        self.sent = tuple(t + b - a for t, a, b in zip(self.sent, sent0,
+                                                       sent()))
         ol = self._stage(torch.cat([o.reshape(-1), l.reshape(-1)]),
                          q.device)
         out = (ol[:n_o].reshape(o.shape) / ol[n_o:].reshape(l.shape)[..., None]
@@ -145,10 +149,9 @@ class LocalityDecodeCombine:
         return host, done
 
     def _stage(self, t: torch.Tensor, device) -> torch.Tensor:
-        if t.device.type == device.type:
-            return t
-        self.staging_bytes += t.numel() * t.element_size()
-        return t.to(device)
+        t, n = stage(t, device)
+        self.staging_bytes += n
+        return t
 
 
 class Engine:
@@ -163,12 +166,12 @@ class Engine:
         self.grid = grid
         self.resolved = spec.resolve(cfg, grid)
         self.combine = self.resolved.combine
-        if grid is not None and grid.p > 1 and self.resolved.batch_sharded:
-            raise NotImplementedError(
-                "a batch-sharded cache over ranks (pod-local prefill, "
-                "cache_migrate insertion) comes with the rest of the "
-                "multi-rank serving slice (ROADMAP.md Queue 1 item 3); "
-                "serve batch=1 with a sequence-parallel cache")
+        # batch-sharded over ranks: rank i holds rows [i * B_loc, ...)
+        self.sharded = (grid is not None and grid.p > 1
+                        and self.resolved.batch_sharded)
+        self.local_batch = spec.batch // grid.p if self.sharded \
+            else spec.batch
+        self.rows_lo = grid.rank * self.local_batch if self.sharded else 0
         self.model = Transformer(cfg, params, self.device)
         self.hook: LocalityDecodeCombine | None = None
         self.cache_offset: int | None = None       # this rank's first slot
@@ -203,6 +206,47 @@ class Engine:
     def result(self, rid: int) -> RequestResult | None:
         return self.scheduler.result(rid)
 
+    def generate(self, prompts, max_new: int) -> np.ndarray:
+        """prompts (B, S) int: (B, max_new) greedy tokens, on every rank.
+
+        The legacy lockstep loop of the JAX engine (behind the same
+        ``DeprecationWarning``): the batch prefills together and decodes
+        ``max_new`` steps (the last one's token is not kept, as there).
+        Batch-sharded, each rank prefills and decodes its own rows and the
+        tokens are gathered to every rank over the grid; a split cache
+        prefills its slots and decodes through the combine."""
+        warnings.warn(
+            "Engine.generate is the legacy lockstep loop; use "
+            "Engine.submit/step/drain", DeprecationWarning, stacklevel=2)
+        prompts = np.asarray(prompts)
+        if prompts.ndim != 2 or prompts.shape[0] != self.spec.batch:
+            raise ValueError(f"prompts of shape {prompts.shape}: want "
+                             f"({self.spec.batch}, S)")
+        rows = prompts[self.rows_lo:self.rows_lo + self.local_batch]
+        sched = self.scheduler
+        toks = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+        logits, cache = self.model(toks, mode="prefill",
+                                   cache_len=self.cache_len,
+                                   slot_offset=self.cache_offset)
+        sched.counts["prefills"] += 1
+        sched.counts["prefill_tokens"] += rows.size
+        tok = sched._next_token(logits)
+        out = []
+        for _ in range(max_new):
+            out.append(tok)
+            logits, cache = self.model(torch.from_numpy(tok).to(self.device),
+                                       mode="decode", cache=cache,
+                                       decode_combine=self.hook)
+            tok = sched._next_token(logits)
+            sched.counts["decode_steps"] += 1
+        out = np.concatenate(out, axis=1)
+        if self.sharded:
+            mine = torch.from_numpy(out).to(self.grid.device)
+            parts = [torch.empty_like(mine) for _ in range(self.grid.p)]
+            dist.all_gather(parts, mine, group=self.grid.group)
+            out = torch.cat(parts).cpu().numpy()
+        return out
+
     def stats(self) -> dict:
         """Counters: decode steps, prefills, prefill tokens (prompt tokens
         prefilled) and decode tokens (tokens the decode steps produced for
@@ -214,8 +258,17 @@ class Engine:
         reads them from its compiled program); then ``combine_layers``,
         ``combine_host_s`` (host seconds inside the hook) and
         ``combine_exchange_s`` (of those, in the max and sum exchanges)
-        and ``staging_bytes`` (moved between the card and a gloo grid)."""
+        and ``staging_bytes`` (moved between the card and a gloo grid, by
+        the combine and the migrations). Batch-sharded, every count is this
+        rank's (the prefills it ran, the tokens of its rows), and over
+        pods: ``migrations``, the collective's ``migrate_bytes``,
+        ``migrate_nonlocal_bytes`` and ``migrate_nonlocal_msgs`` (read
+        around it alone), the donor move's ``donor_bytes``,
+        ``donor_nonlocal_bytes`` and ``donor_nonlocal_msgs``, and
+        ``migrate_host_s`` with its ``migrate_donor_s``,
+        ``migrate_collective_s`` and ``migrate_insert_s``."""
         out = self.scheduler.stats()
+        staged = out.pop("migrate_staging_bytes", 0)
         hook = self.hook
         sent = hook.sent if hook else (0.0, 0.0, 0.0)
         out.update(
@@ -225,5 +278,5 @@ class Engine:
             combine_layers=hook.layers if hook else 0,
             combine_host_s=hook.host_s if hook else 0.0,
             combine_exchange_s=hook.exchange_s if hook else 0.0,
-            staging_bytes=hook.staging_bytes if hook else 0)
+            staging_bytes=(hook.staging_bytes if hook else 0) + staged)
         return out

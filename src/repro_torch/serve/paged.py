@@ -1,7 +1,10 @@
 """Paged KV-cache accounting for the continuous-batching scheduler.
 
 The port's own copy of ``repro.serve.paged`` (pure Python, no device
-arrays). One rank serves one pod, so the port builds it with ``n_pods=1``.
+arrays). The scheduler builds it with the grid's pods on a batch-sharded
+grid (``n_pods=resolved.n_pods``), as the JAX scheduler does, and with
+``n_pods=1`` on one rank and on a sequence-parallel cache. Every rank of a
+grid keeps the same accounting, in step.
 
 Pure-Python bookkeeping over the physical cache the engine compiled: the
 (B, cache_len, ...) cache is viewed as B *rows* (one request each) of

@@ -22,8 +22,27 @@ ranks must take every scheduling decision alike, or the combine deadlocks:
 rank 0 decides each admission and broadcasts the request id (or -1: wait)
 to the grid, and the others follow.
 
+Batch-sharded mode (a grid whose ranks the batch divides over): rank i
+holds the rows [i * B_loc, (i + 1) * B_loc), B_loc = B / p, in a cache of
+its own, and decodes them every step with no exchange (its own
+``DecodeGraph`` on the card). Every rank keeps the same paged accounting
+and queue; rank 0 decides each admission and broadcasts it, as in
+sequential mode (one broadcast per admission tried while a row is free;
+none in a decode step), and requests finish by budget, so releases need no
+exchange. An admitted request is prefilled at B = 1 by the ranks of its
+pod alone (``home_pod``, else the pod of its row; every rank on one pod),
+as the JAX scheduler jits its prefill over the pod's submesh; a prefill
+sends nothing. When the row is in that pod its owner copies the row from
+its own prefill; otherwise the cache migrates (:mod:`.migrate`, the JAX
+``make_migrate_insert_fn`` with its donor move made explicit). A rank
+keeps the tokens and stamps of the rows it owns: ``step()`` returns the
+requests it owns that finished, and ``drain()`` gathers every finished
+request's result from its owner once, at its end (one exchange of the
+results over the grid), so that every rank returns the same results.
+
 Clocks are injectable: :class:`WallClock` for real latency numbers,
-:class:`StepClock` for deterministic replay.
+:class:`StepClock` for deterministic replay (on a grid, every rank's clock
+advances alike; a WallClock's stamps are the owner's).
 """
 from __future__ import annotations
 
@@ -36,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from .. import kernels
+from .migrate import MigrateInsert
 from .paged import PagedKVCache
 from .spec import Request, RequestResult
 
@@ -132,6 +152,9 @@ class _Active:
     req: Request
     row: int
     started_s: float
+    migrated: bool = False
+    owned: bool = True            # this rank holds the row (tokens, stamps)
+    n: int = 0                    # tokens generated
     tokens: list = dataclasses.field(default_factory=list)
     times: list = dataclasses.field(default_factory=list)
 
@@ -149,29 +172,44 @@ class Scheduler:
         self.model = engine.model
         self.cfg = engine.cfg
         self.spec = engine.spec
+        self.resolved = engine.resolved
+        self.grid = engine.grid
         self.clock = clock or WallClock()
         self.sequential = engine.combine.algorithm != "none"
         if self.sequential and self.spec.batch != 1:
             raise ValueError(
                 "sequence-sharded layouts schedule one request at a time: "
                 f"batch must be 1, got {self.spec.batch}")
+        # batch-sharded over ranks: this rank's rows [lo, lo + local_batch)
+        self.sharded = engine.sharded
+        self.rank = self.grid.rank if self.sharded else 0
+        self.rows_lo, self.local_batch = engine.rows_lo, engine.local_batch
+        n_pods = self.resolved.n_pods if self.sharded else 1
         self.paged = PagedKVCache(self.spec.batch, self.spec.cache_len,
-                                  self.spec.page_len, n_pods=1)
+                                  self.spec.page_len, n_pods=n_pods)
         self.queue: list[Request] = []       # sorted by (arrival_s, rid)
         self.active: dict[int, _Active] = {}
         self.results: dict[int, RequestResult] = {}
+        # batch-sharded: requests that finished since the last gather of
+        # the results (the same count on every rank)
+        self._ungathered = 0
         self._next_rid = 0
-        self._tok = np.zeros((self.spec.batch, 1), np.int64)
-        self._tok_dev = torch.zeros((self.spec.batch, 1), dtype=torch.long,
+        self._tok = np.zeros((self.local_batch, 1), np.int64)
+        self._tok_dev = torch.zeros((self.local_batch, 1), dtype=torch.long,
                                     device=self.model.device)
         # sequential mode: each request's prefill makes the serving cache
         self._cache = None if self.sequential else self.model.empty_cache(
-            self.spec.batch, self.spec.cache_len, vector_pos=True)
+            self.local_batch, self.spec.cache_len, vector_pos=True)
         self._graph = (DecodeGraph(self.model, self._cache, self._tok_dev)
                        if self.model.device.type == "cuda"
                        and not self.sequential else None)
+        # the cross-pod migration, where a row may lie outside its home pod
+        self.migrate = MigrateInsert(
+            self.grid, self.resolved.seq_span, self.spec.migrate,
+            self.model.cache_shapes(1, self.spec.cache_len),
+            self.model.device) if self.sharded and n_pods > 1 else None
         self.counts = {"decode_steps": 0, "prefills": 0, "prefill_tokens": 0,
-                       "decode_tokens": 0}
+                       "decode_tokens": 0, "migrations": 0}
 
     # -- public API -----------------------------------------------------
     def submit(self, req: Request) -> int:
@@ -180,6 +218,10 @@ class Scheduler:
             raise ValueError(
                 f"request of {req.tokens.size}+{req.max_new} tokens can "
                 f"never fit a {self.spec.cache_len}-slot row")
+        if self.migrate is not None and req.home_pod is not None \
+                and not 0 <= req.home_pod < self.paged.n_pods:
+            raise ValueError(f"home_pod {req.home_pod} outside the grid's "
+                             f"{self.paged.n_pods} pods")
         rid = self._next_rid
         self._next_rid += 1
         arrival = req.arrival_s if req.arrival_s is not None \
@@ -189,7 +231,8 @@ class Scheduler:
         return rid
 
     def cancel(self, rid: int) -> bool:
-        """Evict a queued or running request (finish_reason "evicted")."""
+        """Evict a queued or running request (finish_reason "evicted");
+        every rank of a grid cancels alike."""
         for i, req in enumerate(self.queue):
             if req.rid == rid:
                 self.queue.pop(i)
@@ -203,7 +246,8 @@ class Scheduler:
         return False
 
     def step(self) -> list[RequestResult]:
-        """Admit what fits, run one decode step, harvest finished rows."""
+        """Admit what fits, run one decode step, harvest finished rows (on
+        a batch-sharded grid, the finished requests this rank owns)."""
         self._admit()
         if not self.active:
             if self.queue:
@@ -217,22 +261,27 @@ class Scheduler:
         return self._harvest(nxt)
 
     def drain(self) -> dict[int, RequestResult]:
-        """Run until queue and batch are empty; all results by rid."""
+        """Run until queue and batch are empty; all results by rid, the
+        same on every rank of a grid (gathered from their owners here)."""
         while self.queue or self.active:
             self.step()
+        self._gather_results()
         return dict(self.results)
 
     def result(self, rid: int) -> RequestResult | None:
         return self.results.get(rid)
 
     def stats(self) -> dict:
-        return {**self.counts, "active": len(self.active),
-                "queued": len(self.queue), "finished": len(self.results)}
+        out = {**self.counts, "active": len(self.active),
+               "queued": len(self.queue), "finished": len(self.results)}
+        if self.migrate is not None:
+            out.update(self.migrate.stats())
+        return out
 
     # -- internals ------------------------------------------------------
     def _decode(self) -> torch.Tensor:
-        """One decode step over the whole batch (the cache updated in
-        place); the logits (B,1,Vpad)."""
+        """One decode step over this rank's rows (the cache updated in
+        place); the logits (B_loc,1,Vpad)."""
         self._tok_dev.copy_(torch.from_numpy(self._tok))
         if self._graph is not None:
             return self._graph.replay()
@@ -250,19 +299,22 @@ class Scheduler:
     def _agreed(self, rid: int) -> int:
         """Rank 0's admission decision (a request id, or -1: wait), on
         every rank of the engine's grid."""
-        grid = self.engine.grid
+        grid = self.grid
         t = torch.tensor([rid], dtype=torch.long, device=grid.device)
         dist.broadcast(t, src=grid.global_rank(0), group=grid.group)
         return int(t[0])
 
     def _admit(self) -> None:
         now = self.clock.now()
+        agree = self.sequential or self.sharded
         while self.queue:
             if self.sequential and self.active:
                 break                      # one request at a time
+            if agree and not self.paged.free_rows:
+                break                      # full: nothing to agree on
             req = self.queue[0]
             arrived = req.arrival_s <= now
-            if self.sequential:
+            if agree:
                 rid = self._agreed(req.rid if arrived else -1)
                 if rid not in (-1, req.rid):
                     raise RuntimeError(
@@ -271,66 +323,104 @@ class Scheduler:
                 arrived = rid == req.rid
             if not arrived:
                 break                      # not arrived yet
-            row = self.paged.reserve(req.rid, req.tokens.size, req.max_new)
+            row = self.paged.reserve(req.rid, req.tokens.size, req.max_new,
+                                     home_pod=req.home_pod)
             if row is None:
                 break                      # FCFS: the head waits, nobody
             self.queue.pop(0)              # overtakes (starvation-free)
             self._start(req, row)
             now = self.clock.now()
 
+    def _owner(self, row: int) -> int:
+        """The grid rank that holds batch row ``row``."""
+        return row // self.local_batch
+
     def _start(self, req: Request, row: int) -> None:
         S = int(req.tokens.size)
-        toks = torch.from_numpy(req.tokens.astype(np.int64))[None].to(
-            self.model.device)
-        if self.sequential:
-            self._cache = None             # the last request's, freed first
-            logits, self._cache = self.model(
-                toks, mode="prefill", cache_len=self.engine.cache_len,
-                slot_offset=self.engine.cache_offset)
-        else:
-            logits, req_cache = self.model(toks, mode="prefill",
-                                           cache_len=self.spec.cache_len)
-        tok0 = self._next_token(logits)
+        # the pod that prefills: the home pod, else the row's (JAX
+        # ``_start``); None: every rank (one pod, one rank, a split cache)
+        pod = None
+        if self.migrate is not None:
+            pod = (req.home_pod if req.home_pod is not None
+                   else self.paged.pod_of_row(row))
+        req_cache = tok0 = None
+        if pod is None or self.grid.R == pod:
+            toks = torch.from_numpy(req.tokens.astype(np.int64))[None].to(
+                self.model.device)
+            if self.sequential:
+                self._cache = None         # the last request's, freed first
+                logits, self._cache = self.model(
+                    toks, mode="prefill", cache_len=self.engine.cache_len,
+                    slot_offset=self.engine.cache_offset)
+            else:
+                logits, req_cache = self.model(toks, mode="prefill",
+                                               cache_len=self.spec.cache_len)
+            tok0 = int(self._next_token(logits)[0, 0])
+            self.counts["prefills"] += 1
+            self.counts["prefill_tokens"] += S
         self.clock.advance("prefill")
-        self.counts["prefills"] += 1
-        self.counts["prefill_tokens"] += S
-        if not self.sequential:
-            # insert the request's row into the live batch cache, every leaf
-            for name, leaf in self._cache.items():
-                b = _leaf_batch_dim(name, leaf)
-                if b is None:
-                    leaf[row] = S
-                else:
-                    leaf.select(b, row).copy_(req_cache[name].select(b, 0))
+        owner = self._owner(row) if self.sharded else self.rank
+        owned = owner == self.rank
+        migrated = pod is not None and self.paged.pod_of_row(row) != pod
+        insert = lambda leaves: self._insert(row, leaves)
+        if migrated:
+            self.counts["migrations"] += 1
+            tok0 = self.migrate(req.rid, req_cache, tok0, pod, owner, insert)
+        elif owned and not self.sequential:
+            insert(req_cache)
         t = self.clock.now()
-        st = _Active(req=req, row=row, started_s=t)
-        st.tokens.append(int(tok0[0, 0]))
-        st.times.append(t)
-        self._tok[row, 0] = st.tokens[-1]
+        st = _Active(req=req, row=row, started_s=t, migrated=migrated,
+                     owned=owned)
         self.active[req.rid] = st
-        if len(st.tokens) >= req.max_new:
+        self._append(st, tok0, t)
+        if st.n >= req.max_new:
             self._finish(req.rid, "length")
+
+    def _insert(self, row: int, leaves: dict[str, torch.Tensor]) -> None:
+        """Copy a B = 1 cache into this rank's row ``row``, every leaf."""
+        r = row - self.rows_lo
+        for name, leaf in self._cache.items():
+            b = _leaf_batch_dim(name, leaf)
+            if b is None:
+                leaf[r] = leaves[name]
+            else:
+                leaf.select(b, r).copy_(leaves[name].select(b, 0))
+
+    def _append(self, st: _Active, tok: int | None, t: float) -> None:
+        """One generated token of ``st``, recorded where its row lives."""
+        st.n += 1
+        if st.owned:
+            st.tokens.append(tok)
+            st.times.append(t)
+            self._tok[st.row - self.rows_lo, 0] = tok
 
     def _harvest(self, nxt: np.ndarray) -> list[RequestResult]:
         t = self.clock.now()
         done = []
         for rid in list(self.active):
             st = self.active[rid]
-            st.tokens.append(int(nxt[st.row, 0]))
-            st.times.append(t)
-            self.counts["decode_tokens"] += 1
-            self._tok[st.row, 0] = st.tokens[-1]
-            if len(st.tokens) >= st.req.max_new:
-                done.append(self._finish(rid, "length"))
+            tok = int(nxt[st.row - self.rows_lo, 0]) if st.owned else None
+            self._append(st, tok, t)
+            self.counts["decode_tokens"] += int(st.owned)
+            if st.n >= st.req.max_new:
+                res = self._finish(rid, "length")
+                if res is not None:
+                    done.append(res)
         return done
 
-    def _finish(self, rid: int, reason: str) -> RequestResult:
+    def _finish(self, rid: int, reason: str) -> RequestResult | None:
         st = self.active.pop(rid)
         self.paged.release(rid)
         return self._finish_meta(rid, st.req, st, reason)
 
     def _finish_meta(self, rid: int, req: Request, st, reason: str
-                     ) -> RequestResult:
+                     ) -> RequestResult | None:
+        """The result, where this rank owns the request's row (or it never
+        got one); None where another rank does (``drain`` gathers it)."""
+        if st is not None and self.sharded:
+            self._ungathered += 1
+            if not st.owned:
+                return None
         res = RequestResult(
             rid=rid,
             tokens=np.asarray(st.tokens if st else [], np.int32),
@@ -339,6 +429,20 @@ class Scheduler:
             started_s=st.started_s if st else self.clock.now(),
             finished_s=self.clock.now(),
             token_times_s=list(st.times) if st else [],
-            slot=st.row if st else -1)
+            home_pod=req.home_pod or 0,
+            slot=st.row if st else -1,
+            migrated=st.migrated if st else False)
         self.results[rid] = res
         return res
+
+    def _gather_results(self) -> None:
+        """Every rank's results of the rows it owns, to every rank: one
+        exchange over the grid, where a request finished since the last."""
+        if not self._ungathered:
+            return
+        parts = [None] * self.grid.p
+        dist.all_gather_object(parts, self.results, group=self.grid.group)
+        for part in parts:
+            for rid, res in part.items():
+                self.results.setdefault(rid, res)
+        self._ungathered = 0

@@ -1,13 +1,22 @@
 """Request-level serving API of the port: ServeSpec, Request, RequestResult.
 
 The three dataclasses of ``repro.serve.spec``, so a caller shapes the port's
-engine as it shapes the JAX one, less what only the batch-sharded multi-pod
-engine uses (``prefill_len``, ``migrate``, the home pod):
+engine as it shapes the JAX one:
 
 * ``combine`` (the decode cache combine) resolves to ``"none"`` on one rank
   and on a batch-sharded layout, as the JAX engine resolves it; on a
   sequence-parallel cache it must be ``"locality"`` or ``"xla"`` (``"auto"``
   needs the tuning policy, ROADMAP.md Queue 1 item 8);
+* ``migrate`` (the cross-pod cache migration of a batch-sharded grid of
+  two or more pods) is one of ``MIGRATE_ALGORITHMS``; the port's default
+  is ``"locality_bruck"``, since ``"auto"`` resolves through the tuning
+  policy's ``cache_migrate`` cell (item 8) and raises where a migration
+  could run;
+* ``prefill_len`` is carried, and read by nothing, as in the JAX package;
+* ``Request.home_pod`` is the pod whose ranks prefill the request (None:
+  the pod of the row it gets); ``RequestResult`` reports it (0 for None),
+  the row (``slot``) and whether the prefilled cache migrated to another
+  pod;
 * ``seq_axes`` takes ``"auto"`` (the cache spans every rank, pods too) or
   ``("data",)`` (each pod holds the whole cache over its own ranks);
 * ``fused_stats`` takes only ``"auto"``: the decode-stats kernel for a
@@ -24,6 +33,8 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+
+from ..core.collectives import MIGRATE_ALGORITHMS
 
 COMBINES = ("auto", "xla", "locality")
 #: the grid's axes, outer-major, as the JAX package's DP axes ('pod','data')
@@ -44,19 +55,23 @@ class ServeSpec:
 
     batch:       decode batch rows (the paged cache's row count).
     cache_len:   KV slots per row (prompt + decode budget ceiling).
+    prefill_len: carried, unread (see the module docstring).
     combine:     decode cache-combine policy (see the module docstring).
     fused_stats: "auto" only (see the module docstring).
     seq_axes:    sequence-parallel cache domain, "auto" or ("data",).
     page_len:    paging granularity in KV slots: admission reserves
                  ceil((prompt + max_new) / page_len) pages in one row.
+    migrate:     cross-pod cache-migration schedule (module docstring).
     """
 
     batch: int
     cache_len: int
+    prefill_len: int | None = None
     combine: str = "auto"
     fused_stats: str = "auto"
     seq_axes: str | tuple[str, ...] = "auto"
     page_len: int = 16
+    migrate: str = "locality_bruck"
 
     def validate(self) -> None:
         """Raise on anything the port's engine does not implement."""
@@ -67,6 +82,9 @@ class ServeSpec:
         if self.combine not in COMBINES:
             raise ValueError(f"unknown combine {self.combine!r}; known: "
                              f"{COMBINES}")
+        if self.migrate != "auto" and self.migrate not in MIGRATE_ALGORITHMS:
+            raise ValueError(f"unknown migrate {self.migrate!r}; known: "
+                             f"{MIGRATE_ALGORITHMS}")
         if normalize_seq_axes(self.seq_axes) not in SEQ_AXES:
             raise ValueError(f"seq_axes={self.seq_axes!r}: the port takes "
                              f"{SEQ_AXES}")
@@ -85,9 +103,15 @@ class ServeSpec:
             cfg, grid, self.batch, None if batch_sharded else seq_span,
             None if self.combine == "auto" else self.combine)
         sizes = _axis_sizes(grid)
+        if batch_sharded and sizes["pod"] > 1 and self.migrate == "auto":
+            raise NotImplementedError(
+                "migrate='auto' on a batch-sharded grid of pods resolves "
+                "through the tuning policy's cache_migrate cell, which comes "
+                "with the tuning slice (ROADMAP.md Queue 1 item 8); pass one "
+                f"of {MIGRATE_ALGORITHMS}")
         return ResolvedServeSpec(
-            batch_sharded=batch_sharded, seq_span=seq_span, combine=choice,
-            n_pods=sizes["pod"], p_local=sizes["data"])
+            batch_sharded=batch_sharded, seq_span=seq_span,
+            combine=choice, n_pods=sizes["pod"], p_local=sizes["data"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +119,14 @@ class ResolvedServeSpec:
     """A ServeSpec bound to (cfg, grid): the derived geometry.
 
     seq_span: the span a full-length cache shards over: ("pod", "data")
-              (every rank), ("data",) (each pod's ranks) or None.
+              (every rank), ("data",) (each pod's ranks) or None. On a
+              batch-sharded grid it is the donor layout of a migrating
+              request's B = 1 cache.
     n_pods, p_local: the grid's pods and ranks a pod.
+
+    A row's pod is ``PagedKVCache.pod_of_row`` of the accounting the
+    scheduler builds with ``n_pods`` on a batch-sharded layout (one pod
+    otherwise), the JAX ``ResolvedServeSpec.pod_of_row``.
     """
 
     batch_sharded: bool
@@ -200,11 +230,13 @@ def _combine_for(cfg, grid, batch: int, span: tuple[str, ...] | None,
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One serving request. ``tokens`` is the (S,) int32 prompt; ``max_new``
-    the decode budget; ``arrival_s`` the arrival stamp on the scheduler's
-    clock (the clock's now if unset)."""
+    the decode budget; ``home_pod`` the pod whose ranks prefill it (None:
+    the pod of the row it gets); ``arrival_s`` the arrival stamp on the
+    scheduler's clock (the clock's now if unset)."""
 
     tokens: np.ndarray
     max_new: int
+    home_pod: int | None = None
     arrival_s: float | None = None
     rid: int | None = None        # assigned by Engine.submit
 
@@ -224,7 +256,8 @@ class RequestResult:
 
     finish_reason: "length" (decode budget exhausted) or "evicted"
     (cancelled). token_times_s: completion stamp of each generated token on
-    the scheduler's clock.
+    the scheduler's clock. home_pod: the request's (0 for None); slot: its
+    batch row; migrated: its prefilled cache moved to another pod.
     """
 
     rid: int
@@ -234,7 +267,9 @@ class RequestResult:
     started_s: float
     finished_s: float
     token_times_s: list[float] = dataclasses.field(default_factory=list)
+    home_pod: int = 0
     slot: int = -1
+    migrated: bool = False
 
     @property
     def n_tokens(self) -> int:

@@ -15,7 +15,11 @@ comparison is exact:
   ``repro.core.collectives`` on the same inputs: each rank's output equals
   the JAX device's, and the recorder's local and non-local edge, message
   and byte counts, summed over the ranks, equal ``collective_stats`` of the
-  compiled HLO. The ring's rounds are one ``lax.scan`` body, which the HLO
+  compiled HLO. That includes the serve scheduler's migration over a
+  ("data",) donor span, ``cache_migrate(x, ("data",), ())``, which the JAX
+  function runs as ``bruck`` for an empty local tier: the port runs
+  ``cache_migrate`` on each pod's own grid (``RankGrid.pod_grid``). The
+  ring's rounds are one ``lax.scan`` body, which the HLO
   counts once, so for the ring the port counts p-1 times the HLO.
 """
 import json
@@ -61,7 +65,8 @@ for q, pl in json.loads(sys.argv[4]):
     spec = P(("pod", "local"))
     inputs = {"allgather": ints(0, (p, 2, 3)),
               "reduce_scatter": ints(1, (p, p * 2, 3)),
-              "allreduce": ints(2, (p, 5, 3))}
+              "allreduce": ints(2, (p, 5, 3)),
+              "cache_migrate_pod": ints(3, (p, 2, 3))}
     for kind, alg, outer, op in programs:
         if kind == "allgather":
             fn = lambda s, a=alg: C.allgather(s, "pod", "local", algorithm=a,
@@ -69,16 +74,29 @@ for q, pl in json.loads(sys.argv[4]):
         elif kind == "reduce_scatter":
             fn = lambda s, a=alg: C.reduce_scatter(s, "pod", "local",
                                                    algorithm=a)
-        else:
+        elif kind == "allreduce":
             fn = lambda s, a=alg, o=outer, r=op: C.allreduce(
                 s, "pod", "local", algorithm=a, outer_algorithm=o, op=r)
-        x = inputs[kind]
-        f = jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=spec,
-                                  out_specs=spec))
+        if kind == "cache_migrate_pod":
+            # the serve scheduler's call on a ("data",) donor span: the pods
+            # replicate the slab, each gathers its pod's shards, local=()
+            x = inputs[kind][:pl]
+            f = jax.jit(jax.shard_map(
+                lambda s, a=alg: C.cache_migrate(s, "local", (), algorithm=a,
+                                                 tiled=True),
+                mesh=mesh, in_specs=P("local"), out_specs=P(),
+                check_vma=False))
+        else:
+            x = inputs[kind]
+            f = jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=spec,
+                                      out_specs=spec))
         xg = jnp.asarray(x.reshape((-1,) + x.shape[2:]))
         out = np.asarray(f(xg))
         key = f"{kind}|{q}x{pl}|{alg}|{outer}|{op}"
-        arrays[key] = out.reshape((p, -1) + out.shape[1:])
+        if kind == "cache_migrate_pod":       # every device holds all of it
+            arrays[key] = np.broadcast_to(out, (p,) + out.shape)
+        else:
+            arrays[key] = out.reshape((p, -1) + out.shape[1:])
         st = collective_stats(f.lower(xg).compile().as_text(), pods)
         stats[key] = {k: getattr(st, k) for k in (
             "permute_edges_local", "permute_edges_nonlocal",
@@ -94,7 +112,9 @@ JAX_PROGRAMS = ([("allgather", a, "-", "-") for a in ALGS]
                 + [("reduce_scatter", a, "-", "-") for a in ALGS]
                 + [("allreduce", a, o, op) for a, o in ALLREDUCES
                    for op in ("sum", "max", "min")
-                   if op == "sum" or o == "rhd"])
+                   if op == "sum" or o == "rhd"]
+                + [("cache_migrate_pod", a, "-", "-")
+                   for a in ("locality_bruck", "multilane", "xla")])
 
 
 def _key(kind, q, pl, alg, outer, op):
@@ -279,9 +299,12 @@ def test_outputs_and_records_equal_jax(pool, jax_ref, grid, program):
         res = pool.run(H.task_reduce_scatter, q, pl, alg, "float32", SHARD,
                        1)
         outs = [res[r]["out"] for r in range(p)]
-    else:
+    elif kind == "allreduce":
         res = pool.run(H.task_allreduce, q, pl, alg, outer, op, "float32",
                        (5, 3), 2)
+        outs = [res[r]["out"] for r in range(p)]
+    else:
+        res = pool.run(H.task_cache_migrate_pod, q, pl, alg, SHARD, 3)
         outs = [res[r]["out"] for r in range(p)]
     key = _key(kind, q, pl, alg, outer, op)
     for r in range(p):
@@ -291,4 +314,10 @@ def test_outputs_and_records_equal_jax(pool, jax_ref, grid, program):
     if alg == "ring":                  # the HLO counts the scan body once
         want = {k: v * (p - 1) for k, v in want.items()}
     assert _sum_stats(res, p) == want
-    assert want["permute_edges_nonlocal"] + want["group_msgs_nonlocal"] > 0
+    nonlocal_msgs = (want["permute_edges_nonlocal"]
+                     + want["group_msgs_nonlocal"])
+    if kind == "cache_migrate_pod":       # every message stays in its pod
+        assert nonlocal_msgs == 0
+        assert want["permute_edges_local"] + want["group_msgs_local"] > 0
+    else:
+        assert nonlocal_msgs > 0

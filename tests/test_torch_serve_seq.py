@@ -23,7 +23,9 @@ parameters, one request at a time.
   its layers, whatever other engines sent on the grid before; a ("data",)
   cache sends nothing across pods.
 * Spec errors: batch > 1 on a sequence layout, ``combine="auto"`` there
-  (naming ROADMAP item 8), a batch sharded over the ranks (item 3).
+  (naming ROADMAP item 8), ``migrate="auto"`` on a batch sharded over the
+  ranks (item 8) and an unknown migration schedule; the batch-sharded
+  engine itself builds (``tests/test_torch_serve_batch.py`` serves it).
 """
 import dataclasses
 import json
@@ -246,8 +248,13 @@ def test_spec_errors_on_a_sequence_layout(pool):
         assert "batch must be 1" in err["batch"][1]
         assert err["auto"][0] == "NotImplementedError"
         assert "item 8" in err["auto"][1]
-        assert err["batch_sharded"][0] == "NotImplementedError"
-        assert "item 3" in err["batch_sharded"][1]
+        # a batch sharded over the ranks now builds (item 3 is done); its
+        # migration schedule must be named, "auto" waits for item 8
+        assert err["batch_sharded"] is None
+        assert err["migrate_auto"][0] == "NotImplementedError"
+        assert "item 8" in err["migrate_auto"][1]
+        assert err["migrate_unknown"][0] == "ValueError"
+        assert "ring" in err["migrate_unknown"][1]
 
 
 @pytest.mark.parametrize("L,seq_axes,want", [

@@ -429,9 +429,145 @@ def task_spec_errors(ctx, q, pl):
     for name, spec in (
             ("batch", ServeSpec(batch=3, cache_len=48, combine="locality")),
             ("auto", ServeSpec(batch=1, cache_len=48)),
-            ("batch_sharded", ServeSpec(batch=4, cache_len=48))):
+            ("batch_sharded", ServeSpec(batch=4, cache_len=48)),
+            ("migrate_auto", ServeSpec(batch=4, cache_len=48,
+                                       migrate="auto")),
+            ("migrate_unknown", ServeSpec(batch=4, cache_len=48,
+                                          migrate="ring"))):
         try:
             Engine(cfg, params, spec, grid=grid, device="cpu")
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# batch-sharded serving (tests/test_torch_serve_batch.py)
+# ---------------------------------------------------------------------------
+def _small_cfg(arch: str, n_layers: int):
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke(arch), n_layers=n_layers,
+                               dtype=torch.float32)
+
+
+def result_fields(res) -> dict:
+    """A RequestResult as plain data, every field the tests compare."""
+    return dict(tokens=[int(t) for t in res.tokens], slot=res.slot,
+                home_pod=res.home_pod, migrated=res.migrated,
+                started_s=res.started_s, finished_s=res.finished_s,
+                token_times_s=list(res.token_times_s),
+                finish_reason=res.finish_reason)
+
+
+def task_serve_batch(ctx, q, pl, arch, params, n_layers, spec_kw, requests):
+    """The port's engine on a q x pl grid (one rank for 1 x 1), drained on a
+    StepClock: ``requests`` are (prompt, max_new, home_pod), all arriving
+    at 0. Returns every result's fields by rid, the engine's stats, the
+    bytes each request sent from this rank, and the migration's recorder
+    counts (collective and donor move, summed over the migrations)."""
+    import torch
+    from repro_torch.serve import Engine, Request, ServeSpec, StepClock
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    cfg = _small_cfg(arch, n_layers)
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    eng = Engine(cfg, tparams, ServeSpec(**spec_kw),
+                 grid=grid if grid.p > 1 else None, device="cpu",
+                 clock=StepClock())
+    for t, m, home in requests:
+        eng.submit(Request(tokens=t, max_new=m, home_pod=home,
+                           arrival_s=0.0))
+    res = eng.drain()
+    mig = eng.scheduler.migrate
+    return dict(
+        results={rid: result_fields(r) for rid, r in res.items()},
+        stats=eng.stats(), rows=(eng.rows_lo, eng.local_batch),
+        sent={} if mig is None else dict(mig.sent_by_request),
+        collective={} if mig is None else dict(mig.collective),
+        donor={} if mig is None else dict(mig.donor),
+        span=None if mig is None else mig.span)
+
+
+def task_generate(ctx, q, pl, params, n_layers, batch, cache_len, prompts,
+                  max_new):
+    """The legacy ``Engine.generate`` on a q x pl grid (one rank for 1 x 1):
+    the (B, max_new) tokens and whether it warned."""
+    import warnings
+
+    import torch
+    from repro_torch.serve import Engine, ServeSpec
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    cfg = _small_cfg("llama3.2-3b", n_layers)
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    eng = Engine(cfg, tparams, ServeSpec(batch=batch, cache_len=cache_len),
+                 grid=grid if grid.p > 1 else None, device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        toks = eng.generate(prompts, max_new)
+    return dict(tokens=toks.tolist(), rows=(eng.rows_lo, eng.local_batch),
+                warned=any(issubclass(w.category, DeprecationWarning)
+                           for w in caught))
+
+
+def task_cache_migrate_pod(ctx, q, pl, algorithm, shard, seed):
+    """``cache_migrate`` over this rank's pod (``RankGrid.pod_grid``), on a
+    slab every pod holds alike, sharded over the pod's ranks: the serve
+    scheduler's migration of a ("data",) donor span. The output and the
+    pod grid's record."""
+    from repro_torch.core import collectives as C
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    pod = grid.pod_grid()
+    x = _torch(ints(seed, (grid.p,) + tuple(shard))[grid.l], "float32")
+    out = C.cache_migrate(x, pod, algorithm=algorithm, tiled=True)
+    return dict(out=_np(out), stats=_stats(pod))
+
+
+def task_batch_spec_errors(ctx, q, pl):
+    """The engine's refusals of a batch-sharded spec on a grid: (exception
+    type, message) each, None where it builds."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch as T
+    from repro_torch import configs as C
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    cfg = dc.replace(C.get_smoke("llama3.2-3b"), n_layers=1,
+                     dtype=T.float32)
+    params = init_params(cfg, T.Generator().manual_seed(0), "cpu")
+    one_pod = ctx.grid(1, q * pl)
+    calls = {
+        "auto": lambda: Engine(cfg, params, ServeSpec(
+            batch=4, cache_len=32, migrate="auto"), grid=grid, device="cpu"),
+        "unknown": lambda: ServeSpec(batch=4, cache_len=32,
+                                     migrate="gspmd").validate(),
+        "home_pod": lambda: Engine(cfg, params, ServeSpec(
+            batch=4, cache_len=32), grid=grid, device="cpu").submit(
+                Request(tokens=np.ones(3, np.int32), max_new=1,
+                        home_pod=q)),
+        "one_pod_auto": lambda: Engine(cfg, params, ServeSpec(
+            batch=4, cache_len=32, migrate="auto"), grid=one_pod,
+            device="cpu"),
+        "sequence_auto": lambda: Engine(cfg, params, ServeSpec(
+            batch=1, cache_len=32, combine="locality", migrate="auto"),
+            grid=grid, device="cpu"),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = (type(e).__name__, str(e))
