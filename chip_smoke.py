@@ -61,6 +61,17 @@ the package is missing. Phases, each fatal on failure:
    kernel runs every round), spill slots and the peak device memory one
    gather adds; then the slice's main path, one ``dma_locality_allgather``
    at the 16-rank FSDP size, with its launch count (1);
+2c. the training path's kernels against their plain versions: the flash
+   forward with lse (o and lse against the plain forward) and the flash
+   backward (dq, dk, dv; fp32 within 1e-4 of the plain backward, bf16
+   within atol 1e-3 plus rtol 1e-2 of the plain backward in fp32 on the
+   same bf16 inputs, the gradients' mean sizes printed beside) at 8a's
+   shape (B = 4, S = 1,024, 24/8 heads of 128; causal, window and chunk,
+   bf16 and fp32) and at one rank's of 8c (B = 1, causal, bf16), and the
+   RMSNorm backward, plain and residual (dx and dscale), on 8a's 4,096 rows
+   (bf16, fp32) and 8c's 1,024 (bf16), 3,072 wide; each two calls bitwise
+   equal, timed beside its plain version, the library's backward (SDPA's,
+   ``F.rms_norm``'s; timed here only) and its bound;
 3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
    (fp32, 3 layers), each with the same parameters on the CPU (plain
    versions) and on the card (kernels): logits after prefill and 8 decode
@@ -140,10 +151,37 @@ the package is missing. Phases, each fatal on failure:
    (the graph replay and a sync, host clock), bytes and non-local messages
    and bytes per migration of the collective and of the donor move,
    staged bytes and each process's peak memory.
+8. FSDP training. 8a, ``train_one_rank``: llama3.2-3b at full width and
+   depth (fp32 master weights from seed 0, bf16 compute) trains 3 steps of
+   4 x 1,024 tokens (``SyntheticLM(seed=0)``, ``AdamW(lr=3e-4)``) through
+   ``Trainer`` on one rank: finite losses and grad norms, every kernel's
+   launches exactly what the path implies (per step with remat: flash
+   forward 56, each backward kernel 28, RMSNorm 57 plain and 56 residual,
+   its backward kernels 57 each, 29 plain and 28 residual); step ms,
+   tokens/s, peak memory and a profiled step. 8b, ``train_parity``: a
+   reduced fp32 llama3.2-3b (2 layers) from the same parameters and
+   batches, 2 steps of 12 x 64: the card's one-rank step against the CPU's
+   (plain versions), and 6 spawned gloo ranks on 2 x 2 and 3 x 2 (where
+   every leaf shards over "data" only) with ``locality`` + FSDP, eager and
+   with ``prefetch_depth=1``, and ``xla`` + FSDP against the card's one
+   rank: losses and grad norms within 1e-5 relative, every parameter
+   within 1e-4 and all but 1 in 10,000 within 1e-5 (the card's limit,
+   ``PARITY_PARAM_ATOL``; the elements beyond 1e-5 printed with their
+   gradient's size), the prefetch bitwise the eager step. 8c, ``train_fsdp``: llama3.2-3b at full width on 2 x 2
+   of those ranks sharing the card, depth cut to 4 layers (the gloo host
+   transport), one 1,024-token sequence a rank, 2 steps of each variant:
+   losses equal on every rank and between eager and prefetch, launches
+   exact on every rank, and per step and rank the recorder's non-local
+   messages and bytes of the parameter gathers and of the gradient
+   reduce-scatters equal to the schedule oracle's (``locality_bruck`` and
+   its transpose) times the gathers the path implies, or for ``xla`` the
+   recorder's model of the library calls; step ms, gather, reduce-scatter
+   and sync host ms, staged bytes and peak memory a process.
 
 Every kernel's launches are counted from 0 just before each main path
 (the DMA gather, phase 4, phase 5, each engine of phases 6 and 7 in its
-own process) and read just after it.
+own process, the trainer of 8a, each run of 8c in its own process) and
+read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -1614,6 +1652,733 @@ def serve_batch_sharded(smi: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the training path's backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+# the training step's attention (llama3.2-3b, B = 4 sequences of 1,024
+# tokens, 24/8 heads of 128) causal, and the same with a window and a chunk;
+# RMSNorm over its 4,096 rows of 3,072
+TRAIN_FLASH = (4, 1024, 24, 8, 128)
+TRAIN_FLASH_MASKS = (dict(causal=True), dict(causal=True, window=256),
+                     dict(causal=True, chunk=256))
+TRAIN_RMS = (4096, 3072)
+# one rank of phase 8c (bf16): one sequence of 1,024 tokens, so attention at
+# B = 1 and RMSNorm over 1,024 rows
+FSDP_RANK_FLASH = (1, 1024, 24, 8, 128)
+FSDP_RANK_RMS = (1024, 3072)
+# the flash backward's tolerances, as tests/test_torch_cuda.py states them:
+# fp32 against the plain backward; bf16 against the plain backward in fp32
+# on the same bf16 inputs, mostly relative (the kernel sums in fp32 and
+# rounds once, so a gradient is within a bf16 ulp of its own size)
+FLASH_BWD_TOL = {torch.float32: dict(tol=1e-4),
+                 torch.bfloat16: dict(tol=1e-3, rtol=1e-2)}
+# the forward's lse against the plain version's (fp32 sums either way)
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+def _pairs(S: int, mask: dict) -> int:
+    qp = torch.arange(S)[:, None]
+    kp = torch.arange(S)[None, :]
+    ok = qp >= kp
+    if mask.get("window"):
+        ok &= (qp - kp) < mask["window"]
+    if mask.get("chunk"):
+        ok &= (qp // mask["chunk"]) == (kp // mask["chunk"])
+    return int(ok.sum())
+
+
+def flash_bwd_launch(q, k, v, o, do, lse, delta, out, mask, which: str):
+    """One backward kernel alone, through its C entry point with the
+    wrapper's arguments (to time each of the two apart)."""
+    from repro_torch.kernels import _build
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    tail = (B, S, T, H, KV, D, float(D ** -0.5), int(mask["causal"]),
+            int(mask.get("window", 0)), int(mask.get("chunk", 0)),
+            _build.dtype_code(q.dtype), _build.stream_of(q))
+    lib = _build.lib()
+    if which == "dq":
+        err = lib.repro_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     o.data_ptr(), do.data_ptr(),
+                                     lse.data_ptr(), delta.data_ptr(),
+                                     out[0].data_ptr(), *tail)
+    else:
+        err = lib.repro_flash_bwd_dkdv(q.data_ptr(), k.data_ptr(),
+                                       v.data_ptr(), do.data_ptr(),
+                                       lse.data_ptr(), delta.data_ptr(),
+                                       out[1].data_ptr(), out[2].data_ptr(),
+                                       *tail)
+    _build.check(err, f"flash_attention_bwd ({which})")
+
+
+def flash_bwd_case(timer, g, dtype, mask, shape=TRAIN_FLASH,
+                   path="train_one_rank") -> dict:
+    """The flash backward at a training shape (``path``'s): dq, dk, dv
+    against the plain backward on the same (o, lse), two calls bitwise
+    equal; the forward's o and lse against the plain forward; each kernel
+    and the pair timed beside the plain version and SDPA's backward (causal
+    only; the library yardstick, timed here only), and the forward with and
+    without lse."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    B, S, H, KV, D = shape
+    rn = lambda *shape: torch.randn(shape, generator=g,
+                                    device="cuda").to(dtype)
+    q, k, v, do = rn(B, S, H, D), rn(B, S, KV, D), rn(B, S, KV, D), \
+        rn(B, S, H, D)
+    o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
+    what = f"flash {dtype} {shape} {mask}"
+    check(torch.equal(o, flash_ops.flash_attention(q, k, v, **mask)),
+          f"{what}: the lse instance's o differs")
+    ref_o, ref_lse = flash_ops.attention_lse_ref(q, k, v, **mask)
+    o_err = close(o, ref_o, 2e-2 if dtype == torch.bfloat16 else 1e-4,
+                  f"{what} forward o")
+    lse_err = close(lse, ref_lse, LSE_TOL[dtype], f"{what} forward lse")
+    del ref_o, ref_lse
+    bwd = lambda: flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    got = bwd()
+    check(all(torch.equal(a, b) for a, b in zip(got, bwd())),
+          f"{what} backward: two calls differ")
+    up = lambda t: t.float()
+    ref = flash_ops.attention_bwd_ref(up(q), up(k), up(v), up(o), up(do),
+                                      lse, **mask)
+    errs = [close(a, b, what=f"{what} backward d{n} vs fp32 plain",
+                  **FLASH_BWD_TOL[dtype]) for a, b, n in zip(got, ref, "qkv")]
+    typical = [float(b.abs().mean()) for b in ref]
+    del ref
+    pairs = B * _pairs(S, mask)
+    es = q.element_size()
+    big, small = q.numel() * es, k.numel() * es
+    stats = 2 * B * H * S * 4                       # lse and delta, fp32
+    delta = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    outs = tuple(torch.empty_like(t) for t in (q, k, v))
+    flash_bwd_launch(q, k, v, o, do, lse, delta, outs, mask, "dq")
+    rows = {}
+    for which, macs, nbytes in (
+            ("dq", 3, 4 * big + 2 * small + stats),
+            ("dkdv", 4, 2 * big + 4 * small + stats)):
+        b_ms, b_by = bound(nbytes, 2 * macs * D * H * pairs, dtype)
+        rows[which] = dict(
+            ms=timer(lambda: flash_bwd_launch(q, k, v, o, do, lse, delta,
+                                              outs, mask, which)),
+            bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(4 * big + 4 * small + stats, 10 * D * H * pairs,
+                       dtype)
+    lib_ms = None
+    if list(mask) == ["causal"]:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+        del out
+    fwd = lambda: flash_ops.flash_attention(q, k, v, **mask)
+    fwd_lse = lambda: flash_ops.flash_attention_lse(q, k, v, **mask)
+    fb_ms, fb_by = bound((2 * big + 2 * small) * 1.0, 4 * D * H * pairs,
+                         dtype)
+    return dict(shape=[B, S, H, KV, D], mask=mask, dtype=str(dtype),
+                path=path, max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+                mean_abs_dq_dk_dv=typical, tolerance=FLASH_BWD_TOL[dtype],
+                max_abs_err_forward_o=o_err, max_abs_err_forward_lse=lse_err,
+                ms=timer(bwd), host_ms=timer.host_ms(bwd),
+                plain_ms=timer(lambda: flash_ops.attention_bwd_ref(
+                    q, k, v, o, do, lse, **mask), iters=3),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                dq=rows["dq"], dkdv=rows["dkdv"],
+                forward_ms=timer(fwd), forward_lse_ms=timer(fwd_lse),
+                forward_bound_ms=fb_ms, forward_bound_by=fb_by)
+
+
+def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
+                     path="train_one_rank") -> dict:
+    """RMSNorm's backward at a training path's rows (plain, and the residual
+    form with the sum's own gradient): dx and dscale against the plain
+    backward, two calls bitwise equal; the two kernels timed together and
+    apart beside the plain version and ``F.rms_norm``'s autograd backward
+    (the library yardstick, timed here only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    rows, d = shape
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    x, dy = (rn(rows, d) * 2).to(dtype), rn(rows, d).to(dtype)
+    sc = (rn(d) * 0.2).to(dtype)
+    ds = rn(rows, d).to(dtype) if residual else None
+    fn = lambda: rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds)
+    dx, dsc = fn()
+    dx2, dsc2 = fn()
+    what = f"rmsnorm backward {'residual' if residual else 'plain'} {dtype}"
+    check(torch.equal(dx, dx2) and torch.equal(dsc, dsc2),
+          f"{what}: two calls differ")
+    rdx, rdsc = rms_ops.rmsnorm_bwd_ref(x, sc, dy, ds=ds)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = close(dx, rdx, tol, f"{what} dx")
+    err_sc = close(dsc, rdsc, 1e-4 if dtype == torch.float32 else tol,
+                   f"{what} dscale")
+    es = x.element_size()
+    nb = -(-rows // rms_ops.BWD_ROWS_A_BLOCK)
+    partial = torch.empty((nb, d), dtype=torch.float32, device="cuda")
+    stream = _build.stream_of(x)
+    xc, sc_code = _build.dtype_code(x.dtype), _build.dtype_code(sc.dtype)
+    rows_k = lambda: _build.check(_build.lib().repro_rmsnorm_bwd(
+        x.data_ptr(), sc.data_ptr(), dy.data_ptr(),
+        None if ds is None else ds.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), rows, d, 1e-5, xc, sc_code, stream), "rows")
+    scale_k = lambda: _build.check(_build.lib().repro_rmsnorm_bwd_scale(
+        partial.data_ptr(), dsc.data_ptr(), nb, d, sc_code, stream), "scale")
+    n_in = 3 if residual else 2
+    b_rows = bound((n_in + 1) * rows * d * es + d * es + nb * d * 4,
+                   8 * rows * d, dtype)
+    b_scale = bound(nb * d * 4 + d * es, nb * d, dtype)
+    b_ms, b_by = bound((n_in + 1) * rows * d * es + 2 * d * es, 8 * rows * d,
+                       dtype)
+    xl = x.clone().requires_grad_(True)
+    wl = (1.0 + sc).requires_grad_(True)
+    y = F.rms_norm(xl, (d,), wl, 1e-5)
+    lib_ms = timer(lambda: torch.autograd.grad(y, (xl, wl), dy,
+                                               retain_graph=True))
+    del y
+    return dict(form="residual" if residual else "plain", shape=[rows, d],
+                dtype=str(dtype), path=path, max_abs_err=err,
+                max_abs_err_dscale=err_sc,
+                tolerance=tol, ms=timer(fn), host_ms=timer.host_ms(fn),
+                plain_ms=timer(lambda: rms_ops.rmsnorm_bwd_ref(x, sc, dy,
+                                                               ds=ds)),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                rows_kernel=dict(ms=timer(rows_k), bound_ms=b_rows[0],
+                                 bound_by=b_rows[1]),
+                scale_kernel=dict(ms=timer(scale_k), bound_ms=b_scale[0],
+                                  bound_by=b_scale[1]))
+
+
+def backward_kernel_rows(bwd: dict) -> dict[str, list[dict]]:
+    """Per kernel rows of phase 2c for the kernels' line: each kernel's own
+    time and bound; the plain version's and the library's time are of the
+    whole backward, as is ``pair_ms``."""
+    out: dict[str, list[dict]] = {}
+    parts = {"flash_attention_bwd": (("flash_attention_bwd_dq", "dq"),
+                                     ("flash_attention_bwd_dkdv", "dkdv")),
+             "rmsnorm_bwd": (("rmsnorm_bwd", "rows_kernel"),
+                             ("rmsnorm_bwd_scale", "scale_kernel"))}
+    for name, rows in bwd.items():
+        for r in rows:
+            for kernel, key in parts[name]:
+                out.setdefault(kernel, []).append(dict(
+                    shape=r["shape"], dtype=r["dtype"], path=r["path"],
+                    mask_or_form=r.get("mask", r.get("form")),
+                    max_abs_err=r["max_abs_err"], ms=r[key]["ms"],
+                    bound_ms=r[key]["bound_ms"], bound_by=r[key]["bound_by"],
+                    plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                    host_ms=r["host_ms"], pair_ms=r["ms"],
+                    pair_bound_ms=r["bound_ms"]))
+    return out
+
+
+def backward_cases(timer) -> dict[str, list[dict]]:
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {"flash_attention_bwd": [], "rmsnorm_bwd": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for mask in TRAIN_FLASH_MASKS:
+            out["flash_attention_bwd"].append(flash_bwd_case(timer, g, dtype,
+                                                             mask))
+            gc.collect()
+            torch.cuda.empty_cache()
+        for residual in (False, True):
+            out["rmsnorm_bwd"].append(rmsnorm_bwd_case(timer, g, dtype,
+                                                       residual))
+    # one rank of phase 8c, bf16, causal as llama3.2-3b trains
+    out["flash_attention_bwd"].append(flash_bwd_case(
+        timer, g, torch.bfloat16, dict(causal=True), FSDP_RANK_FLASH,
+        "train_fsdp"))
+    for residual in (False, True):
+        out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
+            timer, g, torch.bfloat16, residual, FSDP_RANK_RMS, "train_fsdp"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: FSDP training
+# ---------------------------------------------------------------------------
+# 8a: llama3.2-3b at full width and depth on one rank, 3 steps of 4 x 1,024
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 1024
+# the kernels the training paths run, by their names in launch_counts
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_scale",
+                 "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv")
+# 8b: the reduced fp32 model (the smoke config at 2 layers), 2 steps of
+# 12 x 64 tokens, on one rank (CPU and card) and on 2 x 2 and 3 x 2 ranks
+PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_LAYERS = 2, 12, 64, 2
+PARITY_GRIDS = ((2, 2), (3, 2))
+# losses and grad norms within PARITY_REL relative (tests/test_torch_train.py's
+# limit); every parameter within PARITY_PARAM_ATOL, all but PARITY_FAR_SHARE
+# of them within PARITY_PARAM_CLOSE. The card's own limit: on an H100 the
+# card read 3.1e-5 against the CPU, and the ranks 3.3e-5 against one rank,
+# where the CPU test, against JAX, holds 3e-5; so a third of one AdamW
+# update (lr 3e-4). The elements beyond PARITY_PARAM_CLOSE are printed
+# with the size of their gradient (``_beyond``).
+PARITY_REL, PARITY_PARAM_ATOL = 1e-5, 1e-4
+PARITY_PARAM_CLOSE, PARITY_FAR_SHARE = 1e-5, 1e-4
+# 8c: llama3.2-3b at full width on 2 x 2 ranks, depth cut to 4 layers,
+# one 1,024-token sequence a rank, 2 steps a variant
+FSDP_GRID, FSDP_LAYERS, FSDP_STEPS = (2, 2), 4, 2
+TRAIN_VARIANTS = (("locality", dict(fsdp=True)),
+                  ("locality_prefetch", dict(fsdp=True, prefetch_depth=1)),
+                  ("xla", dict(fsdp=True, grad_sync="xla")))
+
+
+def train_launches_implied(n_layers: int, steps: int) -> dict[str, int]:
+    """What a training step launches, per kernel and RMSNorm form: with
+    remat every block's forward runs twice (the forward and its recompute),
+    the final norm once; the backward once per norm and attention."""
+    L = n_layers
+    want = {k: 0 for k in ("decode_scores", "decode_stats", "dma_allgather",
+                           "ssd", "rmsnorm.gated")}
+    want.update({"rmsnorm": 4 * L + 1, "rmsnorm.plain": 2 * L + 1,
+                 "rmsnorm.residual": 2 * L, "rmsnorm_bwd": 2 * L + 1,
+                 "rmsnorm_bwd.plain": L + 1, "rmsnorm_bwd.residual": L,
+                 "rmsnorm_bwd_scale": 2 * L + 1, "flash_attention": 2 * L,
+                 "flash_attention_bwd_dq": L, "flash_attention_bwd_dkdv": L})
+    return {k: n * steps for k, n in want.items()}
+
+
+def _zero_counts() -> None:
+    from repro_torch import kernels
+    kernels.add_launch_counts(kernels.launch_counts(), -1)
+
+
+def train_one_rank(smi: str) -> dict[str, int]:
+    """Phase 8a: llama3.2-3b at full width and depth through ``Trainer``
+    on one rank; returns the path's launches per kernel."""
+    from repro_torch import configs, kernels
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = configs.get("llama3.2-3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, None, TrainerConfig(
+        steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        lr=3e-4, seed=0), device="cuda", log=lambda _: None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _zero_counts()
+    tr.run()
+    counts = kernels.launch_counts()
+    want = train_launches_implied(cfg.n_layers, TRAIN_STEPS)
+    got = {k: counts[k] for k in want}
+    check(got == want, f"train_one_rank: launches {got}, the path implies "
+                       f"{want}")
+    hist = tr.metrics_history
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), f"train_one_rank: non-finite metrics {hist}")
+    peak = torch.cuda.max_memory_allocated()
+    dts = [h["dt"] for h in hist]
+    steady = float(np.mean(dts[1:]))
+    batch = tr.data.batch(TRAIN_STEPS)
+    profile_window("profile_train_step", "train_one_rank",
+                   lambda: tr.artifacts.step_fn(tr.state, batch), 1,
+                   tokens=TRAIN_BATCH * TRAIN_SEQ)
+    n_params = sum(t.numel() for t in _leaves(tr.state.params))
+    print(json.dumps({
+        "phase": "train_one_rank", "model": cfg.name, "params": n_params,
+        "layers": cfg.n_layers, "dtype": "bfloat16 compute, fp32 master",
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": TRAIN_STEPS,
+        "losses": [h["loss"] for h in hist],
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "step_ms": [t * 1e3 for t in dts], "step_ms_steady": steady * 1e3,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+        "setup_s": setup_s, "max_memory_allocated": peak,
+        "launches": got, "card": smi}))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: got[k] for k in TRAIN_KERNELS}
+
+
+def _leaves(tree):
+    from repro_torch.optim.adamw import leaves
+    return leaves(tree)
+
+
+def train_run(cfg, grid, params, kw: dict, batch: int, seq: int, steps: int,
+              device, grads: bool = False) -> dict:
+    """``make_train_step(**kw)`` for ``steps`` steps of ``SyntheticLM``
+    (this rank's rows) from ``params`` (None: drawn from seed 0 on the
+    device): per-step metrics, host ms and meter records; this rank's
+    shards with their FSDP dims and axes; launches and peak memory; with
+    ``grads``, the (clipped) gradient AdamW took at each step, read back
+    from its first moment: g_t = (mu_t - b1 mu_(t-1)) / (1 - b1)."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM, host_shard
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.sharding import fsdp_param_axes, fsdp_param_dims
+    art = make_train_step(cfg, grid, device=device, **kw)
+    state = init_state(cfg, art, params=params, seed=0)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       global_batch=batch, seed=0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    art.meter.take()
+    out = {"metrics": [], "step_ms": [], "meter": []}
+    mus = [[torch.zeros_like(t) for t in _leaves(state.mu)]] if grads else []
+    for step in range(steps):
+        b = data.batch(step)
+        if grid is not None:
+            b = host_shard(b, grid.rank, grid.p)
+        t0 = time.perf_counter()
+        state, m = art.step_fn(state, b)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        mt = art.meter.take()
+        out["meter"].append(dict(
+            gathers=mt.gathers, reduce_scatters=mt.reduce_scatters,
+            gather_ms=mt.gather_s * 1e3,
+            reduce_scatter_ms=mt.reduce_scatter_s * 1e3,
+            sync_ms=mt.sync_s * 1e3, staged_bytes=mt.staged_bytes,
+            gather=mt.gather_stats.edge_counts(),
+            reduce_scatter=mt.reduce_scatter_stats.edge_counts()))
+        if grads:
+            mus.append([t.clone() for t in _leaves(state.mu)])
+    out["launches"] = dict(kernels.launch_counts())
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if device == "cuda" else 0)
+    paths = ["/".join(p) for p in _paths(art.pspecs)]
+    out["shards"] = dict(zip(paths, (t.cpu().numpy().copy()
+                                     for t in _leaves(state.params))))
+    if grads:
+        from repro_torch.optim.adamw import AdamW
+        b1 = AdamW().b1
+        out["grads"] = {path: np.stack([
+            ((mus[t + 1][j] - b1 * mus[t][j]) / (1 - b1)).cpu().numpy()
+            for t in range(steps)]) for j, path in enumerate(paths)}
+    out["dims"] = dict(zip(paths, _leaves(fsdp_param_dims(art.pspecs))))
+    out["axes"] = dict(zip(paths, _leaves(fsdp_param_axes(art.pspecs))))
+    return out
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [p for i, x in enumerate(tree)
+                for p in _paths(x, path + (str(i),))]
+    return [path]
+
+
+def _tree(flat: dict):
+    """A parameter tree from {"a/b": array}."""
+    tree: dict = {"rest": []}
+    for path, a in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = torch.from_numpy(np.array(a, dtype=np.float32))
+    return tree
+
+
+def _assemble(results: list, pl: int) -> dict:
+    """Whole leaves from the ranks' shards (grid order for ("pod","data"),
+    pod 0's for "data", rank 0's for replicated)."""
+    first = results[0]
+    out = {}
+    for path, k in first["dims"].items():
+        if k < 0:
+            out[path] = first["shards"][path]
+            continue
+        ranks = results if "pod" in first["axes"][path] else results[:pl]
+        out[path] = np.concatenate([r["shards"][path] for r in ranks], k)
+    return out
+
+
+def _beyond(got: dict, want: dict, worst: int = 8) -> dict:
+    """The parameters of ``got`` beyond PARITY_PARAM_CLOSE of ``want``'s,
+    with the gradient AdamW took there at each step in each run that kept
+    them (``train_run(grads=True)``), and the share of all elements whose
+    first-step |gradient| in ``want``'s run is below 1e-7, ten times
+    Adam's eps: there the first update g / (|g| + eps) is no longer +-1,
+    and the gradient's last bits move it by a share of lr."""
+    paths = list(want["params"])
+    diff = np.concatenate([np.abs(got["params"][p] - want["params"][p])
+                           .ravel() for p in paths])
+    offs = np.cumsum([0] + [want["params"][p].size for p in paths])
+    idx = np.flatnonzero(diff > PARITY_PARAM_CLOSE)
+    listed = []
+    for i in idx[np.argsort(-diff[idx])][:worst]:
+        j = int(np.searchsorted(offs, i, side="right") - 1)
+        row = dict(leaf=paths[j], index=int(i - offs[j]), diff=float(diff[i]))
+        for side, run in (("want", want), ("got", got)):
+            if "grads" in run:
+                g = run["grads"][paths[j]]
+                row[f"grads_{side}"] = [float(x) for x in
+                                        g.reshape(len(g), -1)[:, i - offs[j]]]
+        listed.append(row)
+    g1 = np.concatenate([np.abs(want["grads"][p][0]).ravel() for p in paths])
+    return dict(count=int(idx.size),
+                share_all_first_grad_below_1e7=float(np.mean(g1 < 1e-7)),
+                first_grad_median_all=float(np.median(g1)), worst=listed)
+
+
+def _parity(got: dict, want: dict, what: str) -> dict:
+    """Losses and grad norms within PARITY_REL, parameters within
+    PARITY_PARAM_ATOL; returns the largest differences and, where ``want``
+    holds its gradients, the elements beyond PARITY_PARAM_CLOSE
+    (``_beyond``)."""
+    d_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(got["metrics"], want["metrics"]))
+    d_norm = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                 for a, b in zip(got["metrics"], want["metrics"]))
+    diff = np.concatenate([np.abs(got["params"][p] - want["params"][p])
+                           .ravel() for p in want["params"]])
+    d_par, far = float(diff.max()), float(np.mean(diff > PARITY_PARAM_CLOSE))
+    check(d_loss <= PARITY_REL and d_norm <= PARITY_REL
+          and d_par <= PARITY_PARAM_ATOL and far <= PARITY_FAR_SHARE,
+          f"{what}: losses {d_loss}, grad norms {d_norm} (relative, limit "
+          f"{PARITY_REL}), parameters {d_par} (limit {PARITY_PARAM_ATOL}), "
+          f"share beyond {PARITY_PARAM_CLOSE} {far} (limit "
+          f"{PARITY_FAR_SHARE})")
+    out = dict(loss_rel=d_loss, grad_norm_rel=d_norm, param_abs=d_par,
+               param_share_beyond_1e5=far)
+    if "grads" in want:
+        out["beyond_1e5"] = _beyond(got, want)
+    return out
+
+
+def _received(sched, region) -> dict[int, tuple[int, int]]:
+    """Non-local (messages, blocks) each rank receives in a schedule: what
+    it sends in the transpose, the reduce-scatter."""
+    out = {r: [0, 0] for r in range(sched.p)}
+    for rnd in sched.rounds:
+        for s in rnd.sends:
+            if not region.is_local(s.src, s.dst):
+                out[s.dst][0] += 1
+                out[s.dst][1] += len(s.blocks)
+    return {r: tuple(v) for r, v in out.items()}
+
+
+def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
+                ) -> list[dict[str, float]]:
+    """Per rank and step, the non-local messages and bytes the parameter
+    gathers and the gradient reduce-scatters must send: the schedule
+    oracle's (``schedules.locality_bruck``, and its transpose) times the
+    gathers the path implies (each layer leaf twice with remat, once with
+    the prefetch, the embedding once; each reduce-scatter once), for bf16
+    shards of each leaf. For "xla" it is the recorder's own model of the
+    library's all-gather and reduce-scatter, the calls the port makes (on
+    the card this holds the number of calls; tests/test_torch_train.py
+    holds the Bruck schedules against the JAX HLO)."""
+    from repro_torch.core import schedules as TS
+    from repro_torch.core.comm_record import CommRecorder
+    from repro_torch.core.topology import RegionMap
+    from repro_torch.models import transformer as T
+    from repro_torch.train.sharding import (fsdp_param_axes,
+                                            fsdp_param_dims, param_specs)
+    p = q * pl
+    shapes = T.train_param_shapes(cfg)
+    specs = param_specs(shapes, {"pod": q, "data": pl}, fsdp=True)
+    units = []                              # (shard bytes, gathers, rs)
+    for path, t, k, ax in zip(_paths(shapes), _leaves(shapes),
+                              _leaves(fsdp_param_dims(specs)),
+                              _leaves(fsdp_param_axes(specs))):
+        if k < 0:
+            continue
+        check(ax == "pod,data", f"{path}: sharded over {ax}")
+        stacked = path[0] == "blocks"
+        n = cfg.n_layers if stacked else 1
+        per = t.numel() // n // p * 2       # one layer's bf16 shard
+        units.append((per, n * (1 if prefetch or not stacked else 2), n))
+    out = []
+    for r in range(p):
+        if alg == "xla":
+            rec = CommRecorder(pl)
+            for per, ng, nrs in units:
+                for _ in range(ng):
+                    rec.group("all-gather", tuple(range(p)), r, per * p)
+                for _ in range(nrs):
+                    rec.group("reduce-scatter", tuple(range(p)), r, per)
+            st = rec.stats
+            out.append(dict(msgs=st.group_msgs_nonlocal,
+                            bytes=st.group_bytes_nonlocal))
+            continue
+        region = RegionMap(p, pl)
+        sched = TS.locality_bruck(p, pl)
+        send = sched.per_rank_stats(region)[r]
+        recv = _received(sched, region)[r]
+        out.append(dict(
+            gather_msgs=sum(ng * send[2] for _, ng, _ in units),
+            gather_bytes=sum(ng * send[3] * per for per, ng, _ in units),
+            rs_msgs=sum(nrs * recv[0] for _, _, nrs in units),
+            rs_bytes=sum(nrs * recv[1] * per for per, _, nrs in units)))
+    return out
+
+
+def train_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phases 8b and 8c (every rank shares the one card): the
+    reduced fp32 model on 2 x 2 (ranks 0-3) and 3 x 2 in each variant,
+    then llama3.2-3b at full width, 4 layers, on 2 x 2 in each; ranks
+    outside a grid wait at the barrier that follows each run."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = {shape: RankGrid.build(*shape) for shape in PARITY_GRIDS}
+    out = {"rank": rank, "parity": {}, "full": {}}
+    small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                                n_layers=PARITY_LAYERS, dtype=torch.float32)
+    for shape, grid in grids.items():
+        for name, kw in TRAIN_VARIANTS:
+            if grid is not None:
+                res = train_run(small, grid, _tree(plan["params"]), kw,
+                                PARITY_BATCH, PARITY_SEQ, PARITY_STEPS,
+                                "cuda")
+                out["parity"][f"{shape[0]}x{shape[1]}|{name}"] = {
+                    k: res[k] for k in ("metrics", "shards", "dims", "axes")}
+            dist.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(configs.get("llama3.2-3b"),
+                               n_layers=FSDP_LAYERS)
+    grid = grids[FSDP_GRID]
+    for name, kw in TRAIN_VARIANTS:
+        if grid is not None:
+            res = train_run(full, grid, None, kw, FSDP_GRID[0] * FSDP_GRID[1],
+                            TRAIN_SEQ, FSDP_STEPS, "cuda")
+            res.pop("shards")
+            out["full"][name] = res
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def train_on_ranks(smi: str) -> dict[str, int]:
+    """Phases 8b and 8c: the one-rank references here (CPU and card), then
+    6 spawned ranks (``train_rank``); checks and prints each; returns the
+    launches per kernel of 8c's runs, summed over the ranks and variants."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models import transformer as T
+    small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                                n_layers=PARITY_LAYERS, dtype=torch.float32)
+    params = T.init_train_params(small, torch.Generator().manual_seed(0),
+                                 "cpu")
+    flat = dict(zip(["/".join(p) for p in _paths(params)],
+                    (t.numpy() for t in _leaves(params))))
+    one = {}
+    for device in ("cpu", "cuda"):
+        res = train_run(small, None, _tree(flat), {}, PARITY_BATCH,
+                        PARITY_SEQ, PARITY_STEPS, device, grads=True)
+        one[device] = dict(metrics=res["metrics"], params=res["shards"],
+                           grads=res["grads"])
+    d_card = _parity(one["cuda"], one["cpu"], "train_parity: card vs CPU")
+    t0 = time.perf_counter()
+    ranks = run_ranks(6, train_rank, {"params": flat}, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+
+    report = {}
+    for q, pl in PARITY_GRIDS:
+        for name, _ in TRAIN_VARIANTS:
+            key = f"{q}x{pl}|{name}"
+            res = [ranks[r]["parity"][key] for r in range(q * pl)]
+            for r in range(1, q * pl):
+                check(res[r]["metrics"] == res[0]["metrics"],
+                      f"train_parity {key}: rank {r}'s metrics differ")
+            got = dict(metrics=res[0]["metrics"],
+                       params=_assemble(res, pl))
+            report[key] = _parity(got, one["cuda"], f"train_parity {key}")
+            report[key]["axes"] = sorted(set(res[0]["axes"].values()))
+        eager = [ranks[r]["parity"][f"{q}x{pl}|locality"]
+                 for r in range(q * pl)]
+        pf = [ranks[r]["parity"][f"{q}x{pl}|locality_prefetch"]
+              for r in range(q * pl)]
+        check(all(a["metrics"] == b["metrics"] and all(
+            np.array_equal(a["shards"][k], b["shards"][k])
+            for k in a["shards"]) for a, b in zip(eager, pf)),
+            f"train_parity {q}x{pl}: the prefetch step is not bitwise the "
+            "eager one")
+    print(json.dumps({
+        "phase": "train_parity", "model": small.name,
+        "layers": PARITY_LAYERS, "dtype": "float32",
+        "batch": [PARITY_BATCH, PARITY_SEQ], "steps": PARITY_STEPS,
+        "card_vs_cpu": d_card, "ranks_vs_one_rank": report,
+        "prefetch_bitwise_eager": True, "loss_rel_limit": PARITY_REL,
+        "param_abs_limit": PARITY_PARAM_ATOL,
+        "param_share_beyond_1e5_limit": PARITY_FAR_SHARE,
+        "losses_one_rank": [m["loss"] for m in one["cuda"]["metrics"]]}))
+
+    full = dataclasses.replace(configs.get("llama3.2-3b"),
+                               n_layers=FSDP_LAYERS)
+    q, pl = FSDP_GRID
+    total = {k: 0 for k in TRAIN_KERNELS}
+    losses = {}
+    want_launches = train_launches_implied(FSDP_LAYERS, FSDP_STEPS)
+    for name, kw in TRAIN_VARIANTS:
+        res = [ranks[r]["full"][name] for r in range(q * pl)]
+        for r in range(1, q * pl):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"train_fsdp {name}: rank {r}'s metrics differ")
+        check(all(np.isfinite(m["loss"]) for m in res[0]["metrics"]),
+              f"train_fsdp {name}: non-finite loss")
+        losses[name] = [m["loss"] for m in res[0]["metrics"]]
+        alg = kw.get("grad_sync", "locality")
+        oracle = fsdp_oracle(full, q, pl, "xla" if alg == "xla" else alg,
+                             bool(kw.get("prefetch_depth")))
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want_launches}
+            check(got_l == want_launches, f"train_fsdp {name} rank {r}: "
+                  f"launches {got_l}, the path implies {want_launches}")
+            for k in TRAIN_KERNELS:
+                total[k] += x["launches"][k]
+            for step, m in enumerate(x["meter"]):
+                if alg == "xla":
+                    got = dict(msgs=m["gather"]["group_msgs_nonlocal"]
+                               + m["reduce_scatter"]["group_msgs_nonlocal"],
+                               bytes=m["gather"]["group_bytes_nonlocal"]
+                               + m["reduce_scatter"]["group_bytes_nonlocal"])
+                else:
+                    got = dict(
+                        gather_msgs=m["gather"]["permute_edges_nonlocal"],
+                        gather_bytes=m["gather"]["permute_bytes_nonlocal"],
+                        rs_msgs=m["reduce_scatter"]["permute_edges_nonlocal"],
+                        rs_bytes=m["reduce_scatter"]
+                        ["permute_bytes_nonlocal"])
+                check(got == oracle[r], f"train_fsdp {name} rank {r} step "
+                      f"{step}: non-local {got}, the oracle {oracle[r]}")
+        mean = lambda f: [float(np.mean([m[f] for m in x["meter"]]))
+                          for x in res]
+        print(json.dumps({
+            "phase": "train_fsdp", "variant": name,
+            "shared": "4 ranks sharing one H100 over gloo",
+            "model": full.name, "layers": FSDP_LAYERS,
+            "reduced": "depth 28 -> 4 layers (gloo host transport)",
+            "dtype": "bfloat16 compute, fp32 master",
+            "batch": [q * pl, TRAIN_SEQ], "steps": FSDP_STEPS,
+            "losses": losses[name],
+            "grad_norms": [m["grad_norm"] for m in res[0]["metrics"]],
+            "step_ms_by_rank": [x["step_ms"] for x in res],
+            "gather_host_ms_per_step": mean("gather_ms"),
+            "reduce_scatter_host_ms_per_step": mean("reduce_scatter_ms"),
+            "sync_host_ms_per_step": mean("sync_ms"),
+            "gathers_per_step": res[0]["meter"][0]["gathers"],
+            "reduce_scatters_per_step": res[0]["meter"][0]["reduce_scatters"],
+            "nonlocal_per_step_by_rank": oracle,
+            "nonlocal_equal_to_oracle": True,
+            "staged_bytes_per_step": mean("staged_bytes"),
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "launches_rank0": {k: res[0]["launches"][k]
+                               for k in TRAIN_KERNELS},
+            "ranks_wall_s": ranks_s, "card": smi}))
+    check(losses["locality"] == losses["locality_prefetch"],
+          f"train_fsdp: prefetch losses {losses['locality_prefetch']} differ "
+          f"from eager {losses['locality']}")
+    return total
+
+
 def ptxas_usage(log: str) -> list[dict]:
     """Registers and spill bytes of every kernel instance in ``build.log``
     (``-Xptxas -v``), names demangled where ``c++filt`` is found."""
@@ -1688,6 +2453,11 @@ def main() -> int:
     cases["ssd"] = ssd_cases(timer)
     for row in cases["ssd"]:
         print(json.dumps({"kernel": "ssd", **row}))
+    bwd = backward_cases(timer)
+    for name, rows in bwd.items():
+        for row in rows:
+            print(json.dumps({"kernel": name, **row}))
+    cases.update(backward_kernel_rows(bwd))
     by_path = {"dma_main_path": {"dma_allgather": dma_main_path(dma[0])}}
     small_end_to_end("llama3.2-3b", 4)
     small_end_to_end("mamba2-780m", 3)
@@ -1698,6 +2468,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     by_path["serve_seq_parallel"] = serve_seq_parallel(smi)
     by_path["serve_batch_sharded"] = serve_batch_sharded(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["train_one_rank"] = train_one_rank(smi)
+    by_path["train_fsdp"] = train_on_ranks(smi)
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1713,6 +2487,23 @@ def main() -> int:
                           DMA_ALGORITHMS.index("locality_bruck")),
         "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
                 "src/repro/kernels/ssd/ssd.py:30", 0),
+        # the training path's backward kernels: the JAX package has no
+        # backward kernel (XLA differentiates plain jnp); each is the
+        # backward of the port's kernel for the TPU kernel named
+        "flash_attention_bwd_dq": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/flash.py:32 (its backward)",
+            0),
+        "flash_attention_bwd_dkdv": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/flash.py:32 (its backward)",
+            0),
+        "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                        "src/repro/kernels/rmsnorm/rmsnorm.py:17 (its "
+                        "backward)", 0),
+        "rmsnorm_bwd_scale": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                              "src/repro/kernels/rmsnorm/rmsnorm.py:17 (its "
+                              "backward)", 0),
     }
     kernels = []
     for name, (source, replaces, headline) in meta.items():
@@ -1735,6 +2526,36 @@ def main() -> int:
              for r in cases["rmsnorm"][::-1] if r["shape"] == [8, 3072]
              and r["dtype"] == "torch.bfloat16"}
     kernels[0]["forms_8x3072_bf16"] = forms
+    for row in kernels:        # the backward pair's, and the lse forward's
+        if row["name"] in ("flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkdv", "rmsnorm_bwd",
+                           "rmsnorm_bwd_scale"):
+            src = cases[row["name"]][0]
+            row["pair"] = {k: src[k] for k in ("pair_ms", "pair_bound_ms",
+                                               "mask_or_form")}
+    train = bwd["flash_attention_bwd"][0]
+    kernels[1]["training_shape"] = {
+        k: train[k] for k in ("shape", "forward_ms", "forward_lse_ms",
+                              "forward_bound_ms", "max_abs_err_forward_o",
+                              "max_abs_err_forward_lse")}
+    rank8c = [r for r in bwd["flash_attention_bwd"]
+              if r["path"] == "train_fsdp"]
+    kernels[1]["fsdp_rank_cases"] = {
+        k: [r[k] for r in rank8c]
+        for k in ("shape", "forward_ms", "forward_lse_ms", "forward_bound_ms",
+                  "max_abs_err_forward_o", "max_abs_err_forward_lse")}
+    for row in kernels:        # the backward kernels at phase 8c's shapes
+        if row["name"] in ("flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkdv", "rmsnorm_bwd",
+                           "rmsnorm_bwd_scale"):
+            rank8c = [r for r in cases[row["name"]]
+                      if r["path"] == "train_fsdp"]
+            row["fsdp_rank_cases"] = {
+                "cases": len(rank8c),
+                "max_abs_err": max(r["max_abs_err"] for r in rank8c),
+                **{f: [r[f] for r in rank8c]
+                   for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                             "shape", "mask_or_form")}}
     phase7 = [r for r in cases["rmsnorm"]
               if r.get("path") == "serve_batch_sharded"]
     kernels[0]["batch_sharded_cases"] = {

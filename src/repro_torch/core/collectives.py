@@ -21,7 +21,8 @@ JAX idioms map so:
   ``reduce_scatter_tensor`` on the axis's process group.
 
 A CUDA tensor on a gloo grid, or a CPU tensor on an NCCL grid, raises:
-nothing moves tensors between devices quietly.
+nothing moves tensors between devices quietly. The one move there is is
+asked for by name: a split gather started with ``stage=True``.
 
 Public surface, one family function per collective kind, each taking
 ``(operand, grid, algorithm=..., **kw)``:
@@ -46,10 +47,15 @@ Public surface, one family function per collective kind, each taking
                      ``logsumexp_combine_start`` / ``_finish`` so the
                      accumulation of o and l can run between the halves.
 
-``allgather`` is differentiable for the Bruck schedules: its backward is
-the reduce-scatter. ``allgather_start`` / ``allgather_finish`` split the
-locality gather after its last non-local round; ``finish(start(x))`` is
-bit-identical to the eager gather. ``collective(kind, x, grid=...,
+``allgather`` is differentiable for the Bruck schedules and the library's
+gather (``DIFFERENTIABLE``): its backward is the reduce-scatter.
+``allgather_start`` / ``allgather_finish`` split the locality gather
+after its last non-local round; ``finish(start(x))`` is
+bit-identical to the eager gather, and differentiable for the same
+schedules: the pair's backward, taken at finish, is the schedule's
+reduce-scatter. With ``stage=True`` the pair also moves a tensor of
+another device (a card's, on a gloo grid) to the grid's and back, both
+ways, inside that one autograd node. ``collective(kind, x, grid=...,
 algorithm=...)`` is the string-keyed entry point over ``KINDS`` /
 ``ALGORITHMS_BY_KIND`` / ``DEFAULT_ALGORITHM``.
 
@@ -513,10 +519,14 @@ class _SplitMeta:
 
 @dataclasses.dataclass
 class PendingCollective:
-    """An in-flight split collective: its tensors and its static half."""
+    """An in-flight split collective: its tensors and its static half; for
+    a differentiable or staged gather, ``source`` is the gathered input
+    (the result comes back to its device), through which the backward of
+    finish returns."""
 
     arrays: tuple
     meta: _SplitMeta
+    source: torch.Tensor | None = None
 
 
 def _locality_bruck_allgather_start(x: torch.Tensor, grid: RankGrid, *,
@@ -614,9 +624,11 @@ REDUCE_SCATTERS = {
         ct.reshape(-1), grid, grid.world).reshape(ct.shape[1:]),
 }
 
-#: the schedules whose gather is differentiable (as in the JAX package,
-#: where only they may be differentiated with ``assume_varying``)
-DIFFERENTIABLE = ("bruck", "locality_bruck")
+#: the gathers that are differentiable: the Bruck schedules (as in the JAX
+#: package, where only they may be differentiated with ``assume_varying``)
+#: and the library's, whose transpose is the library's reduce-scatter (as
+#: ``lax.all_gather``'s is ``psum_scatter``)
+DIFFERENTIABLE = ("bruck", "locality_bruck", "xla")
 
 
 def _check_algorithm(algorithm: str, table: dict) -> None:
@@ -650,7 +662,7 @@ def allgather(x: torch.Tensor, grid: RankGrid, *,
     _check_algorithm(algorithm, ALLGATHERS)
     if x.requires_grad and torch.is_grad_enabled():
         if algorithm not in DIFFERENTIABLE:
-            raise ValueError(f"only the Bruck schedules {DIFFERENTIABLE} are "
+            raise ValueError(f"only the gathers {DIFFERENTIABLE} are "
                              f"differentiable, not algorithm={algorithm!r}")
         return _AllGather.apply(x, grid, algorithm, tiled)
     return ALLGATHERS[algorithm](x, grid, tiled)
@@ -695,28 +707,69 @@ def cache_migrate(x: torch.Tensor, grid: RankGrid, *,
 # Split (start/finish) collectives
 # =============================================================================
 def allgather_start(x: torch.Tensor, grid: RankGrid, *,
-                    algorithm: str = "locality_bruck",
-                    tiled: bool = False) -> PendingCollective:
+                    algorithm: str = "locality_bruck", tiled: bool = False,
+                    stage: bool = False) -> PendingCollective:
     """Issue an allgather; complete it with :func:`allgather_finish`.
 
     For ``locality_bruck`` the non-local rounds complete in start; every
     other algorithm has no local tail to defer, so start runs the whole
-    gather and the split is a program-order hook."""
+    gather and the split is a program-order hook. When ``x`` needs a
+    gradient (the gathers in ``DIFFERENTIABLE``, as :func:`allgather`), the
+    pending gather keeps ``x``, and the backward of finish is the
+    reduce-scatter. ``stage=True`` lets ``x`` lie on another device than
+    the grid's (a card's tensor on a gloo grid): start copies it to the
+    grid's device and finish copies the result back to ``x``'s; the
+    backward moves the same way around its reduce-scatter, inside finish's
+    one autograd node on ``x``'s device, so that every rank's backward
+    issues its reduce-scatters in the order of that device's graph."""
     _check_algorithm(algorithm, ALLGATHERS)
-    if algorithm == "locality_bruck":
-        if x.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a differentiable split gather comes with the FSDP training "
-                "slice (ROADMAP.md Queue 1 item 4); use allgather")
-        return _locality_bruck_allgather_start(x, grid, tiled=tiled)
-    full = allgather(x, grid, algorithm=algorithm, tiled=tiled)
-    return PendingCollective((full,), _SplitMeta("allgather", "done"))
+    grad = x.requires_grad and torch.is_grad_enabled()
+    if grad and algorithm not in DIFFERENTIABLE:
+        raise ValueError(f"only the gathers {DIFFERENTIABLE} are "
+                         f"differentiable, not algorithm={algorithm!r}")
+    with torch.no_grad():
+        xs = x.to(grid.device) if stage else x
+        if algorithm == "locality_bruck":
+            pending = _locality_bruck_allgather_start(xs, grid, tiled=tiled)
+        else:
+            pending = PendingCollective(
+                (ALLGATHERS[algorithm](xs, grid, tiled),),
+                _SplitMeta("allgather", "done"))
+    if grad or xs is not x:
+        pending = PendingCollective(pending.arrays, dataclasses.replace(
+            pending.meta, grid=grid, algorithm=algorithm), source=x)
+    return pending
+
+
+class _SplitGatherFinish(torch.autograd.Function):
+    """The finish of a differentiable or staged split gather: the gather's
+    local tail, on the source's device, forward; the whole reduce-scatter
+    on the grid's device backward (the start's rounds sent nothing that
+    autograd sees)."""
+
+    @staticmethod
+    def forward(ctx, x, pending):
+        meta = pending.meta
+        ctx.grid, ctx.algorithm, ctx.x_shape = (meta.grid, meta.algorithm,
+                                                tuple(x.shape))
+        return _locality_bruck_allgather_finish(pending).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid = ctx.grid
+        # contiguous on g's own device before the move: g is often a
+        # transposed view, and moving it strided costs the host far more
+        ct = g.reshape((grid.p,) + ctx.x_shape).contiguous().to(grid.device)
+        return REDUCE_SCATTERS[ctx.algorithm](ct, grid).to(g.device), None
 
 
 def allgather_finish(pending: PendingCollective) -> torch.Tensor:
-    """Complete an :func:`allgather_start`; bit-identical to the eager path."""
+    """Complete an :func:`allgather_start`; bit-identical to the eager path
+    (on the source's device when it was staged)."""
     if pending.meta.op != "allgather":
         raise ValueError(f"not a pending allgather: {pending.meta}")
+    if pending.source is not None:
+        return _SplitGatherFinish.apply(pending.source, pending)
     return _locality_bruck_allgather_finish(pending)
 
 

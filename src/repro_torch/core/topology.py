@@ -180,6 +180,22 @@ class RankGrid:
                         Axis("local", members, l, group),
                         Axis("outer", (l,), 0, None))
 
+    def lane_grid(self) -> RankGrid:
+        """This rank's lane (its position in every pod) as a grid of its
+        own, 1 x q over the lane's process group, as :meth:`pod_grid`. Its
+        members sit in q different pods, so its recorder counts every edge
+        non-local."""
+        q, l = self.q, self.l
+        members = tuple(range(q))
+        group = self.outer.group
+        lane = RankGrid(1, q, tuple(self.ranks[R * self.pl + l]
+                                    for R in range(q)), self.R,
+                        Axis("world", members, self.R, group),
+                        Axis("local", members, self.R, group),
+                        Axis("outer", (self.R,), 0, None))
+        lane.recorder = CommRecorder(1)
+        return lane
+
     def _first_batch(self) -> None:
         """NCCL needs every rank of a group in the group's first
         ``batch_isend_irecv``; the collectives' rounds may leave ranks out

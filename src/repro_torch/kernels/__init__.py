@@ -17,20 +17,31 @@ def _counters():
     from .rmsnorm import ops as rmsnorm
     from .ssd import ops as ssd
     return [("rmsnorm", rmsnorm, "LAUNCHES"),
+            ("rmsnorm_bwd", rmsnorm, "BWD_LAUNCHES"),
+            ("rmsnorm_bwd_scale", rmsnorm, "BWD_SCALE_LAUNCHES"),
             ("flash_attention", flash_attention, "LAUNCHES"),
+            ("flash_attention_bwd_dq", flash_attention, "BWD_DQ_LAUNCHES"),
+            ("flash_attention_bwd_dkdv", flash_attention,
+             "BWD_DKDV_LAUNCHES"),
             ("decode_scores", decode_stats, "SCORES_LAUNCHES"),
             ("decode_stats", decode_stats, "LAUNCHES"),
             ("dma_allgather", dma_allgather, "LAUNCHES"),
             ("ssd", ssd, "LAUNCHES")]
 
 
-def launch_counts() -> dict[str, int]:
-    """Every kernel's launch count, and RMSNorm's per form
-    (``rmsnorm.<form>``)."""
-    counts = {name: getattr(mod, attr) for name, mod, attr in _counters()}
+def _form_counts() -> dict[str, dict[str, int]]:
+    """RMSNorm's per-form counts, forward and backward, by key prefix."""
     from .rmsnorm import ops as rmsnorm
-    counts.update({f"rmsnorm.{form}": n
-                   for form, n in rmsnorm.FORM_LAUNCHES.items()})
+    return {"rmsnorm": rmsnorm.FORM_LAUNCHES,
+            "rmsnorm_bwd": rmsnorm.FORM_BWD_LAUNCHES}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count, and RMSNorm's per form, forward
+    (``rmsnorm.<form>``) and backward (``rmsnorm_bwd.<form>``)."""
+    counts = {name: getattr(mod, attr) for name, mod, attr in _counters()}
+    for prefix, forms in _form_counts().items():
+        counts.update({f"{prefix}.{form}": n for form, n in forms.items()})
     return counts
 
 
@@ -38,11 +49,12 @@ def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
     """Add ``times`` x ``delta`` (keys of :func:`launch_counts`) to the
     counts: a CUDA graph's replay launches what its capture recorded, and
     the wrappers, which count a launch where they make it, do not run."""
-    from .rmsnorm import ops as rmsnorm
     mods = {name: (mod, attr) for name, mod, attr in _counters()}
+    forms = _form_counts()
     for key, n in delta.items():
-        if key.startswith("rmsnorm."):
-            rmsnorm.FORM_LAUNCHES[key.split(".", 1)[1]] += n * times
+        if "." in key:
+            prefix, form = key.split(".", 1)
+            forms[prefix][form] += n * times
         else:
             mod, attr = mods[key]
             setattr(mod, attr, getattr(mod, attr) + n * times)

@@ -5,7 +5,9 @@
 // per head with fp32 running max m, sum l and accumulator, GQA (q head h
 // reads kv head h / G), causal, sliding-window, chunked-local and
 // tanh-softcap masks, kv tiles that no query of the tile can reach skipped,
-// and rows with l == 0 written as 0.
+// and rows with l == 0 written as 0. Asked for it (training), each instance
+// also writes the row's natural log-sum-exp m + log l, (B, H, S) fp32, +inf
+// for a row with no key: the input of the backward in flash_attention_bwd.cu.
 //
 // Bound on the H100 at the main path's shape (llama3.2-3b prefill, B = 1,
 // S = 512, 24 q heads over 8 kv heads, D = 128, bf16, causal): bytes, q and
@@ -15,8 +17,9 @@
 // S = 2048, 25.8 GFLOP = 26 us against 10 us of bytes.
 //
 // Design: two instances, chosen by dtype in the wrapper (ops.py), never one
-// for the other. Registers per thread from ptxas (build.log), no spills in any:
-// bf16 D = 32/64/128/256: 96/127/166/244; fp32: 162/168/254/204.
+// for the other. Registers per thread from ptxas (build.log), with the lse
+// epilogue: bf16 D = 32/64/128/256: 95/127/163/255, no spills; fp32:
+// 168/168/254/206, D = 64 spilling 4 bytes.
 //
 // bf16: tensor cores. One block of one warpgroup (128 threads) per (b*H + h,
 // 64-row q tile); at D = 128 two blocks fit an SM (112 KB of shared memory,
@@ -74,6 +77,7 @@ constexpr int kBM = 64;            // query rows per block (one warpgroup)
 constexpr int kBN = 64;            // keys per kv tile
 constexpr int kStages = 3;         // K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct WCfg {
@@ -337,9 +341,9 @@ __global__ void __launch_bounds__(128)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int S, int T_len, int H,
-                   int KV, float scale, int causal, int window, int chunk,
-                   float cap) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int S, int T_len, int H, int KV, float scale, int causal,
+                   int window, int chunk, float cap) {
   using C = WCfg<D>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle is a function of the address: tiles start on 1024 bytes,
@@ -494,6 +498,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv_l[r] = l == 0.f ? 1.f : __frcp_rn(l);      // fully-masked rows -> 0
+    // the row's natural log-sum-exp (m and the logits are log2-scaled); a
+    // row with no key gets +inf, so the backward's exp(s - lse) is 0
+    const int qp = r0 + 8 * r;
+    if (lse != nullptr && t4 == 0 && qp < S)
+      lse[(static_cast<size_t>(b) * H + h) * S + qp] =
+          l == 0.f ? INFINITY : (m_i[r] + log2f(l)) * kLn2;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -566,9 +576,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L,
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int T_len, int H, int KV, float scale,
-                         int causal, int window, int chunk, float cap,
-                         cudaStream_t stream) {
+                         float* lse, int B, int S, int T_len, int H, int KV,
+                         float scale, int causal, int window, int chunk,
+                         float cap, cudaStream_t stream) {
   using C = WCfg<D>;
   CUtensorMap tq, tk, tv;
   cudaError_t e = make_map<D>(&tq, q, B, S, H, kBM);
@@ -587,8 +597,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
   flash_wgmma_kernel<D><<<grid, 128, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T_len, H, KV, scale,
-      causal, window, chunk, cap);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, KV,
+      scale, causal, window, chunk, cap);
   return cudaGetLastError();
 }
 
@@ -610,9 +620,9 @@ struct Tile {
 template <int D>
 __global__ void __launch_bounds__(Tile<D>::NT)
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int T_len, int H, int KV, float scale, int causal,
-                  int window, int chunk, float cap) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int S, int T_len, int H, int KV,
+                  float scale, int causal, int window, int chunk, float cap) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* sQ = smem;                     // [BQ][D]
@@ -730,6 +740,9 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + row0 + i;
     if (qp >= S) continue;
     const float l = l_i[i] == 0.f ? 1.f : l_i[i];   // fully-masked rows -> 0
+    if (lse != nullptr && lane == 0)      // +inf for a row with no key
+      lse[(static_cast<size_t>(b) * H + h) * S + qp] =
+          l_i[i] == 0.f ? INFINITY : m_i[i] + logf(l_i[i]);
     float* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < C::DL; ++j) out[lane + 32 * j] = acc[i][j] / l;
@@ -738,9 +751,9 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T_len, int H, int KV, float scale,
-                        int causal, int window, int chunk, float cap,
-                        cudaStream_t stream) {
+                        float* lse, int B, int S, int T_len, int H, int KV,
+                        float scale, int causal, int window, int chunk,
+                        float cap, cudaStream_t stream) {
   using C = Tile<D>;
   const int smem = C::SMEM_FLOATS * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(flash_fp32_kernel<D>,
@@ -750,14 +763,14 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + C::BQ - 1) / C::BQ);
   flash_fp32_kernel<D><<<grid, C::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, T_len, H, KV,
-      scale, causal, window, chunk, cap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, T_len, H,
+      KV, scale, causal, window, chunk, cap);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
-                               int, int, int, int, int, float, int, int, int,
-                               float, cudaStream_t);
+                               float*, int, int, int, int, int, float, int,
+                               int, int, float, cudaStream_t);
 
 Launch pick(bool bf16, int D) {
   switch (D) {
@@ -770,12 +783,12 @@ Launch pick(bool bf16, int D) {
 }
 
 int run(bool bf16, const void* q, const void* k, const void* v, void* o,
-        int B, int S, int T_len, int H, int KV, int D, float scale, int causal,
-        int window, int chunk, float cap, void* stream) {
+        void* lse, int B, int S, int T_len, int H, int KV, int D, float scale,
+        int causal, int window, int chunk, float cap, void* stream) {
   const Launch fn = pick(bf16, D);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fn(q, k, v, o, B, S, T_len, H, KV, scale, causal,
-                             window, chunk, cap,
+  return static_cast<int>(fn(q, k, v, o, static_cast<float*>(lse), B, S,
+                             T_len, H, KV, scale, causal, window, chunk, cap,
                              static_cast<cudaStream_t>(stream)));
 }
 
@@ -783,20 +796,24 @@ int run(bool bf16, const void* q, const void* k, const void* v, void* o,
 
 // q (B,S,H,D), k/v (B,T,KV,D), o (B,S,H,D), all contiguous; bf16 runs the
 // tensor-core instance (q, k, v 16-byte aligned), fp32 the CUDA-core one.
+// lse (B,H,S) fp32, the rows' natural log-sum-exp of the scaled scores for
+// the backward, is written when it is not null (serving passes null).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int B, int S,
-                                          int T_len, int H, int KV, int D,
+                                          const void* v, void* o, void* lse,
+                                          int B, int S, int T_len, int H,
+                                          int KV, int D,
                                           float scale, int causal, int window,
                                           int chunk, float cap, void* stream) {
-  return run(true, q, k, v, o, B, S, T_len, H, KV, D, scale, causal, window,
-             chunk, cap, stream);
+  return run(true, q, k, v, o, lse, B, S, T_len, H, KV, D, scale, causal,
+             window, chunk, cap, stream);
 }
 
 extern "C" int repro_flash_attention_fp32(const void* q, const void* k,
-                                          const void* v, void* o, int B, int S,
-                                          int T_len, int H, int KV, int D,
+                                          const void* v, void* o, void* lse,
+                                          int B, int S, int T_len, int H,
+                                          int KV, int D,
                                           float scale, int causal, int window,
                                           int chunk, float cap, void* stream) {
-  return run(false, q, k, v, o, B, S, T_len, H, KV, D, scale, causal, window,
-             chunk, cap, stream);
+  return run(false, q, k, v, o, lse, B, S, T_len, H, KV, D, scale, causal,
+             window, chunk, cap, stream);
 }

@@ -1,18 +1,28 @@
 """RMSNorm and its two fused forms: the CUDA kernel for CUDA tensors, the
-plain versions for CPU ones.
+plain versions for CPU ones; and the backward of the plain and residual
+forms (``csrc/rmsnorm_bwd.cu``), with the ``autograd.Function``s that the
+training path calls (:func:`rmsnorm_train`, :func:`rmsnorm_residual_train`).
 
-``LAUNCHES`` counts kernel launches of every form, ``FORM_LAUNCHES`` each
-form's; CPU calls leave both alone.
+``LAUNCHES`` counts forward kernel launches of every form, ``FORM_LAUNCHES``
+each form's; ``BWD_LAUNCHES`` and ``BWD_SCALE_LAUNCHES`` the backward's two
+kernels (the rows, then the scale gradient's column sums), and
+``FORM_BWD_LAUNCHES`` the rows kernel per form. CPU calls leave them alone.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import rmsnorm_gated_ref, rmsnorm_ref, rmsnorm_residual_ref
+from .ref import (rmsnorm_bwd_ref, rmsnorm_gated_ref, rmsnorm_ref,
+                  rmsnorm_residual_ref)
 
 LAUNCHES = 0
 FORM_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
+BWD_LAUNCHES = 0
+BWD_SCALE_LAUNCHES = 0
+FORM_BWD_LAUNCHES = {"plain": 0, "residual": 0}
+BWD_ROWS_A_BLOCK = 16        # rows of one dscale partial (rmsnorm_bwd.cu)
+BWD_MAX_D = 8192
 
 
 def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
@@ -153,3 +163,99 @@ def rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     _build.check(err, "rmsnorm_gated")
     _count("gated")
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                ds: torch.Tensor | None = None, eps: float = 1e-5
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of :func:`rmsnorm` at (x, scale) for the output gradient
+    ``dy``; with ``ds``, the residual form's: x is its sum s, ds the
+    gradient of its s output, and dx the gradient of both x and delta. Two
+    kernels on the card, deterministic (no atomics)."""
+    global BWD_LAUNCHES, BWD_SCALE_LAUNCHES
+    ts = (x, scale, dy) + (() if ds is None else (ds,))
+    if _on_cpu("rmsnorm_bwd", *ts):
+        return rmsnorm_bwd_ref(x, scale, dy, ds=ds, eps=eps)
+    _check_scale("rmsnorm_bwd", scale, x)
+    for t, what in ((dy, "dy"), (ds, "ds")):
+        if t is not None and (t.shape != x.shape or t.dtype != x.dtype):
+            raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)} {x.dtype}, "
+                             f"{what} {tuple(t.shape)} {t.dtype}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("rmsnorm_bwd: x, dy and ds must be contiguous")
+    d = x.shape[-1]
+    if d > BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: rows of {d} exceed {BWD_MAX_D}")
+    x_code, s_code = _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, dscale.zero_()
+    nb = -(-rows // BWD_ROWS_A_BLOCK)
+    partial = torch.empty((nb, d), dtype=torch.float32, device=x.device)
+    lib, stream = _build.lib(), _build.stream_of(x)
+    err = lib.repro_rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+        None if ds is None else ds.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), rows, d, float(eps), x_code, s_code, stream)
+    _build.check(err, "rmsnorm_bwd")
+    BWD_LAUNCHES += 1
+    FORM_BWD_LAUNCHES["plain" if ds is None else "residual"] += 1
+    err = lib.repro_rmsnorm_bwd_scale(partial.data_ptr(), dscale.data_ptr(),
+                                      nb, d, s_code, stream)
+    _build.check(err, "rmsnorm_bwd (scale)")
+    BWD_SCALE_LAUNCHES += 1
+    return dx, dscale
+
+
+class RMSNorm(torch.autograd.Function):
+    """:func:`rmsnorm` whose backward is :func:`rmsnorm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), eps=ctx.eps)
+        return dx, dscale, None
+
+
+class RMSNormResidual(torch.autograd.Function):
+    """:func:`rmsnorm_residual` whose backward is :func:`rmsnorm_bwd` of the
+    sum, the sum's own gradient added in; x and delta get the same
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, delta, scale, eps):
+        s, y = rmsnorm_residual(x, delta, scale, eps=eps)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, scale = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(s)
+        dx, dscale = rmsnorm_bwd(s, scale, dy.contiguous(),
+                                 ds=None if ds is None else ds.contiguous(),
+                                 eps=ctx.eps)
+        return dx, dx, dscale, None
+
+
+def rmsnorm_train(x: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable :func:`rmsnorm` (the training path)."""
+    return RMSNorm.apply(x, scale, eps)
+
+
+def rmsnorm_residual_train(x: torch.Tensor, delta: torch.Tensor,
+                           scale: torch.Tensor, *, eps: float = 1e-5
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable :func:`rmsnorm_residual` (the training path)."""
+    return RMSNormResidual.apply(x, delta, scale, eps)

@@ -1,0 +1,130 @@
+"""Training launcher of the port: ``Trainer`` on one rank or on spawned gloo
+ranks.
+
+``python -m repro_torch.launch.train --arch llama3.2-3b --steps 3`` trains
+the full configuration on the card (random fp32 master weights from seed
+0, bf16 compute, ``SyntheticLM`` batches); ``--smoke --device cpu`` trains
+the reduced configuration in fp32 on the CPU (the kernels' plain
+versions). ``--layers`` cuts the depth.
+
+``--ranks N --pods q`` spawns N processes, q pods of N/q, joined in one
+gloo group on localhost (``launch.serve.run_ranks``); each trains its rows
+of the global batch on ``cuda`` (all of them on the one card when there is
+one) unless ``--device cpu``:
+
+    python -m repro_torch.launch.train --smoke --device cpu --ranks 4 \\
+        --pods 2 --fsdp
+
+prints every rank's losses (equal on every rank) and its gathers,
+reduce-scatters and non-local messages. The kernels are built once, here,
+before the ranks start.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+
+def _config(args):
+    from repro_torch import configs
+    cfg = (dataclasses.replace(configs.get_smoke(args.arch),
+                               dtype=torch.float32)
+           if args.smoke else configs.get(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+def _trainer_config(args):
+    from repro_torch.train import TrainerConfig
+    return TrainerConfig(steps=args.steps, seq_len=args.seq_len,
+                         global_batch=args.global_batch, log_every=1,
+                         grad_sync=args.grad_sync, fsdp=args.fsdp,
+                         prefetch_depth=args.prefetch_depth, lr=args.lr)
+
+
+def _train_rank(rank: int, world: int, args) -> dict:
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.serve import resolve_device
+    from repro_torch.train import Trainer
+    grid = RankGrid.build(args.pods, world // args.pods)
+    tr = Trainer(_config(args), grid, _trainer_config(args),
+                 device=resolve_device(args.device),
+                 log=(print if rank == 0 else (lambda _: None)))
+    t0 = time.perf_counter()
+    tr.run()
+    m = tr.artifacts.meter.take()
+    return {"rank": rank, "seconds": time.perf_counter() - t0,
+            "losses": [h["loss"] for h in tr.metrics_history],
+            "gathers": m.gathers, "reduce_scatters": m.reduce_scatters,
+            "nonlocal_msgs": (m.gather_stats.nonlocal_msgs
+                              + m.reduce_scatter_stats.nonlocal_msgs),
+            "staged_bytes": m.staged_bytes}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced configuration, in float32")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--grad-sync", default="locality",
+                    choices=("locality", "locality_rd", "flat_psum", "xla"))
+    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--prefetch-depth", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default=None,
+                    help="default cuda; cpu runs the kernels' plain versions")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="ranks the batch is split over (spawned)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods the ranks form (ranks / pods lanes each)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.serve import resolve_device
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    if args.ranks > 1:
+        if args.ranks % args.pods:
+            raise SystemExit(f"--ranks {args.ranks} is no multiple of "
+                             f"--pods {args.pods}")
+        if args.global_batch % args.ranks:
+            raise SystemExit(f"--global-batch {args.global_batch} does not "
+                             f"split over {args.ranks} ranks")
+        if device.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.build()                 # once, before the ranks start
+        from repro_torch.launch.serve import run_ranks
+        t0 = time.perf_counter()
+        out = run_ranks(args.ranks, _train_rank, args)
+        dt = time.perf_counter() - t0
+        if any(r["losses"] != out[0]["losses"] for r in out):
+            raise SystemExit("[train] the ranks' losses differ")
+        print(f"[train] {cfg.name} ({cfg.n_layers} layers) on {args.ranks} "
+              f"ranks ({args.pods} pods, {device}), grad_sync "
+              f"{args.grad_sync}, fsdp {args.fsdp}, prefetch "
+              f"{args.prefetch_depth}: losses {out[0]['losses']} in "
+              f"{dt:.2f}s with start-up")
+        for r in out:
+            print(f"[train] rank {r['rank']}: gathers {r['gathers']}, "
+                  f"reduce-scatters {r['reduce_scatters']}, non-local msgs "
+                  f"{r['nonlocal_msgs']}, staged bytes {r['staged_bytes']}")
+        return
+
+    from repro_torch.train import Trainer
+    tr = Trainer(cfg, None, _trainer_config(args), device=device)
+    t0 = time.perf_counter()
+    out = tr.run()
+    print(f"[train] {cfg.name} ({cfg.n_layers} layers) on {device}: {out} in "
+          f"{time.perf_counter() - t0:.2f}s")
+
+
+if __name__ == "__main__":
+    main()

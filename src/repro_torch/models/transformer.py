@@ -28,6 +28,11 @@ layers are a ``ModuleList`` in global layer order, built from
 ``cache_len`` slots; ``conv`` (n_layers, B, W-1, Ch) and ``h``
 (n_layers, B, H, N, P) fp32 for the SSM family.
 
+Training (:func:`forward_train`) takes the JAX package's parameter tree
+instead, fp32 master weights with the layers stacked (``blocks/slot0``),
+see :func:`init_train_params`; it runs the same block math with the
+differentiable kernels.
+
 Parameters are a flat dict keyed like this module's ``state_dict``:
 ``embed`` (Vpad, d), ``final_norm`` (d,), and ``layers.{i}.{name}``, for
 ``ln1, wq, wk, wv, wo, ln2, gate, up, down`` (dense) or ``ln, in_proj,
@@ -46,6 +51,8 @@ from torch import nn
 
 from ..configs import ModelConfig, check_supported
 from . import attention as attn
+from ..kernels.flash_attention.ops import flash_attention_train
+from ..kernels.rmsnorm.ops import rmsnorm_residual_train, rmsnorm_train
 from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
                      rmsnorm, rmsnorm_residual, rope_angles)
 from .ssm import MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init
@@ -71,6 +78,28 @@ def find_period(plan) -> tuple[int, int, int]:
     return n, 1, 0
 
 
+def attn_qkv(x, w, cos, sin, cfg: ModelConfig, norm=rmsnorm):
+    """A dense layer's first half up to attention: ``ln1``, the q/k/v
+    projections and rotary embeddings; ``w`` maps ``LAYER_PARAMS`` names to
+    weights in ``cfg.dtype``."""
+    B, S, _ = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    h = norm(x, w["ln1"], eps=cfg.norm_eps)
+    q = apply_rope_angles((h @ w["wq"]).reshape(B, S, H, D), cos, sin)
+    k = apply_rope_angles((h @ w["wk"]).reshape(B, S, KV, D), cos, sin)
+    v = (h @ w["wv"]).reshape(B, S, KV, D)
+    return q, k, v
+
+
+def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual):
+    """A dense layer's second half from the attention output: ``x + o @ wo``
+    and ``ln2`` in one pass, then ``x + mlp``."""
+    B, S, _ = x.shape
+    x, h = norm_residual(x, o.reshape(B, S, cfg.n_heads * cfg.head_dim_)
+                         @ w["wo"], w["ln2"], eps=cfg.norm_eps)
+    return x + mlp_apply(h, w["gate"], w["up"], w["down"])
+
+
 class Block(nn.Module):
     """One pre-norm decoder layer: attention then SwiGLU MLP."""
 
@@ -88,13 +117,8 @@ class Block(nn.Module):
         into ``kv_cache = (k_cache, v_cache)`` in place at ``pos`` and
         returns (x, None); a ``decode_combine`` hook (module docstring)
         does the write and the attention when it takes the layer."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        h = rmsnorm(x, self.ln1, eps=cfg.norm_eps)
-        q = apply_rope_angles((h @ self.wq).reshape(B, S, H, D), cos, sin)
-        k = apply_rope_angles((h @ self.wk).reshape(B, S, KV, D), cos, sin)
-        v = (h @ self.wv).reshape(B, S, KV, D)
+        w = self._parameters
+        q, k, v = attn_qkv(x, w, cos, sin, self.cfg)
         if kv_cache is None:
             o = attn.multihead_attention(q, k, v, causal=True)
             kv = (k, v)
@@ -110,9 +134,7 @@ class Block(nn.Module):
                 o = res[0]
             kv = None
         # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
-        x, h = rmsnorm_residual(x, o.reshape(B, S, H * D) @ self.wo, self.ln2,
-                                eps=cfg.norm_eps)
-        return x + mlp_apply(h, self.gate, self.up, self.down), kv
+        return out_mlp(x, o, w, self.cfg), kv
 
 
 class MambaBlock(nn.Module):
@@ -323,3 +345,149 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     for r in range(rem):
         put(reps * pi + r, tree["rest"][r])
     return params
+
+
+# ---------------------------------------------------------------------------
+# training: the JAX package's stacked parameter tree, forward with mode="train"
+# ---------------------------------------------------------------------------
+#: where each of ``LAYER_PARAMS`` sits in a layer of the JAX tree
+TRAIN_LEAF_PATHS = {"ln1": ("ln1", "scale"), "wq": ("attn", "wq"),
+                    "wk": ("attn", "wk"), "wv": ("attn", "wv"),
+                    "wo": ("attn", "wo"), "ln2": ("ln2", "scale"),
+                    "gate": ("mlp", "gate"), "up": ("mlp", "up"),
+                    "down": ("mlp", "down")}
+
+
+def _check_train(cfg: ModelConfig) -> None:
+    check_supported(cfg, "train")
+    if find_period(cfg.layer_plan())[0] != 1:
+        raise NotImplementedError(f"{cfg.name}: training stacks one layer "
+                                  "kind (a period of 1)")
+
+
+def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
+    return {"ln1": (d,), "wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
+            "wo": (hq, d), "ln2": (d,), "gate": (d, f), "up": (d, f),
+            "down": (f, d)}
+
+
+def stack_tree(layers: dict[str, Any]) -> dict:
+    """``LAYER_PARAMS`` name -> leaf, as the JAX tree of one layer slot."""
+    tree: dict = {}
+    for name, (a, b) in TRAIN_LEAF_PATHS.items():
+        tree.setdefault(a, {})[b] = layers[name]
+    return tree
+
+
+def layer_leaves(slot: dict) -> dict[str, Any]:
+    """The inverse of :func:`stack_tree`."""
+    return {name: slot[a][b] for name, (a, b) in TRAIN_LEAF_PATHS.items()}
+
+
+def train_param_shapes(cfg: ModelConfig) -> dict:
+    """:func:`init_train_params`'s tree with empty tensors on the ``meta``
+    device: the shapes, nothing allocated."""
+    _check_train(cfg)
+    L, d = cfg.n_layers, cfg.d_model
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    layers = {n: meta(L, *shp) for n, shp in _layer_shapes(cfg).items()}
+    return {"embed": meta(cfg.padded_vocab, d),
+            "final_norm": {"scale": meta(d)},
+            "blocks": {"slot0": stack_tree(layers)}, "rest": []}
+
+
+def init_train_params(cfg: ModelConfig, generator: torch.Generator,
+                      device: torch.device | str) -> dict:
+    """fp32 master weights in the JAX package's tree: ``embed`` (Vpad, d),
+    ``final_norm/scale``, ``blocks/slot0/{ln1,attn,ln2,mlp}`` stacked over
+    the layers, ``rest`` empty. The values are :func:`init_params`'s for the
+    same generator (same draws in the same order), in fp32."""
+    _check_train(cfg)
+    L, d = cfg.n_layers, cfg.d_model
+    shapes = _layer_shapes(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    embed = embed_init(generator, cfg.padded_vocab, d, torch.float32, device)
+    layers = {n: torch.zeros((L,) + shp, **f32) for n, shp in shapes.items()}
+    for i in range(L):
+        for name in LAYER_PARAMS:
+            if name not in ("ln1", "ln2"):
+                layers[name][i] = dense_init(generator, *shapes[name],
+                                             torch.float32, device)
+    return {"embed": embed, "final_norm": {"scale": torch.zeros((d,), **f32)},
+            "blocks": {"slot0": stack_tree(layers)}, "rest": []}
+
+
+def train_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
+    """The JAX ``init_params`` tree (numpy leaves) as the port's training
+    tree: the same structure, torch tensors."""
+    _check_train(cfg)
+    conv = lambda a: torch.from_numpy(np.array(a, dtype=np.float32,
+                                                copy=True))
+    layers = {n: conv(a) for n, a in layer_leaves(tree["blocks"]["slot0"])
+              .items()}
+    return {"embed": conv(tree["embed"]),
+            "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
+            "blocks": {"slot0": stack_tree(layers)}, "rest": []}
+
+
+def block_train(x, w, cos, sin, cfg: ModelConfig):
+    """:class:`Block`'s math with the differentiable kernels: flash
+    attention and the RMSNorm forms whose backward passes are kernels."""
+    q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
+    o = flash_attention_train(q, k, v, causal=True)
+    return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train)
+
+
+def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  remat: bool = True, gather=None, prefetch=None
+                  ) -> torch.Tensor:
+    """The JAX ``forward(mode="train")`` of the dense family: tokens (B, S)
+    -> logits (B, S, Vpad) in ``cfg.dtype``.
+
+    ``params`` is {embed, final_norm, layers: [one ``LAYER_PARAMS`` dict a
+    layer]}: the leaves of the training tree, each layer's a slice of the
+    stacked leaves (or a shard of it). ``gather(name, leaf)`` turns a
+    leaf (``embed``, ``final_norm`` or a ``LAYER_PARAMS`` name) into the full
+    weight in ``cfg.dtype`` where it is used (default: the cast; FSDP: the
+    cast, then the parameter gather). With ``remat`` each block runs under
+    ``torch.utils.checkpoint`` with its gathers inside, so the backward
+    gathers again. ``prefetch`` (train/step.BlockPrefetch) takes the
+    blocks' gathers instead: layer i + depth's is started before layer i
+    runs and finished outside the checkpoint, so it is not repeated."""
+    from torch.utils.checkpoint import checkpoint
+    _check_train(cfg)
+    gather = gather or (lambda name, t: t.to(cfg.dtype))
+    B, S = tokens.shape
+    embed = gather("embed", params["embed"])
+    x = torch.nn.functional.embedding(tokens, embed)
+    cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
+                           cfg.head_dim_, cfg.rope_theta)
+
+    def gathered(x, *leaves):
+        w = {n: gather(n, t) for n, t in zip(LAYER_PARAMS, leaves)}
+        return block_train(x, w, cos, sin, cfg)
+
+    def full(x, *weights):
+        return block_train(x, dict(zip(LAYER_PARAMS, weights)), cos, sin,
+                           cfg)
+
+    run = lambda fn, x, args: (checkpoint(fn, x, *args, use_reentrant=False)
+                               if remat else fn(x, *args))
+    layers = params["layers"]
+    if prefetch is None:
+        for lp in layers:
+            x = run(gathered, x, [lp[n] for n in LAYER_PARAMS])
+    else:
+        depth = max(1, int(prefetch.depth))
+        fifo = [prefetch.start(layers[i])
+                for i in range(min(depth, len(layers)))]
+        for i in range(len(layers)):
+            if i + depth < len(layers):
+                fifo.append(prefetch.start(layers[i + depth]))
+            w = prefetch.finish(fifo.pop(0))
+            x = run(full, x, [w[n] for n in LAYER_PARAMS])
+    x = rmsnorm_train(x, gather("final_norm", params["final_norm"]),
+                      eps=cfg.norm_eps)
+    return x @ embed.T

@@ -1,0 +1,509 @@
+"""Train-step factory of the port, ported from ``src/repro/train/step.py``:
+loss, backward, gradient sync and optimizer, run by every rank of a
+``RankGrid`` on its own share of the batch (the JAX step is one program in
+a ``shard_map`` manual over the DP axes; here each rank is a process).
+
+``grad_sync`` picks the collectives:
+
+* ``"locality"`` / ``"locality_rd"`` / ``"flat_psum"``: paper mode. FSDP
+  parameters (``fsdp=True``) are gathered where they are used with the
+  locality-aware Bruck allgather (``core/collectives``, Algorithm 2) over
+  ("pod", "data"), or the Bruck allgather within the pod for a leaf that
+  shards over "data" only; the backward of each gather is the schedule's
+  reduce-scatter, the same edges reversed. The gradients then sync by the
+  leaf's geometry: ("pod", "data") leaves are already reduce-scattered over
+  both tiers and only scaled; "data" leaves were reduce-scattered in the pod
+  and add the pod allreduce (``sync_pod``, over the rank's lane); replicated
+  leaves are allreduced in fp32 buckets of ``bucket_mb`` (``sync_full``,
+  the locality allreduce with recursive halving, recursive doubling or the
+  library's allreduce as the outer tier).
+* ``"xla"``: the library route. The same geometry through the library's
+  collectives (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_reduce``), the calls the port makes for ``"xla"`` elsewhere.
+
+With FSDP the gather moves the ``cfg.dtype`` copy (cast, then gather), so the
+reduce-scatter runs in that dtype and the gradient is cast back to fp32
+after it, as the JAX transpose does. Each block's gathers run inside its
+``torch.utils.checkpoint`` (``remat``), so the backward gathers again; with
+``prefetch_depth`` d >= 1 (:class:`BlockPrefetch`) layer i + d's gather is
+started before layer i runs and finished outside the checkpoint, bitwise
+the eager result.
+
+A CUDA tensor on a gloo grid stages through the host around each collective
+(gloo moves host tensors); for the parameter gathers the collectives' split
+gather does it (``stage=True``), inside its one autograd node on the card's
+side, so every rank's backward issues its reduce-scatters in one order. The
+meter of the artifacts (:class:`CommMeter`) counts the gathers and
+reduce-scatters (the latter through hooks on that node), their host
+seconds, the messages the recorder saw inside them and the bytes staged.
+
+Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"`` and
+``prefetch_depth="auto"`` (tuning, item 8), ``seq_shard`` (item 11),
+``moe_dispatch`` (item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+
+from ..configs import ModelConfig, check_supported
+from ..core import collectives as C
+from ..core.comm_record import CollectiveStats
+from ..models import transformer as T
+from ..optim.adamw import AdamW, TrainState, leaves, tree_map
+from ..serve.engine import resolve_device
+from .sharding import (block_slice_dims, fsdp_param_axes, fsdp_param_dims,
+                       gather_outer_local, grid_axes, param_specs)
+
+GRAD_SYNCS = ("locality", "locality_rd", "flat_psum", "xla")
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in fp32, the label's logit picked by an
+    iota == label mask (the JAX form, elementwise over the vocab)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    vocab_pos = torch.arange(lg.shape[-1], device=lg.device)
+    ll = torch.where(vocab_pos == labels[..., None], lg, 0.0).sum(-1)
+    return torch.mean(lse - ll)
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat: bool = True):
+    """loss_fn(params, batch, gather=None, prefetch=None) -> (loss,
+    {"loss": loss}); ``params`` is ``transformer.forward_train``'s view."""
+    def loss_fn(params, batch, gather=None, prefetch=None):
+        logits = T.forward_train(params, cfg, batch["tokens"], remat=remat,
+                                 gather=gather, prefetch=prefetch)
+        loss = xent_loss(logits, batch["labels"])
+        return loss, {"loss": loss}
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# the collectives of one leaf, metered
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class CommMeter:
+    """What the step's parameter gathers and gradient reduce-scatters did
+    on this rank since the last :meth:`take`: calls, host seconds, the
+    recorder's messages inside them (``CollectiveStats``) and the bytes
+    staged between the card and a gloo grid's host tensors (both ways);
+    ``sync_*`` the same for the gradient sync after the backward."""
+
+    gathers: int = 0
+    reduce_scatters: int = 0
+    gather_s: float = 0.0
+    reduce_scatter_s: float = 0.0
+    sync_s: float = 0.0
+    staged_bytes: int = 0
+    gather_stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+    reduce_scatter_stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+    sync_stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+
+    def take(self) -> "CommMeter":
+        """The record so far; the meter starts again from zero."""
+        out = dataclasses.replace(self)
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default_factory() if f.default_factory
+                    is not dataclasses.MISSING else f.default)
+        return out
+
+
+_EDGE_FIELDS = [f.name for f in dataclasses.fields(CollectiveStats)
+                if f.name.startswith(("permute_", "group_"))]
+
+
+class _Metered:
+    """Adds the recorders' edge counts and the host seconds of a block of
+    collectives to one of the meter's records."""
+
+    def __init__(self, meter: CommMeter, kind: str, grids):
+        self.meter, self.kind, self.grids = meter, kind, grids
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        self.before = [g.recorder.stats.edge_counts() for g in self.grids]
+        return self
+
+    def __exit__(self, *exc):
+        m = self.meter
+        setattr(m, f"{self.kind}_s", getattr(m, f"{self.kind}_s")
+                + time.perf_counter() - self.t0)
+        st = getattr(m, f"{self.kind}_stats")
+        for g, before in zip(self.grids, self.before):
+            after = g.recorder.stats.edge_counts()
+            for name in _EDGE_FIELDS:
+                setattr(st, name, getattr(st, name)
+                        + after[name] - before[name])
+        return False
+
+
+@dataclasses.dataclass
+class LeafGather:
+    """The parameter gather of one leaf: over ``grid`` with ``algorithm``,
+    along dim ``dim`` of the leaf (the shards in grid-rank order), through
+    the collectives' staged split gather, whose backward, taken at finish,
+    is the schedule's reduce-scatter; metered both ways."""
+
+    grid: Any
+    algorithm: str
+    dim: int
+    meter: CommMeter
+
+    def _staged(self, t: torch.Tensor) -> int:
+        """The bytes ``t`` moves to or from the grid's device."""
+        if t.device.type == self.grid.device.type:
+            return 0
+        return t.numel() * t.element_size()
+
+    def start(self, x: torch.Tensor) -> C.PendingCollective:
+        """The gather's non-local rounds (all of it but the local tail)."""
+        with _Metered(self.meter, "gather", [self.grid]):
+            xs = x.movedim(self.dim, 0).contiguous()
+            self.meter.staged_bytes += self._staged(xs)
+            return C.allgather_start(xs, self.grid, algorithm=self.algorithm,
+                                     tiled=True, stage=True)
+
+    def finish(self, pending: C.PendingCollective) -> torch.Tensor:
+        with _Metered(self.meter, "gather", [self.grid]):
+            self.meter.gathers += 1
+            full = C.allgather_finish(pending)
+            staged = self._staged(full)
+            self.meter.staged_bytes += staged
+        if full.requires_grad:      # the reduce-scatter stages g and its tile
+            self._meter_backward(full.grad_fn, staged + staged // self.grid.p)
+        return full.movedim(0, self.dim).contiguous()
+
+    def _meter_backward(self, node, staged: int) -> None:
+        """Meter the reduce-scatter that ``node``, finish's backward, runs:
+        hooks on the node itself, so the record holds that node alone."""
+        open_: list[_Metered] = []
+
+        def pre(grad_outputs):
+            open_.append(_Metered(self.meter, "reduce_scatter",
+                                  [self.grid]).__enter__())
+
+        def post(grad_inputs, grad_outputs):
+            open_.pop().__exit__(None, None, None)
+            self.meter.reduce_scatters += 1
+            self.meter.staged_bytes += staged
+
+        node.register_prehook(pre)
+        node.register_hook(post)
+
+
+# ---------------------------------------------------------------------------
+# double-buffered FSDP parameter prefetch
+# ---------------------------------------------------------------------------
+class BlockPrefetch:
+    """Per-layer gather hook of ``transformer.forward_train``: ``start``
+    casts one layer's shards and issues their gathers (every non-local round
+    of a ("pod", "data") leaf completes in start), ``finish`` completes the
+    local tail at the consumer. Bitwise the eager gathers: the same cast,
+    the same schedule per leaf."""
+
+    def __init__(self, geos: dict[str, LeafGather | None], dtype, depth: int):
+        self.geos = geos              # LAYER_PARAMS name -> gather (None:
+        self.dtype = dtype            # replicated, cast only)
+        self.depth = depth
+
+    def start(self, layer: dict[str, torch.Tensor]) -> dict:
+        out = {}
+        for name, t in layer.items():
+            x = t.to(self.dtype)
+            geo = self.geos[name]
+            out[name] = x if geo is None else geo.start(x)
+        return out
+
+    def finish(self, pending: dict) -> dict[str, torch.Tensor]:
+        return {name: p if self.geos[name] is None else
+                self.geos[name].finish(p) for name, p in pending.items()}
+
+
+# ---------------------------------------------------------------------------
+# gradient bucketing for the DP sync
+# ---------------------------------------------------------------------------
+def bucketed_sync(grads: list[torch.Tensor],
+                  sync_flat: Callable[[torch.Tensor], torch.Tensor],
+                  bucket_mb: float = 64.0, compress: bool = False
+                  ) -> list[torch.Tensor]:
+    """Flatten grads into <= bucket_mb fp32 buckets (bf16 on the wire with
+    ``compress``), sync each, unflatten to fp32."""
+    sizes = [g.numel() for g in grads]
+    limit = int(bucket_mb * 1024 * 1024 / 4)
+    buckets: list[list[int]] = [[]]
+    acc = 0
+    for i, n in enumerate(sizes):
+        if acc + n > limit and buckets[-1]:
+            buckets.append([])
+            acc = 0
+        buckets[-1].append(i)
+        acc += n
+    out: list[torch.Tensor | None] = [None] * len(grads)
+    for idxs in buckets:
+        flat = torch.cat([grads[i].float().reshape(-1) for i in idxs])
+        if compress:
+            flat = flat.to(torch.bfloat16)
+        flat = sync_flat(flat).float()
+        off = 0
+        for i in idxs:
+            out[i] = flat[off:off + sizes[i]].reshape(grads[i].shape)
+            off += sizes[i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# step factory
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class StepArtifacts:
+    step_fn: Callable                 # (state, batch) -> (state, metrics)
+    pspecs: Any
+    device: torch.device
+    meter: CommMeter
+    grid: Any = None
+    grad_sync: str = ""
+    grad_algorithm: str = ""          # the gather schedule of ("pod","data")
+    prefetch_depth: int = 0
+
+
+def _refuse(grad_sync, prefetch_depth, seq_shard, moe_dispatch) -> None:
+    if grad_sync == "auto" or prefetch_depth == "auto":
+        raise NotImplementedError(
+            '"auto" (grad_sync or prefetch_depth) comes with the tuning '
+            "slice (ROADMAP.md Queue 1 item 8): it needs parameters measured "
+            "on the H100")
+    if seq_shard:
+        raise NotImplementedError("seq_shard comes with the 'model' tier "
+                                  "(ROADMAP.md Queue 1 item 11)")
+    if moe_dispatch != "none":
+        raise NotImplementedError("moe_dispatch comes with the MoE slice "
+                                  "(ROADMAP.md Queue 1 item 6)")
+    if grad_sync not in GRAD_SYNCS:
+        raise ValueError(f"unknown grad_sync {grad_sync!r}; known: "
+                         f"{GRAD_SYNCS}")
+
+
+def _shard(t: torch.Tensor, dim: int, axes: str, grid) -> torch.Tensor:
+    """This rank's shard of a full leaf along ``dim``."""
+    if dim < 0:
+        return t
+    n, i = (grid.p, grid.rank) if "pod" in axes else (grid.pl, grid.l)
+    return t.chunk(n, dim)[i].contiguous().clone()
+
+
+def make_train_step(cfg: ModelConfig, grid=None, *,
+                    optimizer: AdamW | None = None,
+                    grad_sync: str = "locality", fsdp: bool = False,
+                    grad_accum: int = 1, bucket_mb: float = 64.0,
+                    compress: bool = False, prefetch_depth: int | str = 0,
+                    remat: bool = True, seq_shard: bool = False,
+                    moe_dispatch: str = "none",
+                    device: torch.device | str | None = None
+                    ) -> StepArtifacts:
+    """The step of one rank of ``grid`` (None: one process, no
+    collectives). ``step_fn(state, batch)`` takes this rank's rows of the
+    global batch (``data.host_shard`` by grid rank) as tensors or numpy
+    arrays, updates ``state`` in place and returns (state, metrics): the
+    loss averaged over the ranks, ``grad_norm`` and ``lr``. It runs on
+    ``cuda`` unless ``device`` names another (``"cpu"``: the kernels'
+    plain versions)."""
+    _refuse(grad_sync, prefetch_depth, seq_shard, moe_dispatch)
+    check_supported(cfg, "train")
+    optimizer = optimizer or AdamW()
+    device = resolve_device(device)
+    loss_fn = make_loss_fn(cfg, remat=remat)
+    meter = CommMeter()
+    dist_on = grid is not None
+    p = grid.p if dist_on else 1
+    axes = grid_axes(grid) if dist_on else {"data": 1}
+    pspecs = param_specs(T.train_param_shapes(cfg), axes,
+                         fsdp=fsdp and dist_on)
+    dims, fsaxes = fsdp_param_dims(pspecs), fsdp_param_axes(pspecs)
+    depth = int(prefetch_depth)
+    if depth and not (fsdp and dist_on):
+        raise ValueError(f"prefetch_depth={depth} pipelines the FSDP gather: "
+                         "it needs fsdp=True on a grid")
+    xla = grad_sync == "xla"
+    outer_alg = "rd" if grad_sync == "locality_rd" else "rhd"
+    allreduce_alg = "xla" if grad_sync in ("xla", "flat_psum") else "locality"
+    pod = grid.pod_grid() if dist_on else None
+    lane = grid.lane_grid() if dist_on else None
+
+    def geo(dim: int, ax: str) -> LeafGather | None:
+        if dim < 0:
+            return None
+        outer, _ = gather_outer_local(ax)
+        if outer:
+            return LeafGather(grid, "xla" if xla else "locality_bruck", dim,
+                              meter)
+        return LeafGather(pod, "xla" if xla else "bruck", dim, meter)
+
+    slot_dims = T.layer_leaves(block_slice_dims(dims["blocks"]["slot0"]))
+    slot_axes = T.layer_leaves(fsaxes["blocks"]["slot0"])
+    geos = {n: geo(slot_dims[n], slot_axes[n]) for n in T.LAYER_PARAMS}
+    geos["embed"] = geo(dims["embed"], fsaxes["embed"])
+    geos["final_norm"] = geo(dims["final_norm"]["scale"],
+                             fsaxes["final_norm"]["scale"])
+
+    def gather(name: str, t: torch.Tensor) -> torch.Tensor:
+        x = t.to(cfg.dtype)                 # the cfg.dtype copy is gathered
+        g = geos[name]
+        return x if g is None else g.finish(g.start(x))
+
+    hook = BlockPrefetch({n: geos[n] for n in T.LAYER_PARAMS}, cfg.dtype,
+                         depth) if depth else None
+
+    # sync by the leaf's geometry (leaves in the JAX flattening order)
+    flat_dims, flat_axes = leaves(dims), leaves(fsaxes)
+    idx_done = [i for i, (k, a) in enumerate(zip(flat_dims, flat_axes))
+                if k >= 0 and "pod" in a]
+    idx_rs = [i for i, (k, a) in enumerate(zip(flat_dims, flat_axes))
+              if k >= 0 and "pod" not in a]
+    idx_full = [i for i, k in enumerate(flat_dims) if k < 0]
+
+    def staged(fn, g: Any, t: torch.Tensor) -> torch.Tensor:
+        """``fn`` on ``t`` moved to the grid's device and back."""
+        if t.device.type == g.device.type:
+            return fn(t)
+        meter.staged_bytes += 2 * t.numel() * t.element_size()
+        return fn(t.to(g.device)).to(t.device)
+
+    def sync_pod(t: torch.Tensor) -> torch.Tensor:
+        if grid.q == 1:
+            return t / p
+        return staged(lambda u: C.allreduce(
+            u, lane, algorithm=allreduce_alg, outer_algorithm=outer_alg),
+            lane, t) / p
+
+    def sync_full(t: torch.Tensor) -> torch.Tensor:
+        return staged(lambda u: C.allreduce(
+            u, grid, algorithm=allreduce_alg, outer_algorithm=outer_alg),
+            grid, t) / p
+
+    def step_fn(state: TrainState, batch) -> tuple[TrainState, dict]:
+        batch = {k: torch.as_tensor(v).to(device=device, dtype=torch.long)
+                 for k, v in batch.items()}
+        n_rows = batch["tokens"].shape[0]
+        if n_rows % grad_accum:
+            raise ValueError(f"{n_rows} rows do not split into "
+                             f"{grad_accum} microbatches")
+        params = state.params
+        flat_p = leaves(params)
+        bufs = [torch.zeros_like(t, dtype=torch.float32) for t in flat_p]
+        # autograd leaves: each layer's slice of a stacked leaf is a leaf of
+        # its own (a view of the stack), its gradient added into the stacked
+        # buffer as soon as it is complete
+        ids = {id(t): j for j, t in enumerate(flat_p)}
+        hooks = []
+
+        def leaf(t: torch.Tensor, i: int | None = None) -> torch.Tensor:
+            j = ids[id(t)]
+            v = (t if i is None else t[i]).detach().requires_grad_(True)
+            dst = bufs[j] if i is None else bufs[j][i]
+
+            def add(v):
+                dst.add_(v.grad)
+                v.grad = None
+            hooks.append(v.register_post_accumulate_grad_hook(add))
+            return v
+
+        metrics_sum = torch.zeros((), dtype=torch.float32, device=device)
+        mb = n_rows // grad_accum
+        for a in range(grad_accum):
+            view = {"embed": leaf(params["embed"]),
+                    "final_norm": leaf(params["final_norm"]["scale"]),
+                    "layers": [{n: leaf(t, i) for n, t in T.layer_leaves(
+                        params["blocks"]["slot0"]).items()}
+                        for i in range(cfg.n_layers)]}
+            part = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}
+            try:
+                loss, _ = loss_fn(view, part, gather=gather, prefetch=hook)
+                loss.backward()
+            finally:
+                for h in hooks:
+                    h.remove()
+                hooks.clear()
+            metrics_sum = metrics_sum + loss.detach()
+        if grad_accum > 1:
+            for b in bufs:
+                b.div_(grad_accum)
+        loss_local = metrics_sum / grad_accum
+
+        if dist_on:
+            with _Metered(meter, "sync", [grid, pod, lane]):
+                for i in idx_done:
+                    bufs[i].div_(p)
+                for idxs, fn in ((idx_rs, sync_pod), (idx_full, sync_full)):
+                    if idxs:
+                        out = bucketed_sync([bufs[i] for i in idxs], fn,
+                                            bucket_mb=bucket_mb,
+                                            compress=compress)
+                        for i, g in zip(idxs, out):
+                            bufs[i] = g
+                # the loss's mean and the squares of the whole gradient:
+                # sharded leaves from every rank that holds a distinct part
+                sq = lambda idxs: sum((torch.sum(torch.square(bufs[i]))
+                                       for i in idxs),
+                                      torch.zeros((), device=device))
+                zero = torch.zeros((), device=device)
+                vec = torch.stack([
+                    loss_local, sq(idx_done),
+                    sq(idx_rs) if grid.R == 0 else zero,
+                    sq(idx_full) if grid.rank == 0 else zero])
+                tot = staged(lambda u: C.allreduce(u, grid, algorithm="xla"),
+                             grid, vec)
+            loss_mean = tot[0] / p
+            gnorm = torch.sqrt(tot[1] + tot[2] + tot[3])
+        else:
+            loss_mean, gnorm = loss_local, None
+        grads = _unflatten(params, bufs)
+        state, opt = optimizer.apply(state, grads, grad_norm=gnorm)
+        return state, {"loss": loss_mean, **opt}
+
+    return StepArtifacts(
+        step_fn=step_fn, pspecs=pspecs, device=device, meter=meter,
+        grid=grid, grad_sync=grad_sync,
+        grad_algorithm="xla" if xla else "locality_bruck",
+        prefetch_depth=depth)
+
+
+def _unflatten(tree, flat: list[torch.Tensor]):
+    """``flat`` (in ``leaves(tree)``'s order) as a tree shaped like tree."""
+    return _rebuild(tree, iter(flat))
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_rebuild(x, it) for x in tree]
+    return next(it)
+
+
+def init_state(cfg: ModelConfig, artifacts: StepArtifacts, *,
+               params: dict | None = None, seed: int = 0) -> TrainState:
+    """This rank's state: its shards of ``params`` (the full fp32 tree,
+    e.g. ``transformer.train_params_from_jax``), or of
+    ``transformer.init_train_params`` drawn on the step's device from
+    ``seed``; zero ``mu``, ``nu`` and step."""
+    device = artifacts.device
+    if params is None:
+        params = T.init_train_params(
+            cfg, torch.Generator(device=device).manual_seed(seed), device)
+    dims = fsdp_param_dims(artifacts.pspecs)
+    axes = fsdp_param_axes(artifacts.pspecs)
+    grid = artifacts.grid
+    shards = tree_map(lambda t, k, a: _shard(
+        t.to(device=device, dtype=torch.float32), k, a, grid), params, dims,
+        axes)
+    return TrainState.create(shards)

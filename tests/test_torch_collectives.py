@@ -223,7 +223,7 @@ def test_cache_migrate_every_algorithm(pool, grid):
                                           err_msg=alg)
 
 
-@pytest.mark.parametrize("algorithm", ["bruck", "locality_bruck"])
+@pytest.mark.parametrize("algorithm", ["bruck", "locality_bruck", "xla"])
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
 def test_allgather_gradient_is_the_reduce_scatter(pool, grid, algorithm):
     """d/dx sum(allgather(x)²) = 2·p·x (tests/test_distributed.py:46-51)."""
@@ -232,6 +232,28 @@ def test_allgather_gradient_is_the_reduce_scatter(pool, grid, algorithm):
     res = pool.run(H.task_grad, q, pl, algorithm, 4)
     for r in range(p):
         np.testing.assert_array_equal(res[r]["grad"], 2 * p * res[r]["x"])
+
+
+@pytest.mark.parametrize("algorithm", ["bruck", "locality_bruck", "xla"])
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_split_gather_gradient_is_the_reduce_scatter(pool, grid,
+                                                     algorithm):
+    """finish(start(x)) with a gradient: forward bitwise the eager gather,
+    backward bitwise its reduce-scatter (the gradient of sum(w * gather(x))
+    is rank i's tile of w summed over the ranks), the same messages both
+    ways; a staged pair (``stage=True``, a no-op move on the CPU) is the
+    same gather; the ring has no gradient and is refused."""
+    q, pl = grid
+    p = q * pl
+    res = pool.run(H.task_split_grad, q, pl, algorithm, 6)
+    w = H.ints(7, (p * 2, 3))
+    for r in range(p):
+        assert res[r]["forward_equal"] and res[r]["stats_equal"]
+        assert res[r]["staged_equal"]
+        np.testing.assert_array_equal(res[r]["split_grad"], res[r]["grad"])
+        np.testing.assert_array_equal(res[r]["grad"],
+                                      p * w[2 * r:2 * r + 2])
+        assert "differentiable" in res[r]["ring_error"]
 
 
 @pytest.mark.parametrize("grid", [(4, 4), (3, 4), (6, 2)],

@@ -460,7 +460,9 @@ def test_launch_counts_follow_the_graph_replays(cuda, arch):
     want = {k: n * (steps + prefills) for k, n in fwd.items()}
     want.update(decode_scores=attn * steps, decode_stats=attn * steps,
                 flash_attention=attn * prefills, ssd=mamba * prefills,
-                dma_allgather=0)
+                dma_allgather=0, rmsnorm_bwd=0, rmsnorm_bwd_scale=0,
+                flash_attention_bwd_dq=0, flash_attention_bwd_dkdv=0)
+    want.update({"rmsnorm_bwd.plain": 0, "rmsnorm_bwd.residual": 0})
     assert {k: after[k] - before[k] for k in after} == want
 
 
@@ -621,3 +623,141 @@ def test_ssd_raises_naming_n_and_p_when_the_state_is_too_large(cuda):
                        big[..., :16].contiguous())
     torch.cuda.synchronize()
     assert y.shape == x.shape
+
+
+# ---------------------------------------------------------------------------
+# the training path's backward kernels (and the forward's lse output)
+# ---------------------------------------------------------------------------
+# fp32 gradients 1e-4 (another summation order over up to S terms); bf16
+# gradients, rounded once from fp32 sums, against the plain backward in
+# fp32 on the same bf16 inputs at atol 1e-3 plus rtol 1e-2: mostly
+# relative, since most gradients of randn inputs at D = 128 are 0.03-0.1
+BWD_BF16_VS_FP32 = dict(atol=1e-3, rtol=1e-2)
+BWD_CASES = [c for c in FLASH_CASES if not c[6].get("cap")] + [
+    (2, 256, 256, 24, 8, 128, dict(causal=True)),
+    (1, 200, 200, 8, 2, 256, dict(causal=True, window=70)),
+]
+
+
+def _flash_inputs(case, dtype, device, seed=0):
+    B, S, T, H, KV, D, mask = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=device).to(dtype)
+    return rnd(B, S, H, D), rnd(B, T, KV, D), rnd(B, T, KV, D), \
+        rnd(B, S, H, D), mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_lse_on_card(cuda, dtype, case):
+    """The forward writing lse: o bitwise the serving forward's, lse the
+    plain version's (1e-4 fp32, 2e-3 bf16: fp32 sums of bf16 inputs)."""
+    q, k, v, _, mask = _flash_inputs(case, dtype, cuda)
+    o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
+    assert torch.equal(o, flash_ops.flash_attention(q, k, v, **mask))
+    ref = flash_ops.attention_lse_ref(q, k, v, **mask)[1]
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernel_on_card(cuda, dtype, case):
+    """dq, dk, dv against the plain backward on the same (o, lse), bf16
+    also against it in fp32, two calls bitwise equal, one launch of each
+    kernel a call."""
+    q, k, v, do, mask = _flash_inputs(case, dtype, cuda)
+    o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
+    n_dq, n_dkdv = flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    assert (flash_ops.BWD_DQ_LAUNCHES - n_dq,
+            flash_ops.BWD_DKDV_LAUNCHES - n_dkdv) == (1, 1)
+    ref = flash_ops.attention_bwd_ref(q, k, v, o, do, lse, **mask)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, dtype, 1e-4)
+    if dtype == torch.bfloat16:
+        ref32 = flash_ops.attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o, do)), lse, **mask)
+        for a, b in zip(got, ref32):
+            torch.testing.assert_close(a.float(), b, **BWD_BF16_VS_FP32)
+    again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_train_gradients_match_autograd_of_the_plain_version(cuda,
+                                                                   dtype):
+    """``flash_attention_train`` end to end against torch.autograd of
+    ``attention_ref`` at the llama3.2-3b heads (fp32 1e-4, bf16 2e-2)."""
+    q, k, v, do, mask = _flash_inputs((2, 200, 200, 24, 8, 128,
+                                       dict(causal=True)), dtype, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_ops.flash_attention_train(*leaves, **mask)
+    got = torch.autograd.grad(out, leaves, do)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ops.attention_ref(*refs, **mask), refs,
+                               do)
+    for a, b in zip(got, want):
+        _close(a, b, dtype, 1e-4)
+
+
+RMS_BWD_CASES = [(4096, 3072), (37, 100), (8, 3072), (3, 5, 128),
+                 (1000, 8192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", RMS_BWD_CASES, ids=str)
+def test_rmsnorm_bwd_kernel_on_card(cuda, dtype, residual, shape):
+    """dx and dscale against the plain backward (fp32 dx 1e-5, dscale, a
+    sum over every row, 1e-4 relative; bf16 2e-2), bitwise equal across two
+    calls, two launches a call."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x, dy = (rnd(*shape) * 2).to(dtype), rnd(*shape).to(dtype)
+    sc = (rnd(shape[-1]) * 0.2).to(dtype)
+    ds = rnd(*shape).to(dtype) if residual else None
+    n = (rms_ops.BWD_LAUNCHES, rms_ops.BWD_SCALE_LAUNCHES)
+    dx, dsc = rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds)
+    assert (rms_ops.BWD_LAUNCHES - n[0],
+            rms_ops.BWD_SCALE_LAUNCHES - n[1]) == (1, 1)
+    rdx, rdsc = rms_ops.rmsnorm_bwd_ref(x, sc, dy, ds=ds)
+    assert dx.dtype == rdx.dtype and dsc.dtype == rdsc.dtype
+    _close(dx, rdx, dtype, 1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dsc, rdsc, atol=1e-4, rtol=1e-4)
+    else:
+        _close(dsc, rdsc, dtype, None)
+    dx2, dsc2 = rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds)
+    assert torch.equal(dx, dx2) and torch.equal(dsc, dsc2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_train_gradients_match_autograd_of_the_plain_version(cuda,
+                                                                     dtype):
+    """Both autograd Functions end to end against torch.autograd of the
+    plain forms (fp32 1e-5 dx, 1e-4 dscale; bf16 2e-2)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x, delta = (rnd(64, 3072) * 2).to(dtype), rnd(64, 3072).to(dtype)
+    sc = (rnd(3072) * 0.2).to(dtype)
+    w1, w2 = rnd(64, 3072).to(dtype), rnd(64, 3072).to(dtype)
+
+    def run(norm, fused):
+        leaves = [t.clone().requires_grad_() for t in (x, delta, sc)]
+        s, y = fused(*leaves)
+        loss = (norm(s, leaves[2]).float() * w1.float()).sum() \
+            + (y.float() * w2.float()).sum() + s.float().sum()
+        return torch.autograd.grad(loss, leaves)
+
+    got = run(rms_ops.rmsnorm_train, rms_ops.rmsnorm_residual_train)
+    want = run(rms_ops.rmsnorm_ref, rms_ops.rmsnorm_residual_ref)
+    for a, b, fp32_tol in zip(got, want, (1e-4, 1e-4, 1e-3)):
+        tol = fp32_tol if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)

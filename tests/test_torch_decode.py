@@ -151,9 +151,12 @@ def test_launch_counts_read_and_advance_every_counter():
     counts = kernels.launch_counts()
     assert {"rmsnorm", "flash_attention", "decode_scores", "decode_stats",
             "dma_allgather", "ssd", "rmsnorm.plain", "rmsnorm.residual",
-            "rmsnorm.gated"} == set(counts)
+            "rmsnorm.gated", "rmsnorm_bwd", "rmsnorm_bwd_scale",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+            "rmsnorm_bwd.plain", "rmsnorm_bwd.residual"} == set(counts)
     delta = {"decode_scores": 2, "decode_stats": 2, "rmsnorm": 5,
-             "rmsnorm.plain": 3, "rmsnorm.residual": 2}
+             "rmsnorm.plain": 3, "rmsnorm.residual": 2,
+             "flash_attention_bwd_dq": 1, "rmsnorm_bwd.residual": 4}
     kernels.add_launch_counts(delta, 3)
     after = kernels.launch_counts()
     assert after == {k: n + 3 * delta.get(k, 0) for k, n in counts.items()}

@@ -76,8 +76,32 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
         launcher.main(["--smoke"])
 
 
+def test_train_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke("llama3.2-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, None, TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher.main(["--smoke"])
+
+
+def test_backward_sources_note_what_they_are_the_backward_of():
+    for name, tpu in [("rmsnorm_bwd", "_rmsnorm_kernel"),
+                      ("flash_attention_bwd", "_flash_kernel")]:
+        head = (_build.CSRC / f"{name}.cu").read_text()[:3000]
+        assert "Replaces: no TPU kernel" in head and tpu in head
+        assert "Bound on the H100" in head and "Design" in head
+
+
 def test_cpu_calls_take_plain_versions_and_count_nothing():
-    counts = (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES)
+    counts = (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
+              rms_ops.BWD_LAUNCHES, rms_ops.BWD_SCALE_LAUNCHES,
+              flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((4, 64), dtype=np.float32))
     sc = torch.zeros(64)
@@ -92,7 +116,12 @@ def test_cpu_calls_take_plain_versions_and_count_nothing():
     o, l = stats_ops.accumulate(s, s.amax(-1), v)
     ro, rl = stats_ops.decode_stats_accumulate_ref(s, s.amax(-1), v)
     assert torch.equal(o, ro) and torch.equal(l, rl)
-    assert (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES) == counts
+    o, lse = flash_ops.flash_attention_lse(q, q, q)
+    flash_ops.flash_attention_bwd(q, q, q, o, q, lse)
+    rms_ops.rmsnorm_bwd(x, sc, x)
+    assert (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
+            rms_ops.BWD_LAUNCHES, rms_ops.BWD_SCALE_LAUNCHES,
+            flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES) == counts
 
 
 def test_wrappers_refuse_mixed_devices_and_bad_dtypes():

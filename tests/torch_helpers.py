@@ -227,6 +227,41 @@ def task_grad(ctx, q, pl, algorithm, seed):
     return dict(x=_np(x), grad=_np(x.grad))
 
 
+def task_split_grad(ctx, q, pl, algorithm, seed):
+    """The split gather with a gradient: finish(start(x)) against the eager
+    differentiable gather, forward and backward, under a weighted sum; and
+    the split's refusal of a schedule that has no gradient."""
+    import torch
+    from repro_torch.core import collectives as C
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    x = _torch(ints(seed, (grid.p, 2, 3))[grid.rank], "float32")
+    w = _torch(ints(seed + 1, (grid.p * 2, 3)), "float32")
+    xe, xs = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    eager = C.allgather(xe, grid, algorithm=algorithm, tiled=True)
+    (eager * w).sum().backward()
+    eager_stats = _stats(grid)
+    split = C.allgather_finish(C.allgather_start(xs, grid,
+                                                 algorithm=algorithm,
+                                                 tiled=True))
+    (split * w).sum().backward()
+    split_stats = _stats(grid)
+    staged = C.allgather_finish(C.allgather_start(
+        xs.detach(), grid, algorithm=algorithm, tiled=True, stage=True))
+    try:
+        C.allgather_start(x.clone().requires_grad_(True), grid,
+                          algorithm="ring")
+        ring_error = None
+    except ValueError as e:
+        ring_error = str(e)
+    return dict(forward_equal=bool(torch.equal(eager, split)),
+                grad=_np(xe.grad), split_grad=_np(xs.grad),
+                stats_equal=eager_stats == split_stats,
+                staged_equal=bool(torch.equal(eager, staged)),
+                ring_error=ring_error)
+
+
 def task_vocabulary(ctx, q, pl, seed):
     """collective()/Collective dispatch against the family functions, and
     the errors of what is not ported."""
@@ -571,4 +606,79 @@ def task_batch_spec_errors(ctx, q, pl):
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = (type(e).__name__, str(e))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP training (tests/test_torch_train.py)
+# ---------------------------------------------------------------------------
+def train_tree(flat: dict):
+    """A parameter tree from {"a/b/c": array} (the JAX tree's leaf paths)."""
+    import torch
+    tree: dict = {"rest": []}
+    for path, a in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = torch.from_numpy(np.array(a, dtype=np.float32))
+    return tree
+
+
+def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
+               seq_len, kw):
+    """``make_train_step(**kw)`` on a q x pl grid (q None: one process,
+    every rank runs it alone) from the given parameters, on the CPU, for
+    ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows). Returns
+    the metrics of every step, this rank's parameter shards (by leaf path)
+    with their FSDP dim and axes, and the step meter of the run."""
+    from repro_torch.data import SyntheticLM, host_shard
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.sharding import fsdp_param_axes, fsdp_param_dims
+    grid = None if q is None else ctx.grid(q, pl)
+    if q is not None and grid is None:
+        return None
+    cfg = _small_cfg("llama3.2-3b", n_layers)
+    art = make_train_step(cfg, grid, device="cpu", **kw)
+    state = init_state(cfg, art, params=train_tree(flat_params))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                       global_batch=global_batch, seed=0)
+    metrics = []
+    for step in range(steps):
+        batch = data.batch(step)
+        if grid is not None:
+            batch = host_shard(batch, grid.rank, grid.p)
+        state, m = art.step_fn(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    meter = art.meter.take()
+    paths = sorted(flat_params)      # the JAX flattening order of leaves()
+    return dict(
+        metrics=metrics,
+        shards={p: t.numpy().copy() for p, t in
+                zip(paths, leaves(state.params))},
+        dims=dict(zip(paths, leaves(fsdp_param_dims(art.pspecs)))),
+        axes=dict(zip(paths, leaves(fsdp_param_axes(art.pspecs)))),
+        meter=dict(gathers=meter.gathers,
+                   reduce_scatters=meter.reduce_scatters,
+                   gather=meter.gather_stats.edge_counts(),
+                   reduce_scatter=meter.reduce_scatter_stats.edge_counts(),
+                   sync=meter.sync_stats.edge_counts()))
+
+
+def assemble(results: list, pl: int) -> dict:
+    """Every leaf whole again from the ranks' shards: ("pod","data") leaves
+    from all ranks in grid order, "data" leaves from pod 0's, replicated
+    leaves from rank 0."""
+    first = results[0]
+    out = {}
+    for path, k in first["dims"].items():
+        ax = first["axes"][path]
+        if k < 0:
+            out[path] = first["shards"][path]
+            continue
+        ranks = [r for r in results if r is not None]
+        if "pod" not in ax:
+            ranks = ranks[:pl]
+        out[path] = np.concatenate([r["shards"][path] for r in ranks], k)
     return out
