@@ -11,7 +11,8 @@ the package is missing. Phases, each fatal on failure:
 1. device and build: the card's name and power limit; the kernels built
    from ``src/repro_torch/kernels/csrc`` (build seconds, then every kernel
    instance's registers and spill bytes from ptxas, one JSON line each;
-   a decode kernel instance that spills fails); the time of an empty
+   a decode kernel instance or a tensor-core instance of the flash
+   backward that spills fails); the time of an empty
    kernel launch, the floor under every latency-bound kernel;
 2. every kernel against its plain version on the card at the main path's
    shapes, bf16 and fp32 (RMSNorm in its three forms: plain at the
@@ -67,11 +68,18 @@ the package is missing. Phases, each fatal on failure:
    within atol 1e-3 plus rtol 1e-2 of the plain backward in fp32 on the
    same bf16 inputs, the gradients' mean sizes printed beside) at 8a's
    shape (B = 4, S = 1,024, 24/8 heads of 128; causal, window and chunk,
-   bf16 and fp32) and at one rank's of 8c (B = 1, causal, bf16), and the
+   bf16 and fp32), at one rank's of 8c (B = 1, causal, bf16) and at the
+   tensor-core pair's tile edges (``FLASH_BWD_EDGES``: S = 63, 65, 129,
+   G = 1, 3, 8, D = 32, 64, 128, window and chunk), each naming the
+   instance that served it by its launch counter (bf16 at D <= 128 the
+   tensor cores, fp32 the CUDA cores) and failing on another; and the
    RMSNorm backward, plain and residual (dx and dscale), on 8a's 4,096 rows
-   (bf16, fp32) and 8c's 1,024 (bf16), 3,072 wide; each two calls bitwise
-   equal, timed beside its plain version, the library's backward (SDPA's,
-   ``F.rms_norm``'s; timed here only) and its bound;
+   (bf16, fp32) and 8c's 1,024 (bf16), 3,072 wide, one launch a call; each
+   two calls bitwise equal, timed beside its plain version, the library's
+   backward (SDPA's with the mask as a boolean ``attn_mask`` where it is
+   not causal alone, ``F.rms_norm``'s; timed here only) and its bound; the
+   times before the redesign are printed on lines of their own, quoted
+   from PERF.md (``QUOTED_PR19_MS``; not measured in the run);
 3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
    (fp32, 3 layers), each with the same parameters on the CPU (plain
    versions) and on the card (kernels): logits after prefill and 8 decode
@@ -156,9 +164,11 @@ the package is missing. Phases, each fatal on failure:
    4 x 1,024 tokens (``SyntheticLM(seed=0)``, ``AdamW(lr=3e-4)``) through
    ``Trainer`` on one rank: finite losses and grad norms, every kernel's
    launches exactly what the path implies (per step with remat: flash
-   forward 56, each backward kernel 28, RMSNorm 57 plain and 56 residual,
-   its backward kernels 57 each, 29 plain and 28 residual); step ms,
-   tokens/s, peak memory and a profiled step. 8b, ``train_parity``: a
+   forward 56, each backward kernel 28, all on the tensor cores, RMSNorm 57
+   plain and 56 residual, its backward 57, 29 plain and 28 residual); step
+   ms, tokens/s, peak memory and a profiled step, with the device ms of the
+   flash backward, the flash forward and the RMSNorm backward in it.
+   8b, ``train_parity``: a
    reduced fp32 llama3.2-3b (2 layers) from the same parameters and
    batches, 2 steps of 12 x 64: the card's one-rank step against the CPU's
    (plain versions), and 6 spawned gloo ranks on 2 x 2 and 3 x 2 (where
@@ -1090,10 +1100,13 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     return launches
 
 
-def profile_window(label: str, phase: str, fn, calls: int, **meta) -> None:
+def profile_window(label: str, phase: str, fn, calls: int,
+                   sums: dict[str, str] | None = None, **meta) -> None:
     """torch.profiler over ``calls`` calls of ``fn`` (warm already): device
     busy time per call, the idle share of the wall time, device ops per
-    call and the kernels that take the device time."""
+    call and the kernels that take the device time; for each (label,
+    substring) of ``sums``, the device ms per call of the kernels whose
+    name holds the substring."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1119,6 +1132,12 @@ def profile_window(label: str, phase: str, fn, calls: int, **meta) -> None:
             "device_ops_per_call": sum(e.count for e in dev) / calls,
             "top_device": [[e.key[:70], e.self_device_time_total / calls / 1e3,
                             e.count // calls] for e in top]})
+        for name, part in (sums or {}).items():
+            hit = [e for e in dev if part in e.key]
+            out[f"{name}_device_ms_per_call"] = sum(
+                e.self_device_time_total for e in hit) / calls / 1e3
+            out[f"{name}_launches_per_call"] = sum(
+                e.count for e in hit) / calls
     print(json.dumps(out))
 
 
@@ -1676,49 +1695,88 @@ FLASH_BWD_TOL = {torch.float32: dict(tol=1e-4),
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 
 
+# the backward kernels' times before their redesign (the CUDA-core flash
+# backward, the RMSNorm backward in two kernels), quoted from PERF.md's
+# kernel table (PR 19's chip run, NVIDIA H100 80GB HBM3, 700.00 W) on
+# lines of their own, never in the kernels' line:
+# (kind, shape, mask or form) -> {the pair or the backward, each kernel}
+QUOTED_PR19_MS = {
+    ("flash", (4, 1024, 24, 8, 128), "causal"):
+        dict(pair=5.638, dq=2.542, dkdv=3.113),
+    ("flash", (1, 1024, 24, 8, 128), "causal"):
+        dict(pair=2.165, dq=0.769, dkdv=1.403),
+    ("rmsnorm", (4096, 3072), "plain"):
+        dict(pair=0.0540, rows=0.0464, sums=0.0151),
+    ("rmsnorm", (4096, 3072), "residual"): dict(pair=0.0646),
+    ("rmsnorm", (1024, 3072), "plain"):
+        dict(pair=0.0366, rows=0.0329, sums=0.00796),
+    ("rmsnorm", (1024, 3072), "residual"): dict(pair=0.0442),
+}
+# the tensor-core pair's tile edges (B, S, H, KV, D, mask): S at 63, 65 and
+# 129, G = 1, 3 and 8, D = 32 and 64, window and chunk; bf16, held against
+# the plain backward and timed beside it
+FLASH_BWD_EDGES = ((1, 65, 8, 8, 128, dict(causal=True)),
+                   (4, 129, 24, 8, 128, dict(causal=True, window=64)),
+                   (2, 63, 8, 1, 64, dict(causal=True)),
+                   (2, 1024, 16, 2, 64, dict(causal=True, chunk=256)),
+                   (4, 1024, 12, 4, 32, dict(causal=True)))
+
+
+def _mask_name(mask: dict) -> str:
+    return "+".join(k if v is True else f"{k}={v}" for k, v in mask.items())
+
+
+def _visible(S: int, mask: dict, device="cpu") -> torch.Tensor:
+    """(S, S) bool: the pairs the mask keeps (the kernels' masks)."""
+    from repro_torch.kernels.flash_attention.ref import visible
+    return visible(S, S, causal=mask["causal"],
+                   window=mask.get("window", 0), chunk=mask.get("chunk", 0),
+                   device=device)
+
+
 def _pairs(S: int, mask: dict) -> int:
-    qp = torch.arange(S)[:, None]
-    kp = torch.arange(S)[None, :]
-    ok = qp >= kp
-    if mask.get("window"):
-        ok &= (qp - kp) < mask["window"]
-    if mask.get("chunk"):
-        ok &= (qp // mask["chunk"]) == (kp // mask["chunk"])
-    return int(ok.sum())
+    return int(_visible(S, mask).sum())
 
 
 def flash_bwd_launch(q, k, v, o, do, lse, delta, out, mask, which: str):
-    """One backward kernel alone, through its C entry point with the
-    wrapper's arguments (to time each of the two apart)."""
+    """One backward kernel alone, through the C entry point of the instance
+    the wrapper picks, with the wrapper's arguments (to time each of the two
+    apart)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     tail = (B, S, T, H, KV, D, float(D ** -0.5), int(mask["causal"]),
-            int(mask.get("window", 0)), int(mask.get("chunk", 0)),
-            _build.dtype_code(q.dtype), _build.stream_of(q))
+            int(mask.get("window", 0)), int(mask.get("chunk", 0)))
     lib = _build.lib()
-    if which == "dq":
-        err = lib.repro_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     o.data_ptr(), do.data_ptr(),
-                                     lse.data_ptr(), delta.data_ptr(),
-                                     out[0].data_ptr(), *tail)
+    if flash_ops.bwd_on_tensor_cores(q.dtype, D):
+        tail, sfx = (*tail, _build.stream_of(q)), "_wgmma"
     else:
-        err = lib.repro_flash_bwd_dkdv(q.data_ptr(), k.data_ptr(),
-                                       v.data_ptr(), do.data_ptr(),
-                                       lse.data_ptr(), delta.data_ptr(),
-                                       out[1].data_ptr(), out[2].data_ptr(),
-                                       *tail)
+        tail, sfx = (*tail, _build.dtype_code(q.dtype),
+                     _build.stream_of(q)), ""
+    if which == "dq":
+        err = getattr(lib, "repro_flash_bwd_dq" + sfx)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            out[0].data_ptr(), *tail)
+    else:
+        err = getattr(lib, "repro_flash_bwd_dkdv" + sfx)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), *tail)
     _build.check(err, f"flash_attention_bwd ({which})")
 
 
 def flash_bwd_case(timer, g, dtype, mask, shape=TRAIN_FLASH,
-                   path="train_one_rank") -> dict:
+                   path="train_one_rank", full: bool = True) -> dict:
     """The flash backward at a training shape (``path``'s): dq, dk, dv
     against the plain backward on the same (o, lse), two calls bitwise
-    equal; the forward's o and lse against the plain forward; each kernel
-    and the pair timed beside the plain version and SDPA's backward (causal
-    only; the library yardstick, timed here only), and the forward with and
-    without lse."""
+    equal, the instance that served it (by its launch counter); each kernel
+    and the pair timed beside the plain version and SDPA's backward (the
+    library yardstick, timed here only: ``is_causal`` for the causal mask,
+    else the mask as a boolean ``attn_mask``). With
+    ``full``, also the forward's o and lse against the plain forward, and
+    the forward timed with and without lse."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash_ops
     B, S, H, KV, D = shape
@@ -1728,15 +1786,25 @@ def flash_bwd_case(timer, g, dtype, mask, shape=TRAIN_FLASH,
         rn(B, S, H, D)
     o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
     what = f"flash {dtype} {shape} {mask}"
-    check(torch.equal(o, flash_ops.flash_attention(q, k, v, **mask)),
-          f"{what}: the lse instance's o differs")
-    ref_o, ref_lse = flash_ops.attention_lse_ref(q, k, v, **mask)
-    o_err = close(o, ref_o, 2e-2 if dtype == torch.bfloat16 else 1e-4,
-                  f"{what} forward o")
-    lse_err = close(lse, ref_lse, LSE_TOL[dtype], f"{what} forward lse")
-    del ref_o, ref_lse
+    extra = {}
+    if full:
+        check(torch.equal(o, flash_ops.flash_attention(q, k, v, **mask)),
+              f"{what}: the lse instance's o differs")
+        ref_o, ref_lse = flash_ops.attention_lse_ref(q, k, v, **mask)
+        extra.update(
+            max_abs_err_forward_o=close(
+                o, ref_o, 2e-2 if dtype == torch.bfloat16 else 1e-4,
+                f"{what} forward o"),
+            max_abs_err_forward_lse=close(lse, ref_lse, LSE_TOL[dtype],
+                                          f"{what} forward lse"))
+        del ref_o, ref_lse
     bwd = lambda: flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    n_wgmma = flash_ops.BWD_WGMMA_LAUNCHES
     got = bwd()
+    instance = ("tensor_cores" if flash_ops.BWD_WGMMA_LAUNCHES - n_wgmma == 2
+                else "cuda_cores")
+    check(instance == ("tensor_cores" if flash_ops.bwd_on_tensor_cores(
+        dtype, D) else "cuda_cores"), f"{what}: served by {instance}")
     check(all(torch.equal(a, b) for a, b in zip(got, bwd())),
           f"{what} backward: two calls differ")
     up = lambda t: t.float()
@@ -1764,42 +1832,43 @@ def flash_bwd_case(timer, g, dtype, mask, shape=TRAIN_FLASH,
             bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = bound(4 * big + 4 * small + stats, 10 * D * H * pairs,
                        dtype)
-    lib_ms = None
-    if list(mask) == ["causal"]:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
-        lib_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                   retain_graph=True))
-        del out
-    fwd = lambda: flash_ops.flash_attention(q, k, v, **mask)
-    fwd_lse = lambda: flash_ops.flash_attention_lse(q, k, v, **mask)
-    fb_ms, fb_by = bound((2 * big + 2 * small) * 1.0, 4 * D * H * pairs,
-                         dtype)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    band = (dict(is_causal=True) if list(mask) == ["causal"] else
+            dict(attn_mask=_visible(S, mask, device="cuda")))
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **band)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+    del out, qt, kt, vt, dot
+    if full:
+        fwd = lambda: flash_ops.flash_attention(q, k, v, **mask)
+        fwd_lse = lambda: flash_ops.flash_attention_lse(q, k, v, **mask)
+        fb_ms, fb_by = bound((2 * big + 2 * small) * 1.0, 4 * D * H * pairs,
+                             dtype)
+        extra.update(forward_ms=timer(fwd), forward_lse_ms=timer(fwd_lse),
+                     forward_bound_ms=fb_ms, forward_bound_by=fb_by)
+    ms = timer(bwd)
     return dict(shape=[B, S, H, KV, D], mask=mask, dtype=str(dtype),
-                path=path, max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
-                mean_abs_dq_dk_dv=typical, tolerance=FLASH_BWD_TOL[dtype],
-                max_abs_err_forward_o=o_err, max_abs_err_forward_lse=lse_err,
-                ms=timer(bwd), host_ms=timer.host_ms(bwd),
+                path=path, instance=instance, max_abs_err=max(errs),
+                max_abs_err_dq_dk_dv=errs, mean_abs_dq_dk_dv=typical,
+                tolerance=FLASH_BWD_TOL[dtype], ms=ms,
+                tflops_7d=14 * D * H * pairs / ms / 1e9,
+                host_ms=timer.host_ms(bwd),
                 plain_ms=timer(lambda: flash_ops.attention_bwd_ref(
                     q, k, v, o, do, lse, **mask), iters=3),
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                dq=rows["dq"], dkdv=rows["dkdv"],
-                forward_ms=timer(fwd), forward_lse_ms=timer(fwd_lse),
-                forward_bound_ms=fb_ms, forward_bound_by=fb_by)
+                dq=rows["dq"], dkdv=rows["dkdv"], **extra)
 
 
 def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
                      path="train_one_rank") -> dict:
     """RMSNorm's backward at a training path's rows (plain, and the residual
     form with the sum's own gradient): dx and dscale against the plain
-    backward, two calls bitwise equal; the two kernels timed together and
-    apart beside the plain version and ``F.rms_norm``'s autograd backward
-    (the library yardstick, timed here only)."""
+    backward, two calls bitwise equal, one launch a call (the rows and the
+    dscale sums), timed beside the plain version and ``F.rms_norm``'s
+    autograd backward (the library yardstick, timed here only)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import _build
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     rows, d = shape
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
@@ -1807,9 +1876,14 @@ def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
     sc = (rn(d) * 0.2).to(dtype)
     ds = rn(rows, d).to(dtype) if residual else None
     fn = lambda: rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds)
+    n = rms_ops.BWD_LAUNCHES
     dx, dsc = fn()
     dx2, dsc2 = fn()
-    what = f"rmsnorm backward {'residual' if residual else 'plain'} {dtype}"
+    form = "residual" if residual else "plain"
+    what = f"rmsnorm backward {form} {dtype} {shape}"
+    check(rms_ops.BWD_LAUNCHES - n == 2, f"{what}: not one launch a call")
+    from repro_torch.kernels import _build
+    blocks = _build.lib().repro_rmsnorm_bwd_last_blocks()
     check(torch.equal(dx, dx2) and torch.equal(dsc, dsc2),
           f"{what}: two calls differ")
     rdx, rdsc = rms_ops.rmsnorm_bwd_ref(x, sc, dy, ds=ds)
@@ -1818,20 +1892,7 @@ def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
     err_sc = close(dsc, rdsc, 1e-4 if dtype == torch.float32 else tol,
                    f"{what} dscale")
     es = x.element_size()
-    nb = -(-rows // rms_ops.BWD_ROWS_A_BLOCK)
-    partial = torch.empty((nb, d), dtype=torch.float32, device="cuda")
-    stream = _build.stream_of(x)
-    xc, sc_code = _build.dtype_code(x.dtype), _build.dtype_code(sc.dtype)
-    rows_k = lambda: _build.check(_build.lib().repro_rmsnorm_bwd(
-        x.data_ptr(), sc.data_ptr(), dy.data_ptr(),
-        None if ds is None else ds.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), rows, d, 1e-5, xc, sc_code, stream), "rows")
-    scale_k = lambda: _build.check(_build.lib().repro_rmsnorm_bwd_scale(
-        partial.data_ptr(), dsc.data_ptr(), nb, d, sc_code, stream), "scale")
     n_in = 3 if residual else 2
-    b_rows = bound((n_in + 1) * rows * d * es + d * es + nb * d * 4,
-                   8 * rows * d, dtype)
-    b_scale = bound(nb * d * 4 + d * es, nb * d, dtype)
     b_ms, b_by = bound((n_in + 1) * rows * d * es + 2 * d * es, 8 * rows * d,
                        dtype)
     xl = x.clone().requires_grad_(True)
@@ -1840,36 +1901,34 @@ def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
     lib_ms = timer(lambda: torch.autograd.grad(y, (xl, wl), dy,
                                                retain_graph=True))
     del y
-    return dict(form="residual" if residual else "plain", shape=[rows, d],
-                dtype=str(dtype), path=path, max_abs_err=err,
-                max_abs_err_dscale=err_sc,
-                tolerance=tol, ms=timer(fn), host_ms=timer.host_ms(fn),
+    return dict(form=form, shape=[rows, d], dtype=str(dtype), path=path,
+                blocks=blocks, max_abs_err=err, max_abs_err_dscale=err_sc,
+                tolerance=tol,
+                ms=timer(fn), host_ms=timer.host_ms(fn),
                 plain_ms=timer(lambda: rms_ops.rmsnorm_bwd_ref(x, sc, dy,
                                                                ds=ds)),
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                rows_kernel=dict(ms=timer(rows_k), bound_ms=b_rows[0],
-                                 bound_by=b_rows[1]),
-                scale_kernel=dict(ms=timer(scale_k), bound_ms=b_scale[0],
-                                  bound_by=b_scale[1]))
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def backward_kernel_rows(bwd: dict) -> dict[str, list[dict]]:
     """Per kernel rows of phase 2c for the kernels' line: each kernel's own
-    time and bound; the plain version's and the library's time are of the
+    time and bound (the flash pair's two kernels apart; RMSNorm's backward
+    is one kernel); the plain version's and the library's time are of the
     whole backward, as is ``pair_ms``."""
     out: dict[str, list[dict]] = {}
     parts = {"flash_attention_bwd": (("flash_attention_bwd_dq", "dq"),
                                      ("flash_attention_bwd_dkdv", "dkdv")),
-             "rmsnorm_bwd": (("rmsnorm_bwd", "rows_kernel"),
-                             ("rmsnorm_bwd_scale", "scale_kernel"))}
+             "rmsnorm_bwd": (("rmsnorm_bwd", None),)}
     for name, rows in bwd.items():
         for r in rows:
             for kernel, key in parts[name]:
+                own = r[key] if key else r
                 out.setdefault(kernel, []).append(dict(
                     shape=r["shape"], dtype=r["dtype"], path=r["path"],
                     mask_or_form=r.get("mask", r.get("form")),
-                    max_abs_err=r["max_abs_err"], ms=r[key]["ms"],
-                    bound_ms=r[key]["bound_ms"], bound_by=r[key]["bound_by"],
+                    instance=r.get("instance", "cuda"),
+                    max_abs_err=r["max_abs_err"], ms=own["ms"],
+                    bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                     plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                     host_ms=r["host_ms"], pair_ms=r["ms"],
                     pair_bound_ms=r["bound_ms"]))
@@ -1895,6 +1954,11 @@ def backward_cases(timer) -> dict[str, list[dict]]:
     for residual in (False, True):
         out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
             timer, g, torch.bfloat16, residual, FSDP_RANK_RMS, "train_fsdp"))
+    # the tensor-core pair at its tile edges (no path of its own)
+    for *shape, mask in FLASH_BWD_EDGES:
+        out["flash_attention_bwd"].append(flash_bwd_case(
+            timer, g, torch.bfloat16, mask, tuple(shape), "edges",
+            full=False))
     return out
 
 
@@ -1904,9 +1968,12 @@ def backward_cases(timer) -> dict[str, list[dict]]:
 # 8a: llama3.2-3b at full width and depth on one rank, 3 steps of 4 x 1,024
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 1024
 # the kernels the training paths run, by their names in launch_counts
-TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_scale",
-                 "flash_attention", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkdv")
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_wgmma")
+# the kernels whose device time 8a's profiled step sums, by name
+TRAIN_PROFILE_SUMS = {"flash_bwd": "flash_bwd", "flash_fwd": "flash_wgmma",
+                      "rmsnorm_bwd": "rmsnorm_bwd"}
 # 8b: the reduced fp32 model (the smoke config at 2 layers), 2 steps of
 # 12 x 64 tokens, on one rank (CPU and card) and on 2 x 2 and 3 x 2 ranks
 PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_LAYERS = 2, 12, 64, 2
@@ -1931,15 +1998,18 @@ TRAIN_VARIANTS = (("locality", dict(fsdp=True)),
 def train_launches_implied(n_layers: int, steps: int) -> dict[str, int]:
     """What a training step launches, per kernel and RMSNorm form: with
     remat every block's forward runs twice (the forward and its recompute),
-    the final norm once; the backward once per norm and attention."""
+    the final norm once; the backward once per norm (one kernel) and
+    attention (two kernels, both of the tensor-core instance: bf16, D =
+    128)."""
     L = n_layers
     want = {k: 0 for k in ("decode_scores", "decode_stats", "dma_allgather",
                            "ssd", "rmsnorm.gated")}
     want.update({"rmsnorm": 4 * L + 1, "rmsnorm.plain": 2 * L + 1,
                  "rmsnorm.residual": 2 * L, "rmsnorm_bwd": 2 * L + 1,
                  "rmsnorm_bwd.plain": L + 1, "rmsnorm_bwd.residual": L,
-                 "rmsnorm_bwd_scale": 2 * L + 1, "flash_attention": 2 * L,
-                 "flash_attention_bwd_dq": L, "flash_attention_bwd_dkdv": L})
+                 "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkdv": L,
+                 "flash_attention_bwd_wgmma": 2 * L})
     return {k: n * steps for k, n in want.items()}
 
 
@@ -1977,7 +2047,7 @@ def train_one_rank(smi: str) -> dict[str, int]:
     batch = tr.data.batch(TRAIN_STEPS)
     profile_window("profile_train_step", "train_one_rank",
                    lambda: tr.artifacts.step_fn(tr.state, batch), 1,
-                   tokens=TRAIN_BATCH * TRAIN_SEQ)
+                   sums=TRAIN_PROFILE_SUMS, tokens=TRAIN_BATCH * TRAIN_SEQ)
     n_params = sum(t.numel() for t in _leaves(tr.state.params))
     print(json.dumps({
         "phase": "train_one_rank", "model": cfg.name, "params": n_params,
@@ -2426,9 +2496,13 @@ def main() -> int:
     usage = ptxas_usage(info.log)
     for row in usage:
         print(json.dumps({"phase": "build", **row}))
-    spilled = [r["kernel"] for r in usage if "decode_s" in r["kernel"]
+    # the decode kernels and the flash backward's tensor-core instances
+    # must not spill
+    spilled = [r["kernel"] for r in usage
+               if ("decode_s" in r["kernel"] or "wgmma" in r["kernel"]
+                   and "flash_bwd" in r["kernel"])
                and (r.get("spill_stores") or r.get("spill_loads"))]
-    check(not spilled, f"decode kernel instances spill: {spilled}")
+    check(not spilled, f"kernel instances spill: {spilled}")
     for line in info.log.splitlines():
         if "warning" in line.lower():
             print("  " + line.strip())
@@ -2457,6 +2531,16 @@ def main() -> int:
     for name, rows in bwd.items():
         for row in rows:
             print(json.dumps({"kernel": name, **row}))
+            quoted = QUOTED_PR19_MS.get((
+                name.split("_")[0], tuple(row["shape"]),
+                _mask_name(row["mask"]) if "mask" in row else row["form"]))
+            if quoted and row["dtype"] == "torch.bfloat16":
+                print(json.dumps({
+                    "kernel": name, "shape": row["shape"],
+                    "mask_or_form": row.get("mask", row.get("form")),
+                    "quoted_from": "PERF.md, PR 19's chip run, NVIDIA H100 "
+                                   "80GB HBM3, 700.00 W; not measured here",
+                    "pr19_ms": quoted, "ms_this_run": row["ms"]}))
     cases.update(backward_kernel_rows(bwd))
     by_path = {"dma_main_path": {"dma_allgather": dma_main_path(dma[0])}}
     small_end_to_end("llama3.2-3b", 4)
@@ -2501,9 +2585,6 @@ def main() -> int:
         "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                         "src/repro/kernels/rmsnorm/rmsnorm.py:17 (its "
                         "backward)", 0),
-        "rmsnorm_bwd_scale": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
-                              "src/repro/kernels/rmsnorm/rmsnorm.py:17 (its "
-                              "backward)", 0),
     }
     kernels = []
     for name, (source, replaces, headline) in meta.items():
@@ -2526,13 +2607,13 @@ def main() -> int:
              for r in cases["rmsnorm"][::-1] if r["shape"] == [8, 3072]
              and r["dtype"] == "torch.bfloat16"}
     kernels[0]["forms_8x3072_bf16"] = forms
+    bwd_kernels = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                   "rmsnorm_bwd")
     for row in kernels:        # the backward pair's, and the lse forward's
-        if row["name"] in ("flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkdv", "rmsnorm_bwd",
-                           "rmsnorm_bwd_scale"):
+        if row["name"] in bwd_kernels:
             src = cases[row["name"]][0]
             row["pair"] = {k: src[k] for k in ("pair_ms", "pair_bound_ms",
-                                               "mask_or_form")}
+                                               "mask_or_form", "instance")}
     train = bwd["flash_attention_bwd"][0]
     kernels[1]["training_shape"] = {
         k: train[k] for k in ("shape", "forward_ms", "forward_lse_ms",
@@ -2544,18 +2625,19 @@ def main() -> int:
         k: [r[k] for r in rank8c]
         for k in ("shape", "forward_ms", "forward_lse_ms", "forward_bound_ms",
                   "max_abs_err_forward_o", "max_abs_err_forward_lse")}
-    for row in kernels:        # the backward kernels at phase 8c's shapes
-        if row["name"] in ("flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkdv", "rmsnorm_bwd",
-                           "rmsnorm_bwd_scale"):
-            rank8c = [r for r in cases[row["name"]]
-                      if r["path"] == "train_fsdp"]
-            row["fsdp_rank_cases"] = {
-                "cases": len(rank8c),
-                "max_abs_err": max(r["max_abs_err"] for r in rank8c),
-                **{f: [r[f] for r in rank8c]
-                   for f in ("ms", "plain_ms", "bound_ms", "library_ms",
-                             "shape", "mask_or_form")}}
+    for row in kernels:        # the backward kernels at 8c's and edge shapes
+        if row["name"] in bwd_kernels:
+            for path in ("train_fsdp", "edges"):
+                sel = [r for r in cases[row["name"]] if r["path"] == path]
+                if not sel:
+                    continue
+                row[f"{path}_cases"] = {
+                    "cases": len(sel),
+                    "max_abs_err": max(r["max_abs_err"] for r in sel),
+                    **{f: [r[f] for r in sel]
+                       for f in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms", "shape", "mask_or_form",
+                                 "instance")}}
     phase7 = [r for r in cases["rmsnorm"]
               if r.get("path") == "serve_batch_sharded"]
     kernels[0]["batch_sharded_cases"] = {

@@ -18,11 +18,12 @@ def _counters():
     from .ssd import ops as ssd
     return [("rmsnorm", rmsnorm, "LAUNCHES"),
             ("rmsnorm_bwd", rmsnorm, "BWD_LAUNCHES"),
-            ("rmsnorm_bwd_scale", rmsnorm, "BWD_SCALE_LAUNCHES"),
             ("flash_attention", flash_attention, "LAUNCHES"),
             ("flash_attention_bwd_dq", flash_attention, "BWD_DQ_LAUNCHES"),
             ("flash_attention_bwd_dkdv", flash_attention,
              "BWD_DKDV_LAUNCHES"),
+            ("flash_attention_bwd_wgmma", flash_attention,
+             "BWD_WGMMA_LAUNCHES"),
             ("decode_scores", decode_stats, "SCORES_LAUNCHES"),
             ("decode_stats", decode_stats, "LAUNCHES"),
             ("dma_allgather", dma_allgather, "LAUNCHES"),

@@ -47,11 +47,14 @@ SIGNATURES = {
     # scale_dtype, vectorised, stream
     "repro_rmsnorm_gated": [_P, _LL, _P, _LL, _P, _P, _LL, _I, _F, _I, _I,
                             _I, _P],
-    # x, scale, dy, ds (or null), dx, partial, rows, d, eps, x_dtype,
-    # scale_dtype, stream
-    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
-    # partial, dscale, nblocks, d, scale_dtype, stream
-    "repro_rmsnorm_bwd_scale": [_P, _P, _I, _I, _I, _P],
+    # x, scale, dy, ds (or null), dx, dscale, partial, counters, rows, d,
+    # eps, x_dtype, scale_dtype, stream
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
+                          _I, _P],
+    # the grid of the last repro_rmsnorm_bwd launch, and the rows of the
+    # partial buffer that a launch takes
+    "repro_rmsnorm_bwd_last_blocks": [],
+    "repro_rmsnorm_bwd_partial_rows": [],
     # q, k, v, o, lse (or null), B, S, T, H, KV, D, scale, causal, window,
     # chunk, cap, stream
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -66,6 +69,11 @@ SIGNATURES = {
     # window, chunk, dtype, stream
     "repro_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    # the tensor-core pair (bf16): the same without the dtype
+    "repro_flash_bwd_dq_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _F, _I, _I, _I, _P],
+    "repro_flash_bwd_dkdv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # s, m, v, pos, pos_stride, slot_offset, window, chunk, o, l, B, KV, G,
     # L, D, nsplit, v_dtype, stream
     "repro_decode_stats": [_P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _I, _I,

@@ -29,8 +29,8 @@
 // 3-D tensor maps of the (B, S|T, H|KV * D) views, one box per 64 columns,
 // rows past S or T read as zeros) with mbarrier completion; thread 0 refills
 // a stage as soon as all four warps are past it, two tiles ahead of the one
-// being multiplied. cuTensorMapEncodeTiled lives in libcuda; it is fetched
-// through cudaGetDriverEntryPoint, so the library links no -lcuda. Per kv
+// being multiplied (the TMA, mbarrier and wgmma pieces are hopper.cuh's,
+// shared with the backward in flash_attention_bwd.cu). Per kv
 // tile: S = Q K^T is wgmma m64n64k16 with both operands in shared memory
 // (K-major), issued together with O += P V of the previous tile (wgmma
 // m64n{64,32}k16, P in bf16 from registers, V from shared memory, MN-major,
@@ -65,10 +65,12 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using repro::kNegInf;
+using namespace repro::sm90;
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
@@ -76,8 +78,6 @@ using repro::kNegInf;
 constexpr int kBM = 64;            // query rows per block (one warpgroup)
 constexpr int kBN = 64;            // keys per kv tile
 constexpr int kStages = 3;         // K/V ring
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct WCfg {
@@ -90,144 +90,6 @@ struct WCfg {
       Q_BYTES + kStages * 2 * KV_BYTES + 8 * (kStages + 1);
   static constexpr int NO = SWE / 2;              // O registers per column box
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// spins until the barrier's phase `parity` completes; a copy that never
-// lands traps after ~2^24 polls instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B)
-template <int SW>
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  constexpr uint64_t mode = SW == 128 ? 1 : 2;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// the A fragment of an in-flight wgmma: its registers stay live until here
-template <int K>
-__device__ __forceinline__ void fence_pa(uint32_t (&a)[K][4]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[k][j])::"memory");
-}
-
-#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-
-// d (64 x 64, fp32) += A (64 x 16, shared, K-major) B (16 x 64, shared,
-// K-major); scale_d == 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x N, fp32) += A (64 x 16, bf16 in registers) B (16 x N, shared,
-// MN-major: the instruction transposes it)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12), F4(16), F4(20), F4(24), F4(28)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : F4(0), F4(4), F4(8), F4(12)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F4
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // the reachable kv tiles of q tile [q0, q0 + kBM) form one interval,
 // [lo, hi], by flash.py's tile rule; empty when lo > hi
@@ -244,44 +106,6 @@ __device__ __forceinline__ void kv_range(int q0, int T_len, int causal,
   if (chunk) {
     lo = max(lo, ((q0 / chunk) * chunk) / kBN);
     hi = min(hi, (q0 + kBM - 1) / kBN);
-  }
-}
-
-// true when some (query, key) pair of the tile is masked
-__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, int T_len,
-                                                int causal, int window,
-                                                int chunk) {
-  const int q1 = q0 + kBM - 1, k1 = k0 + kBN - 1;
-  if (k1 >= T_len) return true;
-  if (causal && k1 > q0) return true;
-  if (window && q1 - k0 >= window) return true;
-  if (chunk && !(q0 / chunk == q1 / chunk && k0 / chunk == k1 / chunk &&
-                 q0 / chunk == k0 / chunk))
-    return true;
-  return false;
-}
-
-// 2^x by the ex2 instruction (flushing subnormal results to 0; p feeds a
-// bf16 product, and exp2f adds only a rescaling of subnormal inputs)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the keys query qp may see, [lo, hi): the causal, window and chunk masks
-// of flash.py and the ragged T edge, as one interval per row
-__device__ __forceinline__ void visible_keys(int qp, int T_len, int causal,
-                                             int window, int chunk, int& lo,
-                                             int& hi) {
-  lo = 0;
-  hi = T_len;
-  if (causal) hi = min(hi, qp + 1);
-  if (window) lo = max(lo, qp - window + 1);
-  if (chunk) {
-    const int c0 = (qp / chunk) * chunk;
-    lo = max(lo, c0);
-    hi = min(hi, c0 + chunk);
   }
 }
 
@@ -435,15 +259,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          dv + ((c * kBN * C::SW + kk * 16 * C::SW) >> 4));
     wgmma_commit();
   };
-  // P in bf16: accumulator pairs 8kk..8kk+7 are the A fragment of keys
-  // 16kk..16kk+15
-  auto pack_p = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-  };
   int key_lo[2], key_hi[2];
   visible_keys(r0, T_len, causal, window, chunk, key_lo[0], key_hi[0]);
   visible_keys(r0 + 8, T_len, causal, window, chunk, key_lo[1], key_hi[1]);
@@ -466,7 +281,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     fence_regs(s);
     logits(s, k0, t4, key_lo, key_hi, cap, scale,
-           tile_needs_mask(q0, k0, T_len, causal, window, chunk));
+           tile_needs_mask<kBM, kBN>(q0, k0, T_len, causal, window,
+                                     chunk));
     softmax_step(s, m_i, l_i, alpha);
     wgmma_wait<0>();                         // O += P_{it-1} V_{it-1} is in
     fence_pa(pa);
@@ -476,7 +292,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < C::NO; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
     }
-    pack_p();
+    pack_a(s, pa);      // P in bf16, the A operand of P V
     __syncthreads();                         // stage tp is read by all
     if (tid == 0 && it > 0 && it - 1 + kStages < n) load_kv(it - 1 + kStages);
   }
@@ -522,58 +338,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the
-// runtime, so the library needs no -lcuda
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (B, L, heads * D) bf16 tensor as a 3-D map with boxes of SWE columns x
-// rows rows x 1 batch, swizzled as the wgmma descriptors expect
-template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L,
-                     int heads, int rows) {
-  using C = WCfg<D>;
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * D,
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(heads) * D * 2,
-                                 static_cast<cuuint64_t>(L) * heads * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(C::SWE),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int S, int T_len, int H, int KV,
@@ -581,19 +345,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float cap, cudaStream_t stream) {
   using C = WCfg<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t e = make_map<D>(&tq, q, B, S, H, kBM);
-  if (e == cudaSuccess) e = make_map<D>(&tk, k, B, T_len, KV, kBN);
-  if (e == cudaSuccess) e = make_map<D>(&tv, v, B, T_len, KV, kBN);
+  cudaError_t e = make_map_bf16(&tq, q, B, S, H * D, C::SWE, kBM, C::SW);
+  if (e == cudaSuccess)
+    e = make_map_bf16(&tk, k, B, T_len, KV * D, C::SWE, kBN, C::SW);
+  if (e == cudaSuccess)
+    e = make_map_bf16(&tv, v, B, T_len, KV * D, C::SWE, kBN, C::SW);
   static bool opted_in[64] = {};      // the shared-memory opt-in, per device
-  int dev = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev >= 64) e = cudaErrorInvalidDevice;
-  if (e == cudaSuccess && !opted_in[dev]) {
-    e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
-    opted_in[dev] = e == cudaSuccess;
-  }
+  if (e == cudaSuccess)
+    e = opt_in_smem(flash_wgmma_kernel<D>, C::SMEM, opted_in);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
   flash_wgmma_kernel<D><<<grid, 128, C::SMEM, stream>>>(

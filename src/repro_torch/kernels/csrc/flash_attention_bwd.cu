@@ -9,8 +9,8 @@
 // _flash_kernel), and this is that kernel's backward.
 //
 // Per head, with scale = D^-0.5 and the forward's masks (causal, window,
-// chunk; the ragged T edge; a masked pair has P = 0, a row with no key
-// lse = +inf and so a zero gradient):
+// chunk; the ragged S and T edges; a masked pair has P = 0, a row with no
+// key lse = +inf and so a zero gradient):
 //   P = exp(scale * q k^T - lse)        dV = P^T dO
 //   dP = dO v^T                         Delta = rowsum(dO * o)
 //   dS = P * (dP - Delta)               dQ = scale * dS k,  dK = scale * dS^T q
@@ -21,35 +21,98 @@
 //         rows reach, P and dS recomputed per tile, dQ summed in registers;
 //   dkdv: one block per (b * KV + kvh, key tile): the G query heads of the
 //         kv head and every query tile that reaches the key tile, P and dS
-//         recomputed, dK and dV summed in registers over heads and tiles.
-// No atomics: every output element is summed by one thread in a fixed order,
-// so two calls are bitwise equal.
+//         recomputed, dK and dV summed in registers over heads and tiles
+//         (the tensor-core instance may split the heads over a cluster,
+//         below).
+// No atomics: every output element is summed in a fixed order (by one
+// thread, and over a cluster's blocks in block order), so two calls are
+// bitwise equal.
 //
 // Bound on the H100 at the training shape (llama3.2-3b, B = 4, S = 1024,
 // 24/8 heads, D = 128, bf16, causal): operations. The recomputation makes it
 // 7 D multiply-adds per attended pair (dq: q k^T, dO v^T, dS k; dkdv: q k^T,
 // dO v^T, P^T dO, dS^T q) against the 5 D of one fused pass with atomics,
 // 2.5x the forward's 2 D; 50.4 M pairs, 64.5 GFLOP of the 5 D count, 65 us
-// at 989 TFLOP/s bf16 against 3 ms at 67 TFLOP/s fp32. The bytes, q, k, v,
-// o, dO and the three gradients, are ~100 MB, 30 us.
+// at 989 TFLOP/s bf16 (90 GFLOP, 91 us, of the 7 D this design does)
+// against 0.96 ms at 67 TFLOP/s fp32. The bytes, q, k, v, o, dO and the
+// three gradients, are ~100 MB, 30 us.
 //
-// Design (correct and simple first; a tensor-core version is a later
-// redesign): CUDA cores, fp32 throughout. Tiles of 64 rows (32 at D = 256)
-// staged in shared memory as fp32, rows padded by one float so that the
-// strided reads of a product fall on distinct banks; 256 threads, each
-// holding a 16-strided (rows, columns) sub-tile of every product in
-// registers (4 x 4 of a 64 x 64 tile, 4 x D/16 of a 64 x D one). Blocks
-// run their tiles in causal order with a uniform reach test per tile, as the
-// forward's fp32 instance does; masked pairs inside a tile are zeroed.
+// Design: two instances, chosen by dtype and D in the wrapper (ops.py),
+// never one for the other.
+//
+// bf16 at D = 32, 64, 128: tensor cores (the redesign of the CUDA-core
+// version below, which took 5.64 ms at the training shape). One warpgroup
+// (128 threads) a block; every tile is 64 rows (queries or keys) x D, in
+// shared memory in the 128-byte swizzle (64-byte at D = 32) that the wgmma
+// descriptors read, loaded by TMA over 3-D tensor maps of the (B, S|T,
+// H|KV * D) views (rows past S or T read as zeros) with mbarrier completion
+// (hopper.cuh, shared with the forward). All five products are wgmma
+// m64n64k16 (m64n32k16 for the D = 32 outputs) with fp32 accumulators:
+//   dq:   Q and dO resident, K and V streamed through two stages; S = Q K^T
+//         and dP = dO V^T with both operands in shared memory (K-major);
+//         P = exp2(S scale log2e - lse log2e) and dS = P (dP - Delta) in
+//         registers on the accumulator layout, which is the A-operand
+//         layout of the next product, so dS goes to dQ += dS K as bf16
+//         register fragments with K read MN-major from the same stage;
+//   dkdv: K and V resident, (Q, dO) of each (q head, query tile) streamed
+//         through two stages with the tile's lse and Delta; the transposed
+//         products S^T = K Q^T and dP^T = V dO^T put the keys on wgmma's M,
+//         so P^T and dS^T are register fragments for dV += P^T dO and
+//         dK += dS^T Q (dO and Q MN-major): nothing passes through shared
+//         memory between the products. Where the (kv head, key tile)
+//         blocks leave SMs idle (one sequence, B = 1: 128 blocks for 132
+//         SMs at llama3.2-3b's 1,024 tokens), the kv head's G q heads are
+//         split over a thread block cluster (a divisor of G up to 8: all 3
+//         of llama's), and at the end the cluster's blocks sum their dK
+//         and dV through distributed shared memory in block order.
+// P and dS are split into two bf16 fragments, the rounded value and the
+// rounded remainder, each multiplied: one bf16 rounding of P and dS missed
+// the bf16 tolerance against the fp32 plain backward (atol 1e-3 + rtol
+// 1e-2) on ~0.1% of the gradients; the split costs 10 D multiply-adds a
+// pair instead of 7 D.
+// The masks are one interval of visible keys per query row (dq) or of
+// visible queries per key row (dkdv), applied on tiles that cross a mask or
+// edge only; a query past S gets lse = +inf, so P = 0. Query tiles run
+// causally heaviest first in dq (blockIdx.y reversed), key tile 0 first in
+// dkdv. At D = 128 each kernel takes 96 KB of shared memory, two blocks an
+// SM. Registers per thread from ptxas (build.log), no spills, at D = 32 /
+// 64 / 128: dq 109 / 126 / 154, dkdv 142 / 181 / 239 (chip_smoke.py phase
+// 1 prints them and fails if a tensor-core instance spills).
+//
+// What bounds it: each tile is a chain of dependent steps in one warpgroup,
+// product, exponentials, product, with no overlap inside the block; two
+// blocks an SM overlap each other's chains. At the training shape the pair
+// runs at ~315 TFLOP/s of the 7 D count, 0.287 ms against 5.64 ms for the
+// CUDA-core version (PERF.md), level with SDPA's backward.
+//
+// fp32, and bf16 at D = 256: CUDA cores (tf32 would not hold the 1e-4 fp32
+// tolerance; at D = 256 dK and dV alone would take 256 fp32 registers a
+// thread of one warpgroup, and no supported model trains at D = 256).
+// Tiles of 64 rows (32 at D = 256) staged in shared memory as fp32, rows
+// padded by one float so that the strided reads of a product fall on
+// distinct banks; 256 threads, each holding a 16-strided (rows, columns)
+// sub-tile of every product in registers (4 x 4 of a 64 x 64 tile, 4 x D/16
+// of a 64 x D one). Blocks run their tiles in causal order with a uniform
+// reach test per tile; masked pairs inside a tile are zeroed.
+#include <cuda.h>
 #include <math.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using repro::from_f;
 using repro::to_f;
+using namespace repro::sm90;
 
+// ---------------------------------------------------------------------------
+// CUDA cores: fp32, and bf16 at D = 256
+// ---------------------------------------------------------------------------
 constexpr int kThreads = 256;
 
 template <int D>
@@ -305,6 +368,480 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor cores: bf16 at D = 32, 64, 128 (wgmma, TMA)
+// ---------------------------------------------------------------------------
+constexpr int kT = 64;           // rows of every tile: 64 queries or 64 keys
+constexpr int kWS = 2;           // stages of the streamed tiles
+
+template <int D>
+struct WB {
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle row, bytes
+  static constexpr int SWE = SW / 2;              // bf16 per swizzle row
+  static constexpr int NB = D / SWE;              // column boxes of a row
+  static constexpr int NO = SWE / 2;              // accumulator floats a box
+  static constexpr int TILE = kT * D * 2;         // one 64 x D bf16 tile
+  // two resident tiles, kWS stages of two streamed tiles, (dkdv) each
+  // stage's lse and Delta, and the barriers
+  static constexpr int SMEM_DQ = 2 * TILE + kWS * 2 * TILE + 8 * (kWS + 1);
+  static constexpr int SMEM_DKDV =
+      2 * TILE + kWS * 2 * TILE + kWS * 2 * kT * 4 + 8 * (kWS + 1);
+};
+
+// acc (64 x 64) = A B^T over D, for A and B two 64-row tiles read K-major
+template <int D>
+__device__ __forceinline__ void issue_abt(float (&acc)[32], uint32_t sa,
+                                          uint32_t sb) {
+  using C = WB<D>;
+  const uint64_t da = make_desc<C::SW>(sa, 16, 8 * C::SW);
+  const uint64_t db = make_desc<C::SW>(sb, 16, 8 * C::SW);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns: box kk*16/SWE, byte offset (kk*16 % SWE)*2 in its row
+    const uint32_t col = ((kk * 16) % C::SWE) * 2, box = (kk * 16) / C::SWE;
+    const uint32_t off = (box * kT * C::SW + col) >> 4;
+    wgmma_ss_n64(acc, da + off, db + off, kk > 0);
+  }
+}
+
+// acc (64 x D) += A B, for A (64 x 64) in bf16 register fragments and B a
+// 64-row tile read MN-major (one swizzle atom across N an instruction)
+template <int D>
+__device__ __forceinline__ void issue_ab(float (&acc)[WB<D>::NB][WB<D>::NO],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t sb) {
+  using C = WB<D>;
+  const uint64_t db = make_desc<C::SW>(sb, 8 * C::SW, 8 * C::SW);
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c)
+      wgmma_rs<C::SWE>(acc[c], a[kk],
+                       db + ((c * kT * C::SW + kk * 16 * C::SW) >> 4));
+}
+
+template <int NB, int NO>
+__device__ __forceinline__ void fence_acc(float (&acc)[NB][NO]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+}
+
+// the key tiles that the query tile at q0 reaches, [lo, hi]
+__device__ __forceinline__ void key_tiles(int q0, int T_len, int causal,
+                                          int window, int chunk, int& lo,
+                                          int& hi) {
+  const int q1 = q0 + kT - 1;
+  lo = 0;
+  hi = (T_len + kT - 1) / kT - 1;
+  if (causal) hi = min(hi, q1 / kT);
+  if (window) lo = max(lo, max(0, q0 - window + 1) / kT);
+  if (chunk) {
+    lo = max(lo, (q0 / chunk) * chunk / kT);
+    hi = min(hi, ((q1 / chunk + 1) * chunk - 1) / kT);
+  }
+}
+
+// the query tiles that reach the key tile at k0, [lo, hi]
+__device__ __forceinline__ void query_tiles(int k0, int S, int causal,
+                                            int window, int chunk, int& lo,
+                                            int& hi) {
+  const int k1 = k0 + kT - 1;
+  lo = 0;
+  hi = (S + kT - 1) / kT - 1;
+  if (causal) lo = max(lo, k0 / kT);
+  if (window) hi = min(hi, (k1 + window - 1) / kT);
+  if (chunk) {
+    lo = max(lo, (k0 / chunk) * chunk / kT);
+    hi = min(hi, ((k1 / chunk + 1) * chunk - 1) / kT);
+  }
+}
+
+// the queries that see key kp, [lo, hi): visible_keys (hopper.cuh) seen
+// from the key
+__device__ __forceinline__ void queries_of(int kp, int S, int T_len,
+                                           int causal, int window, int chunk,
+                                           int& lo, int& hi) {
+  lo = 0;
+  hi = kp < T_len ? S : 0;
+  if (causal) lo = max(lo, kp);
+  if (window) hi = min(hi, kp + window);
+  if (chunk) {
+    lo = max(lo, (kp / chunk) * chunk);
+    hi = min(hi, (kp / chunk) * chunk + chunk);
+  }
+}
+
+// the D columns of one 64-row tile of a (B, L, heads * D) map, by box
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int nb, int sw, int swe, int col0,
+                                         int row0, int b, uint32_t bar) {
+  for (int c = 0; c < nb; ++c)
+    tma_load_3d(dst + c * kT * sw, map, col0 + c * swe, row0, b, bar);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int S, int T_len, int H,
+                   int KV, float scale, int causal, int window, int chunk) {
+  using C = WB<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: tiles start on 1024 bytes
+  const uint32_t sQ = smem_u32(smem_raw);
+  if (sQ & 1023) __trap();
+  const uint32_t sdO = sQ + C::TILE;
+  const uint32_t sKV = sdO + C::TILE;                  // stage t: K, then V
+  const uint32_t bar_q = sKV + kWS * 2 * C::TILE;      // Q and dO, then stages
+  auto stage = [&](int t) { return sKV + t * 2 * C::TILE; };
+  auto bar_kv = [&](int t) { return bar_q + 8 * (1 + t); };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kT;   // heaviest first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 16 * warp + g;                  // rows r0 and r0 + 8
+
+  int lo, hi;
+  key_tiles(q0, T_len, causal, window, chunk, lo, hi);
+  const int n = hi - lo + 1;
+
+  if (tid == 0) {
+    for (int i = 0; i <= kWS; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // key tile lo + it goes to stage it % kWS
+  auto load_kv = [&](int it) {
+    const int t = it % kWS;
+    mbar_expect_tx(bar_kv(t), 2 * C::TILE);
+    tma_tile(stage(t), &tk, C::NB, C::SW, C::SWE, kvh * D, (lo + it) * kT, b,
+             bar_kv(t));
+    tma_tile(stage(t) + C::TILE, &tv, C::NB, C::SW, C::SWE, kvh * D,
+             (lo + it) * kT, b, bar_kv(t));
+  };
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_q, 2 * C::TILE);
+    tma_tile(sQ, &tq, C::NB, C::SW, C::SWE, h * D, q0, b, bar_q);
+    tma_tile(sdO, &tdo, C::NB, C::SW, C::SWE, h * D, q0, b, bar_q);
+    for (int it = 0; it < n && it < kWS; ++it) load_kv(it);
+  }
+
+  // Delta = rowsum(dO * o) and lse * log2(e) of rows r0 and r0 + 8: a quad
+  // of lanes shares the rows, each summing a quarter of the columns
+  float dlt[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + 8 * r;
+    float acc = 0.f;
+    if (qp < S) {
+      const size_t off = ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+#pragma unroll
+      for (int c = 0; c < D; c += 32) {
+        float ov[8], dv[8];
+        repro::load16_f(o + off + c + 8 * t4, ov);
+        repro::load16_f(dout + off + c + 8 * t4, dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(dv[e], ov[e], acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlt[r] = acc;
+    if (t4 == 0 && qp < S) delta[static_cast<size_t>(bh) * S + qp] = acc;
+    lse2[r] = qp < S ? lse[static_cast<size_t>(bh) * S + qp] * kLog2e
+                     : INFINITY;
+  }
+
+  float acc[C::NB][C::NO];
+#pragma unroll
+  for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+    for (int i = 0; i < C::NO; ++i) acc[c][i] = 0.f;
+  float s[32], dp[32];
+  uint32_t pa[4][4], pa_lo[4][4];
+  int key_lo[2], key_hi[2];
+  visible_keys(r0, T_len, causal, window, chunk, key_lo[0], key_hi[0]);
+  visible_keys(r0 + 8, T_len, causal, window, chunk, key_lo[1],
+               key_hi[1]);
+  const float sl2e = scale * kLog2e;
+
+  for (int it = 0; it < n; ++it) {
+    const int t = it % kWS, k0 = (lo + it) * kT;
+    if (it == 0) mbar_wait(bar_q, 0);
+    mbar_wait(bar_kv(t), (it / kWS) & 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_abt<D>(s, sQ, stage(t));                    // S = Q K^T
+    issue_abt<D>(dp, sdO, stage(t) + C::TILE);        // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // P and dS in place; i indexes the accumulator layout: row (i >> 1) & 1,
+    // key 8 * (i >> 2) + 2 * t4 + (i & 1) of the tile
+    // queries past S need no mask: their lse is +inf
+    const bool masked =
+        tile_needs_mask<kT, kT>(q0, k0, T_len, causal, window, chunk);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int kp = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float p = exp2_ftz(fmaf(s[i], sl2e, -lse2[r]));
+      if (masked && (kp < key_lo[r] || kp >= key_hi[r])) p = 0.f;
+      s[i] = p * (dp[i] - dlt[r]);
+    }
+    pack_a_split(s, pa, pa_lo);
+    fence_acc(acc);
+    wgmma_fence();
+    issue_ab<D>(acc, pa, stage(t));                   // dQ += dS K
+    issue_ab<D>(acc, pa_lo, stage(t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_pa(pa);
+    fence_pa(pa_lo);
+    fence_acc(acc);
+    __syncthreads();                                  // stage t is read by all
+    if (tid == 0 && it + kWS < n) load_kv(it + kWS);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + 8 * r;
+    if (qp >= S) continue;
+    __nv_bfloat16* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+      for (int j = 0; j < C::NO / 4; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + c * C::SWE + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * scale,
+                                  acc[c][4 * j + 2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int S, int T_len, int H,
+                     int KV, float scale, int causal, int window, int chunk) {
+  using C = WB<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sK = smem_u32(smem_raw);
+  if (sK & 1023) __trap();
+  const uint32_t sV = sK + C::TILE;
+  const uint32_t sQD = sV + C::TILE;                   // stage t: Q, then dO
+  // stage t's lse * log2(e) (+inf past S), then its Delta (0 past S)
+  float* sStat =
+      reinterpret_cast<float*>(smem_raw + 2 * C::TILE + kWS * 2 * C::TILE);
+  const uint32_t bar_kv = smem_u32(sStat + kWS * 2 * kT);   // K and V
+  auto stage = [&](int t) { return sQD + t * 2 * C::TILE; };
+  auto bar_s = [&](int t) { return bar_kv + 8 * (1 + t); };
+
+  const int bk = blockIdx.x, b = bk / KV, kvh = bk % KV;
+  const int k0 = blockIdx.y * kT;              // key tile 0 is the heaviest
+  // the kv head's G q heads are split over the cluster's gridDim.z blocks,
+  // hpb of them a block
+  const int hpb = H / KV / gridDim.z, h0 = kvh * (H / KV) + blockIdx.z * hpb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kr = k0 + 16 * warp + g;           // key rows kr and kr + 8
+
+  int qlo, qhi;
+  query_tiles(k0, S, causal, window, chunk, qlo, qhi);
+  const int nq = qhi - qlo + 1;
+  const int n = nq > 0 ? hpb * nq : 0;
+  // iteration it: q head h0 + it / nq, query tile qlo + it % nq
+  auto head = [&](int it) { return h0 + it / nq; };
+  auto qtile = [&](int it) { return (qlo + it % nq) * kT; };
+  // one value of iteration it's stage statistics a thread
+  auto stat = [&](int it) -> float {
+    const int q = qtile(it) + (tid & (kT - 1));
+    const size_t row = (static_cast<size_t>(b) * H + head(it)) * S + q;
+    if (tid < kT) return q < S ? lse[row] * kLog2e : INFINITY;
+    return q < S ? delta[row] : 0.f;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i <= kWS; ++i) mbar_init(bar_kv + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int it = 0; it < n && it < kWS; ++it) sStat[it * 2 * kT + tid] = stat(it);
+  __syncthreads();
+
+  auto load_qdo = [&](int it) {
+    const int t = it % kWS;
+    mbar_expect_tx(bar_s(t), 2 * C::TILE);
+    tma_tile(stage(t), &tq, C::NB, C::SW, C::SWE, head(it) * D, qtile(it), b,
+             bar_s(t));
+    tma_tile(stage(t) + C::TILE, &tdo, C::NB, C::SW, C::SWE, head(it) * D,
+             qtile(it), b, bar_s(t));
+  };
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_kv, 2 * C::TILE);
+    tma_tile(sK, &tk, C::NB, C::SW, C::SWE, kvh * D, k0, b, bar_kv);
+    tma_tile(sV, &tv, C::NB, C::SW, C::SWE, kvh * D, k0, b, bar_kv);
+    for (int it = 0; it < n && it < kWS; ++it) load_qdo(it);
+  }
+
+  float acc_k[C::NB][C::NO], acc_v[C::NB][C::NO];
+#pragma unroll
+  for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+    for (int i = 0; i < C::NO; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+  float s[32], dp[32];
+  uint32_t pa[4][4], pa_lo[4][4], pd[4][4], pd_lo[4][4];
+  int vq_lo[2], vq_hi[2];
+  queries_of(kr, S, T_len, causal, window, chunk, vq_lo[0], vq_hi[0]);
+  queries_of(kr + 8, S, T_len, causal, window, chunk, vq_lo[1], vq_hi[1]);
+  const float sl2e = scale * kLog2e;
+
+  for (int it = 0; it < n; ++it) {
+    const int t = it % kWS, q0 = qtile(it);
+    // the statistics of the tile two ahead, loading across the products
+    const float next = it + kWS < n ? stat(it + kWS) : 0.f;
+    if (it == 0) mbar_wait(bar_kv, 0);
+    mbar_wait(bar_s(t), (it / kWS) & 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_abt<D>(s, sK, stage(t));                    // S^T = K Q^T
+    issue_abt<D>(dp, sV, stage(t) + C::TILE);         // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // P^T into s and dS^T into dp; i = 4 j + e indexes the accumulator
+    // layout: key row e >> 1, query column 8 j + 2 t4 + (e & 1) of the tile
+    // queries past S need no mask: their lse is +inf
+    const bool masked =
+        tile_needs_mask<kT, kT>(q0, k0, T_len, causal, window, chunk);
+    const float* st = sStat + t * 2 * kT;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 l2 = *reinterpret_cast<const float2*>(st + c);
+      const float2 dl = *reinterpret_cast<const float2*>(st + kT + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, qp = q0 + c + (e & 1);
+        float p = exp2_ftz(fmaf(s[i], sl2e, -((e & 1) ? l2.y : l2.x)));
+        if (masked && (qp < vq_lo[e >> 1] || qp >= vq_hi[e >> 1])) p = 0.f;
+        dp[i] = p * (dp[i] - ((e & 1) ? dl.y : dl.x));
+        s[i] = p;
+      }
+    }
+    // dV += P^T dO runs while dS^T is packed; then dK += dS^T Q
+    pack_a_split(s, pa, pa_lo);
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    wgmma_fence();
+    issue_ab<D>(acc_v, pa, stage(t) + C::TILE);
+    issue_ab<D>(acc_v, pa_lo, stage(t) + C::TILE);
+    pack_a_split(dp, pd, pd_lo);
+    wgmma_fence();
+    issue_ab<D>(acc_k, pd, stage(t));
+    issue_ab<D>(acc_k, pd_lo, stage(t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_pa(pa);
+    fence_pa(pa_lo);
+    fence_pa(pd);
+    fence_pa(pd_lo);
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    __syncthreads();                                  // stage t is read by all
+    if (it + kWS < n) {
+      sStat[t * 2 * kT + tid] = next;
+      if (tid == 0) load_qdo(it + kWS);
+    }
+  }
+
+  if (gridDim.z == 1) {                 // one block took all G q heads
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kp = kr + 8 * r;
+      if (kp >= T_len) continue;
+      const size_t off =
+          ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * D;
+#pragma unroll
+      for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+        for (int j = 0; j < C::NO / 4; ++j) {
+          const int col = c * C::SWE + 8 * j + 2 * t4;
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+              __floats2bfloat162_rn(acc_k[c][4 * j + 2 * r] * scale,
+                                    acc_k[c][4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+              __floats2bfloat162_rn(acc_v[c][4 * j + 2 * r],
+                                    acc_v[c][4 * j + 2 * r + 1]);
+        }
+    }
+    return;
+  }
+  // the cluster's blocks sum their dK and dV in block order: each puts its
+  // accumulators in shared memory (the tiles are free now), register i of
+  // thread t at [i][t], and sums every gridDim.z-th pair of registers over
+  // the blocks, through distributed shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int NR = C::NB * C::NO;                 // registers a tensor
+  float* red = reinterpret_cast<float*>(smem_raw);  // [2][NR][128]
+  static_assert(2 * NR * 128 * 4 <= C::SMEM_DKDV, "dK, dV exceed the tiles");
+#pragma unroll
+  for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+    for (int i = 0; i < C::NO; ++i) {
+      red[(c * C::NO + i) * 128 + tid] = acc_k[c][i];
+      red[(NR + c * C::NO + i) * 128 + tid] = acc_v[c][i];
+    }
+  cluster.sync();
+  const int nz = static_cast<int>(gridDim.z), z = static_cast<int>(blockIdx.z);
+#pragma unroll
+  for (int c = 0; c < C::NB; ++c)
+#pragma unroll
+    for (int j = 0; j < C::NO / 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r, pair = (c * C::NO + i) / 2;
+        const int kp = kr + 8 * r;
+        if (pair % nz != z || kp >= T_len) continue;
+        float sk[2] = {0.f, 0.f}, sv[2] = {0.f, 0.f};
+        for (int q = 0; q < nz; ++q) {
+          const float* o = cluster.map_shared_rank(red, q);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sk[e] += o[(c * C::NO + i + e) * 128 + tid];
+            sv[e] += o[(NR + c * C::NO + i + e) * 128 + tid];
+          }
+        }
+        const size_t off =
+            ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * D +
+            c * C::SWE + 8 * j + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+            __floats2bfloat162_rn(sk[0] * scale, sk[1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+            __floats2bfloat162_rn(sv[0], sv[1]);
+      }
+  cluster.sync();                       // the partials stay until read
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *delta, *dq, *dk, *dv;
@@ -347,32 +884,110 @@ cudaError_t launch(const Args& a, bool dq_pass) {
   return cudaGetLastError();
 }
 
-template <typename TT>
-cudaError_t dispatch_d(const Args& a, int D, bool dq_pass) {
-  switch (D) {
-    case 32: return launch<TT, 32>(a, dq_pass);
-    case 64: return launch<TT, 64>(a, dq_pass);
-    case 128: return launch<TT, 128>(a, dq_pass);
-    case 256: return launch<TT, 256>(a, dq_pass);
-    default: return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
+  using C = WB<D>;
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t e = make_map_bf16(&tq, a.q, a.B, a.S, a.H * D, C::SWE, kT, C::SW);
+  if (e == cudaSuccess)
+    e = make_map_bf16(&tdo, a.dout, a.B, a.S, a.H * D, C::SWE, kT, C::SW);
+  if (e == cudaSuccess)
+    e = make_map_bf16(&tk, a.k, a.B, a.T_len, a.KV * D, C::SWE, kT, C::SW);
+  if (e == cudaSuccess)
+    e = make_map_bf16(&tv, a.v, a.B, a.T_len, a.KV * D, C::SWE, kT, C::SW);
+  if (dq_pass) {
+    static bool opted_in[64] = {};    // the shared-memory opt-in, per device
+    if (e == cudaSuccess)
+      e = opt_in_smem(flash_bwd_dq_wgmma<D>, C::SMEM_DQ, opted_in);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(a.B * a.H, (a.S + kT - 1) / kT);
+    flash_bwd_dq_wgmma<D><<<grid, 128, C::SMEM_DQ, a.stream>>>(
+        tq, tdo, tk, tv, static_cast<const __nv_bfloat16*>(a.o),
+        static_cast<const __nv_bfloat16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
+        static_cast<__nv_bfloat16*>(a.dq), a.S, a.T_len, a.H, a.KV, a.scale,
+        a.causal, a.window, a.chunk);
+  } else {
+    static bool opted_in[64] = {};
+    if (e == cudaSuccess)
+      e = opt_in_smem(flash_bwd_dkdv_wgmma<D>, C::SMEM_DKDV, opted_in);
+    if (e != cudaSuccess) return e;
+    // the G q heads of a kv head over a cluster of nz blocks when the
+    // (kv head, key tile) blocks alone leave SMs idle: the smallest divisor
+    // of G that gives two blocks an SM, else the largest up to 8 (the
+    // portable cluster size); with enough blocks one block takes all G
+    // (splitting then loads each K/V tile nz times for no gain)
+    const int G = a.H / a.KV, nk = (a.T_len + kT - 1) / kT;
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const long long blocks = static_cast<long long>(a.B) * a.KV * nk;
+    int nz = 1;
+    for (int c = 2; c <= 8 && blocks * nz < 2LL * sms; ++c)
+      if (G % c == 0) nz = c;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.B * a.KV, nk, nz);
+    cfg.blockDim = dim3(128);
+    cfg.dynamicSmemBytes = C::SMEM_DKDV;
+    cfg.stream = a.stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = nz;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma<D>, tq, tdo, tk, tv,
+                           static_cast<const float*>(a.lse),
+                           static_cast<const float*>(a.delta),
+                           static_cast<__nv_bfloat16*>(a.dk),
+                           static_cast<__nv_bfloat16*>(a.dv), a.S, a.T_len,
+                           a.H, a.KV, a.scale, a.causal, a.window, a.chunk);
+    if (e != cudaSuccess) return e;
   }
+  return cudaGetLastError();
 }
 
-int run(const Args& a, int D, int dtype, bool dq_pass) {
-  if (a.H % a.KV) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == repro::kFloat32)
-    return static_cast<int>(dispatch_d<float>(a, D, dq_pass));
-  if (dtype == repro::kBFloat16)
-    return static_cast<int>(dispatch_d<__nv_bfloat16>(a, D, dq_pass));
-  return static_cast<int>(cudaErrorInvalidValue);
+// the CUDA-core instances: fp32 at every D, bf16 at D = 256 only (bf16 at
+// D <= 128 is the tensor cores' and is refused here)
+int run_cuda_cores(const Args& a, int D, int dtype, bool dq_pass) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (a.H % a.KV) return static_cast<int>(e);
+  if (dtype == repro::kFloat32) {
+    switch (D) {
+      case 32: e = launch<float, 32>(a, dq_pass); break;
+      case 64: e = launch<float, 64>(a, dq_pass); break;
+      case 128: e = launch<float, 128>(a, dq_pass); break;
+      case 256: e = launch<float, 256>(a, dq_pass); break;
+      default: break;
+    }
+  } else if (dtype == repro::kBFloat16 && D == 256) {
+    e = launch<__nv_bfloat16, 256>(a, dq_pass);
+  }
+  return static_cast<int>(e);
+}
+
+int run_wgmma(const Args& a, int D, bool dq_pass) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (a.H % a.KV) return static_cast<int>(e);
+  switch (D) {
+    case 32: e = launch_wgmma<32>(a, dq_pass); break;
+    case 64: e = launch_wgmma<64>(a, dq_pass); break;
+    case 128: e = launch_wgmma<128>(a, dq_pass); break;
+    default: break;
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 // q, o, dout, dq (B,S,H,D); k, v (B,T,KV,D); lse, delta (B,H,S) fp32; all
-// contiguous, one dtype (bf16 or fp32) for the tensors of the attention.
-// Writes dq and delta = rowsum(dout * o), which the dkdv pass reads: launch
-// this one first, on the same stream.
+// contiguous, one dtype for the tensors of the attention. Writes dq and
+// delta = rowsum(dout * o), which the dkdv pass reads: launch this one
+// first, on the same stream. The CUDA-core instance: fp32, or bf16 at
+// D = 256.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq,
@@ -382,7 +997,7 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
                B, S, T_len, H, KV, scale, causal, window, chunk,
                static_cast<cudaStream_t>(stream)};
-  return run(a, D, dtype, true);
+  return run_cuda_cores(a, D, dtype, true);
 }
 
 // dk, dv (B,T,KV,D), from the delta the dq pass wrote
@@ -396,5 +1011,34 @@ extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr,
                dk, dv, B, S, T_len, H, KV, scale, causal, window, chunk,
                static_cast<cudaStream_t>(stream)};
-  return run(a, D, dtype, false);
+  return run_cuda_cores(a, D, dtype, false);
+}
+
+// The tensor-core instance of the pair: bf16 at D = 32, 64, 128, with q, k,
+// v, o and dout starting on 16 bytes (TMA and 16-byte loads); the same
+// arguments and order as above, without the dtype.
+extern "C" int repro_flash_bwd_dq_wgmma(const void* q, const void* k,
+                                        const void* v, const void* o,
+                                        const void* dout, const void* lse,
+                                        void* delta, void* dq, int B, int S,
+                                        int T_len, int H, int KV, int D,
+                                        float scale, int causal, int window,
+                                        int chunk, void* stream) {
+  const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
+               B, S, T_len, H, KV, scale, causal, window, chunk,
+               static_cast<cudaStream_t>(stream)};
+  return run_wgmma(a, D, true);
+}
+
+extern "C" int repro_flash_bwd_dkdv_wgmma(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          void* dk, void* dv, int B, int S,
+                                          int T_len, int H, int KV, int D,
+                                          float scale, int causal, int window,
+                                          int chunk, void* stream) {
+  const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr,
+               dk, dv, B, S, T_len, H, KV, scale, causal, window, chunk,
+               static_cast<cudaStream_t>(stream)};
+  return run_wgmma(a, D, false);
 }

@@ -13,17 +13,46 @@
 // to dx as the eager add would (dx rounded first, then the sum rounded), and
 // the result is the gradient of both x and delta.
 //
-// Design: two kernels, each launched once per backward: the rows (one block
-// of 256 threads per 16 rows, each thread holding its columns' values of a
-// row in registers, both row sums in one block reduction), which also
-// writes each block's fp32 partial of dscale; then the column sums of the
-// partials in block order, one thread per column. No atomics, so two calls
-// are bitwise equal.
-//
 // Bound on the H100: memory. At the training shape (4,096 rows of 3,072,
 // bf16) the rows read x and dy and write dx, 75.5 MB, 22.5 us at 3.35
-// TB/s; the partials (256 x 3,072 fp32) add 3.1 MB written and read.
+// TB/s; at one FSDP rank's 1,024 rows 18.9 MB, 5.6 us.
+//
+// Design: one launch a backward (redesigned from two: a rows kernel in
+// blocks of 16 rows, 64 blocks at 1,024 rows with a block-wide barrier a
+// row, and a second pass of 12 blocks for the dscale column sums, each
+// thread summing 64 partials one load after another). Blocks of 256
+// threads in clusters of 8, as many clusters as the card holds at once
+// (cudaOccupancyMaxActiveClusters: a cluster left for a second wave would
+// double the time), two blocks an SM (at most 264; one where a thread
+// holds more than 12 values of a row, which two would not fit in
+// registers): 1,024 rows fill the blocks, one row a block at a time, rows
+// strided over the blocks. A thread loads its columns of the row's x, dy
+// and ds at once, 4 values an access (8 bytes of bf16, 16 of fp32; 1 when
+// d % 4 != 0 or a row start is not aligned), and keeps them in registers;
+// where two blocks fit an SM (rows of 3,072) the next row's loads are in
+// flight while the current row is reduced and stored. The row's two sums
+// need one barrier (the warps' sums double-buffered in shared memory), and
+// each thread sums its columns' dy * x^ over its block's rows in registers.
+// The dscale sums: the cluster's 8 blocks put their partials in shared
+// memory and each sums one eighth of the columns over the 8 partials,
+// through distributed shared memory in block order, into the cluster's
+// partial in device memory; then a counter per eighth of the columns picks
+// the cluster that finishes that eighth last, and its block sums the
+// eighth over the clusters' partials in cluster order (32 loads in flight
+// at a time) and writes dscale, and sets the counter back to 0 for the
+// next launch. The cluster's second barrier is split (arrive after the
+// reads of the other blocks' partials, wait before exit), so it is not on
+// the path to dscale. No atomics in a sum: the counters only pick who
+// sums, the order is fixed, so two calls are bitwise equal. The counters
+// (8 ints) belong to the caller, zero before the first launch, and stay
+// zero between launches; launches that share them must run one after
+// another (the wrapper keeps a set per stream). Three blocks an SM, and no
+// next-row loads in flight, were measured slower (PERF.md).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -31,174 +60,369 @@ using repro::from_f;
 using repro::to_f;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;             // rows a block, one dscale partial each
+constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;            // blocks a cluster, eighths of dscale
+constexpr int kMaxBlocks = 264;        // two an SM of 132
+static_assert(kMaxBlocks % kCluster == 0, "whole clusters");
+constexpr int kMaxD = 8192;
+int g_last_blocks = 0;                 // the grid of the last launch
 
 template <typename T>
 __device__ __forceinline__ float rnd(float v) {
   return to_f(from_f<T>(v));
 }
 
-template <typename TX, typename TS, int NPT>
-__global__ void __launch_bounds__(kThreads)
+// V values of T as one access, kept packed in registers until used
+template <typename T, int V>
+struct Raw {
+  using type = T;
+};
+template <>
+struct Raw<float, 4> {
+  using type = float4;
+};
+template <>
+struct Raw<__nv_bfloat16, 4> {
+  using type = uint2;
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack_v(const typename Raw<T, V>::type& r,
+                                         float* out) {
+  if constexpr (V == 1) {
+    out[0] = to_f(r);
+  } else if constexpr (sizeof(T) == 4) {
+    out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
+  } else {
+    const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = to_f(e[i]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_v(T* __restrict__ p, const float* v) {
+  if constexpr (V == 1) {
+    p[0] = from_f<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {                              // bf16, rounded to nearest even
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 r;
+    r.x = *reinterpret_cast<const uint32_t*>(&lo);
+    r.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = r;
+  }
+}
+
+
+// the blocks of a launch: one a row, rounded up to whole clusters, at most
+// the clusters that the card holds at once (a cluster left for a second
+// wave would double the time) and kMaxBlocks
+inline int grid_blocks(long long rows, int max_clusters) {
+  long long cap = static_cast<long long>(max_clusters) * kCluster;
+  if (cap > kMaxBlocks) cap = kMaxBlocks;
+  if (cap < kCluster) cap = kCluster;
+  const long long nb = (rows + kCluster - 1) / kCluster * kCluster;
+  return static_cast<int>(nb < cap ? nb : cap);
+}
+
+// one row's values of a thread, as loaded (packed until used): V values a
+// unit, NU units, thread t holding columns (t + kThreads * u) * V + e
+template <typename TX, int V, int NU>
+struct RowRaw {
+  typename Raw<TX, V>::type x[NU], dy[NU], ds[NU];
+};
+
+template <typename TX, int V, int NU>
+__device__ __forceinline__ void load_row(RowRaw<TX, V, NU>& r,
+                                         const TX* __restrict__ x,
+                                         const TX* __restrict__ dy,
+                                         const TX* __restrict__ ds,
+                                         size_t base, int d, int tid) {
+  using R = typename Raw<TX, V>::type;
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int col = (tid + kThreads * u) * V;
+    if (col < d) {
+      r.x[u] = *reinterpret_cast<const R*>(x + base + col);
+      r.dy[u] = *reinterpret_cast<const R*>(dy + base + col);
+      if (ds != nullptr) r.ds[u] = *reinterpret_cast<const R*>(ds + base + col);
+    }
+  }
+}
+
+template <typename TX, typename TS, int V, int NU>
+__global__ void __launch_bounds__(kThreads, V * NU <= 12 ? 2 : 1)
 rmsnorm_bwd_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
                    const TX* __restrict__ dy, const TX* __restrict__ ds,
-                   TX* __restrict__ dx, float* __restrict__ partial,
+                   TX* __restrict__ dx, TS* __restrict__ dscale,
+                   float* __restrict__ partial, int* __restrict__ counters,
                    long long rows, int d, float eps) {
-  __shared__ float red[2][kThreads / 32];
+  constexpr int NPT = V * NU;            // values of a row a thread
+  __shared__ float red[2][2][kWarps];        // double-buffered warp sums
+  __shared__ float sPart[kMaxD];             // this block's dscale partial
+  __shared__ int sLast;
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
   float sc[NPT], part[NPT];
 #pragma unroll
-  for (int j = 0; j < NPT; ++j) {
-    const int col = tid + kThreads * j;
-    sc[j] = col < d ? 1.f + to_f(scale[col]) : 0.f;
-    part[j] = 0.f;
+  for (int u = 0; u < NU; ++u) {
+    const int col = (tid + kThreads * u) * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      sc[u * V + e] = col + e < d ? 1.f + to_f(scale[col + e]) : 0.f;
+      part[u * V + e] = 0.f;
+    }
   }
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
-  const long long r1 = r0 + kRows < rows ? r0 + kRows : rows;
-  for (long long r = r0; r < r1; ++r) {
-    const size_t base = static_cast<size_t>(r) * d;
+
+  // rows strided over the blocks; the next row's loads are in flight while
+  // this one is reduced, normalised and stored, where a row's values fit
+  // two blocks an SM (12 a thread: 3,072 wide); wider rows take one block
+  // an SM and load the row when they come to it
+  constexpr bool kPrefetch = NPT <= 12;
+  RowRaw<TX, V, NU> nxt;
+  long long row = blockIdx.x;
+  if (kPrefetch && row < rows)
+    load_row<TX, V, NU>(nxt, x, dy, ds, static_cast<size_t>(row) * d, d, tid);
+  int buf = 0;
+  for (; row < rows; row += gridDim.x) {
+    RowRaw<TX, V, NU> cur;
+    if constexpr (kPrefetch) {
+      cur = nxt;
+      if (row + gridDim.x < rows)
+        load_row<TX, V, NU>(nxt, x, dy, ds,
+                            static_cast<size_t>(row + gridDim.x) * d, d, tid);
+    } else {
+      load_row<TX, V, NU>(cur, x, dy, ds, static_cast<size_t>(row) * d, d,
+                          tid);
+    }
     float xv[NPT], dyv[NPT];
     float ss = 0.f, gx = 0.f;
 #pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int col = (tid + kThreads * u) * V;
+      if (col < d) {
+        unpack_v<TX, V>(cur.x[u], &xv[u * V]);
+        unpack_v<TX, V>(cur.dy[u], &dyv[u * V]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) xv[u * V + e] = dyv[u * V + e] = 0.f;
+      }
+    }
+#pragma unroll
     for (int j = 0; j < NPT; ++j) {
-      const int col = tid + kThreads * j;
-      xv[j] = col < d ? to_f(x[base + col]) : 0.f;
-      dyv[j] = col < d ? to_f(dy[base + col]) : 0.f;
       ss = fmaf(xv[j], xv[j], ss);
       gx = fmaf(dyv[j] * sc[j], xv[j], gx);
     }
     ss = repro::warp_sum(ss);
     gx = repro::warp_sum(gx);
     if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = gx;
+      red[buf][0][warp] = ss;
+      red[buf][1][warp] = gx;
     }
+    // one barrier a row: the next row writes the other buffer, and the one
+    // after waits at the next barrier for every read of this one
     __syncthreads();
-    ss = 0.f;
-    gx = 0.f;
+    ss = gx = 0.f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      ss += red[0][w];
-      gx += red[1][w];
+    for (int w = 0; w < kWarps; ++w) {
+      ss += red[buf][0][w];
+      gx += red[buf][1][w];
     }
-    __syncthreads();                  // red is free for the next row
+    buf ^= 1;
     const float rstd = rsqrtf(ss / d + eps);
     const float c = rstd * rstd * rstd * gx / d;   // rstd * mean(g * x^)
+    const size_t base = static_cast<size_t>(row) * d;
 #pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-      const int col = tid + kThreads * j;
+    for (int u = 0; u < NU; ++u) {
+      const int col = (tid + kThreads * u) * V;
       if (col >= d) continue;
-      float out = rstd * dyv[j] * sc[j] - xv[j] * c;
-      if (ds != nullptr) out = rnd<TX>(out) + to_f(ds[base + col]);
-      dx[base + col] = from_f<TX>(out);
-      part[j] = fmaf(dyv[j], xv[j] * rstd, part[j]);
+      float out[V], dsv[V];
+      if (ds != nullptr) unpack_v<TX, V>(cur.ds[u], dsv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int j = u * V + e;
+        out[e] = rstd * dyv[j] * sc[j] - xv[j] * c;
+        if (ds != nullptr) out[e] = rnd<TX>(out[e]) + dsv[e];
+        part[j] = fmaf(dyv[j], xv[j] * rstd, part[j]);
+      }
+      store_v<TX, V>(dx + base + col, out);
     }
   }
+
+  // the cluster's partial: block `rank` sums its eighth of the columns over
+  // the 8 blocks' partials, in block order
 #pragma unroll
-  for (int j = 0; j < NPT; ++j) {
-    const int col = tid + kThreads * j;
-    if (col < d) partial[static_cast<size_t>(blockIdx.x) * d + col] = part[j];
+  for (int u = 0; u < NU; ++u) {
+    const int col = (tid + kThreads * u) * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (col + e < d) sPart[col + e] = part[u * V + e];
   }
+  cluster.sync();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ncl = gridDim.x / kCluster, cl = blockIdx.x / kCluster;
+  const int c_lo = rank * d / kCluster, c_hi = (rank + 1) * d / kCluster;
+  for (int col = c_lo + tid; col < c_hi; col += kThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r)
+      acc += *cluster.map_shared_rank(&sPart[col], r);
+    partial[static_cast<size_t>(cl) * d + col] = acc;
+  }
+  // this block's reads of the others' partials are done; the others may
+  // exit once every block has arrived (waited for at the end)
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  __threadfence();
+
+  // the cluster that finishes this eighth last sums it over the clusters
+  __syncthreads();
+  if (tid == 0) sLast = atomicAdd(&counters[rank], 1) == ncl - 1;
+  __syncthreads();
+  if (sLast) {
+    __threadfence();
+    constexpr int kBatch = 32;            // loads in flight together
+    for (int col = c_lo + tid; col < c_hi; col += kThreads) {
+      float acc = 0.f;
+      for (int k0 = 0; k0 < ncl; k0 += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          v[k] = k0 + k < ncl
+                     ? __ldcg(&partial[static_cast<size_t>(k0 + k) * d + col])
+                     : 0.f;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          if (k0 + k < ncl) acc += v[k];
+      }
+      dscale[col] = from_f<TS>(acc);
+    }
+    if (tid == 0) counters[rank] = 0;
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-template <typename TS>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_scale_kernel(const float* __restrict__ partial,
-                         TS* __restrict__ dscale, int nblocks, int d) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= d) return;
-  float acc = 0.f;
-  for (int b = 0; b < nblocks; ++b)
-    acc += partial[static_cast<size_t>(b) * d + col];
-  dscale[col] = from_f<TS>(acc);
-}
-
-template <typename TX, typename TS, int NPT>
-cudaError_t launch_rows(const void* x, const void* scale, const void* dy,
-                        const void* ds, void* dx, float* partial,
-                        long long rows, int d, float eps,
-                        cudaStream_t stream) {
-  const long long blocks = (rows + kRows - 1) / kRows;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  rmsnorm_bwd_kernel<TX, TS, NPT><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                    stream>>>(
-      static_cast<const TX*>(x), static_cast<const TS*>(scale),
-      static_cast<const TX*>(dy), static_cast<const TX*>(ds),
-      static_cast<TX*>(dx), partial, rows, d, eps);
-  return cudaGetLastError();
+template <typename TX, typename TS, int V, int NU>
+cudaError_t launch(const void* x, const void* scale, const void* dy,
+                   const void* ds, void* dx, void* dscale, float* partial,
+                   int* counters, long long rows, int d, float eps,
+                   cudaStream_t stream) {
+  const auto kernel = rmsnorm_bwd_kernel<TX, TS, V, NU>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the clusters the card holds at once, asked once per device
+  static int max_clusters[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= 64) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && max_clusters[dev] == 0) {
+    cfg.gridDim = dim3(kMaxBlocks);
+    e = cudaOccupancyMaxActiveClusters(&max_clusters[dev], kernel, &cfg);
+  }
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3(grid_blocks(rows, max_clusters[dev]));
+  g_last_blocks = static_cast<int>(cfg.gridDim.x);
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const TX*>(x),
+      static_cast<const TS*>(scale), static_cast<const TX*>(dy),
+      static_cast<const TX*>(ds), static_cast<TX*>(dx),
+      static_cast<TS*>(dscale), partial, counters, rows, d, eps);
 }
 
 template <typename TX, typename TS>
-cudaError_t dispatch_npt(const void* x, const void* scale, const void* dy,
-                         const void* ds, void* dx, float* partial,
-                         long long rows, int d, float eps,
-                         cudaStream_t stream) {
-  const int need = (d + kThreads - 1) / kThreads;
-  if (need <= 4)
-    return launch_rows<TX, TS, 4>(x, scale, dy, ds, dx, partial, rows, d,
-                                   eps, stream);
-  if (need <= 8)
-    return launch_rows<TX, TS, 8>(x, scale, dy, ds, dx, partial, rows, d,
-                                   eps, stream);
-  if (need <= 16)
-    return launch_rows<TX, TS, 16>(x, scale, dy, ds, dx, partial, rows, d,
-                                   eps, stream);
-  if (need <= 32)
-    return launch_rows<TX, TS, 32>(x, scale, dy, ds, dx, partial, rows, d,
-                                   eps, stream);
-  return cudaErrorInvalidValue;      // rows wider than 8,192
+cudaError_t dispatch_width(const void* x, const void* scale, const void* dy,
+                           const void* ds, void* dx, void* dscale,
+                           float* partial, int* counters, long long rows,
+                           int d, float eps, cudaStream_t stream) {
+  // 4 values an access when d and every row start allow it
+  const uintptr_t align = 4 * sizeof(TX);
+  const bool vec =
+      d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % align == 0 &&
+      reinterpret_cast<uintptr_t>(dy) % align == 0 &&
+      reinterpret_cast<uintptr_t>(dx) % align == 0 &&
+      (ds == nullptr || reinterpret_cast<uintptr_t>(ds) % align == 0);
+#define REPRO_RMS_BWD(V, NU)                                                  \
+  return launch<TX, TS, V, NU>(x, scale, dy, ds, dx, dscale, partial,         \
+                               counters, rows, d, eps, stream)
+  if (vec) {
+    const int units = (d / 4 + kThreads - 1) / kThreads;
+    if (units <= 1) REPRO_RMS_BWD(4, 1);
+    if (units <= 2) REPRO_RMS_BWD(4, 2);
+    if (units <= 3) REPRO_RMS_BWD(4, 3);
+    if (units <= 4) REPRO_RMS_BWD(4, 4);
+    REPRO_RMS_BWD(4, 8);
+  }
+  const int units = (d + kThreads - 1) / kThreads;
+  if (units <= 1) REPRO_RMS_BWD(1, 1);
+  if (units <= 2) REPRO_RMS_BWD(1, 2);
+  if (units <= 4) REPRO_RMS_BWD(1, 4);
+  if (units <= 8) REPRO_RMS_BWD(1, 8);
+  if (units <= 16) REPRO_RMS_BWD(1, 16);
+  REPRO_RMS_BWD(1, 32);
+#undef REPRO_RMS_BWD
 }
 
 template <typename TX>
 cudaError_t dispatch_scale(int scale_dtype, const void* x, const void* scale,
                            const void* dy, const void* ds, void* dx,
-                           float* partial, long long rows, int d, float eps,
+                           void* dscale, float* partial, int* counters,
+                           long long rows, int d, float eps,
                            cudaStream_t stream) {
   if (scale_dtype == repro::kFloat32)
-    return dispatch_npt<TX, float>(x, scale, dy, ds, dx, partial, rows, d, eps,
-                                   stream);
+    return dispatch_width<TX, float>(x, scale, dy, ds, dx, dscale, partial,
+                                     counters, rows, d, eps, stream);
   if (scale_dtype == repro::kBFloat16)
-    return dispatch_npt<TX, __nv_bfloat16>(x, scale, dy, ds, dx, partial, rows,
-                                           d, eps, stream);
+    return dispatch_width<TX, __nv_bfloat16>(x, scale, dy, ds, dx, dscale,
+                                             partial, counters, rows, d, eps,
+                                             stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x, dy, dx (and ds, null for the plain form) rows x d in x's dtype,
-// contiguous; scale (d,); partial (ceil(rows / 16), d) fp32, the per-block
-// dscale sums for repro_rmsnorm_bwd_scale. d <= 8,192.
+// contiguous; scale and dscale (d,) in the scale's dtype; partial
+// (repro_rmsnorm_bwd_partial_rows(), d) fp32 scratch for the clusters'
+// dscale partials;
+// counters 8 ints, zero (they are zero again when the launch ends). 1 <= d
+// <= 8,192.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
                                  const void* dy, const void* ds, void* dx,
-                                 void* partial, long long rows, int d,
-                                 float eps, int x_dtype, int scale_dtype,
-                                 void* stream) {
+                                 void* dscale, void* partial, void* counters,
+                                 long long rows, int d, float eps,
+                                 int x_dtype, int scale_dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
+  int* cnt = static_cast<int*>(counters);
   cudaError_t e = cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxD || rows < 1) return static_cast<int>(e);
   if (x_dtype == repro::kFloat32)
-    e = dispatch_scale<float>(scale_dtype, x, scale, dy, ds, dx, part, rows, d,
-                              eps, st);
+    e = dispatch_scale<float>(scale_dtype, x, scale, dy, ds, dx, dscale, part,
+                              cnt, rows, d, eps, st);
   else if (x_dtype == repro::kBFloat16)
-    e = dispatch_scale<__nv_bfloat16>(scale_dtype, x, scale, dy, ds, dx, part,
-                                      rows, d, eps, st);
-  return static_cast<int>(e);
+    e = dispatch_scale<__nv_bfloat16>(scale_dtype, x, scale, dy, ds, dx,
+                                      dscale, part, cnt, rows, d, eps, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// dscale (d,) in the scale's dtype: the partials summed in block order
-extern "C" int repro_rmsnorm_bwd_scale(const void* partial, void* dscale,
-                                       int nblocks, int d, int scale_dtype,
-                                       void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((d + kThreads - 1) / kThreads);
-  const float* part = static_cast<const float*>(partial);
-  if (scale_dtype == repro::kFloat32)
-    rmsnorm_bwd_scale_kernel<float><<<grid, kThreads, 0, st>>>(
-        part, static_cast<float*>(dscale), nblocks, d);
-  else if (scale_dtype == repro::kBFloat16)
-    rmsnorm_bwd_scale_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        part, static_cast<__nv_bfloat16*>(dscale), nblocks, d);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+// the blocks of the last launch (a host-side record, for reports)
+extern "C" int repro_rmsnorm_bwd_last_blocks() { return g_last_blocks; }
+
+// the rows of repro_rmsnorm_bwd's partial buffer: a row for each cluster
+// of the largest grid
+extern "C" int repro_rmsnorm_bwd_partial_rows() {
+  return kMaxBlocks / kCluster;
 }

@@ -1,11 +1,16 @@
 """Flash attention: the CUDA kernels for CUDA tensors, the plain versions
 for CPU ones. ``LAUNCHES`` counts forward kernel launches, ``BWD_DQ_LAUNCHES``
-and ``BWD_DKDV_LAUNCHES`` the two backward kernels'; CPU calls leave them
-alone.
+and ``BWD_DKDV_LAUNCHES`` the two backward kernels' (either instance), and
+``BWD_WGMMA_LAUNCHES`` those of the two that the tensor-core instance made;
+CPU calls leave them alone.
 
 On the card the dtype picks the forward instance, explicitly: bf16 runs the
-tensor-core kernel (wgmma, TMA), fp32 the CUDA-core one. A launch that
-fails raises; neither stands in for the other.
+tensor-core kernel (wgmma, TMA), fp32 the CUDA-core one. The backward's
+instance is picked by dtype and head dim: bf16 at D = 32, 64 and 128 runs
+the tensor-core pair, fp32 (TF32 would not hold the 1e-4 tolerance) and
+bf16 at D = 256 (dK and dV would not fit one warpgroup's registers) the
+CUDA-core pair. A launch that fails raises; no instance stands in for
+another.
 
 :func:`flash_attention` is the serving forward; :func:`flash_attention_train`
 is differentiable (``FlashAttention``: the forward kernel writing the rows'
@@ -21,7 +26,15 @@ from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKDV_LAUNCHES = 0
+BWD_WGMMA_LAUNCHES = 0
 HEAD_DIMS = (32, 64, 128, 256)      # the head dims the kernels are built for
+BWD_WGMMA_HEAD_DIMS = (32, 64, 128)  # bf16 backward on the tensor cores
+
+
+def bwd_on_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the backward of (dtype, head_dim) runs the tensor-core pair
+    (else the CUDA-core one)."""
+    return dtype == torch.bfloat16 and head_dim in BWD_WGMMA_HEAD_DIMS
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -111,9 +124,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), from its output
     ``o``, the output's gradient ``do`` and the forward's ``lse``; two
-    kernels on the card (dq, writing rowsum(do * o), then dk and dv),
-    deterministic."""
-    global BWD_DQ_LAUNCHES, BWD_DKDV_LAUNCHES
+    kernels on the card (dq, writing rowsum(do * o), then dk and dv) of the
+    instance :func:`bwd_on_tensor_cores` picks, deterministic."""
+    global BWD_DQ_LAUNCHES, BWD_DKDV_LAUNCHES, BWD_WGMMA_LAUNCHES
     if _on_cpu(q, k, v, o, do, lse):
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                  window=window, chunk=chunk)
@@ -131,25 +144,36 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         raise ValueError(f"{name}: lse {tuple(lse.shape)} {lse.dtype}, want "
                          f"({B}, {H}, {S}) float32 on {q.device}")
     code = _build.dtype_code(q.dtype)
+    wgmma = bwd_on_tensor_cores(q.dtype, D)
+    if wgmma and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError(f"{name}: bf16 q, k, v, o and do must start on 16 "
+                         "bytes (TMA)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0 or H == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib, stream = _build.lib(), _build.stream_of(q)
-    masks = (float(D ** -0.5), int(bool(causal)), int(window), int(chunk),
-             code, stream)
-    err = lib.repro_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S,
-        T, H, KV, D, *masks)
-    _build.check(err, "flash_attention_bwd (dq)")
+    dims = (B, S, T, H, KV, D, float(D ** -0.5), int(bool(causal)),
+            int(window), int(chunk))
+    if wgmma:
+        what, tail = "tensor cores", (*dims, stream)
+        dq_fn, dkdv_fn = lib.repro_flash_bwd_dq_wgmma, \
+            lib.repro_flash_bwd_dkdv_wgmma
+    else:
+        what, tail = "CUDA cores", (*dims, code, stream)
+        dq_fn, dkdv_fn = lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkdv
+    err = dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), *tail)
+    _build.check(err, f"flash_attention_bwd (dq, {what})")
     BWD_DQ_LAUNCHES += 1
-    err = lib.repro_flash_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S,
-        T, H, KV, D, *masks)
-    _build.check(err, "flash_attention_bwd (dk, dv)")
+    BWD_WGMMA_LAUNCHES += wgmma
+    err = dkdv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), *tail)
+    _build.check(err, f"flash_attention_bwd (dk, dv, {what})")
     BWD_DKDV_LAUNCHES += 1
+    BWD_WGMMA_LAUNCHES += wgmma
     return dq, dk, dv
 
 

@@ -4,9 +4,9 @@ forms (``csrc/rmsnorm_bwd.cu``), with the ``autograd.Function``s that the
 training path calls (:func:`rmsnorm_train`, :func:`rmsnorm_residual_train`).
 
 ``LAUNCHES`` counts forward kernel launches of every form, ``FORM_LAUNCHES``
-each form's; ``BWD_LAUNCHES`` and ``BWD_SCALE_LAUNCHES`` the backward's two
-kernels (the rows, then the scale gradient's column sums), and
-``FORM_BWD_LAUNCHES`` the rows kernel per form. CPU calls leave them alone.
+each form's; ``BWD_LAUNCHES`` the backward's (one kernel: the rows and the
+scale gradient's column sums), and ``FORM_BWD_LAUNCHES`` the backward's per
+form. CPU calls leave them alone.
 """
 from __future__ import annotations
 
@@ -19,10 +19,21 @@ from .ref import (rmsnorm_bwd_ref, rmsnorm_gated_ref, rmsnorm_ref,
 LAUNCHES = 0
 FORM_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
 BWD_LAUNCHES = 0
-BWD_SCALE_LAUNCHES = 0
 FORM_BWD_LAUNCHES = {"plain": 0, "residual": 0}
-BWD_ROWS_A_BLOCK = 16        # rows of one dscale partial (rmsnorm_bwd.cu)
 BWD_MAX_D = 8192
+_BWD_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def bwd_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The backward kernel's 8 counters for launches on ``stream`` (the
+    ``cuda_stream`` handle of a stream of ``device``, 0 the default one):
+    zero before and after every launch, which sets them back itself. One
+    set a stream, so the launches that share a set run one after
+    another."""
+    key = (device, stream)
+    if key not in _BWD_COUNTERS:
+        _BWD_COUNTERS[key] = torch.zeros(8, dtype=torch.int32, device=device)
+    return _BWD_COUNTERS[key]
 
 
 def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
@@ -170,9 +181,9 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dscale) of :func:`rmsnorm` at (x, scale) for the output gradient
     ``dy``; with ``ds``, the residual form's: x is its sum s, ds the
-    gradient of its s output, and dx the gradient of both x and delta. Two
-    kernels on the card, deterministic (no atomics)."""
-    global BWD_LAUNCHES, BWD_SCALE_LAUNCHES
+    gradient of its s output, and dx the gradient of both x and delta. One
+    kernel on the card, deterministic (no atomics in a sum)."""
+    global BWD_LAUNCHES
     ts = (x, scale, dy) + (() if ds is None else (ds,))
     if _on_cpu("rmsnorm_bwd", *ts):
         return rmsnorm_bwd_ref(x, scale, dy, ds=ds, eps=eps)
@@ -191,20 +202,18 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, dscale.zero_()
-    nb = -(-rows // BWD_ROWS_A_BLOCK)
-    partial = torch.empty((nb, d), dtype=torch.float32, device=x.device)
     lib, stream = _build.lib(), _build.stream_of(x)
+    partial = torch.empty((lib.repro_rmsnorm_bwd_partial_rows(), d),
+                          dtype=torch.float32, device=x.device)
     err = lib.repro_rmsnorm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
         None if ds is None else ds.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), rows, d, float(eps), x_code, s_code, stream)
+        dscale.data_ptr(), partial.data_ptr(),
+        bwd_counters(x.device, stream.value or 0).data_ptr(), rows, d,
+        float(eps), x_code, s_code, stream)
     _build.check(err, "rmsnorm_bwd")
     BWD_LAUNCHES += 1
     FORM_BWD_LAUNCHES["plain" if ds is None else "residual"] += 1
-    err = lib.repro_rmsnorm_bwd_scale(partial.data_ptr(), dscale.data_ptr(),
-                                      nb, d, s_code, stream)
-    _build.check(err, "rmsnorm_bwd (scale)")
-    BWD_SCALE_LAUNCHES += 1
     return dx, dscale
 
 

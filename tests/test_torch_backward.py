@@ -25,7 +25,13 @@ ATTN_CASES = [(2, 37, 4, 2, 32, dict(causal=True)),
               (1, 64, 6, 2, 64, dict(causal=True, window=16)),
               (1, 50, 4, 1, 32, dict(causal=True, chunk=16)),
               (2, 29, 3, 3, 32, dict(causal=False)),
-              (1, 130, 8, 2, 128, dict(causal=True))]
+              (1, 130, 8, 2, 128, dict(causal=True)),
+              # the card's tensor-core tiles are 64 rows: lengths at their
+              # edges and G = 8, so that the oracle the card is held to is
+              # itself held against jax.vjp there
+              (1, 64, 8, 1, 32, dict(causal=True)),
+              (2, 65, 8, 1, 32, dict(causal=True, chunk=32)),
+              (1, 129, 8, 1, 64, dict(causal=True, window=48))]
 
 
 def _inputs(B, S, H, KV, D, seed=0):
@@ -137,3 +143,12 @@ def test_rmsnorm_backward_plain_matches_jax_vjp(shape):
     _close(dx.numpy(), jdx, torch.float32)
     np.testing.assert_allclose(dsc.numpy(), np.asarray(jdsc), rtol=2e-5,
                                atol=1e-4)
+
+
+def test_flash_backward_instance_is_picked_by_dtype_and_head_dim():
+    """On the card bf16 at D = 32, 64 and 128 runs the tensor-core pair;
+    fp32 and bf16 at D = 256 the CUDA-core pair."""
+    pick = flash_ops.bwd_on_tensor_cores
+    assert all(pick(torch.bfloat16, d) for d in (32, 64, 128))
+    assert not any(pick(torch.float32, d) for d in (32, 64, 128, 256))
+    assert not pick(torch.bfloat16, 256)

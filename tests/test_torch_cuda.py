@@ -460,8 +460,8 @@ def test_launch_counts_follow_the_graph_replays(cuda, arch):
     want = {k: n * (steps + prefills) for k, n in fwd.items()}
     want.update(decode_scores=attn * steps, decode_stats=attn * steps,
                 flash_attention=attn * prefills, ssd=mamba * prefills,
-                dma_allgather=0, rmsnorm_bwd=0, rmsnorm_bwd_scale=0,
-                flash_attention_bwd_dq=0, flash_attention_bwd_dkdv=0)
+                dma_allgather=0, rmsnorm_bwd=0, flash_attention_bwd_dq=0,
+                flash_attention_bwd_dkdv=0, flash_attention_bwd_wgmma=0)
     want.update({"rmsnorm_bwd.plain": 0, "rmsnorm_bwd.residual": 0})
     assert {k: after[k] - before[k] for k in after} == want
 
@@ -636,6 +636,23 @@ BWD_BF16_VS_FP32 = dict(atol=1e-3, rtol=1e-2)
 BWD_CASES = [c for c in FLASH_CASES if not c[6].get("cap")] + [
     (2, 256, 256, 24, 8, 128, dict(causal=True)),
     (1, 200, 200, 8, 2, 256, dict(causal=True, window=70)),
+    # the tensor-core pair's 64-row tiles (queries in dq, keys in dk/dv):
+    # S and T at their edges and apart, G = 1, 3 and 8, D = 32, 64 and 128,
+    # B = 1 and 4, every mask, and one rank's shape of the FSDP training
+    (1, 1, 1, 8, 1, 32, dict(causal=True)),             # G = 8, one token
+    (4, 128, 128, 8, 1, 32, dict(causal=True)),         # B = 4, G = 8
+    (1, 63, 1, 4, 4, 64, dict(causal=False)),           # T = 1
+    (2, 64, 63, 24, 8, 32, dict(causal=True)),          # S != T, causal
+    (1, 129, 65, 6, 2, 32, dict(causal=False)),         # S != T
+    (1, 65, 129, 3, 1, 64, dict(causal=False)),         # S != T, G = 3
+    (4, 127, 127, 24, 8, 128, dict(causal=True, window=64)),
+    (1, 128, 128, 3, 1, 128, dict(causal=True, window=1)),
+    (2, 129, 129, 8, 1, 64, dict(causal=True, chunk=64)),
+    (1, 200, 200, 6, 2, 64, dict(causal=False, window=50)),
+    (1, 1024, 1024, 24, 8, 128, dict(causal=True)),     # an FSDP rank's
+    # enough (kv head, key tile) blocks that dk/dv takes a kv head's G q
+    # heads in one block (the cases above split them over a cluster)
+    (4, 640, 640, 16, 8, 64, dict(causal=True)),
 ]
 
 
@@ -667,13 +684,18 @@ def test_flash_lse_on_card(cuda, dtype, case):
 def test_flash_bwd_kernel_on_card(cuda, dtype, case):
     """dq, dk, dv against the plain backward on the same (o, lse), bf16
     also against it in fp32, two calls bitwise equal, one launch of each
-    kernel a call."""
+    kernel a call: the tensor-core pair for bf16 at D <= 128, the CUDA-core
+    pair for fp32 and for D = 256."""
     q, k, v, do, mask = _flash_inputs(case, dtype, cuda)
     o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
-    n_dq, n_dkdv = flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES
+    n = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES,
+         flash_ops.BWD_WGMMA_LAUNCHES)
     got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
-    assert (flash_ops.BWD_DQ_LAUNCHES - n_dq,
-            flash_ops.BWD_DKDV_LAUNCHES - n_dkdv) == (1, 1)
+    tensor_cores = dtype == torch.bfloat16 and case[5] <= 128
+    assert (flash_ops.BWD_DQ_LAUNCHES - n[0],
+            flash_ops.BWD_DKDV_LAUNCHES - n[1],
+            flash_ops.BWD_WGMMA_LAUNCHES - n[2]) == (1, 1,
+                                                     2 * tensor_cores)
     ref = flash_ops.attention_bwd_ref(q, k, v, o, do, lse, **mask)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -705,8 +727,11 @@ def test_flash_train_gradients_match_autograd_of_the_plain_version(cuda,
         _close(a, b, dtype, 1e-4)
 
 
+# the training shapes (one rank: 4,096 rows; an FSDP rank: 1,024), a
+# phase-7-sized 135 rows, narrow and wide rows, and d % 4 != 0 (one value
+# an access)
 RMS_BWD_CASES = [(4096, 3072), (37, 100), (8, 3072), (3, 5, 128),
-                 (1000, 8192)]
+                 (1000, 8192), (1024, 3072), (135, 3072), (5, 37)]
 
 
 @pytest.mark.gpu
@@ -716,16 +741,19 @@ RMS_BWD_CASES = [(4096, 3072), (37, 100), (8, 3072), (3, 5, 128),
 def test_rmsnorm_bwd_kernel_on_card(cuda, dtype, residual, shape):
     """dx and dscale against the plain backward (fp32 dx 1e-5, dscale, a
     sum over every row, 1e-4 relative; bf16 2e-2), bitwise equal across two
-    calls, two launches a call."""
+    calls, one launch a call (the rows and the dscale sums)."""
     g = torch.Generator(device=cuda).manual_seed(1)
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
     x, dy = (rnd(*shape) * 2).to(dtype), rnd(*shape).to(dtype)
     sc = (rnd(shape[-1]) * 0.2).to(dtype)
     ds = rnd(*shape).to(dtype) if residual else None
-    n = (rms_ops.BWD_LAUNCHES, rms_ops.BWD_SCALE_LAUNCHES)
+    form = "residual" if residual else "plain"
+    n = (rms_ops.BWD_LAUNCHES, rms_ops.FORM_BWD_LAUNCHES[form])
     dx, dsc = rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds)
     assert (rms_ops.BWD_LAUNCHES - n[0],
-            rms_ops.BWD_SCALE_LAUNCHES - n[1]) == (1, 1)
+            rms_ops.FORM_BWD_LAUNCHES[form] - n[1]) == (1, 1)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    assert not rms_ops.bwd_counters(x.device, stream).any()   # set back
     rdx, rdsc = rms_ops.rmsnorm_bwd_ref(x, sc, dy, ds=ds)
     assert dx.dtype == rdx.dtype and dsc.dtype == rdsc.dtype
     _close(dx, rdx, dtype, 1e-5)
@@ -735,6 +763,33 @@ def test_rmsnorm_bwd_kernel_on_card(cuda, dtype, residual, shape):
         _close(dsc, rdsc, dtype, None)
     dx2, dsc2 = rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds)
     assert torch.equal(dx, dx2) and torch.equal(dsc, dsc2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_bwd_on_two_streams(cuda, residual):
+    """Backwards on two streams of one card at once, each stream with its
+    own counters: every dx and dscale against the plain backward (fp32),
+    and both streams' counters zero afterwards."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    rows, d = 4096, 3072
+    sets = [(rnd(rows, d) * 2, rnd(d) * 0.2, rnd(rows, d),
+             rnd(rows, d) if residual else None) for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda) for _ in sets]
+    torch.cuda.synchronize(cuda)
+    outs = [[], []]
+    for _ in range(4):                  # launches of the two interleaved
+        for i, (s, (x, sc, dy, ds)) in enumerate(zip(streams, sets)):
+            with torch.cuda.stream(s):
+                outs[i].append(rms_ops.rmsnorm_bwd(x, sc, dy, ds=ds))
+    torch.cuda.synchronize(cuda)
+    for s, (x, sc, dy, ds), got in zip(streams, sets, outs):
+        rdx, rdsc = rms_ops.rmsnorm_bwd_ref(x, sc, dy, ds=ds)
+        for dx, dsc in got:
+            _close(dx, rdx, torch.float32, 1e-5)
+            torch.testing.assert_close(dsc, rdsc, atol=1e-4, rtol=1e-4)
+        assert not rms_ops.bwd_counters(x.device, s.cuda_stream).any()
 
 
 @pytest.mark.gpu

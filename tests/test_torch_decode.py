@@ -151,8 +151,8 @@ def test_launch_counts_read_and_advance_every_counter():
     counts = kernels.launch_counts()
     assert {"rmsnorm", "flash_attention", "decode_scores", "decode_stats",
             "dma_allgather", "ssd", "rmsnorm.plain", "rmsnorm.residual",
-            "rmsnorm.gated", "rmsnorm_bwd", "rmsnorm_bwd_scale",
-            "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+            "rmsnorm.gated", "rmsnorm_bwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkdv", "flash_attention_bwd_wgmma",
             "rmsnorm_bwd.plain", "rmsnorm_bwd.residual"} == set(counts)
     delta = {"decode_scores": 2, "decode_stats": 2, "rmsnorm": 5,
              "rmsnorm.plain": 3, "rmsnorm.residual": 2,

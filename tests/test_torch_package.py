@@ -100,8 +100,8 @@ def test_backward_sources_note_what_they_are_the_backward_of():
 
 def test_cpu_calls_take_plain_versions_and_count_nothing():
     counts = (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
-              rms_ops.BWD_LAUNCHES, rms_ops.BWD_SCALE_LAUNCHES,
-              flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES)
+              rms_ops.BWD_LAUNCHES, flash_ops.BWD_DQ_LAUNCHES,
+              flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((4, 64), dtype=np.float32))
     sc = torch.zeros(64)
@@ -120,8 +120,8 @@ def test_cpu_calls_take_plain_versions_and_count_nothing():
     flash_ops.flash_attention_bwd(q, q, q, o, q, lse)
     rms_ops.rmsnorm_bwd(x, sc, x)
     assert (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
-            rms_ops.BWD_LAUNCHES, rms_ops.BWD_SCALE_LAUNCHES,
-            flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES) == counts
+            rms_ops.BWD_LAUNCHES, flash_ops.BWD_DQ_LAUNCHES,
+            flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES) == counts
 
 
 def test_wrappers_refuse_mixed_devices_and_bad_dtypes():
