@@ -77,9 +77,21 @@ the package is missing. Phases, each fatal on failure:
    (bf16, fp32) and 8c's 1,024 (bf16), 3,072 wide, one launch a call; each
    two calls bitwise equal, timed beside its plain version, the library's
    backward (SDPA's with the mask as a boolean ``attn_mask`` where it is
-   not causal alone, ``F.rms_norm``'s; timed here only) and its bound; the
+   not causal alone, ``F.rms_norm``'s; timed here only; and SDPA's forward
+   beside the flash forward at the training shapes) and its bound; the
    times before the redesign are printed on lines of their own, quoted
    from PERF.md (``QUOTED_PR19_MS``; not measured in the run);
+   and mamba2-780m's: the SSD backward at 8d's shape (B = 4, S = 1,024, 48
+   heads of P = 64, N = 128, G = 1; bf16 and fp32), at G = 2, N = 64 and
+   at S = 1,000 (bf16), given the forward kernel's chunk states as the
+   training path calls it, each gradient's max |err| /
+   max |ref| against the plain backward in fp32 on the same inputs within
+   ``SSD_BWD_REL`` (bf16 dx, dB, dC within ``SSD_BWD_BF16_REL``), two calls
+   bitwise equal; and the gated RMSNorm backward over 8d's 4,096 rows of
+   3,072, z a column slice of in_proj's 6,448 (bf16, fp32; dy and fp32 dz
+   1e-5, dscale 1e-4, bf16 2e-2), beside ``F.rms_norm``'s backward on the
+   gated product alone as a partial yardstick (no PyTorch call computes
+   either function: their library time is null);
 3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
    (fp32, 3 layers), each with the same parameters on the CPU (plain
    versions) and on the card (kernels): logits after prefill and 8 decode
@@ -186,12 +198,28 @@ the package is missing. Phases, each fatal on failure:
    reduce-scatters equal to the schedule oracle's (``locality_bruck`` and
    its transpose) times the gathers the path implies, or for ``xla`` the
    recorder's model of the library calls; step ms, gather, reduce-scatter
-   and sync host ms, staged bytes and peak memory a process.
+   and sync host ms, staged bytes and peak memory a process. 8b's mamba2
+   part, ``train_parity_ssm``: the smoke config at 2 layers in fp32 on the
+   same batches, the card's one rank against the CPU's and 2 x 2 of the
+   ranks (locality + FSDP, eager and ``prefetch_depth=1``) against the
+   card's one rank at the 8b limits, the prefetch bitwise the eager step,
+   every rank's launches exact, and per step and rank the gathers' and
+   reduce-scatters' non-local messages and bytes equal to the schedule
+   oracle's for the Mamba2 leaves (in_proj and out_proj a layer, and the
+   embedding). 8d, ``train_one_rank_ssm``: mamba2-780m at full width and
+   depth (48 layers, d_model 1,536), fp32 master weights from seed 0 and
+   bf16 compute, 3 steps of 4 x 1,024 tokens through ``Trainer``: finite
+   losses and grad norms, launches exactly what the path implies (per
+   step with remat: SSD forward 96 and its backward 48, gated RMSNorm 96
+   and its backward 48, RMSNorm plain 97 and its backward 49); step ms,
+   tokens/s, peak memory and a profiled step (the SSD forward's and
+   backward's device ms, the gated backward's, the idle share). Last the
+   whole run's wall time.
 
 Every kernel's launches are counted from 0 just before each main path
 (the DMA gather, phase 4, phase 5, each engine of phases 6 and 7 in its
-own process, the trainer of 8a, each run of 8c in its own process) and
-read just after it.
+own process, the trainers of 8a and 8d, each run of 8c and of 8b's mamba2
+ranks in its own process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -744,18 +772,21 @@ SSD_CASES = [(512, 48, 64, 1, 128), (300, 48, 64, 1, 128),
              (2048, 48, 64, 1, 128), (512, 48, 64, 2, 64)]
 
 
-def ssd_inputs(S, H, P, G, N, dtype, seed=0):
+def ssd_inputs(S, H, P, G, N, dtype, seed=0, batch=1, with_dy=False):
     """Inputs with the model's statistics: dt = softplus(raw + dt_bias)
-    with dt_bias from dt in [1e-3, 1e-1], A = -exp(A_log) in [-16, -1]."""
+    with dt_bias from dt in [1e-3, 1e-1], A = -exp(A_log) in [-16, -1];
+    with ``with_dy`` an fp32 output gradient after them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     u = lambda n: torch.rand((n,), generator=g, device="cuda")
     dt0 = torch.exp(u(H) * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
-    dt = torch.nn.functional.softplus(rn(1, S, H) * 0.5 + dt_bias)
+    dt = torch.nn.functional.softplus(rn(batch, S, H) * 0.5 + dt_bias)
     A = -torch.log(1.0 + u(H) * 15.0).exp()
-    return (rn(1, S, H, P).to(dtype), dt.contiguous(), A.contiguous(),
-            (rn(1, S, G, N) * 0.5).to(dtype), (rn(1, S, G, N) * 0.5).to(dtype))
+    out = (rn(batch, S, H, P).to(dtype), dt.contiguous(), A.contiguous(),
+           (rn(batch, S, G, N) * 0.5).to(dtype),
+           (rn(batch, S, G, N) * 0.5).to(dtype))
+    return out + (rn(batch, S, H, P),) if with_dy else out
 
 
 def ssd_cases(timer: Timer) -> list[dict]:
@@ -1840,6 +1871,11 @@ def flash_bwd_case(timer, g, dtype, mask, shape=TRAIN_FLASH,
     dot = do.transpose(1, 2).contiguous()
     lib_ms = timer(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                retain_graph=True))
+    if full:                # SDPA's forward on the same inputs (no grad)
+        with torch.no_grad():
+            extra["forward_library_ms"] = timer(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, **band))
     del out, qt, kt, vt, dot
     if full:
         fwd = lambda: flash_ops.flash_attention(q, k, v, **mask)
@@ -1910,6 +1946,160 @@ def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+# the mamba2-780m training step's SSD (B = 4 sequences of 1,024 tokens, 48
+# heads of P = 64, N = 128, G = 1; bf16 and fp32), a G = 2, N = 64 case and
+# an S that is not a multiple of 64 (bf16); the gated RMSNorm over its 4,096
+# rows of 3,072, z the first 3,072 of in_proj's 6,448 columns
+TRAIN_SSD = (4, 1024, 48, 64, 1, 128)
+SSD_BWD_EXTRA = ((1, 1024, 48, 64, 2, 64), (1, 1000, 48, 64, 1, 128))
+TRAIN_GATED = (4096, 3072, 6448)
+# the SSD backward's tolerances, as tests/test_torch_cuda.py states them:
+# max |err| / max |ref| per gradient against the plain backward in fp32 on
+# the same inputs; fp32 1e-4 (the forward's), dA 1e-3 (a sum of terms of
+# both signs over every token: it cancels); bf16 dx, dB, dC 1e-2 (one
+# rounding of the fp32 value, 2^-9 of it)
+SSD_BWD_REL = {"dx": 1e-4, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4, "dC": 1e-4}
+SSD_BWD_BF16_REL = 1e-2
+
+
+def ssd_bwd_macs(Bt, S, H, P, G, N) -> int:
+    """Multiply-adds of the chunked backward in 64-token chunks, given the
+    forward's chunk states (the training path): per chunk and head its
+    contribution to the states' gradient, C^T (exp(cum) dy), and B Dh,
+    dy h^T and x Dh^T (4 Q N P), and the causal halves of dy x^T, M^T dy (P
+    wide), G B and G^T C (N wide); per chunk and group the causal half of
+    C B^T."""
+    Q = 64
+    nc, tri = -(-S // Q), Q * (Q + 1) // 2
+    return Bt * nc * (H * (4 * Q * N * P + tri * (2 * P + 2 * N))
+                      + G * tri * N)
+
+
+def ssd_bwd_split_macs(Bt, S, H, P, G, N, dtype) -> int:
+    """:func:`ssd_bwd_macs`' products, each times its split-bf16 terms, as
+    :func:`ssd_split_macs` counts the forward's: bf16 inputs (x, B, C)
+    enter exactly, an fp32 operand (dy, h, Dh, M, G) is split into hi and
+    lo; so with bf16 inputs C B^T takes 1 term, dy h^T and M^T dy (both
+    operands fp32) 3, the others 2; fp32 inputs take 3 everywhere."""
+    Q = 64
+    nc, tri = -(-S // Q), Q * (Q + 1) // 2
+    if dtype != torch.bfloat16:
+        return 3 * ssd_bwd_macs(Bt, S, H, P, G, N)
+    return Bt * nc * (H * (9 * Q * N * P + 5 * tri * P + 4 * tri * N)
+                      + G * tri * N)
+
+
+def ssd_bwd_case(timer, shape, dtype, path="train_one_rank_ssm") -> dict:
+    """The SSD backward at a training shape as the training path calls it,
+    given the forward kernel's chunk states: dx, ddt, dA, dB, dC against
+    the plain backward (fp32 on the same inputs), two calls bitwise equal,
+    its four launches counted a call, timed beside the plain version; no
+    PyTorch call computes it (library null). The bound is the forward's:
+    the split-bf16 products at the tensor cores' bf16 rate, or the bytes
+    of the inputs (the chunk states included) and outputs, the larger; the
+    fp32 products on the CUDA cores (the design of this kernel) apart."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    Bt, S, H, P, G, N = shape
+    *ins, dy = ssd_inputs(S, H, P, G, N, dtype, seed=3, batch=Bt,
+                          with_dy=True)
+    states = ssd_ops.ssd_with_states(*ins)[2]
+    fn = lambda: ssd_ops.ssd_bwd(*ins, dy, states)
+    n = ssd_ops.BWD_LAUNCHES
+    got = fn()
+    again = fn()
+    what = f"ssd backward {dtype} {shape}"
+    check(ssd_ops.BWD_LAUNCHES - n == 2 * ssd_ops.BWD_KERNELS,
+          f"{what}: not {ssd_ops.BWD_KERNELS} launches a call")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls differ")
+    del again
+    up = [t.float() if t.dtype == torch.bfloat16 else t for t in ins]
+    want = ssd_ops.ssd_bwd_ref(*up, dy, Q=256)
+    rel = {}
+    for name, a, b in zip(SSD_BWD_REL, got, want):
+        rel[name] = (float((a.float() - b).abs().max())
+                     / max(float(b.abs().max()), 1e-30))
+        tol = (SSD_BWD_BF16_REL if dtype == torch.bfloat16
+               and name in ("dx", "dB", "dC") else SSD_BWD_REL[name])
+        check(rel[name] < tol and bool(torch.isfinite(a).all()),
+              f"{what}: {name} rel err {rel[name]} (limit {tol})")
+    err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want))
+    del got, want, up
+    # each input read once and each output written once; the kernel's own
+    # scratch (Dh, the per-head shares) is its design's, not the function's
+    es = ins[0].element_size()
+    nbytes = (2 * Bt * S * H * P * es + Bt * S * H * P * 4     # x, dx; dy
+              + 4 * Bt * S * G * N * es + 2 * Bt * S * H * 4   # B C dB dC
+              + 2 * H * 4                                      # dt ddt; A dA
+              + states.numel() * states.element_size())        # chunk states
+    split = ssd_bwd_split_macs(*shape, dtype)
+    b_ms, b_by = bound(nbytes, 2 * split, torch.bfloat16)
+    cc_ms, _ = bound(nbytes, 2 * ssd_bwd_macs(*shape), torch.float32)
+    return dict(form="scan", shape=list(shape), dtype=str(dtype), path=path,
+                max_abs_err=err, rel_err=rel,
+                tolerance={"fp32": SSD_BWD_REL, "bf16_dx_dB_dC":
+                           SSD_BWD_BF16_REL},
+                ms=timer(fn, iters=5), host_ms=timer.host_ms(fn, iters=5),
+                plain_ms=timer(lambda: ssd_ops.ssd_bwd_ref(*ins, dy, Q=256),
+                               iters=2, warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                bound_cuda_core_ms=cc_ms, bytes=nbytes,
+                split_tensor_core_gflop=2 * split / 1e9,
+                fp32_gflop=2 * ssd_bwd_macs(*shape) / 1e9)
+
+
+def gated_bwd_case(timer, g, dtype, shape=TRAIN_GATED,
+                   path="train_one_rank_ssm") -> dict:
+    """The gated RMSNorm backward over a training step's rows, z a column
+    slice of in_proj's output: dy, dz and dscale against the plain
+    backward, two calls bitwise equal, one launch a call, timed beside the
+    plain version. No PyTorch call computes it (library null); the partial
+    yardstick beside it is ``F.rms_norm``'s autograd backward on the gated
+    product alone (the norm without the gate), timed here only."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    rows, d, width = shape
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    y = rn(rows, d) * 2
+    z = (rn(rows, width) * 2).to(dtype)[:, :d]
+    sc = (rn(d) * 0.2).to(dtype)
+    dout = rn(rows, d).to(dtype)
+    fn = lambda: rms_ops.rmsnorm_gated_bwd(y, z, sc, dout)
+    n = rms_ops.FORM_BWD_LAUNCHES["gated"]
+    got, again = fn(), fn()
+    what = f"rmsnorm backward gated {dtype} {shape}"
+    check(rms_ops.FORM_BWD_LAUNCHES["gated"] - n == 2,
+          f"{what}: not one launch a call")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls differ")
+    want = rms_ops.rmsnorm_gated_bwd_ref(y, z, sc, dout)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    errs = [close(got[0], want[0], 1e-5, f"{what} dy"),
+            close(got[1], want[1], tol, f"{what} dz"),
+            close(got[2], want[2], 1e-4 if dtype == torch.float32 else tol,
+                  f"{what} dscale")]
+    es = z.element_size()
+    b_ms, b_by = bound(rows * d * (4 + es + es + 4 + es) + 2 * d * es,
+                       20 * rows * d, dtype)
+    gp = (y.to(dtype) * F.silu(z)).requires_grad_(True)   # the product
+    wl = (1.0 + sc).requires_grad_(True)
+    out = F.rms_norm(gp, (d,), wl, 1e-5)
+    partial_ms = timer(lambda: torch.autograd.grad(out, (gp, wl), dout,
+                                                   retain_graph=True))
+    del out, gp
+    return dict(form="gated", shape=[rows, d], z_width=width,
+                dtype=str(dtype), path=path, max_abs_err=max(errs),
+                max_abs_err_dy_dz_dscale=errs, tolerance=tol,
+                ms=timer(fn), host_ms=timer.host_ms(fn),
+                plain_ms=timer(lambda: rms_ops.rmsnorm_gated_bwd_ref(
+                    y, z, sc, dout)),
+                library_ms=None,
+                partial_yardstick_ms=partial_ms,
+                partial_yardstick="F.rms_norm autograd backward on the "
+                                  "gated product alone (no gate)",
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def backward_kernel_rows(bwd: dict) -> dict[str, list[dict]]:
     """Per kernel rows of phase 2c for the kernels' line: each kernel's own
     time and bound (the flash pair's two kernels apart; RMSNorm's backward
@@ -1918,7 +2108,9 @@ def backward_kernel_rows(bwd: dict) -> dict[str, list[dict]]:
     out: dict[str, list[dict]] = {}
     parts = {"flash_attention_bwd": (("flash_attention_bwd_dq", "dq"),
                                      ("flash_attention_bwd_dkdv", "dkdv")),
-             "rmsnorm_bwd": (("rmsnorm_bwd", None),)}
+             "rmsnorm_bwd": (("rmsnorm_bwd", None),),
+             "ssd_bwd": (("ssd_bwd", None),),
+             "rmsnorm_bwd_gated": (("rmsnorm_bwd_gated", None),)}
     for name, rows in bwd.items():
         for r in rows:
             for kernel, key in parts[name]:
@@ -1959,6 +2151,16 @@ def backward_cases(timer) -> dict[str, list[dict]]:
         out["flash_attention_bwd"].append(flash_bwd_case(
             timer, g, torch.bfloat16, mask, tuple(shape), "edges",
             full=False))
+    # mamba2-780m's backward kernels (8d's shapes first: the kernels' line
+    # reports the first row)
+    out["ssd_bwd"] = [ssd_bwd_case(timer, TRAIN_SSD, dtype)
+                      for dtype in (torch.bfloat16, torch.float32)]
+    out["ssd_bwd"] += [ssd_bwd_case(timer, shape, torch.bfloat16, "edges")
+                       for shape in SSD_BWD_EXTRA]
+    out["rmsnorm_bwd_gated"] = [gated_bwd_case(timer, g, dtype)
+                                for dtype in (torch.bfloat16, torch.float32)]
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1970,10 +2172,14 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 1024
 # the kernels the training paths run, by their names in launch_counts
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
-                 "flash_attention_bwd_wgmma")
+                 "flash_attention_bwd_wgmma", "ssd", "ssd_bwd")
 # the kernels whose device time 8a's profiled step sums, by name
 TRAIN_PROFILE_SUMS = {"flash_bwd": "flash_bwd", "flash_fwd": "flash_wgmma",
                       "rmsnorm_bwd": "rmsnorm_bwd"}
+# 8d's: the SSD forward, its backward's four kernels, the gated backward
+TRAIN_PROFILE_SUMS_SSM = {"ssd_fwd": "ssd_fwd", "ssd_bwd": "ssd_bwd",
+                          "rmsnorm_gated_bwd": "rmsnorm_gated_bwd",
+                          "rmsnorm_bwd": "rmsnorm_bwd"}
 # 8b: the reduced fp32 model (the smoke config at 2 layers), 2 steps of
 # 12 x 64 tokens, on one rank (CPU and card) and on 2 x 2 and 3 x 2 ranks
 PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_LAYERS = 2, 12, 64, 2
@@ -1987,6 +2193,17 @@ PARITY_GRIDS = ((2, 2), (3, 2))
 # with the size of their gradient (``_beyond``).
 PARITY_REL, PARITY_PARAM_ATOL = 1e-5, 1e-4
 PARITY_PARAM_CLOSE, PARITY_FAR_SHARE = 1e-5, 1e-4
+# 8b's reduced mamba2-780m (the smoke config at 2 layers, fp32) on the same
+# batches: the card's one rank against the CPU's, and 2 x 2 ranks (locality
+# + FSDP, eager and prefetch 1) against the card's one rank, at the PARITY_*
+# limits. The card's SSD forward takes its products from split-bf16
+# operands (within ~2^-16 of each |a||b| sum) where the CPU's are fp32: on
+# an H100 that gave losses and grad norms 7.7e-8 and 9.1e-8 relative and
+# parameters 2.0e-5 apart (one element, whose first gradient, 1e-9, is
+# below Adam's eps), inside the llama limits, which it keeps.
+SSM_PARITY_GRID = (2, 2)
+SSM_VARIANTS = (("locality", dict(fsdp=True)),
+                ("locality_prefetch", dict(fsdp=True, prefetch_depth=1)))
 # 8c: llama3.2-3b at full width on 2 x 2 ranks, depth cut to 4 layers,
 # one 1,024-token sequence a rank, 2 steps a variant
 FSDP_GRID, FSDP_LAYERS, FSDP_STEPS = (2, 2), 4, 2
@@ -1995,22 +2212,42 @@ TRAIN_VARIANTS = (("locality", dict(fsdp=True)),
                   ("xla", dict(fsdp=True, grad_sync="xla")))
 
 
-def train_launches_implied(n_layers: int, steps: int) -> dict[str, int]:
+def train_launches_implied(n_layers: int, steps: int,
+                           family: str = "dense") -> dict[str, int]:
     """What a training step launches, per kernel and RMSNorm form: with
     remat every block's forward runs twice (the forward and its recompute),
-    the final norm once; the backward once per norm (one kernel) and
-    attention (two kernels, both of the tensor-core instance: bf16, D =
-    128)."""
+    the final norm once; the backward once per norm (one kernel) and per
+    mixer. A dense layer: ln1 (plain) and ln2 (residual), attention (its
+    backward two kernels, both of the tensor-core instance: bf16, D = 128).
+    A Mamba2 layer: ln (plain), the SSD scan and the gated norm (the SSD
+    backward four kernels a call)."""
+    from repro_torch.kernels.ssd.ops import BWD_KERNELS
     L = n_layers
     want = {k: 0 for k in ("decode_scores", "decode_stats", "dma_allgather",
-                           "ssd", "rmsnorm.gated")}
+                           "ssd", "ssd_bwd", "rmsnorm.gated",
+                           "rmsnorm.residual", "rmsnorm_bwd.gated",
+                           "rmsnorm_bwd.residual", "flash_attention",
+                           "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkdv",
+                           "flash_attention_bwd_wgmma")}
     want.update({"rmsnorm": 4 * L + 1, "rmsnorm.plain": 2 * L + 1,
-                 "rmsnorm.residual": 2 * L, "rmsnorm_bwd": 2 * L + 1,
-                 "rmsnorm_bwd.plain": L + 1, "rmsnorm_bwd.residual": L,
-                 "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
-                 "flash_attention_bwd_dkdv": L,
-                 "flash_attention_bwd_wgmma": 2 * L})
+                 "rmsnorm_bwd": 2 * L + 1, "rmsnorm_bwd.plain": L + 1})
+    if family == "ssm":
+        want.update({"rmsnorm.gated": 2 * L, "rmsnorm_bwd.gated": L,
+                     "ssd": 2 * L, "ssd_bwd": BWD_KERNELS * L})
+    else:
+        want.update({"rmsnorm.residual": 2 * L, "rmsnorm_bwd.residual": L,
+                     "flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkdv": L,
+                     "flash_attention_bwd_wgmma": 2 * L})
     return {k: n * steps for k, n in want.items()}
+
+
+def path_launches(counts: dict[str, int]) -> dict[str, int]:
+    """A training path's launches by the kernels' line's names: the
+    ``TRAIN_KERNELS`` counters and the gated RMSNorm backward's form."""
+    return {**{k: counts[k] for k in TRAIN_KERNELS},
+            "rmsnorm_bwd_gated": counts["rmsnorm_bwd.gated"]}
 
 
 def _zero_counts() -> None:
@@ -2018,12 +2255,14 @@ def _zero_counts() -> None:
     kernels.add_launch_counts(kernels.launch_counts(), -1)
 
 
-def train_one_rank(smi: str) -> dict[str, int]:
-    """Phase 8a: llama3.2-3b at full width and depth through ``Trainer``
-    on one rank; returns the path's launches per kernel."""
+def train_one_rank(smi: str, arch: str = "llama3.2-3b",
+                   phase: str = "train_one_rank") -> dict[str, int]:
+    """Phase 8a (llama3.2-3b) or 8d (mamba2-780m): the model at full width
+    and depth through ``Trainer`` on one rank; returns the path's launches
+    per kernel."""
     from repro_torch import configs, kernels
     from repro_torch.train import Trainer, TrainerConfig
-    cfg = configs.get("llama3.2-3b")
+    cfg = configs.get(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(cfg, None, TrainerConfig(
@@ -2034,23 +2273,24 @@ def train_one_rank(smi: str) -> dict[str, int]:
     _zero_counts()
     tr.run()
     counts = kernels.launch_counts()
-    want = train_launches_implied(cfg.n_layers, TRAIN_STEPS)
+    want = train_launches_implied(cfg.n_layers, TRAIN_STEPS, cfg.family)
     got = {k: counts[k] for k in want}
-    check(got == want, f"train_one_rank: launches {got}, the path implies "
-                       f"{want}")
+    check(got == want, f"{phase}: launches {got}, the path implies {want}")
     hist = tr.metrics_history
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
-              for h in hist), f"train_one_rank: non-finite metrics {hist}")
+              for h in hist), f"{phase}: non-finite metrics {hist}")
     peak = torch.cuda.max_memory_allocated()
     dts = [h["dt"] for h in hist]
     steady = float(np.mean(dts[1:]))
     batch = tr.data.batch(TRAIN_STEPS)
-    profile_window("profile_train_step", "train_one_rank",
+    profile_window("profile_train_step", phase,
                    lambda: tr.artifacts.step_fn(tr.state, batch), 1,
-                   sums=TRAIN_PROFILE_SUMS, tokens=TRAIN_BATCH * TRAIN_SEQ)
+                   sums=(TRAIN_PROFILE_SUMS_SSM if cfg.family == "ssm"
+                         else TRAIN_PROFILE_SUMS),
+                   tokens=TRAIN_BATCH * TRAIN_SEQ)
     n_params = sum(t.numel() for t in _leaves(tr.state.params))
     print(json.dumps({
-        "phase": "train_one_rank", "model": cfg.name, "params": n_params,
+        "phase": phase, "model": cfg.name, "params": n_params,
         "layers": cfg.n_layers, "dtype": "bfloat16 compute, fp32 master",
         "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": TRAIN_STEPS,
         "losses": [h["loss"] for h in hist],
@@ -2062,7 +2302,7 @@ def train_one_rank(smi: str) -> dict[str, int]:
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: got[k] for k in TRAIN_KERNELS}
+    return path_launches(counts)
 
 
 def _leaves(tree):
@@ -2236,8 +2476,10 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
     gathers and the gradient reduce-scatters must send: the schedule
     oracle's (``schedules.locality_bruck``, and its transpose) times the
     gathers the path implies (each layer leaf twice with remat, once with
-    the prefetch, the embedding once; each reduce-scatter once), for bf16
-    shards of each leaf. For "xla" it is the recorder's own model of the
+    the prefetch, the embedding once; each reduce-scatter once), for shards
+    of each leaf in ``cfg.dtype``: llama's seven leaves a layer, or
+    Mamba2's two (in_proj, out_proj; the rest replicated). For "xla" it
+    is the recorder's own model of the
     library's all-gather and reduce-scatter, the calls the port makes (on
     the card this holds the number of calls; tests/test_torch_train.py
     holds the Bruck schedules against the JAX HLO)."""
@@ -2248,6 +2490,7 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
     from repro_torch.train.sharding import (fsdp_param_axes,
                                             fsdp_param_dims, param_specs)
     p = q * pl
+    es = torch.empty((), dtype=cfg.dtype).element_size()
     shapes = T.train_param_shapes(cfg)
     specs = param_specs(shapes, {"pod": q, "data": pl}, fsdp=True)
     units = []                              # (shard bytes, gathers, rs)
@@ -2259,7 +2502,7 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
         check(ax == "pod,data", f"{path}: sharded over {ax}")
         stacked = path[0] == "blocks"
         n = cfg.n_layers if stacked else 1
-        per = t.numel() // n // p * 2       # one layer's bf16 shard
+        per = t.numel() // n // p * es      # one layer's shard, cfg.dtype
         units.append((per, n * (1 if prefetch or not stacked else 2), n))
     out = []
     for r in range(p):
@@ -2288,16 +2531,17 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
 
 def train_rank(rank: int, world: int, plan: dict) -> dict:
     """One rank of phases 8b and 8c (every rank shares the one card): the
-    reduced fp32 model on 2 x 2 (ranks 0-3) and 3 x 2 in each variant,
-    then llama3.2-3b at full width, 4 layers, on 2 x 2 in each; ranks
-    outside a grid wait at the barrier that follows each run."""
+    reduced fp32 llama on 2 x 2 (ranks 0-3) and 3 x 2 in each variant, the
+    reduced fp32 mamba2 on 2 x 2 eager and with the prefetch, then
+    llama3.2-3b at full width, 4 layers, on 2 x 2 in each; ranks outside a
+    grid wait at the barrier that follows each run."""
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.core.topology import RankGrid
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     grids = {shape: RankGrid.build(*shape) for shape in PARITY_GRIDS}
-    out = {"rank": rank, "parity": {}, "full": {}}
+    out = {"rank": rank, "parity": {}, "full": {}, "ssm": {}}
     small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
                                 n_layers=PARITY_LAYERS, dtype=torch.float32)
     for shape, grid in grids.items():
@@ -2309,6 +2553,15 @@ def train_rank(rank: int, world: int, plan: dict) -> dict:
                 out["parity"][f"{shape[0]}x{shape[1]}|{name}"] = {
                     k: res[k] for k in ("metrics", "shards", "dims", "axes")}
             dist.barrier()
+    ssm = _ssm_small()
+    grid = grids[SSM_PARITY_GRID]
+    for name, kw in SSM_VARIANTS:
+        if grid is not None:
+            res = train_run(ssm, grid, _tree(plan["ssm_params"]), kw,
+                            PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, "cuda")
+            out["ssm"][name] = {k: res[k] for k in (
+                "metrics", "shards", "dims", "axes", "meter", "launches")}
+        dist.barrier()
     gc.collect()
     torch.cuda.empty_cache()
     full = dataclasses.replace(configs.get("llama3.2-3b"),
@@ -2326,29 +2579,108 @@ def train_rank(rank: int, world: int, plan: dict) -> dict:
     return out
 
 
-def train_on_ranks(smi: str) -> dict[str, int]:
-    """Phases 8b and 8c: the one-rank references here (CPU and card), then
-    6 spawned ranks (``train_rank``); checks and prints each; returns the
-    launches per kernel of 8c's runs, summed over the ranks and variants."""
-    from repro_torch import configs
-    from repro_torch.launch.serve import run_ranks
+def _one_rank_refs(cfg) -> tuple[dict, dict]:
+    """8b's one-rank runs of ``cfg`` on the CPU and the card from the same
+    parameters (``init_train_params``, seed 0) and batches: (the
+    parameters as {path: array}, {device: metrics, params, grads})."""
     from repro_torch.models import transformer as T
-    small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
-                                n_layers=PARITY_LAYERS, dtype=torch.float32)
-    params = T.init_train_params(small, torch.Generator().manual_seed(0),
-                                 "cpu")
+    params = T.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
     flat = dict(zip(["/".join(p) for p in _paths(params)],
                     (t.numpy() for t in _leaves(params))))
     one = {}
     for device in ("cpu", "cuda"):
-        res = train_run(small, None, _tree(flat), {}, PARITY_BATCH,
+        res = train_run(cfg, None, _tree(flat), {}, PARITY_BATCH,
                         PARITY_SEQ, PARITY_STEPS, device, grads=True)
         one[device] = dict(metrics=res["metrics"], params=res["shards"],
                            grads=res["grads"])
+    return flat, one
+
+
+def ssm_parity(smi: str, ranks: list, one: dict, d_card: dict
+               ) -> dict[str, int]:
+    """8b's mamba2 part: 2 x 2 ranks against the card's one rank, the
+    prefetch bitwise the eager step, each rank's launches and its gathers'
+    and reduce-scatters' non-local messages and bytes per step equal to the
+    schedule oracle's for the Mamba2 leaves; prints the phase's line and
+    returns the ranks' launches per kernel, summed."""
+    small = _ssm_small()
+    q, pl = SSM_PARITY_GRID
+    want_launches = train_launches_implied(PARITY_LAYERS, PARITY_STEPS, "ssm")
+    report, total = {}, {}
+    for name, kw in SSM_VARIANTS:
+        res = [ranks[r]["ssm"][name] for r in range(q * pl)]
+        for r in range(1, q * pl):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"train_parity_ssm {name}: rank {r}'s metrics differ")
+        got = dict(metrics=res[0]["metrics"], params=_assemble(res, pl))
+        report[name] = _parity(got, one["cuda"], f"train_parity_ssm {name}")
+        report[name]["axes"] = sorted(set(res[0]["axes"].values()))
+        oracle = fsdp_oracle(small, q, pl, "locality",
+                             bool(kw.get("prefetch_depth")))
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want_launches}
+            check(got_l == want_launches, f"train_parity_ssm {name} rank "
+                  f"{r}: launches {got_l}, the path implies {want_launches}")
+            for k, n in path_launches(x["launches"]).items():
+                total[k] = total.get(k, 0) + n
+            for step, m in enumerate(x["meter"]):
+                nonlocal_ = dict(
+                    gather_msgs=m["gather"]["permute_edges_nonlocal"],
+                    gather_bytes=m["gather"]["permute_bytes_nonlocal"],
+                    rs_msgs=m["reduce_scatter"]["permute_edges_nonlocal"],
+                    rs_bytes=m["reduce_scatter"]["permute_bytes_nonlocal"])
+                check(nonlocal_ == oracle[r], f"train_parity_ssm {name} rank "
+                      f"{r} step {step}: non-local {nonlocal_}, the oracle "
+                      f"{oracle[r]}")
+        report[name]["nonlocal_per_step_by_rank"] = oracle
+    eager = [ranks[r]["ssm"]["locality"] for r in range(q * pl)]
+    pf = [ranks[r]["ssm"]["locality_prefetch"] for r in range(q * pl)]
+    check(all(a["metrics"] == b["metrics"] and all(
+        np.array_equal(a["shards"][k], b["shards"][k]) for k in a["shards"])
+        for a, b in zip(eager, pf)),
+        "train_parity_ssm: the prefetch step is not bitwise the eager one")
+    print(json.dumps({
+        "phase": "train_parity_ssm", "model": small.name,
+        "layers": PARITY_LAYERS, "dtype": "float32",
+        "batch": [PARITY_BATCH, PARITY_SEQ], "steps": PARITY_STEPS,
+        "card_vs_cpu": d_card, "ranks_vs_one_rank": report,
+        "prefetch_bitwise_eager": True,
+        "loss_rel_limit": PARITY_REL, "param_abs_limit": PARITY_PARAM_ATOL,
+        "launches_per_rank": want_launches,
+        "gathers_per_step": [x["meter"][0]["gathers"] for x in eager[:1]
+                             + pf[:1]],
+        "losses_one_rank": [m["loss"] for m in one["cuda"]["metrics"]],
+        "losses_cpu": [m["loss"] for m in one["cpu"]["metrics"]],
+        "card": smi}))
+    return total
+
+
+def _ssm_small():
+    """8b's reduced mamba2-780m: the smoke config at 2 layers, fp32."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke("mamba2-780m"),
+                               n_layers=PARITY_LAYERS, dtype=torch.float32)
+
+
+def train_on_ranks(smi: str) -> dict[str, dict[str, int]]:
+    """Phases 8b and 8c: the one-rank references here (CPU and card), then
+    6 spawned ranks (``train_rank``); checks and prints each; returns the
+    launches per kernel of 8c's runs and of 8b's mamba2 ranks, each summed
+    over the ranks and variants."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                                n_layers=PARITY_LAYERS, dtype=torch.float32)
+    flat, one = _one_rank_refs(small)
     d_card = _parity(one["cuda"], one["cpu"], "train_parity: card vs CPU")
+    ssm_flat, ssm_one = _one_rank_refs(_ssm_small())
+    ssm_card = _parity(ssm_one["cuda"], ssm_one["cpu"],
+                       "train_parity_ssm: card vs CPU")
     t0 = time.perf_counter()
-    ranks = run_ranks(6, train_rank, {"params": flat}, timeout=900.0)
+    ranks = run_ranks(6, train_rank, {"params": flat,
+                                      "ssm_params": ssm_flat}, timeout=900.0)
     ranks_s = time.perf_counter() - t0
+    ssm_total = ssm_parity(smi, ranks, ssm_one, ssm_card)
 
     report = {}
     for q, pl in PARITY_GRIDS:
@@ -2384,7 +2716,7 @@ def train_on_ranks(smi: str) -> dict[str, int]:
     full = dataclasses.replace(configs.get("llama3.2-3b"),
                                n_layers=FSDP_LAYERS)
     q, pl = FSDP_GRID
-    total = {k: 0 for k in TRAIN_KERNELS}
+    total = {}
     losses = {}
     want_launches = train_launches_implied(FSDP_LAYERS, FSDP_STEPS)
     for name, kw in TRAIN_VARIANTS:
@@ -2402,8 +2734,8 @@ def train_on_ranks(smi: str) -> dict[str, int]:
             got_l = {k: x["launches"][k] for k in want_launches}
             check(got_l == want_launches, f"train_fsdp {name} rank {r}: "
                   f"launches {got_l}, the path implies {want_launches}")
-            for k in TRAIN_KERNELS:
-                total[k] += x["launches"][k]
+            for k, n in path_launches(x["launches"]).items():
+                total[k] = total.get(k, 0) + n
             for step, m in enumerate(x["meter"]):
                 if alg == "xla":
                     got = dict(msgs=m["gather"]["group_msgs_nonlocal"]
@@ -2446,7 +2778,7 @@ def train_on_ranks(smi: str) -> dict[str, int]:
     check(losses["locality"] == losses["locality_prefetch"],
           f"train_fsdp: prefetch losses {losses['locality_prefetch']} differ "
           f"from eager {losses['locality']}")
-    return total
+    return {"train_fsdp": total, "train_parity_ssm": ssm_total}
 
 
 def ptxas_usage(log: str) -> list[dict]:
@@ -2477,6 +2809,7 @@ def ptxas_usage(log: str) -> list[dict]:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -2555,7 +2888,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train_one_rank"] = train_one_rank(smi)
-    by_path["train_fsdp"] = train_on_ranks(smi)
+    by_path["train_one_rank_ssm"] = train_one_rank(smi, "mamba2-780m",
+                                                   "train_one_rank_ssm")
+    by_path.update(train_on_ranks(smi))
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -2585,6 +2920,11 @@ def main() -> int:
         "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                         "src/repro/kernels/rmsnorm/rmsnorm.py:17 (its "
                         "backward)", 0),
+        "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                    "src/repro/kernels/ssd/ssd.py:30 (its backward)", 0),
+        "rmsnorm_bwd_gated": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                              "src/repro/kernels/rmsnorm/rmsnorm.py:17 (the "
+                              "backward of its gated form)", 0),
     }
     kernels = []
     for name, (source, replaces, headline) in meta.items():
@@ -2617,14 +2957,16 @@ def main() -> int:
     train = bwd["flash_attention_bwd"][0]
     kernels[1]["training_shape"] = {
         k: train[k] for k in ("shape", "forward_ms", "forward_lse_ms",
-                              "forward_bound_ms", "max_abs_err_forward_o",
+                              "forward_bound_ms", "forward_library_ms",
+                              "max_abs_err_forward_o",
                               "max_abs_err_forward_lse")}
     rank8c = [r for r in bwd["flash_attention_bwd"]
               if r["path"] == "train_fsdp"]
     kernels[1]["fsdp_rank_cases"] = {
         k: [r[k] for r in rank8c]
         for k in ("shape", "forward_ms", "forward_lse_ms", "forward_bound_ms",
-                  "max_abs_err_forward_o", "max_abs_err_forward_lse")}
+                  "forward_library_ms", "max_abs_err_forward_o",
+                  "max_abs_err_forward_lse")}
     for row in kernels:        # the backward kernels at 8c's and edge shapes
         if row["name"] in bwd_kernels:
             for path in ("train_fsdp", "edges"):
@@ -2638,6 +2980,20 @@ def main() -> int:
                        for f in ("ms", "plain_ms", "bound_ms",
                                  "library_ms", "shape", "mask_or_form",
                                  "instance")}}
+    for row in kernels:        # every case of mamba2's backward kernels
+        if row["name"] in ("ssd_bwd", "rmsnorm_bwd_gated"):
+            rows = bwd[row["name"]]
+            row["cases"] = {f: [r[f] for r in rows] for f in (
+                "shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "path")}
+            if row["name"] == "ssd_bwd":
+                for f in ("rel_err", "bound_cuda_core_ms"):
+                    row["cases"][f] = [r[f] for r in rows]
+                row["bound_cuda_core_ms"] = rows[0]["bound_cuda_core_ms"]
+            else:
+                row["cases"]["partial_yardstick_ms"] = [
+                    r["partial_yardstick_ms"] for r in rows]
+                row["partial_yardstick"] = rows[0]["partial_yardstick"]
     phase7 = [r for r in cases["rmsnorm"]
               if r.get("path") == "serve_batch_sharded"]
     kernels[0]["batch_sharded_cases"] = {
@@ -2667,6 +3023,8 @@ def main() -> int:
                 **{f: [r[f"{key}_{f}"] for r in batch_rows]
                    for f in ("ms", "plain_ms", "bound_ms")},
                 "shapes": [r["shape"] for r in batch_rows]}
+    print(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_run,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

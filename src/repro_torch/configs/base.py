@@ -130,19 +130,15 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     """Raise on any flag whose code path this port does not have yet.
 
-    Two families are served: the dense llama-family decoder with full
-    causal attention, SwiGLU, RMSNorm and rotary embeddings, and the
-    attention-free Mamba2 stack (``family="ssm"`` with ``ssm_state``).
-    ``mode="train"`` takes the dense family only. Everything else waits
+    Two families are served and trained (``mode="train"``): the dense
+    llama-family decoder with full causal attention, SwiGLU, RMSNorm and
+    rotary embeddings, and the attention-free Mamba2 stack
+    (``family="ssm"`` with ``ssm_state``), whose training runs the SSD
+    scan's and the gated RMSNorm's backward kernels. Everything else waits
     for a later slice of the port and must not be ignored silently.
     """
     if mode not in ("serve", "train"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "train" and cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port does not train the ssm family "
-            "yet: it needs the SSD backward kernel and the gated RMSNorm "
-            "backward (ROADMAP.md Queue 1 item 12)")
     unsupported = []
     if cfg.family not in ("dense", "ssm"):
         unsupported.append(f"family={cfg.family!r}")

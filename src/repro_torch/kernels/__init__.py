@@ -27,7 +27,8 @@ def _counters():
             ("decode_scores", decode_stats, "SCORES_LAUNCHES"),
             ("decode_stats", decode_stats, "LAUNCHES"),
             ("dma_allgather", dma_allgather, "LAUNCHES"),
-            ("ssd", ssd, "LAUNCHES")]
+            ("ssd", ssd, "LAUNCHES"),
+            ("ssd_bwd", ssd, "BWD_LAUNCHES")]
 
 
 def _form_counts() -> dict[str, dict[str, int]]:

@@ -51,6 +51,10 @@ SIGNATURES = {
     # eps, x_dtype, scale_dtype, stream
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                           _I, _P],
+    # y, y row stride, z, z row stride, scale, dout, dy, dz, dscale, partial,
+    # counters, rows, d, eps, x_dtype, scale_dtype, stream
+    "repro_rmsnorm_gated_bwd": [_P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
+                                _LL, _I, _F, _I, _I, _P],
     # the grid of the last repro_rmsnorm_bwd launch, and the rows of the
     # partial buffer that a launch takes
     "repro_rmsnorm_bwd_last_blocks": [],
@@ -88,9 +92,12 @@ SIGNATURES = {
                             _I, _P],
     # stream: an empty launch
     "repro_empty": [_P],
-    # x, dt, A, B, C, y, h, Bt, S, H, G, N, P, dtype, stream
-    "repro_ssd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  _P],
+    # x, dt, A, B, C, y, h, hchunks (or null), Bt, S, H, G, N, P, dtype,
+    # stream
+    "repro_ssd": [_P] * 8 + [_I] * 7 + [_P],
+    # x, dt, A, B, C, dy, dx, ddt, dA, dB, dC, hs, dhs, seg, dA_part,
+    # dB_part, dC_part, Bt, S, H, G, N, P, dtype, stream
+    "repro_ssd_bwd": [_P] * 17 + [_I] * 7 + [_P],
 }
 
 # dtype codes shared with csrc/common.cuh

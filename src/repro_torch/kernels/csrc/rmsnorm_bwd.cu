@@ -1,4 +1,4 @@
-// RMSNorm backward for Hopper (sm_90a), plain and residual forms.
+// RMSNorm backward for Hopper (sm_90a), plain, residual and gated forms.
 //
 // Replaces: no TPU kernel. The JAX package trains through plain jnp RMSNorm
 // differentiated by XLA (src/repro/models/layers.py, rmsnorm); the port's
@@ -11,11 +11,18 @@
 // all in fp32, dx rounded to x's dtype. The residual form's input is the
 // sum s = x + delta; the gradient of its s output (ds, when given) is added
 // to dx as the eager add would (dx rounded first, then the sum rounded), and
-// the result is the gradient of both x and delta.
+// the result is the gradient of both x and delta. The gated form (the
+// Mamba2 mixer's gate and norm, rmsnorm.cu's third form) normalises g =
+// round(round(y) * round(silu(z))), recomputed per row from y (fp32) and z
+// as the forward rounds it; from its dg, dy = dg silu(z) (fp32) and dz =
+// dg round(y) silu'(z), silu'(z) = sigmoid(z) (1 + z (1 - sigmoid(z))),
+// rounded to z's dtype.
 //
-// Bound on the H100: memory. At the training shape (4,096 rows of 3,072,
-// bf16) the rows read x and dy and write dx, 75.5 MB, 22.5 us at 3.35
-// TB/s; at one FSDP rank's 1,024 rows 18.9 MB, 5.6 us.
+// Bound on the H100: memory. At the llama3.2-3b training shape (4,096 rows
+// of 3,072, bf16) the rows read x and dy and write dx, 75.5 MB, 22.5 us at
+// 3.35 TB/s; at one FSDP rank's 1,024 rows 18.9 MB, 5.6 us. The gated form
+// at mamba2-780m's (4,096 rows of 3,072) reads y (fp32), z and dout and
+// writes dy (fp32) and dz, 176 MB, 52.6 us.
 //
 // Design: one launch a backward (redesigned from two: a rows kernel in
 // blocks of 16 rows, 64 blocks at 1,024 rows with a block-wide barrier a
@@ -49,6 +56,8 @@
 // another (the wrapper keeps a set per stream). Three blocks an SM, and no
 // next-row loads in flight, were measured slower (PERF.md).
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -153,6 +162,70 @@ __device__ __forceinline__ void load_row(RowRaw<TX, V, NU>& r,
   }
 }
 
+// dscale from every block's partial (part, a thread's columns of the rows
+// it took): the cluster's 8 blocks through distributed shared memory (sPart,
+// kMaxD floats of each block), then the cluster that finishes an eighth of
+// the columns last sums it over the clusters' partials; see the file's note
+template <typename TS, int V, int NU>
+__device__ __forceinline__ void scale_sums(const float (&part)[V * NU],
+                                           float* sPart, int* sLast,
+                                           TS* __restrict__ dscale,
+                                           float* __restrict__ partial,
+                                           int* __restrict__ counters, int d,
+                                           int tid) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // the cluster's partial: block `rank` sums its eighth of the columns over
+  // the 8 blocks' partials, in block order
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int col = (tid + kThreads * u) * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (col + e < d) sPart[col + e] = part[u * V + e];
+  }
+  cluster.sync();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ncl = gridDim.x / kCluster, cl = blockIdx.x / kCluster;
+  const int c_lo = rank * d / kCluster, c_hi = (rank + 1) * d / kCluster;
+  for (int col = c_lo + tid; col < c_hi; col += kThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r)
+      acc += *cluster.map_shared_rank(&sPart[col], r);
+    partial[static_cast<size_t>(cl) * d + col] = acc;
+  }
+  // this block's reads of the others' partials are done; the others may
+  // exit once every block has arrived (waited for at the end)
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  __threadfence();
+
+  // the cluster that finishes this eighth last sums it over the clusters
+  __syncthreads();
+  if (tid == 0) *sLast = atomicAdd(&counters[rank], 1) == ncl - 1;
+  __syncthreads();
+  if (*sLast) {
+    __threadfence();
+    constexpr int kBatch = 32;            // loads in flight together
+    for (int col = c_lo + tid; col < c_hi; col += kThreads) {
+      float acc = 0.f;
+      for (int k0 = 0; k0 < ncl; k0 += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          v[k] = k0 + k < ncl
+                     ? __ldcg(&partial[static_cast<size_t>(k0 + k) * d + col])
+                     : 0.f;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          if (k0 + k < ncl) acc += v[k];
+      }
+      dscale[col] = from_f<TS>(acc);
+    }
+    if (tid == 0) counters[rank] = 0;
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 template <typename TX, typename TS, int V, int NU>
 __global__ void __launch_bounds__(kThreads, V * NU <= 12 ? 2 : 1)
 rmsnorm_bwd_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
@@ -164,7 +237,6 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
   __shared__ float red[2][2][kWarps];        // double-buffered warp sums
   __shared__ float sPart[kMaxD];             // this block's dscale partial
   __shared__ int sLast;
-  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   float sc[NPT], part[NPT];
@@ -253,64 +325,115 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
     }
   }
 
-  // the cluster's partial: block `rank` sums its eighth of the columns over
-  // the 8 blocks' partials, in block order
+  scale_sums<TS, V, NU>(part, sPart, &sLast, dscale, partial, counters, d,
+                        tid);
+}
+
+// the gated form: g = round(round(y) * round(silu(z))) recomputed per row
+// as the forward rounds it (y fp32 rows of stride ld_y, z rows of stride
+// ld_z), dg from the rows' math above, then dy = dg silu(z) (fp32) and dz =
+// dg round(y) silu'(z) with silu'(z) = sigmoid(z) (1 + z (1 - sigmoid(z)));
+// dscale from the same partial sums. No next-row loads in flight.
+template <typename TX, typename TS, int V, int NU>
+__global__ void __launch_bounds__(kThreads, V * NU <= 12 ? 2 : 1)
+rmsnorm_gated_bwd_kernel(const float* __restrict__ y, long long ld_y,
+                         const TX* __restrict__ z, long long ld_z,
+                         const TS* __restrict__ scale,
+                         const TX* __restrict__ dout, float* __restrict__ dy,
+                         TX* __restrict__ dz, TS* __restrict__ dscale,
+                         float* __restrict__ partial,
+                         int* __restrict__ counters, long long rows, int d,
+                         float eps) {
+  constexpr int NPT = V * NU;
+  using RY = typename Raw<float, V>::type;
+  using RX = typename Raw<TX, V>::type;
+  __shared__ float red[2][2][kWarps];
+  __shared__ float sPart[kMaxD];
+  __shared__ int sLast;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  float sc[NPT], part[NPT];
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
     const int col = (tid + kThreads * u) * V;
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      if (col + e < d) sPart[col + e] = part[u * V + e];
-  }
-  cluster.sync();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int ncl = gridDim.x / kCluster, cl = blockIdx.x / kCluster;
-  const int c_lo = rank * d / kCluster, c_hi = (rank + 1) * d / kCluster;
-  for (int col = c_lo + tid; col < c_hi; col += kThreads) {
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < kCluster; ++r)
-      acc += *cluster.map_shared_rank(&sPart[col], r);
-    partial[static_cast<size_t>(cl) * d + col] = acc;
-  }
-  // this block's reads of the others' partials are done; the others may
-  // exit once every block has arrived (waited for at the end)
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  __threadfence();
-
-  // the cluster that finishes this eighth last sums it over the clusters
-  __syncthreads();
-  if (tid == 0) sLast = atomicAdd(&counters[rank], 1) == ncl - 1;
-  __syncthreads();
-  if (sLast) {
-    __threadfence();
-    constexpr int kBatch = 32;            // loads in flight together
-    for (int col = c_lo + tid; col < c_hi; col += kThreads) {
-      float acc = 0.f;
-      for (int k0 = 0; k0 < ncl; k0 += kBatch) {
-        float v[kBatch];
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k)
-          v[k] = k0 + k < ncl
-                     ? __ldcg(&partial[static_cast<size_t>(k0 + k) * d + col])
-                     : 0.f;
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k)
-          if (k0 + k < ncl) acc += v[k];
-      }
-      dscale[col] = from_f<TS>(acc);
+    for (int e = 0; e < V; ++e) {
+      sc[u * V + e] = col + e < d ? 1.f + to_f(scale[col + e]) : 0.f;
+      part[u * V + e] = 0.f;
     }
-    if (tid == 0) counters[rank] = 0;
   }
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  int buf = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    float yr[NPT], zv[NPT], gv[NPT], dov[NPT];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int col = (tid + kThreads * u) * V;
+      if (col < d) {
+        unpack_v<float, V>(*reinterpret_cast<const RY*>(y + row * ld_y + col),
+                           &yr[u * V]);
+        unpack_v<TX, V>(*reinterpret_cast<const RX*>(z + row * ld_z + col),
+                        &zv[u * V]);
+        unpack_v<TX, V>(*reinterpret_cast<const RX*>(dout + row * d + col),
+                        &dov[u * V]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          yr[u * V + e] = zv[u * V + e] = dov[u * V + e] = 0.f;
+      }
+    }
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) {
+      yr[j] = rnd<TX>(yr[j]);
+      const float silu = rnd<TX>(zv[j] / (1.f + expf(-zv[j])));
+      gv[j] = rnd<TX>(yr[j] * silu);
+      ss = fmaf(gv[j], gv[j], ss);
+      gx = fmaf(dov[j] * sc[j], gv[j], gx);
+    }
+    ss = repro::warp_sum(ss);
+    gx = repro::warp_sum(gx);
+    if (lane == 0) {
+      red[buf][0][warp] = ss;
+      red[buf][1][warp] = gx;
+    }
+    __syncthreads();                  // one barrier a row, as the plain form
+    ss = gx = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      ss += red[buf][0][w];
+      gx += red[buf][1][w];
+    }
+    buf ^= 1;
+    const float rstd = rsqrtf(ss / d + eps);
+    const float c = rstd * rstd * rstd * gx / d;   // rstd * mean(dg^ * g^)
+    const size_t base = static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int col = (tid + kThreads * u) * V;
+      if (col >= d) continue;
+      float oy[V], oz[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int j = u * V + e;
+        const float dg = rstd * dov[j] * sc[j] - gv[j] * c;
+        part[j] = fmaf(dov[j], gv[j] * rstd, part[j]);
+        const float sig = 1.f / (1.f + expf(-zv[j]));
+        oy[e] = dg * (zv[j] * sig);
+        oz[e] = dg * yr[j] * sig * (1.f + zv[j] * (1.f - sig));
+      }
+      store_v<float, V>(dy + base + col, oy);
+      store_v<TX, V>(dz + base + col, oz);
+    }
+  }
+  scale_sums<TS, V, NU>(part, sPart, &sLast, dscale, partial, counters, d,
+                        tid);
 }
 
-template <typename TX, typename TS, int V, int NU>
-cudaError_t launch(const void* x, const void* scale, const void* dy,
-                   const void* ds, void* dx, void* dscale, float* partial,
-                   int* counters, long long rows, int d, float eps,
-                   cudaStream_t stream) {
-  const auto kernel = rmsnorm_bwd_kernel<TX, TS, V, NU>;
+// one cluster launch of `kernel` over `rows` rows: as many clusters as the
+// card holds at once (asked once per device and kernel instance)
+template <auto kernel, typename... Args>
+cudaError_t launch_clusters(long long rows, cudaStream_t stream,
+                            Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
@@ -322,7 +445,6 @@ cudaError_t launch(const void* x, const void* scale, const void* dy,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // the clusters the card holds at once, asked once per device
   static int max_clusters[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -334,11 +456,33 @@ cudaError_t launch(const void* x, const void* scale, const void* dy,
   if (e != cudaSuccess) return e;
   cfg.gridDim = dim3(grid_blocks(rows, max_clusters[dev]));
   g_last_blocks = static_cast<int>(cfg.gridDim.x);
-  return cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const TX*>(x),
-      static_cast<const TS*>(scale), static_cast<const TX*>(dy),
-      static_cast<const TX*>(ds), static_cast<TX*>(dx),
-      static_cast<TS*>(dscale), partial, counters, rows, d, eps);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// f(V, NU) for the widths the kernels are built for: 4 values an access
+// where `vec`, else 1; NU units of kThreads * V columns cover d
+template <typename F>
+cudaError_t pick_width(bool vec, int d, F&& f) {
+  using std::integral_constant;
+  if (vec) {
+    const int units = (d / 4 + kThreads - 1) / kThreads;
+    if (units <= 1) return f(integral_constant<int, 4>{}, integral_constant<int, 1>{});
+    if (units <= 2) return f(integral_constant<int, 4>{}, integral_constant<int, 2>{});
+    if (units <= 3) return f(integral_constant<int, 4>{}, integral_constant<int, 3>{});
+    if (units <= 4) return f(integral_constant<int, 4>{}, integral_constant<int, 4>{});
+    return f(integral_constant<int, 4>{}, integral_constant<int, 8>{});
+  }
+  const int units = (d + kThreads - 1) / kThreads;
+  if (units <= 1) return f(integral_constant<int, 1>{}, integral_constant<int, 1>{});
+  if (units <= 2) return f(integral_constant<int, 1>{}, integral_constant<int, 2>{});
+  if (units <= 4) return f(integral_constant<int, 1>{}, integral_constant<int, 4>{});
+  if (units <= 8) return f(integral_constant<int, 1>{}, integral_constant<int, 8>{});
+  if (units <= 16) return f(integral_constant<int, 1>{}, integral_constant<int, 16>{});
+  return f(integral_constant<int, 1>{}, integral_constant<int, 32>{});
+}
+
+inline bool aligned(const void* p, uintptr_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
 }
 
 template <typename TX, typename TS>
@@ -347,46 +491,54 @@ cudaError_t dispatch_width(const void* x, const void* scale, const void* dy,
                            float* partial, int* counters, long long rows,
                            int d, float eps, cudaStream_t stream) {
   // 4 values an access when d and every row start allow it
-  const uintptr_t align = 4 * sizeof(TX);
-  const bool vec =
-      d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % align == 0 &&
-      reinterpret_cast<uintptr_t>(dy) % align == 0 &&
-      reinterpret_cast<uintptr_t>(dx) % align == 0 &&
-      (ds == nullptr || reinterpret_cast<uintptr_t>(ds) % align == 0);
-#define REPRO_RMS_BWD(V, NU)                                                  \
-  return launch<TX, TS, V, NU>(x, scale, dy, ds, dx, dscale, partial,         \
-                               counters, rows, d, eps, stream)
-  if (vec) {
-    const int units = (d / 4 + kThreads - 1) / kThreads;
-    if (units <= 1) REPRO_RMS_BWD(4, 1);
-    if (units <= 2) REPRO_RMS_BWD(4, 2);
-    if (units <= 3) REPRO_RMS_BWD(4, 3);
-    if (units <= 4) REPRO_RMS_BWD(4, 4);
-    REPRO_RMS_BWD(4, 8);
-  }
-  const int units = (d + kThreads - 1) / kThreads;
-  if (units <= 1) REPRO_RMS_BWD(1, 1);
-  if (units <= 2) REPRO_RMS_BWD(1, 2);
-  if (units <= 4) REPRO_RMS_BWD(1, 4);
-  if (units <= 8) REPRO_RMS_BWD(1, 8);
-  if (units <= 16) REPRO_RMS_BWD(1, 16);
-  REPRO_RMS_BWD(1, 32);
-#undef REPRO_RMS_BWD
+  const uintptr_t a = 4 * sizeof(TX);
+  const bool vec = d % 4 == 0 && aligned(x, a) && aligned(dy, a) &&
+                   aligned(dx, a) && (ds == nullptr || aligned(ds, a));
+  return pick_width(vec, d, [&](auto v, auto nu) {
+    constexpr int V = decltype(v)::value, NU = decltype(nu)::value;
+    return launch_clusters<rmsnorm_bwd_kernel<TX, TS, V, NU>>(
+        rows, stream, static_cast<const TX*>(x), static_cast<const TS*>(scale),
+        static_cast<const TX*>(dy), static_cast<const TX*>(ds),
+        static_cast<TX*>(dx), static_cast<TS*>(dscale), partial, counters,
+        rows, d, eps);
+  });
 }
 
-template <typename TX>
-cudaError_t dispatch_scale(int scale_dtype, const void* x, const void* scale,
-                           const void* dy, const void* ds, void* dx,
+template <typename TX, typename TS>
+cudaError_t dispatch_gated(const void* y, long long ld_y, const void* z,
+                           long long ld_z, const void* scale,
+                           const void* dout, void* dy, void* dz,
                            void* dscale, float* partial, int* counters,
                            long long rows, int d, float eps,
                            cudaStream_t stream) {
-  if (scale_dtype == repro::kFloat32)
-    return dispatch_width<TX, float>(x, scale, dy, ds, dx, dscale, partial,
-                                     counters, rows, d, eps, stream);
-  if (scale_dtype == repro::kBFloat16)
-    return dispatch_width<TX, __nv_bfloat16>(x, scale, dy, ds, dx, dscale,
-                                             partial, counters, rows, d, eps,
-                                             stream);
+  const uintptr_t a = 4 * sizeof(TX);
+  const bool vec = d % 4 == 0 && ld_y % 4 == 0 && ld_z % 4 == 0 &&
+                   aligned(y, 16) && aligned(dy, 16) && aligned(z, a) &&
+                   aligned(dout, a) && aligned(dz, a);
+  return pick_width(vec, d, [&](auto v, auto nu) {
+    constexpr int V = decltype(v)::value, NU = decltype(nu)::value;
+    return launch_clusters<rmsnorm_gated_bwd_kernel<TX, TS, V, NU>>(
+        rows, stream, static_cast<const float*>(y), ld_y,
+        static_cast<const TX*>(z), ld_z, static_cast<const TS*>(scale),
+        static_cast<const TX*>(dout), static_cast<float*>(dy),
+        static_cast<TX*>(dz), static_cast<TS*>(dscale), partial, counters,
+        rows, d, eps);
+  });
+}
+
+// fn.template operator()<TX, TS>() for the dtype codes, else
+// cudaErrorInvalidValue
+template <typename F>
+cudaError_t by_dtypes(int x_dtype, int scale_dtype, F&& fn) {
+  using bf16 = __nv_bfloat16;
+  if (x_dtype == repro::kFloat32 && scale_dtype == repro::kFloat32)
+    return fn(float{}, float{});
+  if (x_dtype == repro::kFloat32 && scale_dtype == repro::kBFloat16)
+    return fn(float{}, bf16{});
+  if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kFloat32)
+    return fn(bf16{}, float{});
+  if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kBFloat16)
+    return fn(bf16{}, bf16{});
   return cudaErrorInvalidValue;
 }
 
@@ -403,17 +555,38 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
                                  void* dscale, void* partial, void* counters,
                                  long long rows, int d, float eps,
                                  int x_dtype, int scale_dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  int* cnt = static_cast<int*>(counters);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (d < 1 || d > kMaxD || rows < 1) return static_cast<int>(e);
-  if (x_dtype == repro::kFloat32)
-    e = dispatch_scale<float>(scale_dtype, x, scale, dy, ds, dx, dscale, part,
-                              cnt, rows, d, eps, st);
-  else if (x_dtype == repro::kBFloat16)
-    e = dispatch_scale<__nv_bfloat16>(scale_dtype, x, scale, dy, ds, dx,
-                                      dscale, part, cnt, rows, d, eps, st);
+  if (d < 1 || d > kMaxD || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = by_dtypes(x_dtype, scale_dtype, [&](auto tx, auto ts) {
+    return dispatch_width<decltype(tx), decltype(ts)>(
+        x, scale, dy, ds, dx, dscale, static_cast<float*>(partial),
+        static_cast<int*>(counters), rows, d, eps,
+        static_cast<cudaStream_t>(stream));
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gated form: y fp32 rows of stride ld_y, z rows of stride ld_z in z's
+// dtype (x_dtype), dout rows x d in z's dtype, contiguous; writes dy (rows x
+// d fp32), dz (rows x d in z's dtype) and dscale; partial and counters as
+// above. 1 <= d <= 8,192.
+extern "C" int repro_rmsnorm_gated_bwd(const void* y, long long ld_y,
+                                       const void* z, long long ld_z,
+                                       const void* scale, const void* dout,
+                                       void* dy, void* dz, void* dscale,
+                                       void* partial, void* counters,
+                                       long long rows, int d, float eps,
+                                       int x_dtype, int scale_dtype,
+                                       void* stream) {
+  if (d < 1 || d > kMaxD || rows < 1 || ld_y < d || ld_z < d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = by_dtypes(x_dtype, scale_dtype, [&](auto tx, auto ts) {
+    return dispatch_gated<decltype(tx), decltype(ts)>(
+        y, ld_y, z, ld_z, scale, dout, dy, dz, dscale,
+        static_cast<float*>(partial), static_cast<int*>(counters), rows, d,
+        eps, static_cast<cudaStream_t>(stream));
+  });
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -179,8 +179,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bg,
                const T* __restrict__ Cg, float* __restrict__ y,
-               float* __restrict__ hout, int S, int H, int G, int N, int P,
-               int async) {
+               float* __restrict__ hout, float* __restrict__ hchunks, int S,
+               int H, int G, int N, int P, int async) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int PT = kPT;
   constexpr int NT = PT / 8;                 // 8-column tiles of the P tile
@@ -279,9 +279,33 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   if (use_async) load_async(0, 0, S < kChunk ? S : kChunk);
 
+  // this block's columns of the state, rows in its warps' m-tiles, to dst
+  // (N rows of stride P)
+  auto store_state = [&](float* dst) {
+#pragma unroll
+    for (int r = 0; r < kMaxMT; ++r) {
+      const int mi = warp + kWarps * r;
+      if (mi >= nmt) break;
+      const int m0 = 16 * mi + gq, m1 = m0 + 8;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int col = 8 * t + 2 * tq;
+        if (m0 < N)
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(m0) * P + col) =
+              make_float2(hreg[r][t][0], hreg[r][t][1]);
+        if (m1 < N)
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(m1) * P + col) =
+              make_float2(hreg[r][t][2], hreg[r][t][3]);
+      }
+    }
+  };
+
   for (int c = 0; c < nchunks; ++c) {
     const int s0 = c * kChunk;
     const int l = S - s0 < kChunk ? S - s0 : kChunk;
+    if (hchunks != nullptr)      // the state before chunk c, for training
+      store_state(hchunks + ((static_cast<size_t>(b) * nchunks + c) * H + h)
+                                * N * P + p0);
     const int st = use_async ? (c & 1) : 0;
     if (use_async) {
       asm volatile("cp.async.wait_all;" ::: "memory");
@@ -526,29 +550,14 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 
   // ---- the final state ----
-  float* ho = hout + static_cast<size_t>(bh) * N * P + p0;
-#pragma unroll
-  for (int r = 0; r < kMaxMT; ++r) {
-    const int mi = warp + kWarps * r;
-    if (mi >= nmt) break;
-    const int m0 = 16 * mi + gq, m1 = m0 + 8;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int col = 8 * t + 2 * tq;
-      if (m0 < N)
-        *reinterpret_cast<float2*>(ho + static_cast<size_t>(m0) * P + col) =
-            make_float2(hreg[r][t][0], hreg[r][t][1]);
-      if (m1 < N)
-        *reinterpret_cast<float2*>(ho + static_cast<size_t>(m1) * P + col) =
-            make_float2(hreg[r][t][2], hreg[r][t][3]);
-    }
-  }
+  store_state(hout + static_cast<size_t>(bh) * N * P + p0);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* B, const void* C, void* y, void* h, int Bt,
-                   int S, int H, int G, int N, int P, cudaStream_t stream) {
+                   const void* B, const void* C, void* y, void* h,
+                   void* hchunks, int Bt, int S, int H, int G, int N, int P,
+                   cudaStream_t stream) {
   const int bytes = layout(N).total;
   cudaError_t e = cudaFuncSetAttribute(
       ssd_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -567,29 +576,33 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<float*>(y),
-      static_cast<float*>(h), S, H, G, N, P, async);
+      static_cast<float*>(h), static_cast<float*>(hchunks), S, H, G, N, P,
+      async);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (Bt,S,H,P), B and C (Bt,S,G,N) of dtype `dtype`; dt (Bt,S,H) and A (H,)
-// fp32; y (Bt,S,H,P) and h (Bt,H,N,P) fp32. One block per (b, h, 16
+// fp32; y (Bt,S,H,P) and h (Bt,H,N,P) fp32; hchunks null, or (Bt,
+// ceil(S/64), H, N, P) fp32 for the state before each 64-token chunk (the
+// training forward's, which the backward takes). One block per (b, h, 16
 // columns of P). The caller checked H % G == 0; P must be a multiple of 16
 // and N at most 256, or the call returns cudaErrorInvalidValue; an N whose
 // shared memory a block cannot opt into returns the error of
 // cudaFuncSetAttribute.
 extern "C" int repro_ssd(const void* x, const void* dt, const void* A,
                          const void* B, const void* C, void* y, void* h,
-                         int Bt, int S, int H, int G, int N, int P, int dtype,
-                         void* stream) {
+                         void* hchunks, int Bt, int S, int H, int G, int N,
+                         int P, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > kMaxN || P % kPT || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == repro::kFloat32)
-    e = launch<float>(x, dt, A, B, C, y, h, Bt, S, H, G, N, P, s);
+    e = launch<float>(x, dt, A, B, C, y, h, hchunks, Bt, S, H, G, N, P, s);
   else if (dtype == repro::kBFloat16)
-    e = launch<__nv_bfloat16>(x, dt, A, B, C, y, h, Bt, S, H, G, N, P, s);
+    e = launch<__nv_bfloat16>(x, dt, A, B, C, y, h, hchunks, Bt, S, H, G, N,
+                              P, s);
   return static_cast<int>(e);
 }

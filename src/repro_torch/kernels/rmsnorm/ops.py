@@ -1,7 +1,8 @@
 """RMSNorm and its two fused forms: the CUDA kernel for CUDA tensors, the
-plain versions for CPU ones; and the backward of the plain and residual
-forms (``csrc/rmsnorm_bwd.cu``), with the ``autograd.Function``s that the
-training path calls (:func:`rmsnorm_train`, :func:`rmsnorm_residual_train`).
+plain versions for CPU ones; and the backward of all three forms
+(``csrc/rmsnorm_bwd.cu``), with the ``autograd.Function``s that the
+training path calls (:func:`rmsnorm_train`, :func:`rmsnorm_residual_train`,
+:func:`rmsnorm_gated_train`).
 
 ``LAUNCHES`` counts forward kernel launches of every form, ``FORM_LAUNCHES``
 each form's; ``BWD_LAUNCHES`` the backward's (one kernel: the rows and the
@@ -13,13 +14,13 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .ref import (rmsnorm_bwd_ref, rmsnorm_gated_ref, rmsnorm_ref,
-                  rmsnorm_residual_ref)
+from .ref import (rmsnorm_bwd_ref, rmsnorm_gated_bwd_ref, rmsnorm_gated_ref,
+                  rmsnorm_ref, rmsnorm_residual_ref)
 
 LAUNCHES = 0
 FORM_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
 BWD_LAUNCHES = 0
-FORM_BWD_LAUNCHES = {"plain": 0, "residual": 0}
+FORM_BWD_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
 BWD_MAX_D = 8192
 _BWD_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
@@ -217,6 +218,54 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     return dx, dscale
 
 
+def rmsnorm_gated_bwd(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                      dout: torch.Tensor, *, eps: float = 1e-5
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dy fp32, dz in z's dtype, dscale) of :func:`rmsnorm_gated` at (y, z,
+    scale) for the output gradient ``dout`` (z's shape and dtype,
+    contiguous); y and z may be rows of a wider tensor, as the forward
+    takes them; dy and dz come back contiguous. One kernel on the card, the
+    plain and residual forms' grid and column sums (deterministic)."""
+    global BWD_LAUNCHES
+    if _on_cpu("rmsnorm_gated_bwd", y, z, scale, dout):
+        return rmsnorm_gated_bwd_ref(y, z, scale, dout, eps=eps)
+    _check_scale("rmsnorm_gated_bwd", scale, z)
+    if y.shape != z.shape or dout.shape != z.shape or dout.dtype != z.dtype:
+        raise ValueError(f"rmsnorm_gated_bwd: y {tuple(y.shape)}, z "
+                         f"{tuple(z.shape)} {z.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if y.dtype != torch.float32:
+        raise TypeError(f"rmsnorm_gated_bwd: y must be float32, got {y.dtype}")
+    d = z.shape[-1]
+    ld_y, ld_z = _rows(y, d), _rows(z, d)
+    if ld_y is None or ld_z is None or not dout.is_contiguous():
+        raise ValueError("rmsnorm_gated_bwd: y and z must be rows of "
+                         "unit-stride values and dout contiguous, got strides "
+                         f"{y.stride()}, {z.stride()}, {dout.stride()}")
+    if d > BWD_MAX_D:
+        raise ValueError(f"rmsnorm_gated_bwd: rows of {d} exceed {BWD_MAX_D}")
+    x_code, s_code = _build.dtype_code(z.dtype), _build.dtype_code(scale.dtype)
+    dy = torch.empty(z.shape, dtype=torch.float32, device=z.device)
+    dz = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    dscale = torch.empty_like(scale)
+    rows = z.numel() // d if d else 0
+    if rows == 0:
+        return dy, dz, dscale.zero_()
+    lib, stream = _build.lib(), _build.stream_of(z)
+    partial = torch.empty((lib.repro_rmsnorm_bwd_partial_rows(), d),
+                          dtype=torch.float32, device=z.device)
+    err = lib.repro_rmsnorm_gated_bwd(
+        y.data_ptr(), ld_y, z.data_ptr(), ld_z, scale.data_ptr(),
+        dout.data_ptr(), dy.data_ptr(), dz.data_ptr(), dscale.data_ptr(),
+        partial.data_ptr(),
+        bwd_counters(z.device, stream.value or 0).data_ptr(), rows, d,
+        float(eps), x_code, s_code, stream)
+    _build.check(err, "rmsnorm_gated_bwd")
+    BWD_LAUNCHES += 1
+    FORM_BWD_LAUNCHES["gated"] += 1
+    return dy, dz, dscale
+
+
 class RMSNorm(torch.autograd.Function):
     """:func:`rmsnorm` whose backward is :func:`rmsnorm_bwd`."""
 
@@ -257,6 +306,25 @@ class RMSNormResidual(torch.autograd.Function):
         return dx, dx, dscale, None
 
 
+class RMSNormGated(torch.autograd.Function):
+    """:func:`rmsnorm_gated` whose backward is :func:`rmsnorm_gated_bwd`; z
+    may be a column slice of a wider tensor, and its gradient comes back
+    contiguous (autograd's slice or split backward puts it in place)."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, eps):
+        ctx.save_for_backward(y, z, scale)
+        ctx.eps = eps
+        return rmsnorm_gated(y, z, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, scale = ctx.saved_tensors
+        dy, dz, dscale = rmsnorm_gated_bwd(y, z, scale, dout.contiguous(),
+                                           eps=ctx.eps)
+        return dy, dz, dscale, None
+
+
 def rmsnorm_train(x: torch.Tensor, scale: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """Differentiable :func:`rmsnorm` (the training path)."""
@@ -268,3 +336,10 @@ def rmsnorm_residual_train(x: torch.Tensor, delta: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable :func:`rmsnorm_residual` (the training path)."""
     return RMSNormResidual.apply(x, delta, scale, eps)
+
+
+def rmsnorm_gated_train(y: torch.Tensor, z: torch.Tensor,
+                        scale: torch.Tensor, *, eps: float = 1e-5
+                        ) -> torch.Tensor:
+    """Differentiable :func:`rmsnorm_gated` (the training path)."""
+    return RMSNormGated.apply(y, z, scale, eps)

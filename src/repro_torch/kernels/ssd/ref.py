@@ -6,7 +6,9 @@ Pallas kernel ``ssd_pallas`` computes), ``precise=False`` keeps the
 mixed-precision data path of the JAX model (bf16 (…,P)/(…,N)-scale tensors
 and dual-form products, an fp32 scalar path and state carry), with the
 same casts at the same places so each precision can be held against JAX.
-``ssd_ref`` is the precise one, the plain version of the kernel.
+``ssd_ref`` is the precise one, the plain version of the kernel;
+``ssd_bwd_ref``, its autograd backward, is the plain version of the
+backward kernel (``csrc/ssd_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -95,3 +97,14 @@ def ssd_ref(x, dt, A, B, C, *, Q: int = 256):
     chunk length follows :func:`chunk_len`)."""
     return ssd_chunked(x, dt, A, B, C, chunk_len(x.shape[1], Q),
                        precise=True)
+
+
+def ssd_bwd_ref(x, dt, A, B, C, dy, *, Q: int = 256):
+    """(dx, ddt, dA, dB, dC) of ``ssd_ref``'s y for the output gradient dy
+    (Bt,S,H,P) fp32: ``torch.autograd.grad`` through the fp32 chunked form,
+    each gradient in its input's dtype (the final state takes no
+    gradient: training does not use it)."""
+    ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+    with torch.enable_grad():
+        y, _ = ssd_ref(*ins, Q=Q)
+        return torch.autograd.grad(y, ins, dy)

@@ -5,11 +5,13 @@ Mirrors ``repro.models.ssm``. Recurrence (per head h, state N, head dim P):
     h_t = exp(dt_t·A) · h_{t-1} + dt_t · B_t ⊗ x_t        h ∈ R^{N×P}
     y_t = C_t · h_t + D · x_t
 
-Prefill goes through ``kernels/ssd`` where the JAX model calls
+Prefill and training go through ``kernels/ssd`` where the JAX model calls
 ``ssd_chunked``: the hand-written kernel on the card (fp32, the function
 ``ssd_pallas`` computes), its plain version ``ssd_chunked(precise=True)``
-on the CPU. Decode is the recurrence in plain torch ops, as in the JAX
-package, where it has no kernel. Parameters are a flat dict per layer:
+on the CPU; training (``cache=None``) takes the differentiable forms of the
+scan and of the gated RMSNorm, whose backward passes are kernels too.
+Decode is the recurrence in plain torch ops, as in the JAX package, where
+it has no kernel. Parameters are a flat dict per layer:
 ``in_proj, conv_w, conv_b, dt_bias, A_log, D, norm, out_proj`` (``norm`` is
 the gated RMSNorm's scale), weights in the JAX ``(d_in, d_out)`` layout.
 """
@@ -20,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.rmsnorm.ops import rmsnorm_gated_train
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import chunk_len
 from ..kernels.ssd.ref import ssd_chunked  # noqa: F401  (the JAX name)
@@ -67,6 +70,16 @@ def mamba_init(gen: torch.Generator, cfg, device) -> dict[str, torch.Tensor]:
     }
 
 
+def mamba_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """The shape of each of one layer's ``MAMBA_PARAMS``."""
+    d_inner, H, P, N, G = _dims(cfg)
+    conv_ch = d_inner + 2 * G * N
+    return {"in_proj": (cfg.d_model, 2 * d_inner + 2 * G * N + H),
+            "conv_w": (cfg.ssm_conv, conv_ch), "conv_b": (conv_ch,),
+            "dt_bias": (H,), "A_log": (H,), "D": (H,), "norm": (d_inner,),
+            "out_proj": (d_inner, cfg.d_model)}
+
+
 def mamba_param_count(cfg) -> int:
     d_inner, H, P, N, G = _dims(cfg)
     conv_ch = d_inner + 2 * G * N
@@ -104,8 +117,9 @@ def _split_proj(cfg, proj):
 def mamba_apply(params, x_in, cfg, *, cache=None):
     """Mamba2 mixer, x_in (B,S,d_model) -> (out, new_cache).
 
-    ``cache=None``: full sequence, no cache (train). ``cache={}``: prefill,
-    returns the decode cache ``{"conv": (B,W-1,Ch), "h": (B,H,N,P)}``.
+    ``cache=None``: full sequence, no cache (train: the differentiable
+    SSD scan and gated RMSNorm). ``cache={}``: prefill, returns the decode
+    cache ``{"conv": (B,W-1,Ch), "h": (B,H,N,P)}``.
     A cache with those leaves and S == 1: one decode step, returns the
     updated cache (new tensors; the caller stores them).
     """
@@ -152,15 +166,17 @@ def mamba_apply(params, x_in, cfg, *, cache=None):
     Bs = Bs.reshape(Bt, S, G, N).contiguous()
     Cs = Cs.reshape(Bt, S, G, N).contiguous()
     dtv = F.softplus(dt_raw.to(f32) + params["dt_bias"].to(f32)).contiguous()
-    y, h_fin = ssd_ops.ssd(x, dtv, A.contiguous(), Bs, Cs,
-                           Q=chunk_len(S, cfg.ssm_chunk))
+    train = cache is None
+    scan, gated = ((ssd_ops.ssd_train, rmsnorm_gated_train) if train
+                   else (ssd_ops.ssd, rmsnorm_gated))
+    y, h_fin = scan(x, dtv, A.contiguous(), Bs, Cs,
+                    Q=chunk_len(S, cfg.ssm_chunk))
     y = y + D[None, None, :, None] * x.to(f32)
     # rmsnorm(y.to(dt_) * silu(z)): one pass on the card
-    y = rmsnorm_gated(y.reshape(Bt, S, d_inner), z, params["norm"],
-                      eps=cfg.norm_eps)
+    y = gated(y.reshape(Bt, S, d_inner), z, params["norm"], eps=cfg.norm_eps)
     out = y @ params["out_proj"].to(dt_)
 
-    if cache is not None:  # prefill: conv window = last W-1 raw inputs
+    if not train:          # prefill: conv window = last W-1 raw inputs
         pad = torch.zeros((Bt, max(0, W - 1 - S), xBC_raw.shape[-1]),
                           dtype=cfg.dtype, device=x_in.device)
         tail = xBC_raw[:, max(0, S - (W - 1)):].to(cfg.dtype)

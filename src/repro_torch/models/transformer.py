@@ -29,9 +29,10 @@ layers are a ``ModuleList`` in global layer order, built from
 (n_layers, B, H, N, P) fp32 for the SSM family.
 
 Training (:func:`forward_train`) takes the JAX package's parameter tree
-instead, fp32 master weights with the layers stacked (``blocks/slot0``),
-see :func:`init_train_params`; it runs the same block math with the
-differentiable kernels.
+instead, fp32 master weights with the layers stacked (``blocks/slot0``:
+``{ln1, attn, ln2, mlp}`` for the dense family, ``{ln, mamba}`` for the
+ssm one), see :func:`init_train_params`; it runs the same block math with
+the differentiable kernels.
 
 Parameters are a flat dict keyed like this module's ``state_dict``:
 ``embed`` (Vpad, d), ``final_norm`` (d,), and ``layers.{i}.{name}``, for
@@ -43,6 +44,7 @@ conv_w, conv_b, dt_bias, A_log, D, norm, out_proj`` (Mamba2), in the JAX
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -55,7 +57,8 @@ from ..kernels.flash_attention.ops import flash_attention_train
 from ..kernels.rmsnorm.ops import rmsnorm_residual_train, rmsnorm_train
 from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
                      rmsnorm, rmsnorm_residual, rope_angles)
-from .ssm import MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init
+from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
+                  mamba_shapes)
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
 # the decode_combine hook's meta for the layers this port builds: full
@@ -356,6 +359,25 @@ TRAIN_LEAF_PATHS = {"ln1": ("ln1", "scale"), "wq": ("attn", "wq"),
                     "wo": ("attn", "wo"), "ln2": ("ln2", "scale"),
                     "gate": ("mlp", "gate"), "up": ("mlp", "up"),
                     "down": ("mlp", "down")}
+#: where each of ``MAMBA_LAYER_PARAMS`` sits in a Mamba2 layer of the JAX
+#: tree (``src/repro/models/transformer.py`` ``_layer_init``)
+MAMBA_TRAIN_LEAF_PATHS = {
+    "ln": ("ln", "scale"), **{n: ("mamba", n) for n in MAMBA_PARAMS},
+    "norm": ("mamba", "norm", "scale")}
+
+
+def train_leaf_paths(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
+    """A layer's leaf name -> its path in a layer slot of the JAX tree, for
+    ``cfg``'s family, in the order :func:`layer_params` gives."""
+    if cfg.family == "ssm":
+        return {n: MAMBA_TRAIN_LEAF_PATHS[n] for n in MAMBA_LAYER_PARAMS}
+    return TRAIN_LEAF_PATHS
+
+
+def layer_params(cfg: ModelConfig) -> tuple[str, ...]:
+    """The leaf names of one layer of ``cfg``'s training tree:
+    ``LAYER_PARAMS`` (dense) or ``MAMBA_LAYER_PARAMS`` (ssm)."""
+    return tuple(train_leaf_paths(cfg))
 
 
 def _check_train(cfg: ModelConfig) -> None:
@@ -367,23 +389,35 @@ def _check_train(cfg: ModelConfig) -> None:
 
 def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "ssm":
+        return {"ln": (d,), **mamba_shapes(cfg)}
     hq, hkv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
     return {"ln1": (d,), "wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
             "wo": (hq, d), "ln2": (d,), "gate": (d, f), "up": (d, f),
             "down": (f, d)}
 
 
-def stack_tree(layers: dict[str, Any]) -> dict:
-    """``LAYER_PARAMS`` name -> leaf, as the JAX tree of one layer slot."""
+def stack_tree(layers: dict[str, Any], cfg: ModelConfig) -> dict:
+    """Leaf name -> leaf, as the JAX tree of one layer slot of ``cfg``'s
+    family."""
     tree: dict = {}
-    for name, (a, b) in TRAIN_LEAF_PATHS.items():
-        tree.setdefault(a, {})[b] = layers[name]
+    for name, path in train_leaf_paths(cfg).items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = layers[name]
     return tree
 
 
-def layer_leaves(slot: dict) -> dict[str, Any]:
+def layer_leaves(slot: dict, cfg: ModelConfig) -> dict[str, Any]:
     """The inverse of :func:`stack_tree`."""
-    return {name: slot[a][b] for name, (a, b) in TRAIN_LEAF_PATHS.items()}
+    out = {}
+    for name, path in train_leaf_paths(cfg).items():
+        node = slot
+        for k in path:
+            node = node[k]
+        out[name] = node
+    return out
 
 
 def train_param_shapes(cfg: ModelConfig) -> dict:
@@ -395,28 +429,34 @@ def train_param_shapes(cfg: ModelConfig) -> dict:
     layers = {n: meta(L, *shp) for n, shp in _layer_shapes(cfg).items()}
     return {"embed": meta(cfg.padded_vocab, d),
             "final_norm": {"scale": meta(d)},
-            "blocks": {"slot0": stack_tree(layers)}, "rest": []}
+            "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
 
 
 def init_train_params(cfg: ModelConfig, generator: torch.Generator,
                       device: torch.device | str) -> dict:
     """fp32 master weights in the JAX package's tree: ``embed`` (Vpad, d),
-    ``final_norm/scale``, ``blocks/slot0/{ln1,attn,ln2,mlp}`` stacked over
-    the layers, ``rest`` empty. The values are :func:`init_params`'s for the
-    same generator (same draws in the same order), in fp32."""
+    ``final_norm/scale``, ``blocks/slot0`` (``{ln1, attn, ln2, mlp}``, or
+    ``{ln, mamba}`` for the ssm family) stacked over the layers, ``rest``
+    empty. The values are :func:`init_params`'s for the same generator
+    (same draws in the same order), in fp32."""
     _check_train(cfg)
     L, d = cfg.n_layers, cfg.d_model
     shapes = _layer_shapes(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     embed = embed_init(generator, cfg.padded_vocab, d, torch.float32, device)
     layers = {n: torch.zeros((L,) + shp, **f32) for n, shp in shapes.items()}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     for i in range(L):
-        for name in LAYER_PARAMS:
-            if name not in ("ln1", "ln2"):
-                layers[name][i] = dense_init(generator, *shapes[name],
-                                             torch.float32, device)
+        if cfg.family == "ssm":
+            drawn = mamba_init(generator, cfg32, device)
+        else:
+            drawn = {n: dense_init(generator, *shapes[n], torch.float32,
+                                   device)
+                     for n in LAYER_PARAMS if n not in ("ln1", "ln2")}
+        for name, t in drawn.items():
+            layers[name][i] = t
     return {"embed": embed, "final_norm": {"scale": torch.zeros((d,), **f32)},
-            "blocks": {"slot0": stack_tree(layers)}, "rest": []}
+            "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
 
 
 def train_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
@@ -425,11 +465,11 @@ def train_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     _check_train(cfg)
     conv = lambda a: torch.from_numpy(np.array(a, dtype=np.float32,
                                                 copy=True))
-    layers = {n: conv(a) for n, a in layer_leaves(tree["blocks"]["slot0"])
-              .items()}
+    layers = {n: conv(a) for n, a in layer_leaves(tree["blocks"]["slot0"],
+                                                  cfg).items()}
     return {"embed": conv(tree["embed"]),
             "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
-            "blocks": {"slot0": stack_tree(layers)}, "rest": []}
+            "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
 
 
 def block_train(x, w, cos, sin, cfg: ModelConfig):
@@ -440,16 +480,25 @@ def block_train(x, w, cos, sin, cfg: ModelConfig):
     return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train)
 
 
+def mamba_block_train(x, w, cfg: ModelConfig):
+    """:class:`MambaBlock`'s math, ``x + mamba(rmsnorm(x, ln))``, with the
+    differentiable kernels (the mixer's training branch: the SSD scan and
+    the gated RMSNorm whose backward passes are kernels)."""
+    h = rmsnorm_train(x, w["ln"], eps=cfg.norm_eps)
+    y, _ = mamba_apply({n: w[n] for n in MAMBA_PARAMS}, h, cfg)
+    return x + y
+
+
 def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   remat: bool = True, gather=None, prefetch=None
                   ) -> torch.Tensor:
-    """The JAX ``forward(mode="train")`` of the dense family: tokens (B, S)
-    -> logits (B, S, Vpad) in ``cfg.dtype``.
+    """The JAX ``forward(mode="train")`` of the dense and ssm families:
+    tokens (B, S) -> logits (B, S, Vpad) in ``cfg.dtype``.
 
-    ``params`` is {embed, final_norm, layers: [one ``LAYER_PARAMS`` dict a
-    layer]}: the leaves of the training tree, each layer's a slice of the
-    stacked leaves (or a shard of it). ``gather(name, leaf)`` turns a
-    leaf (``embed``, ``final_norm`` or a ``LAYER_PARAMS`` name) into the full
+    ``params`` is {embed, final_norm, layers: [one :func:`layer_params`
+    dict a layer]}: the leaves of the training tree, each layer's a slice
+    of the stacked leaves (or a shard of it). ``gather(name, leaf)`` turns a
+    leaf (``embed``, ``final_norm`` or a layer leaf's name) into the full
     weight in ``cfg.dtype`` where it is used (default: the cast; FSDP: the
     cast, then the parameter gather). With ``remat`` each block runs under
     ``torch.utils.checkpoint`` with its gathers inside, so the backward
@@ -459,26 +508,29 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     from torch.utils.checkpoint import checkpoint
     _check_train(cfg)
     gather = gather or (lambda name, t: t.to(cfg.dtype))
+    names = layer_params(cfg)
     B, S = tokens.shape
     embed = gather("embed", params["embed"])
     x = torch.nn.functional.embedding(tokens, embed)
-    cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
-                           cfg.head_dim_, cfg.rope_theta)
+    if cfg.family == "ssm":
+        block = lambda x, w: mamba_block_train(x, w, cfg)
+    else:
+        cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
+                               cfg.head_dim_, cfg.rope_theta)
+        block = lambda x, w: block_train(x, w, cos, sin, cfg)
 
     def gathered(x, *leaves):
-        w = {n: gather(n, t) for n, t in zip(LAYER_PARAMS, leaves)}
-        return block_train(x, w, cos, sin, cfg)
+        return block(x, {n: gather(n, t) for n, t in zip(names, leaves)})
 
     def full(x, *weights):
-        return block_train(x, dict(zip(LAYER_PARAMS, weights)), cos, sin,
-                           cfg)
+        return block(x, dict(zip(names, weights)))
 
     run = lambda fn, x, args: (checkpoint(fn, x, *args, use_reentrant=False)
                                if remat else fn(x, *args))
     layers = params["layers"]
     if prefetch is None:
         for lp in layers:
-            x = run(gathered, x, [lp[n] for n in LAYER_PARAMS])
+            x = run(gathered, x, [lp[n] for n in names])
     else:
         depth = max(1, int(prefetch.depth))
         fifo = [prefetch.start(layers[i])
@@ -487,7 +539,7 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             if i + depth < len(layers):
                 fifo.append(prefetch.start(layers[i + depth]))
             w = prefetch.finish(fifo.pop(0))
-            x = run(full, x, [w[n] for n in LAYER_PARAMS])
+            x = run(full, x, [w[n] for n in names])
     x = rmsnorm_train(x, gather("final_norm", params["final_norm"]),
                       eps=cfg.norm_eps)
     return x @ embed.T

@@ -212,7 +212,7 @@ class BlockPrefetch:
     the same schedule per leaf."""
 
     def __init__(self, geos: dict[str, LeafGather | None], dtype, depth: int):
-        self.geos = geos              # LAYER_PARAMS name -> gather (None:
+        self.geos = geos              # layer leaf name -> gather (None:
         self.dtype = dtype            # replicated, cast only)
         self.depth = depth
 
@@ -348,9 +348,11 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                               meter)
         return LeafGather(pod, "xla" if xla else "bruck", dim, meter)
 
-    slot_dims = T.layer_leaves(block_slice_dims(dims["blocks"]["slot0"]))
-    slot_axes = T.layer_leaves(fsaxes["blocks"]["slot0"])
-    geos = {n: geo(slot_dims[n], slot_axes[n]) for n in T.LAYER_PARAMS}
+    names = T.layer_params(cfg)
+    slot_dims = T.layer_leaves(block_slice_dims(dims["blocks"]["slot0"]),
+                               cfg)
+    slot_axes = T.layer_leaves(fsaxes["blocks"]["slot0"], cfg)
+    geos = {n: geo(slot_dims[n], slot_axes[n]) for n in names}
     geos["embed"] = geo(dims["embed"], fsaxes["embed"])
     geos["final_norm"] = geo(dims["final_norm"]["scale"],
                              fsaxes["final_norm"]["scale"])
@@ -360,7 +362,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
         g = geos[name]
         return x if g is None else g.finish(g.start(x))
 
-    hook = BlockPrefetch({n: geos[n] for n in T.LAYER_PARAMS}, cfg.dtype,
+    hook = BlockPrefetch({n: geos[n] for n in names}, cfg.dtype,
                          depth) if depth else None
 
     # sync by the leaf's geometry (leaves in the JAX flattening order)
@@ -423,7 +425,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
             view = {"embed": leaf(params["embed"]),
                     "final_norm": leaf(params["final_norm"]["scale"]),
                     "layers": [{n: leaf(t, i) for n, t in T.layer_leaves(
-                        params["blocks"]["slot0"]).items()}
+                        params["blocks"]["slot0"], cfg).items()}
                         for i in range(cfg.n_layers)]}
             part = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}
             try:

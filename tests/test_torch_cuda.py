@@ -17,7 +17,8 @@ copies bytes and is held equal; the SSD scan (fp32 output whatever its
 input dtype, held against the plain version on the same inputs) max |y -
 y_ref| / max |y_ref| < 1e-4 and max |h - h_ref| / max |h_ref| < 1e-4, the chunk
 invariance bound of ``tests/test_kernels.py`` (the kernel chunks by 64,
-the plain version by Q).
+the plain version by Q); the SSD backward and the gated RMSNorm backward
+at the tolerances stated where their cases are (``SSD_BWD_REL``).
 """
 import pytest
 import torch
@@ -461,8 +462,10 @@ def test_launch_counts_follow_the_graph_replays(cuda, arch):
     want.update(decode_scores=attn * steps, decode_stats=attn * steps,
                 flash_attention=attn * prefills, ssd=mamba * prefills,
                 dma_allgather=0, rmsnorm_bwd=0, flash_attention_bwd_dq=0,
-                flash_attention_bwd_dkdv=0, flash_attention_bwd_wgmma=0)
-    want.update({"rmsnorm_bwd.plain": 0, "rmsnorm_bwd.residual": 0})
+                flash_attention_bwd_dkdv=0, flash_attention_bwd_wgmma=0,
+                ssd_bwd=0)
+    want.update({"rmsnorm_bwd.plain": 0, "rmsnorm_bwd.residual": 0,
+                 "rmsnorm_bwd.gated": 0})
     assert {k: after[k] - before[k] for k in after} == want
 
 
@@ -813,6 +816,173 @@ def test_rmsnorm_train_gradients_match_autograd_of_the_plain_version(cuda,
 
     got = run(rms_ops.rmsnorm_train, rms_ops.rmsnorm_residual_train)
     want = run(rms_ops.rmsnorm_ref, rms_ops.rmsnorm_residual_ref)
+    for a, b, fp32_tol in zip(got, want, (1e-4, 1e-4, 1e-3)):
+        tol = fp32_tol if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's backward and the gated RMSNorm's backward
+# ---------------------------------------------------------------------------
+# the forward's edge cases, the mamba2-780m training shape at one sequence,
+# and P = 80 (a partial tile of 64 columns)
+SSD_BWD_CASES = SSD_EDGE_CASES + [(1, 1024, 48, 64, 1, 128),
+                                  (2, 300, 8, 80, 1, 16)]
+# max |err| / max |ref| per gradient: fp32 1e-4 (the forward's); dA, a sum
+# of terms of both signs over every token, 1e-3 (it cancels: the same
+# roundings are a larger share of it); bf16 dx, dB and dC, one rounding of
+# the fp32 value (2^-9 of it), 1e-2 against the plain version in fp32 on
+# the same bf16 inputs
+SSD_BWD_REL = {"dx": 1e-4, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4, "dC": 1e-4}
+SSD_BWD_BF16_REL = 1e-2
+
+
+def _ssd_bwd_errors(got, ins, dy) -> dict:
+    up = [t.float() if t.dtype == torch.bfloat16 else t for t in ins]
+    want = ssd_ops.ssd_bwd_ref(*up, dy, Q=256)
+    # a gradient that is exactly 0 (dA of a one-token sequence: the state
+    # before it is 0) is held to 0
+    return {n: float((a.float() - b).abs().max())
+            / max(float(b.abs().max()), 1e-30)
+            for n, a, b in zip(SSD_BWD_REL, got, want)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_ssd_bwd_kernel_on_card(cuda, dtype, case):
+    """dx, ddt, dA, dB and dC against the plain backward (fp32 on the same
+    inputs), each in its input's dtype, given the forward kernel's chunk
+    states as the training path gives them; two calls bitwise equal; the
+    backward's four launches counted a call."""
+    ins = _ssd_inputs(case, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn(ins[0].shape, generator=g, device=cuda)
+    states = ssd_ops.ssd_with_states(*ins)[2]
+    before = ssd_ops.BWD_LAUNCHES
+    got = ssd_ops.ssd_bwd(*ins, dy, states)
+    torch.cuda.synchronize()
+    assert ssd_ops.BWD_LAUNCHES == before + ssd_ops.BWD_KERNELS
+    assert [t.dtype for t in got] == [ins[0].dtype, torch.float32,
+                                      torch.float32, ins[3].dtype,
+                                      ins[4].dtype]
+    for name, err in _ssd_bwd_errors(got, ins, dy).items():
+        tol = (SSD_BWD_BF16_REL if dtype == torch.bfloat16
+               and name in ("dx", "dB", "dC") else SSD_BWD_REL[name])
+        assert err < tol, (name, err)
+    again = ssd_ops.ssd_bwd(*ins, dy, states)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 16, 4, 16, 1, 16), torch.float32, cuda)
+    states = ssd_ops.ssd_with_states(x, dt, A, B, C)[2]
+    big = torch.zeros((1, 16, 1, 512), device=cuda)
+    with pytest.raises(ValueError, match="N=512"):
+        ssd_ops.ssd_bwd(x, dt, A, big, big, torch.zeros_like(x), states)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops.ssd_bwd(x, dt, A, B, C, torch.zeros_like(x).double(), states)
+    for wrong in (None, torch.zeros((1, 1, 4, 16, 8), device=cuda)):
+        with pytest.raises(ValueError, match="states"):
+            ssd_ops.ssd_bwd(x, dt, A, B, C, torch.zeros_like(x), wrong)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_ops.ssd_bwd(x.reshape(1, 16, 8, 8).contiguous(),
+                        dt.repeat(1, 1, 2).contiguous(), A.repeat(2), B, C,
+                        torch.zeros((1, 16, 8, 8), device=cuda), None)
+
+
+@pytest.mark.gpu
+def test_ssd_train_gradients_match_autograd_of_the_plain_version(cuda):
+    """``ssd_train`` through torch.autograd (the forward kernel, then the
+    backward kernels) against autograd through ``ssd_ref``, fp32, at the
+    tolerances above; one forward launch and one backward call (its four
+    launches)."""
+    ins = _ssd_inputs((2, 200, 8, 32, 2, 64), torch.float32, cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    w = torch.randn(ins[0].shape, generator=g, device=cuda)
+    counts = (ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y, h = fn(*leaves, Q=256)
+        assert h.requires_grad == (fn is ssd_ops.ssd_ref)
+        return torch.autograd.grad((y * w).sum(), leaves)
+
+    got = run(ssd_ops.ssd_train)
+    assert (ssd_ops.LAUNCHES - counts[0], ssd_ops.BWD_LAUNCHES - counts[1]) \
+        == (1, ssd_ops.BWD_KERNELS)
+    want = run(ssd_ops.ssd_ref)
+    for name, a, b in zip(SSD_BWD_REL, got, want):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err < SSD_BWD_REL[name], (name, err)
+
+
+# (rows, d, width of the tensor z is a column slice of, z's first column):
+# the mamba2-780m training rows (z the first 3,072 columns of in_proj's
+# 6,448), ragged rows, d % 4 != 0 and an odd offset (one value an access)
+RMS_GATED_BWD_CASES = [(4096, 3072, 6448, 0), (37, 40, 40, 0),
+                       (256, 256, 600, 8), (5, 37, 90, 3), (64, 1536, 1600, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RMS_GATED_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_rmsnorm_gated_bwd_kernel_on_card(cuda, dtype, case):
+    """dy (fp32) and dz against the plain backward (dy 1e-5 in both dtypes:
+    fp32 from the same rounded inputs; fp32 dz 1e-5 and dscale, a sum over
+    every row, 1e-4; bf16 dz and dscale 2e-2), bitwise equal across two
+    calls, one launch a call, the counters set back."""
+    rows, d, width, off = case
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    y = rnd(rows, d) * 2
+    z = (rnd(rows, width) * 2).to(dtype)[:, off:off + d]
+    sc = (rnd(d) * 0.2).to(dtype)
+    dout = rnd(rows, d).to(dtype)
+    n = (rms_ops.BWD_LAUNCHES, rms_ops.FORM_BWD_LAUNCHES["gated"])
+    dy, dz, dsc = rms_ops.rmsnorm_gated_bwd(y, z, sc, dout)
+    assert (rms_ops.BWD_LAUNCHES - n[0],
+            rms_ops.FORM_BWD_LAUNCHES["gated"] - n[1]) == (1, 1)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    assert not rms_ops.bwd_counters(y.device, stream).any()
+    rdy, rdz, rdsc = rms_ops.rmsnorm_gated_bwd_ref(y, z, sc, dout)
+    assert (dy.dtype, dz.dtype, dsc.dtype) == (rdy.dtype, rdz.dtype,
+                                                rdsc.dtype)
+    assert dy.is_contiguous() and dz.is_contiguous()
+    _close(dy, rdy, torch.float32, 1e-5)
+    _close(dz, rdz, dtype, 1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dsc, rdsc, atol=1e-4, rtol=1e-4)
+    else:
+        _close(dsc, rdsc, dtype, None)
+    again = rms_ops.rmsnorm_gated_bwd(y, z, sc, dout)
+    assert all(torch.equal(a, b) for a, b in zip((dy, dz, dsc), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gated_train_gradients_match_autograd_of_the_plain_version(
+        cuda, dtype):
+    """``rmsnorm_gated_train`` on a slice of a wider tensor, through
+    torch.autograd, against autograd of the plain form (fp32 1e-4, bf16
+    5e-2: autograd rounds the bf16 product's gradients where the kernel
+    keeps fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    y, proj = rnd(64, 3072) * 2, (rnd(64, 6448) * 2).to(dtype)
+    sc = (rnd(3072) * 0.2).to(dtype)
+    w = rnd(64, 3072).to(dtype)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (y, proj, sc)]
+        out = fn(leaves[0], leaves[1][:, :3072], leaves[2], eps=1e-5)
+        return torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+
+    got = run(rms_ops.rmsnorm_gated_train)
+    want = run(rms_ops.rmsnorm_gated_ref)
     for a, b, fp32_tol in zip(got, want, (1e-4, 1e-4, 1e-3)):
         tol = fp32_tol if dtype == torch.float32 else 5e-2
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)

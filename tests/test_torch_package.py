@@ -20,6 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_stats import ops as stats_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.transformer import init_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -101,7 +102,8 @@ def test_backward_sources_note_what_they_are_the_backward_of():
 def test_cpu_calls_take_plain_versions_and_count_nothing():
     counts = (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
               rms_ops.BWD_LAUNCHES, flash_ops.BWD_DQ_LAUNCHES,
-              flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES)
+              flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES,
+              ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((4, 64), dtype=np.float32))
     sc = torch.zeros(64)
@@ -119,9 +121,17 @@ def test_cpu_calls_take_plain_versions_and_count_nothing():
     o, lse = flash_ops.flash_attention_lse(q, q, q)
     flash_ops.flash_attention_bwd(q, q, q, o, q, lse)
     rms_ops.rmsnorm_bwd(x, sc, x)
+    rms_ops.rmsnorm_gated_bwd(x, x, sc, x)
+    xs = torch.from_numpy(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
+    bc = torch.from_numpy(rng.standard_normal((1, 8, 1, 4), dtype=np.float32))
+    dt, A = torch.full((1, 8, 2), 0.1), torch.full((2,), -1.0)
+    y, _, states = ssd_ops.ssd_with_states(xs, dt, A, bc, bc, Q=4)
+    assert states is None
+    ssd_ops.ssd_bwd(xs, dt, A, bc, bc, y, states, Q=4)
     assert (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
             rms_ops.BWD_LAUNCHES, flash_ops.BWD_DQ_LAUNCHES,
-            flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES) == counts
+            flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES,
+            ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES) == counts
 
 
 def test_wrappers_refuse_mixed_devices_and_bad_dtypes():

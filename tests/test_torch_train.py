@@ -56,73 +56,7 @@ PORT_VARIANTS = {**JAX_VARIANTS,
 # one rank on the same 16
 BATCH = {"grad_accum": 16}
 
-JAX_REFERENCE = r"""
-import dataclasses, json, sys, warnings
-import numpy as np
-import jax, jax.numpy as jnp
-from jax.sharding import NamedSharding, PartitionSpec as P
-warnings.simplefilter("ignore")
-jax.config.update("jax_compilation_cache_dir", sys.argv[2])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-from repro import configs
-from repro.core import collectives as C
-from repro.core.hlo_analysis import collective_stats
-from repro.core.topology import device_pod_map
-from repro.data import SyntheticLM
-from repro.train.step import custom_batch_specs, init_state, make_train_step
-
-plan = json.loads(open(sys.argv[3]).read())
-out_dir = sys.argv[1]
-cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
-                          n_layers=plan["n_layers"], dtype=jnp.float32)
-B, S = plan["global_batch"], plan["seq_len"]
-mesh = jax.make_mesh((2, 4), ("pod", "data"))
-jax.set_mesh(mesh)
-pods = device_pod_map(mesh, ("pod",))
-EDGES = ("permute_edges_local", "permute_edges_nonlocal",
-         "permute_bytes_local", "permute_bytes_nonlocal")
-data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                   seed=0)
-path_of = lambda path: "/".join(
-    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
-save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
-    path_of(p): np.asarray(v)
-    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
-res = {}
-for name, kw in plan["variants"].items():
-    art = make_train_step(cfg, mesh, grad_sync="locality",
-                          shape=custom_batch_specs(cfg, B, S), donate=False,
-                          **kw)
-    state = init_state(cfg, mesh, art)
-    if name == "fsdp":
-        save("params0", state.params)
-    put = lambda b: {k: jax.device_put(v, art.batch_shardings[k])
-                     for k, v in b.items()}
-    compiled = art.step_fn.lower(state, put(data.batch(0))).compile()
-    st = collective_stats(compiled.as_text(), pods)
-    losses, norms = [], []
-    for step in range(plan["steps"]):
-        state, m = compiled(state, put(data.batch(step)))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    save(name, state.params)
-    res[name] = {"losses": losses, "grad_norms": norms,
-                 "hlo": {k: getattr(st, k) for k in EDGES},
-                 "permutes": st.counts.get("collective-permute", 0)}
-
-# one leaf's parameter gather, shard-mapped: the unit the port repeats
-f = jax.jit(jax.shard_map(
-    lambda x: C.allgather(x, ("pod",), ("data",), algorithm="locality_bruck",
-                          tiled=True, assume_varying=True),
-    mesh=mesh, in_specs=P(("pod", "data")), out_specs=P(), check_vma=False))
-a = jax.ShapeDtypeStruct((8 * 16, 4), jnp.float32,
-                         sharding=NamedSharding(mesh, P(("pod", "data"))))
-st = collective_stats(f.lower(a).compile().as_text(), pods)
-res["one_gather"] = {k: getattr(st, k) for k in EDGES}
-with open(f"{out_dir}/out.json", "w") as fh:
-    json.dump(res, fh)
-"""
+JAX_REFERENCE = H.JAX_TRAIN_REFERENCE
 
 
 @pytest.fixture(scope="module")
@@ -134,9 +68,10 @@ def jax_proc(tmp_path_factory):
                PYTHONPATH=os.pathsep.join(
                    [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
     plan = tmp / "plan.json"
-    plan.write_text(json.dumps(dict(n_layers=N_LAYERS, global_batch=B,
-                                    seq_len=S, steps=STEPS,
-                                    variants=JAX_VARIANTS)))
+    plan.write_text(json.dumps(dict(arch="llama3.2-3b", n_layers=N_LAYERS,
+                                    global_batch=B, seq_len=S, steps=STEPS,
+                                    variants=JAX_VARIANTS,
+                                    one_gather=[8 * 16, 4])))
     with open(tmp / "log.txt", "w") as fh:
         proc = subprocess.Popen(
             [sys.executable, "-c", JAX_REFERENCE, str(tmp),
@@ -314,8 +249,8 @@ def test_refusals_name_their_items():
                      (dict(moe_dispatch="locality"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(cfg, None, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(H._small_cfg("mamba2-780m", 2), None, device="cpu")
+    assert make_train_step(H._small_cfg("mamba2-780m", 2), None,
+                           device="cpu").step_fn is not None
     with pytest.raises(NotImplementedError, match="item 11"):
         param_specs({"embed": torch.empty(4, 4)},
                     {"pod": 2, "data": 2, "model": 2}, fsdp=True)

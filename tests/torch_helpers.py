@@ -610,8 +610,89 @@ def task_batch_spec_errors(ctx, q, pl):
 
 
 # ---------------------------------------------------------------------------
-# FSDP training (tests/test_torch_train.py)
+# FSDP training (tests/test_torch_train.py, tests/test_torch_ssm_train.py)
 # ---------------------------------------------------------------------------
+# The JAX reference of the training tests, run in a subprocess with 8 forced
+# host devices: ``python -c JAX_TRAIN_REFERENCE out_dir cache_dir plan.json``
+# with plan {arch, n_layers, global_batch, seq_len, steps, variants (name ->
+# make_train_step keywords), one_gather (the shape of one shard-mapped
+# parameter gather), precise_ssd (the mixer's ssd_chunked made precise)}.
+# It writes out.json (losses, grad norms, the compiled steps' and the one
+# gather's collective_stats) and an .npz of parameters per variant (and
+# params0, the initial state's).
+JAX_TRAIN_REFERENCE = r"""
+import dataclasses, json, sys, warnings
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+warnings.simplefilter("ignore")
+jax.config.update("jax_compilation_cache_dir", sys.argv[2])
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from repro import configs
+from repro.core import collectives as C
+from repro.core.hlo_analysis import collective_stats
+from repro.core.topology import device_pod_map
+from repro.data import SyntheticLM
+from repro.train.step import custom_batch_specs, init_state, make_train_step
+
+plan = json.loads(open(sys.argv[3]).read())
+out_dir = sys.argv[1]
+if plan.get("precise_ssd"):
+    # the port's SSD kernel computes the precise function: the mixer's
+    # ssd_chunked made precise in this process only
+    import functools
+    from repro.models import ssm
+    ssm.ssd_chunked = functools.partial(ssm.ssd_chunked, precise=True)
+cfg = dataclasses.replace(configs.get_smoke(plan["arch"]),
+                          n_layers=plan["n_layers"], dtype=jnp.float32)
+B, S = plan["global_batch"], plan["seq_len"]
+mesh = jax.make_mesh((2, 4), ("pod", "data"))
+jax.set_mesh(mesh)
+pods = device_pod_map(mesh, ("pod",))
+EDGES = ("permute_edges_local", "permute_edges_nonlocal",
+         "permute_bytes_local", "permute_bytes_nonlocal")
+data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)
+path_of = lambda path: "/".join(
+    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
+    path_of(p): np.asarray(v)
+    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+res = {}
+for name, kw in plan["variants"].items():
+    art = make_train_step(cfg, mesh, grad_sync="locality",
+                          shape=custom_batch_specs(cfg, B, S), donate=False,
+                          **kw)
+    state = init_state(cfg, mesh, art)
+    if name == "fsdp":
+        save("params0", state.params)
+    put = lambda b: {k: jax.device_put(v, art.batch_shardings[k])
+                     for k, v in b.items()}
+    compiled = art.step_fn.lower(state, put(data.batch(0))).compile()
+    st = collective_stats(compiled.as_text(), pods)
+    losses, norms = [], []
+    for step in range(plan["steps"]):
+        state, m = compiled(state, put(data.batch(step)))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    save(name, state.params)
+    res[name] = {"losses": losses, "grad_norms": norms,
+                 "hlo": {k: getattr(st, k) for k in EDGES},
+                 "permutes": st.counts.get("collective-permute", 0)}
+
+# one leaf's parameter gather, shard-mapped: the unit the port repeats
+f = jax.jit(jax.shard_map(
+    lambda x: C.allgather(x, ("pod",), ("data",), algorithm="locality_bruck",
+                          tiled=True, assume_varying=True),
+    mesh=mesh, in_specs=P(("pod", "data")), out_specs=P(), check_vma=False))
+a = jax.ShapeDtypeStruct(tuple(plan["one_gather"]), jnp.float32,
+                         sharding=NamedSharding(mesh, P(("pod", "data"))))
+st = collective_stats(f.lower(a).compile().as_text(), pods)
+res["one_gather"] = {k: getattr(st, k) for k in EDGES}
+with open(f"{out_dir}/out.json", "w") as fh:
+    json.dump(res, fh)
+"""
 def train_tree(flat: dict):
     """A parameter tree from {"a/b/c": array} (the JAX tree's leaf paths)."""
     import torch
@@ -626,10 +707,11 @@ def train_tree(flat: dict):
 
 
 def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
-               seq_len, kw):
+               seq_len, kw, arch="llama3.2-3b"):
     """``make_train_step(**kw)`` on a q x pl grid (q None: one process,
     every rank runs it alone) from the given parameters, on the CPU, for
-    ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows). Returns
+    ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows), for
+    ``arch``'s smoke config at ``n_layers`` in fp32. Returns
     the metrics of every step, this rank's parameter shards (by leaf path)
     with their FSDP dim and axes, and the step meter of the run."""
     from repro_torch.data import SyntheticLM, host_shard
@@ -639,7 +721,7 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
     grid = None if q is None else ctx.grid(q, pl)
     if q is not None and grid is None:
         return None
-    cfg = _small_cfg("llama3.2-3b", n_layers)
+    cfg = _small_cfg(arch, n_layers)
     art = make_train_step(cfg, grid, device="cpu", **kw)
     state = init_state(cfg, art, params=train_tree(flat_params))
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
