@@ -83,11 +83,16 @@ the package is missing. Phases, each fatal on failure:
    from PERF.md (``QUOTED_PR19_MS``; not measured in the run);
    and mamba2-780m's: the SSD backward at 8d's shape (B = 4, S = 1,024, 48
    heads of P = 64, N = 128, G = 1; bf16 and fp32), at G = 2, N = 64 and
-   at S = 1,000 (bf16), given the forward kernel's chunk states as the
-   training path calls it, each gradient's max |err| /
-   max |ref| against the plain backward in fp32 on the same inputs within
-   ``SSD_BWD_REL`` (bf16 dx, dB, dC within ``SSD_BWD_BF16_REL``), two calls
-   bitwise equal; and the gated RMSNorm backward over 8d's 4,096 rows of
+   at S = 1,000 (bf16), timed, and at the card tests' shapes
+   (``ssd.checks.BWD_CASES``, bf16 and fp32, untimed), as the training
+   path calls it (the backward recomputes the states before the chunks),
+   each gradient's max |err| / max |ref| against the plain backward in
+   fp32 on the same inputs within ``ssd.checks.BWD_REL`` (bf16 dx, dB, dC
+   within ``BWD_BF16_REL``), two calls bitwise equal, ``BWD_KERNELS``
+   launches a call; the times before its redesign printed on lines of
+   their own, quoted from PERF.md (``QUOTED_SSD_BWD_MS``); the SSD
+   forward alone at 8d's shape (bf16, fp32), timed beside its bound and
+   plain version; and the gated RMSNorm backward over 8d's 4,096 rows of
    3,072, z a column slice of in_proj's 6,448 (bf16, fp32; dy and fp32 dz
    1e-5, dscale 1e-4, bf16 2e-2), beside ``F.rms_norm``'s backward on the
    gated product alone as a partial yardstick (no PyTorch call computes
@@ -120,11 +125,11 @@ the package is missing. Phases, each fatal on failure:
 6. sequence-parallel serving, ``serve_seq_parallel``: 6 spawned ranks on
    this one card, joined in one gloo group (``launch.serve.run_ranks``).
    First a reduced llama3.2-3b (2 layers, fp32, full width, a 6,144-slot
-   cache) on 2 x 2 and 3 x 2 ranks, in the three layouts below: its
-   greedy tokens must equal the one-rank engine's exactly. Then llama3.2-3b at
+   cache) on 2 x 2 and 3 x 2 ranks, in the three layouts below: its 32
+   greedy tokens a request must equal the one-rank engine's exactly. Then llama3.2-3b at
    full width (bf16, random weights from seed 0) with
    ``ServeSpec(batch=1, cache_len=32768)`` on 2 x 2 of the ranks, three
-   requests of 3,000, 11,000 and 20,000 prompt tokens and 32 new tokens,
+   requests of 3,000, 11,000 and 20,000 prompt tokens and 16 new tokens,
    submitted together and served one at a time, in three layouts:
    "locality" and "xla" over ("pod", "data") (8,192 slots a rank) and
    "locality" over ("data",) (16,384). Every rank prefills the whole
@@ -790,46 +795,53 @@ def ssd_inputs(S, H, P, G, N, dtype, seed=0, batch=1, with_dy=False):
 
 
 def ssd_cases(timer: Timer) -> list[dict]:
+    """The SSD forward at the serving shapes (``SSD_CASES``, one sequence)
+    and, last, at 8d's training shape (``TRAIN_SSD``: the forward alone, as
+    the training path calls it), bf16 and fp32."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for S, H, P, G, N in SSD_CASES:
-            ins = ssd_inputs(S, H, P, G, N, dtype)
-            what = f"ssd {dtype} S={S} H={H} P={P} G={G} N={N}"
-            y, h = ssd_ops.ssd(*ins, Q=256)
-            ry, rh = ssd_ops.ssd_ref(*ins, Q=256)
-            y_abs = err_of(y, ry)
-            y_rel = y_abs / float(ry.abs().max())
-            h_err = err_of(h, rh)
-            h_rel = h_err / float(rh.abs().max())
-            check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
-                  f"{what}: non-finite output")
-            check(y_rel < SSD_Y_REL_TOL, f"{what}: y rel err {y_rel}")
-            check(h_rel < SSD_H_REL_TOL, f"{what}: h rel err {h_rel}")
-            del y, h, ry, rh
-            es = ins[0].element_size()
-            nbytes = ((S * H * P + 2 * S * G * N) * es + (S * H + H) * 4
-                      + (S * H * P + H * N * P) * 4)
-            b_ms, b_by = bound(nbytes, 2 * ssd_split_macs(S, H, P, G, N, dtype),
-                               torch.bfloat16)
-            # the recurrence (one multiply-add per state element for the
-            # update and one for C.h) at the fp32 CUDA-core rate: the bound
-            # of the CUDA-core design before this one
-            cc_ms, _ = bound(nbytes, 4 * N * P * S * H, torch.float32)
-            rows.append(dict(
-                shape=[1, S, H, P, G, N], dtype=str(dtype), Q=256,
-                max_abs_err=y_abs, y_rel_err=y_rel, h_abs_err=h_err,
-                h_rel_err=h_rel,
-                tolerance={"y_rel": SSD_Y_REL_TOL, "h_rel": SSD_H_REL_TOL},
-                ms=timer(lambda: ssd_ops.ssd(*ins, Q=256)),
-                host_ms=timer.host_ms(lambda: ssd_ops.ssd(*ins, Q=256)),
-                plain_ms=timer(lambda: ssd_ops.ssd_ref(*ins, Q=256), iters=3,
-                               warmup=1),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                bound_cuda_core_ms=cc_ms,
-                split_tensor_core_gflop=2 * ssd_split_macs(
-                    S, H, P, G, N, dtype) / 1e9))
-            del ins
+    shapes = [(1, *c) for c in SSD_CASES]
+    for dtype, (Bt, S, H, P, G, N) in [
+            (d, c) for d in (torch.bfloat16, torch.float32) for c in shapes
+    ] + [(d, TRAIN_SSD) for d in (torch.bfloat16, torch.float32)]:
+        ins = ssd_inputs(S, H, P, G, N, dtype, batch=Bt)
+        what = f"ssd {dtype} Bt={Bt} S={S} H={H} P={P} G={G} N={N}"
+        y, h = ssd_ops.ssd(*ins, Q=256)
+        ry, rh = ssd_ops.ssd_ref(*ins, Q=256)
+        y_abs = err_of(y, ry)
+        y_rel = y_abs / float(ry.abs().max())
+        h_err = err_of(h, rh)
+        h_rel = h_err / float(rh.abs().max())
+        check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+              f"{what}: non-finite output")
+        check(y_rel < SSD_Y_REL_TOL, f"{what}: y rel err {y_rel}")
+        check(h_rel < SSD_H_REL_TOL, f"{what}: h rel err {h_rel}")
+        del y, h, ry, rh
+        es = ins[0].element_size()
+        nbytes = Bt * ((S * H * P + 2 * S * G * N) * es + S * H * 4
+                       + (S * H * P + H * N * P) * 4) + H * 4
+        b_ms, b_by = bound(nbytes, 2 * Bt * ssd_split_macs(
+            S, H, P, G, N, dtype), torch.bfloat16)
+        # the recurrence (one multiply-add per state element for the
+        # update and one for C.h) at the fp32 CUDA-core rate: the bound
+        # of the CUDA-core design before this one
+        cc_ms, _ = bound(nbytes, 4 * N * P * S * H * Bt, torch.float32)
+        rows.append(dict(
+            shape=[Bt, S, H, P, G, N], dtype=str(dtype), Q=256,
+            path="serve_full_width_ssm" if Bt == 1 else
+            "train_one_rank_ssm",
+            max_abs_err=y_abs, y_rel_err=y_rel, h_abs_err=h_err,
+            h_rel_err=h_rel,
+            tolerance={"y_rel": SSD_Y_REL_TOL, "h_rel": SSD_H_REL_TOL},
+            ms=timer(lambda: ssd_ops.ssd(*ins, Q=256)),
+            host_ms=timer.host_ms(lambda: ssd_ops.ssd(*ins, Q=256)),
+            plain_ms=timer(lambda: ssd_ops.ssd_ref(*ins, Q=256), iters=3,
+                           warmup=1),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            bound_cuda_core_ms=cc_ms,
+            split_tensor_core_gflop=2 * Bt * ssd_split_macs(
+                S, H, P, G, N, dtype) / 1e9))
+        del ins
     torch.cuda.empty_cache()
     return rows
 
@@ -1203,7 +1215,11 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
 # ---------------------------------------------------------------------------
 # phase 6: sequence-parallel serving over gloo ranks sharing the card
 # ---------------------------------------------------------------------------
-SEQ_CACHE, SEQ_NEW = 32768, 32
+# new tokens a request: the reduced fp32 run holds every one of them to
+# the one-rank engine's exactly; the full-width run holds its prefill and
+# first decode logits and reports the greedy share, its later steps time
+# the decode (about 0.25-0.6 s a step over gloo in each of 3 layouts)
+SEQ_CACHE, SEQ_NEW, SEQ_NEW_FULL = 32768, 32, 16
 SEQ_PROMPTS = (3000, 11000, 20000)
 SEQ_LAYOUTS = (("pod_locality", dict(combine="locality")),
                ("pod_xla", dict(combine="xla")),
@@ -1222,9 +1238,10 @@ SEQ_GRIDS = ((2, 2), (3, 2))
 SEQ_LOGIT_REL = 5e-2
 
 
-def seq_requests(vocab: int, lens) -> list[tuple[np.ndarray, int]]:
+def seq_requests(vocab: int, lens, new: int = SEQ_NEW
+                 ) -> list[tuple[np.ndarray, int]]:
     rng = np.random.default_rng(5)
-    return [(rng.integers(0, vocab, n), SEQ_NEW) for n in lens]
+    return [(rng.integers(0, vocab, n), new) for n in lens]
 
 
 def serve_on_card(cfg, params, spec, requests, grid=None, home_pod=None
@@ -1364,7 +1381,8 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
     full = configs.get("llama3.2-3b")
     reduced = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
     plan = {"reduced": seq_requests(full.vocab_size, SEQ_REDUCED_PROMPTS),
-            "full": seq_requests(full.vocab_size, SEQ_PROMPTS)}
+            "full": seq_requests(full.vocab_size, SEQ_PROMPTS,
+                                 SEQ_NEW_FULL)}
     refs = {}
     for key, cfg, cache_len in (("reduced", reduced, SEQ_REDUCED_CACHE),
                                 ("full", full, SEQ_CACHE)):
@@ -1429,7 +1447,7 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
             "model": full.name, "layers": full.n_layers, "dtype": "bfloat16",
             "cache_len": SEQ_CACHE, "slots_per_rank": r0["cache_len"],
             "combine": r0["combine"], "prompts": list(SEQ_PROMPTS),
-            "new_tokens": SEQ_NEW, "decode_steps": steps,
+            "new_tokens": SEQ_NEW_FULL, "decode_steps": steps,
             "prefill_ms": {f"rank{r}": [x["prefill_ms"][i] for i in rids]
                            for r, x in enumerate(res)},
             "prefill_ms_one_rank": [ref["prefill_ms"][i] for i in rids],
@@ -1952,58 +1970,71 @@ def rmsnorm_bwd_case(timer, g, dtype, residual: bool, shape=TRAIN_RMS,
 # rows of 3,072, z the first 3,072 of in_proj's 6,448 columns
 TRAIN_SSD = (4, 1024, 48, 64, 1, 128)
 SSD_BWD_EXTRA = ((1, 1024, 48, 64, 2, 64), (1, 1000, 48, 64, 1, 128))
+# the card tests' SSD backward shapes (``checks.BWD_CASES``: the forward's
+# edges, the training shape at one sequence, the mamba2 widths at a ragged
+# S with all 48 heads in one group, P = 80), held against the plain
+# backward in bf16 and fp32, untimed
+# the SSD backward's times before this design (the fp32 CUDA-core kernels,
+# given the forward's chunk states), quoted from PERF.md's kernel table (in
+# brackets there; NVIDIA H100 80GB HBM3, 700.00 W) on lines of their own,
+# never in the kernels' line: (shape, dtype) -> ms
+QUOTED_SSD_BWD_MS = {
+    (TRAIN_SSD, "torch.bfloat16"): 1.598, (TRAIN_SSD, "torch.float32"): 1.526,
+    (SSD_BWD_EXTRA[0], "torch.bfloat16"): 0.245,
+    (SSD_BWD_EXTRA[1], "torch.bfloat16"): 0.424}
 TRAIN_GATED = (4096, 3072, 6448)
-# the SSD backward's tolerances, as tests/test_torch_cuda.py states them:
-# max |err| / max |ref| per gradient against the plain backward in fp32 on
-# the same inputs; fp32 1e-4 (the forward's), dA 1e-3 (a sum of terms of
-# both signs over every token: it cancels); bf16 dx, dB, dC 1e-2 (one
-# rounding of the fp32 value, 2^-9 of it)
-SSD_BWD_REL = {"dx": 1e-4, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4, "dC": 1e-4}
-SSD_BWD_BF16_REL = 1e-2
-
-
 def ssd_bwd_macs(Bt, S, H, P, G, N) -> int:
-    """Multiply-adds of the chunked backward in 64-token chunks, given the
-    forward's chunk states (the training path): per chunk and head its
-    contribution to the states' gradient, C^T (exp(cum) dy), and B Dh,
-    dy h^T and x Dh^T (4 Q N P), and the causal halves of dy x^T, M^T dy (P
-    wide), G B and G^T C (N wide); per chunk and group the causal half of
-    C B^T."""
+    """Multiply-adds of the chunked backward in 64-token chunks, the states
+    before the chunks recomputed (the forward keeps none): per chunk and
+    head its contributions to the states, B^T (w x), and to their gradient,
+    C^T (exp(cum) dy), and B Dh, dy h^T and x Dh^T (5 Q N P; the inter-chunk
+    term of dcum, exp(cum_i) C_i . (dy h^T)_i, takes no product of its
+    own), and the causal halves of dy x^T and M^T dy (P wide); per chunk
+    and group the causal halves of C B^T, (sum_h G_h) B and (sum_h G_h)^T
+    C (N wide: B and C are the group's, so G is summed over its heads
+    first, :func:`ssd_bwd_adds`)."""
     Q = 64
     nc, tri = -(-S // Q), Q * (Q + 1) // 2
-    return Bt * nc * (H * (4 * Q * N * P + tri * (2 * P + 2 * N))
-                      + G * tri * N)
+    return Bt * nc * (H * (5 * Q * N * P + 2 * tri * P) + 3 * G * tri * N)
+
+
+def ssd_bwd_adds(Bt, S, H, P, G, N) -> int:
+    """The additions of sum_h G_h over the heads of each group: the causal
+    half of a 64 x 64 tile a chunk and head."""
+    Q = 64
+    return Bt * -(-S // Q) * H * Q * (Q + 1) // 2
 
 
 def ssd_bwd_split_macs(Bt, S, H, P, G, N, dtype) -> int:
     """:func:`ssd_bwd_macs`' products, each times its split-bf16 terms, as
     :func:`ssd_split_macs` counts the forward's: bf16 inputs (x, B, C)
-    enter exactly, an fp32 operand (dy, h, Dh, M, G) is split into hi and
-    lo; so with bf16 inputs C B^T takes 1 term, dy h^T and M^T dy (both
-    operands fp32) 3, the others 2; fp32 inputs take 3 everywhere."""
+    enter exactly, an fp32 operand (dy, h, Dh, M, the summed G, w x,
+    exp(cum) dy) is split into hi and lo; so with bf16 inputs C B^T takes 1
+    term, dy h^T and M^T dy (both operands fp32) 3, the others 2; fp32
+    inputs take 3 everywhere."""
     Q = 64
     nc, tri = -(-S // Q), Q * (Q + 1) // 2
     if dtype != torch.bfloat16:
         return 3 * ssd_bwd_macs(Bt, S, H, P, G, N)
-    return Bt * nc * (H * (9 * Q * N * P + 5 * tri * P + 4 * tri * N)
-                      + G * tri * N)
+    return Bt * nc * (H * (11 * Q * N * P + 5 * tri * P) + 5 * G * tri * N)
 
 
-def ssd_bwd_case(timer, shape, dtype, path="train_one_rank_ssm") -> dict:
-    """The SSD backward at a training shape as the training path calls it,
-    given the forward kernel's chunk states: dx, ddt, dA, dB, dC against
-    the plain backward (fp32 on the same inputs), two calls bitwise equal,
-    its four launches counted a call, timed beside the plain version; no
-    PyTorch call computes it (library null). The bound is the forward's:
-    the split-bf16 products at the tensor cores' bf16 rate, or the bytes
-    of the inputs (the chunk states included) and outputs, the larger; the
-    fp32 products on the CUDA cores (the design of this kernel) apart."""
+def ssd_bwd_case(timer, shape, dtype, path="train_one_rank_ssm",
+                 timed=True) -> dict:
+    """The SSD backward at a training shape as the training path calls it:
+    dx, ddt, dA, dB, dC against the plain backward (fp32 on the same
+    inputs), two calls bitwise equal, its ``BWD_KERNELS`` launches counted
+    a call, timed beside the plain version (``timed``); no PyTorch call
+    computes it (library null). The bound is the forward's: the split-bf16
+    products (the states' recompute included) at the tensor cores' bf16
+    rate, or the bytes of the inputs and outputs, the larger; the fp32
+    products on the CUDA cores (the design before this one) apart."""
+    from repro_torch.kernels.ssd import checks as ssd_checks
     from repro_torch.kernels.ssd import ops as ssd_ops
     Bt, S, H, P, G, N = shape
     *ins, dy = ssd_inputs(S, H, P, G, N, dtype, seed=3, batch=Bt,
                           with_dy=True)
-    states = ssd_ops.ssd_with_states(*ins)[2]
-    fn = lambda: ssd_ops.ssd_bwd(*ins, dy, states)
+    fn = lambda: ssd_ops.ssd_bwd(*ins, dy)
     n = ssd_ops.BWD_LAUNCHES
     got = fn()
     again = fn()
@@ -2016,29 +2047,42 @@ def ssd_bwd_case(timer, shape, dtype, path="train_one_rank_ssm") -> dict:
     up = [t.float() if t.dtype == torch.bfloat16 else t for t in ins]
     want = ssd_ops.ssd_bwd_ref(*up, dy, Q=256)
     rel = {}
-    for name, a, b in zip(SSD_BWD_REL, got, want):
+    for name, a, b in zip(ssd_checks.BWD_REL, got, want):
         rel[name] = (float((a.float() - b).abs().max())
                      / max(float(b.abs().max()), 1e-30))
-        tol = (SSD_BWD_BF16_REL if dtype == torch.bfloat16
-               and name in ("dx", "dB", "dC") else SSD_BWD_REL[name])
+        tol = ssd_checks.bwd_limit(name, dtype == torch.bfloat16)
         check(rel[name] < tol and bool(torch.isfinite(a).all()),
               f"{what}: {name} rel err {rel[name]} (limit {tol})")
     err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want))
     del got, want, up
+    if not timed:
+        return dict(shape=list(shape), dtype=str(dtype), rel_err=rel)
     # each input read once and each output written once; the kernel's own
-    # scratch (Dh, the per-head shares) is its design's, not the function's
+    # scratch (the states, their gradients, dA's shares) is its design's
     es = ins[0].element_size()
     nbytes = (2 * Bt * S * H * P * es + Bt * S * H * P * 4     # x, dx; dy
               + 4 * Bt * S * G * N * es + 2 * Bt * S * H * 4   # B C dB dC
-              + 2 * H * 4                                      # dt ddt; A dA
-              + states.numel() * states.element_size())        # chunk states
+              + 2 * H * 4)                                     # dt ddt; A dA
     split = ssd_bwd_split_macs(*shape, dtype)
-    b_ms, b_by = bound(nbytes, 2 * split, torch.bfloat16)
-    cc_ms, _ = bound(nbytes, 2 * ssd_bwd_macs(*shape), torch.float32)
+    # the sum over heads on the CUDA cores before the products that take it
+    adds_ms = ssd_bwd_adds(*shape) / PEAK_FLOPS[torch.float32] * 1e3
+    ops_ms = 2 * split / PEAK_FLOPS[torch.bfloat16] * 1e3 + adds_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                  else (ops_ms, "operations"))
+    cc_ms, _ = bound(nbytes, 2 * ssd_bwd_macs(*shape) + ssd_bwd_adds(*shape),
+                     torch.float32)
+    # each of its kernels' device time (the scans, dB and dC, dx, dA's
+    # sum), at the training shape
+    if path == "train_one_rank_ssm":
+        profile_window("profile_ssd_bwd", path, fn, 5,
+                       sums={k: f"ssd_bwd_{k}" for k in ("scan", "dbdc",
+                                                         "dx", "da")},
+                       shape=list(shape), dtype=str(dtype))
     return dict(form="scan", shape=list(shape), dtype=str(dtype), path=path,
                 max_abs_err=err, rel_err=rel,
-                tolerance={"fp32": SSD_BWD_REL, "bf16_dx_dB_dC":
-                           SSD_BWD_BF16_REL},
+                tolerance={"fp32": ssd_checks.BWD_REL, "bf16_dx_dB_dC":
+                           ssd_checks.BWD_BF16_REL},
                 ms=timer(fn, iters=5), host_ms=timer.host_ms(fn, iters=5),
                 plain_ms=timer(lambda: ssd_ops.ssd_bwd_ref(*ins, dy, Q=256),
                                iters=2, warmup=1),
@@ -2157,6 +2201,13 @@ def backward_cases(timer) -> dict[str, list[dict]]:
                       for dtype in (torch.bfloat16, torch.float32)]
     out["ssd_bwd"] += [ssd_bwd_case(timer, shape, torch.bfloat16, "edges")
                        for shape in SSD_BWD_EXTRA]
+    from repro_torch.kernels.ssd.checks import BWD_CASES
+    checked = [ssd_bwd_case(timer, shape, dtype, timed=False)
+               for shape in BWD_CASES
+               for dtype in (torch.bfloat16, torch.float32)]
+    print(json.dumps({"kernel": "ssd_bwd", "checked_cases": checked}))
+    gc.collect()
+    torch.cuda.empty_cache()
     out["rmsnorm_bwd_gated"] = [gated_bwd_case(timer, g, dtype)
                                 for dtype in (torch.bfloat16, torch.float32)]
     gc.collect()
@@ -2220,7 +2271,7 @@ def train_launches_implied(n_layers: int, steps: int,
     mixer. A dense layer: ln1 (plain) and ln2 (residual), attention (its
     backward two kernels, both of the tensor-core instance: bf16, D = 128).
     A Mamba2 layer: ln (plain), the SSD scan and the gated norm (the SSD
-    backward four kernels a call)."""
+    backward ``BWD_KERNELS`` kernels a call)."""
     from repro_torch.kernels.ssd.ops import BWD_KERNELS
     L = n_layers
     want = {k: 0 for k in ("decode_scores", "decode_stats", "dma_allgather",
@@ -2823,6 +2874,11 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
+    # the seconds since the start after each phase (where the run's time
+    # goes, and what to cut when it grows)
+    clock = lambda after: print(json.dumps({
+        "phase": "clock", "after": after,
+        "seconds": time.perf_counter() - t_run}), flush=True)
     info = _build.build()
     _build.lib()
     print(f"kernels built in {info.seconds:.1f} s into {info.path.parent}")
@@ -2860,13 +2916,27 @@ def main() -> int:
     cases["ssd"] = ssd_cases(timer)
     for row in cases["ssd"]:
         print(json.dumps({"kernel": "ssd", **row}))
+    clock("forward_kernels")
     bwd = backward_cases(timer)
+    clock("backward_kernels")
     for name, rows in bwd.items():
         for row in rows:
             print(json.dumps({"kernel": name, **row}))
             quoted = QUOTED_PR19_MS.get((
                 name.split("_")[0], tuple(row["shape"]),
                 _mask_name(row["mask"]) if "mask" in row else row["form"]))
+            if name == "ssd_bwd":
+                quoted = QUOTED_SSD_BWD_MS.get((tuple(row["shape"]),
+                                                row["dtype"]))
+                if quoted:
+                    print(json.dumps({
+                        "kernel": name, "shape": row["shape"],
+                        "dtype": row["dtype"],
+                        "quoted_from": "PERF.md's kernel table, the CUDA-"
+                                       "core design's time, NVIDIA H100 "
+                                       "80GB HBM3, 700.00 W; not measured "
+                                       "here",
+                        "quoted_ms": quoted, "ms_this_run": row["ms"]}))
             if quoted and row["dtype"] == "torch.bfloat16":
                 print(json.dumps({
                     "kernel": name, "shape": row["shape"],
@@ -2878,19 +2948,26 @@ def main() -> int:
     by_path = {"dma_main_path": {"dma_allgather": dma_main_path(dma[0])}}
     small_end_to_end("llama3.2-3b", 4)
     small_end_to_end("mamba2-780m", 3)
+    clock("small_end_to_end")
     for arch, phase in (("llama3.2-3b", "serve_full_width"),
                         ("mamba2-780m", "serve_full_width_ssm")):
         by_path[phase] = serve_full_width(smi, arch, phase)
         gc.collect()
         torch.cuda.empty_cache()
+        clock(phase)
     by_path["serve_seq_parallel"] = serve_seq_parallel(smi)
+    clock("serve_seq_parallel")
     by_path["serve_batch_sharded"] = serve_batch_sharded(smi)
+    clock("serve_batch_sharded")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train_one_rank"] = train_one_rank(smi)
+    clock("train_one_rank")
     by_path["train_one_rank_ssm"] = train_one_rank(smi, "mamba2-780m",
                                                    "train_one_rank_ssm")
+    clock("train_one_rank_ssm")
     by_path.update(train_on_ranks(smi))
+    clock("train_on_ranks")
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",

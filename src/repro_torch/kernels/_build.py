@@ -92,13 +92,16 @@ SIGNATURES = {
                             _I, _P],
     # stream: an empty launch
     "repro_empty": [_P],
-    # x, dt, A, B, C, y, h, hchunks (or null), Bt, S, H, G, N, P, dtype,
-    # stream
-    "repro_ssd": [_P] * 8 + [_I] * 7 + [_P],
-    # x, dt, A, B, C, dy, dx, ddt, dA, dB, dC, hs, dhs, seg, dA_part,
-    # dB_part, dC_part, Bt, S, H, G, N, P, dtype, stream
-    "repro_ssd_bwd": [_P] * 17 + [_I] * 7 + [_P],
+    # x, dt, A, B, C, y, h, Bt, S, H, G, N, P, dtype, stream
+    "repro_ssd": [_P] * 7 + [_I] * 7 + [_P],
+    # x, dt, A, B, C, dy, dx, ddt, dA, dB, dC, scratch, Bt, S, H, G, N, P,
+    # dtype, stream
+    "repro_ssd_bwd": [_P] * 12 + [_I] * 7 + [_P],
+    # Bt, S, H, N, P: the bytes of repro_ssd_bwd's scratch
+    "repro_ssd_bwd_scratch_bytes": [_I] * 5,
 }
+# what the functions that do not return an error code return
+RESTYPES = {"repro_ssd_bwd_scratch_bytes": ctypes.c_longlong}
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -203,7 +206,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         handle.repro_error_string.argtypes = [_I]
         handle.repro_error_string.restype = ctypes.c_char_p
         _lib = handle

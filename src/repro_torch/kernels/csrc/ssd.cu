@@ -29,8 +29,8 @@
 // to h), and its rows of y are not written.
 //
 // Products on the tensor cores: mma.sync m16n8k16 bf16 with fp32
-// accumulation, operands fed by ldmatrix from padded rows (no bank
-// conflicts): the score C B^T (k = N, only the tiles on and below the
+// accumulation (the pieces in mma.cuh, shared with ssd_bwd.cu), operands
+// fed by ldmatrix from padded rows (no bank conflicts): the score C B^T (k = N, only the tiles on and below the
 // diagonal), y_intra = L x with L = score .* decay .* dt built in the score's
 // accumulator registers, which are already the A fragments of the next
 // product (L never goes through shared memory), y_inter = C h_prev
@@ -64,10 +64,12 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using repro::to_f;
+using namespace repro::tc;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -104,56 +106,6 @@ __host__ __device__ inline Layout layout(int N) {
   return L;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr) : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate; a pure
-// register operation (not volatile), so the compiler may move it past loads
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^v in one instruction (the special-function unit, relative error below
-// 2^-22, results below 2^-126 flushed to 0)
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (u, v) -> hi = bf16 pair, lo = bf16 pair of the remainders; u in the low
-// half, as the mma fragments hold consecutive columns
-__device__ __forceinline__ void split2(float u, float v, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(u - hf.x, v - hf.y));
-}
-
 __device__ __forceinline__ void put(__nv_bfloat16* hi, __nv_bfloat16* lo,
                                     int i, float v, bool split) {
   const __nv_bfloat16 h = __float2bfloat16_rn(v);
@@ -161,26 +113,13 @@ __device__ __forceinline__ void put(__nv_bfloat16* hi, __nv_bfloat16* lo,
   if (split) lo[i] = __float2bfloat16_rn(v - __bfloat162float(h));
 }
 
-// 16 bytes global -> shared, zero-filled when !valid
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bg,
                const T* __restrict__ Cg, float* __restrict__ y,
-               float* __restrict__ hout, float* __restrict__ hchunks, int S,
-               int H, int G, int N, int P, int async) {
+               float* __restrict__ hout, int S, int H, int G, int N, int P,
+               int async) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int PT = kPT;
   constexpr int NT = PT / 8;                 // 8-column tiles of the P tile
@@ -303,9 +242,6 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int c = 0; c < nchunks; ++c) {
     const int s0 = c * kChunk;
     const int l = S - s0 < kChunk ? S - s0 : kChunk;
-    if (hchunks != nullptr)      // the state before chunk c, for training
-      store_state(hchunks + ((static_cast<size_t>(b) * nchunks + c) * H + h)
-                                * N * P + p0);
     const int st = use_async ? (c & 1) : 0;
     if (use_async) {
       asm volatile("cp.async.wait_all;" ::: "memory");
@@ -555,9 +491,8 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename T>
 cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* B, const void* C, void* y, void* h,
-                   void* hchunks, int Bt, int S, int H, int G, int N, int P,
-                   cudaStream_t stream) {
+                   const void* B, const void* C, void* y, void* h, int Bt,
+                   int S, int H, int G, int N, int P, cudaStream_t stream) {
   const int bytes = layout(N).total;
   cudaError_t e = cudaFuncSetAttribute(
       ssd_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -576,33 +511,29 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<float*>(y),
-      static_cast<float*>(h), static_cast<float*>(hchunks), S, H, G, N, P,
-      async);
+      static_cast<float*>(h), S, H, G, N, P, async);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (Bt,S,H,P), B and C (Bt,S,G,N) of dtype `dtype`; dt (Bt,S,H) and A (H,)
-// fp32; y (Bt,S,H,P) and h (Bt,H,N,P) fp32; hchunks null, or (Bt,
-// ceil(S/64), H, N, P) fp32 for the state before each 64-token chunk (the
-// training forward's, which the backward takes). One block per (b, h, 16
+// fp32; y (Bt,S,H,P) and h (Bt,H,N,P) fp32. One block per (b, h, 16
 // columns of P). The caller checked H % G == 0; P must be a multiple of 16
 // and N at most 256, or the call returns cudaErrorInvalidValue; an N whose
 // shared memory a block cannot opt into returns the error of
 // cudaFuncSetAttribute.
 extern "C" int repro_ssd(const void* x, const void* dt, const void* A,
                          const void* B, const void* C, void* y, void* h,
-                         void* hchunks, int Bt, int S, int H, int G, int N,
-                         int P, int dtype, void* stream) {
+                         int Bt, int S, int H, int G, int N, int P, int dtype,
+                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > kMaxN || P % kPT || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == repro::kFloat32)
-    e = launch<float>(x, dt, A, B, C, y, h, hchunks, Bt, S, H, G, N, P, s);
+    e = launch<float>(x, dt, A, B, C, y, h, Bt, S, H, G, N, P, s);
   else if (dtype == repro::kBFloat16)
-    e = launch<__nv_bfloat16>(x, dt, A, B, C, y, h, hchunks, Bt, S, H, G, N,
-                              P, s);
+    e = launch<__nv_bfloat16>(x, dt, A, B, C, y, h, Bt, S, H, G, N, P, s);
   return static_cast<int>(e);
 }

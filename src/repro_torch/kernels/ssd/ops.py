@@ -4,8 +4,8 @@ version for CPU ones; and its backward (``csrc/ssd_bwd.cu``), with the
 
 ``LAUNCHES`` counts forward kernel launches, ``BWD_LAUNCHES`` the
 backward's: ``BWD_KERNELS`` a call, the four kernels it runs in order (the
-chunks' contributions to the states, the pass over the chunks, the chunk
-gradients, the sums); CPU calls leave them alone."""
+scans over the chunks, the per-group gradients, the per-head ones, dA's
+sum); CPU calls leave them alone."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +17,6 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_KERNELS = 4  # kernels one backward call launches (csrc/ssd_bwd.cu)
 P_TILE = 16     # columns of P per block of the kernel (csrc/ssd.cu kPT)
-CHUNK = 64      # tokens a chunk of the backward (csrc/ssd_bwd.cu kChunk)
 MAX_N = 256     # the state size the kernels take (csrc/ssd*.cu kMaxN)
 
 
@@ -61,52 +60,34 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     kernel walks the sequence in its own 64-token chunks, which computes
     the same function up to fp32 rounding.
     """
-    y, h, _ = _launch(x, dt, A, B, C, Q, chunk_states=False)
-    return y, h
-
-
-def ssd_with_states(x, dt, A, B, C, *, Q: int = 256):
-    """:func:`ssd` and, on the card, the state before each of the kernel's
-    64-token chunks, (Bt, ceil(S/64), H, N, P) fp32, which
-    :func:`ssd_bwd` takes (None on the CPU); one forward launch."""
-    return _launch(x, dt, A, B, C, Q, chunk_states=True)
-
-
-def _launch(x, dt, A, B, C, Q: int, chunk_states: bool):
     global LAUNCHES
     ts = (x, dt, A, B, C)
     if all(t.device.type == "cpu" for t in ts):
-        return (*ssd_ref(x, dt, A, B, C, Q=Q), None)
+        return ssd_ref(x, dt, A, B, C, Q=Q)
     _check("ssd", *ts)
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
-    code = _build.dtype_code(x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((Bt, S, H, P), **f32)
     h = torch.empty((Bt, H, N, P), **f32)
-    hs = (torch.empty((Bt, -(-S // CHUNK), H, N, P), **f32) if chunk_states
-          else None)
     err = _build.lib().repro_ssd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), h.data_ptr(),
-        None if hs is None else hs.data_ptr(), Bt, S, H, G, N, P, code,
-        _build.stream_of(x))
+        C.data_ptr(), y.data_ptr(), h.data_ptr(), Bt, S, H, G, N, P,
+        _build.dtype_code(x.dtype), _build.stream_of(x))
     _build.check(err, f"ssd (N={N}, P={P})")
     LAUNCHES += 1
-    return y, h, hs
+    return y, h
 
 
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
-            states: torch.Tensor | None, *, Q: int = 256
-            ) -> tuple[torch.Tensor, ...]:
+            B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
+            Q: int = 256) -> tuple[torch.Tensor, ...]:
     """(dx, ddt, dA, dB, dC) of :func:`ssd`'s y for the output gradient dy
-    (Bt,S,H,P) fp32; each in its input's dtype. ``states`` is the forward's
-    state before each 64-token chunk (:func:`ssd_with_states`; the CPU route
-    takes None and recomputes what it needs). On the card one call runs the
-    backward's four kernels (deterministic: no atomics in a sum), within
-    the forward's N and P limits. ``Q`` is the plain version's chunk
-    length, as in :func:`ssd`."""
+    (Bt,S,H,P) fp32; each in its input's dtype. On the card one call runs
+    the backward's four kernels (deterministic: no atomics in a sum),
+    within the forward's N and P limits; the states before the chunks are
+    recomputed there, so the forward keeps none. ``Q`` is the plain
+    version's chunk length, as in :func:`ssd`."""
     global BWD_LAUNCHES
     ts = (x, dt, A, B, C, dy)
     if all(t.device.type == "cpu" for t in ts):
@@ -122,52 +103,39 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not 1 <= N <= MAX_N:
         raise ValueError(f"ssd_bwd: state size N={N} (P={P}) is outside the "
                          f"kernel's 1..{MAX_N}")
-    nc = -(-S // CHUNK)
     dev, f32 = x.device, torch.float32
-    if (states is None or states.shape != (Bt, nc, H, N, P)
-            or states.dtype != f32 or states.device != dev
-            or not states.is_contiguous()):
-        got = (None if states is None else
-               f"{tuple(states.shape)} {states.dtype} on {states.device}")
-        raise ValueError(f"ssd_bwd: states {got}; the forward's "
-                         f"(ssd_with_states) are {(Bt, nc, H, N, P)} "
-                         f"float32 on {dev}")
     dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
     ddt = torch.empty((Bt, S, H), dtype=f32, device=dev)
     dA = torch.empty((H,), dtype=f32, device=dev)
-    dhs = torch.empty_like(states)
-    seg = torch.empty((Bt * nc, H), dtype=f32, device=dev)
-    dA_part = torch.empty_like(seg)
-    dB_part = torch.empty((Bt, S, H, N), dtype=f32, device=dev)
-    dC_part = torch.empty_like(dB_part)
+    lib = _build.lib()
+    # the chunks' states and state gradients and the partial sums, laid out
+    # by the C side (csrc/ssd_bwd.cu scratch_of)
+    scratch = torch.empty(lib.repro_ssd_bwd_scratch_bytes(Bt, S, H, N, P),
+                          dtype=torch.uint8, device=dev)
     ptrs = [t.data_ptr() for t in (x, dt, A, B, C, dy, dx, ddt, dA, dB, dC,
-                                   states, dhs, seg, dA_part, dB_part,
-                                   dC_part)]
-    err = _build.lib().repro_ssd_bwd(*ptrs, Bt, S, H, G, N, P,
-                                     _build.dtype_code(x.dtype),
-                                     _build.stream_of(x))
+                                   scratch)]
+    err = lib.repro_ssd_bwd(*ptrs, Bt, S, H, G, N, P,
+                            _build.dtype_code(x.dtype), _build.stream_of(x))
     _build.check(err, f"ssd_bwd (N={N}, P={P})")
     BWD_LAUNCHES += BWD_KERNELS
     return dx, ddt, dA, dB, dC
 
 
 class SSD(torch.autograd.Function):
-    """:func:`ssd` whose backward is :func:`ssd_bwd`, given the forward's
-    chunk states; the final state is not differentiable (training does not
-    use it)."""
+    """:func:`ssd` whose backward is :func:`ssd_bwd`; the final state is not
+    differentiable (training does not use it)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, Q):
-        y, h, hs = ssd_with_states(x, dt, A, B, C, Q=Q)
-        ctx.save_for_backward(x, dt, A, B, C, hs)
+        y, h = ssd(x, dt, A, B, C, Q=Q)
+        ctx.save_for_backward(x, dt, A, B, C)
         ctx.Q = Q
         ctx.mark_non_differentiable(h)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, _dh):
-        *ins, hs = ctx.saved_tensors
-        grads = ssd_bwd(*ins, dy.contiguous(), hs, Q=ctx.Q)
+        grads = ssd_bwd(*ctx.saved_tensors, dy.contiguous(), Q=ctx.Q)
         return (*grads, None)
 
 

@@ -27,6 +27,7 @@ from repro_torch.kernels.decode_stats import ops as stats_ops
 from repro_torch.kernels.dma_allgather import ops as dma_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd import checks as ssd_checks
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import attention as tattention
 
@@ -527,22 +528,8 @@ SSD_CASES = [
 ]
 
 
-# (Bt, S, H, P, G, N): the kernel's edges. One token; S a multiple of the
-# 64-token chunk and one past it; P of 1 to 4 tiles of 16; G = 2 and 3;
-# N = 8 (padded to 16), 24 (padded to 32), 12 (not a multiple of 8: the
-# scalar load path for bf16 too), 64, 128 and 256, the largest state the
-# kernel takes
-SSD_EDGE_CASES = [
-    (1, 1, 4, 64, 1, 128),
-    (1, 64, 4, 64, 1, 128),
-    (1, 65, 4, 64, 1, 128),
-    (1, 129, 3, 48, 3, 64),
-    (2, 200, 4, 32, 2, 8),
-    (1, 77, 6, 16, 3, 24),
-    (1, 70, 2, 16, 1, 12),
-    (1, 150, 4, 64, 2, 256),
-    (1, 100, 4, 32, 1, 128),
-]
+# (Bt, S, H, P, G, N): the kernel's edges (``checks.EDGE_CASES`` says which)
+SSD_EDGE_CASES = list(ssd_checks.EDGE_CASES)
 
 
 def _ssd_inputs(case, dtype, device):
@@ -824,17 +811,12 @@ def test_rmsnorm_train_gradients_match_autograd_of_the_plain_version(cuda,
 # ---------------------------------------------------------------------------
 # the SSD scan's backward and the gated RMSNorm's backward
 # ---------------------------------------------------------------------------
-# the forward's edge cases, the mamba2-780m training shape at one sequence,
-# and P = 80 (a partial tile of 64 columns)
-SSD_BWD_CASES = SSD_EDGE_CASES + [(1, 1024, 48, 64, 1, 128),
-                                  (2, 300, 8, 80, 1, 16)]
-# max |err| / max |ref| per gradient: fp32 1e-4 (the forward's); dA, a sum
-# of terms of both signs over every token, 1e-3 (it cancels: the same
-# roundings are a larger share of it); bf16 dx, dB and dC, one rounding of
-# the fp32 value (2^-9 of it), 1e-2 against the plain version in fp32 on
-# the same bf16 inputs
-SSD_BWD_REL = {"dx": 1e-4, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4, "dC": 1e-4}
-SSD_BWD_BF16_REL = 1e-2
+# the forward's edge cases and the backward's own shapes, and the limits
+# (max |err| / max |ref| per gradient against the plain backward in fp32 on
+# the same inputs), as ``checks`` states them: chip_smoke.py and the CPU
+# emulation of the split read the same
+SSD_BWD_CASES = list(ssd_checks.BWD_CASES)
+SSD_BWD_REL = ssd_checks.BWD_REL
 
 
 def _ssd_bwd_errors(got, ins, dy) -> dict:
@@ -853,52 +835,47 @@ def _ssd_bwd_errors(got, ins, dy) -> dict:
                          ids=lambda c: "x".join(map(str, c)))
 def test_ssd_bwd_kernel_on_card(cuda, dtype, case):
     """dx, ddt, dA, dB and dC against the plain backward (fp32 on the same
-    inputs), each in its input's dtype, given the forward kernel's chunk
-    states as the training path gives them; two calls bitwise equal; the
-    backward's four launches counted a call."""
+    inputs), each in its input's dtype; two calls bitwise equal; the
+    backward's launches counted a call."""
     ins = _ssd_inputs(case, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(7)
     dy = torch.randn(ins[0].shape, generator=g, device=cuda)
-    states = ssd_ops.ssd_with_states(*ins)[2]
     before = ssd_ops.BWD_LAUNCHES
-    got = ssd_ops.ssd_bwd(*ins, dy, states)
+    got = ssd_ops.ssd_bwd(*ins, dy)
     torch.cuda.synchronize()
     assert ssd_ops.BWD_LAUNCHES == before + ssd_ops.BWD_KERNELS
     assert [t.dtype for t in got] == [ins[0].dtype, torch.float32,
                                       torch.float32, ins[3].dtype,
                                       ins[4].dtype]
     for name, err in _ssd_bwd_errors(got, ins, dy).items():
-        tol = (SSD_BWD_BF16_REL if dtype == torch.bfloat16
-               and name in ("dx", "dB", "dC") else SSD_BWD_REL[name])
+        tol = ssd_checks.bwd_limit(name, dtype == torch.bfloat16)
         assert err < tol, (name, err)
-    again = ssd_ops.ssd_bwd(*ins, dy, states)
+    again = ssd_ops.ssd_bwd(*ins, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
 def test_ssd_bwd_refuses_what_the_kernel_does_not_take(cuda):
     x, dt, A, B, C = _ssd_inputs((1, 16, 4, 16, 1, 16), torch.float32, cuda)
-    states = ssd_ops.ssd_with_states(x, dt, A, B, C)[2]
     big = torch.zeros((1, 16, 1, 512), device=cuda)
     with pytest.raises(ValueError, match="N=512"):
-        ssd_ops.ssd_bwd(x, dt, A, big, big, torch.zeros_like(x), states)
+        ssd_ops.ssd_bwd(x, dt, A, big, big, torch.zeros_like(x))
     with pytest.raises(ValueError, match="dy"):
-        ssd_ops.ssd_bwd(x, dt, A, B, C, torch.zeros_like(x).double(), states)
-    for wrong in (None, torch.zeros((1, 1, 4, 16, 8), device=cuda)):
-        with pytest.raises(ValueError, match="states"):
-            ssd_ops.ssd_bwd(x, dt, A, B, C, torch.zeros_like(x), wrong)
+        ssd_ops.ssd_bwd(x, dt, A, B, C, torch.zeros_like(x).double())
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops.ssd_bwd(x, dt, A, B, C, torch.zeros((1, 16, 4, 8), device=cuda))
     with pytest.raises(ValueError, match="head dim"):
         ssd_ops.ssd_bwd(x.reshape(1, 16, 8, 8).contiguous(),
                         dt.repeat(1, 1, 2).contiguous(), A.repeat(2), B, C,
-                        torch.zeros((1, 16, 8, 8), device=cuda), None)
+                        torch.zeros((1, 16, 8, 8), device=cuda))
 
 
 @pytest.mark.gpu
 def test_ssd_train_gradients_match_autograd_of_the_plain_version(cuda):
     """``ssd_train`` through torch.autograd (the forward kernel, then the
     backward kernels) against autograd through ``ssd_ref``, fp32, at the
-    tolerances above; one forward launch and one backward call (its four
-    launches)."""
+    tolerances above; one forward launch and one backward call (its
+    ``BWD_KERNELS`` launches)."""
     ins = _ssd_inputs((2, 200, 8, 32, 2, 64), torch.float32, cuda)
     g = torch.Generator(device=cuda).manual_seed(8)
     w = torch.randn(ins[0].shape, generator=g, device=cuda)

@@ -125,9 +125,10 @@ def test_cpu_calls_take_plain_versions_and_count_nothing():
     xs = torch.from_numpy(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
     bc = torch.from_numpy(rng.standard_normal((1, 8, 1, 4), dtype=np.float32))
     dt, A = torch.full((1, 8, 2), 0.1), torch.full((2,), -1.0)
-    y, _, states = ssd_ops.ssd_with_states(xs, dt, A, bc, bc, Q=4)
-    assert states is None
-    ssd_ops.ssd_bwd(xs, dt, A, bc, bc, y, states, Q=4)
+    y, _ = ssd_ops.ssd(xs, dt, A, bc, bc, Q=4)
+    ssd_ops.ssd_bwd(xs, dt, A, bc, bc, y, Q=4)
+    ssd_ops.ssd_train(xs.clone().requires_grad_(), dt, A, bc, bc,
+                      Q=4)[0].sum().backward()
     assert (rms_ops.LAUNCHES, flash_ops.LAUNCHES, stats_ops.LAUNCHES,
             rms_ops.BWD_LAUNCHES, flash_ops.BWD_DQ_LAUNCHES,
             flash_ops.BWD_DKDV_LAUNCHES, flash_ops.BWD_WGMMA_LAUNCHES,
