@@ -1734,6 +1734,11 @@ TRAIN_RMS = (4096, 3072)
 # B = 1 and RMSNorm over 1,024 rows
 FSDP_RANK_FLASH = (1, 1024, 24, 8, 128)
 FSDP_RANK_RMS = (1024, 3072)
+# one rank of phase 8e (bf16): a model rank's 12 q and 4 KV heads of one
+# sequence, and the residual RMSNorm over its 1,024 rows, or 512 when the
+# residual stream is split over the sequence (seq_shard, m = 2)
+TP_RANK_FLASH = (1, 1024, 12, 4, 128)
+TP_RANK_RMS = ((1024, 3072), (512, 3072))
 # the flash backward's tolerances, as tests/test_torch_cuda.py states them:
 # fp32 against the plain backward; bf16 against the plain backward in fp32
 # on the same bf16 inputs, mostly relative (the kernel sums in fp32 and
@@ -2190,6 +2195,13 @@ def backward_cases(timer) -> dict[str, list[dict]]:
     for residual in (False, True):
         out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
             timer, g, torch.bfloat16, residual, FSDP_RANK_RMS, "train_fsdp"))
+    # one rank of phase 8e, bf16
+    out["flash_attention_bwd"].append(flash_bwd_case(
+        timer, g, torch.bfloat16, dict(causal=True), TP_RANK_FLASH,
+        "train_tp"))
+    for shape in TP_RANK_RMS:
+        out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
+            timer, g, torch.bfloat16, True, shape, "train_tp"))
     # the tensor-core pair at its tile edges (no path of its own)
     for *shape, mask in FLASH_BWD_EDGES:
         out["flash_attention_bwd"].append(flash_bwd_case(
@@ -2372,7 +2384,8 @@ def train_run(cfg, grid, params, kw: dict, batch: int, seq: int, steps: int,
     from repro_torch import kernels
     from repro_torch.data import SyntheticLM, host_shard
     from repro_torch.train import init_state, make_train_step
-    from repro_torch.train.sharding import fsdp_param_axes, fsdp_param_dims
+    from repro_torch.train.sharding import (fsdp_param_axes, fsdp_param_dims,
+                                            model_param_dims)
     art = make_train_step(cfg, grid, device=device, **kw)
     state = init_state(cfg, art, params=params, seed=0)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -2400,8 +2413,11 @@ def train_run(cfg, grid, params, kw: dict, batch: int, seq: int, steps: int,
             gather_ms=mt.gather_s * 1e3,
             reduce_scatter_ms=mt.reduce_scatter_s * 1e3,
             sync_ms=mt.sync_s * 1e3, staged_bytes=mt.staged_bytes,
+            model_calls=mt.model_calls, model_ms=mt.model_s * 1e3,
+            model_staged_bytes=mt.model_staged_bytes,
             gather=mt.gather_stats.edge_counts(),
-            reduce_scatter=mt.reduce_scatter_stats.edge_counts()))
+            reduce_scatter=mt.reduce_scatter_stats.edge_counts(),
+            model=mt.model_stats.edge_counts()))
         if grads:
             mus.append([t.clone() for t in _leaves(state.mu)])
     out["launches"] = dict(kernels.launch_counts())
@@ -2418,6 +2434,7 @@ def train_run(cfg, grid, params, kw: dict, batch: int, seq: int, steps: int,
             for t in range(steps)]) for j, path in enumerate(paths)}
     out["dims"] = dict(zip(paths, _leaves(fsdp_param_dims(art.pspecs))))
     out["axes"] = dict(zip(paths, _leaves(fsdp_param_axes(art.pspecs))))
+    out["mdims"] = dict(zip(paths, _leaves(model_param_dims(art.pspecs))))
     return out
 
 
@@ -2454,6 +2471,16 @@ def _assemble(results: list, pl: int) -> dict:
         ranks = results if "pod" in first["axes"][path] else results[:pl]
         out[path] = np.concatenate([r["shards"][path] for r in ranks], k)
     return out
+
+
+def _assemble_tp(results: list, pl: int, m: int) -> dict:
+    """Whole leaves from the shards of a grid with a model tier (results in
+    grid-rank order): each model lane's assembled over FSDP, then the lanes'
+    concatenated along the leaf's model dim (lane 0's where it has none)."""
+    lanes = [_assemble(results[t::m], pl) for t in range(m)]
+    mdims = results[0]["mdims"]
+    return {path: (lanes[0][path] if mdims[path] < 0 else np.concatenate(
+        [lane[path] for lane in lanes], mdims[path])) for path in lanes[0]}
 
 
 def _beyond(got: dict, want: dict, worst: int = 8) -> dict:
@@ -2521,7 +2548,7 @@ def _received(sched, region) -> dict[int, tuple[int, int]]:
     return {r: tuple(v) for r, v in out.items()}
 
 
-def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
+def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool, m: int = 1
                 ) -> list[dict[str, float]]:
     """Per rank and step, the non-local messages and bytes the parameter
     gathers and the gradient reduce-scatters must send: the schedule
@@ -2529,7 +2556,9 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
     gathers the path implies (each layer leaf twice with remat, once with
     the prefetch, the embedding once; each reduce-scatter once), for shards
     of each leaf in ``cfg.dtype``: llama's seven leaves a layer, or
-    Mamba2's two (in_proj, out_proj; the rest replicated). For "xla" it
+    Mamba2's two (in_proj, out_proj; the rest replicated). On a model tier
+    of m the gathers run over each model lane (the q·pl ranks listed, by
+    lane rank) on 1/m of each leaf the tier shards. For "xla" it
     is the recorder's own model of the
     library's all-gather and reduce-scatter, the calls the port makes (on
     the card this holds the number of calls; tests/test_torch_train.py
@@ -2539,21 +2568,25 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool
     from repro_torch.core.topology import RegionMap
     from repro_torch.models import transformer as T
     from repro_torch.train.sharding import (fsdp_param_axes,
-                                            fsdp_param_dims, param_specs)
+                                            fsdp_param_dims,
+                                            model_param_dims, param_specs)
     p = q * pl
     es = torch.empty((), dtype=cfg.dtype).element_size()
     shapes = T.train_param_shapes(cfg)
-    specs = param_specs(shapes, {"pod": q, "data": pl}, fsdp=True)
+    axes = {"pod": q, "data": pl} | ({"model": m} if m > 1 else {})
+    specs = param_specs(shapes, axes, fsdp=True)
     units = []                              # (shard bytes, gathers, rs)
-    for path, t, k, ax in zip(_paths(shapes), _leaves(shapes),
-                              _leaves(fsdp_param_dims(specs)),
-                              _leaves(fsdp_param_axes(specs))):
+    for path, t, k, ax, mk in zip(_paths(shapes), _leaves(shapes),
+                                  _leaves(fsdp_param_dims(specs)),
+                                  _leaves(fsdp_param_axes(specs)),
+                                  _leaves(model_param_dims(specs))):
         if k < 0:
             continue
         check(ax == "pod,data", f"{path}: sharded over {ax}")
         stacked = path[0] == "blocks"
         n = cfg.n_layers if stacked else 1
-        per = t.numel() // n // p * es      # one layer's shard, cfg.dtype
+        tp = m if mk >= 0 else 1
+        per = t.numel() // n // p // tp * es    # one layer's shard, cfg.dtype
         units.append((per, n * (1 if prefetch or not stacked else 2), n))
     out = []
     for r in range(p):
@@ -2713,11 +2746,12 @@ def _ssm_small():
                                n_layers=PARITY_LAYERS, dtype=torch.float32)
 
 
-def train_on_ranks(smi: str) -> dict[str, dict[str, int]]:
+def train_on_ranks(smi: str) -> tuple[dict[str, dict[str, int]], tuple]:
     """Phases 8b and 8c: the one-rank references here (CPU and card), then
     6 spawned ranks (``train_rank``); checks and prints each; returns the
     launches per kernel of 8c's runs and of 8b's mamba2 ranks, each summed
-    over the ranks and variants."""
+    over the ranks and variants, and the reduced llama's parameters and
+    one-rank runs (``_one_rank_refs``) for :func:`train_tp_on_ranks`."""
     from repro_torch import configs
     from repro_torch.launch.serve import run_ranks
     small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
@@ -2829,7 +2863,192 @@ def train_on_ranks(smi: str) -> dict[str, dict[str, int]]:
     check(losses["locality"] == losses["locality_prefetch"],
           f"train_fsdp: prefetch losses {losses['locality_prefetch']} differ "
           f"from eager {losses['locality']}")
-    return {"train_fsdp": total, "train_parity_ssm": ssm_total}
+    return {"train_fsdp": total, "train_parity_ssm": ssm_total}, (flat, one)
+
+
+# 8b's tensor-parallel part: the reduced fp32 llama on 2 x 2 x 2 ranks
+# ("pod", "data", "model"), against the card's one rank at the PARITY_*
+# limits, in four variants
+TP_GRID = (2, 2, 2)
+TP_PARITY_VARIANTS = (("locality", dict(fsdp=True)),
+                      ("locality_prefetch", dict(fsdp=True,
+                                                 prefetch_depth=1)),
+                      ("seq_shard", dict(fsdp=True, seq_shard=True)),
+                      ("xla", dict(fsdp=True, grad_sync="xla")))
+# 8e: llama3.2-3b at full width on 2 x 2 x 2 ranks, depth cut to 4 layers
+# as 8c's, one 1,024-token sequence a DP rank, 2 steps a variant
+TP_STEPS = 2
+TP_VARIANTS = (("locality", dict(fsdp=True)),
+               ("seq_shard", dict(fsdp=True, seq_shard=True)),
+               ("xla", dict(fsdp=True, grad_sync="xla")))
+
+
+def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of 8b's TP part and of 8e (all eight share the one card):
+    the reduced fp32 llama in each of ``TP_PARITY_VARIANTS``, then
+    llama3.2-3b at full width, 4 layers, in each of ``TP_VARIANTS``."""
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = RankGrid.build(*TP_GRID)
+    out = {"rank": rank, "parity": {}, "full": {},
+           "coords": dict(rank=grid.rank, t=grid.t,
+                          grid_rank=grid.grid_rank)}
+    small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                                n_layers=PARITY_LAYERS, dtype=torch.float32)
+    for name, kw in TP_PARITY_VARIANTS:
+        res = train_run(small, grid, _tree(plan["params"]), kw,
+                        PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, "cuda")
+        out["parity"][name] = {k: res[k] for k in (
+            "metrics", "shards", "dims", "axes", "mdims", "meter",
+            "launches")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(configs.get("llama3.2-3b"),
+                               n_layers=FSDP_LAYERS)
+    for name, kw in TP_VARIANTS:
+        res = train_run(full, grid, None, kw, TP_GRID[0] * TP_GRID[1],
+                        TRAIN_SEQ, TP_STEPS, "cuda")
+        res.pop("shards")
+        out["full"][name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tier_local(name: str, rank: int, step: int, mt: dict) -> None:
+    """The model tier's collectives ran, and none crossed a pod."""
+    check(mt["model_calls"] > 0 and mt["model"]["group_msgs_local"] > 0
+          and mt["model"]["group_msgs_nonlocal"] == 0
+          and mt["model"]["permute_edges_nonlocal"] == 0,
+          f"{name} rank {rank} step {step}: model tier {mt['model_calls']} "
+          f"calls, messages {mt['model']}")
+
+
+def train_tp_on_ranks(smi: str, flat: dict, one: dict
+                      ) -> dict[str, dict[str, int]]:
+    """8b's TP part and phase 8e: 8 spawned ranks (``train_tp_rank``) on
+    2 x 2 x 2; checks and prints each; returns 8e's launches per kernel,
+    summed over the ranks and variants. ``flat`` and ``one`` are 8b's
+    reduced llama parameters and one-rank runs."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    q, pl, m = TP_GRID
+    n = q * pl * m
+    t0 = time.perf_counter()
+    ranks = run_ranks(n, train_tp_rank, {"params": flat}, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+    lane_rank = [r["coords"]["rank"] for r in ranks]
+    check([r["coords"]["grid_rank"] for r in ranks] == list(range(n)),
+          "train_tp: grid ranks are not the spawned ranks' order")
+
+    small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                                n_layers=PARITY_LAYERS, dtype=torch.float32)
+    # fp32: the flash backward runs the CUDA-core pair
+    want_small = dict(train_launches_implied(PARITY_LAYERS, PARITY_STEPS),
+                      flash_attention_bwd_wgmma=0)
+    report = {}
+    for name, _ in TP_PARITY_VARIANTS:
+        res = [r["parity"][name] for r in ranks]
+        for r in range(1, n):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"train_parity_tp {name}: rank {r}'s metrics differ")
+        got = dict(metrics=res[0]["metrics"],
+                   params=_assemble_tp(res, pl, m))
+        report[name] = _parity(got, one["cuda"], f"train_parity_tp {name}")
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want_small}
+            check(got_l == want_small, f"train_parity_tp {name} rank {r}: "
+                  f"launches {got_l}, the path implies {want_small}")
+            for step, mt in enumerate(x["meter"]):
+                _tier_local(f"train_parity_tp {name}", r, step, mt)
+    eager = [r["parity"]["locality"] for r in ranks]
+    pf = [r["parity"]["locality_prefetch"] for r in ranks]
+    check(all(a["metrics"] == b["metrics"] and all(
+        np.array_equal(a["shards"][k], b["shards"][k]) for k in a["shards"])
+        for a, b in zip(eager, pf)),
+        "train_parity_tp: the prefetch step is not bitwise the eager one")
+    print(json.dumps({
+        "phase": "train_parity_tp", "model": small.name,
+        "grid": "2 x 2 x 2 (pod, data, model)", "layers": PARITY_LAYERS,
+        "dtype": "float32", "batch": [PARITY_BATCH, PARITY_SEQ],
+        "steps": PARITY_STEPS, "ranks_vs_one_rank": report,
+        "prefetch_bitwise_eager": True, "loss_rel_limit": PARITY_REL,
+        "param_abs_limit": PARITY_PARAM_ATOL,
+        "param_share_beyond_1e5_limit": PARITY_FAR_SHARE,
+        "launches_per_rank": want_small,
+        "losses_one_rank": [x["loss"] for x in one["cuda"]["metrics"]],
+        "card": smi}))
+
+    full = dataclasses.replace(configs.get("llama3.2-3b"),
+                               n_layers=FSDP_LAYERS)
+    want = train_launches_implied(FSDP_LAYERS, TP_STEPS)
+    total = {}
+    for name, kw in TP_VARIANTS:
+        res = [r["full"][name] for r in ranks]
+        for r in range(1, n):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"train_tp {name}: rank {r}'s metrics differ")
+        check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                  for x in res[0]["metrics"]),
+              f"train_tp {name}: non-finite metrics")
+        alg = kw.get("grad_sync", "locality")
+        oracle = fsdp_oracle(full, q, pl, alg, False, m)
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want}
+            check(got_l == want, f"train_tp {name} rank {r}: launches "
+                  f"{got_l}, the path implies {want}")
+            for k, c in path_launches(x["launches"]).items():
+                total[k] = total.get(k, 0) + c
+            for step, mt in enumerate(x["meter"]):
+                if alg == "xla":
+                    got = dict(msgs=mt["gather"]["group_msgs_nonlocal"]
+                               + mt["reduce_scatter"]["group_msgs_nonlocal"],
+                               bytes=mt["gather"]["group_bytes_nonlocal"]
+                               + mt["reduce_scatter"]["group_bytes_nonlocal"])
+                else:
+                    got = dict(
+                        gather_msgs=mt["gather"]["permute_edges_nonlocal"],
+                        gather_bytes=mt["gather"]["permute_bytes_nonlocal"],
+                        rs_msgs=mt["reduce_scatter"]
+                        ["permute_edges_nonlocal"],
+                        rs_bytes=mt["reduce_scatter"]
+                        ["permute_bytes_nonlocal"])
+                check(got == oracle[lane_rank[r]],
+                      f"train_tp {name} rank {r} step {step}: non-local "
+                      f"{got}, the oracle {oracle[lane_rank[r]]}")
+                _tier_local(f"train_tp {name}", r, step, mt)
+        per_rank = lambda f: [[x_[f] for x_ in x["meter"]] for x in res]
+        print(json.dumps({
+            "phase": "train_tp", "variant": name,
+            "shared": "8 ranks sharing one H100 over gloo",
+            "grid": "2 x 2 x 2 (pod, data, model)",
+            "model": full.name, "layers": FSDP_LAYERS,
+            "reduced": "depth 28 -> 4 layers (gloo host transport)",
+            "dtype": "bfloat16 compute, fp32 master",
+            "batch": [q * pl, TRAIN_SEQ], "steps": TP_STEPS,
+            "losses": [x["loss"] for x in res[0]["metrics"]],
+            "grad_norms": [x["grad_norm"] for x in res[0]["metrics"]],
+            "step_ms_by_rank": [x["step_ms"] for x in res],
+            "gather_host_ms_by_rank": per_rank("gather_ms"),
+            "reduce_scatter_host_ms_by_rank": per_rank("reduce_scatter_ms"),
+            "model_tier_host_ms_by_rank": per_rank("model_ms"),
+            "sync_host_ms_by_rank": per_rank("sync_ms"),
+            "staged_bytes_by_rank": per_rank("staged_bytes"),
+            "model_tier_staged_bytes_by_rank": per_rank("model_staged_bytes"),
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "gathers_per_step": res[0]["meter"][0]["gathers"],
+            "reduce_scatters_per_step": res[0]["meter"][0]["reduce_scatters"],
+            "model_tier_calls_per_step": res[0]["meter"][0]["model_calls"],
+            "model_tier_msgs_per_step_rank0": res[0]["meter"][0]["model"],
+            "nonlocal_per_step_by_lane_rank": oracle,
+            "nonlocal_equal_to_oracle": True,
+            "model_tier_nonlocal": 0,
+            "launches_rank0": {k: res[0]["launches"][k]
+                               for k in TRAIN_KERNELS},
+            "ranks_wall_s": ranks_s, "card": smi}))
+    return {"train_tp": total}
 
 
 def ptxas_usage(log: str) -> list[dict]:
@@ -2966,8 +3185,11 @@ def main() -> int:
     by_path["train_one_rank_ssm"] = train_one_rank(smi, "mamba2-780m",
                                                    "train_one_rank_ssm")
     clock("train_one_rank_ssm")
-    by_path.update(train_on_ranks(smi))
+    paths, (flat, one) = train_on_ranks(smi)
+    by_path.update(paths)
     clock("train_on_ranks")
+    by_path.update(train_tp_on_ranks(smi, flat, one))
+    clock("train_tp_on_ranks")
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3037,16 +3259,18 @@ def main() -> int:
                               "forward_bound_ms", "forward_library_ms",
                               "max_abs_err_forward_o",
                               "max_abs_err_forward_lse")}
-    rank8c = [r for r in bwd["flash_attention_bwd"]
-              if r["path"] == "train_fsdp"]
-    kernels[1]["fsdp_rank_cases"] = {
-        k: [r[k] for r in rank8c]
-        for k in ("shape", "forward_ms", "forward_lse_ms", "forward_bound_ms",
-                  "forward_library_ms", "max_abs_err_forward_o",
-                  "max_abs_err_forward_lse")}
-    for row in kernels:        # the backward kernels at 8c's and edge shapes
-        if row["name"] in bwd_kernels:
-            for path in ("train_fsdp", "edges"):
+    for path, key in (("train_fsdp", "fsdp_rank_cases"),
+                      ("train_tp", "tp_rank_cases")):
+        rank_rows = [r for r in bwd["flash_attention_bwd"]
+                     if r["path"] == path]
+        kernels[1][key] = {
+            k: [r[k] for r in rank_rows]
+            for k in ("shape", "forward_ms", "forward_lse_ms",
+                      "forward_bound_ms", "forward_library_ms",
+                      "max_abs_err_forward_o", "max_abs_err_forward_lse")}
+    for row in kernels:        # the backward kernels at 8c's, 8e's and edge
+        if row["name"] in bwd_kernels:                   # shapes
+            for path in ("train_fsdp", "train_tp", "edges"):
                 sel = [r for r in cases[row["name"]] if r["path"] == path]
                 if not sel:
                     continue

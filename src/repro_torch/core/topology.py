@@ -9,7 +9,9 @@ local_rank, as in the JAX package's ("pod", "local") mesh axes.
 transcribed from ``src/repro/core/topology.py``. ``RankGrid`` takes the
 place of its mesh helpers: ``q`` pods x ``pl`` lanes over a
 ``torch.distributed`` group, with this rank's ``(R, l)`` and the process
-groups of its pod and its lane.
+groups of its pod and its lane; with a third tier, ``m`` model ranks
+(tensor parallelism) at each ``(R, l)``, the JAX ("pod", "data", "model")
+mesh.
 """
 from __future__ import annotations
 
@@ -90,7 +92,8 @@ class Axis:
     one-member lane axis of :meth:`RankGrid.pod_grid`, over which nothing
     is sent)."""
 
-    name: str                      # "world", "local" (pod) or "outer" (lane)
+    name: str                      # "world", "local" (pod), "outer" (lane)
+    #                                or "model"
     members: tuple[int, ...]
     index: int
     group: dist.ProcessGroup | None
@@ -101,13 +104,22 @@ class Axis:
 
 
 class RankGrid:
-    """``q`` pods x ``pl`` lanes of ``torch.distributed`` ranks.
+    """``q`` pods x ``pl`` lanes of ``torch.distributed`` ranks, and ``m``
+    model ranks at each of them (tensor parallelism; 1 without).
 
-    Grid rank ``R * pl + l`` is global rank ``ranks[R * pl + l]``. Three
-    axes: ``world`` (all q·pl ranks, the JAX ``outer + local`` axes),
-    ``local`` (the pl ranks of this rank's pod) and ``outer`` (the q ranks
-    of this rank's lane, one per pod). ``recorder`` counts every message
-    the port's collectives send from this rank (``comm_record``).
+    Grid rank ``(R * pl + l) * m + t`` is global rank
+    ``all_ranks[(R * pl + l) * m + t]``: the row-major order of the JAX
+    ("pod", "data", "model") mesh. ``t`` picks this rank's model lane, the
+    q·pl ranks that share it, over which the locality collectives run; the
+    DP axes see that lane alone: ``rank = R * pl + l``, ``p = q * pl``,
+    ``ranks`` the lane's global ranks. Four axes: ``world`` (the lane's
+    q·pl ranks, the JAX ``outer + local`` axes), ``local`` (the pl ranks of
+    this rank's pod in the lane), ``outer`` (the q ranks of this rank's
+    DP lane, one per pod) and ``model`` (the m ranks that share ``(R, l)``,
+    all in one pod; members by grid rank). ``recorder`` counts every
+    message the port's collectives send from this rank over the lane
+    (``comm_record``); the model tier's are counted by :meth:`model_grid`'s
+    own recorder.
 
     Build it with :meth:`build`, which every rank of the default group must
     call with the same arguments, in the same order as any other group
@@ -115,54 +127,79 @@ class RankGrid:
     """
 
     def __init__(self, q: int, pl: int, ranks: tuple[int, ...], rank: int,
-                 world: Axis, local: Axis, outer: Axis):
+                 world: Axis, local: Axis, outer: Axis,
+                 model: Axis | None = None,
+                 all_ranks: tuple[int, ...] | None = None):
         self.q, self.pl, self.p = q, pl, q * pl
         self.ranks = ranks
         self.rank = rank
         self.R, self.l = divmod(rank, pl)
         self.world, self.local, self.outer = world, local, outer
+        self.model = model or Axis("model", (rank,), 0, None)
+        self.m, self.t = self.model.size, self.model.index
+        self.all_ranks = all_ranks or ranks
         self.group = world.group
         self.backend = dist.get_backend(self.group)
         self.device = torch.device("cuda" if self.backend == "nccl" else "cpu")
         self.recorder = CommRecorder(pl)
+        self._model_grid = None
 
     def __repr__(self) -> str:
-        return (f"RankGrid(q={self.q}, pl={self.pl}, rank={self.rank}, "
+        tp = f", m={self.m}, t={self.t}" if self.m > 1 else ""
+        return (f"RankGrid(q={self.q}, pl={self.pl}{tp}, rank={self.rank}, "
                 f"R={self.R}, l={self.l}, backend={self.backend})")
+
+    @property
+    def grid_rank(self) -> int:
+        """This rank's place in the whole grid, (R * pl + l) * m + t."""
+        return self.rank * self.m + self.t
 
     def global_rank(self, grid_rank: int) -> int:
         return self.ranks[grid_rank]
 
     @classmethod
-    def build(cls, q: int, pl: int, ranks=None) -> RankGrid | None:
-        """Make the grid over global ``ranks`` (default: the first q·pl of
-        the default group). Returns None on a rank outside the grid."""
-        if q < 1 or pl < 1:
-            raise ValueError(f"grid {q} x {pl}")
-        p = q * pl
-        ranks = tuple(range(p)) if ranks is None else tuple(ranks)
-        if len(ranks) != p or list(ranks) != sorted(set(ranks)):
-            raise ValueError(f"grid {q} x {pl} needs {p} increasing ranks "
-                             f"(the groups' rank order), got {ranks}")
+    def build(cls, q: int, pl: int, m: int = 1, ranks=None
+              ) -> RankGrid | None:
+        """Make the grid over global ``ranks`` (default: the first q·pl·m
+        of the default group). Returns None on a rank outside the grid."""
+        if q < 1 or pl < 1 or m < 1:
+            raise ValueError(f"grid {q} x {pl} x {m}")
+        p, n = q * pl, q * pl * m
+        ranks = tuple(range(n)) if ranks is None else tuple(ranks)
+        if len(ranks) != n or list(ranks) != sorted(set(ranks)):
+            raise ValueError(f"grid {q} x {pl} x {m} needs {n} increasing "
+                             f"ranks (the groups' rank order), got {ranks}")
         if max(ranks) >= dist.get_world_size():
             raise ValueError(f"ranks {ranks} exceed the world of "
                              f"{dist.get_world_size()}")
         me = dist.get_rank()
-        grid_group = dist.new_group(list(ranks))
-        pods = [dist.new_group([ranks[R * pl + l] for l in range(pl)])
-                for R in range(q)]
-        lanes = [dist.new_group([ranks[R * pl + l] for R in range(q)])
-                 for l in range(pl)]
+        # every rank makes every group, in one order: per model lane t its
+        # world, pods and DP lanes, then the model groups
+        lane_groups = []
+        for t in range(m):
+            lane = ranks[t::m]
+            lane_groups.append((
+                lane, dist.new_group(list(lane)),
+                [dist.new_group([lane[R * pl + l] for l in range(pl)])
+                 for R in range(q)],
+                [dist.new_group([lane[R * pl + l] for R in range(q)])
+                 for l in range(pl)]))
+        models = ([dist.new_group(list(ranks[i * m:(i + 1) * m]))
+                   for i in range(p)] if m > 1 else None)
         if me not in ranks:
             return None
-        rank = ranks.index(me)
+        rank, t = divmod(ranks.index(me), m)
         R, l = divmod(rank, pl)
-        grid = cls(q, pl, ranks, rank,
-                   Axis("world", tuple(range(p)), rank, grid_group),
+        lane, lane_group, pods, dp_lanes = lane_groups[t]
+        model = (Axis("model", tuple(rank * m + j for j in range(m)), t,
+                      models[rank]) if m > 1 else None)
+        grid = cls(q, pl, lane, rank,
+                   Axis("world", tuple(range(p)), rank, lane_group),
                    Axis("local", tuple(R * pl + j for j in range(pl)), l,
                         pods[R]),
                    Axis("outer", tuple(j * pl + l for j in range(q)), R,
-                        lanes[l]),)
+                        dp_lanes[l]),
+                   model, ranks)
         if grid.backend == "nccl" and p > 1:
             grid._first_batch()
         return grid
@@ -195,6 +232,20 @@ class RankGrid:
                         Axis("outer", (self.R,), 0, None))
         lane.recorder = CommRecorder(1)
         return lane
+
+    def model_grid(self) -> RankGrid:
+        """This rank's model tier as a grid of its own, 1 pod x m lanes over
+        the model group (one instance a grid: its recorder keeps the model
+        tier's messages, every edge local, as all of them share a pod)."""
+        if self._model_grid is None:
+            m, t = self.m, self.t
+            members = tuple(range(m))
+            group = self.model.group
+            ranks = tuple(self.all_ranks[g] for g in self.model.members)
+            self._model_grid = RankGrid(
+                1, m, ranks, t, Axis("world", members, t, group),
+                Axis("local", members, t, group), Axis("outer", (t,), 0, None))
+        return self._model_grid
 
     def _first_batch(self) -> None:
         """NCCL needs every rank of a group in the group's first

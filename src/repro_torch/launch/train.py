@@ -16,8 +16,15 @@ one) unless ``--device cpu``:
         --pods 2 --fsdp
 
 prints every rank's losses (equal on every rank) and its gathers,
-reduce-scatters and non-local messages. The kernels are built once, here,
-before the ranks start.
+reduce-scatters and non-local messages. ``--mesh 2x2x2`` takes the JAX
+launcher's mesh instead (the last axes of ("pod", "data", "model"), so
+``4x2`` is ("data", "model")): as many ranks, tensor-parallel over the
+"model" tier:
+
+    python -m repro_torch.launch.train --smoke --device cpu --mesh 2x2x2 \
+        --fsdp
+
+The kernels are built once, here, before the ranks start.
 """
 from __future__ import annotations
 
@@ -46,11 +53,20 @@ def _trainer_config(args):
                          prefetch_depth=args.prefetch_depth, lr=args.lr)
 
 
+def _mesh(args) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axes) of the ranks: ``--mesh``, else ``--ranks`` over
+    ``--pods``."""
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split("x"))
+        return shape, ("pod", "data", "model")[-len(shape):]
+    return (args.pods, args.ranks // args.pods), ("pod", "data")
+
+
 def _train_rank(rank: int, world: int, args) -> dict:
-    from repro_torch.core.topology import RankGrid
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve import resolve_device
     from repro_torch.train import Trainer
-    grid = RankGrid.build(args.pods, world // args.pods)
+    grid = make_mesh(*_mesh(args))
     tr = Trainer(_config(args), grid, _trainer_config(args),
                  device=resolve_device(args.device),
                  log=(print if rank == 0 else (lambda _: None)))
@@ -62,6 +78,8 @@ def _train_rank(rank: int, world: int, args) -> dict:
             "gathers": m.gathers, "reduce_scatters": m.reduce_scatters,
             "nonlocal_msgs": (m.gather_stats.nonlocal_msgs
                               + m.reduce_scatter_stats.nonlocal_msgs),
+            "model_calls": m.model_calls,
+            "model_nonlocal_msgs": m.model_stats.nonlocal_msgs,
             "staged_bytes": m.staged_bytes}
 
 
@@ -86,7 +104,15 @@ def main(argv=None) -> None:
                     help="ranks the batch is split over (spawned)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods the ranks form (ranks / pods lanes each)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 2x2x2 (pod, data, model): the ranks' grid, "
+                         "in place of --ranks and --pods")
     args = ap.parse_args(argv)
+    m = 1
+    if args.mesh:
+        from repro_torch.launch.mesh import grid_shape
+        q, pl, m = grid_shape(*_mesh(args))
+        args.ranks, args.pods = q * pl * m, q
 
     from repro_torch.serve import resolve_device
     device = resolve_device(args.device)
@@ -95,9 +121,10 @@ def main(argv=None) -> None:
         if args.ranks % args.pods:
             raise SystemExit(f"--ranks {args.ranks} is no multiple of "
                              f"--pods {args.pods}")
-        if args.global_batch % args.ranks:
+        dp = args.ranks // m
+        if args.global_batch % dp:
             raise SystemExit(f"--global-batch {args.global_batch} does not "
-                             f"split over {args.ranks} ranks")
+                             f"split over {dp} data-parallel ranks")
         if device.type == "cuda":
             from repro_torch.kernels import _build
             _build.build()                 # once, before the ranks start
@@ -107,15 +134,20 @@ def main(argv=None) -> None:
         dt = time.perf_counter() - t0
         if any(r["losses"] != out[0]["losses"] for r in out):
             raise SystemExit("[train] the ranks' losses differ")
+        shape, axes = _mesh(args)
         print(f"[train] {cfg.name} ({cfg.n_layers} layers) on {args.ranks} "
-              f"ranks ({args.pods} pods, {device}), grad_sync "
-              f"{args.grad_sync}, fsdp {args.fsdp}, prefetch "
+              f"ranks ({'x'.join(map(str, shape))} over {','.join(axes)}, "
+              f"{device}), grad_sync {args.grad_sync}, fsdp {args.fsdp}, "
+              f"prefetch "
               f"{args.prefetch_depth}: losses {out[0]['losses']} in "
               f"{dt:.2f}s with start-up")
         for r in out:
             print(f"[train] rank {r['rank']}: gathers {r['gathers']}, "
                   f"reduce-scatters {r['reduce_scatters']}, non-local msgs "
-                  f"{r['nonlocal_msgs']}, staged bytes {r['staged_bytes']}")
+                  f"{r['nonlocal_msgs']}, model-tier calls "
+                  f"{r['model_calls']} (non-local msgs "
+                  f"{r['model_nonlocal_msgs']}), staged bytes "
+                  f"{r['staged_bytes']}")
         return
 
     from repro_torch.train import Trainer

@@ -59,6 +59,7 @@ from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
                      rmsnorm, rmsnorm_residual, rope_angles)
 from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
                   mamba_shapes)
+from .tp import block_train_tp
 
 LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
 # the decode_combine hook's meta for the layers this port builds: full
@@ -490,7 +491,7 @@ def mamba_block_train(x, w, cfg: ModelConfig):
 
 
 def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  remat: bool = True, gather=None, prefetch=None
+                  remat: bool = True, gather=None, prefetch=None, tp=None
                   ) -> torch.Tensor:
     """The JAX ``forward(mode="train")`` of the dense and ssm families:
     tokens (B, S) -> logits (B, S, Vpad) in ``cfg.dtype``.
@@ -504,20 +505,32 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``torch.utils.checkpoint`` with its gathers inside, so the backward
     gathers again. ``prefetch`` (train/step.BlockPrefetch) takes the
     blocks' gathers instead: layer i + depth's is started before layer i
-    runs and finished outside the checkpoint, so it is not repeated."""
+    runs and finished outside the checkpoint, so it is not repeated.
+
+    ``tp`` (``models/tp.TensorParallel``) runs the dense decoder on one
+    rank of a model tier: the gathered weights are the rank's part over
+    "model" (its vocabulary rows of ``embed``), the blocks are
+    ``tp.block_train_tp`` and the logits the rank's (B, S, Vpad/m)
+    columns."""
     from torch.utils.checkpoint import checkpoint
     _check_train(cfg)
     gather = gather or (lambda name, t: t.to(cfg.dtype))
     names = layer_params(cfg)
     B, S = tokens.shape
     embed = gather("embed", params["embed"])
-    x = torch.nn.functional.embedding(tokens, embed)
+    seq = tp is not None and tp.seq_split(S)
+    if tp is not None:
+        x = tp.embed(tokens, embed, seq)
+    else:
+        x = torch.nn.functional.embedding(tokens, embed)
     if cfg.family == "ssm":
         block = lambda x, w: mamba_block_train(x, w, cfg)
     else:
         cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
                                cfg.head_dim_, cfg.rope_theta)
-        block = lambda x, w: block_train(x, w, cos, sin, cfg)
+        block = (lambda x, w: block_train(x, w, cos, sin, cfg)) \
+            if tp is None else \
+            (lambda x, w: block_train_tp(x, w, cos, sin, cfg, tp, seq))
 
     def gathered(x, *leaves):
         return block(x, {n: gather(n, t) for n, t in zip(names, leaves)})
@@ -542,4 +555,6 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             x = run(full, x, [w[n] for n in names])
     x = rmsnorm_train(x, gather("final_norm", params["final_norm"]),
                       eps=cfg.norm_eps)
+    if tp is not None:
+        x = tp.enter(x, seq)
     return x @ embed.T

@@ -97,6 +97,11 @@ class ServeSpec:
         sequence-sharded), the combine choice and the pod geometry, computed
         once here, so the engine and the scheduler cannot drift on them."""
         self.validate()
+        if grid is not None and getattr(grid, "m", 1) > 1:
+            raise NotImplementedError(
+                f"serving on a model tier of {grid.m} (the cache's KV heads "
+                "over 'model', src/repro/serve/engine.py:143-150) is the "
+                "serving half of ROADMAP.md Queue 1 item 11")
         batch_sharded, cand = _cache_layout(grid, self.batch, self.seq_axes)
         seq_span = _seq_axes_for(grid, self.cache_len, cand)
         choice = _combine_for(

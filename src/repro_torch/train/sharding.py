@@ -1,39 +1,45 @@
-"""Parameter sharding rules of the port's FSDP, ported from
-``src/repro/train/sharding.py`` (the ``_leaf_spec`` heuristic, ``param_specs``
-and the FSDP gather geometry).
+"""Parameter sharding rules of the port's FSDP and tensor parallelism,
+ported from ``src/repro/train/sharding.py`` (the ``_leaf_spec`` heuristic,
+``param_specs``, the FSDP gather geometry and the activation-kind table).
 
 A spec is a tuple with one entry per dim of a leaf, as the JAX
 ``PartitionSpec``: None (not sharded), ``"data"`` (over the ranks of a pod;
-the pods hold replicas) or ``("pod", "data")`` (over every rank, pod-major,
-the grid-rank order of ``core/topology.RankGrid``). The FSDP dim shards over
-``("pod", "data")`` when it divides by the whole grid, over ``"data"`` when
-it divides only by a pod's ranks, and stays whole otherwise; norm scales
-stay replicated. Stacked leaves (``blocks/...``) carry a leading None for the
-layer dim.
+the pods hold replicas), ``("pod", "data")`` (over every rank of a model
+lane, pod-major, the grid-rank order of ``core/topology.RankGrid``) or
+``"model"`` (over the m ranks of the model tier). Parameters shard 2-D:
+Megatron-style column- and row-parallel projections over ``"model"`` where
+the dim divides by m (else the dim stays whole), and the FSDP dim over
+``("pod", "data")`` when it divides by the lane's q·pl ranks, over
+``"data"`` when it divides only by a pod's ranks, whole otherwise; norm
+scales stay replicated. Stacked leaves (``blocks/...``) carry a leading
+None for the layer dim.
 
-The grid is given as its axes and sizes, ``{"pod": q, "data": pl}``
-(:func:`grid_axes`); a third tier (``"model"``, tensor parallelism) is
-refused: it is ROADMAP.md Queue 1 item 11.
+The grid is given as its axes and sizes, ``{"pod": q, "data": pl}`` and
+``"model": m`` on a grid with a model tier (:func:`grid_axes`).
+:data:`ACT_RULES` and :func:`act_spec` are the JAX activation hooks' table:
+which dims of an activation a rank holds a part of.
 """
 from __future__ import annotations
 
 import math
 
 DP_AXES = ("pod", "data")       # batch axes (outer = pod boundary)
+MODEL_AXIS = "model"
 
 
 def grid_axes(grid) -> dict[str, int]:
-    """The axes of a ``RankGrid`` (anything with ``q`` and ``pl``)."""
-    return {"pod": grid.q, "data": grid.pl}
+    """The axes of a ``RankGrid`` (anything with ``q``, ``pl`` and, for a
+    model tier, ``m``)."""
+    axes = {"pod": grid.q, "data": grid.pl}
+    m = getattr(grid, "m", 1)
+    return axes | {MODEL_AXIS: m} if m > 1 else axes
 
 
 def _check_axes(axes: dict[str, int]) -> None:
-    other = [a for a, n in axes.items() if a not in DP_AXES]
+    other = [a for a in axes if a not in DP_AXES + (MODEL_AXIS,)]
     if other:
-        raise NotImplementedError(
-            f"grid axes {other}: the port shards parameters over ('pod', "
-            "'data') only; the 'model' tier (tensor parallelism) is "
-            "ROADMAP.md Queue 1 item 11")
+        raise ValueError(f"grid axes {other}: the port's grids have the "
+                         f"axes {DP_AXES + (MODEL_AXIS,)}")
 
 
 def dp_axes(axes: dict[str, int]) -> tuple[str, ...]:
@@ -47,8 +53,9 @@ def _div(dim: int, n: int) -> bool:
 
 def _leaf_spec(name: str, shape: tuple[int, ...], axes: dict[str, int],
                fs_axes: tuple[str, ...]) -> tuple:
-    """The JAX heuristic from the leaf's key name, its FSDP entries (the
-    'model' entries it would add are refused with the tier)."""
+    """The JAX heuristic from the leaf's key name (routed experts keep the
+    TP/FSDP layout: expert parallelism comes with the MoE slice)."""
+    m = axes.get(MODEL_AXIS, 1)
     d = axes.get("data", 1)
     full = math.prod(axes.get(a, 1) for a in fs_axes) if fs_axes else 1
 
@@ -61,29 +68,41 @@ def _leaf_spec(name: str, shape: tuple[int, ...], axes: dict[str, int],
             return tuple(fs_axes)
         return "data" if ("data" in fs_axes and _div(dim, d)) else None
 
+    def mdim(dim):
+        return MODEL_AXIS if _div(dim, m) else None
+
     if len(shape) == 0:
         return ()
-    if name in ("scale", "bias", "A_log", "D", "dt_bias", "conv_b",
-                "router", "conv_w"):
+    if name in ("scale", "bias", "A_log", "D", "dt_bias", "conv_b"):
         return (None,) * len(shape)
+    if name == "router":                               # (d, E), small
+        return (None, None)
     if name in ("embed", "head"):
+        v_dim, d_dim = (0, 1) if name == "embed" else (1, 0)
         spec = [None, None]
-        spec[1 if name == "embed" else 0] = fdim(shape[1 if name == "embed"
-                                                       else 0])
+        spec[v_dim] = mdim(shape[v_dim])
+        spec[d_dim] = fdim(shape[d_dim])
         return tuple(spec)
-    if name in ("wq", "wk", "wv", "in_proj"):          # (d, out)
-        return (fdim(shape[0]), None)
-    if name in ("wo", "out_proj"):                     # (in, d)
-        return (None, fdim(shape[1]))
+    if name in ("wq", "wk", "wv", "in_proj"):          # column-parallel
+        return (fdim(shape[0]), mdim(shape[1]))
+    if name in ("wo", "out_proj"):                     # row-parallel
+        return (mdim(shape[0]), fdim(shape[1]))
     if name in ("gate", "up"):
         if len(shape) == 3:                            # MoE experts (E, d, f)
-            return (None, fdim(shape[1]), None)
-        return (fdim(shape[0]), None)
+            return (mdim(shape[0]), fdim(shape[1]), None)
+        return (fdim(shape[0]), mdim(shape[1]))
     if name == "down":
         if len(shape) == 3:                            # (E, f, d)
-            return (None, None, fdim(shape[2]))
-        return (None, fdim(shape[1]))
-    return (None,) * len(shape)
+            return (mdim(shape[0]), None, fdim(shape[2]))
+        return (mdim(shape[0]), fdim(shape[1]))
+    if name == "conv_w":                               # (W, Ch) depthwise
+        return (None, mdim(shape[1]))
+    # fallback: the largest dim over model, where it divides
+    best = max(range(len(shape)), key=lambda i: shape[i])
+    spec = [None] * len(shape)
+    if _div(shape[best], m):
+        spec[best] = MODEL_AXIS
+    return tuple(spec)
 
 
 def _walk(tree, path=()):
@@ -177,3 +196,50 @@ def block_slice_dims(block_dims):
     """Stacked-block FSDP dims in ONE layer's coordinates (the stack's
     leading layer dim dropped; replicated leaves stay -1)."""
     return _map_specs(lambda k: k - 1 if k >= 1 else -1, block_dims)
+
+
+def model_dim(spec: tuple) -> int:
+    """Index of the dim of a leaf spec sharded over "model" (-1: the model
+    tier holds the leaf whole)."""
+    for i, s in enumerate(spec):
+        if MODEL_AXIS in _names(s):
+            return i
+    return -1
+
+
+def model_param_dims(specs):
+    """Per-leaf model-sharded dim of a whole spec tree."""
+    return _map_specs(model_dim, specs)
+
+
+# ---------------------------------------------------------------------------
+# the activation kinds (the JAX shard hooks' table)
+# ---------------------------------------------------------------------------
+#: kind -> dims: "dp" marks the batch dim, "model" the model-sharded dim
+ACT_RULES: dict[str, tuple] = {
+    "act":        ("dp", None, None),            # (B, S, d)
+    "act_heads":  ("dp", None, "model", None),   # (B, S, H, D)
+    "act_ff":     ("dp", None, "model"),         # (B, S, F)
+    "moe_act":    ("dp", "model", None, None),   # (B, E, C, d)
+    "logits":     ("dp", None, "model"),         # (B, S, V)
+}
+
+
+def act_spec(kind: str, shape: tuple[int, ...], axes: dict[str, int], *,
+             seq_shard: bool = False) -> tuple:
+    """Which dims of an activation of ``kind`` and global ``shape`` a rank
+    holds a part of, on a grid of ``axes``: the JAX ``make_shard_fn`` rule
+    with the DP axes manual (each rank runs its own rows, so the batch dim
+    is never marked). A "model" dim is sharded where m divides it; with
+    ``seq_shard`` the sequence dim of ``act`` (the residual stream between
+    the blocks) is sharded over "model" instead."""
+    m = axes.get(MODEL_AXIS, 1)
+    rule = ACT_RULES.get(kind)
+    if rule is None or len(shape) != len(rule):
+        return (None,) * len(shape)
+    on_model = lambda dim: MODEL_AXIS if _div(dim, m) else None
+    spec = [on_model(shape[i]) if r == "model" else None
+            for i, r in enumerate(rule)]
+    if seq_shard and kind == "act":
+        spec[1] = on_model(shape[1])
+    return tuple(spec)

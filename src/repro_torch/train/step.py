@@ -37,9 +37,22 @@ meter of the artifacts (:class:`CommMeter`) counts the gathers and
 reduce-scatters (the latter through hooks on that node), their host
 seconds, the messages the recorder saw inside them and the bytes staged.
 
+On a grid with a model tier (``RankGrid.build(q, pl, m)``) the step is
+tensor-parallel as well (``models/tp.py``): each rank holds its (model,
+FSDP) shard of every leaf by ``param_specs``, the gathers and the DP sync
+above run over the rank's model lane (the q·pl ranks of one t) and move 1/m
+of each model-sharded leaf, the loss is the vocabulary-parallel
+cross-entropy, and ``seq_shard`` splits the residual stream over the
+sequence. A leaf sharded over "model" never syncs over the tier (where a
+rank uses more of it than its part, ``wk``/``wv`` whose KV heads m does not
+divide, the tier's gather does, in its backward); a leaf the tier holds
+whole takes the tier's sum where each model rank saw only part of the work:
+the norm scales with ``seq_shard``. The tier's collectives are the
+library's, under every ``grad_sync``, metered apart (``CommMeter.model_*``).
+
 Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"`` and
-``prefetch_depth="auto"`` (tuning, item 8), ``seq_shard`` (item 11),
-``moe_dispatch`` (item 6).
+``prefetch_depth="auto"`` (tuning, item 8), ``moe_dispatch`` (item 6), the
+ssm family on a model tier (item 13).
 """
 from __future__ import annotations
 
@@ -53,10 +66,12 @@ from ..configs import ModelConfig, check_supported
 from ..core import collectives as C
 from ..core.comm_record import CollectiveStats
 from ..models import transformer as T
+from ..models.tp import TensorParallel
 from ..optim.adamw import AdamW, TrainState, leaves, tree_map
 from ..serve.engine import resolve_device
 from .sharding import (block_slice_dims, fsdp_param_axes, fsdp_param_dims,
-                       gather_outer_local, grid_axes, param_specs)
+                       gather_outer_local, grid_axes, model_param_dims,
+                       param_specs)
 
 GRAD_SYNCS = ("locality", "locality_rd", "flat_psum", "xla")
 
@@ -74,13 +89,17 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - ll)
 
 
-def make_loss_fn(cfg: ModelConfig, *, remat: bool = True):
+def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
+                 tp: TensorParallel | None = None):
     """loss_fn(params, batch, gather=None, prefetch=None) -> (loss,
-    {"loss": loss}); ``params`` is ``transformer.forward_train``'s view."""
+    {"loss": loss}); ``params`` is ``transformer.forward_train``'s view.
+    With ``tp`` the logits are the rank's vocabulary columns and the loss
+    the vocabulary-parallel one (``TensorParallel.xent_loss``)."""
     def loss_fn(params, batch, gather=None, prefetch=None):
         logits = T.forward_train(params, cfg, batch["tokens"], remat=remat,
-                                 gather=gather, prefetch=prefetch)
-        loss = xent_loss(logits, batch["labels"])
+                                 gather=gather, prefetch=prefetch, tp=tp)
+        loss = (xent_loss(logits, batch["labels"]) if tp is None
+                else tp.xent_loss(logits, batch["labels"]))
         return loss, {"loss": loss}
     return loss_fn
 
@@ -94,7 +113,10 @@ class CommMeter:
     on this rank since the last :meth:`take`: calls, host seconds, the
     recorder's messages inside them (``CollectiveStats``) and the bytes
     staged between the card and a gloo grid's host tensors (both ways);
-    ``sync_*`` the same for the gradient sync after the backward."""
+    ``sync_*`` the same for the gradient sync after the backward, and
+    ``model_*`` for the model tier's collectives (forward, backward, the
+    loss and the tier's gradient sum; their staged bytes are in
+    ``staged_bytes`` too)."""
 
     gathers: int = 0
     reduce_scatters: int = 0
@@ -102,11 +124,16 @@ class CommMeter:
     reduce_scatter_s: float = 0.0
     sync_s: float = 0.0
     staged_bytes: int = 0
+    model_calls: int = 0
+    model_s: float = 0.0
+    model_staged_bytes: int = 0
     gather_stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
     reduce_scatter_stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
     sync_stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+    model_stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
 
     def take(self) -> "CommMeter":
@@ -276,15 +303,12 @@ class StepArtifacts:
     prefetch_depth: int = 0
 
 
-def _refuse(grad_sync, prefetch_depth, seq_shard, moe_dispatch) -> None:
+def _refuse(grad_sync, prefetch_depth, moe_dispatch) -> None:
     if grad_sync == "auto" or prefetch_depth == "auto":
         raise NotImplementedError(
             '"auto" (grad_sync or prefetch_depth) comes with the tuning '
             "slice (ROADMAP.md Queue 1 item 8): it needs parameters measured "
             "on the H100")
-    if seq_shard:
-        raise NotImplementedError("seq_shard comes with the 'model' tier "
-                                  "(ROADMAP.md Queue 1 item 11)")
     if moe_dispatch != "none":
         raise NotImplementedError("moe_dispatch comes with the MoE slice "
                                   "(ROADMAP.md Queue 1 item 6)")
@@ -293,12 +317,26 @@ def _refuse(grad_sync, prefetch_depth, seq_shard, moe_dispatch) -> None:
                          f"{GRAD_SYNCS}")
 
 
-def _shard(t: torch.Tensor, dim: int, axes: str, grid) -> torch.Tensor:
-    """This rank's shard of a full leaf along ``dim``."""
-    if dim < 0:
-        return t
-    n, i = (grid.p, grid.rank) if "pod" in axes else (grid.pl, grid.l)
-    return t.chunk(n, dim)[i].contiguous().clone()
+def _shard(t: torch.Tensor, mdim: int, dim: int, axes: str, grid
+           ) -> torch.Tensor:
+    """This rank's (model, FSDP) shard of a full leaf: part t of the m
+    along ``mdim`` (-1: the tier holds it whole), then this rank's part of
+    that over its model lane along ``dim`` (-1: replicated)."""
+    if mdim >= 0:
+        t = t.chunk(grid.m, mdim)[grid.t]
+    if dim >= 0:
+        n, i = (grid.p, grid.rank) if "pod" in axes else (grid.pl, grid.l)
+        t = t.chunk(n, dim)[i]
+    return t.contiguous().clone() if mdim >= 0 or dim >= 0 else t
+
+
+def _path_tree(tree, path=()):
+    """``tree`` with each leaf replaced by its "/"-joined path."""
+    if isinstance(tree, dict):
+        return {k: _path_tree(v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_path_tree(v, path + (str(i),)) for i, v in enumerate(tree)]
+    return "/".join(path)
 
 
 def make_train_step(cfg: ModelConfig, grid=None, *,
@@ -317,17 +355,19 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     loss averaged over the ranks, ``grad_norm`` and ``lr``. It runs on
     ``cuda`` unless ``device`` names another (``"cpu"``: the kernels'
     plain versions)."""
-    _refuse(grad_sync, prefetch_depth, seq_shard, moe_dispatch)
+    _refuse(grad_sync, prefetch_depth, moe_dispatch)
     check_supported(cfg, "train")
     optimizer = optimizer or AdamW()
     device = resolve_device(device)
-    loss_fn = make_loss_fn(cfg, remat=remat)
     meter = CommMeter()
     dist_on = grid is not None
     p = grid.p if dist_on else 1
     axes = grid_axes(grid) if dist_on else {"data": 1}
     pspecs = param_specs(T.train_param_shapes(cfg), axes,
                          fsdp=fsdp and dist_on)
+    tp = (TensorParallel.build(cfg, grid, seq_shard=seq_shard, meter=meter)
+          if dist_on and grid.m > 1 else None)
+    loss_fn = make_loss_fn(cfg, remat=remat, tp=tp)
     dims, fsaxes = fsdp_param_dims(pspecs), fsdp_param_axes(pspecs)
     depth = int(prefetch_depth)
     if depth and not (fsdp and dist_on):
@@ -372,6 +412,11 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     idx_rs = [i for i, (k, a) in enumerate(zip(flat_dims, flat_axes))
               if k >= 0 and "pod" not in a]
     idx_full = [i for i, k in enumerate(flat_dims) if k < 0]
+    # the model tier: the leaves it shards hold distinct parts on its
+    # ranks; the norm scales it holds whole
+    model_sharded = [k >= 0 for k in leaves(model_param_dims(pspecs))]
+    idx_scale = [i for i, path in enumerate(leaves(_path_tree(pspecs)))
+                 if path.endswith("/scale")]
 
     def staged(fn, g: Any, t: torch.Tensor) -> torch.Tensor:
         """``fn`` on ``t`` moved to the grid's device and back."""
@@ -441,6 +486,13 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                 b.div_(grad_accum)
         loss_local = metrics_sum / grad_accum
 
+        if tp is not None and tp.seq_split(batch["tokens"].shape[1]):
+            # each model rank normed S/m rows: the scales' gradients are
+            # the tier's sum (fp32, one bucket)
+            out = bucketed_sync([bufs[i] for i in idx_scale],
+                                tp.tier.all_reduce, bucket_mb=bucket_mb)
+            for i, g in zip(idx_scale, out):
+                bufs[i] = g
         if dist_on:
             with _Metered(meter, "sync", [grid, pod, lane]):
                 for i in idx_done:
@@ -454,14 +506,19 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                             bufs[i] = g
                 # the loss's mean and the squares of the whole gradient:
                 # sharded leaves from every rank that holds a distinct part
+                # (on a model tier: the leaves it shards from every model
+                # rank, the rest from t = 0)
+                mine = lambda i: grid.t == 0 or model_sharded[i]
                 sq = lambda idxs: sum((torch.sum(torch.square(bufs[i]))
-                                       for i in idxs),
+                                       for i in idxs if mine(i)),
                                       torch.zeros((), device=device))
                 zero = torch.zeros((), device=device)
                 vec = torch.stack([
-                    loss_local, sq(idx_done),
+                    loss_local if grid.t == 0 else zero, sq(idx_done),
                     sq(idx_rs) if grid.R == 0 else zero,
                     sq(idx_full) if grid.rank == 0 else zero])
+                if tp is not None:
+                    vec = tp.tier.all_reduce(vec)
                 tot = staged(lambda u: C.allreduce(u, grid, algorithm="xla"),
                              grid, vec)
             loss_mean = tot[0] / p
@@ -504,8 +561,9 @@ def init_state(cfg: ModelConfig, artifacts: StepArtifacts, *,
             cfg, torch.Generator(device=device).manual_seed(seed), device)
     dims = fsdp_param_dims(artifacts.pspecs)
     axes = fsdp_param_axes(artifacts.pspecs)
+    mdims = model_param_dims(artifacts.pspecs)
     grid = artifacts.grid
-    shards = tree_map(lambda t, k, a: _shard(
-        t.to(device=device, dtype=torch.float32), k, a, grid), params, dims,
-        axes)
+    shards = tree_map(lambda t, mk, k, a: _shard(
+        t.to(device=device, dtype=torch.float32), mk, k, a, grid), params,
+        mdims, dims, axes)
     return TrainState.create(shards)

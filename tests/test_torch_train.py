@@ -243,17 +243,24 @@ def test_refusals_name_their_items():
     from repro_torch.train import make_train_step
     from repro_torch.train.sharding import param_specs
     cfg = H._small_cfg("llama3.2-3b", N_LAYERS)
+    from repro_torch.models.tp import check_tp
     for kw, item in ((dict(grad_sync="auto"), "item 8"),
                      (dict(prefetch_depth="auto"), "item 8"),
-                     (dict(seq_shard=True), "item 11"),
                      (dict(moe_dispatch="locality"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(cfg, None, device="cpu", **kw)
     assert make_train_step(H._small_cfg("mamba2-780m", 2), None,
                            device="cpu").step_fn is not None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        param_specs({"embed": torch.empty(4, 4)},
-                    {"pod": 2, "data": 2, "model": 2}, fsdp=True)
+    # the model tier (item 11's training half) is taken: seq_shard is a
+    # no-op without one, the specs shard over "model"; the ssm family's
+    # tier is item 13
+    assert make_train_step(cfg, None, device="cpu",
+                           seq_shard=True).step_fn is not None
+    assert param_specs({"embed": torch.empty(4, 4)},
+                       {"pod": 2, "data": 2, "model": 2}, fsdp=True) == \
+        {"embed": ("model", ("pod", "data"))}
+    with pytest.raises(NotImplementedError, match="item 13"):
+        check_tp(H._small_cfg("mamba2-780m", 2), 2)
     with pytest.raises(ValueError, match="prefetch_depth"):
         make_train_step(cfg, None, device="cpu", prefetch_depth=1)
 

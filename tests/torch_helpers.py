@@ -40,11 +40,11 @@ class RankContext:
         self.rank, self.world = rank, world
         self._grids: dict = {}
 
-    def grid(self, q: int, pl: int):
+    def grid(self, q: int, pl: int, m: int = 1):
         from repro_torch.core.topology import RankGrid
-        if (q, pl) not in self._grids:
-            self._grids[q, pl] = RankGrid.build(q, pl)
-        grid = self._grids[q, pl]
+        if (q, pl, m) not in self._grids:
+            self._grids[q, pl, m] = RankGrid.build(q, pl, m)
+        grid = self._grids[q, pl, m]
         if grid is not None:
             grid.recorder.reset()
         return grid
@@ -693,6 +693,60 @@ res["one_gather"] = {k: getattr(st, k) for k in EDGES}
 with open(f"{out_dir}/out.json", "w") as fh:
     json.dump(res, fh)
 """
+# The JAX (2, 2, 2) ("pod", "data", "model") step for tests/test_torch_tp.py:
+# ``python -c JAX_TP_REFERENCE out_dir plan.json`` with plan {n_layers,
+# global_batch, seq_len, steps, variants (name -> make_train_step keywords,
+# "grad_sync" among them)}. On jax 0.9.0 the mesh needs Auto axes, no
+# jax.set_mesh, and the steps under ``with mesh:`` (with ``jax.set_mesh``,
+# or Explicit axes, the embedding gather raises ShardingTypeError). Writes
+# out.json (losses, grad norms, the mesh's device ids) and an .npz of
+# parameters per variant (and params0, the initial state's).
+JAX_TP_REFERENCE = r"""
+import dataclasses, json, sys, warnings
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import AxisType
+warnings.simplefilter("ignore")
+from repro import configs
+from repro.data import SyntheticLM
+from repro.train.step import custom_batch_specs, init_state, make_train_step
+
+out_dir = sys.argv[1]
+plan = json.loads(open(sys.argv[2]).read())
+cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+                          n_layers=plan["n_layers"], dtype=jnp.float32)
+B, S = plan["global_batch"], plan["seq_len"]
+mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                     axis_types=(AxisType.Auto,) * 3)
+data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)
+path_of = lambda path: "/".join(
+    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
+    path_of(p): np.asarray(v)
+    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+res = {"device_ids": np.vectorize(lambda d: d.id)(mesh.devices).tolist()}
+with mesh:
+    for i, (name, kw) in enumerate(plan["variants"].items()):
+        art = make_train_step(cfg, mesh, shape=custom_batch_specs(cfg, B, S),
+                              donate=False, **kw)
+        state = init_state(cfg, mesh, art)
+        if i == 0:
+            save("params0", state.params)
+        losses, norms = [], []
+        for step in range(plan["steps"]):
+            batch = {k: jax.device_put(v, art.batch_shardings[k])
+                     for k, v in data.batch(step).items()}
+            state, m = art.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        save(name, state.params)
+        res[name] = {"losses": losses, "grad_norms": norms}
+with open(f"{out_dir}/out.json", "w") as fh:
+    json.dump(res, fh)
+"""
+
+
 def train_tree(flat: dict):
     """A parameter tree from {"a/b/c": array} (the JAX tree's leaf paths)."""
     import torch
@@ -707,18 +761,19 @@ def train_tree(flat: dict):
 
 
 def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
-               seq_len, kw, arch="llama3.2-3b"):
-    """``make_train_step(**kw)`` on a q x pl grid (q None: one process,
-    every rank runs it alone) from the given parameters, on the CPU, for
-    ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows), for
-    ``arch``'s smoke config at ``n_layers`` in fp32. Returns
-    the metrics of every step, this rank's parameter shards (by leaf path)
-    with their FSDP dim and axes, and the step meter of the run."""
+               seq_len, kw, arch="llama3.2-3b", m=1):
+    """``make_train_step(**kw)`` on a q x pl (x m) grid (q None: one
+    process, every rank runs it alone) from the given parameters, on the
+    CPU, for ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows),
+    for ``arch``'s smoke config at ``n_layers`` in fp32. Returns the
+    metrics of every step, this rank's parameter shards (by leaf path) with
+    their FSDP dim and axes and model dim, and the step meter of the run."""
     from repro_torch.data import SyntheticLM, host_shard
     from repro_torch.optim.adamw import leaves
     from repro_torch.train import init_state, make_train_step
-    from repro_torch.train.sharding import fsdp_param_axes, fsdp_param_dims
-    grid = None if q is None else ctx.grid(q, pl)
+    from repro_torch.train.sharding import (fsdp_param_axes, fsdp_param_dims,
+                                            model_param_dims)
+    grid = None if q is None else ctx.grid(q, pl, m)
     if q is not None and grid is None:
         return None
     cfg = _small_cfg(arch, n_layers)
@@ -741,11 +796,55 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
                 zip(paths, leaves(state.params))},
         dims=dict(zip(paths, leaves(fsdp_param_dims(art.pspecs)))),
         axes=dict(zip(paths, leaves(fsdp_param_axes(art.pspecs)))),
+        mdims=dict(zip(paths, leaves(model_param_dims(art.pspecs)))),
+        coords=None if grid is None else dict(
+            rank=grid.rank, t=grid.t, grid_rank=grid.grid_rank),
         meter=dict(gathers=meter.gathers,
                    reduce_scatters=meter.reduce_scatters,
                    gather=meter.gather_stats.edge_counts(),
                    reduce_scatter=meter.reduce_scatter_stats.edge_counts(),
-                   sync=meter.sync_stats.edge_counts()))
+                   sync=meter.sync_stats.edge_counts(),
+                   model_calls=meter.model_calls,
+                   model=meter.model_stats.edge_counts()))
+
+
+def assemble_tp(results: list, pl: int, m: int) -> dict:
+    """Every leaf whole again from the shards of a grid with a model tier
+    (``results`` in grid-rank order): each model lane's parts assembled
+    over FSDP, then the lanes' concatenated along the leaf's model dim (the
+    tier holds a leaf without one whole: lane 0's)."""
+    lanes = [assemble(results[t::m], pl) for t in range(m)]
+    mdims = results[0]["mdims"]
+    return {path: (lanes[0][path] if mdims[path] < 0 else np.concatenate(
+        [lane[path] for lane in lanes], mdims[path])) for path in lanes[0]}
+
+
+def task_tp_refusals(ctx, q, pl, m):
+    """On a q x pl x m grid: the mamba2 step and serving refuse the model
+    tier; returns the two messages."""
+    from repro_torch.serve.spec import ServeSpec
+    from repro_torch.train import make_train_step
+    grid = ctx.grid(q, pl, m)
+    out = []
+    for call in (lambda: make_train_step(_small_cfg("mamba2-780m", 2), grid,
+                                         device="cpu"),
+                 lambda: ServeSpec(batch=1, cache_len=16).resolve(
+                     _small_cfg("llama3.2-3b", 2), grid)):
+        try:
+            call()
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
+
+
+def task_mesh(ctx, shape, axes):
+    """``launch.mesh.make_mesh`` on every rank: this rank's coordinates."""
+    from repro_torch.launch.mesh import make_mesh
+    grid = make_mesh(shape, axes)
+    return None if grid is None else dict(
+        q=grid.q, pl=grid.pl, m=grid.m, R=grid.R, l=grid.l, t=grid.t,
+        grid_rank=grid.grid_rank, model=list(grid.model.members),
+        lane=list(grid.ranks))
 
 
 def assemble(results: list, pl: int) -> dict:
