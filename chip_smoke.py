@@ -49,7 +49,14 @@ the package is missing. Phases, each fatal on failure:
    (fp32) of a 2,048-slot llama3.2-3b cache at positions of phase 7's
    trace, and RMSNorm, plain and residual, 3,072 wide, on 1 and 2 rows and
    on the trace's shortest and longest prefills (135 and 1,459 rows), in
-   bf16 and fp32, at the tolerances above, timed with their bounds;
+   bf16 and fp32, at the tolerances above, timed with their bounds; and
+   the decode pair at phase 9's model-rank shapes (llama3.2-3b's 8 KV
+   heads over 2: KV = 4, G = 3, D = 128, bf16): B = 2 rows of a
+   2,048-slot cache at positions of phase 7's trace and a B = 1 shard of
+   8,192 slots of a 32,768-slot cache at each shard's offset, at
+   positions 3,000 and 11,000, each kernel against its plain version and
+   timed with its bound, the pair beside one SDPA call masked to the kept
+   slots;
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -218,12 +225,36 @@ the package is missing. Phases, each fatal on failure:
    step with remat: SSD forward 96 and its backward 48, gated RMSNorm 96
    and its backward 48, RMSNorm plain 97 and its backward 49); step ms,
    tokens/s, peak memory and a profiled step (the SSD forward's and
-   backward's device ms, the gated backward's, the idle share). Last the
-   whole run's wall time.
+   backward's device ms, the gated backward's, the idle share).
+9. serving on a ("pod", "data", "model") grid, ``serve_tier``: 8 spawned
+   ranks sharing the card as 2 x 2 x 2, llama3.2-3b split over a model
+   tier of 2 (12 q and 4 KV heads a rank, its MLP columns and vocabulary
+   rows, cut from the seed-0 weights as they are drawn). 9a: phase 7's
+   ServeSpec and home pod on the first 8 requests of its trace
+   (``TIER_MIGRATIONS`` = 4 migrations, the count the JAX engine and the
+   port give for it at a reduced size in tests/test_torch_serve_tp.py),
+   for ``locality_bruck`` and ``xla``; 9b: phase 6's 32,768-slot cache
+   split over ("pod", "data") on each model lane, prompts of 3,000 and
+   11,000 tokens, 8 new each, ``combine="locality"`` and ``"xla"``. Each
+   first with a reduced fp32 llama (2 layers) whose tokens must equal a
+   one-rank engine's; then at full width and depth (bf16) against
+   one-rank engines in this process: every rank's results alike, prefill
+   logits (the tier's columns put together) and first decode logits
+   within ``SEQ_LOGIT_REL`` of the largest |logit| (a first token that
+   differs must lie within twice the prefill's difference of the one
+   rank's maximum, and its decode logits are not compared), launches
+   exact, each rank's non-local migration and combine messages and bytes
+   the oracle's (``migrate_oracle``, ``migrate_bytes_oracle``,
+   ``combine_oracle``) and its bytes 1/m of phase 7's or 6's for its lane
+   rank, every tier inside one pod and no tier message across a pod, and
+   every decode step eager by the scheduler's rule; per rank it prints
+   decode step ms, prefill ms per request, tokens/s, peak memory, the
+   tier's calls, host ms and staged bytes, and the migrations' and
+   combines' messages and bytes. Last the whole run's wall time.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phase 4, phase 5, each engine of phases 6 and 7 in its
-own process, the trainers of 8a and 8d, each run of 8c and of 8b's mamba2
+(the DMA gather, phase 4, phase 5, each engine of phases 6, 7 and 9 in
+its own process, the trainers of 8a and 8d, each run of 8c and of 8b's mamba2
 ranks in its own process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
@@ -407,6 +438,7 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     cases["decode_offset"] = decode_offset_cases(timer, g)
     rms, cases["decode_batch"] = batch_sharded_cases(timer)
     cases["rmsnorm"] += rms
+    cases["decode_tier"] = tier_decode_cases(timer)
     return cases
 
 
@@ -583,6 +615,114 @@ def batch_sharded_cases(timer) -> tuple[list[dict], list[dict]]:
         del q, k, v
     torch.cuda.empty_cache()
     return rms, rows
+
+
+# the decode pair at the shapes phase 9 gives a model rank (llama3.2-3b's 8 KV
+# heads over m = 2: KV = 4, G = 3, D = 128, bf16): 9a's B_loc = 2 rows of the
+# 2,048-slot cache at positions of phase 7's trace, and 9b's B = 1 shard of
+# 8,192 slots of a 32,768-slot cache at every shard's offset, at the
+# positions of its two prompts (3,000 and 11,000: a shard keeps all its
+# slots, part of them or none)
+TIER_M = 2
+TIER_KV = 8 // TIER_M
+TIER_POSITIONS = OFFSET_POSITIONS[:2]
+
+
+def tier_decode_cases(timer) -> list[dict]:
+    """Both decode kernels at a model rank's shapes against their plain
+    versions (the tolerances of ``decode_cases``), each timed with its
+    bound, and the pair (scores, accumulate, o / l) beside one SDPA call
+    on the same inputs, masked to the kept slots (the library yardstick,
+    timed here only; none for a shard that keeps no slot)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF
+    g = torch.Generator(device="cuda").manual_seed(3)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    KV, (G, D), dt = TIER_KV, DECODE_SHAPES[0], torch.bfloat16
+    es = 2
+    rng = np.random.default_rng(3)
+    runs = []                  # (what, q, k, v, pos, offset or None)
+    B, L = BATCH_ROWS // 4, BATCH_CACHE
+    q, k, v = (randn(B, 1, KV * G, D).to(dt), randn(B, L, KV, D).to(dt),
+               randn(B, L, KV, D).to(dt))
+    for draw in range(BATCH_DECODE_DRAWS):
+        pos = torch.tensor(batch_positions(rng, B, draw), device="cuda")
+        runs.append(("9a", q, k, v, pos, None))
+    L = OFFSET_TOTAL // OFFSET_SHARDS
+    q1 = randn(1, 1, KV * G, D).to(dt)
+    k1 = randn(1, OFFSET_TOTAL, KV, D).to(dt)
+    v1 = randn(1, OFFSET_TOTAL, KV, D).to(dt)
+    for p_ in TIER_POSITIONS:
+        for shard in range(OFFSET_SHARDS):
+            off = shard * L
+            runs.append(("9b", q1, k1[:, off:off + L], v1[:, off:off + L],
+                         torch.tensor(p_, device="cuda"), off))
+    rows = []
+    for what, q, k, v, pos, off in runs:
+        kw = {} if off is None else dict(slot_offset=off)
+        B, L = k.shape[:2]
+        name = f"tier decode {what} B={B} L={L} offset {off} pos " \
+               f"{pos.tolist()}"
+        s, m = stats_ops.decode_scores(q, k, pos, **kw)
+        rs, rm = stats_ops.decode_scores_ref(q, k, pos, **kw)
+        check(torch.equal(s == NEG_INF, rs == NEG_INF),
+              f"{name}: masked slots differ")
+        err = max(close(s, rs, 2e-2, name + " s"),
+                  close(m, rm, 2e-2, name + " m"))
+        o, l = stats_ops.accumulate(s, m, v, pos=pos, **kw)
+        ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+        err_o = max(close(o, ro, 2e-2, name + " o"),
+                    close(l, rl, 2e-2, name + " l"))
+        kept = int((rs[:, 0, 0] > NEG_INF).sum())
+
+        def pair():
+            s_, m_ = stats_ops.decode_scores(q, k, pos, **kw)
+            o_, l_ = stats_ops.accumulate(s_, m_, v, pos=pos, **kw)
+            return (o_ / l_[..., None]).to(dt)
+
+        row = dict(
+            path="serve_tier", run=what, shape=[B, KV, G, L, D],
+            dtype=str(dt), positions=pos.tolist(), slot_offset=off,
+            kept_slots=kept, max_abs_err_scores=err, max_abs_err_stats=err_o,
+            tolerance=2e-2,
+            state=("none" if kept == 0 else "all" if kept == B * L
+                   else "part"),
+            scores_ms=timer(lambda: stats_ops.decode_scores(q, k, pos, **kw)),
+            scores_plain_ms=timer(lambda: stats_ops.decode_scores_ref(
+                q, k, pos, **kw)),
+            stats_ms=timer(lambda: stats_ops.accumulate(s, m, v, pos=pos,
+                                                        **kw)),
+            stats_plain_ms=timer(lambda: stats_ops.decode_stats_accumulate_ref(
+                s, m, v)),
+            pair_ms=timer(pair), library_ms=None, max_abs_err_vs_sdpa=None)
+        sb, sby = bound(q.numel() * es + kept * KV * D * es
+                        + (s.numel() + m.numel()) * 4,
+                        2 * kept * KV * G * D, dt)
+        ab, aby = bound(kept * KV * (G * 4 + D * es)
+                        + (m.numel() + o.numel() + l.numel()) * 4,
+                        2 * kept * KV * G * D, dt)
+        pb, pby = bound((q.numel() + o.numel() + 2 * kept * KV * D) * es,
+                        4 * kept * KV * G * D, dt)
+        row.update(scores_bound_ms=sb, scores_bound_by=sby,
+                   stats_bound_ms=ab, stats_bound_by=aby,
+                   pair_bound_ms=pb, pair_bound_by=pby)
+        if kept:
+            slot = torch.arange(L, device="cuda") + (off or 0)
+            p2 = pos.reshape(-1, 1)
+            mask = (slot[None] <= p2)[:, None, None]
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            row["max_abs_err_vs_sdpa"] = close(
+                pair(), sdpa().transpose(1, 2), 2e-2, name + " vs SDPA")
+            row["library_ms"] = timer(sdpa)
+        rows.append(row)
+    check({r["state"] for r in rows if r["run"] == "9b"}
+          == {"all", "part", "none"}, "tier decode: 9b shard states")
+    del q, k, v, q1, k1, v1
+    torch.cuda.empty_cache()
+    return rows
 
 
 # decode attention at llama3.2-3b's decode shape (B = 8 rows, KV = 8, G = 3,
@@ -1296,8 +1436,10 @@ def serve_on_card(cfg, params, spec, requests, grid=None, home_pod=None
     kernels.add_launch_counts(kernels.launch_counts(), -1)    # all to 0
     rids = [eng.submit(Request(tokens=t, max_new=m, home_pod=home_pod,
                                arrival_s=0.0)) for t, m in requests]
+    t_drain = time.perf_counter()
     results = eng.drain()
     torch.cuda.synchronize()
+    rec["drain_s"] = time.perf_counter() - t_drain
     counts = kernels.launch_counts()
     st = eng.stats()
     want = launches_implied(cfg, st)
@@ -1372,7 +1514,8 @@ def seq_rank(rank: int, world: int, plan: dict) -> dict:
 def serve_seq_parallel(smi: str) -> dict[str, int]:
     """Phase 6: the one-rank references in this process, then 6 spawned
     ranks (``seq_rank``); checks and prints each layout; returns the
-    launches per kernel of the full-width runs, summed over the ranks."""
+    launches per kernel of the full-width runs, summed over the ranks, and
+    each layout's per-rank engine stats (phase 9 halves their bytes)."""
     from repro_torch import configs
     from repro_torch.launch.serve import run_ranks
     from repro_torch.models.transformer import init_params
@@ -1479,7 +1622,8 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
             "greedy_equal_share": same / sum(map(len,
                                                  ref["tokens"].values())),
             "ranks_wall_s": ranks_s, "card": smi}))
-    return total
+    return total, {name: [ranks[r]["full"][name]["stats"] for r in range(4)]
+                   for name, _ in SEQ_LAYOUTS}
 
 
 # ---------------------------------------------------------------------------
@@ -1581,7 +1725,7 @@ def serve_batch_sharded(smi: str) -> dict[str, int]:
     """Phase 7: the one-rank references in this process, then 6 spawned
     ranks (``batch_rank``); checks and prints each schedule; returns the
     launches per kernel of the full-width runs, summed over the ranks and
-    schedules."""
+    schedules, and each schedule's per-rank engine stats."""
     from repro_torch import configs
     from repro_torch.launch.serve import run_ranks
     from repro_torch.models.transformer import init_params
@@ -1717,6 +1861,391 @@ def serve_batch_sharded(smi: str) -> dict[str, int]:
             "logit_tolerance": SEQ_LOGIT_REL * scale,
             "greedy_equal_share": same / n_tok,
             "ranks_wall_s": ranks_s, "card": smi}))
+    return total, {alg: [ranks[r]["full"][alg]["stats"] for r in range(p)]
+                   for alg in BATCH_ALGS}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: serving on a ("pod", "data", "model") grid of gloo ranks
+# ---------------------------------------------------------------------------
+# 2 x 2 x 2 ranks sharing the card: 9a is phase 7's batch-sharded run (its
+# ServeSpec and home pod) on the first 8 requests of its trace, 9b phase 6's
+# split cache over ("pod", "data") on each model lane with two of its
+# prompts (3,000 and 11,000 tokens, 8 new each), both schedules or
+# combines; each first at the reduced size (2 layers, fp32), tokens equal
+# to one rank's. Cut to keep the phase near 3 minutes: every eager decode
+# step makes 57 tier allreduces through gloo, ~0.3 s a step at full width
+# (PR 24's chip runs: 16 requests and 16 new tokens took 4.5 minutes)
+TIER_GRID = (2, 2, TIER_M)
+TIER_ALGS = ("locality_bruck", "xla")
+TIER_BATCH_N = 8
+# what the JAX engine and the port decide for 9a's trace on (2, 2, 2): the
+# first 8 requests fill the 8 rows, pod 1's 4 by migration (both held to
+# it at a reduced size in tests/test_torch_serve_tp.py)
+TIER_MIGRATIONS = 4
+TIER_SEQ_LAYOUTS = SEQ_LAYOUTS[:2]
+TIER_SEQ_PROMPTS = SEQ_PROMPTS[:2]
+TIER_SEQ_REDUCED_PROMPTS = SEQ_REDUCED_PROMPTS[:2]
+TIER_NEW = 8
+
+
+def tier_batch_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
+    """9a's trace: the first ``TIER_BATCH_N`` requests of phase 7's."""
+    return batch_requests(vocab)[:TIER_BATCH_N]
+
+
+def tier_runs(plan: dict, key: str) -> list[tuple[str, dict, list, int]]:
+    """(name, ServeSpec keywords, requests, home pod) of phase 9's runs at
+    ``key``, "reduced" or "full"; a home pod of None: the row's own."""
+    cache = SEQ_REDUCED_CACHE if key == "reduced" else SEQ_CACHE
+    return ([(f"9a|{alg}", dict(batch=BATCH_ROWS, cache_len=BATCH_CACHE,
+                                page_len=BATCH_PAGE, migrate=alg),
+              plan["batch"], BATCH_HOME_POD) for alg in TIER_ALGS]
+            + [(f"9b|{name}", dict(batch=1, cache_len=cache, **kw),
+                plan[f"seq_{key}"], None) for name, kw in TIER_SEQ_LAYOUTS])
+
+
+def tier_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 9 (all eight share the one card): each run of
+    ``tier_runs`` at the reduced size, then at full width, with this
+    rank's part of the weights drawn from seed 0 (``init_params(...,
+    part=)``: the one-rank engine's weights, cut)."""
+    entered = time.time() - plan["spawned_at"]
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.tp import TensorParallel
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    grid = RankGrid.build(*TIER_GRID)
+    setup = {"entered_s": entered,
+             "started_s": time.time() - plan["spawned_at"],
+             "grid_s": time.perf_counter() - t0}
+    out = {"rank": rank, "reduced": {}, "full": {}, "setup": setup,
+           "coords": dict(rank=grid.rank, t=grid.t, grid_rank=grid.grid_rank,
+                          tier=list(grid.model.members))}
+    full = configs.get("llama3.2-3b")
+    for key, cfg in (("reduced", dataclasses.replace(
+            full, n_layers=2, dtype=torch.float32)), ("full", full)):
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda",
+                             part=TensorParallel.build(cfg, grid).part)
+        torch.cuda.synchronize()
+        setup[f"init_{key}_s"] = time.perf_counter() - t0
+        for name, kw, reqs, home in tier_runs(plan, key):
+            t0 = time.perf_counter()
+            res = serve_on_card(cfg, params, ServeSpec(**kw), reqs, grid,
+                                home)
+            out[key][name] = res if key == "full" else {
+                k: res[k] for k in ("tokens", "results")}
+            dist.barrier()
+            if rank == 0:          # where phase 9's time goes, as it goes
+                print(json.dumps({"phase": "serve_tier_run", "size": key,
+                                  "run": name, "seconds":
+                                  time.perf_counter() - t0}), flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    setup["done_at"] = time.time()
+    return out
+
+
+def migrate_bytes_oracle(alg: str, q: int, pl: int, leaf_bytes: int
+                         ) -> list[float]:
+    """Non-local bytes a rank of one migration's collective, its two
+    leaves: the schedule oracle's blocks times a block (``leaf_bytes`` /
+    p) for the Bruck schedules, the recorder's model of the library
+    all-gather for "xla" (``migrate_oracle``)."""
+    from repro_torch.core import schedules as TS
+    from repro_torch.core.comm_record import CommRecorder
+    from repro_torch.core.topology import RegionMap
+    p = q * pl
+    if alg != "xla":
+        stats = TS.ALGORITHMS[alg](p, pl).per_rank_stats(RegionMap(p, pl))
+        return [2 * stats[r][3] * leaf_bytes / p for r in range(p)]
+    out = []
+    for r in range(p):
+        rec = CommRecorder(pl)
+        rec.group("all-gather", tuple(range(p)), r, leaf_bytes)
+        out.append(2 * rec.stats.nonlocal_bytes)
+    return out
+
+
+def combine_oracle(alg: str, q: int, pl: int, max_bytes: int,
+                   sum_bytes: int) -> list[tuple[float, float]]:
+    """(non-local messages, bytes) a rank of one decode combine over a
+    q x pl lane: "locality", for q a power of two, the max by recursive
+    doubling over the pods (``rd_rounds(q)`` rounds of the ``max_bytes``
+    maxima) and the sum by recursive halving, then a Bruck gather, over
+    the pods on the rank's 1/pl slice of the packed fp32 [o, l]
+    (``sum_bytes``), padded to a multiple of q (log2 q rounds each, (q -
+    1)/q of the slice each), after the pod's local reduce-scatter; "xla",
+    the recorder's model of the two library allreduces."""
+    from repro_torch.core.comm_record import CommRecorder
+    from repro_torch.core.topology import is_power_of, rd_rounds
+    p = q * pl
+    if alg == "locality":
+        check(is_power_of(2, q), f"combine oracle: {q} pods")
+        rounds = rd_rounds(q)
+        part = -(-sum_bytes // 4 // pl) // -q * -q          # fp32 elements
+        return [(3 * rounds, max_bytes * rounds
+                 + 2 * 4 * part * (q - 1) / q)] * p
+    out = []
+    for r in range(p):
+        rec = CommRecorder(pl)
+        for nbytes in (max_bytes, sum_bytes):
+            rec.group("all-reduce", tuple(range(p)), r, nbytes)
+        out.append((rec.stats.nonlocal_msgs, rec.stats.nonlocal_bytes))
+    return out
+
+
+def _tier_logits(res: list, coords: list, which: str, m: int) -> dict:
+    """The full vocabulary's logits of each request, its tier ranks'
+    columns put together (``which``: "prefill_logits" or
+    "decode_logits")."""
+    parts = {}
+    for x, c in zip(res, coords):
+        for rid, lg in x[which].items():
+            parts.setdefault(rid, {})[c["t"]] = lg
+    return {rid: np.concatenate([by_t[t] for t in range(m)])
+            for rid, by_t in parts.items() if len(by_t) == m}
+
+
+def serve_tier(smi: str, base: dict) -> dict[str, int]:
+    """Phase 9: one-rank references in this process, then 8 spawned ranks
+    (``tier_rank``) on 2 x 2 x 2; checks and prints each run; returns the
+    launches per kernel of the full-width runs, summed over the ranks.
+    ``base`` holds phases 6's and 7's per-rank stats, whose collective
+    bytes a model rank halves."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+
+    full = configs.get("llama3.2-3b")
+    reduced = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    vocab = full.vocab_size
+    plan = {"batch": tier_batch_requests(vocab),
+            "seq_reduced": seq_requests(vocab, TIER_SEQ_REDUCED_PROMPTS,
+                                        TIER_NEW),
+            "seq_full": seq_requests(vocab, TIER_SEQ_PROMPTS, TIER_NEW)}
+    refs = {}
+    for key, cfg in (("reduced", reduced), ("full", full)):
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        for name, kw, reqs, home in tier_runs(plan, key)[::2]:
+            one = {k: v for k, v in kw.items()
+                   if k not in ("migrate", "combine")}
+            refs[key, name[:2]] = serve_on_card(cfg, params, ServeSpec(**one),
+                                                reqs, home_pod=home)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    q, pl, m = TIER_GRID
+    n, p = q * pl * m, q * pl
+    t0 = time.perf_counter()
+    plan["spawned_at"] = time.time()
+    ranks = run_ranks(n, tier_rank, plan, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+    done = time.time()
+    for x in ranks:
+        x["setup"]["exited_s"] = done - x["setup"].pop("done_at")
+    print(json.dumps({"phase": "serve_tier_setup", "ranks_wall_s": ranks_s,
+                      "by_rank": [x["setup"] for x in ranks]}))
+    coords = [x["coords"] for x in ranks]
+    check([c["grid_rank"] for c in coords] == list(range(n)),
+          "serve_tier: grid ranks are not the spawned ranks' order")
+    pod_of = lambda g: g // m // pl
+    for r, c in enumerate(coords):
+        check({pod_of(g) for g in c["tier"]} == {pod_of(r)},
+              f"serve_tier: rank {r}'s tier {c['tier']} spans pods")
+    names = [name for name, *_ in tier_runs(plan, "full")]
+    for name in names:
+        want = refs["reduced", name[:2]]["tokens"]
+        for r, x in enumerate(ranks):
+            got = x["reduced"][name]["tokens"]
+            check(got == want, f"serve_tier reduced fp32 {name} rank {r}: "
+                               f"tokens {got} != one rank's {want}")
+    print(json.dumps({
+        "phase": "serve_tier_reduced", "model": reduced.name, "layers": 2,
+        "dtype": "float32", "grid": "2 x 2 x 2 (pod, data, model)",
+        "runs": names, "seq_cache_len": SEQ_REDUCED_CACHE,
+        "seq_prompts": list(TIER_SEQ_REDUCED_PROMPTS),
+        "tokens_equal_to_one_rank": True}))
+
+    total = {k: 0 for k in PATH_KERNELS}
+    lane = [c["rank"] for c in coords]
+    KV_loc = full.n_kv_heads // m
+    H_loc = full.n_heads // m
+    for name in names:
+        res = [x["full"][name] for x in ranks]
+        ref = refs["full", name[:2]]
+        for r, x in enumerate(res):
+            check(x["results"] == res[0]["results"],
+                  f"serve_tier {name}: rank {r}'s results differ")
+            st = x["stats"]
+            check(st["tier_calls"] > 0 and st["tier_msgs"] > 0
+                  and st["tier_nonlocal_msgs"] == 0,
+                  f"serve_tier {name} rank {r}: tier calls "
+                  f"{st['tier_calls']}, messages {st['tier_msgs']}, "
+                  f"non-local {st['tier_nonlocal_msgs']}")
+            check(not st["decode_graph"] and "model tier" in
+                  st["decode_graph_rule"], f"serve_tier {name}: decode "
+                  f"graph {st['decode_graph']} ({st['decode_graph_rule']})")
+            for k, c in x["launches"].items():
+                total[k] += c
+        scale = max(float(np.abs(t).max())
+                    for t in ref["decode_logits"].values())
+        limit = SEQ_LOGIT_REL * scale
+        toks = res[0]["tokens"]
+        got = {w: _tier_logits(res, coords, w, m)
+               for w in ("prefill_logits", "decode_logits")}
+        for w, lg in got.items():
+            check(sorted(lg) == sorted(ref[w]), f"serve_tier {name}: {w} "
+                  f"of {sorted(lg)}, one rank {sorted(ref[w])}")
+        # the tier sums the row-parallel products in another order, so its
+        # bf16 prefill logits are the one rank's within the limit; where
+        # that flips a near-tie, the first token differs, and so does the
+        # first decode's input: the tier's pick must then lie within twice
+        # the prefill's difference of the one rank's maximum (x'_j >= x'_i
+        # with |x' - x| <= d gives x_i - x_j <= 2d), and the first decode
+        # logits are compared where the first tokens agree
+        dl = {"prefill_logits": {}, "decode_logits": {}, "near_ties": {}}
+        for rid in sorted(ref["prefill_logits"]):
+            pre = ref["prefill_logits"][rid]
+            d = dl["prefill_logits"][rid] = np_err(
+                got["prefill_logits"][rid], pre)
+            check(d <= limit, f"serve_tier {name}: request {rid}'s prefill "
+                  f"logits differ from the one-rank engine's by {d} (limit "
+                  f"{limit})")
+            one, tier = ref["tokens"][rid][0], toks[rid][0]
+            if one == tier:
+                d = dl["decode_logits"][rid] = np_err(
+                    got["decode_logits"][rid], ref["decode_logits"][rid])
+                check(d <= limit, f"serve_tier {name}: request {rid}'s "
+                      f"first decode logits differ from the one-rank "
+                      f"engine's by {d} (limit {limit})")
+            else:
+                gap = float(pre[one] - pre[tier])
+                dl["near_ties"][rid] = gap
+                check(gap <= 2 * dl["prefill_logits"][rid],
+                      f"serve_tier {name}: request {rid}'s first token "
+                      f"{tier}, one rank's {one}, {gap} below its maximum "
+                      f"(more than twice the prefill difference)")
+        same = sum(a == b for rid, tk in toks.items()
+                   for a, b in zip(tk, ref["tokens"][rid]))
+        n_tok = sum(map(len, ref["tokens"].values()))
+        steps = res[0]["stats"]["decode_steps"]
+        row = {"phase": "serve_tier", "run": name,
+               "shared": "8 ranks sharing one H100 over gloo",
+               "grid": "2 x 2 x 2 (pod, data, model)", "model": full.name,
+               "layers": full.n_layers, "dtype": "bfloat16",
+               "kv_heads_per_rank": KV_loc, "q_heads_per_rank": H_loc,
+               "decode_steps": steps,
+               "decode_step_ms_mean_by_rank": [
+                   float(np.mean(x["decode_ms"])) for x in res],
+               "decode_step_ms_mean_one_rank": float(np.mean(
+                   ref["decode_ms"])),
+               "prefill_ms_by_rank": [
+                   [x["prefill_ms"][rid] for rid in sorted(x["prefill_ms"])]
+                   for x in res],
+               "prefill_ms_one_rank": [ref["prefill_ms"][rid]
+                                       for rid in sorted(ref["prefill_ms"])],
+               "tokens_per_s_by_rank": [n_tok / x["drain_s"] for x in res],
+               "tokens_per_s_one_rank": n_tok / ref["drain_s"],
+               "tier_calls_by_rank": [x["stats"]["tier_calls"] for x in res],
+               "tier_host_ms_by_rank": [x["stats"]["tier_host_s"] * 1e3
+                                        for x in res],
+               "tier_staged_bytes_by_rank": [x["stats"]["tier_staged_bytes"]
+                                             for x in res],
+               "tier_msgs_by_rank": [x["stats"]["tier_msgs"] for x in res],
+               "tier_nonlocal_msgs": 0,
+               "staging_bytes_by_rank": [x["stats"]["staging_bytes"]
+                                         for x in res],
+               "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+               "peak_bytes_one_rank": ref["peak_bytes"],
+               "max_abs_dlogit_prefill": dl["prefill_logits"],
+               "max_abs_dlogit_first_decode": dl["decode_logits"],
+               "first_token_near_ties": dl["near_ties"],
+               "logit_tolerance": limit,
+               "greedy_equal_share": same / n_tok,
+               "ranks_wall_s": ranks_s, "card": smi}
+        if name.startswith("9a"):
+            alg = name.split("|")[1]
+            mig = res[0]["stats"]["migrations"]
+            check(mig == TIER_MIGRATIONS, f"serve_tier {name}: {mig} "
+                  f"migrations, the CPU test's trace {TIER_MIGRATIONS}")
+            for r, x in enumerate(res):
+                want = len(plan["batch"]) if r // m // pl == BATCH_HOME_POD \
+                    else 0
+                check(x["stats"]["prefills"] == want,
+                      f"serve_tier {name}: rank {r} ran "
+                      f"{x['stats']['prefills']} prefills, the path {want}")
+            leaf = (full.n_layers * BATCH_CACHE * KV_loc * full.head_dim_
+                    * 2)                       # one rank's bf16 K or V slab
+            msgs = migrate_oracle(alg, q, pl, leaf)
+            nbytes = migrate_bytes_oracle(alg, q, pl, leaf)
+            per_mig = lambda k: [x["stats"][k] / mig for x in res]
+            check(per_mig("migrate_nonlocal_msgs") == [msgs[i] for i in lane]
+                  and per_mig("migrate_nonlocal_bytes")
+                  == [nbytes[i] for i in lane],
+                  f"serve_tier {name}: non-local messages and bytes a "
+                  f"migration {per_mig('migrate_nonlocal_msgs')} "
+                  f"{per_mig('migrate_nonlocal_bytes')}, the oracle "
+                  f"{msgs} {nbytes}")
+            phase7 = [b["migrate_nonlocal_bytes"] / b["migrations"]
+                      for b in base["serve_batch_sharded"][alg]]
+            check(per_mig("migrate_nonlocal_bytes")
+                  == [phase7[i] / m for i in lane],
+                  f"serve_tier {name}: non-local bytes a migration, not "
+                  f"1/{m} of phase 7's {phase7}")
+            row.update(
+                migrate=alg, migrations=mig,
+                migrate_nonlocal_msgs_per_migration=per_mig(
+                    "migrate_nonlocal_msgs"),
+                migrate_nonlocal_bytes_per_migration=per_mig(
+                    "migrate_nonlocal_bytes"),
+                migrate_bytes_per_migration=per_mig("migrate_bytes"),
+                phase7_nonlocal_bytes_per_migration=phase7,
+                migration_host_ms=[x["stats"]["migrate_host_s"] / mig * 1e3
+                                   for x in res],
+                donor_bytes_per_migration=per_mig("donor_bytes"),
+                prefills_by_rank=[x["stats"]["prefills"] for x in res])
+        else:
+            layout = name.split("|")[1]
+            alg = res[0]["combine"]["algorithm"]
+            oracle = combine_oracle(alg, q, pl, H_loc * 4,
+                                    H_loc * (full.head_dim_ + 1) * 4)
+            layers = full.n_layers
+            per_step = lambda k: [x["stats"][k] / steps / layers
+                                  for x in res]
+            check(per_step("nonlocal_msgs") == [oracle[i][0] for i in lane]
+                  and per_step("nonlocal_bytes")
+                  == [oracle[i][1] for i in lane],
+                  f"serve_tier {name}: non-local messages and bytes a "
+                  f"combine {per_step('nonlocal_msgs')} "
+                  f"{per_step('nonlocal_bytes')}, the oracle {oracle}")
+            phase6 = [b["nonlocal_bytes"] / b["decode_steps"] / layers
+                      for b in base["serve_seq_parallel"][layout]]
+            check(per_step("nonlocal_bytes") == [phase6[i] / m for i in lane],
+                  f"serve_tier {name}: non-local bytes a combine, not "
+                  f"1/{m} of phase 6's {phase6}")
+            row.update(
+                combine=res[0]["combine"], cache_len=SEQ_CACHE,
+                slots_per_rank=res[0]["cache_len"],
+                prompts=list(TIER_SEQ_PROMPTS), new_tokens=TIER_NEW,
+                nonlocal_msgs_per_combine=per_step("nonlocal_msgs"),
+                nonlocal_bytes_per_combine=per_step("nonlocal_bytes"),
+                combine_bytes_per_step=[x["stats"]["combine_bytes"] / steps
+                                        for x in res],
+                phase6_nonlocal_bytes_per_combine=phase6,
+                combine_host_ms_per_step=[x["stats"]["combine_host_s"]
+                                          / steps * 1e3 for x in res])
+        print(json.dumps(row))
     return total
 
 
@@ -3127,6 +3656,7 @@ def main() -> int:
     pair = cases.pop("decode_attention")[0]
     offset_rows = cases.pop("decode_offset")
     batch_rows = cases.pop("decode_batch")
+    tier_rows = cases.pop("decode_tier")
     from repro_torch import configs
     dma = dma_cases_of(configs.get("llama3.2-3b"))
     cases["dma_allgather"] = dma_allgather_cases(timer, dma)
@@ -3174,9 +3704,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         clock(phase)
-    by_path["serve_seq_parallel"] = serve_seq_parallel(smi)
+    base = {}
+    by_path["serve_seq_parallel"], base["serve_seq_parallel"] = \
+        serve_seq_parallel(smi)
     clock("serve_seq_parallel")
-    by_path["serve_batch_sharded"] = serve_batch_sharded(smi)
+    by_path["serve_batch_sharded"], base["serve_batch_sharded"] = \
+        serve_batch_sharded(smi)
     clock("serve_batch_sharded")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3190,6 +3723,8 @@ def main() -> int:
     clock("train_on_ranks")
     by_path.update(train_tp_on_ranks(smi, flat, one))
     clock("train_tp_on_ranks")
+    by_path["serve_tier"] = serve_tier(smi, base)
+    clock("serve_tier")
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3324,6 +3859,15 @@ def main() -> int:
                 **{f: [r[f"{key}_{f}"] for r in batch_rows]
                    for f in ("ms", "plain_ms", "bound_ms")},
                 "shapes": [r["shape"] for r in batch_rows]}
+            row["tier_rank_cases"] = {
+                "cases": len(tier_rows),
+                "max_abs_err": max(r[f"max_abs_err_{key}"]
+                                   for r in tier_rows),
+                **{f: [r[f"{key}_{f}"] for r in tier_rows]
+                   for f in ("ms", "plain_ms", "bound_ms")},
+                **{f: [r[f] for r in tier_rows]
+                   for f in ("shape", "slot_offset", "state", "pair_ms",
+                             "pair_bound_ms", "library_ms")}}
     print(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_run,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))

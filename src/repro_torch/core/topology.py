@@ -119,7 +119,8 @@ class RankGrid:
     all in one pod; members by grid rank). ``recorder`` counts every
     message the port's collectives send from this rank over the lane
     (``comm_record``); the model tier's are counted by :meth:`model_grid`'s
-    own recorder.
+    own recorder. ``all_group`` spans every rank of the grid, all q·pl·m
+    (the lane's group when m = 1), for what every rank must agree on.
 
     Build it with :meth:`build`, which every rank of the default group must
     call with the same arguments, in the same order as any other group
@@ -129,7 +130,8 @@ class RankGrid:
     def __init__(self, q: int, pl: int, ranks: tuple[int, ...], rank: int,
                  world: Axis, local: Axis, outer: Axis,
                  model: Axis | None = None,
-                 all_ranks: tuple[int, ...] | None = None):
+                 all_ranks: tuple[int, ...] | None = None,
+                 all_group=None):
         self.q, self.pl, self.p = q, pl, q * pl
         self.ranks = ranks
         self.rank = rank
@@ -139,6 +141,7 @@ class RankGrid:
         self.m, self.t = self.model.size, self.model.index
         self.all_ranks = all_ranks or ranks
         self.group = world.group
+        self.all_group = all_group or self.group
         self.backend = dist.get_backend(self.group)
         self.device = torch.device("cuda" if self.backend == "nccl" else "cpu")
         self.recorder = CommRecorder(pl)
@@ -174,7 +177,7 @@ class RankGrid:
                              f"{dist.get_world_size()}")
         me = dist.get_rank()
         # every rank makes every group, in one order: per model lane t its
-        # world, pods and DP lanes, then the model groups
+        # world, pods and DP lanes, then the model groups and the whole grid
         lane_groups = []
         for t in range(m):
             lane = ranks[t::m]
@@ -186,6 +189,7 @@ class RankGrid:
                  for l in range(pl)]))
         models = ([dist.new_group(list(ranks[i * m:(i + 1) * m]))
                    for i in range(p)] if m > 1 else None)
+        everyone = dist.new_group(list(ranks)) if m > 1 else None
         if me not in ranks:
             return None
         rank, t = divmod(ranks.index(me), m)
@@ -199,7 +203,7 @@ class RankGrid:
                         pods[R]),
                    Axis("outer", tuple(j * pl + l for j in range(q)), R,
                         dp_lanes[l]),
-                   model, ranks)
+                   model, ranks, everyone)
         if grid.backend == "nccl" and p > 1:
             grid._first_batch()
         return grid

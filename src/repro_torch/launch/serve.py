@@ -23,8 +23,18 @@ KV cache split over the ranks:
         --combine locality --cache-len 32768 --prompt-len 3000
 
 ``--seq-axes data`` keeps that cache whole in every pod, split over the
-pod's ranks. The kernels are built once, here, before the ranks start.
-:func:`run_ranks` is the spawning helper.
+pod's ranks. ``--model M`` adds a "model" tier of M ranks at each place
+of the pods (tensor parallelism: each rank holds its heads, its KV heads'
+cache and its vocabulary rows; ``--ranks`` counts them all), and ``--mesh
+2x2x2`` names the grid as ``launch/train.py`` does, the last axes of
+("pod", "data", "model"). Without ``--pods``, ``--model`` or ``--mesh``,
+8 or more ranks take the JAX launcher's layout, (2, ranks // 4, 2):
+
+    python -m repro_torch.launch.serve --ranks 8 --batch 8 --home-pod 0
+
+serves batch-sharded over 2 x 2 DP ranks with 2 model ranks each. The
+kernels are built once, here, before the ranks start. :func:`run_ranks` is
+the spawning helper.
 """
 from __future__ import annotations
 
@@ -48,10 +58,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, port: int, fn, args, results) -> None:
+def _rank_main(rank: int, world: int, port: int, inbox, results) -> None:
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     import torch.distributed as dist
     torch.set_num_threads(1)
+    fn, args = inbox.get()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank,
                             timeout=timedelta(seconds=600))
@@ -68,15 +79,22 @@ def run_ranks(world: int, fn, *args, timeout: float = 1800.0) -> list:
     one gloo group over ``tcp://localhost``; their results in rank order.
     ``fn`` is a module-level function (it is pickled by name). A rank that
     fails, or no answer within ``timeout`` seconds, raises after every
-    process is stopped."""
+    process is stopped. ``fn`` and ``args`` go to each rank through a
+    queue once every process has started: passed as the process's own
+    arguments, anything past a pipe's buffer (64 KiB of prompts or
+    weights) would hold ``start()`` until that child had imported torch,
+    starting the ranks one after another."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    inboxes = [ctx.Queue() for _ in range(world)]
     port = _free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, port, fn, args, results))
+                         args=(r, world, port, inboxes[r], results))
              for r in range(world)]
     for p in procs:
         p.start()
+    for inbox in inboxes:
+        inbox.put((fn, args))
     out, errors, left = [None] * world, [], world
     deadline = time.monotonic() + timeout
     try:
@@ -102,9 +120,28 @@ def run_ranks(world: int, fn, *args, timeout: float = 1800.0) -> list:
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        for inbox in inboxes:          # a rank that died may not have read
+            inbox.cancel_join_thread()
+            inbox.close()
     if errors:
         raise RuntimeError("a rank failed:\n" + "\n".join(errors))
     return out
+
+
+def _grid(args) -> tuple[int, int, int]:
+    """(q, pl, m): ``--mesh``; else ``--ranks`` over ``--pods`` and
+    ``--model``; else from 8 ranks the JAX launcher's (2, ranks // 4, 2)."""
+    from repro_torch.launch.mesh import grid_shape
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split("x"))
+        return grid_shape(shape, ("pod", "data", "model")[-len(shape):])
+    if args.pods is None and args.model is None and args.ranks >= 8:
+        return 2, args.ranks // 4, 2
+    q, m = args.pods or 1, args.model or 1
+    if args.ranks % (q * m):
+        raise SystemExit(f"--ranks {args.ranks} is no multiple of --pods "
+                         f"{q} x --model {m}")
+    return q, args.ranks // (q * m), m
 
 
 def _config(args):
@@ -120,14 +157,16 @@ def _serve_rank(rank: int, world: int, args) -> dict:
     ``--batch`` requests) or with a split cache (three requests, one at a
     time), every request submitted at once."""
     from repro_torch.core.topology import RankGrid
+    from repro_torch.models.tp import TensorParallel
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec, resolve_device
 
     device = resolve_device(args.device)
-    grid = RankGrid.build(args.pods, world // args.pods)
+    grid = RankGrid.build(*args.grid)
     cfg = _config(args)
+    part = TensorParallel.build(cfg, grid).part if grid.m > 1 else None
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
+                         device, part=part)
     spec = ServeSpec(batch=args.batch, cache_len=args.cache_len,
                      combine=args.combine, migrate=args.migrate,
                      seq_axes="auto" if args.seq_axes == "auto"
@@ -165,8 +204,14 @@ def main(argv=None) -> None:
     ap.add_argument("--ranks", type=int, default=1,
                     help="ranks the batch, or a B = 1 cache, is split over "
                          "(spawned)")
-    ap.add_argument("--pods", type=int, default=1,
-                    help="pods the ranks form (ranks / pods lanes each)")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="pods the ranks form (default 1; 2 from 8 ranks)")
+    ap.add_argument("--model", type=int, default=None,
+                    help="model-tier ranks at each place of the pods "
+                         "(default 1; 2 from 8 ranks)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 2x2x2 (pod, data, model): the ranks' grid, "
+                         "in place of --ranks, --pods and --model")
     ap.add_argument("--combine", default="locality",
                     choices=("locality", "xla"))
     ap.add_argument("--seq-axes", default="auto", choices=("auto", "data"))
@@ -181,13 +226,13 @@ def main(argv=None) -> None:
 
     from repro_torch.serve import resolve_device
     device = resolve_device(args.device)
+    args.grid = _grid(args)
+    q, pl, m = args.grid
+    args.ranks, args.pods = q * pl * m, q
     need = args.prompt_len + args.max_new
     if args.cache_len is None:
-        args.cache_len = -(-need // (16 * args.ranks)) * 16 * args.ranks
+        args.cache_len = -(-need // (16 * q * pl)) * 16 * q * pl
     if args.ranks > 1:
-        if args.ranks % args.pods:
-            raise SystemExit(f"--ranks {args.ranks} is no multiple of "
-                             f"--pods {args.pods}")
         if device.type == "cuda":
             from repro_torch.kernels import _build
             _build.build()                 # once, before the ranks start
@@ -198,12 +243,13 @@ def main(argv=None) -> None:
             raise SystemExit("[serve] the ranks' tokens differ")
         st = out[0]["stats"]
         n = sum(len(t) for t in out[0]["tokens"].values())
-        layout = (f"batch {args.batch}, {args.batch // args.ranks} rows a "
+        layout = (f"batch {args.batch}, {args.batch // (q * pl)} rows a "
                   f"rank, migrate {args.migrate}" if out[0]["sharded"] else
                   f"combine {out[0]['combine']}, {out[0]['cache_len']} "
                   f"slots a rank")
-        print(f"[serve] {args.arch} on {args.ranks} ranks ({args.pods} pods, "
-              f"{device}): {layout}, {args.cache_len} slots; "
+        print(f"[serve] {args.arch} on {args.ranks} ranks ({q} x {pl} x {m} "
+              f"(pod, data, model), {device}): {layout}, {args.cache_len} "
+              f"slots; "
               f"{len(out[0]['tokens'])} requests ({n} tokens) in {dt:.2f}s "
               f"with start-up; sample: {out[0]['tokens'][0][:12]}")
         if out[0]["sharded"]:
@@ -211,7 +257,8 @@ def main(argv=None) -> None:
                   f"{out[0]['migrated']}")
         keys = ("prefills", "decode_steps", "decode_tokens", "migrate_bytes",
                 "migrate_nonlocal_msgs", "donor_bytes", "combine_bytes",
-                "nonlocal_msgs", "staging_bytes")
+                "nonlocal_msgs", "staging_bytes", "tier_calls",
+                "tier_nonlocal_msgs", "tier_staged_bytes")
         for r in out:
             print(f"[serve] rank {r['rank']}: " + ", ".join(
                 f"{k} {r['stats'][k]}" for k in keys if k in r["stats"]))

@@ -22,15 +22,23 @@ neither dividing nor divided by m, or KV·D columns that m does not divide,
 which JAX keeps whole), an MLP width or a vocabulary that m does not divide,
 and the ssm family are refused.
 
-Every model-tier collective is an autograd function with its transpose as
-the backward: the identity and the allreduce (``copy_in`` / ``reduce_out``),
-the allgather and the reduce-scatter (``gather`` / ``scatter``). They run
-the library's group collectives (``core/collectives`` with
-``algorithm="xla"``) over the tier's own grid (``RankGrid.model_grid``),
-staging a tensor of another device through the grid's (a card's tensor on
-a gloo grid goes through the host), under every ``grad_sync``: the JAX
-package does not route GSPMD's collectives through the locality
-schedules, and neither does the port.
+Serving (``Transformer(..., tp=)``, under ``torch.no_grad``) cuts each
+rank's part from the full weights (:meth:`TensorParallel.part`: the JAX
+serving specs, ``param_specs(..., fsdp=False)``, but whole KV heads where m
+does not divide KV: the ones its q heads read, ``kv_heads``), keeps those
+KV heads in its cache, sums the row-parallel products and the embedding
+with ``ModelTier.all_reduce`` directly, and takes the greedy token from
+the vocabulary shards (:meth:`TensorParallel.greedy`).
+
+In training every model-tier collective is an autograd function with its
+transpose as the backward: the identity and the allreduce (``copy_in`` /
+``reduce_out``), the allgather and the reduce-scatter (``gather`` /
+``scatter``). They run the library's group collectives
+(``core/collectives`` with ``algorithm="xla"``) over the tier's own grid
+(``RankGrid.model_grid``), staging a tensor of another device through the
+grid's (a card's tensor on a gloo grid goes through the host), under
+every ``grad_sync``: the JAX package does not route GSPMD's collectives
+through the locality schedules, and neither does the port.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ from ..core import collectives as C
 
 #: where the ssm family's model tier is queued
 SSM_TP_ITEM = "ROADMAP.md Queue 1 item 13"
+#: the serving tree's norm scales, by the JAX tree's leaf name ("scale")
+SCALE_NAMES = {"ln1": "scale", "ln2": "scale", "final_norm": "scale"}
 
 
 def check_tp(cfg: ModelConfig, m: int) -> None:
@@ -225,6 +235,47 @@ class TensorParallel:
         hl, g = H // self.m, H // KV
         return self.t * hl // g, ((self.t + 1) * hl - 1) // g + 1
 
+    def part(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a full leaf of the serving tree
+        (``Transformer``'s flat names, ``layers.{i}.wq`` ...): its part
+        over "model" by the JAX serving spec (``param_specs(...,
+        fsdp=False)``: columns of ``wq``/``wk``/``wv``/``gate``/``up``,
+        rows of ``wo``/``down``, vocabulary rows of ``embed``, norm scales
+        whole), but for ``wk``/``wv`` where m does not divide KV, whose
+        flat columns the JAX spec splits mid-head: there the columns of
+        the KV heads this rank's q heads read (:meth:`kv_heads`). A part
+        is a copy of its own, so the full leaf can be freed."""
+        from ..train.sharding import MODEL_AXIS, model_dim, param_specs
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("wk", "wv") and not self.kv_local:
+            lo, hi = self.kv_heads()
+            D = self.cfg.head_dim_
+            t = t[:, lo * D:hi * D]
+        else:
+            key = SCALE_NAMES.get(leaf, leaf)
+            dim = model_dim(param_specs({key: t}, {MODEL_AXIS: self.m})[key])
+            if dim < 0:
+                return t
+            t = t.chunk(self.m, dim)[self.t]
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def greedy(self, logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+        """The JAX greedy token from this rank's (B, 1, Vpad/m) logits: the
+        first index of the maximum of the last position over the whole
+        padded vocabulary, clamped below ``vocab_size``; (B, 1) int64, the
+        same on every rank of the tier. One gather of each rank's (max,
+        first index of it); the first rank holding the largest wins, as
+        its ids come first."""
+        lg = logits[:, -1].float()
+        n = lg.shape[-1]
+        idx = lg.argmax(-1)
+        mx = lg.gather(-1, idx[:, None])[:, 0]
+        pair = torch.stack([mx.double(), (idx + self.t * n).double()])
+        both = self.tier.all_gather(pair[None], 0)          # (m, 2, B)
+        best = both[:, 0].argmax(0)
+        tok = both[:, 1].gather(0, best[None])[0].long()
+        return tok.clamp(max=vocab_size - 1)[:, None]
+
     # -- the tier's collectives, differentiable ---------------------------
     def copy_in(self, x):
         return _CopyIn.apply(x, self.tier)
@@ -257,17 +308,20 @@ class TensorParallel:
         return w[:, lo * D:hi * D]
 
     # -- the vocabulary-parallel embedding and its tied head -------------
-    def embed(self, tokens: torch.Tensor, rows: torch.Tensor, seq: bool):
-        """The lookup of ``tokens`` in this rank's vocabulary rows (zeros
-        for a token another rank holds), summed over the tier: allreduced,
-        or reduce-scattered over the sequence."""
+    def local_embed(self, tokens: torch.Tensor, rows: torch.Tensor):
+        """The lookup of ``tokens`` in this rank's vocabulary rows, zeros
+        for a token another rank holds: one part of the tier's sum."""
         n = rows.shape[0]
         local = tokens - self.t * n
         mine = (local >= 0) & (local < n)
         x = F.embedding(torch.where(mine, local, 0), rows)
-        x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-        return self.leave(x, seq)
+        return torch.where(mine[..., None], x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def embed(self, tokens: torch.Tensor, rows: torch.Tensor, seq: bool):
+        """:meth:`local_embed` summed over the tier: allreduced, or
+        reduce-scattered over the sequence."""
+        return self.leave(self.local_embed(tokens, rows), seq)
 
     def vocab_positions(self, n: int, device) -> torch.Tensor:
         """The vocabulary ids of this rank's n logit columns."""

@@ -87,29 +87,35 @@ def attn_qkv(x, w, cos, sin, cfg: ModelConfig, norm=rmsnorm):
     projections and rotary embeddings; ``w`` maps ``LAYER_PARAMS`` names to
     weights in ``cfg.dtype``."""
     B, S, _ = x.shape
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    D = cfg.head_dim_
     h = norm(x, w["ln1"], eps=cfg.norm_eps)
-    q = apply_rope_angles((h @ w["wq"]).reshape(B, S, H, D), cos, sin)
-    k = apply_rope_angles((h @ w["wk"]).reshape(B, S, KV, D), cos, sin)
-    v = (h @ w["wv"]).reshape(B, S, KV, D)
+    q = apply_rope_angles((h @ w["wq"]).reshape(B, S, -1, D), cos, sin)
+    k = apply_rope_angles((h @ w["wk"]).reshape(B, S, -1, D), cos, sin)
+    v = (h @ w["wv"]).reshape(B, S, -1, D)
     return q, k, v
 
 
-def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual):
+def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
+            reduce=None):
     """A dense layer's second half from the attention output: ``x + o @ wo``
-    and ``ln2`` in one pass, then ``x + mlp``."""
+    and ``ln2`` in one pass, then ``x + mlp``. On a model rank (``w`` its
+    heads' rows of ``wo``, its columns of the MLP) ``reduce`` sums the
+    row-parallel products' partial sums over the tier."""
     B, S, _ = x.shape
-    x, h = norm_residual(x, o.reshape(B, S, cfg.n_heads * cfg.head_dim_)
-                         @ w["wo"], w["ln2"], eps=cfg.norm_eps)
-    return x + mlp_apply(h, w["gate"], w["up"], w["down"])
+    reduce = reduce or (lambda y: y)
+    x, h = norm_residual(x, reduce(o.reshape(B, S, -1) @ w["wo"]), w["ln2"],
+                         eps=cfg.norm_eps)
+    return x + reduce(mlp_apply(h, w["gate"], w["up"], w["down"]))
 
 
 class Block(nn.Module):
     """One pre-norm decoder layer: attention then SwiGLU MLP."""
 
-    def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor],
+                 tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         for name in LAYER_PARAMS:
             self.register_parameter(
                 name, nn.Parameter(weights[name], requires_grad=False))
@@ -138,7 +144,8 @@ class Block(nn.Module):
                 o = res[0]
             kv = None
         # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
-        return out_mlp(x, o, w, self.cfg), kv
+        reduce = None if self.tp is None else self.tp.tier.all_reduce
+        return out_mlp(x, o, w, self.cfg, reduce=reduce), kv
 
 
 class MambaBlock(nn.Module):
@@ -168,22 +175,37 @@ class MambaBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The decoder, parameters held in ``cfg.dtype`` on ``device``."""
+    """The decoder, parameters held in ``cfg.dtype`` on ``device``.
+
+    ``tp`` (``models/tp.TensorParallel``) makes it one rank of a model
+    tier: it holds its part of each leaf (``tp.part``: its q heads and the
+    KV heads they read, its MLP columns, its vocabulary rows), its cache
+    holds those KV heads, each layer's row-parallel products and the
+    embedding are summed over the tier, and the logits are its
+    vocabulary's columns (B, 1, Vpad/m). ``params`` holds full leaves, or
+    leaves already cut to the rank's part (``init_params(..., part=
+    tp.part)``), which are taken as they are."""
 
     def __init__(self, cfg: ModelConfig, params: dict[str, Any],
-                 device: torch.device | str):
+                 device: torch.device | str, tp=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.tp = tp
+        full = {} if tp is None else param_shapes(cfg)
 
         def load(name):
             t = torch.as_tensor(params[name])
+            if tp is not None and tuple(t.shape) == full[name]:
+                t = tp.part(name, t)
             return t.to(device=device, dtype=cfg.dtype)
 
         def block(i, spec):
-            kind, names = ((MambaBlock, MAMBA_LAYER_PARAMS)
-                           if spec.mixer == "mamba2" else (Block, LAYER_PARAMS))
-            return kind(cfg, {n: load(f"layers.{i}.{n}") for n in names})
+            if spec.mixer == "mamba2":
+                return MambaBlock(cfg, {n: load(f"layers.{i}.{n}")
+                                        for n in MAMBA_LAYER_PARAMS})
+            return Block(cfg, {n: load(f"layers.{i}.{n}")
+                               for n in LAYER_PARAMS}, tp)
 
         self.embed = nn.Parameter(load("embed"), requires_grad=False)
         self.final_norm = nn.Parameter(load("final_norm"), requires_grad=False)
@@ -205,7 +227,11 @@ class Transformer(nn.Module):
             return {name: ((cfg.n_layers,) + shape, dtype)
                     for name, (shape, dtype)
                     in mamba_cache_shapes(cfg, batch).items()}
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+        kv = cfg.n_kv_heads
+        if self.tp is not None:
+            lo, hi = self.tp.kv_heads()
+            kv = hi - lo
+        shape = (cfg.n_layers, batch, cache_len, kv, cfg.head_dim_)
         return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
 
     def empty_cache(self, batch: int, cache_len: int, *,
@@ -228,7 +254,11 @@ class Transformer(nn.Module):
         sequence-parallel rank's shard of the cache."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens]
+        if self.tp is None:
+            x = self.embed[tokens]
+        else:
+            x = self.tp.tier.all_reduce(self.tp.local_embed(tokens,
+                                                            self.embed))
         if mode == "prefill":
             if cache is not None:
                 raise ValueError("prefill builds its cache; pass cache_len")
@@ -288,21 +318,34 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shape of every leaf of the serving tree, by its flat name."""
+    layer = _layer_shapes(cfg)           # one layer kind: dense or ssm
+    return {"embed": (cfg.padded_vocab, cfg.d_model),
+            "final_norm": (cfg.d_model,),
+            **{f"layers.{i}.{n}": shp for i in range(cfg.n_layers)
+               for n, shp in layer.items()}}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device | str) -> dict[str, torch.Tensor]:
+                device: torch.device | str, *, part=None
+                ) -> dict[str, torch.Tensor]:
     """Random parameters with the JAX ``init_params`` distributions (other
     bits): dense N(0, 1/d_in), embedding N(0, 0.02^2), norm scales 0, the
     Mamba2 leaves as ``ssm.mamba_init`` draws them. Each tensor is drawn
     in fp32 on ``device`` and stored in ``cfg.dtype``, the dtype the model
     holds it in (the JAX engine casts its fp32 parameters to ``cfg.dtype``
-    the same way)."""
+    the same way). ``part(name, leaf)`` (a model rank's
+    ``TensorParallel.part``) keeps the rank's part of each leaf as it is
+    drawn, so no more than one layer is ever held whole."""
+    keep = part or (lambda name, t: t)
     dtype = cfg.dtype
     d, D, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
     H, KV = cfg.n_heads, cfg.n_kv_heads
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)
     dense = lambda a, b: dense_init(generator, a, b, dtype, device)
-    params = {"embed": embed_init(generator, cfg.padded_vocab, d, dtype,
-                                  device),
+    params = {"embed": keep("embed", embed_init(
+        generator, cfg.padded_vocab, d, dtype, device)),
               "final_norm": zeros()}
     for i, spec in enumerate(cfg.layer_plan()):
         if spec.mixer == "mamba2":
@@ -313,7 +356,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                      "wo": dense(H * D, d), "ln2": zeros(),
                      "gate": dense(d, f), "up": dense(d, f),
                      "down": dense(f, d)}
-        params.update({f"layers.{i}.{n}": t for n, t in layer.items()})
+        params.update({f"layers.{i}.{n}": keep(f"layers.{i}.{n}", t)
+                       for n, t in layer.items()})
     return params
 
 

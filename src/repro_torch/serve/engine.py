@@ -24,6 +24,14 @@ keeps its own slots; every decode attention layer combines the ranks'
 partial softmax stats in :class:`LocalityDecodeCombine`, the counterpart of
 the JAX ``_make_locality_decode_combine``.
 
+On a grid with a "model" tier (``RankGrid.build(q, pl, m)``) each rank
+holds its part of the model (``models/tp.TensorParallel``: its q heads and
+the KV heads they read, its MLP columns and vocabulary rows; the
+row-parallel products, the embedding and the greedy token go over the
+tier), and each model lane of q·pl ranks serves as a grid of its own in
+one of the layouts above: rows by lane rank, the combine and the
+migration over the lane, with the rank's KV heads.
+
 A gloo grid moves CPU tensors, so on the card the combine stages its fp32
 payload (the maxima, then the packed [o, l]) to the host and back: the
 transport of a host-side group, counted in :meth:`Engine.stats` as
@@ -41,6 +49,7 @@ import torch.distributed as dist
 from ..core import collectives as C
 from ..kernels.decode_stats import ops as stats_ops
 from ..models import attention as attn
+from ..models.tp import TensorParallel
 from ..models.transformer import Transformer
 from .migrate import sent_of, stage
 from .scheduler import Scheduler
@@ -172,7 +181,12 @@ class Engine:
         self.local_batch = spec.batch // grid.p if self.sharded \
             else spec.batch
         self.rows_lo = grid.rank * self.local_batch if self.sharded else 0
-        self.model = Transformer(cfg, params, self.device)
+        self.tp = self.tier_meter = None
+        if grid is not None and grid.m > 1:
+            from ..train.step import CommMeter      # train.step imports us
+            self.tier_meter = CommMeter()
+            self.tp = TensorParallel.build(cfg, grid, meter=self.tier_meter)
+        self.model = Transformer(cfg, params, self.device, tp=self.tp)
         self.hook: LocalityDecodeCombine | None = None
         self.cache_offset: int | None = None       # this rank's first slot
         if self.combine.algorithm != "none":
@@ -259,7 +273,13 @@ class Engine:
         ``combine_host_s`` (host seconds inside the hook) and
         ``combine_exchange_s`` (of those, in the max and sum exchanges)
         and ``staging_bytes`` (moved between the card and a gloo grid, by
-        the combine and the migrations). Batch-sharded, every count is this
+        the combine and the migrations); ``decode_graph`` (whether a decode
+        step replays a CUDA graph) and ``decode_graph_rule`` (why not, by
+        the scheduler's rule); on a model tier ``tier_calls``,
+        ``tier_host_s``, ``tier_staged_bytes`` (the tier's collectives: the
+        embedding, two row-parallel sums a layer, the greedy token's
+        gather) and the tier recorder's ``tier_msgs``, ``tier_bytes`` and
+        ``tier_nonlocal_msgs``. Batch-sharded, every count is this
         rank's (the prefills it ran, the tokens of its rows), and over
         pods: ``migrations``, the collective's ``migrate_bytes``,
         ``migrate_nonlocal_bytes`` and ``migrate_nonlocal_msgs`` (read
@@ -279,4 +299,13 @@ class Engine:
             combine_host_s=hook.host_s if hook else 0.0,
             combine_exchange_s=hook.exchange_s if hook else 0.0,
             staging_bytes=(hook.staging_bytes if hook else 0) + staged)
+        mt = self.tier_meter
+        if mt is not None:
+            st = mt.model_stats
+            out.update(tier_calls=mt.model_calls, tier_host_s=mt.model_s,
+                       tier_staged_bytes=mt.model_staged_bytes,
+                       tier_msgs=st.group_msgs_local + st.group_msgs_nonlocal,
+                       tier_bytes=(st.group_bytes_local
+                                   + st.group_bytes_nonlocal),
+                       tier_nonlocal_msgs=st.nonlocal_msgs)
         return out

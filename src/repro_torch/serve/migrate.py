@@ -28,6 +28,11 @@ grid for a ("data",) span, every pod alike), its messages read from the
 recorder around the collective alone; the owner inserts the row and the
 other ranks drop the slab. On a gloo grid the tensors a rank sends or
 gathers stage through the host (``staging_bytes``).
+
+On a grid with a "model" tier the engine hands it the rank's model lane
+(``RankGrid``'s ``rank``, ``p`` and groups are the lane's) and the cache
+shapes of the rank's KV heads, so each lane moves its own heads: 1/m of
+the bytes where m divides the KV heads.
 """
 from __future__ import annotations
 

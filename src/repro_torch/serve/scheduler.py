@@ -11,7 +11,10 @@ On a CUDA device the decode step is one CUDA graph (:class:`DecodeGraph`),
 captured at construction at the fixed batch and cache length and replayed
 every step: the port's counterpart of the JAX scheduler's decode step,
 compiled once by ``jax.jit`` with the cache donated. On the CPU every step
-runs the forward eagerly.
+runs the forward eagerly, and so does a split cache (below) and a grid
+with a model tier, by rule: the tier's allreduces run on the host's side
+of the card (a gloo tier stages each through the host), which a graph
+cannot capture (``Engine.stats()["decode_graph_rule"]``).
 
 Sequential mode (the engine's cache is split over ranks, a combine other
 than "none"): as in the JAX scheduler, one request at a time at B = 1; its
@@ -20,7 +23,10 @@ and every decode step runs eagerly through the engine's combine hook (a
 host-side exchange per layer cannot be captured in a CUDA graph). The
 ranks must take every scheduling decision alike, or the combine deadlocks:
 rank 0 decides each admission and broadcasts the request id (or -1: wait)
-to the grid, and the others follow.
+to every rank of the grid, all q·pl·m of them (``RankGrid.all_group``):
+on a model tier the lanes' ranks pair up in the tier's collectives, so
+every lane must admit the same request at the same step, whatever its own
+clock says, and the others follow.
 
 Batch-sharded mode (a grid whose ranks the batch divides over): rank i
 holds the rows [i * B_loc, (i + 1) * B_loc), B_loc = B / p, in a cache of
@@ -38,7 +44,8 @@ its own prefill; otherwise the cache migrates (:mod:`.migrate`, the JAX
 keeps the tokens and stamps of the rows it owns: ``step()`` returns the
 requests it owns that finished, and ``drain()`` gathers every finished
 request's result from its owner once, at its end (one exchange of the
-results over the grid), so that every rank returns the same results.
+results over the whole grid; on a model tier the owner's rank of tier 0
+gives it), so that every rank returns the same results.
 
 Clocks are injectable: :class:`WallClock` for real latency numbers,
 :class:`StepClock` for deterministic replay (on a grid, every rank's clock
@@ -200,9 +207,15 @@ class Scheduler:
         # sequential mode: each request's prefill makes the serving cache
         self._cache = None if self.sequential else self.model.empty_cache(
             self.local_batch, self.spec.cache_len, vector_pos=True)
-        self._graph = (DecodeGraph(self.model, self._cache, self._tok_dev)
-                       if self.model.device.type == "cuda"
-                       and not self.sequential else None)
+        self.graph_rule = (
+            "the model tier's allreduces run on the host's side (gloo "
+            "stages them through the host)" if engine.tp is not None else
+            "a split cache combines over the grid in every layer"
+            if self.sequential else
+            "on the CPU every decode step runs eagerly"
+            if self.model.device.type != "cuda" else "")
+        self._graph = (None if self.graph_rule else
+                       DecodeGraph(self.model, self._cache, self._tok_dev))
         # the cross-pod migration, where a row may lie outside its home pod
         self.migrate = MigrateInsert(
             self.grid, self.resolved.seq_span, self.spec.migrate,
@@ -273,7 +286,9 @@ class Scheduler:
 
     def stats(self) -> dict:
         out = {**self.counts, "active": len(self.active),
-               "queued": len(self.queue), "finished": len(self.results)}
+               "queued": len(self.queue), "finished": len(self.results),
+               "decode_graph": self._graph is not None,
+               "decode_graph_rule": self.graph_rule}
         if self.migrate is not None:
             out.update(self.migrate.stats())
         return out
@@ -292,16 +307,21 @@ class Scheduler:
 
     def _next_token(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy rule of the JAX engine: argmax of the last position,
-        clamped below the padded-vocab ids; (B,1) int64 on the host."""
+        clamped below the padded-vocab ids; (B,1) int64 on the host. A
+        model rank's logits are its vocabulary's: the tier agrees on the
+        token (``TensorParallel.greedy``)."""
+        if self.engine.tp is not None:
+            return self.engine.tp.greedy(logits,
+                                         self.cfg.vocab_size).cpu().numpy()
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return torch.clamp(tok, max=self.cfg.vocab_size - 1).cpu().numpy()
 
     def _agreed(self, rid: int) -> int:
-        """Rank 0's admission decision (a request id, or -1: wait), on
-        every rank of the engine's grid."""
+        """Grid rank 0's admission decision (a request id, or -1: wait),
+        on every rank of the engine's grid, every lane of a model tier."""
         grid = self.grid
         t = torch.tensor([rid], dtype=torch.long, device=grid.device)
-        dist.broadcast(t, src=grid.global_rank(0), group=grid.group)
+        dist.broadcast(t, src=grid.all_ranks[0], group=grid.all_group)
         return int(t[0])
 
     def _admit(self) -> None:
@@ -437,12 +457,14 @@ class Scheduler:
 
     def _gather_results(self) -> None:
         """Every rank's results of the rows it owns, to every rank: one
-        exchange over the grid, where a request finished since the last."""
+        exchange over the whole grid, where a request finished since the
+        last. The rank of tier 0 speaks for its tier (the tier's ranks own
+        the same rows; their stamps follow each one's clock)."""
         if not self._ungathered:
             return
-        parts = [None] * self.grid.p
-        dist.all_gather_object(parts, self.results, group=self.grid.group)
-        for part in parts:
-            for rid, res in part.items():
-                self.results.setdefault(rid, res)
+        grid = self.grid
+        parts = [None] * (grid.p * grid.m)
+        dist.all_gather_object(parts, self.results, group=grid.all_group)
+        for part in parts[::grid.m]:                   # grid ranks t = 0
+            self.results.update(part)
         self._ungathered = 0

@@ -22,6 +22,14 @@ engine as it shapes the JAX one:
 * ``fused_stats`` takes only ``"auto"``: the decode-stats kernel for a
   cache on the card, its plain version for a cache on the CPU.
 
+On a grid with a "model" tier (``RankGrid.build(q, pl, m)``, the dense
+family; ``models/tp.check_tp`` is the one gate) each model lane of q·pl
+ranks takes the layout above, and the cache holds the rank's KV heads: KV
+/ m of them where m divides KV (the JAX ``cache_shardings`` puts the heads
+on "model"), else the heads its q heads read, where the JAX cache shards
+the head dim instead and its engine keeps the GSPMD ("xla") combine
+(``_combine_eligible``).
+
 :meth:`ServeSpec.resolve` binds a spec to a model and a ``RankGrid`` (None:
 one rank), as the JAX ``resolve`` binds it to a mesh; the cache layout and
 the combine choice it derives (``_cache_layout``, ``_seq_axes_for``,
@@ -35,6 +43,7 @@ from typing import Any
 import numpy as np
 
 from ..core.collectives import MIGRATE_ALGORITHMS
+from ..models.tp import check_tp
 
 COMBINES = ("auto", "xla", "locality")
 #: the grid's axes, outer-major, as the JAX package's DP axes ('pod','data')
@@ -97,17 +106,17 @@ class ServeSpec:
         sequence-sharded), the combine choice and the pod geometry, computed
         once here, so the engine and the scheduler cannot drift on them."""
         self.validate()
-        if grid is not None and getattr(grid, "m", 1) > 1:
-            raise NotImplementedError(
-                f"serving on a model tier of {grid.m} (the cache's KV heads "
-                "over 'model', src/repro/serve/engine.py:143-150) is the "
-                "serving half of ROADMAP.md Queue 1 item 11")
+        sizes = _axis_sizes(grid)
+        check_tp(cfg, sizes["model"])
         batch_sharded, cand = _cache_layout(grid, self.batch, self.seq_axes)
         seq_span = _seq_axes_for(grid, self.cache_len, cand)
         choice = _combine_for(
             cfg, grid, self.batch, None if batch_sharded else seq_span,
             None if self.combine == "auto" else self.combine)
-        sizes = _axis_sizes(grid)
+        if choice.algorithm == "locality" and not _kv_own(cfg, grid) \
+                and cfg.head_dim_ % sizes["model"] == 0:
+            # the JAX engine's: a head-dim-sharded cache keeps GSPMD's combine
+            choice = dataclasses.replace(choice, algorithm="xla")
         if batch_sharded and sizes["pod"] > 1 and self.migrate == "auto":
             raise NotImplementedError(
                 "migrate='auto' on a batch-sharded grid of pods resolves "
@@ -116,7 +125,8 @@ class ServeSpec:
                 f"of {MIGRATE_ALGORITHMS}")
         return ResolvedServeSpec(
             batch_sharded=batch_sharded, seq_span=seq_span,
-            combine=choice, n_pods=sizes["pod"], p_local=sizes["data"])
+            combine=choice, n_pods=sizes["pod"], p_local=sizes["data"],
+            m=sizes["model"], kv_own=_kv_own(cfg, grid))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +137,11 @@ class ResolvedServeSpec:
               (every rank), ("data",) (each pod's ranks) or None. On a
               batch-sharded grid it is the donor layout of a migrating
               request's B = 1 cache.
-    n_pods, p_local: the grid's pods and ranks a pod.
+    n_pods, p_local: the grid's pods and ranks a pod (of a model lane).
+    m:        the model tier's ranks (1: none);
+    kv_own:   each tier rank holds KV / m heads of its own (m divides KV);
+              otherwise it holds the KV heads its q heads read, which
+              other tier ranks hold too.
 
     A row's pod is ``PagedKVCache.pod_of_row`` of the accounting the
     scheduler builds with ``n_pods`` on a batch-sharded layout (one pod
@@ -139,10 +153,18 @@ class ResolvedServeSpec:
     combine: "CombineChoice"
     n_pods: int
     p_local: int
+    m: int = 1
+    kv_own: bool = True
 
 
 def _axis_sizes(grid) -> dict[str, int]:
-    return {"pod": grid.q if grid else 1, "data": grid.pl if grid else 1}
+    return {"pod": grid.q if grid else 1, "data": grid.pl if grid else 1,
+            "model": getattr(grid, "m", 1) if grid else 1}
+
+
+def _kv_own(cfg, grid) -> bool:
+    """Whether the tier splits the KV heads (the JAX ``kv_m``)."""
+    return cfg.n_kv_heads % _axis_sizes(grid)["model"] == 0
 
 
 def _cache_layout(grid, batch: int, seq_axes="auto"
@@ -186,7 +208,8 @@ class CombineChoice:
                library's allreduce) or "none" (nothing to combine);
     source:    "explicit" (the spec named it) or "n/a";
     nbytes:    the per-layer stat payload of one step, fp32 o and l:
-               B * H * (D + 1) * 4 bytes;
+               B * H * (D + 1) * 4 bytes, H the rank's H / m heads where
+               the tier splits the KV heads, as the JAX engine prices it;
     p, p_local: the ranks in the combine, and those of one pod among them.
     """
 
@@ -227,7 +250,10 @@ def _combine_for(cfg, grid, batch: int, span: tuple[str, ...] | None,
     p = 1
     for a in span:
         p *= sizes[a]
-    nbytes = batch * cfg.n_heads * (cfg.head_dim_ + 1) * 4
+    H = cfg.n_heads
+    if sizes["model"] > 1 and _kv_own(cfg, grid):
+        H //= sizes["model"]
+    nbytes = batch * H * (cfg.head_dim_ + 1) * 4
     p_local = sizes["data"] if "pod" in span else p
     return CombineChoice(override, "explicit", nbytes, p, p_local)
 

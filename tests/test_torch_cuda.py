@@ -10,7 +10,8 @@ another order; decode stats' fp32 outputs 1e-4 for bf16 V too, the masked
 scores exactly NEG_INF, two calls bitwise equal); bf16 outputs 2e-2 (one
 bf16 ulp at 4 is 1.6e-2); the two decode kernels at a sequence-parallel
 shard's slot offset as their plain versions, a shard with no slot kept
-giving m = NEG_INF, o = 0 and l = 0 exactly; the decode step's CUDA graph
+giving m = NEG_INF, o = 0 and l = 0 exactly, also at a tensor-parallel
+rank's heads (KV = 4, G = 3); the decode step's CUDA graph
 replay bitwise equal
 to the eager forward on a copy of the cache; the DMA allgather
 copies bytes and is held equal; the SSD scan (fp32 output whatever its
@@ -383,6 +384,68 @@ def test_decode_kernels_at_a_slot_offset(cuda, dtype, G, mask):
                     assert float(o[b].abs().max()) == 0.0
                     assert float(l[b].abs().max()) == 0.0
     assert states == {"none", "part", "all"} or mask, states
+
+
+# one model rank of llama3.2-3b on a tier of 2 (8 KV heads over 2: KV = 4,
+# G = 3, D = 128): B_loc = 2 rows of a 2,048-slot cache at positions of a
+# batch-sharded trace, and one B = 1 shard of 8,192 slots of a 32,768-slot
+# cache at each shard's offset, at positions 3,000 and 11,000 (a shard
+# keeps all its slots, part of them or none)
+TIER_KV, TIER_G, TIER_D = 4, 3, 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_pair_at_a_model_ranks_batch_rows(cuda, dtype):
+    B, L = 2, 2048
+    q, k, v = _decode_tensors((B, TIER_KV, TIER_G, TIER_D, L), dtype, cuda)
+    for rows in ((134, 1521), (700, 2047), (0, 1024)):
+        pos = torch.tensor(rows, device=cuda)
+        before = (stats_ops.SCORES_LAUNCHES, stats_ops.LAUNCHES)
+        s, m = stats_ops.decode_scores(q, k, pos)
+        o, l = stats_ops.accumulate(s, m, v, pos=pos)
+        out = tattention.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert (stats_ops.SCORES_LAUNCHES, stats_ops.LAUNCHES) == (
+            before[0] + 2, before[1] + 2)
+        rs, rm = stats_ops.decode_scores_ref(q, k, pos)
+        assert torch.equal(s == tattention.NEG_INF, rs == tattention.NEG_INF)
+        _close(s, rs, dtype, 1e-4)
+        _close(m, rm, dtype, 1e-4)
+        ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+        torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+        _close(out, (ro / rl[..., None]).to(dtype), dtype, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_pair_at_a_model_ranks_cache_shard(cuda, dtype):
+    L, shards = 8192, 4
+    q, k, v = _decode_tensors((1, TIER_KV, TIER_G, TIER_D, L * shards),
+                              dtype, cuda)
+    states = set()
+    for p_ in (3000, 11000):
+        pos = torch.tensor(p_, device=cuda)
+        for shard in range(shards):
+            off = shard * L
+            kl, vl = k[:, off:off + L], v[:, off:off + L]       # views
+            s, m = stats_ops.decode_scores(q, kl, pos, slot_offset=off)
+            o, l = stats_ops.accumulate(s, m, vl, pos=pos, slot_offset=off)
+            torch.cuda.synchronize()
+            rs, rm = stats_ops.decode_scores_ref(q, kl, pos, slot_offset=off)
+            assert torch.equal(s == tattention.NEG_INF,
+                               rs == tattention.NEG_INF)
+            _close(s, rs, dtype, 1e-4)
+            _close(m, rm, dtype, 1e-4)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, vl)
+            torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+            n = int((rs[0, 0, 0] > tattention.NEG_INF).sum())
+            states.add("none" if n == 0 else "all" if n == L else "part")
+            if n == 0:
+                assert float(o.abs().max()) == float(l.abs().max()) == 0.0
+    assert states == {"none", "part", "all"}
 
 
 # reduced-depth engines: (prompt length, new tokens, arrival step); the last

@@ -325,9 +325,11 @@ def test_dp_messages_follow_the_oracle_and_the_tier_stays_local(trained):
 
 
 def test_model_tier_refusals_name_their_items(pool):
-    """mamba2 on a model tier (item 13) and serving on one (the serving
-    half of item 11) are refused on every rank, falling back to nothing."""
+    """mamba2 on a model tier, training and serving, is refused on every
+    rank naming item 13, falling back to nothing; the dense family serves
+    on one (item 11's serving half, tests/test_torch_serve_tp.py)."""
     for msgs in pool.run(H.task_tp_refusals, 2, 2, 2):
-        assert len(msgs) == 2
+        assert len(msgs) == 3
         assert "item 13" in msgs[0]
-        assert "item 11" in msgs[1]
+        assert "item 13" in msgs[1]
+        assert msgs[2] is None

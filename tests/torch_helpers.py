@@ -498,51 +498,91 @@ def result_fields(res) -> dict:
                 finish_reason=res.finish_reason)
 
 
-def task_serve_batch(ctx, q, pl, arch, params, n_layers, spec_kw, requests):
-    """The port's engine on a q x pl grid (one rank for 1 x 1), drained on a
-    StepClock: ``requests`` are (prompt, max_new, home_pod), all arriving
-    at 0. Returns every result's fields by rid, the engine's stats, the
-    bytes each request sent from this rank, and the migration's recorder
-    counts (collective and donor move, summed over the migrations)."""
+class OffsetClock:
+    """A StepClock read ``offset`` ahead: ``now()`` is the step count plus
+    ``offset``, so ranks given different offsets disagree on which
+    requests have arrived (as wall clocks of two hosts may)."""
+
+    def __init__(self, offset: float = 0.0):
+        from repro_torch.serve import StepClock
+        self.steps, self.offset = StepClock(), offset
+
+    def now(self) -> float:
+        return self.steps.now() + self.offset
+
+    def advance(self, kind: str) -> None:
+        self.steps.advance(kind)
+
+    def idle_until(self, t: float) -> None:
+        self.steps.idle_until(t - self.offset)
+
+
+def task_serve_batch(ctx, q, pl, arch, params, n_layers, spec_kw, requests,
+                     m=1, offsets=None):
+    """The port's engine on a q x pl (x m) grid (one rank for 1 x 1),
+    drained on a StepClock: ``requests`` are (prompt, max_new, home_pod)
+    or (prompt, max_new, home_pod, arrival_s), arriving at 0 by default.
+    ``offsets`` (by model lane t) runs each rank on an ``OffsetClock``.
+    Returns every result's fields by rid, the engine's stats, the bytes
+    each request sent from this rank, the migration's recorder counts
+    (collective and donor move, summed over the migrations), the combine
+    and layout resolved, the rank's coordinates and, per admission, the
+    request and the step count it was admitted at on this rank."""
+    import dataclasses
+
     import torch
     from repro_torch.serve import Engine, Request, ServeSpec, StepClock
-    grid = ctx.grid(q, pl)
+    grid = ctx.grid(q, pl, m)
     if grid is None:
         return None
     cfg = _small_cfg(arch, n_layers)
     tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    clock = StepClock() if offsets is None else OffsetClock(offsets[grid.t])
     eng = Engine(cfg, tparams, ServeSpec(**spec_kw),
-                 grid=grid if grid.p > 1 else None, device="cpu",
-                 clock=StepClock())
-    for t, m, home in requests:
-        eng.submit(Request(tokens=t, max_new=m, home_pod=home,
-                           arrival_s=0.0))
+                 grid=grid if grid.p * grid.m > 1 else None, device="cpu",
+                 clock=clock)
+    sched, admitted = eng.scheduler, []
+    start = sched._start
+
+    def logged(req, row):
+        admitted.append((req.rid, clock.now() - (offsets or [0] * m)[grid.t]))
+        return start(req, row)
+
+    sched._start = logged
+    for t, n, home, *arrival in requests:
+        eng.submit(Request(tokens=t, max_new=n, home_pod=home,
+                           arrival_s=arrival[0] if arrival else 0.0))
     res = eng.drain()
-    mig = eng.scheduler.migrate
+    mig = sched.migrate
     return dict(
         results={rid: result_fields(r) for rid, r in res.items()},
         stats=eng.stats(), rows=(eng.rows_lo, eng.local_batch),
         sent={} if mig is None else dict(mig.sent_by_request),
         collective={} if mig is None else dict(mig.collective),
         donor={} if mig is None else dict(mig.donor),
-        span=None if mig is None else mig.span)
+        span=None if mig is None else mig.span,
+        combine=dataclasses.asdict(eng.combine),
+        resolved=dict(m=eng.resolved.m, kv_own=eng.resolved.kv_own),
+        cache_shape=tuple(eng.model.cache_shapes(1, 8).get(
+            "k", ((),))[0]),
+        coords=(grid.rank, grid.t, grid.grid_rank), admitted=admitted)
 
 
 def task_generate(ctx, q, pl, params, n_layers, batch, cache_len, prompts,
-                  max_new):
-    """The legacy ``Engine.generate`` on a q x pl grid (one rank for 1 x 1):
-    the (B, max_new) tokens and whether it warned."""
+                  max_new, m=1):
+    """The legacy ``Engine.generate`` on a q x pl (x m) grid (one rank for
+    1 x 1): the (B, max_new) tokens and whether it warned."""
     import warnings
 
     import torch
     from repro_torch.serve import Engine, ServeSpec
-    grid = ctx.grid(q, pl)
+    grid = ctx.grid(q, pl, m)
     if grid is None:
         return None
     cfg = _small_cfg("llama3.2-3b", n_layers)
     tparams = {k: torch.from_numpy(v) for k, v in params.items()}
     eng = Engine(cfg, tparams, ServeSpec(batch=batch, cache_len=cache_len),
-                 grid=grid if grid.p > 1 else None, device="cpu")
+                 grid=grid if grid.p * grid.m > 1 else None, device="cpu")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         toks = eng.generate(prompts, max_new)
@@ -820,8 +860,9 @@ def assemble_tp(results: list, pl: int, m: int) -> dict:
 
 
 def task_tp_refusals(ctx, q, pl, m):
-    """On a q x pl x m grid: the mamba2 step and serving refuse the model
-    tier; returns the two messages."""
+    """On a q x pl x m grid: the mamba2 step and mamba2 serving refuse the
+    model tier, dense serving resolves; returns the messages (None where
+    nothing was refused)."""
     from repro_torch.serve.spec import ServeSpec
     from repro_torch.train import make_train_step
     grid = ctx.grid(q, pl, m)
@@ -829,9 +870,13 @@ def task_tp_refusals(ctx, q, pl, m):
     for call in (lambda: make_train_step(_small_cfg("mamba2-780m", 2), grid,
                                          device="cpu"),
                  lambda: ServeSpec(batch=1, cache_len=16).resolve(
+                     _small_cfg("mamba2-780m", 2), grid),
+                 lambda: ServeSpec(batch=1, cache_len=16,
+                                   combine="locality").resolve(
                      _small_cfg("llama3.2-3b", 2), grid)):
         try:
             call()
+            out.append(None)
         except NotImplementedError as e:
             out.append(str(e))
     return out
