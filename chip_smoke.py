@@ -56,7 +56,11 @@ the package is missing. Phases, each fatal on failure:
    8,192 slots of a 32,768-slot cache at each shard's offset, at
    positions 3,000 and 11,000, each kernel against its plain version and
    timed with its bound, the pair beside one SDPA call masked to the kept
-   slots;
+   slots; and the serving kernels at qwen2-moe-a2.7b's shapes (phase 4m,
+   ``moe_kernel_cases``: RMSNorm plain and residual 2,048 wide at 8 and
+   512 rows beside ``F.rms_norm``, flash at S = 137 and 512 with 16 q and
+   16 KV heads of 128 beside SDPA, the decode pair at 8 rows of 1,024
+   slots, KV = 16, G = 1, beside SDPA; bf16, the tolerances above);
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -75,7 +79,8 @@ the package is missing. Phases, each fatal on failure:
    within atol 1e-3 plus rtol 1e-2 of the plain backward in fp32 on the
    same bf16 inputs, the gradients' mean sizes printed beside) at 8a's
    shape (B = 4, S = 1,024, 24/8 heads of 128; causal, window and chunk,
-   bf16 and fp32), at one rank's of 8c (B = 1, causal, bf16) and at the
+   bf16 and fp32), at one rank's of 8c (B = 1, causal, bf16), of 8e and
+   of 10b (B = 1, 16/16 heads; the RMSNorm backward 2,048 wide) and at the
    tensor-core pair's tile edges (``FLASH_BWD_EDGES``: S = 63, 65, 129,
    G = 1, 3, 8, D = 32, 64, 128, window and chunk), each naming the
    instance that served it by its launch counter (bf16 at D <= 128 the
@@ -129,6 +134,17 @@ the package is missing. Phases, each fatal on failure:
    heads of P = 64, N = 128, vocab 50280): rmsnorm 97 per forward (49
    plain, 48 gated: the mixer's gate fused into its norm), ssd 48
    per prefill, flash and the decode kernels 0;
+4m. the same for qwen2-moe-a2.7b at full width and depth (24 layers,
+   d_model 2,048, 16/16 heads, 64 routed experts of 1,408 at top-4 and 4
+   shared, an untied 151,936-row head; 15.1 B parameters, ~30.3 GB of
+   bf16 weights drawn on the card from seed 0): rmsnorm 49 per forward
+   (25 plain, 24 residual), flash 24 per prefill, the decode kernels 24
+   each per step, the MoE's own work plain torch inside the graph; then
+   ``moe_decode_checks``: the 16 requests again with the scheduler's graph
+   set aside, every token equal to the replayed run's, and the bytes a
+   decode step must read (at S = 1 each row has K slots in every expert,
+   so every expert's weights are read: 26.6 GB a step) at 3.35 TB/s
+   beside the step's time;
 6. sequence-parallel serving, ``serve_seq_parallel``: 6 spawned ranks on
    this one card, joined in one gloo group (``launch.serve.run_ranks``).
    First a reduced llama3.2-3b (2 layers, fp32, full width, a 6,144-slot
@@ -226,6 +242,22 @@ the package is missing. Phases, each fatal on failure:
    and its backward 48, RMSNorm plain 97 and its backward 49); step ms,
    tokens/s, peak memory and a profiled step (the SSD forward's and
    backward's device ms, the gated backward's, the idle share).
+10. MoE expert-parallel training, ``train_moe_on_ranks``: 6 spawned
+   ranks. 10a: the reduced fp32 qwen2-moe (2 layers, 8 experts at top-4)
+   on 2 x 2 and, with 12 experts, on 3 x 2, ``moe_dispatch`` "locality"
+   (the tokens transport) and "xla" (slots) with FSDP, against the card's
+   one rank running the ranks' rows as p microbatches (each rank's
+   auxiliary loss is its own rows'), at 8b's limits, and the card's one
+   rank against the CPU's; 10b: qwen2-moe-a2.7b at full width on 2 x 2
+   of the ranks, depth cut to 2 layers, one 1,024-token sequence a rank,
+   locality + FSDP with the dispatch "locality" (2 steps), "xla" and
+   "none" (1 step each): the tokens and slots transports' first losses
+   bitwise equal, "none"'s within ``MOE_LOSS_REL``; every rank's launches
+   exact and, per step, its all-to-all's non-local messages and bytes the
+   oracle's (``schedules.locality_all_to_all``, ``xla_all_to_all``) times
+   its calls (``a2a_check``); step ms, the all-to-all's, the tokens
+   gathers', the parameter gathers' and reduce-scatters' host ms, staged
+   bytes and peak memory a process.
 9. serving on a ("pod", "data", "model") grid, ``serve_tier``: 8 spawned
    ranks sharing the card as 2 x 2 x 2, llama3.2-3b split over a model
    tier of 2 (12 q and 4 KV heads a rank, its MLP columns and vocabulary
@@ -253,9 +285,9 @@ the package is missing. Phases, each fatal on failure:
    combines' messages and bytes. Last the whole run's wall time.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phase 4, phase 5, each engine of phases 6, 7 and 9 in
-its own process, the trainers of 8a and 8d, each run of 8c and of 8b's mamba2
-ranks in its own process) and read just after it.
+(the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7 and 9 in
+its own process, the trainers of 8a and 8d, each run of 8c, 10b and of
+8b's mamba2 ranks in its own process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -379,9 +411,6 @@ def close_fp32(out, plain, args, what: str) -> float | None:
 # phase 2: kernels against plain versions
 # ---------------------------------------------------------------------------
 def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     cases: dict[str, list[dict]] = {"rmsnorm": [], "flash_attention": [],
@@ -399,38 +428,8 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
                                                dict(causal=True, chunk=128),
                                                dict(causal=True, cap=50.0))]
         for S, H, KV, D, mask in flash:
-            q = randn(1, S, H, D).to(dtype)
-            k, v = randn(1, S, KV, D).to(dtype), randn(1, S, KV, D).to(dtype)
-            out, what = (flash_ops.flash_attention(q, k, v, **mask),
-                         f"flash {dtype} S={S} D={D} {mask}")
-            err = close(out, flash_ops.attention_ref(q, k, v, **mask),
-                        tol or 1e-4, what)
-            err32 = close_fp32(out, lambda *a: flash_ops.attention_ref(
-                *a, **mask), (q, k, v), what)
-            qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
-            allowed = qp >= kp
-            if mask.get("window"):
-                allowed &= (qp - kp) < mask["window"]
-            if mask.get("chunk"):
-                allowed &= (qp // mask["chunk"]) == (kp // mask["chunk"])
-            pairs = int(allowed.sum())
-            b_ms, b_by = bound((2 * q.numel() + 2 * k.numel())
-                               * q.element_size(), 4 * H * D * pairs, dtype)
-            lib_ms = None
-            if list(mask) == ["causal"]:
-                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
-            cases["flash_attention"].append(dict(
-                shape=[1, S, H, KV, D], mask=mask, dtype=str(dtype),
-                max_abs_err=err, tolerance=tol or 1e-4,
-                max_abs_err_vs_fp32_plain=err32,
-                ms=timer(lambda: flash_ops.flash_attention(q, k, v, **mask)),
-                host_ms=timer.host_ms(
-                    lambda: flash_ops.flash_attention(q, k, v, **mask)),
-                plain_ms=timer(lambda: flash_ops.attention_ref(q, k, v,
-                                                               **mask)),
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            cases["flash_attention"].append(flash_case(
+                timer, randn, S, H, KV, D, mask, dtype, tol))
 
         for name, rows in decode_cases(timer, g, dtype, tol).items():
             cases[name] += rows
@@ -440,6 +439,73 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     cases["rmsnorm"] += rms
     cases["decode_tier"] = tier_decode_cases(timer)
     return cases
+
+
+def flash_case(timer, randn, S, H, KV, D, mask, dtype, tol) -> dict:
+    """The flash forward at (1, S, H, KV, D) against its plain version:
+    errors, times, bound; SDPA timed beside a causal case."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    q = randn(1, S, H, D).to(dtype)
+    k, v = randn(1, S, KV, D).to(dtype), randn(1, S, KV, D).to(dtype)
+    out, what = (flash_ops.flash_attention(q, k, v, **mask),
+                 f"flash {dtype} S={S} H={H} KV={KV} D={D} {mask}")
+    err = close(out, flash_ops.attention_ref(q, k, v, **mask),
+                tol or 1e-4, what)
+    err32 = close_fp32(out, lambda *a: flash_ops.attention_ref(
+        *a, **mask), (q, k, v), what)
+    qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    allowed = qp >= kp
+    if mask.get("window"):
+        allowed &= (qp - kp) < mask["window"]
+    if mask.get("chunk"):
+        allowed &= (qp // mask["chunk"]) == (kp // mask["chunk"])
+    pairs = int(allowed.sum())
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel())
+                       * q.element_size(), 4 * H * D * pairs, dtype)
+    lib_ms = None
+    if list(mask) == ["causal"]:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    return dict(
+        shape=[1, S, H, KV, D], mask=mask, dtype=str(dtype),
+        max_abs_err=err, tolerance=tol or 1e-4,
+        max_abs_err_vs_fp32_plain=err32,
+        ms=timer(lambda: flash_ops.flash_attention(q, k, v, **mask)),
+        host_ms=timer.host_ms(
+            lambda: flash_ops.flash_attention(q, k, v, **mask)),
+        plain_ms=timer(lambda: flash_ops.attention_ref(q, k, v, **mask)),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# the serving path's kernels at qwen2-moe-a2.7b's shapes (phase 4m):
+# d_model 2,048, 16 q and 16 KV heads of 128 (G = 1); RMSNorm plain and
+# residual at 8 and 512 rows, flash at S = 137 and 512, the decode pair at
+# phase 4's batch and cache (8 rows of 1,024 slots); bf16, the tolerances
+# of phase 2
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_D, MOE_HEADS, MOE_HEAD_DIM = 2048, 16, 128
+
+
+def moe_kernel_cases(timer) -> dict[str, list[dict]]:
+    g = torch.Generator(device="cuda").manual_seed(7)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    bf16, tol = torch.bfloat16, 2e-2
+    out = {"rmsnorm": [rmsnorm_case(timer, randn, form, rows, MOE_D, bf16,
+                                    tol)
+                       for form in ("plain", "residual") for rows in (8, 512)],
+           "flash_attention": [flash_case(
+               timer, randn, S, MOE_HEADS, MOE_HEADS, MOE_HEAD_DIM,
+               dict(causal=True), bf16, tol) for S in (137, 512)]}
+    out.update(decode_cases(timer, g, bf16, tol, shapes=[(1, MOE_HEAD_DIM)],
+                            KV=MOE_HEADS))
+    out["decode_attention"] = [decode_pair(timer, g, KV=MOE_HEADS, G=1,
+                                           D=MOE_HEAD_DIM)]
+    for rows in out.values():
+        for r in rows:
+            r["path"] = "serve_full_width_moe"
+    return out
 
 
 # the decode kernels on one rank's shard of a sequence-parallel cache: a
@@ -732,23 +798,24 @@ DECODE_SHAPES = [(3, 128), (1, 64), (4, 120), (5, 128), (8, 128), (2, 256)]
 DECODE_B, DECODE_KV, DECODE_L = 8, 8, 1024
 
 
-def decode_positions(g) -> torch.Tensor:
+def decode_positions(g, B: int = DECODE_B) -> torch.Tensor:
     """Per-row positions 64..576: rows mid-request, as in phase 4."""
-    return torch.randint(64, 577, (DECODE_B,), generator=g, device="cuda")
+    return torch.randint(64, 577, (B,), generator=g, device="cuda")
 
 
-def decode_cases(timer, g, dtype, tol) -> dict[str, list[dict]]:
+def decode_cases(timer, g, dtype, tol, shapes=DECODE_SHAPES, B=DECODE_B,
+                 KV=DECODE_KV, L=DECODE_L) -> dict[str, list[dict]]:
     """The two decode kernels against their plain versions at every
-    DECODE_SHAPES entry: errors, times and bounds (the bytes: each input
-    read once, each output written once, K, V and the accumulation's
-    scores only where a slot is kept; the scores' s written whole)."""
+    (G, D) of ``shapes`` (B rows of an L-slot cache of KV heads): errors,
+    times and bounds (the bytes: each input read once, each output written
+    once, K, V and the accumulation's scores only where a slot is kept;
+    the scores' s written whole)."""
     from repro_torch.kernels.decode_stats import ops as stats_ops
     from repro_torch.models.attention import NEG_INF
-    B, KV, L = DECODE_B, DECODE_KV, DECODE_L
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     rows = {"decode_scores": [], "decode_stats": []}
-    for G, D in DECODE_SHAPES:
-        pos = decode_positions(g)
+    for G, D in shapes:
+        pos = decode_positions(g, B)
         slots = int((pos + 1).sum())                   # slots the mask keeps
         q, k, v = (rn(B, 1, KV * G, D).to(dtype), rn(B, L, KV, D).to(dtype),
                    rn(B, L, KV, D).to(dtype))
@@ -819,17 +886,17 @@ def decode_cases(timer, g, dtype, tol) -> dict[str, list[dict]]:
     return rows
 
 
-def decode_pair(timer, g) -> dict:
+def decode_pair(timer, g, KV=DECODE_KV, G=DECODE_SHAPES[0][0],
+                D=DECODE_SHAPES[0][1]) -> dict:
     """The decode-attention pair (scores kernel, accumulate kernel, o / l)
-    at llama3.2-3b's decode shape in bf16, beside one
+    at a decode shape in bf16 (llama3.2-3b's by default), beside one
     ``F.scaled_dot_product_attention`` call on the same inputs (the
     library yardstick, timed here only; the port never calls it): q as
     (B,H,1,D) against K and V as (B,KV,L,D), transposed before the timing,
     with the boolean position mask and ``enable_gqa``."""
     import torch.nn.functional as F
     from repro_torch.models.attention import decode_attention
-    B, KV, L = DECODE_B, DECODE_KV, DECODE_L
-    G, D = DECODE_SHAPES[0]
+    B, L = DECODE_B, DECODE_L
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     pos = decode_positions(g)
     q, k, v = (rn(B, 1, KV * G, D).to(torch.bfloat16),
@@ -1259,6 +1326,10 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     check(len(spans) == st["decode_steps"], f"{phase}: {len(spans)} replays "
                                             f"timed, {st['decode_steps']} steps")
     replay_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    extra = {}
+    if cfg.family == "moe":
+        extra = moe_decode_checks(eng, reqs, [results[r] for r in rids], cfg,
+                                  phase)
     profile_serving(eng, reqs, phase)
     prefill_s = sum(t for mode, t, _ in calls if mode == "prefill")
     decode_s = sum(t for mode, t, _ in calls if mode == "decode")
@@ -1279,8 +1350,50 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
         "decode_device_idle_share": 1 - replay_s / decode_s,
         "prefill_ms_mean": prefill_s / st["prefills"] * 1e3,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches, "rmsnorm_forms": by_form, "card": smi}))
+        "launches": launches, "rmsnorm_forms": by_form, **extra,
+        "card": smi}))
     return launches
+
+
+def moe_decode_checks(eng, reqs, results, cfg, phase: str) -> dict:
+    """The MoE engine's decode graph against eager decoding: the same
+    requests again with the scheduler's graph set aside, every token equal
+    to the replayed run's; and what a decode step must read: at S = 1 each
+    row has K slots in every expert (capacity K), so the batched expert
+    products read every expert's weights each step, with the attention,
+    shared experts, router and head: the bound at the card's memory rate."""
+    from repro_torch.models.moe import d_expert, d_shared
+    from repro_torch.serve import Request
+    sched = eng.scheduler
+    graph, sched._graph = sched._graph, None
+    base = eng.stats()["decode_steps"]
+    t0 = time.perf_counter()
+    rids = [eng.submit(Request(tokens=r.tokens, max_new=r.max_new))
+            for r in reqs]
+    eager = eng.drain()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    steps = eng.stats()["decode_steps"] - base
+    sched._graph = graph
+    same = [bool(np.array_equal(eager[rid].tokens, res.tokens))
+            for rid, res in zip(rids, results)]
+    check(all(same), f"{phase}: the graph's tokens differ from the eager "
+                     f"decode's in requests "
+                     f"{[i for i, ok in enumerate(same) if not ok]}")
+    d, L, E = cfg.d_model, cfg.n_layers, cfg.n_experts
+    es = torch.empty((), dtype=cfg.dtype).element_size()
+    hq = cfg.n_heads * cfg.head_dim_
+    hkv = cfg.n_kv_heads * cfg.head_dim_
+    experts = L * E * 3 * d * d_expert(cfg) * es
+    rest = L * ((2 * d * hq + 2 * d * hkv) + 3 * d * d_shared(cfg)
+                + d * E) * es + d * cfg.padded_vocab * es
+    return {"graph_tokens_equal_eager": True,
+            "eager_decode_wall_s": eager_s, "eager_decode_steps": steps,
+            "expert_bytes_per_decode_step": experts,
+            "expert_read_bound_ms": experts / HBM_BYTES_PER_S * 1e3,
+            "weight_bytes_per_decode_step": experts + rest,
+            "weight_read_bound_ms": (experts + rest) / HBM_BYTES_PER_S * 1e3,
+            "capacity_decode": cfg.top_k, "slots_per_row": E * cfg.top_k}
 
 
 def profile_window(label: str, phase: str, fn, calls: int,
@@ -2268,6 +2381,10 @@ FSDP_RANK_RMS = (1024, 3072)
 # residual stream is split over the sequence (seq_shard, m = 2)
 TP_RANK_FLASH = (1, 1024, 12, 4, 128)
 TP_RANK_RMS = ((1024, 3072), (512, 3072))
+# one rank of phase 10b (bf16): qwen2-moe-a2.7b's 16 q and 16 KV heads of
+# 128 over one 1,024-token sequence, its norms 2,048 wide
+MOE_RANK_FLASH = (1, 1024, 16, 16, 128)
+MOE_RANK_RMS = (1024, 2048)
 # the flash backward's tolerances, as tests/test_torch_cuda.py states them:
 # fp32 against the plain backward; bf16 against the plain backward in fp32
 # on the same bf16 inputs, mostly relative (the kernel sums in fp32 and
@@ -2731,6 +2848,13 @@ def backward_cases(timer) -> dict[str, list[dict]]:
     for shape in TP_RANK_RMS:
         out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
             timer, g, torch.bfloat16, True, shape, "train_tp"))
+    # one rank of phase 10b (qwen2-moe-a2.7b: 16 q and 16 KV heads), bf16
+    out["flash_attention_bwd"].append(flash_bwd_case(
+        timer, g, torch.bfloat16, dict(causal=True), MOE_RANK_FLASH,
+        "train_moe"))
+    for residual in (False, True):
+        out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
+            timer, g, torch.bfloat16, residual, MOE_RANK_RMS, "train_moe"))
     # the tensor-core pair at its tile edges (no path of its own)
     for *shape, mask in FLASH_BWD_EDGES:
         out["flash_attention_bwd"].append(flash_bwd_case(
@@ -2946,10 +3070,15 @@ def train_run(cfg, grid, params, kw: dict, batch: int, seq: int, steps: int,
             model_staged_bytes=mt.model_staged_bytes,
             gather=mt.gather_stats.edge_counts(),
             reduce_scatter=mt.reduce_scatter_stats.edge_counts(),
-            model=mt.model_stats.edge_counts()))
+            model=mt.model_stats.edge_counts(),
+            a2a_calls=mt.a2a_calls, a2a_bytes=mt.a2a_bytes,
+            a2a_ms=mt.a2a_s * 1e3, a2a=mt.a2a_stats.edge_counts(),
+            moe_gathers=mt.moe_gathers, moe_gather_ms=mt.moe_gather_s * 1e3,
+            moe_gather=mt.moe_gather_stats.edge_counts()))
         if grads:
             mus.append([t.clone() for t in _leaves(state.mu)])
     out["launches"] = dict(kernels.launch_counts())
+    out["moe"] = (art.moe_dispatch, art.moe_transport)
     out["peak_bytes"] = (torch.cuda.max_memory_allocated()
                          if device == "cuda" else 0)
     paths = ["/".join(p) for p in _paths(art.pspecs)]
@@ -3192,17 +3321,18 @@ def train_rank(rank: int, world: int, plan: dict) -> dict:
     return out
 
 
-def _one_rank_refs(cfg) -> tuple[dict, dict]:
-    """8b's one-rank runs of ``cfg`` on the CPU and the card from the same
-    parameters (``init_train_params``, seed 0) and batches: (the
-    parameters as {path: array}, {device: metrics, params, grads})."""
+def _one_rank_refs(cfg, kw: dict | None = None) -> tuple[dict, dict]:
+    """8b's one-rank runs of ``cfg`` (``make_train_step(**kw)``) on the CPU
+    and the card from the same parameters (``init_train_params``, seed 0)
+    and batches: (the parameters as {path: array}, {device: metrics,
+    params, grads})."""
     from repro_torch.models import transformer as T
     params = T.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
     flat = dict(zip(["/".join(p) for p in _paths(params)],
                     (t.numpy() for t in _leaves(params))))
     one = {}
     for device in ("cpu", "cuda"):
-        res = train_run(cfg, None, _tree(flat), {}, PARITY_BATCH,
+        res = train_run(cfg, None, _tree(flat), kw or {}, PARITY_BATCH,
                         PARITY_SEQ, PARITY_STEPS, device, grads=True)
         one[device] = dict(metrics=res["metrics"], params=res["shards"],
                            grads=res["grads"])
@@ -3580,6 +3710,228 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
     return {"train_tp": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: MoE expert-parallel training on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+# 10a: the reduced fp32 qwen2-moe (the smoke config at 2 layers: 8 experts
+# at top-4, 2 shared) on 2 x 2 ranks, and with 12 experts on 3 x 2, with
+# the locality and the xla dispatch (+ FSDP), against the card's one rank
+# at the PARITY_* limits. Each rank's auxiliary loss is its own rows' (the
+# JAX step's under its DP shard_map), a function of the split: the one
+# rank runs the p ranks' rows as p microbatches (``grad_accum=p``), which
+# averages the same p losses and gradients. 10b: qwen2-moe-a2.7b at full
+# width on 2 x 2 of the ranks, depth cut to 2 layers (the gloo host
+# transport), one 1,024-token sequence a rank, locality + FSDP with
+# moe_dispatch "locality" (the tokens transport: 2 pods < K·cf = 5),
+# "xla" (slots) and "none" (every rank holds every expert, FSDP-gathered):
+# the first two deliver the same slot values to the same expert products,
+# so their first losses must be bitwise equal; "none"'s (other row counts
+# in the expert products, so possibly other bf16 roundings) within
+# MOE_LOSS_REL.
+MOE_PARITY_GRIDS = {(2, 2): {}, (3, 2): {"n_experts": 12}}
+MOE_PARITY_VARIANTS = (("locality", dict(fsdp=True, moe_dispatch="locality")),
+                       ("xla", dict(fsdp=True, moe_dispatch="xla")))
+MOE_GRID, MOE_LAYERS, MOE_TRAIN_SEQ = (2, 2), 2, 1024
+# (dispatch, steps): the locality dispatch two steps (a steady one); xla
+# and none one each, the loss agreement's (none's step, ~50 s over gloo,
+# gathers every expert twice)
+MOE_DISPATCHES = (("locality", 2), ("xla", 1), ("none", 1))
+MOE_LOSS_REL = 1e-2
+
+
+def _moe_small(**over):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke(MOE_ARCH),
+                               n_layers=PARITY_LAYERS, dtype=torch.float32,
+                               **over)
+
+
+def train_moe_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 10 (every rank shares the one card): 10a's reduced
+    runs on 2 x 2 (ranks 0-3) and 3 x 2, then 10b's full-width runs on 2 x
+    2; ranks outside a grid wait at the barrier after each run."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = {shape: RankGrid.build(*shape) for shape in MOE_PARITY_GRIDS}
+    out = {"rank": rank, "parity": {}, "full": {}}
+    for shape, over in MOE_PARITY_GRIDS.items():
+        grid = grids[shape]
+        small = _moe_small(**over)
+        for name, kw in MOE_PARITY_VARIANTS:
+            if grid is not None:
+                res = train_run(small, grid,
+                                _tree(plan["params"][str(shape)]), kw,
+                                PARITY_BATCH, PARITY_SEQ, PARITY_STEPS,
+                                "cuda")
+                out["parity"][f"{shape[0]}x{shape[1]}|{name}"] = {
+                    k: res[k] for k in ("metrics", "shards", "dims", "axes",
+                                        "meter", "moe")}
+            dist.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    grid = grids[MOE_GRID]
+    for name, steps in MOE_DISPATCHES:
+        if grid is not None:
+            res = train_run(full, grid, None,
+                            dict(fsdp=True, moe_dispatch=name,
+                                 global_batch=MOE_GRID[0] * MOE_GRID[1]),
+                            MOE_GRID[0] * MOE_GRID[1], MOE_TRAIN_SEQ, steps,
+                            "cuda")
+            res.pop("shards")
+            out["full"][name] = res
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def a2a_check(res: list, q: int, pl: int, what: str) -> dict:
+    """Each rank's all-to-all record a step against the oracle
+    (``schedules.locality_all_to_all`` / ``xla_all_to_all``): non-local
+    messages its calls times the oracle's, bytes the oracle's blocks times
+    the summed block bytes (``a2a_bytes`` / p); returns rank 0's per step."""
+    from repro_torch.core import schedules as TS
+    from repro_torch.core.topology import RegionMap
+    p = q * pl
+    alg = res[0]["moe"][0]
+    oracle = TS.ALL_TO_ALL_SCHEDULES[alg](p, pl).per_rank_stats(
+        RegionMap(p, pl))
+    for r, x in enumerate(res):
+        _, _, n_nl, s_nl = oracle[r]
+        for step, m in enumerate(x["meter"]):
+            st = m["a2a"]
+            got = (st["permute_edges_nonlocal"] + st["group_msgs_nonlocal"],
+                   st["permute_bytes_nonlocal"] + st["group_bytes_nonlocal"])
+            want = (m["a2a_calls"] * n_nl, s_nl * m["a2a_bytes"] / p)
+            check(m["a2a_calls"] > 0 and got[0] == want[0]
+                  and abs(got[1] - want[1]) <= 1e-6 * max(1.0, want[1]),
+                  f"{what} rank {r} step {step}: all-to-all non-local "
+                  f"{got}, the oracle {want}")
+    return {"oracle_nonlocal_msgs_a_call_by_rank":
+            [oracle[r][2] for r in range(p)],
+            "calls_per_step": [m["a2a_calls"] for m in res[0]["meter"]]}
+
+
+def train_moe_on_ranks(smi: str) -> dict[str, dict[str, int]]:
+    """Phase 10: the one-rank references here (CPU and card) for 10a, then
+    6 spawned ranks (``train_moe_rank``); checks and prints each; returns
+    10b's launches per kernel, summed over the ranks and dispatches."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    flats, ones, card = {}, {}, {}
+    for shape, over in MOE_PARITY_GRIDS.items():
+        flats[str(shape)], ones[shape] = _one_rank_refs(
+            _moe_small(**over), {"grad_accum": shape[0] * shape[1]})
+        card[f"{shape[0]}x{shape[1]}"] = _parity(
+            ones[shape]["cuda"], ones[shape]["cpu"],
+            f"train_parity_moe {over or 'E=8'}: card vs CPU")
+    t0 = time.perf_counter()
+    ranks = run_ranks(6, train_moe_rank, {"params": flats}, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+
+    report = {}
+    for (q, pl), over in MOE_PARITY_GRIDS.items():
+        for name, kw in MOE_PARITY_VARIANTS:
+            key = f"{q}x{pl}|{name}"
+            res = [ranks[r]["parity"][key] for r in range(q * pl)]
+            for r in range(1, q * pl):
+                check(res[r]["metrics"] == res[0]["metrics"],
+                      f"train_parity_moe {key}: rank {r}'s metrics differ")
+            check(res[0]["moe"][0] == name, f"train_parity_moe {key}: "
+                  f"dispatch {res[0]['moe']}")
+            got = dict(metrics=res[0]["metrics"], params=_assemble(res, pl))
+            report[key] = _parity(got, ones[q, pl]["cuda"],
+                                  f"train_parity_moe {key}")
+            report[key]["transport"] = res[0]["moe"][1]
+            report[key]["a2a"] = a2a_check(res, q, pl,
+                                           f"train_parity_moe {key}")
+    print(json.dumps({
+        "phase": "train_parity_moe", "model": _moe_small().name,
+        "layers": PARITY_LAYERS, "dtype": "float32",
+        "batch": [PARITY_BATCH, PARITY_SEQ], "steps": PARITY_STEPS,
+        "experts": {f"{q}x{pl}": _moe_small(**o).n_experts
+                    for (q, pl), o in MOE_PARITY_GRIDS.items()},
+        "card_vs_cpu": card, "ranks_vs_one_rank": report,
+        "loss_rel_limit": PARITY_REL, "param_abs_limit": PARITY_PARAM_ATOL,
+        "losses_one_rank": {f"{q}x{pl}": [m["loss"] for m in
+                                          ones[q, pl]["cuda"]["metrics"]]
+                            for q, pl in MOE_PARITY_GRIDS}, "card": smi}))
+
+    full = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+    q, pl = MOE_GRID
+    total, losses = {}, {}
+    for name, steps in MOE_DISPATCHES:
+        res = [ranks[r]["full"][name] for r in range(q * pl)]
+        for r in range(1, q * pl):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"train_moe {name}: rank {r}'s metrics differ")
+        check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                  for m in res[0]["metrics"]),
+              f"train_moe {name}: non-finite metrics")
+        losses[name] = [m["loss"] for m in res[0]["metrics"]]
+        want_launches = train_launches_implied(MOE_LAYERS, steps)
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want_launches}
+            check(got_l == want_launches, f"train_moe {name} rank {r}: "
+                  f"launches {got_l}, the path implies {want_launches}")
+            for k, n in path_launches(x["launches"]).items():
+                total[k] = total.get(k, 0) + n
+        transport = res[0]["moe"]
+        a2a = (a2a_check(res, q, pl, f"train_moe {name}")
+               if name != "none" else None)
+        want_t = {"locality": "tokens", "xla": "slots", "none": ""}[name]
+        check(transport == (name, want_t),
+              f"train_moe {name}: resolved {transport}")
+        mean = lambda f: [float(np.mean([m[f] for m in x["meter"]]))
+                          for x in res]
+        print(json.dumps({
+            "phase": "train_moe", "dispatch": name, "transport": transport[1],
+            "shared": "4 ranks sharing one H100 over gloo",
+            "model": full.name, "layers": MOE_LAYERS,
+            "reduced": "depth 24 -> 2 layers (gloo host transport)",
+            "dtype": "bfloat16 compute, fp32 master",
+            "batch": [q * pl, MOE_TRAIN_SEQ], "steps": steps,
+            "losses": losses[name],
+            "moe_aux": [m["moe_aux"] for m in res[0]["metrics"]],
+            "grad_norms": [m["grad_norm"] for m in res[0]["metrics"]],
+            "step_ms_by_rank": [x["step_ms"] for x in res],
+            "a2a_host_ms_per_step": mean("a2a_ms"),
+            "moe_gather_host_ms_per_step": mean("moe_gather_ms"),
+            "gather_host_ms_per_step": mean("gather_ms"),
+            "reduce_scatter_host_ms_per_step": mean("reduce_scatter_ms"),
+            "sync_host_ms_per_step": mean("sync_ms"),
+            "gathers_per_step": res[0]["meter"][0]["gathers"],
+            "a2a": a2a,
+            "a2a_nonlocal_msgs_per_step_by_rank": [
+                x["meter"][0]["a2a"]["permute_edges_nonlocal"]
+                + x["meter"][0]["a2a"]["group_msgs_nonlocal"] for x in res],
+            "a2a_nonlocal_bytes_per_step_by_rank": [
+                x["meter"][0]["a2a"]["permute_bytes_nonlocal"]
+                + x["meter"][0]["a2a"]["group_bytes_nonlocal"] for x in res],
+            "staged_bytes_per_step": mean("staged_bytes"),
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "launches_rank0": {k: res[0]["launches"][k]
+                               for k in TRAIN_KERNELS},
+            "ranks_wall_s": ranks_s, "card": smi}))
+    check(losses["locality"][0] == losses["xla"][0],
+          f"train_moe: the tokens and slots transports' first losses "
+          f"{losses['locality'][0]} and {losses['xla'][0]} differ")
+    d_none = abs(losses["locality"][0] - losses["none"][0]) \
+        / abs(losses["none"][0])
+    check(d_none <= MOE_LOSS_REL,
+          f"train_moe: first loss against none {d_none} (relative, limit "
+          f"{MOE_LOSS_REL})")
+    print(json.dumps({"phase": "train_moe_agreement",
+                      "first_loss_locality_equals_xla": True,
+                      "first_loss_rel_vs_none": d_none,
+                      "limit": MOE_LOSS_REL, "card": smi}))
+    return {"train_moe": total}
+
+
 def ptxas_usage(log: str) -> list[dict]:
     """Registers and spill bytes of every kernel instance in ``build.log``
     (``-Xptxas -v``), names demangled where ``c++filt`` is found."""
@@ -3698,8 +4050,14 @@ def main() -> int:
     small_end_to_end("llama3.2-3b", 4)
     small_end_to_end("mamba2-780m", 3)
     clock("small_end_to_end")
+    moe_cases = moe_kernel_cases(timer)
+    for name, rows in moe_cases.items():
+        for row in rows:
+            print(json.dumps({"kernel": name, **row}))
+    clock("moe_kernels")
     for arch, phase in (("llama3.2-3b", "serve_full_width"),
-                        ("mamba2-780m", "serve_full_width_ssm")):
+                        ("mamba2-780m", "serve_full_width_ssm"),
+                        (MOE_ARCH, "serve_full_width_moe")):
         by_path[phase] = serve_full_width(smi, arch, phase)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3723,6 +4081,8 @@ def main() -> int:
     clock("train_on_ranks")
     by_path.update(train_tp_on_ranks(smi, flat, one))
     clock("train_tp_on_ranks")
+    by_path.update(train_moe_on_ranks(smi))
+    clock("train_moe_on_ranks")
     by_path["serve_tier"] = serve_tier(smi, base)
     clock("serve_tier")
 
@@ -3795,7 +4155,8 @@ def main() -> int:
                               "max_abs_err_forward_o",
                               "max_abs_err_forward_lse")}
     for path, key in (("train_fsdp", "fsdp_rank_cases"),
-                      ("train_tp", "tp_rank_cases")):
+                      ("train_tp", "tp_rank_cases"),
+                      ("train_moe", "moe_rank_cases")):
         rank_rows = [r for r in bwd["flash_attention_bwd"]
                      if r["path"] == path]
         kernels[1][key] = {
@@ -3805,7 +4166,7 @@ def main() -> int:
                       "max_abs_err_forward_o", "max_abs_err_forward_lse")}
     for row in kernels:        # the backward kernels at 8c's, 8e's and edge
         if row["name"] in bwd_kernels:                   # shapes
-            for path in ("train_fsdp", "train_tp", "edges"):
+            for path in ("train_fsdp", "train_tp", "train_moe", "edges"):
                 sel = [r for r in cases[row["name"]] if r["path"] == path]
                 if not sel:
                     continue
@@ -3838,6 +4199,20 @@ def main() -> int:
         **{f: [r[f] for r in phase7] for f in ("ms", "plain_ms", "bound_ms")},
         "forms": [r["form"] for r in phase7],
         "shapes": [r["shape"] for r in phase7]}
+    for row in kernels:        # the serving kernels at qwen2-moe's shapes
+        rows = moe_cases.get(row["name"])
+        if rows:
+            row["serve_moe_cases"] = {
+                "cases": len(rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                **{f: [r.get(f) for r in rows]
+                   for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "shape")}}
+            if row["name"].startswith("decode_s"):
+                pair_moe = moe_cases["decode_attention"][0]
+                row["serve_moe_cases"]["decode_attention_pair"] = {
+                    k: pair_moe[k] for k in ("ms", "library_ms", "bound_ms",
+                                             "shape")}
     for row in kernels:        # the pair (scores, accumulate, o / l) and SDPA
         if row["name"].startswith("decode_s"):
             row["decode_attention_pair"] = {

@@ -9,15 +9,15 @@ import importlib
 
 from .base import LayerSpec, ModelConfig, check_supported, reduced
 
-ARCHS = ("llama3.2-3b", "mamba2-780m")
+ARCHS = ("llama3.2-3b", "mamba2-780m", "qwen2-moe-a2.7b")
 
 # the JAX package's other architectures -> the port slice that brings them
 PENDING = {
-    "yi-6b": "the dense-variants slice (untied output head)",
+    "yi-6b": "the dense-variants slice (ROADMAP.md Queue 1 item 5)",
     "h2o-danube-3-4b": "the dense-variants slice (sliding window, ring cache)",
     "gemma2-9b": "the dense-variants slice (window, softcaps, sandwich norm)",
-    "qwen2-moe-a2.7b": "the MoE slice",
-    "llama4-scout-17b-a16e": "the MoE slice (chunked attention, NoPE)",
+    "llama4-scout-17b-a16e": "the dense-variants slice (chunked attention, "
+                             "NoPE, qk-norm: ROADMAP.md Queue 1 item 5)",
     "zamba2-1.2b": "the hybrid slice (shared attention block with GeGLU)",
     "whisper-tiny": "the encoder-decoder slice",
     "internvl2-26b": "the VLM slice",

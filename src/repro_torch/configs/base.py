@@ -130,20 +130,25 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     """Raise on any flag whose code path this port does not have yet.
 
-    Two families are served and trained (``mode="train"``): the dense
+    Three families are served and trained (``mode="train"``): the dense
     llama-family decoder with full causal attention, SwiGLU, RMSNorm and
-    rotary embeddings, and the attention-free Mamba2 stack
-    (``family="ssm"`` with ``ssm_state``), whose training runs the SSD
-    scan's and the gated RMSNorm's backward kernels. Everything else waits
-    for a later slice of the port and must not be ignored silently.
+    rotary embeddings, with a tied or an untied output head; the MoE
+    decoder (``family="moe"`` with ``n_experts``: that decoder with
+    routed and shared SwiGLU experts in place of the MLP, ``moe_every``);
+    and the attention-free Mamba2 stack (``family="ssm"`` with
+    ``ssm_state``), whose training runs the SSD scan's and the gated
+    RMSNorm's backward kernels. Everything else waits for a later slice of
+    the port and must not be ignored silently.
     """
     if mode not in ("serve", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     unsupported = []
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         unsupported.append(f"family={cfg.family!r}")
-    if cfg.n_experts:
-        unsupported.append("n_experts (MoE)")
+    if cfg.family == "moe" and not (cfg.n_experts and cfg.top_k):
+        unsupported.append("family='moe' without n_experts and top_k")
+    if cfg.family != "moe" and cfg.n_experts:
+        unsupported.append(f"n_experts in family={cfg.family!r}")
     if cfg.family == "ssm" and not cfg.ssm_state:
         unsupported.append("family='ssm' without ssm_state")
     if cfg.family != "ssm" and cfg.ssm_state:
@@ -164,8 +169,6 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
         unsupported.append(f"mlp_act={cfg.mlp_act!r}")
     if cfg.norm_type != "rms":
         unsupported.append(f"norm_type={cfg.norm_type!r}")
-    if not cfg.tie_embeddings:
-        unsupported.append("untied output head")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not implement "

@@ -40,6 +40,13 @@ Public surface, one family function per collective kind, each taking
   allreduce          ``locality``: local reduce-scatter → per-lane outer
                      allreduce (``rhd``, ``rd`` or ``psum``) → local
                      allgather; sum, max and min; or ``xla``.
+  all_to_all         the personalized exchange: ``locality`` (two tiers:
+                     a local collect, one aggregated inter-pod slab per
+                     active lane per round, a local delivery; q - 1
+                     non-local messages a pod against pl²(q - 1) flat) and
+                     ``xla`` (the library's ``all_to_all_single``, the flat
+                     pairwise exchange). Its own transpose: the backward
+                     is the same algorithm's exchange of the cotangent.
   cache_migrate      the replication of a KV-cache slab (an allgather).
   logsumexp_combine  the decode cache-combine of flash-style partial softmax
                      stats: max-allreduce of the running maxima, rescale,
@@ -59,9 +66,9 @@ ways, inside that one autograd node. ``collective(kind, x, grid=...,
 algorithm=...)`` is the string-keyed entry point over ``KINDS`` /
 ``ALGORITHMS_BY_KIND`` / ``DEFAULT_ALGORITHM``.
 
-Not ported yet, each raising ``NotImplementedError`` that names its slice:
-the ``all_to_all`` kind and ``algorithm="auto"``. The JAX package's
-deprecated aliases are not ported.
+Not ported yet, raising ``NotImplementedError`` that names its slice:
+``algorithm="auto"``. The JAX package's deprecated aliases are not
+ported.
 """
 from __future__ import annotations
 
@@ -76,8 +83,6 @@ import torch.nn.functional as F
 from .topology import Axis, RankGrid
 
 _NOT_PORTED = {
-    "all_to_all": "the all_to_all kind (locality_all_to_all) comes with the "
-                  "MoE slice (ROADMAP.md Queue 1 item 6)",
     "auto": 'algorithm="auto" comes with the tuning slice (ROADMAP.md Queue 1 '
             "item 8): it needs parameters measured on the H100, and the "
             "JAX package's TPU constants do not choose a schedule here",
@@ -504,12 +509,14 @@ class _SplitMeta:
     """Static half of a PendingCollective."""
 
     op: str                        # "allgather" | "allreduce" | "logsumexp"
+                                   # | "all_to_all"
     kind: str                      # "done" | "local_done" | "pending"
-                                   # | "max_done"
+                                   # | "max_done" | "local_only"
     grid: RankGrid | None = None
     tiled: bool = False
     x_shape: tuple[int, ...] = ()
-    group: int = 1                 # locality_bruck: chunks held pre-finish
+    group: int = 1                 # locality_bruck: chunks held pre-finish;
+                                   # all_to_all: its inter-pod rounds
     active: int = 1                # locality_bruck: lanes live in last round
     rem: int = 0                   # chunks the last active lane carried in
                                    # the final round (rem < group on the
@@ -772,6 +779,237 @@ def allgather_finish(pending: PendingCollective) -> torch.Tensor:
         return _SplitGatherFinish.apply(pending.source, pending)
     return _locality_bruck_allgather_finish(pending)
 
+
+
+# =============================================================================
+# All-to-all — the two-tier personalized exchange (the MoE dispatch)
+# =============================================================================
+# The paper's two-tier idea applied to a personalized exchange. Offsets
+# o ∈ [1, q) go round-robin over the pl lanes (offset o: lane (o-1) % pl,
+# round (o-1) // pl), Algorithm 2's modular lane geometry:
+#   1. local collect  — a local all-to-all hands lane λ every local rank's
+#      blocks for λ's pods;
+#   2. inter-pod rounds — in round t, active lane λ ships ONE aggregated
+#      (pl x pl)-block slab to pod R + t·pl + λ + 1; the last round of a
+#      non-power q runs with (q-1) - (nrounds-1)·pl lanes: q - 1 non-local
+#      messages a pod against pl²(q - 1) for the flat exchange;
+#   3. local deliver  — a second local all-to-all fans the slabs' columns
+#      (and the own pod's blocks) out to their lanes, then a reordering
+#      restores source-rank order.
+#: Canonical algorithm names for the all_to_all family.
+ALL_TO_ALL_ALGORITHMS = ("locality", "xla")
+
+
+def _a2a_rounds(q: int, pl: int) -> int:
+    """Inter-pod rounds of the two-tier all-to-all: offsets 1..q-1 over pl
+    lanes."""
+    return -(-(q - 1) // pl) if q > 1 else 0
+
+
+def _a2a_active(q: int, pl: int, t: int) -> int:
+    """Active lanes in inter-pod round ``t`` (partial on the last round of
+    a non-power q)."""
+    return max(0, min(pl, (q - 1) - t * pl))
+
+
+def _local_exchange(struct: torch.Tensor, grid: RankGrid) -> torch.Tensor:
+    """Local all-to-all of ``struct`` (leading dim pl: entry λ is the
+    payload for local rank λ). Returns the mirror: entry m is what local
+    rank m addressed to this rank. pl - 1 rounds (offset k pairs lane m
+    with lane m + k), plus the rank's own entry."""
+    pl, l = grid.pl, grid.l
+    sends = torch.roll(struct, -l, 0)            # sends[k] -> lane (l+k)%pl
+    arr = [sends[0]]
+    for k in range(1, pl):
+        arr.append(ppermute(sends[k], grid, grid.local,
+                            [(m, (m + k) % pl) for m in range(pl)]))
+    # arr[k] came from lane (l-k)%pl; reindex to source-lane order
+    return torch.roll(torch.stack(arr).flip(0), l + 1, 0)
+
+
+def _locality_all_to_all_start(x: torch.Tensor, grid: RankGrid
+                               ) -> PendingCollective:
+    """The local collect and every inter-pod round: each non-local byte is
+    sent when start returns; the local delivery and the reordering are
+    left to finish."""
+    q, pl, p = grid.q, grid.pl, grid.p
+    if x.ndim == 0 or x.shape[0] % p:
+        raise ValueError(f"all_to_all leading dim of {tuple(x.shape)} not "
+                         f"divisible by p={p}")
+    if p == 1:
+        return PendingCollective((x,), _SplitMeta("all_to_all", "done"))
+    blk = (x.shape[0] // p,) + tuple(x.shape[1:])
+    xb = x.reshape((q, pl) + blk)                 # [dest_pod][dest_lane]
+    if q == 1:   # nothing crosses a pod: the delivery happens in finish
+        return PendingCollective((xb[0],), _SplitMeta(
+            "all_to_all", "local_only", grid, False, blk))
+    nrounds = _a2a_rounds(q, pl)
+    # xs[s]: the slab for pod (R+1+s) % q; xs[q-1]: the own pod's
+    xs = torch.roll(xb, -(grid.R + 1), 0)
+    own, rs = xs[q - 1], xs[:q - 1]
+    pad = nrounds * pl - (q - 1)                  # inactive lanes' slots
+    if pad:
+        rs = torch.cat([rs, rs.new_zeros((pad,) + tuple(rs.shape[1:]))])
+    # offset slot s = t·pl + λ  ->  send structure [λ][t][dest_lane]
+    sendst = rs.reshape((nrounds, pl, pl) + blk).movedim(1, 0)
+    # phase 1: lane λ collects every local rank's slabs for λ's pods
+    coll = _local_exchange(sendst, grid)     # (pl_src, nrounds, pl_dst, ..)
+    A = coll.movedim(1, 0)
+    # phase 2: one aggregated non-local message per active lane per round
+    recvs = []
+    for t in range(nrounds):
+        off = t * pl + grid.l + 1
+        pairs = ([(R, (R + off) % q) for R in range(q)]
+                 if grid.l < _a2a_active(q, pl, t) else [])
+        recvs.append(ppermute(A[t].contiguous(), grid, grid.outer, pairs))
+    return PendingCollective((torch.stack(recvs), own), _SplitMeta(
+        "all_to_all", "pending", grid, False, blk, group=nrounds))
+
+
+def _locality_all_to_all_finish(pending: PendingCollective) -> torch.Tensor:
+    """The local delivery of the received slabs' columns (and the own
+    pod's blocks), then canonical source-rank order."""
+    meta = pending.meta
+    if meta.kind == "done":
+        return pending.arrays[0]
+    grid, blk = meta.grid, meta.x_shape
+    q, pl, p = grid.q, grid.pl, grid.p
+    nrounds = meta.group if meta.kind == "pending" else 0
+    if meta.kind == "pending":
+        slabs, own = pending.arrays
+        # the payload for lane m: the m-columns of every received slab, then
+        # the own pod's block, one structure for the pl - 1 local rounds
+        cols = slabs.movedim(2, 0).reshape((pl, nrounds * pl) + blk)
+        struct = torch.cat([cols, own[:, None]], 1)
+    else:
+        (own,) = pending.arrays
+        struct = own[:, None]
+    got = _local_exchange(struct, grid)
+    # got[λ][s], s < nrounds·pl: the block from pod (R - (t·pl+λ+1)) % q,
+    # source lane s % pl; got[λ][-1]: the own pod's block from lane λ
+    own_blocks = got[:, -1]
+    if q > 1:
+        rem = got[:, :-1].reshape((pl, nrounds, pl) + blk).movedim(1, 0)
+        rem = rem.reshape((nrounds * pl, pl) + blk)[:q - 1]
+        stacked = torch.cat([own_blocks[None], rem])
+        # stacked[o]: the blocks from pod (R - o) % q -> canonical pod order
+        canon = torch.roll(stacked.flip(0), grid.R + 1, 0)
+    else:
+        canon = own_blocks[None]
+    # block i of the output (the input's leading-dim split) came from rank i
+    return canon.reshape((p * blk[0],) + blk[1:])
+
+
+def _xla_all_to_all(x: torch.Tensor, grid: RankGrid) -> torch.Tensor:
+    """The flat pairwise exchange: the library's ``all_to_all_single`` over
+    the grid's group (gloo has it; the recorder prices it as the HLO prices
+    an all-to-all, b/p to every other rank)."""
+    _check_device(x, grid)
+    if x.ndim == 0 or x.shape[0] % grid.p:
+        raise ValueError(f"all_to_all leading dim of {tuple(x.shape)} not "
+                         f"divisible by p={grid.p}")
+    if grid.p == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    grid.recorder.group("all-to-all", grid.world.members, grid.world.index,
+                        out.numel() * out.element_size())
+    dist.all_to_all_single(out, x, group=grid.world.group)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, grid: RankGrid,
+                algorithm: str) -> torch.Tensor:
+    if algorithm == "locality":
+        return _locality_all_to_all_finish(
+            _locality_all_to_all_start(x, grid))
+    return _xla_all_to_all(x, grid)
+
+
+def _check_a2a(algorithm: str) -> None:
+    if algorithm == "auto":
+        _not_ported("auto")
+    if algorithm not in ALL_TO_ALL_ALGORITHMS:
+        raise ValueError(f"unknown all_to_all algorithm {algorithm!r}; "
+                         f"known: {ALL_TO_ALL_ALGORITHMS + ('auto',)}")
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange on the grid's device, from and back to ``x``'s (a
+    card's tensor on a gloo grid stages through the host inside this one
+    node); its backward is the same exchange of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, grid, algorithm):
+        ctx.grid, ctx.algorithm = grid, algorithm
+        return _all_to_all(x.to(grid.device), grid, algorithm).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        ct = g.contiguous().to(ctx.grid.device)
+        return (_all_to_all(ct, ctx.grid, ctx.algorithm).to(g.device), None,
+                None)
+
+
+def all_to_all(x: torch.Tensor, grid: RankGrid, *,
+               algorithm: str = "locality",
+               stage: bool = False) -> torch.Tensor:
+    """Personalized exchange over the grid: ``x``'s leading dim splits into
+    p blocks, block j goes to grid rank j, and block i of the output came
+    from grid rank i (``lax.all_to_all`` with ``split_axis=concat_axis=0,
+    tiled=True``). Differentiable: the backward is the same algorithm's
+    exchange of the cotangent. ``stage=True`` lets ``x`` lie on another
+    device than the grid's (a card's tensor on a gloo grid), moved there
+    and back, both ways, inside the one autograd node."""
+    _check_a2a(algorithm)
+    if x.requires_grad and torch.is_grad_enabled() or (
+            stage and x.device.type != grid.device.type):
+        return _AllToAll.apply(x, grid, algorithm)
+    return _all_to_all(x, grid, algorithm)
+
+
+def all_to_all_start(x: torch.Tensor, grid: RankGrid, *,
+                     algorithm: str = "locality") -> PendingCollective:
+    """Issue an all-to-all; complete it with :func:`all_to_all_finish`.
+    For "locality" every inter-pod round completes in start; "xla" has no
+    local tail, so start runs it all. A ``x`` that needs a gradient is
+    kept, and the backward of finish is the eager exchange of the
+    cotangent."""
+    _check_a2a(algorithm)
+    grad = x.requires_grad and torch.is_grad_enabled()
+    with torch.no_grad():
+        if algorithm == "locality":
+            pending = _locality_all_to_all_start(x, grid)
+        else:
+            pending = PendingCollective((_xla_all_to_all(x, grid),),
+                                        _SplitMeta("all_to_all", "done"))
+    if grad:
+        pending = PendingCollective(pending.arrays, dataclasses.replace(
+            pending.meta, grid=grid, algorithm=algorithm), source=x)
+    return pending
+
+
+class _SplitAllToAllFinish(torch.autograd.Function):
+    """The finish of a differentiable split all-to-all: the local tail
+    forward, the whole exchange of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, pending):
+        ctx.grid, ctx.algorithm = pending.meta.grid, pending.meta.algorithm
+        return _locality_all_to_all_finish(pending)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.grid, ctx.algorithm), None
+
+
+def all_to_all_finish(pending: PendingCollective) -> torch.Tensor:
+    """Complete an :func:`all_to_all_start`; bit-identical to eager."""
+    if pending.meta.op != "all_to_all":
+        raise ValueError(f"not a pending all_to_all: {pending.meta}")
+    if pending.source is not None:
+        return _SplitAllToAllFinish.apply(pending.source, pending)
+    return _locality_all_to_all_finish(pending)
 
 # =============================================================================
 # Reductions
@@ -1043,8 +1281,6 @@ def collective(kind: str, *operands: torch.Tensor, grid: RankGrid,
         raise ValueError(
             f"unknown algorithm {algorithm!r} for kind {kind!r}; known: "
             f"{ALGORITHMS_BY_KIND[kind]}")
-    if kind == "all_to_all":
-        _not_ported(kind)
     if kind == "combine":
         if start:
             (m,) = operands
@@ -1063,6 +1299,7 @@ def collective(kind: str, *operands: torch.Tensor, grid: RankGrid,
         "allgather": (allgather, allgather_start),
         "allreduce": (allreduce, allreduce_start),
         "cache_migrate": (cache_migrate, None),
+        "all_to_all": (all_to_all, all_to_all_start),
     }[kind]
     if start:
         if starter is None:
@@ -1080,7 +1317,8 @@ def finish(pending: PendingCollective, *operands: torch.Tensor, **kwargs):
     if operands or kwargs:
         raise ValueError(f"{pending.meta.op} takes no operands at finish")
     return {"allgather": allgather_finish,
-            "allreduce": allreduce_finish}[pending.meta.op](pending)
+            "allreduce": allreduce_finish,
+            "all_to_all": all_to_all_finish}[pending.meta.op](pending)
 
 
 @dataclasses.dataclass(frozen=True)

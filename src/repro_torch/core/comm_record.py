@@ -13,7 +13,9 @@ collectives send, with the same fields and the same accounting:
   prices a replica group — (n-1) messages of b/n bytes per link for
   all-gather (b: the gathered bytes), (n-1) of b for reduce-scatter (b: the
   scattered shard), 2(n-1) of b/n for all-reduce; each rank records the
-  link to its successor in the group.
+  link to its successor in the group. An all-to-all is direct pairwise
+  exchange: each rank records one message of b/n to every other member (b:
+  its whole output), each classified by the pair's pods.
 
 Summed over the ranks of a grid, the edge, message and byte counts equal
 what ``collective_stats`` reads from the HLO of the same program (a
@@ -119,6 +121,18 @@ class CommRecorder:
         st.bytes_[op] += nbytes
         n = len(members)
         if n <= 1:
+            return
+        if op == "all-to-all":
+            me = members[index]
+            for dst in members:
+                if dst == me:
+                    continue
+                if self._local(me, dst):
+                    st.group_msgs_local += 1
+                    st.group_bytes_local += nbytes / n
+                else:
+                    st.group_msgs_nonlocal += 1
+                    st.group_bytes_nonlocal += nbytes / n
             return
         shard = nbytes if op == "reduce-scatter" else nbytes / n
         msgs = _RING_PASSES[op] * (n - 1)

@@ -1,7 +1,8 @@
 """Serving launcher of the port: greedy decoding through ``Engine``.
 
 ``python -m repro_torch.launch.serve --arch llama3.2-3b`` (or
-``--arch mamba2-780m``) serves the full configuration on the card with
+``--arch mamba2-780m``, or ``--arch qwen2-moe-a2.7b``, the MoE family, on
+one rank) serves the full configuration on the card with
 random bf16 weights made from seed 0; ``--smoke --device cpu`` serves the
 reduced configuration on the CPU.
 

@@ -16,7 +16,10 @@ one) unless ``--device cpu``:
         --pods 2 --fsdp
 
 prints every rank's losses (equal on every rank) and its gathers,
-reduce-scatters and non-local messages. ``--mesh 2x2x2`` takes the JAX
+reduce-scatters and non-local messages. ``--arch qwen2-moe-a2.7b
+--moe-dispatch locality`` (or ``xla``) trains the MoE model expert-
+parallel over the ranks (``make_train_step(moe_dispatch=...)``) and
+prints each rank's all-to-alls. ``--mesh 2x2x2`` takes the JAX
 launcher's mesh instead (the last axes of ("pod", "data", "model"), so
 ``4x2`` is ("data", "model")): as many ranks, tensor-parallel over the
 "model" tier:
@@ -50,7 +53,8 @@ def _trainer_config(args):
     return TrainerConfig(steps=args.steps, seq_len=args.seq_len,
                          global_batch=args.global_batch, log_every=1,
                          grad_sync=args.grad_sync, fsdp=args.fsdp,
-                         prefetch_depth=args.prefetch_depth, lr=args.lr)
+                         prefetch_depth=args.prefetch_depth,
+                         moe_dispatch=args.moe_dispatch, lr=args.lr)
 
 
 def _mesh(args) -> tuple[tuple[int, ...], tuple[str, ...]]:
@@ -73,8 +77,12 @@ def _train_rank(rank: int, world: int, args) -> dict:
     t0 = time.perf_counter()
     tr.run()
     m = tr.artifacts.meter.take()
+    art = tr.artifacts
     return {"rank": rank, "seconds": time.perf_counter() - t0,
             "losses": [h["loss"] for h in tr.metrics_history],
+            "moe": (art.moe_dispatch, art.moe_transport),
+            "a2a_calls": m.a2a_calls,
+            "a2a_nonlocal_msgs": m.a2a_stats.nonlocal_msgs,
             "gathers": m.gathers, "reduce_scatters": m.reduce_scatters,
             "nonlocal_msgs": (m.gather_stats.nonlocal_msgs
                               + m.reduce_scatter_stats.nonlocal_msgs),
@@ -97,6 +105,9 @@ def main(argv=None) -> None:
                     choices=("locality", "locality_rd", "flat_psum", "xla"))
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--prefetch-depth", type=int, default=0)
+    ap.add_argument("--moe-dispatch", default="none",
+                    choices=("none", "locality", "xla"),
+                    help="expert parallelism of a MoE model over the ranks")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="default cuda; cpu runs the kernels' plain versions")
@@ -138,11 +149,13 @@ def main(argv=None) -> None:
         print(f"[train] {cfg.name} ({cfg.n_layers} layers) on {args.ranks} "
               f"ranks ({'x'.join(map(str, shape))} over {','.join(axes)}, "
               f"{device}), grad_sync {args.grad_sync}, fsdp {args.fsdp}, "
-              f"prefetch "
-              f"{args.prefetch_depth}: losses {out[0]['losses']} in "
-              f"{dt:.2f}s with start-up")
+              f"prefetch {args.prefetch_depth}, moe dispatch "
+              f"{'/'.join(out[0]['moe']).strip('/')}: losses "
+              f"{out[0]['losses']} in {dt:.2f}s with start-up")
         for r in out:
-            print(f"[train] rank {r['rank']}: gathers {r['gathers']}, "
+            print(f"[train] rank {r['rank']}: all-to-alls {r['a2a_calls']} "
+                  f"(non-local msgs {r['a2a_nonlocal_msgs']}), "
+                  f"gathers {r['gathers']}, "
                   f"reduce-scatters {r['reduce_scatters']}, non-local msgs "
                   f"{r['nonlocal_msgs']}, model-tier calls "
                   f"{r['model_calls']} (non-local msgs "

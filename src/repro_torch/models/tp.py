@@ -62,6 +62,11 @@ def check_tp(cfg: ModelConfig, m: int) -> None:
     """Refuse what the port's tensor parallelism does not split over m."""
     if m <= 1:
         return
+    if cfg.family == "moe" or not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name} on a model tier of {m}: the MoE family and the "
+            "untied head are not split over 'model' yet (ROADMAP.md Queue 1 "
+            "item 14)")
     if cfg.family == "ssm":
         raise NotImplementedError(
             f"{cfg.name} on a model tier of {m}: the Mamba2 mixer's "

@@ -1,6 +1,7 @@
-"""Decoder-only stack of the port: the dense llama family and Mamba2.
+"""Decoder-only stack of the port: the dense llama family, its MoE variant
+and Mamba2.
 
-Mirrors ``repro.models.transformer.forward`` for two families:
+Mirrors ``repro.models.transformer.forward`` for three families:
 
 * ``mode="prefill"``: tokens (B,S) -> last-position logits (B,1,Vpad) and a
   decode cache, with ``cache["pos"] = S``;
@@ -22,8 +23,11 @@ plain path, with ``meta = {window, chunk, cap, ring}``.
 The JAX package scans stacked ``blocks/slot{j}`` parameters; here the
 layers are a ``ModuleList`` in global layer order, built from
 ``cfg.layer_plan()``: a :class:`Block` (attention then SwiGLU MLP) for an
-``attn`` mixer, a :class:`MambaBlock` (``x + mamba(rmsnorm(x))``) for a
-``mamba2`` one. The cache holds one stacked tensor per leaf: ``k`` and
+``attn`` mixer (its MLP the routed and shared experts of ``models/moe.py``
+where the plan's ``mlp`` is "moe", the auxiliary loss dropped in serving,
+as the JAX engine drops it), a :class:`MambaBlock` (``x +
+mamba(rmsnorm(x))``) for a ``mamba2`` one. The cache holds one stacked
+tensor per leaf: ``k`` and
 ``v`` (n_layers, B, L, KV, D) for the dense family, padded to
 ``cache_len`` slots; ``conv`` (n_layers, B, W-1, Ch) and ``h``
 (n_layers, B, H, N, P) fp32 for the SSM family.
@@ -35,10 +39,13 @@ ssm one), see :func:`init_train_params`; it runs the same block math with
 the differentiable kernels.
 
 Parameters are a flat dict keyed like this module's ``state_dict``:
-``embed`` (Vpad, d), ``final_norm`` (d,), and ``layers.{i}.{name}``, for
-``ln1, wq, wk, wv, wo, ln2, gate, up, down`` (dense) or ``ln, in_proj,
-conv_w, conv_b, dt_bias, A_log, D, norm, out_proj`` (Mamba2), in the JAX
-``(d_in, d_out)`` layout. :func:`init_params` makes them from a
+``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) where the
+output head is untied, and ``layers.{i}.{name}``, for ``ln1, wq, wk, wv,
+wo, ln2, gate, up, down`` (dense), the same attention leaves with
+``router``, the experts' stacked ``gate, up, down`` and ``shared_gate,
+shared_up, shared_down`` (MoE), or ``ln, in_proj, conv_w, conv_b,
+dt_bias, A_log, D, norm, out_proj`` (Mamba2), in the JAX ``(d_in, d_out)``
+layout. :func:`init_params` makes them from a
 ``torch.Generator``; :func:`params_from_jax` converts the JAX package's
 ``init_params`` tree (passed as numpy arrays).
 """
@@ -51,17 +58,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..configs import ModelConfig, check_supported
+from ..configs import LayerSpec, ModelConfig, check_supported
 from . import attention as attn
 from ..kernels.flash_attention.ops import flash_attention_train
 from ..kernels.rmsnorm.ops import rmsnorm_residual_train, rmsnorm_train
 from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
                      rmsnorm, rmsnorm_residual, rope_angles)
+from .moe import moe_apply, moe_init, moe_shapes
 from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
                   mamba_shapes)
 from .tp import block_train_tp
 
-LAYER_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
+ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
+LAYER_PARAMS = ATTN_PARAMS + ("gate", "up", "down")
 # the decode_combine hook's meta for the layers this port builds: full
 # causal attention (check_supported refuses window, chunk, softcap, ring)
 DECODE_META = {"window": 0, "chunk": 0, "cap": 0.0, "ring": False}
@@ -108,15 +117,28 @@ def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
     return x + reduce(mlp_apply(h, w["gate"], w["up"], w["down"]))
 
 
+def out_moe(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
+            dispatch=None):
+    """A MoE layer's second half: ``x + o @ wo`` and ``ln2`` in one pass,
+    then ``x + moe``; returns (x, the layer's auxiliary loss)."""
+    B, S, _ = x.shape
+    x, h = norm_residual(x, o.reshape(B, S, -1) @ w["wo"], w["ln2"],
+                         eps=cfg.norm_eps)
+    m, aux = moe_apply(w, h, cfg, dispatch=dispatch)
+    return x + m, aux
+
+
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention then SwiGLU MLP."""
+    """One pre-norm decoder layer: attention then the SwiGLU MLP, or the
+    MoE experts when ``weights`` holds a router."""
 
     def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor],
                  tp=None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
-        for name in LAYER_PARAMS:
+        self.moe = "router" in weights
+        for name in weights:
             self.register_parameter(
                 name, nn.Parameter(weights[name], requires_grad=False))
 
@@ -144,6 +166,8 @@ class Block(nn.Module):
                 o = res[0]
             kv = None
         # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
+        if self.moe:
+            return out_moe(x, o, w, self.cfg)[0], kv
         reduce = None if self.tp is None else self.tp.tier.all_reduce
         return out_mlp(x, o, w, self.cfg, reduce=reduce), kv
 
@@ -201,14 +225,16 @@ class Transformer(nn.Module):
             return t.to(device=device, dtype=cfg.dtype)
 
         def block(i, spec):
+            names = spec_params(cfg, spec)
             if spec.mixer == "mamba2":
                 return MambaBlock(cfg, {n: load(f"layers.{i}.{n}")
-                                        for n in MAMBA_LAYER_PARAMS})
-            return Block(cfg, {n: load(f"layers.{i}.{n}")
-                               for n in LAYER_PARAMS}, tp)
+                                        for n in names})
+            return Block(cfg, {n: load(f"layers.{i}.{n}") for n in names}, tp)
 
         self.embed = nn.Parameter(load("embed"), requires_grad=False)
         self.final_norm = nn.Parameter(load("final_norm"), requires_grad=False)
+        self.head = (None if cfg.tie_embeddings else
+                     nn.Parameter(load("head"), requires_grad=False))
         self.layers = nn.ModuleList(
             block(i, spec) for i, spec in enumerate(cfg.layer_plan()))
         self.ssm = cfg.family == "ssm"
@@ -312,7 +338,8 @@ class Transformer(nn.Module):
         else:
             raise ValueError(f"unknown mode {mode!r}")
         x = rmsnorm(x, self.final_norm, eps=cfg.norm_eps)
-        return x @ self.embed.T, new_cache
+        return x @ (self.embed.T if self.head is None else self.head), \
+            new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +347,13 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """The shape of every leaf of the serving tree, by its flat name."""
-    layer = _layer_shapes(cfg)           # one layer kind: dense or ssm
+    head = {} if cfg.tie_embeddings else {
+        "head": (cfg.d_model, cfg.padded_vocab)}
     return {"embed": (cfg.padded_vocab, cfg.d_model),
-            "final_norm": (cfg.d_model,),
-            **{f"layers.{i}.{n}": shp for i in range(cfg.n_layers)
-               for n, shp in layer.items()}}
+            "final_norm": (cfg.d_model,), **head,
+            **{f"layers.{i}.{n}": shp
+               for i, spec in enumerate(cfg.layer_plan())
+               for n, shp in _spec_shapes(cfg, spec).items()}}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -332,7 +361,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 ) -> dict[str, torch.Tensor]:
     """Random parameters with the JAX ``init_params`` distributions (other
     bits): dense N(0, 1/d_in), embedding N(0, 0.02^2), norm scales 0, the
-    Mamba2 leaves as ``ssm.mamba_init`` draws them. Each tensor is drawn
+    Mamba2 leaves as ``ssm.mamba_init`` draws them, the MoE leaves as
+    ``moe.moe_init`` does, the untied head as the embedding (transposed).
+    Each tensor is drawn
     in fp32 on ``device`` and stored in ``cfg.dtype``, the dtype the model
     holds it in (the JAX engine casts its fp32 parameters to ``cfg.dtype``
     the same way). ``part(name, leaf)`` (a model rank's
@@ -347,15 +378,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params = {"embed": keep("embed", embed_init(
         generator, cfg.padded_vocab, d, dtype, device)),
               "final_norm": zeros()}
+    if not cfg.tie_embeddings:
+        params["head"] = keep("head", embed_init(
+            generator, cfg.padded_vocab, d, dtype, device).T.contiguous())
     for i, spec in enumerate(cfg.layer_plan()):
         if spec.mixer == "mamba2":
             layer = {"ln": zeros(), **mamba_init(generator, cfg, device)}
         else:
             layer = {"ln1": zeros(), "wq": dense(d, H * D),
                      "wk": dense(d, KV * D), "wv": dense(d, KV * D),
-                     "wo": dense(H * D, d), "ln2": zeros(),
-                     "gate": dense(d, f), "up": dense(d, f),
-                     "down": dense(f, d)}
+                     "wo": dense(H * D, d), "ln2": zeros()}
+            if spec.mlp == "moe":
+                layer |= moe_init(generator, cfg, dtype, device)
+            else:
+                layer |= {"gate": dense(d, f), "up": dense(d, f),
+                          "down": dense(f, d)}
         params.update({f"layers.{i}.{n}": keep(f"layers.{i}.{n}", t)
                        for n, t in layer.items()})
     return params
@@ -371,21 +408,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     t = lambda a: torch.from_numpy(np.array(a, copy=True))
     params = {"embed": t(tree["embed"]),
               "final_norm": t(tree["final_norm"]["scale"])}
+    if not cfg.tie_embeddings:
+        params["head"] = t(tree["head"])
 
     def put(i, lp, idx=None):
         take = (lambda a: a[idx]) if idx is not None else (lambda a: a)
-        if "mamba" in lp:
-            m = lp["mamba"]
-            leaves = {"ln": lp["ln"]["scale"], "norm": m["norm"]["scale"],
-                      **{n: m[n] for n in MAMBA_PARAMS if n != "norm"}}
-        else:
-            leaves = {"ln1": lp["ln1"]["scale"], "wq": lp["attn"]["wq"],
-                      "wk": lp["attn"]["wk"], "wv": lp["attn"]["wv"],
-                      "wo": lp["attn"]["wo"], "ln2": lp["ln2"]["scale"],
-                      "gate": lp["mlp"]["gate"], "up": lp["mlp"]["up"],
-                      "down": lp["mlp"]["down"]}
         params.update({f"layers.{i}.{n}": t(take(a))
-                       for n, a in leaves.items()})
+                       for n, a in layer_leaves(lp, cfg).items()})
 
     for i in range(reps):
         for j in range(pi):
@@ -409,19 +438,43 @@ TRAIN_LEAF_PATHS = {"ln1": ("ln1", "scale"), "wq": ("attn", "wq"),
 MAMBA_TRAIN_LEAF_PATHS = {
     "ln": ("ln", "scale"), **{n: ("mamba", n) for n in MAMBA_PARAMS},
     "norm": ("mamba", "norm", "scale")}
+#: where each MoE leaf (``moe.moe_shapes``) sits in a MoE layer of the JAX
+#: tree (``src/repro/models/moe.py`` ``moe_init``)
+MOE_TRAIN_LEAF_PATHS = {
+    "router": ("moe", "router"), "gate": ("moe", "gate"),
+    "up": ("moe", "up"), "down": ("moe", "down"),
+    "shared_gate": ("moe", "shared", "gate"),
+    "shared_up": ("moe", "shared", "up"),
+    "shared_down": ("moe", "shared", "down")}
+
+
+def spec_leaf_paths(cfg: ModelConfig, spec) -> dict[str, tuple[str, ...]]:
+    """A layer's leaf name -> its path in the JAX tree's layer of the plan
+    entry ``spec``, in the order :func:`spec_params` gives."""
+    if spec.mixer == "mamba2":
+        return {n: MAMBA_TRAIN_LEAF_PATHS[n] for n in MAMBA_LAYER_PARAMS}
+    if spec.mlp == "moe":
+        return ({n: TRAIN_LEAF_PATHS[n] for n in ATTN_PARAMS}
+                | {n: MOE_TRAIN_LEAF_PATHS[n] for n in moe_shapes(cfg)})
+    return TRAIN_LEAF_PATHS
+
+
+def spec_params(cfg: ModelConfig, spec) -> tuple[str, ...]:
+    """The leaf names of one layer of the plan entry ``spec``."""
+    return tuple(spec_leaf_paths(cfg, spec))
 
 
 def train_leaf_paths(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
     """A layer's leaf name -> its path in a layer slot of the JAX tree, for
-    ``cfg``'s family, in the order :func:`layer_params` gives."""
-    if cfg.family == "ssm":
-        return {n: MAMBA_TRAIN_LEAF_PATHS[n] for n in MAMBA_LAYER_PARAMS}
-    return TRAIN_LEAF_PATHS
+    ``cfg``'s one layer kind (training stacks one), in the order
+    :func:`layer_params` gives."""
+    return spec_leaf_paths(cfg, cfg.layer_plan()[0])
 
 
 def layer_params(cfg: ModelConfig) -> tuple[str, ...]:
     """The leaf names of one layer of ``cfg``'s training tree:
-    ``LAYER_PARAMS`` (dense) or ``MAMBA_LAYER_PARAMS`` (ssm)."""
+    ``LAYER_PARAMS`` (dense), the attention and MoE leaves (moe) or
+    ``MAMBA_LAYER_PARAMS`` (ssm)."""
     return tuple(train_leaf_paths(cfg))
 
 
@@ -432,14 +485,26 @@ def _check_train(cfg: ModelConfig) -> None:
                                   "kind (a period of 1)")
 
 
-def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+def _spec_shapes(cfg: ModelConfig, spec) -> dict[str, tuple[int, ...]]:
+    """The leaf shapes of one layer of the plan entry ``spec``."""
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.family == "ssm":
+    if spec.mixer == "mamba2":
         return {"ln": (d,), **mamba_shapes(cfg)}
     hq, hkv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
-    return {"ln1": (d,), "wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
-            "wo": (hq, d), "ln2": (d,), "gate": (d, f), "up": (d, f),
-            "down": (f, d)}
+    attn = {"ln1": (d,), "wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
+            "wo": (hq, d), "ln2": (d,)}
+    if spec.mlp == "moe":
+        return attn | moe_shapes(cfg)
+    return attn | {"gate": (d, f), "up": (d, f), "down": (f, d)}
+
+
+def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    return _spec_shapes(cfg, cfg.layer_plan()[0])
+
+
+def _head(cfg: ModelConfig, head) -> dict:
+    """The untied head's entry of a training tree ({} when tied)."""
+    return {} if cfg.tie_embeddings else {"head": head}
 
 
 def stack_tree(layers: dict[str, Any], cfg: ModelConfig) -> dict:
@@ -455,9 +520,12 @@ def stack_tree(layers: dict[str, Any], cfg: ModelConfig) -> dict:
 
 
 def layer_leaves(slot: dict, cfg: ModelConfig) -> dict[str, Any]:
-    """The inverse of :func:`stack_tree`."""
+    """The inverse of :func:`stack_tree`, for a layer of any kind (a MoE
+    layer holds ``moe``, a Mamba2 one ``mamba``)."""
+    kind = LayerSpec(mixer="mamba2" if "mamba" in slot else "attn",
+                     mlp="moe" if "moe" in slot else "dense")
     out = {}
-    for name, path in train_leaf_paths(cfg).items():
+    for name, path in spec_leaf_paths(cfg, kind).items():
         node = slot
         for k in path:
             node = node[k]
@@ -474,26 +542,36 @@ def train_param_shapes(cfg: ModelConfig) -> dict:
     layers = {n: meta(L, *shp) for n, shp in _layer_shapes(cfg).items()}
     return {"embed": meta(cfg.padded_vocab, d),
             "final_norm": {"scale": meta(d)},
+            **_head(cfg, meta(d, cfg.padded_vocab)),
             "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
 
 
 def init_train_params(cfg: ModelConfig, generator: torch.Generator,
                       device: torch.device | str) -> dict:
     """fp32 master weights in the JAX package's tree: ``embed`` (Vpad, d),
-    ``final_norm/scale``, ``blocks/slot0`` (``{ln1, attn, ln2, mlp}``, or
-    ``{ln, mamba}`` for the ssm family) stacked over the layers, ``rest``
-    empty. The values are :func:`init_params`'s for the same generator
-    (same draws in the same order), in fp32."""
+    ``final_norm/scale``, ``head`` (d, Vpad) where untied, ``blocks/slot0``
+    (``{ln1, attn, ln2, mlp}``, ``{ln1, attn, ln2, moe}`` for the moe
+    family, or ``{ln, mamba}`` for the ssm family) stacked over the layers,
+    ``rest`` empty. The values are :func:`init_params`'s for the same
+    generator (same draws in the same order), in fp32."""
     _check_train(cfg)
     L, d = cfg.n_layers, cfg.d_model
     shapes = _layer_shapes(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     embed = embed_init(generator, cfg.padded_vocab, d, torch.float32, device)
+    head = _head(cfg, None if cfg.tie_embeddings else embed_init(
+        generator, cfg.padded_vocab, d, torch.float32, device).T.contiguous())
     layers = {n: torch.zeros((L,) + shp, **f32) for n, shp in shapes.items()}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    moe = cfg.layer_plan()[0].mlp == "moe"
     for i in range(L):
         if cfg.family == "ssm":
             drawn = mamba_init(generator, cfg32, device)
+        elif moe:
+            drawn = {n: dense_init(generator, *shapes[n], torch.float32,
+                                   device)
+                     for n in ATTN_PARAMS if n not in ("ln1", "ln2")}
+            drawn |= moe_init(generator, cfg, torch.float32, device)
         else:
             drawn = {n: dense_init(generator, *shapes[n], torch.float32,
                                    device)
@@ -501,7 +579,7 @@ def init_train_params(cfg: ModelConfig, generator: torch.Generator,
         for name, t in drawn.items():
             layers[name][i] = t
     return {"embed": embed, "final_norm": {"scale": torch.zeros((d,), **f32)},
-            "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
+            **head, "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
 
 
 def train_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
@@ -514,6 +592,7 @@ def train_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
                                                   cfg).items()}
     return {"embed": conv(tree["embed"]),
             "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
+            **_head(cfg, None if cfg.tie_embeddings else conv(tree["head"])),
             "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
 
 
@@ -523,6 +602,14 @@ def block_train(x, w, cos, sin, cfg: ModelConfig):
     q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
     o = flash_attention_train(q, k, v, causal=True)
     return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train)
+
+
+def moe_block_train(x, w, cos, sin, cfg: ModelConfig, dispatch=None):
+    """A MoE layer's math with the differentiable kernels: (x, aux)."""
+    q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
+    o = flash_attention_train(q, k, v, causal=True)
+    return out_moe(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
+                   dispatch=dispatch)
 
 
 def mamba_block_train(x, w, cfg: ModelConfig):
@@ -535,15 +622,19 @@ def mamba_block_train(x, w, cfg: ModelConfig):
 
 
 def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  remat: bool = True, gather=None, prefetch=None, tp=None
-                  ) -> torch.Tensor:
-    """The JAX ``forward(mode="train")`` of the dense and ssm families:
-    tokens (B, S) -> logits (B, S, Vpad) in ``cfg.dtype``.
+                  remat: bool = True, gather=None, prefetch=None, tp=None,
+                  moe_dispatch=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``forward(mode="train")`` of the dense, moe and ssm
+    families: tokens (B, S) -> (logits (B, S, Vpad) in ``cfg.dtype``, the
+    MoE layers' summed auxiliary loss, fp32, 0 without them).
 
-    ``params`` is {embed, final_norm, layers: [one :func:`layer_params`
-    dict a layer]}: the leaves of the training tree, each layer's a slice
-    of the stacked leaves (or a shard of it). ``gather(name, leaf)`` turns a
-    leaf (``embed``, ``final_norm`` or a layer leaf's name) into the full
+    ``params`` is {embed, final_norm, head (where untied), layers: [one
+    :func:`layer_params` dict a layer]}: the leaves of the training tree,
+    each layer's a slice of the stacked leaves (or a shard of it).
+    ``moe_dispatch`` (``moe.MoeDispatch``) runs the MoE layers expert-
+    parallel: their routed experts are this rank's E/p. ``gather(name,
+    leaf)`` turns a leaf (``embed``, ``final_norm``, ``head`` or a layer
+    leaf's name) into the full
     weight in ``cfg.dtype`` where it is used (default: the cast; FSDP: the
     cast, then the parameter gather). With ``remat`` each block runs under
     ``torch.utils.checkpoint`` with its gathers inside, so the backward
@@ -575,6 +666,9 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         block = (lambda x, w: block_train(x, w, cos, sin, cfg)) \
             if tp is None else \
             (lambda x, w: block_train_tp(x, w, cos, sin, cfg, tp, seq))
+        if "router" in names:
+            block = lambda x, w: moe_block_train(x, w, cos, sin, cfg,
+                                                 moe_dispatch)
 
     def gathered(x, *leaves):
         return block(x, {n: gather(n, t) for n, t in zip(names, leaves)})
@@ -585,9 +679,18 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     run = lambda fn, x, args: (checkpoint(fn, x, *args, use_reentrant=False)
                                if remat else fn(x, *args))
     layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+    def step(x, out):
+        nonlocal aux
+        if isinstance(out, tuple):        # a MoE layer: (x, its aux loss)
+            out, a = out
+            aux = aux + a
+        return out
+
     if prefetch is None:
         for lp in layers:
-            x = run(gathered, x, [lp[n] for n in names])
+            x = step(x, run(gathered, x, [lp[n] for n in names]))
     else:
         depth = max(1, int(prefetch.depth))
         fifo = [prefetch.start(layers[i])
@@ -596,9 +699,10 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             if i + depth < len(layers):
                 fifo.append(prefetch.start(layers[i + depth]))
             w = prefetch.finish(fifo.pop(0))
-            x = run(full, x, [w[n] for n in names])
+            x = step(x, run(full, x, [w[n] for n in names]))
     x = rmsnorm_train(x, gather("final_norm", params["final_norm"]),
                       eps=cfg.norm_eps)
     if tp is not None:
         x = tp.enter(x, seq)
-    return x @ embed.T
+    head = embed.T if cfg.tie_embeddings else gather("head", params["head"])
+    return x @ head, aux

@@ -30,6 +30,9 @@ on "model"), else the heads its q heads read, where the JAX cache shards
 the head dim instead and its engine keeps the GSPMD ("xla") combine
 (``_combine_eligible``).
 
+The MoE family is served on one rank: :meth:`ServeSpec.resolve` refuses it
+on a grid of more than one rank (ROADMAP.md Queue 1 item 14).
+
 :meth:`ServeSpec.resolve` binds a spec to a model and a ``RankGrid`` (None:
 one rank), as the JAX ``resolve`` binds it to a mesh; the cache layout and
 the combine choice it derives (``_cache_layout``, ``_seq_axes_for``,
@@ -108,6 +111,12 @@ class ServeSpec:
         self.validate()
         sizes = _axis_sizes(grid)
         check_tp(cfg, sizes["model"])
+        if cfg.family == "moe" and sizes["pod"] * sizes["data"] > 1:
+            raise NotImplementedError(
+                f"{cfg.name} on a grid of {sizes['pod']} x {sizes['data']} "
+                "ranks: the MoE family is served on one rank; MoE over "
+                "serving grids and the model tier is ROADMAP.md Queue 1 "
+                "item 14")
         batch_sharded, cand = _cache_layout(grid, self.batch, self.seq_axes)
         seq_span = _seq_axes_for(grid, self.cache_len, cand)
         choice = _combine_for(

@@ -51,13 +51,25 @@ def _div(dim: int, n: int) -> bool:
     return n > 1 and dim % n == 0
 
 
-def _leaf_spec(name: str, shape: tuple[int, ...], axes: dict[str, int],
-               fs_axes: tuple[str, ...]) -> tuple:
-    """The JAX heuristic from the leaf's key name (routed experts keep the
-    TP/FSDP layout: expert parallelism comes with the MoE slice)."""
+def moe_expert_leaf(path: tuple[str, ...], shape: tuple[int, ...]) -> bool:
+    """True for the routed experts' weight leaves: the (E, d_in, d_out)
+    stacks that expert parallelism shards over the DP axes (the shared
+    experts' and the dense MLP's projections are 2-D and never match)."""
+    return path[-1] in ("gate", "up", "down") and len(shape) == 3 \
+        and "shared" not in path
+
+
+def _leaf_spec(path: tuple[str, ...], shape: tuple[int, ...],
+               axes: dict[str, int], fs_axes: tuple[str, ...],
+               ep_axes: tuple[str, ...] = ()) -> tuple:
+    """The JAX heuristic from the leaf's key name. ``fs_axes`` are the DP
+    axes the FSDP dim may shard over (none: no FSDP); ``ep_axes`` those the
+    routed experts' E dim shards over (none: the TP/FSDP layout)."""
+    name = path[-1]
     m = axes.get(MODEL_AXIS, 1)
     d = axes.get("data", 1)
     full = math.prod(axes.get(a, 1) for a in fs_axes) if fs_axes else 1
+    ep = math.prod(axes.get(a, 1) for a in ep_axes) if ep_axes else 1
 
     def fdim(dim):
         # prefer the whole ('pod', 'data') span; a dim that divides only by
@@ -89,10 +101,14 @@ def _leaf_spec(name: str, shape: tuple[int, ...], axes: dict[str, int],
         return (mdim(shape[0]), fdim(shape[1]))
     if name in ("gate", "up"):
         if len(shape) == 3:                            # MoE experts (E, d, f)
+            if moe_expert_leaf(path, shape) and _div(shape[0], ep):
+                return (tuple(ep_axes), None, None)    # expert parallel
             return (mdim(shape[0]), fdim(shape[1]), None)
         return (fdim(shape[0]), mdim(shape[1]))
     if name == "down":
         if len(shape) == 3:                            # (E, f, d)
+            if moe_expert_leaf(path, shape) and _div(shape[0], ep):
+                return (tuple(ep_axes), None, None)
             return (mdim(shape[0]), None, fdim(shape[2]))
         return (mdim(shape[0]), fdim(shape[1]))
     if name == "conv_w":                               # (W, Ch) depthwise
@@ -125,20 +141,40 @@ def _rebuild(tree, values: dict, path=()):
     return values[path]
 
 
-def param_specs(params, axes: dict[str, int], *, fsdp: bool = False) -> dict:
+def _stacked(path: tuple[str, ...]) -> bool:
+    return any(k == "blocks" or k.endswith("_layers") for k in path)
+
+
+def param_specs(params, axes: dict[str, int], *, fsdp: bool = False,
+                moe_ep: bool = False) -> dict:
     """The spec tree of a parameter tree (leaves: anything with ``.shape``)
     on a grid of ``axes``; with ``fsdp`` the FSDP dims shard over every DP
-    axis of the grid (the JAX ``fsdp_axes="auto"``)."""
+    axis of the grid (the JAX ``fsdp_axes="auto"``). ``moe_ep``: the
+    routed experts' E dim shards over the whole DP composite (expert
+    parallelism: each rank owns E/p experts) where p divides it."""
     _check_axes(axes)
     fs_axes = dp_axes(axes) if fsdp else ()
+    ep_axes = dp_axes(axes) if moe_ep else ()
     specs = {}
     for path, leaf in _walk(params):
-        stacked = any(k == "blocks" or k.endswith("_layers") for k in path)
+        stacked = _stacked(path)
         shape = tuple(leaf.shape)
-        spec = _leaf_spec(path[-1], shape[1:] if stacked else shape, axes,
-                          fs_axes)
+        spec = _leaf_spec(path, shape[1:] if stacked else shape, axes,
+                          fs_axes, ep_axes)
         specs[path] = (None,) + spec if stacked else spec
     return _rebuild(params, specs)
+
+
+def moe_ep_mask(params) -> dict:
+    """Per-leaf bool tree: True for the routed experts' leaves, which
+    :func:`param_specs` with ``moe_ep`` shards over the DP axes and the
+    step never gathers (their gradients arrive whole at the owner)."""
+    out = {}
+    for path, leaf in _walk(params):
+        shape = tuple(leaf.shape)
+        out[path] = moe_expert_leaf(
+            path, shape[1:] if _stacked(path) else shape)
+    return _rebuild(params, out)
 
 
 # ---------------------------------------------------------------------------

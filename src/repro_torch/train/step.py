@@ -50,9 +50,26 @@ whole takes the tier's sum where each model rank saw only part of the work:
 the norm scales with ``seq_shard``. The tier's collectives are the
 library's, under every ``grad_sync``, metered apart (``CommMeter.model_*``).
 
-Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"`` and
-``prefetch_depth="auto"`` (tuning, item 8), ``moe_dispatch`` (item 6), the
-ssm family on a model tier (item 13).
+MoE expert parallelism (``moe_dispatch``, the JAX resolution): on a grid of
+p > 1 ranks whose p divides ``n_experts`` (and the global batch, where it
+is given), under any ``grad_sync`` but "xla", "locality" and "xla" shard
+the routed experts' E dim over every rank (``param_specs(..., moe_ep=
+True)``) and exchange the token slots through the ``all_to_all``
+collective (``models/moe.MoeDispatch``), on the "tokens" transport where
+the algorithm is "locality" and the pods (the ranks, on one pod) number
+fewer than ``top_k · capacity_factor``, on "slots" otherwise. Those leaves
+are never gathered or prefetched, and their gradients skip the sync: the
+return leg's backward has summed every rank's cotangent at the owner
+already, so they are only scaled to the mean. Anything else resolves to
+"none" (source "n/a"): every rank holds every expert. The loss the
+backward takes adds the MoE layers' auxiliary loss; the metrics report the
+cross-entropy ("loss") and the auxiliary loss ("moe_aux") apart. The
+meter counts the dispatch's all-to-alls (``a2a_*``, both legs, forward and
+backward) and the tokens transport's gathers (``moe_gather_*``).
+
+Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"``,
+``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8), the
+ssm family (item 13) and the MoE family (item 14) on a model tier.
 """
 from __future__ import annotations
 
@@ -66,14 +83,16 @@ from ..configs import ModelConfig, check_supported
 from ..core import collectives as C
 from ..core.comm_record import CollectiveStats
 from ..models import transformer as T
+from ..models.moe import MoeDispatch
 from ..models.tp import TensorParallel
 from ..optim.adamw import AdamW, TrainState, leaves, tree_map
 from ..serve.engine import resolve_device
 from .sharding import (block_slice_dims, fsdp_param_axes, fsdp_param_dims,
                        gather_outer_local, grid_axes, model_param_dims,
-                       param_specs)
+                       moe_ep_mask, param_specs)
 
 GRAD_SYNCS = ("locality", "locality_rd", "flat_psum", "xla")
+MOE_DISPATCHES = ("none", "locality", "xla")
 
 
 # ---------------------------------------------------------------------------
@@ -90,17 +109,21 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
-                 tp: TensorParallel | None = None):
-    """loss_fn(params, batch, gather=None, prefetch=None) -> (loss,
-    {"loss": loss}); ``params`` is ``transformer.forward_train``'s view.
+                 tp: TensorParallel | None = None,
+                 moe_dispatch: MoeDispatch | None = None):
+    """loss_fn(params, batch, gather=None, prefetch=None) -> (total,
+    {"loss": cross-entropy, "moe_aux": the MoE auxiliary loss}), total the
+    sum of the two; ``params`` is ``transformer.forward_train``'s view.
     With ``tp`` the logits are the rank's vocabulary columns and the loss
     the vocabulary-parallel one (``TensorParallel.xent_loss``)."""
     def loss_fn(params, batch, gather=None, prefetch=None):
-        logits = T.forward_train(params, cfg, batch["tokens"], remat=remat,
-                                 gather=gather, prefetch=prefetch, tp=tp)
+        logits, aux = T.forward_train(params, cfg, batch["tokens"],
+                                      remat=remat, gather=gather,
+                                      prefetch=prefetch, tp=tp,
+                                      moe_dispatch=moe_dispatch)
         loss = (xent_loss(logits, batch["labels"]) if tp is None
                 else tp.xent_loss(logits, batch["labels"]))
-        return loss, {"loss": loss}
+        return loss + aux, {"loss": loss, "moe_aux": aux}
     return loss_fn
 
 
@@ -116,7 +139,10 @@ class CommMeter:
     ``sync_*`` the same for the gradient sync after the backward, and
     ``model_*`` for the model tier's collectives (forward, backward, the
     loss and the tier's gradient sum; their staged bytes are in
-    ``staged_bytes`` too)."""
+    ``staged_bytes`` too); ``a2a_*`` for the MoE dispatch's all-to-alls
+    (both legs, forward and backward; ``a2a_bytes`` the exchanged tensors'
+    bytes, p blocks each) and ``moe_gather_*`` for its tokens transport's
+    gathers (the backward's reduce-scatters included)."""
 
     gathers: int = 0
     reduce_scatters: int = 0
@@ -127,6 +153,11 @@ class CommMeter:
     model_calls: int = 0
     model_s: float = 0.0
     model_staged_bytes: int = 0
+    a2a_calls: int = 0
+    a2a_bytes: int = 0
+    a2a_s: float = 0.0
+    moe_gathers: int = 0
+    moe_gather_s: float = 0.0
     gather_stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
     reduce_scatter_stats: CollectiveStats = dataclasses.field(
@@ -134,6 +165,10 @@ class CommMeter:
     sync_stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
     model_stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+    a2a_stats: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+    moe_gather_stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
 
     def take(self) -> "CommMeter":
@@ -207,25 +242,61 @@ class LeafGather:
             staged = self._staged(full)
             self.meter.staged_bytes += staged
         if full.requires_grad:      # the reduce-scatter stages g and its tile
-            self._meter_backward(full.grad_fn, staged + staged // self.grid.p)
+            back = staged + staged // self.grid.p
+
+            def done():
+                self.meter.reduce_scatters += 1
+                self.meter.staged_bytes += back
+            _meter_node(self.meter, "reduce_scatter", self.grid,
+                        full.grad_fn, done)
         return full.movedim(0, self.dim).contiguous()
 
-    def _meter_backward(self, node, staged: int) -> None:
-        """Meter the reduce-scatter that ``node``, finish's backward, runs:
-        hooks on the node itself, so the record holds that node alone."""
-        open_: list[_Metered] = []
 
-        def pre(grad_outputs):
-            open_.append(_Metered(self.meter, "reduce_scatter",
-                                  [self.grid]).__enter__())
+def _meter_node(meter: CommMeter, kind: str, grid, node,
+                on_exit: Callable[[], None]) -> None:
+    """Meter the collectives that ``node``'s backward runs into ``kind``:
+    hooks on the node itself, so the record holds that node alone."""
+    open_: list[_Metered] = []
 
-        def post(grad_inputs, grad_outputs):
-            open_.pop().__exit__(None, None, None)
-            self.meter.reduce_scatters += 1
-            self.meter.staged_bytes += staged
+    def pre(grad_outputs):
+        open_.append(_Metered(meter, kind, [grid]).__enter__())
 
-        node.register_prehook(pre)
-        node.register_hook(post)
+    def post(grad_inputs, grad_outputs):
+        open_.pop().__exit__(None, None, None)
+        on_exit()
+
+    node.register_prehook(pre)
+    node.register_hook(post)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeteredDispatch(MoeDispatch):
+    """``MoeDispatch`` whose all-to-alls and gathers, forward and backward,
+    are counted into ``meter`` (``a2a_*``, ``moe_gather_*``)."""
+
+    meter: CommMeter | None = None
+
+    def _count(self, kind: str, calls: str, fn, x: torch.Tensor
+               ) -> torch.Tensor:
+        m = self.meter
+        nbytes = x.numel() * x.element_size()
+
+        def bump():
+            setattr(m, calls, getattr(m, calls) + 1)
+            if kind == "a2a":
+                m.a2a_bytes += nbytes
+        with _Metered(m, kind, [self.grid]):
+            y = fn(x)
+            bump()
+        if y.requires_grad:
+            _meter_node(m, kind, self.grid, y.grad_fn, bump)
+        return y
+
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        return self._count("a2a", "a2a_calls", super().exchange, x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self._count("moe_gather", "moe_gathers", super().gather, x)
 
 
 # ---------------------------------------------------------------------------
@@ -301,20 +372,44 @@ class StepArtifacts:
     grad_sync: str = ""
     grad_algorithm: str = ""          # the gather schedule of ("pod","data")
     prefetch_depth: int = 0
+    moe_dispatch: str = "none"        # the resolved expert-parallel dispatch
+    moe_transport: str = ""           # "tokens" | "slots" ("" without EP)
+    moe_dispatch_source: str = "n/a"  # "explicit" | "n/a"
 
 
 def _refuse(grad_sync, prefetch_depth, moe_dispatch) -> None:
-    if grad_sync == "auto" or prefetch_depth == "auto":
+    if "auto" in (grad_sync, prefetch_depth, moe_dispatch):
         raise NotImplementedError(
-            '"auto" (grad_sync or prefetch_depth) comes with the tuning '
-            "slice (ROADMAP.md Queue 1 item 8): it needs parameters measured "
-            "on the H100")
-    if moe_dispatch != "none":
-        raise NotImplementedError("moe_dispatch comes with the MoE slice "
-                                  "(ROADMAP.md Queue 1 item 6)")
+            '"auto" (grad_sync, prefetch_depth or moe_dispatch) comes with '
+            "the tuning slice (ROADMAP.md Queue 1 item 8): it needs "
+            "parameters measured on the H100")
     if grad_sync not in GRAD_SYNCS:
         raise ValueError(f"unknown grad_sync {grad_sync!r}; known: "
                          f"{GRAD_SYNCS}")
+    if moe_dispatch not in MOE_DISPATCHES:
+        raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}; known: "
+                         f"{MOE_DISPATCHES + ('auto',)}")
+
+
+def resolve_moe_dispatch(cfg: ModelConfig, grid, grad_sync: str,
+                         moe_dispatch: str,
+                         global_batch: int | None = None
+                         ) -> tuple[str, str, str]:
+    """(algorithm, transport, source) of the expert-parallel dispatch, the
+    JAX ``make_train_step`` rule: EP only under a ``grad_sync`` other than
+    "xla", on p > 1 ranks dividing ``n_experts`` (and the global batch);
+    "tokens" where the algorithm is "locality" and the span (the pods, or
+    the ranks on one pod) is below ``top_k · capacity_factor``."""
+    p = grid.p if grid is not None else 1
+    ok = (moe_dispatch != "none" and grad_sync != "xla"
+          and cfg.n_experts > 0 and p > 1 and cfg.n_experts % p == 0
+          and (global_batch is None or global_batch % p == 0))
+    if not ok:
+        return "none", "", "n/a"
+    span = grid.q if grid.q > 1 else p
+    transport = ("tokens" if moe_dispatch == "locality"
+                 and span < cfg.top_k * cfg.capacity_factor else "slots")
+    return moe_dispatch, transport, "explicit"
 
 
 def _shard(t: torch.Tensor, mdim: int, dim: int, axes: str, grid
@@ -346,13 +441,16 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                     compress: bool = False, prefetch_depth: int | str = 0,
                     remat: bool = True, seq_shard: bool = False,
                     moe_dispatch: str = "none",
+                    global_batch: int | None = None,
                     device: torch.device | str | None = None
                     ) -> StepArtifacts:
     """The step of one rank of ``grid`` (None: one process, no
     collectives). ``step_fn(state, batch)`` takes this rank's rows of the
     global batch (``data.host_shard`` by grid rank) as tensors or numpy
     arrays, updates ``state`` in place and returns (state, metrics): the
-    loss averaged over the ranks, ``grad_norm`` and ``lr``. It runs on
+    loss averaged over the ranks, ``moe_aux`` for a MoE model,
+    ``grad_norm`` and ``lr``. ``global_batch`` (optional) enters the
+    expert-parallel eligibility as the JAX batch shape does. It runs on
     ``cuda`` unless ``device`` names another (``"cpu"``: the kernels'
     plain versions)."""
     _refuse(grad_sync, prefetch_depth, moe_dispatch)
@@ -363,12 +461,23 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     dist_on = grid is not None
     p = grid.p if dist_on else 1
     axes = grid_axes(grid) if dist_on else {"data": 1}
-    pspecs = param_specs(T.train_param_shapes(cfg), axes,
-                         fsdp=fsdp and dist_on)
+    moe_alg, moe_transport, moe_source = resolve_moe_dispatch(
+        cfg, grid, grad_sync, moe_dispatch, global_batch)
+    ep_on = moe_alg != "none"
+    shapes = T.train_param_shapes(cfg)
+    pspecs = param_specs(shapes, axes, fsdp=fsdp and dist_on, moe_ep=ep_on)
     tp = (TensorParallel.build(cfg, grid, seq_shard=seq_shard, meter=meter)
           if dist_on and grid.m > 1 else None)
-    loss_fn = make_loss_fn(cfg, remat=remat, tp=tp)
-    dims, fsaxes = fsdp_param_dims(pspecs), fsdp_param_axes(pspecs)
+    hook_ep = MeteredDispatch(grid, moe_alg, moe_transport,
+                              meter) if ep_on else None
+    loss_fn = make_loss_fn(cfg, remat=remat, tp=tp, moe_dispatch=hook_ep)
+    # the routed experts under EP stay sharded through the forward: no
+    # gather, and their gradients need no sync beyond the mean
+    ep_tree = (moe_ep_mask(shapes) if ep_on else
+               tree_map(lambda _: False, shapes))
+    dims = tree_map(lambda k, e: -1 if e else k, fsdp_param_dims(pspecs),
+                    ep_tree)
+    fsaxes = fsdp_param_axes(pspecs)
     depth = int(prefetch_depth)
     if depth and not (fsdp and dist_on):
         raise ValueError(f"prefetch_depth={depth} pipelines the FSDP gather: "
@@ -389,6 +498,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
         return LeafGather(pod, "xla" if xla else "bruck", dim, meter)
 
     names = T.layer_params(cfg)
+    moe = "router" in names
     slot_dims = T.layer_leaves(block_slice_dims(dims["blocks"]["slot0"]),
                                cfg)
     slot_axes = T.layer_leaves(fsaxes["blocks"]["slot0"], cfg)
@@ -396,6 +506,8 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     geos["embed"] = geo(dims["embed"], fsaxes["embed"])
     geos["final_norm"] = geo(dims["final_norm"]["scale"],
                              fsaxes["final_norm"]["scale"])
+    if not cfg.tie_embeddings:
+        geos["head"] = geo(dims["head"], fsaxes["head"])
 
     def gather(name: str, t: torch.Tensor) -> torch.Tensor:
         x = t.to(cfg.dtype)                 # the cfg.dtype copy is gathered
@@ -405,13 +517,17 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     hook = BlockPrefetch({n: geos[n] for n in names}, cfg.dtype,
                          depth) if depth else None
 
-    # sync by the leaf's geometry (leaves in the JAX flattening order)
+    # sync by the leaf's geometry (leaves in the JAX flattening order); the
+    # EP experts' gradients are whole at their owner already
     flat_dims, flat_axes = leaves(dims), leaves(fsaxes)
-    idx_done = [i for i, (k, a) in enumerate(zip(flat_dims, flat_axes))
-                if k >= 0 and "pod" in a]
+    flat_ep = leaves(ep_tree)
+    idx_done = [i for i, (k, a, e) in enumerate(zip(flat_dims, flat_axes,
+                                                    flat_ep))
+                if e or (k >= 0 and "pod" in a)]
     idx_rs = [i for i, (k, a) in enumerate(zip(flat_dims, flat_axes))
               if k >= 0 and "pod" not in a]
-    idx_full = [i for i, k in enumerate(flat_dims) if k < 0]
+    idx_full = [i for i, (k, e) in enumerate(zip(flat_dims, flat_ep))
+                if k < 0 and not e]
     # the model tier: the leaves it shards hold distinct parts on its
     # ranks; the norm scales it holds whole
     model_sharded = [k >= 0 for k in leaves(model_param_dims(pspecs))]
@@ -465,6 +581,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
             return v
 
         metrics_sum = torch.zeros((), dtype=torch.float32, device=device)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=device)
         mb = n_rows // grad_accum
         for a in range(grad_accum):
             view = {"embed": leaf(params["embed"]),
@@ -472,19 +589,24 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                     "layers": [{n: leaf(t, i) for n, t in T.layer_leaves(
                         params["blocks"]["slot0"], cfg).items()}
                         for i in range(cfg.n_layers)]}
+            if not cfg.tie_embeddings:
+                view["head"] = leaf(params["head"])
             part = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}
             try:
-                loss, _ = loss_fn(view, part, gather=gather, prefetch=hook)
-                loss.backward()
+                total, parts = loss_fn(view, part, gather=gather,
+                                       prefetch=hook)
+                total.backward()
             finally:
                 for h in hooks:
                     h.remove()
                 hooks.clear()
-            metrics_sum = metrics_sum + loss.detach()
+            metrics_sum = metrics_sum + parts["loss"].detach()
+            aux_sum = aux_sum + parts["moe_aux"].detach()
         if grad_accum > 1:
             for b in bufs:
                 b.div_(grad_accum)
         loss_local = metrics_sum / grad_accum
+        aux_local = aux_sum / grad_accum
 
         if tp is not None and tp.seq_split(batch["tokens"].shape[1]):
             # each model rank normed S/m rows: the scales' gradients are
@@ -513,27 +635,32 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                                        for i in idxs if mine(i)),
                                       torch.zeros((), device=device))
                 zero = torch.zeros((), device=device)
-                vec = torch.stack([
-                    loss_local if grid.t == 0 else zero, sq(idx_done),
-                    sq(idx_rs) if grid.R == 0 else zero,
-                    sq(idx_full) if grid.rank == 0 else zero])
+                sums = [loss_local if grid.t == 0 else zero, sq(idx_done),
+                        sq(idx_rs) if grid.R == 0 else zero,
+                        sq(idx_full) if grid.rank == 0 else zero]
+                if moe:
+                    sums.append(aux_local)
+                vec = torch.stack(sums)
                 if tp is not None:
                     vec = tp.tier.all_reduce(vec)
                 tot = staged(lambda u: C.allreduce(u, grid, algorithm="xla"),
                              grid, vec)
             loss_mean = tot[0] / p
+            aux_mean = tot[4] / p if moe else None
             gnorm = torch.sqrt(tot[1] + tot[2] + tot[3])
         else:
-            loss_mean, gnorm = loss_local, None
+            loss_mean, aux_mean, gnorm = loss_local, aux_local, None
         grads = _unflatten(params, bufs)
         state, opt = optimizer.apply(state, grads, grad_norm=gnorm)
-        return state, {"loss": loss_mean, **opt}
+        aux = {"moe_aux": aux_mean} if moe else {}
+        return state, {"loss": loss_mean, **aux, **opt}
 
     return StepArtifacts(
         step_fn=step_fn, pspecs=pspecs, device=device, meter=meter,
         grid=grid, grad_sync=grad_sync,
         grad_algorithm="xla" if xla else "locality_bruck",
-        prefetch_depth=depth)
+        prefetch_depth=depth, moe_dispatch=moe_alg,
+        moe_transport=moe_transport, moe_dispatch_source=moe_source)
 
 
 def _unflatten(tree, flat: list[torch.Tensor]):

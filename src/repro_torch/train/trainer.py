@@ -66,7 +66,7 @@ class Trainer:
             grad_sync=tcfg.grad_sync, fsdp=tcfg.fsdp,
             grad_accum=tcfg.grad_accum, prefetch_depth=tcfg.prefetch_depth,
             seq_shard=tcfg.seq_shard, moe_dispatch=tcfg.moe_dispatch,
-            device=device)
+            global_batch=tcfg.global_batch, device=device)
         self.state = init_state(model_cfg, self.artifacts, params=params,
                                 seed=tcfg.seed)
         self.step = 0

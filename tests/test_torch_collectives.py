@@ -11,6 +11,11 @@ comparison is exact:
 * per rank, the recorder's non-local messages and bytes equal the schedule
   oracle's (``schedules.per_rank_stats``), and their maxima the paper's
   Eq. 3 (Bruck: ceil(log2 p)) and Eq. 4 (locality: ceil(log_pl q));
+* the all-to-all (``locality`` and ``xla``) equals the numpy permutation,
+  start/finish and the ``collective`` entry point equal eager, its
+  gradient is the exchange of the cotangent, and each rank's non-local
+  messages and bytes equal the oracle ``schedules.locality_all_to_all``
+  (``xla_all_to_all`` for the library's);
 * on (4, 4) and (3, 4), one JAX subprocess with 16 forced host devices runs
   ``repro.core.collectives`` on the same inputs: each rank's output equals
   the JAX device's, and the recorder's local and non-local edge, message
@@ -41,6 +46,8 @@ ALGS = ["bruck", "ring", "hierarchical", "multilane", "locality_bruck", "xla"]
 ALLREDUCES = [("locality", "rhd"), ("locality", "rd"), ("locality", "psum"),
               ("xla", "rhd")]
 SHARD = (2, 3)
+A2A_ALGS = ["locality", "xla"]
+A2A_GRIDS = [(2, 4), (3, 2), (3, 4), (4, 4), (5, 2), (1, 4), (4, 1)]
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -66,9 +73,13 @@ for q, pl in json.loads(sys.argv[4]):
     inputs = {"allgather": ints(0, (p, 2, 3)),
               "reduce_scatter": ints(1, (p, p * 2, 3)),
               "allreduce": ints(2, (p, 5, 3)),
-              "cache_migrate_pod": ints(3, (p, 2, 3))}
+              "cache_migrate_pod": ints(3, (p, 2, 3)),
+              "all_to_all": ints(8, (p, p * 2, 3))}
     for kind, alg, outer, op in programs:
-        if kind == "allgather":
+        if kind == "all_to_all":
+            fn = lambda s, a=alg: C.all_to_all(s, "pod", "local",
+                                               algorithm=a)
+        elif kind == "allgather":
             fn = lambda s, a=alg: C.allgather(s, "pod", "local", algorithm=a,
                                               tiled=True)
         elif kind == "reduce_scatter":
@@ -114,7 +125,8 @@ JAX_PROGRAMS = ([("allgather", a, "-", "-") for a in ALGS]
                    for op in ("sum", "max", "min")
                    if op == "sum" or o == "rhd"]
                 + [("cache_migrate_pod", a, "-", "-")
-                   for a in ("locality_bruck", "multilane", "xla")])
+                   for a in ("locality_bruck", "multilane", "xla")]
+                + [("all_to_all", a, "-", "-") for a in A2A_ALGS])
 
 
 def _key(kind, q, pl, alg, outer, op):
@@ -265,11 +277,11 @@ def test_collective_vocabulary_and_unported_kinds(pool, grid):
         assert all(res[r]["same"].values()), res[r]["same"]
         err = res[r]["errors"]
         # the combine kind runs (held against the JAX package in
-        # tests/test_torch_combine.py); all_to_all and "auto" still raise
-        assert err["all_to_all"][0] == "NotImplementedError", err
-        assert "MoE slice" in err["all_to_all"][1]
+        # tests/test_torch_combine.py), and so does all_to_all (equal to
+        # the eager exchange above); every "auto" still raises
+        assert err["a2a_indivisible"][0] == "ValueError", err
         for name in ("auto", "auto_default_migrate", "auto_allreduce",
-                     "auto_combine"):
+                     "auto_combine", "auto_all_to_all"):
             assert err[name][0] == "NotImplementedError"
             assert "tuning slice" in err[name][1]
         assert err["rs_start"][0] == "NotImplementedError"
@@ -277,6 +289,41 @@ def test_collective_vocabulary_and_unported_kinds(pool, grid):
                      "meta_tensor"):
             assert err[name][0] == "ValueError", (name, err[name])
         assert "gloo" in err["meta_tensor"][1]
+
+
+@pytest.mark.parametrize("dtype", H.DTYPES)
+@pytest.mark.parametrize("algorithm", A2A_ALGS)
+@pytest.mark.parametrize("grid", A2A_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_all_to_all_every_algorithm(pool, grid, algorithm, dtype):
+    """Block j of rank i's input is block i of rank j's output, eager,
+    split and through ``collective``; the gradient of sum(w ·
+    all_to_all(x)) is the exchange of w, the same for the split pair; each
+    rank's non-local messages and bytes are the oracle's."""
+    q, pl = grid
+    p = q * pl
+    x = H.ints(8, (p, p, 2, 3))
+    w = H.ints(9, (p, p, 2, 3))
+    truth = x.transpose(1, 0, 2, 3).reshape(p, p * 2, 3)
+    grad = w.transpose(1, 0, 2, 3).reshape(p, p * 2, 3)
+    res = pool.run(H.task_all_to_all, q, pl, algorithm, dtype, 8)
+    oracle = TS.ALL_TO_ALL_SCHEDULES[algorithm](p, pl).per_rank_stats(
+        RegionMap(p, pl))
+    block = 2 * 3 * (4 if dtype == "float32" else 2)
+    for r in range(p):
+        np.testing.assert_array_equal(res[r]["out"], truth[r])
+        assert res[r]["split_equal"] and res[r]["entry_equal"]
+        assert res[r]["split_stats_equal"]
+        np.testing.assert_array_equal(res[r]["grad"], grad[r])
+        np.testing.assert_array_equal(res[r]["split_grad"], grad[r])
+        st = res[r]["stats"]
+        _, _, n_nl, s_nl = oracle[r]
+        assert (st["permute_edges_nonlocal"] + st["group_msgs_nonlocal"],
+                st["permute_bytes_nonlocal"] + st["group_bytes_nonlocal"]) \
+            == (n_nl, s_nl * block), f"rank {r}"
+    if algorithm == "locality" and q > 1:
+        # one aggregated message a pod for each other pod: q - 1 a pod,
+        # against the flat exchange's pl²(q - 1)
+        assert sum(oracle[r][2] for r in range(p)) == q * (q - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +371,9 @@ def test_outputs_and_records_equal_jax(pool, jax_ref, grid, program):
     elif kind == "allreduce":
         res = pool.run(H.task_allreduce, q, pl, alg, outer, op, "float32",
                        (5, 3), 2)
+        outs = [res[r]["out"] for r in range(p)]
+    elif kind == "all_to_all":
+        res = pool.run(H.task_all_to_all, q, pl, alg, "float32", 8)
         outs = [res[r]["out"] for r in range(p)]
     else:
         res = pool.run(H.task_cache_migrate_pod, q, pl, alg, SHARD, 3)

@@ -11,9 +11,12 @@ scores exactly NEG_INF, two calls bitwise equal); bf16 outputs 2e-2 (one
 bf16 ulp at 4 is 1.6e-2); the two decode kernels at a sequence-parallel
 shard's slot offset as their plain versions, a shard with no slot kept
 giving m = NEG_INF, o = 0 and l = 0 exactly, also at a tensor-parallel
-rank's heads (KV = 4, G = 3); the decode step's CUDA graph
+rank's heads (KV = 4, G = 3), and qwen2-moe-a2.7b's shapes (16 q and 16
+KV heads of 128, norms 2,048 wide); the decode step's CUDA graph
 replay bitwise equal
-to the eager forward on a copy of the cache; the DMA allgather
+to the eager forward on a copy of the cache, the MoE decoder's (its
+dispatch tables, expert products and combine inside the graph) too; the
+DMA allgather
 copies bytes and is held equal; the SSD scan (fp32 output whatever its
 input dtype, held against the plain version on the same inputs) max |y -
 y_ref| / max |y_ref| < 1e-4 and max |h - h_ref| / max |h_ref| < 1e-4, the chunk
@@ -60,6 +63,8 @@ FLASH_CASES = [
     (1, 300, 300, 24, 8, 128, dict(causal=True, chunk=128)),
     (1, 200, 200, 4, 1, 64, dict(causal=True, cap=30.0)),
     (1, 190, 190, 24, 8, 128, dict(causal=True, cap=50.0)),
+    (1, 137, 137, 16, 16, 128, dict(causal=True)),     # qwen2-moe heads
+    (1, 512, 512, 16, 16, 128, dict(causal=True)),
 ]
 
 
@@ -98,7 +103,7 @@ def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
 # layer norm 1536 and gate 3072) at decode and prefill rows, an odd d and a
 # row start one element past 16 bytes (both take the scalar loop)
 RMS_FORM_CASES = [(8, 3072, 0), (512, 3072, 0), (8, 1536, 0), (37, 1536, 0),
-                  (5, 37, 0), (4, 256, 1)]
+                  (5, 37, 0), (4, 256, 1), (8, 2048, 0), (512, 2048, 0)]
 
 
 def _rms_inputs(rows, d, offset, dtype, device, seed):
@@ -189,7 +194,8 @@ def test_decode_stats_kernel_on_card(cuda, dtype, dims):
 # 128, 256 and 8); L = 1 and lengths that are no multiple of a tile
 DECODE_CASES = [(8, 8, 3, 128, 1024), (3, 2, 1, 64, 200), (2, 2, 4, 120, 75),
                 (2, 2, 5, 128, 130), (2, 1, 6, 128, 64), (2, 2, 8, 128, 97),
-                (2, 2, 2, 256, 300), (3, 2, 7, 8, 33), (2, 2, 3, 128, 1)]
+                (2, 2, 2, 256, 300), (3, 2, 7, 8, 33), (2, 2, 3, 128, 1),
+                (8, 16, 1, 128, 1024)]                # qwen2-moe's decode
 DECODE_MASKS = [{}, dict(window=48), dict(chunk=64), dict(cap=30.0),
                 dict(window=20, chunk=32, cap=20.0)]
 
@@ -474,7 +480,8 @@ def _small_engine(arch, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
+                                  "qwen2-moe-a2.7b"])
 def test_decode_graph_replay_equals_the_eager_forward(cuda, arch):
     eng = _small_engine(arch, cuda)
     sched = eng.scheduler
@@ -501,7 +508,8 @@ def test_decode_graph_replay_equals_the_eager_forward(cuda, arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
+                                  "qwen2-moe-a2.7b"])
 def test_launch_counts_follow_the_graph_replays(cuda, arch):
     from repro_torch import kernels
     eng = _small_engine(arch, cuda)

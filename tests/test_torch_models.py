@@ -82,7 +82,7 @@ def test_mamba_config_mirrors_jax():
 
 
 @pytest.mark.parametrize("name", ["gemma2-9b", "zamba2-1.2b",
-                                  "qwen2-moe-a2.7b", "whisper-tiny"])
+                                  "llama4-scout-17b-a16e", "whisper-tiny"])
 def test_registry_names_the_waiting_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
         configs.get(name)
@@ -93,7 +93,7 @@ def test_registry_names_the_waiting_slice(name):
                                   dict(sandwich_norm=True),
                                   dict(scale_embed=True),
                                   dict(n_experts=4, top_k=2),
-                                  dict(tie_embeddings=False),
+                                  dict(mlp_act="gelu"),
                                   dict(family="hybrid", ssm_state=16,
                                        shared_attn_every=2)])
 def test_unported_flags_raise_when_built(flag):

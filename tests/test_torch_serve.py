@@ -167,3 +167,38 @@ def test_mamba_engine_tokens_and_slots_match_jax(monkeypatch):
         assert out[rid].token_times_s == ref[rid].token_times_s
         assert out[rid].n_tokens == prompts[rid][1]
     assert eng.stats()["prefills"] == len(prompts)
+
+
+def test_moe_engine_tokens_and_slots_match_jax():
+    """The reduced qwen2-moe-a2.7b (2 layers, 8 experts at top-4, 2 shared
+    experts, an untied head, fp32): each prompt prefills at its own length,
+    so its experts' capacity is the JAX engine's (S·K/E·1.25, at least K)
+    and a decode step's is K; the tokens and rows equal the JAX engine's,
+    and a grid of more than one rank is refused (ROADMAP.md Queue 1 item
+    14)."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke("qwen2-moe-a2.7b"),
+                               n_layers=2, dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get_smoke("qwen2-moe-a2.7b"),
+                               n_layers=2, dtype=torch.float32)
+    jparams = jtransformer.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    assert tuple(tparams["head"].shape) == (tcfg.d_model, tcfg.padded_vocab)
+    rng = np.random.default_rng(2)
+    prompts = [(rng.integers(0, tcfg.vocab_size, n, dtype=np.int32), m)
+               for n, m in PROMPTS]
+    spec_kw = dict(batch=4, cache_len=64)
+    ref = _jax_results(jcfg, jparams, prompts, spec_kw)
+    eng = Engine(tcfg, tparams, ServeSpec(**spec_kw), device="cpu",
+                 clock=StepClock())
+    rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in prompts]
+    out = eng.drain()
+    assert sorted(out) == sorted(ref) == rids
+    for rid in rids:
+        np.testing.assert_array_equal(out[rid].tokens, ref[rid].tokens)
+        assert out[rid].slot == ref[rid].slot
+        assert out[rid].token_times_s == ref[rid].token_times_s
+
+    class Grid:
+        q, pl, m = 2, 2, 1
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ServeSpec(batch=4, cache_len=64).resolve(tcfg, Grid())

@@ -246,7 +246,7 @@ def test_refusals_name_their_items():
     from repro_torch.models.tp import check_tp
     for kw, item in ((dict(grad_sync="auto"), "item 8"),
                      (dict(prefetch_depth="auto"), "item 8"),
-                     (dict(moe_dispatch="locality"), "item 6")):
+                     (dict(moe_dispatch="auto"), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(cfg, None, device="cpu", **kw)
     assert make_train_step(H._small_cfg("mamba2-780m", 2), None,

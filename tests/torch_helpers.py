@@ -262,6 +262,38 @@ def task_split_grad(ctx, q, pl, algorithm, seed):
                 ring_error=ring_error)
 
 
+def task_all_to_all(ctx, q, pl, algorithm, dtype, seed):
+    """The eager exchange and its record, start/finish against it, the
+    ``collective`` entry point, and the gradient of a weighted sum (which
+    is the exchange of the weights)."""
+    import torch
+    from repro_torch.core import collectives as C
+    grid = ctx.grid(q, pl)
+    if grid is None:
+        return None
+    p = grid.p
+    x = _torch(ints(seed, (p, p * 2, 3))[grid.rank], dtype)
+    out = C.all_to_all(x, grid, algorithm=algorithm)
+    stats = _stats(grid)
+    split = C.all_to_all_finish(C.all_to_all_start(x, grid,
+                                                   algorithm=algorithm))
+    split_stats = _stats(grid)
+    entry = C.finish(C.collective("all_to_all", x, grid=grid,
+                                  algorithm=algorithm, start=True))
+    w = _torch(ints(seed + 1, (p, p * 2, 3))[grid.rank], "float32")
+    xg = x.float().clone().requires_grad_(True)
+    (C.all_to_all(xg, grid, algorithm=algorithm) * w).sum().backward()
+    xs = x.float().clone().requires_grad_(True)
+    (C.all_to_all_finish(C.all_to_all_start(xs, grid, algorithm=algorithm))
+     * w).sum().backward()
+    return dict(out=_np(out), stats=stats,
+                split_equal=bool(split.dtype == out.dtype
+                                 and torch.equal(split, out)),
+                split_stats_equal=split_stats == stats,
+                entry_equal=bool(torch.equal(entry, out)),
+                grad=_np(xg.grad), split_grad=_np(xs.grad))
+
+
 def task_vocabulary(ctx, q, pl, seed):
     """collective()/Collective dispatch against the family functions, and
     the errors of what is not ported."""
@@ -302,10 +334,18 @@ def task_vocabulary(ctx, q, pl, seed):
             C.collective("cache_migrate", x, grid=grid,
                          algorithm="multilane"),
             C.cache_migrate(x, grid, algorithm="multilane")),
+        "all_to_all": torch.equal(
+            C.collective("all_to_all", x.repeat(grid.p, 1), grid=grid),
+            C.all_to_all(x.repeat(grid.p, 1), grid)),
+        "all_to_all_class": torch.equal(
+            C.Collective("all_to_all", grid, "xla")(x.repeat(grid.p, 1)),
+            C.all_to_all(x.repeat(grid.p, 1), grid, algorithm="xla")),
     }
     errors = {}
     calls = {
-        "all_to_all": lambda: C.collective("all_to_all", x, grid=grid),
+        "auto_all_to_all": lambda: C.collective(
+            "all_to_all", x.repeat(grid.p, 1), grid=grid, algorithm="auto"),
+        "a2a_indivisible": lambda: C.all_to_all(x[:1], grid),
         "auto_combine": lambda: C.collective("combine", o, m, l, grid=grid,
                                              algorithm="auto"),
         "auto": lambda: C.allgather(x, grid, algorithm="auto"),
@@ -786,6 +826,68 @@ with open(f"{out_dir}/out.json", "w") as fh:
     json.dump(res, fh)
 """
 
+# The JAX MoE steps for tests/test_torch_moe_train.py: ``python -c
+# JAX_MOE_TRAIN_REFERENCE out_dir plan.json`` with plan {n_layers, seq_len,
+# steps, runs: name -> {mesh: [q, pl], global_batch, cfg (fields of the
+# reduced qwen2-moe replaced), kw (make_train_step keywords)}}. Each run is
+# the step (grad_sync "locality" unless kw names another) on its (pod,
+# data) mesh of the first q·pl devices,
+# on jax 0.9.0's recipe (Auto axes, no jax.set_mesh, the step under
+# ``with mesh:``); its expert-parallel dispatch raises there, so the runs
+# take moe_dispatch="none", the step the EP step is defined to equal.
+# Writes out.json (losses, aux losses, grad norms) and per run two .npz of
+# parameters, params0_<name> (the initial state's) and <name>.
+JAX_MOE_TRAIN_REFERENCE = r"""
+import dataclasses, json, sys, warnings
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import AxisType
+warnings.simplefilter("ignore")
+from repro import configs
+from repro.data import SyntheticLM
+from repro.train.step import custom_batch_specs, init_state, make_train_step
+
+out_dir = sys.argv[1]
+plan = json.loads(open(sys.argv[2]).read())
+path_of = lambda path: "/".join(
+    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
+    path_of(p): np.asarray(v)
+    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+res = {}
+for name, run in plan["runs"].items():
+    cfg = dataclasses.replace(configs.get_smoke("qwen2-moe-a2.7b"),
+                              n_layers=plan["n_layers"], dtype=jnp.float32,
+                              **run["cfg"])
+    q, pl = run["mesh"]
+    B, S = run["global_batch"], plan["seq_len"]
+    mesh = jax.make_mesh((q, pl), ("pod", "data"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:q * pl])
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                       seed=0)
+    kw = dict(run["kw"])
+    with mesh:
+        art = make_train_step(cfg, mesh,
+                              grad_sync=kw.pop("grad_sync", "locality"),
+                              shape=custom_batch_specs(cfg, B, S),
+                              donate=False, moe_dispatch="none", **kw)
+        state = init_state(cfg, mesh, art)
+        save(f"params0_{name}", state.params)
+        losses, auxs, norms = [], [], []
+        for step in range(plan["steps"]):
+            batch = {k: jax.device_put(v, art.batch_shardings[k])
+                     for k, v in data.batch(step).items()}
+            state, m = art.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            auxs.append(float(m["moe_aux"]))
+            norms.append(float(m["grad_norm"]))
+    save(name, state.params)
+    res[name] = {"losses": losses, "moe_aux": auxs, "grad_norms": norms}
+with open(f"{out_dir}/out.json", "w") as fh:
+    json.dump(res, fh)
+"""
+
 
 def train_tree(flat: dict):
     """A parameter tree from {"a/b/c": array} (the JAX tree's leaf paths)."""
@@ -801,13 +903,15 @@ def train_tree(flat: dict):
 
 
 def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
-               seq_len, kw, arch="llama3.2-3b", m=1):
+               seq_len, kw, arch="llama3.2-3b", m=1, cfg_kw=None):
     """``make_train_step(**kw)`` on a q x pl (x m) grid (q None: one
     process, every rank runs it alone) from the given parameters, on the
     CPU, for ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows),
-    for ``arch``'s smoke config at ``n_layers`` in fp32. Returns the
-    metrics of every step, this rank's parameter shards (by leaf path) with
-    their FSDP dim and axes and model dim, and the step meter of the run."""
+    for ``arch``'s smoke config at ``n_layers`` in fp32 (with ``cfg_kw``'s
+    fields replaced). Returns the metrics of every step, this rank's
+    parameter shards (by leaf path) with their FSDP dim and axes and model
+    dim, the step meter of the run and the resolved MoE dispatch."""
+    import dataclasses
     from repro_torch.data import SyntheticLM, host_shard
     from repro_torch.optim.adamw import leaves
     from repro_torch.train import init_state, make_train_step
@@ -816,7 +920,7 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
     grid = None if q is None else ctx.grid(q, pl, m)
     if q is not None and grid is None:
         return None
-    cfg = _small_cfg(arch, n_layers)
+    cfg = dataclasses.replace(_small_cfg(arch, n_layers), **(cfg_kw or {}))
     art = make_train_step(cfg, grid, device="cpu", **kw)
     state = init_state(cfg, art, params=train_tree(flat_params))
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
@@ -845,7 +949,12 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
                    reduce_scatter=meter.reduce_scatter_stats.edge_counts(),
                    sync=meter.sync_stats.edge_counts(),
                    model_calls=meter.model_calls,
-                   model=meter.model_stats.edge_counts()))
+                   model=meter.model_stats.edge_counts(),
+                   a2a_calls=meter.a2a_calls, a2a_bytes=meter.a2a_bytes,
+                   a2a=meter.a2a_stats.edge_counts(),
+                   moe_gathers=meter.moe_gathers,
+                   moe_gather=meter.moe_gather_stats.edge_counts()),
+        moe=(art.moe_dispatch, art.moe_transport, art.moe_dispatch_source))
 
 
 def assemble_tp(results: list, pl: int, m: int) -> dict:
