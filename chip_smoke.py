@@ -108,7 +108,17 @@ the package is missing. Phases, each fatal on failure:
    3,072, z a column slice of in_proj's 6,448 (bf16, fp32; dy and fp32 dz
    1e-5, dscale 1e-4, bf16 2e-2), beside ``F.rms_norm``'s backward on the
    gated product alone as a partial yardstick (no PyTorch call computes
-   either function: their library time is null);
+   either function: their library time is null); and the Mamba2 mixer at
+   one model rank's shapes (``tier_gated_cases``, ``SSM_TIER_SSD``): the
+   gated RMSNorm split over a tier of 2 (bf16, fp32) and 4 (bf16) on 1,024
+   rows of the rank's 1,536 or 768 columns, forward (the rows' partial
+   sums of squares, then the finish) and backward (the rows' partial dot
+   products, then the finish), the tier's sums emulated over every rank's
+   columns, against the unsplit plain forward and backward at the
+   tolerances of the unsplit cases, each launch against its plain version,
+   timed beside the plain versions and ``F.rms_norm`` on the gated product
+   alone; the SSD forward and backward at 24 and 12 heads of one group
+   (one sequence of 1,024, bf16) against their plain versions;
 3. a reduced llama3.2-3b (fp32, 4 layers) and a reduced mamba2-780m
    (fp32, 3 layers), each with the same parameters on the CPU (plain
    versions) and on the card (kernels): logits after prefill and 8 decode
@@ -217,9 +227,10 @@ the package is missing. Phases, each fatal on failure:
    rank: losses and grad norms within 1e-5 relative, every parameter
    within 1e-4 and all but 1 in 10,000 within 1e-5 (the card's limit,
    ``PARITY_PARAM_ATOL``; the elements beyond 1e-5 printed with their
-   gradient's size), the prefetch bitwise the eager step. 8c, ``train_fsdp``: llama3.2-3b at full width on 2 x 2
-   of those ranks sharing the card, depth cut to 4 layers (the gloo host
-   transport), one 1,024-token sequence a rank, 2 steps of each variant:
+   gradient's size), the prefetch bitwise the eager step. 8c,
+   ``train_fsdp``: llama3.2-3b at full width on 2 x 2 of those ranks
+   sharing the card, depth cut to 2 layers (the gloo host transport; 4
+   before the run grew past 1,000 s), one 1,024-token sequence a rank, 2 steps of each variant:
    losses equal on every rank and between eager and prefetch, launches
    exact on every rank, and per step and rank the recorder's non-local
    messages and bytes of the parameter gathers and of the gradient
@@ -234,7 +245,19 @@ the package is missing. Phases, each fatal on failure:
    every rank's launches exact, and per step and rank the gathers' and
    reduce-scatters' non-local messages and bytes equal to the schedule
    oracle's for the Mamba2 leaves (in_proj and out_proj a layer, and the
-   embedding). 8d, ``train_one_rank_ssm``: mamba2-780m at full width and
+   embedding). 8f, ``train_ssm_tp_on_ranks`` (after phase 9): mamba2-780m
+   at full width split by SSD heads over a model tier, 8 spawned ranks as
+   2 x 2 x 2 sharing the card, depth cut to 8 layers (the gloo
+   transport), one 1,024-token sequence a DP rank, 2 steps each of
+   locality + FSDP, ``seq_shard`` and xla + FSDP: metrics equal on every
+   rank, the first loss within ``SSM_TP_LOSS_REL`` of the card's one rank
+   at the same depth, launches exact (the gated norm split: 4 launches
+   forward and 2 backward a layer and step with remat), each rank's
+   non-local gather and reduce-scatter messages and bytes the oracle's for
+   its lane rank (``in_proj``, ``in_proj_bc`` and ``out_proj`` a layer),
+   the tier inside its pod; step ms, tokens/s, peak memory, the tier's
+   calls, host ms and staged bytes. 8d, ``train_one_rank_ssm``:
+   mamba2-780m at full width and
    depth (48 layers, d_model 1,536), fp32 master weights from seed 0 and
    bf16 compute, 3 steps of 4 x 1,024 tokens through ``Trainer``: finite
    losses and grad norms, launches exactly what the path implies (per
@@ -282,12 +305,28 @@ the package is missing. Phases, each fatal on failure:
    every decode step eager by the scheduler's rule; per rank it prints
    decode step ms, prefill ms per request, tokens/s, peak memory, the
    tier's calls, host ms and staged bytes, and the migrations' and
-   combines' messages and bytes. Last the whole run's wall time.
+   combines' messages and bytes.
+9m. mamba2-780m on the model tier, ``serve_tier_ssm`` (after 8f): 8
+   spawned ranks as 2 x 2 x 2, 24 SSD heads a rank and their state, the
+   weights cut from seed 0's as they are drawn, at full width and depth
+   (48 layers), phase 9a's ServeSpec, trace and home pod with
+   ``migrate="locality_bruck"``: first in fp32 with each request's budget
+   cut to ``SSM_TIER_FP32_NEW`` tokens, every token equal to a one-rank
+   engine's; then in bf16 on the whole trace against a one-rank engine by
+   phase 9's rule (logits within ``SEQ_LOGIT_REL``, near ties), the share
+   of equal tokens printed; in both every rank's results alike, 2 L + 2
+   tier calls a forward (the gated norm's statistic and ``out_proj`` a
+   layer, the embedding, the greedy token), none across a pod, the
+   trace's 8 prefills on each rank of pod 0 and none in pod 1,
+   ``TIER_MIGRATIONS`` migrations,
+   launches exact; decode step ms, prefill ms, tokens/s, the tier's calls,
+   host ms and staged bytes, the migrations' bytes. Last the whole run's
+   wall time.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7 and 9 in
-its own process, the trainers of 8a and 8d, each run of 8c, 10b and of
-8b's mamba2 ranks in its own process) and read just after it.
+(the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7, 9 and 9m
+in its own process, the trainers of 8a and 8d, each run of 8c, 8f, 10b and
+of 8b's mamba2 ranks in its own process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -1003,14 +1042,16 @@ def ssd_inputs(S, H, P, G, N, dtype, seed=0, batch=1, with_dy=False):
 
 def ssd_cases(timer: Timer) -> list[dict]:
     """The SSD forward at the serving shapes (``SSD_CASES``, one sequence)
-    and, last, at 8d's training shape (``TRAIN_SSD``: the forward alone, as
-    the training path calls it), bf16 and fp32."""
+    and at 8d's training shape (``TRAIN_SSD``: the forward alone, as the
+    training path calls it), bf16 and fp32; last, at one model rank's
+    heads of 8f's sequence (``SSM_TIER_SSD``: 24 and 12 heads, bf16)."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     rows = []
     shapes = [(1, *c) for c in SSD_CASES]
     for dtype, (Bt, S, H, P, G, N) in [
             (d, c) for d in (torch.bfloat16, torch.float32) for c in shapes
-    ] + [(d, TRAIN_SSD) for d in (torch.bfloat16, torch.float32)]:
+    ] + [(d, TRAIN_SSD) for d in (torch.bfloat16, torch.float32)] + [
+            (torch.bfloat16, c) for c in SSM_TIER_SSD]:
         ins = ssd_inputs(S, H, P, G, N, dtype, batch=Bt)
         what = f"ssd {dtype} Bt={Bt} S={S} H={H} P={P} G={G} N={N}"
         y, h = ssd_ops.ssd(*ins, Q=256)
@@ -1035,8 +1076,8 @@ def ssd_cases(timer: Timer) -> list[dict]:
         cc_ms, _ = bound(nbytes, 4 * N * P * S * H * Bt, torch.float32)
         rows.append(dict(
             shape=[Bt, S, H, P, G, N], dtype=str(dtype), Q=256,
-            path="serve_full_width_ssm" if Bt == 1 else
-            "train_one_rank_ssm",
+            path="ssm_tier" if H < SSM_HEADS else
+            "serve_full_width_ssm" if Bt == 1 else "train_one_rank_ssm",
             max_abs_err=y_abs, y_rel_err=y_rel, h_abs_err=h_err,
             h_rel_err=h_rel,
             tolerance={"y_rel": SSD_Y_REL_TOL, "h_rel": SSD_H_REL_TOL},
@@ -1205,15 +1246,23 @@ PATH_KERNELS = ("rmsnorm", "flash_attention", "decode_scores", "decode_stats",
                 "ssd")
 
 
+def _tier_split(cfg, st: dict) -> bool:
+    """Whether the engine whose stats are ``st`` splits the gated norm over
+    a model tier (the ssm family on a tier: two launches a norm)."""
+    return cfg.family == "ssm" and "tier_calls" in st
+
+
 def launches_implied(cfg, st: dict) -> dict[str, int]:
     """What the serving path must launch for the engine's counts: rmsnorm
-    2 per layer + the final norm per forward; per attention layer flash
-    once per prefill, decode scores and decode stats once per decode step
-    (each step one replay of the captured decode graph); per Mamba2 layer
-    ssd once per prefill."""
+    2 per layer + the final norm per forward (a Mamba2 layer's gated norm
+    split over a model tier 2 launches); per attention layer flash once
+    per prefill, decode scores and decode stats once per decode step (each
+    step one replay of the captured decode graph); per Mamba2 layer ssd
+    once per prefill."""
     attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
     mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
-    return {"rmsnorm": (2 * cfg.n_layers + 1)
+    split = mamba if _tier_split(cfg, st) else 0
+    return {"rmsnorm": (2 * cfg.n_layers + 1 + split)
             * (st["prefills"] + st["decode_steps"]),
             "flash_attention": attn * st["prefills"],
             "decode_scores": attn * st["decode_steps"],
@@ -1221,15 +1270,23 @@ def launches_implied(cfg, st: dict) -> dict[str, int]:
             "ssd": mamba * st["prefills"]}
 
 
+RMS_FORM_NAMES = ("plain", "residual", "gated", "gated_rowsq",
+                  "gated_finish")
+
+
 def rmsnorm_forms_implied(cfg, st: dict) -> dict[str, int]:
     """Per forward: ln1 of every layer and the final norm plain; ln2 of an
     attention layer fused with the residual add before it; a Mamba2 layer's
-    gated norm fused with its gate."""
+    gated norm fused with its gate (on a model tier split over it: the
+    rows' partial sums of squares and the finish)."""
     attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
     mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
     fwd = st["prefills"] + st["decode_steps"]
+    split = _tier_split(cfg, st)
     return {"plain": (cfg.n_layers + 1) * fwd, "residual": attn * fwd,
-            "gated": mamba * fwd}
+            "gated": 0 if split else mamba * fwd,
+            "gated_rowsq": mamba * fwd if split else 0,
+            "gated_finish": mamba * fwd if split else 0}
 
 
 def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
@@ -1298,7 +1355,7 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     counts = kernels.launch_counts()
     launches = {name: counts[name] for name in PATH_KERNELS}
     by_form = {form: counts[f"rmsnorm.{form}"]
-               for form in ("plain", "residual", "gated")}
+               for form in RMS_FORM_NAMES}
 
     st = {k: v - base[k] for k, v in eng.stats().items()
           if k in ("decode_steps", "prefills", "prefill_tokens",
@@ -1558,11 +1615,12 @@ def serve_on_card(cfg, params, spec, requests, grid=None, home_pod=None
     want = launches_implied(cfg, st)
     got = {name: counts[name] for name in PATH_KERNELS}
     check(got == want, f"serve: launches {got}, the path implies {want}")
-    forms = {f: counts[f"rmsnorm.{f}"] for f in ("plain", "residual", "gated")}
+    forms = {f: counts[f"rmsnorm.{f}"] for f in RMS_FORM_NAMES}
     want = rmsnorm_forms_implied(cfg, st)
     check(forms == want, f"serve: rmsnorm forms {forms}, the path implies "
                          f"{want}")
-    out = dict(rec, stats=st, launches=got, rmsnorm_forms=forms,
+    out = dict(rec, stats=st, launches=got | tier_form_launches(counts),
+               rmsnorm_forms=forms,
                tokens={rid: results[rid].tokens.tolist() for rid in rids},
                results={rid: (results[rid].tokens.tolist(),
                               results[rid].slot, results[rid].migrated,
@@ -1696,7 +1754,7 @@ def serve_seq_parallel(smi: str) -> dict[str, int]:
                     for k in ("decode_scores", "decode_stats")}
         for x in res:
             for k, n in x["launches"].items():
-                total[k] += n
+                total[k] = total.get(k, 0) + n
         print(json.dumps({
             "phase": "serve_seq_parallel", "layout": name,
             "shared": "4 ranks sharing one H100 over gloo",
@@ -1929,7 +1987,7 @@ def serve_batch_sharded(smi: str) -> dict[str, int]:
         n_tok = sum(map(len, ref["tokens"].values()))
         for x in res:
             for k, n in x["launches"].items():
-                total[k] += n
+                total[k] = total.get(k, 0) + n
         steps = res[0]["stats"]["decode_steps"]
         print(json.dumps({
             "phase": "serve_batch_sharded", "migrate": alg,
@@ -2210,7 +2268,7 @@ def serve_tier(smi: str, base: dict) -> dict[str, int]:
                   st["decode_graph_rule"], f"serve_tier {name}: decode "
                   f"graph {st['decode_graph']} ({st['decode_graph_rule']})")
             for k, c in x["launches"].items():
-                total[k] += c
+                total[k] = total.get(k, 0) + c
         scale = max(float(np.abs(t).max())
                     for t in ref["decode_logits"].values())
         limit = SEQ_LOGIT_REL * scale
@@ -2359,6 +2417,216 @@ def serve_tier(smi: str, base: dict) -> dict[str, int]:
                 combine_host_ms_per_step=[x["stats"]["combine_host_s"]
                                           / steps * 1e3 for x in res])
         print(json.dumps(row))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9m: mamba2-780m served on the model tier
+# ---------------------------------------------------------------------------
+# mamba2-780m at full width and depth (48 layers) on 2 x 2 x 2 ranks, 24 SSD
+# heads a rank, phase 9a's ServeSpec, trace and home pod, migrate
+# "locality_bruck"; first in fp32 with each request's budget cut to
+# SSM_TIER_FP32_NEW tokens, whose tokens must equal a one-rank engine's,
+# then in bf16 (the published dtype) on the whole trace
+SSM_TIER_ARCH = "mamba2-780m"
+SSM_TIER_ALG = "locality_bruck"
+SSM_TIER_FP32_NEW = 4
+
+
+def _ssm_tier_runs(plan: dict) -> list[tuple[str, object, list]]:
+    """(name, config, requests) of phase 9m's runs: fp32 on the short
+    budgets, then the published bf16 on the trace."""
+    from repro_torch import configs
+    full = configs.get(SSM_TIER_ARCH)
+    return [("fp32", dataclasses.replace(full, dtype=torch.float32),
+             plan["short"]), ("bf16", full, plan["batch"])]
+
+
+def tier_ssm_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 9m (all eight share the one card): each of
+    ``_ssm_tier_runs``, with this rank's part of the weights drawn from
+    seed 0 (``init_params(..., part=)``)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.tp import TensorParallel
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = RankGrid.build(*TIER_GRID)
+    out = {"rank": rank, "coords": dict(rank=grid.rank, t=grid.t,
+                                        grid_rank=grid.grid_rank,
+                                        tier=list(grid.model.members))}
+    spec = ServeSpec(batch=BATCH_ROWS, cache_len=BATCH_CACHE,
+                     page_len=BATCH_PAGE, migrate=SSM_TIER_ALG)
+    for key, cfg, reqs in _ssm_tier_runs(plan):
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda",
+                             part=TensorParallel.build(cfg, grid).part)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        res = serve_on_card(cfg, params, spec, reqs, grid, BATCH_HOME_POD)
+        res["init_s"] = init_s
+        out[key] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def serve_tier_ssm(smi: str) -> dict[str, int]:
+    """Phase 9m: one-rank references in this process, then 8 spawned ranks
+    (``tier_ssm_rank``) on 2 x 2 x 2; checks and prints; returns the
+    launches per kernel of both runs, summed over the ranks. The fp32
+    run's tokens must equal the one rank's; in bf16 the tier rounds each
+    layer's output and the gated norm's output from sums taken in another
+    order than one rank's, and 48 layers carry those roundings to the
+    logits, so the tokens are held as phase 9 holds them (prefill and
+    first decode logits within ``SEQ_LOGIT_REL`` of the largest |logit|, a
+    first token that differs within twice the prefill's difference of the
+    one rank's maximum), and the share of equal tokens is printed."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    full = configs.get(SSM_TIER_ARCH)
+    batch = tier_batch_requests(full.vocab_size)
+    plan = {"batch": batch,
+            "short": [(t, SSM_TIER_FP32_NEW) for t, _ in batch]}
+    refs = {}
+    one_spec = ServeSpec(batch=BATCH_ROWS, cache_len=BATCH_CACHE,
+                         page_len=BATCH_PAGE)
+    for key, cfg, reqs in _ssm_tier_runs(plan):
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        refs[key] = serve_on_card(cfg, params, one_spec, reqs,
+                                  home_pod=BATCH_HOME_POD)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    q, pl, m = TIER_GRID
+    n = q * pl * m
+    t0 = time.perf_counter()
+    ranks = run_ranks(n, tier_ssm_rank, plan, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+    coords = [x["coords"] for x in ranks]
+    check([c["grid_rank"] for c in coords] == list(range(n)),
+          "serve_tier_ssm: grid ranks are not the spawned ranks' order")
+    pod_of = lambda g: g // m // pl
+    for r, c in enumerate(coords):
+        check({pod_of(g) for g in c["tier"]} == {pod_of(r)},
+              f"serve_tier_ssm: rank {r}'s tier {c['tier']} spans pods")
+    for r, x in enumerate(ranks):
+        check(x["fp32"]["tokens"] == refs["fp32"]["tokens"],
+              f"serve_tier_ssm fp32 rank {r}: tokens {x['fp32']['tokens']} "
+              f"!= one rank's {refs['fp32']['tokens']}")
+    total = {}
+    L = full.n_layers
+    for key, _, _ in _ssm_tier_runs(plan):
+        for r, x in enumerate(ranks):
+            x = x[key]
+            check(x["results"] == ranks[0][key]["results"],
+                  f"serve_tier_ssm {key}: rank {r}'s results differ")
+            st = x["stats"]
+            fwd = st["prefills"] + st["decode_steps"]
+            check(st["tier_calls"] == (2 * L + 2) * fwd
+                  and st["tier_msgs"] > 0 and st["tier_nonlocal_msgs"] == 0,
+                  f"serve_tier_ssm {key} rank {r}: tier calls "
+                  f"{st['tier_calls']} for {fwd} forwards (the path: "
+                  f"{2 * L + 2} a forward), non-local "
+                  f"{st['tier_nonlocal_msgs']}")
+            check(not st["decode_graph"] and "model tier" in
+                  st["decode_graph_rule"], f"serve_tier_ssm: decode graph "
+                  f"{st['decode_graph']} ({st['decode_graph_rule']})")
+            want = len(batch) if r // m // pl == BATCH_HOME_POD else 0
+            check(st["prefills"] == want, f"serve_tier_ssm {key}: rank {r} "
+                  f"ran {st['prefills']} prefills, the path {want}")
+            for k, c in x["launches"].items():
+                total[k] = total.get(k, 0) + c
+    res = [x["bf16"] for x in ranks]
+    ref = refs["bf16"]
+    mig = res[0]["stats"]["migrations"]
+    check(mig == TIER_MIGRATIONS, f"serve_tier_ssm: {mig} migrations, the "
+          f"trace's {TIER_MIGRATIONS}")
+    scale = max(float(np.abs(t).max()) for t in ref["decode_logits"].values())
+    limit = SEQ_LOGIT_REL * scale
+    toks = res[0]["tokens"]
+    got = {w: _tier_logits(res, coords, w, m)
+           for w in ("prefill_logits", "decode_logits")}
+    dl = {"prefill_logits": {}, "decode_logits": {}, "near_ties": {}}
+    for rid in sorted(ref["prefill_logits"]):
+        pre = ref["prefill_logits"][rid]
+        d = dl["prefill_logits"][rid] = np_err(got["prefill_logits"][rid], pre)
+        check(d <= limit, f"serve_tier_ssm: request {rid}'s prefill logits "
+              f"differ from the one-rank engine's by {d} (limit {limit})")
+        one, tier = ref["tokens"][rid][0], toks[rid][0]
+        if one == tier:
+            d = dl["decode_logits"][rid] = np_err(
+                got["decode_logits"][rid], ref["decode_logits"][rid])
+            check(d <= limit, f"serve_tier_ssm: request {rid}'s first decode "
+                  f"logits differ from the one-rank engine's by {d} (limit "
+                  f"{limit})")
+        else:
+            gap = float(pre[one] - pre[tier])
+            dl["near_ties"][rid] = gap
+            check(gap <= 2 * dl["prefill_logits"][rid],
+                  f"serve_tier_ssm: request {rid}'s first token {tier}, one "
+                  f"rank's {one}, {gap} below its maximum")
+    same = sum(a == b for rid, tk in toks.items()
+               for a, b in zip(tk, ref["tokens"][rid]))
+    n_tok = sum(map(len, ref["tokens"].values()))
+    steps = res[0]["stats"]["decode_steps"]
+    per_mig = lambda k: [x["stats"][k] / mig for x in res]
+    print(json.dumps({
+        "phase": "serve_tier_ssm", "shared": "8 ranks sharing one H100 over "
+        "gloo", "grid": "2 x 2 x 2 (pod, data, model)", "model": full.name,
+        "layers": L, "dtype": "bfloat16",
+        "ssd_heads_per_rank": ssm_dims(full)[1] // m,
+        "migrate": SSM_TIER_ALG,
+        "fp32_tokens_equal_to_one_rank": True,
+        "fp32_new_tokens_a_request": SSM_TIER_FP32_NEW,
+        "fp32_decode_step_ms_mean_by_rank": [
+            float(np.mean(x["fp32"]["decode_ms"])) for x in ranks],
+        "decode_steps": steps,
+        "decode_step_ms_mean_by_rank": [float(np.mean(x["decode_ms"]))
+                                        for x in res],
+        "decode_step_ms_mean_one_rank": float(np.mean(ref["decode_ms"])),
+        "prefill_ms_by_rank": [[x["prefill_ms"][rid]
+                                for rid in sorted(x["prefill_ms"])]
+                               for x in res],
+        "prefill_ms_one_rank": [ref["prefill_ms"][rid]
+                                for rid in sorted(ref["prefill_ms"])],
+        "tokens_per_s_by_rank": [n_tok / x["drain_s"] for x in res],
+        "tokens_per_s_one_rank": n_tok / ref["drain_s"],
+        "tier_calls_per_forward": 2 * L + 2,
+        "tier_allreduces_per_decode_step": 2 * L + 1,
+        "tier_calls_by_rank": [x["stats"]["tier_calls"] for x in res],
+        "tier_host_ms_by_rank": [x["stats"]["tier_host_s"] * 1e3
+                                 for x in res],
+        "tier_staged_bytes_by_rank": [x["stats"]["tier_staged_bytes"]
+                                      for x in res],
+        "tier_msgs_by_rank": [x["stats"]["tier_msgs"] for x in res],
+        "tier_nonlocal_msgs": 0, "migrations": mig,
+        "migrate_bytes_per_migration": per_mig("migrate_bytes"),
+        "donor_bytes_per_migration": per_mig("donor_bytes"),
+        "donor_nonlocal_bytes_per_migration": per_mig("donor_nonlocal_bytes"),
+        "migration_host_ms": [x["stats"]["migrate_host_s"] / mig * 1e3
+                              for x in res],
+        "staging_bytes_by_rank": [x["stats"]["staging_bytes"] for x in res],
+        "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+        "peak_bytes_one_rank": ref["peak_bytes"],
+        "init_s_by_rank": [x["init_s"] for x in res],
+        "tier_staged_bytes_fp32_by_rank": [
+            x["fp32"]["stats"]["tier_staged_bytes"] for x in ranks],
+        "max_abs_dlogit_prefill": dl["prefill_logits"],
+        "max_abs_dlogit_first_decode": dl["decode_logits"],
+        "first_token_near_ties": dl["near_ties"], "logit_tolerance": limit,
+        "greedy_equal_share": same / n_tok, "ranks_wall_s": ranks_s,
+        "card": smi}))
     return total
 
 
@@ -2795,6 +3063,123 @@ def gated_bwd_case(timer, g, dtype, shape=TRAIN_GATED,
                 bound_ms=b_ms, bound_by=b_by)
 
 
+# the Mamba2 mixer on a model tier (phases 8f and 9m): one rank's shapes of
+# mamba2-780m's d_inner of 3,072 split by SSD heads over m = 2 (1,536
+# columns, 24 heads) and m = 4 (768, 12), at 8f's 1,024 rows (one sequence
+# a DP rank), z a column slice of the rank's in_proj output (2 d_inner / m
+# + 2GN + H / m wide: its z, x, B, C and dt)
+SSM_TIER_MS = (2, 4)
+SSM_TIER_ROWS = 1024
+SSM_D_INNER, SSM_GN, SSM_HEADS = 3072, 256, 48
+SSM_TIER_SSD = tuple((1, 1024, SSM_HEADS // m, 64, 1, 128)
+                     for m in SSM_TIER_MS)
+
+
+def tier_gated_cases(timer, g, dtype, m: int, rows: int = SSM_TIER_ROWS,
+                     path: str = "ssm_tier") -> tuple[dict, dict]:
+    """The gated RMSNorm split over a model tier of m, on one rank's
+    columns: forward (the rows' partial sums of squares, then the finish)
+    and backward (the partial row dot products, then the finish). The
+    tier's sums are emulated by running the first launch on every rank's
+    columns of the same rows and summing. Held against the unsplit plain
+    forward and backward on the whole rows (this rank's columns: out, dy,
+    dz, dscale), and each launch against its own plain version; the
+    finishes two calls bitwise equal; one launch each. Timed on one rank:
+    the forward's two launches and the backward's two (the tier's sum
+    between them is the host's), beside their plain versions and
+    ``F.rms_norm``'s forward and autograd backward on the gated product
+    alone (a partial yardstick: no PyTorch call computes the function, so
+    the library time is null); the bound is the bytes of one rank's
+    function, each input read once and each output written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as R
+    D, d = SSM_D_INNER, SSM_D_INNER // m
+    width = 2 * d + SSM_GN + SSM_HEADS // m
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    ys = [rn(rows, d) * 2 for _ in range(m)]
+    zs = [(rn(rows, width) * 2).to(dtype)[:, :d] for _ in range(m)]
+    scs = [(rn(d) * 0.2).to(dtype) for _ in range(m)]
+    douts = [rn(rows, d).to(dtype) for _ in range(m)]
+    full = [torch.cat(t, -1).contiguous() for t in (ys, zs, scs, douts)]
+    y, z, sc, dout = ys[0], zs[0], scs[0], douts[0]
+    what = f"rmsnorm gated over a tier of {m} {dtype} ({rows},{d})"
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    n_f = dict(R.FORM_LAUNCHES)
+    n_b = dict(R.FORM_BWD_LAUNCHES)
+    ss_parts = [R.rmsnorm_gated_rowsq(a, b) for a, b in zip(ys, zs)]
+    check(R.FORM_LAUNCHES["gated_rowsq"] - n_f["gated_rowsq"] == m,
+          f"{what}: not one launch a partial sum")
+    ss = torch.stack(ss_parts).sum(0)
+    err_ss = close(ss_parts[0], R.rmsnorm_gated_rowsq_ref(y, z), 1e-5,
+                   f"{what} rows' sums of squares", rtol=1e-5)
+    fin = lambda: R.rmsnorm_gated_finish(y, z, sc, ss, d_norm=D)
+    out, again = fin(), fin()
+    check(R.FORM_LAUNCHES["gated_finish"] - n_f["gated_finish"] == 2,
+          f"{what}: not one launch a finish")
+    check(torch.equal(out, again), f"{what}: two finishes differ")
+    close(out, R.rmsnorm_gated_finish_ref(y, z, sc, ss, d_norm=D), tol,
+          f"{what} finish")
+    err_f = close(out, R.rmsnorm_gated_ref(*full[:3])[:, :d], tol,
+                  f"{what} vs the unsplit plain forward")
+    dot_parts = [R.rmsnorm_gated_rowdot(*a) for a in zip(ys, zs, scs, douts)]
+    check(R.FORM_BWD_LAUNCHES["gated_rowdot"] - n_b["gated_rowdot"] == m,
+          f"{what}: not one launch a partial dot product")
+    dot = torch.stack(dot_parts).sum(0)
+    err_dot = close(dot_parts[0], R.rmsnorm_gated_rowdot_ref(y, z, sc, dout),
+                    1e-4, f"{what} rows' dot products", rtol=1e-4)
+    bwd = lambda: R.rmsnorm_gated_bwd(y, z, sc, dout, row_ss=ss,
+                                      row_dot=dot, d_norm=D)
+    got, again = bwd(), bwd()
+    check(R.FORM_BWD_LAUNCHES["gated_finish"] - n_b["gated_finish"] == 2,
+          f"{what}: not one launch a backward finish")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two backward finishes differ")
+    want = R.rmsnorm_gated_bwd_ref(*full)
+    errs_b = [close(got[0], want[0][:, :d], 1e-5, f"{what} dy"),
+              close(got[1], want[1][:, :d], tol, f"{what} dz"),
+              close(got[2], want[2][:d], 1e-4 if dtype == torch.float32
+                    else tol, f"{what} dscale")]
+    del again, want
+    es = z.element_size()
+    fwd_b = bound(rows * d * (4 + 2 * es) + d * es, 10 * rows * d, dtype)
+    bwd_b = bound(rows * d * (4 + es + es + 4 + es) + 2 * d * es,
+                  20 * rows * d, dtype)
+    fwd = lambda: R.rmsnorm_gated_finish(y, z, sc, R.rmsnorm_gated_rowsq(
+        y, z), d_norm=D)
+    bwd2 = lambda: R.rmsnorm_gated_bwd(y, z, sc, dout, row_ss=ss,
+                                       row_dot=R.rmsnorm_gated_rowdot(
+                                           y, z, sc, dout), d_norm=D)
+    plain_f = lambda: R.rmsnorm_gated_finish_ref(
+        y, z, sc, R.rmsnorm_gated_rowsq_ref(y, z), d_norm=D)
+    plain_b = lambda: R.rmsnorm_gated_bwd_ref(
+        y, z, sc, dout, row_ss=ss,
+        row_dot=R.rmsnorm_gated_rowdot_ref(y, z, sc, dout), d_norm=D)
+    gp = (y.to(dtype) * F.silu(z)).requires_grad_(True)
+    wl = (1.0 + sc).requires_grad_(True)
+    yard_f = timer(lambda: F.rms_norm(gp, (d,), wl, 1e-5))
+    o = F.rms_norm(gp, (d,), wl, 1e-5)
+    yard_b = timer(lambda: torch.autograd.grad(o, (gp, wl), dout,
+                                               retain_graph=True))
+    del o, gp
+    common = dict(shape=[rows, d], z_width=width, m=m, d_norm=D,
+                  dtype=str(dtype), path=path, tolerance=tol,
+                  library_ms=None,
+                  partial_yardstick="F.rms_norm on the gated product alone "
+                                    "(no gate, no tier)")
+    fwd_row = dict(common, form="gated_tier", max_abs_err=err_f,
+                   max_abs_err_rows_sumsq=err_ss, ms=timer(fwd),
+                   host_ms=timer.host_ms(fwd), plain_ms=timer(plain_f),
+                   partial_yardstick_ms=yard_f, bound_ms=fwd_b[0],
+                   bound_by=fwd_b[1])
+    bwd_row = dict(common, form="gated_tier", max_abs_err=max(errs_b),
+                   max_abs_err_dy_dz_dscale=errs_b,
+                   max_abs_err_rows_dot=err_dot, ms=timer(bwd2),
+                   host_ms=timer.host_ms(bwd2), plain_ms=timer(plain_b),
+                   partial_yardstick_ms=yard_b, bound_ms=bwd_b[0],
+                   bound_by=bwd_b[1])
+    return fwd_row, bwd_row
+
+
 def backward_kernel_rows(bwd: dict) -> dict[str, list[dict]]:
     """Per kernel rows of phase 2c for the kernels' line: each kernel's own
     time and bound (the flash pair's two kernels apart; RMSNorm's backward
@@ -2805,7 +3190,9 @@ def backward_kernel_rows(bwd: dict) -> dict[str, list[dict]]:
                                      ("flash_attention_bwd_dkdv", "dkdv")),
              "rmsnorm_bwd": (("rmsnorm_bwd", None),),
              "ssd_bwd": (("ssd_bwd", None),),
-             "rmsnorm_bwd_gated": (("rmsnorm_bwd_gated", None),)}
+             "rmsnorm_bwd_gated": (("rmsnorm_bwd_gated", None),),
+             "rmsnorm_gated_tier": (("rmsnorm_gated_tier", None),),
+             "rmsnorm_bwd_gated_tier": (("rmsnorm_bwd_gated_tier", None),)}
     for name, rows in bwd.items():
         for r in rows:
             for kernel, key in parts[name]:
@@ -2866,6 +3253,9 @@ def backward_cases(timer) -> dict[str, list[dict]]:
                       for dtype in (torch.bfloat16, torch.float32)]
     out["ssd_bwd"] += [ssd_bwd_case(timer, shape, torch.bfloat16, "edges")
                        for shape in SSD_BWD_EXTRA]
+    # one model rank's heads of a group (8f: 24 of 48 over m = 2, 12 over 4)
+    out["ssd_bwd"] += [ssd_bwd_case(timer, shape, torch.bfloat16, "ssm_tier")
+                       for shape in SSM_TIER_SSD]
     from repro_torch.kernels.ssd.checks import BWD_CASES
     checked = [ssd_bwd_case(timer, shape, dtype, timed=False)
                for shape in BWD_CASES
@@ -2875,6 +3265,14 @@ def backward_cases(timer) -> dict[str, list[dict]]:
     torch.cuda.empty_cache()
     out["rmsnorm_bwd_gated"] = [gated_bwd_case(timer, g, dtype)
                                 for dtype in (torch.bfloat16, torch.float32)]
+    # the gated norm split over the tier (8f's rank first: the kernels'
+    # line reports the first row)
+    out["rmsnorm_gated_tier"], out["rmsnorm_bwd_gated_tier"] = [], []
+    for m, dtype in ((2, torch.bfloat16), (2, torch.float32),
+                     (4, torch.bfloat16)):
+        f, b = tier_gated_cases(timer, g, dtype, m)
+        out["rmsnorm_gated_tier"].append(f)
+        out["rmsnorm_bwd_gated_tier"].append(b)
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2920,23 +3318,26 @@ PARITY_PARAM_CLOSE, PARITY_FAR_SHARE = 1e-5, 1e-4
 SSM_PARITY_GRID = (2, 2)
 SSM_VARIANTS = (("locality", dict(fsdp=True)),
                 ("locality_prefetch", dict(fsdp=True, prefetch_depth=1)))
-# 8c: llama3.2-3b at full width on 2 x 2 ranks, depth cut to 4 layers,
-# one 1,024-token sequence a rank, 2 steps a variant
-FSDP_GRID, FSDP_LAYERS, FSDP_STEPS = (2, 2), 4, 2
+# 8c: llama3.2-3b at full width on 2 x 2 ranks, depth cut to 2 layers (4
+# until the run neared its time limit), one 1,024-token sequence a rank, 2
+# steps a variant
+FSDP_GRID, FSDP_LAYERS, FSDP_STEPS = (2, 2), 2, 2
 TRAIN_VARIANTS = (("locality", dict(fsdp=True)),
                   ("locality_prefetch", dict(fsdp=True, prefetch_depth=1)),
                   ("xla", dict(fsdp=True, grad_sync="xla")))
 
 
 def train_launches_implied(n_layers: int, steps: int,
-                           family: str = "dense") -> dict[str, int]:
+                           family: str = "dense", m: int = 1
+                           ) -> dict[str, int]:
     """What a training step launches, per kernel and RMSNorm form: with
     remat every block's forward runs twice (the forward and its recompute),
     the final norm once; the backward once per norm (one kernel) and per
     mixer. A dense layer: ln1 (plain) and ln2 (residual), attention (its
     backward two kernels, both of the tensor-core instance: bf16, D = 128).
     A Mamba2 layer: ln (plain), the SSD scan and the gated norm (the SSD
-    backward ``BWD_KERNELS`` kernels a call)."""
+    backward ``BWD_KERNELS`` kernels a call); on a model tier of m > 1 the
+    gated norm split over it, two launches forward and two backward."""
     from repro_torch.kernels.ssd.ops import BWD_KERNELS
     L = n_layers
     want = {k: 0 for k in ("decode_scores", "decode_stats", "dma_allgather",
@@ -2945,10 +3346,19 @@ def train_launches_implied(n_layers: int, steps: int,
                            "rmsnorm_bwd.residual", "flash_attention",
                            "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkdv",
-                           "flash_attention_bwd_wgmma")}
+                           "flash_attention_bwd_wgmma",
+                           "rmsnorm.gated_rowsq", "rmsnorm.gated_finish",
+                           "rmsnorm_bwd.gated_rowdot",
+                           "rmsnorm_bwd.gated_finish")}
     want.update({"rmsnorm": 4 * L + 1, "rmsnorm.plain": 2 * L + 1,
                  "rmsnorm_bwd": 2 * L + 1, "rmsnorm_bwd.plain": L + 1})
-    if family == "ssm":
+    if family == "ssm" and m > 1:
+        want.update({"rmsnorm": 6 * L + 1, "rmsnorm.gated_rowsq": 2 * L,
+                     "rmsnorm.gated_finish": 2 * L, "rmsnorm_bwd": 3 * L + 1,
+                     "rmsnorm_bwd.gated_rowdot": L,
+                     "rmsnorm_bwd.gated_finish": L,
+                     "ssd": 2 * L, "ssd_bwd": BWD_KERNELS * L})
+    elif family == "ssm":
         want.update({"rmsnorm.gated": 2 * L, "rmsnorm_bwd.gated": L,
                      "ssd": 2 * L, "ssd_bwd": BWD_KERNELS * L})
     else:
@@ -2961,9 +3371,21 @@ def train_launches_implied(n_layers: int, steps: int,
 
 def path_launches(counts: dict[str, int]) -> dict[str, int]:
     """A training path's launches by the kernels' line's names: the
-    ``TRAIN_KERNELS`` counters and the gated RMSNorm backward's form."""
+    ``TRAIN_KERNELS`` counters, the gated RMSNorm backward's form and the
+    gated form split over a model tier (forward and backward, two launches
+    each)."""
     return {**{k: counts[k] for k in TRAIN_KERNELS},
-            "rmsnorm_bwd_gated": counts["rmsnorm_bwd.gated"]}
+            "rmsnorm_bwd_gated": counts["rmsnorm_bwd.gated"],
+            **tier_form_launches(counts)}
+
+
+def tier_form_launches(counts: dict[str, int]) -> dict[str, int]:
+    """The launches of the gated RMSNorm split over a model tier, by the
+    kernels' line's names."""
+    return {"rmsnorm_gated_tier": counts["rmsnorm.gated_rowsq"]
+            + counts["rmsnorm.gated_finish"],
+            "rmsnorm_bwd_gated_tier": counts["rmsnorm_bwd.gated_rowdot"]
+            + counts["rmsnorm_bwd.gated_finish"]}
 
 
 def _zero_counts() -> None:
@@ -3216,7 +3638,9 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool, m: int = 1
     of each leaf in ``cfg.dtype``: llama's seven leaves a layer, or
     Mamba2's two (in_proj, out_proj; the rest replicated). On a model tier
     of m the gathers run over each model lane (the q·pl ranks listed, by
-    lane rank) on 1/m of each leaf the tier shards. For "xla" it
+    lane rank) on 1/m of each leaf the tier shards, the step's tree
+    (``transformer.train_layout``: a Mamba2 layer adds ``in_proj_bc``,
+    whole on the tier). For "xla" it
     is the recorder's own model of the
     library's all-gather and reduce-scatter, the calls the port makes (on
     the card this holds the number of calls; tests/test_torch_train.py
@@ -3230,7 +3654,7 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool, m: int = 1
                                             model_param_dims, param_specs)
     p = q * pl
     es = torch.empty((), dtype=cfg.dtype).element_size()
-    shapes = T.train_param_shapes(cfg)
+    shapes = T.train_param_shapes(cfg, m)
     axes = {"pod": q, "data": pl} | ({"model": m} if m > 1 else {})
     specs = param_specs(shapes, axes, fsdp=True)
     units = []                              # (shard bytes, gathers, rs)
@@ -3275,8 +3699,8 @@ def train_rank(rank: int, world: int, plan: dict) -> dict:
     """One rank of phases 8b and 8c (every rank shares the one card): the
     reduced fp32 llama on 2 x 2 (ranks 0-3) and 3 x 2 in each variant, the
     reduced fp32 mamba2 on 2 x 2 eager and with the prefetch, then
-    llama3.2-3b at full width, 4 layers, on 2 x 2 in each; ranks outside a
-    grid wait at the barrier that follows each run."""
+    llama3.2-3b at full width, ``FSDP_LAYERS`` layers, on 2 x 2 in each;
+    ranks outside a grid wait at the barrier that follows each run."""
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.core.topology import RankGrid
@@ -3501,7 +3925,8 @@ def train_on_ranks(smi: str) -> tuple[dict[str, dict[str, int]], tuple]:
             "phase": "train_fsdp", "variant": name,
             "shared": "4 ranks sharing one H100 over gloo",
             "model": full.name, "layers": FSDP_LAYERS,
-            "reduced": "depth 28 -> 4 layers (gloo host transport)",
+            "reduced": f"depth 28 -> {FSDP_LAYERS} layers (gloo host "
+                       "transport)",
             "dtype": "bfloat16 compute, fp32 master",
             "batch": [q * pl, TRAIN_SEQ], "steps": FSDP_STEPS,
             "losses": losses[name],
@@ -3534,8 +3959,8 @@ TP_PARITY_VARIANTS = (("locality", dict(fsdp=True)),
                                                  prefetch_depth=1)),
                       ("seq_shard", dict(fsdp=True, seq_shard=True)),
                       ("xla", dict(fsdp=True, grad_sync="xla")))
-# 8e: llama3.2-3b at full width on 2 x 2 x 2 ranks, depth cut to 4 layers
-# as 8c's, one 1,024-token sequence a DP rank, 2 steps a variant
+# 8e: llama3.2-3b at full width on 2 x 2 x 2 ranks, depth cut as 8c's,
+# one 1,024-token sequence a DP rank, 2 steps a variant
 TP_STEPS = 2
 TP_VARIANTS = (("locality", dict(fsdp=True)),
                ("seq_shard", dict(fsdp=True, seq_shard=True)),
@@ -3545,7 +3970,8 @@ TP_VARIANTS = (("locality", dict(fsdp=True)),
 def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
     """One rank of 8b's TP part and of 8e (all eight share the one card):
     the reduced fp32 llama in each of ``TP_PARITY_VARIANTS``, then
-    llama3.2-3b at full width, 4 layers, in each of ``TP_VARIANTS``."""
+    llama3.2-3b at full width, ``FSDP_LAYERS`` layers, in each of
+    ``TP_VARIANTS``."""
     from repro_torch import configs
     from repro_torch.core.topology import RankGrid
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3574,6 +4000,21 @@ def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def _nonlocal(mt: dict, alg: str) -> dict:
+    """A step's non-local messages and bytes of the parameter gathers and
+    reduce-scatters from its meter record, as :func:`fsdp_oracle` gives
+    them for ``alg``."""
+    if alg == "xla":
+        return dict(msgs=mt["gather"]["group_msgs_nonlocal"]
+                    + mt["reduce_scatter"]["group_msgs_nonlocal"],
+                    bytes=mt["gather"]["group_bytes_nonlocal"]
+                    + mt["reduce_scatter"]["group_bytes_nonlocal"])
+    return dict(gather_msgs=mt["gather"]["permute_edges_nonlocal"],
+                gather_bytes=mt["gather"]["permute_bytes_nonlocal"],
+                rs_msgs=mt["reduce_scatter"]["permute_edges_nonlocal"],
+                rs_bytes=mt["reduce_scatter"]["permute_bytes_nonlocal"])
 
 
 def _tier_local(name: str, rank: int, step: int, mt: dict) -> None:
@@ -3661,19 +4102,7 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
             for k, c in path_launches(x["launches"]).items():
                 total[k] = total.get(k, 0) + c
             for step, mt in enumerate(x["meter"]):
-                if alg == "xla":
-                    got = dict(msgs=mt["gather"]["group_msgs_nonlocal"]
-                               + mt["reduce_scatter"]["group_msgs_nonlocal"],
-                               bytes=mt["gather"]["group_bytes_nonlocal"]
-                               + mt["reduce_scatter"]["group_bytes_nonlocal"])
-                else:
-                    got = dict(
-                        gather_msgs=mt["gather"]["permute_edges_nonlocal"],
-                        gather_bytes=mt["gather"]["permute_bytes_nonlocal"],
-                        rs_msgs=mt["reduce_scatter"]
-                        ["permute_edges_nonlocal"],
-                        rs_bytes=mt["reduce_scatter"]
-                        ["permute_bytes_nonlocal"])
+                got = _nonlocal(mt, alg)
                 check(got == oracle[lane_rank[r]],
                       f"train_tp {name} rank {r} step {step}: non-local "
                       f"{got}, the oracle {oracle[lane_rank[r]]}")
@@ -3684,7 +4113,8 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
             "shared": "8 ranks sharing one H100 over gloo",
             "grid": "2 x 2 x 2 (pod, data, model)",
             "model": full.name, "layers": FSDP_LAYERS,
-            "reduced": "depth 28 -> 4 layers (gloo host transport)",
+            "reduced": f"depth 28 -> {FSDP_LAYERS} layers (gloo host "
+                       "transport)",
             "dtype": "bfloat16 compute, fp32 master",
             "batch": [q * pl, TRAIN_SEQ], "steps": TP_STEPS,
             "losses": [x["loss"] for x in res[0]["metrics"]],
@@ -3708,6 +4138,131 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
                                for k in TRAIN_KERNELS},
             "ranks_wall_s": ranks_s, "card": smi}))
     return {"train_tp": total}
+
+
+# ---------------------------------------------------------------------------
+# phase 8f: mamba2-780m split by SSD heads over the model tier
+# ---------------------------------------------------------------------------
+# mamba2-780m at full width (d_model 1,536, 48 SSD heads of 64, N = 128) on
+# 2 x 2 x 2 ranks, depth cut to 8 layers (the gloo host transport), one
+# 1,024-token sequence a DP rank (4 x 1,024 a step), 2 steps a variant; the
+# first step's loss against the card's one rank at the same depth on the
+# same 4 x 1,024 tokens, within SSM_TP_LOSS_REL: bf16 compute, and the tier
+# sums out_proj's bf16 partial products and the gated norm's row
+# statistics in another order than one rank's products (the bf16 loss
+# limit of phase 10b)
+SSM_TP_LAYERS, SSM_TP_STEPS = 8, 2
+SSM_TP_VARIANTS = TP_VARIANTS
+SSM_TP_LOSS_REL = 1e-2
+
+
+def train_ssm_tp_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of 8f (all eight share the one card): mamba2-780m at full
+    width, ``SSM_TP_LAYERS`` layers, in each of ``SSM_TP_VARIANTS``."""
+    from repro_torch import configs
+    from repro_torch.core.topology import RankGrid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = RankGrid.build(*TP_GRID)
+    out = {"rank": rank, "full": {},
+           "coords": dict(rank=grid.rank, t=grid.t,
+                          grid_rank=grid.grid_rank)}
+    full = dataclasses.replace(configs.get("mamba2-780m"),
+                               n_layers=SSM_TP_LAYERS)
+    for name, kw in SSM_TP_VARIANTS:
+        res = train_run(full, grid, None, kw, TP_GRID[0] * TP_GRID[1],
+                        TRAIN_SEQ, SSM_TP_STEPS, "cuda")
+        res.pop("shards")
+        out["full"][name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_ssm_tp_on_ranks(smi: str) -> dict[str, dict[str, int]]:
+    """Phase 8f: the one-rank reference here, then 8 spawned ranks
+    (``train_ssm_tp_rank``) on 2 x 2 x 2; checks and prints each variant;
+    returns the launches per kernel, summed over the ranks and variants."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.ssm import ssm_dims
+    q, pl, m = TP_GRID
+    n = q * pl * m
+    full = dataclasses.replace(configs.get("mamba2-780m"),
+                               n_layers=SSM_TP_LAYERS)
+    one = train_run(full, None, None, {}, q * pl, TRAIN_SEQ, 1, "cuda")
+    one_loss = one["metrics"][0]["loss"]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(n, train_ssm_tp_rank, {}, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+    lane_rank = [r["coords"]["rank"] for r in ranks]
+    check([r["coords"]["grid_rank"] for r in ranks] == list(range(n)),
+          "train_ssm_tp: grid ranks are not the spawned ranks' order")
+    want = train_launches_implied(SSM_TP_LAYERS, SSM_TP_STEPS, "ssm", m)
+    total = {}
+    for name, kw in SSM_TP_VARIANTS:
+        res = [r["full"][name] for r in ranks]
+        for r in range(1, n):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"train_ssm_tp {name}: rank {r}'s metrics differ")
+        check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                  for x in res[0]["metrics"]),
+              f"train_ssm_tp {name}: non-finite metrics")
+        loss0 = res[0]["metrics"][0]["loss"]
+        d_loss = abs(loss0 / one_loss - 1)
+        check(d_loss <= SSM_TP_LOSS_REL, f"train_ssm_tp {name}: first loss "
+              f"{loss0}, one rank's {one_loss} ({d_loss} relative, limit "
+              f"{SSM_TP_LOSS_REL})")
+        alg = kw.get("grad_sync", "locality")
+        oracle = fsdp_oracle(full, q, pl, alg, False, m)
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want}
+            check(got_l == want, f"train_ssm_tp {name} rank {r}: launches "
+                  f"{got_l}, the path implies {want}")
+            for k, c in path_launches(x["launches"]).items():
+                total[k] = total.get(k, 0) + c
+            for step, mt in enumerate(x["meter"]):
+                check(_nonlocal(mt, alg) == oracle[lane_rank[r]],
+                      f"train_ssm_tp {name} rank {r} step {step}: non-local "
+                      f"{_nonlocal(mt, alg)}, the oracle "
+                      f"{oracle[lane_rank[r]]}")
+                _tier_local(f"train_ssm_tp {name}", r, step, mt)
+        per_rank = lambda f: [[x_[f] for x_ in x["meter"]] for x in res]
+        steady = [float(np.mean(x["step_ms"][1:])) for x in res]
+        print(json.dumps({
+            "phase": "train_ssm_tp", "variant": name,
+            "shared": "8 ranks sharing one H100 over gloo",
+            "grid": "2 x 2 x 2 (pod, data, model)",
+            "model": full.name, "layers": SSM_TP_LAYERS,
+            "reduced": "depth 48 -> 8 layers (gloo host transport)",
+            "heads_per_rank": ssm_dims(full)[1] // m,
+            "dtype": "bfloat16 compute, fp32 master",
+            "batch": [q * pl, TRAIN_SEQ], "steps": SSM_TP_STEPS,
+            "losses": [x["loss"] for x in res[0]["metrics"]],
+            "grad_norms": [x["grad_norm"] for x in res[0]["metrics"]],
+            "first_loss_one_rank": one_loss,
+            "first_loss_rel_diff": d_loss, "loss_rel_limit": SSM_TP_LOSS_REL,
+            "step_ms_by_rank": [x["step_ms"] for x in res],
+            "tokens_per_s": q * pl * TRAIN_SEQ / (max(steady) / 1e3),
+            "gather_host_ms_by_rank": per_rank("gather_ms"),
+            "reduce_scatter_host_ms_by_rank": per_rank("reduce_scatter_ms"),
+            "model_tier_host_ms_by_rank": per_rank("model_ms"),
+            "sync_host_ms_by_rank": per_rank("sync_ms"),
+            "staged_bytes_by_rank": per_rank("staged_bytes"),
+            "model_tier_staged_bytes_by_rank": per_rank("model_staged_bytes"),
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "gathers_per_step": res[0]["meter"][0]["gathers"],
+            "reduce_scatters_per_step": res[0]["meter"][0]["reduce_scatters"],
+            "model_tier_calls_per_step": res[0]["meter"][0]["model_calls"],
+            "model_tier_msgs_per_step_rank0": res[0]["meter"][0]["model"],
+            "nonlocal_per_step_by_lane_rank": oracle,
+            "nonlocal_equal_to_oracle": True, "model_tier_nonlocal": 0,
+            "launches_rank0": {k: res[0]["launches"][k] for k in want},
+            "ranks_wall_s": ranks_s, "card": smi}))
+    return {"train_ssm_tp": total}
 
 
 # ---------------------------------------------------------------------------
@@ -4085,6 +4640,10 @@ def main() -> int:
     clock("train_moe_on_ranks")
     by_path["serve_tier"] = serve_tier(smi, base)
     clock("serve_tier")
+    by_path.update(train_ssm_tp_on_ranks(smi))
+    clock("train_ssm_tp_on_ranks")
+    by_path["serve_tier_ssm"] = serve_tier_ssm(smi)
+    clock("serve_tier_ssm")
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -4119,6 +4678,16 @@ def main() -> int:
         "rmsnorm_bwd_gated": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                               "src/repro/kernels/rmsnorm/rmsnorm.py:17 (the "
                               "backward of its gated form)", 0),
+        # the gated form with the row statistic summed over a model tier:
+        # two launches forward (rows' sums of squares, finish), two
+        # backward (rows' dot products, finish)
+        "rmsnorm_gated_tier": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                               "src/repro/kernels/rmsnorm/rmsnorm.py:17 (its "
+                               "gated form split over a model tier)", 0),
+        "rmsnorm_bwd_gated_tier": (
+            "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+            "src/repro/kernels/rmsnorm/rmsnorm.py:17 (the backward of its "
+            "gated form split over a model tier)", 0),
     }
     kernels = []
     for name, (source, replaces, headline) in meta.items():
@@ -4178,7 +4747,8 @@ def main() -> int:
                                  "library_ms", "shape", "mask_or_form",
                                  "instance")}}
     for row in kernels:        # every case of mamba2's backward kernels
-        if row["name"] in ("ssd_bwd", "rmsnorm_bwd_gated"):
+        if row["name"] in ("ssd_bwd", "rmsnorm_bwd_gated",
+                           "rmsnorm_gated_tier", "rmsnorm_bwd_gated_tier"):
             rows = bwd[row["name"]]
             row["cases"] = {f: [r[f] for r in rows] for f in (
                 "shape", "dtype", "max_abs_err", "ms", "plain_ms",
@@ -4191,6 +4761,11 @@ def main() -> int:
                 row["cases"]["partial_yardstick_ms"] = [
                     r["partial_yardstick_ms"] for r in rows]
                 row["partial_yardstick"] = rows[0]["partial_yardstick"]
+    tier_ssd = [r for r in cases["ssd"] if r["path"] == "ssm_tier"]
+    kernels[5]["ssm_tier_cases"] = {
+        f: [r[f] for r in tier_ssd] for f in (
+            "shape", "dtype", "max_abs_err", "y_rel_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")}
     phase7 = [r for r in cases["rmsnorm"]
               if r.get("path") == "serve_batch_sharded"]
     kernels[0]["batch_sharded_cases"] = {

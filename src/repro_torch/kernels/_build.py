@@ -52,9 +52,21 @@ SIGNATURES = {
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
                           _I, _P],
     # y, y row stride, z, z row stride, scale, dout, dy, dz, dscale, partial,
-    # counters, rows, d, eps, x_dtype, scale_dtype, stream
+    # counters, row_ss (or null), row_dot (or null), rows, d, d_norm, eps,
+    # x_dtype, scale_dtype, stream
     "repro_rmsnorm_gated_bwd": [_P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
-                                _LL, _I, _F, _I, _I, _P],
+                                _P, _P, _LL, _I, _I, _F, _I, _I, _P],
+    # the gated form split over a model tier: y, y row stride, z, z row
+    # stride, row_ss out, rows, d, x_dtype, vectorised, stream
+    "repro_rmsnorm_gated_rowsq": [_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _P],
+    # y, y row stride, z, z row stride, scale, row_ss, out, rows, d, d_norm,
+    # eps, x_dtype, scale_dtype, vectorised, stream
+    "repro_rmsnorm_gated_finish": [_P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I,
+                                   _F, _I, _I, _I, _P],
+    # y, y row stride, z, z row stride, scale, dout, row_dot out, rows, d,
+    # x_dtype, scale_dtype, stream
+    "repro_rmsnorm_gated_rowdot": [_P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I,
+                                   _I, _P],
     # the grid of the last repro_rmsnorm_bwd launch, and the rows of the
     # partial buffer that a launch takes
     "repro_rmsnorm_bwd_last_blocks": [],

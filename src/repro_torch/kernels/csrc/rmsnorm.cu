@@ -27,6 +27,16 @@
 // second time from L1/L2). Splitting a decode row over a cluster of 2 or 4
 // blocks, the partial sums added through distributed shared memory,
 // measured 0.8-1.1 us slower at 8 x 3072 (PERF.md).
+//
+// The gated form split over a model tier (the Mamba2 mixer's d_inner split
+// by heads over m ranks, each holding d_inner / m columns of every row): the
+// statistic is the mean of u^2 over the whole d_inner row, so it takes two
+// launches with the tier's sum between them. The first (stage kRowSq)
+// writes each row's fp32 sum of u^2 over the rank's columns; the caller
+// sums that (rows,) vector over the tier; the second (kFinish) recomputes
+// u, reads the total and normalises with rsqrt(total / d_norm + eps), d_norm
+// the full row's width. Both read y and z once each; the bound of the pair
+// is the unsplit form's bytes (y and z read, out written).
 #include <type_traits>
 
 #include "common.cuh"
@@ -37,6 +47,8 @@ using repro::from_f;
 using repro::to_f;
 
 enum Form { kPlain = 0, kResidual = 1, kGated = 2 };
+// the whole norm in one launch, or the split gated form's two launches
+enum Stage { kWhole = 0, kRowSq = 1, kFinish = 2 };
 constexpr int kMaxVec = 4;           // 16-byte vectors a thread holds
 constexpr int kMaxThreads = 1024;
 
@@ -108,13 +120,16 @@ __device__ __forceinline__ float row_sum(float ss) {
 // (residual, stride d) or z (gated, stride ld1); s: the residual sum out.
 // K: 16-byte vectors per thread (0: the scalar loop); 1 up to 1,024
 // vectors a row (d = 8,192 bf16): registers for 4 would allow one block of
-// 384 threads per SM at d = 3,072.
-template <int F, typename TX, typename TS, int K>
+// 384 threads per SM at d = 3,072. St: the stage; row_ss the rows' sums of
+// squares (written by kRowSq, read by kFinish), d_norm the width the mean
+// divides by (d, but the full row's for kFinish).
+template <int F, typename TX, typename TS, int K, int St = kWhole>
 __global__ void rmsnorm_kernel(const void* __restrict__ in0, long long ld0,
                                const TX* __restrict__ in1, long long ld1,
                                const TS* __restrict__ scale,
                                TX* __restrict__ out, TX* __restrict__ s,
-                               int d, float eps) {
+                               float* __restrict__ row_ss, int d, int d_norm,
+                               float eps) {
   using T0 = std::conditional_t<F == kGated, float, TX>;
   constexpr int V = 16 / sizeof(TX);
   const int row = blockIdx.x;
@@ -134,7 +149,7 @@ __global__ void rmsnorm_kernel(const void* __restrict__ in0, long long ld0,
         float b[V];
         load_f<T0, V>(x0 + v * V, u[k]);
         if constexpr (F != kPlain) load_f<TX, V>(x1 + v * V, b);
-        load_f<TS, V>(scale + v * V, w[k]);
+        if constexpr (St != kRowSq) load_f<TS, V>(scale + v * V, w[k]);
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           if constexpr (F != kPlain) u[k][i] = combine<F, TX>(u[k][i], b[i]);
@@ -143,7 +158,13 @@ __global__ void rmsnorm_kernel(const void* __restrict__ in0, long long ld0,
         if constexpr (F == kResidual) store_v<TX, V>(sr + v * V, u[k]);
       }
     }
-    const float inv = rsqrtf(row_sum(ss) / static_cast<float>(d) + eps);
+    if constexpr (St == kRowSq) {
+      const float tot = row_sum(ss);
+      if (threadIdx.x == 0) row_ss[row] = tot;
+      return;
+    }
+    const float tot = St == kFinish ? row_ss[row] : row_sum(ss);
+    const float inv = rsqrtf(tot / static_cast<float>(d_norm) + eps);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int v = threadIdx.x + k * blockDim.x;
@@ -157,23 +178,33 @@ __global__ void rmsnorm_kernel(const void* __restrict__ in0, long long ld0,
     auto value = [&](int i) {
       return combine<F, TX>(to_f(x0[i]), F == kPlain ? 0.f : to_f(x1[i]));
     };
-    float ss = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float v = value(i);
-      if constexpr (F == kResidual) sr[i] = from_f<TX>(v);
-      ss += v * v;
+    float tot;
+    if constexpr (St == kFinish) {
+      tot = row_ss[row];
+    } else {
+      float ss = 0.f;
+      for (int i = threadIdx.x; i < d; i += blockDim.x) {
+        const float v = value(i);
+        if constexpr (F == kResidual) sr[i] = from_f<TX>(v);
+        ss += v * v;
+      }
+      tot = row_sum(ss);
     }
-    const float inv = rsqrtf(row_sum(ss) / static_cast<float>(d) + eps);
+    if constexpr (St == kRowSq) {
+      if (threadIdx.x == 0) row_ss[row] = tot;
+      return;
+    }
+    const float inv = rsqrtf(tot / static_cast<float>(d_norm) + eps);
     for (int i = threadIdx.x; i < d; i += blockDim.x)
       yr[i] = from_f<TX>(value(i) * inv * (1.f + to_f(scale[i])));
   }
 }
 
-template <int F, typename TX, typename TS>
+template <int F, typename TX, typename TS, int St>
 cudaError_t launch(const void* in0, long long ld0, const void* in1,
                    long long ld1, const void* scale, void* out, void* s,
-                   long long rows, int d, float eps, int vec,
-                   cudaStream_t stream) {
+                   float* row_ss, long long rows, int d, int d_norm,
+                   float eps, int vec, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TX);
   const int nvec = d / V;
   const int k = !vec || nvec > kMaxVec * kMaxThreads ? 0   // scalar loop
@@ -188,37 +219,38 @@ cudaError_t launch(const void* in0, long long ld0, const void* in1,
   TX* y = static_cast<TX*>(out);
   TX* sum = static_cast<TX*>(s);
   if (k == 1)
-    rmsnorm_kernel<F, TX, TS, 1><<<grid, threads, 0, stream>>>(
-        in0, ld0, x1, ld1, sc, y, sum, d, eps);
+    rmsnorm_kernel<F, TX, TS, 1, St><<<grid, threads, 0, stream>>>(
+        in0, ld0, x1, ld1, sc, y, sum, row_ss, d, d_norm, eps);
   else if (k == kMaxVec)
-    rmsnorm_kernel<F, TX, TS, kMaxVec><<<grid, threads, 0, stream>>>(
-        in0, ld0, x1, ld1, sc, y, sum, d, eps);
+    rmsnorm_kernel<F, TX, TS, kMaxVec, St><<<grid, threads, 0, stream>>>(
+        in0, ld0, x1, ld1, sc, y, sum, row_ss, d, d_norm, eps);
   else
-    rmsnorm_kernel<F, TX, TS, 0><<<grid, threads, 0, stream>>>(
-        in0, ld0, x1, ld1, sc, y, sum, d, eps);
+    rmsnorm_kernel<F, TX, TS, 0, St><<<grid, threads, 0, stream>>>(
+        in0, ld0, x1, ld1, sc, y, sum, row_ss, d, d_norm, eps);
   return cudaGetLastError();
 }
 
-template <int F>
+template <int F, int St = kWhole>
 int dispatch(const void* in0, long long ld0, const void* in1, long long ld1,
              const void* scale, void* out, void* s, long long rows, int d,
              float eps, int x_dtype, int scale_dtype, int vec,
-             void* stream) {
+             void* stream, float* row_ss = nullptr, int d_norm = 0) {
+  if (d_norm == 0) d_norm = d;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   cudaError_t e = cudaErrorInvalidValue;
   if (x_dtype == repro::kFloat32 && scale_dtype == repro::kFloat32)
-    e = launch<F, float, float>(in0, ld0, in1, ld1, scale, out, s, rows, d,
-                                eps, vec, st);
+    e = launch<F, float, float, St>(in0, ld0, in1, ld1, scale, out, s,
+        row_ss, rows, d, d_norm, eps, vec, st);
   else if (x_dtype == repro::kFloat32 && scale_dtype == repro::kBFloat16)
-    e = launch<F, float, bf16>(in0, ld0, in1, ld1, scale, out, s, rows, d,
-                               eps, vec, st);
+    e = launch<F, float, bf16, St>(in0, ld0, in1, ld1, scale, out, s,
+        row_ss, rows, d, d_norm, eps, vec, st);
   else if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kFloat32)
-    e = launch<F, bf16, float>(in0, ld0, in1, ld1, scale, out, s, rows, d,
-                               eps, vec, st);
+    e = launch<F, bf16, float, St>(in0, ld0, in1, ld1, scale, out, s,
+        row_ss, rows, d, d_norm, eps, vec, st);
   else if (x_dtype == repro::kBFloat16 && scale_dtype == repro::kBFloat16)
-    e = launch<F, bf16, bf16>(in0, ld0, in1, ld1, scale, out, s, rows, d,
-                              eps, vec, st);
+    e = launch<F, bf16, bf16, St>(in0, ld0, in1, ld1, scale, out, s,
+        row_ss, rows, d, d_norm, eps, vec, st);
   return static_cast<int>(e);
 }
 
@@ -256,4 +288,33 @@ extern "C" int repro_rmsnorm_gated(const void* y, long long ld_y,
                                    void* stream) {
   return dispatch<kGated>(y, ld_y, z, ld_z, scale, out, nullptr, rows, d,
                           eps, x_dtype, scale_dtype, vec, stream);
+}
+
+// The gated form split over a model tier, first launch: row_ss (rows,)
+// fp32 gets each row's sum of u^2 over its d values (y, z as above).
+extern "C" int repro_rmsnorm_gated_rowsq(const void* y, long long ld_y,
+                                         const void* z, long long ld_z,
+                                         void* row_ss, long long rows, int d,
+                                         int x_dtype, int vec, void* stream) {
+  return dispatch<kGated, kRowSq>(y, ld_y, z, ld_z, nullptr, nullptr,
+                                  nullptr, rows, d, 0.f, x_dtype,
+                                  repro::kFloat32, vec, stream,
+                                  static_cast<float*>(row_ss));
+}
+
+// second launch: out = u * rsqrt(row_ss / d_norm + eps) * (1 + scale), with
+// row_ss the tier's sum of the first launch's and d_norm the full row's
+// width.
+extern "C" int repro_rmsnorm_gated_finish(const void* y, long long ld_y,
+                                          const void* z, long long ld_z,
+                                          const void* scale,
+                                          const void* row_ss, void* out,
+                                          long long rows, int d, int d_norm,
+                                          float eps, int x_dtype,
+                                          int scale_dtype, int vec,
+                                          void* stream) {
+  return dispatch<kGated, kFinish>(
+      y, ld_y, z, ld_z, scale, out, nullptr, rows, d, eps, x_dtype,
+      scale_dtype, vec, stream,
+      const_cast<float*>(static_cast<const float*>(row_ss)), d_norm);
 }

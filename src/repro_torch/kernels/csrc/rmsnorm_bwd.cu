@@ -55,6 +55,17 @@
 // zero between launches; launches that share them must run one after
 // another (the wrapper keeps a set per stream). Three blocks an SM, and no
 // next-row loads in flight, were measured slower (PERF.md).
+//
+// The gated form split over a model tier (each rank holds d_inner / m
+// columns of every row; rmsnorm.cu's two-launch forward): a row's two sums
+// span the whole row, so the backward takes two launches with the tier's
+// sum between them. rmsnorm_gated_rowdot_kernel writes each row's fp32
+// sum of dout * (1 + scale) * g over the rank's columns (one block a row);
+// the caller sums that over the tier; then the gated kernel below runs
+// with the rows' totals given (row_ss, the forward's summed squares, and
+// row_dot), dividing by the full row's width d_norm, and skips its own
+// row reductions. Its dscale is the rank's columns', complete: every rank
+// holds every row.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -329,11 +340,55 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
                         tid);
 }
 
+// the split gated form's first backward launch: row_dot[row] = sum over
+// the row's d columns of dout * (1 + scale) * g, g recomputed as the forward
+// rounds it; one block a row, V values an access (4 where `vec`, else 1)
+template <typename TX, typename TS, int V>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_gated_rowdot_kernel(const float* __restrict__ y, long long ld_y,
+                            const TX* __restrict__ z, long long ld_z,
+                            const TS* __restrict__ scale,
+                            const TX* __restrict__ dout,
+                            float* __restrict__ row_dot, int d) {
+  using RY = typename Raw<float, V>::type;
+  using RX = typename Raw<TX, V>::type;
+  using RS = typename Raw<TS, V>::type;
+  __shared__ float red[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long row = blockIdx.x;
+  float acc = 0.f;
+  for (int col = tid * V; col < d; col += kThreads * V) {
+    float yv[V], zv[V], sv[V], dv[V];
+    unpack_v<float, V>(*reinterpret_cast<const RY*>(y + row * ld_y + col), yv);
+    unpack_v<TX, V>(*reinterpret_cast<const RX*>(z + row * ld_z + col), zv);
+    unpack_v<TS, V>(*reinterpret_cast<const RS*>(scale + col), sv);
+    unpack_v<TX, V>(*reinterpret_cast<const RX*>(dout + row * d + col), dv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float silu = rnd<TX>(zv[e] / (1.f + expf(-zv[e])));
+      const float g = rnd<TX>(rnd<TX>(yv[e]) * silu);
+      acc = fmaf(dv[e] * (1.f + sv[e]), g, acc);
+    }
+  }
+  acc = repro::warp_sum(acc);
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[w];
+    row_dot[row] = t;
+  }
+}
+
 // the gated form: g = round(round(y) * round(silu(z))) recomputed per row
 // as the forward rounds it (y fp32 rows of stride ld_y, z rows of stride
 // ld_z), dg from the rows' math above, then dy = dg silu(z) (fp32) and dz =
 // dg round(y) silu'(z) with silu'(z) = sigmoid(z) (1 + z (1 - sigmoid(z)));
-// dscale from the same partial sums. No next-row loads in flight.
+// dscale from the same partial sums. No next-row loads in flight. With
+// row_ss non-null (the split form's finish) the row's sum of g^2 and of
+// dout (1 + scale) g are row_ss[row] and row_dot[row], over d_norm
+// columns, and the kernel takes no row reduction of its own.
 template <typename TX, typename TS, int V, int NU>
 __global__ void __launch_bounds__(kThreads, V * NU <= 12 ? 2 : 1)
 rmsnorm_gated_bwd_kernel(const float* __restrict__ y, long long ld_y,
@@ -342,8 +397,10 @@ rmsnorm_gated_bwd_kernel(const float* __restrict__ y, long long ld_y,
                          const TX* __restrict__ dout, float* __restrict__ dy,
                          TX* __restrict__ dz, TS* __restrict__ dscale,
                          float* __restrict__ partial,
-                         int* __restrict__ counters, long long rows, int d,
-                         float eps) {
+                         int* __restrict__ counters,
+                         const float* __restrict__ row_ss,
+                         const float* __restrict__ row_dot, long long rows,
+                         int d, int d_norm, float eps) {
   constexpr int NPT = V * NU;
   using RY = typename Raw<float, V>::type;
   using RX = typename Raw<TX, V>::type;
@@ -390,22 +447,27 @@ rmsnorm_gated_bwd_kernel(const float* __restrict__ y, long long ld_y,
       ss = fmaf(gv[j], gv[j], ss);
       gx = fmaf(dov[j] * sc[j], gv[j], gx);
     }
-    ss = repro::warp_sum(ss);
-    gx = repro::warp_sum(gx);
-    if (lane == 0) {
-      red[buf][0][warp] = ss;
-      red[buf][1][warp] = gx;
-    }
-    __syncthreads();                  // one barrier a row, as the plain form
-    ss = gx = 0.f;
+    if (row_ss != nullptr) {          // the split form: the tier's sums
+      ss = row_ss[row];
+      gx = row_dot[row];
+    } else {
+      ss = repro::warp_sum(ss);
+      gx = repro::warp_sum(gx);
+      if (lane == 0) {
+        red[buf][0][warp] = ss;
+        red[buf][1][warp] = gx;
+      }
+      __syncthreads();                // one barrier a row, as the plain form
+      ss = gx = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      ss += red[buf][0][w];
-      gx += red[buf][1][w];
+      for (int w = 0; w < kWarps; ++w) {
+        ss += red[buf][0][w];
+        gx += red[buf][1][w];
+      }
+      buf ^= 1;
     }
-    buf ^= 1;
-    const float rstd = rsqrtf(ss / d + eps);
-    const float c = rstd * rstd * rstd * gx / d;   // rstd * mean(dg^ * g^)
+    const float rstd = rsqrtf(ss / d_norm + eps);
+    const float c = rstd * rstd * rstd * gx / d_norm;   // rstd * mean(dg^ g^)
     const size_t base = static_cast<size_t>(row) * d;
 #pragma unroll
     for (int u = 0; u < NU; ++u) {
@@ -509,7 +571,8 @@ cudaError_t dispatch_gated(const void* y, long long ld_y, const void* z,
                            long long ld_z, const void* scale,
                            const void* dout, void* dy, void* dz,
                            void* dscale, float* partial, int* counters,
-                           long long rows, int d, float eps,
+                           const float* row_ss, const float* row_dot,
+                           long long rows, int d, int d_norm, float eps,
                            cudaStream_t stream) {
   const uintptr_t a = 4 * sizeof(TX);
   const bool vec = d % 4 == 0 && ld_y % 4 == 0 && ld_z % 4 == 0 &&
@@ -522,8 +585,31 @@ cudaError_t dispatch_gated(const void* y, long long ld_y, const void* z,
         static_cast<const TX*>(z), ld_z, static_cast<const TS*>(scale),
         static_cast<const TX*>(dout), static_cast<float*>(dy),
         static_cast<TX*>(dz), static_cast<TS*>(dscale), partial, counters,
-        rows, d, eps);
+        row_ss, row_dot, rows, d, d_norm, eps);
   });
+}
+
+template <typename TX, typename TS>
+cudaError_t dispatch_rowdot(const void* y, long long ld_y, const void* z,
+                            long long ld_z, const void* scale,
+                            const void* dout, float* row_dot, long long rows,
+                            int d, cudaStream_t stream) {
+  const uintptr_t a = 4 * sizeof(TX);
+  const bool vec = d % 4 == 0 && ld_y % 4 == 0 && ld_z % 4 == 0 &&
+                   aligned(y, 16) && aligned(z, a) && aligned(dout, a) &&
+                   aligned(scale, 4 * sizeof(TS));
+  const dim3 grid(static_cast<unsigned>(rows));
+  const float* yf = static_cast<const float*>(y);
+  const TX* zx = static_cast<const TX*>(z);
+  const TS* sc = static_cast<const TS*>(scale);
+  const TX* dx = static_cast<const TX*>(dout);
+  if (vec)
+    rmsnorm_gated_rowdot_kernel<TX, TS, 4><<<grid, kThreads, 0, stream>>>(
+        yf, ld_y, zx, ld_z, sc, dx, row_dot, d);
+  else
+    rmsnorm_gated_rowdot_kernel<TX, TS, 1><<<grid, kThreads, 0, stream>>>(
+        yf, ld_y, zx, ld_z, sc, dx, row_dot, d);
+  return cudaGetLastError();
 }
 
 // fn.template operator()<TX, TS>() for the dtype codes, else
@@ -570,22 +656,51 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
 // The gated form: y fp32 rows of stride ld_y, z rows of stride ld_z in z's
 // dtype (x_dtype), dout rows x d in z's dtype, contiguous; writes dy (rows x
 // d fp32), dz (rows x d in z's dtype) and dscale; partial and counters as
-// above. 1 <= d <= 8,192.
+// above. 1 <= d <= 8,192. row_ss and row_dot null: the whole row; else the
+// split form's finish, their (rows,) fp32 totals over d_norm columns
+// (row_ss the forward's summed squares, row_dot the tier's sum of
+// repro_rmsnorm_gated_rowdot's).
 extern "C" int repro_rmsnorm_gated_bwd(const void* y, long long ld_y,
                                        const void* z, long long ld_z,
                                        const void* scale, const void* dout,
                                        void* dy, void* dz, void* dscale,
                                        void* partial, void* counters,
-                                       long long rows, int d, float eps,
+                                       const void* row_ss,
+                                       const void* row_dot, long long rows,
+                                       int d, int d_norm, float eps,
                                        int x_dtype, int scale_dtype,
                                        void* stream) {
-  if (d < 1 || d > kMaxD || rows < 1 || ld_y < d || ld_z < d)
+  if (d < 1 || d > kMaxD || rows < 1 || ld_y < d || ld_z < d ||
+      (row_ss != nullptr) != (row_dot != nullptr) ||
+      (row_ss != nullptr && d_norm < d))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (row_ss == nullptr) d_norm = d;
   const cudaError_t e = by_dtypes(x_dtype, scale_dtype, [&](auto tx, auto ts) {
     return dispatch_gated<decltype(tx), decltype(ts)>(
         y, ld_y, z, ld_z, scale, dout, dy, dz, dscale,
-        static_cast<float*>(partial), static_cast<int*>(counters), rows, d,
-        eps, static_cast<cudaStream_t>(stream));
+        static_cast<float*>(partial), static_cast<int*>(counters),
+        static_cast<const float*>(row_ss), static_cast<const float*>(row_dot),
+        rows, d, d_norm, eps, static_cast<cudaStream_t>(stream));
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split gated form's first backward launch: row_dot (rows,) fp32 gets
+// each row's sum of dout * (1 + scale) * g over its d values (y, z, dout as
+// repro_rmsnorm_gated_bwd takes them). 1 <= d.
+extern "C" int repro_rmsnorm_gated_rowdot(const void* y, long long ld_y,
+                                          const void* z, long long ld_z,
+                                          const void* scale,
+                                          const void* dout, void* row_dot,
+                                          long long rows, int d, int x_dtype,
+                                          int scale_dtype, void* stream) {
+  if (d < 1 || rows < 1 || ld_y < d || ld_z < d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = by_dtypes(x_dtype, scale_dtype, [&](auto tx, auto ts) {
+    return dispatch_rowdot<decltype(tx), decltype(ts)>(
+        y, ld_y, z, ld_z, scale, dout, static_cast<float*>(row_dot), rows, d,
+        static_cast<cudaStream_t>(stream));
   });
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -4,23 +4,36 @@ plain versions for CPU ones; and the backward of all three forms
 training path calls (:func:`rmsnorm_train`, :func:`rmsnorm_residual_train`,
 :func:`rmsnorm_gated_train`).
 
+The gated form split over a model tier (:func:`rmsnorm_gated_tier`,
+:func:`rmsnorm_gated_tier_train`: each rank holds some columns of every
+row, and the statistic is the whole row's) takes two launches a norm, the
+rows' partial sums of squares and the finish, with the tier's sum of the
+(rows,) partials between them; its backward likewise, the partial row dot
+products and the finish.
+
 ``LAUNCHES`` counts forward kernel launches of every form, ``FORM_LAUNCHES``
-each form's; ``BWD_LAUNCHES`` the backward's (one kernel: the rows and the
-scale gradient's column sums), and ``FORM_BWD_LAUNCHES`` the backward's per
-form. CPU calls leave them alone.
+each form's (the split form's two launches as ``gated_rowsq`` and
+``gated_finish``); ``BWD_LAUNCHES`` the backward's (one kernel: the rows
+and the scale gradient's column sums; the split form's two as
+``gated_rowdot`` and ``gated_finish``), and ``FORM_BWD_LAUNCHES`` the
+backward's per form. CPU calls leave them alone.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import (rmsnorm_bwd_ref, rmsnorm_gated_bwd_ref, rmsnorm_gated_ref,
+from .ref import (rmsnorm_bwd_ref, rmsnorm_gated_bwd_ref,
+                  rmsnorm_gated_finish_ref, rmsnorm_gated_ref,
+                  rmsnorm_gated_rowdot_ref, rmsnorm_gated_rowsq_ref,
                   rmsnorm_ref, rmsnorm_residual_ref)
 
 LAUNCHES = 0
-FORM_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
+FORM_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0, "gated_rowsq": 0,
+                 "gated_finish": 0}
 BWD_LAUNCHES = 0
-FORM_BWD_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0}
+FORM_BWD_LAUNCHES = {"plain": 0, "residual": 0, "gated": 0,
+                     "gated_rowdot": 0, "gated_finish": 0}
 BWD_MAX_D = 8192
 _BWD_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
@@ -142,6 +155,21 @@ def rmsnorm_residual(x: torch.Tensor, delta: torch.Tensor,
     return s, y
 
 
+def _gated_rows(name: str, y: torch.Tensor, z: torch.Tensor
+                ) -> tuple[int, int]:
+    """The row strides of the gated form's y (fp32) and z (one shape)."""
+    if y.shape != z.shape:
+        raise ValueError(f"{name}: y {tuple(y.shape)}, z {tuple(z.shape)}")
+    if y.dtype != torch.float32:
+        raise TypeError(f"{name}: y must be float32, got {y.dtype}")
+    d = z.shape[-1]
+    ld_y, ld_z = _rows(y, d), _rows(z, d)
+    if ld_y is None or ld_z is None:
+        raise ValueError(f"{name}: y and z must be rows of unit-stride "
+                         f"values, got strides {y.stride()} and {z.stride()}")
+    return ld_y, ld_z
+
+
 def rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """rmsnorm(round(round(y) * round(silu(z)))) in one pass: y (..., d)
@@ -150,16 +178,8 @@ def rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     if _on_cpu("rmsnorm_gated", y, z, scale):
         return rmsnorm_gated_ref(y, z, scale, eps=eps)
     _check_scale("rmsnorm_gated", scale, z)
-    if y.shape != z.shape:
-        raise ValueError(f"rmsnorm_gated: y {tuple(y.shape)}, z "
-                         f"{tuple(z.shape)}")
-    if y.dtype != torch.float32:
-        raise TypeError(f"rmsnorm_gated: y must be float32, got {y.dtype}")
+    ld_y, ld_z = _gated_rows("rmsnorm_gated", y, z)
     d = z.shape[-1]
-    ld_y, ld_z = _rows(y, d), _rows(z, d)
-    if ld_y is None or ld_z is None:
-        raise ValueError("rmsnorm_gated: y and z must be rows of unit-stride "
-                         f"values, got strides {y.stride()} and {z.stride()}")
     x_code, s_code = _build.dtype_code(z.dtype), _build.dtype_code(scale.dtype)
     out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
     rows = z.numel() // d if d else 0
@@ -177,6 +197,74 @@ def rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     return out
 
 
+def rmsnorm_gated_rowsq(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The split gated form's first launch: each row's fp32 sum of u^2, u =
+    round(round(y) * round(silu(z))), over its d columns; (rows,) fp32. y
+    and z as :func:`rmsnorm_gated` takes them."""
+    if _on_cpu("rmsnorm_gated_rowsq", y, z):
+        return rmsnorm_gated_rowsq_ref(y, z)
+    ld_y, ld_z = _gated_rows("rmsnorm_gated_rowsq", y, z)
+    d = z.shape[-1]
+    rows = z.numel() // d if d else 0
+    out = torch.empty((rows,), dtype=torch.float32, device=z.device)
+    if rows == 0:
+        return out
+    vec = _vec(d, z.element_size(), (y.data_ptr(), z.data_ptr()),
+               (4 * ld_y, z.element_size() * ld_z))
+    err = _build.lib().repro_rmsnorm_gated_rowsq(
+        y.data_ptr(), ld_y, z.data_ptr(), ld_z, out.data_ptr(), rows, d,
+        _build.dtype_code(z.dtype), vec, _build.stream_of(z))
+    _build.check(err, "rmsnorm_gated_rowsq")
+    _count("gated_rowsq")
+    return out
+
+
+def rmsnorm_gated_finish(y: torch.Tensor, z: torch.Tensor,
+                         scale: torch.Tensor, row_ss: torch.Tensor, *,
+                         d_norm: int, eps: float = 1e-5) -> torch.Tensor:
+    """The split gated form's second launch: u rsqrt(row_ss / d_norm + eps)
+    (1 + scale) in z's dtype, ``row_ss`` (rows,) fp32 the whole rows' sums
+    of u^2 over ``d_norm`` columns (the tier's sum of
+    :func:`rmsnorm_gated_rowsq`'s); scale (d,) these columns'."""
+    if _on_cpu("rmsnorm_gated_finish", y, z, scale, row_ss):
+        return rmsnorm_gated_finish_ref(y, z, scale, row_ss, d_norm=d_norm,
+                                        eps=eps)
+    _check_scale("rmsnorm_gated_finish", scale, z)
+    ld_y, ld_z = _gated_rows("rmsnorm_gated_finish", y, z)
+    d = z.shape[-1]
+    rows = z.numel() // d if d else 0
+    if row_ss.dtype != torch.float32 or row_ss.shape != (rows,) \
+            or not row_ss.is_contiguous() or d_norm < d:
+        raise ValueError(f"rmsnorm_gated_finish: row_ss {tuple(row_ss.shape)}"
+                         f" {row_ss.dtype} for {rows} rows, d_norm {d_norm} "
+                         f"for {d} columns")
+    out = torch.empty(z.shape, dtype=z.dtype, device=z.device)
+    if rows == 0:
+        return out
+    vec = _vec(d, z.element_size(), (y.data_ptr(), z.data_ptr(),
+                                     out.data_ptr(), scale.data_ptr()),
+               (4 * ld_y, z.element_size() * ld_z))
+    err = _build.lib().repro_rmsnorm_gated_finish(
+        y.data_ptr(), ld_y, z.data_ptr(), ld_z, scale.data_ptr(),
+        row_ss.data_ptr(), out.data_ptr(), rows, d, int(d_norm), float(eps),
+        _build.dtype_code(z.dtype), _build.dtype_code(scale.dtype), vec,
+        _build.stream_of(z))
+    _build.check(err, "rmsnorm_gated_finish")
+    _count("gated_finish")
+    return out
+
+
+def rmsnorm_gated_tier(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                       tier, *, d_norm: int, eps: float = 1e-5
+                       ) -> torch.Tensor:
+    """:func:`rmsnorm_gated` on one rank of a model tier that splits every
+    row's ``d_norm`` columns (this rank's y, z and scale columns): the
+    rows' partial sums of squares, their sum over the tier
+    (``tier.all_reduce``), the finish. Serving (no gradient)."""
+    ss = tier.all_reduce(rmsnorm_gated_rowsq(y, z))
+    return rmsnorm_gated_finish(y, z, scale, ss, d_norm=d_norm, eps=eps)
+
+
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                 ds: torch.Tensor | None = None, eps: float = 1e-5
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -184,7 +272,6 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     ``dy``; with ``ds``, the residual form's: x is its sum s, ds the
     gradient of its s output, and dx the gradient of both x and delta. One
     kernel on the card, deterministic (no atomics in a sum)."""
-    global BWD_LAUNCHES
     ts = (x, scale, dy) + (() if ds is None else (ds,))
     if _on_cpu("rmsnorm_bwd", *ts):
         return rmsnorm_bwd_ref(x, scale, dy, ds=ds, eps=eps)
@@ -213,42 +300,89 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
         bwd_counters(x.device, stream.value or 0).data_ptr(), rows, d,
         float(eps), x_code, s_code, stream)
     _build.check(err, "rmsnorm_bwd")
-    BWD_LAUNCHES += 1
-    FORM_BWD_LAUNCHES["plain" if ds is None else "residual"] += 1
+    _count_bwd("plain" if ds is None else "residual")
     return dx, dscale
 
 
+def _check_dout(name: str, z: torch.Tensor, dout: torch.Tensor) -> None:
+    if dout.shape != z.shape or dout.dtype != z.dtype \
+            or not dout.is_contiguous():
+        raise ValueError(f"{name}: z {tuple(z.shape)} {z.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype} (contiguous: "
+                         f"{dout.is_contiguous()})")
+
+
+def rmsnorm_gated_rowdot(y: torch.Tensor, z: torch.Tensor,
+                         scale: torch.Tensor, dout: torch.Tensor
+                         ) -> torch.Tensor:
+    """The split gated backward's first launch: each row's fp32 sum of
+    dout (1 + scale) u over its d columns, (rows,) fp32; y, z, scale and
+    dout as :func:`rmsnorm_gated_bwd` takes them."""
+    if _on_cpu("rmsnorm_gated_rowdot", y, z, scale, dout):
+        return rmsnorm_gated_rowdot_ref(y, z, scale, dout)
+    _check_scale("rmsnorm_gated_rowdot", scale, z)
+    ld_y, ld_z = _gated_rows("rmsnorm_gated_rowdot", y, z)
+    _check_dout("rmsnorm_gated_rowdot", z, dout)
+    d = z.shape[-1]
+    rows = z.numel() // d if d else 0
+    out = torch.empty((rows,), dtype=torch.float32, device=z.device)
+    if rows == 0:
+        return out
+    err = _build.lib().repro_rmsnorm_gated_rowdot(
+        y.data_ptr(), ld_y, z.data_ptr(), ld_z, scale.data_ptr(),
+        dout.data_ptr(), out.data_ptr(), rows, d, _build.dtype_code(z.dtype),
+        _build.dtype_code(scale.dtype), _build.stream_of(z))
+    _build.check(err, "rmsnorm_gated_rowdot")
+    _count_bwd("gated_rowdot")
+    return out
+
+
+def _count_bwd(form: str) -> None:
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    FORM_BWD_LAUNCHES[form] += 1
+
+
 def rmsnorm_gated_bwd(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                      dout: torch.Tensor, *, eps: float = 1e-5
+                      dout: torch.Tensor, *, eps: float = 1e-5,
+                      row_ss: torch.Tensor | None = None,
+                      row_dot: torch.Tensor | None = None,
+                      d_norm: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dy fp32, dz in z's dtype, dscale) of :func:`rmsnorm_gated` at (y, z,
     scale) for the output gradient ``dout`` (z's shape and dtype,
     contiguous); y and z may be rows of a wider tensor, as the forward
     takes them; dy and dz come back contiguous. One kernel on the card, the
-    plain and residual forms' grid and column sums (deterministic)."""
-    global BWD_LAUNCHES
-    if _on_cpu("rmsnorm_gated_bwd", y, z, scale, dout):
-        return rmsnorm_gated_bwd_ref(y, z, scale, dout, eps=eps)
+    plain and residual forms' grid and column sums (deterministic). With
+    ``row_ss`` and ``row_dot`` ((rows,) fp32: the whole rows' sums of u^2
+    and of dout (1 + scale) u over ``d_norm`` columns), the split form's
+    finish: the same kernel on these columns, its row statistics those."""
+    split = row_ss is not None
+    if split != (row_dot is not None) or split != (d_norm is not None):
+        raise ValueError("rmsnorm_gated_bwd: row_ss, row_dot and d_norm go "
+                         "together")
+    stats = (row_ss, row_dot) if split else ()
+    if _on_cpu("rmsnorm_gated_bwd", y, z, scale, dout, *stats):
+        return rmsnorm_gated_bwd_ref(y, z, scale, dout, eps=eps,
+                                     row_ss=row_ss, row_dot=row_dot,
+                                     d_norm=d_norm)
     _check_scale("rmsnorm_gated_bwd", scale, z)
-    if y.shape != z.shape or dout.shape != z.shape or dout.dtype != z.dtype:
-        raise ValueError(f"rmsnorm_gated_bwd: y {tuple(y.shape)}, z "
-                         f"{tuple(z.shape)} {z.dtype}, dout "
-                         f"{tuple(dout.shape)} {dout.dtype}")
-    if y.dtype != torch.float32:
-        raise TypeError(f"rmsnorm_gated_bwd: y must be float32, got {y.dtype}")
+    ld_y, ld_z = _gated_rows("rmsnorm_gated_bwd", y, z)
+    _check_dout("rmsnorm_gated_bwd", z, dout)
     d = z.shape[-1]
-    ld_y, ld_z = _rows(y, d), _rows(z, d)
-    if ld_y is None or ld_z is None or not dout.is_contiguous():
-        raise ValueError("rmsnorm_gated_bwd: y and z must be rows of "
-                         "unit-stride values and dout contiguous, got strides "
-                         f"{y.stride()}, {z.stride()}, {dout.stride()}")
+    rows = z.numel() // d if d else 0
+    if split and (d_norm < d or any(
+            t.dtype != torch.float32 or t.shape != (rows,)
+            or not t.is_contiguous() for t in stats)):
+        raise ValueError(f"rmsnorm_gated_bwd: row_ss {tuple(row_ss.shape)}, "
+                         f"row_dot {tuple(row_dot.shape)} for {rows} rows, "
+                         f"d_norm {d_norm} for {d} columns")
     if d > BWD_MAX_D:
         raise ValueError(f"rmsnorm_gated_bwd: rows of {d} exceed {BWD_MAX_D}")
     x_code, s_code = _build.dtype_code(z.dtype), _build.dtype_code(scale.dtype)
     dy = torch.empty(z.shape, dtype=torch.float32, device=z.device)
     dz = torch.empty(z.shape, dtype=z.dtype, device=z.device)
     dscale = torch.empty_like(scale)
-    rows = z.numel() // d if d else 0
     if rows == 0:
         return dy, dz, dscale.zero_()
     lib, stream = _build.lib(), _build.stream_of(z)
@@ -258,11 +392,12 @@ def rmsnorm_gated_bwd(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
         y.data_ptr(), ld_y, z.data_ptr(), ld_z, scale.data_ptr(),
         dout.data_ptr(), dy.data_ptr(), dz.data_ptr(), dscale.data_ptr(),
         partial.data_ptr(),
-        bwd_counters(z.device, stream.value or 0).data_ptr(), rows, d,
-        float(eps), x_code, s_code, stream)
+        bwd_counters(z.device, stream.value or 0).data_ptr(),
+        row_ss.data_ptr() if split else None,
+        row_dot.data_ptr() if split else None, rows, d,
+        int(d_norm) if split else d, float(eps), x_code, s_code, stream)
     _build.check(err, "rmsnorm_gated_bwd")
-    BWD_LAUNCHES += 1
-    FORM_BWD_LAUNCHES["gated"] += 1
+    _count_bwd("gated_finish" if split else "gated")
     return dy, dz, dscale
 
 
@@ -325,6 +460,31 @@ class RMSNormGated(torch.autograd.Function):
         return dy, dz, dscale, None
 
 
+class RMSNormGatedTier(torch.autograd.Function):
+    """:func:`rmsnorm_gated_tier` whose backward is the split form's: the
+    rows' partial dot products (:func:`rmsnorm_gated_rowdot`), their sum
+    over the tier, the finish (:func:`rmsnorm_gated_bwd` with the rows'
+    totals). The tier's two sums run inside this node, forward and
+    backward, so every rank of the tier issues them in one order."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, eps, tier, d_norm):
+        ss = tier.all_reduce(rmsnorm_gated_rowsq(y, z))
+        ctx.save_for_backward(y, z, scale, ss)
+        ctx.eps, ctx.tier, ctx.d_norm = eps, tier, d_norm
+        return rmsnorm_gated_finish(y, z, scale, ss, d_norm=d_norm, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, scale, ss = ctx.saved_tensors
+        dout = dout.contiguous()
+        dot = ctx.tier.all_reduce(rmsnorm_gated_rowdot(y, z, scale, dout))
+        dy, dz, dscale = rmsnorm_gated_bwd(y, z, scale, dout, eps=ctx.eps,
+                                           row_ss=ss, row_dot=dot,
+                                           d_norm=ctx.d_norm)
+        return dy, dz, dscale, None, None, None
+
+
 def rmsnorm_train(x: torch.Tensor, scale: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """Differentiable :func:`rmsnorm` (the training path)."""
@@ -343,3 +503,11 @@ def rmsnorm_gated_train(y: torch.Tensor, z: torch.Tensor,
                         ) -> torch.Tensor:
     """Differentiable :func:`rmsnorm_gated` (the training path)."""
     return RMSNormGated.apply(y, z, scale, eps)
+
+
+def rmsnorm_gated_tier_train(y: torch.Tensor, z: torch.Tensor,
+                             scale: torch.Tensor, tier, *, d_norm: int,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable :func:`rmsnorm_gated_tier` (the training path on a
+    model tier)."""
+    return RMSNormGatedTier.apply(y, z, scale, eps, tier, d_norm)

@@ -22,10 +22,15 @@ parallel over the ranks (``make_train_step(moe_dispatch=...)``) and
 prints each rank's all-to-alls. ``--mesh 2x2x2`` takes the JAX
 launcher's mesh instead (the last axes of ("pod", "data", "model"), so
 ``4x2`` is ("data", "model")): as many ranks, tensor-parallel over the
-"model" tier:
+"model" tier; ``--model M`` adds a tier of M ranks at each place of the
+``--ranks`` / ``--pods`` grid (``--ranks`` counts them all). The dense
+family splits its heads, MLP columns and vocabulary over the tier, the
+ssm family its SSD heads:
 
     python -m repro_torch.launch.train --smoke --device cpu --mesh 2x2x2 \
         --fsdp
+    python -m repro_torch.launch.train --arch mamba2-780m --smoke \
+        --device cpu --ranks 8 --pods 2 --model 2 --fsdp
 
 The kernels are built once, here, before the ranks start.
 """
@@ -59,10 +64,13 @@ def _trainer_config(args):
 
 def _mesh(args) -> tuple[tuple[int, ...], tuple[str, ...]]:
     """(shape, axes) of the ranks: ``--mesh``, else ``--ranks`` over
-    ``--pods``."""
+    ``--pods`` (and ``--model``)."""
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split("x"))
         return shape, ("pod", "data", "model")[-len(shape):]
+    if args.model > 1:
+        return ((args.pods, args.ranks // args.pods // args.model,
+                 args.model), ("pod", "data", "model"))
     return (args.pods, args.ranks // args.pods), ("pod", "data")
 
 
@@ -115,12 +123,18 @@ def main(argv=None) -> None:
                     help="ranks the batch is split over (spawned)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods the ranks form (ranks / pods lanes each)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="a model tier of this many ranks at each place of "
+                         "the grid (--ranks counts them all)")
     ap.add_argument("--mesh", default=None,
                     help="e.g. 2x2x2 (pod, data, model): the ranks' grid, "
-                         "in place of --ranks and --pods")
+                         "in place of --ranks, --pods and --model")
     args = ap.parse_args(argv)
     m = 1
-    if args.mesh:
+    if not args.mesh and args.ranks % (args.pods * args.model):
+        raise SystemExit(f"--ranks {args.ranks} is no multiple of --pods "
+                         f"{args.pods} x --model {args.model}")
+    if args.mesh or args.model > 1:
         from repro_torch.launch.mesh import grid_shape
         q, pl, m = grid_shape(*_mesh(args))
         args.ranks, args.pods = q * pl * m, q

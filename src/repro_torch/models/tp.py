@@ -19,8 +19,30 @@ heads, so a rank holds part of a head. The port gathers the leaf over the
 tier (its backward, the reduce-scatter, is the tier's gradient sum) and each
 rank takes the KV head its q heads read. Heads that do not divide (H, or KV
 neither dividing nor divided by m, or KV·D columns that m does not divide,
-which JAX keeps whole), an MLP width or a vocabulary that m does not divide,
-and the ssm family are refused.
+which JAX keeps whole), an MLP width or a vocabulary that m does not divide
+are refused.
+
+The ssm family (Mamba2) splits by SSD heads: with H = d_inner / P heads in
+G groups, rank t holds heads ``[t·H/m, (t+1)·H/m)``: the z, x and dt
+columns of ``in_proj`` for them, the conv channels of its x, ``dt_bias``,
+``A_log``, ``D`` and the gated norm's scale for them, and its rows of
+``out_proj`` (row-parallel, leaving through :meth:`TensorParallel.leave`).
+The B and C columns of ``in_proj`` and their conv channels are held whole
+on every rank (each computes B and C in full and takes the groups its
+heads read), so JAX's flat column split of the concatenated ``in_proj``,
+which cuts mid-head and mid-field, is not copied. The gated norm's
+statistic is the mean over the whole d_inner row, so its rows' partial
+sums go over the tier (``kernels/rmsnorm/ops.rmsnorm_gated_tier``). In
+training a leaf that mixes split and whole parts is held as two leaves
+(:func:`ssm_tier_tree`: ``in_proj`` and ``in_proj_bc``, ``conv_w`` and
+``conv_w_bc``); the small head-indexed leaves stay whole, as the JAX spec
+keeps them, and each rank uses its heads' part. A rank's gradients of the
+whole-held leaves cover only its heads' work, dB and dC included: they
+flow back unreduced through the conv and the B/C columns, so the block
+input's cotangent stays a partial sum that the entering allreduce counts
+once, and the step sums those leaves' gradients over the tier. Head
+counts that m does not divide, and groups that a rank's heads would split,
+are refused.
 
 Serving (``Transformer(..., tp=)``, under ``torch.no_grad``) cuts each
 rank's part from the full weights (:meth:`TensorParallel.part`: the JAX
@@ -46,16 +68,19 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..configs import ModelConfig
 from ..core import collectives as C
+from .ssm import MAMBA_PARAMS, mamba_apply, ssm_dims
 
-#: where the ssm family's model tier is queued
-SSM_TP_ITEM = "ROADMAP.md Queue 1 item 13"
 #: the serving tree's norm scales, by the JAX tree's leaf name ("scale")
 SCALE_NAMES = {"ln1": "scale", "ln2": "scale", "final_norm": "scale"}
+#: the leaves a Mamba2 layer of the training tree adds on a model tier: the
+#: B and C columns of ``in_proj`` and their conv channels, held whole
+MAMBA_TIER_LEAVES = ("in_proj_bc", "conv_w_bc")
 
 
 def check_tp(cfg: ModelConfig, m: int) -> None:
@@ -68,10 +93,19 @@ def check_tp(cfg: ModelConfig, m: int) -> None:
             "untied head are not split over 'model' yet (ROADMAP.md Queue 1 "
             "item 14)")
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name} on a model tier of {m}: the Mamba2 mixer's "
-            "in_proj output (z, x, B, C, dt) needs a split aligned to the "
-            f"heads over 'model' ({SSM_TP_ITEM})")
+        _, H, _, _, G = ssm_dims(cfg)
+        hl, hg = H // m, H // G
+        bad = [f"SSD heads {H}"] if H % m else (
+            [f"ssm_ngroups {G} (its groups of {hg} heads against {hl} "
+             "heads a rank)"] if hl % hg and hg % hl else [])
+        if cfg.padded_vocab % m:
+            bad.append(f"padded vocab {cfg.padded_vocab}")
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: the port splits whole SSD heads and "
+                f"vocabulary rows over a model tier of {m}; it does not "
+                f"divide {', '.join(bad)}")
+        return
     H, KV = cfg.n_heads, cfg.n_kv_heads
     bad = [f"{what} {n}" for what, n in (
         ("n_heads", H), ("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab))
@@ -240,6 +274,40 @@ class TensorParallel:
         hl, g = H // self.m, H // KV
         return self.t * hl // g, ((self.t + 1) * hl - 1) // g + 1
 
+    def ssm_heads(self) -> tuple[int, int]:
+        """[lo, hi) of this rank's SSD heads."""
+        H = ssm_dims(self.cfg)[1]
+        return self.t * H // self.m, (self.t + 1) * H // self.m
+
+    def ssm_groups(self) -> tuple[int, int]:
+        """[lo, hi) of the groups whose B and C this rank's heads read."""
+        _, H, _, _, G = ssm_dims(self.cfg)
+        lo, hi = self.ssm_heads()
+        return lo // (H // G), (hi - 1) // (H // G) + 1
+
+    def _ssm_part(self, leaf: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a Mamba2 leaf of the serving tree, laid out
+        as a Mamba2 layer of H/m heads whose B and C span every group:
+        ``in_proj``'s columns [z, x, B, C, dt] of its heads (B and C
+        whole), ``conv_w``'s and ``conv_b``'s channels [x, B, C], its
+        heads' ``dt_bias``, ``A_log``, ``D`` and norm scale, its rows of
+        ``out_proj``; ``ln`` whole."""
+        d_inner, H, _, N, G = ssm_dims(self.cfg)
+        lo, hi = self.ssm_heads()
+        dl, P = d_inner // self.m, d_inner // H
+        x = slice(lo * P, hi * P)
+        if leaf == "in_proj":
+            bc = slice(2 * d_inner, 2 * d_inner + 2 * G * N)
+            return torch.cat([t[:, x], t[:, d_inner:][:, x], t[:, bc],
+                              t[:, bc.stop:][:, lo:hi]], 1)
+        if leaf in ("conv_w", "conv_b"):
+            return torch.cat([t[..., x], t[..., d_inner:]], -1)
+        if leaf in ("dt_bias", "A_log", "D"):
+            return t[lo:hi]
+        if leaf in ("norm", "out_proj"):
+            return t[lo * P:lo * P + dl]
+        return t
+
     def part(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's part of a full leaf of the serving tree
         (``Transformer``'s flat names, ``layers.{i}.wq`` ...): its part
@@ -248,11 +316,14 @@ class TensorParallel:
         rows of ``wo``/``down``, vocabulary rows of ``embed``, norm scales
         whole), but for ``wk``/``wv`` where m does not divide KV, whose
         flat columns the JAX spec splits mid-head: there the columns of
-        the KV heads this rank's q heads read (:meth:`kv_heads`). A part
-        is a copy of its own, so the full leaf can be freed."""
+        the KV heads this rank's q heads read (:meth:`kv_heads`); and the
+        Mamba2 leaves by its SSD heads (:meth:`_ssm_part`). A part is a
+        copy of its own, so the full leaf can be freed."""
         from ..train.sharding import MODEL_AXIS, model_dim, param_specs
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("wk", "wv") and not self.kv_local:
+        if self.cfg.family == "ssm" and leaf in MAMBA_PARAMS + ("ln",):
+            t = self._ssm_part(leaf, t)
+        elif leaf in ("wk", "wv") and not self.kv_local:
             lo, hi = self.kv_heads()
             D = self.cfg.head_dim_
             t = t[:, lo * D:hi * D]
@@ -311,6 +382,27 @@ class TensorParallel:
         lo, hi = self.kv_heads()
         D = self.cfg.head_dim_
         return w[:, lo * D:hi * D]
+
+    def ssm_local(self, w: dict[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
+        """A Mamba2 layer's weights on this rank, from its leaves of the
+        training tree (:func:`ssm_tier_tree`: its chunk of ``in_proj`` [z,
+        x, dt] and of ``conv_w``, the whole ``in_proj_bc``, ``conv_w_bc``
+        and small leaves), in :meth:`_ssm_part`'s layout; the concatenations
+        and slices are differentiable, so each leaf gets the gradient of
+        the part this rank used."""
+        d_inner = ssm_dims(self.cfg)[0]
+        lo, hi = self.ssm_heads()
+        dl = d_inner // self.m
+        ch = slice(self.t * dl, (self.t + 1) * dl)
+        ip = w["in_proj"]
+        return {"in_proj": torch.cat([ip[:, :2 * dl], w["in_proj_bc"],
+                                      ip[:, 2 * dl:]], 1),
+                "conv_w": torch.cat([w["conv_w"], w["conv_w_bc"]], 1),
+                "conv_b": torch.cat([w["conv_b"][ch], w["conv_b"][d_inner:]]),
+                "dt_bias": w["dt_bias"][lo:hi], "A_log": w["A_log"][lo:hi],
+                "D": w["D"][lo:hi], "norm": w["norm"][ch],
+                "out_proj": w["out_proj"]}
 
     # -- the vocabulary-parallel embedding and its tied head -------------
     def local_embed(self, tokens: torch.Tensor, rows: torch.Tensor):
@@ -372,3 +464,72 @@ def block_train_tp(x, w: dict[str, Any], cos, sin, cfg: ModelConfig,
     x, h = rmsnorm_residual_train(x, y, w["ln2"], eps=cfg.norm_eps)
     h = tp.enter(h, seq)
     return x + tp.leave(mlp_apply(h, w["gate"], w["up"], w["down"]), seq)
+
+
+def mamba_train_tp(x, w: dict[str, Any], cfg: ModelConfig,
+                   tp: TensorParallel, seq: bool):
+    """``transformer.mamba_block_train`` on one model rank: ``x + mamba(
+    rmsnorm(x, ln))`` over the rank's SSD heads (``x`` the residual stream,
+    (B, S/m, d) with ``seq``); ``w`` the rank's leaves of the training
+    tree. The normed input enters the tier, the mixer runs its heads
+    (the SSD kernel on them, the gated norm's statistic over the tier) and
+    its ``out_proj`` partial sums leave in fp32, rounded once after the
+    tier's sum."""
+    from ..kernels.rmsnorm.ops import rmsnorm_train
+    h = tp.enter(rmsnorm_train(x, w["ln"], eps=cfg.norm_eps), seq)
+    y, _ = mamba_apply(tp.ssm_local(w), h, cfg, tp=tp)
+    return x + tp.leave(y, seq).to(x.dtype)
+
+
+def _mamba_node(tree: dict) -> tuple[dict, dict]:
+    slot = tree["blocks"]["slot0"]
+    return slot, slot["mamba"]
+
+
+def _with_mamba(tree: dict, slot: dict, mamba: dict) -> dict:
+    return {**tree, "blocks": {**tree["blocks"],
+                               "slot0": {**slot, "mamba": mamba}}}
+
+
+def ssm_tier_tree(tree: dict, cfg: ModelConfig, m: int) -> dict:
+    """The JAX training tree of a Mamba2 model (layers stacked in
+    ``blocks/slot0``) in the layout of a model tier of m: ``in_proj`` holds
+    the z, x and dt columns in rank-major order, rank t's chunk (dim 1,
+    1/m of it) being [z, x, dt] of its heads, and ``in_proj_bc`` the B and
+    C columns; ``conv_w`` holds the x channels (chunk t: its heads') and
+    ``conv_w_bc`` the B and C channels. Every other leaf as it is.
+    :func:`ssm_jax_tree` is the inverse."""
+    d_inner, H, _, N, G = ssm_dims(cfg)
+    dl, hl = d_inner // m, H // m
+    slot, mam = _mamba_node(tree)
+    ip, cw = mam["in_proj"], mam["conv_w"]
+    z, x, bc, dt = torch.split(ip, [d_inner, d_inner, 2 * G * N, H], -1)
+    parts = [p for t in range(m) for p in (z[..., t * dl:(t + 1) * dl],
+                                           x[..., t * dl:(t + 1) * dl],
+                                           dt[..., t * hl:(t + 1) * hl])]
+    return _with_mamba(tree, slot, {
+        **mam, "in_proj": torch.cat(parts, -1),
+        "in_proj_bc": bc.contiguous(),
+        "conv_w": cw[..., :d_inner].contiguous(),
+        "conv_w_bc": cw[..., d_inner:].contiguous()})
+
+
+def ssm_jax_tree(tree: dict, cfg: ModelConfig, m: int) -> dict:
+    """The inverse of :func:`ssm_tier_tree`: the JAX tree's ``in_proj``
+    and ``conv_w`` put back whole. Leaves may be torch tensors or numpy
+    arrays."""
+    d_inner, H, _, N, G = ssm_dims(cfg)
+    dl, hl = d_inner // m, H // m
+    slot, mam = _mamba_node(tree)
+    mam = dict(mam)
+    ip, bc = mam.pop("in_proj"), mam.pop("in_proj_bc")
+    cw, cw_bc = mam.pop("conv_w"), mam.pop("conv_w_bc")
+    cat = (torch.cat if isinstance(ip, torch.Tensor)
+           else lambda xs, dim: np.concatenate(xs, dim))
+    w = 2 * dl + hl
+    chunk = lambda t, a, b: ip[..., t * w + a:t * w + b]
+    z = cat([chunk(t, 0, dl) for t in range(m)], -1)
+    x = cat([chunk(t, dl, 2 * dl) for t in range(m)], -1)
+    dt = cat([chunk(t, 2 * dl, w) for t in range(m)], -1)
+    return _with_mamba(tree, slot, {**mam, "in_proj": cat([z, x, bc, dt], -1),
+                                    "conv_w": cat([cw, cw_bc], -1)})

@@ -67,7 +67,8 @@ from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
 from .moe import moe_apply, moe_init, moe_shapes
 from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
                   mamba_shapes)
-from .tp import block_train_tp
+from .tp import (MAMBA_TIER_LEAVES, block_train_tp, mamba_train_tp,
+                 ssm_tier_tree)
 
 ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
 LAYER_PARAMS = ATTN_PARAMS + ("gate", "up", "down")
@@ -173,11 +174,14 @@ class Block(nn.Module):
 
 
 class MambaBlock(nn.Module):
-    """One pre-norm Mamba2 layer: ``x + mamba(rmsnorm(x, ln))``."""
+    """One pre-norm Mamba2 layer: ``x + mamba(rmsnorm(x, ln))``; on a model
+    rank (``tp``) the mixer's partial sums are summed over the tier."""
 
-    def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor],
+                 tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         for name in MAMBA_LAYER_PARAMS:
             self.register_parameter(
                 name, nn.Parameter(weights[name], requires_grad=False))
@@ -190,7 +194,9 @@ class MambaBlock(nn.Module):
         h = rmsnorm(x, self.ln, eps=self.cfg.norm_eps)
         params = {n: getattr(self, n) for n in MAMBA_PARAMS}
         y, nc = mamba_apply(params, h, self.cfg,
-                            cache={} if cache is None else cache)
+                            cache={} if cache is None else cache, tp=self.tp)
+        if self.tp is not None:
+            y = self.tp.tier.all_reduce(y).to(x.dtype)
         if cache is None:
             return x + y, nc
         cache["conv"].copy_(nc["conv"])
@@ -203,10 +209,11 @@ class Transformer(nn.Module):
 
     ``tp`` (``models/tp.TensorParallel``) makes it one rank of a model
     tier: it holds its part of each leaf (``tp.part``: its q heads and the
-    KV heads they read, its MLP columns, its vocabulary rows), its cache
-    holds those KV heads, each layer's row-parallel products and the
-    embedding are summed over the tier, and the logits are its
-    vocabulary's columns (B, 1, Vpad/m). ``params`` holds full leaves, or
+    KV heads they read, its MLP columns, or its SSD heads; its vocabulary
+    rows), its cache holds those KV heads or SSD heads (and their conv
+    channels), each layer's row-parallel products and the embedding are
+    summed over the tier, and the logits are its vocabulary's columns
+    (B, 1, Vpad/m). ``params`` holds full leaves, or
     leaves already cut to the rank's part (``init_params(..., part=
     tp.part)``), which are taken as they are."""
 
@@ -228,7 +235,7 @@ class Transformer(nn.Module):
             names = spec_params(cfg, spec)
             if spec.mixer == "mamba2":
                 return MambaBlock(cfg, {n: load(f"layers.{i}.{n}")
-                                        for n in names})
+                                        for n in names}, tp)
             return Block(cfg, {n: load(f"layers.{i}.{n}") for n in names}, tp)
 
         self.embed = nn.Parameter(load("embed"), requires_grad=False)
@@ -250,9 +257,10 @@ class Transformer(nn.Module):
         it)."""
         cfg = self.cfg
         if self.ssm:
+            m = 1 if self.tp is None else self.tp.m
             return {name: ((cfg.n_layers,) + shape, dtype)
                     for name, (shape, dtype)
-                    in mamba_cache_shapes(cfg, batch).items()}
+                    in mamba_cache_shapes(cfg, batch, m).items()}
         kv = cfg.n_kv_heads
         if self.tp is not None:
             lo, hi = self.tp.kv_heads()
@@ -448,11 +456,16 @@ MOE_TRAIN_LEAF_PATHS = {
     "shared_down": ("moe", "shared", "down")}
 
 
-def spec_leaf_paths(cfg: ModelConfig, spec) -> dict[str, tuple[str, ...]]:
+def spec_leaf_paths(cfg: ModelConfig, spec, tier: bool = False
+                    ) -> dict[str, tuple[str, ...]]:
     """A layer's leaf name -> its path in the JAX tree's layer of the plan
-    entry ``spec``, in the order :func:`spec_params` gives."""
+    entry ``spec``, in the order :func:`spec_params` gives; a Mamba2 layer
+    of a model tier's tree (``tier``) adds ``models/tp.MAMBA_TIER_LEAVES``
+    (:func:`train_layout`)."""
     if spec.mixer == "mamba2":
-        return {n: MAMBA_TRAIN_LEAF_PATHS[n] for n in MAMBA_LAYER_PARAMS}
+        extra = {n: ("mamba", n) for n in MAMBA_TIER_LEAVES} if tier else {}
+        return {n: MAMBA_TRAIN_LEAF_PATHS[n]
+                for n in MAMBA_LAYER_PARAMS} | extra
     if spec.mlp == "moe":
         return ({n: TRAIN_LEAF_PATHS[n] for n in ATTN_PARAMS}
                 | {n: MOE_TRAIN_LEAF_PATHS[n] for n in moe_shapes(cfg)})
@@ -464,18 +477,20 @@ def spec_params(cfg: ModelConfig, spec) -> tuple[str, ...]:
     return tuple(spec_leaf_paths(cfg, spec))
 
 
-def train_leaf_paths(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
+def train_leaf_paths(cfg: ModelConfig, m: int = 1
+                     ) -> dict[str, tuple[str, ...]]:
     """A layer's leaf name -> its path in a layer slot of the JAX tree, for
     ``cfg``'s one layer kind (training stacks one), in the order
-    :func:`layer_params` gives."""
-    return spec_leaf_paths(cfg, cfg.layer_plan()[0])
+    :func:`layer_params` gives (on a model tier of m, of its tree)."""
+    return spec_leaf_paths(cfg, cfg.layer_plan()[0], m > 1)
 
 
-def layer_params(cfg: ModelConfig) -> tuple[str, ...]:
+def layer_params(cfg: ModelConfig, m: int = 1) -> tuple[str, ...]:
     """The leaf names of one layer of ``cfg``'s training tree:
     ``LAYER_PARAMS`` (dense), the attention and MoE leaves (moe) or
-    ``MAMBA_LAYER_PARAMS`` (ssm)."""
-    return tuple(train_leaf_paths(cfg))
+    ``MAMBA_LAYER_PARAMS`` (ssm; with ``MAMBA_TIER_LEAVES`` on a model
+    tier of m > 1)."""
+    return tuple(train_leaf_paths(cfg, m))
 
 
 def _check_train(cfg: ModelConfig) -> None:
@@ -524,8 +539,9 @@ def layer_leaves(slot: dict, cfg: ModelConfig) -> dict[str, Any]:
     layer holds ``moe``, a Mamba2 one ``mamba``)."""
     kind = LayerSpec(mixer="mamba2" if "mamba" in slot else "attn",
                      mlp="moe" if "moe" in slot else "dense")
+    tier = "mamba" in slot and MAMBA_TIER_LEAVES[0] in slot["mamba"]
     out = {}
-    for name, path in spec_leaf_paths(cfg, kind).items():
+    for name, path in spec_leaf_paths(cfg, kind, tier).items():
         node = slot
         for k in path:
             node = node[k]
@@ -533,17 +549,30 @@ def layer_leaves(slot: dict, cfg: ModelConfig) -> dict[str, Any]:
     return out
 
 
-def train_param_shapes(cfg: ModelConfig) -> dict:
+def train_param_shapes(cfg: ModelConfig, m: int = 1) -> dict:
     """:func:`init_train_params`'s tree with empty tensors on the ``meta``
-    device: the shapes, nothing allocated."""
+    device: the shapes, nothing allocated; on a model tier of m, of
+    :func:`train_layout`'s tree."""
     _check_train(cfg)
     L, d = cfg.n_layers, cfg.d_model
     meta = lambda *shape: torch.empty(shape, device="meta")
     layers = {n: meta(L, *shp) for n, shp in _layer_shapes(cfg).items()}
-    return {"embed": meta(cfg.padded_vocab, d),
-            "final_norm": {"scale": meta(d)},
-            **_head(cfg, meta(d, cfg.padded_vocab)),
-            "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
+    return train_layout({"embed": meta(cfg.padded_vocab, d),
+                         "final_norm": {"scale": meta(d)},
+                         **_head(cfg, meta(d, cfg.padded_vocab)),
+                         "blocks": {"slot0": stack_tree(layers, cfg)},
+                         "rest": []}, cfg, m)
+
+
+def train_layout(tree: dict, cfg: ModelConfig, m: int = 1) -> dict:
+    """The training tree a step on a model tier of m holds, from the JAX
+    tree: the same for the dense and moe families; for the ssm family
+    ``models/tp.ssm_tier_tree`` (``in_proj`` and ``conv_w`` each split
+    into the rank-major columns of the heads and the B and C columns
+    every rank holds whole). ``tp.ssm_jax_tree`` maps it back."""
+    if m > 1 and cfg.family == "ssm":
+        return ssm_tier_tree(tree, cfg, m)
+    return tree
 
 
 def init_train_params(cfg: ModelConfig, generator: torch.Generator,
@@ -642,15 +671,16 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     blocks' gathers instead: layer i + depth's is started before layer i
     runs and finished outside the checkpoint, so it is not repeated.
 
-    ``tp`` (``models/tp.TensorParallel``) runs the dense decoder on one
-    rank of a model tier: the gathered weights are the rank's part over
-    "model" (its vocabulary rows of ``embed``), the blocks are
-    ``tp.block_train_tp`` and the logits the rank's (B, S, Vpad/m)
-    columns."""
+    ``tp`` (``models/tp.TensorParallel``) runs the dense decoder or the
+    Mamba2 stack on one rank of a model tier: the gathered weights are the
+    rank's part over "model" (its vocabulary rows of ``embed``; a Mamba2
+    layer's leaves of :func:`train_layout`'s tree), the blocks are
+    ``tp.block_train_tp`` or ``tp.mamba_train_tp`` and the logits the
+    rank's (B, S, Vpad/m) columns."""
     from torch.utils.checkpoint import checkpoint
     _check_train(cfg)
     gather = gather or (lambda name, t: t.to(cfg.dtype))
-    names = layer_params(cfg)
+    names = layer_params(cfg, 1 if tp is None else tp.m)
     B, S = tokens.shape
     embed = gather("embed", params["embed"])
     seq = tp is not None and tp.seq_split(S)
@@ -659,7 +689,8 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     else:
         x = torch.nn.functional.embedding(tokens, embed)
     if cfg.family == "ssm":
-        block = lambda x, w: mamba_block_train(x, w, cfg)
+        block = (lambda x, w: mamba_block_train(x, w, cfg)) if tp is None \
+            else (lambda x, w: mamba_train_tp(x, w, cfg, tp, seq))
     else:
         cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
                                cfg.head_dim_, cfg.rope_theta)

@@ -26,11 +26,12 @@ the JAX ``_make_locality_decode_combine``.
 
 On a grid with a "model" tier (``RankGrid.build(q, pl, m)``) each rank
 holds its part of the model (``models/tp.TensorParallel``: its q heads and
-the KV heads they read, its MLP columns and vocabulary rows; the
-row-parallel products, the embedding and the greedy token go over the
-tier), and each model lane of q·pl ranks serves as a grid of its own in
-one of the layouts above: rows by lane rank, the combine and the
-migration over the lane, with the rank's KV heads.
+the KV heads they read, its MLP columns, or its SSD heads; its vocabulary
+rows; the row-parallel products, the embedding, the gated norm's
+statistic and the greedy token go over the tier), and each model lane of
+q·pl ranks serves as a grid of its own in one of the layouts above: rows
+by lane rank, the combine and the migration over the lane, with the
+rank's KV heads or SSD heads.
 
 A gloo grid moves CPU tensors, so on the card the combine stages its fp32
 payload (the maxima, then the packed [o, l]) to the host and back: the

@@ -31,8 +31,8 @@ gathers stage through the host (``staging_bytes``).
 
 On a grid with a "model" tier the engine hands it the rank's model lane
 (``RankGrid``'s ``rank``, ``p`` and groups are the lane's) and the cache
-shapes of the rank's KV heads, so each lane moves its own heads: 1/m of
-the bytes where m divides the KV heads.
+shapes of the rank's KV heads (or SSD heads), so each lane moves its own
+heads: 1/m of the bytes where m divides the KV heads.
 """
 from __future__ import annotations
 

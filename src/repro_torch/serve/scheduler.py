@@ -26,7 +26,9 @@ rank 0 decides each admission and broadcasts the request id (or -1: wait)
 to every rank of the grid, all q·pl·m of them (``RankGrid.all_group``):
 on a model tier the lanes' ranks pair up in the tier's collectives, so
 every lane must admit the same request at the same step, whatever its own
-clock says, and the others follow.
+clock says, and the others follow. A model tier agrees so in every layout,
+also where each lane holds the whole batch (one that its ranks do not
+divide, whose state the ssm family never splits over the sequence).
 
 Batch-sharded mode (a grid whose ranks the batch divides over): rank i
 holds the rows [i * B_loc, (i + 1) * B_loc), B_loc = B / p, in a cache of
@@ -55,6 +57,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -122,7 +125,8 @@ class DecodeGraph:
     warm-up steps first build the kernels and the libraries' handles (no
     build may happen inside the capture); they write the cache, which is
     zeroed again before the capture, so the first replay sees what the
-    first eager step would. A capture that fails raises. Launch counts: the
+    first eager step would. Python's garbage collector is held off during
+    the capture. A capture that fails raises. Launch counts: the
     wrappers count the launches they record into the graph; those are taken
     off again, and each replay adds them.
     """
@@ -140,8 +144,18 @@ class DecodeGraph:
             leaf.zero_()
         before = kernels.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.logits, _ = model(tok, mode="decode", cache=cache)
+        # a garbage collection inside the capture may destroy an earlier
+        # graph, which a capture does not permit (it fails): collect before,
+        # none during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.logits, _ = model(tok, mode="decode", cache=cache)
+        finally:
+            if collecting:
+                gc.enable()
         after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
@@ -326,7 +340,10 @@ class Scheduler:
 
     def _admit(self) -> None:
         now = self.clock.now()
-        agree = self.sequential or self.sharded
+        # the ranks must decide alike where they exchange in a step: a split
+        # cache, sharded rows, or a model tier (whose collectives pair
+        # ranks even where every lane holds the whole batch)
+        agree = self.sequential or self.sharded or self.engine.tp is not None
         while self.queue:
             if self.sequential and self.active:
                 break                      # one request at a time

@@ -23,12 +23,14 @@ engine as it shapes the JAX one:
   cache on the card, its plain version for a cache on the CPU.
 
 On a grid with a "model" tier (``RankGrid.build(q, pl, m)``, the dense
-family; ``models/tp.check_tp`` is the one gate) each model lane of q·pl
-ranks takes the layout above, and the cache holds the rank's KV heads: KV
-/ m of them where m divides KV (the JAX ``cache_shardings`` puts the heads
-on "model"), else the heads its q heads read, where the JAX cache shards
-the head dim instead and its engine keeps the GSPMD ("xla") combine
-(``_combine_eligible``).
+and ssm families; ``models/tp.check_tp`` is the one gate) each model lane
+of q·pl ranks takes the layout above, and the cache holds the rank's KV
+heads: KV / m of them where m divides KV (the JAX ``cache_shardings`` puts
+the heads on "model"), else the heads its q heads read, where the JAX
+cache shards the head dim instead and its engine keeps the GSPMD ("xla")
+combine (``_combine_eligible``); or its SSD heads' state and conv
+channels (the ssm family, whose state is never split over the sequence:
+a batch the lane does not divide is held whole on every lane).
 
 The MoE family is served on one rank: :meth:`ServeSpec.resolve` refuses it
 on a grid of more than one rank (ROADMAP.md Queue 1 item 14).

@@ -8,7 +8,9 @@ the pods hold replicas), ``("pod", "data")`` (over every rank of a model
 lane, pod-major, the grid-rank order of ``core/topology.RankGrid``) or
 ``"model"`` (over the m ranks of the model tier). Parameters shard 2-D:
 Megatron-style column- and row-parallel projections over ``"model"`` where
-the dim divides by m (else the dim stays whole), and the FSDP dim over
+the dim divides by m (else the dim stays whole; the port's own leaves of a
+Mamba2 layer on a model tier, ``in_proj_bc`` and ``conv_w_bc``, are whole
+on the tier, the former FSDP-sharded as ``in_proj``), and the FSDP dim over
 ``("pod", "data")`` when it divides by the lane's q·pl ranks, over
 ``"data"`` when it divides only by a pod's ranks, whole otherwise; norm
 scales stay replicated. Stacked leaves (``blocks/...``) carry a leading
@@ -97,6 +99,10 @@ def _leaf_spec(path: tuple[str, ...], shape: tuple[int, ...],
         return tuple(spec)
     if name in ("wq", "wk", "wv", "in_proj"):          # column-parallel
         return (fdim(shape[0]), mdim(shape[1]))
+    if name == "in_proj_bc":      # Mamba2's B and C columns on a model tier,
+        return (fdim(shape[0]), None)    # whole on each rank (models/tp.py)
+    if name == "conv_w_bc":
+        return (None, None)
     if name in ("wo", "out_proj"):                     # row-parallel
         return (mdim(shape[0]), fdim(shape[1]))
     if name in ("gate", "up"):

@@ -47,7 +47,11 @@ sequence. A leaf sharded over "model" never syncs over the tier (where a
 rank uses more of it than its part, ``wk``/``wv`` whose KV heads m does not
 divide, the tier's gather does, in its backward); a leaf the tier holds
 whole takes the tier's sum where each model rank saw only part of the work:
-the norm scales with ``seq_shard``. The tier's collectives are the
+the norm scales with ``seq_shard``, and a Mamba2 layer's whole-held leaves
+always (each rank's gradient covers its SSD heads' work: the B and C
+columns and channels, ``conv_b``, ``dt_bias``, ``A_log``, ``D`` and the
+gated norm's scale; the ssm family's tree on a tier is
+``transformer.train_layout``'s). The tier's collectives are the
 library's, under every ``grad_sync``, metered apart (``CommMeter.model_*``).
 
 MoE expert parallelism (``moe_dispatch``, the JAX resolution): on a grid of
@@ -68,8 +72,8 @@ meter counts the dispatch's all-to-alls (``a2a_*``, both legs, forward and
 backward) and the tokens transport's gathers (``moe_gather_*``).
 
 Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"``,
-``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8), the
-ssm family (item 13) and the MoE family (item 14) on a model tier.
+``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8) and
+the MoE family (item 14) on a model tier.
 """
 from __future__ import annotations
 
@@ -422,7 +426,8 @@ def _shard(t: torch.Tensor, mdim: int, dim: int, axes: str, grid
     if dim >= 0:
         n, i = (grid.p, grid.rank) if "pod" in axes else (grid.pl, grid.l)
         t = t.chunk(n, dim)[i]
-    return t.contiguous().clone() if mdim >= 0 or dim >= 0 else t
+    return t.contiguous().clone() if mdim >= 0 or dim >= 0 \
+        else t.contiguous()      # the optimizer updates flat views in place
 
 
 def _path_tree(tree, path=()):
@@ -464,7 +469,8 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     moe_alg, moe_transport, moe_source = resolve_moe_dispatch(
         cfg, grid, grad_sync, moe_dispatch, global_batch)
     ep_on = moe_alg != "none"
-    shapes = T.train_param_shapes(cfg)
+    m = grid.m if dist_on else 1
+    shapes = T.train_param_shapes(cfg, m)
     pspecs = param_specs(shapes, axes, fsdp=fsdp and dist_on, moe_ep=ep_on)
     tp = (TensorParallel.build(cfg, grid, seq_shard=seq_shard, meter=meter)
           if dist_on and grid.m > 1 else None)
@@ -497,7 +503,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                               meter)
         return LeafGather(pod, "xla" if xla else "bruck", dim, meter)
 
-    names = T.layer_params(cfg)
+    names = T.layer_params(cfg, m)
     moe = "router" in names
     slot_dims = T.layer_leaves(block_slice_dims(dims["blocks"]["slot0"]),
                                cfg)
@@ -529,10 +535,14 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     idx_full = [i for i, (k, e) in enumerate(zip(flat_dims, flat_ep))
                 if k < 0 and not e]
     # the model tier: the leaves it shards hold distinct parts on its
-    # ranks; the norm scales it holds whole
+    # ranks; the norm scales and a Mamba2 layer's whole-held leaves it
+    # holds whole
     model_sharded = [k >= 0 for k in leaves(model_param_dims(pspecs))]
-    idx_scale = [i for i, path in enumerate(leaves(_path_tree(pspecs)))
-                 if path.endswith("/scale")]
+    paths = leaves(_path_tree(pspecs))
+    idx_scale = {i for i, path in enumerate(paths) if path.endswith("/scale")}
+    idx_mamba = {i for i, path in enumerate(paths)
+                 if "/mamba/" in path and not model_sharded[i]} \
+        if m > 1 else set()
 
     def staged(fn, g: Any, t: torch.Tensor) -> torch.Tensor:
         """``fn`` on ``t`` moved to the grid's device and back."""
@@ -608,12 +618,15 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
         loss_local = metrics_sum / grad_accum
         aux_local = aux_sum / grad_accum
 
-        if tp is not None and tp.seq_split(batch["tokens"].shape[1]):
-            # each model rank normed S/m rows: the scales' gradients are
-            # the tier's sum (fp32, one bucket)
-            out = bucketed_sync([bufs[i] for i in idx_scale],
+        # each model rank normed S/m rows (seq_shard), or ran its SSD
+        # heads' part of a Mamba2 layer: those gradients are the tier's sum
+        # (fp32 buckets)
+        idx_tier = sorted(idx_mamba | (idx_scale if tp is not None and
+                          tp.seq_split(batch["tokens"].shape[1]) else set()))
+        if idx_tier:
+            out = bucketed_sync([bufs[i] for i in idx_tier],
                                 tp.tier.all_reduce, bucket_mb=bucket_mb)
-            for i, g in zip(idx_scale, out):
+            for i, g in zip(idx_tier, out):
                 bufs[i] = g
         if dist_on:
             with _Metered(meter, "sync", [grid, pod, lane]):
@@ -681,7 +694,8 @@ def init_state(cfg: ModelConfig, artifacts: StepArtifacts, *,
     """This rank's state: its shards of ``params`` (the full fp32 tree,
     e.g. ``transformer.train_params_from_jax``), or of
     ``transformer.init_train_params`` drawn on the step's device from
-    ``seed``; zero ``mu``, ``nu`` and step."""
+    ``seed``, in ``transformer.train_layout``'s tree for the step's grid;
+    zero ``mu``, ``nu`` and step."""
     device = artifacts.device
     if params is None:
         params = T.init_train_params(
@@ -690,6 +704,7 @@ def init_state(cfg: ModelConfig, artifacts: StepArtifacts, *,
     axes = fsdp_param_axes(artifacts.pspecs)
     mdims = model_param_dims(artifacts.pspecs)
     grid = artifacts.grid
+    params = T.train_layout(params, cfg, grid.m if grid is not None else 1)
     shards = tree_map(lambda t, mk, k, a: _shard(
         t.to(device=device, dtype=torch.float32), mk, k, a, grid), params,
         mdims, dims, axes)

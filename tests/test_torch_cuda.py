@@ -22,7 +22,9 @@ input dtype, held against the plain version on the same inputs) max |y -
 y_ref| / max |y_ref| < 1e-4 and max |h - h_ref| / max |h_ref| < 1e-4, the chunk
 invariance bound of ``tests/test_kernels.py`` (the kernel chunks by 64,
 the plain version by Q); the SSD backward and the gated RMSNorm backward
-at the tolerances stated where their cases are (``SSD_BWD_REL``).
+at the tolerances stated where their cases are (``SSD_BWD_REL``); the
+gated RMSNorm split over a model tier (its four launches, the tier's sums
+emulated) against the unsplit plain forward and backward.
 """
 import pytest
 import torch
@@ -537,7 +539,9 @@ def test_launch_counts_follow_the_graph_replays(cuda, arch):
                 flash_attention_bwd_dkdv=0, flash_attention_bwd_wgmma=0,
                 ssd_bwd=0)
     want.update({"rmsnorm_bwd.plain": 0, "rmsnorm_bwd.residual": 0,
-                 "rmsnorm_bwd.gated": 0})
+                 "rmsnorm_bwd.gated": 0, "rmsnorm.gated_rowsq": 0,
+                 "rmsnorm.gated_finish": 0, "rmsnorm_bwd.gated_rowdot": 0,
+                 "rmsnorm_bwd.gated_finish": 0})
     assert {k: after[k] - before[k] for k in after} == want
 
 
@@ -1033,4 +1037,107 @@ def test_rmsnorm_gated_train_gradients_match_autograd_of_the_plain_version(
     want = run(rms_ops.rmsnorm_gated_ref)
     for a, b, fp32_tol in zip(got, want, (1e-4, 1e-4, 1e-3)):
         tol = fp32_tol if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+# the gated form split over a model tier, one rank's columns of every row:
+# (rows, columns a rank, m, width of the tensor z is a column slice of):
+# 8f's rank of mamba2-780m at m = 2 and 4 (z a slice of the rank's in_proj
+# output), ragged rows, and d % 4 != 0 (one value an access)
+RMS_GATED_TIER_CASES = [(1024, 1536, 2, 3352), (1024, 768, 4, 1804),
+                        (37, 40, 2, 90), (5, 37, 3, 80)]
+
+
+class _SumTier:
+    """A model tier of one rank: its sum is the value itself."""
+
+    @staticmethod
+    def all_reduce(x):
+        return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RMS_GATED_TIER_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_rmsnorm_gated_tier_kernels_on_card(cuda, dtype, case):
+    """The split gated forms over m ranks' columns, the tier's sums
+    emulated by summing every rank's first launch: the rows' sums of
+    squares and dot products against their plain versions (1e-5 and 1e-4
+    relative), the finishes against the unsplit plain forward and
+    backward on the whole rows, this rank's columns (the unsplit cases'
+    limits: out and dz 1e-5 fp32 and 2e-2 bf16, dy 1e-5, dscale 1e-4 fp32
+    and 2e-2 bf16), one launch each, the backward finish bitwise equal
+    across two calls and its counters set back."""
+    rows, d, m, width = case
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    ys = [rnd(rows, d) * 2 for _ in range(m)]
+    zs = [(rnd(rows, width) * 2).to(dtype)[:, :d] for _ in range(m)]
+    scs = [(rnd(d) * 0.2).to(dtype) for _ in range(m)]
+    douts = [rnd(rows, d).to(dtype) for _ in range(m)]
+    full = [torch.cat(t, -1).contiguous() for t in (ys, zs, scs, douts)]
+    y, z, sc, dout = ys[0], zs[0], scs[0], douts[0]
+    n = dict(rms_ops.FORM_LAUNCHES), dict(rms_ops.FORM_BWD_LAUNCHES)
+    ss = torch.stack([rms_ops.rmsnorm_gated_rowsq(a, b)
+                      for a, b in zip(ys, zs)]).sum(0)
+    torch.testing.assert_close(rms_ops.rmsnorm_gated_rowsq(y, z),
+                               rms_ops.rmsnorm_gated_rowsq_ref(y, z),
+                               atol=0, rtol=1e-5)
+    out = rms_ops.rmsnorm_gated_finish(y, z, sc, ss, d_norm=m * d)
+    assert out.dtype == dtype and out.shape == (rows, d)
+    _close(out, rms_ops.rmsnorm_gated_ref(*full[:3])[:, :d], dtype, 1e-5)
+    dot = torch.stack([rms_ops.rmsnorm_gated_rowdot(*a) for a in
+                       zip(ys, zs, scs, douts)]).sum(0)
+    torch.testing.assert_close(
+        rms_ops.rmsnorm_gated_rowdot(y, z, sc, dout),
+        rms_ops.rmsnorm_gated_rowdot_ref(y, z, sc, dout), atol=1e-4,
+        rtol=1e-4)
+    got = rms_ops.rmsnorm_gated_bwd(y, z, sc, dout, row_ss=ss, row_dot=dot,
+                                    d_norm=m * d)
+    assert (rms_ops.FORM_LAUNCHES["gated_rowsq"] - n[0]["gated_rowsq"],
+            rms_ops.FORM_LAUNCHES["gated_finish"] - n[0]["gated_finish"],
+            rms_ops.FORM_BWD_LAUNCHES["gated_rowdot"]
+            - n[1]["gated_rowdot"],
+            rms_ops.FORM_BWD_LAUNCHES["gated_finish"]
+            - n[1]["gated_finish"]) == (m + 1, 1, m + 1, 1)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    assert not rms_ops.bwd_counters(y.device, stream).any()
+    rdy, rdz, rdsc = rms_ops.rmsnorm_gated_bwd_ref(*full)
+    _close(got[0], rdy[:, :d], torch.float32, 1e-5)
+    _close(got[1], rdz[:, :d], dtype, 1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[2], rdsc[:d], atol=1e-4, rtol=1e-4)
+    else:
+        _close(got[2], rdsc[:d], dtype, None)
+    again = rms_ops.rmsnorm_gated_bwd(y, z, sc, dout, row_ss=ss, row_dot=dot,
+                                      d_norm=m * d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_gated_tier_train_on_one_rank_is_the_gated_form(cuda,
+                                                                dtype):
+    """``rmsnorm_gated_tier_train`` on a tier of one rank (its sums the
+    values themselves) through torch.autograd, against
+    ``rmsnorm_gated_train``: the same function, so the outputs and
+    gradients agree within fp32 1e-5 and bf16 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda)
+    y, proj = rnd(64, 1536) * 2, (rnd(64, 3352) * 2).to(dtype)
+    sc = (rnd(1536) * 0.2).to(dtype)
+    w = rnd(64, 1536).to(dtype)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (y, proj, sc)]
+        out = fn(leaves[0], leaves[1][:, :1536], leaves[2])
+        return (out,) + torch.autograd.grad(
+            (out.float() * w.float()).sum(), leaves)
+
+    got = run(lambda a, b, c: rms_ops.rmsnorm_gated_tier_train(
+        a, b, c, _SumTier(), d_norm=1536))
+    want = run(rms_ops.rmsnorm_gated_train)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)

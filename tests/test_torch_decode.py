@@ -154,7 +154,9 @@ def test_launch_counts_read_and_advance_every_counter():
             "rmsnorm.gated", "rmsnorm_bwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkdv", "flash_attention_bwd_wgmma",
             "rmsnorm_bwd.plain", "rmsnorm_bwd.residual",
-            "rmsnorm_bwd.gated", "ssd_bwd"} == set(counts)
+            "rmsnorm_bwd.gated", "ssd_bwd", "rmsnorm.gated_rowsq",
+            "rmsnorm.gated_finish", "rmsnorm_bwd.gated_rowdot",
+            "rmsnorm_bwd.gated_finish"} == set(counts)
     delta = {"decode_scores": 2, "decode_stats": 2, "rmsnorm": 5,
              "rmsnorm.plain": 3, "rmsnorm.residual": 2,
              "flash_attention_bwd_dq": 1, "rmsnorm_bwd.residual": 4}

@@ -178,7 +178,7 @@ def test_mamba_train_mode_and_param_count_match_jax(precise_jax):
     for cfg_name in ("mamba2-780m",):
         jc_, tc_ = jconfigs.get(cfg_name), configs.get(cfg_name)
         assert ssm.mamba_param_count(tc_) == jssm.mamba_param_count(jc_)
-        assert ssm._dims(tc_) == jssm._dims(jc_) == (3072, 48, 64, 128, 1)
+        assert ssm.ssm_dims(tc_) == jssm._dims(jc_) == (3072, 48, 64, 128, 1)
     for name, (shape, dtype) in ssm.mamba_cache_shapes(tcfg, 3).items():
         spec = jssm.mamba_cache_specs(jcfg, 3)[name]
         assert shape == spec.shape
@@ -198,7 +198,7 @@ def test_causal_conv_matches_jax():
 def test_mamba_init_distributions():
     cfg = configs.get_smoke("mamba2-780m")
     p = ssm.mamba_init(torch.Generator().manual_seed(0), cfg, "cpu")
-    d_inner, H, P, N, G = ssm._dims(cfg)
+    d_inner, H, P, N, G = ssm.ssm_dims(cfg)
     assert p["in_proj"].shape == (cfg.d_model, 2 * d_inner + 2 * G * N + H)
     assert p["conv_w"].shape == (cfg.ssm_conv, d_inner + 2 * G * N)
     dt = torch.nn.functional.softplus(p["dt_bias"].float())

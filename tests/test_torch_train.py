@@ -252,15 +252,19 @@ def test_refusals_name_their_items():
     assert make_train_step(H._small_cfg("mamba2-780m", 2), None,
                            device="cpu").step_fn is not None
     # the model tier (item 11's training half) is taken: seq_shard is a
-    # no-op without one, the specs shard over "model"; the ssm family's
-    # tier is item 13
+    # no-op without one, the specs shard over "model"; so is the ssm
+    # family's (item 13), but for SSD heads that m does not divide; the MoE
+    # family's tier is item 14
     assert make_train_step(cfg, None, device="cpu",
                            seq_shard=True).step_fn is not None
     assert param_specs({"embed": torch.empty(4, 4)},
                        {"pod": 2, "data": 2, "model": 2}, fsdp=True) == \
         {"embed": ("model", ("pod", "data"))}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        check_tp(H._small_cfg("mamba2-780m", 2), 2)
+    check_tp(H._small_cfg("mamba2-780m", 2), 2)
+    with pytest.raises(NotImplementedError, match="SSD heads 16"):
+        check_tp(H._small_cfg("mamba2-780m", 2), 3)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        check_tp(H._small_cfg("qwen2-moe-a2.7b", 2), 2)
     with pytest.raises(ValueError, match="prefetch_depth"):
         make_train_step(cfg, None, device="cpu", prefetch_depth=1)
 

@@ -773,14 +773,17 @@ res["one_gather"] = {k: getattr(st, k) for k in EDGES}
 with open(f"{out_dir}/out.json", "w") as fh:
     json.dump(res, fh)
 """
-# The JAX (2, 2, 2) ("pod", "data", "model") step for tests/test_torch_tp.py:
-# ``python -c JAX_TP_REFERENCE out_dir plan.json`` with plan {n_layers,
-# global_batch, seq_len, steps, variants (name -> make_train_step keywords,
-# "grad_sync" among them)}. On jax 0.9.0 the mesh needs Auto axes, no
-# jax.set_mesh, and the steps under ``with mesh:`` (with ``jax.set_mesh``,
-# or Explicit axes, the embedding gather raises ShardingTypeError). Writes
-# out.json (losses, grad norms, the mesh's device ids) and an .npz of
-# parameters per variant (and params0, the initial state's).
+# The JAX (2, 2, 2) ("pod", "data", "model") step for tests/test_torch_tp.py
+# and tests/test_torch_ssm_tp.py: ``python -c JAX_TP_REFERENCE out_dir
+# plan.json`` with plan {n_layers, global_batch, seq_len, steps, variants
+# (name -> make_train_step keywords, "grad_sync" among them), and optionally
+# arch (the smoke config's, llama3.2-3b by default) and precise_ssd (the
+# mixer's ssd_chunked made precise, the function the port's kernel
+# computes)}. On jax 0.9.0 the mesh needs Auto axes, no jax.set_mesh, and
+# the steps under ``with mesh:`` (with ``jax.set_mesh``, or Explicit axes,
+# the embedding gather raises ShardingTypeError). Writes out.json (losses,
+# grad norms, the mesh's device ids) and an .npz of parameters per variant
+# (and params0, the initial state's).
 JAX_TP_REFERENCE = r"""
 import dataclasses, json, sys, warnings
 import numpy as np
@@ -793,7 +796,11 @@ from repro.train.step import custom_batch_specs, init_state, make_train_step
 
 out_dir = sys.argv[1]
 plan = json.loads(open(sys.argv[2]).read())
-cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
+if plan.get("precise_ssd"):
+    import functools
+    from repro.models import ssm
+    ssm.ssd_chunked = functools.partial(ssm.ssd_chunked, precise=True)
+cfg = dataclasses.replace(configs.get_smoke(plan.get("arch", "llama3.2-3b")),
                           n_layers=plan["n_layers"], dtype=jnp.float32)
 B, S = plan["global_batch"], plan["seq_len"]
 mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
@@ -933,7 +940,7 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
         state, m = art.step_fn(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
     meter = art.meter.take()
-    paths = sorted(flat_params)      # the JAX flattening order of leaves()
+    paths = tree_paths(state.params)   # the flattening order of leaves()
     return dict(
         metrics=metrics,
         shards={p: t.numpy().copy() for p, t in
@@ -957,6 +964,45 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
         moe=(art.moe_dispatch, art.moe_transport, art.moe_dispatch_source))
 
 
+def tree_paths(tree, path=()) -> list[str]:
+    """The "/"-joined leaf paths of a tree in ``optim.adamw.leaves``'s
+    order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k],
+                                                             path + (k,))]
+    if isinstance(tree, list):
+        return [p for i, x in enumerate(tree)
+                for p in tree_paths(x, path + (str(i),))]
+    return ["/".join(path)]
+
+
+def jax_layout(flat: dict, cfg_or_arch, m: int, n_layers: int = 2) -> dict:
+    """{path: array} of a step's whole tree on a model tier of m (as
+    :func:`assemble_tp` gives it) in the JAX tree's layout: the ssm
+    family's ``in_proj`` and ``conv_w`` put back whole
+    (``models/tp.ssm_jax_tree``); the other families' as they are."""
+    from repro_torch.models.tp import ssm_jax_tree
+    cfg = (_small_cfg(cfg_or_arch, n_layers) if isinstance(cfg_or_arch, str)
+           else cfg_or_arch)
+    if m == 1 or cfg.family != "ssm":
+        return dict(flat)
+    tree: dict = {}
+    for path, a in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = a
+    tree = ssm_jax_tree(tree, cfg, m)
+    return {p: _at(tree, p) for p in tree_paths(tree)}
+
+
+def _at(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
 def assemble_tp(results: list, pl: int, m: int) -> dict:
     """Every leaf whole again from the shards of a grid with a model tier
     (``results`` in grid-rank order): each model lane's parts assembled
@@ -968,18 +1014,29 @@ def assemble_tp(results: list, pl: int, m: int) -> dict:
         [lane[path] for lane in lanes], mdims[path])) for path in lanes[0]}
 
 
+def odd_heads_mamba():
+    """The reduced mamba2 with 3 SSD heads (d_model 96, heads of 64): a
+    head count that a model tier of 2 does not divide."""
+    import dataclasses
+    return dataclasses.replace(_small_cfg("mamba2-780m", 2), d_model=96,
+                               ssm_headdim=64)
+
+
 def task_tp_refusals(ctx, q, pl, m):
-    """On a q x pl x m grid: the mamba2 step and mamba2 serving refuse the
-    model tier, dense serving resolves; returns the messages (None where
-    nothing was refused)."""
+    """On a q x pl x m grid: the mamba2 step and mamba2 serving refuse SSD
+    heads that m does not divide, the MoE step refuses the model tier,
+    dense serving resolves; returns the messages (None where nothing was
+    refused)."""
     from repro_torch.serve.spec import ServeSpec
     from repro_torch.train import make_train_step
     grid = ctx.grid(q, pl, m)
     out = []
-    for call in (lambda: make_train_step(_small_cfg("mamba2-780m", 2), grid,
+    for call in (lambda: make_train_step(odd_heads_mamba(), grid,
                                          device="cpu"),
                  lambda: ServeSpec(batch=1, cache_len=16).resolve(
-                     _small_cfg("mamba2-780m", 2), grid),
+                     odd_heads_mamba(), grid),
+                 lambda: make_train_step(_small_cfg("qwen2-moe-a2.7b", 2),
+                                         grid, device="cpu"),
                  lambda: ServeSpec(batch=1, cache_len=16,
                                    combine="locality").resolve(
                      _small_cfg("llama3.2-3b", 2), grid)):
