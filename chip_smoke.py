@@ -155,14 +155,35 @@ the package is missing. Phases, each fatal on failure:
    decode step must read (at S = 1 each row has K slots in every expert,
    so every expert's weights are read: 26.6 GB a step) at 3.35 TB/s
    beside the step's time;
+4v. the dense variants at full width and depth, one line each through the
+   same ``serve_full_width``: yi-6b (32 layers, kv 4, untied head) on the
+   16 requests at ``cache_len`` 1,024; h2o-danube-3-4b (24 layers, every
+   one a 4,096-token window, head dim 120) and gemma2-9b (42 layers,
+   window and full layers alternating, softcaps 50 and 30, sandwich
+   norms, GeGLU, scaled embeddings, head dim 256) at ``cache_len`` 8,192
+   with the 16 requests and two long ones, a 6,000-token prompt whose
+   prefill rolls the ring and a 4,000-token prompt with 200 new tokens
+   whose decode crosses the wrap at slot 4,096 (``VARIANT_RUNS``); launch
+   counts and RMSNorm forms as the path implies (a sandwich layer's two
+   post-norms plain), flash at D = 120 and the ring decode pair counted
+   apart (``VARIANT_KERNELS``); then ``graph_eager_checks``: 6 decode
+   steps, a long request's crossing the ring's wrap, the replay's logits
+   and cache bitwise the eager forward's on a copy. Before them the
+   kernels at their shapes (``variant_kernel_cases``: flash at S = 512
+   and 6,000, the decode pair over a wrapped 4,096-slot ring; SDPA beside
+   them where it computes the same function, none with a softcap); after
+   them ``variant_exact_check``: h2o-danube and gemma2 at full width, 2
+   layers, fp32, a 4,090-token prompt decoded across the ring's wrap in
+   the engine, its 12 logits within ``VARIANT_EXACT_TOL`` of a plain
+   full-sequence forward with no ring and its tokens equal;
 6. sequence-parallel serving, ``serve_seq_parallel``: 6 spawned ranks on
    this one card, joined in one gloo group (``launch.serve.run_ranks``).
    First a reduced llama3.2-3b (2 layers, fp32, full width, a 6,144-slot
-   cache) on 2 x 2 and 3 x 2 ranks, in the three layouts below: its 32
+   cache) on 2 x 2 and 3 x 2 ranks, in the three layouts below: its 16
    greedy tokens a request must equal the one-rank engine's exactly. Then llama3.2-3b at
    full width (bf16, random weights from seed 0) with
    ``ServeSpec(batch=1, cache_len=32768)`` on 2 x 2 of the ranks, three
-   requests of 3,000, 11,000 and 20,000 prompt tokens and 16 new tokens,
+   requests of 3,000, 11,000 and 20,000 prompt tokens and 8 new tokens,
    submitted together and served one at a time, in three layouts:
    "locality" and "xla" over ("pod", "data") (8,192 slots a rank) and
    "locality" over ("data",) (16,384). Every rank prefills the whole
@@ -247,8 +268,9 @@ the package is missing. Phases, each fatal on failure:
    oracle's for the Mamba2 leaves (in_proj and out_proj a layer, and the
    embedding). 8f, ``train_ssm_tp_on_ranks`` (after phase 9): mamba2-780m
    at full width split by SSD heads over a model tier, 8 spawned ranks as
-   2 x 2 x 2 sharing the card, depth cut to 8 layers (the gloo
-   transport), one 1,024-token sequence a DP rank, 2 steps each of
+   2 x 2 x 2 sharing the card, depth cut to 4 layers (the gloo
+   transport; 8 before phase 4v), one 1,024-token sequence a DP rank, 2
+   steps each of
    locality + FSDP, ``seq_shard`` and xla + FSDP: metrics equal on every
    rank, the first loss within ``SSM_TP_LOSS_REL`` of the card's one rank
    at the same depth, launches exact (the gated norm split: 4 launches
@@ -272,7 +294,8 @@ the package is missing. Phases, each fatal on failure:
    one rank running the ranks' rows as p microbatches (each rank's
    auxiliary loss is its own rows'), at 8b's limits, and the card's one
    rank against the CPU's; 10b: qwen2-moe-a2.7b at full width on 2 x 2
-   of the ranks, depth cut to 2 layers, one 1,024-token sequence a rank,
+   of the ranks, depth cut to 1 layer (2 before phase 4v needed the
+   run's time), one 1,024-token sequence a rank,
    locality + FSDP with the dispatch "locality" (2 steps), "xla" and
    "none" (1 step each): the tokens and slots transports' first losses
    bitwise equal, "none"'s within ``MOE_LOSS_REL``; every rank's launches
@@ -285,12 +308,13 @@ the package is missing. Phases, each fatal on failure:
    ranks sharing the card as 2 x 2 x 2, llama3.2-3b split over a model
    tier of 2 (12 q and 4 KV heads a rank, its MLP columns and vocabulary
    rows, cut from the seed-0 weights as they are drawn). 9a: phase 7's
-   ServeSpec and home pod on the first 8 requests of its trace
-   (``TIER_MIGRATIONS`` = 4 migrations, the count the JAX engine and the
+   ServeSpec and home pod on the first 8 requests of its trace, their
+   budgets cut to ``TIER_MAX_NEW`` (``TIER_MIGRATIONS`` = 4 migrations, the count the JAX engine and the
    port give for it at a reduced size in tests/test_torch_serve_tp.py),
    for ``locality_bruck`` and ``xla``; 9b: phase 6's 32,768-slot cache
-   split over ("pod", "data") on each model lane, prompts of 3,000 and
-   11,000 tokens, 8 new each, ``combine="locality"`` and ``"xla"``. Each
+   split over ("pod", "data") on each model lane, a prompt of 3,000
+   tokens at full width (of 562 and 2,062 reduced), 8 new each,
+   ``combine="locality"`` and ``"xla"``. Each
    first with a reduced fp32 llama (2 layers) whose tokens must equal a
    one-rank engine's; then at full width and depth (bf16) against
    one-rank engines in this process: every rank's results alike, prefill
@@ -312,7 +336,7 @@ the package is missing. Phases, each fatal on failure:
    (48 layers), phase 9a's ServeSpec, trace and home pod with
    ``migrate="locality_bruck"``: first in fp32 with each request's budget
    cut to ``SSM_TIER_FP32_NEW`` tokens, every token equal to a one-rank
-   engine's; then in bf16 on the whole trace against a one-rank engine by
+   engine's; then in bf16 on 9a's trace against a one-rank engine by
    phase 9's rule (logits within ``SEQ_LOGIT_REL``, near ties), the share
    of equal tokens printed; in both every rank's results alike, 2 L + 2
    tier calls a forward (the gated norm's statistic and ``out_proj`` a
@@ -547,6 +571,129 @@ def moe_kernel_cases(timer) -> dict[str, list[dict]]:
     return out
 
 
+# phase 4v's kernels: flash at h2o-danube-3-4b's prefill (32/8 heads of
+# 120, window 4,096) and gemma2-9b's (16/8 heads of 256, softcap 50, window
+# 4,096), at S = 512 and at the 6,000-token prompt that the window masks;
+# the decode pair over a 4,096-slot ring past its wrap at each one's decode
+# shape (8 rows); bf16, phase 2's tolerances. SDPA is the library where it
+# computes the same function (no softcap): causal, or a boolean mask of
+# the kept pairs or slots
+VARIANT_FLASH = (("h2o-danube-3-4b", 512, 32, 8, 120, 0.0),
+                 ("h2o-danube-3-4b", 6000, 32, 8, 120, 0.0),
+                 ("gemma2-9b", 512, 16, 8, 256, 50.0),
+                 ("gemma2-9b", 6000, 16, 8, 256, 50.0))
+VARIANT_DECODE = (("h2o-danube-3-4b", 4, 120, 0.0), ("gemma2-9b", 2, 256, 50.0))
+VARIANT_WINDOW, VARIANT_B, VARIANT_KV = 4096, 8, 8
+
+
+def variant_kernel_cases(timer) -> dict[str, list[dict]]:
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(9)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    bf16, tol = torch.bfloat16, 2e-2
+    out = {"flash_attention": [], "decode_scores": [], "decode_stats": [],
+           "decode_attention": []}
+    for arch, S, H, KV, D, cap in VARIANT_FLASH:
+        mask = dict(causal=True, window=VARIANT_WINDOW,
+                    **({"cap": cap} if cap else {}))
+        row = flash_case(timer, randn, S, H, KV, D, mask, bf16, tol)
+        if not cap:                     # SDPA: no softcap
+            q, k, v = (randn(1, S, n, D).to(bf16).transpose(1, 2)
+                       for n in (H, KV, KV))
+            pos = torch.arange(S, device="cuda")
+            seen = (pos[:, None] >= pos[None]) & \
+                (pos[:, None] - pos[None] < VARIANT_WINDOW)
+            kw = (dict(is_causal=True) if S <= VARIANT_WINDOW
+                  else dict(attn_mask=seen))
+            row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **kw))
+            row["library"] = "sdpa, " + ("is_causal" if S <= VARIANT_WINDOW
+                                         else "boolean mask")
+            del q, k, v, seen
+        out["flash_attention"].append(dict(row, model=arch))
+        torch.cuda.empty_cache()
+    for arch, G, D, cap in VARIANT_DECODE:
+        for name, row in ring_decode_case(timer, g, G, D, cap).items():
+            out[name].append(dict(row, model=arch))
+    for rows in out.values():
+        for r in rows:
+            r["path"] = "serve_full_width_variants"
+    return out
+
+
+def ring_decode_case(timer, g, G: int, D: int, cap: float,
+                     B: int = VARIANT_B, KV: int = VARIANT_KV,
+                     L: int = VARIANT_WINDOW) -> dict[str, dict]:
+    """The decode pair over an L-slot ring (window L) at positions past
+    its wrap, every slot kept: each kernel against its plain version, the
+    pair against SDPA with the kept slots as a boolean mask where there is
+    no softcap; bounds as :func:`decode_cases` counts them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF, decode_attention
+    bf16, tol = torch.bfloat16, 2e-2
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    pos = torch.randint(L, 3 * L, (B,), generator=g, device="cuda")
+    q, k, v = (rn(B, 1, KV * G, D).to(bf16), rn(B, L, KV, D).to(bf16),
+               rn(B, L, KV, D).to(bf16))
+    mask = dict(window=L, ring=True)
+    what = f"ring decode G={G} D={D} cap={cap}"
+    s, m = stats_ops.decode_scores(q, k, pos, cap=cap, **mask)
+    rs, rm = stats_ops.decode_scores_ref(q, k, pos, cap=cap, **mask)
+    kept = rs[:, 0, 0] != NEG_INF
+    check(torch.equal(s == NEG_INF, rs == NEG_INF),
+          f"{what}: masked slots differ")
+    check(bool(kept.all()), f"{what}: past the wrap every slot is kept")
+    slots = int(kept.sum())
+    err = max(close(s, rs, tol, what + " s"), close(m, rm, tol, what + " m"))
+    es = q.element_size()
+    b_ms, b_by = bound(q.numel() * es + slots * KV * D * es
+                       + (s.numel() + m.numel()) * 4,
+                       2 * slots * KV * G * D, bf16)
+    rows = {"decode_scores": dict(
+        shape=[B, KV, G, L, D], dtype=str(bf16), cap=cap, ring=True,
+        positions=pos.tolist(), kept_slots=slots, max_abs_err=err,
+        tolerance=tol,
+        ms=timer(lambda: stats_ops.decode_scores(q, k, pos, cap=cap, **mask)),
+        host_ms=timer.host_ms(lambda: stats_ops.decode_scores(
+            q, k, pos, cap=cap, **mask)),
+        plain_ms=timer(lambda: stats_ops.decode_scores_ref(
+            q, k, pos, cap=cap, **mask)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)}
+    o, l = stats_ops.accumulate(s, m, v, pos=pos, **mask)
+    ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+    err = max(close(o, ro, tol, what + " o"), close(l, rl, tol, what + " l"))
+    b_ms, b_by = bound((m.numel() + o.numel() + l.numel()) * 4
+                       + slots * KV * D * es + slots * KV * G * 4,
+                       2 * G * D * KV * slots, bf16)
+    rows["decode_stats"] = dict(
+        shape=[B, KV, G, L, D], dtype=str(bf16), ring=True,
+        positions=pos.tolist(), max_abs_err=err, tolerance=tol,
+        ms=timer(lambda: stats_ops.accumulate(s, m, v, pos=pos, **mask)),
+        host_ms=timer.host_ms(lambda: stats_ops.accumulate(s, m, v, pos=pos,
+                                                           **mask)),
+        plain_ms=timer(lambda: stats_ops.decode_stats_accumulate_ref(s, m,
+                                                                     v)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    pair = lambda: decode_attention(q, k, v, pos, cap=cap, **mask)
+    out = pair()
+    lib_ms, err = None, None
+    if not cap:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=kept[:, None, None], enable_gqa=True)
+        err = close(out, sdpa().transpose(1, 2), tol,
+                    what + " pair vs SDPA")
+        lib_ms = timer(sdpa)
+    b_ms, b_by = bound((q.numel() + out.numel() + 2 * slots * KV * D) * es,
+                       4 * slots * KV * G * D, bf16)
+    rows["decode_attention"] = dict(
+        shape=[B, KV, G, L, D], dtype=str(bf16), cap=cap, ring=True,
+        max_abs_err_vs_sdpa=err, ms=timer(pair), host_ms=timer.host_ms(pair),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
 # the decode kernels on one rank's shard of a sequence-parallel cache: a
 # 32,768-slot llama3.2-3b cache (B = 1, KV = 8, G = 3, D = 128, bf16) over
 # 4 shards of 8,192, at the phase 6 prompts' positions, so that a shard
@@ -725,9 +872,9 @@ def batch_sharded_cases(timer) -> tuple[list[dict], list[dict]]:
 # the decode pair at the shapes phase 9 gives a model rank (llama3.2-3b's 8 KV
 # heads over m = 2: KV = 4, G = 3, D = 128, bf16): 9a's B_loc = 2 rows of the
 # 2,048-slot cache at positions of phase 7's trace, and 9b's B = 1 shard of
-# 8,192 slots of a 32,768-slot cache at every shard's offset, at the
-# positions of its two prompts (3,000 and 11,000: a shard keeps all its
-# slots, part of them or none)
+# 8,192 slots of a 32,768-slot cache at every shard's offset, at positions
+# 3,000 and 11,000 (phase 6's prompts: a shard keeps all its slots, part
+# of them or none)
 TIER_M = 2
 TIER_KV = 8 // TIER_M
 TIER_POSITIONS = OFFSET_POSITIONS[:2]
@@ -1252,17 +1399,22 @@ def _tier_split(cfg, st: dict) -> bool:
     return cfg.family == "ssm" and "tier_calls" in st
 
 
+def _sandwich(cfg) -> int:
+    """The plain post-norms a forward runs for the sandwich (2 a layer)."""
+    return 2 * cfg.n_layers if cfg.sandwich_norm else 0
+
+
 def launches_implied(cfg, st: dict) -> dict[str, int]:
     """What the serving path must launch for the engine's counts: rmsnorm
     2 per layer + the final norm per forward (a Mamba2 layer's gated norm
-    split over a model tier 2 launches); per attention layer flash once
-    per prefill, decode scores and decode stats once per decode step (each
-    step one replay of the captured decode graph); per Mamba2 layer ssd
-    once per prefill."""
+    split over a model tier 2 launches; a sandwich layer's two post-norms
+    2 more); per attention layer flash once per prefill, decode scores and
+    decode stats once per decode step (each step one replay of the
+    captured decode graph); per Mamba2 layer ssd once per prefill."""
     attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
     mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
     split = mamba if _tier_split(cfg, st) else 0
-    return {"rmsnorm": (2 * cfg.n_layers + 1 + split)
+    return {"rmsnorm": (2 * cfg.n_layers + 1 + split + _sandwich(cfg))
             * (st["prefills"] + st["decode_steps"]),
             "flash_attention": attn * st["prefills"],
             "decode_scores": attn * st["decode_steps"],
@@ -1272,26 +1424,47 @@ def launches_implied(cfg, st: dict) -> dict[str, int]:
 
 RMS_FORM_NAMES = ("plain", "residual", "gated", "gated_rowsq",
                   "gated_finish")
+# the dense variants' instances, inside the counts of PATH_KERNELS: flash
+# at head dim 120, the decode pair over a ring cache
+VARIANT_KERNELS = ("flash_attention_d120", "decode_scores_ring",
+                   "decode_stats_ring")
+
+
+def variant_launches_implied(cfg, st: dict) -> dict[str, int]:
+    """Of the path's launches, flash at D = 120 once per attention layer
+    and prefill (h2o-danube), the decode pair over a ring once per window
+    layer and decode step."""
+    plan = cfg.layer_plan()
+    attn = sum(s.mixer == "attn" for s in plan)
+    ring = sum(s.attn == "window" for s in plan) if cfg.window else 0
+    return {"flash_attention_d120":
+            attn * st["prefills"] if cfg.head_dim_ == 120 else 0,
+            "decode_scores_ring": ring * st["decode_steps"],
+            "decode_stats_ring": ring * st["decode_steps"]}
 
 
 def rmsnorm_forms_implied(cfg, st: dict) -> dict[str, int]:
-    """Per forward: ln1 of every layer and the final norm plain; ln2 of an
-    attention layer fused with the residual add before it; a Mamba2 layer's
-    gated norm fused with its gate (on a model tier split over it: the
-    rows' partial sums of squares and the finish)."""
+    """Per forward: ln1 of every layer and the final norm plain (and a
+    sandwich layer's two post-norms); ln2 of an attention layer fused with
+    the residual add before it; a Mamba2 layer's gated norm fused with its
+    gate (on a model tier split over it: the rows' partial sums of squares
+    and the finish)."""
     attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
     mamba = sum(s.mixer == "mamba2" for s in cfg.layer_plan())
     fwd = st["prefills"] + st["decode_steps"]
     split = _tier_split(cfg, st)
-    return {"plain": (cfg.n_layers + 1) * fwd, "residual": attn * fwd,
+    return {"plain": (cfg.n_layers + 1 + _sandwich(cfg)) * fwd,
+            "residual": attn * fwd,
             "gated": 0 if split else mamba * fwd,
             "gated_rowsq": mamba * fwd if split else 0,
             "gated_finish": mamba * fwd if split else 0}
 
 
-def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
-    """Serve 16 requests on ``arch`` at its published size; returns the
-    path's launches per kernel."""
+def serve_full_width(smi: str, arch: str, phase: str, cache_len: int = 1024,
+                     extra: tuple = ()) -> dict[str, int]:
+    """Serve 16 requests on ``arch`` at its published size, and the
+    ``extra`` (prompt length, new tokens) requests after them, at batch 8
+    and ``cache_len`` slots; returns the path's launches per kernel."""
     from repro_torch import configs, kernels
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec
@@ -1301,7 +1474,7 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    eng = Engine(cfg, params, ServeSpec(batch=8, cache_len=1024))
+    eng = Engine(cfg, params, ServeSpec(batch=8, cache_len=cache_len))
     del params
     n_params = sum(p.numel() for p in eng.model.parameters())
     torch.cuda.synchronize()
@@ -1344,6 +1517,9 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
 
     lens = rng.integers(64, 513, 16)
     budgets = rng.integers(16, 65, 16)
+    if extra:
+        lens = np.concatenate([lens, [n for n, _ in extra]])
+        budgets = np.concatenate([budgets, [m for _, m in extra]])
     reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, n), max_new=int(m))
             for n, m in zip(lens, budgets)]
     kernels.add_launch_counts(kernels.launch_counts(), -1)   # all to 0
@@ -1352,10 +1528,12 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     results = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()       # serving's, before checks
     counts = kernels.launch_counts()
     launches = {name: counts[name] for name in PATH_KERNELS}
     by_form = {form: counts[f"rmsnorm.{form}"]
                for form in RMS_FORM_NAMES}
+    variant = {name: counts[name] for name in VARIANT_KERNELS}
 
     st = {k: v - base[k] for k, v in eng.stats().items()
           if k in ("decode_steps", "prefills", "prefill_tokens",
@@ -1373,6 +1551,9 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     want_forms = rmsnorm_forms_implied(cfg, st)
     check(by_form == want_forms, f"{phase}: rmsnorm forms {by_form}, the "
                                  f"path implies {want_forms}")
+    want_variant = variant_launches_implied(cfg, st)
+    check(variant == want_variant, f"{phase}: variant instances {variant}, "
+                                   f"the path implies {want_variant}")
     check(st["prefills"] == len(reqs)
           and st["prefill_tokens"] == int(lens.sum())
           and st["decode_tokens"] == int((budgets - 1).sum()),
@@ -1383,17 +1564,33 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
     check(len(spans) == st["decode_steps"], f"{phase}: {len(spans)} replays "
                                             f"timed, {st['decode_steps']} steps")
     replay_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
-    extra = {}
+    ring_len = eng.model.ring_len(cache_len)
+    checks = {}
     if cfg.family == "moe":
-        extra = moe_decode_checks(eng, reqs, [results[r] for r in rids], cfg,
-                                  phase)
-    profile_serving(eng, reqs, phase)
+        checks = moe_decode_checks(eng, reqs, [results[r] for r in rids],
+                                   cfg, phase)
+    elif cfg.family == "dense" and arch != "llama3.2-3b":
+        checks = graph_eager_checks(eng, cfg, phase, ring_len or cache_len,
+                                    bool(ring_len))
+    if ring_len:              # which requests rolled or crossed the ring
+        checks["ring_len"] = ring_len
+        checks["long_requests"] = [
+            {"prompt": int(n), "new": int(m), "last_position": int(n + m - 2),
+             "prefill_rolled": bool(n > ring_len),
+             "decode_crossed_wrap": bool(n <= ring_len <= n + m - 2)}
+            for n, m in extra]
+        check(any(r["prefill_rolled"] for r in checks["long_requests"])
+              and any(r["decode_crossed_wrap"]
+                      for r in checks["long_requests"]),
+              f"{phase}: no request rolled or crossed the {ring_len}-slot "
+              "ring")
+    profile_serving(eng, reqs, phase, cache_len=cache_len)
     prefill_s = sum(t for mode, t, _ in calls if mode == "prefill")
     decode_s = sum(t for mode, t, _ in calls if mode == "decode")
     print(json.dumps({
         "phase": phase, "model": cfg.name, "params": n_params,
         "layers": cfg.n_layers,
-        "batch": 8, "cache_len": 1024, "requests": len(reqs),
+        "batch": 8, "cache_len": cache_len, "requests": len(reqs),
         "prompt_tokens": st["prefill_tokens"],
         "generated_tokens": int(budgets.sum()),
         "decode_steps": st["decode_steps"], "decode": "cuda_graph",
@@ -1406,10 +1603,156 @@ def serve_full_width(smi: str, arch: str, phase: str) -> dict[str, int]:
         "decode_replay_device_ms_mean": replay_s / st["decode_steps"] * 1e3,
         "decode_device_idle_share": 1 - replay_s / decode_s,
         "prefill_ms_mean": prefill_s / st["prefills"] * 1e3,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches, "rmsnorm_forms": by_form, **extra,
-        "card": smi}))
+        "max_memory_allocated": peak,
+        "launches": launches, "rmsnorm_forms": by_form,
+        **({"variant_instances": variant} if any(variant.values()) else {}),
+        **checks, "card": smi}))
     return launches
+
+
+GRAPH_EAGER_STEPS = 6
+# phase 4v: (arch, phase, cache_len, extra (prompt, new) requests)
+VARIANT_LONG = ((6000, 16), (4000, 200))
+VARIANT_RUNS = (("yi-6b", "serve_full_width_yi", 1024, ()),
+                ("h2o-danube-3-4b", "serve_full_width_danube", 8192,
+                 VARIANT_LONG),
+                ("gemma2-9b", "serve_full_width_gemma2", 8192, VARIANT_LONG))
+
+
+def graph_eager_checks(eng, cfg, phase: str, limit: int, ring: bool,
+                       steps: int = GRAPH_EAGER_STEPS) -> dict:
+    """The decode graph against eager decoding over ``steps`` steps that
+    take a long request across a ring's wrap (``ring``: its prompt
+    ``limit`` - 3 tokens, ``limit`` the ring's slots; else up to the
+    ``limit``-slot cache's end) beside 7 short ones: before each replay the
+    eager forward runs on a copy of the cache, and the logits and every
+    cache leaf must be bitwise equal, so the tokens are too."""
+    from repro_torch.serve import Request
+    sched = eng.scheduler
+    rng = np.random.default_rng(5)
+    rids = [eng.submit(Request(tokens=rng.integers(0, cfg.vocab_size, n),
+                               max_new=steps + 1))
+            for n in [limit - 3 if ring else limit - steps - 1] + [16] * 7]
+    replay, positions = sched._decode, []
+
+    def checked():
+        cache = {name: t.clone() for name, t in sched._cache.items()}
+        positions.append(int(cache["pos"][sched.active[rids[0]].row]))
+        tok = torch.from_numpy(sched._tok).to(eng.model.device)
+        want, _ = eng.model(tok, mode="decode", cache=cache)
+        got = replay()
+        check(torch.equal(got, want), f"{phase}: the graph's logits differ "
+                                      f"from the eager step's at step "
+                                      f"{len(positions)}")
+        for name, t in cache.items():
+            check(torch.equal(sched._cache[name], t),
+                  f"{phase}: the graph's cache leaf {name} differs")
+        del cache
+        return got
+
+    sched._decode = checked
+    try:
+        eng.drain()
+    finally:
+        sched._decode = replay
+    check(len(positions) == steps, f"{phase}: {len(positions)} checked "
+                                   f"steps, want {steps}")
+    crossed = ring and positions[0] < limit <= positions[-1]
+    check(crossed or not ring, f"{phase}: the checked steps did not cross "
+                               f"the {limit}-slot ring's wrap: {positions}")
+    return {"graph_tokens_equal_eager": True, "graph_eager_steps": steps,
+            "graph_eager_long_positions": positions,
+            "graph_eager_crossed_wrap": crossed}
+
+
+# phase 4v's exactness check: h2o-danube-3-4b and gemma2-9b at full width,
+# 2 layers, fp32; one request whose decode crosses the window's 4,096-slot
+# ring in the engine (kernels, ring cache, decode graph), its logits held
+# against a plain full-sequence forward on the card with no ring (the whole
+# sequence, the window mask, the kernels' plain versions)
+VARIANT_EXACT = ("h2o-danube-3-4b", "gemma2-9b")
+VARIANT_EXACT_REQUEST = (4090, 12)   # prompt, new tokens: positions to 4100
+VARIANT_EXACT_TOL = 1e-3             # max |logit - plain logit|, fp32
+
+
+def plain_full_forward(model, tokens: torch.Tensor, first: int
+                       ) -> torch.Tensor:
+    """``model``'s logits at positions ``first``.. of ``tokens`` (1, S)
+    from one full-sequence pass of the plain versions: RMSNorm's
+    ``rmsnorm_ref`` forms, ``attention_ref`` with each layer's window and
+    cap over the whole sequence; no cache, no ring, no kernel."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_ref,
+                                                 rmsnorm_residual_ref)
+    from repro_torch.models.layers import rope_angles, softcap
+    from repro_torch.models.transformer import attn_qkv, out_mlp
+    cfg = model.cfg
+    S = tokens.shape[1]
+    x = model.embed[tokens]
+    if model.embed_scale is not None:
+        x = x * model.embed_scale
+    cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
+                           cfg.head_dim_, cfg.rope_theta)
+    for layer in model.layers:
+        w = layer._parameters
+        q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_ref)
+        o = attention_ref(q, k, v, causal=True, window=layer.meta["window"],
+                          cap=layer.meta["cap"])
+        x = out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_ref,
+                    norm=rmsnorm_ref)
+    x = rmsnorm_ref(x[:, first:], model.final_norm, eps=cfg.norm_eps)
+    head = model.embed.T if model.head is None else model.head
+    return softcap(x @ head, cfg.final_softcap)
+
+
+def variant_exact_check(smi: str, arch: str) -> None:
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec
+    cfg = dataclasses.replace(configs.get(arch), n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    eng = Engine(cfg, params, ServeSpec(batch=2, cache_len=8192))
+    del params
+    n, new = VARIANT_EXACT_REQUEST
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, n)
+    sched, seen = eng.scheduler, []
+    pick = sched._next_token
+
+    def record(logits):
+        seen.append(logits[:, -1].clone())
+        return pick(logits)
+
+    sched._next_token = record
+    rid = eng.submit(Request(tokens=prompt, max_new=new))
+    res = eng.drain()[rid]
+    sched._next_token = pick
+    st = eng.stats()
+    ring = eng.model.ring_len(8192)
+    check(st["decode_graph"] and len(seen) == new,
+          f"{arch} exact: {len(seen)} logits recorded, graph "
+          f"{st['decode_graph']}")
+    got = torch.stack([seen[0][0]] + [t[res.slot] for t in seen[1:]])
+    full = np.concatenate([prompt, res.tokens[:-1]])
+    want = plain_full_forward(eng.model, torch.from_numpy(full)[None].to(
+        "cuda"), n - 1)[0]
+    err = float((got - want).abs().max())
+    plain_tok = torch.clamp(want.argmax(-1), max=cfg.vocab_size - 1)
+    same = plain_tok.cpu().numpy().tolist() == res.tokens.tolist()
+    check(err <= VARIANT_EXACT_TOL, f"{arch} exact: engine logits {err} "
+                                    f"from the plain forward's")
+    check(same, f"{arch} exact: engine tokens {res.tokens.tolist()}, plain "
+                f"{plain_tok.tolist()}")
+    print(json.dumps({
+        "phase": "serve_variant_exact", "model": cfg.name, "layers": 2,
+        "d_model": cfg.d_model, "dtype": "float32", "prompt": n, "new": new,
+        "ring_len": ring, "positions": [n - 1, n + new - 2],
+        "crossed_wrap": n - 1 < ring <= n + new - 2,
+        "decode_graph": st["decode_graph"], "max_abs_logit_err": err,
+        "tolerance": VARIANT_EXACT_TOL, "tokens_equal": same,
+        "card": smi}))
+    del eng
 
 
 def moe_decode_checks(eng, reqs, results, cfg, phase: str) -> dict:
@@ -1494,13 +1837,14 @@ def profile_window(label: str, phase: str, fn, calls: int,
     print(json.dumps(out))
 
 
-def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
+def profile_serving(eng, reqs, phase: str, steps: int = 5,
+                    cache_len: int = 1024) -> None:
     """Profile one 512-token prefill (twice) and ``steps`` decode steps
     with 8 live rows."""
     from repro_torch.serve import Request
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, eng.cfg.vocab_size, (1, 512))).to(eng.model.device)
-    prefill = lambda: eng.model(toks, mode="prefill", cache_len=1024)
+    prefill = lambda: eng.model(toks, mode="prefill", cache_len=cache_len)
     prefill()
     profile_window("profile_prefill", phase, prefill, 2, prompt_tokens=512)
     for r in reqs[:8]:
@@ -1528,8 +1872,9 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5) -> None:
 # new tokens a request: the reduced fp32 run holds every one of them to
 # the one-rank engine's exactly; the full-width run holds its prefill and
 # first decode logits and reports the greedy share, its later steps time
-# the decode (about 0.25-0.6 s a step over gloo in each of 3 layouts)
-SEQ_CACHE, SEQ_NEW, SEQ_NEW_FULL = 32768, 32, 16
+# the decode (about 0.25-0.6 s a step over gloo in each of 3 layouts);
+# 16 and 8 (32 and 16 before phase 4v needed the run's time)
+SEQ_CACHE, SEQ_NEW, SEQ_NEW_FULL = 32768, 16, 8
 SEQ_PROMPTS = (3000, 11000, 20000)
 SEQ_LAYOUTS = (("pod_locality", dict(combine="locality")),
                ("pod_xla", dict(combine="xla")),
@@ -2041,8 +2386,8 @@ def serve_batch_sharded(smi: str) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 # 2 x 2 x 2 ranks sharing the card: 9a is phase 7's batch-sharded run (its
 # ServeSpec and home pod) on the first 8 requests of its trace, 9b phase 6's
-# split cache over ("pod", "data") on each model lane with two of its
-# prompts (3,000 and 11,000 tokens, 8 new each), both schedules or
+# split cache over ("pod", "data") on each model lane with its first
+# prompt (3,000 tokens, 8 new; the reduced run two), both schedules or
 # combines; each first at the reduced size (2 layers, fp32), tokens equal
 # to one rank's. Cut to keep the phase near 3 minutes: every eager decode
 # step makes 57 tier allreduces through gloo, ~0.3 s a step at full width
@@ -2055,14 +2400,22 @@ TIER_BATCH_N = 8
 # it at a reduced size in tests/test_torch_serve_tp.py)
 TIER_MIGRATIONS = 4
 TIER_SEQ_LAYOUTS = SEQ_LAYOUTS[:2]
-TIER_SEQ_PROMPTS = SEQ_PROMPTS[:2]
+# 9b's full-width prompt: 3,000 tokens (and 11,000 before phase 4v needed
+# the run's time; phase 6 keeps all three)
+TIER_SEQ_PROMPTS = SEQ_PROMPTS[:1]
 TIER_SEQ_REDUCED_PROMPTS = SEQ_REDUCED_PROMPTS[:2]
 TIER_NEW = 8
+# 9a's and 9m's budgets are cut to 16 new tokens (phase 7's 32-64 before
+# phase 4v needed the run's time): the 8 requests still fill the 8 rows
+# at once, so the migrations are the same
+TIER_MAX_NEW = 16
 
 
 def tier_batch_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
-    """9a's trace: the first ``TIER_BATCH_N`` requests of phase 7's."""
-    return batch_requests(vocab)[:TIER_BATCH_N]
+    """9a's trace: the first ``TIER_BATCH_N`` requests of phase 7's, their
+    budgets cut to ``TIER_MAX_NEW``."""
+    return [(t, min(m, TIER_MAX_NEW))
+            for t, m in batch_requests(vocab)[:TIER_BATCH_N]]
 
 
 def tier_runs(plan: dict, key: str) -> list[tuple[str, dict, list, int]]:
@@ -4144,14 +4497,15 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
 # phase 8f: mamba2-780m split by SSD heads over the model tier
 # ---------------------------------------------------------------------------
 # mamba2-780m at full width (d_model 1,536, 48 SSD heads of 64, N = 128) on
-# 2 x 2 x 2 ranks, depth cut to 8 layers (the gloo host transport), one
+# 2 x 2 x 2 ranks, depth cut to 4 layers (the gloo host transport; 8
+# before phase 4v needed the run's time), one
 # 1,024-token sequence a DP rank (4 x 1,024 a step), 2 steps a variant; the
 # first step's loss against the card's one rank at the same depth on the
 # same 4 x 1,024 tokens, within SSM_TP_LOSS_REL: bf16 compute, and the tier
 # sums out_proj's bf16 partial products and the gated norm's row
 # statistics in another order than one rank's products (the bf16 loss
 # limit of phase 10b)
-SSM_TP_LAYERS, SSM_TP_STEPS = 8, 2
+SSM_TP_LAYERS, SSM_TP_STEPS = 4, 2
 SSM_TP_VARIANTS = TP_VARIANTS
 SSM_TP_LOSS_REL = 1e-2
 
@@ -4237,7 +4591,8 @@ def train_ssm_tp_on_ranks(smi: str) -> dict[str, dict[str, int]]:
             "shared": "8 ranks sharing one H100 over gloo",
             "grid": "2 x 2 x 2 (pod, data, model)",
             "model": full.name, "layers": SSM_TP_LAYERS,
-            "reduced": "depth 48 -> 8 layers (gloo host transport)",
+            "reduced": f"depth 48 -> {SSM_TP_LAYERS} layers (gloo host "
+                       "transport)",
             "heads_per_rank": ssm_dims(full)[1] // m,
             "dtype": "bfloat16 compute, fp32 master",
             "batch": [q * pl, TRAIN_SEQ], "steps": SSM_TP_STEPS,
@@ -4275,8 +4630,9 @@ def train_ssm_tp_on_ranks(smi: str) -> dict[str, dict[str, int]]:
 # JAX step's under its DP shard_map), a function of the split: the one
 # rank runs the p ranks' rows as p microbatches (``grad_accum=p``), which
 # averages the same p losses and gradients. 10b: qwen2-moe-a2.7b at full
-# width on 2 x 2 of the ranks, depth cut to 2 layers (the gloo host
-# transport), one 1,024-token sequence a rank, locality + FSDP with
+# width on 2 x 2 of the ranks, depth cut to 1 layer (the gloo host
+# transport; 2 until phase 4v needed the run's time), one 1,024-token
+# sequence a rank, locality + FSDP with
 # moe_dispatch "locality" (the tokens transport: 2 pods < K·cf = 5),
 # "xla" (slots) and "none" (every rank holds every expert, FSDP-gathered):
 # the first two deliver the same slot values to the same expert products,
@@ -4286,10 +4642,10 @@ def train_ssm_tp_on_ranks(smi: str) -> dict[str, dict[str, int]]:
 MOE_PARITY_GRIDS = {(2, 2): {}, (3, 2): {"n_experts": 12}}
 MOE_PARITY_VARIANTS = (("locality", dict(fsdp=True, moe_dispatch="locality")),
                        ("xla", dict(fsdp=True, moe_dispatch="xla")))
-MOE_GRID, MOE_LAYERS, MOE_TRAIN_SEQ = (2, 2), 2, 1024
+MOE_GRID, MOE_LAYERS, MOE_TRAIN_SEQ = (2, 2), 1, 1024
 # (dispatch, steps): the locality dispatch two steps (a steady one); xla
-# and none one each, the loss agreement's (none's step, ~50 s over gloo,
-# gathers every expert twice)
+# and none one each, the loss agreement's (none's step, ~50 s over gloo
+# at 2 layers, gathers every expert twice)
 MOE_DISPATCHES = (("locality", 2), ("xla", 1), ("none", 1))
 MOE_LOSS_REL = 1e-2
 
@@ -4447,7 +4803,7 @@ def train_moe_on_ranks(smi: str) -> dict[str, dict[str, int]]:
             "phase": "train_moe", "dispatch": name, "transport": transport[1],
             "shared": "4 ranks sharing one H100 over gloo",
             "model": full.name, "layers": MOE_LAYERS,
-            "reduced": "depth 24 -> 2 layers (gloo host transport)",
+            "reduced": f"depth 24 -> {MOE_LAYERS} (gloo host transport)",
             "dtype": "bfloat16 compute, fp32 master",
             "batch": [q * pl, MOE_TRAIN_SEQ], "steps": steps,
             "losses": losses[name],
@@ -4610,6 +4966,11 @@ def main() -> int:
         for row in rows:
             print(json.dumps({"kernel": name, **row}))
     clock("moe_kernels")
+    variant_cases = variant_kernel_cases(timer)
+    for name, rows in variant_cases.items():
+        for row in rows:
+            print(json.dumps({"kernel": name, **row}))
+    clock("variant_kernels")
     for arch, phase in (("llama3.2-3b", "serve_full_width"),
                         ("mamba2-780m", "serve_full_width_ssm"),
                         (MOE_ARCH, "serve_full_width_moe")):
@@ -4617,6 +4978,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         clock(phase)
+    for arch, phase, cache_len, extra in VARIANT_RUNS:
+        by_path[phase] = serve_full_width(smi, arch, phase, cache_len, extra)
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock(phase)
+    for arch in VARIANT_EXACT:
+        variant_exact_check(smi, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    clock("serve_variant_exact")
     base = {}
     by_path["serve_seq_parallel"], base["serve_seq_parallel"] = \
         serve_seq_parallel(smi)
@@ -4788,6 +5159,20 @@ def main() -> int:
                 row["serve_moe_cases"]["decode_attention_pair"] = {
                     k: pair_moe[k] for k in ("ms", "library_ms", "bound_ms",
                                              "shape")}
+    for row in kernels:        # the dense variants' serving cases (4v)
+        rows = variant_cases.get(row["name"])
+        if rows:
+            row["serve_variant_cases"] = {
+                "cases": len(rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                **{f: [r.get(f) for r in rows]
+                   for f in ("model", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by", "shape", "mask")}}
+            if row["name"].startswith("decode_s"):
+                row["serve_variant_cases"]["decode_attention_pair"] = {
+                    f: [r[f] for r in variant_cases["decode_attention"]]
+                    for f in ("model", "ms", "library_ms", "bound_ms",
+                              "shape")}
     for row in kernels:        # the pair (scores, accumulate, o / l) and SDPA
         if row["name"].startswith("decode_s"):
             row["decode_attention_pair"] = {

@@ -169,10 +169,10 @@ def main() -> int:
                     sc = lambda: fns[("decode_scores", tag)](
                         q.data_ptr(), k.data_ptr(), pos.data_ptr(), 1, 0,
                         s.data_ptr(), m.data_ptr(), B, KV, G, L, D, nsplit,
-                        D ** -0.5, 0, 0, 0.0, 1, stream)
+                        D ** -0.5, 0, 0, 0, 0.0, 1, stream)
                     st = lambda: fns[("decode_stats", tag)](
                         s.data_ptr(), m.data_ptr(), v.data_ptr(),
-                        pos.data_ptr(), 1, 0, 0, 0, o.data_ptr(),
+                        pos.data_ptr(), 1, 0, 0, 0, 0, o.data_ptr(),
                         l.data_ptr(),
                         B, KV, G, L, D, nsplit, 1, stream)
                     _build.check(sc(), "decode_scores")

@@ -7,20 +7,21 @@ from __future__ import annotations
 
 import importlib
 
-from .base import LayerSpec, ModelConfig, check_supported, reduced
+from .base import (LayerSpec, ModelConfig, check_supported, reduced,
+                   variant_features)
 
-ARCHS = ("llama3.2-3b", "mamba2-780m", "qwen2-moe-a2.7b")
+ARCHS = ("llama3.2-3b", "mamba2-780m", "qwen2-moe-a2.7b", "yi-6b",
+         "h2o-danube-3-4b", "gemma2-9b")
 
 # the JAX package's other architectures -> the port slice that brings them
 PENDING = {
-    "yi-6b": "the dense-variants slice (ROADMAP.md Queue 1 item 5)",
-    "h2o-danube-3-4b": "the dense-variants slice (sliding window, ring cache)",
-    "gemma2-9b": "the dense-variants slice (window, softcaps, sandwich norm)",
-    "llama4-scout-17b-a16e": "the dense-variants slice (chunked attention, "
-                             "NoPE, qk-norm: ROADMAP.md Queue 1 item 5)",
-    "zamba2-1.2b": "the hybrid slice (shared attention block with GeGLU)",
-    "whisper-tiny": "the encoder-decoder slice",
-    "internvl2-26b": "the VLM slice",
+    "llama4-scout-17b-a16e": "the MoE-over-grids slice with llama4's "
+                             "chunked attention, NoPE and qk-norm "
+                             "(ROADMAP.md Queue 1 items 14 and 5)",
+    "zamba2-1.2b": "the hybrid slice (the shared attention block and the "
+                   "SSD's h0 input: ROADMAP.md Queue 1 item 7)",
+    "whisper-tiny": "the encoder-decoder slice (ROADMAP.md Queue 1 item 7)",
+    "internvl2-26b": "the VLM slice (ROADMAP.md Queue 1 item 7)",
 }
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
@@ -44,4 +45,4 @@ def get_smoke(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "LayerSpec", "ModelConfig", "PENDING", "check_supported",
-           "get", "get_smoke", "reduced"]
+           "get", "get_smoke", "reduced", "variant_features"]

@@ -127,6 +127,25 @@ class ModelConfig:
         return tuple(plan)
 
 
+def variant_features(cfg: ModelConfig) -> list[str]:
+    """The dense variants' features ``cfg`` uses: sliding-window layers
+    (ring caches), softcaps, sandwich norms, ``scale_embed`` and GeGLU.
+    The port serves them on one rank; their training and their grids wait
+    for later slices (:func:`check_supported`, ``serve/spec.py``)."""
+    out = []
+    if cfg.window or any(s.attn == "window" for s in cfg.layer_plan()):
+        out.append("window layers (ring caches)")
+    if cfg.attn_softcap or cfg.final_softcap:
+        out.append("attn_softcap/final_softcap")
+    if cfg.sandwich_norm:
+        out.append("sandwich_norm")
+    if cfg.scale_embed:
+        out.append("scale_embed")
+    if cfg.mlp_act == "gelu":
+        out.append("mlp_act='gelu'")
+    return out
+
+
 def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     """Raise on any flag whose code path this port does not have yet.
 
@@ -137,8 +156,11 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     routed and shared SwiGLU experts in place of the MLP, ``moe_every``);
     and the attention-free Mamba2 stack (``family="ssm"`` with
     ``ssm_state``), whose training runs the SSD scan's and the gated
-    RMSNorm's backward kernels. Everything else waits for a later slice of
-    the port and must not be ignored silently.
+    RMSNorm's backward kernels. The dense variants'
+    features (:func:`variant_features`: window layers with ring caches,
+    softcaps, sandwich norms, ``scale_embed``, GeGLU) are served, not
+    trained. Everything else waits for a later slice of the port and must
+    not be ignored silently.
     """
     if mode not in ("serve", "train"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -153,19 +175,12 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
         unsupported.append("family='ssm' without ssm_state")
     if cfg.family != "ssm" and cfg.ssm_state:
         unsupported.append(f"ssm_state in family={cfg.family!r}")
-    if cfg.window or cfg.chunk or any(s.attn != "full" or not s.rope
-                                      for s in cfg.layer_plan()
-                                      if s.mixer == "attn"):
-        unsupported.append("window/chunked/NoPE layers (ring caches)")
-    if cfg.sandwich_norm:
-        unsupported.append("sandwich_norm")
+    if cfg.chunk or any(s.attn not in ("full", "window") or not s.rope
+                        for s in cfg.layer_plan() if s.mixer == "attn"):
+        unsupported.append("chunked/NoPE layers")
     if cfg.qk_norm:
         unsupported.append("qk_norm")
-    if cfg.scale_embed:
-        unsupported.append("scale_embed")
-    if cfg.attn_softcap or cfg.final_softcap:
-        unsupported.append("attn_softcap/final_softcap")
-    if cfg.mlp_act != "silu":
+    if cfg.mlp_act not in ("silu", "gelu"):
         unsupported.append(f"mlp_act={cfg.mlp_act!r}")
     if cfg.norm_type != "rms":
         unsupported.append(f"norm_type={cfg.norm_type!r}")
@@ -173,6 +188,13 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not implement "
             f"{', '.join(unsupported)} yet (see ROADMAP.md)")
+    variants = variant_features(cfg)
+    if mode == "train" and variants:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves {', '.join(variants)} but does "
+            "not train them yet: that is the dense variants' training slice "
+            "(ROADMAP.md Queue 1 item 5: the flash backward's softcap and "
+            "D = 120, period-2 layer plans)")
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

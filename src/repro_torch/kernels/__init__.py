@@ -2,7 +2,9 @@
 
 Each package holds ``ref.py`` (the plain PyTorch version, run for CPU
 tensors and held against the kernel on the card) and ``ops.py`` (the
-wrapper: checks, allocation, launch, a ``LAUNCHES`` count). The CUDA
+wrapper: checks, allocation, launch, a ``LAUNCHES`` count; the ``_d120``
+and ``_ring`` counts are the flash launches at head dim 120 and the decode
+launches over a ring cache, already inside their kernels' counts). The CUDA
 sources live in ``csrc/`` and are built at first use by ``_build.py``.
 :func:`launch_counts` reads every count, :func:`add_launch_counts` advances
 them for launches a CUDA graph replays.
@@ -19,6 +21,7 @@ def _counters():
     return [("rmsnorm", rmsnorm, "LAUNCHES"),
             ("rmsnorm_bwd", rmsnorm, "BWD_LAUNCHES"),
             ("flash_attention", flash_attention, "LAUNCHES"),
+            ("flash_attention_d120", flash_attention, "D120_LAUNCHES"),
             ("flash_attention_bwd_dq", flash_attention, "BWD_DQ_LAUNCHES"),
             ("flash_attention_bwd_dkdv", flash_attention,
              "BWD_DKDV_LAUNCHES"),
@@ -26,6 +29,8 @@ def _counters():
              "BWD_WGMMA_LAUNCHES"),
             ("decode_scores", decode_stats, "SCORES_LAUNCHES"),
             ("decode_stats", decode_stats, "LAUNCHES"),
+            ("decode_scores_ring", decode_stats, "RING_SCORES_LAUNCHES"),
+            ("decode_stats_ring", decode_stats, "RING_LAUNCHES"),
             ("dma_allgather", dma_allgather, "LAUNCHES"),
             ("ssd", ssd, "LAUNCHES"),
             ("ssd_bwd", ssd, "BWD_LAUNCHES")]

@@ -90,14 +90,14 @@ SIGNATURES = {
                                  _I, _I, _I, _F, _I, _I, _I, _P],
     "repro_flash_bwd_dkdv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # s, m, v, pos, pos_stride, slot_offset, window, chunk, o, l, B, KV, G,
-    # L, D, nsplit, v_dtype, stream
-    "repro_decode_stats": [_P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _P],
+    # s, m, v, pos, pos_stride, slot_offset, window, chunk, ring, o, l, B,
+    # KV, G, L, D, nsplit, v_dtype, stream
+    "repro_decode_stats": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _I, _P],
     # q, k, pos, pos_stride, slot_offset, s, m, B, KV, G, L, D, nsplit,
-    # scale, window, chunk, cap, dtype, stream
+    # scale, window, chunk, ring, cap, dtype, stream
     "repro_decode_scores": [_P, _P, _P, _I, _LL, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _I, _F, _I, _P],
+                            _I, _F, _I, _I, _I, _F, _I, _P],
     # x, out, spill, table, sizes, p, R, W, spill slots, max size,
     # block_bytes, vec, stream
     "repro_dma_allgather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL,

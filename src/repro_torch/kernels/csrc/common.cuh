@@ -45,12 +45,18 @@ __device__ __forceinline__ float warp_max(float v) {
 // off + j is kept when off + j <= p, inside the window (p - (off + j) <
 // window) and the chunk of p ((off + j) / chunk == p / chunk) where those
 // are set; empty when hi < lo. The chunk's start comes from the global p,
-// so the offset is not folded into the position.
+// so the offset is not folded into the position. A ring (a whole cache of
+// L <= window slots, slot j holding token p - ((p - j) mod L)) keeps every
+// slot whose token is >= 0, [0, min(p, L - 1)]: its tokens all lie in the
+// window, so the window and chunk tests, which read slot j as token j, are
+// skipped (the caller refuses a ring with a chunk or an offset).
 __device__ __forceinline__ void kept_interval(long long p, long long off,
                                               int L, int window, int chunk,
-                                              long long* lo, long long* hi) {
+                                              bool ring, long long* lo,
+                                              long long* hi) {
   *lo = 0;
   *hi = p - off < L - 1 ? p - off : static_cast<long long>(L) - 1;
+  if (ring) return;
   if (window > 0 && p - window + 1 - off > *lo) *lo = p - window + 1 - off;
   if (chunk > 0 && (p / chunk) * chunk - off > *lo)
     *lo = (p / chunk) * chunk - off;

@@ -7,7 +7,8 @@
 //   x = round_T(q . k[j]) * D^-0.5, then cap*tanh(x/cap) when cap > 0,
 //   s[b,kv,g,j] = x for the slots the mask keeps (global slot off + j <=
 //   pos, inside the window and the chunk of pos, the cache a shard holding
-//   the global slots [off, off + L)) and NEG_INF for the others;
+//   the global slots [off, off + L); on a ring cache of L <= window slots,
+//   the slots [0, min(pos, L - 1)]) and NEG_INF for the others;
 //   m[b,kv,g] = max_j s[b,kv,g,j].
 // The dot is summed in fp32 and rounded to the cache dtype T before the
 // scale, where the reference rounds (its einsum is in T, then cast to fp32).
@@ -62,7 +63,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      long long slot_offset, float* __restrict__ s,
                      float* __restrict__ m,
                      int KV, int L, int D, float scale, int window, int chunk,
-                     float cap) {
+                     int ring, float cap) {
   constexpr int V = 16 / sizeof(T);     // values per 16-byte vector
   __shared__ __align__(16) float sQ[G * kMaxD];
   __shared__ float sMax[kWarps][G];
@@ -84,7 +85,7 @@ decode_scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the interval [lo, hi] of slots the mask keeps
   long long lo, hi;
-  repro::kept_interval(p, slot_offset, L, window, chunk, &lo, &hi);
+  repro::kept_interval(p, slot_offset, L, window, chunk, ring != 0, &lo, &hi);
   const int n = hi >= lo ? static_cast<int>(hi - lo + 1) : 0;
 
   // sweep: cut1
@@ -178,7 +179,7 @@ struct Args {
   void *s, *m;
   int B, KV, L, D, nsplit;
   float scale;
-  int window, chunk;
+  int window, chunk, ring;
   float cap;
 };
 
@@ -200,7 +201,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
       static_cast<const T*>(a.k), static_cast<const long long*>(a.pos),
       a.pos_stride, a.slot_offset, static_cast<float*>(a.s),
       static_cast<float*>(a.m), a.KV,
-      a.L, a.D, a.scale, a.window, a.chunk, a.cap);
+      a.L, a.D, a.scale, a.window, a.chunk, a.ring, a.cap);
 }
 
 template <typename T>
@@ -221,20 +222,21 @@ cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
 // q (B,1,H,D) and k (B,L,KV,D) of dtype, contiguous and 16-byte aligned,
 // H = KV*G; pos int64, pos_stride 0 (one position) or 1 (one per row);
 // slot_offset the global slot of k's first (a cache shard's; 0 for a whole
-// cache); s (B,KV,G,L) and m (B,KV,G) fp32. The caller checked 1 <= G <= 8, D a
+// cache); ring 1 for a ring cache (kept_interval); s (B,KV,G,L) and m
+// (B,KV,G) fp32. The caller checked 1 <= G <= 8, D a
 // multiple of 8 up to 256, L >= 1, 1 <= nsplit <= 8 and B*KV <= 65535.
 extern "C" int repro_decode_scores(const void* q, const void* k,
                                    const void* pos, int pos_stride,
                                    long long slot_offset, void* s, void* m,
                                    int B, int KV, int G, int L,
                                    int D, int nsplit, float scale, int window,
-                                   int chunk, float cap, int dtype,
+                                   int chunk, int ring, float cap, int dtype,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nsplit < 1 || nsplit > kMaxSplit || D > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, pos, pos_stride, slot_offset, s, m, B, KV, L, D,
-               nsplit, scale, window, chunk, cap};
+               nsplit, scale, window, chunk, ring, cap};
   if (dtype == repro::kBFloat16)
     return static_cast<int>(dispatch_g<__nv_bfloat16>(G, a, st));
   if (dtype == repro::kFloat32)

@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 decode_stats_kernel(const float* __restrict__ s, const float* __restrict__ m,
                     const TV* __restrict__ v,
                     const long long* __restrict__ pos, int pos_stride,
-                    long long slot_offset, int window, int chunk,
+                    long long slot_offset, int window, int chunk, int ring,
                     float* __restrict__ o,
                     float* __restrict__ l, int KV, int L, int D,
                     int tps_log2) {
@@ -119,7 +119,7 @@ decode_stats_kernel(const float* __restrict__ s, const float* __restrict__ m,
   long long lo = 0, hi = L - 1;
   if (hinted)
     repro::kept_interval(pos[static_cast<long long>(b) * pos_stride],
-                         slot_offset, L, window, chunk, &lo, &hi);
+                         slot_offset, L, window, chunk, ring != 0, &lo, &hi);
   const int n_kept = hi >= lo ? static_cast<int>(hi - lo + 1) : 0;
   const int per = (n_kept + nsplit - 1) / nsplit;
   const int t0 = static_cast<int>(lo) + min(n_kept, split * per);
@@ -277,7 +277,7 @@ struct Args {
   const void *s, *m, *v, *pos;
   int pos_stride;
   long long slot_offset;
-  int window, chunk;
+  int window, chunk, ring;
   void *o, *l;
   int B, KV, L, D, nsplit, tps_log2;
 };
@@ -299,7 +299,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
       &cfg, decode_stats_kernel<TV, G, VPL>, static_cast<const float*>(a.s),
       static_cast<const float*>(a.m), static_cast<const TV*>(a.v),
       static_cast<const long long*>(a.pos), a.pos_stride, a.slot_offset,
-      a.window, a.chunk,
+      a.window, a.chunk, a.ring,
       static_cast<float*>(a.o), static_cast<float*>(a.l), a.KV, a.L, a.D,
       a.tps_log2);
 }
@@ -328,21 +328,23 @@ int tps_log2_of(int nv, int vpl) {
 // s (B,KV,G,L) fp32, m (B,KV,G) fp32, v (B,L,KV,D) of v_dtype (16-byte
 // aligned), o (B,KV,G,D) fp32, l (B,KV,G) fp32, all contiguous; pos int64
 // with pos_stride 0 (one position) or 1 (one per row), the position s was
-// masked with under window and chunk, the cache a shard holding the global
-// slots [slot_offset, slot_offset + L), or null (every slot may be kept).
+// masked with under window, chunk and ring (a ring cache, kept_interval),
+// the cache a shard holding the global slots [slot_offset, slot_offset +
+// L), or null (every slot may be kept).
 // The caller checked 1 <= G <= 8, D a multiple of 8 up to 256, L >= 1,
 // 1 <= nsplit <= 8 and B*KV <= 65535.
 extern "C" int repro_decode_stats(const void* s, const void* m, const void* v,
                                   const void* pos, int pos_stride,
                                   long long slot_offset, int window,
-                                  int chunk, void* o, void* l, int B, int KV,
+                                  int chunk, int ring, void* o, void* l,
+                                  int B, int KV,
                                   int G, int L, int D, int nsplit,
                                   int v_dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nsplit < 1 || nsplit > kMaxSplit || D > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{s, m, v, pos, pos_stride, slot_offset, window, chunk, o, l, B, KV,
-         L, D, nsplit, 0};
+  Args a{s, m, v, pos, pos_stride, slot_offset, window, chunk, ring, o, l, B,
+         KV, L, D, nsplit, 0};
   if (v_dtype == repro::kBFloat16) {
     a.tps_log2 = tps_log2_of(D / 8, 1);
     return static_cast<int>(dispatch_g<__nv_bfloat16, 1>(G, a, st));

@@ -26,7 +26,7 @@
 // 166 registers). Q (64 x D) and a ring of three K/V stages (64 keys x D
 // each) live in shared memory in the 128-byte swizzle (64-byte at D = 32)
 // that the wgmma descriptors read, loaded by TMA (cp.async.bulk.tensor over
-// 3-D tensor maps of the (B, S|T, H|KV * D) views, one box per 64 columns,
+// 4-D tensor maps of the (B, S|T, H|KV, D) tensors, one box per 64 columns,
 // rows past S or T read as zeros) with mbarrier completion; thread 0 refills
 // a stage as soon as all four warps are past it, two tiles ahead of the one
 // being multiplied (the TMA, mbarrier and wgmma pieces are hopper.cuh's,
@@ -62,6 +62,15 @@
 // columns j, j+32, ... .
 //
 // Both mask the ragged q and kv edges themselves, so any S and T work.
+//
+// Head dim 120 (h2o-danube-3-4b) runs in the D = 128 instances: the bf16
+// wgmma products need K and N in multiples of 16. Its tensor maps are 4-D
+// (B, S|T, heads, 120) with boxes of 64 columns of one head, so the second
+// box of a row reads columns 64..127 and TMA fills 120..127 with zeros
+// (not the next head's first columns): Q K^T and P V are exact, the store
+// skips the 8 zero columns, and no padded copy exists anywhere. The fp32
+// instance zero-fills the same columns in shared memory. The scale is the
+// true dh^-0.5, passed by the wrapper.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -166,8 +175,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                   int S, int T_len, int H, int KV, float scale, int causal,
-                   int window, int chunk, float cap) {
+                   int S, int T_len, int H, int KV, int dh, float scale,
+                   int causal, int window, int chunk, float cap) {
   using C = WCfg<D>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle is a function of the address: tiles start on 1024 bytes,
@@ -206,9 +215,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_expect_tx(bar_kv(t), 2 * C::KV_BYTES);
 #pragma unroll
     for (int c = 0; c < C::NB; ++c) {
-      tma_load_3d(sk + c * kBN * C::SW, &tk, kvh * D + c * C::SWE,
+      tma_load_4d(sk + c * kBN * C::SW, &tk, c * C::SWE, kvh,
                   (lo + it) * kBN, b, bar_kv(t));
-      tma_load_3d(sv + c * kBN * C::SW, &tv, kvh * D + c * C::SWE,
+      tma_load_4d(sv + c * kBN * C::SW, &tv, c * C::SWE, kvh,
                   (lo + it) * kBN, b, bar_kv(t));
     }
   };
@@ -216,7 +225,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_expect_tx(bar_q, C::Q_BYTES);
 #pragma unroll
     for (int c = 0; c < C::NB; ++c)
-      tma_load_3d(sQ + c * kBM * C::SW, &tq, h * D + c * C::SWE, q0, b, bar_q);
+      tma_load_4d(sQ + c * kBM * C::SW, &tq, c * C::SWE, h, q0, b, bar_q);
     for (int it = 0; it < n && it < kStages; ++it) load_kv(it);
   }
 
@@ -325,12 +334,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int qp = r0 + 8 * r;
     if (qp >= S) continue;
-    __nv_bfloat16* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+    __nv_bfloat16* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
     for (int c = 0; c < C::NB; ++c)
 #pragma unroll
       for (int j = 0; j < C::NO / 4; ++j) {
         const int col = c * C::SWE + 8 * j + 2 * t4;
+        if (col >= dh) continue;              // the instance's zero columns
         *reinterpret_cast<__nv_bfloat162*>(out + col) =
             __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * inv_l[r],
                                   acc[c][4 * j + 2 * r + 1] * inv_l[r]);
@@ -341,22 +351,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int S, int T_len, int H, int KV,
-                         float scale, int causal, int window, int chunk,
-                         float cap, cudaStream_t stream) {
+                         int dh, float scale, int causal, int window,
+                         int chunk, float cap, cudaStream_t stream) {
   using C = WCfg<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t e = make_map_bf16(&tq, q, B, S, H * D, C::SWE, kBM, C::SW);
+  cudaError_t e =
+      make_map_bf16_heads(&tq, q, B, S, H, dh, C::SWE, kBM, C::SW);
   if (e == cudaSuccess)
-    e = make_map_bf16(&tk, k, B, T_len, KV * D, C::SWE, kBN, C::SW);
+    e = make_map_bf16_heads(&tk, k, B, T_len, KV, dh, C::SWE, kBN, C::SW);
   if (e == cudaSuccess)
-    e = make_map_bf16(&tv, v, B, T_len, KV * D, C::SWE, kBN, C::SW);
+    e = make_map_bf16_heads(&tv, v, B, T_len, KV, dh, C::SWE, kBN, C::SW);
   static bool opted_in[64] = {};      // the shared-memory opt-in, per device
   if (e == cudaSuccess)
     e = opt_in_smem(flash_wgmma_kernel<D>, C::SMEM, opted_in);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
   flash_wgmma_kernel<D><<<grid, 128, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, KV,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, KV, dh,
       scale, causal, window, chunk, cap);
   return cudaGetLastError();
 }
@@ -381,8 +392,12 @@ __global__ void __launch_bounds__(Tile<D>::NT)
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int S, int T_len, int H, int KV,
-                  float scale, int causal, int window, int chunk, float cap) {
+                  int dh_arg, float scale, int causal, int window, int chunk,
+                  float cap) {
   using C = Tile<D>;
+  // only the D = 128 instance serves another head dim (120); the others
+  // fold it to D, so their registers are what they were without it
+  const int dh = D == 128 ? dh_arg : D;
   extern __shared__ float smem[];
   float* sQ = smem;                     // [BQ][D]
   float* sK = sQ + C::BQ * D;           // [BK][KP]
@@ -398,8 +413,9 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int idx = tid; idx < C::BQ * D; idx += C::NT) {
     const int r = idx / D, d = idx % D, qs = q0 + r;
-    sQ[idx] = qs < S ? q[((static_cast<size_t>(b) * S + qs) * H + h) * D + d]
-                     : 0.f;
+    sQ[idx] = qs < S && d < dh
+                  ? q[((static_cast<size_t>(b) * S + qs) * H + h) * dh + d]
+                  : 0.f;
   }
 
   float m_i[C::RW], l_i[C::RW], acc[C::RW][C::DL];
@@ -428,8 +444,9 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < C::BK * D; idx += C::NT) {
       const int r = idx / D, d = idx % D, ks = k0 + r;
       float kv_k = 0.f, kv_v = 0.f;
-      if (ks < T_len) {
-        const size_t off = ((static_cast<size_t>(b) * T_len + ks) * KV + kvh) * D + d;
+      if (ks < T_len && d < dh) {
+        const size_t off =
+            ((static_cast<size_t>(b) * T_len + ks) * KV + kvh) * dh + d;
         kv_k = k[off];
         kv_v = v[off];
       }
@@ -502,17 +519,18 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lse != nullptr && lane == 0)      // +inf for a row with no key
       lse[(static_cast<size_t>(b) * H + h) * S + qp] =
           l_i[i] == 0.f ? INFINITY : m_i[i] + logf(l_i[i]);
-    float* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+    float* out = o + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
-    for (int j = 0; j < C::DL; ++j) out[lane + 32 * j] = acc[i][j] / l;
+    for (int j = 0; j < C::DL; ++j)
+      if (lane + 32 * j < dh) out[lane + 32 * j] = acc[i][j] / l;
   }
 }
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int S, int T_len, int H, int KV,
-                        float scale, int causal, int window, int chunk,
-                        float cap, cudaStream_t stream) {
+                        int dh, float scale, int causal, int window,
+                        int chunk, float cap, cudaStream_t stream) {
   using C = Tile<D>;
   const int smem = C::SMEM_FLOATS * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(flash_fp32_kernel<D>,
@@ -523,18 +541,20 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
   flash_fp32_kernel<D><<<grid, C::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, T_len, H,
-      KV, scale, causal, window, chunk, cap);
+      KV, dh, scale, causal, window, chunk, cap);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
-                               float*, int, int, int, int, int, float, int,
-                               int, int, float, cudaStream_t);
+                               float*, int, int, int, int, int, int, float,
+                               int, int, int, float, cudaStream_t);
 
+// the instance of head dim D: D = 120 runs in the D = 128 one
 Launch pick(bool bf16, int D) {
   switch (D) {
     case 32: return bf16 ? launch_wgmma<32> : launch_fp32<32>;
     case 64: return bf16 ? launch_wgmma<64> : launch_fp32<64>;
+    case 120:
     case 128: return bf16 ? launch_wgmma<128> : launch_fp32<128>;
     case 256: return bf16 ? launch_wgmma<256> : launch_fp32<256>;
     default: return nullptr;
@@ -547,13 +567,14 @@ int run(bool bf16, const void* q, const void* k, const void* v, void* o,
   const Launch fn = pick(bf16, D);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, static_cast<float*>(lse), B, S,
-                             T_len, H, KV, scale, causal, window, chunk, cap,
-                             static_cast<cudaStream_t>(stream)));
+                             T_len, H, KV, D, scale, causal, window, chunk,
+                             cap, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
-// q (B,S,H,D), k/v (B,T,KV,D), o (B,S,H,D), all contiguous; bf16 runs the
+// q (B,S,H,D), k/v (B,T,KV,D), o (B,S,H,D), all contiguous, D one of 32,
+// 64, 120, 128, 256; bf16 runs the
 // tensor-core instance (q, k, v 16-byte aligned), fp32 the CUDA-core one.
 // lse (B,H,S) fp32, the rows' natural log-sum-exp of the scaled scores for
 // the backward, is written when it is not null (serving passes null).

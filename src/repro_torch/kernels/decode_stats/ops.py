@@ -1,8 +1,16 @@
 """One-token decode attention's two kernels: the masked scores with their
 row max (``decode_scores``) and the accumulation (``accumulate``). Each runs
 its CUDA kernel for CUDA tensors and its plain version for CPU ones.
-``SCORES_LAUNCHES`` and ``LAUNCHES`` count the two kernels' launches; CPU
-calls leave them alone.
+``SCORES_LAUNCHES`` and ``LAUNCHES`` count the two kernels' launches,
+``RING_SCORES_LAUNCHES`` and ``RING_LAUNCHES`` those of them over a ring
+cache; CPU calls leave them alone.
+
+A ring cache (``ring=True``: a sliding-window layer's cache of L slots,
+L <= the window, slot pos % L written at position pos) keeps the slots
+[0, min(pos, L - 1)]: every slot holds one of the last L tokens, all inside
+the window once pos >= L - 1. The kernels take that interval in slot
+order (the order of the JAX package's einsum) and apply no window or chunk
+test to a slot index.
 
 Both kernels split a row over a cluster of up to 8 blocks and reduce across
 them through the cluster's shared memory: they need no scratch and no
@@ -20,6 +28,8 @@ from .ref import (NEG_INF, decode_scores_ref,  # noqa: F401
 
 LAUNCHES = 0          # accumulate kernel
 SCORES_LAUNCHES = 0   # scores kernel
+RING_LAUNCHES = 0         # of LAUNCHES, over a ring cache
+RING_SCORES_LAUNCHES = 0  # of SCORES_LAUNCHES, over a ring cache
 MAX_GROUPS = 8        # query heads per kv head the kernels are built for
 MAX_HEAD_DIM = 256
 MAX_SPLITS = 8        # blocks per row: the portable cluster size
@@ -51,6 +61,23 @@ def _check_cuda(name: str, named: dict[str, torch.Tensor]) -> bool:
     return False
 
 
+def check_ring(name: str, L: int, window: int, chunk: int,
+               slot_offset: int, total_len: int | None = None) -> None:
+    """Raise unless a ring cache of L slots is one the kernels take: a
+    whole cache (no slot offset, a ``total_len`` of L where one is given;
+    a ring split over ranks is the grid slice of the dense variants) of at
+    most ``window`` slots, with no chunk."""
+    if slot_offset or (total_len or L) != L:
+        raise NotImplementedError(
+            f"{name}: a ring cache split over ranks ({L} slots at offset "
+            f"{slot_offset} of {total_len or L}) comes with the dense "
+            "variants on grids (ROADMAP.md Queue 1 item 5)")
+    if chunk or (window and L > window):
+        raise ValueError(f"{name}: a ring of {L} slots with window {window} "
+                         f"and chunk {chunk}; the kernels take a ring of at "
+                         "most its window, with no chunk")
+
+
 def _check_layout(name: str, named: dict[str, torch.Tensor],
                   aligned: tuple[str, ...]) -> None:
     for k, t in named.items():
@@ -76,19 +103,24 @@ def _splits(rows: int, L: int, device) -> int:
 
 def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
                   *, slot_offset: int = 0, window: int = 0, chunk: int = 0,
-                  cap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                  cap: float = 0.0, ring: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B,1,H,D) against the cache k (B,L,KV,D), read in place, at
     ``pos`` (int64: 0-d, one position for every row, or (B,)) ->
     fp32 (s (B,KV,G,L) with masked slots at NEG_INF, m (B,KV,G) its row
     max, NEG_INF where no slot is kept), H = KV*G. ``k_cache`` holds the
     global slots [slot_offset, slot_offset + L): a sequence-parallel cache
-    shard. ``window``, ``chunk`` and ``cap`` as the JAX package's
+    shard. ``window``, ``chunk``, ``cap`` and ``ring`` as the JAX package's
     ``decode_stats_scores``."""
-    global SCORES_LAUNCHES
+    global SCORES_LAUNCHES, RING_SCORES_LAUNCHES
     named = {"q": q, "k": k_cache, "pos": pos}
+    if ring:
+        check_ring("decode_scores", k_cache.shape[1], window, chunk,
+                   slot_offset)
     if _check_cuda("decode_scores", named):
         return decode_scores_ref(q, k_cache, pos, slot_offset=slot_offset,
-                                 window=window, chunk=chunk, cap=cap)
+                                 window=window, chunk=chunk, cap=cap,
+                                 ring=ring)
     if q.ndim != 4 or k_cache.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"decode_scores: q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}; want (B,1,H,D), (B,L,KV,D)")
@@ -124,32 +156,37 @@ def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
     nsplit = _splits(rows, L, q.device)
     err = _build.lib().repro_decode_scores(
         q.data_ptr(), k_cache.data_ptr(), pos.data_ptr(), int(pos.ndim == 1),
-        int(slot_offset), s.data_ptr(), m.data_ptr(), B, KV, G, L, D, nsplit, float(D ** -0.5),
-        int(window), int(chunk), float(cap), code, _build.stream_of(q))
+        int(slot_offset), s.data_ptr(), m.data_ptr(), B, KV, G, L, D, nsplit,
+        float(D ** -0.5), int(window), int(chunk), int(bool(ring)),
+        float(cap), code, _build.stream_of(q))
     _build.check(err, "decode_scores")
     SCORES_LAUNCHES += 1
+    RING_SCORES_LAUNCHES += bool(ring)
     return s, m
 
 
 def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
                pos: torch.Tensor | None = None, slot_offset: int = 0,
-               window: int = 0, chunk: int = 0
+               window: int = 0, chunk: int = 0, ring: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """s (B,KV,G,L) NEG_INF-masked fp32 scores, m (B,KV,G) fp32 row max,
     v_cache (B,L,KV,D) -> fp32 (o (B,1,H,D), l (B,1,H)), H = KV*G. A row
     with no slot kept gives o = 0 and l = 0.
 
-    ``pos``, ``slot_offset``, ``window`` and ``chunk``, when ``pos`` is
-    given, are those the scores were masked with (by
+    ``pos``, ``slot_offset``, ``window``, ``chunk`` and ``ring``, when
+    ``pos`` is given, are those the scores were masked with (by
     :func:`decode_scores`): the kernel then spreads only the slots they
     keep over its blocks. They change no result; the plain version does not
     read them. Without ``pos`` the kernel spreads all of L and skips the
     pieces whose p are all 0: the contract of the JAX package's
     ``decode_stats_accumulate_pallas`` (s, m and V alone)."""
-    global LAUNCHES
+    global LAUNCHES, RING_LAUNCHES
     named = {"s": s, "m": m, "v": v_cache}
     if pos is not None:
         named["pos"] = pos
+    if ring:
+        check_ring("decode_stats", v_cache.shape[1], window, chunk,
+                   slot_offset)
     if _check_cuda("decode_stats", named):
         return decode_stats_accumulate_ref(s, m, v_cache)
     if s.ndim != 4 or v_cache.ndim != 4:
@@ -188,9 +225,10 @@ def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
         s.data_ptr(), m.data_ptr(), v_cache.data_ptr(),
         None if pos is None else pos.data_ptr(),
         int(pos is not None and pos.ndim == 1), int(slot_offset),
-        int(window), int(chunk),
+        int(window), int(chunk), int(bool(ring)),
         o.data_ptr(), l.data_ptr(), B, KV, G, L, D, nsplit, code,
         _build.stream_of(s))
     _build.check(err, "decode_stats")
     LAUNCHES += 1
+    RING_LAUNCHES += bool(ring)
     return o, l

@@ -14,13 +14,17 @@ def _mask_bcast(mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
-                      cap=0.0):
+                      cap=0.0, ring=False):
     """Masked fp32 scores of one-token decode: q (B,1,H,D) against the cache
     k (B,L,KV,D), which holds the global slots [slot_offset, slot_offset +
     L) (a cache shard; 0 for a whole cache). ``pos`` is the query's
     absolute position, a 0-d tensor (lockstep batch) or (B,) (continuous
-    batching, one per row). Returns ``(s, mask)``: s (B,KV,G,L) with masked
-    slots at NEG_INF, mask (L,) or (B,L)."""
+    batching, one per row). With ``ring`` the cache is a ring of L slots:
+    slot j holds token t_j = pos - ((pos - j) mod L), kept when t_j >= 0
+    and the window and chunk tests pass on t_j, the JAX package's
+    ``decode_stats_scores``. Returns ``(s,
+    mask)``: s (B,KV,G,L) with masked slots at NEG_INF, mask (L,) or
+    (B,L)."""
     B, _, H, D = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, KV, H // KV, D)
@@ -29,20 +33,21 @@ def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
         s = cap * torch.tanh(s / cap)
     p_ = pos[:, None] if pos.ndim == 1 else pos
     j = slot_offset + torch.arange(L, device=k_cache.device)
-    mask = j <= p_
+    t = p_ - ((p_ - j) % L) if ring else j   # slot j's token
+    mask = t >= 0 if ring else j <= p_
     if window:
-        mask &= (p_ - j) < window
+        mask &= (p_ - t) < window
     if chunk:
-        mask &= (j // chunk) == (p_ // chunk)
+        mask &= (t // chunk) == (p_ // chunk)
     return torch.where(_mask_bcast(mask), s, NEG_INF), mask
 
 
 def decode_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
-                      cap=0.0):
+                      cap=0.0, ring=False):
     """:func:`masked_scores_ref`'s s (B,KV,G,L) and its row max m (B,KV,G),
     both fp32 (NEG_INF where the cache shard keeps no slot)."""
     s, _ = masked_scores_ref(q, k_cache, pos, slot_offset=slot_offset,
-                             window=window, chunk=chunk, cap=cap)
+                             window=window, chunk=chunk, cap=cap, ring=ring)
     return s, torch.amax(s, dim=-1)
 
 

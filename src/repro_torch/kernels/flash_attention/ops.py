@@ -1,8 +1,13 @@
 """Flash attention: the CUDA kernels for CUDA tensors, the plain versions
 for CPU ones. ``LAUNCHES`` counts forward kernel launches, ``BWD_DQ_LAUNCHES``
 and ``BWD_DKDV_LAUNCHES`` the two backward kernels' (either instance), and
-``BWD_WGMMA_LAUNCHES`` those of the two that the tensor-core instance made;
-CPU calls leave them alone.
+``BWD_WGMMA_LAUNCHES`` those of the two that the tensor-core instance made,
+``D120_LAUNCHES`` the forward launches at head dim 120; CPU calls leave them
+alone.
+
+Head dim 120 (h2o-danube-3-4b) runs the forward in the D = 128 instances,
+the 8 missing columns read as zeros by the kernel itself (its tensor maps
+end at 120); its backward waits for the dense variants' training slice.
 
 On the card the dtype picks the forward instance, explicitly: bf16 runs the
 tensor-core kernel (wgmma, TMA), fp32 the CUDA-core one. The backward's
@@ -27,7 +32,9 @@ LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKDV_LAUNCHES = 0
 BWD_WGMMA_LAUNCHES = 0
-HEAD_DIMS = (32, 64, 128, 256)      # the head dims the kernels are built for
+D120_LAUNCHES = 0                   # of LAUNCHES, at head dim 120
+HEAD_DIMS = (32, 64, 120, 128, 256)  # the forward's head dims
+BWD_HEAD_DIMS = (32, 64, 128, 256)   # the backward's
 BWD_WGMMA_HEAD_DIMS = (32, 64, 128)  # bf16 backward on the tensor cores
 
 
@@ -64,7 +71,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, window, chunk, cap, with_lse=True)
 
 
-def _check_qkv(name: str, q, k, v) -> None:
+def _check_qkv(name: str, q, k, v, head_dims=HEAD_DIMS) -> None:
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q on {q.device}, k on {k.device}, "
                          f"v on {v.device}; all must be on one CUDA device")
@@ -76,8 +83,8 @@ def _check_qkv(name: str, q, k, v) -> None:
     if k.shape[0] != B or k.shape[3] != D or KV == 0 or H % KV:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not "
                          f"match k/v {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{name}: head_dim {D} not in {head_dims}")
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError(f"{name}: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype} differ")
@@ -86,7 +93,7 @@ def _check_qkv(name: str, q, k, v) -> None:
 
 
 def _forward(q, k, v, causal, window, chunk, cap, *, with_lse: bool):
-    global LAUNCHES
+    global LAUNCHES, D120_LAUNCHES
     _check_qkv("flash_attention", q, k, v)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -116,6 +123,7 @@ def _forward(q, k, v, causal, window, chunk, cap, *, with_lse: bool):
         float(cap), _build.stream_of(q))
     _build.check(err, what)
     LAUNCHES += 1
+    D120_LAUNCHES += D == 120
     return o, lse
 
 
@@ -131,7 +139,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                  window=window, chunk=chunk)
     name = "flash_attention_bwd"
-    _check_qkv(name, q, k, v)
+    _check_qkv(name, q, k, v, BWD_HEAD_DIMS)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     for t, what in ((o, "o"), (do, "do")):
@@ -201,8 +209,9 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           chunk: int = 0, cap: float = 0.0) -> torch.Tensor:
     """Differentiable :func:`flash_attention` (the training path)."""
-    if cap:
+    if cap or q.shape[-1] not in BWD_HEAD_DIMS:
         raise NotImplementedError(
-            "the flash backward has no softcap yet: it comes with the dense "
-            "variants (ROADMAP.md Queue 1 item 5)")
+            f"the flash backward has no softcap and no head dim "
+            f"{q.shape[-1]} yet: they come with the dense variants' "
+            "training slice (ROADMAP.md Queue 1 item 5)")
     return FlashAttention.apply(q, k, v, causal, window, chunk)

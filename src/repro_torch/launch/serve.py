@@ -1,10 +1,16 @@
 """Serving launcher of the port: greedy decoding through ``Engine``.
 
-``python -m repro_torch.launch.serve --arch llama3.2-3b`` (or
-``--arch mamba2-780m``, or ``--arch qwen2-moe-a2.7b``, the MoE family, on
-one rank) serves the full configuration on the card with
-random bf16 weights made from seed 0; ``--smoke --device cpu`` serves the
-reduced configuration on the CPU.
+``python -m repro_torch.launch.serve --arch llama3.2-3b`` (or any of
+``configs.ARCHS``: ``--arch mamba2-780m``; ``--arch qwen2-moe-a2.7b``, the
+MoE family, on one rank; the dense variants ``--arch yi-6b``, ``--arch
+h2o-danube-3-4b`` and ``--arch gemma2-9b``, those two on one rank, their
+window layers each holding a ring of min(``--cache-len``, window) slots)
+serves the full configuration on the card with random bf16 weights made
+from seed 0; ``--smoke --device cpu`` serves the reduced configuration on
+the CPU:
+
+    python -m repro_torch.launch.serve --arch gemma2-9b --batch 8 \\
+        --prompt-len 6000 --max-new 32 --cache-len 8192
 
 ``--ranks N --pods q`` spawns N processes, q pods of N/q, that join one
 gloo group on localhost; each serves on ``cuda`` (all of them on the one
@@ -194,7 +200,9 @@ def _serve_rank(rank: int, world: int, args) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    help="one of configs.ARCHS; a pending one raises "
+                         "naming the slice it waits for")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced configuration, in float32")
     ap.add_argument("--device", default=None,

@@ -1,12 +1,16 @@
 """Grouped-query attention of the port: prefill and one-token decode.
 
-Mirrors ``repro.models.attention`` for full causal attention:
+Mirrors ``repro.models.attention`` for full causal attention and the dense
+variants' sliding-window layers, with an optional tanh softcap:
 
-* prefill: :func:`multihead_attention` goes through ``kernels/flash_attention``;
+* prefill: :func:`multihead_attention` goes through ``kernels/flash_attention``
+  (causal, window, softcap);
 * decode: ``kernels/decode_stats``, two kernels: the masked fp32 scores and
   their row max, reading the K cache in place (the JAX package computes
   them outside any kernel, ``decode_stats_scores``), then exp, row sums and
-  P.V -> ``o / l``.
+  P.V -> ``o / l``. A window layer's cache is a ring (``ring=True``) of
+  L = min(cache_len, window) slots, token t at slot t % L, as the JAX
+  package keeps it (``ring_cache_len``).
 
 Query heads are grouped over KV heads (G = H / KV); softmax is in fp32.
 """
@@ -33,38 +37,42 @@ def decode_stats_scores(q, k_cache, pos, *, slot_offset=0, total_len=None,
 
     q (B,1,H,D) against k (B,L_loc,KV,D) holding the global slots
     [slot_offset, slot_offset + L_loc) of a ``total_len``-slot cache;
-    ``total_len`` is only checked. Ring caches are refused."""
-    if ring:
-        raise NotImplementedError(
-            "ring caches come with the dense-variants slice (ROADMAP.md "
-            "Queue 1 item 5)")
+    ``total_len`` is only checked. A ring cache (``ring``) is taken whole
+    (``check_ring``)."""
     L_loc = k_cache.shape[1]
     if total_len is not None and slot_offset + L_loc > total_len:
         raise ValueError(f"a shard of {L_loc} slots at offset {slot_offset} "
                          f"exceeds the {total_len}-slot cache")
+    if ring:
+        stats_ops.check_ring("decode_stats_scores", L_loc, window, chunk,
+                             slot_offset, total_len)
     return stats_ops.masked_scores_ref(q, k_cache, pos,
                                        slot_offset=slot_offset,
-                                       window=window, chunk=chunk, cap=cap)
+                                       window=window, chunk=chunk, cap=cap,
+                                       ring=ring)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, chunk=0,
-                     cap=0.0):
+                     cap=0.0, ring=False):
     """One-token decode: q (B,1,H,D) vs cache (B,L,KV,D) whose slot ``pos``
-    already holds the query token's own key and value (so l > 0)."""
-    s, m = stats_ops.decode_scores(q, k_cache, pos, window=window,
-                                   chunk=chunk, cap=cap)
-    o, l = stats_ops.accumulate(s, m, v_cache, pos=pos, window=window,
-                                chunk=chunk)
+    (``pos % L`` on a ring) already holds the query token's own key and
+    value (so l > 0)."""
+    mask = dict(window=window, chunk=chunk, ring=ring)
+    s, m = stats_ops.decode_scores(q, k_cache, pos, cap=cap, **mask)
+    o, l = stats_ops.accumulate(s, m, v_cache, pos=pos, **mask)
     return (o / l[..., None]).to(v_cache.dtype)
 
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
-                *, slot_offset: int | None = None) -> None:
-    """Write the decode token's (B,1,KV,D) key or value at slot ``pos``.
+                *, slot_offset: int | None = None, ring: bool = False
+                ) -> None:
+    """Write the decode token's (B,1,KV,D) key or value at slot ``pos``
+    (``pos % L`` on a ring cache of L slots).
 
     Updates ``cache`` in place (the JAX package returns a new array from a
-    vmapped ``dynamic_update_slice``). The slot is clamped to the last one,
-    as ``dynamic_update_slice`` clamps its start index, so rows that hold no
+    vmapped ``dynamic_update_slice``), with tensor ops only, so that a CUDA
+    graph captures it. The slot is clamped to the last one, as
+    ``dynamic_update_slice`` clamps its start index, so rows that hold no
     request and keep stepping never index past the cache.
 
     With ``slot_offset`` the cache is a sequence-parallel shard holding the
@@ -82,7 +90,7 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         cache[:, slot] = torch.where(owns, new[:, 0].to(cache.dtype),
                                      cache[:, slot])
         return
-    slot = pos.clamp(max=cache.shape[1] - 1)
+    slot = pos % cache.shape[1] if ring else pos.clamp(max=cache.shape[1] - 1)
     if pos.ndim == 1:                                 # per-row positions
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, slot] = new[:, 0].to(cache.dtype)

@@ -1,4 +1,5 @@
-"""Layer primitives of the port: init, RMSNorm, SwiGLU MLP, rotary embeddings.
+"""Layer primitives of the port: init, RMSNorm, the gated MLP (SwiGLU and
+GeGLU), rotary embeddings, the softcap and the embedding scale.
 
 Plain functions on tensors, mirroring ``repro.models.layers``. Weights keep
 the JAX package's ``(d_in, d_out)`` layout, so ``x @ w`` is the product in
@@ -35,9 +36,32 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def mlp_apply(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-              down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x @ gate) * (x @ up)) @ down."""
-    return (F.silu(x @ gate) * (x @ up)) @ down
+              down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP: (act(x @ gate) * (x @ up)) @ down, SwiGLU for
+    ``act="silu"``, GeGLU for ``"gelu"`` (the tanh form, the default of the
+    JAX package's ``jax.nn.gelu``)."""
+    g = x @ gate
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return (g * (x @ up)) @ down
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """cap * tanh(x / cap) in fp32, cast back to x's dtype (none for cap
+    0): the JAX package's ``layers.softcap``."""
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def embed_scale(d_model: int, dtype) -> float:
+    """The factor ``scale_embed`` multiplies the embedding by, sqrt(d_model)
+    rounded to ``dtype`` first: the JAX package multiplies its ``dtype``
+    activations by the Python float, a weakly typed scalar that JAX casts to
+    the array's dtype (sqrt(3584) = 59.87 becomes 59.75 in bf16), while torch
+    would multiply by the full factor. A product of two bf16 values is exact
+    in fp32, so multiplying by the rounded factor and rounding once gives
+    the JAX result."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float

@@ -1,5 +1,5 @@
-"""Decoder-only stack of the port: the dense llama family, its MoE variant
-and Mamba2.
+"""Decoder-only stack of the port: the dense llama family and its variants,
+its MoE variant and Mamba2.
 
 Mirrors ``repro.models.transformer.forward`` for three families:
 
@@ -22,15 +22,28 @@ plain path, with ``meta = {window, chunk, cap, ring}``.
 
 The JAX package scans stacked ``blocks/slot{j}`` parameters; here the
 layers are a ``ModuleList`` in global layer order, built from
-``cfg.layer_plan()``: a :class:`Block` (attention then SwiGLU MLP) for an
-``attn`` mixer (its MLP the routed and shared experts of ``models/moe.py``
-where the plan's ``mlp`` is "moe", the auxiliary loss dropped in serving,
-as the JAX engine drops it), a :class:`MambaBlock` (``x +
-mamba(rmsnorm(x))``) for a ``mamba2`` one. The cache holds one stacked
-tensor per leaf: ``k`` and
-``v`` (n_layers, B, L, KV, D) for the dense family, padded to
-``cache_len`` slots; ``conv`` (n_layers, B, W-1, Ch) and ``h``
-(n_layers, B, H, N, P) fp32 for the SSM family.
+``cfg.layer_plan()``: a :class:`Block` (attention then the gated MLP) for
+an ``attn`` mixer (its MLP the routed and shared experts of
+``models/moe.py`` where the plan's ``mlp`` is "moe", the auxiliary loss
+dropped in serving, as the JAX engine drops it), a :class:`MambaBlock`
+(``x + mamba(rmsnorm(x))``) for a ``mamba2`` one. The dense variants
+(yi-6b, h2o-danube-3-4b, gemma2-9b) add, per the config: sliding-window
+layers (``attn == "window"``, gemma2's every other layer), a tanh softcap
+on the attention scores and on the logits, sandwich norms (``post_ln1``
+on the attention output, ``post_ln2`` on the MLP's, before each residual
+add), the embedding scaled by sqrt(d_model) and GeGLU. Each layer's
+decode meta (:func:`decode_meta`) carries its window, cap and ring.
+
+The cache holds one stacked tensor per leaf: ``k`` and ``v``
+(n_full, B, L, KV, D) for the full-attention layers, padded to
+``cache_len`` slots; ``k_ring`` and ``v_ring`` (n_ring, B, L_ring, KV, D)
+for the window layers, each a ring of L_ring = min(cache_len, window)
+slots holding token t at slot t % L_ring (the JAX ``ring_cache_len``; a
+prompt longer than the ring keeps its last L_ring keys); a stack with no
+layer is left out (llama keeps ``k`` and ``v`` alone, h2o-danube
+``k_ring`` and ``v_ring`` alone, gemma2 21 layers in each); ``conv``
+(n_layers, B, W-1, Ch) and ``h`` (n_layers, B, H, N, P) fp32 for the SSM
+family.
 
 Training (:func:`forward_train`) takes the JAX package's parameter tree
 instead, fp32 master weights with the layers stacked (``blocks/slot0``:
@@ -62,8 +75,9 @@ from ..configs import LayerSpec, ModelConfig, check_supported
 from . import attention as attn
 from ..kernels.flash_attention.ops import flash_attention_train
 from ..kernels.rmsnorm.ops import rmsnorm_residual_train, rmsnorm_train
-from .layers import (apply_rope_angles, dense_init, embed_init, mlp_apply,
-                     rmsnorm, rmsnorm_residual, rope_angles)
+from .layers import (apply_rope_angles, dense_init, embed_init, embed_scale,
+                     mlp_apply, rmsnorm, rmsnorm_residual, rope_angles,
+                     softcap)
 from .moe import moe_apply, moe_init, moe_shapes
 from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
                   mamba_shapes)
@@ -72,10 +86,29 @@ from .tp import (MAMBA_TIER_LEAVES, block_train_tp, mamba_train_tp,
 
 ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
 LAYER_PARAMS = ATTN_PARAMS + ("gate", "up", "down")
-# the decode_combine hook's meta for the layers this port builds: full
-# causal attention (check_supported refuses window, chunk, softcap, ring)
-DECODE_META = {"window": 0, "chunk": 0, "cap": 0.0, "ring": False}
+SANDWICH_PARAMS = ("post_ln1", "post_ln2")     # gemma2's post-norms
 MAMBA_LAYER_PARAMS = ("ln",) + MAMBA_PARAMS
+#: the cache leaves of the full-attention layers and of the ring layers
+FULL_LEAVES, RING_LEAVES = ("k", "v"), ("k_ring", "v_ring")
+
+
+def ring_cache_len(cfg: ModelConfig, spec) -> int | None:
+    """The ring's size of a window layer (None: a full-length cache): the
+    JAX ``ring_cache_len``, the window; a cache of ``cache_len`` slots holds
+    min(cache_len, this). The port has no chunked layer
+    (``check_supported``)."""
+    if spec.mixer == "attn" and spec.attn == "window" and cfg.window:
+        return cfg.window
+    return None
+
+
+def decode_meta(cfg: ModelConfig, spec) -> dict:
+    """The decode_combine hook's meta of a layer of the plan entry
+    ``spec``: its window (window layers), chunk (0: none is ported), the
+    attention softcap and whether its cache is a ring."""
+    ring = ring_cache_len(cfg, spec) is not None
+    return {"window": cfg.window if spec.attn == "window" else 0,
+            "chunk": 0, "cap": cfg.attn_softcap, "ring": ring}
 
 
 def find_period(plan) -> tuple[int, int, int]:
@@ -106,16 +139,21 @@ def attn_qkv(x, w, cos, sin, cfg: ModelConfig, norm=rmsnorm):
 
 
 def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
-            reduce=None):
+            reduce=None, norm=rmsnorm):
     """A dense layer's second half from the attention output: ``x + o @ wo``
-    and ``ln2`` in one pass, then ``x + mlp``. On a model rank (``w`` its
-    heads' rows of ``wo``, its columns of the MLP) ``reduce`` sums the
-    row-parallel products' partial sums over the tier."""
+    and ``ln2`` in one pass, then ``x + mlp``; with sandwich norms ``o @
+    wo`` and the MLP's output each go through their plain post-norm before
+    their residual add. On a model rank (``w`` its heads' rows of ``wo``,
+    its columns of the MLP) ``reduce`` sums the row-parallel products'
+    partial sums over the tier."""
     B, S, _ = x.shape
     reduce = reduce or (lambda y: y)
-    x, h = norm_residual(x, reduce(o.reshape(B, S, -1) @ w["wo"]), w["ln2"],
-                         eps=cfg.norm_eps)
-    return x + reduce(mlp_apply(h, w["gate"], w["up"], w["down"]))
+    post = (lambda y, name: norm(y, w[name], eps=cfg.norm_eps)) \
+        if cfg.sandwich_norm else (lambda y, name: y)
+    a = post(reduce(o.reshape(B, S, -1) @ w["wo"]), "post_ln1")
+    x, h = norm_residual(x, a, w["ln2"], eps=cfg.norm_eps)
+    m = reduce(mlp_apply(h, w["gate"], w["up"], w["down"], cfg.mlp_act))
+    return x + post(m, "post_ln2")
 
 
 def out_moe(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
@@ -130,14 +168,16 @@ def out_moe(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention then the SwiGLU MLP, or the
-    MoE experts when ``weights`` holds a router."""
+    """One pre-norm decoder layer: attention then the gated MLP, or the
+    MoE experts when ``weights`` holds a router. ``meta`` is the layer's
+    :func:`decode_meta` (its window, softcap and ring)."""
 
     def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor],
-                 tp=None):
+                 meta: dict, tp=None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.meta = meta
         self.moe = "router" in weights
         for name in weights:
             self.register_parameter(
@@ -147,22 +187,27 @@ class Block(nn.Module):
                 decode_combine=None):
         """Prefill (``kv_cache`` None): returns (x, (k, v)) with this
         layer's keys and values. Decode: writes the token's key and value
-        into ``kv_cache = (k_cache, v_cache)`` in place at ``pos`` and
-        returns (x, None); a ``decode_combine`` hook (module docstring)
-        does the write and the attention when it takes the layer."""
-        w = self._parameters
+        into ``kv_cache = (k_cache, v_cache)`` in place at ``pos`` (``pos %
+        L`` on a ring) and returns (x, None); a ``decode_combine`` hook
+        (module docstring) does the write and the attention when it takes
+        the layer."""
+        w, meta = self._parameters, self.meta
         q, k, v = attn_qkv(x, w, cos, sin, self.cfg)
         if kv_cache is None:
-            o = attn.multihead_attention(q, k, v, causal=True)
+            o = attn.multihead_attention(q, k, v, causal=True,
+                                         window=meta["window"],
+                                         cap=meta["cap"])
             kv = (k, v)
         else:
             k_cache, v_cache = kv_cache
             res = None if decode_combine is None else decode_combine(
-                q, k, v, k_cache, v_cache, pos, DECODE_META)
+                q, k, v, k_cache, v_cache, pos, meta)
             if res is None:
-                attn.write_cache(k_cache, k, pos)
-                attn.write_cache(v_cache, v, pos)
-                o = attn.decode_attention(q, k_cache, v_cache, pos)
+                attn.write_cache(k_cache, k, pos, ring=meta["ring"])
+                attn.write_cache(v_cache, v, pos, ring=meta["ring"])
+                o = attn.decode_attention(q, k_cache, v_cache, pos,
+                                          window=meta["window"],
+                                          cap=meta["cap"], ring=meta["ring"])
             else:
                 o = res[0]
             kv = None
@@ -236,25 +281,44 @@ class Transformer(nn.Module):
             if spec.mixer == "mamba2":
                 return MambaBlock(cfg, {n: load(f"layers.{i}.{n}")
                                         for n in names}, tp)
-            return Block(cfg, {n: load(f"layers.{i}.{n}") for n in names}, tp)
+            return Block(cfg, {n: load(f"layers.{i}.{n}") for n in names},
+                         decode_meta(cfg, spec), tp)
 
         self.embed = nn.Parameter(load("embed"), requires_grad=False)
         self.final_norm = nn.Parameter(load("final_norm"), requires_grad=False)
         self.head = (None if cfg.tie_embeddings else
                      nn.Parameter(load("head"), requires_grad=False))
-        self.layers = nn.ModuleList(
-            block(i, spec) for i, spec in enumerate(cfg.layer_plan()))
+        plan = cfg.layer_plan()
+        self.layers = nn.ModuleList(block(i, s) for i, s in enumerate(plan))
         self.ssm = cfg.family == "ssm"
+        # layer i's cache: (its stack's leaves, its index in the stack)
+        windows = [ring_cache_len(cfg, s) for s in plan]
+        rings = [w is not None for w in windows]
+        # every ring layer's: the config has one window
+        self.ring_window = next((w for w in windows if w), None)
+        self.cache_slot = [(RING_LEAVES if r else FULL_LEAVES,
+                            sum(rings[:i]) if r else i - sum(rings[:i]))
+                           for i, r in enumerate(rings)]
+        self.n_ring = sum(rings)
+        self.embed_scale = (embed_scale(cfg.d_model, cfg.dtype)
+                            if cfg.scale_embed else None)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def ring_len(self, cache_len: int) -> int | None:
+        """The slots of a window layer's ring in a ``cache_len``-slot
+        cache: min(cache_len, its ``ring_cache_len``); None where no layer
+        is a ring."""
+        return (None if self.ring_window is None
+                else min(cache_len, self.ring_window))
+
     def cache_shapes(self, batch: int, cache_len: int
                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """(shape, dtype) of every cache leaf but ``pos``, stacked over the
-        layers (the SSM state has no slots: ``cache_len`` does not size
-        it)."""
+        layers of each stack (module docstring; the SSM state has no slots:
+        ``cache_len`` does not size it)."""
         cfg = self.cfg
         if self.ssm:
             m = 1 if self.tp is None else self.tp.m
@@ -265,8 +329,10 @@ class Transformer(nn.Module):
         if self.tp is not None:
             lo, hi = self.tp.kv_heads()
             kv = hi - lo
-        shape = (cfg.n_layers, batch, cache_len, kv, cfg.head_dim_)
-        return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+        stacks = ((FULL_LEAVES, cfg.n_layers - self.n_ring, cache_len),
+                  (RING_LEAVES, self.n_ring, self.ring_len(cache_len)))
+        return {name: ((n, batch, L, kv, cfg.head_dim_), cfg.dtype)
+                for names, n, L in stacks if n for name in names}
 
     def empty_cache(self, batch: int, cache_len: int, *,
                     vector_pos: bool = False) -> dict[str, torch.Tensor]:
@@ -293,6 +359,8 @@ class Transformer(nn.Module):
         else:
             x = self.tp.tier.all_reduce(self.tp.local_embed(tokens,
                                                             self.embed))
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
         if mode == "prefill":
             if cache is not None:
                 raise ValueError("prefill builds its cache; pass cache_len")
@@ -304,6 +372,10 @@ class Transformer(nn.Module):
                 slot_offset = 0
             elif self.ssm:
                 raise ValueError("SSM caches are never sequence-sharded")
+            elif self.n_ring:
+                raise NotImplementedError(
+                    "a ring cache split over ranks comes with the dense "
+                    "variants on grids (ROADMAP.md Queue 1 item 5)")
             # the prompt's slots this cache holds: [lo, hi) of the prompt
             lo, hi = min(S, slot_offset), min(S, slot_offset + L)
             new_cache = self.empty_cache(B, L)
@@ -316,10 +388,18 @@ class Transformer(nn.Module):
                 positions = torch.arange(S, device=tokens.device)[None]
                 cos, sin = rope_angles(positions, cfg.head_dim_,
                                        cfg.rope_theta)
+                Lr = self.ring_len(L)
                 for i, layer in enumerate(self.layers):
-                    x, (k, v) = layer(x, cos, sin)
-                    new_cache["k"][i, :, :hi - lo] = k[:, lo:hi]
-                    new_cache["v"][i, :, :hi - lo] = v[:, lo:hi]
+                    x, kv = layer(x, cos, sin)
+                    names, j = self.cache_slot[i]
+                    for name, t in zip(names, kv):
+                        if names == FULL_LEAVES:
+                            new_cache[name][j, :, :hi - lo] = t[:, lo:hi]
+                        elif S <= Lr:
+                            new_cache[name][j, :, :S] = t
+                        else:       # the last Lr keys, token t at slot t % Lr
+                            new_cache[name][j] = torch.roll(
+                                t[:, S - Lr:], (S - Lr) % Lr, dims=1)
             new_cache["pos"] = torch.tensor(S, dtype=torch.long,
                                             device=tokens.device)
             # the norm is per row, so norming the last position alone is exact
@@ -338,16 +418,17 @@ class Transformer(nn.Module):
                 cos, sin = rope_angles(positions, cfg.head_dim_,
                                        cfg.rope_theta)
                 for i, layer in enumerate(self.layers):
-                    x, _ = layer(x, cos, sin, kv_cache=(cache["k"][i],
-                                                        cache["v"][i]),
+                    (nk, nv), j = self.cache_slot[i]
+                    x, _ = layer(x, cos, sin, kv_cache=(cache[nk][j],
+                                                        cache[nv][j]),
                                  pos=pos, decode_combine=decode_combine)
             pos.add_(1)             # in place: a captured graph reads it
             new_cache = cache
         else:
             raise ValueError(f"unknown mode {mode!r}")
         x = rmsnorm(x, self.final_norm, eps=cfg.norm_eps)
-        return x @ (self.embed.T if self.head is None else self.head), \
-            new_cache
+        logits = x @ (self.embed.T if self.head is None else self.head)
+        return softcap(logits, cfg.final_softcap), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +451,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the JAX ``init_params`` distributions (other
     bits): dense N(0, 1/d_in), embedding N(0, 0.02^2), norm scales 0, the
     Mamba2 leaves as ``ssm.mamba_init`` draws them, the MoE leaves as
-    ``moe.moe_init`` does, the untied head as the embedding (transposed).
+    ``moe.moe_init`` does, the untied head as the embedding (transposed),
+    the sandwich post-norms' scales 0.
     Each tensor is drawn
     in fp32 on ``device`` and stored in ``cfg.dtype``, the dtype the model
     holds it in (the JAX engine casts its fp32 parameters to ``cfg.dtype``
@@ -401,6 +483,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             else:
                 layer |= {"gate": dense(d, f), "up": dense(d, f),
                           "down": dense(f, d)}
+            if cfg.sandwich_norm:
+                layer |= {n: zeros() for n in SANDWICH_PARAMS}
         params.update({f"layers.{i}.{n}": keep(f"layers.{i}.{n}", t)
                        for n, t in layer.items()})
     return params
@@ -469,6 +553,8 @@ def spec_leaf_paths(cfg: ModelConfig, spec, tier: bool = False
     if spec.mlp == "moe":
         return ({n: TRAIN_LEAF_PATHS[n] for n in ATTN_PARAMS}
                 | {n: MOE_TRAIN_LEAF_PATHS[n] for n in moe_shapes(cfg)})
+    if cfg.sandwich_norm:
+        return TRAIN_LEAF_PATHS | {n: (n, "scale") for n in SANDWICH_PARAMS}
     return TRAIN_LEAF_PATHS
 
 
@@ -510,7 +596,8 @@ def _spec_shapes(cfg: ModelConfig, spec) -> dict[str, tuple[int, ...]]:
             "wo": (hq, d), "ln2": (d,)}
     if spec.mlp == "moe":
         return attn | moe_shapes(cfg)
-    return attn | {"gate": (d, f), "up": (d, f), "down": (f, d)}
+    post = {n: (d,) for n in SANDWICH_PARAMS} if cfg.sandwich_norm else {}
+    return attn | {"gate": (d, f), "up": (d, f), "down": (f, d)} | post
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:

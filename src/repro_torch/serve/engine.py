@@ -8,6 +8,11 @@ the card: with ``device=None`` it takes ``cuda`` and raises when no CUDA
 device is visible; ``device="cpu"`` runs the kernels' plain versions, which
 is what the tests ask for.
 
+The dense variants (h2o-danube-3-4b, gemma2-9b: window layers with ring
+caches, softcaps, sandwich norms, GeGLU, scaled embeddings) serve on one
+rank, their decode one CUDA graph a step like llama's; ``ServeSpec.resolve``
+refuses them on a grid of more than one rank.
+
 On a :class:`~repro_torch.core.topology.RankGrid` every rank builds the
 same engine and submits the same requests. A batch that divides over the
 ranks is sharded over them (the JAX engine's batch-sharded layout): rank i

@@ -8,7 +8,10 @@ grid keeps the same accounting, in step.
 
 Pure-Python bookkeeping over the physical cache the engine compiled: the
 (B, cache_len, ...) cache is viewed as B *rows* (one request each) of
-``cache_len // page_len`` *pages*.  Admission reserves the request's whole
+``cache_len // page_len`` *pages*. The accounting is the same for the dense
+variants: ``cache_len`` is a request's context limit, and a window layer's
+ring of min(cache_len, window) slots holds the last of that context, so a
+row's pages count the full-length layers' slots as for any model.  Admission reserves the request's whole
 worst case — ceil((prompt_len + max_new) / page_len) pages in one free row
 — up front, so:
 

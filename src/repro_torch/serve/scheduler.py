@@ -9,7 +9,8 @@ positions and harvests the rows whose budget is spent.
 
 On a CUDA device the decode step is one CUDA graph (:class:`DecodeGraph`),
 captured at construction at the fixed batch and cache length and replayed
-every step: the port's counterpart of the JAX scheduler's decode step,
+every step (each layer's meta fixed in the capture: its window, softcap and
+ring, the ring's write slot ``pos % L`` computed on the card): the port's counterpart of the JAX scheduler's decode step,
 compiled once by ``jax.jit`` with the cache donated. On the CPU every step
 runs the forward eagerly, and so does a split cache (below) and a grid
 with a model tier, by rule: the tier's allreduces run on the host's side
@@ -106,8 +107,11 @@ class StepClock:
 
 def _leaf_batch_dim(name: str, leaf: torch.Tensor) -> int | None:
     """Batch dim of a cache leaf (stacked leaves carry a leading layer
-    dim), the rule of the JAX scheduler; None for the pos leaf."""
-    if name in ("k", "v", "h"):
+    dim), the rule of the JAX scheduler; None for the pos leaf. A window
+    layer's ring (``k_ring``, ``v_ring``) is a row of the batch like a full
+    cache: a prefill's ring rows, already rolled to slot t % L, are copied
+    as they are."""
+    if name in ("k", "v", "k_ring", "v_ring", "h"):
         return leaf.ndim - 4
     if name == "conv":
         return leaf.ndim - 3

@@ -33,7 +33,14 @@ channels (the ssm family, whose state is never split over the sequence:
 a batch the lane does not divide is held whole on every lane).
 
 The MoE family is served on one rank: :meth:`ServeSpec.resolve` refuses it
-on a grid of more than one rank (ROADMAP.md Queue 1 item 14).
+on a grid of more than one rank (ROADMAP.md Queue 1 item 14). So are the
+dense variants' features (``configs.variant_features``: window layers with
+their ring caches, softcaps, sandwich norms, ``scale_embed``, GeGLU;
+h2o-danube-3-4b and gemma2-9b), whose grids, with ring caches split over
+the sequence by ``total_len``, are the dense variants' grid slice
+(ROADMAP.md Queue 1 item 5). ``cache_len`` stays the request's context
+limit, as in the JAX package: a window layer holds min(cache_len, window)
+slots of it.
 
 :meth:`ServeSpec.resolve` binds a spec to a model and a ``RankGrid`` (None:
 one rank), as the JAX ``resolve`` binds it to a mesh; the cache layout and
@@ -47,6 +54,7 @@ from typing import Any
 
 import numpy as np
 
+from ..configs import variant_features
 from ..core.collectives import MIGRATE_ALGORITHMS
 from ..models.tp import check_tp
 
@@ -112,6 +120,14 @@ class ServeSpec:
         once here, so the engine and the scheduler cannot drift on them."""
         self.validate()
         sizes = _axis_sizes(grid)
+        variants = variant_features(cfg)
+        ranks = sizes["pod"] * sizes["data"] * sizes["model"]
+        if variants and ranks > 1:
+            raise NotImplementedError(
+                f"{cfg.name} on a grid of {ranks} ranks: the port serves "
+                f"{', '.join(variants)} on one rank; the dense variants on "
+                "grids (ring caches split with total_len, the model tier) "
+                "are a later slice (ROADMAP.md Queue 1 item 5)")
         check_tp(cfg, sizes["model"])
         if cfg.family == "moe" and sizes["pod"] * sizes["data"] > 1:
             raise NotImplementedError(

@@ -24,7 +24,12 @@ invariance bound of ``tests/test_kernels.py`` (the kernel chunks by 64,
 the plain version by Q); the SSD backward and the gated RMSNorm backward
 at the tolerances stated where their cases are (``SSD_BWD_REL``); the
 gated RMSNorm split over a model tier (its four launches, the tier's sums
-emulated) against the unsplit plain forward and backward.
+emulated) against the unsplit plain forward and backward; the dense
+variants' instances: flash at head dim 120 (in the D = 128 instance) and
+gemma2's D = 256 with window and cap, the two decode kernels over a ring
+cache at positions before, at and past its wrap, and the decode graph of
+h2o-danube and gemma2 (a 16-slot ring that the requests wrap) bitwise the
+eager forward, its launches counted with the ring instances apart.
 """
 import pytest
 import torch
@@ -67,6 +72,13 @@ FLASH_CASES = [
     (1, 190, 190, 24, 8, 128, dict(causal=True, cap=50.0)),
     (1, 137, 137, 16, 16, 128, dict(causal=True)),     # qwen2-moe heads
     (1, 512, 512, 16, 16, 128, dict(causal=True)),
+    # the dense variants: h2o-danube's D = 120 (in the D = 128 instance,
+    # the tensor maps ending at 120), gemma2's D = 256 with window and cap
+    (1, 512, 512, 32, 8, 120, dict(causal=True, window=4096)),
+    (1, 137, 137, 32, 8, 120, dict(causal=True, window=64)),
+    (2, 65, 65, 8, 2, 120, dict(causal=True, window=24, cap=50.0)),
+    (1, 100, 260, 4, 1, 120, dict(causal=False)),
+    (1, 300, 300, 16, 8, 256, dict(causal=True, window=128, cap=50.0)),
 ]
 
 
@@ -162,10 +174,11 @@ def test_flash_kernel_on_card(cuda, dtype, case):
     q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
     v = torch.randn((B, T, KV, D), generator=g, device=cuda).to(dtype)
-    before = flash_ops.LAUNCHES
+    before = flash_ops.LAUNCHES, flash_ops.D120_LAUNCHES
     out = flash_ops.flash_attention(q, k, v, **mask)
     torch.cuda.synchronize()
-    assert flash_ops.LAUNCHES == before + 1
+    assert (flash_ops.LAUNCHES, flash_ops.D120_LAUNCHES) == \
+        (before[0] + 1, before[1] + (D == 120))
     _close(out, flash_ops.attention_ref(q, k, v, **mask), dtype, 1e-4)
 
 
@@ -237,6 +250,55 @@ def test_decode_scores_kernel_on_card(cuda, dtype, mask, case):
         assert torch.equal(s == tattention.NEG_INF, masked)
         _close(s, rs, dtype, 1e-4)
         _close(m, rm, dtype, 1e-4)
+
+
+# (B, KV, G, D, L) of a ring cache (L slots, window W >= L): h2o-danube's
+# decode (G = 4, D = 120), gemma2's (G = 2, D = 256) and a ragged L
+RING_CASES = [(8, 8, 4, 120, 64), (2, 8, 2, 256, 64), (3, 2, 3, 128, 75)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [dict(), dict(cap=50.0)], ids=str)
+@pytest.mark.parametrize("case", RING_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_kernels_on_a_ring(cuda, dtype, mask, case):
+    """Both decode kernels over a ring cache, at positions before, at and
+    past the wrap (per row, and one for every row), against their plain
+    versions (the JAX ring mask: slot j holds token pos - ((pos - j) mod
+    L)); the kept slots are [0, min(pos, L - 1)]."""
+    B, KV, G, D, L = case
+    q, k, v = _decode_tensors(case, dtype, cuda)
+    W = L + 7                                # any window >= the ring
+    wraps = [L - 2, L - 1, L, 3 * L + 5, 5, 2 * L - 1, L + 1, 0]
+    for pos in (torch.tensor([wraps[i % len(wraps)] for i in range(B)],
+                             device=cuda),
+                torch.tensor(4 * L + 3, device=cuda)):
+        n = (stats_ops.SCORES_LAUNCHES, stats_ops.RING_SCORES_LAUNCHES,
+             stats_ops.LAUNCHES, stats_ops.RING_LAUNCHES)
+        s, m = stats_ops.decode_scores(q, k, pos, window=W, ring=True,
+                                       **mask)
+        o, l = stats_ops.accumulate(s, m, v, pos=pos, window=W, ring=True)
+        torch.cuda.synchronize()
+        assert (stats_ops.SCORES_LAUNCHES, stats_ops.RING_SCORES_LAUNCHES,
+                stats_ops.LAUNCHES, stats_ops.RING_LAUNCHES) == \
+            tuple(c + 1 for c in n)
+        rs, rm = stats_ops.decode_scores_ref(q, k, pos, window=W, ring=True,
+                                             **mask)
+        kept = (rs != tattention.NEG_INF)[:, 0, 0]
+        want = torch.arange(L, device=cuda)[None] <= \
+            pos.expand(B)[:, None].clamp(max=L - 1)
+        assert torch.equal(kept, want)
+        assert torch.equal(s == tattention.NEG_INF, rs == tattention.NEG_INF)
+        _close(s, rs, dtype, 1e-4)
+        _close(m, rm, dtype, 1e-4)
+        ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+        torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="ring"):
+        stats_ops.decode_scores(q, k, pos, window=L - 1, ring=True)
+    with pytest.raises(ValueError, match="ring"):
+        stats_ops.accumulate(s, m, v, pos=pos, chunk=16, ring=True)
 
 
 @pytest.mark.gpu
@@ -469,6 +531,8 @@ def _small_engine(arch, device):
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec, StepClock
     cfg = dataclasses.replace(configs.get_smoke(arch), n_layers=2)
+    if cfg.window:          # a 16-slot ring, so that the requests wrap it
+        cfg = dataclasses.replace(cfg, window=16)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
     eng = Engine(cfg, params, ServeSpec(batch=3, cache_len=64), device=device,
@@ -483,7 +547,8 @@ def _small_engine(arch, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "h2o-danube-3-4b",
+                                  "gemma2-9b"])
 def test_decode_graph_replay_equals_the_eager_forward(cuda, arch):
     eng = _small_engine(arch, cuda)
     sched = eng.scheduler
@@ -511,16 +576,21 @@ def test_decode_graph_replay_equals_the_eager_forward(cuda, arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "h2o-danube-3-4b",
+                                  "gemma2-9b"])
 def test_launch_counts_follow_the_graph_replays(cuda, arch):
     from repro_torch import kernels
     eng = _small_engine(arch, cuda)
     plan = eng.cfg.layer_plan()
     attn = sum(s.mixer == "attn" for s in plan)
     mamba = sum(s.mixer == "mamba2" for s in plan)
-    per_step = {"rmsnorm": 2 * len(plan) + 1, "rmsnorm.plain": len(plan) + 1,
+    ring = sum(s.attn == "window" for s in plan)
+    post = 2 * len(plan) if eng.cfg.sandwich_norm else 0   # sandwich norms
+    per_step = {"rmsnorm": 2 * len(plan) + 1 + post,
+                "rmsnorm.plain": len(plan) + 1 + post,
                 "rmsnorm.residual": attn, "rmsnorm.gated": mamba,
-                "decode_scores": attn, "decode_stats": attn}
+                "decode_scores": attn, "decode_stats": attn,
+                "decode_scores_ring": ring, "decode_stats_ring": ring}
     assert eng.scheduler._graph.launches == {k: n for k, n in per_step.items()
                                              if n}
     before, st0 = kernels.launch_counts(), eng.stats()
@@ -530,10 +600,13 @@ def test_launch_counts_follow_the_graph_replays(cuda, arch):
     steps = st["decode_steps"] - st0["decode_steps"]
     prefills = st["prefills"] - st0["prefills"]
     assert steps >= 8 and prefills == len(GRAPH_REQUESTS)
-    fwd = {"rmsnorm": 2 * len(plan) + 1, "rmsnorm.plain": len(plan) + 1,
+    fwd = {"rmsnorm": 2 * len(plan) + 1 + post,
+           "rmsnorm.plain": len(plan) + 1 + post,
            "rmsnorm.residual": attn, "rmsnorm.gated": mamba}
     want = {k: n * (steps + prefills) for k, n in fwd.items()}
     want.update(decode_scores=attn * steps, decode_stats=attn * steps,
+                decode_scores_ring=ring * steps,
+                decode_stats_ring=ring * steps, flash_attention_d120=0,
                 flash_attention=attn * prefills, ssd=mamba * prefills,
                 dma_allgather=0, rmsnorm_bwd=0, flash_attention_bwd_dq=0,
                 flash_attention_bwd_dkdv=0, flash_attention_bwd_wgmma=0,
@@ -698,7 +771,10 @@ def test_ssd_raises_naming_n_and_p_when_the_state_is_too_large(cuda):
 # fp32 on the same bf16 inputs at atol 1e-3 plus rtol 1e-2: mostly
 # relative, since most gradients of randn inputs at D = 128 are 0.03-0.1
 BWD_BF16_VS_FP32 = dict(atol=1e-3, rtol=1e-2)
-BWD_CASES = [c for c in FLASH_CASES if not c[6].get("cap")] + [
+# (the backward takes no softcap and no D = 120: the variants' training
+# slice, ROADMAP.md Queue 1 item 5)
+BWD_CASES = [c for c in FLASH_CASES
+             if not c[6].get("cap") and c[5] in flash_ops.BWD_HEAD_DIMS] + [
     (2, 256, 256, 24, 8, 128, dict(causal=True)),
     (1, 200, 200, 8, 2, 256, dict(causal=True, window=70)),
     # the tensor-core pair's 64-row tiles (queries in dq, keys in dk/dv):

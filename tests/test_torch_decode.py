@@ -156,8 +156,10 @@ def test_launch_counts_read_and_advance_every_counter():
             "rmsnorm_bwd.plain", "rmsnorm_bwd.residual",
             "rmsnorm_bwd.gated", "ssd_bwd", "rmsnorm.gated_rowsq",
             "rmsnorm.gated_finish", "rmsnorm_bwd.gated_rowdot",
-            "rmsnorm_bwd.gated_finish"} == set(counts)
+            "rmsnorm_bwd.gated_finish", "flash_attention_d120",
+            "decode_scores_ring", "decode_stats_ring"} == set(counts)
     delta = {"decode_scores": 2, "decode_stats": 2, "rmsnorm": 5,
+             "decode_scores_ring": 1, "flash_attention_d120": 2,
              "rmsnorm.plain": 3, "rmsnorm.residual": 2,
              "flash_attention_bwd_dq": 1, "rmsnorm_bwd.residual": 4}
     kernels.add_launch_counts(delta, 3)
@@ -277,8 +279,14 @@ def test_shard_scores_check_the_total_and_refuse_ring_caches():
     with pytest.raises(ValueError, match="exceeds"):
         tattention.decode_stats_scores(q, k, torch.tensor(3), slot_offset=40,
                                        total_len=48)
+    # a whole ring is taken (tests/test_torch_variants.py); a ring split
+    # over ranks waits for the dense variants on grids
     with pytest.raises(NotImplementedError, match="item 5"):
-        tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True)
+        tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True,
+                                       slot_offset=12, total_len=48)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True,
+                                       total_len=48)
 
 
 @pytest.mark.parametrize("pos", [0, 11, 12, 30, 47])

@@ -81,7 +81,7 @@ def test_mamba_config_mirrors_jax():
     assert configs.get("mamba2-780m").dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", ["gemma2-9b", "zamba2-1.2b",
+@pytest.mark.parametrize("name", ["internvl2-26b", "zamba2-1.2b",
                                   "llama4-scout-17b-a16e", "whisper-tiny"])
 def test_registry_names_the_waiting_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -97,9 +97,18 @@ def test_registry_names_the_waiting_slice(name):
                                   dict(family="hybrid", ssm_state=16,
                                        shared_attn_every=2)])
 def test_unported_flags_raise_when_built(flag):
+    """Every flag raises when a model is built for training; the dense
+    variants' flags (window, softcap, sandwich norm, scale_embed, GeGLU) are
+    built for serving (tests/test_torch_variants.py), the rest raise."""
     cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), **flag)
+    with pytest.raises(NotImplementedError):
+        transformer.init_train_params(cfg, torch.Generator().manual_seed(0),
+                                      "cpu")
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
+    if configs.variant_features(cfg):
+        transformer.Transformer(cfg, params, "cpu")
+        return
     with pytest.raises(NotImplementedError):
         transformer.Transformer(cfg, params, "cpu")
 

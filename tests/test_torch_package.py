@@ -193,3 +193,10 @@ def test_serve_launcher_serves_mamba_smoke_on_cpu(capsys):
                    "--batch", "2", "--prompt-len", "9", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "mamba2-780m-smoke on cpu: drained 2 requests (6 tokens)" in out
+
+
+@pytest.mark.parametrize("arch", sorted(configs.PENDING))
+def test_serve_launcher_names_the_slice_a_pending_arch_waits_for(arch):
+    from repro_torch.launch import serve as launcher
+    with pytest.raises(NotImplementedError, match="waits for .*ROADMAP"):
+        launcher.main(["--arch", arch, "--smoke", "--device", "cpu"])
