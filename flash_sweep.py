@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The bf16 flash forward of a checkout, timed at every head dim it serves.
+"""The bf16 flash forward of a checkout, timed at every head dim it serves,
+and its backward pair at the head dims of the tensor-core backward.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
@@ -19,8 +20,12 @@ and training shapes of llama3.2-3b (S = 512, 4 x 1,024, one FSDP rank's
 D = 64 at S = 300 (causal, window 64) and 2 x 1,024 (chunk 256); D = 32 at
 4 x 1,024, 12/4 heads; D = 256 at gemma2-9b's 16/8 heads (causal, and
 window 4,096 with softcap 50); D = 120 at h2o-danube-3-4b's 32/8 heads
-where the checkout's forward takes it. One JSON line per case and form,
-after the card's name and power limit.
+where the checkout's forward takes it. The backward pair
+(``flash_attention_bwd``, form "bwd", from the forward's o and lse) at
+D = 128 on llama3.2-3b's training shape and one FSDP rank's, D = 64 at
+2 x 1,024 (chunk 256) and D = 32 at 4 x 1,024, 12/4 heads, uncapped, so
+that a checkout from before the backward's softcap times the same calls.
+One JSON line per case and form, after the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -45,6 +50,9 @@ CASES = ((1, 512, 24, 8, 128, CAUSAL), (4, 1024, 24, 8, 128, CAUSAL),
          (1, 512, 16, 8, 256, CAUSAL),
          (1, 512, 16, 8, 256, dict(causal=True, window=4096, cap=50.0)),
          (1, 512, 32, 8, 120, dict(causal=True, window=4096)))
+BWD_CASES = ((4, 1024, 24, 8, 128, CAUSAL), (1, 1024, 24, 8, 128, CAUSAL),
+             (2, 1024, 16, 2, 64, dict(causal=True, chunk=256)),
+             (4, 1024, 12, 4, 32, CAUSAL))
 
 
 def main(argv=None) -> int:
@@ -76,6 +84,15 @@ def main(argv=None) -> int:
                 "label": args.label, "src": str(src), "shape": [B, S, H, KV, D],
                 "mask": mask, "form": name,
                 "ms": timer(lambda: fn(q, k, v, **mask))}), flush=True)
+    for B, S, H, KV, D, mask in BWD_CASES:
+        q, do = rn(B, S, H, D).bfloat16(), rn(B, S, H, D).bfloat16()
+        k, v = rn(B, S, KV, D).bfloat16(), rn(B, S, KV, D).bfloat16()
+        o, lse = ops.flash_attention_lse(q, k, v, **mask)
+        print(json.dumps({
+            "label": args.label, "src": str(src), "shape": [B, S, H, KV, D],
+            "mask": mask, "form": "bwd",
+            "ms": timer(lambda: ops.flash_attention_bwd(
+                q, k, v, o, do, lse, **mask))}), flush=True)
     return 0
 
 

@@ -130,8 +130,9 @@ class ModelConfig:
 def variant_features(cfg: ModelConfig) -> list[str]:
     """The dense variants' features ``cfg`` uses: sliding-window layers
     (ring caches), softcaps, sandwich norms, ``scale_embed`` and GeGLU.
-    The port serves them on one rank; their training and their grids wait
-    for later slices (:func:`check_supported`, ``serve/spec.py``)."""
+    The port serves them on one rank and trains them on one rank or FSDP
+    ranks; serving grids and a model tier wait for a later slice
+    (``serve/spec.py``, ``models/tp.check_tp``)."""
     out = []
     if cfg.window or any(s.attn == "window" for s in cfg.layer_plan()):
         out.append("window layers (ring caches)")
@@ -156,11 +157,12 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     routed and shared SwiGLU experts in place of the MLP, ``moe_every``);
     and the attention-free Mamba2 stack (``family="ssm"`` with
     ``ssm_state``), whose training runs the SSD scan's and the gated
-    RMSNorm's backward kernels. The dense variants'
-    features (:func:`variant_features`: window layers with ring caches,
-    softcaps, sandwich norms, ``scale_embed``, GeGLU) are served, not
-    trained. Everything else waits for a later slice of the port and must
-    not be ignored silently.
+    RMSNorm's backward kernels. The dense variants' features
+    (:func:`variant_features`: window layers with ring caches, softcaps,
+    sandwich norms, ``scale_embed``, GeGLU) are served and trained on one
+    rank's model (FSDP ranks included; a model tier refuses them,
+    ``models/tp.check_tp``). Everything else waits for a later slice of the
+    port and must not be ignored silently.
     """
     if mode not in ("serve", "train"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -188,13 +190,6 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not implement "
             f"{', '.join(unsupported)} yet (see ROADMAP.md)")
-    variants = variant_features(cfg)
-    if mode == "train" and variants:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves {', '.join(variants)} but does "
-            "not train them yet: that is the dense variants' training slice "
-            "(ROADMAP.md Queue 1 item 5: the flash backward's softcap and "
-            "D = 120, period-2 layer plans)")
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -3,8 +3,9 @@
 Each package holds ``ref.py`` (the plain PyTorch version, run for CPU
 tensors and held against the kernel on the card) and ``ops.py`` (the
 wrapper: checks, allocation, launch, a ``LAUNCHES`` count; the ``_d120``
-and ``_ring`` counts are the flash launches at head dim 120 and the decode
-launches over a ring cache, already inside their kernels' counts). The CUDA
+counts are the flash launches at head dim 120, forward and backward, and
+the ``_ring`` ones the decode launches over a ring cache, already inside
+their kernels' counts). The CUDA
 sources live in ``csrc/`` and are built at first use by ``_build.py``.
 :func:`launch_counts` reads every count, :func:`add_launch_counts` advances
 them for launches a CUDA graph replays.
@@ -27,6 +28,8 @@ def _counters():
              "BWD_DKDV_LAUNCHES"),
             ("flash_attention_bwd_wgmma", flash_attention,
              "BWD_WGMMA_LAUNCHES"),
+            ("flash_attention_bwd_d120", flash_attention,
+             "BWD_D120_LAUNCHES"),
             ("decode_scores", decode_stats, "SCORES_LAUNCHES"),
             ("decode_stats", decode_stats, "LAUNCHES"),
             ("decode_scores_ring", decode_stats, "RING_SCORES_LAUNCHES"),

@@ -78,18 +78,18 @@ SIGNATURES = {
     "repro_flash_attention_fp32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _I, _I, _F, _P],
     # q, k, v, o, dout, lse, delta, dq, B, S, T, H, KV, D, scale, causal,
-    # window, chunk, dtype, stream
+    # window, chunk, cap, dtype, stream
     "repro_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _I, _I, _I, _P],
+                           _I, _I, _F, _I, _I, _I, _F, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KV, D, scale, causal,
-    # window, chunk, dtype, stream
+    # window, chunk, cap, dtype, stream
     "repro_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _F, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _F, _I, _I, _I, _F, _I, _P],
     # the tensor-core pair (bf16): the same without the dtype
     "repro_flash_bwd_dq_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _F, _I, _I, _I, _P],
+                                 _I, _I, _I, _F, _I, _I, _I, _F, _P],
     "repro_flash_bwd_dkdv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                                   _I, _I, _I, _I, _F, _I, _I, _I, _F, _P],
     # s, m, v, pos, pos_stride, slot_offset, window, chunk, ring, o, l, B,
     # KV, G, L, D, nsplit, v_dtype, stream
     "repro_decode_stats": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _I,

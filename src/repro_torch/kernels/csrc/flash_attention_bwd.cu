@@ -10,10 +10,12 @@
 //
 // Per head, with scale = D^-0.5 and the forward's masks (causal, window,
 // chunk; the ragged S and T edges; a masked pair has P = 0, a row with no
-// key lse = +inf and so a zero gradient):
-//   P = exp(scale * q k^T - lse)        dV = P^T dO
+// key lse = +inf and so a zero gradient) and its tanh softcap (cap > 0):
+//   s = scale * q k^T,  c = cap * tanh(s / cap) (c = s without a cap)
+//   P = exp(c - lse)                    dV = P^T dO
 //   dP = dO v^T                         Delta = rowsum(dO * o)
-//   dS = P * (dP - Delta)               dQ = scale * dS k,  dK = scale * dS^T q
+//   dS = P * (dP - Delta) * (1 - (c / cap)^2)   (the last factor: the cap's)
+//   dQ = scale * dS k,  dK = scale * dS^T q
 //
 // Two kernels, each launched once per backward, in this order:
 //   dq:   one block per (b * H + h, query tile): Delta of its rows from dO
@@ -37,16 +39,25 @@
 // against 0.96 ms at 67 TFLOP/s fp32. The bytes, q, k, v, o, dO and the
 // three gradients, are ~100 MB, 30 us.
 //
-// Design: two instances, chosen by dtype and D in the wrapper (ops.py),
-// never one for the other.
+// A cap adds one tanh a pair in each kernel (~20 fp32 operations beside
+// 7 D multiply-adds); the bound stays the products'. gemma2-9b's step
+// (4 x 1,024, 16/8 heads of 256, cap 50): 33.6 M pairs, 87 us of the 5 D
+// count; h2o-danube-3-4b's (32/8 heads of 120): 67.2 M pairs, 81 us.
 //
-// bf16 at D = 32, 64, 128: tensor cores (the redesign of the CUDA-core
-// version below, which took 5.64 ms at the training shape). One warpgroup
-// (128 threads) a block; every tile is 64 rows (queries or keys) x D, in
-// shared memory in the 128-byte swizzle (64-byte at D = 32) that the wgmma
-// descriptors read, loaded by TMA over 3-D tensor maps of the (B, S|T,
-// H|KV * D) views (rows past S or T read as zeros) with mbarrier completion
-// (hopper.cuh, shared with the forward). All five products are wgmma
+// Design: two instances, chosen by dtype and D in the wrapper (ops.py),
+// never one for the other. The cap is a template flag of each (CAP): the
+// instances without it are the code they were before it came; cap > 0
+// runs the CAP instance, which recomputes each pair's tanh with the
+// forward's arithmetic (tanhf of s scale / cap), so P comes from the
+// logits whose lse the forward wrote.
+//
+// bf16 at D = 32, 64, 128 (and 120): tensor cores (the redesign of the
+// CUDA-core version below, which took 5.64 ms at the training shape). One
+// warpgroup (128 threads) a block; every tile is 64 rows (queries or keys)
+// x D, in shared memory in the 128-byte swizzle (64-byte at D = 32) that
+// the wgmma descriptors read, loaded by TMA over 4-D tensor maps of the
+// (B, S|T, H|KV, D) tensors (rows past S or T read as zeros) with mbarrier
+// completion (hopper.cuh, shared with the forward). All five products are wgmma
 // m64n64k16 (m64n32k16 for the D = 32 outputs) with fp32 accumulators:
 //   dq:   Q and dO resident, K and V streamed through two stages; S = Q K^T
 //         and dP = dO V^T with both operands in shared memory (K-major);
@@ -76,8 +87,10 @@
 // causally heaviest first in dq (blockIdx.y reversed), key tile 0 first in
 // dkdv. At D = 128 each kernel takes 96 KB of shared memory, two blocks an
 // SM. Registers per thread from ptxas (build.log), no spills, at D = 32 /
-// 64 / 128: dq 109 / 126 / 154, dkdv 142 / 181 / 239 (chip_smoke.py phase
-// 1 prints them and fails if a tensor-core instance spills).
+// 64 / 128 (and the DH = 120 instance as 128): dq 109 / 126 / 154, dkdv
+// 142 / 181 / 239; with the cap dq 128 / 127 / 168, dkdv 134 / 182 / 252
+// (chip_smoke.py phase 1 prints them and fails if a tensor-core instance
+// spills).
 //
 // What bounds it: each tile is a chain of dependent steps in one warpgroup,
 // product, exponentials, product, with no overlap inside the block; two
@@ -87,13 +100,29 @@
 //
 // fp32, and bf16 at D = 256: CUDA cores (tf32 would not hold the 1e-4 fp32
 // tolerance; at D = 256 dK and dV alone would take 256 fp32 registers a
-// thread of one warpgroup, and no supported model trains at D = 256).
+// thread of one warpgroup: gemma2-9b's bf16 backward runs here, a first
+// version that waits for its redesign on the tensor cores, ROADMAP.md).
 // Tiles of 64 rows (32 at D = 256) staged in shared memory as fp32, rows
 // padded by one float so that the strided reads of a product fall on
 // distinct banks; 256 threads, each holding a 16-strided (rows, columns)
 // sub-tile of every product in registers (4 x 4 of a 64 x 64 tile, 4 x D/16
 // of a 64 x D one). Blocks run their tiles in causal order with a uniform
 // reach test per tile; masked pairs inside a tile are zeroed.
+//
+// Head dim 120 (h2o-danube-3-4b) runs in the D = 128 instances, as in the
+// forward: the tensor-core pair loads q, k, v and dO through 4-D tensor maps
+// (B, S|T, heads, 120) whose 128-column boxes TMA fills with zeros past
+// column 120 (every D loads through such maps: a head's tile is one box
+// per 64 columns, the same bytes and swizzle as the 3-D maps of (B, S|T,
+// heads * D) before); the zero columns add nothing to a product, Delta
+// reads o and dO at their row stride of 120, and the stores skip columns
+// 120..127. The CUDA-core instance zero-fills those columns in shared
+// memory. The head dim is a template argument beside the tile width (DH
+// <= D): the D = 128 instances with DH = 128 are the code they were, and
+// DH = 120 is an instance of its own (with the head dim a runtime
+// argument of the D = 128 pair, the pair took 6% longer at llama's shape,
+// its dq 13%; PERF.md). The wrapper passes the true scale
+// 120^-0.5.
 #include <cuda.h>
 #include <math.h>
 
@@ -155,19 +184,21 @@ __device__ __forceinline__ void zero(float (&acc)[M][N]) {
     for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
 }
 
-// rows [r0, r0 + T) of one head of a (B, L, heads, D) tensor into a padded
-// fp32 tile, rows past L as zeros
+// rows [r0, r0 + T) of one head of a (B, L, heads, dh) tensor into a padded
+// fp32 tile of D columns, rows past L and columns past dh as zeros
 template <typename TT, int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const TT* __restrict__ src, int b,
-                                          int L, int heads, int head, int r0) {
+                                          int L, int heads, int head, int r0,
+                                          int dh) {
   using C = BT<D>;
   for (int idx = threadIdx.x; idx < C::T * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, row = r0 + r;
     dst[r * C::DP + c] =
-        row < L ? to_f(src[((static_cast<size_t>(b) * L + row) * heads + head) *
-                               D + c])
-                : 0.f;
+        row < L && c < dh
+            ? to_f(src[((static_cast<size_t>(b) * L + row) * heads + head) *
+                           dh + c])
+            : 0.f;
   }
 }
 
@@ -196,14 +227,15 @@ __device__ __forceinline__ bool reach(int q0, int k0, int causal, int window,
 
 // P and dS of one tile, from the scores s and dO v^T in dp (thread rows
 // ty + 16 i of the query tile, keys tx + 16 j), written to sP (when given)
-// and sdS, both [T][TP]
-template <int D>
+// and sdS, both [T][TP]; CAP: the logits are cap * tanh(s scale / cap), as
+// the fp32 forward computes them, and dS takes their derivative
+template <int D, bool CAP>
 __device__ __forceinline__ void p_and_ds(
     const float (&s)[BT<D>::TM][BT<D>::TM],
     const float (&dp)[BT<D>::TM][BT<D>::TM], const float* __restrict__ sLse,
     const float* __restrict__ sDelta, float* __restrict__ sP,
     float* __restrict__ sdS, int q0, int k0, int S, int T_len, float scale,
-    int causal, int window, int chunk, int ty, int tx) {
+    int causal, int window, int chunk, float cap, int ty, int tx) {
   using C = BT<D>;
 #pragma unroll
   for (int i = 0; i < C::TM; ++i) {
@@ -211,25 +243,34 @@ __device__ __forceinline__ void p_and_ds(
 #pragma unroll
     for (int j = 0; j < C::TM; ++j) {
       const int c = tx + 16 * j;
+      float x = s[i][j] * scale, t = 0.f;
+      if constexpr (CAP) {
+        t = tanhf(x / cap);
+        x = cap * t;
+      }
       const float p =
           visible(q0 + r, k0 + c, S, T_len, causal, window, chunk)
-              ? expf(s[i][j] * scale - sLse[r])
+              ? expf(x - sLse[r])
               : 0.f;
       if (sP != nullptr) sP[r * C::TP + c] = p;
-      sdS[r * C::TP + c] = p * (dp[i][j] - sDelta[r]);
+      float ds = p * (dp[i][j] - sDelta[r]);
+      if constexpr (CAP) ds *= 1.f - t * t;
+      sdS[r * C::TP + c] = ds;
     }
   }
 }
 
-template <typename TT, int D>
+template <typename TT, int D, int DH, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
                     const TT* __restrict__ v, const TT* __restrict__ o,
                     const TT* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     TT* __restrict__ dq, int S, int T_len, int H, int KV,
-                    float scale, int causal, int window, int chunk) {
+                    float scale, int causal, int window, int chunk,
+                    float cap) {
   using C = BT<D>;
+  constexpr int dh = DH;      // the tensors' head dim, <= D
   extern __shared__ float smem[];
   float* sQ = smem;                     // [T][DP]
   float* sdO = sQ + C::T * C::DP;       // [T][DP]
@@ -244,8 +285,8 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid >> 5, lane = tid & 31;
 
-  load_tile<TT, D>(sQ, q, b, S, H, h, q0);
-  load_tile<TT, D>(sdO, dout, b, S, H, h, q0);
+  load_tile<TT, D>(sQ, q, b, S, H, h, q0, dh);
+  load_tile<TT, D>(sdO, dout, b, S, H, h, q0, dh);
   for (int r = tid; r < C::T; r += kThreads)
     sLse[r] = q0 + r < S ? lse[static_cast<size_t>(bh) * S + q0 + r]
                          : INFINITY;
@@ -255,8 +296,8 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
     const int qp = q0 + r;
     float acc = 0.f;
     if (qp < S) {
-      const TT* orow = o + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
-      for (int c = lane; c < D; c += 32)
+      const TT* orow = o + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
+      for (int c = lane; c < dh; c += 32)
         acc = fmaf(sdO[r * C::DP + c], to_f(orow[c]), acc);
     }
     acc = repro::warp_sum(acc);
@@ -273,16 +314,16 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
     const int k0 = kt * C::T;
     if (!reach<C::T>(q0, k0, causal, window, chunk)) continue;
     __syncthreads();                    // the last tile's reads are done
-    load_tile<TT, D>(sK, k, b, T_len, KV, kvh, k0);
-    load_tile<TT, D>(sV, v, b, T_len, KV, kvh, k0);
+    load_tile<TT, D>(sK, k, b, T_len, KV, kvh, k0, dh);
+    load_tile<TT, D>(sV, v, b, T_len, KV, kvh, k0, dh);
     __syncthreads();
     float s[C::TM][C::TM], dp[C::TM][C::TM];
     zero(s);
     zero(dp);
     mm<C::TM, C::TM, D, C::DP, 1, C::DP, 1>(s, sQ, sK, ty, tx);
     mm<C::TM, C::TM, D, C::DP, 1, C::DP, 1>(dp, sdO, sV, ty, tx);
-    p_and_ds<D>(s, dp, sLse, sDelta, nullptr, sdS, q0, k0, S, T_len, scale,
-                causal, window, chunk, ty, tx);
+    p_and_ds<D, CAP>(s, dp, sLse, sDelta, nullptr, sdS, q0, k0, S, T_len,
+                     scale, causal, window, chunk, cap, ty, tx);
     __syncthreads();
     // dQ(r, d) += sum_c dS(r, c) K(c, d)
     mm<C::TM, C::DN, C::T, C::TP, 1, 1, C::DP>(acc, sdS, sK, ty, tx);
@@ -291,22 +332,24 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   for (int i = 0; i < C::TM; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= S) continue;
-    TT* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+    TT* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
     for (int j = 0; j < C::DN; ++j)
-      out[tx + 16 * j] = from_f<TT>(acc[i][j] * scale);
+      if (tx + 16 * j < dh) out[tx + 16 * j] = from_f<TT>(acc[i][j] * scale);
   }
 }
 
-template <typename TT, int D>
+template <typename TT, int D, int DH, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
                       const TT* __restrict__ v, const TT* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, TT* __restrict__ dk,
                       TT* __restrict__ dv, int S, int T_len, int H, int KV,
-                      float scale, int causal, int window, int chunk) {
+                      float scale, int causal, int window, int chunk,
+                      float cap) {
   using C = BT<D>;
+  constexpr int dh = DH;
   extern __shared__ float smem[];
   float* sK = smem;                     // [T][DP]
   float* sV = sK + C::T * C::DP;        // [T][DP]
@@ -321,8 +364,8 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   const int k0 = blockIdx.y * C::T;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  load_tile<TT, D>(sK, k, b, T_len, KV, kvh, k0);
-  load_tile<TT, D>(sV, v, b, T_len, KV, kvh, k0);
+  load_tile<TT, D>(sK, k, b, T_len, KV, kvh, k0, dh);
+  load_tile<TT, D>(sV, v, b, T_len, KV, kvh, k0, dh);
   float acc_k[C::TM][C::DN], acc_v[C::TM][C::DN];
   zero(acc_k);
   zero(acc_v);
@@ -334,8 +377,8 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
       const int q0 = qt * C::T;
       if (!reach<C::T>(q0, k0, causal, window, chunk)) continue;
       __syncthreads();                  // the last tile's reads are done
-      load_tile<TT, D>(sQ, q, b, S, H, h, q0);
-      load_tile<TT, D>(sdO, dout, b, S, H, h, q0);
+      load_tile<TT, D>(sQ, q, b, S, H, h, q0, dh);
+      load_tile<TT, D>(sdO, dout, b, S, H, h, q0, dh);
       for (int r = tid; r < C::T; r += kThreads) {
         const bool in = q0 + r < S;
         sLse[r] = in ? lse[row_base + q0 + r] : INFINITY;
@@ -347,8 +390,8 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
       zero(dp);
       mm<C::TM, C::TM, D, C::DP, 1, C::DP, 1>(s, sQ, sK, ty, tx);
       mm<C::TM, C::TM, D, C::DP, 1, C::DP, 1>(dp, sdO, sV, ty, tx);
-      p_and_ds<D>(s, dp, sLse, sDelta, sP, sdS, q0, k0, S, T_len, scale,
-                  causal, window, chunk, ty, tx);
+      p_and_ds<D, CAP>(s, dp, sLse, sDelta, sP, sdS, q0, k0, S, T_len,
+                       scale, causal, window, chunk, cap, ty, tx);
       __syncthreads();
       // dV(c, d) += sum_r P(r, c) dO(r, d); dK(c, d) += sum_r dS(r, c) Q(r, d)
       mm<C::TM, C::DN, C::T, 1, C::TP, 1, C::DP>(acc_v, sP, sdO, ty, tx);
@@ -359,9 +402,11 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   for (int i = 0; i < C::TM; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= T_len) continue;
-    const size_t off = ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * D;
+    const size_t off =
+        ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * dh;
 #pragma unroll
     for (int j = 0; j < C::DN; ++j) {
+      if (tx + 16 * j >= dh) continue;
       dk[off + tx + 16 * j] = from_f<TT>(acc_k[i][j] * scale);
       dv[off + tx + 16 * j] = from_f<TT>(acc_v[i][j]);
     }
@@ -471,15 +516,26 @@ __device__ __forceinline__ void queries_of(int kp, int S, int T_len,
   }
 }
 
-// the D columns of one 64-row tile of a (B, L, heads * D) map, by box
+// the D columns of one 64-row tile of head `head` of a (B, L, heads, dh)
+// map, by box (columns past dh as zeros)
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         int nb, int sw, int swe, int col0,
+                                         int nb, int sw, int swe, int head,
                                          int row0, int b, uint32_t bar) {
   for (int c = 0; c < nb; ++c)
-    tma_load_3d(dst + c * kT * sw, map, col0 + c * swe, row0, b, bar);
+    tma_load_4d(dst + c * kT * sw, map, c * swe, head, row0, b, bar);
 }
 
-template <int D>
+// the capped log2-domain logit of a raw score x = q . k, cap * log2(e) *
+// tanh(x * scale / cap), with the forward's constants (cin = scale / cap,
+// cout = cap * log2(e)), and 1 - tanh^2, the cap's factor of dS
+__device__ __forceinline__ float capped_logit2(float x, float cin, float cout,
+                                               float& dfac) {
+  const float t = tanhf(x * cin);
+  dfac = 1.f - t * t;
+  return t * cout;
+}
+
+template <int D, int DH, bool CAP>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
@@ -489,8 +545,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __nv_bfloat16* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dq, int S, int T_len, int H,
-                   int KV, float scale, int causal, int window, int chunk) {
+                   int KV, float scale, int causal, int window, int chunk,
+                   float cap) {
   using C = WB<D>;
+  constexpr int dh = DH;      // the tensors' head dim, <= D
   extern __shared__ unsigned char smem_raw[];
   // the swizzle is a function of the address: tiles start on 1024 bytes
   const uint32_t sQ = smem_u32(smem_raw);
@@ -521,15 +579,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   auto load_kv = [&](int it) {
     const int t = it % kWS;
     mbar_expect_tx(bar_kv(t), 2 * C::TILE);
-    tma_tile(stage(t), &tk, C::NB, C::SW, C::SWE, kvh * D, (lo + it) * kT, b,
+    tma_tile(stage(t), &tk, C::NB, C::SW, C::SWE, kvh, (lo + it) * kT, b,
              bar_kv(t));
-    tma_tile(stage(t) + C::TILE, &tv, C::NB, C::SW, C::SWE, kvh * D,
+    tma_tile(stage(t) + C::TILE, &tv, C::NB, C::SW, C::SWE, kvh,
              (lo + it) * kT, b, bar_kv(t));
   };
   if (tid == 0 && n > 0) {
     mbar_expect_tx(bar_q, 2 * C::TILE);
-    tma_tile(sQ, &tq, C::NB, C::SW, C::SWE, h * D, q0, b, bar_q);
-    tma_tile(sdO, &tdo, C::NB, C::SW, C::SWE, h * D, q0, b, bar_q);
+    tma_tile(sQ, &tq, C::NB, C::SW, C::SWE, h, q0, b, bar_q);
+    tma_tile(sdO, &tdo, C::NB, C::SW, C::SWE, h, q0, b, bar_q);
     for (int it = 0; it < n && it < kWS; ++it) load_kv(it);
   }
 
@@ -541,9 +599,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     const int qp = r0 + 8 * r;
     float acc = 0.f;
     if (qp < S) {
-      const size_t off = ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+      const size_t off = ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
       for (int c = 0; c < D; c += 32) {
+        if (c + 8 * t4 >= dh) continue;           // the instance's zero columns
         float ov[8], dv[8];
         repro::load16_f(o + off + c + 8 * t4, ov);
         repro::load16_f(dout + off + c + 8 * t4, dv);
@@ -571,6 +630,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   visible_keys(r0 + 8, T_len, causal, window, chunk, key_lo[1],
                key_hi[1]);
   const float sl2e = scale * kLog2e;
+  const float cin = CAP ? scale * __frcp_rn(cap) : 0.f, cout = cap * kLog2e;
 
   for (int it = 0; it < n; ++it) {
     const int t = it % kWS, k0 = (lo + it) * kT;
@@ -596,9 +656,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;
       const int kp = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-      float p = exp2_ftz(fmaf(s[i], sl2e, -lse2[r]));
+      float dfac = 1.f;
+      float p = CAP ? exp2_ftz(capped_logit2(s[i], cin, cout, dfac) - lse2[r])
+                    : exp2_ftz(fmaf(s[i], sl2e, -lse2[r]));
       if (masked && (kp < key_lo[r] || kp >= key_hi[r])) p = 0.f;
       s[i] = p * (dp[i] - dlt[r]);
+      if (CAP) s[i] *= dfac;
     }
     pack_a_split(s, pa, pa_lo);
     fence_acc(acc);
@@ -618,18 +681,21 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int qp = r0 + 8 * r;
     if (qp >= S) continue;
-    __nv_bfloat16* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * D;
+    __nv_bfloat16* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
     for (int c = 0; c < C::NB; ++c)
 #pragma unroll
-      for (int j = 0; j < C::NO / 4; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + c * C::SWE + 8 * j + 2 * t4) =
+      for (int j = 0; j < C::NO / 4; ++j) {
+        const int col = c * C::SWE + 8 * j + 2 * t4;
+        if (col >= dh) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
             __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * scale,
                                   acc[c][4 * j + 2 * r + 1] * scale);
+      }
   }
 }
 
-template <int D>
+template <int D, int DH, bool CAP>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -639,8 +705,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int S, int T_len, int H,
-                     int KV, float scale, int causal, int window, int chunk) {
+                     int KV, float scale, int causal, int window, int chunk,
+                     float cap) {
   using C = WB<D>;
+  constexpr int dh = DH;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sK = smem_u32(smem_raw);
   if (sK & 1023) __trap();
@@ -687,15 +755,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   auto load_qdo = [&](int it) {
     const int t = it % kWS;
     mbar_expect_tx(bar_s(t), 2 * C::TILE);
-    tma_tile(stage(t), &tq, C::NB, C::SW, C::SWE, head(it) * D, qtile(it), b,
+    tma_tile(stage(t), &tq, C::NB, C::SW, C::SWE, head(it), qtile(it), b,
              bar_s(t));
-    tma_tile(stage(t) + C::TILE, &tdo, C::NB, C::SW, C::SWE, head(it) * D,
+    tma_tile(stage(t) + C::TILE, &tdo, C::NB, C::SW, C::SWE, head(it),
              qtile(it), b, bar_s(t));
   };
   if (tid == 0 && n > 0) {
     mbar_expect_tx(bar_kv, 2 * C::TILE);
-    tma_tile(sK, &tk, C::NB, C::SW, C::SWE, kvh * D, k0, b, bar_kv);
-    tma_tile(sV, &tv, C::NB, C::SW, C::SWE, kvh * D, k0, b, bar_kv);
+    tma_tile(sK, &tk, C::NB, C::SW, C::SWE, kvh, k0, b, bar_kv);
+    tma_tile(sV, &tv, C::NB, C::SW, C::SWE, kvh, k0, b, bar_kv);
     for (int it = 0; it < n && it < kWS; ++it) load_qdo(it);
   }
 
@@ -710,6 +778,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   queries_of(kr, S, T_len, causal, window, chunk, vq_lo[0], vq_hi[0]);
   queries_of(kr + 8, S, T_len, causal, window, chunk, vq_lo[1], vq_hi[1]);
   const float sl2e = scale * kLog2e;
+  const float cin = CAP ? scale * __frcp_rn(cap) : 0.f, cout = cap * kLog2e;
 
   for (int it = 0; it < n; ++it) {
     const int t = it % kWS, q0 = qtile(it);
@@ -742,9 +811,13 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e, qp = q0 + c + (e & 1);
-        float p = exp2_ftz(fmaf(s[i], sl2e, -((e & 1) ? l2.y : l2.x)));
+        const float l = (e & 1) ? l2.y : l2.x;
+        float dfac = 1.f;
+        float p = CAP ? exp2_ftz(capped_logit2(s[i], cin, cout, dfac) - l)
+                      : exp2_ftz(fmaf(s[i], sl2e, -l));
         if (masked && (qp < vq_lo[e >> 1] || qp >= vq_hi[e >> 1])) p = 0.f;
         dp[i] = p * (dp[i] - ((e & 1) ? dl.y : dl.x));
+        if (CAP) dp[i] *= dfac;
         s[i] = p;
       }
     }
@@ -780,12 +853,13 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       const int kp = kr + 8 * r;
       if (kp >= T_len) continue;
       const size_t off =
-          ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * D;
+          ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * dh;
 #pragma unroll
       for (int c = 0; c < C::NB; ++c)
 #pragma unroll
         for (int j = 0; j < C::NO / 4; ++j) {
           const int col = c * C::SWE + 8 * j + 2 * t4;
+          if (col >= dh) continue;
           *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
               __floats2bfloat162_rn(acc_k[c][4 * j + 2 * r] * scale,
                                     acc_k[c][4 * j + 2 * r + 1] * scale);
@@ -820,8 +894,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * j + 2 * r, pair = (c * C::NO + i) / 2;
-        const int kp = kr + 8 * r;
-        if (pair % nz != z || kp >= T_len) continue;
+        const int kp = kr + 8 * r, col = c * C::SWE + 8 * j + 2 * t4;
+        if (pair % nz != z || kp >= T_len || col >= dh) continue;
         float sk[2] = {0.f, 0.f}, sv[2] = {0.f, 0.f};
         for (int q = 0; q < nz; ++q) {
           const float* o = cluster.map_shared_rank(red, q);
@@ -832,8 +906,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           }
         }
         const size_t off =
-            ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * D +
-            c * C::SWE + 8 * j + 2 * t4;
+            ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * dh + col;
         *reinterpret_cast<__nv_bfloat162*>(dk + off) =
             __floats2bfloat162_rn(sk[0] * scale, sk[1] * scale);
         *reinterpret_cast<__nv_bfloat162*>(dv + off) =
@@ -845,72 +918,79 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *delta, *dq, *dk, *dv;
-  int B, S, T_len, H, KV;
+  int B, S, T_len, H, KV, dh;           // dh: the tensors' head dim
   float scale;
   int causal, window, chunk;
+  float cap;
   cudaStream_t stream;
 };
 
-template <typename TT, int D>
+template <typename TT, int D, int DH, bool CAP>
 cudaError_t launch(const Args& a, bool dq_pass) {
   using C = BT<D>;
   if (dq_pass) {
     const int smem = C::SMEM_DQ * static_cast<int>(sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<TT, D>,
+        flash_bwd_dq_kernel<TT, D, DH, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.B * a.H, (a.S + C::T - 1) / C::T);
-    flash_bwd_dq_kernel<TT, D><<<grid, kThreads, smem, a.stream>>>(
+    flash_bwd_dq_kernel<TT, D, DH, CAP><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const TT*>(a.q), static_cast<const TT*>(a.k),
         static_cast<const TT*>(a.v), static_cast<const TT*>(a.o),
         static_cast<const TT*>(a.dout), static_cast<const float*>(a.lse),
         static_cast<float*>(a.delta), static_cast<TT*>(a.dq), a.S, a.T_len,
-        a.H, a.KV, a.scale, a.causal, a.window, a.chunk);
+        a.H, a.KV, a.scale, a.causal, a.window, a.chunk, a.cap);
   } else {
     const int smem = C::SMEM_DKDV * static_cast<int>(sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<TT, D>,
+        flash_bwd_dkdv_kernel<TT, D, DH, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.B * a.KV, (a.T_len + C::T - 1) / C::T);
-    flash_bwd_dkdv_kernel<TT, D><<<grid, kThreads, smem, a.stream>>>(
+    flash_bwd_dkdv_kernel<TT, D, DH, CAP><<<grid, kThreads, smem,
+                                            a.stream>>>(
         static_cast<const TT*>(a.q), static_cast<const TT*>(a.k),
         static_cast<const TT*>(a.v), static_cast<const TT*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<TT*>(a.dk), static_cast<TT*>(a.dv), a.S, a.T_len, a.H,
-        a.KV, a.scale, a.causal, a.window, a.chunk);
+        a.KV, a.scale, a.causal, a.window, a.chunk, a.cap);
   }
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DH, bool CAP>
 cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
   using C = WB<D>;
   CUtensorMap tq, tdo, tk, tv;
-  cudaError_t e = make_map_bf16(&tq, a.q, a.B, a.S, a.H * D, C::SWE, kT, C::SW);
+  cudaError_t e =
+      make_map_bf16_heads(&tq, a.q, a.B, a.S, a.H, a.dh, C::SWE, kT, C::SW);
   if (e == cudaSuccess)
-    e = make_map_bf16(&tdo, a.dout, a.B, a.S, a.H * D, C::SWE, kT, C::SW);
+    e = make_map_bf16_heads(&tdo, a.dout, a.B, a.S, a.H, a.dh, C::SWE, kT,
+                            C::SW);
   if (e == cudaSuccess)
-    e = make_map_bf16(&tk, a.k, a.B, a.T_len, a.KV * D, C::SWE, kT, C::SW);
+    e = make_map_bf16_heads(&tk, a.k, a.B, a.T_len, a.KV, a.dh, C::SWE, kT,
+                            C::SW);
   if (e == cudaSuccess)
-    e = make_map_bf16(&tv, a.v, a.B, a.T_len, a.KV * D, C::SWE, kT, C::SW);
+    e = make_map_bf16_heads(&tv, a.v, a.B, a.T_len, a.KV, a.dh, C::SWE, kT,
+                            C::SW);
   if (dq_pass) {
     static bool opted_in[64] = {};    // the shared-memory opt-in, per device
     if (e == cudaSuccess)
-      e = opt_in_smem(flash_bwd_dq_wgmma<D>, C::SMEM_DQ, opted_in);
+      e = opt_in_smem(flash_bwd_dq_wgmma<D, DH, CAP>, C::SMEM_DQ, opted_in);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.B * a.H, (a.S + kT - 1) / kT);
-    flash_bwd_dq_wgmma<D><<<grid, 128, C::SMEM_DQ, a.stream>>>(
+    flash_bwd_dq_wgmma<D, DH, CAP><<<grid, 128, C::SMEM_DQ, a.stream>>>(
         tq, tdo, tk, tv, static_cast<const __nv_bfloat16*>(a.o),
         static_cast<const __nv_bfloat16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
         static_cast<__nv_bfloat16*>(a.dq), a.S, a.T_len, a.H, a.KV, a.scale,
-        a.causal, a.window, a.chunk);
+        a.causal, a.window, a.chunk, a.cap);
   } else {
     static bool opted_in[64] = {};
     if (e == cudaSuccess)
-      e = opt_in_smem(flash_bwd_dkdv_wgmma<D>, C::SMEM_DKDV, opted_in);
+      e = opt_in_smem(flash_bwd_dkdv_wgmma<D, DH, CAP>, C::SMEM_DKDV,
+                      opted_in);
     if (e != cudaSuccess) return e;
     // the G q heads of a kv head over a cluster of nz blocks when the
     // (kv head, key tile) blocks alone leave SMs idle: the smallest divisor
@@ -939,65 +1019,81 @@ cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
     attr[0].val.clusterDim.z = nz;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma<D>, tq, tdo, tk, tv,
+    e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma<D, DH, CAP>, tq, tdo,
+                           tk, tv,
                            static_cast<const float*>(a.lse),
                            static_cast<const float*>(a.delta),
                            static_cast<__nv_bfloat16*>(a.dk),
                            static_cast<__nv_bfloat16*>(a.dv), a.S, a.T_len,
-                           a.H, a.KV, a.scale, a.causal, a.window, a.chunk);
+                           a.H, a.KV, a.scale, a.causal, a.window, a.chunk,
+                           a.cap);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
 }
 
-// the CUDA-core instances: fp32 at every D, bf16 at D = 256 only (bf16 at
-// D <= 128 is the tensor cores' and is refused here)
-int run_cuda_cores(const Args& a, int D, int dtype, bool dq_pass) {
-  cudaError_t e = cudaErrorInvalidValue;
-  if (a.H % a.KV) return static_cast<int>(e);
+// the instance of (dtype, head dim, cap) on the CUDA cores: fp32 at every
+// D, bf16 at D = 256 only (bf16 at D <= 128 is the tensor cores' and is
+// refused here); head dim 120 runs in a D = 128 instance of its own
+template <bool CAP>
+cudaError_t cuda_cores(const Args& a, int dtype, bool dq_pass) {
   if (dtype == repro::kFloat32) {
-    switch (D) {
-      case 32: e = launch<float, 32>(a, dq_pass); break;
-      case 64: e = launch<float, 64>(a, dq_pass); break;
-      case 128: e = launch<float, 128>(a, dq_pass); break;
-      case 256: e = launch<float, 256>(a, dq_pass); break;
+    switch (a.dh) {
+      case 32: return launch<float, 32, 32, CAP>(a, dq_pass);
+      case 64: return launch<float, 64, 64, CAP>(a, dq_pass);
+      case 120: return launch<float, 128, 120, CAP>(a, dq_pass);
+      case 128: return launch<float, 128, 128, CAP>(a, dq_pass);
+      case 256: return launch<float, 256, 256, CAP>(a, dq_pass);
       default: break;
     }
-  } else if (dtype == repro::kBFloat16 && D == 256) {
-    e = launch<__nv_bfloat16, 256>(a, dq_pass);
+  } else if (dtype == repro::kBFloat16 && a.dh == 256) {
+    return launch<__nv_bfloat16, 256, 256, CAP>(a, dq_pass);
   }
-  return static_cast<int>(e);
+  return cudaErrorInvalidValue;
 }
 
-int run_wgmma(const Args& a, int D, bool dq_pass) {
-  cudaError_t e = cudaErrorInvalidValue;
-  if (a.H % a.KV) return static_cast<int>(e);
-  switch (D) {
-    case 32: e = launch_wgmma<32>(a, dq_pass); break;
-    case 64: e = launch_wgmma<64>(a, dq_pass); break;
-    case 128: e = launch_wgmma<128>(a, dq_pass); break;
-    default: break;
+int run_cuda_cores(const Args& a, int dtype, bool dq_pass) {
+  if (a.H % a.KV || a.cap < 0.f) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(a.cap > 0.f ? cuda_cores<true>(a, dtype, dq_pass)
+                                      : cuda_cores<false>(a, dtype, dq_pass));
+}
+
+template <bool CAP>
+cudaError_t tensor_cores(const Args& a, bool dq_pass) {
+  switch (a.dh) {
+    case 32: return launch_wgmma<32, 32, CAP>(a, dq_pass);
+    case 64: return launch_wgmma<64, 64, CAP>(a, dq_pass);
+    case 120: return launch_wgmma<128, 120, CAP>(a, dq_pass);
+    case 128: return launch_wgmma<128, 128, CAP>(a, dq_pass);
+    default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(e);
+}
+
+int run_wgmma(const Args& a, bool dq_pass) {
+  if (a.H % a.KV || a.cap < 0.f) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(a.cap > 0.f ? tensor_cores<true>(a, dq_pass)
+                                      : tensor_cores<false>(a, dq_pass));
 }
 
 }  // namespace
 
 // q, o, dout, dq (B,S,H,D); k, v (B,T,KV,D); lse, delta (B,H,S) fp32; all
-// contiguous, one dtype for the tensors of the attention. Writes dq and
-// delta = rowsum(dout * o), which the dkdv pass reads: launch this one
-// first, on the same stream. The CUDA-core instance: fp32, or bf16 at
+// contiguous, one dtype for the tensors of the attention; cap: the
+// forward's tanh softcap (0: none). Writes dq and delta = rowsum(dout * o),
+// which the dkdv pass reads: launch this one first, on the same stream.
+// The CUDA-core instance: fp32 at D = 32, 64, 120, 128, 256, or bf16 at
 // D = 256.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq,
                                   int B, int S, int T_len, int H, int KV,
                                   int D, float scale, int causal, int window,
-                                  int chunk, int dtype, void* stream) {
+                                  int chunk, float cap, int dtype,
+                                  void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
-               B, S, T_len, H, KV, scale, causal, window, chunk,
+               B, S, T_len, H, KV, D, scale, causal, window, chunk, cap,
                static_cast<cudaStream_t>(stream)};
-  return run_cuda_cores(a, D, dtype, true);
+  return run_cuda_cores(a, dtype, true);
 }
 
 // dk, dv (B,T,KV,D), from the delta the dq pass wrote
@@ -1007,27 +1103,28 @@ extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
                                     void* dk, void* dv, int B, int S,
                                     int T_len, int H, int KV, int D,
                                     float scale, int causal, int window,
-                                    int chunk, int dtype, void* stream) {
+                                    int chunk, float cap, int dtype,
+                                    void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr,
-               dk, dv, B, S, T_len, H, KV, scale, causal, window, chunk,
-               static_cast<cudaStream_t>(stream)};
-  return run_cuda_cores(a, D, dtype, false);
+               dk, dv, B, S, T_len, H, KV, D, scale, causal, window, chunk,
+               cap, static_cast<cudaStream_t>(stream)};
+  return run_cuda_cores(a, dtype, false);
 }
 
-// The tensor-core instance of the pair: bf16 at D = 32, 64, 128, with q, k,
-// v, o and dout starting on 16 bytes (TMA and 16-byte loads); the same
-// arguments and order as above, without the dtype.
+// The tensor-core instance of the pair: bf16 at D = 32, 64, 120, 128, with
+// q, k, v, o and dout starting on 16 bytes (TMA and 16-byte loads); the
+// same arguments and order as above, without the dtype.
 extern "C" int repro_flash_bwd_dq_wgmma(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const void* lse,
                                         void* delta, void* dq, int B, int S,
                                         int T_len, int H, int KV, int D,
                                         float scale, int causal, int window,
-                                        int chunk, void* stream) {
+                                        int chunk, float cap, void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
-               B, S, T_len, H, KV, scale, causal, window, chunk,
+               B, S, T_len, H, KV, D, scale, causal, window, chunk, cap,
                static_cast<cudaStream_t>(stream)};
-  return run_wgmma(a, D, true);
+  return run_wgmma(a, true);
 }
 
 extern "C" int repro_flash_bwd_dkdv_wgmma(const void* q, const void* k,
@@ -1036,9 +1133,9 @@ extern "C" int repro_flash_bwd_dkdv_wgmma(const void* q, const void* k,
                                           void* dk, void* dv, int B, int S,
                                           int T_len, int H, int KV, int D,
                                           float scale, int causal, int window,
-                                          int chunk, void* stream) {
+                                          int chunk, float cap, void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr,
-               dk, dv, B, S, T_len, H, KV, scale, causal, window, chunk,
-               static_cast<cudaStream_t>(stream)};
-  return run_wgmma(a, D, false);
+               dk, dv, B, S, T_len, H, KV, D, scale, causal, window, chunk,
+               cap, static_cast<cudaStream_t>(stream)};
+  return run_wgmma(a, false);
 }

@@ -48,16 +48,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
                                             int c0, int c1, int c2, int c3,
                                             uint32_t bar) {
@@ -264,33 +254,9 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// a (B, L, width) bf16 tensor as a 3-D map with boxes of `cols` columns x
-// `rows` rows x 1 batch, in the `sw`-byte swizzle (128 or 64) that the
-// wgmma descriptors read; rows past L read as zeros
-inline cudaError_t make_map_bf16(CUtensorMap* map, const void* ptr, int B,
-                                 int L, int width, int cols, int rows,
-                                 int sw) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
-                                 static_cast<cuuint64_t>(L) * width * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // a (B, L, heads, dh) bf16 tensor as a 4-D map with boxes of `cols` head
-// columns x 1 head x `rows` rows x 1 batch, in the `sw`-byte swizzle: the
-// same shared-memory tile as make_map_bf16's box, addressed by head. Columns
+// columns x 1 head x `rows` rows x 1 batch, in the `sw`-byte swizzle (128
+// or 64) that the wgmma descriptors read, addressed by head. Columns
 // past dh and rows past L read as zeros, so a head dim below the kernel's
 // instance (dh = 120 in the D = 128 instance) loads zero columns that add
 // nothing to a product. dh * 2 must be a multiple of 16 bytes.

@@ -2,19 +2,21 @@
 for CPU ones. ``LAUNCHES`` counts forward kernel launches, ``BWD_DQ_LAUNCHES``
 and ``BWD_DKDV_LAUNCHES`` the two backward kernels' (either instance), and
 ``BWD_WGMMA_LAUNCHES`` those of the two that the tensor-core instance made,
-``D120_LAUNCHES`` the forward launches at head dim 120; CPU calls leave them
-alone.
+``D120_LAUNCHES`` the forward launches at head dim 120 and
+``BWD_D120_LAUNCHES`` the backward kernels' at head dim 120; CPU calls
+leave them alone.
 
-Head dim 120 (h2o-danube-3-4b) runs the forward in the D = 128 instances,
-the 8 missing columns read as zeros by the kernel itself (its tensor maps
-end at 120); its backward waits for the dense variants' training slice.
+Head dim 120 (h2o-danube-3-4b) runs in the D = 128 instances, forward and
+backward, the 8 missing columns read as zeros by the kernels themselves
+(their tensor maps end at 120). The tanh softcap (gemma2-9b's 50) is an
+argument of every instance, forward and backward.
 
 On the card the dtype picks the forward instance, explicitly: bf16 runs the
 tensor-core kernel (wgmma, TMA), fp32 the CUDA-core one. The backward's
-instance is picked by dtype and head dim: bf16 at D = 32, 64 and 128 runs
-the tensor-core pair, fp32 (TF32 would not hold the 1e-4 tolerance) and
-bf16 at D = 256 (dK and dV would not fit one warpgroup's registers) the
-CUDA-core pair. A launch that fails raises; no instance stands in for
+instance is picked by dtype and head dim: bf16 at D = 32, 64, 120 and 128
+runs the tensor-core pair, fp32 (TF32 would not hold the 1e-4 tolerance)
+and bf16 at D = 256 (dK and dV would not fit one warpgroup's registers)
+the CUDA-core pair. A launch that fails raises; no instance stands in for
 another.
 
 :func:`flash_attention` is the serving forward; :func:`flash_attention_train`
@@ -33,9 +35,10 @@ BWD_DQ_LAUNCHES = 0
 BWD_DKDV_LAUNCHES = 0
 BWD_WGMMA_LAUNCHES = 0
 D120_LAUNCHES = 0                   # of LAUNCHES, at head dim 120
+BWD_D120_LAUNCHES = 0               # of the backward's, at head dim 120
 HEAD_DIMS = (32, 64, 120, 128, 256)  # the forward's head dims
-BWD_HEAD_DIMS = (32, 64, 128, 256)   # the backward's
-BWD_WGMMA_HEAD_DIMS = (32, 64, 128)  # bf16 backward on the tensor cores
+BWD_HEAD_DIMS = HEAD_DIMS            # the backward's
+BWD_WGMMA_HEAD_DIMS = (32, 64, 120, 128)  # bf16 backward on the tensor cores
 
 
 def bwd_on_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
@@ -128,16 +131,18 @@ def _forward(q, k, v, causal, window, chunk, cap, *, with_lse: bool):
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        window: int = 0, chunk: int = 0
+                        window: int = 0, chunk: int = 0, cap: float = 0.0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), from its output
-    ``o``, the output's gradient ``do`` and the forward's ``lse``; two
-    kernels on the card (dq, writing rowsum(do * o), then dk and dv) of the
-    instance :func:`bwd_on_tensor_cores` picks, deterministic."""
-    global BWD_DQ_LAUNCHES, BWD_DKDV_LAUNCHES, BWD_WGMMA_LAUNCHES
+    ``o``, the output's gradient ``do`` and the forward's ``lse`` (taken
+    with the same masks and ``cap``); two kernels on the card (dq, writing
+    rowsum(do * o), then dk and dv) of the instance
+    :func:`bwd_on_tensor_cores` picks, deterministic."""
+    global BWD_DQ_LAUNCHES, BWD_DKDV_LAUNCHES, BWD_WGMMA_LAUNCHES, \
+        BWD_D120_LAUNCHES
     if _on_cpu(q, k, v, o, do, lse):
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
-                                 window=window, chunk=chunk)
+                                 window=window, chunk=chunk, cap=cap)
     name = "flash_attention_bwd"
     _check_qkv(name, q, k, v, BWD_HEAD_DIMS)
     B, S, H, D = q.shape
@@ -161,8 +166,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib, stream = _build.lib(), _build.stream_of(q)
+    if cap < 0:
+        raise ValueError(f"{name}: cap {cap} must be >= 0")
     dims = (B, S, T, H, KV, D, float(D ** -0.5), int(bool(causal)),
-            int(window), int(chunk))
+            int(window), int(chunk), float(cap))
     if wgmma:
         what, tail = "tensor cores", (*dims, stream)
         dq_fn, dkdv_fn = lib.repro_flash_bwd_dq_wgmma, \
@@ -176,12 +183,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     _build.check(err, f"flash_attention_bwd (dq, {what})")
     BWD_DQ_LAUNCHES += 1
     BWD_WGMMA_LAUNCHES += wgmma
+    BWD_D120_LAUNCHES += D == 120
     err = dkdv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), *tail)
     _build.check(err, f"flash_attention_bwd (dk, dv, {what})")
     BWD_DKDV_LAUNCHES += 1
     BWD_WGMMA_LAUNCHES += wgmma
+    BWD_D120_LAUNCHES += D == 120
     return dq, dk, dv
 
 
@@ -190,11 +199,11 @@ class FlashAttention(torch.autograd.Function):
     keeps (q, k, v, o, lse)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, chunk):
-        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
-                                     chunk=chunk)
+    def forward(ctx, q, k, v, causal, window, chunk, cap):
+        masks = dict(causal=causal, window=window, chunk=chunk, cap=cap)
+        o, lse = flash_attention_lse(q, k, v, **masks)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.masks = dict(causal=causal, window=window, chunk=chunk)
+        ctx.masks = masks
         return o
 
     @staticmethod
@@ -202,16 +211,11 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
                                          **ctx.masks)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           chunk: int = 0, cap: float = 0.0) -> torch.Tensor:
     """Differentiable :func:`flash_attention` (the training path)."""
-    if cap or q.shape[-1] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash backward has no softcap and no head dim "
-            f"{q.shape[-1]} yet: they come with the dense variants' "
-            "training slice (ROADMAP.md Queue 1 item 5)")
-    return FlashAttention.apply(q, k, v, causal, window, chunk)
+    return FlashAttention.apply(q, k, v, causal, window, chunk, cap)

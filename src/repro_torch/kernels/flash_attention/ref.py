@@ -55,10 +55,12 @@ def attention_lse_ref(q, k, v, *, causal=True, window=0, chunk=0, cap=0.0):
 
 
 def attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0,
-                      chunk=0):
-    """(dq, dk, dv) in the inputs' dtypes, in fp32 from P = exp(s - lse):
-    dV = P^T dO, dS = P (dO v^T - rowsum(dO o)), dQ = scale dS k, dK =
-    scale dS^T q; a masked pair has P = 0 (the backward kernels' math)."""
+                      chunk=0, cap=0.0):
+    """(dq, dk, dv) in the inputs' dtypes, in fp32 from P = exp(c - lse),
+    c the scaled scores s (capped, c = cap tanh(s / cap), with ``cap``):
+    dV = P^T dO, dS = P (dO v^T - rowsum(dO o)) (times 1 - (c / cap)^2
+    with a cap), dQ = scale dS k, dK = scale dS^T q; a masked pair has
+    P = 0 (the backward kernels' math)."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -67,13 +69,15 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0,
                    device=q.device)
     qg = q.reshape(B, S, KV, G, D).float()
     kf, vf = k.float(), v.float()
-    s = torch.einsum("bikgd,bjkd->bkgij", qg, kf) * scale
-    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, S, 1)), 0.0)
+    c = _scores(q, k, cap)
+    p = torch.where(mask, torch.exp(c - lse.reshape(B, KV, G, S, 1)), 0.0)
     dog = do.reshape(B, S, KV, G, D).float()
     dv = torch.einsum("bkgij,bikgd->bjkd", p, dog)
     dp = torch.einsum("bikgd,bjkd->bkgij", dog, vf)
     delta = (dog * o.reshape(B, S, KV, G, D).float()).sum(-1)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if cap:
+        ds = ds * (1.0 - torch.square(c / cap))
     dq = torch.einsum("bkgij,bjkd->bikgd", ds, kf) * scale
     dk = torch.einsum("bkgij,bikgd->bjkd", ds, qg) * scale
     return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),

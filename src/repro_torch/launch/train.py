@@ -5,7 +5,11 @@ ranks.
 the full configuration on the card (random fp32 master weights from seed
 0, bf16 compute, ``SyntheticLM`` batches); ``--smoke --device cpu`` trains
 the reduced configuration in fp32 on the CPU (the kernels' plain
-versions). ``--layers`` cuts the depth.
+versions). ``--layers`` cuts the depth. The dense variants train the same
+way: ``--arch h2o-danube-3-4b`` at full depth, ``--arch gemma2-9b --layers
+8`` (its 42 layers would hold ~185 GB of fp32 weights, gradients and AdamW
+moments; 8, four window / full periods, fit one H100), and either with
+``--smoke --device cpu``.
 
 ``--ranks N --pods q`` spawns N processes, q pods of N/q, joined in one
 gloo group on localhost (``launch.serve.run_ranks``); each trains its rows

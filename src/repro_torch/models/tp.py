@@ -72,7 +72,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..configs import ModelConfig
+from ..configs import ModelConfig, variant_features
 from ..core import collectives as C
 from .ssm import MAMBA_PARAMS, mamba_apply, ssm_dims
 
@@ -87,6 +87,12 @@ def check_tp(cfg: ModelConfig, m: int) -> None:
     """Refuse what the port's tensor parallelism does not split over m."""
     if m <= 1:
         return
+    variants = variant_features(cfg)
+    if variants:
+        raise NotImplementedError(
+            f"{cfg.name} on a model tier of {m}: the port's tensor-parallel "
+            f"blocks have no {', '.join(variants)}; the dense variants on "
+            "grids are ROADMAP.md Queue 1 item 5.2")
     if cfg.family == "moe" or not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name} on a model tier of {m}: the MoE family and the "

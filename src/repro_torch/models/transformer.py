@@ -46,10 +46,14 @@ layer is left out (llama keeps ``k`` and ``v`` alone, h2o-danube
 family.
 
 Training (:func:`forward_train`) takes the JAX package's parameter tree
-instead, fp32 master weights with the layers stacked (``blocks/slot0``:
-``{ln1, attn, ln2, mlp}`` for the dense family, ``{ln, mamba}`` for the
-ssm one), see :func:`init_train_params`; it runs the same block math with
-the differentiable kernels.
+instead, fp32 master weights with the layers stacked by the plan's period
+(``blocks/slot{j}``: ``{ln1, attn, ln2, mlp}`` for the dense family, with
+``post_ln1`` and ``post_ln2`` where it has sandwich norms, ``{ln,
+mamba}`` for the ssm one; gemma2's window / full pair two slots) and the
+remainder's layers unstacked in ``rest`` (:func:`train_slots`), see
+:func:`init_train_params`; it runs each layer's block math (its window,
+the softcaps, the sandwich norms, GeGLU, the scaled embedding) with the
+differentiable kernels.
 
 Parameters are a flat dict keyed like this module's ``state_dict``:
 ``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) where the
@@ -563,27 +567,43 @@ def spec_params(cfg: ModelConfig, spec) -> tuple[str, ...]:
     return tuple(spec_leaf_paths(cfg, spec))
 
 
-def train_leaf_paths(cfg: ModelConfig, m: int = 1
+def train_leaf_paths(cfg: ModelConfig, m: int = 1, spec=None
                      ) -> dict[str, tuple[str, ...]]:
-    """A layer's leaf name -> its path in a layer slot of the JAX tree, for
-    ``cfg``'s one layer kind (training stacks one), in the order
-    :func:`layer_params` gives (on a model tier of m, of its tree)."""
-    return spec_leaf_paths(cfg, cfg.layer_plan()[0], m > 1)
+    """A layer's leaf name -> its path in a layer of the JAX tree, for the
+    plan entry ``spec`` (None: every layer of ``cfg``, which must hold one
+    set of leaves), in the order :func:`layer_params` gives (on a model
+    tier of m, of its tree)."""
+    if spec is None:
+        kinds = {tuple(spec_leaf_paths(cfg, s, m > 1))
+                 for s in cfg.layer_plan()}
+        if len(kinds) > 1:
+            raise ValueError(f"{cfg.name}: its layers hold different leaves; "
+                             "name the plan entry")
+        spec = cfg.layer_plan()[0]
+    return spec_leaf_paths(cfg, spec, m > 1)
 
 
-def layer_params(cfg: ModelConfig, m: int = 1) -> tuple[str, ...]:
-    """The leaf names of one layer of ``cfg``'s training tree:
-    ``LAYER_PARAMS`` (dense), the attention and MoE leaves (moe) or
-    ``MAMBA_LAYER_PARAMS`` (ssm; with ``MAMBA_TIER_LEAVES`` on a model
-    tier of m > 1)."""
-    return tuple(train_leaf_paths(cfg, m))
+def layer_params(cfg: ModelConfig, m: int = 1, spec=None) -> tuple[str, ...]:
+    """The leaf names of a layer of the plan entry ``spec`` of ``cfg``'s
+    training tree (None: of every layer, :func:`train_leaf_paths`):
+    ``LAYER_PARAMS`` (dense; with ``SANDWICH_PARAMS`` where the config has
+    sandwich norms), the attention and MoE leaves (moe) or
+    ``MAMBA_LAYER_PARAMS`` (ssm; with ``MAMBA_TIER_LEAVES`` on a model tier
+    of m > 1)."""
+    return tuple(train_leaf_paths(cfg, m, spec))
 
 
-def _check_train(cfg: ModelConfig) -> None:
-    check_supported(cfg, "train")
-    if find_period(cfg.layer_plan())[0] != 1:
-        raise NotImplementedError(f"{cfg.name}: training stacks one layer "
-                                  "kind (a period of 1)")
+def train_slots(cfg: ModelConfig) -> list[tuple[tuple, LayerSpec]]:
+    """Where each layer sits in the training tree, in plan order, with its
+    plan entry: layer ``rep * pi + j`` of the stacked periods is
+    ``("blocks", "slot{j}", rep)``, layer ``reps * pi + r`` of the
+    remainder ``("rest", r)`` (the JAX ``init_params`` structure, pi the
+    plan's period: gemma2's window, full pair stacks two slots)."""
+    plan = cfg.layer_plan()
+    pi, reps, rem = find_period(plan)
+    return ([(("blocks", f"slot{j}", i), plan[i * pi + j])
+             for i in range(reps) for j in range(pi)]
+            + [(("rest", r), plan[reps * pi + r]) for r in range(rem)])
 
 
 def _spec_shapes(cfg: ModelConfig, spec) -> dict[str, tuple[int, ...]]:
@@ -600,20 +620,16 @@ def _spec_shapes(cfg: ModelConfig, spec) -> dict[str, tuple[int, ...]]:
     return attn | {"gate": (d, f), "up": (d, f), "down": (f, d)} | post
 
 
-def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    return _spec_shapes(cfg, cfg.layer_plan()[0])
-
-
 def _head(cfg: ModelConfig, head) -> dict:
     """The untied head's entry of a training tree ({} when tied)."""
     return {} if cfg.tie_embeddings else {"head": head}
 
 
-def stack_tree(layers: dict[str, Any], cfg: ModelConfig) -> dict:
-    """Leaf name -> leaf, as the JAX tree of one layer slot of ``cfg``'s
-    family."""
+def stack_tree(layers: dict[str, Any], cfg: ModelConfig, spec) -> dict:
+    """Leaf name -> leaf, as the JAX tree of a layer (or a stacked slot) of
+    the plan entry ``spec``."""
     tree: dict = {}
-    for name, path in train_leaf_paths(cfg).items():
+    for name, path in train_leaf_paths(cfg, spec=spec).items():
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -623,7 +639,8 @@ def stack_tree(layers: dict[str, Any], cfg: ModelConfig) -> dict:
 
 def layer_leaves(slot: dict, cfg: ModelConfig) -> dict[str, Any]:
     """The inverse of :func:`stack_tree`, for a layer of any kind (a MoE
-    layer holds ``moe``, a Mamba2 one ``mamba``)."""
+    layer holds ``moe``, a Mamba2 one ``mamba``, a sandwich-normed one
+    ``post_ln1`` and ``post_ln2``)."""
     kind = LayerSpec(mixer="mamba2" if "mamba" in slot else "attn",
                      mlp="moe" if "moe" in slot else "dense")
     tier = "mamba" in slot and MAMBA_TIER_LEAVES[0] in slot["mamba"]
@@ -636,19 +653,32 @@ def layer_leaves(slot: dict, cfg: ModelConfig) -> dict[str, Any]:
     return out
 
 
+def _tree_of_layers(cfg: ModelConfig, layer) -> dict:
+    """``{"blocks": {slot{j}: stacked}, "rest": [...]}`` from ``layer(spec,
+    reps)``: a slot's leaf dict stacked over ``reps`` (None: one unstacked
+    layer of the remainder), keyed by leaf name."""
+    plan = cfg.layer_plan()
+    pi, reps, rem = find_period(plan)
+    return {"blocks": {f"slot{j}": stack_tree(layer(plan[j], reps), cfg,
+                                              plan[j]) for j in range(pi)},
+            "rest": [stack_tree(layer(plan[reps * pi + r], None), cfg,
+                                plan[reps * pi + r]) for r in range(rem)]}
+
+
 def train_param_shapes(cfg: ModelConfig, m: int = 1) -> dict:
     """:func:`init_train_params`'s tree with empty tensors on the ``meta``
     device: the shapes, nothing allocated; on a model tier of m, of
     :func:`train_layout`'s tree."""
-    _check_train(cfg)
-    L, d = cfg.n_layers, cfg.d_model
+    check_supported(cfg, "train")
+    d = cfg.d_model
     meta = lambda *shape: torch.empty(shape, device="meta")
-    layers = {n: meta(L, *shp) for n, shp in _layer_shapes(cfg).items()}
+    layers = _tree_of_layers(cfg, lambda spec, reps: {
+        n: meta(*(() if reps is None else (reps,)), *shp)
+        for n, shp in _spec_shapes(cfg, spec).items()})
     return train_layout({"embed": meta(cfg.padded_vocab, d),
                          "final_norm": {"scale": meta(d)},
                          **_head(cfg, meta(d, cfg.padded_vocab)),
-                         "blocks": {"slot0": stack_tree(layers, cfg)},
-                         "rest": []}, cfg, m)
+                         **layers}, cfg, m)
 
 
 def train_layout(tree: dict, cfg: ModelConfig, m: int = 1) -> dict:
@@ -665,65 +695,109 @@ def train_layout(tree: dict, cfg: ModelConfig, m: int = 1) -> dict:
 def init_train_params(cfg: ModelConfig, generator: torch.Generator,
                       device: torch.device | str) -> dict:
     """fp32 master weights in the JAX package's tree: ``embed`` (Vpad, d),
-    ``final_norm/scale``, ``head`` (d, Vpad) where untied, ``blocks/slot0``
-    (``{ln1, attn, ln2, mlp}``, ``{ln1, attn, ln2, moe}`` for the moe
-    family, or ``{ln, mamba}`` for the ssm family) stacked over the layers,
-    ``rest`` empty. The values are :func:`init_params`'s for the same
-    generator (same draws in the same order), in fp32."""
-    _check_train(cfg)
-    L, d = cfg.n_layers, cfg.d_model
-    shapes = _layer_shapes(cfg)
+    ``final_norm/scale``, ``head`` (d, Vpad) where untied, ``blocks/slot{j}``
+    (``{ln1, attn, ln2, mlp}`` and, with sandwich norms, ``post_ln1`` and
+    ``post_ln2``; ``{ln1, attn, ln2, moe}`` for the moe family, or ``{ln,
+    mamba}`` for the ssm family) stacked over the plan's periods, and
+    ``rest`` the remainder's layers unstacked (:func:`train_slots`). The
+    values are :func:`init_params`'s for the same generator (layer i's
+    draws in plan order), in fp32; every leaf is contiguous."""
+    check_supported(cfg, "train")
+    d = cfg.d_model
     f32 = dict(dtype=torch.float32, device=device)
     embed = embed_init(generator, cfg.padded_vocab, d, torch.float32, device)
     head = _head(cfg, None if cfg.tie_embeddings else embed_init(
         generator, cfg.padded_vocab, d, torch.float32, device).T.contiguous())
-    layers = {n: torch.zeros((L,) + shp, **f32) for n, shp in shapes.items()}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    moe = cfg.layer_plan()[0].mlp == "moe"
-    for i in range(L):
-        if cfg.family == "ssm":
+    tree = _tree_of_layers(cfg, lambda spec, reps: {
+        n: torch.zeros((() if reps is None else (reps,)) + shp, **f32)
+        for n, shp in _spec_shapes(cfg, spec).items()})
+    for place, spec in train_slots(cfg):
+        shapes = _spec_shapes(cfg, spec)
+        if spec.mixer == "mamba2":
             drawn = mamba_init(generator, cfg32, device)
-        elif moe:
-            drawn = {n: dense_init(generator, *shapes[n], torch.float32,
-                                   device)
-                     for n in ATTN_PARAMS if n not in ("ln1", "ln2")}
-            drawn |= moe_init(generator, cfg, torch.float32, device)
         else:
             drawn = {n: dense_init(generator, *shapes[n], torch.float32,
                                    device)
-                     for n in LAYER_PARAMS if n not in ("ln1", "ln2")}
+                     for n in ATTN_PARAMS if n not in ("ln1", "ln2")}
+            if spec.mlp == "moe":
+                drawn |= moe_init(generator, cfg, torch.float32, device)
+            else:
+                drawn |= {n: dense_init(generator, *shapes[n],
+                                        torch.float32, device)
+                          for n in ("gate", "up", "down")}
+        node = tree[place[0]][place[1]]
+        leaves = layer_leaves(node, cfg)
         for name, t in drawn.items():
-            layers[name][i] = t
+            if len(place) == 3:
+                leaves[name][place[2]] = t
+            else:
+                leaves[name].copy_(t)
     return {"embed": embed, "final_norm": {"scale": torch.zeros((d,), **f32)},
-            **head, "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
+            **head, **tree}
 
 
 def train_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     """The JAX ``init_params`` tree (numpy leaves) as the port's training
-    tree: the same structure, torch tensors."""
-    _check_train(cfg)
+    tree: the same structure (``blocks/slot{j}``, ``rest``), torch tensors
+    (contiguous copies)."""
+    check_supported(cfg, "train")
     conv = lambda a: torch.from_numpy(np.array(a, dtype=np.float32,
                                                 copy=True))
-    layers = {n: conv(a) for n, a in layer_leaves(tree["blocks"]["slot0"],
-                                                  cfg).items()}
+    layer = lambda lp, spec: stack_tree(
+        {n: conv(a) for n, a in layer_leaves(lp, cfg).items()}, cfg, spec)
+    plan = cfg.layer_plan()
+    pi, reps, _ = find_period(plan)
     return {"embed": conv(tree["embed"]),
             "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
             **_head(cfg, None if cfg.tie_embeddings else conv(tree["head"])),
-            "blocks": {"slot0": stack_tree(layers, cfg)}, "rest": []}
+            "blocks": {f"slot{j}": layer(tree["blocks"][f"slot{j}"], plan[j])
+                       for j in range(pi)},
+            "rest": [layer(lp, plan[reps * pi + r])
+                     for r, lp in enumerate(tree["rest"])]}
 
 
-def block_train(x, w, cos, sin, cfg: ModelConfig):
-    """:class:`Block`'s math with the differentiable kernels: flash
-    attention and the RMSNorm forms whose backward passes are kernels."""
+def train_layers(params: dict, cfg: ModelConfig, leaf=None
+                 ) -> list[dict[str, Any]]:
+    """Each layer's leaves in plan order, from a training tree (or a tree
+    of the same structure: specs, dims): a slot's rep ``i`` sliced from its
+    stacked leaves, a ``rest`` layer's own; ``leaf(t, i)`` (i None for a
+    ``rest`` leaf) takes each instead of the plain ``t[i]``."""
+    leaf = leaf or (lambda t, i: t if i is None else t[i])
+    out = []
+    for place, _ in train_slots(cfg):
+        if place[0] == "blocks":
+            node, i = params["blocks"][place[1]], place[2]
+        else:
+            node, i = params["rest"][place[1]], None
+        out.append({n: leaf(t, i) for n, t in layer_leaves(node,
+                                                            cfg).items()})
+    return out
+
+
+def _window(cfg: ModelConfig, spec) -> int:
+    """The attention window of a layer of the plan entry ``spec`` (0: full
+    attention)."""
+    return cfg.window if spec.attn == "window" else 0
+
+
+def block_train(x, w, cos, sin, cfg: ModelConfig, spec):
+    """:class:`Block`'s math for a layer of the plan entry ``spec``, with
+    the differentiable kernels: flash attention (the layer's window, the
+    config's softcap) and the RMSNorm forms whose backward passes are
+    kernels (the sandwich's post-norms too)."""
     q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
-    o = flash_attention_train(q, k, v, causal=True)
-    return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train)
+    o = flash_attention_train(q, k, v, causal=True, window=_window(cfg, spec),
+                              cap=cfg.attn_softcap)
+    return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
+                   norm=rmsnorm_train)
 
 
-def moe_block_train(x, w, cos, sin, cfg: ModelConfig, dispatch=None):
+def moe_block_train(x, w, cos, sin, cfg: ModelConfig, spec, dispatch=None):
     """A MoE layer's math with the differentiable kernels: (x, aux)."""
     q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
-    o = flash_attention_train(q, k, v, causal=True)
+    o = flash_attention_train(q, k, v, causal=True, window=_window(cfg, spec),
+                              cap=cfg.attn_softcap)
     return out_moe(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
                    dispatch=dispatch)
 
@@ -740,23 +814,29 @@ def mamba_block_train(x, w, cfg: ModelConfig):
 def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   remat: bool = True, gather=None, prefetch=None, tp=None,
                   moe_dispatch=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The JAX ``forward(mode="train")`` of the dense, moe and ssm
-    families: tokens (B, S) -> (logits (B, S, Vpad) in ``cfg.dtype``, the
-    MoE layers' summed auxiliary loss, fp32, 0 without them).
+    """The JAX ``forward(mode="train")`` of the dense (and its variants),
+    moe and ssm families: tokens (B, S) -> (logits (B, S, Vpad) in
+    ``cfg.dtype``, softcapped where the config caps them, the MoE layers'
+    summed auxiliary loss, fp32, 0 without them).
 
     ``params`` is {embed, final_norm, head (where untied), layers: [one
-    :func:`layer_params` dict a layer]}: the leaves of the training tree,
-    each layer's a slice of the stacked leaves (or a shard of it).
+    dict of a layer's leaves a layer, in plan order]}: the leaves of the
+    training tree, each layer's a slice of a slot's stacked leaves or a
+    ``rest`` layer's (or a shard of it; :func:`train_layers`). Layer i runs
+    the block of its plan entry: its window, the config's softcaps,
+    sandwich norms and MLP activation; the embedding is scaled by
+    :func:`layers.embed_scale` where ``cfg.scale_embed``.
     ``moe_dispatch`` (``moe.MoeDispatch``) runs the MoE layers expert-
     parallel: their routed experts are this rank's E/p. ``gather(name,
-    leaf)`` turns a leaf (``embed``, ``final_norm``, ``head`` or a layer
-    leaf's name) into the full
+    leaf, layer)`` turns a leaf (``embed``, ``final_norm``, ``head`` with
+    ``layer`` None, or layer ``layer``'s leaf of that name) into the full
     weight in ``cfg.dtype`` where it is used (default: the cast; FSDP: the
-    cast, then the parameter gather). With ``remat`` each block runs under
-    ``torch.utils.checkpoint`` with its gathers inside, so the backward
-    gathers again. ``prefetch`` (train/step.BlockPrefetch) takes the
-    blocks' gathers instead: layer i + depth's is started before layer i
-    runs and finished outside the checkpoint, so it is not repeated.
+    cast, then the parameter gather of that leaf's geometry). With
+    ``remat`` each block runs under ``torch.utils.checkpoint`` with its
+    gathers inside, so the backward gathers again. ``prefetch``
+    (train/step.BlockPrefetch) takes the blocks' gathers instead, in plan
+    order: layer i + depth's is started before layer i runs and finished
+    outside the checkpoint, so it is not repeated.
 
     ``tp`` (``models/tp.TensorParallel``) runs the dense decoder or the
     Mamba2 stack on one rank of a model tier: the gathered weights are the
@@ -765,37 +845,44 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``tp.block_train_tp`` or ``tp.mamba_train_tp`` and the logits the
     rank's (B, S, Vpad/m) columns."""
     from torch.utils.checkpoint import checkpoint
-    _check_train(cfg)
-    gather = gather or (lambda name, t: t.to(cfg.dtype))
-    names = layer_params(cfg, 1 if tp is None else tp.m)
+    check_supported(cfg, "train")
+    gather = gather or (lambda name, t, layer=None: t.to(cfg.dtype))
     B, S = tokens.shape
-    embed = gather("embed", params["embed"])
+    embed = gather("embed", params["embed"], None)
     seq = tp is not None and tp.seq_split(S)
     if tp is not None:
         x = tp.embed(tokens, embed, seq)
     else:
         x = torch.nn.functional.embedding(tokens, embed)
-    if cfg.family == "ssm":
-        block = (lambda x, w: mamba_block_train(x, w, cfg)) if tp is None \
-            else (lambda x, w: mamba_train_tp(x, w, cfg, tp, seq))
-    else:
+    if cfg.scale_embed:
+        x = x * embed_scale(cfg.d_model, cfg.dtype)
+    if cfg.family != "ssm":
         cos, sin = rope_angles(torch.arange(S, device=tokens.device)[None],
                                cfg.head_dim_, cfg.rope_theta)
-        block = (lambda x, w: block_train(x, w, cos, sin, cfg)) \
-            if tp is None else \
-            (lambda x, w: block_train_tp(x, w, cos, sin, cfg, tp, seq))
-        if "router" in names:
-            block = lambda x, w: moe_block_train(x, w, cos, sin, cfg,
-                                                 moe_dispatch)
 
-    def gathered(x, *leaves):
-        return block(x, {n: gather(n, t) for n, t in zip(names, leaves)})
+    def block(spec, x, w):
+        if spec.mixer == "mamba2":
+            return (mamba_block_train(x, w, cfg) if tp is None
+                    else mamba_train_tp(x, w, cfg, tp, seq))
+        if spec.mlp == "moe":
+            return moe_block_train(x, w, cos, sin, cfg, spec, moe_dispatch)
+        return (block_train(x, w, cos, sin, cfg, spec) if tp is None
+                else block_train_tp(x, w, cos, sin, cfg, tp, seq))
 
-    def full(x, *weights):
-        return block(x, dict(zip(names, weights)))
+    def gathered(i, spec, names, x, *leaves):
+        return block(spec, x, {n: gather(n, t, i)
+                               for n, t in zip(names, leaves)})
 
-    run = lambda fn, x, args: (checkpoint(fn, x, *args, use_reentrant=False)
-                               if remat else fn(x, *args))
+    def full(i, spec, names, x, *weights):
+        return block(spec, x, dict(zip(names, weights)))
+
+    def run(fn, i, x, w: dict):
+        names = tuple(w)
+        args = (i, plan[i], names, x, *w.values())
+        return checkpoint(fn, *args, use_reentrant=False) if remat \
+            else fn(*args)
+
+    plan = cfg.layer_plan()
     layers = params["layers"]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
@@ -807,20 +894,20 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         return out
 
     if prefetch is None:
-        for lp in layers:
-            x = step(x, run(gathered, x, [lp[n] for n in names]))
+        for i, lp in enumerate(layers):
+            x = step(x, run(gathered, i, x, lp))
     else:
         depth = max(1, int(prefetch.depth))
-        fifo = [prefetch.start(layers[i])
+        fifo = [prefetch.start(i, layers[i])
                 for i in range(min(depth, len(layers)))]
         for i in range(len(layers)):
             if i + depth < len(layers):
-                fifo.append(prefetch.start(layers[i + depth]))
-            w = prefetch.finish(fifo.pop(0))
-            x = step(x, run(full, x, [w[n] for n in names]))
-    x = rmsnorm_train(x, gather("final_norm", params["final_norm"]),
+                fifo.append(prefetch.start(i + depth, layers[i + depth]))
+            x = step(x, run(full, i, x, prefetch.finish(fifo.pop(0))))
+    x = rmsnorm_train(x, gather("final_norm", params["final_norm"], None),
                       eps=cfg.norm_eps)
     if tp is not None:
         x = tp.enter(x, seq)
-    head = embed.T if cfg.tie_embeddings else gather("head", params["head"])
-    return x @ head, aux
+    head = embed.T if cfg.tie_embeddings else gather("head", params["head"],
+                                                     None)
+    return softcap(x @ head, cfg.final_softcap), aux

@@ -127,7 +127,7 @@ class ServeSpec:
                 f"{cfg.name} on a grid of {ranks} ranks: the port serves "
                 f"{', '.join(variants)} on one rank; the dense variants on "
                 "grids (ring caches split with total_len, the model tier) "
-                "are a later slice (ROADMAP.md Queue 1 item 5)")
+                "are a later slice (ROADMAP.md Queue 1 item 5.2)")
         check_tp(cfg, sizes["model"])
         if cfg.family == "moe" and sizes["pod"] * sizes["data"] > 1:
             raise NotImplementedError(

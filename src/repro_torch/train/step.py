@@ -71,9 +71,17 @@ cross-entropy ("loss") and the auxiliary loss ("moe_aux") apart. The
 meter counts the dispatch's all-to-alls (``a2a_*``, both legs, forward and
 backward) and the tokens transport's gathers (``moe_gather_*``).
 
+The parameter tree may hold several layer slots and a ``rest`` (a plan
+whose period is 2, gemma2's window / full pair, or whose depth the period
+does not divide): each layer's gathers take that layer's own geometry (a
+slot's leaf in one layer's coordinates, a ``rest`` leaf as it is), the
+autograd view slices every slot's reps and takes each ``rest`` layer, and
+the gradients sync in the JAX flattening order.
+
 Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"``,
-``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8) and
-the MoE family (item 14) on a model tier.
+``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8),
+the MoE family (item 14) and the dense variants (item 5.2) on a model
+tier.
 """
 from __future__ import annotations
 
@@ -307,28 +315,33 @@ class MeteredDispatch(MoeDispatch):
 # double-buffered FSDP parameter prefetch
 # ---------------------------------------------------------------------------
 class BlockPrefetch:
-    """Per-layer gather hook of ``transformer.forward_train``: ``start``
-    casts one layer's shards and issues their gathers (every non-local round
-    of a ("pod", "data") leaf completes in start), ``finish`` completes the
-    local tail at the consumer. Bitwise the eager gathers: the same cast,
-    the same schedule per leaf."""
+    """Per-layer gather hook of ``transformer.forward_train``: ``start(i,
+    layer)`` casts layer i's shards and issues their gathers (every
+    non-local round of a ("pod", "data") leaf completes in start),
+    ``finish`` completes the local tail at the consumer. Bitwise the eager
+    gathers: the same cast, the same schedule per leaf (layer i's leaf's
+    own geometry)."""
 
-    def __init__(self, geos: dict[str, LeafGather | None], dtype, depth: int):
-        self.geos = geos              # layer leaf name -> gather (None:
-        self.dtype = dtype            # replicated, cast only)
+    def __init__(self, geos: list[dict[str, LeafGather | None]], dtype,
+                 depth: int):
+        self.geos = geos              # per layer: leaf name -> gather
+        self.dtype = dtype            # (None: replicated, cast only)
         self.depth = depth
 
-    def start(self, layer: dict[str, torch.Tensor]) -> dict:
+    def start(self, i: int, layer: dict[str, torch.Tensor]
+              ) -> tuple[int, dict]:
         out = {}
         for name, t in layer.items():
             x = t.to(self.dtype)
-            geo = self.geos[name]
+            geo = self.geos[i][name]
             out[name] = x if geo is None else geo.start(x)
-        return out
+        return i, out
 
-    def finish(self, pending: dict) -> dict[str, torch.Tensor]:
-        return {name: p if self.geos[name] is None else
-                self.geos[name].finish(p) for name, p in pending.items()}
+    def finish(self, pending: tuple[int, dict]) -> dict[str, torch.Tensor]:
+        i, parts = pending
+        geos = self.geos[i]
+        return {name: p if geos[name] is None else geos[name].finish(p)
+                for name, p in parts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -503,25 +516,27 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                               meter)
         return LeafGather(pod, "xla" if xla else "bruck", dim, meter)
 
-    names = T.layer_params(cfg, m)
-    moe = "router" in names
-    slot_dims = T.layer_leaves(block_slice_dims(dims["blocks"]["slot0"]),
-                               cfg)
-    slot_axes = T.layer_leaves(fsaxes["blocks"]["slot0"], cfg)
-    geos = {n: geo(slot_dims[n], slot_axes[n]) for n in names}
-    geos["embed"] = geo(dims["embed"], fsaxes["embed"])
-    geos["final_norm"] = geo(dims["final_norm"]["scale"],
-                             fsaxes["final_norm"]["scale"])
+    moe = any(s.mlp == "moe" for s in cfg.layer_plan())
+    # each layer's gather geometry, from its own slot (a stacked leaf's dim
+    # in one layer's coordinates) or rest entry (unstacked)
+    layer_dims = T.train_layers(dims, cfg, leaf=lambda k, i: k if i is None
+                                else block_slice_dims(k))
+    layer_axes = T.train_layers(fsaxes, cfg, leaf=lambda a, i: a)
+    layer_geos = [{n: geo(ld[n], la[n]) for n in ld}
+                  for ld, la in zip(layer_dims, layer_axes)]
+    geos = {"embed": geo(dims["embed"], fsaxes["embed"]),
+            "final_norm": geo(dims["final_norm"]["scale"],
+                              fsaxes["final_norm"]["scale"])}
     if not cfg.tie_embeddings:
         geos["head"] = geo(dims["head"], fsaxes["head"])
 
-    def gather(name: str, t: torch.Tensor) -> torch.Tensor:
+    def gather(name: str, t: torch.Tensor, layer: int | None = None
+               ) -> torch.Tensor:
         x = t.to(cfg.dtype)                 # the cfg.dtype copy is gathered
-        g = geos[name]
+        g = geos[name] if layer is None else layer_geos[layer][name]
         return x if g is None else g.finish(g.start(x))
 
-    hook = BlockPrefetch({n: geos[n] for n in names}, cfg.dtype,
-                         depth) if depth else None
+    hook = BlockPrefetch(layer_geos, cfg.dtype, depth) if depth else None
 
     # sync by the leaf's geometry (leaves in the JAX flattening order); the
     # EP experts' gradients are whole at their owner already
@@ -596,9 +611,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
         for a in range(grad_accum):
             view = {"embed": leaf(params["embed"]),
                     "final_norm": leaf(params["final_norm"]["scale"]),
-                    "layers": [{n: leaf(t, i) for n, t in T.layer_leaves(
-                        params["blocks"]["slot0"], cfg).items()}
-                        for i in range(cfg.n_layers)]}
+                    "layers": T.train_layers(params, cfg, leaf=leaf)}
             if not cfg.tie_embeddings:
                 view["head"] = leaf(params["head"])
             part = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}

@@ -31,7 +31,12 @@ ATTN_CASES = [(2, 37, 4, 2, 32, dict(causal=True)),
               # itself held against jax.vjp there
               (1, 64, 8, 1, 32, dict(causal=True)),
               (2, 65, 8, 1, 32, dict(causal=True, chunk=32)),
-              (1, 129, 8, 1, 64, dict(causal=True, window=48))]
+              (1, 129, 8, 1, 64, dict(causal=True, window=48)),
+              # the dense variants: the softcap (gemma2's 50 and 30) with a
+              # window, and h2o-danube's head dim 120
+              (1, 90, 4, 2, 32, dict(causal=True, window=40, cap=50.0)),
+              (2, 70, 4, 1, 120, dict(causal=True, window=24)),
+              (1, 66, 4, 2, 120, dict(causal=True, cap=30.0))]
 
 
 def _inputs(B, S, H, KV, D, seed=0):
@@ -87,9 +92,21 @@ def test_flash_backward_plain_matches_jax_vjp(case):
 
 
 def test_flash_train_refuses_a_softcap():
-    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 8, 2, 1, 32))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        flash_ops.flash_attention_train(q, k, v, cap=30.0)
+    """The refusal this test held (no softcap in the flash backward) is
+    lifted: ``flash_attention_train`` with a cap and a window, at D = 32
+    and at 120, gives autograd's gradients of the capped
+    ``attention_ref``."""
+    for dims in ((1, 40, 2, 1, 32), (1, 30, 4, 2, 120)):
+        q, k, v, do = (torch.from_numpy(a) for a in _inputs(*dims))
+        mask = dict(causal=True, window=20, cap=30.0)
+        train = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(
+            flash_ops.flash_attention_train(*train, **mask), train, do)
+        ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(flash_ops.attention_ref(*ref, **mask),
+                                   ref, do)
+        for a, b in zip(got, want):
+            _close(a, b, torch.float32)
 
 
 RMS_SHAPES = [(4, 7, 64), (33, 128), (3, 3072)]
@@ -146,9 +163,11 @@ def test_rmsnorm_backward_plain_matches_jax_vjp(shape):
 
 
 def test_flash_backward_instance_is_picked_by_dtype_and_head_dim():
-    """On the card bf16 at D = 32, 64 and 128 runs the tensor-core pair;
-    fp32 and bf16 at D = 256 the CUDA-core pair."""
+    """On the card bf16 at D = 32, 64, 120 and 128 runs the tensor-core
+    pair; fp32 and bf16 at D = 256 the CUDA-core pair; the backward takes
+    every head dim the forward takes."""
     pick = flash_ops.bwd_on_tensor_cores
-    assert all(pick(torch.bfloat16, d) for d in (32, 64, 128))
-    assert not any(pick(torch.float32, d) for d in (32, 64, 128, 256))
+    assert all(pick(torch.bfloat16, d) for d in (32, 64, 120, 128))
+    assert not any(pick(torch.float32, d) for d in (32, 64, 120, 128, 256))
     assert not pick(torch.bfloat16, 256)
+    assert flash_ops.BWD_HEAD_DIMS == flash_ops.HEAD_DIMS

@@ -610,7 +610,7 @@ def test_launch_counts_follow_the_graph_replays(cuda, arch):
                 flash_attention=attn * prefills, ssd=mamba * prefills,
                 dma_allgather=0, rmsnorm_bwd=0, flash_attention_bwd_dq=0,
                 flash_attention_bwd_dkdv=0, flash_attention_bwd_wgmma=0,
-                ssd_bwd=0)
+                flash_attention_bwd_d120=0, ssd_bwd=0)
     want.update({"rmsnorm_bwd.plain": 0, "rmsnorm_bwd.residual": 0,
                  "rmsnorm_bwd.gated": 0, "rmsnorm.gated_rowsq": 0,
                  "rmsnorm.gated_finish": 0, "rmsnorm_bwd.gated_rowdot": 0,
@@ -771,10 +771,8 @@ def test_ssd_raises_naming_n_and_p_when_the_state_is_too_large(cuda):
 # fp32 on the same bf16 inputs at atol 1e-3 plus rtol 1e-2: mostly
 # relative, since most gradients of randn inputs at D = 128 are 0.03-0.1
 BWD_BF16_VS_FP32 = dict(atol=1e-3, rtol=1e-2)
-# (the backward takes no softcap and no D = 120: the variants' training
-# slice, ROADMAP.md Queue 1 item 5)
-BWD_CASES = [c for c in FLASH_CASES
-             if not c[6].get("cap") and c[5] in flash_ops.BWD_HEAD_DIMS] + [
+# every forward case (the softcapped ones and D = 120 among them), and:
+BWD_CASES = FLASH_CASES + [
     (2, 256, 256, 24, 8, 128, dict(causal=True)),
     (1, 200, 200, 8, 2, 256, dict(causal=True, window=70)),
     # the tensor-core pair's 64-row tiles (queries in dq, keys in dk/dv):
@@ -794,6 +792,20 @@ BWD_CASES = [c for c in FLASH_CASES
     # enough (kv head, key tile) blocks that dk/dv takes a kv head's G q
     # heads in one block (the cases above split them over a cluster)
     (4, 640, 640, 16, 8, 64, dict(causal=True)),
+    # the softcap on the tensor cores at D = 32, 64 and 128 (G = 4, 3, 3;
+    # a window with it, a cluster split and one block a kv head)
+    (2, 130, 130, 8, 2, 32, dict(causal=True, cap=50.0)),
+    (1, 200, 200, 6, 2, 64, dict(causal=True, window=64, cap=30.0)),
+    (1, 257, 257, 24, 8, 128, dict(causal=True, cap=50.0)),
+    (4, 640, 640, 16, 8, 64, dict(causal=True, cap=50.0)),
+    # head dim 120 at the 64-row tiles' edges (S = 63, 64, 65, 129), S != T,
+    # a window that bites, G = 4 and 1, and with a cap
+    (1, 63, 63, 32, 8, 120, dict(causal=True)),
+    (1, 64, 64, 8, 8, 120, dict(causal=True)),
+    (2, 65, 65, 32, 8, 120, dict(causal=True, window=64)),
+    (1, 129, 129, 8, 2, 120, dict(causal=True, window=50, cap=50.0)),
+    (1, 65, 129, 4, 1, 120, dict(causal=False)),
+    (2, 1024, 1024, 32, 8, 120, dict(causal=True, window=4096)),
 ]
 
 
@@ -830,13 +842,14 @@ def test_flash_bwd_kernel_on_card(cuda, dtype, case):
     q, k, v, do, mask = _flash_inputs(case, dtype, cuda)
     o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
     n = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES,
-         flash_ops.BWD_WGMMA_LAUNCHES)
+         flash_ops.BWD_WGMMA_LAUNCHES, flash_ops.BWD_D120_LAUNCHES)
     got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
     tensor_cores = dtype == torch.bfloat16 and case[5] <= 128
     assert (flash_ops.BWD_DQ_LAUNCHES - n[0],
             flash_ops.BWD_DKDV_LAUNCHES - n[1],
-            flash_ops.BWD_WGMMA_LAUNCHES - n[2]) == (1, 1,
-                                                     2 * tensor_cores)
+            flash_ops.BWD_WGMMA_LAUNCHES - n[2],
+            flash_ops.BWD_D120_LAUNCHES - n[3]) == (
+                1, 1, 2 * tensor_cores, 2 * (case[5] == 120))
     ref = flash_ops.attention_bwd_ref(q, k, v, o, do, lse, **mask)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -861,6 +874,26 @@ def test_flash_train_gradients_match_autograd_of_the_plain_version(cuda,
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_ops.flash_attention_train(*leaves, **mask)
     got = torch.autograd.grad(out, leaves, do)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ops.attention_ref(*refs, **mask), refs,
+                               do)
+    for a, b in zip(got, want):
+        _close(a, b, dtype, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 200, 200, 32, 8, 120, dict(causal=True, window=64)),    # h2o-danube
+    (1, 150, 150, 16, 8, 256, dict(causal=True, window=64, cap=50.0))])
+def test_flash_train_gradients_of_the_variants(cuda, dtype, case):
+    """``flash_attention_train`` at the dense variants' heads, a window
+    that bites and gemma2's cap, against torch.autograd of
+    ``attention_ref`` (fp32 1e-4, bf16 2e-2)."""
+    q, k, v, do, mask = _flash_inputs(case, dtype, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_ops.flash_attention_train(*leaves, **mask),
+                              leaves, do)
     refs = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(flash_ops.attention_ref(*refs, **mask), refs,
                                do)

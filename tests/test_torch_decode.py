@@ -157,11 +157,13 @@ def test_launch_counts_read_and_advance_every_counter():
             "rmsnorm_bwd.gated", "ssd_bwd", "rmsnorm.gated_rowsq",
             "rmsnorm.gated_finish", "rmsnorm_bwd.gated_rowdot",
             "rmsnorm_bwd.gated_finish", "flash_attention_d120",
-            "decode_scores_ring", "decode_stats_ring"} == set(counts)
+            "flash_attention_bwd_d120", "decode_scores_ring",
+            "decode_stats_ring"} == set(counts)
     delta = {"decode_scores": 2, "decode_stats": 2, "rmsnorm": 5,
              "decode_scores_ring": 1, "flash_attention_d120": 2,
              "rmsnorm.plain": 3, "rmsnorm.residual": 2,
-             "flash_attention_bwd_dq": 1, "rmsnorm_bwd.residual": 4}
+             "flash_attention_bwd_dq": 1, "rmsnorm_bwd.residual": 4,
+             "flash_attention_bwd_d120": 2}
     kernels.add_launch_counts(delta, 3)
     after = kernels.launch_counts()
     assert after == {k: n + 3 * delta.get(k, 0) for k, n in counts.items()}

@@ -97,18 +97,21 @@ def test_registry_names_the_waiting_slice(name):
                                   dict(family="hybrid", ssm_state=16,
                                        shared_attn_every=2)])
 def test_unported_flags_raise_when_built(flag):
-    """Every flag raises when a model is built for training; the dense
-    variants' flags (window, softcap, sandwich norm, scale_embed, GeGLU) are
-    built for serving (tests/test_torch_variants.py), the rest raise."""
+    """The dense variants' flags (window, softcap, sandwich norm,
+    scale_embed, GeGLU) are built for serving and for training
+    (tests/test_torch_variants.py, tests/test_torch_variants_train.py);
+    every other flag raises when a model is built for either."""
     cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), **flag)
-    with pytest.raises(NotImplementedError):
-        transformer.init_train_params(cfg, torch.Generator().manual_seed(0),
-                                      "cpu")
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
     if configs.variant_features(cfg):
+        transformer.init_train_params(cfg, torch.Generator().manual_seed(0),
+                                      "cpu")
         transformer.Transformer(cfg, params, "cpu")
         return
+    with pytest.raises(NotImplementedError):
+        transformer.init_train_params(cfg, torch.Generator().manual_seed(0),
+                                      "cpu")
     with pytest.raises(NotImplementedError):
         transformer.Transformer(cfg, params, "cpu")
 

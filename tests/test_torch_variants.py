@@ -8,8 +8,9 @@ the reduced models with parameters carried across, on the recipe of
 ``tests/test_ring_cache.py`` (a 96-token prefill and three decode steps
 past a 64-token window, fp32, within ``FWD_TOL`` of the JAX forward); the
 port's engine against the JAX engine, tokens and rows equal, with requests
-that cross the window; and the refusals that name the slices still to
-come (training, grids). JAX runs under a mesh of its own, as in
+that cross the window; and the refusals that name the slice still to come
+(the variants on grids and on a model tier; their training on one rank's
+model is ``tests/test_torch_variants_train.py``'s). JAX runs under a mesh of its own, as in
 ``tests/test_torch_serve.py``.
 """
 import dataclasses
@@ -189,10 +190,18 @@ def test_flash_plain_d120_window_cap_matches_jax():
                                     **mask)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
-    assert 120 in flash_ops.HEAD_DIMS and 120 not in flash_ops.BWD_HEAD_DIMS
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_ops.flash_attention_train(*(torch.from_numpy(a)
-                                          for a in (q, k, v)))
+    # and its backward (the training path at head dim 120, window and cap)
+    # against jax.vjp
+    assert 120 in flash_ops.HEAD_DIMS and 120 in flash_ops.BWD_HEAD_DIMS
+    do = rng.standard_normal((1, S, H, D), dtype=np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    grads = torch.autograd.grad(flash_ops.flash_attention_train(
+        *leaves, **mask), leaves, torch.from_numpy(do))
+    _, vjp = jax.vjp(lambda *a: jattention.multihead_attention(*a, **mask),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    for a, b in zip(grads, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5,
+                                   rtol=2e-5)
 
 
 @pytest.mark.parametrize("arch", VARIANTS)
@@ -254,18 +263,25 @@ def test_engine_tokens_match_jax(arch):
 
 @pytest.mark.parametrize("arch", VARIANTS)
 def test_training_and_grids_refuse_the_variants(arch):
+    """What stays refused of the variants: serving on a grid, and training
+    (and serving) on a model tier, each naming ROADMAP.md Queue 1 item 5.2;
+    one rank's model, FSDP ranks included, trains them. yi-6b has no
+    variant feature: llama's path takes it everywhere."""
+    from repro_torch.models.tp import check_tp
     cfg = configs.get_smoke(arch)
 
     class Grid:
         q, pl, m = 2, 2, 1
+    configs.check_supported(cfg, "train")
+    tree = T.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert len(T.train_layers(tree, cfg)) == cfg.n_layers
     if not configs.variant_features(cfg):             # yi-6b: llama's path
-        configs.check_supported(cfg, "train")
         assert ServeSpec(batch=4, cache_len=64).resolve(cfg, Grid()) \
             .batch_sharded
+        with pytest.raises(NotImplementedError, match="item 14"):
+            check_tp(cfg, 2)                          # its untied head
         return
-    with pytest.raises(NotImplementedError, match="training slice"):
-        configs.check_supported(cfg, "train")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        T.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="grids"):
+    with pytest.raises(NotImplementedError, match="grids.*item 5.2"):
         ServeSpec(batch=4, cache_len=64).resolve(cfg, Grid())
+    with pytest.raises(NotImplementedError, match="model tier.*item 5.2"):
+        check_tp(cfg, 2)

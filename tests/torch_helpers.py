@@ -696,12 +696,13 @@ def task_batch_spec_errors(ctx, q, pl):
 # host devices: ``python -c JAX_TRAIN_REFERENCE out_dir cache_dir plan.json``
 # with plan {arch, n_layers, global_batch, seq_len, steps, variants (name ->
 # make_train_step keywords), one_gather (the shape of one shard-mapped
-# parameter gather), precise_ssd (the mixer's ssd_chunked made precise)}.
-# It writes out.json (losses, grad norms, the compiled steps' and the one
-# gather's collective_stats) and an .npz of parameters per variant (and
-# params0, the initial state's).
+# parameter gather), precise_ssd (the mixer's ssd_chunked made precise),
+# cfg_kw (the smoke config's fields replaced)}, or {models: {sub-directory:
+# such a plan}}, each run in turn. It writes out.json (losses, grad norms,
+# the compiled steps' and the one gather's collective_stats) and an .npz of
+# parameters per variant (and params0, the initial state's).
 JAX_TRAIN_REFERENCE = r"""
-import dataclasses, json, sys, warnings
+import dataclasses, json, os, sys, warnings
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -716,62 +717,74 @@ from repro.core.topology import device_pod_map
 from repro.data import SyntheticLM
 from repro.train.step import custom_batch_specs, init_state, make_train_step
 
-plan = json.loads(open(sys.argv[3]).read())
-out_dir = sys.argv[1]
-if plan.get("precise_ssd"):
-    # the port's SSD kernel computes the precise function: the mixer's
-    # ssd_chunked made precise in this process only
-    import functools
-    from repro.models import ssm
-    ssm.ssd_chunked = functools.partial(ssm.ssd_chunked, precise=True)
-cfg = dataclasses.replace(configs.get_smoke(plan["arch"]),
-                          n_layers=plan["n_layers"], dtype=jnp.float32)
-B, S = plan["global_batch"], plan["seq_len"]
-mesh = jax.make_mesh((2, 4), ("pod", "data"))
-jax.set_mesh(mesh)
-pods = device_pod_map(mesh, ("pod",))
-EDGES = ("permute_edges_local", "permute_edges_nonlocal",
-         "permute_bytes_local", "permute_bytes_nonlocal")
-data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                   seed=0)
-path_of = lambda path: "/".join(
-    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
-save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
-    path_of(p): np.asarray(v)
-    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
-res = {}
-for name, kw in plan["variants"].items():
-    art = make_train_step(cfg, mesh, grad_sync="locality",
-                          shape=custom_batch_specs(cfg, B, S), donate=False,
-                          **kw)
-    state = init_state(cfg, mesh, art)
-    if name == "fsdp":
-        save("params0", state.params)
-    put = lambda b: {k: jax.device_put(v, art.batch_shardings[k])
-                     for k, v in b.items()}
-    compiled = art.step_fn.lower(state, put(data.batch(0))).compile()
-    st = collective_stats(compiled.as_text(), pods)
-    losses, norms = [], []
-    for step in range(plan["steps"]):
-        state, m = compiled(state, put(data.batch(step)))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    save(name, state.params)
-    res[name] = {"losses": losses, "grad_norms": norms,
-                 "hlo": {k: getattr(st, k) for k in EDGES},
-                 "permutes": st.counts.get("collective-permute", 0)}
 
-# one leaf's parameter gather, shard-mapped: the unit the port repeats
-f = jax.jit(jax.shard_map(
-    lambda x: C.allgather(x, ("pod",), ("data",), algorithm="locality_bruck",
-                          tiled=True, assume_varying=True),
-    mesh=mesh, in_specs=P(("pod", "data")), out_specs=P(), check_vma=False))
-a = jax.ShapeDtypeStruct(tuple(plan["one_gather"]), jnp.float32,
-                         sharding=NamedSharding(mesh, P(("pod", "data"))))
-st = collective_stats(f.lower(a).compile().as_text(), pods)
-res["one_gather"] = {k: getattr(st, k) for k in EDGES}
-with open(f"{out_dir}/out.json", "w") as fh:
-    json.dump(res, fh)
+def run(plan, out_dir):
+    if plan.get("precise_ssd"):
+        # the port's SSD kernel computes the precise function: the mixer's
+        # ssd_chunked made precise in this process only
+        import functools
+        from repro.models import ssm
+        ssm.ssd_chunked = functools.partial(ssm.ssd_chunked, precise=True)
+    cfg = dataclasses.replace(configs.get_smoke(plan["arch"]),
+                              n_layers=plan["n_layers"], dtype=jnp.float32,
+                              **plan.get("cfg_kw", {}))
+    B, S = plan["global_batch"], plan["seq_len"]
+    mesh = jax.make_mesh((2, 4), ("pod", "data"))
+    jax.set_mesh(mesh)
+    pods = device_pod_map(mesh, ("pod",))
+    EDGES = ("permute_edges_local", "permute_edges_nonlocal",
+             "permute_bytes_local", "permute_bytes_nonlocal")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                       seed=0)
+    path_of = lambda path: "/".join(
+        str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+    save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
+        path_of(p): np.asarray(v)
+        for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+    res = {}
+    for name, kw in plan["variants"].items():
+        art = make_train_step(cfg, mesh, grad_sync="locality",
+                              shape=custom_batch_specs(cfg, B, S),
+                              donate=False, **kw)
+        state = init_state(cfg, mesh, art)
+        if name == "fsdp":
+            save("params0", state.params)
+        put = lambda b: {k: jax.device_put(v, art.batch_shardings[k])
+                         for k, v in b.items()}
+        compiled = art.step_fn.lower(state, put(data.batch(0))).compile()
+        st = collective_stats(compiled.as_text(), pods)
+        losses, norms = [], []
+        for step in range(plan["steps"]):
+            state, m = compiled(state, put(data.batch(step)))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        save(name, state.params)
+        res[name] = {"losses": losses, "grad_norms": norms,
+                     "hlo": {k: getattr(st, k) for k in EDGES},
+                     "permutes": st.counts.get("collective-permute", 0)}
+
+    # one leaf's parameter gather, shard-mapped: the unit the port repeats
+    f = jax.jit(jax.shard_map(
+        lambda x: C.allgather(x, ("pod",), ("data",),
+                              algorithm="locality_bruck", tiled=True,
+                              assume_varying=True),
+        mesh=mesh, in_specs=P(("pod", "data")), out_specs=P(),
+        check_vma=False))
+    a = jax.ShapeDtypeStruct(tuple(plan["one_gather"]), jnp.float32,
+                             sharding=NamedSharding(mesh, P(("pod", "data"))))
+    st = collective_stats(f.lower(a).compile().as_text(), pods)
+    res["one_gather"] = {k: getattr(st, k) for k in EDGES}
+    with open(f"{out_dir}/out.json", "w") as fh:
+        json.dump(res, fh)
+
+
+plan = json.loads(open(sys.argv[3]).read())
+# several models in one process: plan["models"] maps a sub-directory of
+# out_dir to a plan of its own (cfg_kw: the smoke config's fields replaced)
+for sub, one in (plan["models"].items() if "models" in plan
+                 else [("", plan)]):
+    os.makedirs(f"{sys.argv[1]}/{sub}", exist_ok=True)
+    run(one, f"{sys.argv[1]}/{sub}")
 """
 # The JAX (2, 2, 2) ("pod", "data", "model") step for tests/test_torch_tp.py
 # and tests/test_torch_ssm_tp.py: ``python -c JAX_TP_REFERENCE out_dir
@@ -897,15 +910,18 @@ with open(f"{out_dir}/out.json", "w") as fh:
 
 
 def train_tree(flat: dict):
-    """A parameter tree from {"a/b/c": array} (the JAX tree's leaf paths)."""
+    """A parameter tree from {"a/b/c": array} (the JAX tree's leaf paths;
+    ``rest/<r>/...`` the list of the remainder's layers)."""
     import torch
-    tree: dict = {"rest": []}
+    tree: dict = {}
     for path, a in flat.items():
         node = tree
         *head, last = path.split("/")
         for k in head:
             node = node.setdefault(k, {})
         node[last] = torch.from_numpy(np.array(a, dtype=np.float32))
+    rest = tree.get("rest", {})
+    tree["rest"] = [rest[str(r)] for r in range(len(rest))]
     return tree
 
 
@@ -1046,6 +1062,18 @@ def task_tp_refusals(ctx, q, pl, m):
         except NotImplementedError as e:
             out.append(str(e))
     return out
+
+
+def task_variant_tier_refusal(ctx, q, pl, m, arch):
+    """``make_train_step`` of ``arch``'s smoke config on a q x pl x m grid:
+    the message it refuses with (None where it takes it)."""
+    from repro_torch.train import make_train_step
+    try:
+        make_train_step(_small_cfg(arch, 2), ctx.grid(q, pl, m),
+                        device="cpu")
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 def task_mesh(ctx, shape, axes):
