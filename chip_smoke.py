@@ -82,14 +82,15 @@ the package is missing. Phases, each fatal on failure:
    bf16 and fp32), at one rank's of 8c (B = 1, causal, bf16), of 8e and
    of 10b (B = 1, 16/16 heads; the RMSNorm backward 2,048 wide) and at the
    tensor-core pair's tile edges (``FLASH_BWD_EDGES``: S = 63, 65, 129,
-   G = 1, 3, 8, D = 32, 64, 128, window and chunk), at 8v's
+   G = 1, 2, 3, 8, D = 32, 64, 128, 256, window, chunk and cap; gemma2's
+   heads at B = 1, whose dk/dv splits over a cluster), at 8v's
    (``VARIANT_FLASH_BWD``: h2o-danube's step, 32/8 heads of 120, and at
    6,000 tokens where its 4,096 window bites; gemma2's, 16/8 heads of 256
    with cap 50; cap 50 at 8a's shape; fp32 at D = 120 with window and
    cap; with a cap there is no library, and SDPA's uncapped backward is
    printed as a yardstick), each naming the instance that served it by its
-   launch counter (bf16 at D <= 128 the tensor cores, fp32 and bf16 at
-   D = 256 the CUDA cores) and failing on another; and the
+   launch counter (bf16 the tensor cores at every D, fp32 the CUDA cores)
+   and failing on another; and the
    RMSNorm backward, plain and residual (dx and dscale), on 8a's 4,096 rows
    (bf16, fp32) and 8c's 1,024 (bf16), 3,072 wide, one launch a call; each
    two calls bitwise equal, timed beside its plain version, the library's
@@ -97,7 +98,8 @@ the package is missing. Phases, each fatal on failure:
    not causal alone, ``F.rms_norm``'s; timed here only; and SDPA's forward
    beside the flash forward at the training shapes) and its bound; the
    times before the redesign are printed on lines of their own, quoted
-   from PERF.md (``QUOTED_PR19_MS``; not measured in the run);
+   from PERF.md (``QUOTED_PR19_MS``, and ``QUOTED_D256_CUDA_CORES_MS`` for
+   gemma2's D = 256 pair on the CUDA cores; not measured in the run);
    and mamba2-780m's: the SSD backward at 8d's shape (B = 4, S = 1,024, 48
    heads of P = 64, N = 128, G = 1; bf16 and fp32), at G = 2, N = 64 and
    at S = 1,000 (bf16), timed, and at the card tests' shapes
@@ -3059,26 +3061,44 @@ QUOTED_PR19_MS = {
         dict(pair=0.0366, rows=0.0329, sums=0.00796),
     ("rmsnorm", (1024, 3072), "residual"): dict(pair=0.0442),
 }
+# gemma2-9b's bf16 D = 256 pair on the CUDA cores, before the tensor-core
+# instance took it, quoted from PERF.md's kernel table (NVIDIA H100 80GB
+# HBM3, 700.00 W) on a line of its own, never in the kernels' line:
+# (shape, mask) -> {the pair, each kernel}
+QUOTED_D256_CUDA_CORES_MS = {
+    ((4, 1024, 16, 8, 256), "causal+cap=50.0"):
+        dict(pair=12.44, dq=5.99, dkdv=6.47),
+}
 # the tensor-core pair's tile edges (B, S, H, KV, D, mask): S at 63, 65 and
-# 129, G = 1, 3 and 8, D = 32 and 64, window and chunk; bf16, held against
-# the plain backward and timed beside it
+# 129, G = 1, 2, 3 and 8, D = 32, 64, 128 and 256, window, chunk and cap;
+# at D = 256 gemma2's heads at B = 1 (128 (kv head, key tile) blocks:
+# dk/dv splits its G = 2 over a cluster of two) and one block a kv head;
+# bf16, held against the plain backward and timed beside it
 FLASH_BWD_EDGES = ((1, 65, 8, 8, 128, dict(causal=True)),
                    (4, 129, 24, 8, 128, dict(causal=True, window=64)),
                    (2, 63, 8, 1, 64, dict(causal=True)),
                    (2, 1024, 16, 2, 64, dict(causal=True, chunk=256)),
-                   (4, 1024, 12, 4, 32, dict(causal=True)))
+                   (4, 1024, 12, 4, 32, dict(causal=True)),
+                   (1, 1024, 16, 8, 256, dict(causal=True, cap=50.0)),
+                   (1, 1024, 16, 8, 256, dict(causal=True)),
+                   (2, 129, 8, 1, 256, dict(causal=True, window=64)),
+                   (1, 65, 4, 4, 256, dict(causal=False)),
+                   (4, 257, 16, 8, 256, dict(causal=True, chunk=128,
+                                             cap=30.0)))
 
 
 # phase 8v's flash backward (B, S, H, KV, D, mask, with the forward): the
 # training steps of h2o-danube-3-4b (32/8 heads of 120, its 4,096 window
 # inert at 1,024 tokens; library SDPA's causal backward) and gemma2-9b
-# (16/8 heads of 256, cap 50: the CUDA-core pair; no library, SDPA's
-# uncapped backward printed as a yardstick), h2o-danube at 6,000 tokens
-# where the window bites (SDPA with a boolean mask), and cap 50 on the
-# tensor cores at D = 128 (llama's heads)
+# (16/8 heads of 256, cap 50: the tensor-core pair's two-warpgroup
+# instance; no library, SDPA's uncapped backward printed as a yardstick),
+# gemma2's heads uncapped (beside SDPA's backward of the same function),
+# h2o-danube at 6,000 tokens where the window bites (SDPA with a boolean
+# mask), and cap 50 on the tensor cores at D = 128 (llama's heads)
 VARIANT_FLASH_BWD = (
     (4, 1024, 32, 8, 120, dict(causal=True, window=4096), True),
     (4, 1024, 16, 8, 256, dict(causal=True, cap=50.0), True),
+    (4, 1024, 16, 8, 256, dict(causal=True), False),
     (1, 6000, 32, 8, 120, dict(causal=True, window=4096), False),
     (4, 1024, 24, 8, 128, dict(causal=True, cap=50.0), False))
 
@@ -3768,8 +3788,9 @@ def train_launches_implied(n_layers: int, steps: int,
     remat every block's forward runs twice (the forward and its recompute),
     the final norm once; the backward once per norm (one kernel) and per
     mixer. A dense layer: ln1 (plain) and ln2 (residual), attention (its
-    backward two kernels, of the tensor-core instance for bf16 at D <= 128,
-    else of the CUDA-core one; head dim 120 counted apart too); with
+    backward two kernels, of the tensor-core instance for bf16 at every
+    head dim, at D = 256 its two-warpgroup form, else of the CUDA-core one;
+    head dim 120 counted apart too); with
     ``cfg``'s sandwich norms two more plain norms a layer. A Mamba2 layer:
     ln (plain), the SSD scan and the gated norm (the SSD backward
     ``BWD_KERNELS`` kernels a call); on a model tier of m > 1 the gated
@@ -5143,6 +5164,19 @@ def main() -> int:
                     "quoted_from": "PERF.md, PR 19's chip run, NVIDIA H100 "
                                    "80GB HBM3, 700.00 W; not measured here",
                     "pr19_ms": quoted, "ms_this_run": row["ms"]}))
+            quoted = QUOTED_D256_CUDA_CORES_MS.get((
+                tuple(row["shape"]), _mask_name(row.get("mask", {})))) \
+                if name == "flash_attention_bwd" else None
+            if quoted and row["dtype"] == "torch.bfloat16":
+                print(json.dumps({
+                    "kernel": name, "shape": row["shape"],
+                    "mask": row["mask"],
+                    "quoted_from": "PERF.md's kernel table, the CUDA-core "
+                                   "pair's time, NVIDIA H100 80GB HBM3, "
+                                   "700.00 W; not measured here",
+                    "cuda_cores_ms": quoted, "ms_this_run": row["ms"],
+                    "dq_ms_this_run": row["dq"]["ms"],
+                    "dkdv_ms_this_run": row["dkdv"]["ms"]}))
     cases.update(backward_kernel_rows(bwd))
     by_path = {"dma_main_path": {"dma_allgather": dma_main_path(dma[0])}}
     small_end_to_end("llama3.2-3b", 4)

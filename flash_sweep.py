@@ -24,7 +24,11 @@ where the checkout's forward takes it. The backward pair
 (``flash_attention_bwd``, form "bwd", from the forward's o and lse) at
 D = 128 on llama3.2-3b's training shape and one FSDP rank's, D = 64 at
 2 x 1,024 (chunk 256) and D = 32 at 4 x 1,024, 12/4 heads, uncapped, so
-that a checkout from before the backward's softcap times the same calls.
+that a checkout from before the backward's softcap times the same calls;
+D = 120 at h2o-danube-3-4b's step (4 x 1,024, 32/8 heads) and D = 256 at
+gemma2-9b's (4 x 1,024, 16/8 heads), uncapped and with cap 50, where the
+checkout's backward takes them (a checkout whose bf16 D = 256 backward
+ran on the CUDA cores times that pair there).
 One JSON line per case and form, after the card's name and power limit.
 """
 from __future__ import annotations
@@ -52,7 +56,10 @@ CASES = ((1, 512, 24, 8, 128, CAUSAL), (4, 1024, 24, 8, 128, CAUSAL),
          (1, 512, 32, 8, 120, dict(causal=True, window=4096)))
 BWD_CASES = ((4, 1024, 24, 8, 128, CAUSAL), (1, 1024, 24, 8, 128, CAUSAL),
              (2, 1024, 16, 2, 64, dict(causal=True, chunk=256)),
-             (4, 1024, 12, 4, 32, CAUSAL))
+             (4, 1024, 12, 4, 32, CAUSAL),
+             (4, 1024, 32, 8, 120, CAUSAL),
+             (4, 1024, 16, 8, 256, CAUSAL),
+             (4, 1024, 16, 8, 256, dict(causal=True, cap=50.0)))
 
 
 def main(argv=None) -> int:
@@ -85,6 +92,8 @@ def main(argv=None) -> int:
                 "mask": mask, "form": name,
                 "ms": timer(lambda: fn(q, k, v, **mask))}), flush=True)
     for B, S, H, KV, D, mask in BWD_CASES:
+        if D not in getattr(ops, "BWD_HEAD_DIMS", ()):
+            continue
         q, do = rn(B, S, H, D).bfloat16(), rn(B, S, H, D).bfloat16()
         k, v = rn(B, S, KV, D).bfloat16(), rn(B, S, KV, D).bfloat16()
         o, lse = ops.flash_attention_lse(q, k, v, **mask)

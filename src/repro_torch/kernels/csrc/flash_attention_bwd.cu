@@ -44,12 +44,13 @@
 // (4 x 1,024, 16/8 heads of 256, cap 50): 33.6 M pairs, 87 us of the 5 D
 // count; h2o-danube-3-4b's (32/8 heads of 120): 67.2 M pairs, 81 us.
 //
-// Design: two instances, chosen by dtype and D in the wrapper (ops.py),
-// never one for the other. The cap is a template flag of each (CAP): the
-// instances without it are the code they were before it came; cap > 0
-// runs the CAP instance, which recomputes each pair's tanh with the
-// forward's arithmetic (tanhf of s scale / cap), so P comes from the
-// logits whose lse the forward wrote.
+// Design: two instances, chosen by dtype in the wrapper (ops.py), never
+// one for the other: bf16 on the tensor cores at every head dim, fp32 on
+// the CUDA cores. The cap is a template flag of each (CAP): the instances
+// without it are the code they were before it came; cap > 0 runs the CAP
+// instance, which recomputes each pair's tanh with the forward's
+// arithmetic (tanhf of s scale / cap), so P comes from the logits whose lse
+// the forward wrote.
 //
 // bf16 at D = 32, 64, 128 (and 120): tensor cores (the redesign of the
 // CUDA-core version below, which took 5.64 ms at the training shape). One
@@ -98,16 +99,46 @@
 // runs at ~315 TFLOP/s of the 7 D count, 0.287 ms against 5.64 ms for the
 // CUDA-core version (PERF.md), level with SDPA's backward.
 //
-// fp32, and bf16 at D = 256: CUDA cores (tf32 would not hold the 1e-4 fp32
-// tolerance; at D = 256 dK and dV alone would take 256 fp32 registers a
-// thread of one warpgroup: gemma2-9b's bf16 backward runs here, a first
-// version that waits for its redesign on the tensor cores, ROADMAP.md).
-// Tiles of 64 rows (32 at D = 256) staged in shared memory as fp32, rows
-// padded by one float so that the strided reads of a product fall on
-// distinct banks; 256 threads, each holding a 16-strided (rows, columns)
-// sub-tile of every product in registers (4 x 4 of a 64 x 64 tile, 4 x D/16
-// of a 64 x D one). Blocks run their tiles in causal order with a uniform
-// reach test per tile; masked pairs inside a tile are zeroed.
+// bf16 at D = 256 (gemma2-9b): the same pair with two warpgroups a block
+// (256 threads), each owning half of the head dim of every accumulator
+// (WB::NW = 2, DW = 128 columns, two of the four 64-column boxes). One
+// warpgroup's dK and dV over all 256 columns would take 256 fp32 registers
+// a thread, and dQ with S, dP and the fragments would pass 255; a half is
+// the D = 128 profile (dq 64 accumulator registers, dkdv 128). The two
+// 64 x 64 reductions over D of a tile (S and dP in dq, S^T and dP^T in
+// dkdv) are split between the warpgroups, one each over all four boxes
+// (16 k-steps), and swapped through a 32 KB buffer in shared memory
+// between two barriers (swap_products); both warpgroups then compute the
+// same P and dS with the same arithmetic, bitwise equal, and each issues
+// its half of dQ, or of dK and dV, over its own two boxes of K, or of Q and
+// dO. No product is computed twice; Delta is summed over each warpgroup's
+// columns and the halves added in one order. Shared memory: dq 229,912
+// bytes (Q and dO resident, two (K, V) stages, the swap, Delta's halves),
+// dkdv 230,424 (K and V, two (Q, dO) stages with their statistics, the
+// swap), one block an SM: 8 warps, as two D = 128 blocks. So dk/dv's
+// cluster rule fills one block an SM here: gemma2 at B = 1 (8 kv heads x
+// 16 key tiles = 128 blocks) splits its G = 2 over a cluster of two, whose
+// sum takes 128 KB of the freed tiles. Registers per thread from ptxas, no
+// spills: dq 188, dkdv 240; with the cap 190 / 254. At gemma2's step
+// (4 x 1,024, 16/8 heads, causal, cap 50) the pair takes 0.619 ms (dq
+// 0.303, dk/dv 0.322) against 12.44 ms for the CUDA-core version, 0.519
+// uncapped against SDPA's 0.430 (NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md): 194 and 232 TFLOP/s of the 7 D count, against the D = 128
+// pair's ~315, since the warpgroups meet at the swap and the one block
+// an SM leaves no second block to run its products while this one runs
+// its exponentials. The swap costs ~10% (flash_bwd_sweep.py: a register
+// copy in its place, the gradients wrong, 0.567 ms capped), less than
+// each warpgroup computing both reductions would (by count, 16 more
+// k-steps a tile, half again its products); the cluster split at B = 1
+// takes dk/dv from 0.152 to 0.108 ms.
+//
+// fp32: CUDA cores (tf32 would not hold the 1e-4 fp32 tolerance). Tiles
+// of 64 rows (32 at D = 256) staged in shared memory, rows padded by one
+// float so that the strided reads of a product fall on distinct banks; 256
+// threads, each holding a 16-strided (rows, columns) sub-tile of every
+// product in registers (4 x 4 of a 64 x 64 tile, 4 x D/16 of a 64 x D
+// one). Blocks run their tiles in causal order with a uniform reach test
+// per tile; masked pairs inside a tile are zeroed.
 //
 // Head dim 120 (h2o-danube-3-4b) runs in the D = 128 instances, as in the
 // forward: the tensor-core pair loads q, k, v and dO through 4-D tensor maps
@@ -123,6 +154,8 @@
 // argument of the D = 128 pair, the pair took 6% longer at llama's shape,
 // its dq 13%; PERF.md). The wrapper passes the true scale
 // 120^-0.5.
+// flash_bwd_sweep.py builds its variants of the D = 256 pair at the lines
+// tagged "sweep:".
 #include <cuda.h>
 #include <math.h>
 
@@ -135,12 +168,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using repro::from_f;
-using repro::to_f;
 using namespace repro::sm90;
 
 // ---------------------------------------------------------------------------
-// CUDA cores: fp32, and bf16 at D = 256
+// CUDA cores: fp32
 // ---------------------------------------------------------------------------
 constexpr int kThreads = 256;
 
@@ -186,9 +217,9 @@ __device__ __forceinline__ void zero(float (&acc)[M][N]) {
 
 // rows [r0, r0 + T) of one head of a (B, L, heads, dh) tensor into a padded
 // fp32 tile of D columns, rows past L and columns past dh as zeros
-template <typename TT, int D>
+template <int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const TT* __restrict__ src, int b,
+                                          const float* __restrict__ src, int b,
                                           int L, int heads, int head, int r0,
                                           int dh) {
   using C = BT<D>;
@@ -196,8 +227,8 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
     const int r = idx / D, c = idx % D, row = r0 + r;
     dst[r * C::DP + c] =
         row < L && c < dh
-            ? to_f(src[((static_cast<size_t>(b) * L + row) * heads + head) *
-                           dh + c])
+            ? src[((static_cast<size_t>(b) * L + row) * heads + head) * dh +
+                  c]
             : 0.f;
   }
 }
@@ -260,13 +291,13 @@ __device__ __forceinline__ void p_and_ds(
   }
 }
 
-template <typename TT, int D, int DH, bool CAP>
+template <int D, int DH, bool CAP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
-                    const TT* __restrict__ v, const TT* __restrict__ o,
-                    const TT* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    TT* __restrict__ dq, int S, int T_len, int H, int KV,
+                    float* __restrict__ dq, int S, int T_len, int H, int KV,
                     float scale, int causal, int window, int chunk,
                     float cap) {
   using C = BT<D>;
@@ -285,8 +316,8 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid >> 5, lane = tid & 31;
 
-  load_tile<TT, D>(sQ, q, b, S, H, h, q0, dh);
-  load_tile<TT, D>(sdO, dout, b, S, H, h, q0, dh);
+  load_tile<D>(sQ, q, b, S, H, h, q0, dh);
+  load_tile<D>(sdO, dout, b, S, H, h, q0, dh);
   for (int r = tid; r < C::T; r += kThreads)
     sLse[r] = q0 + r < S ? lse[static_cast<size_t>(bh) * S + q0 + r]
                          : INFINITY;
@@ -296,9 +327,9 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
     const int qp = q0 + r;
     float acc = 0.f;
     if (qp < S) {
-      const TT* orow = o + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
+      const float* orow = o + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
       for (int c = lane; c < dh; c += 32)
-        acc = fmaf(sdO[r * C::DP + c], to_f(orow[c]), acc);
+        acc = fmaf(sdO[r * C::DP + c], orow[c], acc);
     }
     acc = repro::warp_sum(acc);
     if (lane == 0) {
@@ -314,8 +345,8 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
     const int k0 = kt * C::T;
     if (!reach<C::T>(q0, k0, causal, window, chunk)) continue;
     __syncthreads();                    // the last tile's reads are done
-    load_tile<TT, D>(sK, k, b, T_len, KV, kvh, k0, dh);
-    load_tile<TT, D>(sV, v, b, T_len, KV, kvh, k0, dh);
+    load_tile<D>(sK, k, b, T_len, KV, kvh, k0, dh);
+    load_tile<D>(sV, v, b, T_len, KV, kvh, k0, dh);
     __syncthreads();
     float s[C::TM][C::TM], dp[C::TM][C::TM];
     zero(s);
@@ -332,20 +363,20 @@ flash_bwd_dq_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   for (int i = 0; i < C::TM; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= S) continue;
-    TT* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
+    float* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
     for (int j = 0; j < C::DN; ++j)
-      if (tx + 16 * j < dh) out[tx + 16 * j] = from_f<TT>(acc[i][j] * scale);
+      if (tx + 16 * j < dh) out[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
-template <typename TT, int D, int DH, bool CAP>
+template <int D, int DH, bool CAP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
-                      const TT* __restrict__ v, const TT* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, TT* __restrict__ dk,
-                      TT* __restrict__ dv, int S, int T_len, int H, int KV,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int S, int T_len, int H, int KV,
                       float scale, int causal, int window, int chunk,
                       float cap) {
   using C = BT<D>;
@@ -364,8 +395,8 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
   const int k0 = blockIdx.y * C::T;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  load_tile<TT, D>(sK, k, b, T_len, KV, kvh, k0, dh);
-  load_tile<TT, D>(sV, v, b, T_len, KV, kvh, k0, dh);
+  load_tile<D>(sK, k, b, T_len, KV, kvh, k0, dh);
+  load_tile<D>(sV, v, b, T_len, KV, kvh, k0, dh);
   float acc_k[C::TM][C::DN], acc_v[C::TM][C::DN];
   zero(acc_k);
   zero(acc_v);
@@ -377,8 +408,8 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
       const int q0 = qt * C::T;
       if (!reach<C::T>(q0, k0, causal, window, chunk)) continue;
       __syncthreads();                  // the last tile's reads are done
-      load_tile<TT, D>(sQ, q, b, S, H, h, q0, dh);
-      load_tile<TT, D>(sdO, dout, b, S, H, h, q0, dh);
+      load_tile<D>(sQ, q, b, S, H, h, q0, dh);
+      load_tile<D>(sdO, dout, b, S, H, h, q0, dh);
       for (int r = tid; r < C::T; r += kThreads) {
         const bool in = q0 + r < S;
         sLse[r] = in ? lse[row_base + q0 + r] : INFINITY;
@@ -407,14 +438,14 @@ flash_bwd_dkdv_kernel(const TT* __restrict__ q, const TT* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < C::DN; ++j) {
       if (tx + 16 * j >= dh) continue;
-      dk[off + tx + 16 * j] = from_f<TT>(acc_k[i][j] * scale);
-      dv[off + tx + 16 * j] = from_f<TT>(acc_v[i][j]);
+      dk[off + tx + 16 * j] = acc_k[i][j] * scale;
+      dv[off + tx + 16 * j] = acc_v[i][j];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// tensor cores: bf16 at D = 32, 64, 128 (wgmma, TMA)
+// tensor cores: bf16 at D = 32, 64, 128, 256 (wgmma, TMA)
 // ---------------------------------------------------------------------------
 constexpr int kT = 64;           // rows of every tile: 64 queries or 64 keys
 constexpr int kWS = 2;           // stages of the streamed tiles
@@ -426,12 +457,27 @@ struct WB {
   static constexpr int NB = D / SWE;              // column boxes of a row
   static constexpr int NO = SWE / 2;              // accumulator floats a box
   static constexpr int TILE = kT * D * 2;         // one 64 x D bf16 tile
+  // warpgroups a block: two at D = 256, each owning DW = D / NW columns
+  // (NBW boxes) of every accumulator
+  static constexpr int NW = D > 128 ? 2 : 1;
+  static constexpr int NT = 128 * NW;             // threads a block
+  static constexpr int DW = D / NW;
+  static constexpr int NBW = NB / NW;
+  // D = 256: the swap of the two 64 x 64 fp32 products of a tile, and
+  // (dq) the two warpgroups' halves of Delta
+  static constexpr int XCH = NW == 2 ? 2 * kT * kT * 4 : 0;
+  static constexpr int PART = NW == 2 ? 2 * kT * 4 : 0;
+  // the blocks an SM that dk/dv's cluster rule fills (shared memory)
+  static constexpr int PER_SM = NW == 2 ? 1 : 2;
   // two resident tiles, kWS stages of two streamed tiles, (dkdv) each
-  // stage's lse and Delta, and the barriers
-  static constexpr int SMEM_DQ = 2 * TILE + kWS * 2 * TILE + 8 * (kWS + 1);
+  // stage's lse and Delta, the swap and the barriers
+  static constexpr int SMEM_DQ =
+      2 * TILE + kWS * 2 * TILE + XCH + PART + 8 * (kWS + 1);
   static constexpr int SMEM_DKDV =
-      2 * TILE + kWS * 2 * TILE + kWS * 2 * kT * 4 + 8 * (kWS + 1);
+      2 * TILE + kWS * 2 * TILE + kWS * 2 * kT * 4 + XCH + 8 * (kWS + 1);
 };
+static_assert(WB<256>::SMEM_DKDV <= 232448 && WB<256>::SMEM_DQ <= 232448,
+              "D = 256 exceeds a block's shared memory");
 
 // acc (64 x 64) = A B^T over D, for A and B two 64-row tiles read K-major
 template <int D>
@@ -469,6 +515,44 @@ template <int NB, int NO>
 __device__ __forceinline__ void fence_acc(float (&acc)[NB][NO]) {
 #pragma unroll
   for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+}
+
+// D = 256: the two warpgroups meet (named barrier 1; __syncthreads is 0)
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// D = 256: the two 64 x 64 products of a tile, x (in s) in each warpgroup,
+// swapped through shared memory: register i of thread wt goes to float4
+// (wg * 8 + i / 4) * 128 + wt, so thread wt of the other warpgroup, which
+// holds the same positions, reads it back without a bank conflict. Then
+// (s, dp) = (x, the other's x) in warpgroup 0 and the reverse in 1: both
+// hold the same (S, dP) or (S^T, dP^T). The barrier on the other side of
+// the swap is the block's __syncthreads that ends each tile.
+__device__ __forceinline__ void swap_products(float (&s)[32], float (&dp)[32],
+                                              float* xch, int wg, int wt) {
+  float4* mine = reinterpret_cast<float4*>(xch) + wg * 8 * 128 + wt;
+  const float4* other =
+      reinterpret_cast<const float4*>(xch) + (1 - wg) * 8 * 128 + wt;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    mine[j * 128] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                s[4 * j + 3]);
+  pair_sync();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 y = other[j * 128];
+    dp[4 * j] = y.x;
+    dp[4 * j + 1] = y.y;
+    dp[4 * j + 2] = y.z;
+    dp[4 * j + 3] = y.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float a = s[i], b = dp[i];
+    s[i] = wg ? b : a;
+    dp[i] = wg ? a : b;
+  }
 }
 
 // the key tiles that the query tile at q0 reaches, [lo, hi]
@@ -536,7 +620,7 @@ __device__ __forceinline__ float capped_logit2(float x, float cin, float cout,
 }
 
 template <int D, int DH, bool CAP>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(WB<D>::NT)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
                    const __grid_constant__ CUtensorMap tk,
@@ -555,13 +639,23 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   if (sQ & 1023) __trap();
   const uint32_t sdO = sQ + C::TILE;
   const uint32_t sKV = sdO + C::TILE;                  // stage t: K, then V
-  const uint32_t bar_q = sKV + kWS * 2 * C::TILE;      // Q and dO, then stages
+  // D = 256: the swap, then the halves of Delta
+  float* xch =
+      reinterpret_cast<float*>(smem_raw + 2 * C::TILE + kWS * 2 * C::TILE);
+  float* part = xch + C::XCH / 4;
+  // Q and dO, then the stages
+  const uint32_t bar_q = sKV + kWS * 2 * C::TILE + C::XCH + C::PART;
   auto stage = [&](int t) { return sKV + t * 2 * C::TILE; };
   auto bar_kv = [&](int t) { return bar_q + 8 * (1 + t); };
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kT;   // heaviest first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
+  // the warpgroup, its columns [wg * DW, wg * DW + DW) of dQ, and the
+  // thread's place in it (both warpgroups hold the same rows)
+  const int wg = C::NW == 1 ? 0 : tid >> 7;
+  const int wt = C::NW == 1 ? tid : tid & 127;
+  const int warp = wt >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = q0 + 16 * warp + g;                  // rows r0 and r0 + 8
 
@@ -592,17 +686,19 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 
   // Delta = rowsum(dO * o) and lse * log2(e) of rows r0 and r0 + 8: a quad
-  // of lanes shares the rows, each summing a quarter of the columns
+  // of lanes shares the rows, each summing a quarter of the warpgroup's
+  // columns
   float dlt[2], lse2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = r0 + 8 * r;
     float acc = 0.f;
     if (qp < S) {
-      const size_t off = ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
+      const size_t off =
+          ((static_cast<size_t>(b) * S + qp) * H + h) * dh + wg * C::DW;
 #pragma unroll
-      for (int c = 0; c < D; c += 32) {
-        if (c + 8 * t4 >= dh) continue;           // the instance's zero columns
+      for (int c = 0; c < C::DW; c += 32) {
+        if (wg * C::DW + c + 8 * t4 >= dh) continue;  // the zero columns
         float ov[8], dv[8];
         repro::load16_f(o + off + c + 8 * t4, ov);
         repro::load16_f(dout + off + c + 8 * t4, dv);
@@ -613,14 +709,30 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     dlt[r] = acc;
-    if (t4 == 0 && qp < S) delta[static_cast<size_t>(bh) * S + qp] = acc;
+    if (C::NW == 1 && t4 == 0 && qp < S)
+      delta[static_cast<size_t>(bh) * S + qp] = acc;
     lse2[r] = qp < S ? lse[static_cast<size_t>(bh) * S + qp] * kLog2e
                      : INFINITY;
   }
-
-  float acc[C::NB][C::NO];
+  if constexpr (C::NW == 2) {
+    // the two halves, added in one order by both warpgroups
+    if (t4 == 0) {
+      part[wg * kT + 16 * warp + g] = dlt[0];
+      part[wg * kT + 16 * warp + g + 8] = dlt[1];
+    }
+    pair_sync();
 #pragma unroll
-  for (int c = 0; c < C::NB; ++c)
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r, qp = q0 + row;
+      dlt[r] = part[row] + part[kT + row];
+      if (wg == 0 && t4 == 0 && qp < S)
+        delta[static_cast<size_t>(bh) * S + qp] = dlt[r];
+    }
+  }
+
+  float acc[C::NBW][C::NO];
+#pragma unroll
+  for (int c = 0; c < C::NBW; ++c)
 #pragma unroll
     for (int i = 0; i < C::NO; ++i) acc[c][i] = 0.f;
   float s[32], dp[32];
@@ -631,6 +743,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                key_hi[1]);
   const float sl2e = scale * kLog2e;
   const float cin = CAP ? scale * __frcp_rn(cap) : 0.f, cout = cap * kLog2e;
+  // this warpgroup's boxes of a K tile
+  const uint32_t half = wg * C::NBW * kT * C::SW;
 
   for (int it = 0; it < n; ++it) {
     const int t = it % kWS, k0 = (lo + it) * kT;
@@ -641,12 +755,18 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    issue_abt<D>(s, sQ, stage(t));                    // S = Q K^T
-    issue_abt<D>(dp, sdO, stage(t) + C::TILE);        // dP = dO V^T
+    if constexpr (C::NW == 1) {
+      issue_abt<D>(s, sQ, stage(t));                  // S = Q K^T
+      issue_abt<D>(dp, sdO, stage(t) + C::TILE);      // dP = dO V^T
+    } else {                  // warpgroup 0 S = Q K^T, 1 dP = dO V^T
+      issue_abt<D>(s, wg ? sdO : sQ, stage(t) + wg * C::TILE);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
+    // sweep: swap_dq
+    if constexpr (C::NW == 2) swap_products(s, dp, xch, wg, wt);
     // P and dS in place; i indexes the accumulator layout: row (i >> 1) & 1,
     // key 8 * (i >> 2) + 2 * t4 + (i & 1) of the tile
     // queries past S need no mask: their lse is +inf
@@ -666,8 +786,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     pack_a_split(s, pa, pa_lo);
     fence_acc(acc);
     wgmma_fence();
-    issue_ab<D>(acc, pa, stage(t));                   // dQ += dS K
-    issue_ab<D>(acc, pa_lo, stage(t));
+    issue_ab<C::DW>(acc, pa, stage(t) + half);        // dQ += dS K
+    issue_ab<C::DW>(acc, pa_lo, stage(t) + half);
     wgmma_commit();
     wgmma_wait<0>();
     fence_pa(pa);
@@ -683,10 +803,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     if (qp >= S) continue;
     __nv_bfloat16* out = dq + ((static_cast<size_t>(b) * S + qp) * H + h) * dh;
 #pragma unroll
-    for (int c = 0; c < C::NB; ++c)
+    for (int c = 0; c < C::NBW; ++c)
 #pragma unroll
       for (int j = 0; j < C::NO / 4; ++j) {
-        const int col = c * C::SWE + 8 * j + 2 * t4;
+        const int col = wg * C::DW + c * C::SWE + 8 * j + 2 * t4;
         if (col >= dh) continue;
         *reinterpret_cast<__nv_bfloat162*>(out + col) =
             __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * scale,
@@ -696,7 +816,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int D, int DH, bool CAP>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(WB<D>::NT)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tk,
@@ -717,7 +837,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   // stage t's lse * log2(e) (+inf past S), then its Delta (0 past S)
   float* sStat =
       reinterpret_cast<float*>(smem_raw + 2 * C::TILE + kWS * 2 * C::TILE);
-  const uint32_t bar_kv = smem_u32(sStat + kWS * 2 * kT);   // K and V
+  float* xch = sStat + kWS * 2 * kT;                   // D = 256: the swap
+  const uint32_t bar_kv = smem_u32(xch + C::XCH / 4);  // K and V
   auto stage = [&](int t) { return sQD + t * 2 * C::TILE; };
   auto bar_s = [&](int t) { return bar_kv + 8 * (1 + t); };
 
@@ -726,7 +847,12 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   // the kv head's G q heads are split over the cluster's gridDim.z blocks,
   // hpb of them a block
   const int hpb = H / KV / gridDim.z, h0 = kvh * (H / KV) + blockIdx.z * hpb;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
+  // the warpgroup, its columns [wg * DW, wg * DW + DW) of dK and dV, and
+  // the thread's place in it (both warpgroups hold the same key rows)
+  const int wg = C::NW == 1 ? 0 : tid >> 7;
+  const int wt = C::NW == 1 ? tid : tid & 127;
+  const int warp = wt >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int kr = k0 + 16 * warp + g;           // key rows kr and kr + 8
 
@@ -737,7 +863,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   // iteration it: q head h0 + it / nq, query tile qlo + it % nq
   auto head = [&](int it) { return h0 + it / nq; };
   auto qtile = [&](int it) { return (qlo + it % nq) * kT; };
-  // one value of iteration it's stage statistics a thread
+  // one value of iteration it's stage statistics a thread of the first 128
+  const bool stat_thread = C::NW == 1 || tid < 2 * kT;
   auto stat = [&](int it) -> float {
     const int q = qtile(it) + (tid & (kT - 1));
     const size_t row = (static_cast<size_t>(b) * H + head(it)) * S + q;
@@ -749,7 +876,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i <= kWS; ++i) mbar_init(bar_kv + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int it = 0; it < n && it < kWS; ++it) sStat[it * 2 * kT + tid] = stat(it);
+  if (stat_thread)
+    for (int it = 0; it < n && it < kWS; ++it)
+      sStat[it * 2 * kT + tid] = stat(it);
   __syncthreads();
 
   auto load_qdo = [&](int it) {
@@ -767,9 +896,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int it = 0; it < n && it < kWS; ++it) load_qdo(it);
   }
 
-  float acc_k[C::NB][C::NO], acc_v[C::NB][C::NO];
+  float acc_k[C::NBW][C::NO], acc_v[C::NBW][C::NO];
 #pragma unroll
-  for (int c = 0; c < C::NB; ++c)
+  for (int c = 0; c < C::NBW; ++c)
 #pragma unroll
     for (int i = 0; i < C::NO; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
   float s[32], dp[32];
@@ -779,11 +908,13 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   queries_of(kr + 8, S, T_len, causal, window, chunk, vq_lo[1], vq_hi[1]);
   const float sl2e = scale * kLog2e;
   const float cin = CAP ? scale * __frcp_rn(cap) : 0.f, cout = cap * kLog2e;
+  // this warpgroup's boxes of a Q or dO tile
+  const uint32_t half = wg * C::NBW * kT * C::SW;
 
   for (int it = 0; it < n; ++it) {
     const int t = it % kWS, q0 = qtile(it);
     // the statistics of the tile two ahead, loading across the products
-    const float next = it + kWS < n ? stat(it + kWS) : 0.f;
+    const float next = it + kWS < n && stat_thread ? stat(it + kWS) : 0.f;
     if (it == 0) mbar_wait(bar_kv, 0);
     mbar_wait(bar_s(t), (it / kWS) & 1);
 #pragma unroll
@@ -791,12 +922,18 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    issue_abt<D>(s, sK, stage(t));                    // S^T = K Q^T
-    issue_abt<D>(dp, sV, stage(t) + C::TILE);         // dP^T = V dO^T
+    if constexpr (C::NW == 1) {
+      issue_abt<D>(s, sK, stage(t));                  // S^T = K Q^T
+      issue_abt<D>(dp, sV, stage(t) + C::TILE);       // dP^T = V dO^T
+    } else {              // warpgroup 0 S^T = K Q^T, 1 dP^T = V dO^T
+      issue_abt<D>(s, wg ? sV : sK, stage(t) + wg * C::TILE);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
+    // sweep: swap_dkdv
+    if constexpr (C::NW == 2) swap_products(s, dp, xch, wg, wt);
     // P^T into s and dS^T into dp; i = 4 j + e indexes the accumulator
     // layout: key row e >> 1, query column 8 j + 2 t4 + (e & 1) of the tile
     // queries past S need no mask: their lse is +inf
@@ -821,17 +958,18 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         s[i] = p;
       }
     }
-    // dV += P^T dO runs while dS^T is packed; then dK += dS^T Q
+    // dV += P^T dO runs while dS^T is packed; then dK += dS^T Q (over this
+    // warpgroup's columns)
     pack_a_split(s, pa, pa_lo);
     fence_acc(acc_v);
     fence_acc(acc_k);
     wgmma_fence();
-    issue_ab<D>(acc_v, pa, stage(t) + C::TILE);
-    issue_ab<D>(acc_v, pa_lo, stage(t) + C::TILE);
+    issue_ab<C::DW>(acc_v, pa, stage(t) + C::TILE + half);
+    issue_ab<C::DW>(acc_v, pa_lo, stage(t) + C::TILE + half);
     pack_a_split(dp, pd, pd_lo);
     wgmma_fence();
-    issue_ab<D>(acc_k, pd, stage(t));
-    issue_ab<D>(acc_k, pd_lo, stage(t));
+    issue_ab<C::DW>(acc_k, pd, stage(t) + half);
+    issue_ab<C::DW>(acc_k, pd_lo, stage(t) + half);
     wgmma_commit();
     wgmma_wait<0>();
     fence_pa(pa);
@@ -842,7 +980,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     fence_acc(acc_k);
     __syncthreads();                                  // stage t is read by all
     if (it + kWS < n) {
-      sStat[t * 2 * kT + tid] = next;
+      if (stat_thread) sStat[t * 2 * kT + tid] = next;
       if (tid == 0) load_qdo(it + kWS);
     }
   }
@@ -855,10 +993,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       const size_t off =
           ((static_cast<size_t>(b) * T_len + kp) * KV + kvh) * dh;
 #pragma unroll
-      for (int c = 0; c < C::NB; ++c)
+      for (int c = 0; c < C::NBW; ++c)
 #pragma unroll
         for (int j = 0; j < C::NO / 4; ++j) {
-          const int col = c * C::SWE + 8 * j + 2 * t4;
+          const int col = wg * C::DW + c * C::SWE + 8 * j + 2 * t4;
           if (col >= dh) continue;
           *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
               __floats2bfloat162_rn(acc_k[c][4 * j + 2 * r] * scale,
@@ -875,34 +1013,36 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   // thread t at [i][t], and sums every gridDim.z-th pair of registers over
   // the blocks, through distributed shared memory
   cg::cluster_group cluster = cg::this_cluster();
-  constexpr int NR = C::NB * C::NO;                 // registers a tensor
-  float* red = reinterpret_cast<float*>(smem_raw);  // [2][NR][128]
-  static_assert(2 * NR * 128 * 4 <= C::SMEM_DKDV, "dK, dV exceed the tiles");
+  constexpr int NR = C::NBW * C::NO;                // registers a tensor
+  float* red = reinterpret_cast<float*>(smem_raw);  // [2][NR][NT]
+  static_assert(2 * NR * C::NT * 4 <= C::SMEM_DKDV,
+                "dK, dV exceed the tiles");
 #pragma unroll
-  for (int c = 0; c < C::NB; ++c)
+  for (int c = 0; c < C::NBW; ++c)
 #pragma unroll
     for (int i = 0; i < C::NO; ++i) {
-      red[(c * C::NO + i) * 128 + tid] = acc_k[c][i];
-      red[(NR + c * C::NO + i) * 128 + tid] = acc_v[c][i];
+      red[(c * C::NO + i) * C::NT + tid] = acc_k[c][i];
+      red[(NR + c * C::NO + i) * C::NT + tid] = acc_v[c][i];
     }
   cluster.sync();
   const int nz = static_cast<int>(gridDim.z), z = static_cast<int>(blockIdx.z);
 #pragma unroll
-  for (int c = 0; c < C::NB; ++c)
+  for (int c = 0; c < C::NBW; ++c)
 #pragma unroll
     for (int j = 0; j < C::NO / 4; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = 4 * j + 2 * r, pair = (c * C::NO + i) / 2;
-        const int kp = kr + 8 * r, col = c * C::SWE + 8 * j + 2 * t4;
+        const int kp = kr + 8 * r;
+        const int col = wg * C::DW + c * C::SWE + 8 * j + 2 * t4;
         if (pair % nz != z || kp >= T_len || col >= dh) continue;
         float sk[2] = {0.f, 0.f}, sv[2] = {0.f, 0.f};
         for (int q = 0; q < nz; ++q) {
           const float* o = cluster.map_shared_rank(red, q);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            sk[e] += o[(c * C::NO + i + e) * 128 + tid];
-            sv[e] += o[(NR + c * C::NO + i + e) * 128 + tid];
+            sk[e] += o[(c * C::NO + i + e) * C::NT + tid];
+            sv[e] += o[(NR + c * C::NO + i + e) * C::NT + tid];
           }
         }
         const size_t off =
@@ -925,35 +1065,34 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TT, int D, int DH, bool CAP>
+template <int D, int DH, bool CAP>
 cudaError_t launch(const Args& a, bool dq_pass) {
   using C = BT<D>;
   if (dq_pass) {
     const int smem = C::SMEM_DQ * static_cast<int>(sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<TT, D, DH, CAP>,
+        flash_bwd_dq_kernel<D, DH, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.B * a.H, (a.S + C::T - 1) / C::T);
-    flash_bwd_dq_kernel<TT, D, DH, CAP><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const TT*>(a.q), static_cast<const TT*>(a.k),
-        static_cast<const TT*>(a.v), static_cast<const TT*>(a.o),
-        static_cast<const TT*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<float*>(a.delta), static_cast<TT*>(a.dq), a.S, a.T_len,
+    flash_bwd_dq_kernel<D, DH, CAP><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<float*>(a.delta), static_cast<float*>(a.dq), a.S, a.T_len,
         a.H, a.KV, a.scale, a.causal, a.window, a.chunk, a.cap);
   } else {
     const int smem = C::SMEM_DKDV * static_cast<int>(sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<TT, D, DH, CAP>,
+        flash_bwd_dkdv_kernel<D, DH, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.B * a.KV, (a.T_len + C::T - 1) / C::T);
-    flash_bwd_dkdv_kernel<TT, D, DH, CAP><<<grid, kThreads, smem,
-                                            a.stream>>>(
-        static_cast<const TT*>(a.q), static_cast<const TT*>(a.k),
-        static_cast<const TT*>(a.v), static_cast<const TT*>(a.dout),
+    flash_bwd_dkdv_kernel<D, DH, CAP><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<TT*>(a.dk), static_cast<TT*>(a.dv), a.S, a.T_len, a.H,
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.T_len, a.H,
         a.KV, a.scale, a.causal, a.window, a.chunk, a.cap);
   }
   return cudaGetLastError();
@@ -980,7 +1119,7 @@ cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
       e = opt_in_smem(flash_bwd_dq_wgmma<D, DH, CAP>, C::SMEM_DQ, opted_in);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.B * a.H, (a.S + kT - 1) / kT);
-    flash_bwd_dq_wgmma<D, DH, CAP><<<grid, 128, C::SMEM_DQ, a.stream>>>(
+    flash_bwd_dq_wgmma<D, DH, CAP><<<grid, C::NT, C::SMEM_DQ, a.stream>>>(
         tq, tdo, tk, tv, static_cast<const __nv_bfloat16*>(a.o),
         static_cast<const __nv_bfloat16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
@@ -994,9 +1133,10 @@ cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
     if (e != cudaSuccess) return e;
     // the G q heads of a kv head over a cluster of nz blocks when the
     // (kv head, key tile) blocks alone leave SMs idle: the smallest divisor
-    // of G that gives two blocks an SM, else the largest up to 8 (the
-    // portable cluster size); with enough blocks one block takes all G
-    // (splitting then loads each K/V tile nz times for no gain)
+    // of G that gives PER_SM blocks an SM (two; one at D = 256, whose
+    // shared memory holds one), else the largest up to 8 (the portable
+    // cluster size); with enough blocks one block takes all G (splitting
+    // then loads each K/V tile nz times for no gain)
     const int G = a.H / a.KV, nk = (a.T_len + kT - 1) / kT;
     int dev = 0, sms = 0;
     e = cudaGetDevice(&dev);
@@ -1005,11 +1145,12 @@ cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
     if (e != cudaSuccess) return e;
     const long long blocks = static_cast<long long>(a.B) * a.KV * nk;
     int nz = 1;
-    for (int c = 2; c <= 8 && blocks * nz < 2LL * sms; ++c)
+    // sweep: nz
+    for (int c = 2; c <= 8 && blocks * nz < C::PER_SM * 1LL * sms; ++c)
       if (G % c == 0) nz = c;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(a.B * a.KV, nk, nz);
-    cfg.blockDim = dim3(128);
+    cfg.blockDim = dim3(C::NT);
     cfg.dynamicSmemBytes = C::SMEM_DKDV;
     cfg.stream = a.stream;
     cudaLaunchAttribute attr[1];
@@ -1033,23 +1174,19 @@ cudaError_t launch_wgmma(const Args& a, bool dq_pass) {
 }
 
 // the instance of (dtype, head dim, cap) on the CUDA cores: fp32 at every
-// D, bf16 at D = 256 only (bf16 at D <= 128 is the tensor cores' and is
-// refused here); head dim 120 runs in a D = 128 instance of its own
+// D (bf16 is the tensor cores' at every D and is refused here); head dim
+// 120 runs in a D = 128 instance of its own
 template <bool CAP>
 cudaError_t cuda_cores(const Args& a, int dtype, bool dq_pass) {
-  if (dtype == repro::kFloat32) {
-    switch (a.dh) {
-      case 32: return launch<float, 32, 32, CAP>(a, dq_pass);
-      case 64: return launch<float, 64, 64, CAP>(a, dq_pass);
-      case 120: return launch<float, 128, 120, CAP>(a, dq_pass);
-      case 128: return launch<float, 128, 128, CAP>(a, dq_pass);
-      case 256: return launch<float, 256, 256, CAP>(a, dq_pass);
-      default: break;
-    }
-  } else if (dtype == repro::kBFloat16 && a.dh == 256) {
-    return launch<__nv_bfloat16, 256, 256, CAP>(a, dq_pass);
+  if (dtype != repro::kFloat32) return cudaErrorInvalidValue;
+  switch (a.dh) {
+    case 32: return launch<32, 32, CAP>(a, dq_pass);
+    case 64: return launch<64, 64, CAP>(a, dq_pass);
+    case 120: return launch<128, 120, CAP>(a, dq_pass);
+    case 128: return launch<128, 128, CAP>(a, dq_pass);
+    case 256: return launch<256, 256, CAP>(a, dq_pass);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 int run_cuda_cores(const Args& a, int dtype, bool dq_pass) {
@@ -1065,6 +1202,7 @@ cudaError_t tensor_cores(const Args& a, bool dq_pass) {
     case 64: return launch_wgmma<64, 64, CAP>(a, dq_pass);
     case 120: return launch_wgmma<128, 120, CAP>(a, dq_pass);
     case 128: return launch_wgmma<128, 128, CAP>(a, dq_pass);
+    case 256: return launch_wgmma<256, 256, CAP>(a, dq_pass);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1081,8 +1219,7 @@ int run_wgmma(const Args& a, bool dq_pass) {
 // contiguous, one dtype for the tensors of the attention; cap: the
 // forward's tanh softcap (0: none). Writes dq and delta = rowsum(dout * o),
 // which the dkdv pass reads: launch this one first, on the same stream.
-// The CUDA-core instance: fp32 at D = 32, 64, 120, 128, 256, or bf16 at
-// D = 256.
+// The CUDA-core instance: fp32 at D = 32, 64, 120, 128, 256.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq,
@@ -1111,7 +1248,7 @@ extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
   return run_cuda_cores(a, dtype, false);
 }
 
-// The tensor-core instance of the pair: bf16 at D = 32, 64, 120, 128, with
+// The tensor-core instance of the pair: bf16 at D = 32, 64, 120, 128, 256, with
 // q, k, v, o and dout starting on 16 bytes (TMA and 16-byte loads); the
 // same arguments and order as above, without the dtype.
 extern "C" int repro_flash_bwd_dq_wgmma(const void* q, const void* k,

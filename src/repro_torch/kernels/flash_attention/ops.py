@@ -11,13 +11,15 @@ backward, the 8 missing columns read as zeros by the kernels themselves
 (their tensor maps end at 120). The tanh softcap (gemma2-9b's 50) is an
 argument of every instance, forward and backward.
 
-On the card the dtype picks the forward instance, explicitly: bf16 runs the
-tensor-core kernel (wgmma, TMA), fp32 the CUDA-core one. The backward's
-instance is picked by dtype and head dim: bf16 at D = 32, 64, 120 and 128
-runs the tensor-core pair, fp32 (TF32 would not hold the 1e-4 tolerance)
-and bf16 at D = 256 (dK and dV would not fit one warpgroup's registers)
-the CUDA-core pair. A launch that fails raises; no instance stands in for
-another.
+On the card the dtype picks the instance, forward and backward,
+explicitly: bf16 runs the tensor-core kernels (wgmma, TMA), fp32 the
+CUDA-core ones (TF32 would not hold the backward's 1e-4 tolerance). The
+backward's tensor-core pair takes every head dim: at D = 256 (gemma2-9b)
+it runs two warpgroups a block, each holding half of the head dim of
+dQ, dK and dV (one warpgroup's dK and dV over 256 columns would not fit
+its registers), the two reductions over D of a tile split between them
+and swapped through shared memory. A launch that fails raises; no instance
+stands in for another.
 
 :func:`flash_attention` is the serving forward; :func:`flash_attention_train`
 is differentiable (``FlashAttention``: the forward kernel writing the rows'
@@ -38,7 +40,7 @@ D120_LAUNCHES = 0                   # of LAUNCHES, at head dim 120
 BWD_D120_LAUNCHES = 0               # of the backward's, at head dim 120
 HEAD_DIMS = (32, 64, 120, 128, 256)  # the forward's head dims
 BWD_HEAD_DIMS = HEAD_DIMS            # the backward's
-BWD_WGMMA_HEAD_DIMS = (32, 64, 120, 128)  # bf16 backward on the tensor cores
+BWD_WGMMA_HEAD_DIMS = BWD_HEAD_DIMS  # bf16's backward: tensor cores at every D
 
 
 def bwd_on_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:

@@ -36,7 +36,12 @@ ATTN_CASES = [(2, 37, 4, 2, 32, dict(causal=True)),
               # window, and h2o-danube's head dim 120
               (1, 90, 4, 2, 32, dict(causal=True, window=40, cap=50.0)),
               (2, 70, 4, 1, 120, dict(causal=True, window=24)),
-              (1, 66, 4, 2, 120, dict(causal=True, cap=30.0))]
+              (1, 66, 4, 2, 120, dict(causal=True, cap=30.0)),
+              # gemma2's head dim 256 at the 64-row edges, as the card's
+              # two-warpgroup tensor-core pair takes it
+              (1, 129, 4, 2, 256, dict(causal=True, window=64, cap=50.0)),
+              (2, 65, 8, 1, 256, dict(causal=True, chunk=32)),
+              (1, 64, 2, 2, 256, dict(causal=False))]
 
 
 def _inputs(B, S, H, KV, D, seed=0):
@@ -163,11 +168,10 @@ def test_rmsnorm_backward_plain_matches_jax_vjp(shape):
 
 
 def test_flash_backward_instance_is_picked_by_dtype_and_head_dim():
-    """On the card bf16 at D = 32, 64, 120 and 128 runs the tensor-core
-    pair; fp32 and bf16 at D = 256 the CUDA-core pair; the backward takes
-    every head dim the forward takes."""
+    """On the card bf16 runs the tensor-core pair at every head dim (at
+    D = 256 its two-warpgroup form), fp32 the CUDA-core pair at every head
+    dim; the backward takes every head dim the forward takes."""
     pick = flash_ops.bwd_on_tensor_cores
-    assert all(pick(torch.bfloat16, d) for d in (32, 64, 120, 128))
+    assert all(pick(torch.bfloat16, d) for d in (32, 64, 120, 128, 256))
     assert not any(pick(torch.float32, d) for d in (32, 64, 120, 128, 256))
-    assert not pick(torch.bfloat16, 256)
     assert flash_ops.BWD_HEAD_DIMS == flash_ops.HEAD_DIMS

@@ -806,6 +806,19 @@ BWD_CASES = FLASH_CASES + [
     (1, 129, 129, 8, 2, 120, dict(causal=True, window=50, cap=50.0)),
     (1, 65, 129, 4, 1, 120, dict(causal=False)),
     (2, 1024, 1024, 32, 8, 120, dict(causal=True, window=4096)),
+    # head dim 256 (gemma2-9b) on the tensor cores, two warpgroups a block
+    # splitting the head dim: S = 1, 63, 64, 65 and 129 and S != T, G = 1,
+    # 2 and 8, B = 1 (dk/dv splits G over a cluster of 2, 4 or 8) and
+    # B = 4 (one block a kv head), every mask, caps 50 and 30
+    (1, 1, 1, 16, 8, 256, dict(causal=True)),           # one token, G = 2
+    (1, 63, 63, 8, 8, 256, dict(causal=True)),          # G = 1
+    (1, 64, 64, 8, 1, 256, dict(causal=True, cap=50.0)),    # G = 8
+    (2, 65, 65, 16, 8, 256, dict(causal=True, window=32)),
+    (1, 129, 129, 16, 8, 256, dict(causal=True, chunk=64, cap=30.0)),
+    (1, 65, 129, 4, 2, 256, dict(causal=False)),        # S != T
+    (1, 129, 65, 8, 1, 256, dict(causal=False, cap=50.0)),
+    (4, 300, 300, 16, 8, 256, dict(causal=True, cap=50.0)),
+    (1, 1024, 1024, 16, 8, 256, dict(causal=True, cap=50.0)),
 ]
 
 
@@ -837,14 +850,14 @@ def test_flash_lse_on_card(cuda, dtype, case):
 def test_flash_bwd_kernel_on_card(cuda, dtype, case):
     """dq, dk, dv against the plain backward on the same (o, lse), bf16
     also against it in fp32, two calls bitwise equal, one launch of each
-    kernel a call: the tensor-core pair for bf16 at D <= 128, the CUDA-core
-    pair for fp32 and for D = 256."""
+    kernel a call: the tensor-core pair for bf16 (at D = 256 its
+    two-warpgroup form), the CUDA-core pair for fp32."""
     q, k, v, do, mask = _flash_inputs(case, dtype, cuda)
     o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
     n = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES,
          flash_ops.BWD_WGMMA_LAUNCHES, flash_ops.BWD_D120_LAUNCHES)
     got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
-    tensor_cores = dtype == torch.bfloat16 and case[5] <= 128
+    tensor_cores = flash_ops.bwd_on_tensor_cores(dtype, case[5])
     assert (flash_ops.BWD_DQ_LAUNCHES - n[0],
             flash_ops.BWD_DKDV_LAUNCHES - n[1],
             flash_ops.BWD_WGMMA_LAUNCHES - n[2],
