@@ -56,8 +56,15 @@ the package is missing. Phases, each fatal on failure:
    8,192 slots of a 32,768-slot cache at each shard's offset, at
    positions 3,000 and 11,000, each kernel against its plain version and
    timed with its bound, the pair beside one SDPA call masked to the kept
-   slots; and the serving kernels at qwen2-moe-a2.7b's shapes (phase 4m,
-   ``moe_kernel_cases``: RMSNorm plain and residual 2,048 wide at 8 and
+   slots; the decode pair on a ring shard at phase 9v's model-rank shapes
+   (gemma2-9b's KV = 4, G = 2, D = 256, cap 50 and h2o-danube-3-4b's KV =
+   4, G = 4, D = 120, bf16): a B = 1 shard of 1,024 slots of a 4,096-slot
+   ring at each of the 4 offsets, at positions 2,000, 4,090 and 4,100 (a
+   shard keeps none, part or all of its slots), and B = 2 rows over a
+   whole ring past its wrap, each kernel against its plain version and
+   timed with its bound, the pair beside SDPA with a boolean mask where
+   there is no cap; and the serving kernels at qwen2-moe-a2.7b's shapes
+   (phase 4m, ``moe_kernel_cases``: RMSNorm plain and residual 2,048 wide at 8 and
    512 rows beside ``F.rms_norm``, flash at S = 137 and 512 with 16 q and
    16 KV heads of 128 beside SDPA, the decode pair at 8 rows of 1,024
    slots, KV = 16, G = 1, beside SDPA; bf16, the tolerances above);
@@ -257,8 +264,9 @@ the package is missing. Phases, each fatal on failure:
    ``PARITY_PARAM_ATOL``; the elements beyond 1e-5 printed with their
    gradient's size), the prefetch bitwise the eager step. 8c,
    ``train_fsdp``: llama3.2-3b at full width on 2 x 2 of those ranks
-   sharing the card, depth cut to 2 layers (the gloo host transport; 4
-   before the run grew past 1,000 s), one 1,024-token sequence a rank, 2
+   sharing the card, depth cut to 1 layer (the gloo host transport; 4
+   before the run grew past 1,000 s, 2 before phase 9v), one 1,024-token
+   sequence a rank, 2
    steps of each variant:
    losses equal on every rank and between eager and prefetch, launches
    exact on every rank, and per step and rank the recorder's non-local
@@ -276,8 +284,9 @@ the package is missing. Phases, each fatal on failure:
    oracle's for the Mamba2 leaves (in_proj and out_proj a layer, and the
    embedding). 8f, ``train_ssm_tp_on_ranks`` (after phase 9): mamba2-780m
    at full width split by SSD heads over a model tier, 8 spawned ranks as
-   2 x 2 x 2 sharing the card, depth cut to 4 layers (the gloo
-   transport; 8 before phase 4v), one 1,024-token sequence a DP rank, 2
+   2 x 2 x 2 sharing the card, depth cut to 2 layers (the gloo
+   transport; 8 before phase 4v, 4 before phase 9v), one 1,024-token
+   sequence a DP rank, 2
    steps each of
    locality + FSDP, ``seq_shard`` and xla + FSDP: metrics equal on every
    rank, the first loss within ``SSM_TP_LOSS_REL`` of the card's one rank
@@ -372,13 +381,31 @@ the package is missing. Phases, each fatal on failure:
    trace's 8 prefills on each rank of pod 0 and none in pod 1,
    ``TIER_MIGRATIONS`` migrations,
    launches exact; decode step ms, prefill ms, tokens/s, the tier's calls,
-   host ms and staged bytes, the migrations' bytes. Last the whole run's
-   wall time.
+   host ms and staged bytes, the migrations' bytes.
+9v. the dense variants on the model tier, ``serve_tier_variants`` (after
+   9m): 8 spawned ranks as 2 x 2 x 2 in phase 9's order. First
+   gemma2-9b and h2o-danube-3-4b reduced (2 layers, d_model 128, their
+   real head dims 256 and 120, window 64, fp32) in 9a's batch-sharded
+   layout (both schedules) and 9b's split cache (both combines) on a
+   128-slot cache, every token equal to a one-rank engine's and each
+   K/V stack split by its own length; then gemma2-9b at full width cut
+   to 16 of 42 layers (8 window, 8 full; bf16; an 8,192-slot cache):
+   9v-a, 8 requests of 3,900-4,300 tokens homed in pod 0, 16 new each,
+   ``TIER_MIGRATIONS`` migrations with ``locality_bruck`` and ``xla``;
+   9v-b, one 4,090-token prompt, 16 new, split over ("pod", "data")
+   (2,048 full and 1,024 ring slots a rank, the decode crossing slot
+   4,096) with ``combine="locality"`` and ``"xla"``; held by phase 9's
+   rule against one-rank engines of the same 16 layers, with phase 9's
+   checks: migration and combine messages and bytes the oracle's with
+   each ring leaf at its own span, 2 L + 2 tier calls a forward, the
+   decode graph rule, launches exact (the ring instances too); decode
+   step ms, prefill ms, the combine's and the migration's host ms and
+   peak memory a rank. Last the whole run's wall time.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7, 9 and 9m
-in its own process, the trainers of 8a and 8d, each run of 8c, 8f, 10b and
-of 8b's mamba2 ranks in its own process) and read just after it.
+(the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7, 9, 9m
+and 9v in its own process, the trainers of 8a and 8d, each run of 8c, 8f,
+10b and of 8b's mamba2 ranks in its own process) and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -529,6 +556,7 @@ def kernel_cases(timer: Timer) -> dict[str, list[dict]]:
     rms, cases["decode_batch"] = batch_sharded_cases(timer)
     cases["rmsnorm"] += rms
     cases["decode_tier"] = tier_decode_cases(timer)
+    cases["decode_ring_shard"] = ring_shard_decode_cases(timer)
     return cases
 
 
@@ -1002,6 +1030,124 @@ def tier_decode_cases(timer) -> list[dict]:
           == {"all", "part", "none"}, "tier decode: 9b shard states")
     del q, k, v, q1, k1, v1
     torch.cuda.empty_cache()
+    return rows
+
+
+# the decode pair at the shapes phase 9v gives a model rank of the dense
+# variants (KV = 4 of 8 heads over m = 2): gemma2-9b's (G = 2, D = 256, cap
+# 50) and h2o-danube-3-4b's (G = 4, D = 120), bf16. 9v-b's B = 1 shard of
+# 1,024 slots of a 4,096-slot ring at every shard's offset, at positions
+# 2,000 (a shard keeps none, part or all of its slots), 4,090 (the ring not
+# yet wrapped) and 4,100 (wrapped: every slot kept); 9v-a's B_loc = 2 rows
+# over a whole ring past its wrap
+RING_SHARD_ARCHS = (("gemma2-9b", 2, 256, 50.0),
+                    ("h2o-danube-3-4b", 4, 120, 0.0))
+RING_SHARD_T, RING_SHARD_N = 4096, 4
+RING_SHARD_POSITIONS = (2000, 4090, 4100)
+
+
+def ring_shard_decode_cases(timer) -> list[dict]:
+    """Both decode kernels on a ring shard (``slot_offset``, ``total_len``,
+    ``ring``) against their plain versions at phase 2's tolerances, each
+    timed with its bound (the kept slots' K and V rows), and the pair beside
+    one SDPA call with the kept slots as a boolean mask where there is no
+    softcap (no library call computes the capped function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF
+    g = torch.Generator(device="cuda").manual_seed(4)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dt, es, tol, T = torch.bfloat16, 2, 2e-2, RING_SHARD_T
+    KV = TIER_KV
+    Lloc = T // RING_SHARD_N
+    rows = []
+    for arch, G, D, cap in RING_SHARD_ARCHS:
+        runs = []              # (what, q, k, v, pos, offset, total)
+        q1 = randn(1, 1, KV * G, D).to(dt)
+        k1, v1 = randn(1, T, KV, D).to(dt), randn(1, T, KV, D).to(dt)
+        for p_ in RING_SHARD_POSITIONS:
+            for shard in range(RING_SHARD_N):
+                off = shard * Lloc
+                runs.append(("9v-b", q1, k1[:, off:off + Lloc],
+                             v1[:, off:off + Lloc],
+                             torch.tensor(p_, device="cuda"), off))
+        B = 2
+        runs.append(("9v-a", randn(B, 1, KV * G, D).to(dt),
+                     randn(B, T, KV, D).to(dt), randn(B, T, KV, D).to(dt),
+                     torch.randint(T, T + 320, (B,), generator=g,
+                                   device="cuda"), 0))
+        for what, q, k, v, pos, off in runs:
+            kw = dict(slot_offset=off, total_len=T, window=T, ring=True)
+            B, L = k.shape[:2]
+            name = (f"ring shard decode {arch} {what} B={B} L={L} offset "
+                    f"{off} pos {pos.tolist()}")
+            s, m = stats_ops.decode_scores(q, k, pos, cap=cap, **kw)
+            rs, rm = stats_ops.decode_scores_ref(q, k, pos, cap=cap, **kw)
+            check(torch.equal(s == NEG_INF, rs == NEG_INF),
+                  f"{name}: masked slots differ")
+            err = max(close(s, rs, tol, name + " s"),
+                      close(m, rm, tol, name + " m"))
+            o, l = stats_ops.accumulate(s, m, v, pos=pos, **kw)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+            err_o = max(close(o, ro, tol, name + " o"),
+                        close(l, rl, tol, name + " l"))
+            kept_mask = rs[:, 0, 0] > NEG_INF                  # (B, L)
+            kept = int(kept_mask.sum())
+            if kept == 0:
+                check(bool((m == NEG_INF).all())
+                      and float(o.abs().max()) == 0.0
+                      and float(l.abs().max()) == 0.0,
+                      f"{name}: a shard with no slot kept is not "
+                      "(NEG_INF, 0, 0)")
+
+            def pair():
+                s_, m_ = stats_ops.decode_scores(q, k, pos, cap=cap, **kw)
+                o_, l_ = stats_ops.accumulate(s_, m_, v, pos=pos, **kw)
+                return (o_ / l_[..., None]).to(dt)
+
+            row = dict(
+                path="serve_tier_variants", model=arch, run=what,
+                shape=[B, KV, G, L, D], dtype=str(dt), cap=cap,
+                positions=pos.tolist(), slot_offset=off, total_len=T,
+                kept_slots=kept, max_abs_err_scores=err,
+                max_abs_err_stats=err_o, tolerance=tol,
+                state=("none" if kept == 0 else "all" if kept == B * L
+                       else "part"),
+                scores_ms=timer(lambda: stats_ops.decode_scores(
+                    q, k, pos, cap=cap, **kw)),
+                scores_plain_ms=timer(lambda: stats_ops.decode_scores_ref(
+                    q, k, pos, cap=cap, **kw)),
+                stats_ms=timer(lambda: stats_ops.accumulate(s, m, v, pos=pos,
+                                                            **kw)),
+                stats_plain_ms=timer(
+                    lambda: stats_ops.decode_stats_accumulate_ref(s, m, v)),
+                pair_ms=timer(pair), library_ms=None,
+                max_abs_err_vs_sdpa=None)
+            sb, sby = bound(q.numel() * es + kept * KV * D * es
+                            + (s.numel() + m.numel()) * 4,
+                            2 * kept * KV * G * D, dt)
+            ab, aby = bound(kept * KV * (G * 4 + D * es)
+                            + (m.numel() + o.numel() + l.numel()) * 4,
+                            2 * kept * KV * G * D, dt)
+            pb, pby = bound((q.numel() + o.numel() + 2 * kept * KV * D) * es,
+                            4 * kept * KV * G * D, dt)
+            row.update(scores_bound_ms=sb, scores_bound_by=sby,
+                       stats_bound_ms=ab, stats_bound_by=aby,
+                       pair_bound_ms=pb, pair_bound_by=pby)
+            if kept and not cap:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                mask = kept_mask[:, None, None]
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                row["max_abs_err_vs_sdpa"] = close(
+                    pair(), sdpa().transpose(1, 2), tol, name + " vs SDPA")
+                row["library_ms"] = timer(sdpa)
+            rows.append(row)
+        del q1, k1, v1, runs
+        torch.cuda.empty_cache()
+    check({r["state"] for r in rows if r["run"] == "9v-b"}
+          == {"all", "part", "none"}, "ring shard decode: 9v-b shard states")
     return rows
 
 
@@ -1993,6 +2139,7 @@ def serve_on_card(cfg, params, spec, requests, grid=None, home_pod=None
     check(forms == want, f"serve: rmsnorm forms {forms}, the path implies "
                          f"{want}")
     out = dict(rec, stats=st, launches=got | tier_form_launches(counts),
+               variant_launches={k: counts[k] for k in VARIANT_KERNELS},
                rmsnorm_forms=forms,
                tokens={rid: results[rid].tokens.tolist() for rid in rids},
                results={rid: (results[rid].tokens.tolist(),
@@ -2003,6 +2150,10 @@ def serve_on_card(cfg, params, spec, requests, grid=None, home_pod=None
                rows=(eng.rows_lo, eng.local_batch),
                span=(sched.migrate.span if sched.migrate else None),
                cache_len=eng.cache_len, cache_offset=eng.cache_offset,
+               shards={"/".join(n): (sh.offset, sh.length, sh.total)
+                       for n, sh in eng.shards.items()},
+               spans={"/".join(n): sp
+                      for n, sp in eng.resolved.spans.items()},
                combine=dataclasses.asdict(eng.combine))
     del eng, sched
     gc.collect()
@@ -3012,6 +3163,379 @@ def serve_tier_ssm(smi: str) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 9v: the dense variants served on the ("pod", "data", "model") grid
+# ---------------------------------------------------------------------------
+# 2 x 2 x 2 ranks sharing the card, phase 9's order: first gemma2-9b and
+# h2o-danube-3-4b reduced (d_model 128, 4/2 heads of their real head dims
+# 256 and 120, window 64, 2 layers, fp32) in 9v-a's and 9v-b's layouts on a
+# 128-slot cache, tokens equal to the one-rank engine's; then gemma2-9b at
+# full width (d_model 3,584, 16/8 heads of 256, d_ff 14,336, vocab 256,000,
+# window 4,096, caps 50/30) cut to 16 of its 42 layers (8 window, 8 full:
+# at 42 layers its 8 ranks' parts, 9.24 GB a rank, would not fit one card
+# beside the one-rank reference and 8 CUDA contexts), bf16, an 8,192-slot
+# cache: each rank holds 2,048 full slots and 1,024 ring slots of a B = 1
+# cache, 4 of the 8 KV heads. 9v-a: 8 requests homed in pod 0 (prompts of
+# 3,900-4,300 tokens, one over the ring and one crossing its wrap while
+# decoding, forced), 16 new tokens each, migrating with both schedules;
+# 9v-b: one 4,090-token prompt, 16 new tokens, split over ("pod", "data")
+# with the locality and the library combine, the decode crossing slot
+# 4,096
+VARIANT_TIER_ARCHS = (("gemma2-9b", 256), ("h2o-danube-3-4b", 120))
+VARIANT_TIER_LAYERS = 16
+VARIANT_TIER_CACHE, VARIANT_TIER_NEW = 8192, 16
+VARIANT_TIER_PROMPTS = (3900, 4300)
+VARIANT_TIER_FORCED = (4200, 4085)           # over the ring; across its wrap
+VARIANT_TIER_SEQ_PROMPT = 4090
+VARIANT_TIER_REDUCED_CACHE = 128
+VARIANT_TIER_REDUCED = ((70, 5), (60, 8))     # past, and across, 64 slots
+
+
+def variant_tier_requests(vocab: int) -> dict[str, list]:
+    """9v's traces: "batch" (8 requests, 3,900-4,300 tokens drawn from seed
+    12, the second and third forced to ``VARIANT_TIER_FORCED``: 4,200
+    tokens, over the ring, and 4,085, crossing its wrap in decode), "seq"
+    (one 4,090-token prompt),
+    each with ``VARIANT_TIER_NEW`` new tokens, and the reduced run's
+    ("reduced_batch": the first 8 of the CPU test's trace shape, prompts
+    of 70 and 60 tokens; "reduced_seq": two prompts)."""
+    rng = np.random.default_rng(12)
+    lens = rng.integers(VARIANT_TIER_PROMPTS[0], VARIANT_TIER_PROMPTS[1] + 1,
+                        TIER_BATCH_N)
+    lens[1:3] = VARIANT_TIER_FORCED
+    draw = lambda n: rng.integers(0, vocab, int(n))
+    return {"batch": [(draw(n), VARIANT_TIER_NEW) for n in lens],
+            "seq": [(draw(VARIANT_TIER_SEQ_PROMPT), VARIANT_TIER_NEW)],
+            "reduced_batch": [(draw((70, 60)[i % 2]), 2 + i % 5)
+                              for i in range(TIER_BATCH_N)],
+            "reduced_seq": [(draw(n), m) for n, m in VARIANT_TIER_REDUCED]}
+
+
+def _variant_tier_configs(key: str) -> list:
+    """(arch, config) of 9v's runs at ``key``: both variants reduced in
+    fp32 at their real head dims, or gemma2-9b at full width cut to
+    ``VARIANT_TIER_LAYERS``."""
+    from repro_torch import configs
+    from repro_torch.configs import reduced
+    if key == "reduced":
+        return [(arch, dataclasses.replace(
+            reduced(configs.get(arch), head_dim=hd), n_layers=2,
+            dtype=torch.float32)) for arch, hd in VARIANT_TIER_ARCHS]
+    return [("gemma2-9b", dataclasses.replace(
+        configs.get("gemma2-9b"), n_layers=VARIANT_TIER_LAYERS))]
+
+
+def variant_tier_runs(plan: dict, key: str, vocab: int
+                      ) -> list[tuple[str, dict, list, int | None]]:
+    """(name, ServeSpec keywords, requests, home pod) of 9v's runs at
+    ``key``, "reduced" or "full"; ``vocab`` the config's (the reduced
+    traces are redrawn below it)."""
+    if key == "reduced":
+        cache = VARIANT_TIER_REDUCED_CACHE
+        batch = [(t % vocab, m) for t, m in plan["reduced_batch"]]
+        seq = [(t % vocab, m) for t, m in plan["reduced_seq"]]
+    else:
+        cache, batch, seq = VARIANT_TIER_CACHE, plan["batch"], plan["seq"]
+    return ([(f"9v-a|{alg}", dict(batch=BATCH_ROWS, cache_len=cache,
+                                  page_len=BATCH_PAGE, migrate=alg),
+              batch, BATCH_HOME_POD) for alg in TIER_ALGS]
+            + [(f"9v-b|{name}", dict(batch=1, cache_len=cache, **kw), seq,
+                None) for name, kw in TIER_SEQ_LAYOUTS])
+
+
+def tier_variant_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 9v (all eight share the one card): each run of
+    ``variant_tier_runs`` at the reduced size for both variants, then at
+    full width, with this rank's part of the weights drawn from seed 0
+    (``init_params(..., part=)``: the one-rank engine's weights, cut)."""
+    import torch.distributed as dist
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.tp import TensorParallel
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = RankGrid.build(*TIER_GRID)
+    out = {"rank": rank, "reduced": {}, "full": {}, "init_s": {},
+           "coords": dict(rank=grid.rank, t=grid.t, grid_rank=grid.grid_rank,
+                          tier=list(grid.model.members))}
+    for key in ("reduced", "full"):
+        for arch, cfg in _variant_tier_configs(key):
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                part=TensorParallel.build(cfg, grid, use="serve").part)
+            torch.cuda.synchronize()
+            out["init_s"][f"{key}|{arch}"] = time.perf_counter() - t0
+            for name, kw, reqs, home in variant_tier_runs(plan, key,
+                                                          cfg.vocab_size):
+                t0 = time.perf_counter()
+                res = serve_on_card(cfg, params, ServeSpec(**kw), reqs, grid,
+                                    home)
+                out[key][f"{arch}|{name}"] = res if key == "full" else {
+                    k: res[k] for k in ("tokens", "results", "stats",
+                                        "shards")}
+                dist.barrier()
+                if rank == 0:
+                    print(json.dumps({"phase": "serve_tier_variant_run",
+                                      "size": key, "model": arch,
+                                      "run": name, "seconds":
+                                      time.perf_counter() - t0}), flush=True)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_tier_variants(smi: str) -> dict[str, int]:
+    """Phase 9v: one-rank references in this process, then 8 spawned ranks
+    (``tier_variant_rank``) on 2 x 2 x 2; phase 9's checks, each K/V stack
+    at its own span; prints each run; returns the launches per kernel of
+    the full-width runs, summed over the ranks."""
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+
+    full = _variant_tier_configs("full")[0][1]
+    plan = variant_tier_requests(full.vocab_size)
+    refs = {}
+    for key in ("reduced", "full"):
+        for arch, cfg in _variant_tier_configs(key):
+            params = init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0), "cuda")
+            for name, kw, reqs, home in variant_tier_runs(
+                    plan, key, cfg.vocab_size)[::2]:
+                one = {k: v for k, v in kw.items()
+                       if k not in ("migrate", "combine")}
+                refs[key, arch, name[:4]] = serve_on_card(
+                    cfg, params, ServeSpec(**one), reqs, home_pod=home)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    q, pl, m = TIER_GRID
+    n = q * pl * m
+    t0 = time.perf_counter()
+    ranks = run_ranks(n, tier_variant_rank, plan, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+    coords = [x["coords"] for x in ranks]
+    check([c["grid_rank"] for c in coords] == list(range(n)),
+          "serve_tier_variants: grid ranks are not the spawned ranks' order")
+    lane = [c["rank"] for c in coords]
+    for key in ("reduced", "full"):
+        for arch, cfg in _variant_tier_configs(key):
+            L = cfg.n_layers
+            for name, *_ in variant_tier_runs(plan, key, cfg.vocab_size):
+                ref = refs[key, arch, name[:4]]
+                res = [x[key][f"{arch}|{name}"] for x in ranks]
+                what = f"serve_tier_variants {key} {arch} {name}"
+                for r, x in enumerate(res):
+                    check(x["results"] == res[0]["results"],
+                          f"{what}: rank {r}'s results differ")
+                    if key == "reduced":
+                        check(x["tokens"] == ref["tokens"],
+                              f"{what} rank {r}: tokens {x['tokens']} != "
+                              f"one rank's {ref['tokens']}")
+                    st = x["stats"]
+                    fwd = st["prefills"] + st["decode_steps"]
+                    check(st["tier_calls"] == (2 * L + 2) * fwd
+                          and st["tier_msgs"] > 0
+                          and st["tier_nonlocal_msgs"] == 0,
+                          f"{what} rank {r}: tier calls {st['tier_calls']} "
+                          f"for {fwd} forwards (the path: {2 * L + 2} a "
+                          f"forward), non-local {st['tier_nonlocal_msgs']}")
+                    check(not st["decode_graph"] and "model tier" in
+                          st["decode_graph_rule"], f"{what}: decode graph "
+                          f"{st['decode_graph']} ({st['decode_graph_rule']})")
+                    cache = (VARIANT_TIER_CACHE if key == "full"
+                             else VARIANT_TIER_REDUCED_CACHE)
+                    plan_attn = {s.attn for s in cfg.layer_plan()}
+                    totals = {names: t for names, t, a in (
+                        ("k/v", cache, "full"),
+                        ("k_ring/v_ring", min(cache, cfg.window), "window"))
+                        if a in plan_attn}
+                    want = {names: (lane[r] * t // (q * pl), t // (q * pl),
+                                    t) for names, t in totals.items()} \
+                        if name.startswith("9v-b") else {}
+                    check(x["shards"] == want, f"{what} rank {r}: shards "
+                          f"{x['shards']}, each stack over its own span "
+                          f"{want}")
+    print(json.dumps({
+        "phase": "serve_tier_variants_reduced", "layers": 2,
+        "dtype": "float32", "grid": "2 x 2 x 2 (pod, data, model)",
+        "models": [f"{a} (head dim {hd}, window 64)"
+                   for a, hd in VARIANT_TIER_ARCHS],
+        "runs": [name for name, *_ in variant_tier_runs(plan, "reduced",
+                                                        512)],
+        "cache_len": VARIANT_TIER_REDUCED_CACHE,
+        "tokens_equal_to_one_rank": True, "ranks_wall_s": ranks_s}))
+
+    total = {k: 0 for k in PATH_KERNELS}
+    variant_total = {k: 0 for k in VARIANT_KERNELS}
+    KV_loc, H_loc, D = full.n_kv_heads // m, full.n_heads // m, full.head_dim_
+    L = full.n_layers
+    n_ring = sum(s.attn == "window" for s in full.layer_plan())
+    for name, kw, reqs, home in variant_tier_runs(plan, "full",
+                                                  full.vocab_size):
+        res = [x["full"][f"gemma2-9b|{name}"] for x in ranks]
+        ref = refs["full", "gemma2-9b", name[:4]]
+        what = f"serve_tier_variants {name}"
+        for x in res:
+            for k, c in x["launches"].items():
+                total[k] = total.get(k, 0) + c
+            want = variant_launches_implied(full, x["stats"])
+            check(x["variant_launches"] == want, f"{what}: ring launches "
+                  f"{x['variant_launches']}, the path {want}")
+            for k, c in x["variant_launches"].items():
+                variant_total[k] += c
+        scale = max(float(np.abs(t).max())
+                    for t in ref["decode_logits"].values())
+        limit = SEQ_LOGIT_REL * scale
+        toks = res[0]["tokens"]
+        got = {w: _tier_logits(res, coords, w, m)
+               for w in ("prefill_logits", "decode_logits")}
+        for w, lg in got.items():
+            check(sorted(lg) == sorted(ref[w]), f"{what}: {w} of "
+                  f"{sorted(lg)}, one rank {sorted(ref[w])}")
+        # phase 9's rule: logits within the limit, a first token that
+        # differs within twice the prefill's difference of the maximum
+        dl = {"prefill_logits": {}, "decode_logits": {}, "near_ties": {}}
+        for rid in sorted(ref["prefill_logits"]):
+            pre = ref["prefill_logits"][rid]
+            d = dl["prefill_logits"][rid] = np_err(
+                got["prefill_logits"][rid], pre)
+            check(d <= limit, f"{what}: request {rid}'s prefill logits "
+                  f"differ from the one-rank engine's by {d} (limit "
+                  f"{limit})")
+            one, tier = ref["tokens"][rid][0], toks[rid][0]
+            if one == tier:
+                d = dl["decode_logits"][rid] = np_err(
+                    got["decode_logits"][rid], ref["decode_logits"][rid])
+                check(d <= limit, f"{what}: request {rid}'s first decode "
+                      f"logits differ from the one-rank engine's by {d} "
+                      f"(limit {limit})")
+            else:
+                gap = float(pre[one] - pre[tier])
+                dl["near_ties"][rid] = gap
+                check(gap <= 2 * dl["prefill_logits"][rid],
+                      f"{what}: request {rid}'s first token {tier}, one "
+                      f"rank's {one}, {gap} below its maximum")
+        same = sum(a == b for rid, tk in toks.items()
+                   for a, b in zip(tk, ref["tokens"][rid]))
+        n_tok = sum(map(len, ref["tokens"].values()))
+        steps = res[0]["stats"]["decode_steps"]
+        lens = [len(t) for t, _ in reqs]
+        row = {"phase": "serve_tier_variants", "run": name,
+               "shared": "8 ranks sharing one H100 over gloo",
+               "grid": "2 x 2 x 2 (pod, data, model)", "model": full.name,
+               "layers": L, "ring_layers": n_ring,
+               "reduced": "depth 42 -> 16 layers (8 window, 8 full)",
+               "dtype": "bfloat16", "cache_len": VARIANT_TIER_CACHE,
+               "window": full.window, "prompts": lens,
+               "new_tokens": VARIANT_TIER_NEW,
+               "kv_heads_per_rank": KV_loc, "q_heads_per_rank": H_loc,
+               "decode_steps": steps,
+               "decode_step_ms_mean_by_rank": [
+                   float(np.mean(x["decode_ms"])) for x in res],
+               "decode_step_ms_mean_one_rank": float(np.mean(
+                   ref["decode_ms"])),
+               "prefill_ms_by_rank": [
+                   [x["prefill_ms"][rid] for rid in sorted(x["prefill_ms"])]
+                   for x in res],
+               "prefill_ms_one_rank": [ref["prefill_ms"][rid]
+                                       for rid in sorted(ref["prefill_ms"])],
+               "tokens_per_s_by_rank": [n_tok / x["drain_s"] for x in res],
+               "tokens_per_s_one_rank": n_tok / ref["drain_s"],
+               "tier_calls_per_forward": 2 * L + 2,
+               "tier_calls_by_rank": [x["stats"]["tier_calls"] for x in res],
+               "tier_host_ms_by_rank": [x["stats"]["tier_host_s"] * 1e3
+                                        for x in res],
+               "tier_staged_bytes_by_rank": [x["stats"]["tier_staged_bytes"]
+                                             for x in res],
+               "staging_bytes_by_rank": [x["stats"]["staging_bytes"]
+                                         for x in res],
+               "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+               "peak_bytes_one_rank": ref["peak_bytes"],
+               "ring_launches_summed": {k: sum(x["variant_launches"][k]
+                                               for x in res)
+                                        for k in VARIANT_KERNELS},
+               "max_abs_dlogit_prefill": dl["prefill_logits"],
+               "max_abs_dlogit_first_decode": dl["decode_logits"],
+               "first_token_near_ties": dl["near_ties"],
+               "logit_tolerance": limit, "greedy_equal_share": same / n_tok,
+               "ranks_wall_s": ranks_s, "card": smi}
+        if name.startswith("9v-a"):
+            alg = name.split("|")[1]
+            check(max(lens) > full.window and any(
+                n <= full.window < n + VARIANT_TIER_NEW - 1 for n in lens),
+                f"{what}: no prompt rolls the ring, or none crosses it")
+            mig = res[0]["stats"]["migrations"]
+            check(mig == TIER_MIGRATIONS, f"{what}: {mig} migrations, the "
+                  f"trace's {TIER_MIGRATIONS}")
+            for r, x in enumerate(res):
+                want = len(reqs) if r // m // pl == BATCH_HOME_POD else 0
+                check(x["stats"]["prefills"] == want, f"{what}: rank {r} "
+                      f"ran {x['stats']['prefills']} prefills, the path "
+                      f"{want}")
+            dp = ("pod", "data")
+            check(res[0]["spans"] == {"k/v": dp, "k_ring/v_ring": dp},
+                  f"{what}: donor spans {res[0]['spans']}")
+            # each stack's K or V slab of a rank's 4 KV heads, bf16, each
+            # over ("pod", "data"): the full-length 8,192 slots and the
+            # ring's 4,096
+            es = full.dtype.itemsize
+            leaves = [(L - n_ring) * VARIANT_TIER_CACHE * KV_loc * D * es,
+                      n_ring * full.window * KV_loc * D * es]
+            msgs = [sum(v) for v in zip(*(migrate_oracle(alg, q, pl, b)
+                                          for b in leaves))]
+            nbytes = [sum(v) for v in zip(*(migrate_bytes_oracle(
+                alg, q, pl, b) for b in leaves))]
+            per_mig = lambda k: [x["stats"][k] / mig for x in res]
+            check(per_mig("migrate_nonlocal_msgs") == [msgs[i] for i in lane]
+                  and per_mig("migrate_nonlocal_bytes")
+                  == [nbytes[i] for i in lane],
+                  f"{what}: non-local messages and bytes a migration "
+                  f"{per_mig('migrate_nonlocal_msgs')} "
+                  f"{per_mig('migrate_nonlocal_bytes')}, the oracle "
+                  f"{msgs} {nbytes}")
+            row.update(
+                migrate=alg, migrations=mig, leaf_bytes_full_and_ring=leaves,
+                migrate_nonlocal_msgs_per_migration=per_mig(
+                    "migrate_nonlocal_msgs"),
+                migrate_nonlocal_bytes_per_migration=per_mig(
+                    "migrate_nonlocal_bytes"),
+                migrate_bytes_per_migration=per_mig("migrate_bytes"),
+                migration_host_ms=[x["stats"]["migrate_host_s"] / mig * 1e3
+                                   for x in res],
+                donor_bytes_per_migration=per_mig("donor_bytes"),
+                prefills_by_rank=[x["stats"]["prefills"] for x in res])
+        else:
+            alg = res[0]["combine"]["algorithm"]
+            check(lens[0] < full.window < lens[0] + VARIANT_TIER_NEW - 1,
+                  f"{what}: the decode does not cross the ring's wrap")
+            oracle = combine_oracle(alg, q, pl, H_loc * 4,
+                                    H_loc * (D + 1) * 4)
+            per_step = lambda k: [x["stats"][k] / steps / L for x in res]
+            check(res[0]["stats"]["combine_layers"] == steps * L,
+                  f"{what}: {res[0]['stats']['combine_layers']} combines, "
+                  f"the path {steps * L}")
+            check(per_step("nonlocal_msgs") == [oracle[i][0] for i in lane]
+                  and per_step("nonlocal_bytes")
+                  == [oracle[i][1] for i in lane],
+                  f"{what}: non-local messages and bytes a combine "
+                  f"{per_step('nonlocal_msgs')} {per_step('nonlocal_bytes')}"
+                  f", the oracle {oracle}")
+            row.update(
+                combine=res[0]["combine"], shards=res[0]["shards"],
+                nonlocal_msgs_per_combine=per_step("nonlocal_msgs"),
+                nonlocal_bytes_per_combine=per_step("nonlocal_bytes"),
+                combine_bytes_per_step=[x["stats"]["combine_bytes"] / steps
+                                        for x in res],
+                combine_host_ms_per_step=[x["stats"]["combine_host_s"]
+                                          / steps * 1e3 for x in res])
+        print(json.dumps(row))
+    return total | variant_total
+
+
+# ---------------------------------------------------------------------------
 # phase 2c: the training path's backward kernels against their plain versions
 # ---------------------------------------------------------------------------
 # the training step's attention (llama3.2-3b, B = 4 sequences of 1,024
@@ -3765,10 +4289,10 @@ NOISE_BAND, NOISE_BAND_ATOL = 1e-7, 4 * 3e-4
 SSM_PARITY_GRID = (2, 2)
 SSM_VARIANTS = (("locality", dict(fsdp=True)),
                 ("locality_prefetch", dict(fsdp=True, prefetch_depth=1)))
-# 8c: llama3.2-3b at full width on 2 x 2 ranks, depth cut to 2 layers (4
-# until the run neared its time limit), one 1,024-token sequence a rank, 2
-# steps a variant; 8e runs the same depth
-FSDP_GRID, FSDP_LAYERS, FSDP_STEPS = (2, 2), 2, 2
+# 8c: llama3.2-3b at full width on 2 x 2 ranks, depth cut to 1 layer (4
+# until the run neared its time limit, 2 until phase 9v needed its time),
+# one 1,024-token sequence a rank, 2 steps a variant; 8e runs the same depth
+FSDP_GRID, FSDP_LAYERS, FSDP_STEPS = (2, 2), 1, 2
 # 8v: (arch, phase, depth: None for the config's) trained as 8a
 VARIANT_TRAIN_RUNS = (("h2o-danube-3-4b", "train_variant_h2o", None),
                       ("gemma2-9b", "train_variant_gemma2", 8))
@@ -4705,15 +5229,15 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
 # phase 8f: mamba2-780m split by SSD heads over the model tier
 # ---------------------------------------------------------------------------
 # mamba2-780m at full width (d_model 1,536, 48 SSD heads of 64, N = 128) on
-# 2 x 2 x 2 ranks, depth cut to 4 layers (the gloo host transport; 8
-# before phase 4v needed the run's time), one
+# 2 x 2 x 2 ranks, depth cut to 2 layers (the gloo host transport; 8
+# before phase 4v needed the run's time, 4 before phase 9v did), one
 # 1,024-token sequence a DP rank (4 x 1,024 a step), 2 steps a variant; the
 # first step's loss against the card's one rank at the same depth on the
 # same 4 x 1,024 tokens, within SSM_TP_LOSS_REL: bf16 compute, and the tier
 # sums out_proj's bf16 partial products and the gated norm's row
 # statistics in another order than one rank's products (the bf16 loss
 # limit of phase 10b)
-SSM_TP_LAYERS, SSM_TP_STEPS = 4, 2
+SSM_TP_LAYERS, SSM_TP_STEPS = 2, 2
 SSM_TP_VARIANTS = TP_VARIANTS
 SSM_TP_LOSS_REL = 1e-2
 
@@ -5128,6 +5652,7 @@ def main() -> int:
     offset_rows = cases.pop("decode_offset")
     batch_rows = cases.pop("decode_batch")
     tier_rows = cases.pop("decode_tier")
+    ring_rows = cases.pop("decode_ring_shard")
     from repro_torch import configs
     dma = dma_cases_of(configs.get("llama3.2-3b"))
     cases["dma_allgather"] = dma_allgather_cases(timer, dma)
@@ -5238,6 +5763,8 @@ def main() -> int:
     clock("train_ssm_tp_on_ranks")
     by_path["serve_tier_ssm"] = serve_tier_ssm(smi)
     clock("serve_tier_ssm")
+    by_path["serve_tier_variants"] = serve_tier_variants(smi)
+    clock("serve_tier_variants")
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -5428,6 +5955,16 @@ def main() -> int:
                    for f in ("ms", "plain_ms", "bound_ms")},
                 **{f: [r[f] for r in tier_rows]
                    for f in ("shape", "slot_offset", "state", "pair_ms",
+                             "pair_bound_ms", "library_ms")}}
+            row["ring_shard_cases"] = {
+                "cases": len(ring_rows),
+                "max_abs_err": max(r[f"max_abs_err_{key}"]
+                                   for r in ring_rows),
+                **{f: [r[f"{key}_{f}"] for r in ring_rows]
+                   for f in ("ms", "plain_ms", "bound_ms")},
+                **{f: [r[f] for r in ring_rows]
+                   for f in ("model", "run", "shape", "slot_offset",
+                             "positions", "state", "kept_slots", "pair_ms",
                              "pair_bound_ms", "library_ms")}}
     print(json.dumps({"phase": "wall", "seconds": time.perf_counter() - t_run,
                       "card": smi}))

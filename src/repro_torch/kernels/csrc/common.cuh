@@ -45,11 +45,13 @@ __device__ __forceinline__ float warp_max(float v) {
 // off + j is kept when off + j <= p, inside the window (p - (off + j) <
 // window) and the chunk of p ((off + j) / chunk == p / chunk) where those
 // are set; empty when hi < lo. The chunk's start comes from the global p,
-// so the offset is not folded into the position. A ring (a whole cache of
-// L <= window slots, slot j holding token p - ((p - j) mod L)) keeps every
-// slot whose token is >= 0, [0, min(p, L - 1)]: its tokens all lie in the
-// window, so the window and chunk tests, which read slot j as token j, are
-// skipped (the caller refuses a ring with a chunk or an offset).
+// so the offset is not folded into the position. A ring (a cache of
+// T <= window slots, global slot j holding token p - ((p - j) mod T))
+// keeps every slot whose token is >= 0, the global slots [0, min(p, T -
+// 1)], so a shard of it holding [off, off + L) keeps [0, min(p - off, L -
+// 1)]: its tokens all lie in the window, so the window and chunk tests,
+// which read slot j as token j, are skipped (the caller refuses a ring
+// with a chunk).
 __device__ __forceinline__ void kept_interval(long long p, long long off,
                                               int L, int window, int chunk,
                                               bool ring, long long* lo,

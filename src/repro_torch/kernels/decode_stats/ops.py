@@ -5,12 +5,14 @@ its CUDA kernel for CUDA tensors and its plain version for CPU ones.
 ``RING_SCORES_LAUNCHES`` and ``RING_LAUNCHES`` those of them over a ring
 cache; CPU calls leave them alone.
 
-A ring cache (``ring=True``: a sliding-window layer's cache of L slots,
-L <= the window, slot pos % L written at position pos) keeps the slots
-[0, min(pos, L - 1)]: every slot holds one of the last L tokens, all inside
-the window once pos >= L - 1. The kernels take that interval in slot
-order (the order of the JAX package's einsum) and apply no window or chunk
-test to a slot index.
+A ring cache (``ring=True``: a sliding-window layer's cache of T slots,
+T <= the window, slot pos % T written at position pos) keeps the slots
+[0, min(pos, T - 1)]: every slot holds one of the last T tokens, all inside
+the window once pos >= T - 1. A shard of it holding the global slots [off,
+off + L) (``slot_offset``, ``total_len`` = T: the ring split over ranks)
+keeps the local slots [0, min(pos - off, L - 1)], none where pos < off.
+The kernels take that interval in slot order (the order of the JAX
+package's einsum) and apply no window or chunk test to a slot index.
 
 Both kernels split a row over a cluster of up to 8 blocks and reduce across
 them through the cluster's shared memory: they need no scratch and no
@@ -63,17 +65,16 @@ def _check_cuda(name: str, named: dict[str, torch.Tensor]) -> bool:
 
 def check_ring(name: str, L: int, window: int, chunk: int,
                slot_offset: int, total_len: int | None = None) -> None:
-    """Raise unless a ring cache of L slots is one the kernels take: a
-    whole cache (no slot offset, a ``total_len`` of L where one is given;
-    a ring split over ranks is the grid slice of the dense variants) of at
-    most ``window`` slots, with no chunk."""
-    if slot_offset or (total_len or L) != L:
-        raise NotImplementedError(
-            f"{name}: a ring cache split over ranks ({L} slots at offset "
-            f"{slot_offset} of {total_len or L}) comes with the dense "
-            "variants on grids (ROADMAP.md Queue 1 item 5)")
-    if chunk or (window and L > window):
-        raise ValueError(f"{name}: a ring of {L} slots with window {window} "
+    """Raise unless a ring cache shard of L slots is one the kernels take:
+    the global slots [slot_offset, slot_offset + L) of a ring of
+    ``total_len`` slots (None: L, a whole ring), at most ``window`` of
+    them, with no chunk."""
+    T = L if total_len is None else total_len
+    if slot_offset < 0 or slot_offset + L > T:
+        raise ValueError(f"{name}: a ring shard of {L} slots at offset "
+                         f"{slot_offset} exceeds the {T}-slot ring")
+    if chunk or (window and T > window):
+        raise ValueError(f"{name}: a ring of {T} slots with window {window} "
                          f"and chunk {chunk}; the kernels take a ring of at "
                          "most its window, with no chunk")
 
@@ -102,25 +103,26 @@ def _splits(rows: int, L: int, device) -> int:
 
 
 def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
-                  *, slot_offset: int = 0, window: int = 0, chunk: int = 0,
-                  cap: float = 0.0, ring: bool = False
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  *, slot_offset: int = 0, total_len: int | None = None,
+                  window: int = 0, chunk: int = 0, cap: float = 0.0,
+                  ring: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B,1,H,D) against the cache k (B,L,KV,D), read in place, at
     ``pos`` (int64: 0-d, one position for every row, or (B,)) ->
     fp32 (s (B,KV,G,L) with masked slots at NEG_INF, m (B,KV,G) its row
     max, NEG_INF where no slot is kept), H = KV*G. ``k_cache`` holds the
-    global slots [slot_offset, slot_offset + L): a sequence-parallel cache
-    shard. ``window``, ``chunk``, ``cap`` and ``ring`` as the JAX package's
+    global slots [slot_offset, slot_offset + L) of a ``total_len``-slot
+    cache (None: L from the offset on): a sequence-parallel cache shard.
+    ``window``, ``chunk``, ``cap`` and ``ring`` as the JAX package's
     ``decode_stats_scores``."""
     global SCORES_LAUNCHES, RING_SCORES_LAUNCHES
     named = {"q": q, "k": k_cache, "pos": pos}
     if ring:
         check_ring("decode_scores", k_cache.shape[1], window, chunk,
-                   slot_offset)
+                   slot_offset, total_len)
     if _check_cuda("decode_scores", named):
         return decode_scores_ref(q, k_cache, pos, slot_offset=slot_offset,
-                                 window=window, chunk=chunk, cap=cap,
-                                 ring=ring)
+                                 total_len=total_len, window=window,
+                                 chunk=chunk, cap=cap, ring=ring)
     if q.ndim != 4 or k_cache.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"decode_scores: q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}; want (B,1,H,D), (B,L,KV,D)")
@@ -167,14 +169,14 @@ def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
 
 def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
                pos: torch.Tensor | None = None, slot_offset: int = 0,
-               window: int = 0, chunk: int = 0, ring: bool = False
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               total_len: int | None = None, window: int = 0, chunk: int = 0,
+               ring: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """s (B,KV,G,L) NEG_INF-masked fp32 scores, m (B,KV,G) fp32 row max,
     v_cache (B,L,KV,D) -> fp32 (o (B,1,H,D), l (B,1,H)), H = KV*G. A row
     with no slot kept gives o = 0 and l = 0.
 
-    ``pos``, ``slot_offset``, ``window``, ``chunk`` and ``ring``, when
-    ``pos`` is given, are those the scores were masked with (by
+    ``pos``, ``slot_offset``, ``total_len``, ``window``, ``chunk`` and
+    ``ring``, when ``pos`` is given, are those the scores were masked with (by
     :func:`decode_scores`): the kernel then spreads only the slots they
     keep over its blocks. They change no result; the plain version does not
     read them. Without ``pos`` the kernel spreads all of L and skips the
@@ -186,7 +188,7 @@ def accumulate(s: torch.Tensor, m: torch.Tensor, v_cache: torch.Tensor, *,
         named["pos"] = pos
     if ring:
         check_ring("decode_stats", v_cache.shape[1], window, chunk,
-                   slot_offset)
+                   slot_offset, total_len)
     if _check_cuda("decode_stats", named):
         return decode_stats_accumulate_ref(s, m, v_cache)
     if s.ndim != 4 or v_cache.ndim != 4:

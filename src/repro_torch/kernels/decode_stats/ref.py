@@ -13,16 +13,17 @@ def _mask_bcast(mask: torch.Tensor) -> torch.Tensor:
     return mask[None, None, None] if mask.ndim == 1 else mask[:, None, None, :]
 
 
-def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
-                      cap=0.0, ring=False):
+def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, total_len=None,
+                      window=0, chunk=0, cap=0.0, ring=False):
     """Masked fp32 scores of one-token decode: q (B,1,H,D) against the cache
     k (B,L,KV,D), which holds the global slots [slot_offset, slot_offset +
-    L) (a cache shard; 0 for a whole cache). ``pos`` is the query's
+    L) of a ``total_len``-slot cache (a cache shard; an offset of 0 and a
+    total of L, or None, for a whole cache). ``pos`` is the query's
     absolute position, a 0-d tensor (lockstep batch) or (B,) (continuous
-    batching, one per row). With ``ring`` the cache is a ring of L slots:
-    slot j holds token t_j = pos - ((pos - j) mod L), kept when t_j >= 0
-    and the window and chunk tests pass on t_j, the JAX package's
-    ``decode_stats_scores``. Returns ``(s,
+    batching, one per row). With ``ring`` the cache is a ring of
+    ``total_len`` slots: global slot j holds token t_j = pos - ((pos - j)
+    mod total_len), kept when t_j >= 0 and the window and chunk tests pass
+    on t_j, the JAX package's ``decode_stats_scores``. Returns ``(s,
     mask)``: s (B,KV,G,L) with masked slots at NEG_INF, mask (L,) or
     (B,L)."""
     B, _, H, D = q.shape
@@ -33,7 +34,8 @@ def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
         s = cap * torch.tanh(s / cap)
     p_ = pos[:, None] if pos.ndim == 1 else pos
     j = slot_offset + torch.arange(L, device=k_cache.device)
-    t = p_ - ((p_ - j) % L) if ring else j   # slot j's token
+    T = total_len or L
+    t = p_ - ((p_ - j) % T) if ring else j   # slot j's token
     mask = t >= 0 if ring else j <= p_
     if window:
         mask &= (p_ - t) < window
@@ -42,12 +44,13 @@ def masked_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
     return torch.where(_mask_bcast(mask), s, NEG_INF), mask
 
 
-def decode_scores_ref(q, k_cache, pos, *, slot_offset=0, window=0, chunk=0,
-                      cap=0.0, ring=False):
+def decode_scores_ref(q, k_cache, pos, *, slot_offset=0, total_len=None,
+                      window=0, chunk=0, cap=0.0, ring=False):
     """:func:`masked_scores_ref`'s s (B,KV,G,L) and its row max m (B,KV,G),
     both fp32 (NEG_INF where the cache shard keeps no slot)."""
     s, _ = masked_scores_ref(q, k_cache, pos, slot_offset=slot_offset,
-                             window=window, chunk=chunk, cap=cap, ring=ring)
+                             total_len=total_len, window=window, chunk=chunk,
+                             cap=cap, ring=ring)
     return s, torch.amax(s, dim=-1)
 
 

@@ -3,8 +3,9 @@
 ``python -m repro_torch.launch.serve --arch llama3.2-3b`` (or any of
 ``configs.ARCHS``: ``--arch mamba2-780m``; ``--arch qwen2-moe-a2.7b``, the
 MoE family, on one rank; the dense variants ``--arch yi-6b``, ``--arch
-h2o-danube-3-4b`` and ``--arch gemma2-9b``, those two on one rank, their
-window layers each holding a ring of min(``--cache-len``, window) slots)
+h2o-danube-3-4b`` and ``--arch gemma2-9b``, their window layers each
+holding a ring of min(``--cache-len``, window) slots, split over the ranks
+like the full-length cache where they divide it)
 serves the full configuration on the card with random bf16 weights made
 from seed 0; ``--smoke --device cpu`` serves the reduced configuration on
 the CPU:
@@ -171,7 +172,8 @@ def _serve_rank(rank: int, world: int, args) -> dict:
     device = resolve_device(args.device)
     grid = RankGrid.build(*args.grid)
     cfg = _config(args)
-    part = TensorParallel.build(cfg, grid).part if grid.m > 1 else None
+    part = (TensorParallel.build(cfg, grid, use="serve").part
+            if grid.m > 1 else None)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device, part=part)
     spec = ServeSpec(batch=args.batch, cache_len=args.cache_len,
@@ -195,6 +197,8 @@ def _serve_rank(rank: int, world: int, args) -> dict:
                                if r.migrated),
             "stats": eng.stats(), "cache_len": eng.cache_len,
             "cache_offset": eng.cache_offset, "sharded": eng.sharded,
+            "shards": {"/".join(n): sh.length
+                       for n, sh in eng.shards.items()},
             "combine": dataclasses.asdict(eng.combine)}
 
 
@@ -254,8 +258,8 @@ def main(argv=None) -> None:
         n = sum(len(t) for t in out[0]["tokens"].values())
         layout = (f"batch {args.batch}, {args.batch // (q * pl)} rows a "
                   f"rank, migrate {args.migrate}" if out[0]["sharded"] else
-                  f"combine {out[0]['combine']}, {out[0]['cache_len']} "
-                  f"slots a rank")
+                  f"combine {out[0]['combine']}, slots a rank "
+                  f"{out[0]['shards']}")
         print(f"[serve] {args.arch} on {args.ranks} ranks ({q} x {pl} x {m} "
               f"(pod, data, model), {device}): {layout}, {args.cache_len} "
               f"slots; "

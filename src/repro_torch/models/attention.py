@@ -10,7 +10,8 @@ variants' sliding-window layers, with an optional tanh softcap:
   them outside any kernel, ``decode_stats_scores``), then exp, row sums and
   P.V -> ``o / l``. A window layer's cache is a ring (``ring=True``) of
   L = min(cache_len, window) slots, token t at slot t % L, as the JAX
-  package keeps it (``ring_cache_len``).
+  package keeps it (``ring_cache_len``); a sequence-parallel rank holds a
+  shard of it (``slot_offset``, ``total_len`` = L).
 
 Query heads are grouped over KV heads (G = H / KV); softmax is in fp32.
 """
@@ -36,9 +37,10 @@ def decode_stats_scores(q, k_cache, pos, *, slot_offset=0, total_len=None,
     runs the scores kernel, which returns the row max in place of the mask).
 
     q (B,1,H,D) against k (B,L_loc,KV,D) holding the global slots
-    [slot_offset, slot_offset + L_loc) of a ``total_len``-slot cache;
-    ``total_len`` is only checked. A ring cache (``ring``) is taken whole
-    (``check_ring``)."""
+    [slot_offset, slot_offset + L_loc) of a ``total_len``-slot cache
+    (None: L_loc, a whole cache); a ring (``ring``) of ``total_len``
+    slots, or a shard of one (``check_ring``), takes each slot's token
+    modulo ``total_len``."""
     L_loc = k_cache.shape[1]
     if total_len is not None and slot_offset + L_loc > total_len:
         raise ValueError(f"a shard of {L_loc} slots at offset {slot_offset} "
@@ -48,8 +50,8 @@ def decode_stats_scores(q, k_cache, pos, *, slot_offset=0, total_len=None,
                              slot_offset, total_len)
     return stats_ops.masked_scores_ref(q, k_cache, pos,
                                        slot_offset=slot_offset,
-                                       window=window, chunk=chunk, cap=cap,
-                                       ring=ring)
+                                       total_len=total_len, window=window,
+                                       chunk=chunk, cap=cap, ring=ring)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, chunk=0,
@@ -64,8 +66,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, chunk=0,
 
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
-                *, slot_offset: int | None = None, ring: bool = False
-                ) -> None:
+                *, slot_offset: int | None = None,
+                total_len: int | None = None, ring: bool = False) -> None:
     """Write the decode token's (B,1,KV,D) key or value at slot ``pos``
     (``pos % L`` on a ring cache of L slots).
 
@@ -77,14 +79,18 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
 
     With ``slot_offset`` the cache is a sequence-parallel shard holding the
     global slots [slot_offset, slot_offset + L) and ``pos`` one 0-d
-    position: the shard writes only when it owns slot ``pos`` and is left
-    as it was otherwise (the JAX region's ``owns`` mask), decided on the
+    position: the shard writes only when it owns the global slot ``pos``
+    (``pos % total_len`` on a ring of ``total_len`` slots) and is left as
+    it was otherwise (the JAX region's ``owns`` mask), decided on the
     device, with no host synchronisation.
     """
     if slot_offset is not None:
         if pos.ndim:
             raise ValueError("a cache shard is written at one 0-d position")
-        local = pos - slot_offset
+        if ring and total_len is None:
+            raise ValueError("a ring shard is written with its ring's "
+                             "total_len")
+        local = (pos % total_len if ring else pos) - slot_offset
         owns = (local >= 0) & (local < cache.shape[1])
         slot = local.clamp(0, cache.shape[1] - 1)
         cache[:, slot] = torch.where(owns, new[:, 0].to(cache.dtype),

@@ -50,7 +50,12 @@ serving specs, ``param_specs(..., fsdp=False)``, but whole KV heads where m
 does not divide KV: the ones its q heads read, ``kv_heads``), keeps those
 KV heads in its cache, sums the row-parallel products and the embedding
 with ``ModelTier.all_reduce`` directly, and takes the greedy token from
-the vocabulary shards (:meth:`TensorParallel.greedy`).
+the vocabulary shards (:meth:`TensorParallel.greedy`). The dense variants
+serve so too: a window, the attention softcap and GeGLU act per head and
+per column; gemma2's post-norms and the embedding scale act on the tier's
+sums, whole on every rank; the final softcap acts elementwise on the
+rank's vocabulary columns (an untied head's columns), before the greedy
+token.
 
 In training every model-tier collective is an autograd function with its
 transpose as the backward: the identity and the allreduce (``copy_in`` /
@@ -76,28 +81,38 @@ from ..configs import ModelConfig, variant_features
 from ..core import collectives as C
 from .ssm import MAMBA_PARAMS, mamba_apply, ssm_dims
 
-#: the serving tree's norm scales, by the JAX tree's leaf name ("scale")
-SCALE_NAMES = {"ln1": "scale", "ln2": "scale", "final_norm": "scale"}
+#: the serving tree's norm scales, by the JAX tree's leaf name ("scale"):
+#: held whole on every rank, gemma2's post-norms too
+SCALE_NAMES = {"ln1": "scale", "ln2": "scale", "final_norm": "scale",
+               "post_ln1": "scale", "post_ln2": "scale"}
 #: the leaves a Mamba2 layer of the training tree adds on a model tier: the
 #: B and C columns of ``in_proj`` and their conv channels, held whole
 MAMBA_TIER_LEAVES = ("in_proj_bc", "conv_w_bc")
 
 
-def check_tp(cfg: ModelConfig, m: int) -> None:
-    """Refuse what the port's tensor parallelism does not split over m."""
+def check_tp(cfg: ModelConfig, m: int, use: str = "train") -> None:
+    """Refuse what the port's tensor parallelism does not split over m, for
+    ``use`` "serve" (``Transformer(..., tp=)``) or "train" (the blocks of
+    :func:`block_train_tp`). Serving takes the dense variants (window,
+    softcaps and GeGLU per head and column, the post-norms and embedding
+    scale whole on every rank) and the untied head (its vocabulary
+    columns); training refuses both."""
+    if use not in ("serve", "train"):
+        raise ValueError(f"unknown use {use!r}")
     if m <= 1:
         return
     variants = variant_features(cfg)
-    if variants:
+    if variants and use == "train":
         raise NotImplementedError(
-            f"{cfg.name} on a model tier of {m}: the port's tensor-parallel "
-            f"blocks have no {', '.join(variants)}; the dense variants on "
-            "grids are ROADMAP.md Queue 1 item 5.2")
-    if cfg.family == "moe" or not cfg.tie_embeddings:
+            f"{cfg.name} trained on a model tier of {m}: the port's "
+            f"tensor-parallel training blocks have no {', '.join(variants)}; "
+            "training the dense variants on a model tier is the training "
+            "half of ROADMAP.md Queue 1 item 5.2")
+    if cfg.family == "moe" or (use == "train" and not cfg.tie_embeddings):
         raise NotImplementedError(
-            f"{cfg.name} on a model tier of {m}: the MoE family and the "
-            "untied head are not split over 'model' yet (ROADMAP.md Queue 1 "
-            "item 14)")
+            f"{cfg.name} on a model tier of {m}: the MoE family, and the "
+            "untied head in training, are not split over 'model' yet "
+            "(ROADMAP.md Queue 1 item 14)")
     if cfg.family == "ssm":
         _, H, _, _, G = ssm_dims(cfg)
         hl, hg = H // m, H // G
@@ -252,8 +267,8 @@ class TensorParallel:
 
     @classmethod
     def build(cls, cfg: ModelConfig, grid, *, seq_shard: bool = False,
-              meter=None) -> "TensorParallel":
-        check_tp(cfg, grid.m)
+              meter=None, use: str = "train") -> "TensorParallel":
+        check_tp(cfg, grid.m, use)
         return cls(cfg, ModelTier(grid, meter), seq_shard)
 
     @property

@@ -12,10 +12,13 @@ Mirrors ``repro.models.transformer.forward`` for three families:
   on the same tensors. ``pos`` is a 0-d tensor (lockstep batch) or (B,)
   (continuous batching).
 
-A sequence-parallel rank holds the cache slots [slot_offset, slot_offset +
-cache_len) of a longer cache: its prefill runs the whole prompt and keeps
-only those slots, and its decode passes each attention layer's cache write
-and attention to a ``decode_combine`` hook, the JAX protocol
+A sequence-parallel rank holds a shard of each K/V stack (``shards``:
+the slots [offset, offset + length) of the full-length cache, or of the
+rings, each ring of min(cache_len, window) slots split by its own length):
+its prefill runs the whole prompt and keeps only those slots (of a ring,
+the rank's slice of the rolled ring), and its decode passes each
+attention layer's cache write and attention to a ``decode_combine`` hook,
+the JAX protocol
 (``repro.models.attention.attention``): ``decode_combine(q, k_new, v_new,
 k_cache, v_cache, pos, meta) -> (o, k_cache, v_cache)`` or None for the
 plain path, with ``meta = {window, chunk, cap, ring}``.
@@ -104,6 +107,20 @@ def ring_cache_len(cfg: ModelConfig, spec) -> int | None:
     if spec.mixer == "attn" and spec.attn == "window" and cfg.window:
         return cfg.window
     return None
+
+
+def prefill_rows(t: torch.Tensor, total: int, offset: int, length: int,
+                 ring: bool) -> torch.Tensor:
+    """The rows that a prefill of keys or values ``t`` (B,S,KV,D) leaves
+    in the slots [offset, offset + length) of a ``total``-slot stack (the
+    whole stack, or a rank's shard of it), at its first slots: the
+    prompt's tokens there, fewer where the prompt ends first; of a ring
+    that the prompt overflows, the last ``total`` tokens, token t at slot
+    t % total (the JAX prefill's rolled ring), then the shard's slice."""
+    S = t.shape[1]
+    if ring and S > total:
+        t = torch.roll(t[:, S - total:], (S - total) % total, dims=1)
+    return t[:, offset:offset + length]
 
 
 def decode_meta(cfg: ModelConfig, spec) -> dict:
@@ -304,6 +321,10 @@ class Transformer(nn.Module):
                             sum(rings[:i]) if r else i - sum(rings[:i]))
                            for i, r in enumerate(rings)]
         self.n_ring = sum(rings)
+        # the layers of each K/V stack (none for the SSM family)
+        self.stack_layers = {} if self.ssm else {
+            names: n for names, n in ((FULL_LEAVES, len(plan) - self.n_ring),
+                                      (RING_LEAVES, self.n_ring)) if n}
         self.embed_scale = (embed_scale(cfg.d_model, cfg.dtype)
                             if cfg.scale_embed else None)
 
@@ -318,11 +339,20 @@ class Transformer(nn.Module):
         return (None if self.ring_window is None
                 else min(cache_len, self.ring_window))
 
-    def cache_shapes(self, batch: int, cache_len: int
+    def stack_lens(self, cache_len: int) -> dict[tuple[str, str], int]:
+        """The slots of each K/V stack with a layer in a ``cache_len``-slot
+        cache, by its leaves' names: ``cache_len`` for the full-attention
+        layers' ``k``/``v``, :meth:`ring_len` for the rings; none for the
+        SSM family."""
+        return {names: cache_len if names == FULL_LEAVES
+                else self.ring_len(cache_len) for names in self.stack_layers}
+
+    def cache_shapes(self, batch: int, cache_len: int, shards=None
                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """(shape, dtype) of every cache leaf but ``pos``, stacked over the
         layers of each stack (module docstring; the SSM state has no slots:
-        ``cache_len`` does not size it)."""
+        ``cache_len`` does not size it). ``shards`` maps a stack's leaves'
+        names to (offset, length) where this rank holds a shard of it."""
         cfg = self.cfg
         if self.ssm:
             m = 1 if self.tp is None else self.tp.m
@@ -333,29 +363,34 @@ class Transformer(nn.Module):
         if self.tp is not None:
             lo, hi = self.tp.kv_heads()
             kv = hi - lo
-        stacks = ((FULL_LEAVES, cfg.n_layers - self.n_ring, cache_len),
-                  (RING_LEAVES, self.n_ring, self.ring_len(cache_len)))
-        return {name: ((n, batch, L, kv, cfg.head_dim_), cfg.dtype)
-                for names, n, L in stacks if n for name in names}
+        shards = shards or {}
+        return {name: ((self.stack_layers[names], batch,
+                        shards[names][1] if names in shards else L, kv,
+                        cfg.head_dim_), cfg.dtype)
+                for names, L in self.stack_lens(cache_len).items()
+                for name in names}
 
     def empty_cache(self, batch: int, cache_len: int, *,
-                    vector_pos: bool = False) -> dict[str, torch.Tensor]:
-        """A zeroed cache for ``batch`` rows of ``cache_len`` slots."""
+                    vector_pos: bool = False, shards=None
+                    ) -> dict[str, torch.Tensor]:
+        """A zeroed cache for ``batch`` rows of ``cache_len`` slots (of the
+        ``shards`` this rank holds)."""
         zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
                                                  device=self.device)
         pos = zeros((batch,) if vector_pos else (), torch.long)
         return {name: zeros(shape, dtype) for name, (shape, dtype)
-                in self.cache_shapes(batch, cache_len).items()} | {"pos": pos}
+                in self.cache_shapes(batch, cache_len, shards).items()
+                } | {"pos": pos}
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, mode: str = "prefill",
                 cache: dict[str, torch.Tensor] | None = None,
-                cache_len: int = 0, *, slot_offset: int | None = None,
-                decode_combine=None):
+                cache_len: int = 0, *, shards=None, decode_combine=None):
         """Returns ``(logits, new_cache)``; see the module docstring.
-        ``slot_offset`` (prefill: the cache is the shard of ``cache_len``
-        slots from there) and ``decode_combine`` (decode) serve a
-        sequence-parallel rank's shard of the cache."""
+        ``shards`` (prefill: a stack's leaves' names -> the (offset,
+        length) of the ``cache_len``-slot cache's stack this rank keeps;
+        a stack not named is kept whole) and ``decode_combine`` (decode)
+        serve a sequence-parallel rank's shards of the cache."""
         cfg = self.cfg
         B, S = tokens.shape
         if self.tp is None:
@@ -369,20 +404,13 @@ class Transformer(nn.Module):
             if cache is not None:
                 raise ValueError("prefill builds its cache; pass cache_len")
             L = cache_len or S
-            if slot_offset is None:
-                if S > L:
-                    raise ValueError(f"prompt of {S} tokens exceeds the "
-                                     f"{L}-slot cache")
-                slot_offset = 0
-            elif self.ssm:
+            if S > L:
+                raise ValueError(f"prompt of {S} tokens exceeds the "
+                                 f"{L}-slot cache")
+            shards = shards or {}
+            if shards and self.ssm:
                 raise ValueError("SSM caches are never sequence-sharded")
-            elif self.n_ring:
-                raise NotImplementedError(
-                    "a ring cache split over ranks comes with the dense "
-                    "variants on grids (ROADMAP.md Queue 1 item 5)")
-            # the prompt's slots this cache holds: [lo, hi) of the prompt
-            lo, hi = min(S, slot_offset), min(S, slot_offset + L)
-            new_cache = self.empty_cache(B, L)
+            new_cache = self.empty_cache(B, L, shards=shards)
             if self.ssm:
                 for i, layer in enumerate(self.layers):
                     x, nc = layer(x)
@@ -392,18 +420,15 @@ class Transformer(nn.Module):
                 positions = torch.arange(S, device=tokens.device)[None]
                 cos, sin = rope_angles(positions, cfg.head_dim_,
                                        cfg.rope_theta)
-                Lr = self.ring_len(L)
+                lens = self.stack_lens(L)
                 for i, layer in enumerate(self.layers):
                     x, kv = layer(x, cos, sin)
                     names, j = self.cache_slot[i]
+                    off, n = shards.get(names, (0, lens[names]))
                     for name, t in zip(names, kv):
-                        if names == FULL_LEAVES:
-                            new_cache[name][j, :, :hi - lo] = t[:, lo:hi]
-                        elif S <= Lr:
-                            new_cache[name][j, :, :S] = t
-                        else:       # the last Lr keys, token t at slot t % Lr
-                            new_cache[name][j] = torch.roll(
-                                t[:, S - Lr:], (S - Lr) % Lr, dims=1)
+                        rows = prefill_rows(t, lens[names], off, n,
+                                            names == RING_LEAVES)
+                        new_cache[name][j, :, :rows.shape[1]] = rows
             new_cache["pos"] = torch.tensor(S, dtype=torch.long,
                                             device=tokens.device)
             # the norm is per row, so norming the last position alone is exact

@@ -9,9 +9,12 @@ device is visible; ``device="cpu"`` runs the kernels' plain versions, which
 is what the tests ask for.
 
 The dense variants (h2o-danube-3-4b, gemma2-9b: window layers with ring
-caches, softcaps, sandwich norms, GeGLU, scaled embeddings) serve on one
-rank, their decode one CUDA graph a step like llama's; ``ServeSpec.resolve``
-refuses them on a grid of more than one rank.
+caches, softcaps, sandwich norms, GeGLU, scaled embeddings) serve like
+llama in every layout below: on one rank their decode is one CUDA graph a
+step; on a grid each K/V stack, the full-length ``k``/``v`` and the rings
+``k_ring``/``v_ring`` of min(cache_len, window) slots, is split over the
+span of its own length (``ResolvedServeSpec.spans``), and a stack that no
+span divides is held whole on every rank and attended as on one rank.
 
 On a :class:`~repro_torch.core.topology.RankGrid` every rank builds the
 same engine and submits the same requests. A batch that divides over the
@@ -24,10 +27,12 @@ split over the ranks' sequence (the JAX engine's sequence-parallel layout,
 ``cache_shardings``): rank (R, l) of a q x pl grid holds the slots
 [i * L_loc, (i + 1) * L_loc), i = R * pl + l, pod-major, over
 ``("pod", "data")``, or i = l over ``("data",)``, where each pod holds the
-whole cache. Every rank prefills the whole prompt with the same kernels and
-keeps its own slots; every decode attention layer combines the ranks'
-partial softmax stats in :class:`LocalityDecodeCombine`, the counterpart of
-the JAX ``_make_locality_decode_combine``.
+whole cache (each stack by its own span and L_loc: :class:`CacheShard`).
+Every rank prefills the whole prompt with the same kernels and keeps its
+own slots; every decode attention layer of a split stack combines the
+ranks' partial softmax stats over its span's grid in
+:class:`LocalityDecodeCombine`, the counterpart of the JAX
+``_make_locality_decode_combine``.
 
 On a grid with a "model" tier (``RankGrid.build(q, pl, m)``) each rank
 holds its part of the model (``models/tp.TensorParallel``: its q heads and
@@ -45,8 +50,10 @@ transport of a host-side group, counted in :meth:`Engine.stats` as
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
+from typing import Any
 
 import numpy as np
 import torch
@@ -56,7 +63,7 @@ from ..core import collectives as C
 from ..kernels.decode_stats import ops as stats_ops
 from ..models import attention as attn
 from ..models.tp import TensorParallel
-from ..models.transformer import Transformer
+from ..models.transformer import RING_LEAVES, Transformer
 from .migrate import sent_of, stage
 from .scheduler import Scheduler
 from .spec import DP_AXES, Request, RequestResult, ServeSpec
@@ -73,6 +80,22 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return torch.device("cuda")
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheShard:
+    """This rank's shard of one K/V stack of a split cache: the slots
+    [offset, offset + length) of the stack's ``total``, shard ``index`` of
+    the ``grid`` (the whole grid, or the pod's) its layers combine over."""
+
+    grid: Any
+    index: int
+    length: int
+    total: int
+
+    @property
+    def offset(self) -> int:
+        return self.index * self.length
+
+
 class LocalityDecodeCombine:
     """The ``decode_combine`` hook of a sequence-parallel rank.
 
@@ -82,8 +105,8 @@ class LocalityDecodeCombine:
     the host exchanges:
 
       1. the token's key and value are written into this rank's shard only
-         when it owns slot ``pos`` (``attention.write_cache`` with the
-         shard's offset);
+         when it owns slot ``pos`` (``pos % total`` on a ring:
+         ``attention.write_cache`` with the shard's offset and total);
       2. the scores kernel gives the masked scores and their max over the
          shard (``decode_scores`` at the slot offset: NEG_INF where the
          shard keeps no slot);
@@ -95,18 +118,19 @@ class LocalityDecodeCombine:
       5. ``logsumexp_combine_finish`` rescales and sums the packed [o, l];
       6. o / l, cast to the cache dtype.
 
-    ``grid`` is the grid the combine runs over (the pod's for a ("data",)
-    cache), ``shard`` this rank's index among the cache's shards.
-    Counters: the layers it ran, the host seconds spent in it and, of
-    those, in the two halves of the combine's exchange, what the exchanges
-    sent (``sent``: bytes, non-local bytes, non-local messages, read from
-    the grid's recorder around them, so no other user of the grid counts)
-    and the bytes staged between the card and a gloo grid's host tensors.
+    ``shards`` maps a layer's ``meta["ring"]`` to its stack's
+    :class:`CacheShard`; a layer of a stack not in it (held whole on every
+    rank) is left to the plain path (the hook returns None, the JAX
+    region's fallback). Counters: the layers it ran, the
+    host seconds spent in it and, of those, in the two halves of the
+    combine's exchange, what the exchanges sent (``sent``: bytes, non-local
+    bytes, non-local messages, read from each combine grid's recorder
+    around them, so no other user of the grid counts) and the bytes staged
+    between the card and a gloo grid's host tensors.
     """
 
-    def __init__(self, grid, shard: int, algorithm: str):
-        self.grid, self.shard = grid, shard
-        self.algorithm = algorithm
+    def __init__(self, shards: dict[bool, CacheShard], algorithm: str):
+        self.shards, self.algorithm = shards, algorithm
         self.layers = 0
         self.host_s = 0.0
         self.exchange_s = 0.0
@@ -114,27 +138,31 @@ class LocalityDecodeCombine:
         self.staging_bytes = 0
 
     def __call__(self, q, k_new, v_new, k_cache, v_cache, pos, meta):
+        shard = self.shards.get(meta["ring"])
+        if shard is None:
+            return None
         t0 = time.perf_counter()
-        offset = self.shard * k_cache.shape[1]
-        attn.write_cache(k_cache, k_new, pos, slot_offset=offset)
-        attn.write_cache(v_cache, v_new, pos, slot_offset=offset)
-        mask = dict(slot_offset=offset, window=meta["window"],
-                    chunk=meta["chunk"])
+        grid = shard.grid
+        mask = dict(slot_offset=shard.offset, total_len=shard.total,
+                    ring=meta["ring"])
+        attn.write_cache(k_cache, k_new, pos, **mask)
+        attn.write_cache(v_cache, v_new, pos, **mask)
+        mask.update(window=meta["window"], chunk=meta["chunk"])
         s, m = stats_ops.decode_scores(q, k_cache, pos, cap=meta["cap"],
                                        **mask)
-        m_host, m_ready = self._copy_out(m)
+        m_host, m_ready = self._copy_out(m, grid)
         o, l = stats_ops.accumulate(s, m, v_cache, pos=pos, **mask)
         B, KV, G = m.shape
         n_o = o.numel()
         if m_ready is not None:
             m_ready.synchronize()
-        sent = lambda: sent_of(self.grid.recorder.stats.edge_counts())
+        sent = lambda: sent_of(grid.recorder.stats.edge_counts())
         t1, sent0 = time.perf_counter(), sent()
         pend = C.logsumexp_combine_start(m_host.reshape(B, 1, KV * G),
-                                         self.grid, algorithm=self.algorithm)
+                                         grid, algorithm=self.algorithm)
         self.exchange_s += time.perf_counter() - t1
         ol = self._stage(torch.cat([o.reshape(-1), l.reshape(-1)]),
-                         self.grid.device)
+                         grid.device)
         t1 = time.perf_counter()
         o, l = C.logsumexp_combine_finish(ol[:n_o].reshape(o.shape),
                                           ol[n_o:].reshape(l.shape), pend)
@@ -149,12 +177,12 @@ class LocalityDecodeCombine:
         self.host_s += time.perf_counter() - t0
         return out, k_cache, v_cache
 
-    def _copy_out(self, t: torch.Tensor):
+    def _copy_out(self, t: torch.Tensor, grid):
         """(host copy of ``t``, the event that marks it done): a copy into
         pinned memory queued on the stream behind what produced ``t``, so
         the work queued after it runs while the host waits for the copy
-        alone; (t, None) when the grid takes ``t`` where it is."""
-        if t.device.type == self.grid.device.type:
+        alone; (t, None) when ``grid`` takes ``t`` where it is."""
+        if t.device.type == grid.device.type:
             return t, None
         self.staging_bytes += t.numel() * t.element_size()
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -191,22 +219,38 @@ class Engine:
         if grid is not None and grid.m > 1:
             from ..train.step import CommMeter      # train.step imports us
             self.tier_meter = CommMeter()
-            self.tp = TensorParallel.build(cfg, grid, meter=self.tier_meter)
+            self.tp = TensorParallel.build(cfg, grid, meter=self.tier_meter,
+                                           use="serve")
         self.model = Transformer(cfg, params, self.device, tp=self.tp)
         self.hook: LocalityDecodeCombine | None = None
-        self.cache_offset: int | None = None       # this rank's first slot
+        # a split cache: each K/V stack's shard on this rank (a stack held
+        # whole is not named); cache_len and cache_offset are the
+        # full-length cache's shard
+        self.shards: dict[tuple[str, str], CacheShard] = {}
+        self.cache_len, self.cache_offset = spec.cache_len, None
         if self.combine.algorithm != "none":
-            if self.resolved.seq_span == DP_AXES:
-                cgrid, shard = grid, grid.rank
-            else:
-                cgrid, shard = grid.pod_grid(), grid.l
-            self.cache_len = spec.cache_len // self.combine.p
-            self.cache_offset = shard * self.cache_len
-            self.hook = LocalityDecodeCombine(cgrid, shard,
-                                              self.combine.algorithm)
-        else:
-            self.cache_len = spec.cache_len
+            on = {DP_AXES: (grid, grid.rank),
+                  ("data",): (grid.pod_grid(), grid.l)}
+            lens = self.model.stack_lens(spec.cache_len)
+            for names, span in self.resolved.spans.items():
+                if span is not None:
+                    cgrid, i = on[span]
+                    self.shards[names] = CacheShard(
+                        cgrid, i, lens[names] // cgrid.p, lens[names])
+            cgrid, i = on[self.resolved.seq_span]
+            self.cache_len = spec.cache_len // cgrid.p
+            self.cache_offset = i * self.cache_len
+            by_ring = {names == RING_LEAVES: sh
+                       for names, sh in self.shards.items()}
+            self.hook = LocalityDecodeCombine(by_ring, self.combine.algorithm)
         self.scheduler = Scheduler(self, clock=clock)
+
+    @property
+    def prefill_shards(self) -> dict[tuple[str, str], tuple[int, int]]:
+        """What a prefill on this rank keeps of each split stack: its
+        (offset, length) (``Transformer.forward``'s ``shards``)."""
+        return {names: (sh.offset, sh.length)
+                for names, sh in self.shards.items()}
 
     def submit(self, request: Request) -> int:
         """Enqueue one request; returns its handle (the request id)."""
@@ -246,8 +290,8 @@ class Engine:
         sched = self.scheduler
         toks = torch.from_numpy(rows.astype(np.int64)).to(self.device)
         logits, cache = self.model(toks, mode="prefill",
-                                   cache_len=self.cache_len,
-                                   slot_offset=self.cache_offset)
+                                   cache_len=self.spec.cache_len,
+                                   shards=self.prefill_shards)
         sched.counts["prefills"] += 1
         sched.counts["prefill_tokens"] += rows.size
         tok = sched._next_token(logits)

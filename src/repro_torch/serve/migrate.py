@@ -6,12 +6,14 @@ was given lives in another pod, its B = 1 cache moves to the rank that owns
 the row. The JAX scheduler does it in two moves:
 
 1. ``device_put(req_cache, donor_sh)``: the slab is resharded into the
-   **donor layout**, K and V sequence-sharded over the resolved span
-   (``ResolvedServeSpec.seq_span``): ("pod", "data"), shard i of L / p
-   slots on rank i, pod-major; ("data",), shard j of L / pl slots on every
-   rank of lane j, the pods replicating; None, nothing sharded. GSPMD moves
-   it implicitly and nothing counts it.
-2. one ``cache_migrate`` per sequence-sharded leaf, over the span
+   **donor layout**, each K/V leaf sequence-sharded over the span of its
+   own length (``ResolvedServeSpec.spans``: a window layer's ring of
+   min(L, window) slots may take another span than the full-length
+   leaves): ("pod", "data"), shard i of L / p slots on rank i, pod-major;
+   ("data",), shard j of L / pl slots on every rank of lane j, the pods
+   replicating; None, nothing sharded. GSPMD moves it implicitly and
+   nothing counts it.
+2. one ``cache_migrate`` per sequence-sharded leaf, over its span
    (``outer=("pod",), local=("data",)``, or ``outer=("data",), local=()``,
    which the JAX function runs as ``bruck``), then the masked row insert.
 
@@ -20,13 +22,13 @@ home-pod rank of its lane (h * pl + i % pl), which holds the whole slab, by
 point-to-point sends recorded on the grid's ``CommRecorder`` and counted
 apart (``donor_*``); a rank of the home pod sends nothing to itself. The
 leaves that are not sequence-sharded (``pos`` with the request's first
-token, the SSM ``conv`` and ``h``, and K and V when the span is None) go
+token, the SSM ``conv`` and ``h``, and a K/V leaf whose span is None) go
 whole to the owner from the home-pod rank of its lane. Then every rank of
-the span runs :func:`~repro_torch.core.collectives.cache_migrate` on each
-K and V shard with the spec's algorithm (over the grid, or over its pod's
-grid for a ("data",) span, every pod alike), its messages read from the
-recorder around the collective alone; the owner inserts the row and the
-other ranks drop the slab. On a gloo grid the tensors a rank sends or
+a span runs :func:`~repro_torch.core.collectives.cache_migrate` on each of
+its K/V shards with the spec's algorithm (over the grid, or over its
+pod's grid for a ("data",) span, every pod alike), its messages read from
+the recorders around the collectives alone; the owner inserts the row and
+the other ranks drop the slab. On a gloo grid the tensors a rank sends or
 gathers stage through the host (``staging_bytes``).
 
 On a grid with a "model" tier the engine hands it the rank's model lane
@@ -46,7 +48,7 @@ from ..core.comm_record import CollectiveStats
 from .spec import DP_AXES
 
 #: the leaves a donor layout may shard over the sequence, and their L dim
-SEQ_LEAVES = ("k", "v")
+SEQ_LEAVES = ("k", "v", "k_ring", "v_ring")
 SEQ_DIM = 2                   # (n_layers, B, L, KV, D)
 
 
@@ -78,7 +80,10 @@ class MigrateInsert:
     (module docstring). Every rank of the grid calls it, in the same order.
 
     ``shapes`` are the (shape, dtype) of a B = 1 cache's leaves but ``pos``
-    (``Transformer.cache_shapes``); ``device`` is where the cache lives.
+    (``Transformer.cache_shapes``); ``spans`` the donor span of each K/V
+    leaf by name (absent or None: moved whole); ``seq_span`` the
+    full-length cache's, which ``span`` reports; ``device`` is where the
+    cache lives.
     Counters, per rank: ``migrations``; ``donor`` and ``collective``, the
     recorder's ``edge_counts`` summed over the donor moves and over the
     collectives; ``sent_by_request`` (rid -> bytes this rank sent for it);
@@ -87,18 +92,19 @@ class MigrateInsert:
     """
 
     def __init__(self, grid, seq_span, algorithm: str, shapes: dict,
-                 device: torch.device):
+                 device: torch.device, spans: dict):
         if algorithm not in C.MIGRATE_ALGORITHMS:
             raise ValueError(f"migrate algorithm {algorithm!r} not in "
                              f"{C.MIGRATE_ALGORITHMS}")
         self.grid, self.algorithm, self.device = grid, algorithm, device
         self.shapes = shapes
         self.span = seq_span
-        # the grid the collective runs over: None when nothing is sharded
-        self.cgrid = {DP_AXES: grid, ("data",): grid.pod_grid()}.get(
-            seq_span) if any(n in shapes for n in SEQ_LEAVES) else None
-        self.seq = (tuple(n for n in SEQ_LEAVES if n in shapes)
-                    if self.cgrid is not None else ())
+        # each sharded leaf's span, and the grid its collective runs over
+        self.spans = {n: spans[n] for n in SEQ_LEAVES
+                      if n in shapes and spans.get(n) is not None}
+        self.seq = tuple(self.spans)
+        pod = grid.pod_grid() if ("data",) in self.spans.values() else None
+        self.cgrids = {DP_AXES: grid, ("data",): pod}
         self.migrations = 0
         self.donor = CollectiveStats().edge_counts()          # all zero
         self.collective = CollectiveStats().edge_counts()
@@ -107,22 +113,25 @@ class MigrateInsert:
         self.staging_bytes = 0
 
     # -- geometry -------------------------------------------------------
-    def shard_of(self, rank: int) -> int:
-        """The donor shard grid rank ``rank`` holds."""
-        return rank if self.span == DP_AXES else rank % self.grid.pl
+    def shard_of(self, name: str, rank: int) -> int:
+        """The donor shard of leaf ``name`` that grid rank ``rank`` holds."""
+        return rank if self.spans[name] == DP_AXES else rank % self.grid.pl
 
     def sender(self, home: int, rank: int) -> int:
         """The home-pod rank that sends grid rank ``rank`` what it needs."""
         return home * self.grid.pl + rank % self.grid.pl
 
-    def _shard(self, leaf: torch.Tensor, i: int) -> torch.Tensor:
-        n = leaf.shape[SEQ_DIM] // self.cgrid.p
+    def _cgrid(self, name: str):
+        return self.cgrids[self.spans[name]]
+
+    def _shard(self, name: str, leaf: torch.Tensor, i: int) -> torch.Tensor:
+        n = leaf.shape[SEQ_DIM] // self._cgrid(name).p
         return leaf.narrow(SEQ_DIM, i * n, n).contiguous()
 
     def _shard_shape(self, name: str) -> tuple[tuple[int, ...], torch.dtype]:
         shape, dtype = self.shapes[name]
         shape = list(shape)
-        shape[SEQ_DIM] //= self.cgrid.p
+        shape[SEQ_DIM] //= self._cgrid(name).p
         return tuple(shape), dtype
 
     def _stage(self, t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -159,10 +168,10 @@ class MigrateInsert:
             staged = {}
 
             def shard(name, i):
-                key = (name, self.shard_of(i))
+                key = (name, self.shard_of(name, i))
                 if key not in staged:
                     staged[key] = self._stage(
-                        self._shard(req_cache[name], key[1]), tdev)
+                        self._shard(name, req_cache[name], key[1]), tdev)
                 return staged[key]
 
             mine = {name: shard(name, me) for name in self.seq}
@@ -195,17 +204,16 @@ class MigrateInsert:
         t1 = time.perf_counter()
         self.donor_s += t1 - t0
 
-        if self.seq:
-            cg = self.cgrid
+        for name in self.seq:
+            cg = self._cgrid(name)
             before = cg.recorder.stats.edge_counts()
-            for name in self.seq:
-                y = mine.pop(name).movedim(SEQ_DIM, 0)
-                shape = tuple(y.shape)
-                full = C.cache_migrate(y.contiguous().reshape(-1), cg,
-                                       algorithm=self.algorithm, tiled=True)
-                if me == owner:
-                    whole[name] = full.reshape((-1,) + shape[1:]).movedim(
-                        0, SEQ_DIM)
+            y = mine.pop(name).movedim(SEQ_DIM, 0)
+            shape = tuple(y.shape)
+            full = C.cache_migrate(y.contiguous().reshape(-1), cg,
+                                   algorithm=self.algorithm, tiled=True)
+            if me == owner:
+                whole[name] = full.reshape((-1,) + shape[1:]).movedim(
+                    0, SEQ_DIM)
             after = cg.recorder.stats.edge_counts()
             _add(self.collective, before, after)
             sent += sent_of(after)[0] - sent_of(before)[0]

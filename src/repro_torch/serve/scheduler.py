@@ -238,7 +238,9 @@ class Scheduler:
         self.migrate = MigrateInsert(
             self.grid, self.resolved.seq_span, self.spec.migrate,
             self.model.cache_shapes(1, self.spec.cache_len),
-            self.model.device) if self.sharded and n_pods > 1 else None
+            self.model.device, spans={
+                name: span for names, span in self.resolved.spans.items()
+                for name in names}) if self.sharded and n_pods > 1 else None
         self.counts = {"decode_steps": 0, "prefills": 0, "prefill_tokens": 0,
                        "decode_tokens": 0, "migrations": 0}
 
@@ -391,8 +393,8 @@ class Scheduler:
             if self.sequential:
                 self._cache = None         # the last request's, freed first
                 logits, self._cache = self.model(
-                    toks, mode="prefill", cache_len=self.engine.cache_len,
-                    slot_offset=self.engine.cache_offset)
+                    toks, mode="prefill", cache_len=self.spec.cache_len,
+                    shards=self.engine.prefill_shards)
             else:
                 logits, req_cache = self.model(toks, mode="prefill",
                                                cache_len=self.spec.cache_len)

@@ -33,19 +33,22 @@ channels (the ssm family, whose state is never split over the sequence:
 a batch the lane does not divide is held whole on every lane).
 
 The MoE family is served on one rank: :meth:`ServeSpec.resolve` refuses it
-on a grid of more than one rank (ROADMAP.md Queue 1 item 14). So are the
-dense variants' features (``configs.variant_features``: window layers with
-their ring caches, softcaps, sandwich norms, ``scale_embed``, GeGLU;
-h2o-danube-3-4b and gemma2-9b), whose grids, with ring caches split over
-the sequence by ``total_len``, are the dense variants' grid slice
-(ROADMAP.md Queue 1 item 5). ``cache_len`` stays the request's context
-limit, as in the JAX package: a window layer holds min(cache_len, window)
-slots of it.
+on a grid of more than one rank (ROADMAP.md Queue 1 item 14). The dense
+variants (``configs.variant_features``: window layers with their ring
+caches, softcaps, sandwich norms, ``scale_embed``, GeGLU; h2o-danube-3-4b
+and gemma2-9b) take every layout above, on a model tier too.
+``cache_len`` stays the request's context limit, as in the JAX package: a
+window layer holds min(cache_len, window) slots of it, and each K/V stack
+(the full-length ``k``/``v``, the rings ``k_ring``/``v_ring``) takes the
+span of its own length (``stack_spans``, the JAX ``cache_shardings``'s
+per-leaf ``_seq_axes_for``): a ring split over the ranks by its
+``total_len``, or held whole on every rank where no span divides it.
 
 :meth:`ServeSpec.resolve` binds a spec to a model and a ``RankGrid`` (None:
 one rank), as the JAX ``resolve`` binds it to a mesh; the cache layout and
 the combine choice it derives (``_cache_layout``, ``_seq_axes_for``,
-``resolve_cache_combine``: the JAX engine's) live here with it.
+``resolve_cache_combine``, ``_combine_eligible``: the JAX engine's) live
+here with it.
 """
 from __future__ import annotations
 
@@ -54,9 +57,9 @@ from typing import Any
 
 import numpy as np
 
-from ..configs import variant_features
 from ..core.collectives import MIGRATE_ALGORITHMS
 from ..models.tp import check_tp
+from ..models.transformer import FULL_LEAVES, RING_LEAVES, ring_cache_len
 
 COMBINES = ("auto", "xla", "locality")
 #: the grid's axes, outer-major, as the JAX package's DP axes ('pod','data')
@@ -120,15 +123,7 @@ class ServeSpec:
         once here, so the engine and the scheduler cannot drift on them."""
         self.validate()
         sizes = _axis_sizes(grid)
-        variants = variant_features(cfg)
-        ranks = sizes["pod"] * sizes["data"] * sizes["model"]
-        if variants and ranks > 1:
-            raise NotImplementedError(
-                f"{cfg.name} on a grid of {ranks} ranks: the port serves "
-                f"{', '.join(variants)} on one rank; the dense variants on "
-                "grids (ring caches split with total_len, the model tier) "
-                "are a later slice (ROADMAP.md Queue 1 item 5.2)")
-        check_tp(cfg, sizes["model"])
+        check_tp(cfg, sizes["model"], "serve")
         if cfg.family == "moe" and sizes["pod"] * sizes["data"] > 1:
             raise NotImplementedError(
                 f"{cfg.name} on a grid of {sizes['pod']} x {sizes['data']} "
@@ -137,12 +132,12 @@ class ServeSpec:
                 "item 14")
         batch_sharded, cand = _cache_layout(grid, self.batch, self.seq_axes)
         seq_span = _seq_axes_for(grid, self.cache_len, cand)
+        spans = stack_spans(cfg, grid, self.cache_len, cand)
         choice = _combine_for(
             cfg, grid, self.batch, None if batch_sharded else seq_span,
             None if self.combine == "auto" else self.combine)
-        if choice.algorithm == "locality" and not _kv_own(cfg, grid) \
-                and cfg.head_dim_ % sizes["model"] == 0:
-            # the JAX engine's: a head-dim-sharded cache keeps GSPMD's combine
+        if choice.algorithm == "locality" and not _combine_eligible(
+                cfg, grid, spans):
             choice = dataclasses.replace(choice, algorithm="xla")
         if batch_sharded and sizes["pod"] > 1 and self.migrate == "auto":
             raise NotImplementedError(
@@ -153,7 +148,7 @@ class ServeSpec:
         return ResolvedServeSpec(
             batch_sharded=batch_sharded, seq_span=seq_span,
             combine=choice, n_pods=sizes["pod"], p_local=sizes["data"],
-            m=sizes["model"], kv_own=_kv_own(cfg, grid))
+            m=sizes["model"], kv_own=_kv_own(cfg, grid), spans=spans)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +159,9 @@ class ResolvedServeSpec:
               (every rank), ("data",) (each pod's ranks) or None. On a
               batch-sharded grid it is the donor layout of a migrating
               request's B = 1 cache.
+    spans:    each K/V stack's span by its leaves' names (``stack_spans``):
+              the split cache's layout where the combine is not "none",
+              else the donor layout.
     n_pods, p_local: the grid's pods and ranks a pod (of a model lane).
     m:        the model tier's ranks (1: none);
     kv_own:   each tier rank holds KV / m heads of its own (m divides KV);
@@ -182,6 +180,7 @@ class ResolvedServeSpec:
     p_local: int
     m: int = 1
     kv_own: bool = True
+    spans: dict = dataclasses.field(default_factory=dict)
 
 
 def _axis_sizes(grid) -> dict[str, int]:
@@ -225,6 +224,35 @@ def _seq_axes_for(grid, L: int, cand: tuple[str, ...] | None
     if "data" in cand and sizes["data"] > 1 and L % sizes["data"] == 0:
         return ("data",)
     return None
+
+
+def stack_spans(cfg, grid, cache_len: int, cand: tuple[str, ...] | None
+                ) -> dict[tuple[str, str], tuple[str, ...] | None]:
+    """The span of each K/V stack of the model's attention layers, by its
+    leaves' names: ``_seq_axes_for`` of its own length, ``cache_len`` for
+    the full-length ``k``/``v``, min(cache_len, window) for the window
+    layers' ``k_ring``/``v_ring`` (the JAX ``cache_shardings``, leaf by
+    leaf)."""
+    out = {}
+    for spec in cfg.layer_plan():
+        if spec.mixer != "attn":
+            continue
+        ring = ring_cache_len(cfg, spec)
+        L = cache_len if ring is None else min(cache_len, ring)
+        out[FULL_LEAVES if ring is None else RING_LEAVES] = _seq_axes_for(
+            grid, L, cand)
+    return out
+
+
+def _combine_eligible(cfg, grid, spans: dict) -> bool:
+    """Whether any decode attention layer takes the combine hook: the JAX
+    ``_combine_eligible``. A head-dim-sharded cache (a tier that does not
+    split the KV heads, whose head dim it divides) keeps GSPMD's combine;
+    otherwise a stack whose span is not None combines."""
+    m = _axis_sizes(grid)["model"]
+    if m > 1 and not _kv_own(cfg, grid) and cfg.head_dim_ % m == 0:
+        return False
+    return any(span is not None for span in spans.values())
 
 
 @dataclasses.dataclass(frozen=True)

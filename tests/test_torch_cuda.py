@@ -27,7 +27,8 @@ gated RMSNorm split over a model tier (its four launches, the tier's sums
 emulated) against the unsplit plain forward and backward; the dense
 variants' instances: flash at head dim 120 (in the D = 128 instance) and
 gemma2's D = 256 with window and cap, the two decode kernels over a ring
-cache at positions before, at and past its wrap, and the decode graph of
+cache at positions before, at and past its wrap and on each shard of a
+ring split over ranks (``slot_offset``, ``total_len``), and the decode graph of
 h2o-danube and gemma2 (a 16-slot ring that the requests wrap) bitwise the
 eager forward, its launches counted with the ring instances apart.
 """
@@ -299,6 +300,73 @@ def test_decode_kernels_on_a_ring(cuda, dtype, mask, case):
         stats_ops.decode_scores(q, k, pos, window=L - 1, ring=True)
     with pytest.raises(ValueError, match="ring"):
         stats_ops.accumulate(s, m, v, pos=pos, chunk=16, ring=True)
+
+
+# a ring split over ranks (a model rank's KV = 4): gemma2's tier decode
+# shape (G = 2, D = 256, cap 50) and h2o-danube's (G = 4, D = 120), a B = 1
+# ring of T = 256 slots in 4 shards of 64 at positions where a shard keeps
+# none, part or all of its slots, before, at and past the wrap
+RING_SHARD_CASES = [(4, 2, 256, 50.0), (4, 4, 120, 0.0)]
+RING_SHARD_T, RING_SHARD_N = 256, 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RING_SHARD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_kernels_on_a_ring_shard(cuda, dtype, case):
+    """Both decode kernels on each shard of a ring (``slot_offset``,
+    ``total_len``, ``ring``) against their plain versions: global slot j
+    holds token pos - ((pos - j) mod T), so a shard at offset off keeps
+    its local slots [0, min(pos - off, L - 1)]; a shard that keeps none
+    gives m = NEG_INF, o = 0 and l = 0 exactly. Then B = 2 rows over a
+    whole ring past its wrap."""
+    KV, G, D, cap = case
+    T, n = RING_SHARD_T, RING_SHARD_N
+    L = T // n
+    q, k, v = _decode_tensors((1, KV, G, D, T), dtype, cuda)
+    states = set()
+    for p_ in (100, T - 6, T + 4, 3 * T + 1):
+        pos = torch.tensor(p_, device=cuda)
+        for shard in range(n):
+            off = shard * L
+            kw = dict(slot_offset=off, total_len=T, window=T, ring=True)
+            kl, vl = k[:, off:off + L], v[:, off:off + L]       # views
+            before = (stats_ops.RING_SCORES_LAUNCHES, stats_ops.RING_LAUNCHES)
+            s, m = stats_ops.decode_scores(q, kl, pos, cap=cap, **kw)
+            o, l = stats_ops.accumulate(s, m, vl, pos=pos, **kw)
+            torch.cuda.synchronize()
+            assert (stats_ops.RING_SCORES_LAUNCHES,
+                    stats_ops.RING_LAUNCHES) == (before[0] + 1,
+                                                 before[1] + 1)
+            rs, rm = stats_ops.decode_scores_ref(q, kl, pos, cap=cap, **kw)
+            kept = int((rs[0, 0, 0] > tattention.NEG_INF).sum())
+            assert kept == (min(max(p_ - off + 1, 0), L) if p_ < T else L)
+            assert torch.equal(s == tattention.NEG_INF,
+                               rs == tattention.NEG_INF)
+            _close(s, rs, dtype, 1e-4)
+            _close(m, rm, dtype, 1e-4)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, vl)
+            torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+            states.add("none" if kept == 0 else "all" if kept == L
+                       else "part")
+            if kept == 0:
+                assert bool((m == tattention.NEG_INF).all())
+                assert float(o.abs().max()) == float(l.abs().max()) == 0.0
+    assert states == {"none", "part", "all"}
+    q, k, v = _decode_tensors((2, KV, G, D, T), dtype, cuda, seed=4)
+    pos = torch.tensor([T + 3, 2 * T - 1], device=cuda)
+    kw = dict(total_len=T, window=T, ring=True)
+    s, m = stats_ops.decode_scores(q, k, pos, cap=cap, **kw)
+    o, l = stats_ops.accumulate(s, m, v, pos=pos, **kw)
+    rs, rm = stats_ops.decode_scores_ref(q, k, pos, cap=cap, **kw)
+    assert bool((rs > tattention.NEG_INF).all())        # every slot kept
+    _close(s, rs, dtype, 1e-4)
+    _close(m, rm, dtype, 1e-4)
+    ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+    torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -281,14 +281,21 @@ def test_shard_scores_check_the_total_and_refuse_ring_caches():
     with pytest.raises(ValueError, match="exceeds"):
         tattention.decode_stats_scores(q, k, torch.tensor(3), slot_offset=40,
                                        total_len=48)
-    # a whole ring is taken (tests/test_torch_variants.py); a ring split
-    # over ranks waits for the dense variants on grids
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # a ring split over ranks is taken (tests/test_torch_variants_grid.py);
+    # refused are a ring shard past its ring's total, a ring longer than
+    # its window and a ring with a chunk
+    with pytest.raises(ValueError, match="exceeds the 48-slot"):
         tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True,
-                                       slot_offset=12, total_len=48)
-    with pytest.raises(NotImplementedError, match="item 5"):
+                                       slot_offset=40, total_len=48)
+    with pytest.raises(ValueError, match="exceeds the 12-slot ring"):
         tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True,
-                                       total_len=48)
+                                       slot_offset=12)
+    with pytest.raises(ValueError, match="window 16"):
+        tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True,
+                                       total_len=48, window=16)
+    with pytest.raises(ValueError, match="chunk 6"):
+        tattention.decode_stats_scores(q, k, torch.tensor(3), ring=True,
+                                       total_len=48, chunk=6)
 
 
 @pytest.mark.parametrize("pos", [0, 11, 12, 30, 47])

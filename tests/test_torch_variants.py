@@ -8,10 +8,11 @@ the reduced models with parameters carried across, on the recipe of
 ``tests/test_ring_cache.py`` (a 96-token prefill and three decode steps
 past a 64-token window, fp32, within ``FWD_TOL`` of the JAX forward); the
 port's engine against the JAX engine, tokens and rows equal, with requests
-that cross the window; and the refusals that name the slice still to come
-(the variants on grids and on a model tier; their training on one rank's
-model is ``tests/test_torch_variants_train.py``'s). JAX runs under a mesh of its own, as in
-``tests/test_torch_serve.py``.
+that cross the window; and the refusal that names the slice still to come
+(their training on a model tier; their training on one rank's model is
+``tests/test_torch_variants_train.py``'s, their serving on grids
+``tests/test_torch_variants_grid.py``'s). JAX runs under a mesh of its
+own, as in ``tests/test_torch_serve.py``.
 """
 import dataclasses
 import math
@@ -263,25 +264,27 @@ def test_engine_tokens_match_jax(arch):
 
 @pytest.mark.parametrize("arch", VARIANTS)
 def test_training_and_grids_refuse_the_variants(arch):
-    """What stays refused of the variants: serving on a grid, and training
-    (and serving) on a model tier, each naming ROADMAP.md Queue 1 item 5.2;
-    one rank's model, FSDP ranks included, trains them. yi-6b has no
-    variant feature: llama's path takes it everywhere."""
+    """What stays refused of the variants: training on a model tier, naming
+    the training half of ROADMAP.md Queue 1 item 5.2 (yi-6b, with no
+    variant feature, for its untied head, item 14). Serving takes them on
+    grids and on a model tier (tests/test_torch_variants_grid.py); one
+    rank's model, FSDP ranks included, trains them."""
     from repro_torch.models.tp import check_tp
     cfg = configs.get_smoke(arch)
 
     class Grid:
-        q, pl, m = 2, 2, 1
+        q, pl, m = 2, 2, 2
     configs.check_supported(cfg, "train")
     tree = T.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert len(T.train_layers(tree, cfg)) == cfg.n_layers
+    res = ServeSpec(batch=4, cache_len=128).resolve(cfg, Grid())
+    assert res.batch_sharded and res.m == 2
+    check_tp(cfg, 2, "serve")
     if not configs.variant_features(cfg):             # yi-6b: llama's path
-        assert ServeSpec(batch=4, cache_len=64).resolve(cfg, Grid()) \
-            .batch_sharded
         with pytest.raises(NotImplementedError, match="item 14"):
             check_tp(cfg, 2)                          # its untied head
         return
-    with pytest.raises(NotImplementedError, match="grids.*item 5.2"):
-        ServeSpec(batch=4, cache_len=64).resolve(cfg, Grid())
-    with pytest.raises(NotImplementedError, match="model tier.*item 5.2"):
+    with pytest.raises(NotImplementedError,
+                       match="trained on a model tier.*training half.*"
+                             "item 5.2"):
         check_tp(cfg, 2)

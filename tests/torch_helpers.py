@@ -413,7 +413,8 @@ def task_serve_seq(ctx, q, pl, params, n_layers, cache_len, requests,
         rids = [eng.submit(Request(tokens=t, max_new=m)) for t, m in requests]
         res = eng.drain()
         # what one combine of this engine's payload sends, alone
-        cgrid = eng.hook.grid if eng.hook else None
+        full = eng.shards.get(("k", "v"))
+        cgrid = full.grid if full else None
         one = None
         if cgrid is not None:
             before = cgrid.recorder.reset()
@@ -606,6 +607,54 @@ def task_serve_batch(ctx, q, pl, arch, params, n_layers, spec_kw, requests,
         cache_shape=tuple(eng.model.cache_shapes(1, 8).get(
             "k", ((),))[0]),
         coords=(grid.rank, grid.t, grid.grid_rank), admitted=admitted)
+
+
+def task_serve_variant(ctx, q, pl, m, arch, params, n_layers, spec_kw,
+                       requests):
+    """A dense variant's engine on a q x pl x m grid (one rank for 1 x 1 x
+    1), drained on a StepClock (tests/test_torch_variants_grid.py):
+    ``requests`` are (prompt, max_new, home_pod), arriving at 0. Returns
+    every result's fields by rid, the engine's stats, the migration's
+    collective record (summed over the migrations), the combine and the
+    spans resolved, this rank's shard of each split K/V stack (offset,
+    length, total), the rank's coordinates and, per split stack, what one
+    combine of its layers' payload sends over its grid alone."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import collectives as C
+    from repro_torch.serve import Engine, Request, ServeSpec, StepClock
+    grid = ctx.grid(q, pl, m)
+    if grid is None:
+        return None
+    cfg = _small_cfg(arch, n_layers)
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    eng = Engine(cfg, tparams, ServeSpec(**spec_kw),
+                 grid=grid if grid.p * grid.m > 1 else None, device="cpu",
+                 clock=StepClock())
+    for t, n, home in requests:
+        eng.submit(Request(tokens=t, max_new=n, home_pod=home,
+                           arrival_s=0.0))
+    res = eng.drain()
+    mig = eng.scheduler.migrate
+    one = {}
+    H = cfg.n_heads // (grid.m if eng.resolved.kv_own else 1)
+    for names, sh in eng.shards.items():
+        before = sh.grid.recorder.reset()
+        z = torch.zeros(1, 1, H, cfg.head_dim_)
+        C.logsumexp_combine(z, z[..., 0], z[..., 0], sh.grid,
+                            algorithm=eng.combine.algorithm)
+        one["/".join(names)] = sh.grid.recorder.reset().edge_counts()
+        sh.grid.recorder.stats = before
+    return dict(
+        results={rid: result_fields(r) for rid, r in res.items()},
+        stats=eng.stats(),
+        collective={} if mig is None else dict(mig.collective),
+        combine=dataclasses.asdict(eng.combine),
+        spans={"/".join(n): s for n, s in eng.resolved.spans.items()},
+        shards={"/".join(n): (s.offset, s.length, s.total)
+                for n, s in eng.shards.items()},
+        one_combine=one, coords=(grid.rank, grid.t, grid.grid_rank))
 
 
 def task_generate(ctx, q, pl, params, n_layers, batch, cache_len, prompts,
