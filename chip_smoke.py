@@ -95,7 +95,10 @@ the package is missing. Phases, each fatal on failure:
    6,000 tokens where its 4,096 window bites; gemma2's, 16/8 heads of 256
    with cap 50; cap 50 at 8a's shape; fp32 at D = 120 with window and
    cap; with a cap there is no library, and SDPA's uncapped backward is
-   printed as a yardstick), each naming the instance that served it by its
+   printed as a yardstick), at a model rank's of 8ev
+   (``TIER_VARIANT_FLASH_BWD``: gemma2's 8/4 heads of 256 with cap 50 and
+   uncapped, h2o-danube's 16/4 of 120; B = 1, the forward with lse too),
+   each naming the instance that served it by its
    launch counter (bf16 the tensor cores at every D, fp32 the CUDA cores)
    and failing on another; and the
    RMSNorm backward, plain and residual (dx and dscale), on 8a's 4,096 rows
@@ -197,7 +200,7 @@ the package is missing. Phases, each fatal on failure:
    greedy tokens a request must equal the one-rank engine's exactly. Then llama3.2-3b at
    full width (bf16, random weights from seed 0) with
    ``ServeSpec(batch=1, cache_len=32768)`` on 2 x 2 of the ranks, three
-   requests of 3,000, 11,000 and 20,000 prompt tokens and 8 new tokens,
+   requests of 3,000, 11,000 and 20,000 prompt tokens and 4 new tokens,
    submitted together and served one at a time, in three layouts:
    "locality" and "xla" over ("pod", "data") (8,192 slots a rank) and
    "locality" over ("data",) (16,384). Every rank prefills the whole
@@ -324,18 +327,34 @@ the package is missing. Phases, each fatal on failure:
    bites, the card's one-rank step against the CPU's at 8b's limits
    (the elements whose gradient is below ``NOISE_BAND`` at some step
    held to ``NOISE_BAND_ATOL``, the most two AdamW steps can part them).
+   8ev, the dense variants on a model tier (in 8e's 8 spawned ranks, 2 x
+   2 x 2, ``train_tp_on_ranks``): ``train_parity_tp_variant``, the same
+   reduced fp32 variants and batches in locality + FSDP, eager and with
+   ``prefetch_depth=1``, ``seq_shard`` and xla + FSDP against the card's
+   one rank of ``train_variant_exact`` at 8b's limits (the elements in
+   the noise band held to ``TIER_NOISE_BAND_ATOL``), the prefetch bitwise
+   the eager step, launches exact, the tier inside each pod;
+   ``train_tp_variants``, gemma2-9b at full width, 8/4 heads of 256 a
+   model rank, cut to one window / full pair of layers (the gloo
+   transport), one 1,024-token sequence a DP rank, ``TP_VARIANT_STEPS``
+   step of locality + FSDP (2 until the run's time needed it): metrics equal on every rank and finite, launches exact, each
+   rank's non-local gather and reduce-scatter messages and bytes the
+   oracle's for its lane rank, the tier inside its pod; step ms, peak
+   memory a rank, the tier's calls, host ms and staged bytes.
 10. MoE expert-parallel training, ``train_moe_on_ranks``: 6 spawned
    ranks. 10a: the reduced fp32 qwen2-moe (2 layers, 8 experts at top-4)
    on 2 x 2 and, with 12 experts, on 3 x 2, ``moe_dispatch`` "locality"
-   (the tokens transport) and "xla" (slots) with FSDP, against the card's
+   (the tokens transport), "xla" (slots) and "none" (every expert on
+   every rank, FSDP-gathered) with FSDP, against the card's
    one rank running the ranks' rows as p microbatches (each rank's
    auxiliary loss is its own rows'), at 8b's limits, and the card's one
    rank against the CPU's; 10b: qwen2-moe-a2.7b at full width on 2 x 2
    of the ranks, depth cut to 1 layer (2 before phase 4v needed the
    run's time), one 1,024-token sequence a rank,
-   locality + FSDP with the dispatch "locality" (2 steps), "xla" and
-   "none" (1 step each): the tokens and slots transports' first losses
-   bitwise equal, "none"'s within ``MOE_LOSS_REL``; every rank's launches
+   locality + FSDP with the dispatch "locality" (2 steps) and "xla" (1
+   step; "none" too until phase 8ev needed the run's time, in 10a
+   since): the tokens
+   and slots transports' first losses bitwise equal; every rank's launches
    exact and, per step, its all-to-all's non-local messages and bytes the
    oracle's (``schedules.locality_all_to_all``, ``xla_all_to_all``) times
    its calls (``a2a_check``); step ms, the all-to-all's, the tokens
@@ -350,7 +369,7 @@ the package is missing. Phases, each fatal on failure:
    port give for it at a reduced size in tests/test_torch_serve_tp.py),
    for ``locality_bruck`` and ``xla``; 9b: phase 6's 32,768-slot cache
    split over ("pod", "data") on each model lane, a prompt of 3,000
-   tokens at full width (of 562 and 2,062 reduced), 8 new each,
+   tokens at full width (of 562 and 2,062 reduced), 4 new each,
    ``combine="locality"`` and ``"xla"``. Each
    first with a reduced fp32 llama (2 layers) whose tokens must equal a
    one-rank engine's; then at full width and depth (bf16) against
@@ -389,13 +408,13 @@ the package is missing. Phases, each fatal on failure:
    layout (both schedules) and 9b's split cache (both combines) on a
    128-slot cache, every token equal to a one-rank engine's and each
    K/V stack split by its own length; then gemma2-9b at full width cut
-   to 16 of 42 layers (8 window, 8 full; bf16; an 8,192-slot cache):
-   9v-a, 8 requests of 3,900-4,300 tokens homed in pod 0, 16 new each,
+   to 8 of 42 layers (4 window, 4 full; bf16; an 8,192-slot cache):
+   9v-a, 8 requests of 3,900-4,300 tokens homed in pod 0, 8 new each,
    ``TIER_MIGRATIONS`` migrations with ``locality_bruck`` and ``xla``;
-   9v-b, one 4,090-token prompt, 16 new, split over ("pod", "data")
+   9v-b, one 4,090-token prompt, 8 new, split over ("pod", "data")
    (2,048 full and 1,024 ring slots a rank, the decode crossing slot
    4,096) with ``combine="locality"`` and ``"xla"``; held by phase 9's
-   rule against one-rank engines of the same 16 layers, with phase 9's
+   rule against one-rank engines of the same 8 layers, with phase 9's
    checks: migration and combine messages and bytes the oracle's with
    each ring leaf at its own span, 2 L + 2 tier calls a forward, the
    decode graph rule, launches exact (the ring instances too); decode
@@ -404,8 +423,9 @@ the package is missing. Phases, each fatal on failure:
 
 Every kernel's launches are counted from 0 just before each main path
 (the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7, 9, 9m
-and 9v in its own process, the trainers of 8a and 8d, each run of 8c, 8f,
-10b and of 8b's mamba2 ranks in its own process) and read just after it.
+and 9v in its own process, the trainers of 8a and 8d, each run of 8c, 8e,
+8ev, 8f, 10b and of 8b's mamba2 ranks in its own process) and read just
+after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -2046,9 +2066,10 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5,
 # new tokens a request: the reduced fp32 run holds every one of them to
 # the one-rank engine's exactly; the full-width run holds its prefill and
 # first decode logits and reports the greedy share, its later steps time
-# the decode (about 0.25-0.6 s a step over gloo in each of 3 layouts);
-# 16 and 8 (32 and 16 before phase 4v needed the run's time)
-SEQ_CACHE, SEQ_NEW, SEQ_NEW_FULL = 32768, 16, 8
+# the decode (about 0.25-0.8 s a step over gloo in each of 3 layouts);
+# 16 and 4 (32 and 16 before phase 4v needed the run's time, 8 before
+# phase 8ev did)
+SEQ_CACHE, SEQ_NEW, SEQ_NEW_FULL = 32768, 16, 4
 SEQ_PROMPTS = (3000, 11000, 20000)
 SEQ_LAYOUTS = (("pod_locality", dict(combine="locality")),
                ("pod_xla", dict(combine="xla")),
@@ -2566,7 +2587,7 @@ def serve_batch_sharded(smi: str) -> dict[str, int]:
 # 2 x 2 x 2 ranks sharing the card: 9a is phase 7's batch-sharded run (its
 # ServeSpec and home pod) on the first 8 requests of its trace, 9b phase 6's
 # split cache over ("pod", "data") on each model lane with its first
-# prompt (3,000 tokens, 8 new; the reduced run two), both schedules or
+# prompt (3,000 tokens, 4 new; the reduced run two), both schedules or
 # combines; each first at the reduced size (2 layers, fp32), tokens equal
 # to one rank's. Cut to keep the phase near 3 minutes: every eager decode
 # step makes 57 tier allreduces through gloo, ~0.3 s a step at full width
@@ -2583,11 +2604,13 @@ TIER_SEQ_LAYOUTS = SEQ_LAYOUTS[:2]
 # the run's time; phase 6 keeps all three)
 TIER_SEQ_PROMPTS = SEQ_PROMPTS[:1]
 TIER_SEQ_REDUCED_PROMPTS = SEQ_REDUCED_PROMPTS[:2]
-TIER_NEW = 8
-# 9a's and 9m's budgets are cut to 16 new tokens (phase 7's 32-64 before
-# phase 4v needed the run's time): the 8 requests still fill the 8 rows
-# at once, so the migrations are the same
-TIER_MAX_NEW = 16
+# 9b's new tokens: 4 (8 before phase 8ev needed the run's time: a split
+# decode step of ~1.2 s over gloo on an H100)
+TIER_NEW = 4
+# 9a's and 9m's budgets are cut to 8 new tokens (phase 7's 32-64 before
+# phase 4v needed the run's time, 16 before phase 8ev did): the 8
+# requests still fill the 8 rows at once, so the migrations are the same
+TIER_MAX_NEW = 8
 
 
 def tier_batch_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
@@ -2955,21 +2978,29 @@ def serve_tier(smi: str, base: dict) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 # phase 9m: mamba2-780m served on the model tier
 # ---------------------------------------------------------------------------
-# mamba2-780m at full width and depth (48 layers) on 2 x 2 x 2 ranks, 24 SSD
-# heads a rank, phase 9a's ServeSpec, trace and home pod, migrate
+# mamba2-780m at full width and depth (48 layers) on 2 x 2 x 2 ranks, 24
+# SSD heads a rank, phase 9a's
+# ServeSpec, trace and home pod, migrate
 # "locality_bruck"; first in fp32 with each request's budget cut to
 # SSM_TIER_FP32_NEW tokens, whose tokens must equal a one-rank engine's,
 # then in bf16 (the published dtype) on the whole trace
-SSM_TIER_ARCH = "mamba2-780m"
+SSM_TIER_ARCH, SSM_TIER_LAYERS = "mamba2-780m", 48
 SSM_TIER_ALG = "locality_bruck"
 SSM_TIER_FP32_NEW = 4
+
+
+def _ssm_tier_config():
+    """9m's config: mamba2-780m at full width, ``SSM_TIER_LAYERS`` deep."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(SSM_TIER_ARCH),
+                               n_layers=SSM_TIER_LAYERS)
 
 
 def _ssm_tier_runs(plan: dict) -> list[tuple[str, object, list]]:
     """(name, config, requests) of phase 9m's runs: fp32 on the short
     budgets, then the published bf16 on the trace."""
     from repro_torch import configs
-    full = configs.get(SSM_TIER_ARCH)
+    full = _ssm_tier_config()
     return [("fp32", dataclasses.replace(full, dtype=torch.float32),
              plan["short"]), ("bf16", full, plan["batch"])]
 
@@ -3015,7 +3046,7 @@ def serve_tier_ssm(smi: str) -> dict[str, int]:
     launches per kernel of both runs, summed over the ranks. The fp32
     run's tokens must equal the one rank's; in bf16 the tier rounds each
     layer's output and the gated norm's output from sums taken in another
-    order than one rank's, and 48 layers carry those roundings to the
+    order than one rank's, and 24 layers carry those roundings to the
     logits, so the tokens are held as phase 9 holds them (prefill and
     first decode logits within ``SEQ_LOGIT_REL`` of the largest |logit|, a
     first token that differs within twice the prefill's difference of the
@@ -3025,7 +3056,7 @@ def serve_tier_ssm(smi: str) -> dict[str, int]:
     from repro_torch.models.ssm import ssm_dims
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServeSpec
-    full = configs.get(SSM_TIER_ARCH)
+    full = _ssm_tier_config()
     batch = tier_batch_requests(full.vocab_size)
     plan = {"batch": batch,
             "short": [(t, SSM_TIER_FP32_NEW) for t, _ in batch]}
@@ -3116,7 +3147,8 @@ def serve_tier_ssm(smi: str) -> dict[str, int]:
     print(json.dumps({
         "phase": "serve_tier_ssm", "shared": "8 ranks sharing one H100 over "
         "gloo", "grid": "2 x 2 x 2 (pod, data, model)", "model": full.name,
-        "layers": L, "dtype": "bfloat16",
+        "layers": L, "reduced": f"depth 48 -> {L} layers (gloo host "
+                                 "transport)", "dtype": "bfloat16",
         "ssd_heads_per_rank": ssm_dims(full)[1] // m,
         "migrate": SSM_TIER_ALG,
         "fp32_tokens_equal_to_one_rank": True,
@@ -3170,21 +3202,23 @@ def serve_tier_ssm(smi: str) -> dict[str, int]:
 # 256 and 120, window 64, 2 layers, fp32) in 9v-a's and 9v-b's layouts on a
 # 128-slot cache, tokens equal to the one-rank engine's; then gemma2-9b at
 # full width (d_model 3,584, 16/8 heads of 256, d_ff 14,336, vocab 256,000,
-# window 4,096, caps 50/30) cut to 16 of its 42 layers (8 window, 8 full:
+# window 4,096, caps 50/30) cut to 8 of its 42 layers (4 window, 4 full:
 # at 42 layers its 8 ranks' parts, 9.24 GB a rank, would not fit one card
-# beside the one-rank reference and 8 CUDA contexts), bf16, an 8,192-slot
+# beside the one-rank reference and 8 CUDA contexts; 16 until phase 8ev
+# needed the run's time), bf16, an 8,192-slot
 # cache: each rank holds 2,048 full slots and 1,024 ring slots of a B = 1
 # cache, 4 of the 8 KV heads. 9v-a: 8 requests homed in pod 0 (prompts of
 # 3,900-4,300 tokens, one over the ring and one crossing its wrap while
-# decoding, forced), 16 new tokens each, migrating with both schedules;
-# 9v-b: one 4,090-token prompt, 16 new tokens, split over ("pod", "data")
+# decoding, forced), 8 new tokens each (16 before phase 8ev needed the
+# run's time), migrating with both schedules;
+# 9v-b: one 4,090-token prompt, 8 new tokens, split over ("pod", "data")
 # with the locality and the library combine, the decode crossing slot
 # 4,096
 VARIANT_TIER_ARCHS = (("gemma2-9b", 256), ("h2o-danube-3-4b", 120))
-VARIANT_TIER_LAYERS = 16
-VARIANT_TIER_CACHE, VARIANT_TIER_NEW = 8192, 16
+VARIANT_TIER_LAYERS = 8
+VARIANT_TIER_CACHE, VARIANT_TIER_NEW = 8192, 8
 VARIANT_TIER_PROMPTS = (3900, 4300)
-VARIANT_TIER_FORCED = (4200, 4085)           # over the ring; across its wrap
+VARIANT_TIER_FORCED = (4200, 4090)           # over the ring; across its wrap
 VARIANT_TIER_SEQ_PROMPT = 4090
 VARIANT_TIER_REDUCED_CACHE = 128
 VARIANT_TIER_REDUCED = ((70, 5), (60, 8))     # past, and across, 64 slots
@@ -3193,7 +3227,7 @@ VARIANT_TIER_REDUCED = ((70, 5), (60, 8))     # past, and across, 64 slots
 def variant_tier_requests(vocab: int) -> dict[str, list]:
     """9v's traces: "batch" (8 requests, 3,900-4,300 tokens drawn from seed
     12, the second and third forced to ``VARIANT_TIER_FORCED``: 4,200
-    tokens, over the ring, and 4,085, crossing its wrap in decode), "seq"
+    tokens, over the ring, and 4,090, crossing its wrap in decode), "seq"
     (one 4,090-token prompt),
     each with ``VARIANT_TIER_NEW`` new tokens, and the reduced run's
     ("reduced_batch": the first 8 of the CPU test's trace shape, prompts
@@ -3427,7 +3461,8 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                "shared": "8 ranks sharing one H100 over gloo",
                "grid": "2 x 2 x 2 (pod, data, model)", "model": full.name,
                "layers": L, "ring_layers": n_ring,
-               "reduced": "depth 42 -> 16 layers (8 window, 8 full)",
+               "reduced": f"depth 42 -> {L} layers ({n_ring} window, "
+                          f"{L - n_ring} full)",
                "dtype": "bfloat16", "cache_len": VARIANT_TIER_CACHE,
                "window": full.window, "prompts": lens,
                "new_tokens": VARIANT_TIER_NEW,
@@ -3625,6 +3660,17 @@ VARIANT_FLASH_BWD = (
     (4, 1024, 16, 8, 256, dict(causal=True), False),
     (1, 6000, 32, 8, 120, dict(causal=True, window=4096), False),
     (4, 1024, 24, 8, 128, dict(causal=True, cap=50.0), False))
+
+# phase 8ev's flash at a model rank's heads (B, S, H, KV, D, mask), bf16, one
+# 1,024-token sequence: gemma2-9b on m = 2, 8/4 heads of 256 (the
+# two-warpgroup instance) with cap 50 (no library) and uncapped beside
+# SDPA; h2o-danube-3-4b on m = 2, 16/4 heads of 120 (the D = 128
+# instance), its 4,096 window inert at 1,024 tokens, beside SDPA's causal
+# backward
+TIER_VARIANT_FLASH_BWD = ((1, 1024, 8, 4, 256, dict(causal=True, cap=50.0)),
+                          (1, 1024, 8, 4, 256, dict(causal=True)),
+                          (1, 1024, 16, 4, 120, dict(causal=True,
+                                                     window=4096)))
 
 
 def _mask_name(mask: dict) -> str:
@@ -4203,6 +4249,11 @@ def backward_cases(timer) -> dict[str, list[dict]]:
     out["flash_attention_bwd"].append(flash_bwd_case(
         timer, g, torch.float32, dict(causal=True, window=512, cap=50.0),
         (1, 1024, 32, 8, 120), "train_variants", full=False))
+    # a model rank of phase 8ev (bf16), the forward with lse and the pair
+    for *shape, mask in TIER_VARIANT_FLASH_BWD:
+        out["flash_attention_bwd"].append(flash_bwd_case(
+            timer, g, torch.bfloat16, mask, tuple(shape),
+            "train_tier_variants"))
     # the tensor-core pair at its tile edges (no path of its own)
     for *shape, mask in FLASH_BWD_EDGES:
         out["flash_attention_bwd"].append(flash_bwd_case(
@@ -4443,21 +4494,28 @@ def train_one_rank(smi: str, arch: str = "llama3.2-3b",
     return path_launches(counts)
 
 
-def variant_train_exact(smi: str) -> None:
+def _variant_exact_cfg(arch: str, layers: int, head_dim: int):
+    """One of ``VARIANT_EXACT_TRAIN``'s reduced fp32 configs."""
+    from repro_torch import configs
+    from repro_torch.configs import reduced
+    return dataclasses.replace(reduced(configs.get(arch), head_dim=head_dim),
+                               n_layers=layers, dtype=torch.float32)
+
+
+def variant_train_exact(smi: str) -> dict[str, tuple[dict, dict]]:
     """Phase 8v's exactness check: each of ``VARIANT_EXACT_TRAIN`` reduced
     in fp32 with its real head dim (gemma2: 256, its caps, slot0, slot1 and
     a ``rest`` layer; h2o-danube: 120), window 64, trains 2 steps of 4 x
     128 tokens on the CPU (the plain versions) and on the card (the
     kernels: the fp32 flash forward and backward on the CUDA cores) from
     the same parameters and batches; held at 8b's ``PARITY_*`` limits but
-    for the elements in the gradient noise band (``NOISE_BAND``)."""
-    from repro_torch import configs
-    from repro_torch.configs import reduced
+    for the elements in the gradient noise band (``NOISE_BAND``). Returns
+    {arch: (the parameters as {path: array}, the card's run: metrics,
+    params, grads)}, 8ev's one-rank references."""
     from repro_torch.models import transformer as T
+    refs = {}
     for arch, layers, head_dim in VARIANT_EXACT_TRAIN:
-        cfg = dataclasses.replace(
-            reduced(configs.get(arch), head_dim=head_dim), n_layers=layers,
-            dtype=torch.float32)
+        cfg = _variant_exact_cfg(arch, layers, head_dim)
         params = T.init_train_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
         flat = dict(zip(["/".join(p) for p in _paths(params)],
@@ -4470,7 +4528,7 @@ def variant_train_exact(smi: str) -> None:
                        grads=r["grads"]) for d, r in runs.items()}
         report = _parity(one["cuda"], one["cpu"],
                          f"train_variant_exact {arch}: card vs CPU",
-                         noise_band=True)
+                         band_atol=NOISE_BAND_ATOL)
         print(json.dumps({
             "phase": "train_variant_exact", "model": cfg.name,
             "layers": layers, "head_dim": head_dim, "window": cfg.window,
@@ -4489,18 +4547,21 @@ def variant_train_exact(smi: str) -> None:
                 "flash_attention_bwd_d120", "flash_attention_bwd_wgmma",
                 "rmsnorm", "rmsnorm_bwd")},
             "card": smi}))
+        refs[arch] = (flat, one["cuda"])
+    return refs
 
 
-def train_variants(smi: str) -> dict[str, dict[str, int]]:
+def train_variants(smi: str) -> tuple[dict[str, dict[str, int]], dict]:
     """Phase 8v: ``VARIANT_TRAIN_RUNS`` through ``train_one_rank``, then
-    the exactness check; returns each run's launches per kernel."""
+    the exactness check; returns each run's launches per kernel and the
+    check's card references (:func:`variant_train_exact`)."""
     out = {}
     for arch, phase, layers in VARIANT_TRAIN_RUNS:
         out[phase] = train_one_rank(smi, arch, phase, layers)
-    variant_train_exact(smi)
+    refs = variant_train_exact(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, refs
 
 
 def _leaves(tree):
@@ -4655,16 +4716,17 @@ def _beyond(got: dict, want: dict, worst: int = 8) -> dict:
 
 
 def _parity(got: dict, want: dict, what: str,
-            noise_band: bool = False) -> dict:
+            band_atol: float | None = None) -> dict:
     """Losses and grad norms within PARITY_REL, parameters within
     PARITY_PARAM_ATOL; returns the largest differences and, where ``want``
     holds its gradients, the elements beyond PARITY_PARAM_CLOSE
-    (``_beyond``). With ``noise_band`` (both runs' gradients given), an
+    (``_beyond``). With ``band_atol`` (both runs' gradients given), an
     element whose gradient is below ``NOISE_BAND`` in either run at some
-    step (and not 0 in both) is held to ``NOISE_BAND_ATOL`` instead: there
+    step (and not 0 in both) is held to ``band_atol`` instead: there
     AdamW's update
     g / (|g| + eps) is set by the gradient's last bits, not by the
-    function (phase 8v's check; 8b keeps every element at the limit)."""
+    function (phase 8v's and 8ev's checks; 8b keeps every element at the
+    limit)."""
     d_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
                  for a, b in zip(got["metrics"], want["metrics"]))
     d_norm = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
@@ -4674,7 +4736,7 @@ def _parity(got: dict, want: dict, what: str,
                            .ravel() for p in paths])
     far = float(np.mean(diff > PARITY_PARAM_CLOSE))
     noisy = np.zeros_like(diff, dtype=bool)
-    if noise_band:          # a gradient exactly 0 in both moves nothing
+    if band_atol is not None:   # a gradient exactly 0 in both moves nothing
         band = lambda a, b: ((np.minimum(a, b) < NOISE_BAND)
                              & (np.maximum(a, b) > 0))
         noisy = np.concatenate([
@@ -4684,17 +4746,17 @@ def _parity(got: dict, want: dict, what: str,
     d_noisy = float(diff[noisy].max()) if noisy.any() else 0.0
     out = dict(loss_rel=d_loss, grad_norm_rel=d_norm, param_abs=d_par,
                param_share_beyond_1e5=far)
-    if noise_band:
+    if band_atol is not None:
         out.update(noise_band_elements=int(noisy.sum()),
                    noise_band_param_abs=d_noisy)
     if "grads" in want:
         out["beyond_1e5"] = _beyond(got, want)
     check(d_loss <= PARITY_REL and d_norm <= PARITY_REL
           and d_par <= PARITY_PARAM_ATOL and far <= PARITY_FAR_SHARE
-          and d_noisy <= NOISE_BAND_ATOL,
+          and d_noisy <= (band_atol or 0.0),
           f"{what}: losses {d_loss}, grad norms {d_norm} (relative, limit "
           f"{PARITY_REL}), parameters {d_par} (limit {PARITY_PARAM_ATOL}; "
-          f"{d_noisy} in the gradient noise band, limit {NOISE_BAND_ATOL}), "
+          f"{d_noisy} in the gradient noise band, limit {band_atol}), "
           f"share beyond {PARITY_PARAM_CLOSE} {far} (limit "
           f"{PARITY_FAR_SHARE}); beyond {PARITY_PARAM_CLOSE}: "
           f"{json.dumps(out.get('beyond_1e5'))}")
@@ -4719,8 +4781,10 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool, m: int = 1
     gathers and the gradient reduce-scatters must send: the schedule
     oracle's (``schedules.locality_bruck``, and its transpose) times the
     gathers the path implies (each layer leaf twice with remat, once with
-    the prefetch, the embedding once; each reduce-scatter once), for shards
-    of each leaf in ``cfg.dtype``: llama's seven leaves a layer, or
+    the prefetch, the embedding and an untied head once; each
+    reduce-scatter once; a slot's leaf once a rep, a ``rest`` layer's as it
+    is), for shards of each leaf in ``cfg.dtype``: llama's seven leaves a
+    layer, or
     Mamba2's two (in_proj, out_proj; the rest replicated). On a model tier
     of m the gathers run over each model lane (the q·pl ranks listed, by
     lane rank) on 1/m of each leaf the tier shards, the step's tree
@@ -4750,11 +4814,11 @@ def fsdp_oracle(cfg, q: int, pl: int, alg: str, prefetch: bool, m: int = 1
         if k < 0:
             continue
         check(ax == "pod,data", f"{path}: sharded over {ax}")
-        stacked = path[0] == "blocks"
-        n = cfg.n_layers if stacked else 1
+        layer = path[0] in ("blocks", "rest")
+        n = t.shape[0] if path[0] == "blocks" else 1     # a slot's reps
         tp = m if mk >= 0 else 1
         per = t.numel() // n // p // tp * es    # one layer's shard, cfg.dtype
-        units.append((per, n * (1 if prefetch or not stacked else 2), n))
+        units.append((per, n * (1 if prefetch or not layer else 2), n))
     out = []
     for r in range(p):
         if alg == "xla":
@@ -5050,40 +5114,77 @@ TP_STEPS = 2
 TP_VARIANTS = (("locality", dict(fsdp=True)),
                ("seq_shard", dict(fsdp=True, seq_shard=True)),
                ("xla", dict(fsdp=True, grad_sync="xla")))
+# 8ev: the dense variants on the same ranks. (a) 8v's reduced fp32 models
+# (``VARIANT_EXACT_TRAIN``: gemma2 at 3 layers, slot0, slot1 and a ``rest``
+# layer, 4/2 heads of 256 and caps; h2o-danube at 2, heads of 120; window
+# 64) on 8v's 4 x 128 tokens, 2 steps, in each of ``TP_PARITY_VARIANTS``,
+# against 8v's one-rank run on the card at 8b's limits, 8v's noise band's
+# elements held to TIER_NOISE_BAND_ATOL; (b) gemma2-9b at full width
+# (d_model 3,584, 16/8 heads of 256, d_ff 14,336, vocab 256,000, window
+# 4,096, caps 50/30), 8/4 heads a model rank, cut to one window / full pair
+# of its 42 layers (the gloo host transport; 1.31 B parameters, ~2 GB of
+# fp32 state and moments a rank), one 1,024-token sequence a DP rank, one
+# step a mode (2 until the run's time needed it: the second step took
+# 17.4-34.2 s over gloo on an H100, as long as the first)
+TP_VARIANT_ARCH, TP_VARIANT_LAYERS = "gemma2-9b", 2
+TP_VARIANT_MODES = (("locality", dict(fsdp=True)),)
+TP_VARIANT_STEPS = 1
+# 8ev-a's noise band against the card's one rank (both runs on the card):
+# 2 x lr, what one AdamW step whose update flips its sign parts an element
+# by, half what two such steps reach (NOISE_BAND_ATOL). On an H100 the
+# band's elements read 1.4e-5 (gemma2, 2,145 of them) and 1.75e-4
+# (h2o-danube, 347)
+TIER_NOISE_BAND_ATOL = 2 * 3e-4
 
 
 def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
-    """One rank of 8b's TP part and of 8e (all eight share the one card):
-    the reduced fp32 llama in each of ``TP_PARITY_VARIANTS``, then
-    llama3.2-3b at full width, ``FSDP_LAYERS`` layers, in each of
-    ``TP_VARIANTS``."""
+    """One rank of 8b's TP part, 8e and 8ev (all eight share the one card):
+    the reduced fp32 llama in each of ``TP_PARITY_VARIANTS``, 8ev's reduced
+    variants in each too, then llama3.2-3b at full width, ``FSDP_LAYERS``
+    layers, in each of ``TP_VARIANTS``, and gemma2-9b at full width,
+    ``TP_VARIANT_LAYERS`` layers, in each of ``TP_VARIANT_MODES``."""
     from repro_torch import configs
     from repro_torch.core.topology import RankGrid
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     grid = RankGrid.build(*TP_GRID)
-    out = {"rank": rank, "parity": {}, "full": {},
+    out = {"rank": rank, "parity": {}, "full": {}, "variants": {},
+           "variant_full": {},
            "coords": dict(rank=grid.rank, t=grid.t,
                           grid_rank=grid.grid_rank)}
     small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
                                 n_layers=PARITY_LAYERS, dtype=torch.float32)
+    keep = ("metrics", "shards", "dims", "axes", "mdims", "meter",
+            "launches")
     for name, kw in TP_PARITY_VARIANTS:
         res = train_run(small, grid, _tree(plan["params"]), kw,
                         PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, "cuda")
-        out["parity"][name] = {k: res[k] for k in (
-            "metrics", "shards", "dims", "axes", "mdims", "meter",
-            "launches")}
+        out["parity"][name] = {k: res[k] for k in keep}
+    for arch, layers, head_dim in VARIANT_EXACT_TRAIN:
+        cfg = _variant_exact_cfg(arch, layers, head_dim)
+        out["variants"][arch] = {}
+        for name, kw in TP_PARITY_VARIANTS:
+            res = train_run(cfg, grid, _tree(plan["variants"][arch]), kw,
+                            VARIANT_EXACT_BATCH, VARIANT_EXACT_SEQ,
+                            VARIANT_EXACT_STEPS, "cuda", grads=True)
+            out["variants"][arch][name] = {k: res[k]
+                                           for k in keep + ("grads",)}
     gc.collect()
     torch.cuda.empty_cache()
-    full = dataclasses.replace(configs.get("llama3.2-3b"),
-                               n_layers=FSDP_LAYERS)
-    for name, kw in TP_VARIANTS:
-        res = train_run(full, grid, None, kw, TP_GRID[0] * TP_GRID[1],
-                        TRAIN_SEQ, TP_STEPS, "cuda")
-        res.pop("shards")
-        out["full"][name] = res
-        gc.collect()
-        torch.cuda.empty_cache()
+    for cfg, modes, key, steps in (
+            (dataclasses.replace(configs.get("llama3.2-3b"),
+                                 n_layers=FSDP_LAYERS), TP_VARIANTS, "full",
+             TP_STEPS),
+            (dataclasses.replace(configs.get(TP_VARIANT_ARCH),
+                                 n_layers=TP_VARIANT_LAYERS),
+             TP_VARIANT_MODES, "variant_full", TP_VARIANT_STEPS)):
+        for name, kw in modes:
+            res = train_run(cfg, grid, None, kw, TP_GRID[0] * TP_GRID[1],
+                            TRAIN_SEQ, steps, "cuda")
+            res.pop("shards")
+            out[key][name] = res
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -5111,18 +5212,23 @@ def _tier_local(name: str, rank: int, step: int, mt: dict) -> None:
           f"calls, messages {mt['model']}")
 
 
-def train_tp_on_ranks(smi: str, flat: dict, one: dict
+def train_tp_on_ranks(smi: str, flat: dict, one: dict, variant_refs: dict
                       ) -> dict[str, dict[str, int]]:
-    """8b's TP part and phase 8e: 8 spawned ranks (``train_tp_rank``) on
-    2 x 2 x 2; checks and prints each; returns 8e's launches per kernel,
-    summed over the ranks and variants. ``flat`` and ``one`` are 8b's
-    reduced llama parameters and one-rank runs."""
+    """8b's TP part, phase 8e and phase 8ev: 8 spawned ranks
+    (``train_tp_rank``) on 2 x 2 x 2; checks and prints each; returns 8e's
+    and 8ev's full-width launches per kernel, each summed over the ranks
+    and modes. ``flat`` and ``one`` are 8b's reduced llama parameters and
+    one-rank runs, ``variant_refs`` 8v's reduced variants' parameters and
+    card runs (:func:`variant_train_exact`)."""
     from repro_torch import configs
     from repro_torch.launch.serve import run_ranks
     q, pl, m = TP_GRID
     n = q * pl * m
     t0 = time.perf_counter()
-    ranks = run_ranks(n, train_tp_rank, {"params": flat}, timeout=900.0)
+    ranks = run_ranks(n, train_tp_rank, {
+        "params": flat,
+        "variants": {a: f for a, (f, _) in variant_refs.items()}},
+        timeout=900.0)
     ranks_s = time.perf_counter() - t0
     lane_rank = [r["coords"]["rank"] for r in ranks]
     check([r["coords"]["grid_rank"] for r in ranks] == list(range(n)),
@@ -5133,27 +5239,8 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
     # fp32: the flash backward runs the CUDA-core pair
     want_small = dict(train_launches_implied(PARITY_LAYERS, PARITY_STEPS),
                       flash_attention_bwd_wgmma=0)
-    report = {}
-    for name, _ in TP_PARITY_VARIANTS:
-        res = [r["parity"][name] for r in ranks]
-        for r in range(1, n):
-            check(res[r]["metrics"] == res[0]["metrics"],
-                  f"train_parity_tp {name}: rank {r}'s metrics differ")
-        got = dict(metrics=res[0]["metrics"],
-                   params=_assemble_tp(res, pl, m))
-        report[name] = _parity(got, one["cuda"], f"train_parity_tp {name}")
-        for r, x in enumerate(res):
-            got_l = {k: x["launches"][k] for k in want_small}
-            check(got_l == want_small, f"train_parity_tp {name} rank {r}: "
-                  f"launches {got_l}, the path implies {want_small}")
-            for step, mt in enumerate(x["meter"]):
-                _tier_local(f"train_parity_tp {name}", r, step, mt)
-    eager = [r["parity"]["locality"] for r in ranks]
-    pf = [r["parity"]["locality_prefetch"] for r in ranks]
-    check(all(a["metrics"] == b["metrics"] and all(
-        np.array_equal(a["shards"][k], b["shards"][k]) for k in a["shards"])
-        for a, b in zip(eager, pf)),
-        "train_parity_tp: the prefetch step is not bitwise the eager one")
+    report = _tp_parity([r["parity"] for r in ranks], one["cuda"],
+                        want_small, "train_parity_tp")
     print(json.dumps({
         "phase": "train_parity_tp", "model": small.name,
         "grid": "2 x 2 x 2 (pod, data, model)", "layers": PARITY_LAYERS,
@@ -5165,43 +5252,135 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
         "launches_per_rank": want_small,
         "losses_one_rank": [x["loss"] for x in one["cuda"]["metrics"]],
         "card": smi}))
+    for arch, layers, head_dim in VARIANT_EXACT_TRAIN:
+        cfg = _variant_exact_cfg(arch, layers, head_dim)
+        ref = variant_refs[arch][1]
+        want = dict(train_launches_implied(layers, VARIANT_EXACT_STEPS,
+                                           cfg=cfg),
+                    flash_attention_bwd_wgmma=0)
+        report = _tp_parity([r["variants"][arch] for r in ranks], ref,
+                            want, f"train_parity_tp_variant {arch}",
+                            band_atol=TIER_NOISE_BAND_ATOL)
+        print(json.dumps({
+            "phase": "train_parity_tp_variant", "model": cfg.name,
+            "grid": "2 x 2 x 2 (pod, data, model)", "layers": layers,
+            "head_dim": head_dim, "window": cfg.window,
+            "caps": [cfg.attn_softcap, cfg.final_softcap],
+            "dtype": "float32",
+            "batch": [VARIANT_EXACT_BATCH, VARIANT_EXACT_SEQ],
+            "steps": VARIANT_EXACT_STEPS, "ranks_vs_one_rank": report,
+            "prefetch_bitwise_eager": True, "loss_rel_limit": PARITY_REL,
+            "param_abs_limit": PARITY_PARAM_ATOL,
+            "param_share_beyond_1e5_limit": PARITY_FAR_SHARE,
+            "noise_band": NOISE_BAND, "noise_band_atol": TIER_NOISE_BAND_ATOL,
+            "launches_per_rank": want,
+            "losses_one_rank": [x["loss"] for x in ref["metrics"]],
+            "card": smi}))
 
-    full = dataclasses.replace(configs.get("llama3.2-3b"),
-                               n_layers=FSDP_LAYERS)
-    want = train_launches_implied(FSDP_LAYERS, TP_STEPS)
+    out = {}
+    for arch, layers, modes, steps, key, phase in (
+            ("llama3.2-3b", FSDP_LAYERS, TP_VARIANTS, TP_STEPS, "full",
+             "train_tp"),
+            (TP_VARIANT_ARCH, TP_VARIANT_LAYERS, TP_VARIANT_MODES,
+             TP_VARIANT_STEPS, "variant_full", "train_tp_variants")):
+        out[phase] = _tp_full_width(smi, [r[key] for r in ranks], arch,
+                                    layers, modes, steps, phase, lane_rank,
+                                    ranks_s)
+    return out
+
+
+def _tp_parity(res_by_rank: list, ref: dict, want: dict, what: str,
+               band_atol: float | None = None) -> dict:
+    """A reduced model's runs on 2 x 2 x 2 (``res_by_rank``: each rank's
+    {mode: run}, the modes of ``TP_PARITY_VARIANTS``) against one rank's
+    (``ref``: metrics, params, and grads with ``band_atol``) at 8b's
+    limits, the noise band's elements at ``band_atol`` where it is given;
+    each rank's launches ``want``, the tier's collectives inside each pod,
+    the prefetch bitwise the eager step. Returns the report by mode."""
+    q, pl, m = TP_GRID
+    report = {}
+    for name, _ in TP_PARITY_VARIANTS:
+        res = [r[name] for r in res_by_rank]
+        for r in range(1, len(res)):
+            check(res[r]["metrics"] == res[0]["metrics"],
+                  f"{what} {name}: rank {r}'s metrics differ")
+        got = dict(metrics=res[0]["metrics"],
+                   params=_assemble_tp(res, pl, m))
+        if band_atol is not None:    # each step's gradient, assembled
+            steps = len(res[0]["metrics"])
+            per = [_assemble_tp([dict(x, shards={p: g[s] for p, g in
+                                                 x["grads"].items()})
+                                 for x in res], pl, m)
+                   for s in range(steps)]
+            got["grads"] = {p: np.stack([g[p] for g in per])
+                            for p in per[0]}
+        report[name] = _parity(got, ref, f"{what} {name}",
+                               band_atol=band_atol)
+        for r, x in enumerate(res):
+            got_l = {k: x["launches"][k] for k in want}
+            check(got_l == want, f"{what} {name} rank {r}: launches "
+                  f"{got_l}, the path implies {want}")
+            for step, mt in enumerate(x["meter"]):
+                _tier_local(f"{what} {name}", r, step, mt)
+    eager = [r["locality"] for r in res_by_rank]
+    pf = [r["locality_prefetch"] for r in res_by_rank]
+    check(all(a["metrics"] == b["metrics"] and all(
+        np.array_equal(a["shards"][k], b["shards"][k]) for k in a["shards"])
+        for a, b in zip(eager, pf)),
+        f"{what}: the prefetch step is not bitwise the eager one")
+    return report
+
+
+def _tp_full_width(smi: str, res_by_rank: list, arch: str, layers: int,
+                   modes, steps: int, phase: str, lane_rank: list,
+                   ranks_s: float) -> dict[str, int]:
+    """8e's or 8ev's runs of ``arch`` at full width, cut to ``layers``, of
+    ``steps`` steps (``res_by_rank``: each rank's {mode: run}): metrics equal on every rank and finite, each rank's launches
+    the path's, its gathers' and reduce-scatters' non-local messages and
+    bytes a step :func:`fsdp_oracle`'s, the tier's collectives inside each
+    pod; prints a line a mode and returns the launches per kernel, summed
+    over the ranks and modes."""
+    from repro_torch import configs
+    q, pl, m = TP_GRID
+    n = q * pl * m
+    published = configs.get(arch)
+    full = dataclasses.replace(published, n_layers=layers)
+    want = train_launches_implied(layers, steps, cfg=full)
     total = {}
-    for name, kw in TP_VARIANTS:
-        res = [r["full"][name] for r in ranks]
+    for name, kw in modes:
+        res = [r[name] for r in res_by_rank]
         for r in range(1, n):
             check(res[r]["metrics"] == res[0]["metrics"],
-                  f"train_tp {name}: rank {r}'s metrics differ")
+                  f"{phase} {name}: rank {r}'s metrics differ")
         check(all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
                   for x in res[0]["metrics"]),
-              f"train_tp {name}: non-finite metrics")
+              f"{phase} {name}: non-finite metrics")
         alg = kw.get("grad_sync", "locality")
         oracle = fsdp_oracle(full, q, pl, alg, False, m)
         for r, x in enumerate(res):
             got_l = {k: x["launches"][k] for k in want}
-            check(got_l == want, f"train_tp {name} rank {r}: launches "
+            check(got_l == want, f"{phase} {name} rank {r}: launches "
                   f"{got_l}, the path implies {want}")
             for k, c in path_launches(x["launches"]).items():
                 total[k] = total.get(k, 0) + c
             for step, mt in enumerate(x["meter"]):
                 got = _nonlocal(mt, alg)
                 check(got == oracle[lane_rank[r]],
-                      f"train_tp {name} rank {r} step {step}: non-local "
+                      f"{phase} {name} rank {r} step {step}: non-local "
                       f"{got}, the oracle {oracle[lane_rank[r]]}")
-                _tier_local(f"train_tp {name}", r, step, mt)
+                _tier_local(f"{phase} {name}", r, step, mt)
         per_rank = lambda f: [[x_[f] for x_ in x["meter"]] for x in res]
         print(json.dumps({
-            "phase": "train_tp", "variant": name,
+            "phase": phase, "variant": name,
             "shared": "8 ranks sharing one H100 over gloo",
             "grid": "2 x 2 x 2 (pod, data, model)",
-            "model": full.name, "layers": FSDP_LAYERS,
-            "reduced": f"depth 28 -> {FSDP_LAYERS} layers (gloo host "
-                       "transport)",
+            "model": full.name, "layers": full.n_layers,
+            "heads_per_model_rank": [full.n_heads // m,
+                                     full.n_kv_heads // m],
+            "reduced": f"depth {published.n_layers} -> {layers} layers "
+                       "(gloo host transport)",
             "dtype": "bfloat16 compute, fp32 master",
-            "batch": [q * pl, TRAIN_SEQ], "steps": TP_STEPS,
+            "batch": [q * pl, TRAIN_SEQ], "steps": steps,
             "losses": [x["loss"] for x in res[0]["metrics"]],
             "grad_norms": [x["grad_norm"] for x in res[0]["metrics"]],
             "step_ms_by_rank": [x["step_ms"] for x in res],
@@ -5212,6 +5391,7 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
             "staged_bytes_by_rank": per_rank("staged_bytes"),
             "model_tier_staged_bytes_by_rank": per_rank("model_staged_bytes"),
             "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+            "peak_gb_max": max(x["peak_bytes"] for x in res) / 1e9,
             "gathers_per_step": res[0]["meter"][0]["gathers"],
             "reduce_scatters_per_step": res[0]["meter"][0]["reduce_scatters"],
             "model_tier_calls_per_step": res[0]["meter"][0]["model_calls"],
@@ -5222,7 +5402,7 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
             "launches_rank0": {k: res[0]["launches"][k]
                                for k in TRAIN_KERNELS},
             "ranks_wall_s": ranks_s, "card": smi}))
-    return {"train_tp": total}
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5236,7 +5416,7 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict
 # same 4 x 1,024 tokens, within SSM_TP_LOSS_REL: bf16 compute, and the tier
 # sums out_proj's bf16 partial products and the gated norm's row
 # statistics in another order than one rank's products (the bf16 loss
-# limit of phase 10b)
+# limit phase 10b held its "none" dispatch to)
 SSM_TP_LAYERS, SSM_TP_STEPS = 2, 2
 SSM_TP_VARIANTS = TP_VARIANTS
 SSM_TP_LOSS_REL = 1e-2
@@ -5358,28 +5538,28 @@ def train_ssm_tp_on_ranks(smi: str) -> dict[str, dict[str, int]]:
 # 10a: the reduced fp32 qwen2-moe (the smoke config at 2 layers: 8 experts
 # at top-4, 2 shared) on 2 x 2 ranks, and with 12 experts on 3 x 2, with
 # the locality and the xla dispatch (+ FSDP), against the card's one rank
-# at the PARITY_* limits. Each rank's auxiliary loss is its own rows' (the
-# JAX step's under its DP shard_map), a function of the split: the one
-# rank runs the p ranks' rows as p microbatches (``grad_accum=p``), which
-# averages the same p losses and gradients. 10b: qwen2-moe-a2.7b at full
+# at the PARITY_* limits, and with "none" (every rank holds every expert,
+# FSDP-gathered: the launcher's and Trainer's default). Each rank's
+# auxiliary loss is its own rows' (the JAX step's under its DP shard_map),
+# a function of the split: the one rank runs the p ranks' rows as p
+# microbatches (``grad_accum=p``), which averages the same p losses and
+# gradients. 10b: qwen2-moe-a2.7b at full
 # width on 2 x 2 of the ranks, depth cut to 1 layer (the gloo host
 # transport; 2 until phase 4v needed the run's time), one 1,024-token
 # sequence a rank, locality + FSDP with
-# moe_dispatch "locality" (the tokens transport: 2 pods < K·cf = 5),
-# "xla" (slots) and "none" (every rank holds every expert, FSDP-gathered):
-# the first two deliver the same slot values to the same expert products,
-# so their first losses must be bitwise equal; "none"'s (other row counts
-# in the expert products, so possibly other bf16 roundings) within
-# MOE_LOSS_REL.
+# moe_dispatch "locality" (the tokens transport: 2 pods < K·cf = 5) and
+# "xla" (slots): both deliver the same slot values to the same expert
+# products, so their first losses must be bitwise equal. "none" (~50 s a
+# step over gloo at full width) ran here too, its first loss within 1e-2
+# of theirs, until phase 8ev needed the run's time; it runs in 10a since.
 MOE_PARITY_GRIDS = {(2, 2): {}, (3, 2): {"n_experts": 12}}
 MOE_PARITY_VARIANTS = (("locality", dict(fsdp=True, moe_dispatch="locality")),
-                       ("xla", dict(fsdp=True, moe_dispatch="xla")))
+                       ("xla", dict(fsdp=True, moe_dispatch="xla")),
+                       ("none", dict(fsdp=True, moe_dispatch="none")))
 MOE_GRID, MOE_LAYERS, MOE_TRAIN_SEQ = (2, 2), 1, 1024
-# (dispatch, steps): the locality dispatch two steps (a steady one); xla
-# and none one each, the loss agreement's (none's step, ~50 s over gloo
-# at 2 layers, gathers every expert twice)
-MOE_DISPATCHES = (("locality", 2), ("xla", 1), ("none", 1))
-MOE_LOSS_REL = 1e-2
+# (dispatch, steps): the locality dispatch two steps (a steady one), xla
+# one, the loss agreement's
+MOE_DISPATCHES = (("locality", 2), ("xla", 1))
 
 
 def _moe_small(**over):
@@ -5490,6 +5670,11 @@ def train_moe_on_ranks(smi: str) -> dict[str, dict[str, int]]:
             report[key] = _parity(got, ones[q, pl]["cuda"],
                                   f"train_parity_moe {key}")
             report[key]["transport"] = res[0]["moe"][1]
+            if name == "none":           # every expert here: no all-to-all
+                check(all(m["a2a_calls"] == 0 for x in res
+                          for m in x["meter"]),
+                      f"train_parity_moe {key}: all-to-alls ran")
+                continue
             report[key]["a2a"] = a2a_check(res, q, pl,
                                            f"train_parity_moe {key}")
     print(json.dumps({
@@ -5524,9 +5709,8 @@ def train_moe_on_ranks(smi: str) -> dict[str, dict[str, int]]:
             for k, n in path_launches(x["launches"]).items():
                 total[k] = total.get(k, 0) + n
         transport = res[0]["moe"]
-        a2a = (a2a_check(res, q, pl, f"train_moe {name}")
-               if name != "none" else None)
-        want_t = {"locality": "tokens", "xla": "slots", "none": ""}[name]
+        a2a = a2a_check(res, q, pl, f"train_moe {name}")
+        want_t = {"locality": "tokens", "xla": "slots"}[name]
         check(transport == (name, want_t),
               f"train_moe {name}: resolved {transport}")
         mean = lambda f: [float(np.mean([m[f] for m in x["meter"]]))
@@ -5563,15 +5747,9 @@ def train_moe_on_ranks(smi: str) -> dict[str, dict[str, int]]:
     check(losses["locality"][0] == losses["xla"][0],
           f"train_moe: the tokens and slots transports' first losses "
           f"{losses['locality'][0]} and {losses['xla'][0]} differ")
-    d_none = abs(losses["locality"][0] - losses["none"][0]) \
-        / abs(losses["none"][0])
-    check(d_none <= MOE_LOSS_REL,
-          f"train_moe: first loss against none {d_none} (relative, limit "
-          f"{MOE_LOSS_REL})")
     print(json.dumps({"phase": "train_moe_agreement",
                       "first_loss_locality_equals_xla": True,
-                      "first_loss_rel_vs_none": d_none,
-                      "limit": MOE_LOSS_REL, "card": smi}))
+                      "card": smi}))
     return {"train_moe": total}
 
 
@@ -5748,12 +5926,13 @@ def main() -> int:
     by_path["train_one_rank_ssm"] = train_one_rank(smi, "mamba2-780m",
                                                    "train_one_rank_ssm")
     clock("train_one_rank_ssm")
-    by_path.update(train_variants(smi))
+    paths, variant_refs = train_variants(smi)
+    by_path.update(paths)
     clock("train_variants")
     paths, (flat, one) = train_on_ranks(smi)
     by_path.update(paths)
     clock("train_on_ranks")
-    by_path.update(train_tp_on_ranks(smi, flat, one))
+    by_path.update(train_tp_on_ranks(smi, flat, one, variant_refs))
     clock("train_tp_on_ranks")
     by_path.update(train_moe_on_ranks(smi))
     clock("train_moe_on_ranks")
@@ -5846,18 +6025,20 @@ def main() -> int:
                               "max_abs_err_forward_lse")}
     for path, key in (("train_fsdp", "fsdp_rank_cases"),
                       ("train_tp", "tp_rank_cases"),
-                      ("train_moe", "moe_rank_cases")):
+                      ("train_moe", "moe_rank_cases"),
+                      ("train_tier_variants", "tier_variant_rank_cases")):
         rank_rows = [r for r in bwd["flash_attention_bwd"]
                      if r["path"] == path]
         kernels[1][key] = {
-            k: [r[k] for r in rank_rows]
-            for k in ("shape", "forward_ms", "forward_lse_ms",
+            k: [r.get(k) for r in rank_rows]
+            for k in ("shape", "mask", "forward_ms", "forward_lse_ms",
                       "forward_bound_ms", "forward_library_ms",
+                      "forward_sdpa_uncapped_yardstick_ms",
                       "max_abs_err_forward_o", "max_abs_err_forward_lse")}
     for row in kernels:        # the backward kernels at 8c's, 8e's and edge
         if row["name"] in bwd_kernels:                   # shapes
             for path in ("train_fsdp", "train_tp", "train_moe",
-                         "train_variants", "edges"):
+                         "train_variants", "train_tier_variants", "edges"):
                 sel = [r for r in cases[row["name"]] if r["path"] == path]
                 if not sel:
                     continue

@@ -130,10 +130,8 @@ class ModelConfig:
 def variant_features(cfg: ModelConfig) -> list[str]:
     """The dense variants' features ``cfg`` uses: sliding-window layers
     (ring caches), softcaps, sandwich norms, ``scale_embed`` and GeGLU.
-    The port serves them on one rank and on grids (a model tier too) and
-    trains them on one rank or FSDP ranks; training them on a model tier
-    waits for the training half of ROADMAP.md Queue 1 item 5.2
-    (``models/tp.check_tp``)."""
+    The port serves and trains them on one rank and on grids, a model
+    tier too (``models/tp.check_tp``)."""
     out = []
     if cfg.window or any(s.attn == "window" for s in cfg.layer_plan()):
         out.append("window layers (ring caches)")
@@ -161,10 +159,8 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     RMSNorm's backward kernels. The dense variants' features
     (:func:`variant_features`: window layers with ring caches, softcaps,
     sandwich norms, ``scale_embed``, GeGLU) are served on one rank and on
-    grids, a model tier included, and trained on one rank's model (FSDP
-    ranks included; a model tier's training refuses them,
-    ``models/tp.check_tp``). Everything else waits for a later slice of the
-    port and must not be ignored silently.
+    grids, a model tier included, and trained there too. Everything else
+    waits for a later slice of the port and must not be ignored silently.
     """
     if mode not in ("serve", "train"):
         raise ValueError(f"unknown mode {mode!r}")

@@ -55,7 +55,11 @@ serve so too: a window, the attention softcap and GeGLU act per head and
 per column; gemma2's post-norms and the embedding scale act on the tier's
 sums, whole on every rank; the final softcap acts elementwise on the
 rank's vocabulary columns (an untied head's columns), before the greedy
-token.
+token. Training takes them the same way (``transformer.block_train`` with
+``tp``): the post-norms norm what :meth:`TensorParallel.leave` gives, the
+tier's sum (with ``seq_shard`` the rank's positions of it, so their
+scales' gradients take the tier's sum in the step), and the capped
+logits of the rank's columns enter the vocabulary-parallel loss.
 
 In training every model-tier collective is an autograd function with its
 transpose as the backward: the identity and the allreduce (``copy_in`` /
@@ -77,7 +81,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..configs import ModelConfig, variant_features
+from ..configs import ModelConfig
 from ..core import collectives as C
 from .ssm import MAMBA_PARAMS, mamba_apply, ssm_dims
 
@@ -93,26 +97,18 @@ MAMBA_TIER_LEAVES = ("in_proj_bc", "conv_w_bc")
 def check_tp(cfg: ModelConfig, m: int, use: str = "train") -> None:
     """Refuse what the port's tensor parallelism does not split over m, for
     ``use`` "serve" (``Transformer(..., tp=)``) or "train" (the blocks of
-    :func:`block_train_tp`). Serving takes the dense variants (window,
-    softcaps and GeGLU per head and column, the post-norms and embedding
-    scale whole on every rank) and the untied head (its vocabulary
-    columns); training refuses both."""
+    ``transformer.block_train`` on a model rank). Both take the dense
+    variants (window, softcaps and GeGLU per head and column, the
+    post-norms and embedding scale on the tier's sums) and the untied head
+    (its vocabulary columns); the MoE family is refused."""
     if use not in ("serve", "train"):
         raise ValueError(f"unknown use {use!r}")
     if m <= 1:
         return
-    variants = variant_features(cfg)
-    if variants and use == "train":
+    if cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name} trained on a model tier of {m}: the port's "
-            f"tensor-parallel training blocks have no {', '.join(variants)}; "
-            "training the dense variants on a model tier is the training "
-            "half of ROADMAP.md Queue 1 item 5.2")
-    if cfg.family == "moe" or (use == "train" and not cfg.tie_embeddings):
-        raise NotImplementedError(
-            f"{cfg.name} on a model tier of {m}: the MoE family, and the "
-            "untied head in training, are not split over 'model' yet "
-            "(ROADMAP.md Queue 1 item 14)")
+            f"{cfg.name} on a model tier of {m}: the MoE family is not split "
+            "over 'model' yet (ROADMAP.md Queue 1 item 14)")
     if cfg.family == "ssm":
         _, H, _, _, G = ssm_dims(cfg)
         hl, hg = H // m, H // G
@@ -460,31 +456,6 @@ class TensorParallel:
         ll = self.reduce_out(torch.where(pos == labels[..., None], lg,
                                          0.0).sum(-1))
         return torch.mean(lse - ll)
-
-
-def block_train_tp(x, w: dict[str, Any], cos, sin, cfg: ModelConfig,
-                   tp: TensorParallel, seq: bool):
-    """``transformer.block_train`` on one model rank: ``x`` is the residual
-    stream (B, S/m, d) with ``seq``, else (B, S, d); ``w`` the rank's
-    weights (its columns of the column-parallel leaves, its rows of the
-    row-parallel ones). The same kernels: flash attention over the rank's
-    heads, the plain and residual RMSNorm forms."""
-    from ..kernels.flash_attention.ops import flash_attention_train
-    from ..kernels.rmsnorm.ops import rmsnorm_residual_train, rmsnorm_train
-    from .layers import apply_rope_angles, mlp_apply
-    B = x.shape[0]
-    D = cfg.head_dim_
-    h = tp.enter(rmsnorm_train(x, w["ln1"], eps=cfg.norm_eps), seq)
-    S = h.shape[1]
-    q = apply_rope_angles((h @ w["wq"]).reshape(B, S, -1, D), cos, sin)
-    k = apply_rope_angles((h @ tp.kv_weight(w["wk"])).reshape(B, S, -1, D),
-                          cos, sin)
-    v = (h @ tp.kv_weight(w["wv"])).reshape(B, S, -1, D)
-    o = flash_attention_train(q, k, v, causal=True)
-    y = tp.leave(o.reshape(B, S, -1) @ w["wo"], seq)
-    x, h = rmsnorm_residual_train(x, y, w["ln2"], eps=cfg.norm_eps)
-    h = tp.enter(h, seq)
-    return x + tp.leave(mlp_apply(h, w["gate"], w["up"], w["down"]), seq)
 
 
 def mamba_train_tp(x, w: dict[str, Any], cfg: ModelConfig,

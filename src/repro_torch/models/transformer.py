@@ -88,8 +88,7 @@ from .layers import (apply_rope_angles, dense_init, embed_init, embed_scale,
 from .moe import moe_apply, moe_init, moe_shapes
 from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
                   mamba_shapes)
-from .tp import (MAMBA_TIER_LEAVES, block_train_tp, mamba_train_tp,
-                 ssm_tier_tree)
+from .tp import MAMBA_TIER_LEAVES, mamba_train_tp, ssm_tier_tree
 
 ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
 LAYER_PARAMS = ATTN_PARAMS + ("gate", "up", "down")
@@ -146,34 +145,44 @@ def find_period(plan) -> tuple[int, int, int]:
     return n, 1, 0
 
 
-def attn_qkv(x, w, cos, sin, cfg: ModelConfig, norm=rmsnorm):
+def _same(t):
+    return t
+
+
+def attn_qkv(x, w, cos, sin, cfg: ModelConfig, norm=rmsnorm, enter=_same,
+             kv_weight=_same):
     """A dense layer's first half up to attention: ``ln1``, the q/k/v
     projections and rotary embeddings; ``w`` maps ``LAYER_PARAMS`` names to
-    weights in ``cfg.dtype``."""
-    B, S, _ = x.shape
+    weights in ``cfg.dtype``. On a model rank (``w`` its heads' columns)
+    ``enter`` takes the normed input into the tier's split work and
+    ``kv_weight`` gives ``wk``/``wv`` as the columns of its KV heads."""
     D = cfg.head_dim_
-    h = norm(x, w["ln1"], eps=cfg.norm_eps)
+    h = enter(norm(x, w["ln1"], eps=cfg.norm_eps))
+    B, S, _ = h.shape
     q = apply_rope_angles((h @ w["wq"]).reshape(B, S, -1, D), cos, sin)
-    k = apply_rope_angles((h @ w["wk"]).reshape(B, S, -1, D), cos, sin)
-    v = (h @ w["wv"]).reshape(B, S, -1, D)
+    k = apply_rope_angles((h @ kv_weight(w["wk"])).reshape(B, S, -1, D),
+                          cos, sin)
+    v = (h @ kv_weight(w["wv"])).reshape(B, S, -1, D)
     return q, k, v
 
 
 def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
-            reduce=None, norm=rmsnorm):
+            reduce=_same, norm=rmsnorm, enter=_same):
     """A dense layer's second half from the attention output: ``x + o @ wo``
     and ``ln2`` in one pass, then ``x + mlp``; with sandwich norms ``o @
     wo`` and the MLP's output each go through their plain post-norm before
     their residual add. On a model rank (``w`` its heads' rows of ``wo``,
     its columns of the MLP) ``reduce`` sums the row-parallel products'
-    partial sums over the tier."""
-    B, S, _ = x.shape
-    reduce = reduce or (lambda y: y)
+    partial sums over the tier (with ``seq_shard`` it also keeps the rank's
+    positions), before the post-norm: RMSNorm is not linear, so it norms
+    the tier's sum; ``enter`` takes ``ln2``'s output into the MLP's split
+    work."""
     post = (lambda y, name: norm(y, w[name], eps=cfg.norm_eps)) \
         if cfg.sandwich_norm else (lambda y, name: y)
-    a = post(reduce(o.reshape(B, S, -1) @ w["wo"]), "post_ln1")
+    a = post(reduce(o.reshape(*o.shape[:2], -1) @ w["wo"]), "post_ln1")
     x, h = norm_residual(x, a, w["ln2"], eps=cfg.norm_eps)
-    m = reduce(mlp_apply(h, w["gate"], w["up"], w["down"], cfg.mlp_act))
+    m = reduce(mlp_apply(enter(h), w["gate"], w["up"], w["down"],
+                         cfg.mlp_act))
     return x + post(m, "post_ln2")
 
 
@@ -235,7 +244,7 @@ class Block(nn.Module):
         # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
         if self.moe:
             return out_moe(x, o, w, self.cfg)[0], kv
-        reduce = None if self.tp is None else self.tp.tier.all_reduce
+        reduce = _same if self.tp is None else self.tp.tier.all_reduce
         return out_mlp(x, o, w, self.cfg, reduce=reduce), kv
 
 
@@ -806,16 +815,29 @@ def _window(cfg: ModelConfig, spec) -> int:
     return cfg.window if spec.attn == "window" else 0
 
 
-def block_train(x, w, cos, sin, cfg: ModelConfig, spec):
+def block_train(x, w, cos, sin, cfg: ModelConfig, spec, tp=None,
+                seq: bool = False):
     """:class:`Block`'s math for a layer of the plan entry ``spec``, with
     the differentiable kernels: flash attention (the layer's window, the
     config's softcap) and the RMSNorm forms whose backward passes are
-    kernels (the sandwich's post-norms too)."""
-    q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
+    kernels (the sandwich's post-norms too). With ``tp``
+    (``models/tp.TensorParallel``) it runs on one model rank: ``x`` is the
+    residual stream, (B, S/m, d) with ``seq``, ``w`` the rank's columns
+    of the column-parallel leaves and rows of the row-parallel ones; the
+    normed inputs enter the tier (``tp.enter``), the row-parallel partial
+    sums leave it (``tp.leave``) before the post-norms, and the attention
+    runs over the rank's heads."""
+    enter = reduce = kv_weight = _same
+    if tp is not None:
+        enter = lambda h: tp.enter(h, seq)
+        reduce = lambda y: tp.leave(y, seq)
+        kv_weight = tp.kv_weight
+    q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train, enter=enter,
+                       kv_weight=kv_weight)
     o = flash_attention_train(q, k, v, causal=True, window=_window(cfg, spec),
                               cap=cfg.attn_softcap)
     return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
-                   norm=rmsnorm_train)
+                   norm=rmsnorm_train, reduce=reduce, enter=enter)
 
 
 def moe_block_train(x, w, cos, sin, cfg: ModelConfig, spec, dispatch=None):
@@ -865,10 +887,12 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     ``tp`` (``models/tp.TensorParallel``) runs the dense decoder or the
     Mamba2 stack on one rank of a model tier: the gathered weights are the
-    rank's part over "model" (its vocabulary rows of ``embed``; a Mamba2
-    layer's leaves of :func:`train_layout`'s tree), the blocks are
-    ``tp.block_train_tp`` or ``tp.mamba_train_tp`` and the logits the
-    rank's (B, S, Vpad/m) columns."""
+    rank's part over "model" (its vocabulary rows of ``embed``, columns of
+    an untied ``head``; a Mamba2 layer's leaves of :func:`train_layout`'s
+    tree), the blocks are :func:`block_train` with ``tp`` or
+    ``tp.mamba_train_tp``, the embedding is scaled after the tier's sum
+    and the logits are the rank's (B, S, Vpad/m) columns, softcapped
+    elementwise."""
     from torch.utils.checkpoint import checkpoint
     check_supported(cfg, "train")
     gather = gather or (lambda name, t, layer=None: t.to(cfg.dtype))
@@ -891,8 +915,7 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                     else mamba_train_tp(x, w, cfg, tp, seq))
         if spec.mlp == "moe":
             return moe_block_train(x, w, cos, sin, cfg, spec, moe_dispatch)
-        return (block_train(x, w, cos, sin, cfg, spec) if tp is None
-                else block_train_tp(x, w, cos, sin, cfg, tp, seq))
+        return block_train(x, w, cos, sin, cfg, spec, tp, seq)
 
     def gathered(i, spec, names, x, *leaves):
         return block(spec, x, {n: gather(n, t, i)

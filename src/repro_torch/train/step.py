@@ -47,10 +47,13 @@ sequence. A leaf sharded over "model" never syncs over the tier (where a
 rank uses more of it than its part, ``wk``/``wv`` whose KV heads m does not
 divide, the tier's gather does, in its backward); a leaf the tier holds
 whole takes the tier's sum where each model rank saw only part of the work:
-the norm scales with ``seq_shard``, and a Mamba2 layer's whole-held leaves
-always (each rank's gradient covers its SSD heads' work: the B and C
-columns and channels, ``conv_b``, ``dt_bias``, ``A_log``, ``D`` and the
-gated norm's scale; the ssm family's tree on a tier is
+the norm scales with ``seq_shard`` (gemma2's post-norms too: each rank
+norms its S/m positions of the tier's sum; without it every rank norms the
+whole sum, and the scales' gradients are the same on every rank), and a
+Mamba2 layer's whole-held leaves always (each rank's gradient covers its
+SSD heads' work: the B and C columns and channels, ``conv_b``,
+``dt_bias``, ``A_log``, ``D`` and the gated norm's scale; the ssm
+family's tree on a tier is
 ``transformer.train_layout``'s). The tier's collectives are the
 library's, under every ``grad_sync``, metered apart (``CommMeter.model_*``).
 
@@ -79,9 +82,8 @@ autograd view slices every slot's reps and takes each ``rest`` layer, and
 the gradients sync in the JAX flattening order.
 
 Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"``,
-``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8),
-the MoE family (item 14) and the dense variants (item 5.2) on a model
-tier.
+``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8) and
+the MoE family on a model tier (item 14).
 """
 from __future__ import annotations
 

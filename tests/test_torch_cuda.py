@@ -982,6 +982,47 @@ def test_flash_train_gradients_of_the_variants(cuda, dtype, case):
         _close(a, b, dtype, 1e-4)
 
 
+# a model rank's heads of the dense variants on a tier of 2 (B = 1 x 1,024):
+# gemma2-9b's 8/4 heads of 256 with and without cap 50, h2o-danube-3-4b's
+# 16/4 of 120 with its 4,096 window
+TIER_VARIANT_CASES = [
+    (1, 1024, 1024, 8, 4, 256, dict(causal=True, cap=50.0)),
+    (1, 1024, 1024, 8, 4, 256, dict(causal=True)),
+    (1, 1024, 1024, 16, 4, 120, dict(causal=True, window=4096))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TIER_VARIANT_CASES, ids=str)
+def test_flash_pair_at_a_model_ranks_variant_heads(cuda, dtype, case):
+    """The forward with lse and the backward pair at a model rank's heads:
+    o and lse against the plain forward (o 1e-4 fp32, 2e-2 bf16; lse 1e-4,
+    2e-3), dq, dk, dv against the plain backward on the same (o, lse), bf16
+    also against it in fp32, one launch of each backward kernel, on the
+    tensor cores for bf16."""
+    q, k, v, do, mask = _flash_inputs(case, dtype, cuda)
+    o, lse = flash_ops.flash_attention_lse(q, k, v, **mask)
+    ref_o, ref_lse = flash_ops.attention_lse_ref(q, k, v, **mask)
+    fp32 = dtype == torch.float32
+    _close(o, ref_o, dtype, 1e-4)
+    tol = 1e-4 if fp32 else 2e-3
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    n = (flash_ops.BWD_DQ_LAUNCHES, flash_ops.BWD_DKDV_LAUNCHES,
+         flash_ops.BWD_WGMMA_LAUNCHES)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    assert (flash_ops.BWD_DQ_LAUNCHES - n[0],
+            flash_ops.BWD_DKDV_LAUNCHES - n[1],
+            flash_ops.BWD_WGMMA_LAUNCHES - n[2]) == (1, 1, 2 * (not fp32))
+    ref = flash_ops.attention_bwd_ref(q, k, v, o, do, lse, **mask)
+    for a, b in zip(got, ref):
+        _close(a, b, dtype, 1e-4)
+    if not fp32:
+        ref32 = flash_ops.attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o, do)), lse, **mask)
+        for a, b in zip(got, ref32):
+            torch.testing.assert_close(a.float(), b, **BWD_BF16_VS_FP32)
+
+
 # the training shapes (one rank: 4,096 rows; an FSDP rank: 1,024), a
 # phase-7-sized 135 rows, narrow and wide rows, and d % 4 != 0 (one value
 # an access)

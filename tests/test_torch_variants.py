@@ -264,11 +264,12 @@ def test_engine_tokens_match_jax(arch):
 
 @pytest.mark.parametrize("arch", VARIANTS)
 def test_training_and_grids_refuse_the_variants(arch):
-    """What stays refused of the variants: training on a model tier, naming
-    the training half of ROADMAP.md Queue 1 item 5.2 (yi-6b, with no
-    variant feature, for its untied head, item 14). Serving takes them on
-    grids and on a model tier (tests/test_torch_variants_grid.py); one
-    rank's model, FSDP ranks included, trains them."""
+    """Nothing of the variants is refused any more: serving takes them on
+    grids and on a model tier (tests/test_torch_variants_grid.py), training
+    on one rank, FSDP ranks and a model tier of 2 or 4, the untied head of
+    yi-6b and h2o-danube by its vocabulary columns
+    (tests/test_torch_variants_tp.py); on a model tier only the MoE family
+    stays refused, naming ROADMAP.md Queue 1 item 14."""
     from repro_torch.models.tp import check_tp
     cfg = configs.get_smoke(arch)
 
@@ -280,11 +281,8 @@ def test_training_and_grids_refuse_the_variants(arch):
     res = ServeSpec(batch=4, cache_len=128).resolve(cfg, Grid())
     assert res.batch_sharded and res.m == 2
     check_tp(cfg, 2, "serve")
-    if not configs.variant_features(cfg):             # yi-6b: llama's path
-        with pytest.raises(NotImplementedError, match="item 14"):
-            check_tp(cfg, 2)                          # its untied head
-        return
-    with pytest.raises(NotImplementedError,
-                       match="trained on a model tier.*training half.*"
-                             "item 5.2"):
-        check_tp(cfg, 2)
+    for m in (2, 4):
+        check_tp(cfg, m, "train")
+    assert bool(configs.variant_features(cfg)) == (arch != "yi-6b")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        check_tp(configs.get_smoke("qwen2-moe-a2.7b"), 2, "train")

@@ -32,8 +32,9 @@ Sequences of 96 tokens, so the window bites.
 - The tree: the JAX ``init_params`` tree converts leaf for leaf, the port's
   own init has its shapes and the serving init's values, and the FSDP
   specs are the JAX package's, ``rest`` and ``slot1`` included.
-- What stays refused: the variants on a model tier, through
-  ``make_train_step`` on a 2 x 2 x 2 grid (ROADMAP.md Queue 1 item 5.2).
+- The model tier takes them: ``make_train_step`` on a 2 x 2 x 2 grid
+  builds the step of each variant (the steps themselves are held against
+  the JAX (2, 2, 2) step in ``tests/test_torch_variants_tp.py``).
 """
 import dataclasses
 import json
@@ -371,11 +372,13 @@ def test_recorded_edges_against_the_jax_hlo(trained, jax_out, name):
 
 
 def test_the_model_tier_refuses_the_variants(pool):
-    """gemma2's smoke on a 2 x 2 x 2 grid: ``make_train_step`` refuses it
-    (the tensor-parallel blocks have no window, softcap or sandwich norm),
-    naming ROADMAP.md Queue 1 item 5.2, on every rank."""
-    res = pool.run(H.task_variant_tier_refusal, 2, 2, 2, "gemma2-9b")
-    assert all(r is not None and "item 5.2" in r for r in res), res
+    """On a 2 x 2 x 2 grid ``make_train_step`` takes every variant's smoke
+    config on every rank (gemma2's window, softcaps and sandwich norms,
+    h2o-danube's windows and untied head, yi-6b's untied head): nothing is
+    refused since the model tier's blocks run the variants' math."""
+    for arch in ("gemma2-9b", "h2o-danube-3-4b", "yi-6b"):
+        res = pool.run(H.task_variant_tier_refusal, 2, 2, 2, arch)
+        assert res == [None] * 8, (arch, res)
 
 
 def test_trainer_and_launcher_train_the_variants_on_one_rank(capsys):

@@ -835,19 +835,22 @@ for sub, one in (plan["models"].items() if "models" in plan
     os.makedirs(f"{sys.argv[1]}/{sub}", exist_ok=True)
     run(one, f"{sys.argv[1]}/{sub}")
 """
-# The JAX (2, 2, 2) ("pod", "data", "model") step for tests/test_torch_tp.py
-# and tests/test_torch_ssm_tp.py: ``python -c JAX_TP_REFERENCE out_dir
-# plan.json`` with plan {n_layers, global_batch, seq_len, steps, variants
-# (name -> make_train_step keywords, "grad_sync" among them), and optionally
-# arch (the smoke config's, llama3.2-3b by default) and precise_ssd (the
-# mixer's ssd_chunked made precise, the function the port's kernel
-# computes)}. On jax 0.9.0 the mesh needs Auto axes, no jax.set_mesh, and
-# the steps under ``with mesh:`` (with ``jax.set_mesh``, or Explicit axes,
-# the embedding gather raises ShardingTypeError). Writes out.json (losses,
-# grad norms, the mesh's device ids) and an .npz of parameters per variant
-# (and params0, the initial state's).
+# The JAX (2, 2, 2) ("pod", "data", "model") step for tests/test_torch_tp.py,
+# tests/test_torch_ssm_tp.py and tests/test_torch_variants_tp.py: ``python
+# -c JAX_TP_REFERENCE out_dir plan.json`` with plan {n_layers, global_batch,
+# seq_len, steps, variants (name -> make_train_step keywords, "grad_sync"
+# among them), and optionally arch (the smoke config's, llama3.2-3b by
+# default), replace (fields of that config replaced, e.g. head_dim) and
+# precise_ssd (the mixer's ssd_chunked made precise, the function the
+# port's kernel computes)}, or {"models": {sub-directory: such a plan},
+# precise_ssd} for several models in one process. On jax 0.9.0 the mesh
+# needs Auto axes, no jax.set_mesh, and the steps under ``with mesh:``
+# (with ``jax.set_mesh``, or Explicit axes, the embedding gather raises
+# ShardingTypeError). Writes out.json (losses, grad norms, the mesh's
+# device ids) and an .npz of parameters per variant (and params0, the
+# initial state's) into out_dir, or into each model's sub-directory.
 JAX_TP_REFERENCE = r"""
-import dataclasses, json, sys, warnings
+import dataclasses, json, os, sys, warnings
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import AxisType
@@ -856,43 +859,54 @@ from repro import configs
 from repro.data import SyntheticLM
 from repro.train.step import custom_batch_specs, init_state, make_train_step
 
-out_dir = sys.argv[1]
+path_of = lambda path: "/".join(
+    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def run(plan, out_dir):
+    cfg = dataclasses.replace(
+        configs.get_smoke(plan.get("arch", "llama3.2-3b")),
+        n_layers=plan["n_layers"], dtype=jnp.float32,
+        **plan.get("replace", {}))
+    B, S = plan["global_batch"], plan["seq_len"]
+    mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                         axis_types=(AxisType.Auto,) * 3)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                       seed=0)
+    save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
+        path_of(p): np.asarray(v)
+        for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+    res = {"device_ids": np.vectorize(lambda d: d.id)(mesh.devices).tolist()}
+    with mesh:
+        for i, (name, kw) in enumerate(plan["variants"].items()):
+            art = make_train_step(cfg, mesh,
+                                  shape=custom_batch_specs(cfg, B, S),
+                                  donate=False, **kw)
+            state = init_state(cfg, mesh, art)
+            if i == 0:
+                save("params0", state.params)
+            losses, norms = [], []
+            for step in range(plan["steps"]):
+                batch = {k: jax.device_put(v, art.batch_shardings[k])
+                         for k, v in data.batch(step).items()}
+                state, m = art.step_fn(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            save(name, state.params)
+            res[name] = {"losses": losses, "grad_norms": norms}
+    with open(f"{out_dir}/out.json", "w") as fh:
+        json.dump(res, fh)
+
+
 plan = json.loads(open(sys.argv[2]).read())
 if plan.get("precise_ssd"):
     import functools
     from repro.models import ssm
     ssm.ssd_chunked = functools.partial(ssm.ssd_chunked, precise=True)
-cfg = dataclasses.replace(configs.get_smoke(plan.get("arch", "llama3.2-3b")),
-                          n_layers=plan["n_layers"], dtype=jnp.float32)
-B, S = plan["global_batch"], plan["seq_len"]
-mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
-                     axis_types=(AxisType.Auto,) * 3)
-data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                   seed=0)
-path_of = lambda path: "/".join(
-    str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
-save = lambda name, tree: np.savez(f"{out_dir}/{name}.npz", **{
-    path_of(p): np.asarray(v)
-    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
-res = {"device_ids": np.vectorize(lambda d: d.id)(mesh.devices).tolist()}
-with mesh:
-    for i, (name, kw) in enumerate(plan["variants"].items()):
-        art = make_train_step(cfg, mesh, shape=custom_batch_specs(cfg, B, S),
-                              donate=False, **kw)
-        state = init_state(cfg, mesh, art)
-        if i == 0:
-            save("params0", state.params)
-        losses, norms = [], []
-        for step in range(plan["steps"]):
-            batch = {k: jax.device_put(v, art.batch_shardings[k])
-                     for k, v in data.batch(step).items()}
-            state, m = art.step_fn(state, batch)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-        save(name, state.params)
-        res[name] = {"losses": losses, "grad_norms": norms}
-with open(f"{out_dir}/out.json", "w") as fh:
-    json.dump(res, fh)
+for sub, one in (plan["models"].items() if "models" in plan
+                 else [("", plan)]):
+    os.makedirs(f"{sys.argv[1]}/{sub}", exist_ok=True)
+    run(one, f"{sys.argv[1]}/{sub}")
 """
 
 # The JAX MoE steps for tests/test_torch_moe_train.py: ``python -c
@@ -975,14 +989,17 @@ def train_tree(flat: dict):
 
 
 def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
-               seq_len, kw, arch="llama3.2-3b", m=1, cfg_kw=None):
+               seq_len, kw, arch="llama3.2-3b", m=1, cfg_kw=None,
+               moments=False):
     """``make_train_step(**kw)`` on a q x pl (x m) grid (q None: one
     process, every rank runs it alone) from the given parameters, on the
     CPU, for ``steps`` steps of ``SyntheticLM(seed=0)`` (this rank's rows),
     for ``arch``'s smoke config at ``n_layers`` in fp32 (with ``cfg_kw``'s
     fields replaced). Returns the metrics of every step, this rank's
     parameter shards (by leaf path) with their FSDP dim and axes and model
-    dim, the step meter of the run and the resolved MoE dispatch."""
+    dim, the step meter of the run and the resolved MoE dispatch; with
+    ``moments``, AdamW's first moments by leaf path ("mu": after one step,
+    (1 - b1) times the clipped gradient)."""
     import dataclasses
     from repro_torch.data import SyntheticLM, host_shard
     from repro_torch.optim.adamw import leaves
@@ -1026,7 +1043,9 @@ def task_train(ctx, q, pl, flat_params, n_layers, steps, global_batch,
                    a2a=meter.a2a_stats.edge_counts(),
                    moe_gathers=meter.moe_gathers,
                    moe_gather=meter.moe_gather_stats.edge_counts()),
-        moe=(art.moe_dispatch, art.moe_transport, art.moe_dispatch_source))
+        moe=(art.moe_dispatch, art.moe_transport, art.moe_dispatch_source),
+        mu={p: t.numpy().copy() for p, t in zip(paths, leaves(state.mu))}
+        if moments else None)
 
 
 def tree_paths(tree, path=()) -> list[str]:
@@ -1123,6 +1142,13 @@ def task_variant_tier_refusal(ctx, q, pl, m, arch):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+def task_launch_train(ctx, args):
+    """The training launcher's rank function (``launch.train._train_rank``)
+    on this rank, with the launcher's parsed ``args``."""
+    from repro_torch.launch import train as launch
+    return launch._train_rank(ctx.rank, ctx.world, args)
 
 
 def task_mesh(ctx, shape, axes):
