@@ -193,6 +193,29 @@ the package is missing. Phases, each fatal on failure:
    layers, fp32, a 4,090-token prompt decoded across the ring's wrap in
    the engine, its 12 logits within ``VARIANT_EXACT_TOL`` of a plain
    full-sequence forward with no ring and its tokens equal;
+4l. llama4-scout-17b-a16e at full width (d_model 5,120, 40/8 heads of
+   128, 16 routed experts at sigmoid top-1 and a shared expert of 8,192,
+   vocabulary 202,048, untied head) cut to 8 of 48 layers, two iRoPE
+   periods of three chunked-local layers (chunk 8,192, qk-norm, RoPE)
+   and one global NoPE layer (~19.7 B parameters, bf16),
+   ``serve_llama4``: batch 4, 16,384 slots (the chunked layers' rings
+   8,192), four requests, a 9,000-token prompt whose prefill rolls the
+   rings and three of 8,185-8,190 tokens whose decode crosses the chunk
+   boundary, one CUDA graph a decode step; launch counts, RMSNorm forms
+   (qk-norm's two plain norms a layer) and the chunked-ring decode
+   instances as the path implies; the graph's tokens against eager
+   decoding (``moe_decode_checks``); a profiled prefill and decode window.
+   Before it, the kernels at its shapes (``llama4_kernel_cases``: flash
+   with the chunk at S = 9,000 beside SDPA with the boolean mask; the
+   decode pair on an 8,192-slot chunked ring before and after the
+   boundary and on the first two 2,048-slot shards at position 8,300, one
+   keeping part, one none, beside SDPA masked to the kept slots; RMSNorm
+   at qk-norm's rows beside ``F.rms_norm``); after it
+   ``llama4_exact_check``: the reduced fp32 llama4 (chunk 64, 10/2 heads
+   of 128, a capacity factor that drops no token) served past the chunk
+   boundary and past two chunks at prefill, its logits within
+   ``VARIANT_EXACT_TOL`` of a plain full-sequence forward and its tokens
+   equal;
 6. sequence-parallel serving, ``serve_seq_parallel``: 6 spawned ranks on
    this one card, joined in one gloo group (``launch.serve.run_ranks``).
    First a reduced llama3.2-3b (2 layers, fp32, full width, a 6,144-slot
@@ -200,7 +223,7 @@ the package is missing. Phases, each fatal on failure:
    greedy tokens a request must equal the one-rank engine's exactly. Then llama3.2-3b at
    full width (bf16, random weights from seed 0) with
    ``ServeSpec(batch=1, cache_len=32768)`` on 2 x 2 of the ranks, three
-   requests of 3,000, 11,000 and 20,000 prompt tokens and 4 new tokens,
+   requests of 3,000 and 11,000 prompt tokens and 4 new tokens,
    submitted together and served one at a time, in three layouts:
    "locality" and "xla" over ("pod", "data") (8,192 slots a rank) and
    "locality" over ("data",) (16,384). Every rank prefills the whole
@@ -225,7 +248,7 @@ the package is missing. Phases, each fatal on failure:
    engine and the port's scheduler give for the same trace at a reduced
    size in tests/test_torch_serve_batch.py. Then llama3.2-3b at full width
    (bf16, random weights from seed 0), B = 8 on 2 x 2, 2 rows a rank:
-   16 requests of 128-1,536 prompt tokens and 32-64 new (seeded), all
+   16 requests of 128-1,536 prompt tokens and 16-32 new (seeded), all
    arriving at 0 and homed in pod 0, so pod 0's two ranks prefill every
    request, its rows fill locally and the rest migrate to pod 1 (the
    explicit donor move, then one ``cache_migrate`` per K and V slab);
@@ -419,11 +442,27 @@ the package is missing. Phases, each fatal on failure:
    each ring leaf at its own span, 2 L + 2 tier calls a forward, the
    decode graph rule, launches exact (the ring instances too); decode
    step ms, prefill ms, the combine's and the migration's host ms and
-   peak memory a rank. Last the whole run's wall time.
+   peak memory a rank.
+9l. the MoE family on (pod, data) grids, ``serve_moe_grids`` (after 9v):
+   4 spawned ranks as 2 x 2, every rank holding every expert. First the
+   reduced fp32 llama4 of 4l's exactness check and the reduced fp32
+   qwen2-moe-a2.7b (2 layers) on a 128-slot cache: 9l-a batch-sharded, 8
+   rows, 12 requests homed in pod 0 (later ones migrate,
+   ``locality_bruck``); 9l-b one B = 1 split cache with the locality
+   combine, a request crossing llama4's chunk boundary; every token equal
+   to a one-rank engine's, each split stack in its own shards, every
+   decode step combining in every layer. Then llama4-scout at full width
+   cut to 2 layers (both chunked, ~12.9 GB a rank), 16,384 slots: 9l-a
+   four requests homed in pod 0 (``MOE_GRID_MIGRATIONS`` migrate), 9l-b
+   one 8,300-token prompt whose 8,192-slot rings keep slots in the first
+   2,048-slot shard alone; held by phase 9's rule against one-rank
+   engines of the same 2 layers; decode step ms, prefill ms, migration
+   and combine host ms and peak memory a rank. Last the whole run's wall
+   time.
 
 Every kernel's launches are counted from 0 just before each main path
-(the DMA gather, phases 4, 5 and 4m, each engine of phases 6, 7, 9, 9m
-and 9v in its own process, the trainers of 8a and 8d, each run of 8c, 8e,
+(the DMA gather, phases 4, 5, 4m and 4l, each engine of phases 6, 7, 9,
+9m, 9v and 9l in its own process, the trainers of 8a and 8d, each run of 8c, 8e,
 8ev, 8f, 10b and of 8b's mamba2 ranks in its own process) and read just
 after it.
 
@@ -1594,15 +1633,19 @@ def _tier_split(cfg, st: dict) -> bool:
 
 
 def _sandwich(cfg) -> int:
-    """The plain post-norms a forward runs for the sandwich (2 a layer)."""
-    return 2 * cfg.n_layers if cfg.sandwich_norm else 0
+    """The plain post-norms a forward runs for the sandwich (2 a layer)
+    and for qk-norm (q and k of every attention layer)."""
+    attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
+    return ((2 * cfg.n_layers if cfg.sandwich_norm else 0)
+            + (2 * attn if cfg.qk_norm else 0))
 
 
 def launches_implied(cfg, st: dict) -> dict[str, int]:
     """What the serving path must launch for the engine's counts: rmsnorm
     2 per layer + the final norm per forward (a Mamba2 layer's gated norm
     split over a model tier 2 launches; a sandwich layer's two post-norms
-    2 more); per attention layer flash once per prefill, decode scores and
+    2 more, qk-norm's q and k 2 more); per attention layer flash once per
+    prefill, decode scores and
     decode stats once per decode step (each step one replay of the
     captured decode graph); per Mamba2 layer ssd once per prefill."""
     attn = sum(s.mixer == "attn" for s in cfg.layer_plan())
@@ -1618,8 +1661,9 @@ def launches_implied(cfg, st: dict) -> dict[str, int]:
 
 RMS_FORM_NAMES = ("plain", "residual", "gated", "gated_rowsq",
                   "gated_finish")
-# the dense variants' instances, inside the counts of PATH_KERNELS: flash
-# at head dim 120, the decode pair over a ring cache
+# the dense variants' and llama4's instances, inside the counts of
+# PATH_KERNELS: flash at head dim 120, the decode pair over a ring cache
+# (a window or a chunked layer's)
 VARIANT_KERNELS = ("flash_attention_d120", "decode_scores_ring",
                    "decode_stats_ring")
 
@@ -1627,10 +1671,11 @@ VARIANT_KERNELS = ("flash_attention_d120", "decode_scores_ring",
 def variant_launches_implied(cfg, st: dict) -> dict[str, int]:
     """Of the path's launches, flash at D = 120 once per attention layer
     and prefill (h2o-danube), the decode pair over a ring once per window
-    layer and decode step."""
+    or chunked layer and decode step."""
+    from repro_torch.models.transformer import ring_cache_len
     plan = cfg.layer_plan()
     attn = sum(s.mixer == "attn" for s in plan)
-    ring = sum(s.attn == "window" for s in plan) if cfg.window else 0
+    ring = sum(ring_cache_len(cfg, s) is not None for s in plan)
     return {"flash_attention_d120":
             attn * st["prefills"] if cfg.head_dim_ == 120 else 0,
             "decode_scores_ring": ring * st["decode_steps"],
@@ -1639,7 +1684,8 @@ def variant_launches_implied(cfg, st: dict) -> dict[str, int]:
 
 def rmsnorm_forms_implied(cfg, st: dict) -> dict[str, int]:
     """Per forward: ln1 of every layer and the final norm plain (and a
-    sandwich layer's two post-norms); ln2 of an attention layer fused with
+    sandwich layer's two post-norms, an attention layer's qk-norm of q and
+    k); ln2 of an attention layer fused with
     the residual add before it; a Mamba2 layer's gated norm fused with its
     gate (on a model tier split over it: the rows' partial sums of squares
     and the finish)."""
@@ -1655,20 +1701,26 @@ def rmsnorm_forms_implied(cfg, st: dict) -> dict[str, int]:
 
 
 def serve_full_width(smi: str, arch: str, phase: str, cache_len: int = 1024,
-                     extra: tuple = ()) -> dict[str, int]:
-    """Serve 16 requests on ``arch`` at its published size, and the
-    ``extra`` (prompt length, new tokens) requests after them, at batch 8
-    and ``cache_len`` slots; returns the path's launches per kernel."""
+                     extra: tuple = (), layers: int | None = None,
+                     batch: int = 8, n_random: int = 16) -> dict[str, int]:
+    """Serve ``n_random`` requests on ``arch`` at its published size (its
+    first ``layers`` layers where given), and the ``extra`` (prompt
+    length, new tokens) requests after them, at ``batch`` rows and
+    ``cache_len`` slots; returns the path's launches per kernel (and its
+    ring instances)."""
     from repro_torch import configs, kernels
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import Engine, Request, ServeSpec
 
     cfg = configs.get(arch)
+    depth = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    eng = Engine(cfg, params, ServeSpec(batch=8, cache_len=cache_len))
+    eng = Engine(cfg, params, ServeSpec(batch=batch, cache_len=cache_len))
     del params
     n_params = sum(p.numel() for p in eng.model.parameters())
     torch.cuda.synchronize()
@@ -1709,8 +1761,8 @@ def serve_full_width(smi: str, arch: str, phase: str, cache_len: int = 1024,
     eng.drain()
     base, calls[:], spans[:] = eng.stats(), [], []
 
-    lens = rng.integers(64, 513, 16)
-    budgets = rng.integers(16, 65, 16)
+    lens = rng.integers(64, 513, n_random)
+    budgets = rng.integers(16, 65, n_random)
     if extra:
         lens = np.concatenate([lens, [n for n, _ in extra]])
         budgets = np.concatenate([budgets, [m for _, m in extra]])
@@ -1784,7 +1836,9 @@ def serve_full_width(smi: str, arch: str, phase: str, cache_len: int = 1024,
     print(json.dumps({
         "phase": phase, "model": cfg.name, "params": n_params,
         "layers": cfg.n_layers,
-        "batch": 8, "cache_len": cache_len, "requests": len(reqs),
+        **({"reduced": f"depth {depth} -> {cfg.n_layers} layers (card "
+                       "memory)"} if layers else {}),
+        "batch": batch, "cache_len": cache_len, "requests": len(reqs),
         "prompt_tokens": st["prefill_tokens"],
         "generated_tokens": int(budgets.sum()),
         "decode_steps": st["decode_steps"], "decode": "cuda_graph",
@@ -1797,11 +1851,13 @@ def serve_full_width(smi: str, arch: str, phase: str, cache_len: int = 1024,
         "decode_replay_device_ms_mean": replay_s / st["decode_steps"] * 1e3,
         "decode_device_idle_share": 1 - replay_s / decode_s,
         "prefill_ms_mean": prefill_s / st["prefills"] * 1e3,
+        "prefill_ms_in_order": [t * 1e3 for mode, t, _ in calls
+                                if mode == "prefill"],
         "max_memory_allocated": peak,
         "launches": launches, "rmsnorm_forms": by_form,
         **({"variant_instances": variant} if any(variant.values()) else {}),
         **checks, "card": smi}))
-    return launches
+    return launches | variant
 
 
 GRAPH_EAGER_STEPS = 6
@@ -1873,13 +1929,15 @@ def plain_full_forward(model, tokens: torch.Tensor, first: int
                        ) -> torch.Tensor:
     """``model``'s logits at positions ``first``.. of ``tokens`` (1, S)
     from one full-sequence pass of the plain versions: RMSNorm's
-    ``rmsnorm_ref`` forms, ``attention_ref`` with each layer's window and
-    cap over the whole sequence; no cache, no ring, no kernel."""
+    ``rmsnorm_ref`` forms (qk-norm's too), ``attention_ref`` with each
+    layer's window, chunk and cap over the whole sequence (no rotary
+    embedding on a NoPE layer), a MoE layer's experts as the engine runs
+    them; no cache, no ring, no kernel."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ref import (rmsnorm_ref,
                                                  rmsnorm_residual_ref)
     from repro_torch.models.layers import rope_angles, softcap
-    from repro_torch.models.transformer import attn_qkv, out_mlp
+    from repro_torch.models.transformer import attn_qkv, out_mlp, out_moe
     cfg = model.cfg
     S = tokens.shape[1]
     x = model.embed[tokens]
@@ -1889,11 +1947,15 @@ def plain_full_forward(model, tokens: torch.Tensor, first: int
                            cfg.head_dim_, cfg.rope_theta)
     for layer in model.layers:
         w = layer._parameters
-        q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_ref)
+        q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_ref,
+                           rope=layer.rope)
         o = attention_ref(q, k, v, causal=True, window=layer.meta["window"],
-                          cap=layer.meta["cap"])
-        x = out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_ref,
-                    norm=rmsnorm_ref)
+                          chunk=layer.meta["chunk"], cap=layer.meta["cap"])
+        if layer.moe:
+            x = out_moe(x, o, w, cfg, norm_residual=rmsnorm_residual_ref)[0]
+        else:
+            x = out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_ref,
+                        norm=rmsnorm_ref)
     x = rmsnorm_ref(x[:, first:], model.final_norm, eps=cfg.norm_eps)
     head = model.embed.T if model.head is None else model.head
     return softcap(x @ head, cfg.final_softcap)
@@ -1990,6 +2052,267 @@ def moe_decode_checks(eng, reqs, results, cfg, phase: str) -> dict:
             "capacity_decode": cfg.top_k, "slots_per_row": E * cfg.top_k}
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: llama4-scout-17b-a16e at full width on one H100
+# ---------------------------------------------------------------------------
+# d_model 5,120, 40/8 heads of 128, 16 routed experts at sigmoid top-1 and
+# one shared expert of 8,192, vocabulary 202,048, untied head; cut to 8 of
+# its 48 layers, two iRoPE periods (three chunked-local layers, chunk
+# 8,192, then one global NoPE layer): ~19.7 B parameters, ~39.4 GB in
+# bf16 (48 layers would hold ~216 GB). 16,384 slots: the NoPE layers' full
+# cache, the chunked layers' rings of 8,192. Four requests: one 9,000-token
+# prompt, which rolls the rings at prefill, and three that end a few tokens
+# before 8,192, whose decode crosses the chunk boundary (the rings then
+# keep the new chunk's slots alone)
+LLAMA4 = "llama4-scout-17b-a16e"
+LLAMA4_LAYERS, LLAMA4_CACHE, LLAMA4_BATCH = 8, 16384, 4
+LLAMA4_REQUESTS = ((9000, 12), (8185, 12), (8188, 10), (8190, 8))
+LLAMA4_CHUNK = 8192
+# the reduced fp32 llama4 of the exactness check and of phase 9l: the
+# reduced config (chunk 64, 8 experts, d_model 128) at the real head dim
+# and G = 5 (10/2 heads of 128), 4 layers (3 chunked, 1 NoPE); a capacity
+# factor of 64, so that no expert drops a token in the engine's prefill
+# and decode or in the plain full-sequence forward (whose capacity comes
+# from the whole sequence)
+LLAMA4_EXACT_REQUESTS = ((60, 12), (150, 8))  # across 64; past 128, rolled
+# phase 4l's kernel cases: flash at the 9,000-token prefill with the chunk
+# (SDPA with the boolean mask of the kept pairs); the decode pair at 4l's
+# decode (4 rows, KV = 8, G = 5, D = 128) on an 8,192-slot chunked ring
+# before and after the boundary, and a B = 1 ring's first two 2,048-slot
+# shards at 9l's position 8,300 (part kept, none kept); RMSNorm at
+# qk-norm's rows: 9,000 tokens x 40 and x 8 heads, and 4 rows x 40 and x 8
+LLAMA4_FLASH = (9000, 40, 8, 128)
+LLAMA4_DECODE = (8, 5, 128)
+LLAMA4_DECODE_POS = {"before": (8180, 8192), "after": (8192, 8210)}
+LLAMA4_SHARD_POS, LLAMA4_SHARDS = 8300, 4
+LLAMA4_RMS_ROWS = (9000 * 40, 9000 * 8, 4 * 40, 4 * 8)
+
+
+def llama4_reduced(n_layers: int = 4):
+    """The reduced fp32 llama4 (chunk 64) at head dim 128 with 10/2 heads
+    (G = 5) and a capacity factor of 64."""
+    from repro_torch import configs
+    from repro_torch.configs import reduced
+    return dataclasses.replace(
+        reduced(configs.get(LLAMA4), head_dim=128, n_heads=10, n_kv_heads=2,
+                capacity_factor=64.0),
+        n_layers=n_layers, dtype=torch.float32)
+
+
+def llama4_kernel_cases(timer) -> dict[str, list[dict]]:
+    """Phase 4l's kernel cases (above), bf16, phase 2's tolerances; SDPA
+    where it computes the same function, ``F.rms_norm`` beside RMSNorm."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(13)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    bf16, tol = torch.bfloat16, 2e-2
+    S, H, KV, D = LLAMA4_FLASH
+    mask = dict(causal=True, chunk=LLAMA4_CHUNK)
+    row = flash_case(timer, randn, S, H, KV, D, mask, bf16, tol)
+    q, k, v = (randn(1, S, n, D).to(bf16).transpose(1, 2)
+               for n in (H, KV, KV))
+    pos = torch.arange(S, device="cuda")
+    seen = (pos[:, None] >= pos[None]) & \
+        (pos[:, None] // LLAMA4_CHUNK == pos[None] // LLAMA4_CHUNK)
+    row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=seen, enable_gqa=True))
+    row["library"] = "sdpa, boolean mask"
+    del q, k, v, seen
+    torch.cuda.empty_cache()
+    out = {"flash_attention": [dict(row, model=LLAMA4)],
+           "rmsnorm": [dict(rmsnorm_case(timer, randn, "plain", rows, D,
+                                         bf16, tol), model=LLAMA4,
+                            use="qk-norm")
+                       for rows in LLAMA4_RMS_ROWS],
+           "decode_scores": [], "decode_stats": [], "decode_attention": []}
+    for r in chunk_ring_decode_cases(timer, g):
+        for name in ("decode_scores", "decode_stats", "decode_attention"):
+            out[name].append(r[name])
+    for rows in out.values():
+        for r in rows:
+            r["path"] = "serve_llama4"
+    return out
+
+
+def chunk_ring_decode_cases(timer, g) -> list[dict[str, dict]]:
+    """Both decode kernels on llama4's chunked ring against their plain
+    versions (phase 2's tolerances; the masked slots exactly NEG_INF, a
+    shard that keeps none (NEG_INF, 0, 0)); each timed with its bound (the
+    kept slots' K and V rows), the pair beside SDPA with the kept slots as
+    a boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_stats import ops as stats_ops
+    from repro_torch.models.attention import NEG_INF
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    dt, es, tol, T = torch.bfloat16, 2, 2e-2, LLAMA4_CHUNK
+    KV, G, D = LLAMA4_DECODE
+    B = LLAMA4_BATCH
+    runs = [(f"ring {state}", rn(B, 1, KV * G, D).to(dt),
+             rn(B, T, KV, D).to(dt), rn(B, T, KV, D).to(dt),
+             torch.randint(lo, hi, (B,), generator=g, device="cuda"), 0)
+            for state, (lo, hi) in LLAMA4_DECODE_POS.items()]
+    L = T // LLAMA4_SHARDS
+    q1, k1, v1 = (rn(1, 1, KV * G, D).to(dt), rn(1, T, KV, D).to(dt),
+                  rn(1, T, KV, D).to(dt))
+    runs += [(f"shard {i}", q1, k1[:, i * L:(i + 1) * L],
+              v1[:, i * L:(i + 1) * L],
+              torch.tensor(LLAMA4_SHARD_POS, device="cuda"), i * L)
+             for i in range(2)]
+    rows = []
+    for what, q, k, v, pos, off in runs:
+        kw = dict(slot_offset=off, total_len=T, chunk=LLAMA4_CHUNK,
+                  ring=True)
+        Bq, Lk = k.shape[:2]
+        name = f"chunked ring decode {what} B={Bq} L={Lk} pos {pos.tolist()}"
+        s, m = stats_ops.decode_scores(q, k, pos, **kw)
+        rs, rm = stats_ops.decode_scores_ref(q, k, pos, **kw)
+        check(torch.equal(s == NEG_INF, rs == NEG_INF),
+              f"{name}: masked slots differ")
+        err_s = max(close(s, rs, tol, name + " s"),
+                    close(m, rm, tol, name + " m"))
+        o, l = stats_ops.accumulate(s, m, v, pos=pos, **kw)
+        ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+        err_o = max(close(o, ro, tol, name + " o"),
+                    close(l, rl, tol, name + " l"))
+        kept_mask = rs[:, 0, 0] > NEG_INF                 # (B, L)
+        kept = int(kept_mask.sum())
+        want = sum(min(max(int(p_) % LLAMA4_CHUNK - off + 1, 0), Lk)
+                   for p_ in pos.reshape(-1).tolist() * (Bq // pos.numel()))
+        check(kept == want, f"{name}: {kept} slots kept, the chunk's "
+                            f"{want}")
+        if kept == 0:
+            check(bool((m == NEG_INF).all()) and float(o.abs().max()) == 0
+                  and float(l.abs().max()) == 0,
+                  f"{name}: a shard with no slot kept is not (NEG_INF, 0, 0)")
+
+        def pair():
+            s_, m_ = stats_ops.decode_scores(q, k, pos, **kw)
+            o_, l_ = stats_ops.accumulate(s_, m_, v, pos=pos, **kw)
+            return o_, l_
+
+        sb, sby = bound(q.numel() * es + kept * KV * D * es
+                        + (s.numel() + m.numel()) * 4,
+                        2 * kept * KV * G * D, dt)
+        ab, aby = bound(kept * KV * (G * 4 + D * es)
+                        + (m.numel() + o.numel() + l.numel()) * 4,
+                        2 * kept * KV * G * D, dt)
+        pb, pby = bound((q.numel() + o.numel()) * es + 2 * kept * KV * D
+                        * es, 4 * kept * KV * G * D, dt)
+        meta = dict(shape=[Bq, KV, G, Lk, D], dtype=str(dt), run=what,
+                    positions=pos.reshape(-1).tolist(), slot_offset=off,
+                    total_len=T, chunk=LLAMA4_CHUNK, kept_slots=kept,
+                    state=("none" if kept == 0 else "all"
+                           if kept == Bq * Lk else "part"), tolerance=tol,
+                    model=LLAMA4)
+        row = {"decode_scores": dict(
+            meta, max_abs_err=err_s,
+            ms=timer(lambda: stats_ops.decode_scores(q, k, pos, **kw)),
+            host_ms=timer.host_ms(lambda: stats_ops.decode_scores(
+                q, k, pos, **kw)),
+            plain_ms=timer(lambda: stats_ops.decode_scores_ref(q, k, pos,
+                                                               **kw)),
+            library_ms=None, bound_ms=sb, bound_by=sby)}
+        row["decode_stats"] = dict(
+            meta, max_abs_err=err_o,
+            ms=timer(lambda: stats_ops.accumulate(s, m, v, pos=pos, **kw)),
+            host_ms=timer.host_ms(lambda: stats_ops.accumulate(
+                s, m, v, pos=pos, **kw)),
+            plain_ms=timer(lambda: stats_ops.decode_stats_accumulate_ref(
+                s, m, v)),
+            library_ms=None, bound_ms=ab, bound_by=aby)
+        lib_ms = err_pair = None
+        if kept:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            amask = kept_mask[:, None, None]
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, enable_gqa=True)
+            o_, l_ = pair()
+            err_pair = close((o_ / l_[..., None]).to(dt),
+                             sdpa().transpose(1, 2), tol, name + " vs SDPA")
+            lib_ms = timer(sdpa)
+        row["decode_attention"] = dict(
+            meta, ms=timer(pair), max_abs_err_vs_sdpa=err_pair,
+            library_ms=lib_ms, bound_ms=pb, bound_by=pby)
+        rows.append(row)
+    check({r["decode_scores"]["state"] for r in rows}
+          >= {"part", "none"}, "chunked ring decode: the states "
+          f"{[r['decode_scores']['state'] for r in rows]}")
+    return rows
+
+
+def serve_llama4(smi: str) -> dict[str, int]:
+    """Phase 4l: llama4-scout at full width, 8 layers, through
+    ``serve_full_width`` with the four requests above alone: launches
+    checked against the path (its chunked rings the ring instances), the
+    graph's tokens against eager decoding (``moe_decode_checks``), a
+    profiled prefill and decode window. Returns the path's launches per
+    kernel and its ring instances."""
+    return serve_full_width(smi, LLAMA4, "serve_llama4", LLAMA4_CACHE,
+                            LLAMA4_REQUESTS, layers=LLAMA4_LAYERS,
+                            batch=LLAMA4_BATCH, n_random=0)
+
+
+def llama4_exact_check(smi: str) -> None:
+    """The reduced fp32 llama4 (``llama4_reduced``) served on the card
+    (kernels, chunked rings, decode graph) past the chunk boundary and past
+    two chunks at prefill, each request's logits held against the plain
+    full-sequence forward on the card (no cache, no ring, no kernel)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import Engine, Request, ServeSpec
+    cfg = llama4_reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    cache = 256
+    eng = Engine(cfg, params, ServeSpec(batch=2, cache_len=cache))
+    del params
+    sched, pick, rows = eng.scheduler, eng.scheduler._next_token, []
+    rng = np.random.default_rng(7)
+    for n, new in LLAMA4_EXACT_REQUESTS:
+        seen = []
+
+        def record(logits):
+            seen.append(logits[:, -1].clone())
+            return pick(logits)
+
+        sched._next_token = record
+        prompt = rng.integers(0, cfg.vocab_size, n)
+        rid = eng.submit(Request(tokens=prompt, max_new=new))
+        res = eng.drain()[rid]
+        sched._next_token = pick
+        check(eng.stats()["decode_graph"] and len(seen) == new,
+              f"llama4 exact: {len(seen)} logits recorded")
+        got = torch.stack([seen[0][0]] + [t[res.slot] for t in seen[1:]])
+        full = np.concatenate([prompt, res.tokens[:-1]])
+        want = plain_full_forward(eng.model, torch.from_numpy(full)[None]
+                                  .to("cuda"), n - 1)[0]
+        err = float((got - want).abs().max())
+        plain_tok = torch.clamp(want.argmax(-1), max=cfg.vocab_size - 1)
+        same = plain_tok.cpu().numpy().tolist() == res.tokens.tolist()
+        check(err <= VARIANT_EXACT_TOL, f"llama4 exact {n}: engine logits "
+                                        f"{err} from the plain forward's")
+        check(same, f"llama4 exact {n}: engine tokens "
+                    f"{res.tokens.tolist()}, plain {plain_tok.tolist()}")
+        rows.append({"prompt": n, "new": new,
+                     "positions": [n - 1, n + new - 2],
+                     "crossed_chunk": any(
+                         n - 1 < c <= n + new - 2 for c in (64, 128)),
+                     "prefill_rolled": n > cfg.chunk,
+                     "max_abs_logit_err": err, "tokens_equal": same})
+    check(any(r["crossed_chunk"] for r in rows) and any(
+        r["prefill_rolled"] for r in rows), "llama4 exact: no request "
+                                            "crossed the chunk or rolled")
+    print(json.dumps({
+        "phase": "serve_llama4_exact", "model": cfg.name,
+        "layers": cfg.n_layers, "chunk": cfg.chunk,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim_,
+        "dtype": "float32", "cache_len": cache,
+        "capacity_factor": cfg.capacity_factor, "requests": rows,
+        "tolerance": VARIANT_EXACT_TOL, "card": smi}))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profile_window(label: str, phase: str, fn, calls: int,
                    sums: dict[str, str] | None = None, **meta) -> None:
     """torch.profiler over ``calls`` calls of ``fn`` (warm already): device
@@ -2034,18 +2357,19 @@ def profile_window(label: str, phase: str, fn, calls: int,
 def profile_serving(eng, reqs, phase: str, steps: int = 5,
                     cache_len: int = 1024) -> None:
     """Profile one 512-token prefill (twice) and ``steps`` decode steps
-    with 8 live rows."""
+    with min(8, batch) live rows."""
     from repro_torch.serve import Request
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, eng.cfg.vocab_size, (1, 512))).to(eng.model.device)
     prefill = lambda: eng.model(toks, mode="prefill", cache_len=cache_len)
     prefill()
     profile_window("profile_prefill", phase, prefill, 2, prompt_tokens=512)
-    for r in reqs[:8]:
+    live = min(8, eng.spec.batch)
+    for r in reqs[:live]:
         eng.submit(Request(tokens=r.tokens[:64], max_new=steps + 4))
     eng.step()
     eng.step()
-    profile_window("profile_decode", phase, eng.step, steps, live_rows=8,
+    profile_window("profile_decode", phase, eng.step, steps, live_rows=live,
                    decode="cuda_graph")
     # the same step eagerly: the forward called directly on a copy of the
     # cache, so that the graph's share of the change reads apart from the
@@ -2054,7 +2378,8 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5,
     tok = eng.scheduler._tok_dev.clone()
     eager = lambda: eng.model(tok, mode="decode", cache=cache)
     eager()
-    profile_window("profile_decode_eager", phase, eager, steps, live_rows=8,
+    profile_window("profile_decode_eager", phase, eager, steps,
+                   live_rows=live,
                    decode="eager")
     del cache
     eng.drain()
@@ -2068,9 +2393,10 @@ def profile_serving(eng, reqs, phase: str, steps: int = 5,
 # first decode logits and reports the greedy share, its later steps time
 # the decode (about 0.25-0.8 s a step over gloo in each of 3 layouts);
 # 16 and 4 (32 and 16 before phase 4v needed the run's time, 8 before
-# phase 8ev did)
+# phase 8ev did); the full-width prompts 3,000 and 11,000 (a 20,000-token
+# third before phases 4l and 9l needed the run's time)
 SEQ_CACHE, SEQ_NEW, SEQ_NEW_FULL = 32768, 16, 4
-SEQ_PROMPTS = (3000, 11000, 20000)
+SEQ_PROMPTS = (3000, 11000)
 SEQ_LAYOUTS = (("pod_locality", dict(combine="locality")),
                ("pod_xla", dict(combine="xla")),
                ("data_locality", dict(combine="locality",
@@ -2362,11 +2688,12 @@ BATCH_REDUCED_ROWS = {(2, 2): 8, (3, 2): 6}
 
 
 def batch_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
-    """(prompt, max_new): 128-1,536 prompt tokens, 32-64 new, seeded; the
-    lengths do not depend on ``vocab``."""
+    """(prompt, max_new): 128-1,536 prompt tokens, 16-32 new (32-64
+    before phases 4l and 9l needed the run's time), seeded; the lengths
+    do not depend on ``vocab``."""
     rng = np.random.default_rng(7)
     lens = rng.integers(128, 1537, BATCH_N)
-    news = rng.integers(32, 65, BATCH_N)
+    news = rng.integers(16, 33, BATCH_N)
     return [(rng.integers(0, vocab, int(n)), int(m))
             for n, m in zip(lens, news)]
 
@@ -3568,6 +3895,319 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                                           / steps * 1e3 for x in res])
         print(json.dumps(row))
     return total | variant_total
+
+
+# ---------------------------------------------------------------------------
+# phase 9l: the MoE family on (pod, data) serving grids
+# ---------------------------------------------------------------------------
+# 4 gloo ranks sharing the card, 2 x 2 (pod, data), every rank holding
+# every expert. First the reduced fp32 llama4 (``llama4_reduced``) and the
+# reduced fp32 qwen2-moe (2 layers), each held to the card's one-rank
+# engine token for token: 9l-a batch-sharded (8 rows, 12 requests of 70
+# and 60 tokens homed in pod 0, so that later ones migrate), 9l-b one B = 1
+# split cache with the locality combine (two requests, one crossing
+# llama4's chunk boundary at 64). Then llama4-scout at full width cut to 2
+# layers (both chunked: ~12.9 GB a rank, ~52 GB in all), 16,384 slots:
+# 9l-a four requests homed in pod 0 (two of them migrate), 9l-b one 8,300-
+# token prompt, its 8,192-slot rings in 2,048-slot shards of which only
+# the first keeps slots (pos mod 8,192 < 2,048); held to the one-rank
+# engine's logits as phase 9 holds bf16 runs
+MOE_GRID = (2, 2)
+MOE_GRID_REDUCED_CACHE, MOE_GRID_REDUCED_ROWS = 128, 8
+MOE_GRID_REDUCED_SEQ = ((70, 5), (60, 8))
+MOE_GRID_LAYERS = 2
+MOE_GRID_ROWS = 4
+MOE_GRID_BATCH = ((8185, 8), (8300, 8), (3000, 8), (8190, 8))
+MOE_GRID_SEQ = ((8300, 8),)
+MOE_GRID_MIGRATIONS = 2
+
+
+def _moe_grid_configs(key: str) -> list:
+    """(arch, config) of 9l's runs at ``key``: "reduced", the two reduced
+    fp32 MoE models; "full", llama4-scout at full width, 2 layers."""
+    from repro_torch import configs
+    if key == "reduced":
+        return [(LLAMA4, llama4_reduced()),
+                (MOE_ARCH, dataclasses.replace(
+                    configs.get_smoke(MOE_ARCH), n_layers=2,
+                    dtype=torch.float32))]
+    return [(LLAMA4, dataclasses.replace(configs.get(LLAMA4),
+                                         n_layers=MOE_GRID_LAYERS))]
+
+
+def moe_grid_requests(vocab: int) -> dict[str, list]:
+    """9l's traces (prompt, new tokens), drawn from seed 14 below
+    ``vocab`` (the full config's; the reduced traces are redrawn below
+    theirs)."""
+    rng = np.random.default_rng(14)
+    draw = lambda n: rng.integers(0, vocab, int(n))
+    news = [4, 7, 3, 6, 2, 5]
+    return {"reduced_batch": [(draw((70, 60)[i % 2]), news[i % 6])
+                              for i in range(12)],
+            "reduced_seq": [(draw(n), m) for n, m in MOE_GRID_REDUCED_SEQ],
+            "batch": [(draw(n), m) for n, m in MOE_GRID_BATCH],
+            "seq": [(draw(n), m) for n, m in MOE_GRID_SEQ]}
+
+
+def moe_grid_runs(plan: dict, key: str, vocab: int
+                  ) -> list[tuple[str, dict, list, int | None]]:
+    """(name, ServeSpec keywords, requests, home pod) of 9l's runs."""
+    if key == "reduced":
+        cache, rows = MOE_GRID_REDUCED_CACHE, MOE_GRID_REDUCED_ROWS
+        batch = [(t % vocab, m) for t, m in plan["reduced_batch"]]
+        seq = [(t % vocab, m) for t, m in plan["reduced_seq"]]
+    else:
+        cache, rows = LLAMA4_CACHE, MOE_GRID_ROWS
+        batch, seq = plan["batch"], plan["seq"]
+    return [("9l-a|locality_bruck",
+             dict(batch=rows, cache_len=cache, page_len=BATCH_PAGE,
+                  migrate="locality_bruck"), batch, BATCH_HOME_POD),
+            ("9l-b|locality", dict(batch=1, cache_len=cache,
+                                   combine="locality"), seq, None)]
+
+
+def moe_grid_rank(rank: int, world: int, plan: dict) -> dict:
+    """One rank of phase 9l (all four share the one card): each run of
+    ``moe_grid_runs`` for both reduced models, then at full width, every
+    rank drawing the whole model from seed 0 (the one-rank engine's
+    weights)."""
+    import torch.distributed as dist
+    from repro_torch.core.topology import RankGrid
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = RankGrid.build(*MOE_GRID)
+    out = {"rank": rank, "reduced": {}, "full": {}, "init_s": {},
+           "coords": dict(rank=grid.rank, grid_rank=grid.grid_rank)}
+    for key in ("reduced", "full"):
+        for arch, cfg in _moe_grid_configs(key):
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            torch.cuda.synchronize()
+            out["init_s"][f"{key}|{arch}"] = time.perf_counter() - t0
+            for name, kw, reqs, home in moe_grid_runs(plan, key,
+                                                      cfg.vocab_size):
+                t0 = time.perf_counter()
+                res = serve_on_card(cfg, params, ServeSpec(**kw), reqs, grid,
+                                    home)
+                out[key][f"{arch}|{name}"] = res if key == "full" else {
+                    k: res[k] for k in ("tokens", "results", "stats",
+                                        "shards", "launches",
+                                        "variant_launches")}
+                dist.barrier()
+                if rank == 0:
+                    print(json.dumps({"phase": "serve_moe_grid_run",
+                                      "size": key, "model": arch,
+                                      "run": name, "seconds":
+                                      time.perf_counter() - t0}), flush=True)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_moe_grids(smi: str) -> dict[str, int]:
+    """Phase 9l: one-rank references in this process, then 4 spawned
+    ranks (``moe_grid_rank``) on 2 x 2; the reduced runs' tokens equal one
+    rank's, the full-width runs' logits within phase 9's limit of one
+    rank's; each split stack's shards, the combines and the migrations
+    checked; returns the launches per kernel of every run, summed over the
+    ranks."""
+    from repro_torch.launch.serve import run_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeSpec
+
+    full = _moe_grid_configs("full")[0][1]
+    plan = moe_grid_requests(full.vocab_size)
+    refs = {}
+    for key in ("reduced", "full"):
+        for arch, cfg in _moe_grid_configs(key):
+            params = init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0), "cuda")
+            for name, kw, reqs, home in moe_grid_runs(plan, key,
+                                                      cfg.vocab_size):
+                one = {k: v for k, v in kw.items()
+                       if k not in ("migrate", "combine")}
+                refs[key, arch, name] = serve_on_card(
+                    cfg, params, ServeSpec(**one), reqs, home_pod=home)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    q, pl = MOE_GRID
+    n = q * pl
+    t0 = time.perf_counter()
+    ranks = run_ranks(n, moe_grid_rank, plan, timeout=900.0)
+    ranks_s = time.perf_counter() - t0
+    check([x["coords"]["grid_rank"] for x in ranks] == list(range(n)),
+          "serve_moe_grids: grid ranks are not the spawned ranks' order")
+    total = {k: 0 for k in PATH_KERNELS + VARIANT_KERNELS}
+    for key in ("reduced", "full"):
+        for arch, cfg in _moe_grid_configs(key):
+            L = cfg.n_layers
+            cache = LLAMA4_CACHE if key == "full" else MOE_GRID_REDUCED_CACHE
+            chunked = sum(s.attn == "chunked" for s in cfg.layer_plan())
+            for name, kw, reqs, home in moe_grid_runs(plan, key,
+                                                      cfg.vocab_size):
+                ref = refs[key, arch, name]
+                res = [x[key][f"{arch}|{name}"] for x in ranks]
+                what = f"serve_moe_grids {key} {arch} {name}"
+                steps = res[0]["stats"]["decode_steps"]
+                for r, x in enumerate(res):
+                    check(x["results"] == res[0]["results"],
+                          f"{what}: rank {r}'s results differ")
+                    if key == "reduced":
+                        check(x["tokens"] == ref["tokens"],
+                              f"{what} rank {r}: tokens {x['tokens']} != "
+                              f"one rank's {ref['tokens']}")
+                    for k, c in (x["launches"] | x["variant_launches"]
+                                 ).items():
+                        if k in total:
+                            total[k] += c
+                    want = variant_launches_implied(cfg, x["stats"])
+                    check(x["variant_launches"] == want, f"{what} rank {r}: "
+                          f"ring launches {x['variant_launches']}, the path "
+                          f"{want}")
+                    st = x["stats"]
+                    if name.startswith("9l-a"):
+                        home_pod = r // pl == BATCH_HOME_POD
+                        check(st["prefills"] == (len(reqs) if home_pod
+                                                 else 0),
+                              f"{what} rank {r}: {st['prefills']} prefills")
+                        check(x["shards"] == {}, f"{what}: shards "
+                                                 f"{x['shards']}")
+                    else:
+                        totals = {"k/v": cache}
+                        if chunked:
+                            totals["k_ring/v_ring"] = min(cache, cfg.chunk)
+                        if chunked == L:
+                            totals.pop("k/v")
+                        want = {nm: (r * t // n, t // n, t)
+                                for nm, t in totals.items()}
+                        check(x["shards"] == want, f"{what} rank {r}: "
+                              f"shards {x['shards']}, want {want}")
+                        check(st["combine_layers"] == st["decode_steps"] * L
+                              and st["decode_steps"] > 0, f"{what} rank "
+                              f"{r}: {st['combine_layers']} combines")
+                if name.startswith("9l-a"):
+                    mig = res[0]["stats"]["migrations"]
+                    check(mig > 0, f"{what}: no migration")
+                    if key == "full":
+                        check(mig == MOE_GRID_MIGRATIONS, f"{what}: {mig} "
+                              f"migrations, the trace's "
+                              f"{MOE_GRID_MIGRATIONS}")
+                if key == "reduced":
+                    continue
+                # phase 9's rule for bf16 runs: logits within the limit, a
+                # first token that differs within twice the prefill's
+                # difference of the maximum
+                coords = [x["coords"] for x in ranks]
+                got = {w: _tier_logits(res, [dict(c, t=0) for c in coords],
+                                       w, 1)
+                       for w in ("prefill_logits", "decode_logits")}
+                scale = max(float(np.abs(t).max())
+                            for t in ref["decode_logits"].values())
+                limit = SEQ_LOGIT_REL * scale
+                toks = res[0]["tokens"]
+                dl = {"prefill": {}, "decode": {}, "near_ties": {}}
+                for rid in sorted(ref["prefill_logits"]):
+                    pre = ref["prefill_logits"][rid]
+                    d = dl["prefill"][rid] = np_err(
+                        got["prefill_logits"][rid], pre)
+                    check(d <= limit, f"{what}: request {rid}'s prefill "
+                          f"logits differ by {d} (limit {limit})")
+                    one, grid_tok = ref["tokens"][rid][0], toks[rid][0]
+                    if one == grid_tok:
+                        d = dl["decode"][rid] = np_err(
+                            got["decode_logits"][rid],
+                            ref["decode_logits"][rid])
+                        check(d <= limit, f"{what}: request {rid}'s first "
+                              f"decode logits differ by {d} (limit {limit})")
+                    else:
+                        gap = float(pre[one] - pre[grid_tok])
+                        dl["near_ties"][rid] = gap
+                        check(gap <= 2 * dl["prefill"][rid],
+                              f"{what}: request {rid}'s first token "
+                              f"{grid_tok}, one rank's {one}, {gap} below "
+                              "its maximum")
+                same = sum(a == b for rid, tk in toks.items()
+                           for a, b in zip(tk, ref["tokens"][rid]))
+                n_tok = sum(map(len, ref["tokens"].values()))
+                lens = [len(t) for t, _ in reqs]
+                row = {"phase": "serve_moe_grids", "run": name,
+                       "shared": "4 ranks sharing one H100 over gloo",
+                       "grid": "2 x 2 (pod, data)", "model": cfg.name,
+                       "layers": L,
+                       "reduced": f"depth 48 -> {L} layers (both chunked)",
+                       "dtype": "bfloat16", "cache_len": cache,
+                       "chunk": cfg.chunk, "prompts": lens,
+                       "new_tokens": [m for _, m in reqs],
+                       "decode_steps": steps,
+                       "decode_step_ms_mean_by_rank": [
+                           float(np.mean(x["decode_ms"])) for x in res],
+                       "decode_step_ms_mean_one_rank": float(np.mean(
+                           ref["decode_ms"])),
+                       "prefill_ms_by_rank": [
+                           [x["prefill_ms"][i] for i in sorted(
+                               x["prefill_ms"])] for x in res],
+                       "prefill_ms_one_rank": [
+                           ref["prefill_ms"][i]
+                           for i in sorted(ref["prefill_ms"])],
+                       "staging_bytes_by_rank": [x["stats"]["staging_bytes"]
+                                                 for x in res],
+                       "peak_bytes_by_rank": [x["peak_bytes"] for x in res],
+                       "peak_bytes_one_rank": ref["peak_bytes"],
+                       "init_s_by_rank": [x["init_s"][f"full|{arch}"]
+                                          for x in ranks],
+                       "ring_launches_summed": {
+                           k: sum(x["variant_launches"][k] for x in res)
+                           for k in VARIANT_KERNELS},
+                       "max_abs_dlogit_prefill": dl["prefill"],
+                       "max_abs_dlogit_first_decode": dl["decode"],
+                       "first_token_near_ties": dl["near_ties"],
+                       "logit_tolerance": limit,
+                       "greedy_equal_share": same / n_tok,
+                       "ranks_wall_s": ranks_s, "card": smi}
+                if name.startswith("9l-a"):
+                    mig = res[0]["stats"]["migrations"]
+                    row.update(
+                        migrations=mig,
+                        migrate_bytes_per_migration=[
+                            x["stats"]["migrate_bytes"] / mig for x in res],
+                        migrate_nonlocal_msgs_per_migration=[
+                            x["stats"]["migrate_nonlocal_msgs"] / mig
+                            for x in res],
+                        migration_host_ms=[x["stats"]["migrate_host_s"]
+                                           / mig * 1e3 for x in res],
+                        prefills_by_rank=[x["stats"]["prefills"]
+                                          for x in res])
+                else:
+                    kept = [(lens[0] % cfg.chunk) >= r * (cfg.chunk // n)
+                            for r in range(n)]
+                    check(kept == [True] + [False] * (n - 1),
+                          f"{what}: the prompt leaves shards {kept} with "
+                          "kept slots, want the first alone")
+                    row.update(
+                        combine=res[0]["combine"], shards=res[0]["shards"],
+                        shards_with_kept_slots=kept,
+                        combine_host_ms_per_step=[
+                            x["stats"]["combine_host_s"] / steps * 1e3
+                            for x in res],
+                        nonlocal_msgs_per_step=[
+                            x["stats"]["nonlocal_msgs"] / steps
+                            for x in res])
+                print(json.dumps(row))
+    print(json.dumps({
+        "phase": "serve_moe_grids_reduced", "grid": "2 x 2 (pod, data)",
+        "dtype": "float32",
+        "models": [f"{a} ({c.n_layers} layers, head dim {c.head_dim_}, "
+                   f"chunk {c.chunk})" for a, c in
+                   _moe_grid_configs("reduced")],
+        "runs": [name for name, *_ in moe_grid_runs(plan, "reduced", 512)],
+        "cache_len": MOE_GRID_REDUCED_CACHE,
+        "tokens_equal_to_one_rank": True, "ranks_wall_s": ranks_s}))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5912,6 +6552,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     clock("serve_variant_exact")
+    llama4_cases = llama4_kernel_cases(timer)
+    for name, rows in llama4_cases.items():
+        for row in rows:
+            print(json.dumps({"kernel": name, **row}))
+    clock("llama4_kernels")
+    by_path["serve_llama4"] = serve_llama4(smi)
+    clock("serve_llama4")
+    llama4_exact_check(smi)
+    clock("serve_llama4_exact")
     base = {}
     by_path["serve_seq_parallel"], base["serve_seq_parallel"] = \
         serve_seq_parallel(smi)
@@ -5944,6 +6593,8 @@ def main() -> int:
     clock("serve_tier_ssm")
     by_path["serve_tier_variants"] = serve_tier_variants(smi)
     clock("serve_tier_variants")
+    by_path["serve_moe_grids"] = serve_moe_grids(smi)
+    clock("serve_moe_grids")
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -6107,6 +6758,28 @@ def main() -> int:
                     f: [r[f] for r in variant_cases["decode_attention"]]
                     for f in ("model", "ms", "library_ms", "bound_ms",
                               "shape")}
+    for row in kernels:        # llama4-scout's serving cases (4l)
+        rows = llama4_cases.get(row["name"])
+        if rows:
+            row["serve_llama4_cases"] = {
+                "cases": len(rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                **{f: [r.get(f) for r in rows]
+                   for f in ("run", "use", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by", "shape", "mask",
+                             "positions", "slot_offset", "kept_slots",
+                             "state")}}
+            if row["name"].startswith("decode_s"):
+                row["serve_llama4_cases"]["decode_attention_pair"] = {
+                    f: [r.get(f) for r in llama4_cases["decode_attention"]]
+                    for f in ("run", "ms", "library_ms", "bound_ms",
+                              "shape", "state", "max_abs_err_vs_sdpa")}
+                row["chunk_ring_launches_by_path"] = {
+                    path: by_path[path][f"{row['name']}_ring"]
+                    for path in ("serve_llama4", "serve_moe_grids")}
+                check(all(row["chunk_ring_launches_by_path"].values()),
+                      f"{row['name']}: no chunked-ring launch on a main "
+                      "path")
     for row in kernels:        # the pair (scores, accumulate, o / l) and SDPA
         if row["name"].startswith("decode_s"):
             row["decode_attention_pair"] = {

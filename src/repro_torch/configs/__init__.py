@@ -7,17 +7,14 @@ from __future__ import annotations
 
 import importlib
 
-from .base import (LayerSpec, ModelConfig, check_supported, reduced,
-                   variant_features)
+from .base import (LayerSpec, ModelConfig, check_supported, llama4_features,
+                   reduced, variant_features)
 
 ARCHS = ("llama3.2-3b", "mamba2-780m", "qwen2-moe-a2.7b", "yi-6b",
-         "h2o-danube-3-4b", "gemma2-9b")
+         "h2o-danube-3-4b", "gemma2-9b", "llama4-scout-17b-a16e")
 
 # the JAX package's other architectures -> the port slice that brings them
 PENDING = {
-    "llama4-scout-17b-a16e": "the MoE-over-grids slice with llama4's "
-                             "chunked attention, NoPE and qk-norm "
-                             "(ROADMAP.md Queue 1 items 14 and 5)",
     "zamba2-1.2b": "the hybrid slice (the shared attention block and the "
                    "SSD's h0 input: ROADMAP.md Queue 1 item 7)",
     "whisper-tiny": "the encoder-decoder slice (ROADMAP.md Queue 1 item 7)",
@@ -45,4 +42,5 @@ def get_smoke(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "LayerSpec", "ModelConfig", "PENDING", "check_supported",
-           "get", "get_smoke", "reduced", "variant_features"]
+           "get", "get_smoke", "llama4_features", "reduced",
+           "variant_features"]

@@ -146,6 +146,21 @@ def variant_features(cfg: ModelConfig) -> list[str]:
     return out
 
 
+def llama4_features(cfg: ModelConfig) -> list[str]:
+    """llama4's features ``cfg`` uses: chunked-local layers (ring caches of
+    ``chunk`` slots), NoPE layers (no rotary embedding) and qk-norm. The
+    port serves them on one rank and on (pod, data) grids."""
+    plan = [s for s in cfg.layer_plan() if s.mixer == "attn"]
+    out = []
+    if cfg.chunk or any(s.attn == "chunked" for s in plan):
+        out.append("chunked layers (ring caches)")
+    if any(not s.rope for s in plan):
+        out.append("NoPE layers")
+    if cfg.qk_norm:
+        out.append("qk_norm")
+    return out
+
+
 def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     """Raise on any flag whose code path this port does not have yet.
 
@@ -153,14 +168,18 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
     llama-family decoder with full causal attention, SwiGLU, RMSNorm and
     rotary embeddings, with a tied or an untied output head; the MoE
     decoder (``family="moe"`` with ``n_experts``: that decoder with
-    routed and shared SwiGLU experts in place of the MLP, ``moe_every``);
-    and the attention-free Mamba2 stack (``family="ssm"`` with
-    ``ssm_state``), whose training runs the SSD scan's and the gated
-    RMSNorm's backward kernels. The dense variants' features
-    (:func:`variant_features`: window layers with ring caches, softcaps,
-    sandwich norms, ``scale_embed``, GeGLU) are served on one rank and on
-    grids, a model tier included, and trained there too. Everything else
-    waits for a later slice of the port and must not be ignored silently.
+    routed and shared SwiGLU experts in place of the MLP, ``moe_every``,
+    a softmax or sigmoid router); and the attention-free Mamba2 stack
+    (``family="ssm"`` with ``ssm_state``), whose training runs the SSD
+    scan's and the gated RMSNorm's backward kernels. The dense variants'
+    features (:func:`variant_features`: window layers with ring caches,
+    softcaps, sandwich norms, ``scale_embed``, GeGLU) are served on one
+    rank and on grids, a model tier included, and trained there too.
+    llama4's features (:func:`llama4_features`: chunked-local layers with
+    their ring caches, NoPE layers, qk-norm) are served on one rank and
+    on (pod, data) grids; training them waits for ROADMAP.md Queue 1
+    item 15. Everything else waits for a later slice of the port and must
+    not be ignored silently.
     """
     if mode not in ("serve", "train"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -175,11 +194,14 @@ def check_supported(cfg: ModelConfig, mode: str = "serve") -> None:
         unsupported.append("family='ssm' without ssm_state")
     if cfg.family != "ssm" and cfg.ssm_state:
         unsupported.append(f"ssm_state in family={cfg.family!r}")
-    if cfg.chunk or any(s.attn not in ("full", "window") or not s.rope
-                        for s in cfg.layer_plan() if s.mixer == "attn"):
-        unsupported.append("chunked/NoPE layers")
-    if cfg.qk_norm:
-        unsupported.append("qk_norm")
+    attn = [s for s in cfg.layer_plan() if s.mixer == "attn"]
+    if any(s.attn not in ("full", "window", "chunked") for s in attn):
+        unsupported.append("attention other than full, window or chunked")
+    if any(s.attn == "chunked" for s in attn) and not cfg.chunk:
+        unsupported.append("chunked layers without a chunk")
+    if mode == "train" and llama4_features(cfg):
+        unsupported.append(", ".join(llama4_features(cfg)) + " in training "
+                           "(ROADMAP.md Queue 1 item 15, llama4 trained)")
     if cfg.mlp_act not in ("silu", "gelu"):
         unsupported.append(f"mlp_act={cfg.mlp_act!r}")
     if cfg.norm_type != "rms":

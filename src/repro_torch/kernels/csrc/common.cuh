@@ -45,17 +45,21 @@ __device__ __forceinline__ float warp_max(float v) {
 // off + j is kept when off + j <= p, inside the window (p - (off + j) <
 // window) and the chunk of p ((off + j) / chunk == p / chunk) where those
 // are set; empty when hi < lo. The chunk's start comes from the global p,
-// so the offset is not folded into the position. A ring (a cache of
-// T <= window slots, global slot j holding token p - ((p - j) mod T))
-// keeps every slot whose token is >= 0, the global slots [0, min(p, T -
-// 1)], so a shard of it holding [off, off + L) keeps [0, min(p - off, L -
-// 1)]: its tokens all lie in the window, so the window and chunk tests,
-// which read slot j as token j, are skipped (the caller refuses a ring
-// with a chunk).
+// so the offset is not folded into the position. A ring (a cache of T
+// slots, global slot j holding token p - ((p - j) mod T)) keeps the global
+// slots [0, min(p', T - 1)], so a shard of it holding [off, off + L) keeps
+// [0, min(p' - off, L - 1)]: p' = p on a window ring (T <= window: every
+// token >= 0 lies in the window), p' = p mod chunk on a chunked ring (T <=
+// chunk: with T = chunk the current chunk's tokens fill the slots [0, p mod
+// chunk], the others hold the chunk before; with T < chunk the positions
+// never reach T, so p mod chunk = p). The window and chunk tests, which
+// read slot j as token j, are skipped on a ring (the caller refuses a ring
+// longer than its window or chunk).
 __device__ __forceinline__ void kept_interval(long long p, long long off,
                                               int L, int window, int chunk,
                                               bool ring, long long* lo,
                                               long long* hi) {
+  if (ring && chunk > 0) p %= chunk;
   *lo = 0;
   *hi = p - off < L - 1 ? p - off : static_cast<long long>(L) - 1;
   if (ring) return;

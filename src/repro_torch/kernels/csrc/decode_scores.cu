@@ -8,7 +8,8 @@
 //   s[b,kv,g,j] = x for the slots the mask keeps (global slot off + j <=
 //   pos, inside the window and the chunk of pos, the cache a shard holding
 //   the global slots [off, off + L); on a ring cache of L <= window slots,
-//   the slots [0, min(pos, L - 1)]) and NEG_INF for the others;
+//   the slots [0, min(pos, L - 1)], of L <= chunk slots [0, min(pos mod
+//   chunk, L - 1)]: common.cuh kept_interval) and NEG_INF for the others;
 //   m[b,kv,g] = max_j s[b,kv,g,j].
 // The dot is summed in fp32 and rounded to the cache dtype T before the
 // scale, where the reference rounds (its einsum is in T, then cast to fp32).

@@ -3,15 +3,20 @@ row max (``decode_scores``) and the accumulation (``accumulate``). Each runs
 its CUDA kernel for CUDA tensors and its plain version for CPU ones.
 ``SCORES_LAUNCHES`` and ``LAUNCHES`` count the two kernels' launches,
 ``RING_SCORES_LAUNCHES`` and ``RING_LAUNCHES`` those of them over a ring
-cache; CPU calls leave them alone.
+cache (a window or a chunked layer's); CPU calls leave them alone.
 
-A ring cache (``ring=True``: a sliding-window layer's cache of T slots,
-T <= the window, slot pos % T written at position pos) keeps the slots
-[0, min(pos, T - 1)]: every slot holds one of the last T tokens, all inside
-the window once pos >= T - 1. A shard of it holding the global slots [off,
+A ring cache (``ring=True``) is the cache of a sliding-window layer (T
+slots, T <= the window) or of a chunked-local one (T <= the chunk), slot
+pos % T written at position pos. A window ring keeps the slots [0, min(pos,
+T - 1)]: every slot holds one of the last T tokens, all inside the window
+once pos >= T - 1. A chunked ring keeps the slots [0, min(pos mod chunk,
+T - 1)]: with T = chunk the current chunk's tokens fill the slots [0, pos
+mod chunk] and the others hold the chunk before; with T < chunk the
+positions never reach T. A shard of either holding the global slots [off,
 off + L) (``slot_offset``, ``total_len`` = T: the ring split over ranks)
-keeps the local slots [0, min(pos - off, L - 1)], none where pos < off.
-The kernels take that interval in slot order (the order of the JAX
+keeps the local slots [0, min(p' - off, L - 1)], p' = pos or pos mod chunk,
+none where p' < off. The kernels compute that interval on the card, from
+the position they read there, take it in slot order (the order of the JAX
 package's einsum) and apply no window or chunk test to a slot index.
 
 Both kernels split a row over a cluster of up to 8 blocks and reduce across
@@ -67,16 +72,17 @@ def check_ring(name: str, L: int, window: int, chunk: int,
                slot_offset: int, total_len: int | None = None) -> None:
     """Raise unless a ring cache shard of L slots is one the kernels take:
     the global slots [slot_offset, slot_offset + L) of a ring of
-    ``total_len`` slots (None: L, a whole ring), at most ``window`` of
-    them, with no chunk."""
+    ``total_len`` slots (None: L, a whole ring), a window layer's ring of
+    at most ``window`` slots or a chunked layer's of at most ``chunk``
+    (not both)."""
     T = L if total_len is None else total_len
     if slot_offset < 0 or slot_offset + L > T:
         raise ValueError(f"{name}: a ring shard of {L} slots at offset "
                          f"{slot_offset} exceeds the {T}-slot ring")
-    if chunk or (window and T > window):
+    if (window and chunk) or (window and T > window) or (chunk and T > chunk):
         raise ValueError(f"{name}: a ring of {T} slots with window {window} "
                          f"and chunk {chunk}; the kernels take a ring of at "
-                         "most its window, with no chunk")
+                         "most its window or its chunk, not both")
 
 
 def _check_layout(name: str, named: dict[str, torch.Tensor],

@@ -1,17 +1,24 @@
 """Serving launcher of the port: greedy decoding through ``Engine``.
 
 ``python -m repro_torch.launch.serve --arch llama3.2-3b`` (or any of
-``configs.ARCHS``: ``--arch mamba2-780m``; ``--arch qwen2-moe-a2.7b``, the
-MoE family, on one rank; the dense variants ``--arch yi-6b``, ``--arch
-h2o-danube-3-4b`` and ``--arch gemma2-9b``, their window layers each
-holding a ring of min(``--cache-len``, window) slots, split over the ranks
+``configs.ARCHS``: ``--arch mamba2-780m``; the MoE family, ``--arch
+qwen2-moe-a2.7b`` and ``--arch llama4-scout-17b-a16e``, on one rank or
+under ``--ranks``/``--pods``; the dense variants ``--arch yi-6b``,
+``--arch h2o-danube-3-4b`` and ``--arch gemma2-9b``, their window layers
+each holding a ring of min(``--cache-len``, window) slots, llama4's
+chunked layers one of min(``--cache-len``, chunk), split over the ranks
 like the full-length cache where they divide it)
 serves the full configuration on the card with random bf16 weights made
-from seed 0; ``--smoke --device cpu`` serves the reduced configuration on
-the CPU:
+from seed 0; ``--layers N`` cuts its depth to the first N layers of its
+plan at full width (llama4-scout's 48 layers do not fit one card: 8 hold
+two of its chunked / NoPE periods in about 39 GB); ``--smoke --device
+cpu`` serves the reduced configuration on the CPU:
 
     python -m repro_torch.launch.serve --arch gemma2-9b --batch 8 \\
         --prompt-len 6000 --max-new 32 --cache-len 8192
+    python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
+        --layers 8 --batch 4 --prompt-len 9000 --max-new 16 \\
+        --cache-len 16384
 
 ``--ranks N --pods q`` spawns N processes, q pods of N/q, that join one
 gloo group on localhost; each serves on ``cuda`` (all of them on the one
@@ -155,9 +162,16 @@ def _grid(args) -> tuple[int, int, int]:
 def _config(args):
     from repro_torch import configs
     if args.smoke:
-        return dataclasses.replace(configs.get_smoke(args.arch),
-                                   dtype=torch.float32)
-    return configs.get(args.arch)
+        cfg = dataclasses.replace(configs.get_smoke(args.arch),
+                                  dtype=torch.float32)
+    else:
+        cfg = configs.get(args.arch)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
 
 
 def _serve_rank(rank: int, world: int, args) -> dict:
@@ -209,6 +223,9 @@ def main(argv=None) -> None:
                          "naming the slice it waits for")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced configuration, in float32")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers of the plan, at full "
+                         "width (default: every layer)")
     ap.add_argument("--device", default=None,
                     help="default cuda; cpu runs the kernels' plain versions")
     ap.add_argument("--batch", type=int, default=8)

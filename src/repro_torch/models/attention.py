@@ -1,17 +1,20 @@
 """Grouped-query attention of the port: prefill and one-token decode.
 
-Mirrors ``repro.models.attention`` for full causal attention and the dense
-variants' sliding-window layers, with an optional tanh softcap:
+Mirrors ``repro.models.attention`` for full causal attention, the dense
+variants' sliding-window layers and llama4's chunked-local ones, with an
+optional tanh softcap:
 
 * prefill: :func:`multihead_attention` goes through ``kernels/flash_attention``
-  (causal, window, softcap);
+  (causal, window, chunk, softcap);
 * decode: ``kernels/decode_stats``, two kernels: the masked fp32 scores and
   their row max, reading the K cache in place (the JAX package computes
   them outside any kernel, ``decode_stats_scores``), then exp, row sums and
-  P.V -> ``o / l``. A window layer's cache is a ring (``ring=True``) of
-  L = min(cache_len, window) slots, token t at slot t % L, as the JAX
-  package keeps it (``ring_cache_len``); a sequence-parallel rank holds a
-  shard of it (``slot_offset``, ``total_len`` = L).
+  P.V -> ``o / l``. A window or chunked layer's cache is a ring
+  (``ring=True``) of L = min(cache_len, window or chunk) slots, token t at
+  slot t % L, as the JAX package keeps it (``ring_cache_len``); a
+  chunked ring keeps the current chunk's tokens, the slots [0, pos mod
+  chunk]; a sequence-parallel rank holds a shard of it (``slot_offset``,
+  ``total_len`` = L).
 
 Query heads are grouped over KV heads (G = H / KV); softmax is in fp32.
 """

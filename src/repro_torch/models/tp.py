@@ -108,7 +108,8 @@ def check_tp(cfg: ModelConfig, m: int, use: str = "train") -> None:
     if cfg.family == "moe":
         raise NotImplementedError(
             f"{cfg.name} on a model tier of {m}: the MoE family is not split "
-            "over 'model' yet (ROADMAP.md Queue 1 item 14)")
+            "over 'model' yet; it waits for the model-tier MoE slice, the "
+            "experts' E over 'model' (ROADMAP.md Queue 1 item 14)")
     if cfg.family == "ssm":
         _, H, _, _, G = ssm_dims(cfg)
         hl, hg = H // m, H // G

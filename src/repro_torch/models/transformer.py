@@ -14,7 +14,8 @@ Mirrors ``repro.models.transformer.forward`` for three families:
 
 A sequence-parallel rank holds a shard of each K/V stack (``shards``:
 the slots [offset, offset + length) of the full-length cache, or of the
-rings, each ring of min(cache_len, window) slots split by its own length):
+rings, each ring of min(cache_len, window or chunk) slots split by its own
+length):
 its prefill runs the whole prompt and keeps only those slots (of a ring,
 the rank's slice of the rolled ring), and its decode passes each
 attention layer's cache write and attention to a ``decode_combine`` hook,
@@ -34,17 +35,23 @@ dropped in serving, as the JAX engine drops it), a :class:`MambaBlock`
 layers (``attn == "window"``, gemma2's every other layer), a tanh softcap
 on the attention scores and on the logits, sandwich norms (``post_ln1``
 on the attention output, ``post_ln2`` on the MLP's, before each residual
-add), the embedding scaled by sqrt(d_model) and GeGLU. Each layer's
-decode meta (:func:`decode_meta`) carries its window, cap and ring.
+add), the embedding scaled by sqrt(d_model) and GeGLU. llama4-scout
+adds chunked-local layers (``attn == "chunked"``: a query sees the keys
+of its own ``chunk``-token chunk), NoPE layers (every 4th: no rotary
+embedding) and qk-norm (q and k normed over the head dim by
+``q_norm``/``k_norm`` before the rotary embedding). Each layer's decode
+meta (:func:`decode_meta`) carries its window, chunk, cap and ring.
 
 The cache holds one stacked tensor per leaf: ``k`` and ``v``
 (n_full, B, L, KV, D) for the full-attention layers, padded to
 ``cache_len`` slots; ``k_ring`` and ``v_ring`` (n_ring, B, L_ring, KV, D)
-for the window layers, each a ring of L_ring = min(cache_len, window)
-slots holding token t at slot t % L_ring (the JAX ``ring_cache_len``; a
-prompt longer than the ring keeps its last L_ring keys); a stack with no
-layer is left out (llama keeps ``k`` and ``v`` alone, h2o-danube
-``k_ring`` and ``v_ring`` alone, gemma2 21 layers in each); ``conv``
+for the window or chunked layers, each a ring of L_ring = min(cache_len,
+window or chunk) slots holding token t at slot t % L_ring (the JAX
+``ring_cache_len``; a prompt longer than the ring keeps its last L_ring
+keys); a stack with no layer is left out (llama keeps ``k`` and ``v``
+alone, h2o-danube ``k_ring`` and ``v_ring`` alone, gemma2 21 layers in
+each, llama4 its chunked layers in the rings and its NoPE layers in
+``k``/``v``); ``conv``
 (n_layers, B, W-1, Ch) and ``h`` (n_layers, B, H, N, P) fp32 for the SSM
 family.
 
@@ -63,7 +70,8 @@ Parameters are a flat dict keyed like this module's ``state_dict``:
 output head is untied, and ``layers.{i}.{name}``, for ``ln1, wq, wk, wv,
 wo, ln2, gate, up, down`` (dense), the same attention leaves with
 ``router``, the experts' stacked ``gate, up, down`` and ``shared_gate,
-shared_up, shared_down`` (MoE), or ``ln, in_proj, conv_w, conv_b,
+shared_up, shared_down`` (MoE; llama4 adds ``q_norm`` and ``k_norm``,
+(head_dim,) each), or ``ln, in_proj, conv_w, conv_b,
 dt_bias, A_log, D, norm, out_proj`` (Mamba2), in the JAX ``(d_in, d_out)``
 layout. :func:`init_params` makes them from a
 ``torch.Generator``; :func:`params_from_jax` converts the JAX package's
@@ -91,6 +99,7 @@ from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
 from .tp import MAMBA_TIER_LEAVES, mamba_train_tp, ssm_tier_tree
 
 ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
+QK_NORM_PARAMS = ("q_norm", "k_norm")          # llama4's qk-norm scales
 LAYER_PARAMS = ATTN_PARAMS + ("gate", "up", "down")
 SANDWICH_PARAMS = ("post_ln1", "post_ln2")     # gemma2's post-norms
 MAMBA_LAYER_PARAMS = ("ln",) + MAMBA_PARAMS
@@ -99,12 +108,15 @@ FULL_LEAVES, RING_LEAVES = ("k", "v"), ("k_ring", "v_ring")
 
 
 def ring_cache_len(cfg: ModelConfig, spec) -> int | None:
-    """The ring's size of a window layer (None: a full-length cache): the
-    JAX ``ring_cache_len``, the window; a cache of ``cache_len`` slots holds
-    min(cache_len, this). The port has no chunked layer
-    (``check_supported``)."""
-    if spec.mixer == "attn" and spec.attn == "window" and cfg.window:
+    """The ring's size of a window or chunked-local layer (None: a
+    full-length cache): the JAX ``ring_cache_len``, the window or the
+    chunk; a cache of ``cache_len`` slots holds min(cache_len, this)."""
+    if spec.mixer != "attn":
+        return None
+    if spec.attn == "window" and cfg.window:
         return cfg.window
+    if spec.attn == "chunked" and cfg.chunk:
+        return cfg.chunk
     return None
 
 
@@ -124,11 +136,12 @@ def prefill_rows(t: torch.Tensor, total: int, offset: int, length: int,
 
 def decode_meta(cfg: ModelConfig, spec) -> dict:
     """The decode_combine hook's meta of a layer of the plan entry
-    ``spec``: its window (window layers), chunk (0: none is ported), the
-    attention softcap and whether its cache is a ring."""
+    ``spec``: its window (window layers), chunk (chunked-local layers),
+    the attention softcap and whether its cache is a ring."""
     ring = ring_cache_len(cfg, spec) is not None
     return {"window": cfg.window if spec.attn == "window" else 0,
-            "chunk": 0, "cap": cfg.attn_softcap, "ring": ring}
+            "chunk": cfg.chunk if spec.attn == "chunked" else 0,
+            "cap": cfg.attn_softcap, "ring": ring}
 
 
 def find_period(plan) -> tuple[int, int, int]:
@@ -150,19 +163,27 @@ def _same(t):
 
 
 def attn_qkv(x, w, cos, sin, cfg: ModelConfig, norm=rmsnorm, enter=_same,
-             kv_weight=_same):
+             kv_weight=_same, rope: bool = True):
     """A dense layer's first half up to attention: ``ln1``, the q/k/v
-    projections and rotary embeddings; ``w`` maps ``LAYER_PARAMS`` names to
-    weights in ``cfg.dtype``. On a model rank (``w`` its heads' columns)
-    ``enter`` takes the normed input into the tier's split work and
-    ``kv_weight`` gives ``wk``/``wv`` as the columns of its KV heads."""
+    projections, qk-norm where ``w`` holds ``q_norm`` and ``k_norm`` (q
+    (B,S,H,D) and k normed over D, each its (D,) scale, before the rotary
+    embedding) and the rotary embeddings (none on a NoPE layer,
+    ``rope=False``); ``w`` maps ``LAYER_PARAMS`` names to weights in
+    ``cfg.dtype``. On a model rank (``w`` its heads' columns) ``enter``
+    takes the normed input into the tier's split work and ``kv_weight``
+    gives ``wk``/``wv`` as the columns of its KV heads."""
     D = cfg.head_dim_
     h = enter(norm(x, w["ln1"], eps=cfg.norm_eps))
     B, S, _ = h.shape
-    q = apply_rope_angles((h @ w["wq"]).reshape(B, S, -1, D), cos, sin)
-    k = apply_rope_angles((h @ kv_weight(w["wk"])).reshape(B, S, -1, D),
-                          cos, sin)
+    q = (h @ w["wq"]).reshape(B, S, -1, D)
+    k = (h @ kv_weight(w["wk"])).reshape(B, S, -1, D)
     v = (h @ kv_weight(w["wv"])).reshape(B, S, -1, D)
+    if "q_norm" in w:
+        q = norm(q, w["q_norm"], eps=cfg.norm_eps)
+        k = norm(k, w["k_norm"], eps=cfg.norm_eps)
+    if rope:
+        q = apply_rope_angles(q, cos, sin)
+        k = apply_rope_angles(k, cos, sin)
     return q, k, v
 
 
@@ -200,14 +221,16 @@ def out_moe(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
 class Block(nn.Module):
     """One pre-norm decoder layer: attention then the gated MLP, or the
     MoE experts when ``weights`` holds a router. ``meta`` is the layer's
-    :func:`decode_meta` (its window, softcap and ring)."""
+    :func:`decode_meta` (its window, chunk, softcap and ring); ``rope``
+    False makes it a NoPE layer."""
 
     def __init__(self, cfg: ModelConfig, weights: dict[str, torch.Tensor],
-                 meta: dict, tp=None):
+                 meta: dict, tp=None, rope: bool = True):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
         self.meta = meta
+        self.rope = rope
         self.moe = "router" in weights
         for name in weights:
             self.register_parameter(
@@ -222,10 +245,11 @@ class Block(nn.Module):
         (module docstring) does the write and the attention when it takes
         the layer."""
         w, meta = self._parameters, self.meta
-        q, k, v = attn_qkv(x, w, cos, sin, self.cfg)
+        q, k, v = attn_qkv(x, w, cos, sin, self.cfg, rope=self.rope)
         if kv_cache is None:
             o = attn.multihead_attention(q, k, v, causal=True,
                                          window=meta["window"],
+                                         chunk=meta["chunk"],
                                          cap=meta["cap"])
             kv = (k, v)
         else:
@@ -237,6 +261,7 @@ class Block(nn.Module):
                 attn.write_cache(v_cache, v, pos, ring=meta["ring"])
                 o = attn.decode_attention(q, k_cache, v_cache, pos,
                                           window=meta["window"],
+                                          chunk=meta["chunk"],
                                           cap=meta["cap"], ring=meta["ring"])
             else:
                 o = res[0]
@@ -312,7 +337,7 @@ class Transformer(nn.Module):
                 return MambaBlock(cfg, {n: load(f"layers.{i}.{n}")
                                         for n in names}, tp)
             return Block(cfg, {n: load(f"layers.{i}.{n}") for n in names},
-                         decode_meta(cfg, spec), tp)
+                         decode_meta(cfg, spec), tp, rope=spec.rope)
 
         self.embed = nn.Parameter(load("embed"), requires_grad=False)
         self.final_norm = nn.Parameter(load("final_norm"), requires_grad=False)
@@ -322,10 +347,11 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(block(i, s) for i, s in enumerate(plan))
         self.ssm = cfg.family == "ssm"
         # layer i's cache: (its stack's leaves, its index in the stack)
-        windows = [ring_cache_len(cfg, s) for s in plan]
-        rings = [w is not None for w in windows]
-        # every ring layer's: the config has one window
-        self.ring_window = next((w for w in windows if w), None)
+        sizes = [ring_cache_len(cfg, s) for s in plan]
+        rings = [n is not None for n in sizes]
+        # every ring layer's: the config's window or chunk (a plan has
+        # window layers or chunked ones, not both)
+        self.ring_size = next((n for n in sizes if n), None)
         self.cache_slot = [(RING_LEAVES if r else FULL_LEAVES,
                             sum(rings[:i]) if r else i - sum(rings[:i]))
                            for i, r in enumerate(rings)]
@@ -342,11 +368,11 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def ring_len(self, cache_len: int) -> int | None:
-        """The slots of a window layer's ring in a ``cache_len``-slot
-        cache: min(cache_len, its ``ring_cache_len``); None where no layer
-        is a ring."""
-        return (None if self.ring_window is None
-                else min(cache_len, self.ring_window))
+        """The slots of a window or chunked layer's ring in a
+        ``cache_len``-slot cache: min(cache_len, its ``ring_cache_len``);
+        None where no layer is a ring."""
+        return (None if self.ring_size is None
+                else min(cache_len, self.ring_size))
 
     def stack_lens(self, cache_len: int) -> dict[tuple[str, str], int]:
         """The slots of each K/V stack with a layer in a ``cache_len``-slot
@@ -516,6 +542,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layer = {"ln1": zeros(), "wq": dense(d, H * D),
                      "wk": dense(d, KV * D), "wv": dense(d, KV * D),
                      "wo": dense(H * D, d), "ln2": zeros()}
+            if cfg.qk_norm:
+                layer |= {n: torch.zeros((D,), dtype=dtype, device=device)
+                          for n in QK_NORM_PARAMS}
             if spec.mlp == "moe":
                 layer |= moe_init(generator, cfg, dtype, device)
             else:
@@ -588,12 +617,15 @@ def spec_leaf_paths(cfg: ModelConfig, spec, tier: bool = False
         extra = {n: ("mamba", n) for n in MAMBA_TIER_LEAVES} if tier else {}
         return {n: MAMBA_TRAIN_LEAF_PATHS[n]
                 for n in MAMBA_LAYER_PARAMS} | extra
+    qk = ({n: ("attn", n, "scale") for n in QK_NORM_PARAMS}
+          if cfg.qk_norm else {})
     if spec.mlp == "moe":
-        return ({n: TRAIN_LEAF_PATHS[n] for n in ATTN_PARAMS}
+        return ({n: TRAIN_LEAF_PATHS[n] for n in ATTN_PARAMS} | qk
                 | {n: MOE_TRAIN_LEAF_PATHS[n] for n in moe_shapes(cfg)})
     if cfg.sandwich_norm:
-        return TRAIN_LEAF_PATHS | {n: (n, "scale") for n in SANDWICH_PARAMS}
-    return TRAIN_LEAF_PATHS
+        return (TRAIN_LEAF_PATHS | qk
+                | {n: (n, "scale") for n in SANDWICH_PARAMS})
+    return TRAIN_LEAF_PATHS | qk
 
 
 def spec_params(cfg: ModelConfig, spec) -> tuple[str, ...]:
@@ -648,6 +680,8 @@ def _spec_shapes(cfg: ModelConfig, spec) -> dict[str, tuple[int, ...]]:
     hq, hkv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
     attn = {"ln1": (d,), "wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
             "wo": (hq, d), "ln2": (d,)}
+    if cfg.qk_norm:
+        attn |= {n: (cfg.head_dim_,) for n in QK_NORM_PARAMS}
     if spec.mlp == "moe":
         return attn | moe_shapes(cfg)
     post = {n: (d,) for n in SANDWICH_PARAMS} if cfg.sandwich_norm else {}

@@ -15,6 +15,11 @@ step; on a grid each K/V stack, the full-length ``k``/``v`` and the rings
 ``k_ring``/``v_ring`` of min(cache_len, window) slots, is split over the
 span of its own length (``ResolvedServeSpec.spans``), and a stack that no
 span divides is held whole on every rank and attended as on one rank.
+llama4-scout-17b-a16e serves so too: its chunked layers' rings hold
+min(cache_len, chunk) slots each and keep the current chunk's tokens, its
+NoPE layers the full-length cache. The MoE family (qwen2-moe-a2.7b,
+llama4) takes the (pod, data) layouts below with every expert on every
+rank; its decode on one rank is one CUDA graph a step.
 
 On a :class:`~repro_torch.core.topology.RankGrid` every rank builds the
 same engine and submits the same requests. A batch that divides over the

@@ -32,17 +32,23 @@ combine (``_combine_eligible``); or its SSD heads' state and conv
 channels (the ssm family, whose state is never split over the sequence:
 a batch the lane does not divide is held whole on every lane).
 
-The MoE family is served on one rank: :meth:`ServeSpec.resolve` refuses it
-on a grid of more than one rank (ROADMAP.md Queue 1 item 14). The dense
-variants (``configs.variant_features``: window layers with their ring
-caches, softcaps, sandwich norms, ``scale_embed``, GeGLU; h2o-danube-3-4b
-and gemma2-9b) take every layout above, on a model tier too.
+The MoE family (qwen2-moe-a2.7b, llama4-scout-17b-a16e) takes both
+(pod, data) layouts, every rank holding every expert, as the JAX engine
+holds them over its DP axes: its routing is per batch row, so a
+batch-sharded rank routes its rows as one rank would and a split-cache
+rank runs every expert on the one token; ``models/tp.check_tp`` refuses it
+on a model tier (ROADMAP.md Queue 1 item 14). The dense variants
+(``configs.variant_features``: window layers with their ring caches,
+softcaps, sandwich norms, ``scale_embed``, GeGLU; h2o-danube-3-4b and
+gemma2-9b) take every layout above, on a model tier too.
 ``cache_len`` stays the request's context limit, as in the JAX package: a
-window layer holds min(cache_len, window) slots of it, and each K/V stack
-(the full-length ``k``/``v``, the rings ``k_ring``/``v_ring``) takes the
-span of its own length (``stack_spans``, the JAX ``cache_shardings``'s
-per-leaf ``_seq_axes_for``): a ring split over the ranks by its
-``total_len``, or held whole on every rank where no span divides it.
+window or chunked layer holds min(cache_len, window or chunk) slots of
+it, and each K/V stack (the full-length ``k``/``v``, the rings
+``k_ring``/``v_ring``) takes the span of its own length (``stack_spans``,
+the JAX ``cache_shardings``'s per-leaf ``_seq_axes_for``): a ring split
+over the ranks by its ``total_len``, or held whole on every rank where no
+span divides it; a chunked ring's shards combine with the chunk in the
+combine's meta.
 
 :meth:`ServeSpec.resolve` binds a spec to a model and a ``RankGrid`` (None:
 one rank), as the JAX ``resolve`` binds it to a mesh; the cache layout and
@@ -124,12 +130,6 @@ class ServeSpec:
         self.validate()
         sizes = _axis_sizes(grid)
         check_tp(cfg, sizes["model"], "serve")
-        if cfg.family == "moe" and sizes["pod"] * sizes["data"] > 1:
-            raise NotImplementedError(
-                f"{cfg.name} on a grid of {sizes['pod']} x {sizes['data']} "
-                "ranks: the MoE family is served on one rank; MoE over "
-                "serving grids and the model tier is ROADMAP.md Queue 1 "
-                "item 14")
         batch_sharded, cand = _cache_layout(grid, self.batch, self.seq_axes)
         seq_span = _seq_axes_for(grid, self.cache_len, cand)
         spans = stack_spans(cfg, grid, self.cache_len, cand)
@@ -230,9 +230,9 @@ def stack_spans(cfg, grid, cache_len: int, cand: tuple[str, ...] | None
                 ) -> dict[tuple[str, str], tuple[str, ...] | None]:
     """The span of each K/V stack of the model's attention layers, by its
     leaves' names: ``_seq_axes_for`` of its own length, ``cache_len`` for
-    the full-length ``k``/``v``, min(cache_len, window) for the window
-    layers' ``k_ring``/``v_ring`` (the JAX ``cache_shardings``, leaf by
-    leaf)."""
+    the full-length ``k``/``v``, min(cache_len, window or chunk) for the
+    window or chunked layers' ``k_ring``/``v_ring`` (the JAX
+    ``cache_shardings``, leaf by leaf)."""
     out = {}
     for spec in cfg.layer_plan():
         if spec.mixer != "attn":

@@ -30,7 +30,10 @@ gemma2's D = 256 with window and cap, the two decode kernels over a ring
 cache at positions before, at and past its wrap and on each shard of a
 ring split over ranks (``slot_offset``, ``total_len``), and the decode graph of
 h2o-danube and gemma2 (a 16-slot ring that the requests wrap) bitwise the
-eager forward, its launches counted with the ring instances apart.
+eager forward, its launches counted with the ring instances apart;
+llama4-scout's: the two decode kernels over a chunked ring (the kept
+slots [0, pos mod chunk]) and each shard of one, and RMSNorm at qk-norm's
+rows (B, S, heads, 128).
 """
 import pytest
 import torch
@@ -102,7 +105,8 @@ def _close(out, ref, dtype, fp32_tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 3072), (37, 100), (2, 5, 128)])
+@pytest.mark.parametrize("shape", [(8, 3072), (37, 100), (2, 5, 128),
+                                   (3, 7, 40, 128), (3, 7, 8, 128)])
 def test_rmsnorm_kernel_on_card(cuda, dtype, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -367,6 +371,84 @@ def test_decode_kernels_on_a_ring_shard(cuda, dtype, case):
     ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
     torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+# a chunked ring (llama4-scout's chunked layers): llama4's decode heads
+# (KV = 8, G = 5, D = 128) and a small case, a ring of T = chunk = 128
+# slots whose positions run through several chunks, and one of T = 96 <
+# chunk (a cache shorter than the chunk: positions stay below T)
+CHUNK_RING_CASES = [(8, 5, 128), (2, 3, 64)]
+CHUNK_RING_C = 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CHUNK_RING_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_decode_kernels_on_a_chunked_ring(cuda, dtype, case):
+    """Both decode kernels on a chunked ring against their plain versions
+    (the JAX ring mask with the chunk test on each slot's token): a whole
+    ring keeps the slots [0, min(pos mod chunk, T - 1)], per row and one
+    position for every row; each shard of a ring split in four (``
+    slot_offset``, ``total_len``) keeps [0, min(pos mod chunk - off, L -
+    1)], none where pos mod chunk < off (a shard with no slot kept gives
+    m = NEG_INF, o = 0 and l = 0 exactly). The ``RING_*`` counters count
+    every launch."""
+    KV, G, D = case
+    C, n = CHUNK_RING_C, 4
+    for T, positions in ((C, [0, 5, C - 1, C, C + 1, 2 * C + 77, 3 * C - 1,
+                              5 * C + 40]),
+                         (96, [0, 1, 40, 95])):
+        B = len(positions)
+        q, k, v = _decode_tensors((B, KV, G, D, T), dtype, cuda)
+        kw = dict(chunk=C, ring=True)
+        for pos in (torch.tensor(positions, device=cuda),
+                    torch.tensor(positions[-1], device=cuda)):
+            before = (stats_ops.RING_SCORES_LAUNCHES, stats_ops.RING_LAUNCHES)
+            s, m = stats_ops.decode_scores(q, k, pos, **kw)
+            o, l = stats_ops.accumulate(s, m, v, pos=pos, **kw)
+            torch.cuda.synchronize()
+            assert (stats_ops.RING_SCORES_LAUNCHES,
+                    stats_ops.RING_LAUNCHES) == (before[0] + 1,
+                                                 before[1] + 1)
+            rs, rm = stats_ops.decode_scores_ref(q, k, pos, **kw)
+            kept = (rs != tattention.NEG_INF)[:, 0, 0]
+            want = torch.arange(T, device=cuda)[None] <= \
+                (pos.expand(B)[:, None] % C).clamp(max=T - 1)
+            assert torch.equal(kept, want)
+            assert torch.equal(s == tattention.NEG_INF,
+                               rs == tattention.NEG_INF)
+            _close(s, rs, dtype, 1e-4)
+            _close(m, rm, dtype, 1e-4)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, v)
+            torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+    q, k, v = _decode_tensors((1, KV, G, D, C), dtype, cuda, seed=5)
+    L, states = C // n, set()
+    for p_ in (20, 100, C + 2, 3 * C + 50, 4 * C - 1):
+        pos = torch.tensor(p_, device=cuda)
+        for shard in range(n):
+            off = shard * L
+            kw = dict(slot_offset=off, total_len=C, chunk=C, ring=True)
+            kl, vl = k[:, off:off + L], v[:, off:off + L]       # views
+            s, m = stats_ops.decode_scores(q, kl, pos, **kw)
+            o, l = stats_ops.accumulate(s, m, vl, pos=pos, **kw)
+            rs, rm = stats_ops.decode_scores_ref(q, kl, pos, **kw)
+            kept = int((rs[0, 0, 0] > tattention.NEG_INF).sum())
+            assert kept == min(max(p_ % C - off + 1, 0), L)
+            assert torch.equal(s == tattention.NEG_INF,
+                               rs == tattention.NEG_INF)
+            _close(s, rs, dtype, 1e-4)
+            _close(m, rm, dtype, 1e-4)
+            ro, rl = stats_ops.decode_stats_accumulate_ref(s, m, vl)
+            torch.testing.assert_close(o, ro, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+            states.add("none" if kept == 0 else "all" if kept == L
+                       else "part")
+            if kept == 0:
+                assert bool((m == tattention.NEG_INF).all())
+                assert float(o.abs().max()) == float(l.abs().max()) == 0.0
+    assert states == {"none", "part", "all"}
 
 
 @pytest.mark.gpu

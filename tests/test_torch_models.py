@@ -84,6 +84,15 @@ def test_mamba_config_mirrors_jax():
 @pytest.mark.parametrize("name", ["internvl2-26b", "zamba2-1.2b",
                                   "llama4-scout-17b-a16e", "whisper-tiny"])
 def test_registry_names_the_waiting_slice(name):
+    """A pending architecture raises naming the slice it waits for;
+    llama4-scout, served since its slice, still names the slice that
+    trains it (ROADMAP.md Queue 1 item 15)."""
+    if name not in configs.PENDING:
+        cfg = configs.get(name)
+        configs.check_supported(cfg, "serve")
+        with pytest.raises(NotImplementedError, match="item 15"):
+            configs.check_supported(cfg, "train")
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         configs.get(name)
 
@@ -100,10 +109,18 @@ def test_unported_flags_raise_when_built(flag):
     """The dense variants' flags (window, softcap, sandwich norm,
     scale_embed, GeGLU) are built for serving and for training
     (tests/test_torch_variants.py, tests/test_torch_variants_train.py);
-    every other flag raises when a model is built for either."""
+    llama4's (qk-norm, chunked and NoPE layers) for serving alone
+    (tests/test_torch_llama4.py); every other flag raises when a model is
+    built for either."""
     cfg = dataclasses.replace(configs.get_smoke("llama3.2-3b"), **flag)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
+    if configs.llama4_features(cfg):
+        transformer.Transformer(cfg, params, "cpu")
+        with pytest.raises(NotImplementedError, match="item 15"):
+            transformer.init_train_params(
+                cfg, torch.Generator().manual_seed(0), "cpu")
+        return
     if configs.variant_features(cfg):
         transformer.init_train_params(cfg, torch.Generator().manual_seed(0),
                                       "cpu")

@@ -173,9 +173,9 @@ def test_moe_engine_tokens_and_slots_match_jax():
     """The reduced qwen2-moe-a2.7b (2 layers, 8 experts at top-4, 2 shared
     experts, an untied head, fp32): each prompt prefills at its own length,
     so its experts' capacity is the JAX engine's (S·K/E·1.25, at least K)
-    and a decode step's is K; the tokens and rows equal the JAX engine's,
-    and a grid of more than one rank is refused (ROADMAP.md Queue 1 item
-    14)."""
+    and a decode step's is K; the tokens and rows equal the JAX engine's.
+    A (pod, data) grid resolves (tests/test_torch_moe_grid.py serves it);
+    a model tier is refused (ROADMAP.md Queue 1 item 14)."""
     jcfg = dataclasses.replace(jconfigs.get_smoke("qwen2-moe-a2.7b"),
                                n_layers=2, dtype=jnp.float32)
     tcfg = dataclasses.replace(configs.get_smoke("qwen2-moe-a2.7b"),
@@ -200,5 +200,8 @@ def test_moe_engine_tokens_and_slots_match_jax():
 
     class Grid:
         q, pl, m = 2, 2, 1
+    assert ServeSpec(batch=4, cache_len=64).resolve(tcfg, Grid()
+                                                    ).batch_sharded
+    Grid.m = 2
     with pytest.raises(NotImplementedError, match="item 14"):
         ServeSpec(batch=4, cache_len=64).resolve(tcfg, Grid())
