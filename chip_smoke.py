@@ -67,7 +67,9 @@ the package is missing. Phases, each fatal on failure:
    (phase 4m, ``moe_kernel_cases``: RMSNorm plain and residual 2,048 wide at 8 and
    512 rows beside ``F.rms_norm``, flash at S = 137 and 512 with 16 q and
    16 KV heads of 128 beside SDPA, the decode pair at 8 rows of 1,024
-   slots, KV = 16, G = 1, beside SDPA; bf16, the tolerances above);
+   slots, KV = 16, G = 1, beside SDPA; bf16, the tolerances above), and
+   at a model rank's 8/8 heads of phase 9e (flash at S = 512, the decode
+   kernels on 2 rows of an 8,192-slot cache, the pair on 8 rows);
 2b. the DMA allgather on the card: each of bruck, ring, multilane and
    locality_bruck on three cases (the FSDP parameter gather of one
    llama3.2-3b decoder layer over 16 = 4 x 4 ranks and over 12 = 3 x 4
@@ -98,6 +100,8 @@ the package is missing. Phases, each fatal on failure:
    printed as a yardstick), at a model rank's of 8ev
    (``TIER_VARIANT_FLASH_BWD``: gemma2's 8/4 heads of 256 with cap 50 and
    uncapped, h2o-danube's 16/4 of 120; B = 1, the forward with lse too),
+   at a model rank's of 10c (qwen2-moe-a2.7b's 8/8 heads of 128 over
+   1,024 tokens, ``MOE_TIER_RANK_FLASH``),
    each naming the instance that served it by its
    launch counter (bf16 the tensor cores at every D, fp32 the CUDA cores)
    and failing on another; and the
@@ -364,6 +368,23 @@ the package is missing. Phases, each fatal on failure:
    rank's non-local gather and reduce-scatter messages and bytes the
    oracle's for its lane rank, the tier inside its pod; step ms, peak
    memory a rank, the tier's calls, host ms and staged bytes.
+   10c, the MoE family on a model tier (in 8e's 8 spawned ranks, 2 x 2 x
+   2): ``train_parity_moe_tp``, 10a's reduced fp32 qwen2-moe (4 experts
+   and 32 shared-expert columns a model rank, the router whole) on 8b's
+   batches in locality + FSDP, eager and with ``prefetch_depth=1``,
+   ``seq_shard``, xla + FSDP and expert-parallel "locality" (over each
+   model lane) against the card's one rank at 8b's limits, the aux loss
+   too (the lane's 4 DP ranks' rows as 4 microbatches; for "xla" the
+   whole batch as one: the JAX GSPMD step's aux loss is the global
+   batch's), the prefetch bitwise the eager step, launches exact, the
+   tier inside each pod; ``train_moe_tp``, qwen2-moe-a2.7b at full width
+   (32 of 64 experts, 8/8 heads of 128 and 2,816 shared columns a model
+   rank) cut to 1 of 24 layers (the gloo transport), one 1,024-token
+   sequence a DP rank, one step of locality + FSDP: metrics equal on
+   every rank and finite, launches exact, each rank's non-local gather
+   and reduce-scatter messages and bytes the oracle's for its lane rank,
+   the tier inside its pod; step ms, peak memory a rank, the tier's
+   calls, host ms and staged bytes.
 10. MoE expert-parallel training, ``train_moe_on_ranks``: 6 spawned
    ranks. 10a: the reduced fp32 qwen2-moe (2 layers, 8 experts at top-4)
    on 2 x 2 and, with 12 experts, on 3 x 2, ``moe_dispatch`` "locality"
@@ -443,7 +464,26 @@ the package is missing. Phases, each fatal on failure:
    decode graph rule, launches exact (the ring instances too); decode
    step ms, prefill ms, the combine's and the migration's host ms and
    peak memory a rank.
-9l. the MoE family on (pod, data) grids, ``serve_moe_grids`` (after 9v):
+9e. the MoE family on the model tier, ``serve_moe_tier`` (in 9v's 8
+   spawned ranks, after 9v): each model rank holds E/m routed experts, its
+   shared-expert columns, its q and KV heads and vocabulary rows, the
+   router whole. First 9l's reduced fp32 llama4 and qwen2-moe on 9l's
+   128-slot cache and traces, batch-sharded (both schedules) and split
+   (both combines), every token equal to a one-rank engine's, each rank
+   holding E/m experts; then qwen2-moe-a2.7b at full width (32 experts,
+   8/8 heads and 2,816 shared columns a rank; 9v's 8,192-slot cache and
+   traces): 9e-a with ``locality_bruck`` (``TIER_MIGRATIONS``
+   migrations), 9e-b split over ("pod", "data") with the locality
+   combine, first in fp32 at 2 layers, held by phase 9's rule against
+   one-rank engines of the same layers at ``MOE_TIER_EXACT_REL``, then in
+   bf16 at 8 of 24 layers, where the rule's differences are printed and
+   not held (bf16 routing near-ties, ``MOE_TIER_LAYERS``' comment); both
+   with phase 9's other checks (2 L + 2 tier calls a forward, migration
+   and combine messages and bytes the oracle's, every tier inside one
+   pod, the decode eager, launches exact); decode step ms, prefill ms,
+   the tier's calls, host ms (a forward's too) and staged bytes, and peak
+   memory a rank.
+9l. the MoE family on (pod, data) grids, ``serve_moe_grids`` (after 9e):
    4 spawned ranks as 2 x 2, every rank holding every expert. First the
    reduced fp32 llama4 of 4l's exactness check and the reduced fp32
    qwen2-moe-a2.7b (2 layers) on a 128-slot cache: 9l-a batch-sharded, 8
@@ -462,9 +502,9 @@ the package is missing. Phases, each fatal on failure:
 
 Every kernel's launches are counted from 0 just before each main path
 (the DMA gather, phases 4, 5, 4m and 4l, each engine of phases 6, 7, 9,
-9m, 9v and 9l in its own process, the trainers of 8a and 8d, each run of 8c, 8e,
-8ev, 8f, 10b and of 8b's mamba2 ranks in its own process) and read just
-after it.
+9m, 9v, 9e and 9l in its own process, the trainers of 8a and 8d, each run
+of 8c, 8e, 8ev, 10c, 8f, 10b and of 8b's mamba2 ranks in its own process)
+and read just after it.
 
 The last lines: the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -472,6 +512,7 @@ nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -660,8 +701,8 @@ def flash_case(timer, randn, S, H, KV, D, mask, dtype, tol) -> dict:
 # the serving path's kernels at qwen2-moe-a2.7b's shapes (phase 4m):
 # d_model 2,048, 16 q and 16 KV heads of 128 (G = 1); RMSNorm plain and
 # residual at 8 and 512 rows, flash at S = 137 and 512, the decode pair at
-# phase 4's batch and cache (8 rows of 1,024 slots); bf16, the tolerances
-# of phase 2
+# phase 4's batch and cache (8 rows of 1,024 slots); then at a model rank's
+# 8/8 heads (phase 9e); bf16, the tolerances of phase 2
 MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_D, MOE_HEADS, MOE_HEAD_DIM = 2048, 16, 128
 
@@ -683,6 +724,21 @@ def moe_kernel_cases(timer) -> dict[str, list[dict]]:
     for rows in out.values():
         for r in rows:
             r["path"] = "serve_full_width_moe"
+    # a model rank of phase 9e (m = 2: 8 q and 8 KV heads of 128): flash at
+    # a 512-token prefill, the decode kernels on 9e-a's 2 rows of an
+    # 8,192-slot cache, the pair on 8 rows of 1,024
+    h = MOE_HEADS // TIER_M
+    tier = {"flash_attention": [flash_case(
+        timer, randn, 512, h, h, MOE_HEAD_DIM, dict(causal=True), bf16,
+        tol)]}
+    tier.update(decode_cases(timer, g, bf16, tol, shapes=[(1, MOE_HEAD_DIM)],
+                             B=2, KV=h, L=VARIANT_TIER_CACHE))
+    tier["decode_attention"] = [decode_pair(timer, g, KV=h, G=1,
+                                            D=MOE_HEAD_DIM)]
+    for name, rows in tier.items():
+        for r in rows:
+            r["path"] = "serve_moe_tier"
+        out[name] += rows
     return out
 
 
@@ -3603,10 +3659,83 @@ def variant_tier_runs(plan: dict, key: str, vocab: int
                 None) for name, kw in TIER_SEQ_LAYOUTS])
 
 
+# phase 9e: the MoE family on the same ranks, after 9v. Each model rank
+# holds E/m routed experts, its columns of the shared experts and its q and
+# KV heads and vocabulary rows, the router whole (``models/tp.moe_tp``).
+# First 9l's reduced fp32 llama4 and qwen2-moe on 9l's 128-slot cache and
+# traces: 9e-a batch-sharded (8 rows, 12 requests homed in pod 0) with both
+# migration schedules, 9e-b one B = 1 split cache with both combines, every
+# token equal to the card's one-rank engine. Then qwen2-moe-a2.7b at full
+# width (d_model 2,048, 16/16 heads of 128, 64 experts of 1,408 at top-4,
+# the shared experts' 5,632 columns; a rank: 32 experts, 8/8 heads, 2,816
+# shared columns) cut to 8 of its 24 layers (24 on four model lanes would
+# hold ~121 GB of bf16 weights; 8 hold ~5.5 GB a rank), bf16, 9v's 8,192-
+# slot cache and traces (below its vocabulary): 9e-a with locality_bruck,
+# 9e-b with the locality combine. Held against one-rank engines of the same
+# layers first in fp32 at 2 layers ("exact": logits within
+# MOE_TIER_EXACT_REL of the largest |logit|; read on an H100: 3e-6), then
+# timed in bf16 at 8, where phase 9's rule does not hold and is reported:
+# bf16 router logits keep 8 bits, so a rounding that the tier's partial
+# sums move by an ulp flips a top-k choice among near-ties, and a flipped
+# expert moves its token's output by its gate's share (0.3-1.5 of logits
+# near 4.5 in a prefill of ~4,000 tokens; fp32 at the same width: 1e-5)
+MOE_TIER_LAYERS, MOE_TIER_EXACT_LAYERS = 8, 2
+MOE_TIER_EXACT_REL = 1e-4
+MOE_TIER_FULL_RUNS = ("9e-a|locality_bruck", "9e-b|pod_locality")
+
+
+def _moe_tier_configs(key: str) -> list:
+    """(arch, config) of 9e's runs at ``key``: "reduced", 9l's two reduced
+    fp32 MoE models; "exact", qwen2-moe-a2.7b at full width in fp32 cut to
+    ``MOE_TIER_EXACT_LAYERS``; "full", in bf16 cut to
+    ``MOE_TIER_LAYERS``."""
+    from repro_torch import configs
+    if key == "reduced":
+        return _moe_grid_configs("reduced")
+    full = configs.get(MOE_ARCH)
+    if key == "exact":
+        return [(MOE_ARCH, dataclasses.replace(
+            full, n_layers=MOE_TIER_EXACT_LAYERS, dtype=torch.float32))]
+    return [(MOE_ARCH, dataclasses.replace(full, n_layers=MOE_TIER_LAYERS))]
+
+
+def moe_tier_runs(plan: dict, key: str, vocab: int
+                  ) -> list[tuple[str, dict, list, int | None]]:
+    """(name, ServeSpec keywords, requests, home pod) of 9e's runs at
+    ``key``: reduced, 9l's traces and cache with both schedules and both
+    combines; exact and full, 9v's traces and cache (tokens below
+    ``vocab``) with ``MOE_TIER_FULL_RUNS``."""
+    if key == "reduced":
+        cache, rows = MOE_GRID_REDUCED_CACHE, MOE_GRID_REDUCED_ROWS
+        batch, seq = plan["moe"]["reduced_batch"], plan["moe"]["reduced_seq"]
+    else:
+        cache, rows = VARIANT_TIER_CACHE, BATCH_ROWS
+        batch, seq = plan["batch"], plan["seq"]
+    batch = [(t % vocab, m) for t, m in batch]
+    seq = [(t % vocab, m) for t, m in seq]
+    runs = ([(f"9e-a|{alg}", dict(batch=rows, cache_len=cache,
+                                  page_len=BATCH_PAGE, migrate=alg),
+              batch, BATCH_HOME_POD) for alg in TIER_ALGS]
+            + [(f"9e-b|{name}", dict(batch=1, cache_len=cache, **kw), seq,
+                None) for name, kw in TIER_SEQ_LAYOUTS])
+    return runs if key == "reduced" else [
+        r for r in runs if r[0] in MOE_TIER_FULL_RUNS]
+
+
+# 9v's and 9e's runs on the shared ranks, in order: (the phase's name,
+# its configs, its runs, its sizes; each full-width size with the
+# logits' limit of phase 9's rule, a share of the largest |logit|, None
+# where it is reported and not held)
+TIER_SERVE_SETS = (("serve_tier_variants", _variant_tier_configs,
+                    variant_tier_runs, {"full": SEQ_LOGIT_REL}),
+                   ("serve_moe_tier", _moe_tier_configs, moe_tier_runs,
+                    {"exact": MOE_TIER_EXACT_REL, "full": None}))
+
+
 def tier_variant_rank(rank: int, world: int, plan: dict) -> dict:
-    """One rank of phase 9v (all eight share the one card): each run of
-    ``variant_tier_runs`` at the reduced size for both variants, then at
-    full width, with this rank's part of the weights drawn from seed 0
+    """One rank of phases 9v and 9e (all eight share the one card): each
+    run of 9v's, then of 9e's, at the reduced size, then at full width,
+    with this rank's part of the weights drawn from seed 0
     (``init_params(..., part=)``: the one-rank engine's weights, cut)."""
     import torch.distributed as dist
     from repro_torch.core.topology import RankGrid
@@ -3619,59 +3748,71 @@ def tier_variant_rank(rank: int, world: int, plan: dict) -> dict:
     out = {"rank": rank, "reduced": {}, "full": {}, "init_s": {},
            "coords": dict(rank=grid.rank, t=grid.t, grid_rank=grid.grid_rank,
                           tier=list(grid.model.members))}
-    for key in ("reduced", "full"):
-        for arch, cfg in _variant_tier_configs(key):
-            t0 = time.perf_counter()
-            params = init_params(
-                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
-                part=TensorParallel.build(cfg, grid, use="serve").part)
-            torch.cuda.synchronize()
-            out["init_s"][f"{key}|{arch}"] = time.perf_counter() - t0
-            for name, kw, reqs, home in variant_tier_runs(plan, key,
-                                                          cfg.vocab_size):
+    for phase, configs_of, runs_of, rels in TIER_SERVE_SETS:
+        for key in ("reduced", *rels):
+            for arch, cfg in configs_of(key):
                 t0 = time.perf_counter()
-                res = serve_on_card(cfg, params, ServeSpec(**kw), reqs, grid,
-                                    home)
-                out[key][f"{arch}|{name}"] = res if key == "full" else {
-                    k: res[k] for k in ("tokens", "results", "stats",
-                                        "shards")}
-                dist.barrier()
-                if rank == 0:
-                    print(json.dumps({"phase": "serve_tier_variant_run",
-                                      "size": key, "model": arch,
-                                      "run": name, "seconds":
-                                      time.perf_counter() - t0}), flush=True)
-            del params
-            gc.collect()
-            torch.cuda.empty_cache()
+                params = init_params(
+                    cfg, torch.Generator(device="cuda").manual_seed(0),
+                    "cuda",
+                    part=TensorParallel.build(cfg, grid, use="serve").part)
+                torch.cuda.synchronize()
+                out["init_s"][f"{key}|{arch}"] = time.perf_counter() - t0
+                out.setdefault("layer0", {})[f"{key}|{arch}"] = {
+                    n.rsplit(".", 1)[1]: list(t.shape)
+                    for n, t in params.items() if n.startswith("layers.0.")}
+                for name, kw, reqs, home in runs_of(plan, key,
+                                                    cfg.vocab_size):
+                    t0 = time.perf_counter()
+                    res = serve_on_card(cfg, params, ServeSpec(**kw), reqs,
+                                        grid, home)
+                    out.setdefault(key, {})[f"{arch}|{name}"] = (
+                        res if key != "reduced" else {
+                            k: res[k] for k in ("tokens", "results", "stats",
+                                                "shards")})
+                    dist.barrier()
+                    if rank == 0:
+                        print(json.dumps({"phase": f"{phase}_run",
+                                          "size": key, "model": arch,
+                                          "run": name, "seconds":
+                                          time.perf_counter() - t0}),
+                              flush=True)
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
     return out
 
 
-def serve_tier_variants(smi: str) -> dict[str, int]:
-    """Phase 9v: one-rank references in this process, then 8 spawned ranks
-    (``tier_variant_rank``) on 2 x 2 x 2; phase 9's checks, each K/V stack
-    at its own span; prints each run; returns the launches per kernel of
-    the full-width runs, summed over the ranks."""
+def serve_tier_variants(smi: str) -> dict[str, dict[str, int]]:
+    """Phases 9v and 9e: one-rank references in this process, then 8
+    spawned ranks (``tier_variant_rank``) on 2 x 2 x 2; phase 9's checks,
+    each K/V stack at its own span; prints each run; returns each phase's
+    launches per kernel of its full-width runs, summed over the ranks."""
+    from repro_torch import configs
     from repro_torch.launch.serve import run_ranks
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServeSpec
 
     full = _variant_tier_configs("full")[0][1]
     plan = variant_tier_requests(full.vocab_size)
+    plan["moe"] = moe_grid_requests(configs.get(LLAMA4).vocab_size)
     refs = {}
-    for key in ("reduced", "full"):
-        for arch, cfg in _variant_tier_configs(key):
-            params = init_params(cfg, torch.Generator(device="cuda")
-                                 .manual_seed(0), "cuda")
-            for name, kw, reqs, home in variant_tier_runs(
-                    plan, key, cfg.vocab_size)[::2]:
-                one = {k: v for k, v in kw.items()
-                       if k not in ("migrate", "combine")}
-                refs[key, arch, name[:4]] = serve_on_card(
-                    cfg, params, ServeSpec(**one), reqs, home_pod=home)
-            del params
-            gc.collect()
-            torch.cuda.empty_cache()
+    for _, configs_of, runs_of, rels in TIER_SERVE_SETS:
+        for key in ("reduced", *rels):
+            for arch, cfg in configs_of(key):
+                params = init_params(cfg, torch.Generator(device="cuda")
+                                     .manual_seed(0), "cuda")
+                for name, kw, reqs, home in runs_of(plan, key,
+                                                    cfg.vocab_size):
+                    if (key, arch, name[:4]) in refs:
+                        continue
+                    one = {k: v for k, v in kw.items()
+                           if k not in ("migrate", "combine")}
+                    refs[key, arch, name[:4]] = serve_on_card(
+                        cfg, params, ServeSpec(**one), reqs, home_pod=home)
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
     q, pl, m = TIER_GRID
     n = q * pl * m
     t0 = time.perf_counter()
@@ -3680,76 +3821,134 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
     coords = [x["coords"] for x in ranks]
     check([c["grid_rank"] for c in coords] == list(range(n)),
           "serve_tier_variants: grid ranks are not the spawned ranks' order")
-    lane = [c["rank"] for c in coords]
-    for key in ("reduced", "full"):
-        for arch, cfg in _variant_tier_configs(key):
-            L = cfg.n_layers
-            for name, *_ in variant_tier_runs(plan, key, cfg.vocab_size):
-                ref = refs[key, arch, name[:4]]
-                res = [x[key][f"{arch}|{name}"] for x in ranks]
-                what = f"serve_tier_variants {key} {arch} {name}"
-                for r, x in enumerate(res):
-                    check(x["results"] == res[0]["results"],
-                          f"{what}: rank {r}'s results differ")
-                    if key == "reduced":
-                        check(x["tokens"] == ref["tokens"],
-                              f"{what} rank {r}: tokens {x['tokens']} != "
-                              f"one rank's {ref['tokens']}")
-                    st = x["stats"]
-                    fwd = st["prefills"] + st["decode_steps"]
-                    check(st["tier_calls"] == (2 * L + 2) * fwd
-                          and st["tier_msgs"] > 0
-                          and st["tier_nonlocal_msgs"] == 0,
-                          f"{what} rank {r}: tier calls {st['tier_calls']} "
-                          f"for {fwd} forwards (the path: {2 * L + 2} a "
-                          f"forward), non-local {st['tier_nonlocal_msgs']}")
-                    check(not st["decode_graph"] and "model tier" in
-                          st["decode_graph_rule"], f"{what}: decode graph "
-                          f"{st['decode_graph']} ({st['decode_graph_rule']})")
-                    cache = (VARIANT_TIER_CACHE if key == "full"
-                             else VARIANT_TIER_REDUCED_CACHE)
-                    plan_attn = {s.attn for s in cfg.layer_plan()}
-                    totals = {names: t for names, t, a in (
-                        ("k/v", cache, "full"),
-                        ("k_ring/v_ring", min(cache, cfg.window), "window"))
-                        if a in plan_attn}
-                    want = {names: (lane[r] * t // (q * pl), t // (q * pl),
-                                    t) for names, t in totals.items()} \
-                        if name.startswith("9v-b") else {}
-                    check(x["shards"] == want, f"{what} rank {r}: shards "
-                          f"{x['shards']}, each stack over its own span "
-                          f"{want}")
+    out = {}
+    for phase, configs_of, runs_of, rels in TIER_SERVE_SETS:
+        _tier_reduced(phase, ranks, refs, plan, configs_of, runs_of,
+                      ranks_s)
+        out[phase] = {}
+        for key, rel in rels.items():
+            for arch, cfg in configs_of(key):
+                for k, c in _tier_full_width(
+                        smi, phase, ranks, refs, plan, key, rel, arch, cfg,
+                        runs_of, ranks_s).items():
+                    out[phase][k] = out[phase].get(k, 0) + c
+    return out
+
+
+def _stack_totals(cfg, cache: int) -> dict[str, int]:
+    """The slots of each K/V stack of ``cfg`` in a ``cache``-slot cache, by
+    its leaves' names: the full-length layers' ``k/v`` and the window or
+    chunked layers' rings."""
+    from repro_torch.models.transformer import ring_cache_len
+    lens = {ring_cache_len(cfg, s) for s in cfg.layer_plan()
+            if s.mixer == "attn"}
+    out = {"k/v": cache} if None in lens else {}
+    rings = lens - {None}
+    if rings:
+        out["k_ring/v_ring"] = min(cache, rings.pop())
+    return out
+
+
+def _tier_reduced(phase: str, ranks: list, refs: dict, plan: dict,
+                  configs_of, runs_of, ranks_s: float) -> None:
+    """The reduced runs of 9v or 9e: every rank's results alike, tokens
+    equal to the one-rank engine's, 2 L + 2 tier calls a forward, none
+    across a pod, the decode eager, each split stack over its own span;
+    9e's ranks each hold E/m routed experts."""
+    q, pl, m = TIER_GRID
+    lane = [x["coords"]["rank"] for x in ranks]
+    for arch, cfg in configs_of("reduced"):
+        L = cfg.n_layers
+        if cfg.family == "moe":
+            for r, x in enumerate(ranks):
+                shapes = x["layer0"][f"reduced|{arch}"]
+                check(shapes["gate"][0] == cfg.n_experts // m
+                      and shapes["router"] == [cfg.d_model, cfg.n_experts],
+                      f"{phase} {arch} rank {r}: experts {shapes['gate']}, "
+                      f"router {shapes['router']}")
+        for name, *_ in runs_of(plan, "reduced", cfg.vocab_size):
+            ref = refs["reduced", arch, name[:4]]
+            res = [x["reduced"][f"{arch}|{name}"] for x in ranks]
+            what = f"{phase} reduced {arch} {name}"
+            for r, x in enumerate(res):
+                check(x["results"] == res[0]["results"],
+                      f"{what}: rank {r}'s results differ")
+                check(x["tokens"] == ref["tokens"],
+                      f"{what} rank {r}: tokens {x['tokens']} != "
+                      f"one rank's {ref['tokens']}")
+                st = x["stats"]
+                fwd = st["prefills"] + st["decode_steps"]
+                check(st["tier_calls"] == (2 * L + 2) * fwd
+                      and st["tier_msgs"] > 0
+                      and st["tier_nonlocal_msgs"] == 0,
+                      f"{what} rank {r}: tier calls {st['tier_calls']} "
+                      f"for {fwd} forwards (the path: {2 * L + 2} a "
+                      f"forward), non-local {st['tier_nonlocal_msgs']}")
+                check(not st["decode_graph"] and "model tier" in
+                      st["decode_graph_rule"], f"{what}: decode graph "
+                      f"{st['decode_graph']} ({st['decode_graph_rule']})")
+                totals = _stack_totals(cfg, ref["cache_len"])
+                want = {names: (lane[r] * t // (q * pl), t // (q * pl), t)
+                        for names, t in totals.items()} \
+                    if name[3] == "b" else {}
+                check(x["shards"] == want, f"{what} rank {r}: shards "
+                      f"{x['shards']}, each stack over its own span {want}")
     print(json.dumps({
-        "phase": "serve_tier_variants_reduced", "layers": 2,
-        "dtype": "float32", "grid": "2 x 2 x 2 (pod, data, model)",
-        "models": [f"{a} (head dim {hd}, window 64)"
-                   for a, hd in VARIANT_TIER_ARCHS],
-        "runs": [name for name, *_ in variant_tier_runs(plan, "reduced",
-                                                        512)],
-        "cache_len": VARIANT_TIER_REDUCED_CACHE,
+        "phase": f"{phase}_reduced", "dtype": "float32",
+        "grid": "2 x 2 x 2 (pod, data, model)",
+        "models": [f"{a}: {c.n_layers} layers, {c.n_heads}/{c.n_kv_heads} "
+                   f"heads of {c.head_dim_}" + (
+                       f", {c.n_experts} experts at top-{c.top_k}"
+                       if c.n_experts else f", window {c.window}")
+                   for a, c in configs_of("reduced")],
+        "runs": [name for name, *_ in runs_of(plan, "reduced", 512)],
         "tokens_equal_to_one_rank": True, "ranks_wall_s": ranks_s}))
 
-    total = {k: 0 for k in PATH_KERNELS}
-    variant_total = {k: 0 for k in VARIANT_KERNELS}
+
+def _tier_full_width(smi: str, phase: str, ranks: list, refs: dict,
+                     plan: dict, key: str, rel: float | None, arch: str,
+                     full, runs_of, ranks_s: float) -> dict[str, int]:
+    """The full-width runs at ``key`` of 9v (gemma2-9b) or 9e
+    (qwen2-moe-a2.7b): phase 9's rule against the one-rank engine (logits
+    within ``rel`` of the largest |logit|, a differing first token a near
+    tie; with ``rel`` None the differences are reported, held to nothing),
+    launches exact (the ring instances too), 2 L + 2 tier calls a forward,
+    migration and combine messages and bytes the oracle's with each stack
+    at its own span, the decode eager; prints a line a run; returns the
+    launches per kernel, summed over the ranks."""
+    from repro_torch import configs
+    q, pl, m = TIER_GRID
+    coords = [x["coords"] for x in ranks]
+    lane = [c["rank"] for c in coords]
+    total = {k: 0 for k in PATH_KERNELS + VARIANT_KERNELS}
     KV_loc, H_loc, D = full.n_kv_heads // m, full.n_heads // m, full.head_dim_
     L = full.n_layers
-    n_ring = sum(s.attn == "window" for s in full.layer_plan())
-    for name, kw, reqs, home in variant_tier_runs(plan, "full",
-                                                  full.vocab_size):
-        res = [x["full"][f"gemma2-9b|{name}"] for x in ranks]
-        ref = refs["full", "gemma2-9b", name[:4]]
-        what = f"serve_tier_variants {name}"
-        for x in res:
+    ring = _stack_totals(full, VARIANT_TIER_CACHE).get("k_ring/v_ring")
+    n_ring = sum(s.attn in ("window", "chunked") for s in full.layer_plan())
+    for name, kw, reqs, home in runs_of(plan, key, full.vocab_size):
+        res = [x[key][f"{arch}|{name}"] for x in ranks]
+        ref = refs[key, arch, name[:4]]
+        what = f"{phase} {name}"
+        for r, x in enumerate(res):
             for k, c in x["launches"].items():
                 total[k] = total.get(k, 0) + c
             want = variant_launches_implied(full, x["stats"])
             check(x["variant_launches"] == want, f"{what}: ring launches "
                   f"{x['variant_launches']}, the path {want}")
             for k, c in x["variant_launches"].items():
-                variant_total[k] += c
+                total[k] += c
+            st = x["stats"]
+            fwd = st["prefills"] + st["decode_steps"]
+            check(st["tier_calls"] == (2 * L + 2) * fwd
+                  and st["tier_nonlocal_msgs"] == 0
+                  and not st["decode_graph"],
+                  f"{what} rank {r}: tier calls {st['tier_calls']} for "
+                  f"{fwd} forwards, non-local {st['tier_nonlocal_msgs']}, "
+                  f"decode graph {st['decode_graph']}")
         scale = max(float(np.abs(t).max())
                     for t in ref["decode_logits"].values())
-        limit = SEQ_LOGIT_REL * scale
+        limit = (rel or SEQ_LOGIT_REL) * scale
+        hold = check if rel is not None else lambda ok, what: None
         toks = res[0]["tokens"]
         got = {w: _tier_logits(res, coords, w, m)
                for w in ("prefill_logits", "decode_logits")}
@@ -3763,36 +3962,37 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
             pre = ref["prefill_logits"][rid]
             d = dl["prefill_logits"][rid] = np_err(
                 got["prefill_logits"][rid], pre)
-            check(d <= limit, f"{what}: request {rid}'s prefill logits "
-                  f"differ from the one-rank engine's by {d} (limit "
-                  f"{limit})")
+            hold(d <= limit, f"{what}: request {rid}'s prefill logits "
+                 f"differ from the one-rank engine's by {d} (limit "
+                 f"{limit})")
             one, tier = ref["tokens"][rid][0], toks[rid][0]
             if one == tier:
                 d = dl["decode_logits"][rid] = np_err(
                     got["decode_logits"][rid], ref["decode_logits"][rid])
-                check(d <= limit, f"{what}: request {rid}'s first decode "
-                      f"logits differ from the one-rank engine's by {d} "
-                      f"(limit {limit})")
+                hold(d <= limit, f"{what}: request {rid}'s first decode "
+                     f"logits differ from the one-rank engine's by {d} "
+                     f"(limit {limit})")
             else:
                 gap = float(pre[one] - pre[tier])
                 dl["near_ties"][rid] = gap
-                check(gap <= 2 * dl["prefill_logits"][rid],
-                      f"{what}: request {rid}'s first token {tier}, one "
-                      f"rank's {one}, {gap} below its maximum")
+                hold(gap <= 2 * dl["prefill_logits"][rid],
+                     f"{what}: request {rid}'s first token {tier}, one "
+                     f"rank's {one}, {gap} below its maximum")
         same = sum(a == b for rid, tk in toks.items()
                    for a, b in zip(tk, ref["tokens"][rid]))
         n_tok = sum(map(len, ref["tokens"].values()))
         steps = res[0]["stats"]["decode_steps"]
         lens = [len(t) for t, _ in reqs]
-        row = {"phase": "serve_tier_variants", "run": name,
+        row = {"phase": phase, "run": name,
                "shared": "8 ranks sharing one H100 over gloo",
                "grid": "2 x 2 x 2 (pod, data, model)", "model": full.name,
                "layers": L, "ring_layers": n_ring,
-               "reduced": f"depth 42 -> {L} layers ({n_ring} window, "
-                          f"{L - n_ring} full)",
-               "dtype": "bfloat16", "cache_len": VARIANT_TIER_CACHE,
-               "window": full.window, "prompts": lens,
-               "new_tokens": VARIANT_TIER_NEW,
+               "reduced": f"depth {configs.get(arch).n_layers} -> {L} "
+                          f"layers" + (f" ({n_ring} window, {L - n_ring} "
+                                       "full)" if n_ring else ""),
+               "dtype": str(full.dtype).split(".")[1],
+               "cache_len": VARIANT_TIER_CACHE,
+               "prompts": lens, "new_tokens": VARIANT_TIER_NEW,
                "kv_heads_per_rank": KV_loc, "q_heads_per_rank": H_loc,
                "decode_steps": steps,
                "decode_step_ms_mean_by_rank": [
@@ -3810,6 +4010,9 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                "tier_calls_by_rank": [x["stats"]["tier_calls"] for x in res],
                "tier_host_ms_by_rank": [x["stats"]["tier_host_s"] * 1e3
                                         for x in res],
+               "tier_host_ms_per_forward_by_rank": [
+                   x["stats"]["tier_host_s"] * 1e3 * (2 * L + 2)
+                   / x["stats"]["tier_calls"] for x in res],
                "tier_staged_bytes_by_rank": [x["stats"]["tier_staged_bytes"]
                                              for x in res],
                "staging_bytes_by_rank": [x["stats"]["staging_bytes"]
@@ -3822,13 +4025,24 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                "max_abs_dlogit_prefill": dl["prefill_logits"],
                "max_abs_dlogit_first_decode": dl["decode_logits"],
                "first_token_near_ties": dl["near_ties"],
-               "logit_tolerance": limit, "greedy_equal_share": same / n_tok,
+               "logit_tolerance": limit if rel is not None else None,
+               "phase9_rule_held": rel is not None,
+               "greedy_equal_share": same / n_tok,
                "ranks_wall_s": ranks_s, "card": smi}
-        if name.startswith("9v-a"):
+        if full.family == "moe":
+            shapes = ranks[0]["layer0"][f"{key}|{arch}"]
+            row.update(experts_per_rank=shapes["gate"][0],
+                       shared_columns_per_rank=shapes["shared_gate"][1])
+            check(shapes["gate"][0] == full.n_experts // m
+                  and shapes["shared_gate"][1] * m
+                  == full.d_shared_expert, f"{what}: a rank's experts "
+                  f"{shapes['gate']}, shared {shapes['shared_gate']}")
+        if name[3] == "a":
             alg = name.split("|")[1]
-            check(max(lens) > full.window and any(
-                n <= full.window < n + VARIANT_TIER_NEW - 1 for n in lens),
-                f"{what}: no prompt rolls the ring, or none crosses it")
+            if ring:
+                check(max(lens) > ring and any(
+                    n <= ring < n + VARIANT_TIER_NEW - 1 for n in lens),
+                    f"{what}: no prompt rolls the ring, or none crosses it")
             mig = res[0]["stats"]["migrations"]
             check(mig == TIER_MIGRATIONS, f"{what}: {mig} migrations, the "
                   f"trace's {TIER_MIGRATIONS}")
@@ -3838,14 +4052,17 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                       f"ran {x['stats']['prefills']} prefills, the path "
                       f"{want}")
             dp = ("pod", "data")
-            check(res[0]["spans"] == {"k/v": dp, "k_ring/v_ring": dp},
+            want_spans = {"k/v": dp} | ({"k_ring/v_ring": dp} if ring
+                                        else {})
+            check(res[0]["spans"] == want_spans,
                   f"{what}: donor spans {res[0]['spans']}")
-            # each stack's K or V slab of a rank's 4 KV heads, bf16, each
-            # over ("pod", "data"): the full-length 8,192 slots and the
-            # ring's 4,096
+            # each stack's K or V slab of a rank's KV heads, bf16, each
+            # over ("pod", "data"): the full-length cache's slots and the
+            # ring's
             es = full.dtype.itemsize
-            leaves = [(L - n_ring) * VARIANT_TIER_CACHE * KV_loc * D * es,
-                      n_ring * full.window * KV_loc * D * es]
+            leaves = [(L - n_ring) * VARIANT_TIER_CACHE * KV_loc * D * es]
+            if ring:
+                leaves.append(n_ring * ring * KV_loc * D * es)
             msgs = [sum(v) for v in zip(*(migrate_oracle(alg, q, pl, b)
                                           for b in leaves))]
             nbytes = [sum(v) for v in zip(*(migrate_bytes_oracle(
@@ -3859,7 +4076,7 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                   f"{per_mig('migrate_nonlocal_bytes')}, the oracle "
                   f"{msgs} {nbytes}")
             row.update(
-                migrate=alg, migrations=mig, leaf_bytes_full_and_ring=leaves,
+                migrate=alg, migrations=mig, leaf_bytes=leaves,
                 migrate_nonlocal_msgs_per_migration=per_mig(
                     "migrate_nonlocal_msgs"),
                 migrate_nonlocal_bytes_per_migration=per_mig(
@@ -3871,8 +4088,9 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                 prefills_by_rank=[x["stats"]["prefills"] for x in res])
         else:
             alg = res[0]["combine"]["algorithm"]
-            check(lens[0] < full.window < lens[0] + VARIANT_TIER_NEW - 1,
-                  f"{what}: the decode does not cross the ring's wrap")
+            if ring:
+                check(lens[0] < ring < lens[0] + VARIANT_TIER_NEW - 1,
+                      f"{what}: the decode does not cross the ring's wrap")
             oracle = combine_oracle(alg, q, pl, H_loc * 4,
                                     H_loc * (D + 1) * 4)
             per_step = lambda k: [x["stats"][k] / steps / L for x in res]
@@ -3894,7 +4112,7 @@ def serve_tier_variants(smi: str) -> dict[str, int]:
                 combine_host_ms_per_step=[x["stats"]["combine_host_s"]
                                           / steps * 1e3 for x in res])
         print(json.dumps(row))
-    return total | variant_total
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4233,6 +4451,8 @@ TP_RANK_RMS = ((1024, 3072), (512, 3072))
 # 128 over one 1,024-token sequence, its norms 2,048 wide
 MOE_RANK_FLASH = (1, 1024, 16, 16, 128)
 MOE_RANK_RMS = (1024, 2048)
+# one rank of phase 10c: 10b's sequence over a model rank's 8/8 heads
+MOE_TIER_RANK_FLASH = (1, 1024, 8, 8, 128)
 # the flash backward's tolerances, as tests/test_torch_cuda.py states them:
 # fp32 against the plain backward; bf16 against the plain backward in fp32
 # on the same bf16 inputs, mostly relative (the kernel sums in fp32 and
@@ -4878,6 +5098,11 @@ def backward_cases(timer) -> dict[str, list[dict]]:
     for residual in (False, True):
         out["rmsnorm_bwd"].append(rmsnorm_bwd_case(
             timer, g, torch.bfloat16, residual, MOE_RANK_RMS, "train_moe"))
+    # a model rank of phase 10c (qwen2-moe-a2.7b over m = 2: 8 q and 8 KV
+    # heads), bf16; its norms are 10b's
+    out["flash_attention_bwd"].append(flash_bwd_case(
+        timer, g, torch.bfloat16, dict(causal=True), MOE_TIER_RANK_FLASH,
+        "train_moe_tier"))
     # phase 8v's shapes (bf16): h2o-danube's and gemma2's training steps,
     # h2o-danube where its window bites, and the cap on the tensor cores
     for *shape, mask, full in VARIANT_FLASH_BWD:
@@ -5357,7 +5582,8 @@ def _beyond(got: dict, want: dict, worst: int = 8) -> dict:
 
 def _parity(got: dict, want: dict, what: str,
             band_atol: float | None = None) -> dict:
-    """Losses and grad norms within PARITY_REL, parameters within
+    """Losses, grad norms and MoE aux losses within PARITY_REL, parameters
+    within
     PARITY_PARAM_ATOL; returns the largest differences and, where ``want``
     holds its gradients, the elements beyond PARITY_PARAM_CLOSE
     (``_beyond``). With ``band_atol`` (both runs' gradients given), an
@@ -5371,6 +5597,10 @@ def _parity(got: dict, want: dict, what: str,
                  for a, b in zip(got["metrics"], want["metrics"]))
     d_norm = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
                  for a, b in zip(got["metrics"], want["metrics"]))
+    # a MoE model's aux loss, where both report it
+    d_aux = max((abs(a["moe_aux"] - b["moe_aux"]) / abs(b["moe_aux"])
+                 for a, b in zip(got["metrics"], want["metrics"])
+                 if "moe_aux" in a and "moe_aux" in b), default=0.0)
     paths = list(want["params"])
     diff = np.concatenate([np.abs(got["params"][p] - want["params"][p])
                            .ravel() for p in paths])
@@ -5385,16 +5615,18 @@ def _parity(got: dict, want: dict, what: str,
     d_par = float(diff[~noisy].max())
     d_noisy = float(diff[noisy].max()) if noisy.any() else 0.0
     out = dict(loss_rel=d_loss, grad_norm_rel=d_norm, param_abs=d_par,
-               param_share_beyond_1e5=far)
+               param_share_beyond_1e5=far, moe_aux_rel=d_aux)
     if band_atol is not None:
         out.update(noise_band_elements=int(noisy.sum()),
                    noise_band_param_abs=d_noisy)
     if "grads" in want:
         out["beyond_1e5"] = _beyond(got, want)
     check(d_loss <= PARITY_REL and d_norm <= PARITY_REL
+          and d_aux <= PARITY_REL
           and d_par <= PARITY_PARAM_ATOL and far <= PARITY_FAR_SHARE
           and d_noisy <= (band_atol or 0.0),
-          f"{what}: losses {d_loss}, grad norms {d_norm} (relative, limit "
+          f"{what}: losses {d_loss}, grad norms {d_norm}, aux losses "
+          f"{d_aux} (relative, limit "
           f"{PARITY_REL}), parameters {d_par} (limit {PARITY_PARAM_ATOL}; "
           f"{d_noisy} in the gradient noise band, limit {band_atol}), "
           f"share beyond {PARITY_PARAM_CLOSE} {far} (limit "
@@ -5775,21 +6007,39 @@ TP_VARIANT_STEPS = 1
 # band's elements read 1.4e-5 (gemma2, 2,145 of them) and 1.75e-4
 # (h2o-danube, 347)
 TIER_NOISE_BAND_ATOL = 2 * 3e-4
+# 10c: the MoE family on the same ranks. (a) 10a's reduced fp32 qwen2-moe
+# (2 layers, 8 experts at top-4, 2 shared: 4 experts and 32 shared columns
+# a model rank) on 8b's batches, 2 steps, in each mode below, against the
+# card's one rank at 8b's limits: the lane's 4 DP ranks' rows as 4
+# microbatches (each DP rank's aux loss is its own rows'), or, for "xla",
+# the whole batch as one (the JAX GSPMD step's aux loss is the global
+# batch's); the aux loss within PARITY_REL too. (b) qwen2-moe-a2.7b at full
+# width (32 of 64 experts, 8/8 heads of 128 and 2,816 shared columns a
+# model rank), cut to 1 of its 24 layers (the gloo host transport), one
+# 1,024-token sequence a DP rank, one step of locality + FSDP
+MOE_TP_PARITY_VARIANTS = TP_PARITY_VARIANTS + (
+    ("ep_locality", dict(fsdp=True, moe_dispatch="locality",
+                         global_batch=PARITY_BATCH)),)
+MOE_TP_LAYERS, MOE_TP_STEPS = 1, 1
+MOE_TP_MODES = (("locality", dict(fsdp=True)),)
 
 
 def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
-    """One rank of 8b's TP part, 8e and 8ev (all eight share the one card):
-    the reduced fp32 llama in each of ``TP_PARITY_VARIANTS``, 8ev's reduced
-    variants in each too, then llama3.2-3b at full width, ``FSDP_LAYERS``
-    layers, in each of ``TP_VARIANTS``, and gemma2-9b at full width,
-    ``TP_VARIANT_LAYERS`` layers, in each of ``TP_VARIANT_MODES``."""
+    """One rank of 8b's TP part, 8e, 8ev and 10c (all eight share the one
+    card): the reduced fp32 llama in each of ``TP_PARITY_VARIANTS``, 8ev's
+    reduced variants in each too, 10c's reduced qwen2-moe in each of
+    ``MOE_TP_PARITY_VARIANTS``, then llama3.2-3b at full width,
+    ``FSDP_LAYERS`` layers, in each of ``TP_VARIANTS``, gemma2-9b at full
+    width, ``TP_VARIANT_LAYERS`` layers, in each of ``TP_VARIANT_MODES``,
+    and qwen2-moe-a2.7b at full width, ``MOE_TP_LAYERS`` layer, in each of
+    ``MOE_TP_MODES``."""
     from repro_torch import configs
     from repro_torch.core.topology import RankGrid
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     grid = RankGrid.build(*TP_GRID)
     out = {"rank": rank, "parity": {}, "full": {}, "variants": {},
-           "variant_full": {},
+           "variant_full": {}, "moe": {}, "moe_full": {},
            "coords": dict(rank=grid.rank, t=grid.t,
                           grid_rank=grid.grid_rank)}
     small = dataclasses.replace(configs.get_smoke("llama3.2-3b"),
@@ -5809,6 +6059,10 @@ def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
                             VARIANT_EXACT_STEPS, "cuda", grads=True)
             out["variants"][arch][name] = {k: res[k]
                                            for k in keep + ("grads",)}
+    for name, kw in MOE_TP_PARITY_VARIANTS:
+        res = train_run(_moe_small(), grid, _tree(plan["moe"]), kw,
+                        PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, "cuda")
+        out["moe"][name] = {k: res[k] for k in keep + ("moe",)}
     gc.collect()
     torch.cuda.empty_cache()
     for cfg, modes, key, steps in (
@@ -5817,7 +6071,10 @@ def train_tp_rank(rank: int, world: int, plan: dict) -> dict:
              TP_STEPS),
             (dataclasses.replace(configs.get(TP_VARIANT_ARCH),
                                  n_layers=TP_VARIANT_LAYERS),
-             TP_VARIANT_MODES, "variant_full", TP_VARIANT_STEPS)):
+             TP_VARIANT_MODES, "variant_full", TP_VARIANT_STEPS),
+            (dataclasses.replace(configs.get(MOE_ARCH),
+                                 n_layers=MOE_TP_LAYERS),
+             MOE_TP_MODES, "moe_full", MOE_TP_STEPS)):
         for name, kw in modes:
             res = train_run(cfg, grid, None, kw, TP_GRID[0] * TP_GRID[1],
                             TRAIN_SEQ, steps, "cuda")
@@ -5865,8 +6122,10 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict, variant_refs: dict
     q, pl, m = TP_GRID
     n = q * pl * m
     t0 = time.perf_counter()
+    moe_flat, moe_accum = _moe_one_rank(q * pl)
+    moe_whole = _moe_one_rank(1)[1]
     ranks = run_ranks(n, train_tp_rank, {
-        "params": flat,
+        "params": flat, "moe": moe_flat,
         "variants": {a: f for a, (f, _) in variant_refs.items()}},
         timeout=900.0)
     ranks_s = time.perf_counter() - t0
@@ -5917,29 +6176,60 @@ def train_tp_on_ranks(smi: str, flat: dict, one: dict, variant_refs: dict
             "losses_one_rank": [x["loss"] for x in ref["metrics"]],
             "card": smi}))
 
+    moe = _moe_small()
+    res = [r["moe"]["ep_locality"] for r in ranks]
+    check(all(x["moe"] == ("locality", "tokens") for x in res),
+          f"train_parity_moe_tp: EP resolved {res[0]['moe']}")
+    report = _tp_parity(
+        [r["moe"] for r in ranks], None, want_small, "train_parity_moe_tp",
+        modes=MOE_TP_PARITY_VARIANTS,
+        ref_of=lambda name: (moe_whole if name == "xla" else moe_accum)[
+            "cuda"])
+    print(json.dumps({
+        "phase": "train_parity_moe_tp", "model": moe.name,
+        "grid": "2 x 2 x 2 (pod, data, model)", "layers": PARITY_LAYERS,
+        "dtype": "float32", "experts_per_model_rank": moe.n_experts // m,
+        "batch": [PARITY_BATCH, PARITY_SEQ], "steps": PARITY_STEPS,
+        "ranks_vs_one_rank": report, "prefetch_bitwise_eager": True,
+        "one_rank": f"{q * pl} microbatches; the whole batch for xla",
+        "loss_rel_limit": PARITY_REL, "param_abs_limit": PARITY_PARAM_ATOL,
+        "param_share_beyond_1e5_limit": PARITY_FAR_SHARE,
+        "launches_per_rank": want_small,
+        "losses_one_rank": [x["loss"] for x in moe_accum["cuda"]["metrics"]],
+        "moe_aux_one_rank": {k: [x["moe_aux"] for x in v["cuda"]["metrics"]]
+                             for k, v in (("microbatches", moe_accum),
+                                          ("whole", moe_whole))},
+        "card": smi}))
+
     out = {}
     for arch, layers, modes, steps, key, phase in (
             ("llama3.2-3b", FSDP_LAYERS, TP_VARIANTS, TP_STEPS, "full",
              "train_tp"),
             (TP_VARIANT_ARCH, TP_VARIANT_LAYERS, TP_VARIANT_MODES,
-             TP_VARIANT_STEPS, "variant_full", "train_tp_variants")):
+             TP_VARIANT_STEPS, "variant_full", "train_tp_variants"),
+            (MOE_ARCH, MOE_TP_LAYERS, MOE_TP_MODES, MOE_TP_STEPS,
+             "moe_full", "train_moe_tp")):
         out[phase] = _tp_full_width(smi, [r[key] for r in ranks], arch,
                                     layers, modes, steps, phase, lane_rank,
                                     ranks_s)
     return out
 
 
-def _tp_parity(res_by_rank: list, ref: dict, want: dict, what: str,
-               band_atol: float | None = None) -> dict:
+def _tp_parity(res_by_rank: list, ref: dict | None, want: dict, what: str,
+               band_atol: float | None = None, modes=TP_PARITY_VARIANTS,
+               ref_of=None) -> dict:
     """A reduced model's runs on 2 x 2 x 2 (``res_by_rank``: each rank's
-    {mode: run}, the modes of ``TP_PARITY_VARIANTS``) against one rank's
-    (``ref``: metrics, params, and grads with ``band_atol``) at 8b's
-    limits, the noise band's elements at ``band_atol`` where it is given;
-    each rank's launches ``want``, the tier's collectives inside each pod,
-    the prefetch bitwise the eager step. Returns the report by mode."""
+    {mode: run}, the ``modes``) against one rank's (``ref``, or
+    ``ref_of(mode)``: metrics, params, and grads with ``band_atol``) at
+    8b's limits, the noise band's elements at ``band_atol`` where it is
+    given; each rank's launches ``want``, the tier's collectives inside
+    each pod, the prefetch bitwise the eager step. Returns the report by
+    mode."""
     q, pl, m = TP_GRID
     report = {}
-    for name, _ in TP_PARITY_VARIANTS:
+    for name, _ in modes:
+        if ref_of is not None:
+            ref = ref_of(name)
         res = [r[name] for r in res_by_rank]
         for r in range(1, len(res)):
             check(res[r]["metrics"] == res[0]["metrics"],
@@ -6209,6 +6499,15 @@ def _moe_small(**over):
                                **over)
 
 
+@functools.lru_cache(maxsize=None)
+def _moe_one_rank(grad_accum: int, n_experts: int = 0) -> tuple[dict, dict]:
+    """:func:`_one_rank_refs` of the reduced qwen2-moe (``n_experts`` in
+    place of its 8 where given) with ``grad_accum`` microbatches, run once
+    for phases 10c and 10a."""
+    over = {"n_experts": n_experts} if n_experts else {}
+    return _one_rank_refs(_moe_small(**over), {"grad_accum": grad_accum})
+
+
 def train_moe_rank(rank: int, world: int, plan: dict) -> dict:
     """One rank of phase 10 (every rank shares the one card): 10a's reduced
     runs on 2 x 2 (ranks 0-3) and 3 x 2, then 10b's full-width runs on 2 x
@@ -6287,8 +6586,8 @@ def train_moe_on_ranks(smi: str) -> dict[str, dict[str, int]]:
     from repro_torch.launch.serve import run_ranks
     flats, ones, card = {}, {}, {}
     for shape, over in MOE_PARITY_GRIDS.items():
-        flats[str(shape)], ones[shape] = _one_rank_refs(
-            _moe_small(**over), {"grad_accum": shape[0] * shape[1]})
+        flats[str(shape)], ones[shape] = _moe_one_rank(
+            shape[0] * shape[1], over.get("n_experts", 0))
         card[f"{shape[0]}x{shape[1]}"] = _parity(
             ones[shape]["cuda"], ones[shape]["cpu"],
             f"train_parity_moe {over or 'E=8'}: card vs CPU")
@@ -6591,7 +6890,7 @@ def main() -> int:
     clock("train_ssm_tp_on_ranks")
     by_path["serve_tier_ssm"] = serve_tier_ssm(smi)
     clock("serve_tier_ssm")
-    by_path["serve_tier_variants"] = serve_tier_variants(smi)
+    by_path.update(serve_tier_variants(smi))
     clock("serve_tier_variants")
     by_path["serve_moe_grids"] = serve_moe_grids(smi)
     clock("serve_moe_grids")
@@ -6677,6 +6976,7 @@ def main() -> int:
     for path, key in (("train_fsdp", "fsdp_rank_cases"),
                       ("train_tp", "tp_rank_cases"),
                       ("train_moe", "moe_rank_cases"),
+                      ("train_moe_tier", "moe_tier_rank_cases"),
                       ("train_tier_variants", "tier_variant_rank_cases")):
         rank_rows = [r for r in bwd["flash_attention_bwd"]
                      if r["path"] == path]
@@ -6689,7 +6989,8 @@ def main() -> int:
     for row in kernels:        # the backward kernels at 8c's, 8e's and edge
         if row["name"] in bwd_kernels:                   # shapes
             for path in ("train_fsdp", "train_tp", "train_moe",
-                         "train_variants", "train_tier_variants", "edges"):
+                         "train_moe_tier", "train_variants",
+                         "train_tier_variants", "edges"):
                 sel = [r for r in cases[row["name"]] if r["path"] == path]
                 if not sel:
                     continue
@@ -6737,13 +7038,13 @@ def main() -> int:
                 "cases": len(rows),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 **{f: [r.get(f) for r in rows]
-                   for f in ("ms", "plain_ms", "library_ms", "bound_ms",
-                             "shape")}}
+                   for f in ("path", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "shape")}}
             if row["name"].startswith("decode_s"):
-                pair_moe = moe_cases["decode_attention"][0]
                 row["serve_moe_cases"]["decode_attention_pair"] = {
-                    k: pair_moe[k] for k in ("ms", "library_ms", "bound_ms",
-                                             "shape")}
+                    k: [r[k] for r in moe_cases["decode_attention"]]
+                    for k in ("path", "ms", "library_ms", "bound_ms",
+                              "shape")}
     for row in kernels:        # the dense variants' serving cases (4v)
         rows = variant_cases.get(row["name"])
         if rows:

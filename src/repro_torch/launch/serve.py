@@ -40,7 +40,8 @@ KV cache split over the ranks:
 ``--seq-axes data`` keeps that cache whole in every pod, split over the
 pod's ranks. ``--model M`` adds a "model" tier of M ranks at each place
 of the pods (tensor parallelism: each rank holds its heads, its KV heads'
-cache and its vocabulary rows; ``--ranks`` counts them all), and ``--mesh
+cache and its vocabulary rows, of a MoE model E/M routed experts and its
+shared-expert columns; ``--ranks`` counts them all), and ``--mesh
 2x2x2`` names the grid as ``launch/train.py`` does, the last axes of
 ("pod", "data", "model"). Without ``--pods``, ``--model`` or ``--mesh``,
 8 or more ranks take the JAX launcher's layout, (2, ranks // 4, 2):

@@ -29,12 +29,17 @@ launcher's mesh instead (the last axes of ("pod", "data", "model"), so
 "model" tier; ``--model M`` adds a tier of M ranks at each place of the
 ``--ranks`` / ``--pods`` grid (``--ranks`` counts them all). The dense
 family splits its heads, MLP columns and vocabulary over the tier, the
-ssm family its SSD heads:
+ssm family its SSD heads, the MoE family its routed experts and shared-
+expert columns (with ``--moe-dispatch`` the experts go expert-parallel
+over each model lane instead):
 
     python -m repro_torch.launch.train --smoke --device cpu --mesh 2x2x2 \
         --fsdp
     python -m repro_torch.launch.train --arch mamba2-780m --smoke \
         --device cpu --ranks 8 --pods 2 --model 2 --fsdp
+    python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke \
+        --device cpu --ranks 8 --pods 2 --model 2 --fsdp \
+        --moe-dispatch locality
 
 The kernels are built once, here, before the ranks start.
 """

@@ -16,7 +16,17 @@ in the JAX package.
 The combine is the JAX scatter-add, done as a gather: each token sums its
 K weighted slot outputs in ascending slot order (the order in which the
 scatter adds them), a dropped assignment reading a zero row, so the sum is
-the same on every run (no atomics on the card).
+the same on every run (no atomics on the card). The dispatch's backward
+sums each token's slot gradients the same way (``_Dispatch``), where the
+gather's own backward would add them with atomics.
+
+On a model tier (``models/tp.moe_tp``) rank t of m holds the experts
+[t·E/m, (t+1)·E/m) and its columns of the shared experts' ``gate`` and
+``up`` and rows of their ``down``; the router is whole. Every rank routes
+the whole row alike (the same top-k, aux loss, dispatch tables, capacity
+and drops as one rank), runs only its experts' slots (``moe_apply(...,
+experts=)``), and its combine reads a zero row for every other slot: the
+ranks' outputs are partial sums of the layer's.
 
 Expert parallelism (:class:`MoeDispatch`, built by ``train/step.py``): the
 routed experts' E dim shards over the p ranks of the DP grid, each rank
@@ -92,6 +102,18 @@ def moe_shapes(cfg) -> dict[str, tuple[int, ...]]:
         out |= {"shared_gate": (d, dsh), "shared_up": (d, dsh),
                 "shared_down": (dsh, d)}
     return out
+
+
+#: where each of :func:`moe_shapes`' leaves sits in a MoE layer of the JAX
+#: tree (``src/repro/models/moe.py`` ``moe_init``): the path its spec is
+#: read by (a shared expert's ``gate`` is column-parallel, a routed
+#: expert's (E, d, f) ``gate`` splits its E)
+MOE_LEAF_PATHS = {
+    "router": ("moe", "router"), "gate": ("moe", "gate"),
+    "up": ("moe", "up"), "down": ("moe", "down"),
+    "shared_gate": ("moe", "shared", "gate"),
+    "shared_up": ("moe", "shared", "up"),
+    "shared_down": ("moe", "shared", "down")}
 
 
 def moe_init(gen: torch.Generator, cfg, dtype, device) -> dict:
@@ -171,18 +193,55 @@ def expert_mlp(params: dict, h: torch.Tensor) -> torch.Tensor:
     return y.reshape(E, B, C, d).transpose(0, 1)
 
 
-def _ep_apply(params: dict, x_pad: torch.Tensor, tok_idx: torch.Tensor, cfg,
-              dispatch: MoeDispatch, C: int) -> torch.Tensor:
+def slot_sum(y: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
+    """Each token's K slot rows of ``y`` (B, n, d), summed in ascending slot
+    order (``slot_of`` (B, S, K); n reads a zero row: a dropped assignment,
+    or another share's slot): (B, S, d). A gather, no atomics: the same sum
+    on every run."""
+    B, S, K = slot_of.shape
+    d = y.shape[-1]
+    y = torch.cat([y, y.new_zeros((B, 1, d))], 1)
+    parts = y.gather(1, slot_of.reshape(B, S * K, 1).expand(-1, -1, d))
+    parts = parts.reshape(B, S, K, d)
+    out = parts[:, :, 0]
+    for k in range(1, K):
+        out = out + parts[:, :, k]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """The slots' token rows: x (B, S, d) at ``tok_idx`` (B, n) in [0, S],
+    S the sentinel (a zero row) -> (B, n, d). The backward sums each
+    token's K slot gradients by :func:`slot_sum` (``slot_of``: the same
+    slots seen from the tokens), where the gather's own backward would add
+    them with atomics in an order that varies between runs on the card."""
+
+    @staticmethod
+    def forward(ctx, x, tok_idx, slot_of):
+        ctx.save_for_backward(slot_of)
+        x_pad = torch.cat([x, x.new_zeros((x.shape[0], 1, x.shape[2]))], 1)
+        return x_pad.gather(1, tok_idx[..., None].expand(-1, -1, x.shape[2]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return slot_sum(g, ctx.saved_tensors[0]), None, None
+
+
+def _ep_apply(params: dict, x: torch.Tensor, tok_idx: torch.Tensor,
+              slot_of: torch.Tensor, cfg, dispatch: MoeDispatch, C: int
+              ) -> torch.Tensor:
     """Expert-parallel slot compute: route the slots to the rank that owns
     their expert, apply its E/p experts, route the results home. Returns
     the (B, E·C, d) slot outputs in global expert-major order."""
-    Bl, S1, d = x_pad.shape
+    Bl, S, d = x.shape
+    S1 = S + 1
     E, p = cfg.n_experts, dispatch.p
     Ep = E // p
     if dispatch.transport == "tokens":
         # each rank's (sentinel-padded) token block once over the grid; the
         # int32 slot tables through the all-to-all; the owner gathers its
         # slots from the full copy
+        x_pad = torch.cat([x, x.new_zeros((Bl, 1, d))], 1)      # sentinel
         xg = dispatch.gather(x_pad.reshape(Bl * S1, d)).reshape(p, Bl, S1, d)
         ii = tok_idx.to(torch.int32).reshape(Bl, p, Ep * C).transpose(0, 1)
         ri = dispatch.exchange(ii.reshape(p * Bl, Ep * C).contiguous())
@@ -190,7 +249,7 @@ def _ep_apply(params: dict, x_pad: torch.Tensor, tok_idx: torch.Tensor, cfg,
         h_in = xg.gather(2, ri[..., None].expand(-1, -1, -1, d))
     else:
         # dispatch at home, ship the (E/p)·C slot slabs to their owners
-        disp = x_pad.gather(1, tok_idx[..., None].expand(-1, -1, d))
+        disp = _Dispatch.apply(x, tok_idx, slot_of)
         dd = disp.reshape(Bl, p, Ep * C, d).transpose(0, 1)
         h_in = dispatch.exchange(dd.reshape(p * Bl, Ep * C, d).contiguous())
     y = expert_mlp(params, h_in.reshape(p * Bl, Ep, C, d))
@@ -199,19 +258,17 @@ def _ep_apply(params: dict, x_pad: torch.Tensor, tok_idx: torch.Tensor, cfg,
         Bl, E * C, d)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg,
-              dispatch: MoeDispatch | None = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) in the compute dtype -> (out, aux): the routed experts'
-    weighted sum (plus the shared experts) and the Switch load-balance
-    loss, fp32. ``params`` holds :func:`moe_shapes`' leaves (the routed
-    ones this rank's E/p experts under ``dispatch``)."""
-    B, S, d = x.shape
+def moe_route(params: dict, x: torch.Tensor, cfg, shares=None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router on x (B, S, d): (gates, idx) (B, S, K), the combine
+    weights and expert ids of each token's top-k, and the Switch
+    load-balance loss, fp32. ``shares(f)`` (a DP rank of the JAX "xla"
+    step, which routes the global batch as one program) turns this rank's
+    first-choice shares f_e into the global batch's: the loss then is
+    this rank's term of the global one, whose mean over the ranks it is,
+    and whose gradient the ranks' mean is."""
     E, K = cfg.n_experts, cfg.top_k
-    C = capacity(cfg, S)
-    dt = x.dtype
-
-    logits = (x @ params["router"].to(dt)).float()                # (B,S,E)
+    logits = (x @ params["router"].to(x.dtype)).float()          # (B,S,E)
     if cfg.router_act == "sigmoid":
         probs = torch.sigmoid(logits)
     else:
@@ -227,29 +284,66 @@ def moe_apply(params: dict, x: torch.Tensor, cfg,
     me = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
         0, top1, torch.ones(top1.shape, dtype=torch.float32,
                             device=x.device)) / top1.numel()
+    if shares is not None:
+        me = shares(me)
     pe = torch.softmax(logits, dim=-1).mean((0, 1))
-    aux = AUX_LOSS_W * E * torch.sum(me * pe)
+    return gates, idx, AUX_LOSS_W * E * torch.sum(me * pe)
 
+
+def moe_routed(params: dict, x: torch.Tensor, cfg, gates: torch.Tensor,
+               idx: torch.Tensor, dispatch: MoeDispatch | None = None,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
+    """The routed experts' weighted sum for x (B, S, d), from the router's
+    ``gates`` and ``idx``. ``experts`` = [lo, hi) runs only those experts'
+    slots (a model rank's share: ``params``' stacks hold those experts);
+    every other slot reads a zero row in the combine, so the sum over the
+    shares is the whole sum."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    C = capacity(cfg, S)
+    dt = x.dtype
     tok_idx, weight, slot_of = dispatch_tables(idx, gates, E, C)
-    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], 1)             # sentinel
     if dispatch is not None:
-        y = _ep_apply(params, x_pad, tok_idx, cfg, dispatch, C)
+        y = _ep_apply(params, x, tok_idx, slot_of, cfg, dispatch, C)
     else:
-        disp = x_pad.gather(1, tok_idx[..., None].expand(-1, -1, d))
-        y = expert_mlp(params, disp.reshape(B, E, C, d)).reshape(B, E * C, d)
-    y = y * weight[..., None].to(dt)
+        lo, hi = experts or (0, E)
+        n = (hi - lo) * C
+        tok_idx, weight = tok_idx[:, lo * C:hi * C], weight[:, lo * C:hi * C]
+        # another share's slot, or a dropped assignment, reads the zero row
+        slot_of = slot_of - lo * C
+        slot_of = torch.where((slot_of >= 0) & (slot_of < n), slot_of, n)
+        disp = _Dispatch.apply(x, tok_idx, slot_of)
+        y = expert_mlp(params, disp.reshape(B, hi - lo, C, d)).reshape(
+            B, n, d)
+    # combine: each token's K slot outputs in ascending slot order
+    return slot_sum(y * weight[..., None].to(dt), slot_of)
 
-    # combine: each token's K slot outputs in ascending slot order; a
-    # dropped assignment reads the zero row E·C
-    y = torch.cat([y, y.new_zeros((B, 1, d))], 1)
-    parts = y.gather(1, slot_of.reshape(B, S * K, 1).expand(-1, -1, d))
-    parts = parts.reshape(B, S, K, d)
-    out = parts[:, :, 0]
-    for k in range(1, K):
-        out = out + parts[:, :, k]
 
+def shared_expert(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts' SwiGLU (of a model rank: its columns of
+    ``shared_gate``/``shared_up`` and rows of ``shared_down``, a partial
+    sum)."""
+    dt = x.dtype
+    sg = F.silu(x @ params["shared_gate"].to(dt))
+    return (sg * (x @ params["shared_up"].to(dt))) \
+        @ params["shared_down"].to(dt)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg,
+              dispatch: MoeDispatch | None = None,
+              experts: tuple[int, int] | None = None, shares=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) in the compute dtype -> (out, aux): the routed experts'
+    weighted sum (plus the shared experts) and the Switch load-balance
+    loss, fp32. ``params`` holds :func:`moe_shapes`' leaves (the routed
+    ones this rank's E/p experts under ``dispatch``). ``experts`` = [lo,
+    hi) gives one model rank's share (``params`` its experts and its
+    columns and rows of the shared experts): the routing, the aux loss and
+    the dispatch tables of the whole row, as on every rank, then only its
+    experts' slots and its part of the shared experts; the shares sum to
+    the whole output. ``shares``: :func:`moe_route`'s."""
+    gates, idx, aux = moe_route(params, x, cfg, shares)
+    out = moe_routed(params, x, cfg, gates, idx, dispatch, experts)
     if cfg.n_shared_experts:
-        sg = F.silu(x @ params["shared_gate"].to(dt))
-        out = out + (sg * (x @ params["shared_up"].to(dt))) \
-            @ params["shared_down"].to(dt)
+        out = out + shared_expert(params, x)
     return out, aux

@@ -61,6 +61,18 @@ tier's sum (with ``seq_shard`` the rank's positions of it, so their
 scales' gradients take the tier's sum in the step), and the capped
 logits of the rank's columns enter the vocabulary-parallel loss.
 
+The MoE family splits its routed experts' E over the tier: rank t holds
+the experts [t·E/m, (t+1)·E/m) (``gate``/``up`` (E, d, f) and ``down``
+(E, f, d), the JAX spec's E over "model"), the columns of the shared
+experts' ``shared_gate``/``shared_up`` and rows of ``shared_down``, and
+the router whole (:meth:`TensorParallel.part` reads each leaf's spec at
+its JAX path). Every rank routes the whole row alike and runs its
+experts' slots; the routed and shared partial sums leave the tier as one
+sum a layer (:func:`moe_tp`). With expert parallelism over the rank's
+model lane the routed experts are whole on the tier and only the shared
+experts' part is summed. Experts, shared-expert columns, heads or a
+vocabulary that m does not divide are refused.
+
 In training every model-tier collective is an autograd function with its
 transpose as the backward: the identity and the allreduce (``copy_in`` /
 ``reduce_out``), the allgather and the reduce-scatter (``gather`` /
@@ -81,14 +93,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..configs import ModelConfig
+from ..configs import ModelConfig, check_supported
 from ..core import collectives as C
+from .moe import (MOE_LEAF_PATHS, d_shared, moe_apply, moe_route,
+                  moe_routed, shared_expert)
 from .ssm import MAMBA_PARAMS, mamba_apply, ssm_dims
 
 #: the serving tree's norm scales, by the JAX tree's leaf name ("scale"):
-#: held whole on every rank, gemma2's post-norms too
+#: held whole on every rank, gemma2's post-norms and llama4's qk-norm too
 SCALE_NAMES = {"ln1": "scale", "ln2": "scale", "final_norm": "scale",
-               "post_ln1": "scale", "post_ln2": "scale"}
+               "post_ln1": "scale", "post_ln2": "scale",
+               "q_norm": "scale", "k_norm": "scale"}
 #: the leaves a Mamba2 layer of the training tree adds on a model tier: the
 #: B and C columns of ``in_proj`` and their conv channels, held whole
 MAMBA_TIER_LEAVES = ("in_proj_bc", "conv_w_bc")
@@ -99,17 +114,14 @@ def check_tp(cfg: ModelConfig, m: int, use: str = "train") -> None:
     ``use`` "serve" (``Transformer(..., tp=)``) or "train" (the blocks of
     ``transformer.block_train`` on a model rank). Both take the dense
     variants (window, softcaps and GeGLU per head and column, the
-    post-norms and embedding scale on the tier's sums) and the untied head
-    (its vocabulary columns); the MoE family is refused."""
+    post-norms and embedding scale on the tier's sums), the untied head
+    (its vocabulary columns) and the MoE family (its routed experts and
+    shared-expert columns; llama4's features in training stay refused by
+    ``configs.check_supported``, ROADMAP.md Queue 1 item 15)."""
     if use not in ("serve", "train"):
         raise ValueError(f"unknown use {use!r}")
     if m <= 1:
         return
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name} on a model tier of {m}: the MoE family is not split "
-            "over 'model' yet; it waits for the model-tier MoE slice, the "
-            "experts' E over 'model' (ROADMAP.md Queue 1 item 14)")
     if cfg.family == "ssm":
         _, H, _, _, G = ssm_dims(cfg)
         hl, hg = H // m, H // G
@@ -124,17 +136,27 @@ def check_tp(cfg: ModelConfig, m: int, use: str = "train") -> None:
                 f"vocabulary rows over a model tier of {m}; it does not "
                 f"divide {', '.join(bad)}")
         return
+    if cfg.family == "moe" and use == "train":
+        check_supported(cfg, "train")
+    plan = cfg.layer_plan()
+    counts = [("n_heads", cfg.n_heads)]
+    if any(s.mlp == "dense" for s in plan):
+        counts.append(("d_ff", cfg.d_ff))
+    if cfg.family == "moe":
+        counts.append(("n_experts", cfg.n_experts))
+        if cfg.n_shared_experts:
+            counts.append(("d_shared_expert", d_shared(cfg)))
+    counts.append(("padded vocab", cfg.padded_vocab))
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    bad = [f"{what} {n}" for what, n in (
-        ("n_heads", H), ("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab))
-        if n % m]
+    bad = [f"{what} {n}" for what, n in counts if n % m]
     if KV % m and (m % KV or KV * cfg.head_dim_ % m):
         bad.append(f"n_kv_heads {KV}")
     if bad:
+        parts = ("whole heads, experts, shared-expert columns"
+                 if cfg.family == "moe" else "whole heads, MLP columns")
         raise NotImplementedError(
-            f"{cfg.name}: the port splits whole heads, MLP columns and "
-            f"vocabulary rows over a model tier of {m}; it does not divide "
-            f"{', '.join(bad)}")
+            f"{cfg.name}: the port splits {parts} and vocabulary rows over "
+            f"a model tier of {m}; it does not divide {', '.join(bad)}")
 
 
 class ModelTier:
@@ -250,6 +272,26 @@ class _Scatter(torch.autograd.Function):
         return ctx.tier.all_gather(g, ctx.dim), None, None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Identity; the gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _nest(path: tuple[str, ...], t):
+    """``t`` as the one leaf of a tree at ``path``."""
+    for k in reversed(path):
+        t = {k: t}
+    return t
+
+
 @dataclasses.dataclass
 class TensorParallel:
     """One rank's share of the dense decoder on a model tier: its heads,
@@ -292,6 +334,11 @@ class TensorParallel:
         hl, g = H // self.m, H // KV
         return self.t * hl // g, ((self.t + 1) * hl - 1) // g + 1
 
+    def experts(self) -> tuple[int, int]:
+        """[lo, hi) of this rank's routed experts."""
+        E = self.cfg.n_experts
+        return self.t * E // self.m, (self.t + 1) * E // self.m
+
     def ssm_heads(self) -> tuple[int, int]:
         """[lo, hi) of this rank's SSD heads."""
         H = ssm_dims(self.cfg)[1]
@@ -330,9 +377,12 @@ class TensorParallel:
         """This rank's part of a full leaf of the serving tree
         (``Transformer``'s flat names, ``layers.{i}.wq`` ...): its part
         over "model" by the JAX serving spec (``param_specs(...,
-        fsdp=False)``: columns of ``wq``/``wk``/``wv``/``gate``/``up``,
-        rows of ``wo``/``down``, vocabulary rows of ``embed``, norm scales
-        whole), but for ``wk``/``wv`` where m does not divide KV, whose
+        fsdp=False)``, read at the leaf's path in the JAX tree: columns of
+        ``wq``/``wk``/``wv``/``gate``/``up`` and of the shared experts'
+        ``shared_gate``/``shared_up``, rows of ``wo``/``down`` and
+        ``shared_down``, the routed experts' E/m of ``gate``/``up``/
+        ``down``, vocabulary rows of ``embed``, norm scales and the
+        router whole), but for ``wk``/``wv`` where m does not divide KV, whose
         flat columns the JAX spec splits mid-head: there the columns of
         the KV heads this rank's q heads read (:meth:`kv_heads`); and the
         Mamba2 leaves by its SSD heads (:meth:`_ssm_part`). A part is a
@@ -346,8 +396,11 @@ class TensorParallel:
             D = self.cfg.head_dim_
             t = t[:, lo * D:hi * D]
         else:
-            key = SCALE_NAMES.get(leaf, leaf)
-            dim = model_dim(param_specs({key: t}, {MODEL_AXIS: self.m})[key])
+            path = MOE_LEAF_PATHS.get(leaf, (SCALE_NAMES.get(leaf, leaf),))
+            spec = param_specs(_nest(path, t), {MODEL_AXIS: self.m})
+            for k in path:
+                spec = spec[k]
+            dim = model_dim(spec)
             if dim < 0:
                 return t
             t = t.chunk(self.m, dim)[self.t]
@@ -382,6 +435,12 @@ class TensorParallel:
 
     def scatter(self, x, dim: int):
         return _Scatter.apply(x, self.tier, dim)
+
+    def once(self, x):
+        """A value every rank computes whole (a MoE layer's aux loss),
+        entering partial work: its gradient is taken 1/m on each rank, so
+        the tier's sums of the partial gradients count it once."""
+        return _ScaleGrad.apply(x, 1.0 / self.m)
 
     def enter(self, h, seq: bool):
         """A block's normed input, entering the split projections."""
@@ -472,6 +531,48 @@ def mamba_train_tp(x, w: dict[str, Any], cfg: ModelConfig,
     h = tp.enter(rmsnorm_train(x, w["ln"], eps=cfg.norm_eps), seq)
     y, _ = mamba_apply(tp.ssm_local(w), h, cfg, tp=tp)
     return x + tp.leave(y, seq).to(x.dtype)
+
+
+def moe_tp(w: dict[str, Any], h, cfg: ModelConfig, tp: TensorParallel,
+           seq: bool, dispatch=None, shares=None):
+    """A MoE layer's MLP on one model rank: (its update of the residual
+    stream, the layer's aux loss). ``h`` is ``ln2``'s output, whole on
+    every rank ((B, S/m, d) with ``seq``); ``w`` the rank's leaves.
+
+    Without ``dispatch`` the rank holds E/m routed experts: ``h`` enters
+    the tier (gathered over the sequence with ``seq``: routing and the
+    capacity are per whole row), every rank routes it alike, runs its
+    experts' slots and its shared-expert columns (``moe_apply(...,
+    experts=)``), and the sum leaves the tier once. The router's gradient
+    then is a partial sum on each rank (its experts' gates), which the
+    step sums over the tier; the aux loss, whole on every rank, enters
+    that sum through :meth:`TensorParallel.once`.
+
+    With ``dispatch`` (expert parallelism over the rank's model lane) the
+    routed experts are whole on the tier: each rank routes and dispatches
+    ``h`` as one rank would, so the routed output is whole on every rank,
+    and only the shared experts' partial sum leaves the tier. The routed
+    path reads ``h`` outside the tier's ``copy_in`` (its gradient is whole
+    already; the allreduce would count it m times); with ``seq`` the
+    gathered row is routed and the rank keeps its positions of the
+    routed output, so its gradients are partial sums again (the step sums
+    the router's and the experts' over the tier) and the aux loss enters
+    through :meth:`TensorParallel.once`. ``shares``:
+    ``moe.moe_route``'s."""
+    if dispatch is None:
+        y, aux = moe_apply(w, tp.enter(h, seq), cfg, experts=tp.experts(),
+                           shares=shares)
+        return tp.leave(y, seq), tp.once(aux)
+    row = tp.gather(h, 1) if seq else h
+    gates, idx, aux = moe_route(w, row, cfg, shares)
+    y = moe_routed(w, row, cfg, gates, idx, dispatch)
+    if seq:
+        n = h.shape[1]
+        y, aux = y[:, tp.t * n:(tp.t + 1) * n], tp.once(aux)
+    if cfg.n_shared_experts:
+        y = y + tp.leave(shared_expert(w, row if seq else tp.copy_in(h)),
+                         seq)
+    return y, aux
 
 
 def _mamba_node(tree: dict) -> tuple[dict, dict]:

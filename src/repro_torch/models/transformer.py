@@ -93,10 +93,10 @@ from ..kernels.rmsnorm.ops import rmsnorm_residual_train, rmsnorm_train
 from .layers import (apply_rope_angles, dense_init, embed_init, embed_scale,
                      mlp_apply, rmsnorm, rmsnorm_residual, rope_angles,
                      softcap)
-from .moe import moe_apply, moe_init, moe_shapes
+from .moe import MOE_LEAF_PATHS, moe_apply, moe_init, moe_shapes
 from .ssm import (MAMBA_PARAMS, mamba_apply, mamba_cache_shapes, mamba_init,
                   mamba_shapes)
-from .tp import MAMBA_TIER_LEAVES, mamba_train_tp, ssm_tier_tree
+from .tp import MAMBA_TIER_LEAVES, mamba_train_tp, moe_tp, ssm_tier_tree
 
 ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
 QK_NORM_PARAMS = ("q_norm", "k_norm")          # llama4's qk-norm scales
@@ -208,13 +208,18 @@ def out_mlp(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
 
 
 def out_moe(x, o, w, cfg: ModelConfig, norm_residual=rmsnorm_residual,
-            dispatch=None):
+            dispatch=None, reduce=_same, tp=None, seq: bool = False,
+            shares=None):
     """A MoE layer's second half: ``x + o @ wo`` and ``ln2`` in one pass,
-    then ``x + moe``; returns (x, the layer's auxiliary loss)."""
-    B, S, _ = x.shape
-    x, h = norm_residual(x, o.reshape(B, S, -1) @ w["wo"], w["ln2"],
-                         eps=cfg.norm_eps)
-    m, aux = moe_apply(w, h, cfg, dispatch=dispatch)
+    then ``x + moe``; returns (x, the layer's auxiliary loss). On a model
+    rank (``tp``) ``reduce`` sums ``o @ wo`` over the tier as in
+    :func:`out_mlp`, and the MoE runs the rank's share
+    (``models/tp.moe_tp``), whose partial sums leave the tier once.
+    ``shares``: ``moe.moe_route``'s."""
+    x, h = norm_residual(x, reduce(o.reshape(*o.shape[:2], -1) @ w["wo"]),
+                         w["ln2"], eps=cfg.norm_eps)
+    m, aux = (moe_apply(w, h, cfg, dispatch=dispatch, shares=shares)
+              if tp is None else moe_tp(w, h, cfg, tp, seq, dispatch, shares))
     return x + m, aux
 
 
@@ -267,9 +272,10 @@ class Block(nn.Module):
                 o = res[0]
             kv = None
         # x = x + o @ wo; h = rmsnorm(x, ln2): one pass on the card
-        if self.moe:
-            return out_moe(x, o, w, self.cfg)[0], kv
         reduce = _same if self.tp is None else self.tp.tier.all_reduce
+        if self.moe:
+            return out_moe(x, o, w, self.cfg, reduce=reduce,
+                           tp=self.tp)[0], kv
         return out_mlp(x, o, w, self.cfg, reduce=reduce), kv
 
 
@@ -309,10 +315,12 @@ class Transformer(nn.Module):
 
     ``tp`` (``models/tp.TensorParallel``) makes it one rank of a model
     tier: it holds its part of each leaf (``tp.part``: its q heads and the
-    KV heads they read, its MLP columns, or its SSD heads; its vocabulary
-    rows), its cache holds those KV heads or SSD heads (and their conv
-    channels), each layer's row-parallel products and the embedding are
-    summed over the tier, and the logits are its vocabulary's columns
+    KV heads they read, its MLP columns, its routed experts and
+    shared-expert columns, or its SSD heads; its vocabulary rows), its
+    cache holds those KV heads or SSD heads (and their conv channels),
+    each layer's row-parallel products (a MoE layer's routed and shared
+    partial sums in one) and the embedding are summed over the tier, and
+    the logits are its vocabulary's columns
     (B, 1, Vpad/m). ``params`` holds full leaves, or
     leaves already cut to the rank's part (``init_params(..., part=
     tp.part)``), which are taken as they are."""
@@ -597,14 +605,6 @@ TRAIN_LEAF_PATHS = {"ln1": ("ln1", "scale"), "wq": ("attn", "wq"),
 MAMBA_TRAIN_LEAF_PATHS = {
     "ln": ("ln", "scale"), **{n: ("mamba", n) for n in MAMBA_PARAMS},
     "norm": ("mamba", "norm", "scale")}
-#: where each MoE leaf (``moe.moe_shapes``) sits in a MoE layer of the JAX
-#: tree (``src/repro/models/moe.py`` ``moe_init``)
-MOE_TRAIN_LEAF_PATHS = {
-    "router": ("moe", "router"), "gate": ("moe", "gate"),
-    "up": ("moe", "up"), "down": ("moe", "down"),
-    "shared_gate": ("moe", "shared", "gate"),
-    "shared_up": ("moe", "shared", "up"),
-    "shared_down": ("moe", "shared", "down")}
 
 
 def spec_leaf_paths(cfg: ModelConfig, spec, tier: bool = False
@@ -621,7 +621,7 @@ def spec_leaf_paths(cfg: ModelConfig, spec, tier: bool = False
           if cfg.qk_norm else {})
     if spec.mlp == "moe":
         return ({n: TRAIN_LEAF_PATHS[n] for n in ATTN_PARAMS} | qk
-                | {n: MOE_TRAIN_LEAF_PATHS[n] for n in moe_shapes(cfg)})
+                | {n: MOE_LEAF_PATHS[n] for n in moe_shapes(cfg)})
     if cfg.sandwich_norm:
         return (TRAIN_LEAF_PATHS | qk
                 | {n: (n, "scale") for n in SANDWICH_PARAMS})
@@ -850,17 +850,20 @@ def _window(cfg: ModelConfig, spec) -> int:
 
 
 def block_train(x, w, cos, sin, cfg: ModelConfig, spec, tp=None,
-                seq: bool = False):
+                seq: bool = False, dispatch=None, shares=None):
     """:class:`Block`'s math for a layer of the plan entry ``spec``, with
     the differentiable kernels: flash attention (the layer's window, the
     config's softcap) and the RMSNorm forms whose backward passes are
-    kernels (the sandwich's post-norms too). With ``tp``
+    kernels (the sandwich's post-norms too); the gated MLP, or for a MoE
+    layer the experts (``dispatch``, ``shares``: :func:`out_moe`'s),
+    returning (x, the layer's aux loss). With ``tp``
     (``models/tp.TensorParallel``) it runs on one model rank: ``x`` is the
     residual stream, (B, S/m, d) with ``seq``, ``w`` the rank's columns
-    of the column-parallel leaves and rows of the row-parallel ones; the
-    normed inputs enter the tier (``tp.enter``), the row-parallel partial
-    sums leave it (``tp.leave``) before the post-norms, and the attention
-    runs over the rank's heads."""
+    of the column-parallel leaves and rows of the row-parallel ones (a MoE
+    layer's experts, ``models/tp.moe_tp``); the normed inputs enter the
+    tier (``tp.enter``), the row-parallel partial sums leave it
+    (``tp.leave``) before the post-norms, and the attention runs over the
+    rank's heads."""
     enter = reduce = kv_weight = _same
     if tp is not None:
         enter = lambda h: tp.enter(h, seq)
@@ -870,17 +873,12 @@ def block_train(x, w, cos, sin, cfg: ModelConfig, spec, tp=None,
                        kv_weight=kv_weight)
     o = flash_attention_train(q, k, v, causal=True, window=_window(cfg, spec),
                               cap=cfg.attn_softcap)
+    if spec.mlp == "moe":
+        return out_moe(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
+                       dispatch=dispatch, reduce=reduce, tp=tp, seq=seq,
+                       shares=shares)
     return out_mlp(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
                    norm=rmsnorm_train, reduce=reduce, enter=enter)
-
-
-def moe_block_train(x, w, cos, sin, cfg: ModelConfig, spec, dispatch=None):
-    """A MoE layer's math with the differentiable kernels: (x, aux)."""
-    q, k, v = attn_qkv(x, w, cos, sin, cfg, norm=rmsnorm_train)
-    o = flash_attention_train(q, k, v, causal=True, window=_window(cfg, spec),
-                              cap=cfg.attn_softcap)
-    return out_moe(x, o, w, cfg, norm_residual=rmsnorm_residual_train,
-                   dispatch=dispatch)
 
 
 def mamba_block_train(x, w, cfg: ModelConfig):
@@ -894,7 +892,8 @@ def mamba_block_train(x, w, cfg: ModelConfig):
 
 def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   remat: bool = True, gather=None, prefetch=None, tp=None,
-                  moe_dispatch=None) -> tuple[torch.Tensor, torch.Tensor]:
+                  moe_dispatch=None, moe_shares=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX ``forward(mode="train")`` of the dense (and its variants),
     moe and ssm families: tokens (B, S) -> (logits (B, S, Vpad) in
     ``cfg.dtype``, softcapped where the config caps them, the MoE layers'
@@ -908,7 +907,9 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     sandwich norms and MLP activation; the embedding is scaled by
     :func:`layers.embed_scale` where ``cfg.scale_embed``.
     ``moe_dispatch`` (``moe.MoeDispatch``) runs the MoE layers expert-
-    parallel: their routed experts are this rank's E/p. ``gather(name,
+    parallel: their routed experts are this rank's E/p; ``moe_shares``
+    makes their aux losses terms of the global batch's
+    (``moe.moe_route``'s ``shares``). ``gather(name,
     leaf, layer)`` turns a leaf (``embed``, ``final_norm``, ``head`` with
     ``layer`` None, or layer ``layer``'s leaf of that name) into the full
     weight in ``cfg.dtype`` where it is used (default: the cast; FSDP: the
@@ -919,11 +920,12 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     order: layer i + depth's is started before layer i runs and finished
     outside the checkpoint, so it is not repeated.
 
-    ``tp`` (``models/tp.TensorParallel``) runs the dense decoder or the
-    Mamba2 stack on one rank of a model tier: the gathered weights are the
-    rank's part over "model" (its vocabulary rows of ``embed``, columns of
-    an untied ``head``; a Mamba2 layer's leaves of :func:`train_layout`'s
-    tree), the blocks are :func:`block_train` with ``tp`` or
+    ``tp`` (``models/tp.TensorParallel``) runs the dense decoder, the MoE
+    decoder or the Mamba2 stack on one rank of a model tier: the gathered
+    weights are the rank's part over "model" (its vocabulary rows of
+    ``embed``, columns of an untied ``head``; its routed experts; a Mamba2
+    layer's leaves of :func:`train_layout`'s tree), the blocks are
+    :func:`block_train` with ``tp`` or
     ``tp.mamba_train_tp``, the embedding is scaled after the tier's sum
     and the logits are the rank's (B, S, Vpad/m) columns, softcapped
     elementwise."""
@@ -947,9 +949,8 @@ def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         if spec.mixer == "mamba2":
             return (mamba_block_train(x, w, cfg) if tp is None
                     else mamba_train_tp(x, w, cfg, tp, seq))
-        if spec.mlp == "moe":
-            return moe_block_train(x, w, cos, sin, cfg, spec, moe_dispatch)
-        return block_train(x, w, cos, sin, cfg, spec, tp, seq)
+        return block_train(x, w, cos, sin, cfg, spec, tp, seq, moe_dispatch,
+                           moe_shares)
 
     def gathered(i, spec, names, x, *leaves):
         return block(spec, x, {n: gather(n, t, i)

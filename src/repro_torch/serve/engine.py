@@ -19,7 +19,8 @@ llama4-scout-17b-a16e serves so too: its chunked layers' rings hold
 min(cache_len, chunk) slots each and keep the current chunk's tokens, its
 NoPE layers the full-length cache. The MoE family (qwen2-moe-a2.7b,
 llama4) takes the (pod, data) layouts below with every expert on every
-rank; its decode on one rank is one CUDA graph a step.
+rank, and the model tier with E/m experts a rank; its decode on one rank
+is one CUDA graph a step.
 
 On a :class:`~repro_torch.core.topology.RankGrid` every rank builds the
 same engine and submits the same requests. A batch that divides over the
@@ -41,9 +42,11 @@ ranks' partial softmax stats over its span's grid in
 
 On a grid with a "model" tier (``RankGrid.build(q, pl, m)``) each rank
 holds its part of the model (``models/tp.TensorParallel``: its q heads and
-the KV heads they read, its MLP columns, or its SSD heads; its vocabulary
-rows; the row-parallel products, the embedding, the gated norm's
-statistic and the greedy token go over the tier), and each model lane of
+the KV heads they read, its MLP columns, its routed experts and
+shared-expert columns, or its SSD heads; its vocabulary rows; the
+row-parallel products, a MoE layer's one sum, the embedding, the gated
+norm's statistic and the greedy token go over the tier), and each model
+lane of
 q·pl ranks serves as a grid of its own in one of the layouts above: rows
 by lane rank, the combine and the migration over the lane, with the
 rank's KV heads or SSD heads.

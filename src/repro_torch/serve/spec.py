@@ -22,8 +22,8 @@ engine as it shapes the JAX one:
 * ``fused_stats`` takes only ``"auto"``: the decode-stats kernel for a
   cache on the card, its plain version for a cache on the CPU.
 
-On a grid with a "model" tier (``RankGrid.build(q, pl, m)``, the dense
-and ssm families; ``models/tp.check_tp`` is the one gate) each model lane
+On a grid with a "model" tier (``RankGrid.build(q, pl, m)``, every
+family; ``models/tp.check_tp`` is the one gate) each model lane
 of q·pl ranks takes the layout above, and the cache holds the rank's KV
 heads: KV / m of them where m divides KV (the JAX ``cache_shardings`` puts
 the heads on "model"), else the heads its q heads read, where the JAX
@@ -36,8 +36,9 @@ The MoE family (qwen2-moe-a2.7b, llama4-scout-17b-a16e) takes both
 (pod, data) layouts, every rank holding every expert, as the JAX engine
 holds them over its DP axes: its routing is per batch row, so a
 batch-sharded rank routes its rows as one rank would and a split-cache
-rank runs every expert on the one token; ``models/tp.check_tp`` refuses it
-on a model tier (ROADMAP.md Queue 1 item 14). The dense variants
+rank runs every expert on the one token. On a model tier each rank holds
+E/m routed experts and its shared-expert columns (``models/tp.moe_tp``),
+and each model lane takes either layout as above. The dense variants
 (``configs.variant_features``: window layers with their ring caches,
 softcaps, sandwich norms, ``scale_embed``, GeGLU; h2o-danube-3-4b and
 gemma2-9b) take every layout above, on a model tier too.

@@ -70,7 +70,11 @@ return leg's backward has summed every rank's cotangent at the owner
 already, so they are only scaled to the mean. Anything else resolves to
 "none" (source "n/a"): every rank holds every expert. The loss the
 backward takes adds the MoE layers' auxiliary loss; the metrics report the
-cross-entropy ("loss") and the auxiliary loss ("moe_aux") apart. The
+cross-entropy ("loss") and the auxiliary loss ("moe_aux") apart. Under
+"locality", "locality_rd" and "flat_psum" it is each DP rank's rows' (the
+JAX step's manual DP body); under "xla" it is the global batch's, as the
+JAX GSPMD step routes it (each rank's router takes the global
+first-choice shares, one allreduce of E values a MoE layer and forward). The
 meter counts the dispatch's all-to-alls (``a2a_*``, both legs, forward and
 backward) and the tokens transport's gathers (``moe_gather_*``).
 
@@ -81,9 +85,17 @@ slot's leaf in one layer's coordinates, a ``rest`` leaf as it is), the
 autograd view slices every slot's reps and takes each ``rest`` layer, and
 the gradients sync in the JAX flattening order.
 
+On a model tier the MoE family holds E/m routed experts a rank (over
+"model", then FSDP over the lane, by the JAX spec) and its shared-expert
+columns, the router whole (``models/tp.moe_tp``): the router's gradient
+is each rank's experts' share, summed over the tier. Expert parallelism
+runs over the rank's model lane (p its q·pl ranks), the routed experts
+whole on the tier; with ``seq_shard`` each rank keeps its positions of
+the routed output, so the router's and the experts' gradients take the
+tier's sum. The aux loss is counted once a tier in the metrics.
+
 Refused, each naming its ROADMAP.md Queue 1 item: ``grad_sync="auto"``,
-``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8) and
-the MoE family on a model tier (item 14).
+``prefetch_depth="auto"`` and ``moe_dispatch="auto"`` (tuning, item 8).
 """
 from __future__ import annotations
 
@@ -124,7 +136,7 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
                  tp: TensorParallel | None = None,
-                 moe_dispatch: MoeDispatch | None = None):
+                 moe_dispatch: MoeDispatch | None = None, moe_shares=None):
     """loss_fn(params, batch, gather=None, prefetch=None) -> (total,
     {"loss": cross-entropy, "moe_aux": the MoE auxiliary loss}), total the
     sum of the two; ``params`` is ``transformer.forward_train``'s view.
@@ -134,7 +146,8 @@ def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
         logits, aux = T.forward_train(params, cfg, batch["tokens"],
                                       remat=remat, gather=gather,
                                       prefetch=prefetch, tp=tp,
-                                      moe_dispatch=moe_dispatch)
+                                      moe_dispatch=moe_dispatch,
+                                      moe_shares=moe_shares)
         loss = (xent_loss(logits, batch["labels"]) if tp is None
                 else tp.xent_loss(logits, batch["labels"]))
         return loss + aux, {"loss": loss, "moe_aux": aux}
@@ -491,7 +504,6 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
           if dist_on and grid.m > 1 else None)
     hook_ep = MeteredDispatch(grid, moe_alg, moe_transport,
                               meter) if ep_on else None
-    loss_fn = make_loss_fn(cfg, remat=remat, tp=tp, moe_dispatch=hook_ep)
     # the routed experts under EP stay sharded through the forward: no
     # gather, and their gradients need no sync beyond the mean
     ep_tree = (moe_ep_mask(shapes) if ep_on else
@@ -560,6 +572,13 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
     idx_mamba = {i for i, path in enumerate(paths)
                  if "/mamba/" in path and not model_sharded[i]} \
         if m > 1 else set()
+    # a MoE layer's router on a model tier: each rank's gradient covers its
+    # experts' gates (without EP) or its positions (EP with seq_shard), as
+    # do the EP experts' with seq_shard (models/tp.moe_tp)
+    idx_router = {i for i, path in enumerate(paths)
+                  if path.endswith("/moe/router")} if m > 1 else set()
+    idx_ep = {i for i, e in enumerate(leaves(ep_tree)) if e} \
+        if m > 1 else set()
 
     def staged(fn, g: Any, t: torch.Tensor) -> torch.Tensor:
         """``fn`` on ``t`` moved to the grid's device and back."""
@@ -567,6 +586,18 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
             return fn(t)
         meter.staged_bytes += 2 * t.numel() * t.element_size()
         return fn(t.to(g.device)).to(t.device)
+
+    def batch_shares(me: torch.Tensor) -> torch.Tensor:
+        """The experts' first-choice shares over the global batch, from
+        this rank's: the JAX "xla" step routes the global batch as one
+        program, so its aux loss is the whole batch's (every rank holds
+        as many tokens)."""
+        return staged(lambda u: C.allreduce(u, grid, algorithm="xla"),
+                      grid, me) / p
+
+    loss_fn = make_loss_fn(cfg, remat=remat, tp=tp, moe_dispatch=hook_ep,
+                           moe_shares=batch_shares if xla and dist_on
+                           and moe else None)
 
     def sync_pod(t: torch.Tensor) -> torch.Tensor:
         if grid.q == 1:
@@ -633,11 +664,14 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
         loss_local = metrics_sum / grad_accum
         aux_local = aux_sum / grad_accum
 
-        # each model rank normed S/m rows (seq_shard), or ran its SSD
-        # heads' part of a Mamba2 layer: those gradients are the tier's sum
-        # (fp32 buckets)
-        idx_tier = sorted(idx_mamba | (idx_scale if tp is not None and
-                          tp.seq_split(batch["tokens"].shape[1]) else set()))
+        # each model rank normed S/m rows (seq_shard), ran its SSD heads'
+        # part of a Mamba2 layer or its share of a MoE layer's routing:
+        # those gradients are the tier's sum (fp32 buckets)
+        seq = tp is not None and tp.seq_split(batch["tokens"].shape[1])
+        idx_tier = idx_mamba | (idx_scale if seq else set())
+        if seq or not ep_on:        # EP alone keeps the routed path whole
+            idx_tier |= idx_router | idx_ep
+        idx_tier = sorted(idx_tier)
         if idx_tier:
             out = bucketed_sync([bufs[i] for i in idx_tier],
                                 tp.tier.all_reduce, bucket_mb=bucket_mb)
@@ -667,7 +701,7 @@ def make_train_step(cfg: ModelConfig, grid=None, *,
                         sq(idx_rs) if grid.R == 0 else zero,
                         sq(idx_full) if grid.rank == 0 else zero]
                 if moe:
-                    sums.append(aux_local)
+                    sums.append(aux_local if grid.t == 0 else zero)
                 vec = torch.stack(sums)
                 if tp is not None:
                     vec = tp.tier.all_reduce(vec)

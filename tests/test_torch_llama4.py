@@ -144,14 +144,17 @@ def test_training_and_a_model_tier_are_refused():
         configs.check_supported(cfg, "train")
     with pytest.raises(NotImplementedError, match="item 15"):
         T.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    for use in ("serve", "train"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            check_tp(cfg, 2, use)
+    # the model tier serves it (tests/test_torch_moe_tp.py); training on
+    # one stays item 15; experts that m does not divide are refused
+    check_tp(cfg, 2, "serve")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        check_tp(cfg, 2, "train")
+    with pytest.raises(NotImplementedError, match="n_experts 6"):
+        check_tp(dataclasses.replace(cfg, n_experts=6), 4, "serve")
 
     class Tier:
         q, pl, m = 1, 2, 2
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ServeSpec(batch=2, cache_len=128).resolve(cfg, Tier())
+    assert ServeSpec(batch=2, cache_len=128).resolve(cfg, Tier()).m == 2
 
 
 @pytest.mark.parametrize("S", [1, 80])

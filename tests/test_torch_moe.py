@@ -203,3 +203,32 @@ def test_param_count_and_shapes_match_jax():
         for k in ("gate", "up", "down"):
             assert got[k] == shapes[k].shape
             assert got[f"shared_{k}"] == shapes["shared"][k].shape
+
+
+@pytest.mark.parametrize("experts", [None, (2, 6)])
+def test_dispatch_backward_equals_the_gathers(experts):
+    """The dispatch's backward (``moe._Dispatch``: each token's slot
+    gradients summed by a gather in ascending slot order, the same sum on
+    every run where the card's scatter-add would use atomics) equals the
+    gather's own backward bitwise on the CPU, whose scatter-add adds in
+    the same order; with drops at capacity, and for one model rank's
+    share of the slots (experts [2, 6) of 8)."""
+    B, S, K, E, C, d = 2, 24, 3, 8, 5, 16
+    g = torch.Generator().manual_seed(4)
+    idx = torch.topk(torch.randn(B, S, E, generator=g), K, dim=-1)[1]
+    tok_idx, _, slot_of = moe.dispatch_tables(idx, torch.ones(B, S, K), E, C)
+    assert int((slot_of == E * C).sum()) > 0             # drops
+    if experts is not None:
+        lo, hi = experts
+        n = (hi - lo) * C
+        tok_idx = tok_idx[:, lo * C:hi * C]
+        slot_of = slot_of - lo * C
+        slot_of = torch.where((slot_of >= 0) & (slot_of < n), slot_of, n)
+    x = torch.randn(B, S, d, generator=g)
+    dy = torch.randn(B, tok_idx.shape[1], d, generator=g)
+    a = x.clone().requires_grad_(True)
+    moe._Dispatch.apply(a, tok_idx, slot_of).backward(dy)
+    b = x.clone().requires_grad_(True)
+    pad = torch.cat([b, b.new_zeros((B, 1, d))], 1)
+    pad.gather(1, tok_idx[..., None].expand(-1, -1, d)).backward(dy)
+    assert torch.equal(a.grad, b.grad)

@@ -9,8 +9,10 @@ with one shared expert), smoke configs in fp32 from the JAX
 128-slot cache: llama4's full-length stack (its NoPE layer) holds 128
 slots, its chunked rings 64. Every rank holds every expert, as the JAX
 engine holds them over its DP axes; routing is per batch row, so no
-collective is added. One JAX subprocess with 8 forced host devices runs
-the JAX engine on ``jax.make_mesh((2, 2, 1), ("pod", "data", "model"),
+collective is added. On a ("pod", "data", "model") grid, where each model
+rank holds E/m experts, the family is served in
+``tests/test_torch_moe_tp.py``. One JAX subprocess with 8 forced host
+devices runs the JAX engine on ``jax.make_mesh((2, 2, 1), ("pod", "data", "model"),
 axis_types=(AxisType.Auto,) * 3)``, no ``jax.set_mesh``, ``drain()``
 under ``with mesh:`` (the recipe of ``tests/test_torch_serve_batch.py``).
 Layouts:

@@ -24,7 +24,9 @@ step is the same function either way). Tolerances, those of
 give the same first loss bit for bit (the forward delivers the same slot
 values); the two slots transports are bitwise the same step. Each rank's
 all-to-all record equals the oracle ``schedules.locality_all_to_all``
-(``xla_all_to_all``) times its calls.
+(``xla_all_to_all``) times its calls. On a model tier (E/m experts a
+model rank, or expert parallelism over each model lane) the family trains
+in ``tests/test_torch_moe_tp.py``.
 """
 import json
 import os

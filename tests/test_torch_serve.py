@@ -174,8 +174,8 @@ def test_moe_engine_tokens_and_slots_match_jax():
     experts, an untied head, fp32): each prompt prefills at its own length,
     so its experts' capacity is the JAX engine's (S·K/E·1.25, at least K)
     and a decode step's is K; the tokens and rows equal the JAX engine's.
-    A (pod, data) grid resolves (tests/test_torch_moe_grid.py serves it);
-    a model tier is refused (ROADMAP.md Queue 1 item 14)."""
+    A (pod, data) grid resolves (tests/test_torch_moe_grid.py serves it),
+    and so does a model tier (tests/test_torch_moe_tp.py serves it)."""
     jcfg = dataclasses.replace(jconfigs.get_smoke("qwen2-moe-a2.7b"),
                                n_layers=2, dtype=jnp.float32)
     tcfg = dataclasses.replace(configs.get_smoke("qwen2-moe-a2.7b"),
@@ -203,5 +203,4 @@ def test_moe_engine_tokens_and_slots_match_jax():
     assert ServeSpec(batch=4, cache_len=64).resolve(tcfg, Grid()
                                                     ).batch_sharded
     Grid.m = 2
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ServeSpec(batch=4, cache_len=64).resolve(tcfg, Grid())
+    assert ServeSpec(batch=4, cache_len=64).resolve(tcfg, Grid()).m == 2

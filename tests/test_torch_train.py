@@ -22,6 +22,7 @@ of the sync at 1e-3; ``prefetch_depth=1`` is bitwise the eager step; a
 3 x 2 grid, where d_model 128 does not divide over 6 ranks and every leaf
 shards over "data" only (the pod allreduce), and one rank agree with it.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -253,8 +254,8 @@ def test_refusals_name_their_items():
                            device="cpu").step_fn is not None
     # the model tier (item 11's training half) is taken: seq_shard is a
     # no-op without one, the specs shard over "model"; so is the ssm
-    # family's (item 13), but for SSD heads that m does not divide; the MoE
-    # family's tier is item 14
+    # family's (item 13), but for SSD heads that m does not divide, and the
+    # MoE family's (item 14), but for experts that m does not divide
     assert make_train_step(cfg, None, device="cpu",
                            seq_shard=True).step_fn is not None
     assert param_specs({"embed": torch.empty(4, 4)},
@@ -263,8 +264,10 @@ def test_refusals_name_their_items():
     check_tp(H._small_cfg("mamba2-780m", 2), 2)
     with pytest.raises(NotImplementedError, match="SSD heads 16"):
         check_tp(H._small_cfg("mamba2-780m", 2), 3)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        check_tp(H._small_cfg("qwen2-moe-a2.7b", 2), 2)
+    check_tp(H._small_cfg("qwen2-moe-a2.7b", 2), 2)
+    with pytest.raises(NotImplementedError, match="n_experts 6"):
+        check_tp(dataclasses.replace(H._small_cfg("qwen2-moe-a2.7b", 2),
+                                     n_experts=6), 4)
     with pytest.raises(ValueError, match="prefetch_depth"):
         make_train_step(cfg, None, device="cpu", prefetch_depth=1)
 

@@ -268,8 +268,9 @@ def test_training_and_grids_refuse_the_variants(arch):
     grids and on a model tier (tests/test_torch_variants_grid.py), training
     on one rank, FSDP ranks and a model tier of 2 or 4, the untied head of
     yi-6b and h2o-danube by its vocabulary columns
-    (tests/test_torch_variants_tp.py); on a model tier only the MoE family
-    stays refused, naming ROADMAP.md Queue 1 item 14."""
+    (tests/test_torch_variants_tp.py); the MoE family takes a model tier
+    too (tests/test_torch_moe_tp.py), but for experts that m does not
+    divide."""
     from repro_torch.models.tp import check_tp
     cfg = configs.get_smoke(arch)
 
@@ -284,5 +285,7 @@ def test_training_and_grids_refuse_the_variants(arch):
     for m in (2, 4):
         check_tp(cfg, m, "train")
     assert bool(configs.variant_features(cfg)) == (arch != "yi-6b")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        check_tp(configs.get_smoke("qwen2-moe-a2.7b"), 2, "train")
+    moe = configs.get_smoke("qwen2-moe-a2.7b")
+    check_tp(moe, 2, "train")
+    with pytest.raises(NotImplementedError, match="n_experts 6"):
+        check_tp(dataclasses.replace(moe, n_experts=6), 4, "train")

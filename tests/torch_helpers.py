@@ -654,7 +654,9 @@ def task_serve_variant(ctx, q, pl, m, arch, params, n_layers, spec_kw,
         spans={"/".join(n): s for n, s in eng.resolved.spans.items()},
         shards={"/".join(n): (s.offset, s.length, s.total)
                 for n, s in eng.shards.items()},
-        one_combine=one, coords=(grid.rank, grid.t, grid.grid_rank))
+        one_combine=one, coords=(grid.rank, grid.t, grid.grid_rank),
+        layer0={n: tuple(t.shape)
+                for n, t in eng.model.layers[0].named_parameters()})
 
 
 def task_generate(ctx, q, pl, params, n_layers, batch, cache_len, prompts,
@@ -1108,9 +1110,8 @@ def odd_heads_mamba():
 
 def task_tp_refusals(ctx, q, pl, m):
     """On a q x pl x m grid: the mamba2 step and mamba2 serving refuse SSD
-    heads that m does not divide, the MoE step refuses the model tier,
-    dense serving resolves; returns the messages (None where nothing was
-    refused)."""
+    heads that m does not divide, the MoE step and dense serving resolve;
+    returns the messages (None where nothing was refused)."""
     from repro_torch.serve.spec import ServeSpec
     from repro_torch.train import make_train_step
     grid = ctx.grid(q, pl, m)
@@ -1149,6 +1150,13 @@ def task_launch_train(ctx, args):
     on this rank, with the launcher's parsed ``args``."""
     from repro_torch.launch import train as launch
     return launch._train_rank(ctx.rank, ctx.world, args)
+
+
+def task_launch_serve(ctx, args):
+    """The serving launcher's rank function (``launch.serve._serve_rank``)
+    on this rank, with the launcher's parsed ``args``."""
+    from repro_torch.launch import serve as launch
+    return launch._serve_rank(ctx.rank, ctx.world, args)
 
 
 def task_mesh(ctx, shape, axes):
